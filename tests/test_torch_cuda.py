@@ -1,0 +1,99 @@
+"""lbm_tpu_torch's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The file imports
+no JAX (the machine with the card has none), so on the card it runs alone:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances, max abs error: float64 1e-13 (a few ulp of O(1) values after
+the steps run; the kernel contracts multiply-adds into FMAs, the plain
+version does not); float32 2e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lbm_tpu_torch.kernels import bgk, channel, collide_stream
+from lbm_tpu_torch.ops import d2q9
+from lbm_tpu_torch.scenes import channel as scene
+
+OMEGA = 1.0 / 0.8
+TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
+SHAPES = [(torch.float64, (21, 21)), (torch.float64, (101, 101)),
+          (torch.float64, (64, 130)), (torch.float64, (4, 2)),
+          (torch.float32, (256, 384))]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _state(R, C, dtype, device, seed, incompressible=False):
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.uniform(-0.05, 0.05, (2, R, C)), dtype=dtype, device=device)
+    rho = torch.as_tensor(1.0 + rng.uniform(-0.01, 0.01, (R, C)), dtype=dtype,
+                          device=device)
+    eq = d2q9.incomp_equilibrium if incompressible else d2q9.equilibrium
+    return eq(u, rho).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("dtype,shape", SHAPES)
+def test_collide_stream_kernel_matches_plain(cuda, dtype, shape, substeps):
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=1)
+    plain = collide_stream.make_fused_step(R, C, bgk.bgk_collide_fn(OMEGA, dtype),
+                                           dtype, substeps)
+    before = collide_stream.COLLIDE_STREAM_BGK.launches
+    got = bgk.make_fused_step(R, C, OMEGA, dtype, substeps)(f)
+    torch.cuda.synchronize()
+    assert collide_stream.COLLIDE_STREAM_BGK.launches - before == substeps
+    assert got.is_cuda and got.dtype == dtype
+    assert (got - plain(f)).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", SHAPES)
+def test_channel_kernel_matches_plain(cuda, dtype, shape):
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=2, incompressible=True)
+    model = channel.channel_model(1.0 / 0.9, 1.02, 1.0)
+    step = channel.make_channel_fused_step(R, C, 1.0 / 0.9, 1.02, 1.0, dtype)
+    before = channel.CHANNEL_BGK.launches
+    got, want = f, f
+    for _ in range(10):
+        got = step(got)
+        want = model.step(want)
+    torch.cuda.synchronize()
+    assert channel.CHANNEL_BGK.launches - before == 10
+    assert (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_horizontal_poiseuille_gate_on_the_card(cuda):
+    """The reference's L2 <= 1e-11 gate in float64, every step through
+    kernel 2 (test/horizontal_poiseuille_test.cpp:175)."""
+    before = channel.CHANNEL_BGK.launches
+    res = scene.horizontal_poiseuille(device=cuda, dtype=torch.float64)
+    assert channel.CHANNEL_BGK.launches - before == res.steps
+    assert res.l2 <= 1e-11, res.l2
+    assert res.f.is_cuda
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(cuda):
+    f = torch.zeros((9, 8, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        collide_stream.collide_stream_bgk(f[:, :, ::2], OMEGA)
+    with pytest.raises(TypeError):
+        channel.channel_bgk(f.half(), 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match="R >= 4"):
+        channel.channel_bgk(f[:, :3].contiguous(), 1.0, 1.0, 1.0)
+    step = bgk.make_fused_step(8, 16, OMEGA, torch.float32)
+    with pytest.raises(ValueError, match="step built for"):
+        step(f)
