@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-``csrc/*.cu`` compile by hand, at first use, into one shared library with a
-plain C interface, for ``sm_90a`` (Hopper).  The library lands in
+``csrc/*.cu`` compile by hand, at first use, one nvcc per source in
+parallel, and link into one shared library with a plain C interface, for
+``sm_90a`` (Hopper).  The library lands in
 ``lbm_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 the flags, so an edited source rebuilds and an unchanged one loads in
 milliseconds.  There is no fallback: a missing nvcc, a failed build or a
@@ -24,7 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -53,23 +54,39 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless this exact build exists; return its path.
 
-    nvcc's output, with ptxas' register and spill report per kernel, is
-    kept beside the library as ``.log``."""
+    One nvcc per ``.cu`` file, all started together, then one link into
+    the shared library.  nvcc's output, with ptxas' register and spill
+    report per kernel, is kept beside the library as ``.log``."""
     lib = library_path()
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *units],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    units = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{u.stem}.o" for u in units]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(u)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for u, o in zip(units, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {u.name}\n{out}" for u, out in zip(units, outs))
+        failed = [u.name for u, p in zip(units, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc {link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib
 
 

@@ -25,9 +25,14 @@ from .utils.xmath import default_device
 
 
 def _scenes() -> dict:
-    from .scenes import channel
+    from .scenes import channel, ulbm
 
-    return {"horizontal_poiseuille": channel.horizontal_poiseuille}
+    return {
+        "horizontal_poiseuille": channel.horizontal_poiseuille,
+        "ulbm_poiseuille": ulbm.ulbm_poiseuille,
+        "ulbm_double_shear": ulbm.ulbm_double_shear,
+        "les_double_shear": ulbm.les_double_shear,
+    }
 
 
 def _save_result(out: str, result) -> None:

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.kernels import bgk, channel, collide_stream
+from lbm_tpu_torch.kernels import bgk, channel, collide_stream, les
 from lbm_tpu_torch.ops import d2q9
 from lbm_tpu_torch.scenes import channel as scene
 
@@ -32,13 +32,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _state(R, C, dtype, device, seed, incompressible=False):
+def _state(R, C, dtype, device, seed, incompressible=False, noisy=False):
+    """An equilibrium at a seeded random flow; ``noisy`` multiplies each
+    population by 1 + U(-0.03, 0.03), off equilibrium, where the KBC gamma
+    is well defined (at equilibrium it is 0/0, regularised)."""
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.uniform(-0.05, 0.05, (2, R, C)), dtype=dtype, device=device)
     rho = torch.as_tensor(1.0 + rng.uniform(-0.01, 0.01, (R, C)), dtype=dtype,
                           device=device)
     eq = d2q9.incomp_equilibrium if incompressible else d2q9.equilibrium
-    return eq(u, rho).contiguous()
+    f = eq(u, rho)
+    if noisy:
+        f = f * torch.as_tensor(1.0 + rng.uniform(-0.03, 0.03, (9, R, C)),
+                                dtype=dtype, device=device)
+    return f.contiguous()
 
 
 @pytest.mark.cuda
@@ -97,3 +104,102 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     step = bgk.make_fused_step(8, 16, OMEGA, torch.float32)
     with pytest.raises(ValueError, match="step built for"):
         step(f)
+
+
+KBC_S2 = 1.0 / 0.8  # bench.py's relaxation
+LES = dict(tau0=0.5 + 3e-4, cs_smag=0.17)  # bench.py's LES constants
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma_impl", ["factored", "direct"])
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("dtype,shape", SHAPES)
+def test_kbc_kernel_matches_plain(cuda, dtype, shape, substeps, gamma_impl):
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=3, noisy=True)
+    plain = collide_stream.make_fused_step(
+        R, C, collide_stream.kbc_collide_fn(KBC_S2, gamma_impl), dtype, substeps)
+    before = collide_stream.COLLIDE_STREAM_KBC.launches
+    got = collide_stream.make_kbc_fused_step(R, C, KBC_S2, dtype, substeps,
+                                             gamma_impl)(f)
+    torch.cuda.synchronize()
+    assert collide_stream.COLLIDE_STREAM_KBC.launches - before == substeps
+    assert got.is_cuda and got.dtype == dtype
+    assert (got - plain(f)).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", SHAPES)
+def test_channel_kbc_kernel_matches_plain(cuda, dtype, shape):
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=4, noisy=True)
+    args = (KBC_S2, 1.001, 1.0)
+    plain = channel.kbc_channel_step(*args)
+    step = channel.make_channel_fused_step(R, C, *args, dtype, family="kbc")
+    before = channel.CHANNEL_KBC.launches
+    got, want = f, f
+    for _ in range(10):
+        got = step(got)
+        want = plain(want)
+    torch.cuda.synchronize()
+    assert channel.CHANNEL_KBC.launches - before == 10
+    assert (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("dtype,shape", SHAPES)
+def test_les_kernel_matches_plain(cuda, dtype, shape, substeps):
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=5, noisy=True)
+    plain = collide_stream.make_fused_step(
+        R, C, les.les_collide_fn(dtype=dtype, **LES), dtype, substeps)
+    before = les.COLLIDE_STREAM_LES.launches
+    got = les.make_les_fused_step(R, C, dtype=dtype, substeps=substeps, **LES)(f)
+    torch.cuda.synchronize()
+    assert les.COLLIDE_STREAM_LES.launches - before == substeps
+    assert (got - plain(f)).abs().max().item() <= TOL[dtype]
+
+
+WRAPPERS = {
+    "collide_stream_kbc": lambda f: collide_stream.collide_stream_kbc(f, KBC_S2),
+    "channel_kbc": lambda f: channel.channel_kbc(f, KBC_S2, 1.001, 1.0),
+    "collide_stream_les": lambda f: les.collide_stream_les(f, **LES),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_new_kernels_reject_what_they_do_not_take(cuda, name):
+    launch = WRAPPERS[name]
+    f = torch.zeros((9, 8, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch(f.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(f[:, :, ::2])
+    with pytest.raises(TypeError):
+        launch(f.to(torch.int32))
+    with pytest.raises(ValueError, match=r"\(9, R, C\)"):
+        launch(f[:8].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,kwargs,kernel", [
+    ("ulbm_poiseuille", dict(H=24, W=24, T=400, nu=1e-2),
+     lambda: channel.CHANNEL_KBC),
+    ("ulbm_double_shear", dict(H=32, W=32, T=50),
+     lambda: collide_stream.COLLIDE_STREAM_KBC),
+    ("les_double_shear", dict(H=32, W=32, T=48, u_max=0.1, substeps=4),
+     lambda: les.COLLIDE_STREAM_LES),
+])
+def test_ulbm_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs, kernel):
+    """Each ULBM scene in float64, every step through its kernel, against the
+    same scene on the CPU (the plain versions): 1e-12 over the run."""
+    from lbm_tpu_torch.scenes import ulbm
+
+    before = kernel().launches
+    got = getattr(ulbm, scene)(device=cuda, dtype=torch.float64, **kwargs)
+    assert kernel().launches - before == kwargs["T"]  # one launch per step
+    want = getattr(ulbm, scene)(device="cpu", dtype=torch.float64, **kwargs)
+    assert got.steps == want.steps and got.f.is_cuda
+    assert (got.f.cpu() - want.f).abs().max().item() <= 1e-12

@@ -120,13 +120,51 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build()
 
 
+FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes the -o target, fails on a source named in $FAIL
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+for a in "$@"; do
+  case "$a" in *.cu) echo "ptxas info    : Used 1 registers ($a)";
+    [ -n "$FAIL" ] && case "$a" in *"$FAIL"*) echo "error in $a"; exit 1;; esac;;
+  esac
+done
+: > "$out"
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "channel_kbc"])
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, fail):
+    """One compile per .cu file, then a link; a failing compile names its
+    file, and no object file is left behind either way."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setenv("FAIL", fail)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc failed on channel_kbc.cu"):
+            _build.build()
+        assert not _build.library_path().exists()
+    else:
+        lib = _build.build()
+        assert lib == _build.library_path() and lib.exists()
+        log = lib.with_suffix(".log").read_text()
+        for src in _build.CSRC.glob("*.cu"):
+            assert f"== {src.name}" in log and f"({src})" in log
+    assert not list((tmp_path / "build").glob("*.o"))
+
+
 def test_library_path_is_keyed_by_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR
     assert p.name.startswith("liblbm_kernels-") and p.suffix == ".so"
     assert p == _build.library_path()
     assert {s.name for s in _build._sources()} >= {
-        "d2q9.cuh", "collide_stream_bgk.cu", "channel_bgk.cu"}
+        "d2q9.cuh", "kbc.cuh", "collide_stream_bgk.cu", "channel_bgk.cu",
+        "collide_stream_kbc.cu", "channel_kbc.cu", "collide_stream_les.cu"}
 
 
 def test_failed_launch_raises_and_is_not_counted():

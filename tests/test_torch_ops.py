@@ -192,6 +192,8 @@ def test_import_loads_no_jax():
     code = ("import sys\n"
             "import lbm_tpu_torch, lbm_tpu_torch.run, lbm_tpu_torch.io.convert\n"
             "import lbm_tpu_torch.scenes.channel, lbm_tpu_torch.kernels.bgk\n"
+            "import lbm_tpu_torch.scenes.ulbm, lbm_tpu_torch.kernels.les\n"
+            "import lbm_tpu_torch.models.kbc, lbm_tpu_torch.models.les\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
