@@ -22,7 +22,13 @@ with a nonzero exit code):
      steps), 1024x512 float64 and 128x128 float64 with both gamma
      implementations; kernel 5 (Smagorinsky LES) at 4096x2048 float32 (1
      and 8 steps) and 128x128 float64.  The KBC and LES states are off
-     equilibrium (seeded_state(noisy=True));
+     equilibrium (seeded_state(noisy=True)).  The MRT-CG kernels, both
+     surface-tension modes, from the scenes' initial states: kernel 6
+     (reduced) at 4096x2048 float32 (1 and 8 steps), 256x128 RT, 100x100
+     droplet and 21x13 in float64 (8 steps); kernel 7 (split) at 4096x2048
+     float32, 256x128 and 100x100 float64 (1 step); kernel 8 (full) at
+     4096x2048 float32 (1 step), 256x128 and 21x13 float64 (4 steps); and
+     reduced x7 + split == full x8 in float64 at 256x128 (<= 1e-12);
   4. the channel kernels against their plain versions, 10 steps: kernel 2
      (BGK) at 4096x2048 float32, 21x21 and 101x101 float64; kernel 4 (KBC)
      at 4096x2048 float32, 128x128 and 24x24 float64, at
@@ -37,10 +43,19 @@ with a nonzero exit code):
      ulbm_double_shear at the reference's defaults in float64 (10k steps,
      finite); the resolved KBC shear at 256x256 float32 and
      les_double_shear at 128x128 float32 with their gates; the
-     ulbm_double_shear CLI;
+     ulbm_double_shear CLI; the MRT-CG scenes through kernels 6 (T-1
+     launches) and 7 (one): the Laplace droplet at 128x128 for 40k steps
+     in float64 and float32, the reference's RT horizon (256x128, 100k
+     steps) in float32 and float64, RT growth and CSF growth in float32,
+     each with lbm_tpu's hardware gates (scripts/validate_tpu.py laplace,
+     laplace_df64's mass drift, rt_100k, rt_growth, csf_growth); the
+     mrtcg_static_droplet CLI;
   6. times at 4096x2048 float32 of every kernel and its plain version:
-     MLUPS, and effective bandwidth at 72 B/cell against a device-to-device
-     copy of the same bytes, taken in turns; the kernels in float64.
+     MLUPS, and effective bandwidth at the kernel's bytes per cell against
+     a device-to-device copy of the same bytes, taken in turns; the kernels
+     in float64; kernel 6 at 256x128; each kernel's bound (bytes over
+     HBM3's rate against operations, counted on its plain version, over
+     the fp32 peak).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -62,6 +77,14 @@ LES = {"tau0": 0.5 + 3e-4, "cs_smag": 0.17}  # bench.py's LES constants
 # ulbm_poiseuille's defaults (128x128, nu=1e-4, u_max=0.05): s2 and rho_inlet
 ULBM_S2 = 1.0 / (0.5 + 3.0 * 1e-4)
 ULBM_RHO_IN = 3.0 * 127 * (8.0 * 1e-4 * 0.05 / 128 ** 2) + 1.0
+# the MRT-CG scenes' constants: Rayleigh-Taylor (mrtcg_rayleigh_taylor's
+# defaults) and the Laplace droplet (mrtcg_static_droplet's)
+RT = {"sigma": 1e-4, "gravity": (6.25e-7, 0.0)}
+DROPLET = {"sigma": 0.1, "gravity": (0.0, -6.25e-6), "apply_gravity_source": False}
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s; fp32 and fp64 FLOP/s outside the
+# tensor cores (dense, at the 700 W limit)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def log(msg: str) -> None:
@@ -148,6 +171,120 @@ def run_cli(*args: str) -> None:
         raise AssertionError(f"CLI failed:\n{cli.stderr[-3000:]}")
 
 
+def mrtcg_state(R, C, dtype, device, csf=False, droplet=False):
+    """A scene's initial full MRT-CG state as flat planes (18, or 20 in CSF
+    mode): the RT layers of init_rho_cosine (sign -1, or +1 with the fst0
+    seed in CSF mode, as the scenes build them) or the Laplace droplet of
+    radius R/4 at u = 0.5 Fg/rho."""
+    import torch
+
+    from lbm_tpu_torch.models.mrt_cg import MRTCGModel
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    if droplet:
+        model = MRTCGModel(red=red, blue=blue, **DROPLET)
+        st = model.init_state(mp.init_rho_droplet(R, C, red.rho_0, True, R / 4),
+                              mp.init_rho_droplet(R, C, blue.rho_0, False, R / 4),
+                              dtype=dtype, u_init_gravity_shift=True, device=device)
+        return torch.cat([st.red.f, st.blue.f]).contiguous()
+    sign = 1.0 if csf else -1.0
+    model = MRTCGModel(red=red, blue=blue, **RT)
+    st = model.init_state(mp.init_rho_cosine(R, C, red.rho_0, True, sign),
+                          mp.init_rho_cosine(R, C, blue.rho_0, False, sign),
+                          dtype=dtype, device=device)
+    planes = [st.red.f, st.blue.f]
+    if csf:
+        fg = torch.as_tensor(RT["gravity"], dtype=dtype, device=device)[:, None, None]
+        planes.append(fg * ((st.red.rho + st.blue.rho)[None] / red.rho_0 - 1.0))
+    return torch.cat(planes).contiguous()
+
+
+def mrtcg_steps(layout, R, C, dtype, csf, droplet=False):
+    """(kernel step, plain step, input) of one MRT-CG kernel on flat planes:
+    layout "reduced" (kernel 6), "split" (kernel 7) or "full" (kernel 8)."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    mode = "csf" if csf else "perturbation"
+    kw = DROPLET if droplet else RT
+    plain = mrtcg.make_plain_step(red, blue, surface_tension=mode,
+                                  reduced_in=layout != "full",
+                                  reduced_out=layout == "reduced", **kw)
+    if layout == "full":
+        if csf:
+            kstep = mrtcg.make_csf_fused_step(R, C, red, blue, dtype=dtype, **kw)
+        else:
+            full = mrtcg.make_mrtcg_fused_step(R, C, red, blue, dtype=dtype, **kw)
+            kstep = lambda S: full(S.reshape(2, 9, R, C)).reshape(18, R, C)  # noqa: E731
+        return kstep, plain
+    factory = (mrtcg.make_mrtcg_reduced_step if layout == "reduced"
+               else mrtcg.make_mrtcg_split_step)
+    step = factory(R, C, red, blue, dtype=dtype, surface_tension=mode, **kw)
+    return (lambda G: step(G).reshape(-1, R, C)), plain
+
+
+def reduced_input(S, csf):
+    from lbm_tpu_torch.kernels import mrtcg
+
+    R, C = S.shape[1:]
+    return mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C),
+                                    "csf" if csf else "perturbation")
+
+
+def hold_mrtcg(name, layout, csf, cases, device):
+    """Each case (dtype, (R, C), steps, droplet): the kernel against its
+    plain version from one scene state.  Returns the max error per dtype."""
+    errs = {}
+    for dtype, (R, C), steps, droplet in cases:
+        S = mrtcg_state(R, C, dtype, device, csf, droplet)
+        x = S if layout == "full" else reduced_input(S, csf)
+        kstep, plain = mrtcg_steps(layout, R, C, dtype, csf, droplet)
+        got, want = x, x
+        for _ in range(steps):
+            got, want = kstep(got), plain(want)
+        what = "droplet" if droplet else "RT"
+        e = compare(f"{name} {'CSF' if csf else 'perturbation'} {what} {R}x{C} {dtype} "
+                    f"{steps} step(s)", got, want, dtype)
+        errs[dtype] = max(errs.get(dtype, 0.0), e)
+        del S, x, got, want
+    return errs
+
+
+def ops_per_cell(fn, x) -> float:
+    """Floating-point operations per cell of ``fn(x)``, a plain version on a
+    small CPU state: the elements every arithmetic aten op writes (a sum
+    over planes counts its adds), counted under a dispatch mode, over the
+    cells.  The kernels do the same arithmetic."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arith = {"add", "sub", "mul", "div", "neg", "sqrt", "reciprocal", "rsub", "pow"}
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in arith and hasattr(out, "numel"):
+                count[0] += out.numel()
+            elif name == "sum" and hasattr(out, "numel"):
+                count[0] += args[0].numel() - out.numel()
+            return out
+
+    with Count():
+        fn(x)
+    return count[0] / (x.shape[-2] * x.shape[-1])
+
+
+def bound(bytes_per_cell, ops, cells, dtype):
+    """(least ms, "bytes" or "operations") for ``cells`` cells: the larger of
+    the bytes over HBM3's rate and the operations over the peak rate."""
+    t_bytes = bytes_per_cell * cells / HBM_BYTES_S
+    t_ops = ops * cells / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def cuda_ms(fn, n: int) -> float:
     """Device milliseconds per call of ``fn`` over ``n`` calls (CUDA events)."""
     import torch
@@ -165,6 +302,7 @@ def cuda_ms(fn, n: int) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -178,8 +316,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from lbm_tpu_torch.kernels import _build, bgk, channel, collide_stream, les
+    from lbm_tpu_torch.kernels import _build, bgk, channel, collide_stream, les, mrtcg
     from lbm_tpu_torch.models import kbc
+    from lbm_tpu_torch.models.mrt_cg import phase_field
+    from lbm_tpu_torch.scenes import multiphase as mp
     from lbm_tpu_torch.ops import d2q9
     from lbm_tpu_torch.scenes import ulbm
     from lbm_tpu_torch.scenes.channel import TAU_DEFAULT, horizontal_poiseuille
@@ -187,8 +327,10 @@ def main() -> int:
     f32, f64 = torch.float32, torch.float64
     k1, k2 = collide_stream.COLLIDE_STREAM_BGK, channel.CHANNEL_BGK
     k3, k4, k5 = collide_stream.COLLIDE_STREAM_KBC, channel.CHANNEL_KBC, les.COLLIDE_STREAM_LES
+    k6, k7, k8 = mrtcg.MRTCG_REDUCED, mrtcg.MRTCG_SPLIT, mrtcg.MRTCG_FULL
     counted = {"collide_stream_bgk": k1, "channel_bgk": k2, "collide_stream_kbc": k3,
-               "channel_kbc": k4, "collide_stream_les": k5}
+               "channel_kbc": k4, "collide_stream_les": k5, "mrtcg_reduced": k6,
+               "mrtcg_split": k7, "mrtcg_full": k8}
     card = nvidia_smi("name,power.limit")
 
     # 1. toolchain
@@ -246,6 +388,59 @@ def main() -> int:
         lambda R, C, dt, n: collide_stream.make_fused_step(
             R, C, les.les_collide_fn(dtype=dt, **LES), dt, substeps=n),
         [(f32, BIG, 1), (f32, BIG, 8), (f64, (128, 128), 8)], dev, seed=2000)
+
+    # the MRT-CG kernels 6-8, both modes, from the scenes' initial states
+    mrt_cases = {
+        ("reduced", False): [(f32, BIG, 1, False), (f32, BIG, 8, False),
+                             (f64, (256, 128), 8, False), (f64, (100, 100), 8, True),
+                             (f64, (21, 13), 8, False)],
+        ("reduced", True): [(f32, BIG, 1, False), (f32, BIG, 8, False),
+                            (f64, (256, 128), 8, False), (f64, (21, 13), 8, False)],
+        ("split", False): [(f32, BIG, 1, False), (f64, (256, 128), 1, False),
+                           (f64, (100, 100), 1, True)],
+        ("split", True): [(f32, BIG, 1, False), (f64, (256, 128), 1, False),
+                          (f64, (100, 100), 1, False)],
+        ("full", False): [(f32, BIG, 1, False), (f64, (256, 128), 4, False),
+                          (f64, (21, 13), 4, False)],
+        ("full", True): [(f32, BIG, 1, False), (f64, (256, 128), 4, False),
+                         (f64, (21, 13), 4, False)],
+    }
+    err_mrt = {}
+    for (layout, csf), cases in mrt_cases.items():
+        kernel = {"reduced": 6, "split": 7, "full": 8}[layout]
+        e = hold_mrtcg(f"[3] kernel {kernel}", layout, csf, cases, dev)
+        for dt, v in e.items():
+            err_mrt.setdefault(layout, {})
+            err_mrt[layout][dt] = max(err_mrt[layout].get(dt, 0.0), v)
+        torch.cuda.empty_cache()
+
+    # reduced^(T-1) then the split step == the full step T times
+    # (lbm_tpu tests/test_mrtcg_pallas.py:137-206), f64 at 256x128, T = 8:
+    # 1e-12 in the perturbation mode; in CSF mode lbm_tpu's own 1e-6 (the
+    # two layouts round rho differently, and the normal turns that into a
+    # noise direction where grad(psi) vanishes) with each colour's mass at
+    # 1e-12 relative
+    for csf in (False, True):
+        S = mrtcg_state(256, 128, f64, dev, csf)
+        full, _ = mrtcg_steps("full", 256, 128, f64, csf)
+        red_step, _ = mrtcg_steps("reduced", 256, 128, f64, csf)
+        split, _ = mrtcg_steps("split", 256, 128, f64, csf)
+        G = reduced_input(S, csf)
+        for _ in range(7):
+            G = red_step(G)
+        for _ in range(8):
+            S = full(S)
+        out = split(G)
+        torch.cuda.synchronize()
+        err = (out - S).abs().max().item()
+        mass = max(abs(out[a:a + 9].sum().item() / S[a:a + 9].sum().item() - 1.0)
+                   for a in (0, 9))
+        limit = 1e-6 if csf else 1e-12
+        log(f"[3] reduced x7 + split == full x8, {'CSF' if csf else 'perturbation'} "
+            f"256x128 float64: max_abs_err={err!r} (limit {limit!r}), colour mass "
+            f"rel diff={mass!r} (limit 1e-12)")
+        if not (err <= limit and mass <= 1e-12):
+            raise AssertionError("the reduced and full MRT-CG kernels disagree")
 
     # 4. the channel kernels against their plain versions, 10 steps
     tau, rho_in = TAU_DEFAULT, 1.001  # the Poiseuille tau; a 0.1% pressure drop
@@ -380,6 +575,111 @@ def main() -> int:
 
     run_cli("ulbm_double_shear", "--x64", "--device", "cuda", "--set", "T=200")
 
+    # the MRT-CG scenes: kernel 6 for T-1 steps and kernel 7 once per run
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    mrt_wall = {}
+
+    def scene(label, fn, **kw):
+        b6, b7 = k6.launches, k7.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mrt_wall[label] = (wall, res.steps)
+        log(f"[5] {label}: kernel-6 launches={k6.launches - b6}, kernel-7 launches="
+            f"{k7.launches - b7}, host wall time {wall!r} s "
+            f"({wall / res.steps * 1e6!r} us/step)")
+        return res, {"kernel-6 launches - (T-1)": (k6.launches - b6 - res.steps + 1, 0, 0),
+                     "kernel-7 launches": (k7.launches - b7, 1, 1)}
+
+    # the Laplace law (validate_tpu.py laplace; in f64 also the red mass
+    # drift of its df64 gate, :380-382)
+    r0_mass = mp.init_rho_droplet(128, 128, red.rho_0, True, 25.0).sum()
+    for dtype in (f64, f32):
+        res, gates = scene(f"mrtcg_static_droplet 128x128 {dtype} 40000 steps",
+                           mp.mrtcg_static_droplet, R=128, C=128, T=40000, radius=25.0,
+                           sigma=0.1, dtype=dtype)
+        st = res.state
+        p = (st.red.rho.double() * red.cs2 + st.blue.rho.double() * blue.cs2).cpu().numpy()
+        dp = p[61:67, 61:67].mean() - np.concatenate([p[:4].ravel(), p[-4:].ravel()]).mean()
+        gates["dp / (2 sigma / R)"] = (dp / (2 * 0.1 / 25.0), 0.95, 1.1)
+        gates["|u|max"] = (st.u.abs().max().item(), 0.0, 5e-3)
+        drift = abs(st.red.rho.double().sum().item() / r0_mass - 1.0)
+        if dtype == f64:
+            gates["red mass drift"] = (drift, 0.0, 1e-9)
+        else:
+            log(f"[5] Laplace float32: red mass drift {drift!r} (not gated)")
+        check_gates(f"[5] Laplace {dtype}", gates)
+        del res, st
+
+    # the reference's RT horizon, 256x128 for 100k steps (validate_tpu.py rt_100k)
+    mass0 = (mp.init_rho_cosine(256, 128, red.rho_0, True, -1.0)
+             + mp.init_rho_cosine(256, 128, blue.rho_0, False, -1.0)).sum()
+    for dtype in (f32, f64):
+        res, gates = scene(f"mrtcg_rayleigh_taylor 256x128 {dtype} 100000 steps",
+                           mp.mrtcg_rayleigh_taylor, dtype=dtype)
+        st = res.state
+        psi = phase_field(st.red.rho.double(), red.rho_0, st.blue.rho.double(),
+                          blue.rho_0).cpu().numpy()
+        rho = (st.red.rho.double() + st.blue.rho.double()).cpu().numpy()
+        gates.update({
+            "finite": (float(torch.isfinite(st.red.f).all() and torch.isfinite(st.blue.f).all()),
+                       1.0, 1.0),
+            "mass rel drift": (abs(rho.sum() / mass0 - 1.0), 0.0, 1e-3),
+            "interface std": (float((psi > 0).sum(axis=0).astype(float).std()), 1.5, 2.1),
+            "|psi|max": (float(np.abs(psi).max()), 0.9, 1.001),
+        })
+        check_gates(f"[5] RT 100k {dtype}", gates)
+        del res, st
+
+    # RT growth in the unstable regime (validate_tpu.py rt_growth)
+    res, gates = scene("mrtcg_rayleigh_taylor growth 256x128 float32 20000 steps",
+                       mp.mrtcg_rayleigh_taylor, T=20000, sigma=1e-5,
+                       gravity_magnitude=5e-6, dtype=f32)
+    psi = phase_field(res.state.red.rho.double(), red.rho_0, res.state.blue.rho.double(),
+                      blue.rho_0).cpu().numpy()
+    gates["interface std"] = (float((psi > 0).sum(axis=0).astype(float).std()), 18.0, 40.0)
+    check_gates("[5] RT growth float32", gates)
+
+    # CSF growth (validate_tpu.py csf_growth)
+    res, gates = scene("mrt_csf_rayleigh_taylor 256x128 float32 6000 steps",
+                       mp.mrt_csf_rayleigh_taylor, T=6000, dtype=f32)
+    rho = res.state.red.rho.double().cpu().numpy()
+    gates.update({
+        "finite": (float(np.isfinite(rho).all()), 1.0, 1.0),
+        "interface std": (float((rho > 1.5).sum(axis=0).astype(float).std()), 2.0, 60.0),
+        "mass rel drift": (abs(rho.sum() / (128 * 128 * 3.0) - 1.0), 0.0, 0.05),
+    })
+    check_gates("[5] CSF growth float32", gates)
+    del res
+
+    run_cli("mrtcg_static_droplet", "--x64", "--device", "cuda", "--set", "T=200")
+
+    # the full per-colour layout (kernel 8, lbm_tpu's make_mrtcg_fused_step /
+    # make_csf_fused_step) from the scenes' initial states gives the scenes'
+    # results over 20 steps: 1e-12 in the perturbation mode, lbm_tpu's 1e-6
+    # in CSF mode, the colour masses at 1e-12 relative.  (The two layouts
+    # round rho differently and RT amplifies that: 2.8e-6 apart after 2000
+    # float64 steps in the perturbation mode, on the H100.)
+    for csf, fn in ((False, mp.mrtcg_rayleigh_taylor), (True, mp.mrt_csf_rayleigh_taylor)):
+        T = 20
+        res = fn(T=T, device=dev, dtype=f64)
+        S = mrtcg_state(256, 128, f64, dev, csf)
+        full, _ = mrtcg_steps("full", 256, 128, f64, csf)
+        before = k8.launches
+        for _ in range(T):
+            S = full(S)
+        want = torch.cat([res.state.red.f, res.state.blue.f])
+        err = (S[:18] - want).abs().max().item()
+        mass = max(abs(S[a:a + 9].sum().item() / want[a:a + 9].sum().item() - 1.0)
+                   for a in (0, 9))
+        check_gates(f"[5] full layout (kernel 8) vs {fn.__name__} 256x128 float64 {T} steps", {
+            "max_abs_err": (err, 0.0, 1e-6 if csf else 1e-12),
+            "colour mass rel diff": (mass, 0.0, 1e-12),
+            "kernel-8 launches": (k8.launches - before, T, T),
+        })
+        del res, S, want
+
     launches = {name: k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
@@ -402,6 +702,12 @@ def main() -> int:
     plain4 = channel.kbc_channel_step(ULBM_S2, ULBM_RHO_IN, 1.0)
     plain5 = collide_stream.make_fused_step(R, C, les.les_collide_fn(dtype=f32, **LES), f32)
     dst = torch.empty_like(f)
+    S8 = mrtcg_state(R, C, f32, dev)
+    G6 = reduced_input(S8, False)
+    G6c = reduced_input(mrtcg_state(R, C, f32, dev, csf=True), True)
+    mrt = {layout_csf: mrtcg_steps(layout_csf[0], R, C, f32, layout_csf[1])
+           for layout_csf in (("reduced", False), ("reduced", True), ("split", False),
+                              ("full", False))}
     fns = {
         "collide_stream_bgk": (lambda: collide_stream.collide_stream_bgk(f, OMEGA), 50),
         "collide_stream_bgk_plain": (lambda: plain1(f), 10),
@@ -415,6 +721,14 @@ def main() -> int:
         "channel_kbc_plain": (lambda: plain4(fc), 5),
         "collide_stream_les": (lambda: les.collide_stream_les(fl, **LES), 50),
         "collide_stream_les_plain": (lambda: plain5(fl), 10),
+        "mrtcg_reduced": (lambda: mrt["reduced", False][0](G6), 30),
+        "mrtcg_reduced_plain": (lambda: mrt["reduced", False][1](G6), 3),
+        "mrtcg_reduced_csf": (lambda: mrt["reduced", True][0](G6c), 30),
+        "mrtcg_reduced_csf_plain": (lambda: mrt["reduced", True][1](G6c), 3),
+        "mrtcg_split": (lambda: mrt["split", False][0](G6), 30),
+        "mrtcg_split_plain": (lambda: mrt["split", False][1](G6), 3),
+        "mrtcg_full": (lambda: mrt["full", False][0](S8), 30),
+        "mrtcg_full_plain": (lambda: mrt["full", False][1](S8), 3),
         "copy": (lambda: dst.copy_(f), 50),
     }
     runs = {k: [] for k in fns}
@@ -426,17 +740,29 @@ def main() -> int:
     copy_gbs = 2 * f.numel() * 4 / (ms["copy"] * 1e-3) / 1e9
     log(f"[6] {card}; copy of {f.numel() * 4 / 1e6:.1f} MB: {ms['copy']!r} ms "
         f"= {copy_gbs!r} GB/s (read + write)")
+    # bytes per cell in float32: each input plane read once, each output
+    # plane written once
+    bytes32 = {"mrtcg_reduced": 80, "mrtcg_reduced_csf": 96, "mrtcg_split": 112,
+               "mrtcg_full": 144}
     for k in fns:
         if k == "copy":
             continue
+        b = bytes32.get(k.removesuffix("_plain"), 72)
         mlups = cells / (ms[k] * 1e-3) / 1e6
-        gbs = 72 * cells / (ms[k] * 1e-3) / 1e9
+        gbs = b * cells / (ms[k] * 1e-3) / 1e9
         log(f"[6] {k}: {ms[k]!r} ms/step (runs {runs[k]}) = {mlups!r} MLUPS, "
-            f"{gbs!r} GB/s at 72 B/cell = {gbs / copy_gbs!r} of copy")
-    del f, fi, fk, fc, fl, dst
+            f"{gbs!r} GB/s at {b} B/cell = {gbs / copy_gbs!r} of copy")
+    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt
+    torch.cuda.empty_cache()
     f = seeded_state(R, C, f64, dev, seed=8)
     fi = seeded_state(R, C, f64, dev, seed=9, incompressible=True)
     fc = seeded_state(R, C, f64, dev, seed=11, noisy=True)
+    S8 = mrtcg_state(R, C, f64, dev)
+    G6 = reduced_input(S8, False)
+    G6c = reduced_input(mrtcg_state(R, C, f64, dev, csf=True), True)
+    mrt = {layout_csf: mrtcg_steps(layout_csf[0], R, C, f64, layout_csf[1])[0]
+           for layout_csf in (("reduced", False), ("reduced", True), ("split", False),
+                              ("full", False))}
     ms64 = {}
     for k, fn in (
             ("collide_stream_bgk", lambda: collide_stream.collide_stream_bgk(f, OMEGA)),
@@ -445,12 +771,83 @@ def main() -> int:
             ("collide_stream_kbc_direct", lambda: collide_stream.collide_stream_kbc(
                 f, OMEGA, gamma_impl="direct")),
             ("channel_kbc", lambda: channel.channel_kbc(fc, ULBM_S2, ULBM_RHO_IN, 1.0)),
-            ("collide_stream_les", lambda: les.collide_stream_les(f, **LES))):
-        t = ms64[k] = cuda_ms(fn, 50)
+            ("collide_stream_les", lambda: les.collide_stream_les(f, **LES)),
+            ("mrtcg_reduced", lambda: mrt["reduced", False](G6)),
+            ("mrtcg_reduced_csf", lambda: mrt["reduced", True](G6c)),
+            ("mrtcg_split", lambda: mrt["split", False](G6)),
+            ("mrtcg_full", lambda: mrt["full", False](S8))):
+        t = ms64[k] = cuda_ms(fn, 20 if k.startswith("mrtcg") else 50)
+        b = 2 * bytes32.get(k, 72)
+        gbs = b * cells / (t * 1e-3) / 1e9
         log(f"[6] {k} float64: {t!r} ms/step = {cells / (t * 1e-3) / 1e6!r} MLUPS, "
-            f"{144 * cells / (t * 1e-3) / 1e9!r} GB/s at 144 B/cell")
+            f"{gbs!r} GB/s at {b} B/cell = {gbs / copy_gbs!r} of copy")
+    del f, fi, fc, S8, G6, G6c, mrt
+    torch.cuda.empty_cache()
+
+    # kernel 6 at the reference's RT grid, 256x128: the device time per
+    # step from a CUDA graph of 100 steps (one step issues in ~30 us on the
+    # host, longer than the kernel runs, so events around eager launches
+    # time the host), and the host time per step of the 100k-step runs
+    for dtype in (f32, f64):
+        G = reduced_input(mrtcg_state(256, 128, dtype, dev), False)
+        step, _ = mrtcg_steps("reduced", 256, 128, dtype, False)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(G)  # warm up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = G
+            for _ in range(100):
+                y = step(y)
+        t_graph = cuda_ms(graph.replay, 10) / 100
+        t_eager = cuda_ms(lambda: step(G), 500)
+        wall, steps = mrt_wall[f"mrtcg_rayleigh_taylor 256x128 {dtype} 100000 steps"]
+        log(f"[6] mrtcg_reduced 256x128 {dtype}: {t_graph!r} device ms/step (CUDA graph "
+            f"of 100 steps), {t_eager!r} ms/step issued eagerly, "
+            f"{wall / steps * 1e6!r} host us/step over the 100k-step run")
+        del graph, y
+
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+
+    # the bound of each kernel at 4096x2048 float32: its bytes over HBM3's
+    # rate against its operations (counted on its plain version at 64x64 on
+    # the CPU) over the fp32 peak
+    small = 64
+    cpu = torch.device("cpu")
+    S_small = mrtcg_state(small, small, f32, cpu)
+    plains = {
+        "collide_stream_bgk": (collide_stream.make_fused_step(
+            small, small, bgk.bgk_collide_fn(OMEGA, f32), f32),
+            seeded_state(small, small, f32, cpu, seed=1)),
+        "channel_bgk": (channel.channel_model(1 / tau, rho_in, 1.0).step,
+                        seeded_state(small, small, f32, cpu, seed=2, incompressible=True)),
+        "collide_stream_kbc": (collide_stream.make_fused_step(
+            small, small, collide_stream.kbc_collide_fn(OMEGA), f32),
+            seeded_state(small, small, f32, cpu, seed=3, noisy=True)),
+        "channel_kbc": (channel.kbc_channel_step(ULBM_S2, ULBM_RHO_IN, 1.0),
+                        seeded_state(small, small, f32, cpu, seed=4, noisy=True)),
+        "collide_stream_les": (collide_stream.make_fused_step(
+            small, small, les.les_collide_fn(dtype=f32, **LES), f32),
+            seeded_state(small, small, f32, cpu, seed=5)),
+        "mrtcg_reduced": (mrtcg_steps("reduced", small, small, f32, False)[1],
+                          reduced_input(S_small, False)),
+        "mrtcg_reduced_csf": (mrtcg_steps("reduced", small, small, f32, True)[1],
+                              reduced_input(mrtcg_state(small, small, f32, cpu, True), True)),
+        "mrtcg_split": (mrtcg_steps("split", small, small, f32, False)[1],
+                        reduced_input(S_small, False)),
+        "mrtcg_full": (mrtcg_steps("full", small, small, f32, False)[1], S_small),
+    }
+    bounds = {}
+    for name, (fn, x) in plains.items():
+        ops = ops_per_cell(fn, x)
+        b = bytes32.get(name, 72)
+        bounds[name] = bound(b, ops, cells, "float32")
+        b64 = bound(2 * b, ops, cells, "float64")
+        log(f"[6] bound {name} at {R}x{C}: {b} B/cell, {ops!r} flops/cell -> float32 "
+            f"{bounds[name][0]!r} ms ({bounds[name][1]}), float64 {b64[0]!r} ms ({b64[1]})")
 
     rows = [
         ("collide_stream_bgk", "lbm_tpu/kernels/bgk_pallas.py:74", err1),
@@ -458,13 +855,22 @@ def main() -> int:
         ("collide_stream_kbc", "lbm_tpu/kernels/collide_stream.py:154", err3),
         ("channel_kbc", "lbm_tpu/kernels/channel_pallas.py:128", err4),
         ("collide_stream_les", "lbm_tpu/kernels/les_pallas.py:78", err5),
+        ("mrtcg_reduced", "lbm_tpu/kernels/mrtcg_pallas.py:1004", err_mrt["reduced"]),
+        ("mrtcg_split", "lbm_tpu/kernels/mrtcg_pallas.py:1129", err_mrt["split"]),
+        ("mrtcg_full", "lbm_tpu/kernels/mrtcg_pallas.py:876", err_mrt["full"]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{name}.cu",
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": errs[f32], "max_abs_err_f64": errs[f64],
-         "ms": ms[name], "plain_ms": ms[f"{name}_plain"], "ms_f64": ms64[name]}
+         "ms": ms[name], "plain_ms": ms[f"{name}_plain"],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+         "ms_f64": ms64[name]}
         for name, replaces, errs in rows]
+    kernels[5].update(ms_csf=ms["mrtcg_reduced_csf"],
+                      plain_ms_csf=ms["mrtcg_reduced_csf_plain"],
+                      ms_csf_f64=ms64["mrtcg_reduced_csf"],
+                      bound_ms_csf=bounds["mrtcg_reduced_csf"][0])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

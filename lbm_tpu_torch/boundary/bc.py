@@ -8,7 +8,9 @@ The reference's ordering contract holds:
 Sides name the wall line of the grid: 'row0' (r=0), 'rowN' (r=-1),
 'col0' (c=0), 'colN' (c=-1).  ``lane`` restricts the along-wall extent.
 Each public function returns a new tensor and leaves its inputs alone.
-Only ``bounce_back`` and ``pressure_periodic`` are ported so far (ROADMAP).
+Ported so far: ``bounce_back``, ``periodic_edge`` and ``pressure_periodic``;
+the specular, anti-bounce-back, ADE-Dirichlet, zero-gradient and obstacle
+rules are still to port (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -54,6 +56,27 @@ def bounce_back(f_adve: torch.Tensor, f_coll: torch.Tensor, side: str,
     out = f_adve.clone()
     for k in SIDE_OUT[side]:
         _set_line(out, lat.OPPQ[k], side, lane, _line(f_coll[k], side, lane))
+    return out
+
+
+def periodic_edge(f_adve: torch.Tensor, f_coll: torch.Tensor, side: str,
+                  lane: slice = slice(None),
+                  diagonal_shift: bool = True) -> torch.Tensor:
+    """Repair the wall line of a periodic edge from the opposite wall's
+    post-collision populations.  With ``diagonal_shift`` the diagonals are
+    offset by one cell along the wall (true periodic streaming, cites
+    reference test/ulbm_double_shear_flow.cpp:122-138); without it they are
+    copied straight across, the multiphase drivers' variant (cites
+    reference test/mrtcg_rayleigh_taylor.cpp:517-523)."""
+    src_index = 0 if _SIDE_INDEX[side] == -1 else -1
+    axis = _SIDE_AXIS[side]
+    opposite = {"row0": "rowN", "rowN": "row0", "col0": "colN", "colN": "col0"}[side]
+    out = f_adve.clone()
+    for k in SIDE_OUT[opposite]:
+        # along-wall displacement of direction k
+        shift = (lat.CY if axis == 0 else lat.CX)[k] if diagonal_shift else 0
+        src = f_coll[k, src_index, lane] if axis == 0 else f_coll[k, lane, src_index]
+        _set_line(out, k, side, lane, torch.roll(src, shift) if shift else src)
     return out
 
 

@@ -1,42 +1,88 @@
-"""D2Q9 lattice constants, single-sourced from ``lbm_tpu/core/lattice.py``.
+"""D2Q9 lattice constants of the port (the numbers of lbm_tpu/core/lattice.py).
 
-That file is numpy-only.  It is executed here by path, under a module name
-of this package, so that the port registers no module of the JAX package
-(the machine with the card has no JAX) while the numbers keep one source.
-``csrc/d2q9.cuh`` writes the same constants in C++; the card tests hold
-the kernels to the plain functions built on these.
+The port keeps its own copy: it reads no file of the JAX package.  The
+CPU tests hold every constant here to lbm_tpu's with ``np.array_equal``,
+and ``csrc/d2q9.cuh`` / ``csrc/mrtcg.cuh`` write the same numbers in C++.
+
+Conventions (identical to the reference):
+  * axis 0 of the grid is "x"/rows, axis 1 is "y"/cols;
+  * velocity set, column k of C:
+      c = [(0,0),(1,0),(0,1),(-1,0),(0,-1),(1,1),(-1,1),(-1,-1),(1,-1)]
+  * opposite pairs (1,3), (2,4), (5,7), (6,8); W = [4/9, 1/9 x4, 1/36 x4].
 """
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
-
 import numpy as np
 import torch
 
-_SOURCE = Path(__file__).resolve().parents[2] / "lbm_tpu" / "core" / "lattice.py"
+Q = 9
 
+# Velocity set: row 0 = x (grid rows), row 1 = y (grid cols).
+# cites reference src/solver.cpp:18-21
+C = np.array(
+    [
+        [0, 1, 0, -1, 0, 1, -1, -1, 1],
+        [0, 0, 1, 0, -1, 1, 1, -1, -1],
+    ],
+    dtype=np.int64,
+)
 
-def _load_source():
-    spec = importlib.util.spec_from_file_location(
-        "lbm_tpu_torch.core._lattice_source", _SOURCE)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+# Quadrature weights.  cites reference src/solver.cpp:12-16
+W = np.array([4.0 / 9.0] + [1.0 / 9.0] * 4 + [1.0 / 36.0] * 4, dtype=np.float64)
 
+# OPP[k] is the direction with -c_k.
+OPP = np.array([0, 3, 4, 1, 2, 7, 8, 5, 6], dtype=np.int64)
 
-_src = _load_source()
+# Specular permutations: SPEC_Y mirrors the cols component, SPEC_X the rows
+# component (reference test/specular_boundary_test.cpp:122-128,
+# test/rectangle_sedimentation_test.cpp:175-177).
+SPEC_Y = np.array([0, 1, 4, 3, 2, 8, 7, 6, 5], dtype=np.int64)
+SPEC_X = np.array([0, 3, 2, 1, 4, 6, 5, 8, 7], dtype=np.int64)
 
-Q = _src.Q
-C = _src.C
-W = _src.W
-OPP = _src.OPP
-SPEC_X = _src.SPEC_X
-SPEC_Y = _src.SPEC_Y
-CS2 = _src.CS2
-ICS2 = _src.ICS2
-ICS4 = _src.ICS4
+CS2 = 1.0 / 3.0
+ICS2 = 3.0
+ICS4 = 9.0
+
+# MRT moment matrix (Gram-Schmidt D2Q9) and its exact inverse.
+# cites reference test/mrtcg_static_droplet.cpp:130-156
+M_MRT = np.array(
+    [
+        [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+        [-4.0, -1.0, -1.0, -1.0, -1.0, 2.0, 2.0, 2.0, 2.0],
+        [4.0, -2.0, -2.0, -2.0, -2.0, 1.0, 1.0, 1.0, 1.0],
+        [0.0, 1.0, 0.0, -1.0, 0.0, 1.0, -1.0, -1.0, 1.0],
+        [0.0, -2.0, 0.0, 2.0, 0.0, 1.0, -1.0, -1.0, 1.0],
+        [0.0, 0.0, 1.0, 0.0, -1.0, 1.0, 1.0, -1.0, -1.0],
+        [0.0, 0.0, -2.0, 0.0, 2.0, 1.0, 1.0, -1.0, -1.0],
+        [0.0, 1.0, -1.0, 1.0, -1.0, 0.0, 0.0, 0.0, 0.0],
+        [0.0, 0.0, 0.0, 0.0, 0.0, 1.0, -1.0, 1.0, -1.0],
+    ],
+    dtype=np.float64,
+)
+
+MI_MRT = (1.0 / 36.0) * np.array(
+    [
+        [4.0, -4.0, 4.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        [4.0, -1.0, -2.0, 6.0, -6.0, 0.0, 0.0, 9.0, 0.0],
+        [4.0, -1.0, -2.0, 0.0, 0.0, 6.0, -6.0, -9.0, 0.0],
+        [4.0, -1.0, -2.0, -6.0, 6.0, 0.0, 0.0, 9.0, 0.0],
+        [4.0, -1.0, -2.0, 0.0, 0.0, -6.0, 6.0, -9.0, 0.0],
+        [4.0, 2.0, 1.0, 6.0, 3.0, 6.0, 3.0, 0.0, 9.0],
+        [4.0, 2.0, 1.0, -6.0, -3.0, 6.0, 3.0, 0.0, -9.0],
+        [4.0, 2.0, 1.0, -6.0, -3.0, -6.0, -3.0, 0.0, 9.0],
+        [4.0, 2.0, 1.0, 6.0, 3.0, -6.0, -3.0, 0.0, -9.0],
+    ],
+    dtype=np.float64,
+)
+
+# Colour-gradient perturbation constants B.
+# cites reference test/mrtcg_static_droplet.cpp:158-163
+B_CG = np.array([-4.0 / 27.0] + [2.0 / 27.0] * 4 + [5.0 / 108.0] * 4, dtype=np.float64)
+
+# Unit velocity set (diagonals scaled by 1/sqrt(2)).
+# cites reference test/mrtcg_static_droplet.cpp:176-178
+UNIT_C = C / np.array([1.0, 1.0, 1.0, 1.0, 1.0] + [np.sqrt(2.0)] * 4)
 
 # Python-scalar views for explicit per-direction arithmetic (scalar
 # constants broadcast against tensors of any dtype and device).

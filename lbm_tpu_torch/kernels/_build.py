@@ -26,6 +26,11 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of single sources, by file stem.  The MRT-CG kernels contract no
+# multiply-add, so that they reproduce their plain PyTorch versions, whose
+# elementwise ops each round once (csrc/mrtcg.cuh).
+UNIT_FLAGS = {stem: ("-fmad=false",) for stem in ("mrtcg_reduced", "mrtcg_split",
+                                                   "mrtcg_full")}
 
 
 def find_nvcc() -> str:
@@ -45,6 +50,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library built from the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(UNIT_FLAGS.items())).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -67,7 +73,8 @@ def build() -> Path:
     units = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / f"{tag}.{u.stem}.o" for u in units]
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(u)],
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *UNIT_FLAGS.get(u.stem, ()),
+                                   "-c", "-o", str(o), str(u)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
                  for u, o in zip(units, objs)]
@@ -120,15 +127,15 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_state(f: torch.Tensor) -> tuple[int, int]:
-    """What the kernels take: a contiguous (9, R, C) float32 or float64 CUDA
-    tensor.  Returns (R, C); raises on anything else."""
+def check_state(f: torch.Tensor, planes: int = 9) -> tuple[int, int]:
+    """What the kernels take: a contiguous (planes, R, C) float32 or float64
+    CUDA tensor.  Returns (R, C); raises on anything else."""
     if f.device.type != "cuda":
         raise ValueError(f"kernel state must be a CUDA tensor, got {f.device}")
     if f.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel state must be float32 or float64, got {f.dtype}")
-    if f.ndim != 3 or f.shape[0] != 9:
-        raise ValueError(f"kernel state must be (9, R, C), got {tuple(f.shape)}")
+    if f.ndim != 3 or f.shape[0] != planes:
+        raise ValueError(f"kernel state must be ({planes}, R, C), got {tuple(f.shape)}")
     if not f.is_contiguous():
         raise ValueError("kernel state must be contiguous")
     return f.shape[1], f.shape[2]

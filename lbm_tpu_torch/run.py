@@ -5,9 +5,10 @@
 
 `--set` overrides any scene keyword (ints/floats/bools parsed as python
 literals).  `--x64` runs in float64, the reference's precision (else
-float32).  `--device` defaults to cuda when a card is present, else cpu.
-Result tensors are written as .npy files under --out.  Only the scenes
-ported so far are registered.
+float32).  `--device` defaults to cuda; `--device cpu` runs the plain
+PyTorch versions.  Result tensors are written as .npy files under --out.
+Registered: the channel, ULBM and MRT-CG/CSF multiphase scenes ported so
+far, under lbm_tpu's names.
 """
 
 from __future__ import annotations
@@ -25,21 +26,34 @@ from .utils.xmath import default_device
 
 
 def _scenes() -> dict:
-    from .scenes import channel, ulbm
+    from .scenes import channel, multiphase, ulbm
 
     return {
         "horizontal_poiseuille": channel.horizontal_poiseuille,
+        "mrtcg_static_droplet": multiphase.mrtcg_static_droplet,
+        "mrtcg_rayleigh_taylor": multiphase.mrtcg_rayleigh_taylor,
+        "mrtcg_multimode_rayleigh_taylor": multiphase.mrtcg_multimode_rayleigh_taylor,
+        "mrt_csf_rayleigh_taylor": multiphase.mrt_csf_rayleigh_taylor,
         "ulbm_poiseuille": ulbm.ulbm_poiseuille,
         "ulbm_double_shear": ulbm.ulbm_double_shear,
         "les_double_shear": ulbm.les_double_shear,
     }
 
 
+def _tensors(name: str, val):
+    """(name, tensor) pairs of a result field: a tensor, or a NamedTuple of
+    them (a two-phase state), flattened with '-' joined names."""
+    if isinstance(val, torch.Tensor):
+        yield name, val
+    elif isinstance(val, tuple) and hasattr(val, "_fields"):
+        for sub in val._fields:
+            yield from _tensors(f"{name}-{sub}", getattr(val, sub))
+
+
 def _save_result(out: str, result) -> None:
     for fld in dataclasses.fields(result):
-        val = getattr(result, fld.name)
-        if isinstance(val, torch.Tensor):
-            path = f"{out}-{fld.name}.npy"
+        for name, val in _tensors(fld.name, getattr(result, fld.name)):
+            path = f"{out}-{name}.npy"
             np.save(path, val.detach().cpu().numpy())
             logger.info(f"wrote {path}")
 
@@ -67,7 +81,7 @@ def main(argv=None) -> int:
     ap.add_argument("--x64", action="store_true",
                     help="float64 (the reference's precision); else float32")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda if present, else cpu)")
+                    help="torch device (default: cuda; cpu runs the plain versions)")
     ap.add_argument("--yes", action="store_true", default=True,
                     help="skip the interactive confirmation gate (default)")
     ap.add_argument("--confirm", dest="yes", action="store_false",

@@ -20,10 +20,10 @@ def default_float(dtype: torch.dtype | None = None) -> torch.dtype:
 
 
 def default_device(device=None) -> torch.device:
-    """``None`` means the first CUDA device when one exists, else the CPU."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device)
+    """``None`` means the current CUDA device: the entry points run on the
+    card unless the caller asks for the CPU (``device="cpu"``).  Without a
+    card, the first CUDA allocation then raises; nothing falls back."""
+    return torch.device("cuda" if device is None else device)
 
 
 def resolve_fused(f: torch.Tensor) -> bool:

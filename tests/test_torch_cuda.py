@@ -203,3 +203,152 @@ def test_ulbm_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs, kernel):
     want = getattr(ulbm, scene)(device="cpu", dtype=torch.float64, **kwargs)
     assert got.steps == want.steps and got.f.is_cuda
     assert (got.f.cpu() - want.f).abs().max().item() <= 1e-12
+
+
+# --- the MRT-CG kernels 6-8 -------------------------------------------------------
+
+def _two_phase_state(R, C, dtype, device, surface_tension, seed, droplet=False):
+    """A full MRT-CG state (flat planes: red, blue, + fst in CSF mode) from
+    the scenes' initial densities with every population scaled by a seeded
+    1 + U(-0.03, 0.03) and a seeded surface-force carry."""
+    from lbm_tpu_torch.models.mrt_cg import MRTCGModel
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    model = MRTCGModel(red=red, blue=blue, sigma=1e-4)
+    if droplet:
+        r0 = mp.init_rho_droplet(R, C, red.rho_0, True, radius=R / 4)
+        b0 = mp.init_rho_droplet(R, C, blue.rho_0, False, radius=R / 4)
+    else:
+        r0 = mp.init_rho_cosine(R, C, red.rho_0, True, -1.0)
+        b0 = mp.init_rho_cosine(R, C, blue.rho_0, False, -1.0)
+    st = model.init_state(r0, b0, dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    planes = [st.red.f, st.blue.f]
+    planes = [p * torch.as_tensor(rng.uniform(0.97, 1.03, p.shape), dtype=dtype,
+                                  device=device) for p in planes]
+    if surface_tension == "csf":
+        planes.append(torch.as_tensor(rng.uniform(-1e-6, 1e-6, (2, R, C)), dtype=dtype,
+                                      device=device))
+    return torch.cat(planes).contiguous()
+
+
+MRTCG_KW = dict(sigma=1e-4, gravity=(6.25e-7, 0.0))
+MRTCG_SHAPES = [(torch.float64, (21, 13), False), (torch.float64, (100, 100), True),
+                (torch.float32, (21, 13), False), (torch.float32, (100, 100), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface_tension", ["perturbation", "csf"])
+@pytest.mark.parametrize("layout", ["reduced", "split", "full"])
+@pytest.mark.parametrize("dtype,shape,droplet", MRTCG_SHAPES)
+def test_mrtcg_kernels_match_plain(cuda, dtype, shape, droplet, layout, surface_tension):
+    """Kernels 6 (reduced, 3 steps), 7 (split, 1 step) and 8 (full, 2 steps)
+    against their plain versions on the same card: TOL, in both modes."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    R, C = shape
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    S = _two_phase_state(R, C, dtype, cuda, surface_tension, seed=R + C, droplet=droplet)
+    csf = surface_tension == "csf"
+    kernel, steps = {"reduced": (mrtcg.MRTCG_REDUCED, 3), "split": (mrtcg.MRTCG_SPLIT, 1),
+                     "full": (mrtcg.MRTCG_FULL, 2)}[layout]
+    if layout == "full":
+        step = mrtcg.make_csf_fused_step if csf else mrtcg.make_mrtcg_fused_step
+        step = step(R, C, red, blue, dtype=dtype, **MRTCG_KW)
+        x = S if csf else S.reshape(2, 9, R, C)
+    else:
+        x = mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C),
+                                     surface_tension)
+        factory = (mrtcg.make_mrtcg_reduced_step if layout == "reduced"
+                   else mrtcg.make_mrtcg_split_step)
+        step = factory(R, C, red, blue, dtype=dtype, surface_tension=surface_tension,
+                       **MRTCG_KW)
+    before = kernel.launches
+    got = x
+    for _ in range(steps):
+        got = step(got)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == steps
+    plain = mrtcg.make_plain_step(red, blue, surface_tension=surface_tension,
+                                  reduced_in=layout != "full",
+                                  reduced_out=layout == "reduced", **MRTCG_KW)
+    want = x.reshape(-1, R, C)
+    for _ in range(steps):
+        want = plain(want)
+    assert got.is_cuda and got.dtype == dtype
+    assert (got.reshape(-1, R, C) - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_mrtcg_substeps_launch_per_step(cuda):
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    R, C = 21, 13
+    S = _two_phase_state(R, C, torch.float64, cuda, "perturbation", seed=7)
+    G = mrtcg.reduce_mrtcg_state(S.reshape(2, 9, R, C))
+    one = mrtcg.make_mrtcg_reduced_step(R, C, mp.DEFAULT_RED, mp.DEFAULT_BLUE,
+                                        dtype=torch.float64, **MRTCG_KW)
+    four = mrtcg.make_mrtcg_reduced_step(R, C, mp.DEFAULT_RED, mp.DEFAULT_BLUE,
+                                         dtype=torch.float64, substeps=4, **MRTCG_KW)
+    before = mrtcg.MRTCG_REDUCED.launches
+    got = four(G)
+    torch.cuda.synchronize()
+    assert mrtcg.MRTCG_REDUCED.launches - before == 4
+    assert torch.equal(got, one(one(one(one(G)))))
+
+
+MRTCG_WRAPPERS = {
+    "reduced": (10, lambda m: m.MRTCG_REDUCED),
+    "split": (10, lambda m: m.MRTCG_SPLIT),
+    "full": (18, lambda m: m.MRTCG_FULL),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MRTCG_WRAPPERS))
+def test_mrtcg_kernels_reject_what_they_do_not_take(cuda, name):
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    planes, kernel = MRTCG_WRAPPERS[name]
+    params = mrtcg.kernel_params(mp.DEFAULT_RED, mp.DEFAULT_BLUE, 1e-4, (0.0, 0.0), 0.1,
+                                 True)
+    out = 10 if name == "reduced" else 18
+
+    def launch(S, p=planes):
+        return mrtcg.launch_mrtcg(kernel(mrtcg), S, params, False, p, out)
+
+    S = torch.zeros((planes, 8, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch(S.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(S[:, :, ::2])
+    with pytest.raises(TypeError):
+        launch(S.to(torch.int32))
+    with pytest.raises(ValueError, match=rf"\({planes}, R, C\)"):
+        launch(S[:planes - 1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,kwargs", [
+    ("mrtcg_static_droplet", dict(R=25, C=25, T=20, radius=6.0)),
+    ("mrtcg_rayleigh_taylor", dict(R=32, C=16, T=30)),
+    ("mrt_csf_rayleigh_taylor", dict(R=32, C=16, T=20)),
+])
+def test_multiphase_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs):
+    """Each MRT-CG scene in float64 through kernels 6 (T-1 launches) and 7
+    (one launch), against the same scene on the CPU: 1e-12."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    before = (mrtcg.MRTCG_REDUCED.launches, mrtcg.MRTCG_SPLIT.launches)
+    got = getattr(mp, scene)(device=cuda, dtype=torch.float64, **kwargs)
+    assert mrtcg.MRTCG_REDUCED.launches - before[0] == kwargs["T"] - 1
+    assert mrtcg.MRTCG_SPLIT.launches - before[1] == 1
+    want = getattr(mp, scene)(device="cpu", dtype=torch.float64, **kwargs)
+    for g, w in ((got.state.red.f, want.state.red.f), (got.state.blue.f, want.state.blue.f),
+                 (got.state.u, want.state.u)):
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12

@@ -55,7 +55,9 @@ def _close(got, want, tol=TOL):
 
 
 def test_lattice_constants_are_lbm_tpu_s():
-    for name in ("C", "W", "OPP", "SPEC_X", "SPEC_Y"):
+    """The port keeps its own copy of lbm_tpu's numbers; every one is equal."""
+    for name in ("C", "W", "OPP", "SPEC_X", "SPEC_Y", "M_MRT", "MI_MRT", "B_CG", "UNIT_C"):
+        assert getattr(tlat, name).dtype == getattr(jlat, name).dtype, name
         np.testing.assert_array_equal(getattr(tlat, name), getattr(jlat, name))
     assert (tlat.Q, tlat.CS2, tlat.ICS2, tlat.ICS4) == \
         (jlat.Q, jlat.CS2, jlat.ICS2, jlat.ICS4)
@@ -194,6 +196,9 @@ def test_import_loads_no_jax():
             "import lbm_tpu_torch.scenes.channel, lbm_tpu_torch.kernels.bgk\n"
             "import lbm_tpu_torch.scenes.ulbm, lbm_tpu_torch.kernels.les\n"
             "import lbm_tpu_torch.models.kbc, lbm_tpu_torch.models.les\n"
+            "import lbm_tpu_torch.models.mrt_cg, lbm_tpu_torch.kernels.mrtcg\n"
+            "import lbm_tpu_torch.scenes.multiphase, lbm_tpu_torch.ops.gradients\n"
+            "import lbm_tpu_torch.core.params, lbm_tpu_torch.boundary.bc\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
@@ -216,3 +221,39 @@ def test_observe_and_dispatch_defaults():
     assert xmath.default_float(torch.float32) == torch.float32
     assert not xmath.resolve_fused(f)
     assert xmath.default_device("cpu").type == "cpu"
+
+
+def test_default_device_is_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    assert xmath.default_device() == torch.device("cuda")
+    assert xmath.default_device("cpu") == torch.device("cpu")
+    assert xmath.default_device(torch.device("cpu")).type == "cpu"
+
+
+def test_port_imports_alone(tmp_path):
+    """A copy of lbm_tpu_torch/ with no lbm_tpu/ beside it imports every one
+    of its modules: the port reads no file of the JAX package."""
+    import shutil
+
+    src = os.path.join(REPO, "lbm_tpu_torch")
+    shutil.copytree(src, tmp_path / "lbm_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    modules = sorted(
+        "lbm_tpu_torch." + os.path.relpath(os.path.join(d, f), src)[:-3].replace(os.sep, ".")
+        for d, _, files in os.walk(src) if "_build" not in d for f in files
+        if f.endswith(".py"))
+    code = ("import importlib, sys\n"
+            f"mods = {modules!r}\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m.removesuffix('.__init__'))\n"
+            "import lbm_tpu_torch\n"
+            f"assert lbm_tpu_torch.__file__.startswith({str(tmp_path)!r}), lbm_tpu_torch.__file__\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert int(r.stdout.split()[-1]) >= 25
