@@ -29,10 +29,19 @@ with a nonzero exit code):
      float32, 256x128 and 100x100 float64 (1 step); kernel 8 (full) at
      4096x2048 float32 (1 step), 256x128 and 21x13 float64 (4 steps); and
      reduced x7 + split == full x8 in float64 at 256x128 (<= 1e-12);
+     kernel 10 (TRT, bench.py's rates) on noisy states at 4096x2048 float32
+     (1 and 8 steps) and 128x128 float64; kernel 11 (power law) from
+     bench.py's double-shear state at 4096x2048 float32 (1 and 8 steps) and
+     at 128x128 float64 in its three branches (n = 0.5, n = 1.5, and
+     Newton with sigma_y = 5e-4, n = 0.8);
   4. the channel kernels against their plain versions, 10 steps: kernel 2
      (BGK) at 4096x2048 float32, 21x21 and 101x101 float64; kernel 4 (KBC)
      at 4096x2048 float32, 128x128 and 24x24 float64, at
-     ulbm_poiseuille's default relaxation and inlet density;
+     ulbm_poiseuille's default relaxation and inlet density; kernel 9 in
+     the gravity, specular, free-stream (faithful and corner-consistent),
+     vertical (compressible and incompressible) and TRT configurations at
+     4096x2048 float32 (twice, bit-identical: no entry has two writers)
+     and at the reference's 21x21, 51x51 and 54x42 in float64;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -49,13 +58,24 @@ with a nonzero exit code):
      steps) in float32 and float64, RT growth and CSF growth in float32,
      each with lbm_tpu's hardware gates (scripts/validate_tpu.py laplace,
      laplace_df64's mass drift, rt_100k, rt_growth, csf_growth); the
-     mrtcg_static_droplet CLI;
+     mrtcg_static_droplet CLI; the periodic TRT and power-law runs at
+     4096x2048 float32 (kernels 10 and 11); the kernel-9 scenes with
+     lbm_tpu's gates: vertical_poiseuille (incompressible, L2 <= 1e-11 in
+     float64; compressible, watched to a stop), trt_poiseuille (L2 <= 1e-11
+     in float64; 128x128 float32 for 200k steps, L2 <= 5e-4,
+     validate_tpu.py trt), gravity_channel's parabola, specular_channel's
+     flat accelerating plug, free_stream's bulk and walls, its
+     corner-consistent fixed point in float64, and free_stream from
+     configs/channel.toml in float64 (2700x2100, 1580 steps, 20 snapshot
+     frames per field streamed to disk); power_law_channel (no kernel) on
+     the card against the CPU; the vertical_poiseuille and free_stream CLIs;
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
      in float64; kernel 6 at 256x128; each kernel's bound (bytes over
      HBM3's rate against operations, counted on its plain version, over
-     the fp32 peak).
+     the fp32 peak; exp, log, expm1, clamp, where, maximum and minimum
+     count one operation per element).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -66,6 +86,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,6 +102,52 @@ ULBM_RHO_IN = 3.0 * 127 * (8.0 * 1e-4 * 0.05 / 128 ** 2) + 1.0
 # defaults) and the Laplace droplet (mrtcg_static_droplet's)
 RT = {"sigma": 1e-4, "gravity": (6.25e-7, 0.0)}
 DROPLET = {"sigma": 0.1, "gravity": (0.0, -6.25e-6), "apply_gravity_source": False}
+TRT_OMEGA = 1.0 / 0.9  # bench.py's TRT rate; the odd rate keeps Lambda = 3/16
+PLAW = {"cons_K": 0.01, "n": 0.5}  # bench.py's power-law constants
+TAU_MAGIC = (3.0 / 16.0) ** 0.5 + 0.5  # the reference's Poiseuille tau
+
+
+def variants():
+    """Kernel 9's configurations, those of lbm_tpu's scenes with a 0.1%
+    pressure drop: name -> make_channel_variant_step keywords."""
+    from lbm_tpu_torch.models.trt import omega_minus_from_magic
+
+    om = 1.0 / TAU_MAGIC
+    return {
+        "gravity": dict(omega=om, incompressible=True, pressure=(1.0, 1.0, 0),
+                        force=(-3e-4, 0.0), col_walls="bounce"),
+        "specular": dict(omega=om, incompressible=False, pressure=(1.001, 1.0, 0),
+                         col_walls="specular"),
+        "free_stream": dict(omega=1 / 0.55, incompressible=True, row_walls="abb",
+                            abb_u=(0.1, 0.0), col_walls="specular"),
+        "free_stream_cc": dict(omega=1 / 0.55, incompressible=False, row_walls="abb",
+                               abb_u=(0.1, 0.0), col_walls="specular",
+                               corner_consistent=True),
+        "vertical": dict(omega=om, incompressible=False, pressure=(1.001, 1.0, 1),
+                         row_walls="bounce"),
+        "vertical_incomp": dict(omega=om, incompressible=True, pressure=(1.001, 1.0, 1),
+                                row_walls="bounce"),
+        "trt": dict(omega=1 / 1.2, incompressible=True, pressure=(1.001, 1.0, 0),
+                    col_walls="bounce", omega_minus=omega_minus_from_magic(1 / 1.2)),
+    }
+
+
+def shear_state(R, C, dtype, device, noisy_seed=None):
+    """bench.py's power-law state, the double-shear equilibrium at u_max 0.05;
+    with ``noisy_seed`` each population scaled by a seeded 1 + U(-3%, 3%)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.scenes.ulbm import double_shear_init
+
+    m0, u = double_shear_init(R, C, 0.05, device=device, dtype=dtype)
+    f = d2q9.equilibrium(u, m0)
+    if noisy_seed is not None:
+        rng = np.random.default_rng(noisy_seed)
+        f = f * torch.as_tensor(rng.uniform(0.97, 1.03, (9, R, C)), dtype=dtype,
+                                device=device)
+    return f.contiguous()
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; fp32 and fp64 FLOP/s outside the
 # tensor cores (dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -256,10 +323,13 @@ def ops_per_cell(fn, x) -> float:
     """Floating-point operations per cell of ``fn(x)``, a plain version on a
     small CPU state: the elements every arithmetic aten op writes (a sum
     over planes counts its adds), counted under a dispatch mode, over the
-    cells.  The kernels do the same arithmetic."""
+    cells.  The kernels do the same arithmetic.  A transcendental, a clip or
+    a select counts one operation per element, as an add does."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    arith = {"add", "sub", "mul", "div", "neg", "sqrt", "reciprocal", "rsub", "pow"}
+    arith = {"add", "sub", "mul", "div", "neg", "sqrt", "reciprocal", "rsub", "pow",
+             "exp", "log", "expm1", "clamp", "clamp_min", "clamp_max", "where",
+             "maximum", "minimum"}
     count = [0]
 
     class Count(TorchDispatchMode):
@@ -316,11 +386,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from lbm_tpu_torch.kernels import _build, bgk, channel, collide_stream, les, mrtcg
+    from lbm_tpu_torch.kernels import (_build, bgk, channel, collide_stream, les, mrtcg,
+                                       power_law, trt)
     from lbm_tpu_torch.models import kbc
     from lbm_tpu_torch.models.mrt_cg import phase_field
+    from lbm_tpu_torch.models.trt import omega_minus_from_magic
     from lbm_tpu_torch.scenes import multiphase as mp
     from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.scenes import channel as chs
     from lbm_tpu_torch.scenes import ulbm
     from lbm_tpu_torch.scenes.channel import TAU_DEFAULT, horizontal_poiseuille
 
@@ -328,9 +401,14 @@ def main() -> int:
     k1, k2 = collide_stream.COLLIDE_STREAM_BGK, channel.CHANNEL_BGK
     k3, k4, k5 = collide_stream.COLLIDE_STREAM_KBC, channel.CHANNEL_KBC, les.COLLIDE_STREAM_LES
     k6, k7, k8 = mrtcg.MRTCG_REDUCED, mrtcg.MRTCG_SPLIT, mrtcg.MRTCG_FULL
+    k9, k10 = channel.CHANNEL_VARIANT, trt.COLLIDE_STREAM_TRT
+    k11 = power_law.COLLIDE_STREAM_POWER_LAW
     counted = {"collide_stream_bgk": k1, "channel_bgk": k2, "collide_stream_kbc": k3,
                "channel_kbc": k4, "collide_stream_les": k5, "mrtcg_reduced": k6,
-               "mrtcg_split": k7, "mrtcg_full": k8}
+               "mrtcg_split": k7, "mrtcg_full": k8, "channel_variant": k9,
+               "collide_stream_trt": k10, "collide_stream_power_law": k11}
+    trt_minus = omega_minus_from_magic(TRT_OMEGA)
+    VARIANTS = variants()
     card = nvidia_smi("name,power.limit")
 
     # 1. toolchain
@@ -442,6 +520,34 @@ def main() -> int:
         if not (err <= limit and mass <= 1e-12):
             raise AssertionError("the reduced and full MRT-CG kernels disagree")
 
+    # kernel 10 (TRT) on noisy states, bench.py's rates
+    err10 = hold_periodic(
+        "[3] kernel 10",
+        lambda R, C, dt, n: trt.make_trt_fused_step(
+            R, C, omega_plus=TRT_OMEGA, omega_minus=trt_minus, dtype=dt, substeps=n),
+        lambda R, C, dt, n: collide_stream.make_fused_step(
+            R, C, trt.trt_collide_fn(TRT_OMEGA, trt_minus, dt), dt, substeps=n),
+        [(f32, BIG, 1), (f32, BIG, 8), (f64, (128, 128), 8)], dev, seed=3000)
+
+    # kernel 11 (power law): bench.py's state at 4096x2048, and its three
+    # branches on a noisy sheared state at 128x128 (tests/test_power_law.py)
+    err11 = {}
+    for dtype, (R, C), steps, n, sigma_y, noisy in (
+            (f32, BIG, 1, 0.5, 0.0, None), (f32, BIG, 8, 0.5, 0.0, None),
+            (f64, (128, 128), 8, 0.5, 0.0, 1), (f64, (128, 128), 8, 1.5, 0.0, 2),
+            (f64, (128, 128), 8, 0.8, 5e-4, 3)):
+        f = shear_state(R, C, dtype, dev, noisy)
+        kw = dict(cons_K=PLAW["cons_K"], n=n, sigma_y=sigma_y)
+        got = power_law.make_power_law_fused_step(R, C, dtype=dtype, substeps=steps, **kw)(f)
+        want = collide_stream.make_fused_step(
+            R, C, power_law.power_law_collide_fn(tau_min=0.52, tau_max=50.0, iters=8,
+                                                 dtype=dtype, **kw), dtype, steps)(f)
+        e = compare(f"[3] kernel 11 n={n} sigma_y={sigma_y} {R}x{C} {dtype} "
+                    f"{steps} step(s)", got, want, dtype)
+        err11[dtype] = max(err11.get(dtype, 0.0), e)
+        del f, got, want
+    torch.cuda.empty_cache()
+
     # 4. the channel kernels against their plain versions, 10 steps
     tau, rho_in = TAU_DEFAULT, 1.001  # the Poiseuille tau; a 0.1% pressure drop
     err2, err4 = {}, {}
@@ -465,6 +571,32 @@ def main() -> int:
             e = compare(f"[4] kernel {kernel} {R}x{C} {dtype} 10 steps", got, want, dtype)
             errs[dtype] = max(errs.get(dtype, 0.0), e)
             del f, got, want
+
+    # kernel 9 in each configuration; at 4096x2048 the kernel runs twice and
+    # must repeat itself bit for bit (a second writer of an entry would race)
+    err9 = {}
+    for name, kw in VARIANTS.items():
+        for dtype, (R, C) in ((f32, BIG), (f64, (21, 21)), (f64, (51, 51)), (f64, (54, 42))):
+            f = seeded_state(R, C, dtype, dev, seed=R + C + len(name),
+                             incompressible=kw["incompressible"], noisy=True)
+            step = channel.make_channel_variant_step(R, C, dtype=dtype, **kw)
+            plain = channel.ChannelVariant(**kw).model().step
+            got, want = f, f
+            for _ in range(10):
+                got, want = step(got), plain(want)
+            e = compare(f"[4] kernel 9 {name} {R}x{C} {dtype} 10 steps", got, want, dtype)
+            err9[dtype] = max(err9.get(dtype, 0.0), e)
+            if dtype == f32:
+                again = f
+                for _ in range(10):
+                    again = step(again)
+                same = bool(torch.equal(again, got))
+                log(f"[4] kernel 9 {name} {R}x{C} float32, second run bit-identical: {same}")
+                if not same:
+                    raise AssertionError(f"kernel 9 {name}: two runs differ (a race)")
+                del again
+            del f, got, want
+    torch.cuda.empty_cache()
 
     # 5. the main path
     for k in counted.values():
@@ -680,6 +812,141 @@ def main() -> int:
         })
         del res, S, want
 
+    # the periodic TRT and power-law runs at 4096x2048 float32, 8 steps per
+    # call (bench.py --model trt / plaw): finite, mass and momentum kept
+    R, C = BIG
+    for label, kernel, f, step in (
+            ("TRT", k10, seeded_state(R, C, f32, dev, seed=12),
+             trt.make_trt_fused_step(R, C, omega_plus=TRT_OMEGA, omega_minus=trt_minus,
+                                     dtype=f32, substeps=8)),
+            ("power-law", k11, shear_state(R, C, f32, dev),
+             power_law.make_power_law_fused_step(R, C, dtype=f32, substeps=8, **PLAW))):
+        before = kernel.launches
+        mass0, mom0 = f.double().sum().item(), d2q9.calc_momentum(f.double()).sum((1, 2))
+        for _ in range(25):
+            f = step(f)
+        torch.cuda.synchronize()
+        mass, mom = f.double().sum().item(), d2q9.calc_momentum(f.double()).sum((1, 2))
+        check_gates(f"[5] periodic {label} {R}x{C} float32, 200 steps", {
+            "finite": (float(torch.isfinite(f).all()), 1.0, 1.0),
+            "mass drift": (abs(mass / mass0 - 1.0), 0.0, 1e-5),
+            "momentum drift per cell": ((mom - mom0).abs().max().item() / (R * C), 0.0, 1e-6),
+            "launches": (kernel.launches - before, 200, 200),
+        })
+        del f
+
+    def variant_scene(label, fn, **kw):
+        """A kernel-9 scene on the card: one launch per step, host wall time."""
+        before = k9.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"[5] {label}: steps={res.steps} kernel-9 launches={k9.launches - before} "
+            f"host wall time {wall!r} s")
+        if not (k9.launches - before == res.steps and res.f.is_cuda):
+            raise AssertionError(f"{label}: not one kernel-9 launch per step")
+        return res
+
+    # the reference's 1e-11 gate in the vertical geometry (incompressible)
+    # and the faithful compressible run, watched to a stop
+    # (tests/test_channel.py:91-113)
+    res = variant_scene("vertical_poiseuille 21x21 float64 incompressible",
+                        chs.vertical_poiseuille, H=21, W=21, T=20000,
+                        u_max=1.030985714e-1, incompressible=True, tolerance=1e-12,
+                        dtype=f64)
+    check_gates("[5] vertical_poiseuille incompressible", {"L2": (res.l2, 0.0, 1e-11)})
+    res = variant_scene("vertical_poiseuille 31x31 float64", chs.vertical_poiseuille,
+                        H=31, W=31, T=30000, u_max=0.05, tolerance=1e-12, dtype=f64)
+    mid = res.u[1][:, 15].cpu().numpy()
+    ua = chs.poiseuille_analytic(31, 0.05)
+    check_gates("[5] vertical_poiseuille compressible", {
+        "steps": (res.steps, 1, 29999), "L2": (res.l2, 0.0, 2e-2),
+        "max|mid - parabola| - 0.05|parabola|":
+            (float((np.abs(mid - ua) - 0.05 * np.abs(ua)).max()), -1.0, 4e-4)})
+
+    # TRT at tau 1.2: the 1e-11 gate in float64, validate_tpu.py trt in float32
+    res = variant_scene("trt_poiseuille 21x21 float64", chs.trt_poiseuille, dtype=f64)
+    check_gates("[5] trt_poiseuille float64", {"L2": (res.l2, 0.0, 1e-11)})
+    res = variant_scene("trt_poiseuille 128x128 float32", chs.trt_poiseuille, H=128, W=128,
+                        T=200000, dtype=f32)
+    check_gates("[5] trt_poiseuille 128x128 float32", {"L2": (res.l2, 0.0, 5e-4)})
+
+    # gravity: the converged profile against the parabola (tests/test_channel.py:19-37)
+    res = variant_scene("gravity_channel 21x21 float64", chs.gravity_channel, dtype=f64)
+    nu = (2.0 * TAU_DEFAULT - 1.0) / 6.0
+    ua = chs.poiseuille_analytic(21, -3e-4 * 21 * 21 / (8.0 * nu))
+    mid = res.u[0][10].cpu().numpy()
+    check_gates("[5] gravity_channel", {
+        "max(|mid - ua| - 0.25|ua|)": (float((np.abs(mid - ua) - 0.25 * np.abs(ua)).max()),
+                                        -1.0, 2e-4),
+        "max|mid - mirror| / max|mid|": (float(np.abs(mid - mid[::-1]).max()
+                                               / np.abs(mid).max()), 0.0, 1e-6),
+        "argmax|mid|": (int(np.abs(mid).argmax()), 10, 10)})
+
+    # specular walls: a flat plug that keeps accelerating (tests/test_channel.py:40-55)
+    means = []
+    for T in (300, 600):
+        res = variant_scene(f"specular_channel 31x21 float64 T={T}", chs.specular_channel,
+                            H=31, W=21, T=T, dtype=f64)
+        mid = (res.u[0] / res.rho)[15].cpu().numpy()
+        means.append(float(mid.mean()))
+        check_gates(f"[5] specular_channel T={T}", {
+            "finite": (float(np.isfinite(mid).all()), 1.0, 1.0),
+            "ptp(mid) / |mean|": (float(np.ptp(mid) / abs(mid.mean())), 0.0, 2e-2)})
+    check_gates("[5] specular_channel accelerates", {
+        "mean(T=600) - mean(T=300)": (means[1] - means[0], 1e-12, 1.0)})
+
+    # the faithful free stream (tests/test_channel.py:58-73) and the
+    # corner-consistent fixed point (:76-88)
+    res = variant_scene("free_stream 30x24 float64", chs.free_stream, H=30, W=24, T=100,
+                        dtype=f64)
+    ux = (res.u[0] / res.rho).cpu().numpy()
+    check_gates("[5] free_stream", {
+        "bulk mean u_x": (float(ux[6:-6, 6:-6].mean()), 0.08, 0.14),
+        "ptp wall rows": (float(max(np.ptp(ux[0]), np.ptp(ux[-1]))), 0.0, 1e-5),
+        "|u_x(0, 0) - 0.1|": (float(abs(ux[0, 0] - 0.1)), 0.0, 5e-3)})
+    res = variant_scene("free_stream 30x24 float64 corner-consistent", chs.free_stream,
+                        H=30, W=24, T=500, corner_consistent=True, dtype=f64)
+    check_gates("[5] free_stream corner-consistent fixed point", {
+        "max|u_x - 0.1|": ((res.u[0] - 0.1).abs().max().item(), 0.0, 1e-12),
+        "max|u_y|": (res.u[1].abs().max().item(), 0.0, 1e-12),
+        "max|rho - 1|": ((res.rho - 1.0).abs().max().item(), 0.0, 1e-12)})
+
+    # the full-width run: free_stream from configs/channel.toml in float64,
+    # 2700x2100 for 1580 steps, (ux, uy, ps) every 79 steps streamed to disk
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "free_stream")
+        res = variant_scene("free_stream configs/channel.toml float64", chs.free_stream,
+                            config_path=str(ROOT / "configs" / "channel.toml"),
+                            snapshot_prefix=prefix, dtype=f64)
+        frames = {k: np.load(f"{prefix}-{k}.npy", mmap_mode="r") for k in ("ux", "uy", "ps")}
+        finite = all(bool(np.isfinite(frames[k][-1]).all()) for k in frames)
+        check_gates("[5] free_stream configs/channel.toml", {
+            "grid": (res.f.shape[1] * 10000 + res.f.shape[2], 27002100, 27002100),
+            "steps": (res.steps, 1580, 1580),
+            "frames per field": (min(v.shape[0] for v in frames.values()), 20, 20),
+            "frame shape": (max(v.shape[1] * 10000 + v.shape[2] for v in frames.values()),
+                            27002100, 27002100),
+            "last frames finite": (float(finite), 1.0, 1.0),
+            "state finite": (float(torch.isfinite(res.f).all()), 1.0, 1.0)})
+        del res, frames
+
+    # power_law_channel has no kernel: plain ops on the card against the CPU
+    t0 = time.perf_counter()
+    got = chs.power_law_channel(H=4, W=41, T=2000, device=dev, dtype=f64)
+    wall = time.perf_counter() - t0
+    want = chs.power_law_channel(H=4, W=41, T=2000, device="cpu", dtype=f64)
+    check_gates(f"[5] power_law_channel 4x41 float64 on the card vs the CPU (card host "
+                f"wall time {wall!r} s)", {
+        "steps": (got.steps - want.steps, 0, 0),
+        "max|f_card - f_cpu|": ((got.f.cpu() - want.f).abs().max().item(), 0.0, 1e-10)})
+    del got, want
+
+    run_cli("vertical_poiseuille", "--x64", "--device", "cuda")
+    run_cli("free_stream", "--config", "configs/channel.toml", "--set", "T=158",
+            "--device", "cuda")
+
     launches = {name: k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
@@ -708,6 +975,16 @@ def main() -> int:
     mrt = {layout_csf: mrtcg_steps(layout_csf[0], R, C, f32, layout_csf[1])
            for layout_csf in (("reduced", False), ("reduced", True), ("split", False),
                               ("full", False))}
+    grav, free = (channel.ChannelVariant(**VARIANTS[k]) for k in ("gravity", "free_stream"))
+    grav_c, free_c = grav.constants(f32), free.constants(f32)
+    fs = seeded_state(R, C, f32, dev, seed=13, incompressible=True, noisy=True)
+    fp = shear_state(R, C, f32, dev)
+    plain9g, plain9f = grav.model().step, free.model().step
+    plain10 = collide_stream.make_fused_step(
+        R, C, trt.trt_collide_fn(TRT_OMEGA, trt_minus, f32), f32)
+    plain11 = collide_stream.make_fused_step(
+        R, C, power_law.power_law_collide_fn(tau_min=0.52, tau_max=50.0, iters=8, dtype=f32,
+                                             **PLAW), f32)
     fns = {
         "collide_stream_bgk": (lambda: collide_stream.collide_stream_bgk(f, OMEGA), 50),
         "collide_stream_bgk_plain": (lambda: plain1(f), 10),
@@ -729,6 +1006,14 @@ def main() -> int:
         "mrtcg_split_plain": (lambda: mrt["split", False][1](G6), 3),
         "mrtcg_full": (lambda: mrt["full", False][0](S8), 30),
         "mrtcg_full_plain": (lambda: mrt["full", False][1](S8), 3),
+        "channel_variant": (lambda: channel.channel_variant(fi, grav, grav_c), 50),
+        "channel_variant_plain": (lambda: plain9g(fi), 10),
+        "channel_variant_free_stream": (lambda: channel.channel_variant(fs, free, free_c), 50),
+        "channel_variant_free_stream_plain": (lambda: plain9f(fs), 10),
+        "collide_stream_trt": (lambda: trt.collide_stream_trt(f, TRT_OMEGA, trt_minus), 50),
+        "collide_stream_trt_plain": (lambda: plain10(f), 10),
+        "collide_stream_power_law": (lambda: power_law.collide_stream_power_law(fp, **PLAW), 50),
+        "collide_stream_power_law_plain": (lambda: plain11(fp), 5),
         "copy": (lambda: dst.copy_(f), 50),
     }
     runs = {k: [] for k in fns}
@@ -752,9 +1037,12 @@ def main() -> int:
         gbs = b * cells / (ms[k] * 1e-3) / 1e9
         log(f"[6] {k}: {ms[k]!r} ms/step (runs {runs[k]}) = {mlups!r} MLUPS, "
             f"{gbs!r} GB/s at {b} B/cell = {gbs / copy_gbs!r} of copy")
-    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt
+    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt, fs, fp
     torch.cuda.empty_cache()
     f = seeded_state(R, C, f64, dev, seed=8)
+    fs = seeded_state(R, C, f64, dev, seed=14, incompressible=True, noisy=True)
+    fp = shear_state(R, C, f64, dev)
+    grav_c, free_c = grav.constants(f64), free.constants(f64)
     fi = seeded_state(R, C, f64, dev, seed=9, incompressible=True)
     fc = seeded_state(R, C, f64, dev, seed=11, noisy=True)
     S8 = mrtcg_state(R, C, f64, dev)
@@ -775,13 +1063,31 @@ def main() -> int:
             ("mrtcg_reduced", lambda: mrt["reduced", False](G6)),
             ("mrtcg_reduced_csf", lambda: mrt["reduced", True](G6c)),
             ("mrtcg_split", lambda: mrt["split", False](G6)),
-            ("mrtcg_full", lambda: mrt["full", False](S8))):
+            ("mrtcg_full", lambda: mrt["full", False](S8)),
+            ("channel_variant", lambda: channel.channel_variant(fi, grav, grav_c)),
+            ("channel_variant_free_stream", lambda: channel.channel_variant(fs, free, free_c)),
+            ("collide_stream_trt", lambda: trt.collide_stream_trt(f, TRT_OMEGA, trt_minus)),
+            ("collide_stream_power_law",
+             lambda: power_law.collide_stream_power_law(fp, **PLAW))):
         t = ms64[k] = cuda_ms(fn, 20 if k.startswith("mrtcg") else 50)
         b = 2 * bytes32.get(k, 72)
         gbs = b * cells / (t * 1e-3) / 1e9
         log(f"[6] {k} float64: {t!r} ms/step = {cells / (t * 1e-3) / 1e6!r} MLUPS, "
             f"{gbs!r} GB/s at {b} B/cell = {gbs / copy_gbs!r} of copy")
-    del f, fi, fc, S8, G6, G6c, mrt
+    # the plain versions of kernels 9-11 in float64
+    plain10_64 = collide_stream.make_fused_step(
+        R, C, trt.trt_collide_fn(TRT_OMEGA, trt_minus, f64), f64)
+    plain11_64 = collide_stream.make_fused_step(
+        R, C, power_law.power_law_collide_fn(tau_min=0.52, tau_max=50.0, iters=8, dtype=f64,
+                                             **PLAW), f64)
+    plain64 = {}
+    for k, fn in (("channel_variant", lambda: plain9g(fi)),
+                  ("channel_variant_free_stream", lambda: plain9f(fs)),
+                  ("collide_stream_trt", lambda: plain10_64(f)),
+                  ("collide_stream_power_law", lambda: plain11_64(fp))):
+        plain64[k] = cuda_ms(fn, 5)
+        log(f"[6] {k}_plain float64: {plain64[k]!r} ms/step")
+    del f, fi, fc, S8, G6, G6c, mrt, fs, fp
     torch.cuda.empty_cache()
 
     # kernel 6 at the reference's RT grid, 256x128: the device time per
@@ -827,6 +1133,9 @@ def main() -> int:
         "collide_stream_kbc": (collide_stream.make_fused_step(
             small, small, collide_stream.kbc_collide_fn(OMEGA), f32),
             seeded_state(small, small, f32, cpu, seed=3, noisy=True)),
+        "collide_stream_kbc_direct": (collide_stream.make_fused_step(
+            small, small, collide_stream.kbc_collide_fn(OMEGA, "direct"), f32),
+            seeded_state(small, small, f32, cpu, seed=3, noisy=True)),
         "channel_kbc": (channel.kbc_channel_step(ULBM_S2, ULBM_RHO_IN, 1.0),
                         seeded_state(small, small, f32, cpu, seed=4, noisy=True)),
         "collide_stream_les": (collide_stream.make_fused_step(
@@ -839,6 +1148,17 @@ def main() -> int:
         "mrtcg_split": (mrtcg_steps("split", small, small, f32, False)[1],
                         reduced_input(S_small, False)),
         "mrtcg_full": (mrtcg_steps("full", small, small, f32, False)[1], S_small),
+        "channel_variant": (grav.model().step,
+                            seeded_state(small, small, f32, cpu, seed=6, incompressible=True)),
+        "channel_variant_free_stream": (free.model().step, seeded_state(
+            small, small, f32, cpu, seed=7, incompressible=True, noisy=True)),
+        "collide_stream_trt": (collide_stream.make_fused_step(
+            small, small, trt.trt_collide_fn(TRT_OMEGA, trt_minus, f32), f32),
+            seeded_state(small, small, f32, cpu, seed=8, noisy=True)),
+        "collide_stream_power_law": (collide_stream.make_fused_step(
+            small, small, power_law.power_law_collide_fn(
+                tau_min=0.52, tau_max=50.0, iters=8, dtype=f32, **PLAW), f32),
+            shear_state(small, small, f32, cpu)),
     }
     bounds = {}
     for name, (fn, x) in plains.items():
@@ -858,6 +1178,9 @@ def main() -> int:
         ("mrtcg_reduced", "lbm_tpu/kernels/mrtcg_pallas.py:1004", err_mrt["reduced"]),
         ("mrtcg_split", "lbm_tpu/kernels/mrtcg_pallas.py:1129", err_mrt["split"]),
         ("mrtcg_full", "lbm_tpu/kernels/mrtcg_pallas.py:876", err_mrt["full"]),
+        ("channel_variant", "lbm_tpu/kernels/channel_pallas.py:158", err9),
+        ("collide_stream_trt", "lbm_tpu/kernels/trt_pallas.py:74", err10),
+        ("collide_stream_power_law", "lbm_tpu/kernels/power_law_pallas.py:144", err11),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{name}.cu",
@@ -867,10 +1190,20 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
          "ms_f64": ms64[name]}
         for name, replaces, errs in rows]
+    kernels[2].update(ms_direct=ms["collide_stream_kbc_direct"],
+                      ms_direct_f64=ms64["collide_stream_kbc_direct"],
+                      bound_ms_direct=bounds["collide_stream_kbc_direct"][0])
     kernels[5].update(ms_csf=ms["mrtcg_reduced_csf"],
                       plain_ms_csf=ms["mrtcg_reduced_csf_plain"],
                       ms_csf_f64=ms64["mrtcg_reduced_csf"],
                       bound_ms_csf=bounds["mrtcg_reduced_csf"][0])
+    kernels[8].update(ms_free_stream=ms["channel_variant_free_stream"],
+                      plain_ms_free_stream=ms["channel_variant_free_stream_plain"],
+                      ms_free_stream_f64=ms64["channel_variant_free_stream"],
+                      plain_ms_free_stream_f64=plain64["channel_variant_free_stream"],
+                      bound_ms_free_stream=bounds["channel_variant_free_stream"][0])
+    for entry in kernels[8:]:
+        entry["plain_ms_f64"] = plain64[entry["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

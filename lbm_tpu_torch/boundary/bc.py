@@ -8,14 +8,14 @@ The reference's ordering contract holds:
 Sides name the wall line of the grid: 'row0' (r=0), 'rowN' (r=-1),
 'col0' (c=0), 'colN' (c=-1).  ``lane`` restricts the along-wall extent.
 Each public function returns a new tensor and leaves its inputs alone.
-Ported so far: ``bounce_back``, ``periodic_edge`` and ``pressure_periodic``;
-the specular, anti-bounce-back, ADE-Dirichlet, zero-gradient and obstacle
-rules are still to port (ROADMAP Queue 1 item 4).
+All of lbm_tpu's rules are here: bounce-back, specular, anti-bounce-back,
+ADE-Dirichlet, pressure-periodic, zero-gradient, periodic-edge and the
+interior obstacle assignments.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -32,6 +32,10 @@ SIDE_OUT = {
 
 _SIDE_INDEX = {"row0": 0, "rowN": -1, "col0": 0, "colN": -1}
 _SIDE_AXIS = {"row0": 0, "rowN": 0, "col0": 1, "colN": 1}
+
+# All eight moving directions (ABB walls rewrite every one of them,
+# reference test/free_stream_test.cpp:107-114).
+_MOVING = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
 def _line(f_k: torch.Tensor, side: str, lane: slice) -> torch.Tensor:
@@ -56,6 +60,83 @@ def bounce_back(f_adve: torch.Tensor, f_coll: torch.Tensor, side: str,
     out = f_adve.clone()
     for k in SIDE_OUT[side]:
         _set_line(out, lat.OPPQ[k], side, lane, _line(f_coll[k], side, lane))
+    return out
+
+
+def specular(f_adve: torch.Tensor, f_coll: torch.Tensor, side: str,
+             lane: slice = slice(None)) -> torch.Tensor:
+    """Free-slip: mirror only the wall-normal velocity component,
+    f_adve[wall, spec(k)] = f_coll[wall, k] for the outgoing k.
+    cites reference test/specular_boundary_test.cpp:122-128"""
+    spec = lat.SPEC_X if _SIDE_AXIS[side] == 0 else lat.SPEC_Y
+    out = f_adve.clone()
+    for k in SIDE_OUT[side]:
+        _set_line(out, int(spec[k]), side, lane, _line(f_coll[k], side, lane))
+    return out
+
+
+def anti_bounce_back(f_adve: torch.Tensor, f_coll: torch.Tensor, side: str,
+                     u_w, lane: slice = slice(None),
+                     scale: float = 1.0) -> torch.Tensor:
+    """Moving-wall velocity BC: for every moving direction k,
+    f_adve[wall, opp(k)] = -f_coll[wall, k] + scale*(2 + 9(u_w.c_k)^2 - 3 u_w.u_w) W_k.
+
+    ``u_w`` is a (2,) or (2, N) wall velocity along the lane, taken in the
+    state's dtype.  cites reference test/free_stream_test.cpp:104-125"""
+    u_w = torch.as_tensor(u_w, dtype=f_coll.dtype, device=f_coll.device)
+    coeff = scale * d2q9.abb_coefficient(u_w)
+    out = f_adve.clone()
+    for k in _MOVING:
+        ck = coeff[k] if coeff.ndim == 1 else coeff[k][lane]
+        _set_line(out, lat.OPPQ[k], side, lane, -_line(f_coll[k], side, lane) + ck)
+    return out
+
+
+def ade_dirichlet(f_adve: torch.Tensor, f_coll: torch.Tensor, side: str,
+                  g_eq_wall: torch.Tensor, lane: slice = slice(None),
+                  incoming_only: bool = False) -> torch.Tensor:
+    """ADE Dirichlet (concentration) inlet via anti-bounce-back with twice the
+    wall equilibrium: g_adve[opp(k)] = -g_coll[k] + 2 g_eq_wall[k], with
+    ``g_eq_wall`` (9, N) along the wall (N the full wall length).
+    cites reference test/rectangle_sedimentation_test.cpp:204-218
+
+    The default overwrites all 8 moving directions, as the reference program
+    does (the concentration sits on the boundary node); ``incoming_only``
+    repairs only the 3 populations entering through the wall (the halfway
+    scheme: the value sits on the halfway wall, where bounce_back puts
+    its no-slip plane)."""
+    out = f_adve.clone()
+    for k in (SIDE_OUT[side] if incoming_only else _MOVING):
+        _set_line(out, lat.OPPQ[k], side, lane,
+                  -_line(f_coll[k], side, lane) + 2.0 * g_eq_wall[k][lane])
+    return out
+
+
+def zero_gradient(f_coll: torch.Tensor, side: str,
+                  lane: slice = slice(None)) -> torch.Tensor:
+    """Outflow: copy every post-collision population of the adjacent interior
+    line onto the wall line, before streaming.
+    cites reference test/rectangle_sedimentation_test.cpp:134-141"""
+    inner = 1 if _SIDE_INDEX[side] == 0 else -2
+    out = f_coll.clone()
+    if _SIDE_AXIS[side] == 0:
+        out[:, _SIDE_INDEX[side], lane] = f_coll[:, inner, lane]
+    else:
+        out[:, lane, _SIDE_INDEX[side]] = f_coll[:, lane, inner]
+    return out
+
+
+def obstacle_bounce_back(f_adve: torch.Tensor, f_coll: torch.Tensor,
+                         assignments: Sequence[tuple[int, tuple, int, float]]
+                         ) -> torch.Tensor:
+    """Interior-wall bounce-back as raw (dst_dir, index, src_dir, sign)
+    assignments, f_adve[dst, idx] = sign * f_coll[src, idx], applied in
+    order (a later one overwrites an earlier one).  The sedimentation
+    rectangle's walls are written so in the reference
+    (test/rectangle_sedimentation_test.cpp:184-196)."""
+    out = f_adve.clone()
+    for dst, idx, src, sign in assignments:
+        out[(dst,) + tuple(idx)] = sign * f_coll[(src,) + tuple(idx)]
     return out
 
 

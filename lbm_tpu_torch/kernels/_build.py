@@ -26,11 +26,12 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of single sources, by file stem.  The MRT-CG kernels contract no
-# multiply-add, so that they reproduce their plain PyTorch versions, whose
-# elementwise ops each round once (csrc/mrtcg.cuh).
-UNIT_FLAGS = {stem: ("-fmad=false",) for stem in ("mrtcg_reduced", "mrtcg_split",
-                                                   "mrtcg_full")}
+# Flags of single sources, by file stem.  The MRT-CG kernels and kernels
+# 9-11 contract no multiply-add, so that they reproduce their plain PyTorch
+# versions, whose elementwise ops each round once.
+UNIT_FLAGS = {stem: ("-fmad=false",) for stem in (
+    "mrtcg_reduced", "mrtcg_split", "mrtcg_full", "channel_variant",
+    "collide_stream_trt", "collide_stream_power_law")}
 
 
 def find_nvcc() -> str:

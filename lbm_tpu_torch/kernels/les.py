@@ -14,13 +14,9 @@ import ctypes
 import torch
 
 from ..models.les import SQRT2_18
-from ..utils.xmath import resolve_fused
+from ..utils.xmath import resolve_fused, rounded
 from . import _build, collide_stream
 
-
-def _rounded(x: float, dtype: torch.dtype) -> float:
-    """``x`` rounded to ``dtype``, as a Python float."""
-    return torch.tensor(x, dtype=dtype).item()
 
 
 def les_collide_fn(tau0: float, cs_smag: float, dtype: torch.dtype):
@@ -30,9 +26,9 @@ def les_collide_fn(tau0: float, cs_smag: float, dtype: torch.dtype):
     les_collide_fn).  The constants are rounded to ``dtype`` as lbm_tpu's
     ``dt(...)`` scalars are, and tau0^2 is taken in ``dtype``; kernel 5
     computes the same in the same order."""
-    t00 = _rounded(tau0, dtype)
-    t00_sq = _rounded(t00 * t00, dtype)
-    a_cs = _rounded(SQRT2_18 * (float(cs_smag) * float(cs_smag)), dtype)
+    t00 = rounded(tau0, dtype)
+    t00_sq = rounded(t00 * t00, dtype)
+    a_cs = rounded(SQRT2_18 * (float(cs_smag) * float(cs_smag)), dtype)
 
     def fn(f: torch.Tensor) -> torch.Tensor:
         rho = f[0]

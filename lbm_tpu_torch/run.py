@@ -1,14 +1,15 @@
 """Scene runner CLI of the PyTorch port (counterpart of lbm_tpu/run.py).
 
-    python -m lbm_tpu_torch.run <scene> [--set key=value ...] [--out prefix]
-           [--x64] [--device cuda|cpu] [--yes]
+    python -m lbm_tpu_torch.run <scene> [--config cfg.toml] [--set key=value ...]
+           [--out prefix] [--x64] [--device cuda|cpu] [--yes]
 
+`--config` passes a TOML to the scenes that take one (``config_path``).
 `--set` overrides any scene keyword (ints/floats/bools parsed as python
 literals).  `--x64` runs in float64, the reference's precision (else
 float32).  `--device` defaults to cuda; `--device cpu` runs the plain
-PyTorch versions.  Result tensors are written as .npy files under --out.
-Registered: the channel, ULBM and MRT-CG/CSF multiphase scenes ported so
-far, under lbm_tpu's names.
+PyTorch versions.  Result tensors are written as .npy files under --out,
+recorded snapshots as {out}-snap-{name}.npy.  Registered: the channel,
+ULBM and MRT-CG/CSF multiphase scenes ported so far, under lbm_tpu's names.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
+import inspect
 import sys
 
 import numpy as np
@@ -30,6 +32,12 @@ def _scenes() -> dict:
 
     return {
         "horizontal_poiseuille": channel.horizontal_poiseuille,
+        "vertical_poiseuille": channel.vertical_poiseuille,
+        "gravity_channel": channel.gravity_channel,
+        "specular_channel": channel.specular_channel,
+        "trt_poiseuille": channel.trt_poiseuille,
+        "power_law_channel": channel.power_law_channel,
+        "free_stream": channel.free_stream,
         "mrtcg_static_droplet": multiphase.mrtcg_static_droplet,
         "mrtcg_rayleigh_taylor": multiphase.mrtcg_rayleigh_taylor,
         "mrtcg_multimode_rayleigh_taylor": multiphase.mrtcg_multimode_rayleigh_taylor,
@@ -52,7 +60,14 @@ def _tensors(name: str, val):
 
 def _save_result(out: str, result) -> None:
     for fld in dataclasses.fields(result):
-        for name, val in _tensors(fld.name, getattr(result, fld.name)):
+        val = getattr(result, fld.name)
+        if fld.name == "snapshots" and isinstance(val, dict):
+            for name, arr in val.items():
+                path = f"{out}-snap-{name}.npy"
+                np.save(path, arr)
+                logger.info(f"wrote {path}")
+            continue
+        for name, val in _tensors(fld.name, val):
             path = f"{out}-{name}.npy"
             np.save(path, val.detach().cpu().numpy())
             logger.info(f"wrote {path}")
@@ -75,6 +90,7 @@ def main(argv=None) -> int:
         prog="python -m lbm_tpu_torch.run", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("scene", choices=sorted(scenes))
+    ap.add_argument("--config", help="TOML config (scenes that accept one)")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="override a scene keyword, e.g. --set T=1000")
     ap.add_argument("--out", default=None, help="output prefix for .npy dumps")
@@ -89,6 +105,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     kwargs = {}
+    if args.config:
+        if "config_path" not in inspect.signature(scenes[args.scene]).parameters:
+            ap.error(f"scene {args.scene} does not take --config")
+        kwargs["config_path"] = args.config
     for item in args.set:
         key, _, val = item.partition("=")
         try:

@@ -32,3 +32,9 @@ def resolve_fused(f: torch.Tensor) -> bool:
     goes to the kernel wrapper, which launches or raises.  There is no shape
     or dtype condition: the kernels take float32 and float64 at any grid."""
     return f.device.type != "cpu"
+
+
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a Python float: a scalar constant as
+    lbm_tpu's ``dt(...)`` makes it, for the plain versions and the kernels."""
+    return torch.tensor(x, dtype=dtype).item()

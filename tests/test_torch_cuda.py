@@ -352,3 +352,166 @@ def test_multiphase_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs):
     for g, w in ((got.state.red.f, want.state.red.f), (got.state.blue.f, want.state.blue.f),
                  (got.state.u, want.state.u)):
         assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12
+
+
+# --- kernels 9-11: the channel variants, TRT and the power law --------------------
+
+TAU_MAGIC = (3.0 / 16.0) ** 0.5 + 0.5
+OM_MINUS = 1.0 / (0.5 + (3.0 / 16.0) / (1.2 - 0.5))  # TRT at tau 1.2, Lambda 3/16
+VARIANTS = {
+    "gravity": dict(omega=1 / TAU_MAGIC, incompressible=True, pressure=(1.0, 1.0, 0),
+                    force=(-3e-4, 0.0), col_walls="bounce"),
+    "specular": dict(omega=1 / TAU_MAGIC, incompressible=False,
+                     pressure=(1.004, 1.0, 0), col_walls="specular"),
+    "free_stream": dict(omega=1 / 0.55, incompressible=True, row_walls="abb",
+                        abb_u=(0.1, 0.0), col_walls="specular"),
+    "free_stream_cc": dict(omega=1 / 0.55, incompressible=False, row_walls="abb",
+                           abb_u=(0.1, 0.0), col_walls="specular",
+                           corner_consistent=True),
+    "vertical": dict(omega=1 / TAU_MAGIC, incompressible=False,
+                     pressure=(1.004, 1.0, 1), row_walls="bounce"),
+    "vertical_incomp": dict(omega=1 / TAU_MAGIC, incompressible=True,
+                            pressure=(1.004, 1.0, 1), row_walls="bounce"),
+    "trt": dict(omega=1 / 1.2, incompressible=True, pressure=(1.004, 1.0, 0),
+                col_walls="bounce", omega_minus=OM_MINUS),
+}
+VARIANT_SHAPES = [(torch.float64, (21, 21)), (torch.float64, (54, 42)),
+                  (torch.float64, (4, 4)), (torch.float32, (256, 384))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", VARIANT_SHAPES)
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_channel_variant_kernel_matches_plain(cuda, name, dtype, shape):
+    """Kernel 9 against its plain model step, 10 steps, from a noisy state;
+    twice, so that a second writer of an entry shows as a difference."""
+    kw = VARIANTS[name]
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=R + C, incompressible=kw["incompressible"],
+               noisy=True)
+    step = channel.make_channel_variant_step(R, C, dtype=dtype, **kw)
+    plain = channel.ChannelVariant(**kw).model().step
+    before = channel.CHANNEL_VARIANT.launches
+    runs = []
+    for _ in range(2):
+        got = f
+        for _ in range(10):
+            got = step(got)
+        runs.append(got)
+    want = f
+    for _ in range(10):
+        want = plain(want)
+    torch.cuda.synchronize()
+    assert channel.CHANNEL_VARIANT.launches - before == 20
+    assert torch.equal(runs[0], runs[1])
+    assert (runs[0] - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("dtype,shape", SHAPES)
+def test_trt_kernel_matches_plain(cuda, dtype, shape, substeps):
+    from lbm_tpu_torch.kernels import trt
+
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=6, noisy=True)
+    kw = dict(omega_plus=1 / 0.9, omega_minus=OM_MINUS)
+    plain = collide_stream.make_fused_step(R, C, trt.trt_collide_fn(dtype=dtype, **kw),
+                                           dtype, substeps)
+    before = trt.COLLIDE_STREAM_TRT.launches
+    got = trt.make_trt_fused_step(R, C, dtype=dtype, substeps=substeps, **kw)(f)
+    torch.cuda.synchronize()
+    assert trt.COLLIDE_STREAM_TRT.launches - before == substeps
+    assert (got - plain(f)).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sigma_y", [(0.5, 0.0), (1.5, 0.0), (0.8, 5e-4), (1.0, 0.0)])
+@pytest.mark.parametrize("dtype,shape", [(torch.float64, (64, 130)),
+                                         (torch.float64, (21, 21)),
+                                         (torch.float32, (256, 384))])
+def test_power_law_kernel_matches_plain(cuda, dtype, shape, n, sigma_y):
+    """Kernel 11 in its three branches (Picard for n = 0.5 and 1.5, Newton
+    with a yield stress, the Newtonian constant), 3 steps from a noisy
+    sheared state."""
+    from lbm_tpu_torch.kernels import power_law
+    from lbm_tpu_torch.scenes.ulbm import double_shear_init
+
+    R, C = shape
+    m0, u = double_shear_init(R, C, 0.08, device=cuda, dtype=dtype)
+    rng = np.random.default_rng(7)
+    f = (d2q9.equilibrium(u, m0) * torch.as_tensor(
+        rng.uniform(0.97, 1.03, (9, R, C)), dtype=dtype, device=cuda)).contiguous()
+    kw = dict(cons_K=0.01, n=n, sigma_y=sigma_y)
+    plain = collide_stream.make_fused_step(
+        R, C, power_law.power_law_collide_fn(tau_min=0.52, tau_max=50.0, iters=8,
+                                             dtype=dtype, **kw), dtype, 3)
+    before = power_law.COLLIDE_STREAM_POWER_LAW.launches
+    got = power_law.make_power_law_fused_step(R, C, dtype=dtype, substeps=3, **kw)(f)
+    torch.cuda.synchronize()
+    assert power_law.COLLIDE_STREAM_POWER_LAW.launches - before == 3
+    assert (got - plain(f)).abs().max().item() <= TOL[dtype]
+
+
+def _launch_variant(f):
+    return channel.channel_variant(f, channel.ChannelVariant(**VARIANTS["gravity"]))
+
+
+def _launch_trt(f):
+    from lbm_tpu_torch.kernels import trt
+
+    return trt.collide_stream_trt(f, 1 / 0.9, OM_MINUS)
+
+
+def _launch_power_law(f):
+    from lbm_tpu_torch.kernels import power_law
+
+    return power_law.collide_stream_power_law(f, 0.01, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", [_launch_variant, _launch_trt, _launch_power_law])
+def test_kernels_9_to_11_reject_what_they_do_not_take(cuda, launch):
+    f = torch.zeros((9, 8, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch(f.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(f[:, :, ::2])
+    with pytest.raises(TypeError):
+        launch(f.to(torch.int32))
+    with pytest.raises(ValueError, match=r"\(9, R, C\)"):
+        launch(f[:8].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kwargs", [
+    ("gravity_channel", dict(H=21, W=21, T=300, tolerance=0.0)),
+    ("specular_channel", dict(H=31, W=21, T=300)),
+    ("free_stream", dict(H=30, W=24, T=100)),
+    ("free_stream", dict(H=30, W=24, T=200, corner_consistent=True)),
+    ("vertical_poiseuille", dict(H=21, W=17, T=300)),
+    ("vertical_poiseuille", dict(H=21, W=21, T=300, incompressible=True)),
+    ("trt_poiseuille", dict(H=21, W=21, T=300)),
+])
+def test_channel_variant_scenes_on_the_card_match_the_cpu(cuda, name, kwargs):
+    """Each kernel-9 scene in float64, one launch per step, against the same
+    scene on the CPU (the plain model step): 1e-12."""
+    before = channel.CHANNEL_VARIANT.launches
+    got = getattr(scene, name)(device=cuda, dtype=torch.float64, **kwargs)
+    assert channel.CHANNEL_VARIANT.launches - before == got.steps
+    want = getattr(scene, name)(device="cpu", dtype=torch.float64, **kwargs)
+    assert got.steps == want.steps and got.f.is_cuda
+    assert (got.f.cpu() - want.f).abs().max().item() <= 1e-12
+    assert (got.u.cpu() - want.u).abs().max().item() <= 1e-12
+
+
+@pytest.mark.cuda
+def test_power_law_channel_on_the_card_matches_the_cpu(cuda):
+    """The power-law channel has no kernel: plain tensor ops on the card,
+    equal to the CPU run within 1e-10 (libdevice and the CPU's exp and log
+    may differ by an ulp)."""
+    kw = dict(H=4, W=41, T=400, dtype=torch.float64)
+    got = scene.power_law_channel(device=cuda, **kw)
+    want = scene.power_law_channel(device="cpu", **kw)
+    assert got.steps == want.steps and got.f.is_cuda
+    assert (got.f.cpu() - want.f).abs().max().item() <= 1e-10
