@@ -33,7 +33,13 @@ with a nonzero exit code):
      (1 and 8 steps) and 128x128 float64; kernel 11 (power law) from
      bench.py's double-shear state at 4096x2048 float32 (1 and 8 steps) and
      at 128x128 float64 in its three branches (n = 0.5, n = 1.5, and
-     Newton with sigma_y = 5e-4, n = 0.8);
+     Newton with sigma_y = 5e-4, n = 0.8); kernel 12 (RK) from
+     rk_rayleigh_taylor's initial state at 4096x2048 float32 (1 and 8 steps)
+     and 1024x256 float32 and float64 (8 steps); kernel 13 (CSF droplet) from
+     csf_static_droplet's at 4096x2048 float32 (3 steps), 100x100 and 41x41
+     float64 (5 steps); kernel 14 (Shan-Chen) on lbm_tpu's noisy test states
+     at 4096x2048, 256x256 and 256x128 float32 and 128x128 float64, 4
+     steps, in all four eos/forcing instances;
   4. the channel kernels against their plain versions, 10 steps: kernel 2
      (BGK) at 4096x2048 float32, 21x21 and 101x101 float64; kernel 4 (KBC)
      at 4096x2048 float32, 128x128 and 24x24 float64, at
@@ -46,7 +52,7 @@ with a nonzero exit code):
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
      defaults in float64 (L2 <= 1e-11, one kernel-2 launch per step); its
-     CLI in a subprocess; the same scene at 4096x2048 float32, 1000 steps;
+     CLI; the same scene at 4096x2048 float32, 1000 steps;
      ulbm_poiseuille at the reference's defaults in float64, 300k steps
      watched (lbm_tpu's hardware gates, one kernel-4 launch per step);
      ulbm_double_shear at the reference's defaults in float64 (10k steps,
@@ -69,10 +75,21 @@ with a nonzero exit code):
      configs/channel.toml in float64 (2700x2100, 1580 steps, 20 snapshot
      frames per field streamed to disk); power_law_channel (no kernel) on
      the card against the CPU; the vertical_poiseuille and free_stream CLIs;
+     rk_rayleigh_taylor at 1024x256 for 100k steps in float32 and float64
+     (validate_tpu.py rk_rt_100k, one kernel-12 launch per step);
+     csf_static_droplet at the reference's 100x100, 100 steps, float64
+     through kernel 13 (tests/test_multiphase.py's invariants);
+     rk_static_droplet (no kernel) at its defaults on the card against the
+     CPU; the Shan-Chen gates of validate_tpu.py shan_chen through kernel 14
+     in float32, 4 steps per call; the rk_rayleigh_taylor and
+     sc_flat_interface CLIs (the CLIs run in one subprocess, each as
+     ``python -m lbm_tpu_torch.run`` runs it, after the timed runs and
+     beside rk_static_droplet's CPU reference);
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
-     in float64; kernel 6 at 256x128; each kernel's bound (bytes over
+     in float64; kernels 6 at 256x128 and 12 at 1024x256 under a CUDA
+     graph; each kernel's bound (bytes over
      HBM3's rate against operations, counted on its plain version, over
      the fp32 peak; exp, log, expm1, clamp, where, maximum and minimum
      count one operation per element).
@@ -82,6 +99,8 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import atexit
+import functools
 import json
 import statistics
 import subprocess
@@ -105,6 +124,15 @@ DROPLET = {"sigma": 0.1, "gravity": (0.0, -6.25e-6), "apply_gravity_source": Fal
 TRT_OMEGA = 1.0 / 0.9  # bench.py's TRT rate; the odd rate keeps Lambda = 3/16
 PLAW = {"cons_K": 0.01, "n": 0.5}  # bench.py's power-law constants
 TAU_MAGIC = (3.0 / 16.0) ** 0.5 + 0.5  # the reference's Poiseuille tau
+# rk_rayleigh_taylor's defaults (kernel 12), csf_static_droplet's colours
+# (kernel 13) and the Shan-Chen scenes' instances (kernel 14: G = -5, or the
+# CS EOS at T/T_c = 0.7)
+RK = {"r_alpha": 11.0 / 15.0, "b_alpha": 0.2, "r_nu": 0.04, "b_nu": 0.04, "sigma": 0.1,
+      "beta": 0.7, "gravity": (-6.25e-6, 0.0)}
+CSF_DROP = ({"rho_0": 1.0, "alpha": 0.2, "nu": 0.1667, "A": 0.5, "beta": 0.7},
+            {"rho_0": 1.0, "alpha": 0.2, "nu": 0.1667, "A": 0.5, "beta": -0.7})
+SC_INSTANCES = (("sc", "guo"), ("sc", "shift"), ("cs", "shift"), ("cs", "guo"))
+T_RED = 0.7
 
 
 def variants():
@@ -226,16 +254,38 @@ def check_gates(name, gates) -> None:
         raise AssertionError(f"{name}: gates failed: {bad}")
 
 
-def run_cli(*args: str) -> None:
-    """``python -m lbm_tpu_torch.run *args`` in a subprocess; fail unless it
-    exits with 0."""
-    cli = subprocess.run([sys.executable, "-m", "lbm_tpu_torch.run", *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
-    err = cli.stderr.strip()
-    log(f"[5] CLI {' '.join(args)}: rc={cli.returncode} "
-        f"{err.splitlines()[-1] if err else ''}")
-    if cli.returncode != 0:
-        raise AssertionError(f"CLI failed:\n{cli.stderr[-3000:]}")
+def start_clis(argvs):
+    """Start each argv as ``python -m lbm_tpu_torch.run *argv``, all in one
+    subprocess (runpy runs the module as ``-m`` does), so the interpreter,
+    torch and the kernel library start once; ``finish_clis`` waits."""
+    code = ("import runpy, sys\n"
+            f"for argv in {[list(a) for a in argvs]!r}:\n"
+            "    sys.argv = ['lbm_tpu_torch.run', *argv]\n"
+            "    try:\n"
+            "        runpy.run_module('lbm_tpu_torch.run', run_name='__main__', alter_sys=True)\n"
+            "        rc = 0\n"
+            "    except SystemExit as e:\n"
+            "        rc = e.code if isinstance(e.code, int) else int(e.code is not None)\n"
+            "    print(f'CLI rc={rc}', file=sys.stderr, flush=True)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)  # a failed phase must not leave it running
+    return proc, list(argvs), time.perf_counter()
+
+
+def finish_clis(started) -> None:
+    """Wait for ``start_clis``'s process; fail unless each CLI exits with 0."""
+    proc, argvs, t0 = started
+    _, err = proc.communicate(timeout=900)
+    lines = err.strip().splitlines()
+    results = [(lines[i - 1] if i else "", line) for i, line in enumerate(lines)
+               if line.startswith("CLI rc=")]
+    for argv, (last, rc) in zip(argvs, results):
+        log(f"[5] CLI {' '.join(argv)}: {rc} {last}")
+    log(f"[5] {len(argvs)} CLI runs in one process: {time.perf_counter() - t0!r} s")
+    if proc.returncode != 0 or len(results) != len(argvs) or \
+            any(rc != "CLI rc=0" for _, rc in results):
+        raise AssertionError(f"CLI failed:\n{err[-3000:]}")
 
 
 def mrtcg_state(R, C, dtype, device, csf=False, droplet=False):
@@ -290,6 +340,93 @@ def mrtcg_steps(layout, R, C, dtype, csf, droplet=False):
                else mrtcg.make_mrtcg_split_step)
     step = factory(R, C, red, blue, dtype=dtype, surface_tension=mode, **kw)
     return (lambda G: step(G).reshape(-1, R, C)), plain
+
+
+def rk_state(R, C, dtype, device):
+    """rk_rayleigh_taylor's initial state, [f (9), r_rho, b_rho]."""
+    import torch
+
+    from lbm_tpu_torch.models.rk_cg import RKMixtureModel
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    st = RKMixtureModel(r_rho_0=3.0, b_rho_0=1.0, **RK).init_state(
+        mp.init_rho_cosine(R, C, 3.0, False, 1.0), mp.init_rho_cosine(R, C, 1.0, True, 1.0),
+        dtype=dtype, device=device)
+    return torch.cat([st.f, st.r_rho[None], st.b_rho[None]]).contiguous()
+
+
+def csf_drop_colours():
+    from lbm_tpu_torch.models.mrt_csf_droplet import CSFColour
+
+    return tuple(CSFColour(**c) for c in CSF_DROP)
+
+
+def csf_drop_state(R, C, dtype, device):
+    """csf_static_droplet's initial state at radius min(R, C)/4, [red f,
+    blue f, fs = 0]."""
+    import torch
+
+    from lbm_tpu_torch.models.mrt_csf_droplet import CSFDropletModel
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    radius = min(R, C) / 4.0
+    st = CSFDropletModel(*csf_drop_colours()).init_state(
+        mp.init_rho_droplet(R, C, 1.0, True, radius, 2.0),
+        mp.init_rho_droplet(R, C, 1.0, False, radius, 2.0), dtype=dtype, device=device)
+    return torch.cat([st.red.f, st.blue.f,
+                      torch.zeros((2, R, C), dtype=dtype, device=device)]).contiguous()
+
+
+@functools.cache
+def cs_coexistence():
+    """(T, rho_v, rho_l) of the CS EOS at T/T_c = T_RED (Maxwell)."""
+    from lbm_tpu_torch.models.shan_chen import CS_TC, maxwell_coexistence
+
+    return (T_RED * CS_TC, *maxwell_coexistence(T_RED * CS_TC))
+
+
+def sc_kwargs(eos, forcing):
+    """make_sc_fused_step keywords of one kernel-14 instance."""
+    if eos == "cs":
+        return {"omega": 1.0, "eos": "cs", "T": cs_coexistence()[0], "forcing": forcing}
+    return {"omega": 1.0, "G": -5.0, "eos": "sc", "forcing": forcing}
+
+
+def sc_state(R, C, dtype, device, eos, seed):
+    """The equilibrium at rest of lbm_tpu's kernel-test density: 0.7 + 0.1
+    N(0, 1) (tests/test_shan_chen.py:99-101), or for the CS EOS the
+    coexistence midpoint with 0.2 (rho_l - rho_v) N(0, 1) noise (:186-188)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.ops import d2q9
+
+    rng = np.random.default_rng(seed)
+    if eos == "cs":
+        _, rv, rl = cs_coexistence()
+        rho = 0.5 * (rv + rl) + 0.2 * (rl - rv) * rng.standard_normal((R, C))
+    else:
+        rho = 0.7 + 0.1 * rng.standard_normal((R, C))
+    return d2q9.equilibrium(torch.zeros((2, R, C), dtype=dtype, device=device),
+                            torch.as_tensor(rho, dtype=dtype, device=device)).contiguous()
+
+
+def hold_steps(name, make_kernel, make_plain, make_state, cases, device):
+    """Each case (dtype, (R, C), steps): ``make_kernel(R, C, dtype, steps)``
+    (one call of ``steps`` launches) against ``steps`` calls of
+    ``make_plain()`` from ``make_state(R, C, dtype, device)``.  Returns the
+    max error per dtype."""
+    errs = {}
+    for dtype, (R, C), steps in cases:
+        x = make_state(R, C, dtype, device)
+        got = make_kernel(R, C, dtype, steps)(x)
+        plain, want = make_plain(), x
+        for _ in range(steps):
+            want = plain(want)
+        e = compare(f"{name} {R}x{C} {dtype} {steps} step(s)", got, want, dtype)
+        errs[dtype] = max(errs.get(dtype, 0.0), e)
+        del x, got, want
+    return errs
 
 
 def reduced_input(S, csf):
@@ -386,12 +523,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from lbm_tpu_torch.kernels import (_build, bgk, channel, collide_stream, les, mrtcg,
-                                       power_law, trt)
+    from lbm_tpu_torch.kernels import (_build, bgk, channel, collide_stream, csf_droplet,
+                                       les, mrtcg, power_law, rk, shan_chen, trt)
     from lbm_tpu_torch.models import kbc
     from lbm_tpu_torch.models.mrt_cg import phase_field
     from lbm_tpu_torch.models.trt import omega_minus_from_magic
     from lbm_tpu_torch.scenes import multiphase as mp
+    from lbm_tpu_torch.scenes import shan_chen as scs
     from lbm_tpu_torch.ops import d2q9
     from lbm_tpu_torch.scenes import channel as chs
     from lbm_tpu_torch.scenes import ulbm
@@ -403,10 +541,12 @@ def main() -> int:
     k6, k7, k8 = mrtcg.MRTCG_REDUCED, mrtcg.MRTCG_SPLIT, mrtcg.MRTCG_FULL
     k9, k10 = channel.CHANNEL_VARIANT, trt.COLLIDE_STREAM_TRT
     k11 = power_law.COLLIDE_STREAM_POWER_LAW
+    k12, k13, k14 = rk.RK_CG, csf_droplet.CSF_DROPLET, shan_chen.SHAN_CHEN
     counted = {"collide_stream_bgk": k1, "channel_bgk": k2, "collide_stream_kbc": k3,
                "channel_kbc": k4, "collide_stream_les": k5, "mrtcg_reduced": k6,
                "mrtcg_split": k7, "mrtcg_full": k8, "channel_variant": k9,
-               "collide_stream_trt": k10, "collide_stream_power_law": k11}
+               "collide_stream_trt": k10, "collide_stream_power_law": k11, "rk_cg": k12,
+               "csf_droplet": k13, "shan_chen": k14}
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
     card = nvidia_smi("name,power.limit")
@@ -548,6 +688,36 @@ def main() -> int:
         del f, got, want
     torch.cuda.empty_cache()
 
+    # kernel 12 (RK) from rk_rayleigh_taylor's initial state; kernel 13 (CSF
+    # droplet) from csf_static_droplet's at radius min(R, C)/4; kernel 14
+    # (Shan-Chen) on noisy states in its four eos/forcing instances
+    err12 = hold_steps(
+        "[3] kernel 12", lambda R, C, dt, n: rk.make_rk_fused_step(
+            R, C, dtype=dt, substeps=n, **RK),
+        lambda: rk.make_plain_step(**RK), rk_state,
+        [(f32, BIG, 1), (f32, BIG, 8), (f32, (1024, 256), 8), (f64, (1024, 256), 8)], dev)
+    torch.cuda.empty_cache()
+    red13, blue13 = csf_drop_colours()
+    err13 = hold_steps(
+        "[3] kernel 13", lambda R, C, dt, n: csf_droplet.make_csf_droplet_fused_step(
+            R, C, red13, blue13, 0.1, dtype=dt, substeps=n),
+        lambda: csf_droplet.make_plain_step(red13, blue13, 0.1), csf_drop_state,
+        [(f32, BIG, 3), (f64, (100, 100), 5), (f64, (41, 41), 5)], dev)
+    torch.cuda.empty_cache()
+    err14 = {}
+    for eos, forcing in SC_INSTANCES:
+        kw = sc_kwargs(eos, forcing)
+        e = hold_steps(
+            f"[3] kernel 14 {eos}/{forcing}", lambda R, C, dt, n, kw=kw:
+            shan_chen.make_sc_fused_step(R, C, dtype=dt, substeps=n, **kw),
+            lambda kw=kw: shan_chen.make_plain_step(**kw),
+            lambda R, C, dt, d, eos=eos: sc_state(R, C, dt, d, eos, seed=R + C),
+            [(f32, BIG, 4), (f32, (256, 256), 4), (f32, (256, 128), 4),
+             (f64, (128, 128), 4)], dev)
+        for dt, v in e.items():
+            err14[dt] = max(err14.get(dt, 0.0), v)
+    torch.cuda.empty_cache()
+
     # 4. the channel kernels against their plain versions, 10 steps
     tau, rho_in = TAU_DEFAULT, 1.001  # the Poiseuille tau; a 0.1% pressure drop
     err2, err4 = {}, {}
@@ -629,7 +799,8 @@ def main() -> int:
             and res.f.is_cuda):
         raise AssertionError("Poiseuille gate failed on the card")
 
-    run_cli("horizontal_poiseuille", "--x64", "--device", "cuda")
+    # the CLIs of every path run together in one process later in phase 5
+    clis = [("horizontal_poiseuille", "--x64", "--device", "cuda")]
 
     before = k2.launches
     big = horizontal_poiseuille(H=R, W=C, T=1000, device=dev, dtype=f32)
@@ -705,7 +876,7 @@ def main() -> int:
     })
     del ls
 
-    run_cli("ulbm_double_shear", "--x64", "--device", "cuda", "--set", "T=200")
+    clis.append(("ulbm_double_shear", "--x64", "--device", "cuda", "--set", "T=200"))
 
     # the MRT-CG scenes: kernel 6 for T-1 steps and kernel 7 once per run
     red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
@@ -785,7 +956,7 @@ def main() -> int:
     check_gates("[5] CSF growth float32", gates)
     del res
 
-    run_cli("mrtcg_static_droplet", "--x64", "--device", "cuda", "--set", "T=200")
+    clis.append(("mrtcg_static_droplet", "--x64", "--device", "cuda", "--set", "T=200"))
 
     # the full per-colour layout (kernel 8, lbm_tpu's make_mrtcg_fused_step /
     # make_csf_fused_step) from the scenes' initial states gives the scenes'
@@ -943,11 +1114,117 @@ def main() -> int:
         "max|f_card - f_cpu|": ((got.f.cpu() - want.f).abs().max().item(), 0.0, 1e-10)})
     del got, want
 
-    run_cli("vertical_poiseuille", "--x64", "--device", "cuda")
-    run_cli("free_stream", "--config", "configs/channel.toml", "--set", "T=158",
-            "--device", "cuda")
+    clis += [("vertical_poiseuille", "--x64", "--device", "cuda"),
+             ("free_stream", "--config", "configs/channel.toml", "--set", "T=158",
+              "--device", "cuda")]
 
+    # the multiphase slice of kernels 12-14: its counts start at 0 here and
+    # are read at its end
     launches = {name: k.launches for name, k in counted.items()}
+    for k in counted.values():
+        k.launches = 0
+
+    # the RK-CG Rayleigh-Taylor at the reference's largest single-domain
+    # workload, 1024x256 for 100k steps (validate_tpu.py rk_rt_100k), one
+    # kernel-12 launch per step
+    rk_wall = {}
+    mass0 = (mp.init_rho_cosine(1024, 256, 3.0, False, 1.0)
+             + mp.init_rho_cosine(1024, 256, 1.0, True, 1.0)).sum()
+    for dtype in (f32, f64):
+        before = k12.launches
+        t0 = time.perf_counter()
+        res = mp.rk_rayleigh_taylor(L=256, T=100000, device=dev, dtype=dtype)
+        torch.cuda.synchronize()
+        rk_wall[dtype] = wall = time.perf_counter() - t0
+        r_rho = res.state.r_rho.double().cpu().numpy()
+        b_rho = res.state.b_rho.double().cpu().numpy()
+        psi = (r_rho / 3.0 - b_rho) / (r_rho / 3.0 + b_rho)
+        h = (psi > 0).sum(axis=0).astype(float)
+        check_gates(f"[5] rk_rayleigh_taylor 1024x256 {dtype} 100000 steps (host wall time "
+                    f"{wall!r} s = {wall / res.steps * 1e6!r} us/step)", {
+            "finite": (float(np.isfinite(psi).all() and bool(torch.isfinite(res.state.f).all())),
+                       1.0, 1.0),
+            "mass rel drift": (abs((r_rho + b_rho).sum() / mass0 - 1.0), 0.0, 5e-3),
+            "|psi|max": (float(np.abs(psi).max()), 0.9, 1.001),
+            "interface std": (float(h.std()), 0.0, 1.5),
+            "interface mean": (float(h.mean()), 505.0, 517.0),
+            "kernel-12 launches - steps": (k12.launches - before - res.steps, 0, 0)})
+        del res
+
+    # csf_static_droplet at the reference's L = 100, T = 100 in float64
+    # through kernel 13 (tests/test_multiphase.py:147-166's invariants)
+    before = k13.launches
+    res = mp.csf_static_droplet(device=dev, dtype=f64)
+    st = res.state
+    red_rho, blue_rho = st.red.rho.double(), st.blue.rho.double()
+    rho = red_rho + blue_rho
+    check_gates("[5] csf_static_droplet 100x100 float64 100 steps", {
+        "finite": (float(torch.isfinite(st.red.f).all() and torch.isfinite(st.blue.f).all()),
+                   1.0, 1.0),
+        "red mass rel diff": (abs(red_rho.sum().item() / mp.init_rho_droplet(
+            100, 100, 1.0, True, 25.0, 2.0).sum() - 1.0), 0.0, 1e-10),
+        "blue mass rel diff": (abs(blue_rho.sum().item() / mp.init_rho_droplet(
+            100, 100, 1.0, False, 25.0, 2.0).sum() - 1.0), 0.0, 1e-10),
+        "|psi|max": (((red_rho - blue_rho) / rho).abs().max().item(), 0.0, 1.0 + 1e-9),
+        "rho min": (rho.min().item(), 0.5, 1.5), "rho max": (rho.max().item(), 0.5, 1.5),
+        "kernel-13 launches": (k13.launches - before, 100, 100)})
+    del res, st
+
+    # rk_static_droplet has no kernel: plain ops on the card (timed here),
+    # held against the CPU below
+    t0 = time.perf_counter()
+    drop = mp.rk_static_droplet(device=dev, dtype=f64)
+    torch.cuda.synchronize()
+    drop_wall = time.perf_counter() - t0
+
+    # the Shan-Chen gates of validate_tpu.py shan_chen in float32, 4 steps
+    # per call, one kernel-14 launch per step
+    def sc_scene(label, fn, **kw):
+        before = k14.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev, dtype=f32, substeps=4, **kw)
+        torch.cuda.synchronize()
+        label = f"[5] {label} (host wall time {time.perf_counter() - t0!r} s)"
+        return res, label, {"kernel-14 launches - steps": (k14.launches - before - res.steps,
+                                                           0, 0)}
+
+    res, label, gates = sc_scene("sc_phase_separation 256x256 float32 4000 steps",
+                                 scs.sc_phase_separation, H=256, W=256, T=4000, G=-5.0)
+    gates["rho_l / rho_v"] = (res.rho_l / max(res.rho_v, 1e-6), 4.0, 50.0)
+    check_gates(label, gates)
+    res, label, gates = sc_scene("sc_flat_interface 256x128 float32 12000 steps",
+                                 scs.sc_flat_interface, H=256, W=128, T=12000, G=-5.0)
+    gates.update({"p_jump": (res.p_jump, 0.0, 0.03), "rho_l": (res.rho_l, 1.5, 2.2)})
+    check_gates(label, gates)
+    res, label, gates = sc_scene("sc_cs_interface 256x128 float32 12000 steps T/T_c 0.7",
+                                 scs.sc_cs_interface, H=256, W=128, T=12000, T_red=T_RED)
+    gates.update({"rho_l / rho_v": (res.rho_l / max(res.rho_v, 1e-9), 30.0, 120.0),
+                  "rho_l / Maxwell rho_l": (res.rho_l / cs_coexistence()[2], 0.98, 1.02)})
+    check_gates(label, gates)
+    del res
+
+    # the timed runs are over: the CLIs of every path run in their own
+    # process while this one computes rk_static_droplet on the CPU
+    clis += [("rk_rayleigh_taylor", "--device", "cuda", "--set", "T=1000"),
+             ("sc_flat_interface", "--device", "cuda", "--set", "substeps=4", "--set", "T=2000")]
+    cli_run = start_clis(clis)
+    want = mp.rk_static_droplet(device="cpu", dtype=f64)
+    check_gates(f"[5] rk_static_droplet 101x101 float64 2000 steps on the card vs the CPU "
+                f"(card host wall time {drop_wall!r} s)", {
+        "finite": (float(torch.isfinite(drop.state.red.f).all()), 1.0, 1.0),
+        "max|card - cpu|": (max((g.cpu() - w).abs().max().item() for g, w in (
+            (drop.state.red.f, want.state.red.f), (drop.state.blue.f, want.state.blue.f),
+            (drop.state.u, want.state.u))), 0.0, 1e-10)})
+    del drop, want
+
+    finish_clis(cli_run)
+
+    slice_launches = {name: counted[name].launches for name in ("rk_cg", "csf_droplet",
+                                                                 "shan_chen")}
+    log(f"[5] kernel 12-14 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the RK / CSF-droplet / Shan-Chen path never launched")
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -985,6 +1262,26 @@ def main() -> int:
     plain11 = collide_stream.make_fused_step(
         R, C, power_law.power_law_collide_fn(tau_min=0.52, tau_max=50.0, iters=8, dtype=f32,
                                              **PLAW), f32)
+
+    def new_kernels(dtype):
+        """(kernel call, plain call) of kernels 12-14 at 4096x2048, from the
+        states of phase 3 (kernel 14: sc/guo and cs/shift)."""
+        S12, S13 = rk_state(R, C, dtype, dev), csf_drop_state(R, C, dtype, dev)
+        f14, f14c = (sc_state(R, C, dtype, dev, eos, seed=15) for eos in ("sc", "cs"))
+        k = {"rk_cg": (rk.make_rk_fused_step(R, C, dtype=dtype, **RK), rk.make_plain_step(**RK),
+                       S12),
+             "csf_droplet": (csf_droplet.make_csf_droplet_fused_step(
+                 R, C, red13, blue13, 0.1, dtype=dtype),
+                 csf_droplet.make_plain_step(red13, blue13, 0.1), S13)}
+        for name, eos, x in (("shan_chen", ("sc", "guo"), f14), ("shan_chen_cs", ("cs", "shift"),
+                                                                 f14c)):
+            kw = sc_kwargs(*eos)
+            k[name] = (shan_chen.make_sc_fused_step(R, C, dtype=dtype, **kw),
+                       shan_chen.make_plain_step(**kw), x)
+        return {name: ((lambda s=s, x=x: s(x)), (lambda q=q, x=x: q(x)))
+                for name, (s, q, x) in k.items()}
+
+    new32 = new_kernels(f32)
     fns = {
         "collide_stream_bgk": (lambda: collide_stream.collide_stream_bgk(f, OMEGA), 50),
         "collide_stream_bgk_plain": (lambda: plain1(f), 10),
@@ -1014,6 +1311,9 @@ def main() -> int:
         "collide_stream_trt_plain": (lambda: plain10(f), 10),
         "collide_stream_power_law": (lambda: power_law.collide_stream_power_law(fp, **PLAW), 50),
         "collide_stream_power_law_plain": (lambda: plain11(fp), 5),
+        **{k: v for name, (kern, plain) in new32.items() for k, v in (
+            (name, (kern, 30 if name in ("rk_cg", "csf_droplet") else 50)),
+            (f"{name}_plain", (plain, 3 if name in ("rk_cg", "csf_droplet") else 5)))},
         "copy": (lambda: dst.copy_(f), 50),
     }
     runs = {k: [] for k in fns}
@@ -1028,7 +1328,7 @@ def main() -> int:
     # bytes per cell in float32: each input plane read once, each output
     # plane written once
     bytes32 = {"mrtcg_reduced": 80, "mrtcg_reduced_csf": 96, "mrtcg_split": 112,
-               "mrtcg_full": 144}
+               "mrtcg_full": 144, "rk_cg": 88, "csf_droplet": 160}
     for k in fns:
         if k == "copy":
             continue
@@ -1037,7 +1337,7 @@ def main() -> int:
         gbs = b * cells / (ms[k] * 1e-3) / 1e9
         log(f"[6] {k}: {ms[k]!r} ms/step (runs {runs[k]}) = {mlups!r} MLUPS, "
             f"{gbs!r} GB/s at {b} B/cell = {gbs / copy_gbs!r} of copy")
-    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt, fs, fp
+    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt, fs, fp, new32
     torch.cuda.empty_cache()
     f = seeded_state(R, C, f64, dev, seed=8)
     fs = seeded_state(R, C, f64, dev, seed=14, incompressible=True, noisy=True)
@@ -1051,6 +1351,7 @@ def main() -> int:
     mrt = {layout_csf: mrtcg_steps(layout_csf[0], R, C, f64, layout_csf[1])[0]
            for layout_csf in (("reduced", False), ("reduced", True), ("split", False),
                               ("full", False))}
+    new64 = new_kernels(f64)
     ms64 = {}
     for k, fn in (
             ("collide_stream_bgk", lambda: collide_stream.collide_stream_bgk(f, OMEGA)),
@@ -1068,8 +1369,9 @@ def main() -> int:
             ("channel_variant_free_stream", lambda: channel.channel_variant(fs, free, free_c)),
             ("collide_stream_trt", lambda: trt.collide_stream_trt(f, TRT_OMEGA, trt_minus)),
             ("collide_stream_power_law",
-             lambda: power_law.collide_stream_power_law(fp, **PLAW))):
-        t = ms64[k] = cuda_ms(fn, 20 if k.startswith("mrtcg") else 50)
+             lambda: power_law.collide_stream_power_law(fp, **PLAW)),
+            *((name, kern) for name, (kern, _) in new64.items())):
+        t = ms64[k] = cuda_ms(fn, 20 if k.startswith(("mrtcg", "rk", "csf")) else 50)
         b = 2 * bytes32.get(k, 72)
         gbs = b * cells / (t * 1e-3) / 1e9
         log(f"[6] {k} float64: {t!r} ms/step = {cells / (t * 1e-3) / 1e6!r} MLUPS, "
@@ -1084,10 +1386,11 @@ def main() -> int:
     for k, fn in (("channel_variant", lambda: plain9g(fi)),
                   ("channel_variant_free_stream", lambda: plain9f(fs)),
                   ("collide_stream_trt", lambda: plain10_64(f)),
-                  ("collide_stream_power_law", lambda: plain11_64(fp))):
-        plain64[k] = cuda_ms(fn, 5)
+                  ("collide_stream_power_law", lambda: plain11_64(fp)),
+                  *((name, plain) for name, (_, plain) in new64.items())):
+        plain64[k] = cuda_ms(fn, 3 if k in ("rk_cg", "csf_droplet") else 5)
         log(f"[6] {k}_plain float64: {plain64[k]!r} ms/step")
-    del f, fi, fc, S8, G6, G6c, mrt, fs, fp
+    del f, fi, fc, S8, G6, G6c, mrt, fs, fp, new64
     torch.cuda.empty_cache()
 
     # kernel 6 at the reference's RT grid, 256x128: the device time per
@@ -1114,6 +1417,29 @@ def main() -> int:
             f"of 100 steps), {t_eager!r} ms/step issued eagerly, "
             f"{wall / steps * 1e6!r} host us/step over the 100k-step run")
         del graph, y
+
+    # kernel 12 at the reference's RK grid, 1024x256: as kernel 6 above
+    ms_rk_small = {}
+    for dtype in (f32, f64):
+        S = rk_state(1024, 256, dtype, dev)
+        step = rk.make_rk_fused_step(1024, 256, dtype=dtype, **RK)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(S)  # warm up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = S
+            for _ in range(100):
+                y = step(y)
+        ms_rk_small[dtype] = t_graph = cuda_ms(graph.replay, 10) / 100
+        t_eager = cuda_ms(lambda: step(S), 500)
+        log(f"[6] rk_cg 1024x256 {dtype}: {t_graph!r} device ms/step (CUDA graph of 100 "
+            f"steps) = {1024 * 256 / (t_graph * 1e-3) / 1e6!r} MLUPS, {t_eager!r} ms/step "
+            f"issued eagerly, {rk_wall[dtype] / 100000 * 1e6!r} host us/step over the "
+            f"100k-step run")
+        del graph, y, S
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1159,6 +1485,13 @@ def main() -> int:
             small, small, power_law.power_law_collide_fn(
                 tau_min=0.52, tau_max=50.0, iters=8, dtype=f32, **PLAW), f32),
             shear_state(small, small, f32, cpu)),
+        "rk_cg": (rk.make_plain_step(**RK), rk_state(small, small, f32, cpu)),
+        "csf_droplet": (csf_droplet.make_plain_step(red13, blue13, 0.1),
+                        csf_drop_state(small, small, f32, cpu)),
+        "shan_chen": (shan_chen.make_plain_step(**sc_kwargs("sc", "guo")),
+                      sc_state(small, small, f32, cpu, "sc", seed=1)),
+        "shan_chen_cs": (shan_chen.make_plain_step(**sc_kwargs("cs", "shift")),
+                         sc_state(small, small, f32, cpu, "cs", seed=2)),
     }
     bounds = {}
     for name, (fn, x) in plains.items():
@@ -1181,6 +1514,9 @@ def main() -> int:
         ("channel_variant", "lbm_tpu/kernels/channel_pallas.py:158", err9),
         ("collide_stream_trt", "lbm_tpu/kernels/trt_pallas.py:74", err10),
         ("collide_stream_power_law", "lbm_tpu/kernels/power_law_pallas.py:144", err11),
+        ("rk_cg", "lbm_tpu/kernels/rk_pallas.py:163", err12),
+        ("csf_droplet", "lbm_tpu/kernels/csf_droplet_pallas.py:66", err13),
+        ("shan_chen", "lbm_tpu/kernels/shan_chen_pallas.py:172", err14),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{name}.cu",
@@ -1204,6 +1540,10 @@ def main() -> int:
                       bound_ms_free_stream=bounds["channel_variant_free_stream"][0])
     for entry in kernels[8:]:
         entry["plain_ms_f64"] = plain64[entry["name"]]
+    kernels[11].update(ms_1024x256=ms_rk_small[f32], ms_1024x256_f64=ms_rk_small[f64])
+    kernels[13].update(ms_cs=ms["shan_chen_cs"], plain_ms_cs=ms["shan_chen_cs_plain"],
+                       ms_cs_f64=ms64["shan_chen_cs"], plain_ms_cs_f64=plain64["shan_chen_cs"],
+                       bound_ms_cs=bounds["shan_chen_cs"][0])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,19 @@ __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
+// Periodic wrap of any index into [0, n) (a halo may be wider than a small
+// grid).
+__device__ __forceinline__ int64_t wrap_any(int64_t i, int64_t n) {
+  const int64_t m = i % n;
+  return m < 0 ? m + n : m;
+}
+
+// The tile of the stencil kernels (6-8, 12-14): a block of TY x TX threads,
+// one output cell each.
+constexpr int TY = 8;
+constexpr int TX = 32;
+constexpr int THREADS = TY * TX;
+
 template <typename T>
 __device__ __forceinline__ void load9(const T* __restrict__ f, int64_t plane,
                                       int64_t cell, T out[9]) {

@@ -1,4 +1,6 @@
-// The MRT colour-gradient two-phase step of one tile, shared by kernels 6-8.
+// The MRT colour-gradient two-phase step of one tile, shared by kernels 6-8;
+// kernel 12 (csrc/rk_cg.cu) reuses its tile, window, stencil and pull
+// (Window, corr5, clamp_index, pull_source).
 //
 // Replaces the body of the TPU kernels in lbm_tpu/kernels/mrtcg_pallas.py:
 // make_mrtcg_body :644 around _make_collide :289, _mrt_omega1 :221,
@@ -20,7 +22,7 @@
 //      post-collision values into shared memory (the CSF force of tile
 //      cells goes straight to the output: it is carried, not streamed);
 //   3. each tile cell PULLS its streamed populations with exactly the
-//      select chain of _stream_with_bcs: periodic, then the column repair
+//      select chain of _stream_with_bcs (pull_source): periodic, then the column repair
 //      without the diagonal offset on rows 1..R-2, then bounce-back on row
 //      R-1 and on row 0.  The red density of the reduced state is the sum
 //      of the pulled red values in ascending k, with no atomics.
@@ -43,9 +45,9 @@
 namespace lbm {
 namespace mrtcg {
 
-constexpr int TY = 8;
-constexpr int TX = 32;
-constexpr int THREADS = TY * TX;
+using lbm::THREADS;
+using lbm::TX;
+using lbm::TY;
 constexpr int RING_R = TY + 2;
 constexpr int RING_C = TX + 2;
 constexpr int RING_N = RING_R * RING_C;
@@ -469,6 +471,35 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   }
 }
 
+// Where tile cell (ty, tx), at global (gr, gc), pulls its population k
+// from in the ring of post-collision values: the ring slot and the plane,
+// by the select chain of _stream_with_bcs (periodic, then the column
+// repair without the diagonal offset on rows 1..R-2, then bounce-back on
+// row R-1 and, written last, on row 0).  Each output entry has exactly
+// one writer, its own thread.
+struct PullSource {
+  int slot, plane;
+};
+
+__device__ __forceinline__ PullSource pull_source(int k, int ty, int tx, int64_t gr,
+                                                  int64_t gc, int64_t R, int64_t C) {
+  const bool interior = gr >= 1 && gr <= R - 2;
+  int sr = ty + 1 - cx(k), sc = tx + 1 - cy(k), sk = k;  // periodic stream
+  if (interior && ((gc == 0 && cy(k) > 0) || (gc == C - 1 && cy(k) < 0)))
+    sr = ty + 1;  // periodic column repair without the diagonal offset
+  if (gr == R - 1 && cx(k) < 0) {  // bounce-back on row R-1
+    sr = ty + 1;
+    sc = tx + 1;
+    sk = opp(k);
+  }
+  if (gr == 0 && cx(k) > 0) {  // bounce-back on row 0, written last
+    sr = ty + 1;
+    sc = tx + 1;
+    sk = opp(k);
+  }
+  return {sr * RING_C + sc, sk};
+}
+
 template <int H>
 __host__ __device__ constexpr int scalar_fields() {
   return H == 5 ? 5 : 3;
@@ -579,26 +610,12 @@ __global__ void __launch_bounds__(THREADS)
   if (ty >= nrows || tx >= ncols) return;
   const int64_t gr = r0 + ty, gc = c0 + tx;
   const int64_t cell = gr * C + gc;
-  const bool interior = gr >= 1 && gr <= R - 2;
   T red_sum = T(0);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    int sr = ty + 1 - cx(k), sc = tx + 1 - cy(k), sk = k;  // periodic stream
-    if (interior && ((gc == 0 && cy(k) > 0) || (gc == C - 1 && cy(k) < 0)))
-      sr = ty + 1;  // periodic column repair without the diagonal offset
-    if (gr == R - 1 && cx(k) < 0) {  // bounce-back on row R-1
-      sr = ty + 1;
-      sc = tx + 1;
-      sk = opp(k);
-    }
-    if (gr == 0 && cx(k) > 0) {  // bounce-back on row 0, written last
-      sr = ty + 1;
-      sc = tx + 1;
-      sk = opp(k);
-    }
-    const int s = sr * RING_C + sc;
-    out[k * n + cell] = s_ring[sk * RING_N + s];
-    const T b = s_ring[(9 + sk) * RING_N + s];
+    const PullSource src = pull_source(k, ty, tx, gr, gc, R, C);
+    out[k * n + cell] = s_ring[src.plane * RING_N + src.slot];
+    const T b = s_ring[(9 + src.plane) * RING_N + src.slot];
     if (ROUT)
       red_sum = k == 0 ? b : red_sum + b;
     else

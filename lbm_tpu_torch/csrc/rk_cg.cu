@@ -1,0 +1,259 @@
+// Kernel 12: one RK (Rothman-Keller / Reis-Phillips) colour-gradient mixture
+// step, (11, R, C) -> (11, R, C), state [f (9), r_rho, b_rho].
+//
+// Replaces the TPU kernel lbm_tpu/kernels/rk_pallas.py:163
+// make_rk_fused_step (body make_rk_body :130, collision _make_collide :31).
+// The arithmetic is the plain version kernels/rk.py::make_collide, operation
+// for operation in the same order, built with -fmad=false
+// (kernels/_build.py UNIT_FLAGS): each operation rounds once, as the plain
+// version's elementwise ops do, so the two agree bit for bit.  One step:
+// omega_rp and alpha/phi per cell, the 5x5 replicate-padded colour gradient
+// taken once on r_rho/rho, BGK + Guo gravity + the Reis perturbation in
+// opposite-pair even/odd parts, the +/-beta recolouring, per-colour streaming
+// with the multiphase walls (the rule of kernel 6), and the colour sums.
+//
+// Design: the tile engine of kernels 6-8 (csrc/mrtcg.cuh), not a second
+// one.  A block owns a TY x TX tile and works in three stages, each ended by
+// __syncthreads(): (1) r_rho/rho on the tile plus a halo of 3 (the stencil's
+// 2 and the ring's 1) into a mrtcg::Window, its wrapped "seam" columns
+// filled by the edge blocks; (2) the collision of every cell of the tile
+// plus a 1-cell ring (columns wrap, rows end at the walls), 18 per-colour
+// values into shared memory; (3) each tile cell pulls its streamed values
+// with mrtcg::pull_source, writes f = red + blue per direction and the two
+// colour sums in ascending k.  One writer per output entry, no atomics.
+//
+// Bound: device-memory bytes.  88 B/cell in float32 (11 planes read once,
+// 11 written once), 176 in float64, against 416 operations per cell
+// counted on the plain version (chip_smoke.py phase 6); at 4096x2048 the
+// bytes alone take 0.22 ms at 3.35 TB/s.  What the design pays over that:
+// 1.33 collisions per output cell (the ring), a second read of each cell's
+// planes in stage 2 (mostly from L2), three barriers per tile and no
+// multiply-add; making it fast is later work.
+
+#include "mrtcg.cuh"
+
+namespace {
+
+using lbm::cx;
+using lbm::cy;
+using lbm::pair_km;
+using lbm::pair_kp;
+using lbm::weight;
+using lbm::wrap;
+namespace mc = lbm::mrtcg;
+
+constexpr int H = 3;  // the 5x5 stencil's 2 plus the ring's 1
+using Win = mc::Window<H>;
+
+// Scalars of the step, in the order kernels/rk.py::kernel_params writes them.
+enum P { R_ALPHA, B_ALPHA, R_NU, B_NU, A_SIGMA, BETA, SOURCE, GX, GY,
+         CF0, CF1, CF2, CF3, CF3_0, CF3_1, CF3_2, CF3_3, NPARAM };
+
+template <typename T>
+struct Params {
+  T v[NPARAM];
+};
+
+// Unit velocity set (core/lattice.py UNIT_C) of the pair leaders 1, 2, 5, 8.
+__host__ __device__ constexpr double ncx(int i) {
+  return i == 0 ? 1.0 : i == 1 ? 0.0 : mc::UNIT_DIAG;
+}
+__host__ __device__ constexpr double ncy(int i) {
+  return i == 0 ? 0.0 : i == 1 ? 1.0 : i == 2 ? mc::UNIT_DIAG : -mc::UNIT_DIAG;
+}
+
+// The collision of one cell (kernels/rk.py::make_collide): red in out[0..8],
+// blue in out[9..17].
+template <typename T>
+__device__ __forceinline__ void collide_cell(const T* __restrict__ in, int64_t n,
+                                             int64_t cell, const Params<T>& p,
+                                             const T* s_af, const Win& w, int64_t gr,
+                                             int64_t gc, int64_t R, int64_t C, T out[18]) {
+  T f[9];
+  lbm::load9(in, n, cell, f);
+  const T r_rho = in[9 * n + cell];
+  const T b_rho = in[10 * n + cell];
+  const T rho = r_rho + b_rho;
+  const T inv_rho = T(1.0) / rho;
+  const T mx = f[1] - f[3] + f[5] - f[6] - f[7] + f[8];
+  const T my = f[2] - f[4] + f[5] + f[6] - f[7] - f[8];
+  const T ux = mx * inv_rho;
+  const T uy = my * inv_rho;
+  const T uu = ux * ux + uy * uy;
+
+  const T omega = rho / (T(3.0) * (r_rho * p.v[R_NU] + b_rho * p.v[B_NU]) + T(0.5) * rho);
+  const T alpha = (p.v[R_ALPHA] * r_rho + p.v[B_ALPHA] * b_rho) * inv_rho;
+  const T phi_ax = T(0.2) - T(0.2) * alpha;
+  const T phi_di = T(0.05) - T(0.05) * alpha;
+
+  const T Fx = mc::corr5<0>(s_af, w, gr, gc, R, C);
+  const T Fy = mc::corr5<1>(s_af, w, gr, gc, R, C);
+  const T Fn = sqrt(Fx * Fx + Fy * Fy);
+  const T inv_Fn = T(1.0) / (Fn + T(1e-20));
+
+  const T C_kl = T(1.0) - fabs((r_rho - b_rho) * inv_rho);
+  const T A_kl = p.v[A_SIGMA] * omega;
+  const T AC = A_kl * C_kl * Fn;
+  const T inv_F2 = T(1.0) / (T(1e-20) + Fn * Fn);
+
+  const T rb = r_rho * b_rho * inv_rho;
+  const T ratio_r = r_rho * inv_rho;
+  const T ratio_b = b_rho * inv_rho;
+  const T cu_p[4] = {ux, uy, ux + uy, ux - uy};
+  const T Fc_p[4] = {Fx, Fy, Fx + Fy, Fx - Fy};
+  const T one_m = T(1.0) - omega;
+  const T pref = T(1.0) - T(0.5) * omega;
+  const bool source = p.v[SOURCE] != T(0);
+  const T uF3 = T(3.0) * (ux * p.v[GX] + uy * p.v[GY]);
+  const T uu15 = T(1.5) * uu;
+  const T beta = p.v[BETA];
+
+  T post0 = one_m * f[0] + omega * (rho * (alpha - T(weight(0)) * uu15)) +
+            AC * T(-mc::b_cg(0));
+  if (source) post0 = post0 + pref * (-uF3) * T(weight(0));
+  out[0] = ratio_r * post0;
+  out[9] = ratio_b * post0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = pair_kp(i), km = pair_km(i);
+    const T phi = i < 2 ? phi_ax : phi_di;
+    const T wk = T(weight(kp));
+    const T cu = cu_p[i];
+    const T even_f = omega * (rho * (phi + wk * (T(4.5) * cu * cu - uu15)));
+    const T odd_f = omega * (rho * (T(3.0 * weight(kp)) * cu));
+    const T Fc = Fc_p[i];
+    const T omega2 = AC * (wk * Fc * Fc * inv_F2 - T(mc::b_cg(kp)));
+    T base_p = one_m * f[kp] + (even_f + odd_f) + omega2;
+    T base_m = one_m * f[km] + (even_f - odd_f) + omega2;
+    if (source) {
+      const T pw = pref * wk;
+      const T even_s = pw * (T(9.0) * cu * p.v[CF0 + i] - uF3);
+      const T odd_s = pw * p.v[CF3_0 + i];
+      base_p = base_p + (even_s + odd_s);
+      base_m = base_m + (even_s - odd_s);
+    }
+    const T kap = rb * (T(ncx(i)) * Fx + T(ncy(i)) * Fy) * inv_Fn * phi;
+    const T kap_m = -kap;
+    out[kp] = ratio_r * base_p + beta * kap;
+    out[9 + kp] = ratio_b * base_p - beta * kap;
+    out[km] = ratio_r * base_m + beta * kap_m;
+    out[9 + km] = ratio_b * base_m - beta * kap_m;
+  }
+}
+
+template <typename T>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (Win::N + 18 * mc::RING_N);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(mc::THREADS)
+    rk_cg_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t R, int64_t C,
+                 const Params<T> p) {
+  using mc::RING_C;
+  using mc::RING_N;
+  using mc::TX;
+  using mc::TY;
+  extern __shared__ unsigned char smem_raw[];
+  T* s_af = reinterpret_cast<T*>(smem_raw);
+  T* s_ring = s_af + Win::N;
+
+  const int64_t n = R * C;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
+  const int tid = threadIdx.x;
+  const bool left = c0 == 0;
+  const bool right = c0 + TX >= C;
+  Win w;
+  w.r0 = r0;
+  w.c0 = c0;
+  w.seam_lo = left ? C - H : 0;
+
+  // stage 1: r_rho / rho on the window (main columns, then the seam)
+  auto a_frac = [&](int64_t gr, int64_t gc, int slot) {
+    const int64_t cell = gr * C + gc;
+    const T r_rho = in[9 * n + cell];
+    const T rho = r_rho + in[10 * n + cell];
+    s_af[slot] = r_rho * (T(1.0) / rho);
+  };
+  for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {
+    const int wr = i / Win::MAIN, wc = i % Win::MAIN;
+    const int64_t gr = r0 - H + wr, gc = c0 - H + wc;
+    if (gr >= 0 && gr < R && gc >= 0 && gc < C) a_frac(gr, gc, wr * Win::COLS + wc);
+  }
+  if (left || right) {
+    for (int i = tid; i < Win::ROWS * H; i += mc::THREADS) {
+      const int wr = i / H, q = i % H;
+      const int64_t gr = r0 - H + wr, gc = w.seam_lo + q;
+      if (gr >= 0 && gr < R && gc >= 0 && gc < C)
+        a_frac(gr, gc, wr * Win::COLS + Win::MAIN + q);
+    }
+  }
+  __syncthreads();
+
+  // stage 2: the collision on the tile plus a 1-cell ring
+  const int64_t nrows = R - r0 < TY ? R - r0 : TY;
+  const int64_t ncols = C - c0 < TX ? C - c0 : TX;
+  for (int i = tid; i < RING_N; i += mc::THREADS) {
+    const int ri = i / RING_C, rj = i % RING_C;
+    const int64_t gr = r0 - 1 + ri;
+    if (ri > nrows + 1 || rj > ncols + 1 || gr < 0 || gr >= R) continue;
+    const int64_t gc = wrap(c0 - 1 + rj, C);
+    T coll[18];
+    collide_cell<T>(in, n, gr * C + gc, p, s_af, w, gr, gc, R, C, coll);
+#pragma unroll
+    for (int k = 0; k < 18; ++k) s_ring[k * RING_N + i] = coll[k];
+  }
+  __syncthreads();
+
+  // stage 3: pull, add the colours, sum each colour in ascending k
+  const int ty = tid / TX, tx = tid % TX;
+  if (ty >= nrows || tx >= ncols) return;
+  const int64_t gr = r0 + ty, gc = c0 + tx;
+  const int64_t cell = gr * C + gc;
+  T r_sum = T(0), b_sum = T(0);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const mc::PullSource src = mc::pull_source(k, ty, tx, gr, gc, R, C);
+    const T r = s_ring[src.plane * RING_N + src.slot];
+    const T b = s_ring[(9 + src.plane) * RING_N + src.slot];
+    out[k * n + cell] = r + b;
+    r_sum = k == 0 ? r : r_sum + r;
+    b_sum = k == 0 ? b : b_sum + b;
+  }
+  out[9 * n + cell] = r_sum;
+  out[10 * n + cell] = b_sum;
+}
+
+template <typename T>
+int launch(const void* in, void* out, long long R, long long C, const double* params,
+           cudaStream_t stream) {
+  if (R <= 0 || C <= 0) return 0;
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  constexpr size_t smem = smem_bytes<T>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rk_cg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>((C + mc::TX - 1) / mc::TX),
+                  static_cast<unsigned>((R + mc::TY - 1) / mc::TY));
+  rk_cg_kernel<T><<<grid, mc::THREADS, smem, stream>>>(static_cast<const T*>(in),
+                                                        static_cast<T*>(out), R, C, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One step in -> out (distinct buffers) on `stream`; `params` are the
+// NPARAM doubles of kernels/rk.py::kernel_params.  Returns the cudaError_t
+// of the launch (0 = accepted).
+extern "C" int lbm_rk_cg(const void* in, void* out, long long R, long long C,
+                         const double* params, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch<double>(in, out, R, C, params, s)
+                : launch<float>(in, out, R, C, params, s);
+}

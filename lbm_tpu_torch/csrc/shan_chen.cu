@@ -1,0 +1,208 @@
+// Kernel 14: one fully periodic Shan-Chen pseudopotential step,
+// f (9, R, C) -> (9, R, C).
+//
+// Replaces the TPU kernel lbm_tpu/kernels/shan_chen_pallas.py:172
+// make_sc_fused_step (body make_sc_body :138, force _sc_force :44,
+// collision _collide_sc :71, psi of resolve_eos :109).  The arithmetic is
+// the plain version kernels/shan_chen.py::make_collide, operation for
+// operation in the same order, built with -fmad=false (kernels/_build.py
+// UNIT_FLAGS) and without fast math (libdevice exp and IEEE sqrt), so the
+// two agree bit for bit.  Template instances: EOS in {exponential,
+// Carnahan-Starling} x forcing in {Guo, velocity shift}.  lbm_tpu fuses up
+// to 4 steps per launch; here one launch is one step.
+//
+// Design: one thread per cell and PUSH streaming (each thread writes its 9
+// post-collision values to the wrapped destinations, a bijection, so every
+// entry has one writer).  The force at a cell needs psi at its 8
+// neighbours, so a TY x TX block first computes psi once per cell of its
+// tile plus a 1-cell halo (rho, then one exp, or the CS EOS with a
+// division, a sqrt and a clamp) into shared memory, ends that stage with
+// __syncthreads(), then collides each tile cell and pushes.  With push, the
+// halo is 1 (pull would need the collisions of the ring and psi at a halo
+// of 2).
+//
+// Bound: device-memory bytes.  72 B/cell in float32 (9 planes read once,
+// 9 written once), 144 in float64, against 177 operations per cell
+// (exponential EOS, Guo forcing; 137 for CS with the velocity shift)
+// counted on the plain version (chip_smoke.py phase 6).  What the design
+// pays over that: the halo's psi is computed again by the neighbour tiles
+// (10x34 for 8x32 cells, 1.33x) from a second read of their planes (L2),
+// one barrier per tile, and no multiply-add.
+
+#include <cuda_runtime.h>
+
+#include "d2q9.cuh"
+
+namespace {
+
+using lbm::cx;
+using lbm::cy;
+using lbm::pair_km;
+using lbm::pair_kp;
+using lbm::THREADS;
+using lbm::TX;
+using lbm::TY;
+using lbm::weight;
+using lbm::wrap_any;
+
+constexpr int WR = TY + 2;
+constexpr int WC = TX + 2;
+constexpr int WN = WR * WC;
+
+// Scalars of the step, in the order kernels/shan_chen.py::kernel_params
+// writes them.
+enum P { OMEGA, ONE_M_OMEGA, INV_OMEGA, MINUS_G, PREF_W0, PREF_W1, PREF_W5, CS_B4, CS_T,
+         CS_A, NPARAM };
+
+template <typename T>
+struct Params {
+  T v[NPARAM];
+};
+
+// psi(rho): 1 - exp(-rho), or the Carnahan-Starling pseudopotential
+// sqrt(max(6 (rho/3 - P_cs), 0)) with the clamp as a comparison (a NaN
+// stays a NaN).
+template <typename T, bool CS>
+__device__ __forceinline__ T psi_of(T rho, const Params<T>& p) {
+  if (!CS) return T(1.0) - exp(-rho);
+  const T eta = p.v[CS_B4] * rho;
+  const T e2 = eta * eta;
+  const T om = T(1.0) - eta;
+  const T P = rho * p.v[CS_T] * (T(1.0) + eta + e2 - e2 * eta) / (om * om * om) -
+              p.v[CS_A] * rho * rho;
+  const T rad = T(6.0) * (rho * T(1.0 / 3.0) - P);
+  return sqrt(rad < T(0.0) ? T(0.0) : rad);
+}
+
+template <typename T, bool CS, bool SHIFT>
+__global__ void __launch_bounds__(THREADS)
+    shan_chen_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R, int64_t C,
+                     const Params<T> p) {
+  __shared__ T s_psi[WN];
+  const int64_t n = R * C;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
+  const int tid = threadIdx.x;
+
+  // stage 1: psi on the tile plus a 1-cell halo
+  for (int i = tid; i < WN; i += THREADS) {
+    const int64_t gr = wrap_any(r0 - 1 + i / WC, R), gc = wrap_any(c0 - 1 + i % WC, C);
+    const int64_t cell = gr * C + gc;
+    T rho = fin[cell];
+#pragma unroll
+    for (int k = 1; k < 9; ++k) rho = rho + fin[k * n + cell];
+    s_psi[i] = psi_of<T, CS>(rho, p);
+  }
+  __syncthreads();
+
+  // stage 2: collide each tile cell and push
+  const int ty = tid / TX, tx = tid % TX;
+  const int64_t gr = r0 + ty, gc = c0 + tx;
+  if (gr >= R || gc >= C) return;
+  const int64_t cell = gr * C + gc;
+  T f[9];
+  lbm::load9(fin, n, cell, f);
+  T rho = f[0];
+#pragma unroll
+  for (int k = 1; k < 9; ++k) rho = rho + f[k];
+
+  // the paired neighbour force over the pair leaders 1, 2, 5, 8
+  const int w0 = (ty + 1) * WC + (tx + 1);
+  T fx = T(0), fy = T(0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = pair_kp(i);
+    const T pos = s_psi[w0 + cx(kp) * WC + cy(kp)];
+    const T neg = s_psi[w0 - cx(kp) * WC - cy(kp)];
+    const T d = T(weight(kp)) * (pos - neg);
+    if (cx(kp) != 0) {
+      const T t = T(cx(kp)) * d;
+      fx = i == 0 ? t : fx + t;
+    }
+    if (cy(kp) != 0) {
+      const T t = T(cy(kp)) * d;
+      fy = i == 1 ? t : fy + t;
+    }
+  }
+  const T mg = p.v[MINUS_G] * s_psi[w0];
+  const T Fx = mg * fx;
+  const T Fy = mg * fy;
+
+  const T inv_rho = T(1.0) / rho;
+  const T mx = f[1] - f[3] + f[5] - f[6] - f[7] + f[8];
+  const T my = f[2] - f[4] + f[5] + f[6] - f[7] - f[8];
+  const T half_or_inv = SHIFT ? p.v[INV_OMEGA] : T(0.5);
+  const T ux = (mx + half_or_inv * Fx) * inv_rho;
+  const T uy = (my + half_or_inv * Fy) * inv_rho;
+
+  // forced BGK: the paired equilibrium (_bgk9), plus the paired Guo source
+  const lbm::Pairs<T> pr = lbm::d2q9_pairs(ux, uy);
+  const T om = p.v[OMEGA], one_m = p.v[ONE_M_OMEGA];
+  T out[9];
+  out[0] = one_m * f[0] + om * (T(weight(0)) * rho * pr.t0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp = pair_kp(i), km = pair_km(i);
+    const T wr = T(weight(kp)) * rho;
+    const T even = om * (wr * (pr.t0 + T(4.5) * pr.cc[i]));
+    const T odd = om * (wr * (T(3.0) * pr.cu[i]));
+    out[kp] = one_m * f[kp] + (even + odd);
+    out[km] = one_m * f[km] + (even - odd);
+  }
+  if (!SHIFT) {
+    const T uF3 = T(3.0) * (ux * Fx + uy * Fy);
+    out[0] = out[0] - p.v[PREF_W0] * uF3;
+    const T cf[4] = {Fx, Fy, Fx + Fy, Fx - Fy};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kp = pair_kp(i), km = pair_km(i);
+      const T pw = i < 2 ? p.v[PREF_W1] : p.v[PREF_W5];
+      const T even = pw * (T(9.0) * pr.cu[i] * cf[i] - uF3);
+      const T odd = pw * (T(3.0) * cf[i]);
+      out[kp] = out[kp] + (even + odd);
+      out[km] = out[km] + (even - odd);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    fout[k * n + wrap_any(gr + cx(k), R) * C + wrap_any(gc + cy(k), C)] = out[k];
+}
+
+template <typename T, bool CS, bool SHIFT>
+int launch_one(const T* fin, T* fout, long long R, long long C, const Params<T>& p,
+               cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((C + TX - 1) / TX),
+                  static_cast<unsigned>((R + TY - 1) / TY));
+  shan_chen_kernel<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(fin, fout, R, C, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* fin, void* fout, long long R, long long C, const double* params,
+           int eos, int forcing, cudaStream_t stream) {
+  if (R <= 0 || C <= 0) return 0;
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  const T* in = static_cast<const T*>(fin);
+  T* out = static_cast<T*>(fout);
+  if (eos == 0)
+    return forcing == 0 ? launch_one<T, false, false>(in, out, R, C, p, stream)
+                        : launch_one<T, false, true>(in, out, R, C, p, stream);
+  return forcing == 0 ? launch_one<T, true, false>(in, out, R, C, p, stream)
+                      : launch_one<T, true, true>(in, out, R, C, p, stream);
+}
+
+}  // namespace
+
+// One step f_in -> f_out (distinct buffers) on `stream`; `params` are the
+// NPARAM doubles of kernels/shan_chen.py::kernel_params, `eos` 0 = sc,
+// 1 = cs, `forcing` 0 = guo, 1 = shift.  Returns the cudaError_t of the
+// launch (0 = accepted).
+extern "C" int lbm_shan_chen(const void* fin, void* fout, long long R, long long C,
+                             const double* params, int eos, int forcing, int is_f64,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch<double>(fin, fout, R, C, params, eos, forcing, s)
+                : launch<float>(fin, fout, R, C, params, eos, forcing, s);
+}

@@ -5,8 +5,11 @@ from lbm_tpu (or a saved ``.npy``) into the port is a checked device and
 dtype move.  The reference C++ stores ``{R, C, 9}``;
 ``from_reference_layout`` takes that, as lbm_tpu/io/compare.py does.
 The two-phase states carry across the same way: the per-colour
-``(2, 9, R, C)`` and the reduced ``(10 | 12, R, C)`` of kernels/mrtcg.py;
-``colour_params`` carries a ColourParams (all five fields floats).
+``(2, 9, R, C)`` and the reduced ``(10 | 12, R, C)`` of kernels/mrtcg.py,
+the RK mixture's ``(11, R, C)`` of kernels/rk.py and the CSF droplet's
+``(20, R, C)`` of kernels/csf_droplet.py.  ``colour_params``,
+``rk_droplet_colour`` and ``csf_colour`` carry the colour constants (all
+five fields floats).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import numpy as np
 import torch
 
 from ..core.params import ColourParams
+from ..models.mrt_csf_droplet import CSFColour
+from ..models.rk_cg import RKDropletColour
 
 
 def _planes(arr: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
@@ -45,17 +50,47 @@ def two_phase_from_numpy(red_f, blue_f, device, dtype: torch.dtype) -> torch.Ten
 
 def reduced_from_numpy(G, device, dtype: torch.dtype) -> torch.Tensor:
     """A reduced MRT-CG state, (10, R, C) or (12, R, C) in CSF mode."""
-    arr = np.asarray(G)
-    if arr.ndim != 3 or arr.shape[0] not in (10, 12):
-        raise ValueError(f"expected a (10 | 12, R, C) reduced state, got {arr.shape}")
+    return _checked_planes(G, (10, 12), "reduced", device, dtype)
+
+
+def rk_state_from_numpy(S, device, dtype: torch.dtype) -> torch.Tensor:
+    """An RK mixture state [f (9), r_rho, b_rho] as the (11, R, C) tensor."""
+    return _checked_planes(S, (11,), "RK mixture", device, dtype)
+
+
+def csf_droplet_state_from_numpy(S, device, dtype: torch.dtype) -> torch.Tensor:
+    """A CSF droplet state [red f (9), blue f (9), fs (2)] as the (20, R, C)
+    tensor."""
+    return _checked_planes(S, (20,), "CSF droplet", device, dtype)
+
+
+def _checked_planes(S, planes, what, device, dtype) -> torch.Tensor:
+    arr = np.asarray(S)
+    if arr.ndim != 3 or arr.shape[0] not in planes:
+        raise ValueError(f"expected a ({' | '.join(map(str, planes))}, R, C) {what} state, "
+                         f"got {arr.shape}")
     return _planes(arr, device, dtype)
+
+
+def _fields(cls, params):
+    return cls(**{f.name: float(getattr(params, f.name)) for f in dataclasses.fields(cls)})
 
 
 def colour_params(params) -> ColourParams:
     """Any object with ColourParams' five fields (lbm_tpu's among them) as
     the port's ColourParams."""
-    return ColourParams(**{f.name: float(getattr(params, f.name))
-                           for f in dataclasses.fields(ColourParams)})
+    return _fields(ColourParams, params)
+
+
+def rk_droplet_colour(params) -> RKDropletColour:
+    """lbm_tpu's RKDropletColour (or any object with its fields) as the
+    port's."""
+    return _fields(RKDropletColour, params)
+
+
+def csf_colour(params) -> CSFColour:
+    """lbm_tpu's CSFColour (or any object with its fields) as the port's."""
+    return _fields(CSFColour, params)
 
 
 def state_to_numpy(f: torch.Tensor) -> np.ndarray:

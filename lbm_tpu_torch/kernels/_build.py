@@ -27,11 +27,12 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of single sources, by file stem.  The MRT-CG kernels and kernels
-# 9-11 contract no multiply-add, so that they reproduce their plain PyTorch
+# 9-14 contract no multiply-add, so that they reproduce their plain PyTorch
 # versions, whose elementwise ops each round once.
 UNIT_FLAGS = {stem: ("-fmad=false",) for stem in (
     "mrtcg_reduced", "mrtcg_split", "mrtcg_full", "channel_variant",
-    "collide_stream_trt", "collide_stream_power_law")}
+    "collide_stream_trt", "collide_stream_power_law", "rk_cg", "csf_droplet",
+    "shan_chen")}
 
 
 def find_nvcc() -> str:
@@ -140,6 +141,11 @@ def check_state(f: torch.Tensor, planes: int = 9) -> tuple[int, int]:
     if not f.is_contiguous():
         raise ValueError("kernel state must be contiguous")
     return f.shape[1], f.shape[2]
+
+
+def c_doubles(values) -> ctypes.Array:
+    """A kernel's scalar parameters as the C double array it reads."""
+    return (ctypes.c_double * len(values))(*values)
 
 
 def stream_handle(f: torch.Tensor) -> ctypes.c_void_p:

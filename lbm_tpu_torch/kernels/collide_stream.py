@@ -9,8 +9,8 @@ memory directly).  This module holds
     paired collision shares (csrc/d2q9.cuh writes the same in C++);
   * ``make_fused_step``: the plain step stream(collide_fn(f)), any local
     collision, ``substeps`` steps per call;
-  * ``launch_periodic``: ``substeps`` launches of a periodic collide-stream
-    kernel, ping-ponging two buffers;
+  * ``launch_steps``: ``substeps`` launches of a one-step kernel (kernels
+    1, 3, 5, 10-14), ping-ponging two buffers;
   * ``collide_stream_bgk``: CUDA kernel 1 (csrc/collide_stream_bgk.cu), the
     BGK collision;
   * ``kbc_collide_fn`` / ``make_kbc_fused_step`` / ``collide_stream_kbc``:
@@ -60,11 +60,12 @@ def _check_substeps(substeps: int) -> None:
         raise ValueError(f"substeps must be in [1, {MAX_SUBSTEPS}]")
 
 
-def check_step_state(f: torch.Tensor, R: int, C: int, dtype: torch.dtype) -> None:
-    """A step built for (9, R, C) ``dtype`` takes nothing else."""
-    if tuple(f.shape) != (9, R, C) or f.dtype != dtype:
+def check_step_state(f: torch.Tensor, R: int, C: int, dtype: torch.dtype,
+                     planes: int = 9) -> None:
+    """A step built for (planes, R, C) ``dtype`` takes nothing else."""
+    if tuple(f.shape) != (planes, R, C) or f.dtype != dtype:
         raise ValueError(f"state {tuple(f.shape)} {f.dtype}, step built for "
-                         f"(9, {R}, {C}) {dtype}")
+                         f"({planes}, {R}, {C}) {dtype}")
 
 
 def make_fused_step(R: int, C: int, collide_fn, dtype: torch.dtype,
@@ -82,16 +83,16 @@ def make_fused_step(R: int, C: int, collide_fn, dtype: torch.dtype,
     return step
 
 
-def launch_periodic(kernel: _build.CudaKernel, f: torch.Tensor, substeps: int,
-                    *params) -> torch.Tensor:
-    """``substeps`` launches of a periodic collide-stream kernel whose C entry
-    point takes (f_in, f_out, R, C, *params, is_f64, stream).
+def launch_steps(kernel: _build.CudaKernel, f: torch.Tensor, substeps: int,
+                 *params, planes: int = 9) -> torch.Tensor:
+    """``substeps`` launches of a one-step kernel on a (planes, R, C) state,
+    whose C entry point takes (f_in, f_out, R, C, *params, is_f64, stream).
 
     One launch per step: the steps ping-pong between two fresh buffers, and
     ``f`` itself is never written.  Raises on a tensor the kernel does not
     take and on a refused launch."""
     _check_substeps(substeps)
-    R, C = _build.check_state(f)
+    R, C = _build.check_state(f, planes)
     bufs = [torch.empty_like(f)]
     if substeps > 1:
         bufs.append(torch.empty_like(f))
@@ -114,7 +115,7 @@ COLLIDE_STREAM_BGK = _build.CudaKernel(
 
 def collide_stream_bgk(f: torch.Tensor, omega: float, substeps: int = 1) -> torch.Tensor:
     """``substeps`` periodic BGK collide-stream steps on the card (kernel 1)."""
-    return launch_periodic(COLLIDE_STREAM_BGK, f, substeps, float(omega))
+    return launch_steps(COLLIDE_STREAM_BGK, f, substeps, float(omega))
 
 
 def kbc_collide_fn(s2: float, gamma_impl: str = "factored"):
@@ -145,7 +146,7 @@ def collide_stream_kbc(f: torch.Tensor, s2: float, substeps: int = 1,
                        gamma_impl: str = "factored") -> torch.Tensor:
     """``substeps`` periodic KBC collide-stream steps on the card (kernel 3)."""
     kbc.check_gamma_impl(gamma_impl)
-    return launch_periodic(COLLIDE_STREAM_KBC, f, substeps, float(s2),
+    return launch_steps(COLLIDE_STREAM_KBC, f, substeps, float(s2),
                            int(gamma_impl == "factored"))
 
 

@@ -74,7 +74,7 @@ def collide_stream_les(f: torch.Tensor, tau0: float, cs_smag: float,
                        substeps: int = 1) -> torch.Tensor:
     """``substeps`` periodic Smagorinsky-BGK collide-stream steps on the card
     (kernel 5)."""
-    return collide_stream.launch_periodic(COLLIDE_STREAM_LES, f, substeps,
+    return collide_stream.launch_steps(COLLIDE_STREAM_LES, f, substeps,
                                           float(tau0), float(cs_smag))
 
 

@@ -419,8 +419,7 @@ def launch_mrtcg(kernel: _build.CudaKernel, S: torch.Tensor, params, csf: bool,
         raise ValueError(f"the MRT-CG kernels take R >= 4 and C >= 3, got {R}x{C}")
     if substeps > 1 and planes_out != planes_in:
         raise ValueError("a layout-changing step runs one step per call")
-    c_params = params if isinstance(params, ctypes.Array) else \
-        (ctypes.c_double * len(params))(*params)
+    c_params = _build.c_doubles(params)
     bufs = [torch.empty((planes_out, R, C), dtype=S.dtype, device=S.device)]
     if substeps > 1:
         bufs.append(torch.empty_like(bufs[0]))
@@ -441,8 +440,8 @@ def _factory(R, C, red, blue, sigma, gravity, delta, apply_gravity_source, dtype
     substeps = _check_substeps(substeps)
     p_in = reduced_planes(surface_tension) if reduced_in else full_planes(surface_tension)
     p_out = reduced_planes(surface_tension) if reduced_out else full_planes(surface_tension)
-    params = kernel_params(red, blue, sigma, gravity, delta, apply_gravity_source)
-    c_params = (ctypes.c_double * len(params))(*params)
+    c_params = _build.c_doubles(kernel_params(red, blue, sigma, gravity, delta,
+                                              apply_gravity_source))
     plain = make_plain_step(red, blue, sigma, gravity, delta, apply_gravity_source,
                             surface_tension, reduced_in, reduced_out)
 

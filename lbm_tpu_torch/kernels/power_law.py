@@ -155,7 +155,7 @@ def collide_stream_power_law(f: torch.Tensor, cons_K: float, n: float,
     """``substeps`` periodic power-law collide-stream steps on the card
     (kernel 11)."""
     consts = _kernel_constants(cons_K, n, tau_min, tau_max, f.dtype, sigma_y, m_pap)
-    return collide_stream.launch_periodic(COLLIDE_STREAM_POWER_LAW, f, substeps,
+    return collide_stream.launch_steps(COLLIDE_STREAM_POWER_LAW, f, substeps,
                                           consts, _branch(n, sigma_y), int(iters))
 
 

@@ -66,7 +66,7 @@ COLLIDE_STREAM_TRT = _build.CudaKernel(
 def collide_stream_trt(f: torch.Tensor, omega_plus: float, omega_minus: float,
                        substeps: int = 1) -> torch.Tensor:
     """``substeps`` periodic TRT collide-stream steps on the card (kernel 10)."""
-    return collide_stream.launch_periodic(COLLIDE_STREAM_TRT, f, substeps,
+    return collide_stream.launch_steps(COLLIDE_STREAM_TRT, f, substeps,
                                           float(omega_plus), float(omega_minus))
 
 

@@ -9,7 +9,8 @@ literals).  `--x64` runs in float64, the reference's precision (else
 float32).  `--device` defaults to cuda; `--device cpu` runs the plain
 PyTorch versions.  Result tensors are written as .npy files under --out,
 recorded snapshots as {out}-snap-{name}.npy.  Registered: the channel,
-ULBM and MRT-CG/CSF multiphase scenes ported so far, under lbm_tpu's names.
+ULBM, multiphase (MRT-CG/CSF, RK, CSF droplet) and Shan-Chen scenes ported
+so far, under lbm_tpu's names.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from .utils.xmath import default_device
 
 
 def _scenes() -> dict:
-    from .scenes import channel, multiphase, ulbm
+    from .scenes import channel, multiphase, shan_chen, ulbm
 
     return {
         "horizontal_poiseuille": channel.horizontal_poiseuille,
@@ -42,9 +43,16 @@ def _scenes() -> dict:
         "mrtcg_rayleigh_taylor": multiphase.mrtcg_rayleigh_taylor,
         "mrtcg_multimode_rayleigh_taylor": multiphase.mrtcg_multimode_rayleigh_taylor,
         "mrt_csf_rayleigh_taylor": multiphase.mrt_csf_rayleigh_taylor,
+        "rk_static_droplet": multiphase.rk_static_droplet,
+        "csf_static_droplet": multiphase.csf_static_droplet,
+        "rk_rayleigh_taylor": multiphase.rk_rayleigh_taylor,
         "ulbm_poiseuille": ulbm.ulbm_poiseuille,
         "ulbm_double_shear": ulbm.ulbm_double_shear,
         "les_double_shear": ulbm.les_double_shear,
+        "sc_phase_separation": shan_chen.sc_phase_separation,
+        "sc_static_droplet": shan_chen.sc_static_droplet,
+        "sc_flat_interface": shan_chen.sc_flat_interface,
+        "sc_cs_interface": shan_chen.sc_cs_interface,
     }
 
 

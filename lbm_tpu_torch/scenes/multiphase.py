@@ -1,19 +1,25 @@
-"""MRT-CG and MRT-CSF multiphase scenes: the static droplet and Rayleigh-Taylor
-(counterpart of the MRT-CG part of lbm_tpu/scenes/multiphase.py).
+"""Multiphase scenes: static droplets and Rayleigh-Taylor in the MRT-CG,
+MRT-CSF and RK colour-gradient families (counterpart of
+lbm_tpu/scenes/multiphase.py).
 
-Each scene runs lbm_tpu's fused dataflow on either device: the reduced
-10-plane state (12 in CSF mode) for T-1 steps, then one split step that
-writes the per-colour populations, and u rebuilt from them.  On a CUDA
-state the steps are CUDA kernels 6 (reduced) and 7 (split); on a CPU
-state their plain versions (kernels/mrtcg.py).  The step derives its
-velocity from the populations, u = (momentum + 0.5 (Fg [+ fst])) / rho,
-from the first step on; lbm_tpu's jnp path instead carries the u of
-``init_state`` into its first step (ROADMAP Queue 3).
+The MRT-CG scenes run lbm_tpu's fused dataflow on either device: the
+reduced 10-plane state (12 in CSF mode) for T-1 steps, then one split step
+that writes the per-colour populations, and u rebuilt from them.  On a CUDA
+state the steps are CUDA kernels 6 (reduced) and 7 (split); on a CPU state
+their plain versions (kernels/mrtcg.py).  The step derives its velocity
+from the populations, u = (momentum + 0.5 (Fg [+ fst])) / rho, from the
+first step on; lbm_tpu's jnp path instead carries the u of ``init_state``
+into its first step (ROADMAP Queue 3).
 
-Not in this slice: lbm_tpu's ``fused`` flag (the device decides), the
+``rk_rayleigh_taylor`` runs the 11-plane RK mixture step (kernel 12 on the
+card) and ``csf_static_droplet`` the 20-plane CSF droplet step (kernel 13);
+``rk_static_droplet`` has no TPU kernel in lbm_tpu and runs the
+RKDropletModel as plain tensor ops on either device.
+
+Not in the port: lbm_tpu's ``fused`` flag (the device decides), the
 checkpoint and snapshot-file options (they wait for io/checkpoint and
-io/snapshots, ROADMAP Queue 1 item 12, and raise if set), and the RK,
-CSF-droplet and df64 scenes.
+io/snapshots, ROADMAP Queue 1 item 12, and raise if set), and the df64
+scene (native float64 replaces it, Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -25,9 +31,13 @@ import torch
 
 from ..boundary import bc
 from ..core.params import ColourParams, DomainParams, GeneralParams, load_toml
+from ..kernels.csf_droplet import make_csf_droplet_fused_step
 from ..kernels.mrtcg import (make_mrtcg_reduced_step, make_mrtcg_split_step,
                              reduce_mrtcg_state)
+from ..kernels.rk import make_rk_fused_step
 from ..models.mrt_cg import ColourFields, MRTCGModel, TwoPhaseState, phase_field
+from ..models.mrt_csf_droplet import CSFColour, CSFColourFields, CSFDropletModel, CSFState
+from ..models.rk_cg import RKDropletColour, RKDropletModel, RKMixtureModel, RKMixtureState
 from ..ops import d2q9
 from ..utils import observe
 from ..utils.xmath import default_device, default_float
@@ -96,7 +106,7 @@ DEFAULT_BLUE = ColourParams(rho_0=1.0, alpha=0.1, A=0.5, nu=0.04, beta=-0.7)
 
 @dataclass
 class MultiphaseResult:
-    state: TwoPhaseState
+    state: object  # TwoPhaseState, RKDropletState, RKMixtureState or CSFState
     steps: int
     snapshots: dict
 
@@ -317,3 +327,119 @@ def mrt_csf_rayleigh_taylor(R: int = 256, C: int = 128, T: int = 10000,
     S = S if out is None else out
     return MultiphaseResult(state=_two_phase(S[:9], S[9:18], gravity, S[18:]), steps=T,
                             snapshots=_stack(frames, ("psi",)))
+
+
+def _run_steps(step, state, T: int, snapshot_every: int | None, record, watched):
+    """T calls of ``step`` from ``state`` in chunks of ``snapshot_every``
+    (else CHUNK) steps: a frame ``record(state)`` before each chunk when
+    recording, the NaN watchdog on ``watched(state)`` after it.  Returns
+    (state, frames)."""
+    meter = observe.StepMeter(watched(state)[0].numel(), watched(state).device,
+                              total_steps=T)
+    frames, done = [], 0
+    while done < T:
+        if snapshot_every:
+            frames.append(tuple(x.cpu().numpy() for x in record(state)))
+        n = min(snapshot_every or CHUNK, T - done)
+        for _ in range(n):
+            state = step(state)
+        done += n
+        meter.update(n)
+        observe.check_finite(watched(state), done)
+    return state, frames
+
+
+def rk_static_droplet(L: int = 101, T: int = 2000, radius: float = 25.0,
+                      sigma: float = 5e-3, snapshot_every: int | None = None,
+                      exact_periodic: bool = False, device=None,
+                      dtype: torch.dtype | None = None) -> MultiphaseResult:
+    """RK (Reis-Phillips) static droplet, plain tensor ops on either device
+    (lbm_tpu has no TPU kernel for it).  Constants cite reference
+    test/rk_static_droplet_test.cpp:504-506: red (rho_0 1.2, alpha 1/3,
+    A 1e-4, nu 0.16, beta +0.7), blue (rho_0 1.0, alpha 0.2, A 1e-4,
+    nu 0.14, beta -0.7), delta 0.98.  The default edges reproduce the
+    driver's full-edge wrap copy, which slowly exchanges colour mass;
+    ``exact_periodic=True`` streams exactly periodically.  Snapshots:
+    "r_rho" and "b_rho" every ``snapshot_every`` steps."""
+    device, dtype = default_device(device), default_float(dtype)
+    red = RKDropletColour(rho_0=1.2, alpha=1.0 / 3.0, A=1e-4, nu=0.16, beta=0.7)
+    blue = RKDropletColour(rho_0=1.0, alpha=0.2, A=1e-4, nu=0.14, beta=-0.7)
+    model = RKDropletModel(red=red, blue=blue, sigma=sigma, delta=0.98,
+                           exact_periodic=exact_periodic)
+    state = model.init_state(init_rho_droplet(L, L, red.rho_0, True, radius, 2.0),
+                             init_rho_droplet(L, L, blue.rho_0, False, radius, 2.0),
+                             dtype=dtype, device=device)
+    state, frames = _run_steps(model.step, state, T, snapshot_every,
+                               lambda s: (s.red.rho, s.blue.rho), lambda s: s.red.f)
+    return MultiphaseResult(state=state, steps=T, snapshots=_stack(frames, ("r_rho", "b_rho")))
+
+
+def rk_rayleigh_taylor(L: int = 256, T: int = 100000, sigma: float = 0.1, nu: float = 0.04,
+                       gravity: tuple[float, float] = (-6.25e-6, 0.0),
+                       snapshot_every: int | None = None, device=None,
+                       dtype: torch.dtype | None = None) -> MultiphaseResult:
+    """RK-CG Rayleigh-Taylor on a 4L x L grid, the reference's largest
+    single-domain workload (1024x256 at the default L).  Constants cite
+    reference test/rk_rayleigh_taylor_test.cpp:81-126: red (alpha 11/15,
+    rho_0 3), blue (alpha 0.2, rho_0 1), beta 0.7, Fg (-6.25e-6, 0).  As in
+    lbm_tpu the walls are those of the MRT-CG RT driver (periodic columns,
+    bounce-back rows; the reference driver does not build) with the +/-beta
+    recolouring split.  Each step is the fused 11-plane step of
+    kernels/rk.py: CUDA kernel 12 on the card, one launch per step.
+    Snapshots: "r_rho" and "ux" every ``snapshot_every`` steps."""
+    device, dtype = default_device(device), default_float(dtype)
+    R, C = 4 * L, L
+    kw = dict(r_alpha=11.0 / 15.0, b_alpha=0.2, r_nu=nu, b_nu=nu, sigma=sigma, beta=0.7,
+              gravity=gravity)
+    model = RKMixtureModel(r_rho_0=3.0, b_rho_0=1.0, boundary=mrtcg_boundary, **kw)
+    st = model.init_state(init_rho_cosine(R, C, 3.0, fill_below=False, amplitude_sign=1.0),
+                          init_rho_cosine(R, C, 1.0, fill_below=True, amplitude_sign=1.0),
+                          dtype=dtype, device=device)
+    step = make_rk_fused_step(R, C, dtype=dtype, **kw)
+    S = torch.cat([st.f, st.r_rho[None], st.b_rho[None]]).contiguous()
+
+    def record(S):
+        return S[9], d2q9.calc_momentum(S[:9])[0] / (S[9] + S[10])
+
+    S, frames = _run_steps(step, S, T, snapshot_every, record, lambda S: S)
+    u = d2q9.calc_u(S[:9], S[9] + S[10])
+    return MultiphaseResult(state=RKMixtureState(S[:9], S[9], S[10], u), steps=T,
+                            snapshots=_stack(frames, ("r_rho", "ux")))
+
+
+def csf_static_droplet(L: int = 100, T: int = 100, radius: float = 25.0, sigma: float = 0.1,
+                       snapshot_every: int | None = None, device=None,
+                       dtype: torch.dtype | None = None) -> MultiphaseResult:
+    """Moment-space MRT + CSF static droplet (experimental in lbm_tpu: the
+    reference driver is unvalidated work in progress; for Laplace-law
+    physics use mrtcg_static_droplet).  Constants cite reference
+    test/static_droplet_test.cpp:476-486: L 100, radius 25, sigma 0.1,
+    red/blue (rho_0 1, alpha 0.2, nu 0.1667, A 0.5, beta +/-0.7), T 100
+    (:500), the sharpness-2 sigmoid (:413-430).  lbm_tpu measured the
+    formulation going non-finite between steps 50 and 100 in float32 at
+    L = 128; float64 (the default) keeps the colour masses at L = 100.
+    Each step is the fused 20-plane step of kernels/csf_droplet.py: CUDA
+    kernel 13 on the card.  Snapshots: "rho" and "psi" every
+    ``snapshot_every`` steps."""
+    device, dtype = default_device(device), default_float(dtype)
+    red = CSFColour(rho_0=1.0, alpha=0.2, nu=0.1667, A=0.5, beta=0.7)
+    blue = CSFColour(rho_0=1.0, alpha=0.2, nu=0.1667, A=0.5, beta=-0.7)
+    model = CSFDropletModel(red=red, blue=blue, sigma=sigma, delta=0.1)
+    st = model.init_state(init_rho_droplet(L, L, red.rho_0, True, radius, 2.0),
+                          init_rho_droplet(L, L, blue.rho_0, False, radius, 2.0),
+                          dtype=dtype, device=device)
+    step = make_csf_droplet_fused_step(L, L, red, blue, sigma, dtype=dtype)
+    S = torch.cat([st.red.f, st.blue.f, torch.zeros((2, L, L), dtype=dtype, device=device)])
+
+    def record(S):
+        r_rho, b_rho = d2q9.calc_rho(S[:9]), d2q9.calc_rho(S[9:18])
+        return r_rho + b_rho, (r_rho - b_rho) / (r_rho + b_rho)
+
+    S, frames = _run_steps(step, S, T, snapshot_every, record, lambda S: S)
+    rf, bf, fs = S[:9], S[9:18], S[18:]
+    r_rho, b_rho = d2q9.calc_rho(rf), d2q9.calc_rho(bf)
+    rho = r_rho + b_rho
+    u = d2q9.calc_u(rf + bf, rho) + 0.5 * fs / rho[None]
+    return MultiphaseResult(state=CSFState(CSFColourFields(rf, r_rho),
+                                           CSFColourFields(bf, b_rho), u),
+                            steps=T, snapshots=_stack(frames, ("rho", "psi")))

@@ -515,3 +515,179 @@ def test_power_law_channel_on_the_card_matches_the_cpu(cuda):
     want = scene.power_law_channel(device="cpu", **kw)
     assert got.steps == want.steps and got.f.is_cuda
     assert (got.f.cpu() - want.f).abs().max().item() <= 1e-10
+
+
+# --- kernels 12-14: the RK mixture, the CSF droplet, Shan-Chen -----------------
+
+RK_KW = dict(r_alpha=11 / 15, b_alpha=0.2, r_nu=0.04, b_nu=0.06, sigma=0.01, beta=0.7,
+             gravity=(-6.25e-6, 0.0))
+CSF_COLOURS = (dict(rho_0=1.0, alpha=0.2, nu=0.1667, A=0.5, beta=0.7),
+               dict(rho_0=1.0, alpha=0.2, nu=0.1667, A=0.5, beta=-0.7))
+NEW_SHAPES = [(torch.float64, (21, 13)), (torch.float64, (64, 130)), (torch.float64, (5, 4)),
+              (torch.float32, (256, 384))]
+
+
+def _rk_state(R, C, dtype, device):
+    from lbm_tpu_torch.models import rk_cg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    model = rk_cg.RKMixtureModel(r_rho_0=3.0, b_rho_0=1.0, **RK_KW)
+    st = model.init_state(mp.init_rho_cosine(R, C, 3.0, False, 1.0),
+                          mp.init_rho_cosine(R, C, 1.0, True, 1.0), dtype=dtype, device=device)
+    return torch.cat([st.f, st.r_rho[None], st.b_rho[None]]).contiguous()
+
+
+def _csf_state(R, C, dtype, device):
+    from lbm_tpu_torch.models import mrt_csf_droplet as mcd
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = (mcd.CSFColour(**c) for c in CSF_COLOURS)
+    radius = max(min(R, C) / 4, 1.0)
+    st = mcd.CSFDropletModel(red, blue).init_state(
+        mp.init_rho_droplet(R, C, 1.0, True, radius, 2.0),
+        mp.init_rho_droplet(R, C, 1.0, False, radius, 2.0), dtype=dtype, device=device)
+    return torch.cat([st.red.f, st.blue.f, torch.zeros((2, R, C), dtype=dtype,
+                                                       device=device)]).contiguous(), red, blue
+
+
+def _sc_state(R, C, dtype, device, cs):
+    rng = np.random.default_rng(R + C)
+    rho = (0.18 + 0.07 * rng.standard_normal((R, C)) if cs
+           else 0.7 + 0.1 * rng.standard_normal((R, C)))
+    return d2q9.equilibrium(torch.zeros((2, R, C), dtype=dtype, device=device),
+                            torch.as_tensor(rho, dtype=dtype, device=device)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", NEW_SHAPES)
+def test_rk_kernel_matches_plain(cuda, dtype, shape):
+    """Kernel 12, 3 steps (one launch each) from the RT state, against its
+    plain version: TOL (bit-identical on the H100 so far)."""
+    from lbm_tpu_torch.kernels import rk
+
+    R, C = shape
+    S = _rk_state(R, C, dtype, cuda)
+    before = rk.RK_CG.launches
+    got = rk.make_rk_fused_step(R, C, dtype=dtype, substeps=3, **RK_KW)(S)
+    torch.cuda.synchronize()
+    assert rk.RK_CG.launches - before == 3
+    want = S
+    for _ in range(3):
+        want = rk.make_plain_step(**RK_KW)(want)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", NEW_SHAPES)
+def test_csf_droplet_kernel_matches_plain(cuda, dtype, shape):
+    """Kernel 13, 3 steps from the droplet state, against its plain version."""
+    from lbm_tpu_torch.kernels import csf_droplet as csd
+
+    R, C = shape
+    S, red, blue = _csf_state(R, C, dtype, cuda)
+    before = csd.CSF_DROPLET.launches
+    got = csd.make_csf_droplet_fused_step(R, C, red, blue, 0.1, dtype=dtype, substeps=3)(S)
+    torch.cuda.synchronize()
+    assert csd.CSF_DROPLET.launches - before == 3
+    want = S
+    for _ in range(3):
+        want = csd.make_plain_step(red, blue, 0.1)(want)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eos,forcing", [("sc", "guo"), ("sc", "shift"), ("cs", "shift"),
+                                         ("cs", "guo")])
+@pytest.mark.parametrize("dtype,shape", NEW_SHAPES)
+def test_shan_chen_kernel_matches_plain(cuda, dtype, shape, eos, forcing):
+    """Kernel 14 in each eos/forcing instance, 4 steps per call (4
+    launches), against its plain version."""
+    from lbm_tpu_torch.kernels import shan_chen as shc
+
+    R, C = shape
+    kw = dict(omega=1.0, T=0.7 * 0.09433) if eos == "cs" else dict(omega=1.0, G=-5.0)
+    f = _sc_state(R, C, dtype, cuda, eos == "cs")
+    before = shc.SHAN_CHEN.launches
+    got = shc.make_sc_fused_step(R, C, eos=eos, forcing=forcing, dtype=dtype, substeps=4,
+                                 **kw)(f)
+    torch.cuda.synchronize()
+    assert shc.SHAN_CHEN.launches - before == 4
+    want = f
+    for _ in range(4):
+        want = shc.make_plain_step(eos=eos, forcing=forcing, **kw)(want)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_12_to_14_reject_what_they_do_not_take(cuda):
+    from lbm_tpu_torch.kernels import _build, rk
+    from lbm_tpu_torch.kernels import csf_droplet as csd
+    from lbm_tpu_torch.kernels import shan_chen as shc
+
+    _, red, blue = _csf_state(8, 16, torch.float64, cuda)
+    csf_params = _build.c_doubles(csd.kernel_params(red, blue, 0.1))
+    sc_params = _build.c_doubles(shc.kernel_params(1.0, -5.0)[2])
+    rk_params = _build.c_doubles(rk.kernel_params(**RK_KW))
+    launches = {
+        11: lambda x: rk.launch_rk(x, rk_params),
+        20: lambda x: collide_stream.launch_steps(csd.CSF_DROPLET, x, 1, csf_params, planes=20),
+        9: lambda x: collide_stream.launch_steps(shc.SHAN_CHEN, x, 1, sc_params, 0, 0),
+    }
+    for planes, launch in launches.items():
+        x = torch.zeros((planes, 8, 16), dtype=torch.float64, device=cuda)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            launch(x.cpu())
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(x[:, :, ::2])
+        with pytest.raises(TypeError):
+            launch(x.to(torch.int32))
+        with pytest.raises(ValueError, match=rf"\({planes}, R, C\)"):
+            launch(x[:planes - 1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kwargs,kernel", [
+    ("rk_rayleigh_taylor", dict(L=8, T=40), "rk"),
+    ("csf_static_droplet", dict(L=24, T=20, radius=6.0), "csf"),
+    ("rk_static_droplet", dict(L=21, T=20, radius=5.0), None),
+])
+def test_new_multiphase_scenes_on_the_card_match_the_cpu(cuda, name, kwargs, kernel):
+    """Each new multiphase scene in float64 on the card (kernels 12 and 13,
+    one launch per step; rk_static_droplet has no kernel) against the same
+    scene on the CPU: 1e-12 (the CPU's sqrt is not correctly rounded, the
+    card's is)."""
+    from lbm_tpu_torch.kernels import csf_droplet as csd
+    from lbm_tpu_torch.kernels import rk
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    counter = {"rk": rk.RK_CG, "csf": csd.CSF_DROPLET}.get(kernel)
+    before = counter.launches if counter else 0
+    got = getattr(mp, name)(device=cuda, dtype=torch.float64, **kwargs)
+    if counter:
+        assert counter.launches - before == kwargs["T"]
+    want = getattr(mp, name)(device="cpu", dtype=torch.float64, **kwargs)
+    for g, w in zip(got.state, want.state):
+        g = g.f if hasattr(g, "f") else g
+        w = w.f if hasattr(w, "f") else w
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kwargs", [
+    ("sc_phase_separation", dict(H=32, W=32, T=200, substeps=4)),
+    ("sc_static_droplet", dict(H=32, W=32, T=100, radius=8.0)),
+    ("sc_flat_interface", dict(H=32, W=8, T=200, substeps=2)),
+    ("sc_cs_interface", dict(H=32, W=8, T=200, substeps=4)),
+])
+def test_shan_chen_scenes_on_the_card_match_the_cpu(cuda, name, kwargs):
+    """Each Shan-Chen scene in float64 through kernel 14 (one launch per
+    step) against the same scene on the CPU: 1e-12 (libdevice's exp and
+    the CPU's may differ by an ulp)."""
+    from lbm_tpu_torch.kernels import shan_chen as shc
+    from lbm_tpu_torch.scenes import shan_chen as scs
+
+    before = shc.SHAN_CHEN.launches
+    got = getattr(scs, name)(device=cuda, dtype=torch.float64, **kwargs)
+    assert shc.SHAN_CHEN.launches - before == kwargs["T"]
+    want = getattr(scs, name)(device="cpu", dtype=torch.float64, **kwargs)
+    assert got.f.is_cuda and (got.f.cpu() - want.f).abs().max().item() <= 1e-12

@@ -18,6 +18,7 @@ from lbm_tpu.boundary import bc as jbc
 from lbm_tpu.core import lattice as jlat
 from lbm_tpu.models.single_phase import SinglePhaseModel as JaxModel
 from lbm_tpu.ops import d2q9 as jd
+from lbm_tpu.utils import df64 as jdf64
 
 from lbm_tpu_torch.boundary import bc as tbc
 from lbm_tpu_torch.core import lattice as tlat
@@ -28,6 +29,17 @@ from lbm_tpu_torch.utils import observe, xmath
 
 TOL = 1e-13
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# lbm_tpu decides its df64 error-free-transformation guard once per process,
+# by comparing an eager and a jitted probe (lbm_tpu/utils/df64.py:32-66).
+# Run first under jax.disable_jit() (tests/test_multiphase.py:224), the
+# probe sees no folding and the process keeps "no guard", so a later jitted
+# df64 test on the same worker loses its error terms
+# (tests/test_ulbm_scenes.py::test_ulbm_poiseuille_df64_tracks_f64_scene,
+# 3e-8 against its 1e-12).  Every pytest process imports this module while
+# it collects, before any test runs: the guard is resolved here, outside
+# disable_jit, as lbm_tpu's scenes resolve it.
+jdf64.resolve_guard()
 
 
 def _fields(R=12, C=10, seed=0):
@@ -199,6 +211,10 @@ def test_import_loads_no_jax():
             "import lbm_tpu_torch.models.mrt_cg, lbm_tpu_torch.kernels.mrtcg\n"
             "import lbm_tpu_torch.scenes.multiphase, lbm_tpu_torch.ops.gradients\n"
             "import lbm_tpu_torch.core.params, lbm_tpu_torch.boundary.bc\n"
+            "import lbm_tpu_torch.models.rk_cg, lbm_tpu_torch.kernels.rk\n"
+            "import lbm_tpu_torch.models.mrt_csf_droplet, lbm_tpu_torch.kernels.csf_droplet\n"
+            "import lbm_tpu_torch.models.shan_chen, lbm_tpu_torch.kernels.shan_chen\n"
+            "import lbm_tpu_torch.scenes.shan_chen\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
@@ -256,4 +272,4 @@ def test_port_imports_alone(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 25
+    assert int(r.stdout.split()[-1]) >= 32
