@@ -47,12 +47,23 @@ with a nonzero exit code):
      the gravity, specular, free-stream (faithful and corner-consistent),
      vertical (compressible and incompressible) and TRT configurations at
      4096x2048 float32 (twice, bit-identical: no entry has two writers)
-     and at the reference's 21x21, 51x51 and 54x42 in float64;
+     and at the reference's 21x21, 51x51 and 54x42 in float64; kernel 15
+     (the IBM cylinder's grid step) at both Guo pairs, 10 steps from noisy
+     states with a noisy force, at 1024x256 and 4096x2048 float32 and
+     160x120 and 48x128 float64; kernel 16 (the IBM forcing, one block) at
+     the Strouhal ROI, cylinder_flow's default ROI, the markers of
+     configs/cylinder-markers.toml and a ROI two cells from the grid's edges,
+     in both Peskin pairings and both types; kernel 17 (sedimentation) at
+     256x320 in both types, 64x96 float64 and 4096x2048 float32, 10 steps
+     from the scene's initial state with noise; each of kernels 15-17 twice,
+     bit-identical;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
      defaults in float64 (L2 <= 1e-11, one kernel-2 launch per step); its
-     CLI; the same scene at 4096x2048 float32, 1000 steps;
+     CLI; validate_tpu.py poiseuille (128x128 float32, L2 <= 5e-4, kernel 2)
+     and taylor_green (256x256 float32, kernel 1, decay ratio in [0.97,
+     1.03]); the same scene at 4096x2048 float32, 1000 steps;
      ulbm_poiseuille at the reference's defaults in float64, 300k steps
      watched (lbm_tpu's hardware gates, one kernel-4 launch per step);
      ulbm_double_shear at the reference's defaults in float64 (10k steps,
@@ -82,14 +93,22 @@ with a nonzero exit code):
      rk_static_droplet (no kernel) at its defaults on the card against the
      CPU; the Shan-Chen gates of validate_tpu.py shan_chen through kernel 14
      in float32, 4 steps per call; the rk_rayleigh_taylor and
-     sc_flat_interface CLIs (the CLIs run in one subprocess, each as
-     ``python -m lbm_tpu_torch.run`` runs it, after the timed runs and
-     beside rk_static_droplet's CPU reference);
+     sc_flat_interface CLIs; the obstacle slice: validate_tpu.py strouhal
+     (cylinder_flow 1024x256 float32, 200k steps, guo (3, 9), St in [0.15,
+     0.20], lift rms in [0.02, 0.5], one launch each of kernels 16 and 15
+     per step), cylinder_flow at its defaults in float64 (both weight
+     pairings) and rectangle_sedimentation at its defaults in float64, each
+     on the card against the CPU at 1e-12, rectangle_sedimentation in
+     float32 for 20k steps with tests/test_sedimentation.py's invariants,
+     and the cylinder_flow (--markers) and rectangle_sedimentation CLIs
+     (the CLIs run in one subprocess, each as ``python -m
+     lbm_tpu_torch.run`` runs it, after the timed runs and beside the CPU
+     references);
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
-     in float64; kernels 6 at 256x128 and 12 at 1024x256 under a CUDA
-     graph; each kernel's bound (bytes over
+     in float64; kernels 6 at 256x128, 12 at 1024x256 and 15 and 16 (and
+     their step) at 1024x256 under a CUDA graph; each kernel's bound (bytes over
      HBM3's rate against operations, counted on its plain version, over
      the fp32 peak; exp, log, expm1, clamp, where, maximum and minimum
      count one operation per element).
@@ -133,6 +152,14 @@ CSF_DROP = ({"rho_0": 1.0, "alpha": 0.2, "nu": 0.1667, "A": 0.5, "beta": 0.7},
             {"rho_0": 1.0, "alpha": 0.2, "nu": 0.1667, "A": 0.5, "beta": -0.7})
 SC_INSTANCES = (("sc", "guo"), ("sc", "shift"), ("cs", "shift"), ("cs", "guo"))
 T_RED = 0.7
+# the obstacle scenes (kernels 15-17): rectangle_sedimentation's physics and
+# its geometry (R23, C28, C38, inlet_rows) per grid; the Strouhal gate's
+# cylinder (scripts/validate_tpu.py:333-350); the weak and standard Guo pairs
+SED = {"omega": 1 / 0.55, "u_in": 0.02, "w_s": 3e-3, "C_w": 1e-3}
+SED_GEOM = {(256, 320): (-151, 200, 250, 50), (64, 96): (-30, 50, 62, 16),
+            (4096, 2048): (-151, 200, 250, 50)}
+STROUHAL_CIRCLE = (300.0, 128.0, 16.0, 64)
+GUO = ((1 / 3, 1 / 9), (3.0, 9.0))
 
 
 def variants():
@@ -492,6 +519,98 @@ def bound(bytes_per_cell, ops, cells, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sediment_kwargs(R, C):
+    """make_sediment_fused_step's physics and geometry at an (R, C) grid."""
+    R23, C28, C38, inlet = SED_GEOM[(R, C)]
+    return dict(SED, R23=R23, C28=C28, C38=C38, inlet_rows=inlet)
+
+
+def sediment_state(R, C, dtype, device, seed):
+    """rectangle_sedimentation's initial state at its geometry, each
+    population scaled by a seeded 1 + U(-0.03, 0.03)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.scenes.obstacles import sediment_initial_state
+
+    kw = sediment_kwargs(R, C)
+    S = sediment_initial_state(R, C, kw["u_in"], kw["C_w"], kw["inlet_rows"], device, dtype)
+    rng = np.random.default_rng(seed)
+    return (S * torch.as_tensor(rng.uniform(0.97, 1.03, S.shape), dtype=dtype,
+                                device=device)).contiguous()
+
+
+def cylinder_case(R, C, dtype, device, ib, seed):
+    """(f, F_roi, origin): a noisy state and a force N(0, 1e-3) over ib's ROI."""
+    import numpy as np
+    import torch
+
+    f = seeded_state(R, C, dtype, device, seed=seed, noisy=True)
+    rng = np.random.default_rng(seed + 1)
+    F = torch.as_tensor(rng.normal(0.0, 1e-3, (2,) + ib.roi_shape), dtype=dtype,
+                        device=device)
+    return f, F, (ib.roi_rows[0], ib.roi_cols[0])
+
+
+def hold_twice(name, step, plain, x, steps, dtype):
+    """``steps`` calls of ``step`` from ``x``, twice, against ``steps`` calls
+    of ``plain``: the kernel within TOL of its plain version, and its two
+    runs bit-identical (a second writer of an entry would race).  Returns
+    the error."""
+    import torch
+
+    got, again, want = x, x, x
+    for _ in range(steps):
+        got = step(got)
+    for _ in range(steps):
+        again = step(again)
+    for _ in range(steps):
+        want = plain(want)
+    e = compare(name, got, want, dtype)
+    same = bool(torch.equal(got, again))
+    log(f"{name}: second run bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{name}: two runs differ (a race)")
+    return e
+
+
+def forcing_work(ib, itemsize):
+    """(bytes, operations) of one kernel-16 call at ``ib``: the 9 planes read
+    and the 2 force planes written over the ROI, the weights and indices
+    read once; 20 operations per cell for the moments, 32 per marker for
+    rho_j, and per iteration 64 per marker to interpolate u, 3 for f_j, 64
+    to spread (two components, a multiply and an add per weight) and 8 per
+    cell to update u and F.  The count is the sparse work these markers
+    need, not the plain version's dense matmuls."""
+    n = ib.roi_shape[0] * ib.roi_shape[1]
+    M = ib.row_w.shape[0]
+    iters = ib.m_max - 1
+    return (11 * n * itemsize + M * (16 * itemsize + 8),
+            20 * n + 32 * M + iters * (131 * M + 8 * n))
+
+
+def graph_ms(step, x, n: int = 100) -> float:
+    """Device ms per step from a CUDA graph of ``n`` chained steps
+    y = step(y) from ``x`` (one step issues on the host in more time than a
+    small kernel runs, so events around eager launches would time the
+    host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(x)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x
+        for _ in range(n):
+            y = step(y)
+    t = cuda_ms(graph.replay, 10) / n
+    del graph, y
+    return t
+
+
 def cuda_ms(fn, n: int) -> float:
     """Device milliseconds per call of ``fn`` over ``n`` calls (CUDA events)."""
     import torch
@@ -524,14 +643,18 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     from lbm_tpu_torch.kernels import (_build, bgk, channel, collide_stream, csf_droplet,
-                                       les, mrtcg, power_law, rk, shan_chen, trt)
+                                       cylinder, les, mrtcg, power_law, rk, sediment,
+                                       shan_chen, trt)
+    from lbm_tpu_torch.kernels import ibm as kibm
     from lbm_tpu_torch.models import kbc
     from lbm_tpu_torch.models.mrt_cg import phase_field
     from lbm_tpu_torch.models.trt import omega_minus_from_magic
     from lbm_tpu_torch.scenes import multiphase as mp
     from lbm_tpu_torch.scenes import shan_chen as scs
     from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.ops.ibm import IBM
     from lbm_tpu_torch.scenes import channel as chs
+    from lbm_tpu_torch.scenes import obstacles as obs
     from lbm_tpu_torch.scenes import ulbm
     from lbm_tpu_torch.scenes.channel import TAU_DEFAULT, horizontal_poiseuille
 
@@ -542,11 +665,14 @@ def main() -> int:
     k9, k10 = channel.CHANNEL_VARIANT, trt.COLLIDE_STREAM_TRT
     k11 = power_law.COLLIDE_STREAM_POWER_LAW
     k12, k13, k14 = rk.RK_CG, csf_droplet.CSF_DROPLET, shan_chen.SHAN_CHEN
+    k15, k16, k17 = cylinder.CYLINDER, kibm.IBM_FORCING, sediment.SEDIMENT
     counted = {"collide_stream_bgk": k1, "channel_bgk": k2, "collide_stream_kbc": k3,
                "channel_kbc": k4, "collide_stream_les": k5, "mrtcg_reduced": k6,
                "mrtcg_split": k7, "mrtcg_full": k8, "channel_variant": k9,
                "collide_stream_trt": k10, "collide_stream_power_law": k11, "rk_cg": k12,
-               "csf_droplet": k13, "shan_chen": k14}
+               "csf_droplet": k13, "shan_chen": k14, "cylinder": k15, "ibm_forcing": k16,
+               "sediment": k17}
+    markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
     card = nvidia_smi("name,power.limit")
@@ -768,6 +894,63 @@ def main() -> int:
             del f, got, want
     torch.cuda.empty_cache()
 
+    # kernels 15-17 at the main path's own grids; each runs twice, and the
+    # runs must be bit-identical.  Kernel 15, 10 steps from a noisy state with
+    # a noisy force over the ROI of the grid's cylinder, at both Guo pairs
+    # (the Strouhal grid; cylinder_flow's defaults; the transcription test's
+    # 48x128; 4096x2048)
+    err15, err16, err17 = {}, {}, {}
+    for dtype, (R, C), ib in ((f32, (1024, 256), IBM.circle(*STROUHAL_CIRCLE)),
+                              (f64, (160, 120), IBM.circle(60.0, 60.0, 20.0, 64)),
+                              (f64, (48, 128), IBM.circle(24.0, 60.0, 9.0, 24)),
+                              (f32, BIG, IBM.circle(*STROUHAL_CIRCLE))):
+        f, F, origin = cylinder_case(R, C, dtype, dev, ib, seed=R + C + 15)
+        for guo in GUO:
+            step = cylinder.make_cylinder_fused_step(R, C, 1 / 0.55, (0.05, 0.0), guo, dtype)
+            e = hold_twice(
+                f"[4] kernel 15 guo ({guo[0]:.4g}, {guo[1]:.4g}) {R}x{C} {dtype} 10 steps",
+                lambda x, step=step: step(x, F, origin),
+                lambda x, guo=guo: cylinder.plain_cylinder_step(x, F, origin, 1 / 0.55,
+                                                                (0.05, 0.0), guo),
+                f, 10, dtype)
+            err15[dtype] = max(err15.get(dtype, 0.0), e)
+        del f, F
+    torch.cuda.empty_cache()
+    # kernel 16, one call at m_max 5 on noisy states, in both Peskin pairings:
+    # the Strouhal ROI, cylinder_flow's default ROI, the markers of
+    # configs/cylinder-markers.toml, and a ROI two cells from every edge
+    # (where lbm_tpu's 8x128-aligned window does not fit)
+    for ref in (False, True):
+        for label, (R, C), ib in (
+                ("Strouhal", (1024, 256),
+                 IBM.circle(*STROUHAL_CIRCLE, reference_transposed_weights=ref)),
+                ("default", (160, 120),
+                 IBM.circle(60.0, 60.0, 20.0, 64, reference_transposed_weights=ref)),
+                ("cylinder-markers.toml", (160, 120),
+                 IBM.from_toml(markers, "cylinder-a", reference_transposed_weights=ref)),
+                ("edge", (40, 40),
+                 IBM.circle(20.0, 20.0, 15.0, 48, reference_transposed_weights=ref))):
+            for dtype in (f32, f64):
+                f = seeded_state(R, C, dtype, dev, seed=R * C + 16, noisy=True)
+                e = hold_twice(
+                    f"[4] kernel 16 {label} ROI {ib.roi_shape} at ({ib.roi_rows[0]}, "
+                    f"{ib.roi_cols[0]}) of {R}x{C}, {ib.row_w.shape[0]} markers, "
+                    f"transposed={ref} {dtype}",
+                    kibm.make_ibm_forcing_step(R, C, ib, dtype), ib.force_from_populations,
+                    f, 1, dtype)
+                err16[dtype] = max(err16.get(dtype, 0.0), e)
+    # kernel 17, 10 steps from the scene's initial state with noise
+    for dtype, (R, C) in ((f32, (256, 320)), (f64, (256, 320)), (f64, (64, 96)), (f32, BIG)):
+        kw = sediment_kwargs(R, C)
+        S = sediment_state(R, C, dtype, dev, seed=R + C + 17)
+        e = hold_twice(f"[4] kernel 17 {R}x{C} {dtype} 10 steps",
+                       sediment.make_sediment_fused_step(R, C, dtype=dtype, **kw),
+                       lambda x, kw=kw, R=R: sediment.plain_sediment_step(
+                           x, **dict(kw, R23=kw["R23"] % R)), S, 10, dtype)
+        err17[dtype] = max(err17.get(dtype, 0.0), e)
+        del S
+    torch.cuda.empty_cache()
+
     # 5. the main path
     for k in counted.values():
         k.launches = 0
@@ -801,6 +984,41 @@ def main() -> int:
 
     # the CLIs of every path run together in one process later in phase 5
     clis = [("horizontal_poiseuille", "--x64", "--device", "cuda")]
+
+    # lbm_tpu's hardware gates on the BGK kernels (scripts/validate_tpu.py
+    # poiseuille :40-48, through kernel 2; taylor_green :79-106, through
+    # kernel 1 at 8 steps per call)
+    before = k2.launches
+    t0 = time.perf_counter()
+    pg = horizontal_poiseuille(H=128, W=128, T=200000, device=dev, dtype=f32)
+    wall = time.perf_counter() - t0
+    check_gates(f"[5] poiseuille 128x128 float32, {pg.steps} steps (host wall time "
+                f"{wall!r} s)", {
+        "L2": (pg.l2, 0.0, 5e-4),
+        "kernel-2 launches - steps": (k2.launches - before - pg.steps, 0, 0)})
+    del pg
+    n_tg, nu_tg, u_tg, T_tg = 256, 0.05, 0.02, 400
+    kx = 2 * np.pi / n_tg
+    X = np.arange(n_tg)[:, None] * np.ones((1, n_tg))
+    Y = np.ones((n_tg, 1)) * np.arange(n_tg)[None, :]
+    u_np = np.stack([u_tg * np.cos(kx * X) * np.sin(kx * Y),
+                     -u_tg * np.sin(kx * X) * np.cos(kx * Y)])
+    f = d2q9.equilibrium(torch.as_tensor(u_np, dtype=f32, device=dev),
+                         torch.ones((n_tg, n_tg), dtype=f32, device=dev)).contiguous()
+    step = bgk.make_fused_step(n_tg, n_tg, 1.0 / (3 * nu_tg + 0.5), f32, substeps=8)
+    before = k1.launches
+    t0 = time.perf_counter()
+    for _ in range(T_tg // 8):
+        f = step(f)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    u = d2q9.calc_u(f, d2q9.calc_rho(f))
+    decay = (u.double() ** 2).sum().item() / float((u_np.astype(np.float32) ** 2).sum())
+    expect = float(np.exp(-2 * nu_tg * 2 * kx * kx * T_tg))
+    check_gates(f"[5] taylor_green 256x256 float32, {T_tg} steps (host wall time {wall!r} s)", {
+        "decay ratio": (decay / expect, 0.97, 1.03),
+        "kernel-1 launches": (k1.launches - before, T_tg, T_tg)})
+    del f, u
 
     before = k2.launches
     big = horizontal_poiseuille(H=R, W=C, T=1000, device=dev, dtype=f32)
@@ -1203,11 +1421,106 @@ def main() -> int:
     check_gates(label, gates)
     del res
 
-    # the timed runs are over: the CLIs of every path run in their own
-    # process while this one computes rk_static_droplet on the CPU
+    slice_launches = {name: counted[name].launches for name in ("rk_cg", "csf_droplet",
+                                                                 "shan_chen")}
+    log(f"[5] kernel 12-14 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the RK / CSF-droplet / Shan-Chen path never launched")
     clis += [("rk_rayleigh_taylor", "--device", "cuda", "--set", "T=1000"),
              ("sc_flat_interface", "--device", "cuda", "--set", "substeps=4", "--set", "T=2000")]
+
+    # the obstacle slice of kernels 15-17: its counts start at 0 here and are
+    # read at its end
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
+    for k in counted.values():
+        k.launches = 0
+
+    # the Strouhal gate (validate_tpu.py strouhal): 1024x256, D = 32, Re 96,
+    # the standard Guo pair, 200k steps, the lift sampled every 40 steps;
+    # one launch each of kernels 16 and 15 per step
+    t0 = time.perf_counter()
+    res = obs.cylinder_flow(H=1024, W=256, T=200000, ibm=IBM.circle(*STROUHAL_CIRCLE),
+                            guo_coeffs=(3.0, 9.0), record_every=40, device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    strouhal_wall = time.perf_counter() - t0
+    Fy = res.forces[:, 1].double().numpy()
+    sig = Fy[2000:] - Fy[2000:].mean()
+    spec = np.abs(np.fft.rfft(sig))
+    St = np.fft.rfftfreq(len(sig), d=40)[np.argmax(spec[1:]) + 1] * 32.0 / 0.05
+    check_gates(f"[5] Strouhal: cylinder_flow 1024x256 float32 200000 steps (host wall time "
+                f"{strouhal_wall!r} s = {strouhal_wall / 200000 * 1e6!r} us/step; mean drag "
+                f"{res.forces[2000:, 0].double().mean().item()!r})", {
+        "St": (float(St), 0.15, 0.20), "lift rms": (float(sig.std()), 0.02, 0.5),
+        "finite": (float(torch.isfinite(res.f).all()), 1.0, 1.0),
+        "force samples": (res.forces.shape[0], 5000, 5000),
+        "kernel-15 launches": (k15.launches, 200000, 200000),
+        "kernel-16 launches": (k16.launches, 200000, 200000)})
+    del res
+
+    # cylinder_flow and rectangle_sedimentation at the reference's defaults
+    # in float64 on the card (held against the CPU below, while the CLIs run)
+    cyl_card, cyl_wall = {}, {}
+    for ref in (False, True):
+        before = k15.launches, k16.launches
+        t0 = time.perf_counter()
+        cyl_card[ref] = obs.cylinder_flow(reference_weights=ref, device=dev, dtype=f64)
+        torch.cuda.synchronize()
+        cyl_wall[ref] = time.perf_counter() - t0
+        if (k15.launches - before[0], k16.launches - before[1]) != (500, 500):
+            raise AssertionError("cylinder_flow: not one launch of kernels 15 and 16 per step")
+    before = k17.launches
+    t0 = time.perf_counter()
+    sed_card = obs.rectangle_sedimentation(device=dev, dtype=f64)
+    torch.cuda.synchronize()
+    sed_wall = time.perf_counter() - t0
+    if k17.launches - before != 500:
+        raise AssertionError("rectangle_sedimentation: not one kernel-17 launch per step")
+
+    # rectangle_sedimentation at its defaults in float32 for 20k steps, with
+    # tests/test_sedimentation.py's invariants at this geometry (inlet rows
+    # 206..255, the rectangle at rows 105.. and cols 200..250)
+    before = k17.launches
+    t0 = time.perf_counter()
+    res = obs.rectangle_sedimentation(T=20000, device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    Cf = res.C.double().cpu().numpy()
+    uy = (res.u[1] / res.rho).double().cpu().numpy()
+    check_gates(f"[5] rectangle_sedimentation 256x320 float32 20000 steps (host wall time "
+                f"{wall!r} s = {wall / 20000 * 1e6!r} us/step)", {
+        "finite": (float(torch.isfinite(res.f).all() and torch.isfinite(res.g).all()), 1.0, 1.0),
+        "C max": (float(Cf.max()), 1e-4, 1.0),
+        "C min": (float(Cf.min()), -1e-3, 1.0),
+        "plume: C bottom 50 rows - top 50 rows, cols 1..19":
+            (float(Cf[-50:, 1:20].mean() - Cf[:50, 1:20].mean()), 1e-12, 1.0),
+        "u_y above the rectangle, rows 0..99 at col 225": (float(uy[:100, 225].mean()),
+                                                          0.02, 1.0),
+        "kernel-17 launches": (k17.launches - before, 20000, 20000)})
+    del res
+
+    # the timed runs are over: the CLIs of every path run in their own
+    # process while this one computes the CPU references
+    clis += [("cylinder_flow", "--markers", "configs/cylinder-markers.toml", "--x64",
+              "--device", "cuda"),
+             ("rectangle_sedimentation", "--device", "cuda")]
     cli_run = start_clis(clis)
+    for ref in (False, True):
+        want = obs.cylinder_flow(reference_weights=ref, device="cpu", dtype=f64)
+        got = cyl_card[ref]
+        check_gates(f"[5] cylinder_flow 160x120 float64 500 steps reference_weights={ref} on "
+                    f"the card vs the CPU (card host wall time {cyl_wall[ref]!r} s)", {
+            **{f"max|{k}_card - {k}_cpu|": (
+                (getattr(got, k).cpu() - getattr(want, k)).abs().max().item(), 0.0, 1e-12)
+               for k in ("f", "F_roi", "surface_force")},
+            "drag surface_force[0]": (got.surface_force[0].item(), -1e9, -1e-12)})
+    del cyl_card, got, want
+    want = obs.rectangle_sedimentation(device="cpu", dtype=f64)
+    check_gates(f"[5] rectangle_sedimentation 256x320 float64 500 steps on the card vs the CPU "
+                f"(card host wall time {sed_wall!r} s)", {
+        f"max|{k}_card - {k}_cpu|": (
+            (getattr(sed_card, k).cpu() - getattr(want, k)).abs().max().item(), 0.0, 1e-12)
+        for k in ("f", "g", "C")})
+    del sed_card, want
     want = mp.rk_static_droplet(device="cpu", dtype=f64)
     check_gates(f"[5] rk_static_droplet 101x101 float64 2000 steps on the card vs the CPU "
                 f"(card host wall time {drop_wall!r} s)", {
@@ -1219,11 +1532,11 @@ def main() -> int:
 
     finish_clis(cli_run)
 
-    slice_launches = {name: counted[name].launches for name in ("rk_cg", "csf_droplet",
-                                                                 "shan_chen")}
-    log(f"[5] kernel 12-14 path launches: {slice_launches}")
+    slice_launches = {name: counted[name].launches for name in ("cylinder", "ibm_forcing",
+                                                                 "sediment")}
+    log(f"[5] kernel 15-17 path launches: {slice_launches}")
     if not all(slice_launches.values()):
-        raise AssertionError("a kernel of the RK / CSF-droplet / Shan-Chen path never launched")
+        raise AssertionError("a kernel of the cylinder / sedimentation path never launched")
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
@@ -1282,6 +1595,26 @@ def main() -> int:
                 for name, (s, q, x) in k.items()}
 
     new32 = new_kernels(f32)
+
+    def obstacle_kernels(dtype):
+        """(kernel call, plain call) of kernels 15 and 17 at 4096x2048: kernel
+        15 from a noisy state with a force over the Strouhal cylinder's ROI,
+        kernel 17 from the scene's initial state with noise."""
+        ib = IBM.circle(*STROUHAL_CIRCLE)
+        f15, F15, o15 = cylinder_case(R, C, dtype, dev, ib, seed=615)
+        c15 = cylinder.cylinder_constants(1 / 0.55, (0.05, 0.0), (3.0, 9.0), dtype)
+        kw = sediment_kwargs(R, C)
+        S17 = sediment_state(R, C, dtype, dev, seed=617)
+        step17 = sediment.make_sediment_fused_step(R, C, dtype=dtype, **kw)
+        plain_kw = dict(kw, R23=kw["R23"] % R)
+        return {
+            "cylinder": ((lambda: cylinder.cylinder_step(f15, F15, o15, c15)),
+                         (lambda: cylinder.plain_cylinder_step(f15, F15, o15, 1 / 0.55,
+                                                               (0.05, 0.0), (3.0, 9.0)))),
+            "sediment": ((lambda: step17(S17)),
+                         (lambda: sediment.plain_sediment_step(S17, **plain_kw)))}
+
+    obst32 = obstacle_kernels(f32)
     fns = {
         "collide_stream_bgk": (lambda: collide_stream.collide_stream_bgk(f, OMEGA), 50),
         "collide_stream_bgk_plain": (lambda: plain1(f), 10),
@@ -1314,6 +1647,10 @@ def main() -> int:
         **{k: v for name, (kern, plain) in new32.items() for k, v in (
             (name, (kern, 30 if name in ("rk_cg", "csf_droplet") else 50)),
             (f"{name}_plain", (plain, 3 if name in ("rk_cg", "csf_droplet") else 5)))},
+        "cylinder": (obst32["cylinder"][0], 50),
+        "cylinder_plain": (obst32["cylinder"][1], 5),
+        "sediment": (obst32["sediment"][0], 30),
+        "sediment_plain": (obst32["sediment"][1], 3),
         "copy": (lambda: dst.copy_(f), 50),
     }
     runs = {k: [] for k in fns}
@@ -1328,7 +1665,7 @@ def main() -> int:
     # bytes per cell in float32: each input plane read once, each output
     # plane written once
     bytes32 = {"mrtcg_reduced": 80, "mrtcg_reduced_csf": 96, "mrtcg_split": 112,
-               "mrtcg_full": 144, "rk_cg": 88, "csf_droplet": 160}
+               "mrtcg_full": 144, "rk_cg": 88, "csf_droplet": 160, "sediment": 144}
     for k in fns:
         if k == "copy":
             continue
@@ -1337,7 +1674,7 @@ def main() -> int:
         gbs = b * cells / (ms[k] * 1e-3) / 1e9
         log(f"[6] {k}: {ms[k]!r} ms/step (runs {runs[k]}) = {mlups!r} MLUPS, "
             f"{gbs!r} GB/s at {b} B/cell = {gbs / copy_gbs!r} of copy")
-    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt, fs, fp, new32
+    del f, fi, fk, fc, fl, dst, S8, G6, G6c, mrt, fs, fp, new32, obst32
     torch.cuda.empty_cache()
     f = seeded_state(R, C, f64, dev, seed=8)
     fs = seeded_state(R, C, f64, dev, seed=14, incompressible=True, noisy=True)
@@ -1352,6 +1689,7 @@ def main() -> int:
            for layout_csf in (("reduced", False), ("reduced", True), ("split", False),
                               ("full", False))}
     new64 = new_kernels(f64)
+    obst64 = obstacle_kernels(f64)
     ms64 = {}
     for k, fn in (
             ("collide_stream_bgk", lambda: collide_stream.collide_stream_bgk(f, OMEGA)),
@@ -1370,8 +1708,9 @@ def main() -> int:
             ("collide_stream_trt", lambda: trt.collide_stream_trt(f, TRT_OMEGA, trt_minus)),
             ("collide_stream_power_law",
              lambda: power_law.collide_stream_power_law(fp, **PLAW)),
-            *((name, kern) for name, (kern, _) in new64.items())):
-        t = ms64[k] = cuda_ms(fn, 20 if k.startswith(("mrtcg", "rk", "csf")) else 50)
+            *((name, kern) for name, (kern, _) in new64.items()),
+            *((name, kern) for name, (kern, _) in obst64.items())):
+        t = ms64[k] = cuda_ms(fn, 20 if k.startswith(("mrtcg", "rk", "csf", "sed")) else 50)
         b = 2 * bytes32.get(k, 72)
         gbs = b * cells / (t * 1e-3) / 1e9
         log(f"[6] {k} float64: {t!r} ms/step = {cells / (t * 1e-3) / 1e6!r} MLUPS, "
@@ -1387,10 +1726,11 @@ def main() -> int:
                   ("channel_variant_free_stream", lambda: plain9f(fs)),
                   ("collide_stream_trt", lambda: plain10_64(f)),
                   ("collide_stream_power_law", lambda: plain11_64(fp)),
-                  *((name, plain) for name, (_, plain) in new64.items())):
-        plain64[k] = cuda_ms(fn, 3 if k in ("rk_cg", "csf_droplet") else 5)
+                  *((name, plain) for name, (_, plain) in new64.items()),
+                  *((name, plain) for name, (_, plain) in obst64.items())):
+        plain64[k] = cuda_ms(fn, 3 if k in ("rk_cg", "csf_droplet", "sediment") else 5)
         log(f"[6] {k}_plain float64: {plain64[k]!r} ms/step")
-    del f, fi, fc, S8, G6, G6c, mrt, fs, fp, new64
+    del f, fi, fc, S8, G6, G6c, mrt, fs, fp, new64, obst64
     torch.cuda.empty_cache()
 
     # kernel 6 at the reference's RT grid, 256x128: the device time per
@@ -1400,46 +1740,57 @@ def main() -> int:
     for dtype in (f32, f64):
         G = reduced_input(mrtcg_state(256, 128, dtype, dev), False)
         step, _ = mrtcg_steps("reduced", 256, 128, dtype, False)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step(G)  # warm up outside the capture
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = G
-            for _ in range(100):
-                y = step(y)
-        t_graph = cuda_ms(graph.replay, 10) / 100
+        t_graph = graph_ms(step, G)
         t_eager = cuda_ms(lambda: step(G), 500)
         wall, steps = mrt_wall[f"mrtcg_rayleigh_taylor 256x128 {dtype} 100000 steps"]
         log(f"[6] mrtcg_reduced 256x128 {dtype}: {t_graph!r} device ms/step (CUDA graph "
             f"of 100 steps), {t_eager!r} ms/step issued eagerly, "
             f"{wall / steps * 1e6!r} host us/step over the 100k-step run")
-        del graph, y
 
     # kernel 12 at the reference's RK grid, 1024x256: as kernel 6 above
     ms_rk_small = {}
     for dtype in (f32, f64):
         S = rk_state(1024, 256, dtype, dev)
         step = rk.make_rk_fused_step(1024, 256, dtype=dtype, **RK)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step(S)  # warm up outside the capture
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = S
-            for _ in range(100):
-                y = step(y)
-        ms_rk_small[dtype] = t_graph = cuda_ms(graph.replay, 10) / 100
+        ms_rk_small[dtype] = t_graph = graph_ms(step, S)
         t_eager = cuda_ms(lambda: step(S), 500)
         log(f"[6] rk_cg 1024x256 {dtype}: {t_graph!r} device ms/step (CUDA graph of 100 "
             f"steps) = {1024 * 256 / (t_graph * 1e-3) / 1e6!r} MLUPS, {t_eager!r} ms/step "
             f"issued eagerly, {rk_wall[dtype] / 100000 * 1e6!r} host us/step over the "
             f"100k-step run")
-        del graph, y, S
+        del S
+
+    # kernels 16 and 15 at the Strouhal grid, 1024x256: each alone and the
+    # whole step (16 then 15) under a CUDA graph of 100 calls, against the
+    # host time per step of the 200k-step run; kernel 16 is one block, on one
+    # SM of 132, and bound by its latency (forcing_work gives its bytes and
+    # operations)
+    ib = IBM.circle(*STROUHAL_CIRCLE)
+    strouhal_ms, forcing_bound = {}, {}
+    for dtype in (f32, f64):
+        f, F, origin = cylinder_case(1024, 256, dtype, dev, ib, seed=616)
+        force = kibm.make_ibm_forcing_step(1024, 256, ib, dtype)
+        grid = cylinder.make_cylinder_fused_step(1024, 256, 1 / 0.55, (0.05, 0.0), (3.0, 9.0),
+                                                 dtype)
+        def forcing_only(x):
+            force(x)
+            return x
+
+        t16 = graph_ms(forcing_only, f)
+        t15 = graph_ms(lambda x: grid(x, F, origin), f)
+        t_step = graph_ms(lambda x: grid(x, force(x), origin), f)
+        t16_plain = cuda_ms(lambda: ib.force_from_populations(f), 50)
+        fb, fo = forcing_work(ib, f.element_size())
+        forcing_bound[dtype] = bound(fb / (1024 * 256), fo / (1024 * 256), 1024 * 256,
+                                     str(dtype).removeprefix("torch."))
+        strouhal_ms[dtype] = (t16, t15, t_step, t16_plain)
+        log(f"[6] Strouhal step 1024x256 {dtype} (CUDA graphs of 100): kernel 16 {t16!r} ms "
+            f"(ROI {ib.roi_shape}, 64 markers, one block on one SM of 132; plain version "
+            f"{t16_plain!r} ms eager; bound {forcing_bound[dtype][0]!r} ms by "
+            f"{forcing_bound[dtype][1]}: {fb} B, {fo} operations), kernel 15 {t15!r} ms, "
+            f"the step {t_step!r} ms; host {strouhal_wall / 200000 * 1e3!r} ms per step in "
+            f"the 200k-step run")
+        del f, F
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1492,6 +1843,13 @@ def main() -> int:
                       sc_state(small, small, f32, cpu, "sc", seed=1)),
         "shan_chen_cs": (shan_chen.make_plain_step(**sc_kwargs("cs", "shift")),
                          sc_state(small, small, f32, cpu, "cs", seed=2)),
+        # kernel 15 with a 2x2 force: at 4096x2048 the ROI is 0.02% of the grid
+        "cylinder": (lambda x: cylinder.plain_cylinder_step(
+            x, torch.full((2, 2, 2), 1e-3), (10, 10), 1 / 0.55, (0.05, 0.0), (3.0, 9.0)),
+            seeded_state(small, small, f32, cpu, seed=15, noisy=True)),
+        "sediment": (lambda x: sediment.plain_sediment_step(
+            x, **dict(SED, R23=40, C28=20, C38=30, inlet_rows=16)),
+            obs.sediment_initial_state(small, small, 0.02, 1e-3, 16, cpu, f32)),
     }
     bounds = {}
     for name, (fn, x) in plains.items():
@@ -1502,6 +1860,9 @@ def main() -> int:
         log(f"[6] bound {name} at {R}x{C}: {b} B/cell, {ops!r} flops/cell -> float32 "
             f"{bounds[name][0]!r} ms ({bounds[name][1]}), float64 {b64[0]!r} ms ({b64[1]})")
 
+    ms["ibm_forcing"], ms["ibm_forcing_plain"] = strouhal_ms[f32][0], strouhal_ms[f32][3]
+    ms64["ibm_forcing"], plain64["ibm_forcing"] = strouhal_ms[f64][0], strouhal_ms[f64][3]
+    bounds["ibm_forcing"] = forcing_bound[f32]
     rows = [
         ("collide_stream_bgk", "lbm_tpu/kernels/bgk_pallas.py:74", err1),
         ("channel_bgk", "lbm_tpu/kernels/channel_pallas.py:128", err2),
@@ -1517,6 +1878,9 @@ def main() -> int:
         ("rk_cg", "lbm_tpu/kernels/rk_pallas.py:163", err12),
         ("csf_droplet", "lbm_tpu/kernels/csf_droplet_pallas.py:66", err13),
         ("shan_chen", "lbm_tpu/kernels/shan_chen_pallas.py:172", err14),
+        ("cylinder", "lbm_tpu/kernels/cylinder_pallas.py:129", err15),
+        ("ibm_forcing", "lbm_tpu/kernels/ibm_pallas.py:39", err16),
+        ("sediment", "lbm_tpu/kernels/sediment_pallas.py:79", err17),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{name}.cu",
@@ -1544,6 +1908,11 @@ def main() -> int:
     kernels[13].update(ms_cs=ms["shan_chen_cs"], plain_ms_cs=ms["shan_chen_cs_plain"],
                        ms_cs_f64=ms64["shan_chen_cs"], plain_ms_cs_f64=plain64["shan_chen_cs"],
                        bound_ms_cs=bounds["shan_chen_cs"][0])
+    kernels[14].update(ms_1024x256=strouhal_ms[f32][1], ms_1024x256_f64=strouhal_ms[f64][1],
+                       step_ms_1024x256=strouhal_ms[f32][2],
+                       step_ms_1024x256_f64=strouhal_ms[f64][2])
+    kernels[15].update(shape="Strouhal ROI 37x37, 64 markers, in 1024x256", blocks=1,
+                       bound_ms_f64=forcing_bound[f64][0], bound_by_f64=forcing_bound[f64][1])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

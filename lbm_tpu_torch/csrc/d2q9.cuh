@@ -113,4 +113,28 @@ __device__ __forceinline__ Pairs<T> d2q9_pairs(T ux, T uy) {
   return p;
 }
 
+// ops/d2q9.py equilibrium at (rho, ux, uy), term for term:
+// rho (1 + 3 cu + 4.5 cu cu - 1.5 |u|^2) w_k.
+template <typename T>
+__device__ __forceinline__ void equilibrium(T rho, T ux, T uy, T feq[9]) {
+  const T uu = ux * ux + uy * uy;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const T c = cu(k, ux, uy);
+    T t = T(1.0) + T(3.0) * c;
+    t = t + T(4.5) * c * c;
+    t = t - T(1.5) * uu;
+    feq[k] = rho * t * T(weight(k));
+  }
+}
+
+// ops/d2q9.py abb_coefficient of plane k at the wall velocity (uwx, uwy):
+// (2 + 9 cu cu - 3 |u_w|^2) w_k.
+template <typename T>
+__device__ __forceinline__ T abb_coefficient(int k, T uwx, T uwy) {
+  const T c = cu(k, uwx, uwy);
+  const T uu = uwx * uwx + uwy * uwy;
+  return (T(2.0) + T(9.0) * c * c - T(3.0) * uu) * T(weight(k));
+}
+
 }  // namespace lbm

@@ -1,0 +1,268 @@
+// Kernel 17: one step of rectangle sedimentation, a BGK fluid f and a
+// passive advection-diffusion scalar g coupled one way, on 18 planes.
+//
+// Replaces the TPU kernel lbm_tpu/kernels/sediment_pallas.py:79
+// make_sediment_fused_step (helpers _bgk9 :49, _stream9 :67).  Its plain
+// version is kernels/sediment.py::plain_sediment_step, lbm_tpu's jnp step
+// (scenes/obstacles.py:455-491) written with the port's boundary rules,
+// transcribed in its order and built with -fmad=false (_build.UNIT_FLAGS), so
+// each operation rounds once, as the plain version's elementwise ops do.
+// One step (test/rectangle_sedimentation_test.cpp:125-236):
+//   1. both BGK collisions at the compressible equilibrium, the scalar's at
+//      the velocity u + w_s in both components (:125, :201);
+//   2. the zero-gradient outflows on g before the stream: row 0 takes row
+//      1's post-collision g, then column C-1 of rows 1..R-2 takes column
+//      C-2's (:134-141);
+//   3. the periodic push of f and g;
+//   4. the fluid's walls, in order: anti-bounce-back inlet on column 0 at
+//      the wall velocity (0, u_in), rows 1..R-2 (:148-157); the
+//      extrapolated anti-bounce-back outlet on column C-1, from the
+//      start-of-step u of columns C-1 and C-2 (:159-172); specular row 0
+//      (:174-177); bounce-back row R-1 (:179-182); the rectangle's
+//      bounce-back walls (:184-196);
+//   5. the scalar's walls, in order: the ADE Dirichlet inlet, 2 g_eq at
+//      the updated velocity, on column 0 rows 1..R-2 (:199-218); the
+//      rectangle's anti-bounce-back walls, the first running to the last
+//      row (:220-232); bounce-back row R-1 (:233-236).
+//
+// One thread per cell, neighbouring columns along a warp.  A thread that
+// needs a neighbour's values recomputes them from f_in: row 0 collides
+// row 1's scalar, column C-1 collides column C-2's scalar and takes its
+// start-of-step velocity.  The ADE inlet's updated velocity is local: on
+// rows 1..R-2 of column 0 the inlet rewrites all 8 moving f populations
+// from the cell's own post-collision values, and the rest population does
+// not move, so the cell's new f is known to its own thread (the geometry
+// keeps the rectangle off column 0).
+//
+// One writer per output entry.  Every wall rule writes entries of its own
+// cell.  A push into an entry that a rule writes is dropped (kernel 9's
+// rule, csrc/channel_variant.cu), and the thread of the wall cell applies
+// the rules in the plain version's order, each over the last, and writes
+// what stands at the end.  So g plane 7 at (R-1, C28) comes from the row
+// R-1 bounce-back over the rectangle's first wall, and f at (0, C-1) and
+// (R-1, C-1) from the row rules over the outlet, as in lbm_tpu (which keeps
+// the reference's double write at :155-157).
+//
+// Shapes: R, C >= 4, 1 <= R23 <= R-2, 1 <= C28 <= C38 <= C-2.
+//
+// Bound: device-memory bytes, 144 B/cell per float32 step (18 planes in,
+// 18 out).  Left on the table: the edge threads' recomputed collisions
+// (their warps diverge) and the rule branches in every thread.
+
+#include <cuda_runtime.h>
+
+#include "d2q9.cuh"
+
+namespace {
+
+template <typename T>
+struct Params {
+  T omega, one_m_omega, w_s, c_w;  // BGK rate, 1 - omega, settling velocity, inlet C
+  T abb_in[9];                     // the inlet's ABB coefficients at (0, u_in)
+  int R23, C28, C38;               // the rectangle: top row, first and second wall
+  int inlet_rows;                  // C = c_w on the inlet's last inlet_rows rows
+};
+
+// Moments of one cell's f: rho, u = m1 / rho.
+template <typename T>
+__device__ __forceinline__ void velocity(const T f[9], T& rho, T& ux, T& uy) {
+  T mx, my;
+  lbm::moments(f, rho, mx, my);
+  ux = mx / rho;
+  uy = my / rho;
+}
+
+template <typename T>
+__device__ __forceinline__ void bgk(const T x[9], T dens, T ux, T uy, const Params<T>& P,
+                                    T out[9]) {
+  T eq[9];
+  lbm::equilibrium(dens, ux, uy, eq);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = P.one_m_omega * x[k] + P.omega * eq[k];
+}
+
+// The scalar's post-collision populations at `cell` from its own f and g.
+template <typename T>
+__device__ __forceinline__ void scalar_collision(const T* __restrict__ fin, int64_t n,
+                                                 int64_t cell, const Params<T>& P,
+                                                 T gc[9]) {
+  T f[9], g[9], rho, ux, uy;
+  lbm::load9(fin, n, cell, f);
+  lbm::load9(fin + 9 * n, n, cell, g);
+  velocity(f, rho, ux, uy);
+  T conc = g[0];
+#pragma unroll
+  for (int k = 1; k < 9; ++k) conc += g[k];
+  bgk(g, conc, ux + P.w_s, uy + P.w_s, P, gc);
+}
+
+// The planes of (r, c) that a wall rule writes: f in bits 0-8, g in 9-17.
+template <typename T>
+__device__ __forceinline__ unsigned owned(int64_t r, int64_t c, int64_t R, int64_t C,
+                                          const Params<T>& P) {
+  unsigned m = 0;
+  const bool lane = r >= 1 && r <= R - 2;
+  const bool walls = r >= P.R23 + 1;  // the rectangle's side walls, down from R23 + 1
+  const bool ceil = r == P.R23 && c >= P.C28 && c <= P.C38;
+  // f: inlet, outlet, row 0, row R-1, the rectangle
+  if (c == 0 && lane) m |= 0x1FEu;
+  if (c == C - 1) m |= 0x1FEu;
+  if (r == 0) m |= (1u << 1) | (1u << 5) | (1u << 8);
+  if (r == R - 1) m |= (1u << 3) | (1u << 7) | (1u << 6);
+  if (walls && lane && c == P.C28) m |= (1u << 8) | (1u << 4) | (1u << 7);
+  if (ceil) m |= (1u << 6) | (1u << 3) | (1u << 7);
+  if (walls && lane && c == P.C38) m |= (1u << 5) | (1u << 2) | (1u << 6);
+  // g: inlet, the rectangle (first wall to the last row), row R-1
+  unsigned g = 0;
+  if (c == 0 && lane) g |= 0x1FEu;
+  if (walls && c == P.C28) g |= (1u << 8) | (1u << 4) | (1u << 7);
+  if (ceil) g |= (1u << 6) | (1u << 3) | (1u << 7);
+  if (walls && lane && c == P.C38) g |= (1u << 5) | (1u << 2) | (1u << 6);
+  if (r == R - 1) g |= (1u << 3) | (1u << 7) | (1u << 6);
+  return m | (g << 9);
+}
+
+template <typename T>
+__global__ void sediment_kernel(const T* __restrict__ fin, T* __restrict__ fout,
+                                int64_t R, int64_t C, Params<T> P) {
+  const int64_t n = R * C;
+  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= n) return;
+  const int64_t r = cell / C;
+  const int64_t c = cell - r * C;
+  const bool lane = r >= 1 && r <= R - 2;
+
+  // 1. both collisions
+  T f[9], g[9], rho, ux, uy;
+  lbm::load9(fin, n, cell, f);
+  lbm::load9(fin + 9 * n, n, cell, g);
+  velocity(f, rho, ux, uy);
+  T conc = g[0];
+#pragma unroll
+  for (int k = 1; k < 9; ++k) conc += g[k];
+  T fc[9], gc[9];
+  bgk(f, rho, ux, uy, P, fc);
+  bgk(g, conc, ux + P.w_s, uy + P.w_s, P, gc);
+
+  // 2. the zero-gradient outflows on g (row 0 first, then column C-1)
+  if (r == 0)
+    scalar_collision(fin, n, C + c, P, gc);
+  else if (c == C - 1 && lane)
+    scalar_collision(fin, n, r * C + C - 2, P, gc);
+
+  // 3. the periodic push, less the entries a wall rule writes
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t rd = lbm::wrap(r + lbm::cx(k), R);
+    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
+    const unsigned m = owned(rd, cd, R, C, P);
+    const int64_t dst = rd * C + cd;
+    if (!(m & (1u << k))) fout[k * n + dst] = fc[k];
+    if (!(m & (1u << (9 + k)))) fout[(9 + k) * n + dst] = gc[k];
+  }
+
+  // 4. the fluid's rules at this cell, in the plain version's order
+  T fo[9], go[9];
+  if (c == 0 && lane) {  // inlet
+#pragma unroll
+    for (int k = 1; k < 9; ++k) fo[lbm::opp(k)] = -fc[k] + P.abb_in[k];
+  }
+  if (c == C - 1) {  // outlet, from the start-of-step u of columns C-1, C-2
+    T f2[9], rho2, ux2, uy2;
+    lbm::load9(fin, n, r * C + C - 2, f2);
+    velocity(f2, rho2, ux2, uy2);
+    const T uwx = T(1.5) * ux - T(0.5) * ux2;
+    const T uwy = T(1.5) * uy - T(0.5) * uy2;
+#pragma unroll
+    for (int k = 1; k < 9; ++k) fo[lbm::opp(k)] = -fc[k] + lbm::abb_coefficient(k, uwx, uwy);
+  }
+  if (r == 0) {  // specular: outgoing 3, 6, 7 into spec_x 1, 5, 8
+    fo[1] = fc[3]; fo[5] = fc[6]; fo[8] = fc[7];
+  }
+  if (r == R - 1) {  // bounce-back: outgoing 1, 5, 8 into 3, 7, 6
+    fo[3] = fc[1]; fo[7] = fc[5]; fo[6] = fc[8];
+  }
+  const bool walls = r >= P.R23 + 1;
+  const bool ceil = r == P.R23 && c >= P.C28 && c <= P.C38;
+  if (walls && lane && c == P.C28) {
+    fo[8] = fc[6]; fo[4] = fc[2]; fo[7] = fc[5];
+  }
+  if (ceil) {
+    fo[6] = fc[8]; fo[3] = fc[1]; fo[7] = fc[5];
+  }
+  if (walls && lane && c == P.C38) {
+    fo[5] = fc[7]; fo[2] = fc[4]; fo[6] = fc[8];
+  }
+
+  // 5. the scalar's rules at this cell, in the plain version's order
+  if (c == 0 && lane) {  // ADE inlet at the cell's updated velocity
+    fo[0] = fc[0];       // the rest population stays
+    T rho_n, unx, uny;
+    velocity(fo, rho_n, unx, uny);
+    const T uwx = unx + P.w_s;
+    const T uwy = uny + P.w_s;
+    const T uu = uwx * uwx + uwy * uwy;
+    const T cw = r >= R - P.inlet_rows ? P.c_w : T(0);
+#pragma unroll
+    for (int k = 1; k < 9; ++k) {
+      const T cu = lbm::cu(k, uwx, uwy);
+      T t = T(1.0) + T(3.0) * cu;
+      t = t + T(4.5) * cu * cu;
+      t = t - T(1.5) * uu;
+      go[lbm::opp(k)] = -gc[k] + T(2.0) * (t * T(lbm::weight(k)) * cw);
+    }
+  }
+  if (walls && c == P.C28) {
+    go[8] = -gc[6]; go[4] = -gc[2]; go[7] = -gc[5];
+  }
+  if (ceil) {
+    go[6] = -gc[8]; go[3] = -gc[1]; go[7] = -gc[5];
+  }
+  if (walls && lane && c == P.C38) {
+    go[5] = -gc[7]; go[2] = -gc[4]; go[6] = -gc[8];
+  }
+  if (r == R - 1) {
+    go[3] = gc[1]; go[7] = gc[5]; go[6] = gc[8];
+  }
+
+  const unsigned m = owned(r, c, R, C, P);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    if (m & (1u << k)) fout[k * n + cell] = fo[k];
+    if (m & (1u << (9 + k))) fout[(9 + k) * n + cell] = go[k];
+  }
+}
+
+template <typename T>
+int launch(const void* fin, void* fout, long long R, long long C, const double* d,
+           const int* geom, cudaStream_t stream) {
+  Params<T> P;
+  P.omega = T(d[0]); P.one_m_omega = T(d[1]); P.w_s = T(d[2]); P.c_w = T(d[3]);
+  for (int k = 0; k < 9; ++k) P.abb_in[k] = T(d[4 + k]);
+  P.R23 = geom[0]; P.C28 = geom[1]; P.C38 = geom[2]; P.inlet_rows = geom[3];
+  if (R < 4 || C < 4 || P.R23 < 1 || P.R23 > R - 2 || P.C28 < 1 || P.C28 > P.C38 ||
+      P.C38 > C - 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = static_cast<int64_t>(R) * C;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  sediment_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      static_cast<const T*>(fin), static_cast<T*>(fout), R, C, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One sedimentation step S_in -> S_out (18, R, C; distinct buffers) on
+// `stream`.  `consts` holds 13 scalars already rounded to the state's type,
+// in the order of kernels/sediment.py::sediment_constants: omega,
+// 1 - omega, w_s, C_w, the inlet's ABB coefficients (9); `geom` the four
+// ints R23, C28, C38, inlet_rows.  Returns the cudaError_t of the launch
+// (0 = accepted).
+extern "C" int lbm_sediment(const void* fin, void* fout, long long R, long long C,
+                            const double* consts, const int* geom, int is_f64,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch<double>(fin, fout, R, C, consts, geom, s)
+                : launch<float>(fin, fout, R, C, consts, geom, s);
+}

@@ -7,9 +7,11 @@ dtype move.  The reference C++ stores ``{R, C, 9}``;
 The two-phase states carry across the same way: the per-colour
 ``(2, 9, R, C)`` and the reduced ``(10 | 12, R, C)`` of kernels/mrtcg.py,
 the RK mixture's ``(11, R, C)`` of kernels/rk.py and the CSF droplet's
-``(20, R, C)`` of kernels/csf_droplet.py.  ``colour_params``,
+``(20, R, C)`` of kernels/csf_droplet.py and the sedimentation state's
+``(18, R, C)`` of kernels/sediment.py.  ``colour_params``,
 ``rk_droplet_colour`` and ``csf_colour`` carry the colour constants (all
-five fields floats).
+five fields floats); ``ibm_from_numpy`` carries a static immersed
+boundary, and ``cylinder_carry_from_numpy`` cylinder_flow's (f, F_roi).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ..core.params import ColourParams
 from ..models.mrt_csf_droplet import CSFColour
 from ..models.rk_cg import RKDropletColour
+from ..ops.ibm import IBM
 
 
 def _planes(arr: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
@@ -62,6 +65,41 @@ def csf_droplet_state_from_numpy(S, device, dtype: torch.dtype) -> torch.Tensor:
     """A CSF droplet state [red f (9), blue f (9), fs (2)] as the (20, R, C)
     tensor."""
     return _checked_planes(S, (20,), "CSF droplet", device, dtype)
+
+
+def sediment_state_from_numpy(S, device, dtype: torch.dtype) -> torch.Tensor:
+    """A sedimentation state [f (9), g (9)] as the (18, R, C) tensor."""
+    return _checked_planes(S, (18,), "sedimentation", device, dtype)
+
+
+def ibm_from_numpy(ib) -> IBM:
+    """lbm_tpu's IBM (or any object with IBM's fields, as arrays or numpy)
+    as the port's: weights and spread float64, flat_idx int32, the separable
+    factors as float64 / int64 numpy arrays."""
+    def arr(name, dtype):
+        return np.array(getattr(ib, name), dtype=dtype)  # a writable copy
+
+    return IBM(weights=torch.as_tensor(arr("weights", np.float64)),
+               flat_idx=torch.as_tensor(arr("flat_idx", np.int32)),
+               spread=torch.as_tensor(arr("spread", np.float64)),
+               roi_rows=tuple(int(v) for v in ib.roi_rows),
+               roi_cols=tuple(int(v) for v in ib.roi_cols),
+               roi_shape=tuple(int(v) for v in ib.roi_shape),
+               m_max=int(ib.m_max),
+               row_w=arr("row_w", np.float64), col_w=arr("col_w", np.float64),
+               rows0=arr("rows0", np.int64), cols0=arr("cols0", np.int64))
+
+
+def cylinder_carry_from_numpy(f, F_roi, ib: IBM, device,
+                              dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """cylinder_flow's carry: the (9, R, C) state and the (2, roi_r, roi_c)
+    force over ``ib``'s ROI (lbm_tpu's fused carry holds the force on the
+    full grid: pass its ROI, ``F_full[:, r0:r1, c0:c1]``)."""
+    F = np.asarray(F_roi)
+    if F.shape != (2,) + tuple(ib.roi_shape):
+        raise ValueError(f"expected a (2, {ib.roi_shape[0]}, {ib.roi_shape[1]}) ROI "
+                         f"force, got {F.shape}")
+    return state_from_numpy(f, device, dtype), _planes(F, device, dtype)
 
 
 def _checked_planes(S, planes, what, device, dtype) -> torch.Tensor:

@@ -2,11 +2,14 @@
 
 ``csrc/*.cu`` compile by hand, at first use, one nvcc per source in
 parallel, and link into one shared library with a plain C interface, for
-``sm_90a`` (Hopper).  The library lands in
-``lbm_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-the flags, so an edited source rebuilds and an unchanged one loads in
-milliseconds.  There is no fallback: a missing nvcc, a failed build or a
-launch that returns a nonzero ``cudaError_t`` raises.
+``sm_90a`` (Hopper).  The library lands in ``lbm_tpu_torch/_build/``, or,
+where the package directory is not writable (an installed
+site-packages), in a per-user cache directory
+(``$XDG_CACHE_HOME/lbm_tpu_torch``, default ``~/.cache/lbm_tpu_torch``),
+under a name keyed by a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged one loads in milliseconds.  There is no
+fallback: a missing nvcc, a failed build or a launch that returns a
+nonzero ``cudaError_t`` raises.
 """
 
 from __future__ import annotations
@@ -21,18 +24,20 @@ from pathlib import Path
 
 import torch
 
+from ..utils.observe import logger
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of single sources, by file stem.  The MRT-CG kernels and kernels
-# 9-14 contract no multiply-add, so that they reproduce their plain PyTorch
+# 9-17 contract no multiply-add, so that they reproduce their plain PyTorch
 # versions, whose elementwise ops each round once.
 UNIT_FLAGS = {stem: ("-fmad=false",) for stem in (
     "mrtcg_reduced", "mrtcg_split", "mrtcg_full", "channel_variant",
     "collide_stream_trt", "collide_stream_power_law", "rk_cg", "csf_droplet",
-    "shan_chen")}
+    "shan_chen", "cylinder", "ibm_forcing", "sediment")}
 
 
 def find_nvcc() -> str:
@@ -43,6 +48,28 @@ def find_nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
                        "CUDA kernels cannot be built")
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` is, or could be made as, a writable directory: its
+    nearest existing ancestor is writable."""
+    for p in (path, *path.parents):
+        if p.exists():
+            return p.is_dir() and os.access(p, os.W_OK | os.X_OK)
+    return False
+
+
+def cache_dir() -> Path:
+    """The per-user build directory: ``$XDG_CACHE_HOME/lbm_tpu_torch``, by
+    default ``~/.cache/lbm_tpu_torch``."""
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"),
+                                                            ".cache")
+    return Path(base) / "lbm_tpu_torch"
+
+
+def build_dir() -> Path:
+    """``BUILD_DIR`` in the package when it is writable, else ``cache_dir()``."""
+    return BUILD_DIR if _writable(BUILD_DIR) else cache_dir()
 
 
 def _sources() -> list[Path]:
@@ -56,7 +83,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"liblbm_kernels-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"liblbm_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -69,11 +96,13 @@ def build() -> Path:
     if lib.exists():
         return lib
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = lib.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger.info(f"building the CUDA kernels into {out_dir}")
     tag = f"{lib.stem}.{os.getpid()}"
     tmp = lib.with_name(f"{tag}.tmp.so")
     units = sorted(CSRC.glob("*.cu"))
-    objs = [BUILD_DIR / f"{tag}.{u.stem}.o" for u in units]
+    objs = [out_dir / f"{tag}.{u.stem}.o" for u in units]
     try:
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *UNIT_FLAGS.get(u.stem, ()),
                                    "-c", "-o", str(o), str(u)],

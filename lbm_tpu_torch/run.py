@@ -1,16 +1,19 @@
 """Scene runner CLI of the PyTorch port (counterpart of lbm_tpu/run.py).
 
-    python -m lbm_tpu_torch.run <scene> [--config cfg.toml] [--set key=value ...]
-           [--out prefix] [--x64] [--device cuda|cpu] [--yes]
+    python -m lbm_tpu_torch.run <scene> [--config cfg.toml] [--markers m.toml]
+           [--set key=value ...] [--out prefix] [--x64] [--device cuda|cpu] [--yes]
 
-`--config` passes a TOML to the scenes that take one (``config_path``).
+`--config` passes a TOML to the scenes that take one (``config_path``),
+`--markers` an IBM marker TOML to cylinder_flow (``markers_path``).
 `--set` overrides any scene keyword (ints/floats/bools parsed as python
 literals).  `--x64` runs in float64, the reference's precision (else
 float32).  `--device` defaults to cuda; `--device cpu` runs the plain
 PyTorch versions.  Result tensors are written as .npy files under --out,
-recorded snapshots as {out}-snap-{name}.npy.  Registered: the channel,
-ULBM, multiphase (MRT-CG/CSF, RK, CSF droplet) and Shan-Chen scenes ported
-so far, under lbm_tpu's names.
+recorded snapshots as {out}-snap-{name}.npy.  The closing log line names
+the result's scalars and its 1-D fields of at most 4 entries (cylinder_flow's
+surface_force).  Registered: the channel, ULBM, multiphase (MRT-CG/CSF, RK,
+CSF droplet), Shan-Chen and obstacle (IBM cylinder, rectangle
+sedimentation) scenes ported so far, under lbm_tpu's names.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from .utils.xmath import default_device
 
 
 def _scenes() -> dict:
-    from .scenes import channel, multiphase, shan_chen, ulbm
+    from .scenes import channel, multiphase, obstacles, shan_chen, ulbm
 
     return {
         "horizontal_poiseuille": channel.horizontal_poiseuille,
@@ -53,6 +56,8 @@ def _scenes() -> dict:
         "sc_static_droplet": shan_chen.sc_static_droplet,
         "sc_flat_interface": shan_chen.sc_flat_interface,
         "sc_cs_interface": shan_chen.sc_cs_interface,
+        "cylinder_flow": obstacles.cylinder_flow,
+        "rectangle_sedimentation": obstacles.rectangle_sedimentation,
     }
 
 
@@ -82,6 +87,8 @@ def _save_result(out: str, result) -> None:
 
 
 def _summarise(result) -> str:
+    """The result's headline numbers: its int and float fields, and its 1-D
+    tensor fields of at most 4 entries (lbm_tpu/run.py:101-118)."""
     parts = []
     for fld in dataclasses.fields(result):
         val = getattr(result, fld.name)
@@ -89,6 +96,9 @@ def _summarise(result) -> str:
             parts.append(f"{fld.name}={val:g}")
         elif isinstance(val, int):
             parts.append(f"{fld.name}={val}")
+        elif isinstance(val, torch.Tensor) and val.ndim == 1 and val.shape[0] <= 4:
+            vec = ", ".join(f"{float(x):.6g}" for x in val.tolist())
+            parts.append(f"{fld.name}=({vec})")
     return "  ".join(parts)
 
 
@@ -99,6 +109,8 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("scene", choices=sorted(scenes))
     ap.add_argument("--config", help="TOML config (scenes that accept one)")
+    ap.add_argument("--markers", help="IBM marker TOML (cylinder_flow), the "
+                    "reference's second argv file (cylinder_test.cpp:27-28)")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="override a scene keyword, e.g. --set T=1000")
     ap.add_argument("--out", default=None, help="output prefix for .npy dumps")
@@ -113,10 +125,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     kwargs = {}
+    params = inspect.signature(scenes[args.scene]).parameters
     if args.config:
-        if "config_path" not in inspect.signature(scenes[args.scene]).parameters:
+        if "config_path" not in params:
             ap.error(f"scene {args.scene} does not take --config")
         kwargs["config_path"] = args.config
+    if args.markers:
+        if "markers_path" not in params:
+            ap.error(f"scene {args.scene} does not take --markers")
+        kwargs["markers_path"] = args.markers
     for item in args.set:
         key, _, val = item.partition("=")
         try:

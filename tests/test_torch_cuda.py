@@ -10,6 +10,8 @@ the steps run; the kernel contracts multiply-adds into FMAs, the plain
 version does not); float32 2e-6.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -691,3 +693,175 @@ def test_shan_chen_scenes_on_the_card_match_the_cpu(cuda, name, kwargs):
     assert shc.SHAN_CHEN.launches - before == kwargs["T"]
     want = getattr(scs, name)(device="cpu", dtype=torch.float64, **kwargs)
     assert got.f.is_cuda and (got.f.cpu() - want.f).abs().max().item() <= 1e-12
+
+
+# --- kernels 15-17: the IBM cylinder's grid step and forcing, sedimentation --------
+
+OBSTACLE_SHAPES = [(torch.float64, (48, 40)), (torch.float64, (64, 130)),
+                   (torch.float32, (256, 384))]
+
+
+def _noisy_state(R, C, dtype, device, seed):
+    return _state(R, C, dtype, device, seed, noisy=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guo", [(1 / 3, 1 / 9), (3.0, 9.0)])
+@pytest.mark.parametrize("dtype,shape", OBSTACLE_SHAPES)
+def test_cylinder_kernel_matches_plain(cuda, dtype, shape, guo):
+    """Kernel 15, 5 steps on a noisy state with a noisy 16x16 ROI force,
+    against its plain version (bit-identical, -fmad=false), and again:
+    two runs are bit-identical (one writer per entry)."""
+    from lbm_tpu_torch.kernels import cylinder
+
+    R, C = shape
+    rng = np.random.default_rng(R + C)
+    f = _noisy_state(R, C, dtype, cuda, seed=R * C)
+    F = torch.as_tensor(rng.normal(0.0, 1e-3, (2, 16, 16)), dtype=dtype, device=cuda)
+    origin = (R // 3, C // 2 - 8)
+    step = cylinder.make_cylinder_fused_step(R, C, 1 / 0.55, (0.05, 0.0), guo, dtype)
+    before = cylinder.CYLINDER.launches
+    got, again, want = f, f, f
+    for _ in range(5):
+        got, again = step(got, F, origin), step(again, F, origin)
+        want = cylinder.plain_cylinder_step(want, F, origin, 1 / 0.55, (0.05, 0.0), guo)
+    torch.cuda.synchronize()
+    assert cylinder.CYLINDER.launches - before == 10
+    assert torch.equal(got, again)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reference_weights", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("grid,circle", [
+    ((64, 256), (30.0, 130.0, 9.0, 40)),     # lbm_tpu's kernel test
+    ((160, 120), (60.0, 60.0, 20.0, 64)),    # cylinder_flow's defaults
+    ((40, 40), (20.0, 20.0, 15.0, 48)),      # a ROI two cells from the edges
+    ((160, 160), (80.0, 80.0, 60.0, 400)),   # a ROI past shared memory: global scratch
+])
+def test_ibm_forcing_kernel_matches_plain(cuda, grid, circle, dtype, reference_weights):
+    """Kernel 16 (one launch) against its plain version's matmuls: TOL (the
+    sums run in another order), and two launches bit-identical."""
+    from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.ops.ibm import IBM
+
+    R, C = grid
+    ib = IBM.circle(*circle, reference_transposed_weights=reference_weights)
+    f = _noisy_state(R, C, dtype, cuda, seed=R + C)
+    step = kibm.make_ibm_forcing_step(R, C, ib, dtype)
+    before = kibm.IBM_FORCING.launches
+    got, again = step(f), step(f)
+    torch.cuda.synchronize()
+    assert kibm.IBM_FORCING.launches - before == 2
+    assert got.shape == (2,) + ib.roi_shape and torch.equal(got, again)
+    want = ib.force_from_populations(f)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,geom", [
+    (torch.float64, (64, 96), (-30, 50, 62, 16)),
+    (torch.float64, (24, 20), (10, 5, 9, 0)),
+    (torch.float32, (256, 320), (-151, 200, 250, 50)),
+])
+def test_sediment_kernel_matches_plain(cuda, dtype, shape, geom):
+    """Kernel 17, 4 steps per call (4 launches) from the scene's initial
+    state with noise, against its plain version (bit-identical), twice."""
+    from lbm_tpu_torch.kernels import sediment
+    from lbm_tpu_torch.scenes.obstacles import sediment_initial_state
+
+    R, C = shape
+    R23, C28, C38, inlet = geom
+    kw = dict(omega=1 / 0.55, u_in=0.02, w_s=3e-3, C_w=1e-3, R23=R23, C28=C28, C38=C38,
+              inlet_rows=inlet)
+    rng = np.random.default_rng(R + C)
+    S = sediment_initial_state(R, C, 0.02, 1e-3, inlet, cuda, dtype)
+    S = (S * torch.as_tensor(rng.uniform(0.97, 1.03, S.shape), dtype=dtype,
+                             device=cuda)).contiguous()
+    step = sediment.make_sediment_fused_step(R, C, substeps=4, dtype=dtype, **kw)
+    before = sediment.SEDIMENT.launches
+    got, again = step(S), step(S)
+    torch.cuda.synchronize()
+    assert sediment.SEDIMENT.launches - before == 8
+    want = S
+    for _ in range(4):
+        want = sediment.plain_sediment_step(want, **dict(kw, R23=R23 % R))
+    assert torch.equal(got, again)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_15_to_17_reject_what_they_do_not_take(cuda):
+    from lbm_tpu_torch.kernels import cylinder, sediment
+    from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.ops.ibm import IBM
+
+    f = torch.zeros((9, 32, 32), dtype=torch.float64, device=cuda)
+    F = torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda)
+    consts = cylinder.cylinder_constants(1.0, (0.05, 0.0), (3.0, 9.0), torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cylinder.cylinder_step(f.cpu(), F, (0, 0), consts)
+    with pytest.raises(ValueError, match="does not fit"):
+        cylinder.cylinder_step(f, F, (28, 0), consts)
+    with pytest.raises(ValueError, match="device and dtype"):
+        cylinder.cylinder_step(f, F.float(), (0, 0), consts)
+    with pytest.raises(ValueError, match="leaves"):
+        kibm.make_ibm_forcing_step(32, 32, IBM.circle(4.0, 16.0, 3.0, 16), torch.float64)
+    with pytest.raises(ValueError, match="contiguous"):
+        kibm.make_ibm_forcing_step(32, 16, IBM.circle(16.0, 8.0, 3.0, 16),
+                                   torch.float64)(f[:, :, ::2])
+    S = torch.zeros((18, 32, 32), dtype=torch.float64, device=cuda)
+    consts = sediment.sediment_constants(1.0, 0.02, 3e-3, 1e-3, torch.float64)
+    geom = (ctypes.c_int * 4)(10, 10, 12, 4)
+    with pytest.raises(ValueError, match=r"\(18, R, C\)"):
+        collide_stream.launch_steps(sediment.SEDIMENT, S[:9].contiguous(), 1, consts, geom,
+                                    planes=18)
+    with pytest.raises(ValueError, match="does not fit"):
+        sediment.make_sediment_fused_step(32, 32, omega=1.0, u_in=0.02, w_s=3e-3, C_w=1e-3,
+                                          R23=10, C28=0, C38=12, inlet_rows=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [
+    dict(H=48, W=40, T=30, center=(20.3, 17.6), radius=6.0, n_markers=16,
+         reference_weights=True),
+    dict(H=48, W=40, T=30, center=(20.3, 17.6), radius=6.0, n_markers=16,
+         guo_coeffs=(3.0, 9.0), record_every=10),
+])
+def test_cylinder_flow_on_the_card_matches_the_cpu(cuda, kwargs):
+    """cylinder_flow in float64 through kernels 16 and 15 (one launch each
+    per step) against the same scene on the CPU: 1e-12 (kernel 16 sums in
+    another order than the plain matmuls)."""
+    from lbm_tpu_torch.kernels import cylinder
+    from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.scenes import obstacles
+
+    before = cylinder.CYLINDER.launches, kibm.IBM_FORCING.launches
+    got = obstacles.cylinder_flow(device=cuda, dtype=torch.float64, **kwargs)
+    assert (cylinder.CYLINDER.launches - before[0],
+            kibm.IBM_FORCING.launches - before[1]) == (kwargs["T"], kwargs["T"])
+    want = obstacles.cylinder_flow(device="cpu", dtype=torch.float64, **kwargs)
+    for name in ("f", "F_roi", "surface_force"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12
+    if "record_every" in kwargs:
+        assert got.forces.shape == (3, 2) and not got.forces.is_cuda
+        assert (got.forces - want.forces).abs().max().item() <= 1e-12
+
+
+@pytest.mark.cuda
+def test_rectangle_sedimentation_on_the_card_matches_the_cpu(cuda):
+    """rectangle_sedimentation in float64 through kernel 17 (one launch per
+    step) against the same scene on the CPU: 1e-12."""
+    from lbm_tpu_torch.kernels import sediment
+    from lbm_tpu_torch.scenes import obstacles
+
+    kw = dict(H=64, W=96, T=40, R23=-30, C28=50, C38=62, inlet_rows=16, substeps=4)
+    before = sediment.SEDIMENT.launches
+    got = obstacles.rectangle_sedimentation(device=cuda, dtype=torch.float64, **kw)
+    assert sediment.SEDIMENT.launches - before == 40
+    want = obstacles.rectangle_sedimentation(device="cpu", dtype=torch.float64, **kw)
+    for name in ("f", "g", "C"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12

@@ -7,6 +7,8 @@ and to the jnp oracle (float64, 1e-13).  The kernel itself is held to the
 plain version on the card by tests/test_torch_cuda.py.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from lbm_tpu.ops import d2q9 as jd
 
 from lbm_tpu_torch.kernels import _build, bgk, collide_stream
 from lbm_tpu_torch.ops import d2q9 as td
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 OMEGA = 1.0 / 0.8
 
@@ -155,6 +159,50 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, fail):
         for src in _build.CSRC.glob("*.cu"):
             assert f"== {src.name}" in log and f"({src})" in log
     assert not list((tmp_path / "build").glob("*.o"))
+
+
+def test_package_data_lists_the_cuda_sources():
+    """A wheel carries csrc/: pyproject.toml's package data for
+    lbm_tpu_torch matches every source the build reads."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["lbm_tpu_torch"]
+    assert {"csrc/*.cu", "csrc/*.cuh"} <= set(globs)
+    sources = [f"csrc/{s.name}" for s in _build._sources()]
+    assert len(sources) >= 20
+    assert all(any(fnmatch.fnmatch(s, g) for g in globs) for s in sources)
+
+
+def test_read_only_package_builds_into_the_user_cache(monkeypatch, tmp_path, caplog):
+    """Where the package directory is not writable, the library is built
+    into $XDG_CACHE_HOME/lbm_tpu_torch, and the build logs the directory."""
+    assert _build._writable(tmp_path / "a" / "b")
+    real_access = os.access
+    ro = tmp_path / "site-packages"
+    ro.mkdir()
+    monkeypatch.setattr(_build.os, "access", lambda p, mode: (
+        False if str(p).startswith(str(ro)) else real_access(p, mode)))
+    monkeypatch.setattr(_build, "BUILD_DIR", ro / "lbm_tpu_torch" / "_build")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert not _build._writable(_build.BUILD_DIR)
+    assert _build.build_dir() == tmp_path / "cache" / "lbm_tpu_torch"
+    assert _build.library_path().parent == tmp_path / "cache" / "lbm_tpu_torch"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setenv("FAIL", "")
+    with caplog.at_level("INFO", logger="lbm_tpu_torch"):
+        lib = _build.build()
+    assert lib.parent == tmp_path / "cache" / "lbm_tpu_torch" and lib.exists()
+    assert f"building the CUDA kernels into {lib.parent}" in caplog.text
+    assert not (ro / "lbm_tpu_torch").exists()
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert _build.cache_dir() == tmp_path / "home" / ".cache" / "lbm_tpu_torch"
 
 
 def test_library_path_is_keyed_by_sources():

@@ -215,6 +215,9 @@ def test_import_loads_no_jax():
             "import lbm_tpu_torch.models.mrt_csf_droplet, lbm_tpu_torch.kernels.csf_droplet\n"
             "import lbm_tpu_torch.models.shan_chen, lbm_tpu_torch.kernels.shan_chen\n"
             "import lbm_tpu_torch.scenes.shan_chen\n"
+            "import lbm_tpu_torch.ops.ibm, lbm_tpu_torch.kernels.ibm\n"
+            "import lbm_tpu_torch.kernels.cylinder, lbm_tpu_torch.kernels.sediment\n"
+            "import lbm_tpu_torch.scenes.obstacles\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
