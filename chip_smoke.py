@@ -56,7 +56,17 @@ with a nonzero exit code):
      in both Peskin pairings and both types; kernel 17 (sedimentation) at
      256x320 in both types, 64x96 float64 and 4096x2048 float32, 10 steps
      from the scene's initial state with noise; each of kernels 15-17 twice,
-     bit-identical;
+     bit-identical; kernel 18 (the box grid step, the force window's origin
+     read on the device) at 4096x2048 float32, 400x256 in both types,
+     97x61 float64 and the phase-5 gates' 96x256, 800x128 and 800x256
+     float32, 10 steps from noisy states with a noisy force window;
+     kernels 19-21 (the moving-body forcing, one block each) at the falling
+     scenes' default windows, at a window clipped at a grid edge, (19) at
+     the falling gate's 26x26 window and (21) at the dkt gate's 228x128, in
+     both types, 4 steps with the body state advancing (F within TOL; the
+     state within TOL of max(1, |value|), in float32 against the float64
+     plain version: no farther than the float32 plain version, plus TOL);
+     each of kernels 18-21 twice, bit-identical;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -103,12 +113,23 @@ with a nonzero exit code):
      and the cylinder_flow (--markers) and rectangle_sedimentation CLIs
      (the CLIs run in one subprocess, each as ``python -m
      lbm_tpu_torch.run`` runs it, after the timed runs and beside the CPU
-     references);
+     references); the falling-body slice: validate_tpu.py falling
+     (falling_cylinder 96x256 float32, 200 steps: descent, symmetry,
+     reaction sign, the trajectory within 5e-4 of the CPU's), dkt
+     (falling_cylinders at its defaults with row_slack=160, 30k steps, the
+     draft gap and the tumble) and ellipse (falling_ellipse 800x256
+     float32, 60k steps: final angle, overshoot, glide), each step one
+     launch of kernel 18 and one of the scene's forcing kernel (19, 21,
+     20); each scene at its defaults in float64 for 40 steps on the card
+     against the CPU at 1e-12; the three CLIs (with the obstacle slice's);
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
      in float64; kernels 6 at 256x128, 12 at 1024x256 and 15 and 16 (and
-     their step) at 1024x256 under a CUDA graph; each kernel's bound (bytes over
+     their step) at 1024x256 under a CUDA graph; kernels 19-21, kernel 18
+     and their two-launch step at the falling scenes' defaults under CUDA
+     graphs, with the host time per step of the phase-5 runs; each
+     kernel's bound (bytes over
      HBM3's rate against operations, counted on its plain version, over
      the fp32 peak; exp, log, expm1, clamp, where, maximum and minimum
      count one operation per element).
@@ -627,6 +648,116 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+# the moving-body scenes' defaults (lbm_tpu/scenes/obstacles.py): (H, W,
+# radius or semi-axes, rho_s, gravity), and the DKT pair's centres
+FALLING = (400, 256, 12.0, 1.25, 5e-5)
+ELLIPSE = (800, 256, (16.0, 8.0), 1.25, 2e-4)
+DKT = (800, 128, 12.0, 1.25, 2e-4)
+DKT_CENTERS = ((96.0, 63.0), (130.0, 64.0))
+# validate_tpu.py falling's falling_cylinder (:455-476), centre (24, 128)
+FALLING_GATE = (96, 256, 8.0, 1.5, 1e-4)
+
+
+def moving_case(variant, dtype, device, edge=False, rw=116, gate=False):
+    """(step, f, state) of kernel 19 ("forcing"), 20 ("rot") or 21 ("bodies")
+    at its scene's default grid, markers and rigid constants (19 with
+    ``gate`` at the falling gate's), on a noisy fluid state, the body at its
+    default centre or clipped at a grid edge."""
+    import numpy as np
+
+    from lbm_tpu_torch.kernels import moving_ibm as km
+    from lbm_tpu_torch.ops.moving_ibm import ellipse_markers
+
+    if variant == "rot":
+        H, W, (a, b), rho_s, g = ELLIPSE
+        dx, dy = ellipse_markers(a, b)
+        area = np.pi * a * b
+        step = km.make_moving_rot_step(
+            H, W, dx, dy, half=int(np.ceil(a)) + 5, g_net=(rho_s - 1) * area * g,
+            m_eff=rho_s * area, i_eff=rho_s * area * (a * a + b * b) / 4, dtype=dtype)
+        state = km.pack_state_rot((19.5, 20.0) if edge else (200.0, 127.5),
+                                  (np.cos(0.3), np.sin(0.3)), (0.003, 0.001), 1e-4,
+                                  dtype=dtype, device=device)
+    else:
+        H, W, r, rho_s, g = (DKT if variant == "bodies" else FALLING_GATE if gate
+                             else FALLING)
+        th = np.linspace(0.0, 2.0 * np.pi, int(np.ceil(2 * np.pi * r)), endpoint=False)
+        kw = dict(half=int(np.ceil(r)) + 5, g_net=(rho_s - 1) * np.pi * r * r * g,
+                  m_eff=rho_s * np.pi * r * r, dtype=dtype)
+        if variant == "forcing":
+            step = km.make_moving_forcing_step(H, W, r * np.cos(th), r * np.sin(th), **kw)
+            state = km.pack_state((16.0, 240.5) if edge else (24.0, 128.0) if gate
+                                  else (100.0, 128.0), (0.002, -0.001), dtype=dtype,
+                                  device=device)
+        else:
+            step = km.make_moving_bodies_step(H, W, r * np.cos(th), r * np.sin(th), n_bodies=2,
+                                              rw=rw, radius=r, **kw)
+            state = km.pack_states(((785.0, 63.0), (770.0, 110.0)) if edge else DKT_CENTERS,
+                                   ((0.003, 0.0), (0.004, 0.0005)), dtype=dtype, device=device)
+    return step, seeded_state(H, W, dtype, device, seed=H + W + len(variant), noisy=True), state
+
+
+def hold_forcing(name, step, f, state, steps, dtype, step64=None):
+    """``steps`` forcing steps from ``state`` on the fixed fluid ``f``, twice,
+    against the builder's plain version: F within TOL, the origin equal,
+    the two runs bit-identical, and the state within TOL of max(1, |x|)
+    (its lanes run from 1e-4 velocities to centres of several hundred).
+    A float32 state is held to the float64 plain version ``step64`` on the
+    same inputs instead: the kernel no farther from it than the float32
+    plain version is, plus TOL.  Its hydrodynamic force and torque are sums
+    over 76-152 markers of O(0.1-1) terms that cancel, which two float32
+    summation orders round apart by a few 1e-6 (the torque of kernel 20:
+    3.2e-6 between kernel and plain on the card, each 6-8e-6 from float64).
+    Returns (F's max abs error, the state's error against the plain version
+    of its own type, the float32 state's excess over the float32 plain
+    version's error against the float64 plain version, or 0.0 in float64)."""
+    import torch
+
+    got, again, want = state, state, state
+    for _ in range(steps):
+        Fg, og, got = step(f, got)
+        Fa, oa, again = step(f, again)
+        Fw, ow, want = step.plain(f, want)
+    torch.cuda.synchronize()
+    e_F = (Fg - Fw).abs().max().item()
+    e_raw = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    e_s, e_excess, note = e_raw, 0.0, ""
+    if step64 is not None:
+        truth = state.double()
+        for _ in range(steps):
+            truth = step64.plain(f.double(), truth)[2]
+        scale = truth.abs().clamp_min(1.0)
+        excess = ((got.double() - truth).abs() - (want.double() - truth).abs()) / scale
+        e_s = e_excess = max(excess.max().item(), 0.0)
+        note = (f" (kernel vs plain {e_raw!r}; vs the float64 plain: kernel "
+                f"{((got.double() - truth).abs() / scale).max().item()!r}, plain "
+                f"{((want.double() - truth).abs() / scale).max().item()!r})")
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    same = torch.equal(Fg, Fa) and torch.equal(og, oa) and torch.equal(got, again)
+    ok = (e_F <= tol and e_s <= tol and og.tolist() == ow.tolist() and same
+          and bool(torch.isfinite(Fg).all()))
+    log(f"{name}: F max_abs_err={e_F!r}, state err/max(1,|x|)={e_s!r}{note} tol={tol!r}, "
+        f"origin {og.tolist()} (plain {ow.tolist()}), window {tuple(Fg.shape[1:])}, "
+        f"second run bit-identical: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version or itself")
+    return e_F, e_raw, e_excess
+
+
+def moving_work(F, markers, bodies, iters, itemsize):
+    """(bytes, operations) of one call of kernels 19-21 with the output F
+    (2, wr, cw): the 9 planes read over the support (the cells F is nonzero
+    on, counted from this run's data), the 2 force planes written over the
+    window, the marker offsets and the states; 20 operations per support
+    cell for the moments, 120 per marker for its position and 8 Peskin
+    weights, 32 for rho_j, per iteration 131 per marker (interpolation,
+    f_j, spread) and 8 per support cell, 40 per body for the rigid update."""
+    support = int(((F[0] != 0) | (F[1] != 0)).sum().item())
+    n = F.shape[1] * F.shape[2]
+    return ((9 * support + 2 * n + 2 * markers + 20 * bodies) * itemsize,
+            20 * support + 152 * markers + iters * (131 * markers + 8 * support) + 40 * bodies)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -646,6 +777,7 @@ def main() -> int:
                                        cylinder, les, mrtcg, power_law, rk, sediment,
                                        shan_chen, trt)
     from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.kernels import moving_ibm as kmov
     from lbm_tpu_torch.models import kbc
     from lbm_tpu_torch.models.mrt_cg import phase_field
     from lbm_tpu_torch.models.trt import omega_minus_from_magic
@@ -666,12 +798,15 @@ def main() -> int:
     k11 = power_law.COLLIDE_STREAM_POWER_LAW
     k12, k13, k14 = rk.RK_CG, csf_droplet.CSF_DROPLET, shan_chen.SHAN_CHEN
     k15, k16, k17 = cylinder.CYLINDER, kibm.IBM_FORCING, sediment.SEDIMENT
+    k18, k19, k20, k21 = (cylinder.BOX, kmov.MOVING_FORCING, kmov.MOVING_ROT,
+                          kmov.MOVING_BODIES)
     counted = {"collide_stream_bgk": k1, "channel_bgk": k2, "collide_stream_kbc": k3,
                "channel_kbc": k4, "collide_stream_les": k5, "mrtcg_reduced": k6,
                "mrtcg_split": k7, "mrtcg_full": k8, "channel_variant": k9,
                "collide_stream_trt": k10, "collide_stream_power_law": k11, "rk_cg": k12,
                "csf_droplet": k13, "shan_chen": k14, "cylinder": k15, "ibm_forcing": k16,
-               "sediment": k17}
+               "sediment": k17, "box": k18, "moving_forcing": k19, "moving_rot": k20,
+               "moving_bodies": k21}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -949,6 +1084,54 @@ def main() -> int:
                            x, **dict(kw, R23=kw["R23"] % R)), S, 10, dtype)
         err17[dtype] = max(err17.get(dtype, 0.0), e)
         del S
+    torch.cuda.empty_cache()
+    # kernel 18, 10 steps from a noisy state with a noisy force window read
+    # at a device origin: 4096x2048 f32, falling_cylinder's 400x256 in both
+    # types, an odd 97x61 f64, and the phase-5 gates' grids in f32 (falling
+    # 96x256, dkt 800x128 with its 228x128 window, ellipse 800x256)
+    err18, err_mov = {}, {}
+    for dtype, (R, C), (r0, c0, rw, cw) in ((f32, BIG, (1990, 1010, 34, 34)),
+                                            (f32, (400, 256), (83, 111, 34, 34)),
+                                            (f64, (400, 256), (83, 111, 34, 34)),
+                                            (f64, (97, 61), (3, 40, 34, 21)),
+                                            (f32, (96, 256), (30, 115, 26, 26)),
+                                            (f32, (800, 128), (300, 0, 228, 128)),
+                                            (f32, (800, 256), (150, 107, 42, 42))):
+        f = seeded_state(R, C, dtype, dev, seed=R + C + 18, noisy=True)
+        F = torch.as_tensor(np.random.default_rng(R * C).normal(0.0, 1e-3, (2, rw, cw)),
+                            dtype=dtype, device=dev)
+        origin = torch.tensor([r0, c0], dtype=torch.int32, device=dev)
+        step = cylinder.make_box_fused_step(R, C, 1 / 0.6, dtype=dtype)
+        e = hold_twice(f"[4] kernel 18 {R}x{C} {dtype} window {rw}x{cw} at ({r0}, {c0}), "
+                       "10 steps", lambda x, step=step, F=F, o=origin: step(x, F, o),
+                       lambda x, F=F, o=origin: cylinder.plain_box_step(x, F, o, 1 / 0.6),
+                       f, 10, dtype)
+        err18[dtype] = max(err18.get(dtype, 0.0), e)
+        del f
+    # kernels 19-21, 4 steps at the scenes' default windows and clipped at a
+    # grid edge, in both types (kernel 19 also at the falling gate's 26x26
+    # window, kernel 21 at the dkt gate's 228 rows); err_mov keeps, per
+    # variant and type, the largest (F error, state error vs the plain
+    # version, f32 state excess vs the f64 plain version)
+    for variant, label, case in (
+            ("forcing", "falling_cylinder 400x256, window 34x34, 76 markers", {}),
+            ("forcing", "falling_cylinder, window clipped at row 0 and the last column",
+             dict(edge=True)),
+            ("forcing", "falling gate 96x256, r 8, window 26x26, 51 markers", dict(gate=True)),
+            ("rot", "falling_ellipse 800x256, window 42x42, 78 markers", {}),
+            ("rot", "falling_ellipse, window clipped at row 0 and column 0", dict(edge=True)),
+            ("bodies", "falling_cylinders 800x128, window 116x128, 2x76 markers", {}),
+            ("bodies", "falling_cylinders row_slack=160, window 228x128", dict(rw=228)),
+            ("bodies", "falling_cylinders, window 116x128 clipped at the last row",
+             dict(edge=True))):
+        for dtype in (f32, f64):
+            step, f, state = moving_case(variant, dtype, dev, **case)
+            step64 = moving_case(variant, f64, dev, **case)[0] if dtype == f32 else None
+            e = hold_forcing(f"[4] kernel {19 + ('forcing', 'rot', 'bodies').index(variant)} "
+                             f"{label} {dtype}", step, f, state, 4, dtype, step64)
+            old = err_mov.setdefault(variant, {}).get(dtype, (0.0, 0.0, 0.0))
+            err_mov[variant][dtype] = tuple(max(a, b) for a, b in zip(old, e))
+            del f
     torch.cuda.empty_cache()
 
     # 5. the main path
@@ -1502,7 +1685,10 @@ def main() -> int:
     # process while this one computes the CPU references
     clis += [("cylinder_flow", "--markers", "configs/cylinder-markers.toml", "--x64",
               "--device", "cuda"),
-             ("rectangle_sedimentation", "--device", "cuda")]
+             ("rectangle_sedimentation", "--device", "cuda"),
+             ("falling_cylinder", "--device", "cuda"),
+             ("falling_cylinders", "--device", "cuda", "--set", "T=2000"),
+             ("falling_ellipse", "--device", "cuda", "--set", "T=2000")]
     cli_run = start_clis(clis)
     for ref in (False, True):
         want = obs.cylinder_flow(reference_weights=ref, device="cpu", dtype=f64)
@@ -1537,6 +1723,87 @@ def main() -> int:
     log(f"[5] kernel 15-17 path launches: {slice_launches}")
     if not all(slice_launches.values()):
         raise AssertionError("a kernel of the cylinder / sedimentation path never launched")
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
+
+    # the moving-body slice of kernels 18-21 (its CLIs ran with the obstacle
+    # slice's): its counts start at 0 here and are read at its end
+    for k in counted.values():
+        k.launches = 0
+    mov_wall = {}
+
+    def moving_run(label, fn, kernel, **kw):
+        """One scene run on the card, timed, with one launch of kernel 18 and
+        one of ``kernel`` per step."""
+        before = k18.launches, kernel.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev, **kw)
+        torch.cuda.synchronize()
+        mov_wall[label] = time.perf_counter() - t0
+        n = (k18.launches - before[0], kernel.launches - before[1])
+        if n != (kw["T"], kw["T"]):
+            raise AssertionError(f"{label}: launches {n}, not one of each per step")
+        return res
+
+    # validate_tpu.py falling (:455-476): 96x256 f32, T 200; lbm_tpu's
+    # fused-against-jnp check becomes the card against the CPU, at the
+    # gate's own 5e-4
+    kw = dict(H=96, W=256, T=200, center=(24.0, 128.0), radius=8.0, rho_s=1.5, gravity=1e-4,
+              record_every=50, dtype=f32)
+    res = moving_run("falling", obs.falling_cylinder, k19, **kw)
+    want = obs.falling_cylinder(device="cpu", **kw)
+    tr, cen = res.trajectory.double().numpy(), res.center.double().cpu().numpy()
+    check_gates(f"[5] validate_tpu.py falling: falling_cylinder 96x256 float32 200 steps "
+                f"(host wall time {mov_wall['falling']!r} s)", {
+        "max|traj_card - traj_cpu|": (float(np.abs(tr - want.trajectory.double().numpy()).max()),
+                                      0.0, 5e-4),
+        "descent cells": (float(cen[0] - 24.0), 0.01, 10.0),
+        "symmetry |dcol|": (float(abs(cen[1] - 128.0)), 0.0, 0.2),
+        "reaction sign": (float(-tr[-1, 4] / max(abs(tr[-1, 4]), 1e-30)), 0.999, 1.001)})
+    # validate_tpu.py dkt (:479-493): the defaults with row_slack=160, 30k steps
+    res = moving_run("dkt", obs.falling_cylinders, k21, T=30000, record_every=500,
+                     row_slack=160, dtype=f32)
+    tr = res.trajectory.double().numpy()
+    gap = np.hypot(tr[:, 0, 0] - tr[:, 1, 0], tr[:, 0, 1] - tr[:, 1, 1]) - 24.0
+    lateral = np.abs(tr[:, 0, 1] - tr[:, 1, 1])
+    check_gates(f"[5] validate_tpu.py dkt: falling_cylinders 800x128 float32 30000 steps, "
+                f"window 228x128 (host wall time {mov_wall['dkt']!r} s = "
+                f"{mov_wall['dkt'] / 30000 * 1e6!r} us/step; gap at t = 10k/20k/30k "
+                f"{gap[19]!r}/{gap[39]!r}/{gap[59]!r})", {
+        "draft min gap": (float(gap.min()), 0.0, 3.0),
+        "tumble lateral": (float(lateral[-1]), 5.0, 64.0),
+        "finite": (float(np.isfinite(tr).all() and torch.isfinite(res.f).all()), 1.0, 1.0)})
+    # validate_tpu.py ellipse (:496-510): 800x256 f32, 60k steps
+    res = moving_run("ellipse", obs.falling_ellipse, k20, H=800, W=256, T=60000,
+                     center=(100.0, 127.5), a=16.0, b=8.0, theta0=0.3, rho_s=1.25,
+                     gravity=2e-4, record_every=500, dtype=f32)
+    tr = res.trajectory.double().numpy()
+    theta = np.degrees(np.arctan2(tr[:, 7], tr[:, 6]))
+    check_gates(f"[5] validate_tpu.py ellipse: falling_ellipse 800x256 float32 60000 steps "
+                f"(host wall time {mov_wall['ellipse']!r} s = "
+                f"{mov_wall['ellipse'] / 60000 * 1e6!r} us/step)", {
+        "final theta deg": (float(theta[-1]), 80.0, 100.0),
+        "overshoot deg": (float(theta.max()), 91.0, 120.0),
+        "glide cells": (float(np.abs(tr[:, 1] - 127.5).max()), 10.0, 128.0),
+        "finite": (float(np.isfinite(tr).all() and torch.isfinite(res.f).all()), 1.0, 1.0)})
+    del res
+    # each scene at its defaults in float64, 40 steps, on the card against
+    # the CPU
+    for name, fn, kernel in (("falling_cylinder", obs.falling_cylinder, k19),
+                             ("falling_cylinders", obs.falling_cylinders, k21),
+                             ("falling_ellipse", obs.falling_ellipse, k20)):
+        got = moving_run(f"{name} f64", fn, kernel, T=40, dtype=f64)
+        want = fn(T=40, device="cpu", dtype=f64)
+        check_gates(f"[5] {name} at its defaults float64 40 steps on the card vs the CPU "
+                    f"(card host wall time {mov_wall[f'{name} f64']!r} s)", {
+            "max|f_card - f_cpu|": ((got.f.cpu() - want.f).abs().max().item(), 0.0, 1e-12),
+            "max|traj_card - traj_cpu|": ((got.trajectory - want.trajectory).abs().max().item(),
+                                          0.0, 1e-12)})
+    del got, want
+    slice_launches = {name: counted[name].launches for name in ("box", "moving_forcing",
+                                                                 "moving_rot", "moving_bodies")}
+    log(f"[5] kernel 18-21 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the falling-body path never launched")
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
@@ -1597,12 +1864,17 @@ def main() -> int:
     new32 = new_kernels(f32)
 
     def obstacle_kernels(dtype):
-        """(kernel call, plain call) of kernels 15 and 17 at 4096x2048: kernel
-        15 from a noisy state with a force over the Strouhal cylinder's ROI,
-        kernel 17 from the scene's initial state with noise."""
+        """(kernel call, plain call) of kernels 15, 17 and 18 at 4096x2048:
+        kernel 15 from a noisy state with a force over the Strouhal cylinder's
+        ROI, kernel 17 from the scene's initial state with noise, kernel 18
+        from a noisy state with a 34x34 force window at a device origin."""
         ib = IBM.circle(*STROUHAL_CIRCLE)
         f15, F15, o15 = cylinder_case(R, C, dtype, dev, ib, seed=615)
         c15 = cylinder.cylinder_constants(1 / 0.55, (0.05, 0.0), (3.0, 9.0), dtype)
+        F18 = torch.as_tensor(np.random.default_rng(618).normal(0.0, 1e-3, (2, 34, 34)),
+                              dtype=dtype, device=dev)
+        o18 = torch.tensor([1990, 1010], dtype=torch.int32, device=dev)
+        c18 = cylinder.box_constants(1 / 0.6, (3.0, 9.0), dtype)
         kw = sediment_kwargs(R, C)
         S17 = sediment_state(R, C, dtype, dev, seed=617)
         step17 = sediment.make_sediment_fused_step(R, C, dtype=dtype, **kw)
@@ -1612,7 +1884,9 @@ def main() -> int:
                          (lambda: cylinder.plain_cylinder_step(f15, F15, o15, 1 / 0.55,
                                                                (0.05, 0.0), (3.0, 9.0)))),
             "sediment": ((lambda: step17(S17)),
-                         (lambda: sediment.plain_sediment_step(S17, **plain_kw)))}
+                         (lambda: sediment.plain_sediment_step(S17, **plain_kw))),
+            "box": ((lambda: cylinder.box_step(f15, F18, o18, c18)),
+                    (lambda: cylinder.plain_box_step(f15, F18, o18, 1 / 0.6)))}
 
     obst32 = obstacle_kernels(f32)
     fns = {
@@ -1651,6 +1925,8 @@ def main() -> int:
         "cylinder_plain": (obst32["cylinder"][1], 5),
         "sediment": (obst32["sediment"][0], 30),
         "sediment_plain": (obst32["sediment"][1], 3),
+        "box": (obst32["box"][0], 50),
+        "box_plain": (obst32["box"][1], 5),
         "copy": (lambda: dst.copy_(f), 50),
     }
     runs = {k: [] for k in fns}
@@ -1792,6 +2068,45 @@ def main() -> int:
             f"the 200k-step run")
         del f, F
 
+    # kernels 19-21 at their scenes' default sizes: the forcing kernel alone,
+    # kernel 18 alone and the two-launch step under CUDA graphs of 100 calls,
+    # the plain forcing eagerly, against the host time per step of the
+    # phase-5 runs; each kernel is one block on one SM of 132, bound by its
+    # latency (moving_work gives its bytes and operations at this run's
+    # support)
+    mov_ms, mov_bound = {}, {}
+    host_us = {"moving_forcing": mov_wall["falling"] / 200 * 1e6,
+               "moving_rot": mov_wall["ellipse"] / 60000 * 1e6,
+               "moving_bodies": mov_wall["dkt"] / 30000 * 1e6}
+    for variant, name, markers in (("forcing", "moving_forcing", 76), ("rot", "moving_rot", 78),
+                                   ("bodies", "moving_bodies", 152)):
+        for dtype in (f32, f64):
+            step, f, state = moving_case(variant, dtype, dev)
+            H, W = f.shape[1:]
+            grid = cylinder.make_box_fused_step(H, W, 1 / 0.6, dtype=dtype)
+            F, origin, _ = step(f, state)
+            t_force = graph_ms(lambda s_, step=step, f=f: step(f, s_)[2], state)
+            t_box = graph_ms(lambda x, grid=grid, F=F, o=origin: grid(x, F, o), f)
+
+            def two(c, step=step, grid=grid):
+                F2, o2, s2 = step(*c)
+                return grid(c[0], F2, o2), s2
+
+            t_step = graph_ms(two, (f, state))
+            t_plain = cuda_ms(lambda step=step, f=f, state=state: step.plain(f, state), 20)
+            wb, wo = moving_work(F, markers, state.shape[0], 4, f.element_size())
+            mov_bound[name, dtype] = bound(wb, wo, 1, str(dtype).removeprefix("torch."))
+            mov_ms[name, dtype] = (t_force, t_box, t_step, t_plain)
+            log(f"[6] {name} ({variant}) {H}x{W} {dtype}, window {tuple(F.shape[1:])}, "
+                f"{markers} markers (CUDA graphs of 100): kernel {t_force!r} ms (plain "
+                f"{t_plain!r} ms eager; bound {mov_bound[name, dtype][0]!r} ms by "
+                f"{mov_bound[name, dtype][1]}: {wb} B, {wo} operations), kernel 18 {t_box!r} ms, "
+                f"the step {t_step!r} ms")
+            del f, F
+    log(f"[6] host us per step of the phase-5 runs: falling 96x256 f32 (200 steps) "
+        f"{host_us['moving_forcing']!r}, ellipse 800x256 f32 (60k) "
+        f"{host_us['moving_rot']!r}, dkt 800x128 f32 (30k) {host_us['moving_bodies']!r}")
+
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -1847,6 +2162,10 @@ def main() -> int:
         "cylinder": (lambda x: cylinder.plain_cylinder_step(
             x, torch.full((2, 2, 2), 1e-3), (10, 10), 1 / 0.55, (0.05, 0.0), (3.0, 9.0)),
             seeded_state(small, small, f32, cpu, seed=15, noisy=True)),
+        # kernel 18 with a 2x2 force window, as kernel 15 above
+        "box": (lambda x: cylinder.plain_box_step(
+            x, torch.full((2, 2, 2), 1e-3), torch.tensor([10, 10], dtype=torch.int32), 1 / 0.6),
+            seeded_state(small, small, f32, cpu, seed=18, noisy=True)),
         "sediment": (lambda x: sediment.plain_sediment_step(
             x, **dict(SED, R23=40, C28=20, C38=30, inlet_rows=16)),
             obs.sediment_initial_state(small, small, 0.02, 1e-3, 16, cpu, f32)),
@@ -1881,9 +2200,20 @@ def main() -> int:
         ("cylinder", "lbm_tpu/kernels/cylinder_pallas.py:129", err15),
         ("ibm_forcing", "lbm_tpu/kernels/ibm_pallas.py:39", err16),
         ("sediment", "lbm_tpu/kernels/sediment_pallas.py:79", err17),
+        ("box", "lbm_tpu/kernels/cylinder_pallas.py:153", err18),
+        *((f"moving_{v}", f"lbm_tpu/kernels/moving_ibm_pallas.py:{line}",
+           {dt: err_mov[v][dt][0] for dt in (f32, f64)})
+          for v, line in (("forcing", 163), ("rot", 301), ("bodies", 452))),
     ]
+    sources = {"box": "cylinder", "moving_forcing": "moving_ibm", "moving_rot": "moving_ibm",
+               "moving_bodies": "moving_ibm"}
+    for name, _, _ in rows[-3:]:
+        ms[name], ms[f"{name}_plain"] = mov_ms[name, f32][0], mov_ms[name, f32][3]
+        ms64[name], plain64[name] = mov_ms[name, f64][0], mov_ms[name, f64][3]
+        bounds[name] = mov_bound[name, f32]
     kernels = [
-        {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{name}.cu",
+        {"name": name, "route": "cuda",
+         "source": f"lbm_tpu_torch/csrc/{sources.get(name, name)}.cu",
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": errs[f32], "max_abs_err_f64": errs[f64],
          "ms": ms[name], "plain_ms": ms[f"{name}_plain"],
@@ -1913,6 +2243,18 @@ def main() -> int:
                        step_ms_1024x256_f64=strouhal_ms[f64][2])
     kernels[15].update(shape="Strouhal ROI 37x37, 64 markers, in 1024x256", blocks=1,
                        bound_ms_f64=forcing_bound[f64][0], bound_by_f64=forcing_bound[f64][1])
+    shapes = {"moving_forcing": "falling_cylinder 400x256, window 34x34, 76 markers",
+              "moving_rot": "falling_ellipse 800x256, window 42x42, 78 markers",
+              "moving_bodies": "falling_cylinders 800x128, window 116x128, 2x76 markers"}
+    for entry in kernels[-3:]:
+        name = entry["name"]
+        errs = err_mov[name.removeprefix("moving_")]
+        entry.update(state_err_vs_plain=errs[f32][1], state_err_vs_plain_f64=errs[f64][1],
+                     state_excess_vs_f64=errs[f32][2])
+        entry.update(shape=shapes[name], blocks=1, bound_ms_f64=mov_bound[name, f64][0],
+                     box_ms=mov_ms[name, f32][1], box_ms_f64=mov_ms[name, f64][1],
+                     step_ms=mov_ms[name, f32][2], step_ms_f64=mov_ms[name, f64][2],
+                     host_us_per_step=host_us[name])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,10 @@ the RK mixture's ``(11, R, C)`` of kernels/rk.py and the CSF droplet's
 ``rk_droplet_colour`` and ``csf_colour`` carry the colour constants (all
 five fields floats); ``ibm_from_numpy`` carries a static immersed
 boundary, and ``cylinder_carry_from_numpy`` cylinder_flow's (f, F_roi).
+``rigid_state_from_numpy`` / ``rigid_state_to_numpy`` carry the falling
+bodies' rigid state: lbm_tpu's (1, 128) or (B, 128) rows
+(kernels/moving_ibm_pallas.py pack_state*) against the port's (B, 10)
+(kernels/moving_ibm.py, the same lane order without Mosaic's padding).
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ import numpy as np
 import torch
 
 from ..core.params import ColourParams
+from ..kernels.moving_ibm import STATE_LANES
 from ..models.mrt_csf_droplet import CSFColour
 from ..models.rk_cg import RKDropletColour
 from ..ops.ibm import IBM
+
+_LBM_TPU_LANES = 128    # lbm_tpu's rigid-state row: the 128-lane axis of a Mosaic vreg
 
 
 def _planes(arr: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
@@ -100,6 +107,29 @@ def cylinder_carry_from_numpy(f, F_roi, ib: IBM, device,
         raise ValueError(f"expected a (2, {ib.roi_shape[0]}, {ib.roi_shape[1]}) ROI "
                          f"force, got {F.shape}")
     return state_from_numpy(f, device, dtype), _planes(F, device, dtype)
+
+
+def rigid_state_from_numpy(rows, device, dtype: torch.dtype) -> torch.Tensor:
+    """lbm_tpu's (B, 128) rigid-state rows as the port's (B, STATE_LANES)
+    state: the first STATE_LANES lanes; the padding lanes must be zero."""
+    arr = np.asarray(rows)
+    if arr.ndim != 2 or arr.shape[1] < STATE_LANES:
+        raise ValueError(f"expected (B, >= {STATE_LANES}) rigid-state rows, got {arr.shape}")
+    if np.any(arr[:, STATE_LANES:] != 0):
+        raise ValueError(f"rigid-state lanes past {STATE_LANES} hold values the port "
+                         "does not carry")
+    return _planes(np.array(arr[:, :STATE_LANES]), device, dtype)  # a writable copy
+
+
+def rigid_state_to_numpy(state: torch.Tensor) -> np.ndarray:
+    """The port's (B, STATE_LANES) rigid state as lbm_tpu's (B, 128) rows,
+    zero past STATE_LANES, in the state's dtype."""
+    arr = state.detach().cpu().numpy()
+    if arr.ndim != 2 or arr.shape[1] != STATE_LANES:
+        raise ValueError(f"expected a (B, {STATE_LANES}) rigid state, got {arr.shape}")
+    out = np.zeros((arr.shape[0], _LBM_TPU_LANES), arr.dtype)
+    out[:, :STATE_LANES] = arr
+    return out
 
 
 def _checked_planes(S, planes, what, device, dtype) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The IBM cylinder's grid step: plain version and CUDA kernel 15
-(counterpart of lbm_tpu/kernels/cylinder_pallas.py::make_cylinder_fused_step).
+"""The IBM grid steps: plain versions and CUDA kernels 15 and 18
+(counterpart of lbm_tpu/kernels/cylinder_pallas.py).
 
 ``make_cylinder_fused_step(R, C, omega, u_wall, guo, dtype)`` returns
 ``fn(f, F_roi, origin) -> f``: BGK at the compressible equilibrium, the
@@ -16,8 +16,14 @@ launches kernel 15 (csrc/cylinder.cu) or raises.  lbm_tpu's kernel took the
 force on the full grid; the port's takes the ROI and its origin, so the
 zeros outside it are never stored.
 
-``make_box_fused_step`` (cylinder_pallas.py:153) belongs to the moving-IBM
-scenes and is not ported here.
+``make_box_fused_step(R, C, omega, guo, dtype)`` (cylinder_pallas.py:153)
+returns ``fn(f, F_win, origin) -> f``, the grid half of the moving-body
+scenes: BGK, the Guo source (standard (3, 9) by default) of the force window
+F_win (2, rw, cw) whose first cell is ``origin``, an int32 tensor (2,) on
+the state's device, the periodic stream and halfway bounce-back on all four
+walls.  On a CPU state it runs ``plain_box_step``; on a CUDA state it
+launches kernel 18 (csrc/cylinder.cu), which reads the origin in device
+memory, where the moving-forcing kernels 19-21 write it.
 """
 
 from __future__ import annotations
@@ -33,10 +39,16 @@ from . import _build
 from .collide_stream import check_step_state
 
 WEAK_GUO = (1.0 / 3.0, 1.0 / 9.0)  # cylinder_test.cpp:66-67
+STANDARD_GUO = (3.0, 9.0)
 
 CYLINDER = _build.CudaKernel(
     "lbm_cylinder",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 6
+    + [ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p])
+
+BOX = _build.CudaKernel(
+    "lbm_box_step",
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
     + [ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p])
 
 
@@ -111,5 +123,78 @@ def make_cylinder_fused_step(R: int, C: int, omega: float, u_wall=(0.05, 0.0),
             return cylinder_step(f, F_roi, origin, consts)
         check_force(F_roi, origin, R, C, f)
         return plain_cylinder_step(f, F_roi, origin, omega, u_wall, guo)
+
+    return step
+
+
+def plain_box_step(f: torch.Tensor, F_win: torch.Tensor, origin: torch.Tensor, omega: float,
+                   guo=STANDARD_GUO) -> torch.Tensor:
+    """The plain version of one box step: the grid half of lbm_tpu's jnp
+    falling-body step (scenes/obstacles.py:1040-1066) with the force window
+    given at ``origin``."""
+    r0, c0 = (int(v) for v in origin.tolist())
+    r1, c1 = r0 + F_win.shape[1], c0 + F_win.shape[2]
+    rho = d2q9.calc_rho(f)
+    u = d2q9.calc_u(f, rho)
+    f_coll = d2q9.bgk_collision(f, d2q9.equilibrium(u, rho), omega)
+    S = d2q9.guo_source(u[:, r0:r1, c0:c1], F_win, omega, ics2=guo[0], ics4=guo[1])
+    f_coll[:, r0:r1, c0:c1] += S
+    f_new = d2q9.stream(f_coll)
+    for side in ("row0", "rowN", "col0", "colN"):
+        f_new = bc.bounce_back(f_new, f_coll, side)
+    return f_new
+
+
+def box_constants(omega: float, guo, dtype: torch.dtype):
+    """Kernel 18's 5 scalars, each as the plain version rounds it in
+    ``dtype``: omega, 1 - omega, 1 - omega/2, ics2, ics4."""
+    return _build.c_doubles([rounded(x, dtype) for x in (omega, 1.0 - omega,
+                                                         1.0 - 0.5 * omega, guo[0], guo[1])])
+
+
+def check_window(F_win: torch.Tensor, origin: torch.Tensor, R: int, C: int,
+                 f: torch.Tensor) -> None:
+    """F_win must be a contiguous (2, rw, cw) tensor of the state's device and
+    dtype that fits the grid, and origin an int32 tensor (2,) beside it."""
+    if F_win.ndim != 3 or F_win.shape[0] != 2 or F_win.shape[1] > R or F_win.shape[2] > C:
+        raise ValueError(f"force window {tuple(F_win.shape)} does not fit the {R}x{C} grid")
+    if F_win.device != f.device or F_win.dtype != f.dtype or not F_win.is_contiguous():
+        raise ValueError("the force window must be a contiguous tensor of the state's "
+                         "device and dtype")
+    if origin.shape != (2,) or origin.dtype != torch.int32 or origin.device != f.device:
+        raise ValueError("the window origin must be an int32 tensor (2,) on the state's "
+                         "device")
+
+
+def box_step(f: torch.Tensor, F_win: torch.Tensor, origin: torch.Tensor,
+             consts) -> torch.Tensor:
+    """One box step on the card (kernel 18) into a fresh buffer.  Raises on a
+    tensor the kernel does not take and on a refused launch."""
+    R, C = _build.check_state(f)
+    check_window(F_win, origin, R, C, f)
+    origin = origin.contiguous()
+    out = torch.empty_like(f)
+    with torch.cuda.device(f.device):
+        BOX.launch(f.data_ptr(), F_win.data_ptr(), origin.data_ptr(), out.data_ptr(), R, C,
+                   F_win.shape[1], F_win.shape[2], consts, int(f.dtype == torch.float64),
+                   _build.stream_handle(f))
+    return out
+
+
+def make_box_fused_step(R: int, C: int, omega: float, guo=STANDARD_GUO,
+                        dtype: torch.dtype = torch.float32):
+    """Box grid step (f (9, R, C), F_win, origin) -> (9, R, C) for any R, C
+    >= 4: kernel 18 on a CUDA state, the plain version on a CPU state."""
+    if R < 4 or C < 4:
+        raise ValueError(f"the box step needs R >= 4 and C >= 4, got {R}x{C}")
+    guo = (float(guo[0]), float(guo[1]))
+    consts = box_constants(omega, guo, dtype)
+
+    def step(f: torch.Tensor, F_win: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
+        check_step_state(f, R, C, dtype)
+        if resolve_fused(f):
+            return box_step(f, F_win, origin, consts)
+        check_window(F_win, origin, R, C, f)
+        return plain_box_step(f, F_win, origin, omega, guo)
 
     return step

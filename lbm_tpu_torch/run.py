@@ -11,9 +11,11 @@ float32).  `--device` defaults to cuda; `--device cpu` runs the plain
 PyTorch versions.  Result tensors are written as .npy files under --out,
 recorded snapshots as {out}-snap-{name}.npy.  The closing log line names
 the result's scalars and its 1-D fields of at most 4 entries (cylinder_flow's
-surface_force).  Registered: the channel, ULBM, multiphase (MRT-CG/CSF, RK,
-CSF droplet), Shan-Chen and obstacle (IBM cylinder, rectangle
-sedimentation) scenes ported so far, under lbm_tpu's names.
+surface_force, a falling body's centre and velocity; a trajectory or the
+DKT pair's (B, 2) centres go only to --out).  Registered: the channel,
+ULBM, multiphase (MRT-CG/CSF, RK, CSF droplet), Shan-Chen and obstacle (IBM
+cylinder, rectangle sedimentation, the falling cylinder, DKT pair and
+ellipse) scenes ported so far, under lbm_tpu's names.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ def _scenes() -> dict:
         "sc_cs_interface": shan_chen.sc_cs_interface,
         "cylinder_flow": obstacles.cylinder_flow,
         "rectangle_sedimentation": obstacles.rectangle_sedimentation,
+        "falling_cylinder": obstacles.falling_cylinder,
+        "falling_cylinders": obstacles.falling_cylinders,
+        "falling_ellipse": obstacles.falling_ellipse,
     }
 
 

@@ -38,6 +38,7 @@ from ..kernels.shan_chen import make_sc_fused_step, resolve_eos
 from ..models import shan_chen as sc
 from ..ops import d2q9
 from ..utils.xmath import default_device, default_float
+from ._common import not_ported
 from .ulbm import _drive
 
 
@@ -53,13 +54,6 @@ class SCResult:
     rho_v: float = 0.0
     dp: float = 0.0          # droplet: P(centre) - P(far), bulk EOS
     p_jump: float = 0.0      # flat interface: |P_l - P_v| / P_l
-
-
-def _not_ported(checkpoint_dir, checkpoint_every) -> None:
-    if checkpoint_dir is not None or checkpoint_every is not None:
-        raise NotImplementedError(
-            "checkpoint_dir/checkpoint_every wait for io/checkpoint (ROADMAP Queue 1 "
-            "item 12); the port does not take them yet")
 
 
 def _run(rho0: torch.Tensor, T: int, omega: float, G: float | None, substeps: int,
@@ -83,7 +77,7 @@ def sc_phase_separation(H: int = 128, W: int = 128, T: int = 4000, G: float = -5
     """Spinodal decomposition: uniform rho near the critical density plus
     numpy-seeded noise separates into liquid and vapour for G < -4 and
     stays mixed for G > -4."""
-    _not_ported(checkpoint_dir, checkpoint_every)
+    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     rng = np.random.default_rng(seed)
     rho0 = torch.as_tensor(rho_mean + noise * rng.standard_normal((H, W)), dtype=dtype,
@@ -107,7 +101,7 @@ def sc_static_droplet(H: int = 128, W: int = 128, T: int = 10000, radius: float 
     """Liquid droplet in vapour: relax a tanh disk and measure the bulk EOS
     pressure jump dP = P(centre) - P(corner); the Laplace law with the
     emergent sigma compares two radii (dP ratio = inverse radius ratio)."""
-    _not_ported(checkpoint_dir, checkpoint_every)
+    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     rho0 = _tanh_disk(H, W, radius, 1.93, 0.16, 3.0, dtype, device)
     f = _run(rho0, T, 1.0 / tau, G, substeps)
@@ -134,7 +128,7 @@ def sc_flat_interface(H: int = 256, W: int = 128, T: int = 20000, G: float = -5.
     """1-D liquid slab (rows [H/4, 3H/4)) between vapour: coexistence
     densities and mechanical equilibrium (equal bulk EOS pressures across
     the flat interface, a stationary profile)."""
-    _not_ported(checkpoint_dir, checkpoint_every)
+    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     f = _run(_slab(H, W, 0.16, 1.93, dtype, device), T, 1.0 / tau, G, substeps)
     rho, u, _ = sc.macroscopics(f, G)
@@ -157,7 +151,7 @@ def sc_cs_interface(H: int = 128, W: int = 128, T: int = 20000, T_red: float = 0
     branch under-predicts (the scheme's known thermodynamic inconsistency).
     p_jump gates mechanical equilibrium on the CS EOS pressures, over the
     liquid's ideal-gas scale."""
-    _not_ported(checkpoint_dir, checkpoint_every)
+    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     T_eos = T_red * sc.CS_TC
     rv, rl = sc.maxwell_coexistence(T_eos)

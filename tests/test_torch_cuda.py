@@ -865,3 +865,165 @@ def test_rectangle_sedimentation_on_the_card_matches_the_cpu(cuda):
     for name in ("f", "g", "C"):
         g, w = getattr(got, name), getattr(want, name)
         assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12
+
+
+def _state_err(got, want):
+    """Max error of a body state, relative to max(1, |value|): the lanes
+    range from O(1e-4) velocities to O(100) centres and torques, and a
+    float32 centre near 100 is 7.6e-6 from its neighbours."""
+    return ((got.cpu() - want.cpu()).abs() / want.cpu().abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,window", [
+    (torch.float64, (97, 61), (3, 40, 34, 21)),
+    (torch.float64, (64, 128), (0, 0, 64, 128)),
+    (torch.float32, (400, 256), (83, 111, 34, 34)),
+])
+def test_box_kernel_matches_plain(cuda, dtype, shape, window):
+    """Kernel 18, 10 steps from a noisy state with a noisy force window read
+    at a device origin, against plain_box_step, twice bit-identical."""
+    from lbm_tpu_torch.kernels import cylinder
+
+    R, C = shape
+    r0, c0, rw, cw = window
+    f = _noisy_state(R, C, dtype, cuda, seed=R + C)
+    rng = np.random.default_rng(R * C)
+    F = torch.as_tensor(rng.normal(0.0, 1e-3, (2, rw, cw)), dtype=dtype, device=cuda)
+    origin = torch.tensor([r0, c0], dtype=torch.int32, device=cuda)
+    step = cylinder.make_box_fused_step(R, C, 1 / 0.6, dtype=dtype)
+    before = cylinder.BOX.launches
+    got, again, want = f, f, f
+    for _ in range(10):
+        got = step(got, F, origin)
+        again = step(again, F, origin)
+        want = cylinder.plain_box_step(want, F, origin, 1 / 0.6)
+    torch.cuda.synchronize()
+    assert cylinder.BOX.launches - before == 20
+    assert torch.equal(got, again)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+def _forcing_case(variant, dtype, device, edge):
+    """(step, f, state) of one moving-forcing kernel at its scene's default
+    window, or with the window clipped at a grid edge."""
+    from lbm_tpu_torch.kernels import moving_ibm as km
+    from lbm_tpu_torch.ops.moving_ibm import ellipse_markers
+
+    th = np.linspace(0.0, 2.0 * np.pi, 76, endpoint=False)
+    if variant == "forcing":
+        H, W = 400, 256
+        step = km.make_moving_forcing_step(H, W, 12 * np.cos(th), 12 * np.sin(th), half=17,
+                                           g_net=5.655e-3, m_eff=565.5, dtype=dtype)
+        state = km.pack_state((16.0, 240.5) if edge else (100.3, 128.0), (0.002, -0.001),
+                              dtype=dtype, device=device)
+    elif variant == "rot":
+        H, W = 800, 256
+        dx, dy = ellipse_markers(16.0, 8.0)
+        step = km.make_moving_rot_step(H, W, dx, dy, half=21, g_net=2.01e-2, m_eff=502.7,
+                                       i_eff=40212.0, dtype=dtype)
+        state = km.pack_state_rot((19.5, 20.0) if edge else (200.2, 127.5),
+                                  (np.cos(0.3), np.sin(0.3)), (0.003, 0.001), 1e-4,
+                                  dtype=dtype, device=device)
+    else:
+        H, W = 800, 128
+        step = km.make_moving_bodies_step(H, W, 12 * np.cos(th), 12 * np.sin(th), n_bodies=2,
+                                          rw=228 if edge else 116, half=17, g_net=2.262e-2,
+                                          m_eff=565.5, radius=12.0, dtype=dtype)
+        centers = ((785.0, 63.0), (770.0, 110.0)) if edge else ((96.0, 63.0), (130.0, 64.0))
+        state = km.pack_states(centers, ((0.003, 0.0), (0.004, 0.0005)), dtype=dtype,
+                               device=device)
+    return step, _noisy_state(H, W, dtype, device, seed=H + W), state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("variant", ["forcing", "rot", "bodies"])
+def test_moving_forcing_kernels_match_plain(cuda, variant, dtype, edge):
+    """Kernels 19-21, 4 steps from a noisy state (the body state advancing),
+    against their plain versions: F within TOL, the origin equal, two runs
+    bit-identical, the state within TOL of max(1, |value|); a float32 state
+    held to the float64 plain version on the same inputs: no farther from it
+    than the float32 plain version, plus TOL (its force and torque are sums
+    over 76-152 markers that two float32 orders round apart by ~1e-6)."""
+    from lbm_tpu_torch.kernels import moving_ibm as km
+
+    kernel = {"forcing": km.MOVING_FORCING, "rot": km.MOVING_ROT,
+              "bodies": km.MOVING_BODIES}[variant]
+    step, f, state = _forcing_case(variant, dtype, cuda, edge)
+    before = kernel.launches
+    got, again = state, state
+    for _ in range(4):
+        Fg, og, got = step(f, got)
+        Fa, oa, again = step(f, again)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 8
+    assert torch.equal(Fg, Fa) and torch.equal(og, oa) and torch.equal(got, again)
+    want = state
+    for _ in range(4):
+        Fw, ow, want = step.plain(f, want)
+    assert og.tolist() == ow.tolist()
+    assert (Fg - Fw).abs().max().item() <= TOL[dtype]
+    if dtype == torch.float64:
+        assert _state_err(got, want) <= TOL[dtype]
+        return
+    step64 = _forcing_case(variant, torch.float64, cuda, edge)[0]
+    truth = state.double()
+    for _ in range(4):
+        truth = step64.plain(f.double(), truth)[2]
+    scale = truth.abs().clamp_min(1.0)
+    excess = ((got.double() - truth).abs() - (want.double() - truth).abs()) / scale
+    assert excess.max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_18_to_21_reject_what_they_do_not_take(cuda):
+    from lbm_tpu_torch.kernels import cylinder
+    from lbm_tpu_torch.kernels import moving_ibm as km
+
+    f = torch.ones((9, 32, 32), dtype=torch.float64, device=cuda)
+    F = torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda)
+    consts = cylinder.box_constants(1.5, (3.0, 9.0), torch.float64)
+    origin = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cylinder.box_step(f.cpu(), F, origin, consts)
+    with pytest.raises(ValueError, match="int32"):
+        cylinder.box_step(f, F, origin.cpu(), consts)
+    with pytest.raises(ValueError, match="device and dtype"):
+        cylinder.box_step(f, F.float(), origin, consts)
+    th = np.linspace(0.0, 2.0 * np.pi, 20, endpoint=False)
+    step = km.make_moving_forcing_step(32, 32, 3 * np.cos(th), 3 * np.sin(th), half=8,
+                                       g_net=0.0, m_eff=1.0, dtype=torch.float64)
+    with pytest.raises(ValueError, match="state's device"):
+        step(f, km.pack_state((16.0, 16.0), dtype=torch.float64))
+    with pytest.raises(ValueError, match="body state"):
+        step(f, km.pack_state((16.0, 16.0), dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,kwargs,kernel", [
+    ("falling_cylinder", dict(H=64, W=96, T=20, center=(20.3, 47.0), radius=8.0,
+                              rho_s=1.4, gravity=1e-4, record_every=5), "MOVING_FORCING"),
+    ("falling_cylinders", dict(H=96, W=96, T=20, centers=((30.0, 40.0), (46.0, 60.0)),
+                               radius=8.0, rho_s=1.4, gravity=1e-4, zeta=12.0,
+                               record_every=5), "MOVING_BODIES"),
+    ("falling_ellipse", dict(H=64, W=96, T=20, center=(24.0, 48.5), a=9.0, b=4.5,
+                             theta0=0.5, rho_s=1.4, gravity=2e-4, record_every=5),
+     "MOVING_ROT"),
+])
+def test_falling_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs, kernel):
+    """The falling scenes in float64 through their forcing kernel and kernel
+    18 (one launch each per step) against the same scene on the CPU: 1e-12."""
+    from lbm_tpu_torch.kernels import cylinder
+    from lbm_tpu_torch.kernels import moving_ibm as km
+    from lbm_tpu_torch.scenes import obstacles
+
+    k = getattr(km, kernel)
+    before = cylinder.BOX.launches, k.launches
+    got = getattr(obstacles, scene)(device=cuda, dtype=torch.float64, **kwargs)
+    assert (cylinder.BOX.launches - before[0], k.launches - before[1]) == (20, 20)
+    want = getattr(obstacles, scene)(device="cpu", dtype=torch.float64, **kwargs)
+    assert got.f.is_cuda and (got.f.cpu() - want.f).abs().max().item() <= 1e-12
+    assert not got.trajectory.is_cuda and got.trajectory.shape[0] == 4
+    assert (got.trajectory - want.trajectory).abs().max().item() <= 1e-12
