@@ -66,7 +66,12 @@ with a nonzero exit code):
      both types, 4 steps with the body state advancing (F within TOL; the
      state within TOL of max(1, |value|), in float32 against the float64
      plain version: no farther than the float32 plain version, plus TOL);
-     each of kernels 18-21 twice, bit-identical;
+     each of kernels 18-21 twice, bit-identical; kernel 22 (the ring
+     cavity) at L = 512 and 4096 float32 and L = 128 and 130 float64, and
+     kernels 23 and 24 (the Rayleigh-Benard and heated-cavity steps) in both
+     scalar lattices at 4096x2048 float32, at the gates' 64x128 and 128x128
+     in both types and at an odd 97x61 float64, 10 steps from noisy states,
+     twice, bit-identical;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -122,14 +127,23 @@ with a nonzero exit code):
      launch of kernel 18 and one of the scene's forcing kernel (19, 21,
      20); each scene at its defaults in float64 for 40 steps on the card
      against the CPU at 1e-12; the three CLIs (with the obstacle slice's);
+     the cavity and thermal slice: validate_tpu.py cavity (ring_cavity
+     L = 512 float32, 50k steps, F = 3e-5: max|u| and the arms'
+     antisymmetry) and thermal (rayleigh_benard 64x128 float32, 30k steps:
+     Nu and its saturation; heated_cavity 128x128 float32, 40k steps: Nu),
+     the thermal gates in both scalar lattices, one launch of kernel 22, 23
+     or 24 per step; each scene at a small size in float64 on the card
+     against the CPU at 1e-12; the three CLIs;
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
      in float64; kernels 6 at 256x128, 12 at 1024x256 and 15 and 16 (and
      their step) at 1024x256 under a CUDA graph; kernels 19-21, kernel 18
      and their two-launch step at the falling scenes' defaults under CUDA
-     graphs, with the host time per step of the phase-5 runs; each
-     kernel's bound (bytes over
+     graphs, with the host time per step of the phase-5 runs; kernel 22 at
+     L = 4096 and kernels 23 and 24 in both lattices at 4096x2048, in both
+     types, each in turns with its plain version, and the three gate runs'
+     steps under CUDA graphs; each kernel's bound (bytes over
      HBM3's rate against operations, counted on its plain version, over
      the fp32 peak; exp, log, expm1, clamp, where, maximum and minimum
      count one operation per element).
@@ -224,6 +238,15 @@ def shear_state(R, C, dtype, device, noisy_seed=None):
         f = f * torch.as_tensor(rng.uniform(0.97, 1.03, (9, R, C)), dtype=dtype,
                                 device=device)
     return f.contiguous()
+# the cavity and thermal slice (kernels 22-24): ring_cavity's relaxation and
+# the gate's force; rayleigh_benard's rates at its defaults (Ra 1e4, Pr 0.71,
+# tau_g 0.8, H = 64)
+CAVITY_OMEGA = 1.0 / ((3.0 / 16.0) ** 0.5 + 0.5)
+THERMAL_PHYS = {"omega_f": 1.0 / (0.71 * 0.1 * 3.0 + 0.5), "omega_g": 1.25,
+                "g_beta": 1e4 * 0.71 * 0.1 * 0.1 / 64 ** 3}
+THERMAL_NAMES = ("thermal_rb_q9", "thermal_rb_q5", "heated_cavity_q9", "heated_cavity_q5")
+
+
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; fp32 and fp64 FLOP/s outside the
 # tensor cores (dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -540,6 +563,35 @@ def bound(bytes_per_cell, ops, cells, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def thermal_state(q, R, C, dtype, device, seed):
+    """[f, g] of the thermal steps off equilibrium: f a noisy seeded state, g
+    the temperature's equilibrium populations at a seeded theta in [-0.5,
+    0.5] (weights times theta; q = 9 or 5 planes), each times a seeded
+    1 + U(-0.03, 0.03)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.core import lattice as lat
+
+    rng = np.random.default_rng(seed)
+    w = lat.W if q == 9 else lat.W5
+    g = w[:, None, None] * rng.uniform(-0.5, 0.5, (R, C)) * rng.uniform(0.97, 1.03, (q, R, C))
+    return torch.cat([seeded_state(R, C, dtype, device, seed, noisy=True),
+                      torch.as_tensor(g, dtype=dtype, device=device)]).contiguous()
+
+
+def thermal_kernel(name):
+    """(make step, plain step, CudaKernel, q) of one thermal instance, by its
+    name in THERMAL_NAMES."""
+    from lbm_tpu_torch.kernels import thermal as kth
+
+    q = int(name[-1])
+    if name.startswith("thermal_rb"):
+        return kth.make_thermal_fused_step, kth.plain_rb_step, kth.THERMAL[q], q
+    return kth.make_heated_cavity_fused_step, kth.plain_heated_cavity_step, \
+        kth.HEATED_CAVITY[q], q
+
+
 def sediment_kwargs(R, C):
     """make_sediment_fused_step's physics and geometry at an (R, C) grid."""
     R23, C28, C38, inlet = SED_GEOM[(R, C)]
@@ -773,9 +825,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from lbm_tpu_torch.kernels import (_build, bgk, channel, collide_stream, csf_droplet,
-                                       cylinder, les, mrtcg, power_law, rk, sediment,
-                                       shan_chen, trt)
+    from lbm_tpu_torch.kernels import (_build, bgk, cavity, channel, collide_stream,
+                                       csf_droplet, cylinder, les, mrtcg, power_law, rk,
+                                       sediment, shan_chen, trt)
     from lbm_tpu_torch.kernels import ibm as kibm
     from lbm_tpu_torch.kernels import moving_ibm as kmov
     from lbm_tpu_torch.models import kbc
@@ -787,6 +839,8 @@ def main() -> int:
     from lbm_tpu_torch.ops.ibm import IBM
     from lbm_tpu_torch.scenes import channel as chs
     from lbm_tpu_torch.scenes import obstacles as obs
+    from lbm_tpu_torch.scenes import cavity as cavs
+    from lbm_tpu_torch.scenes import thermal as ths
     from lbm_tpu_torch.scenes import ulbm
     from lbm_tpu_torch.scenes.channel import TAU_DEFAULT, horizontal_poiseuille
 
@@ -806,7 +860,8 @@ def main() -> int:
                "collide_stream_trt": k10, "collide_stream_power_law": k11, "rk_cg": k12,
                "csf_droplet": k13, "shan_chen": k14, "cylinder": k15, "ibm_forcing": k16,
                "sediment": k17, "box": k18, "moving_forcing": k19, "moving_rot": k20,
-               "moving_bodies": k21}
+               "moving_bodies": k21, "cavity": cavity.CAVITY,
+               **{name: thermal_kernel(name)[2] for name in THERMAL_NAMES}}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -1133,6 +1188,38 @@ def main() -> int:
             err_mov[variant][dtype] = tuple(max(a, b) for a, b in zip(old, e))
             del f
     torch.cuda.empty_cache()
+    # kernel 22, 10 steps from a noisy state at the reference's
+    # super-critical force (the strip's source large): ring_cavity's L = 512
+    # and L = 4096 in float32, L = 128 and an L that is no multiple of 4 in
+    # float64
+    err22 = {}
+    for dtype, L in ((f32, 512), (f32, 4096), (f64, 128), (f64, 130)):
+        f = seeded_state(L, L, dtype, dev, seed=L + 22, noisy=True)
+        e = hold_twice(f"[4] kernel 22 L={L} {dtype} 10 steps",
+                       cavity.make_cavity_fused_step(L, omega=CAVITY_OMEGA, force=3e-3,
+                                                     dtype=dtype),
+                       lambda x: cavity.plain_cavity_step(x, omega=CAVITY_OMEGA, force=3e-3),
+                       f, 10, dtype)
+        err22[dtype] = max(err22.get(dtype, 0.0), e)
+        del f
+    torch.cuda.empty_cache()
+    # kernels 23 and 24 in both scalar lattices, 10 steps from a noisy
+    # buoyant state: 4096x2048 float32, the gates' 64x128 and 128x128 in both
+    # types, an odd 97x61 float64
+    err_th = {}
+    for name in THERMAL_NAMES:
+        make, plain, _, q = thermal_kernel(name)
+        for dtype, (R, C) in ((f32, BIG), (f32, (64, 128)), (f64, (64, 128)),
+                              (f32, (128, 128)), (f64, (128, 128)), (f64, (97, 61))):
+            S = thermal_state(q, R, C, dtype, dev, seed=R + C + q)
+            e = hold_twice(f"[4] kernel {23 if 'rb' in name else 24} {name} {R}x{C} {dtype} "
+                           "10 steps",
+                           make(R, C, dtype=dtype, scalar_lattice=f"d2q{q}", **THERMAL_PHYS),
+                           lambda x, plain=plain: plain(x, **THERMAL_PHYS), S, 10, dtype)
+            err_th.setdefault(name, {})
+            err_th[name][dtype] = max(err_th[name].get(dtype, 0.0), e)
+            del S
+        torch.cuda.empty_cache()
 
     # 5. the main path
     for k in counted.values():
@@ -1805,6 +1892,99 @@ def main() -> int:
     if not all(slice_launches.values()):
         raise AssertionError("a kernel of the falling-body path never launched")
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
+
+    # the cavity and thermal slice of kernels 22-24: its counts start at 0
+    # here and are read at its end
+    for k in counted.values():
+        k.launches = 0
+    th_wall = {}
+
+    def slice_run(label, fn, kernel, **kw):
+        """One scene run on the card, timed, with one launch of ``kernel`` per
+        step."""
+        before = kernel.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev, **kw)
+        torch.cuda.synchronize()
+        th_wall[label] = time.perf_counter() - t0
+        if kernel.launches - before != kw["T"]:
+            raise AssertionError(f"{label}: {kernel.launches - before} launches for "
+                                 f"{kw['T']} steps")
+        return res
+
+    # validate_tpu.py cavity (:298-307): L = 512 float32, 50k steps, F = 3e-5
+    res = slice_run("cavity", cavs.ring_cavity, cavity.CAVITY, L=512, T=50000, force=3e-5,
+                    dtype=f32)
+    u = res.u.cpu().numpy()
+    left, right = u[0][:, :128].mean(), u[0][:, -128:].mean()
+    check_gates(f"[5] validate_tpu.py cavity: ring_cavity L=512 float32 50000 steps F=3e-5 "
+                f"(host wall time {th_wall['cavity']!r} s = "
+                f"{th_wall['cavity'] / 50000 * 1e6!r} us/step; arm mean u_x left "
+                f"{float(left)!r}, right {float(right)!r})", {
+        "max|u|": (float(np.abs(u).max()), 1e-4, 0.1),
+        "antisymmetry": (float(left / (-right + 1e-30)), 0.9, 1.1),
+        "finite": (float(torch.isfinite(res.f).all()), 1.0, 1.0)})
+    # validate_tpu.py thermal (:513-531), in both scalar lattices: Rayleigh-
+    # Benard at Ra 1e4 (Clever & Busse 2.661), the de Vahl Davis cavity at
+    # Ra 1e4 (2.243)
+    for q in (9, 5):
+        lat = f"d2q{q}"
+        res = slice_run(f"rb {lat}", ths.rayleigh_benard, thermal_kernel(f"thermal_rb_q{q}")[2],
+                        H=64, W=128, T=30000, Ra=1e4, Pr=0.71, amp=1e-2, record_every=10000,
+                        scalar_lattice=lat, dtype=f32)
+        check_gates(f"[5] validate_tpu.py thermal: rayleigh_benard 64x128 {lat} float32 "
+                    f"30000 steps (host wall time {th_wall[f'rb {lat}']!r} s = "
+                    f"{th_wall[f'rb {lat}'] / 30000 * 1e6!r} us/step; series (Nu, u_rms, "
+                    f"theta_max) {res.series.tolist()})", {
+            "Nu": (res.nusselt, 2.60, 2.72),
+            "saturated |dNu|": (abs(float(res.series[-1, 0] - res.series[-2, 0])), 0.0, 5e-3),
+            "finite": (float(torch.isfinite(res.f).all() and torch.isfinite(res.g).all()),
+                       1.0, 1.0)})
+        res = slice_run(f"hc {lat}", ths.heated_cavity,
+                        thermal_kernel(f"heated_cavity_q{q}")[2], H=128, W=128, T=40000,
+                        Ra=1e4, Pr=0.71, record_every=10000, scalar_lattice=lat, dtype=f32)
+        check_gates(f"[5] validate_tpu.py thermal: heated_cavity 128x128 {lat} float32 "
+                    f"40000 steps (host wall time {th_wall[f'hc {lat}']!r} s = "
+                    f"{th_wall[f'hc {lat}'] / 40000 * 1e6!r} us/step; series "
+                    f"{res.series.tolist()})", {
+            "Nu": (res.nusselt, 2.20, 2.29),
+            "finite": (float(torch.isfinite(res.f).all() and torch.isfinite(res.g).all()),
+                       1.0, 1.0)})
+    del res
+    # the CLIs, in one process beside the CPU references; each scene at a
+    # small size in float64 on the card against the CPU
+    cli_run = start_clis([("ring_cavity", "--device", "cuda"),
+                          ("rayleigh_benard", "--device", "cuda", "--set", "T=2000",
+                           "--set", "scalar_lattice=d2q5"),
+                          ("heated_cavity", "--x64", "--device", "cuda", "--set", "T=2000")])
+    for label, fn, kernel, kw in (
+            ("ring_cavity L=64", cavs.ring_cavity, cavity.CAVITY, dict(L=64, T=200)),
+            *((f"rayleigh_benard 32x64 d2q{q}", ths.rayleigh_benard,
+               thermal_kernel(f"thermal_rb_q{q}")[2],
+               dict(H=32, W=64, T=200, amp=1e-2, record_every=50, scalar_lattice=f"d2q{q}"))
+              for q in (9, 5)),
+            *((f"heated_cavity 32x32 d2q{q}", ths.heated_cavity,
+               thermal_kernel(f"heated_cavity_q{q}")[2],
+               dict(H=32, W=32, T=200, record_every=50, scalar_lattice=f"d2q{q}"))
+              for q in (9, 5))):
+        got = slice_run(f"{label} f64", fn, kernel, dtype=f64, **kw)
+        want = fn(device="cpu", dtype=f64, **kw)
+        gates = {"max|f_card - f_cpu|": ((got.f.cpu() - want.f).abs().max().item(), 0.0, 1e-12)}
+        if not label.startswith("ring"):
+            gates.update({
+                "max|g_card - g_cpu|": ((got.g.cpu() - want.g).abs().max().item(), 0.0, 1e-12),
+                "|Nu_card - Nu_cpu|": (abs(got.nusselt - want.nusselt), 0.0, 1e-12),
+                "max|series_card - series_cpu|": (
+                    (got.series - want.series).abs().max().item(), 0.0, 1e-12)})
+        check_gates(f"[5] {label} float64 200 steps on the card vs the CPU (card host wall "
+                    f"time {th_wall[f'{label} f64']!r} s)", gates)
+    del got, want
+    finish_clis(cli_run)
+    slice_launches = {name: counted[name].launches for name in ("cavity", *THERMAL_NAMES)}
+    log(f"[5] kernel 22-24 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the cavity / thermal path never launched")
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -2107,6 +2287,69 @@ def main() -> int:
         f"{host_us['moving_forcing']!r}, ellipse 800x256 f32 (60k) "
         f"{host_us['moving_rot']!r}, dkt 800x128 f32 (30k) {host_us['moving_bodies']!r}")
 
+    # kernel 22 at L = 4096 (ring_cavity's geometry, 16.8M cells) and
+    # kernels 23 and 24 in both lattices at 4096x2048, in float32 and
+    # float64, each in turns with its plain version (median of 3); the bound
+    # from this run's inputs: the bytes (each plane read once and written
+    # once) over HBM3's rate against the plain version's operations on the
+    # same state, counted on the card (the cavity's Guo source counts on its
+    # strip only)
+    th_ms, th_bound = {}, {}
+    for dtype in (f32, f64):
+        L = 4096
+        cases = {"cavity": (cavity.make_cavity_fused_step(L, omega=CAVITY_OMEGA, force=3e-5,
+                                                          dtype=dtype),
+                            lambda x: cavity.plain_cavity_step(x, omega=CAVITY_OMEGA,
+                                                               force=3e-5),
+                            seeded_state(L, L, dtype, dev, seed=622, noisy=True), 9)}
+        for name in THERMAL_NAMES:
+            make, plain, _, q = thermal_kernel(name)
+            cases[name] = (make(R, C, dtype=dtype, scalar_lattice=f"d2q{q}", **THERMAL_PHYS),
+                           lambda x, plain=plain: plain(x, **THERMAL_PHYS),
+                           thermal_state(q, R, C, dtype, dev, seed=623 + q), 9 + q)
+        calls = [(name, i) for name in cases for i in (0, 1)]
+        th_runs = {c: [] for c in calls}
+        for order in (calls, calls[::-1], calls):
+            for name, i in order:
+                fn, x = cases[name][i], cases[name][2]
+                th_runs[name, i].append(cuda_ms(lambda: fn(x), 30 if i == 0 else 3))
+        for name, (_, plain, x, planes) in cases.items():
+            n = x.shape[1] * x.shape[2]
+            t, tp = (sorted(th_runs[name, i])[1] for i in (0, 1))
+            b = 2 * planes * x.element_size()
+            ops = ops_per_cell(plain, x)
+            th_bound[name, dtype] = bound(b, ops, n, str(dtype).removeprefix("torch."))
+            th_ms[name, dtype] = (t, tp)
+            gbs = b * n / (t * 1e-3) / 1e9
+            log(f"[6] {name} {x.shape[1]}x{x.shape[2]} {dtype}: {t!r} ms/step (runs "
+                f"{th_runs[name, 0]}) = {n / (t * 1e-3) / 1e6!r} MLUPS, {gbs!r} GB/s at {b} "
+                f"B/cell = {gbs / copy_gbs!r} of copy; plain {tp!r} ms; bound "
+                f"{th_bound[name, dtype][0]!r} ms by {th_bound[name, dtype][1]} ({ops!r} "
+                f"flops/cell)")
+        del cases, th_runs
+        torch.cuda.empty_cache()
+    # the gate runs' steps under CUDA graphs of 100 steps, against the host
+    # time per step of the phase-5 runs
+    th_graph = {}
+    for label, name, (Rg, Cg), steps in (("cavity", "cavity", (512, 512), 50000),
+                                          ("rb d2q9", "thermal_rb_q9", (64, 128), 30000),
+                                          ("rb d2q5", "thermal_rb_q5", (64, 128), 30000),
+                                          ("hc d2q9", "heated_cavity_q9", (128, 128), 40000),
+                                          ("hc d2q5", "heated_cavity_q5", (128, 128), 40000)):
+        if name == "cavity":
+            step = cavity.make_cavity_fused_step(Rg, omega=CAVITY_OMEGA, force=3e-5, dtype=f32)
+            x = seeded_state(Rg, Cg, f32, dev, seed=1)
+        else:
+            make, _, _, q = thermal_kernel(name)
+            step = make(Rg, Cg, dtype=f32, scalar_lattice=f"d2q{q}", **THERMAL_PHYS)
+            x = thermal_state(q, Rg, Cg, f32, dev, seed=2)
+        t = graph_ms(step, x)
+        host = th_wall[label] / steps * 1e3
+        th_graph[name] = (t, host)
+        log(f"[6] {label} gate step {Rg}x{Cg} float32 (CUDA graph of 100): {t!r} device "
+            f"ms/step; host {host!r} ms/step over the phase-5 run ({th_wall[label]!r} s): "
+            f"device busy {t / host!r}")
+
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -2255,6 +2498,25 @@ def main() -> int:
                      box_ms=mov_ms[name, f32][1], box_ms_f64=mov_ms[name, f64][1],
                      step_ms=mov_ms[name, f32][2], step_ms_f64=mov_ms[name, f64][2],
                      host_us_per_step=host_us[name])
+    th_source = {"cavity": ("cavity", "cavity_pallas.py:29", "ring_cavity L=4096"),
+                 "thermal_rb_q9": ("thermal", "thermal_pallas.py:245", "4096x2048, 18 planes"),
+                 "thermal_rb_q5": ("thermal", "thermal_pallas.py:245", "4096x2048, 14 planes"),
+                 "heated_cavity_q9": ("thermal", "thermal_pallas.py:344",
+                                      "4096x2048, 18 planes"),
+                 "heated_cavity_q5": ("thermal", "thermal_pallas.py:344",
+                                      "4096x2048, 14 planes")}
+    for name, (src, replaces, shape) in th_source.items():
+        errs = err22 if name == "cavity" else err_th[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{src}.cu",
+            "replaces": f"lbm_tpu/kernels/{replaces}", "launches": launches[name],
+            "max_abs_err": errs[f32], "max_abs_err_f64": errs[f64],
+            "ms": th_ms[name, f32][0], "plain_ms": th_ms[name, f32][1],
+            "bound_ms": th_bound[name, f32][0], "bound_by": th_bound[name, f32][1],
+            "library_ms": None, "ms_f64": th_ms[name, f64][0],
+            "plain_ms_f64": th_ms[name, f64][1], "bound_ms_f64": th_bound[name, f64][0],
+            "shape": shape, "gate_graph_ms": th_graph[name][0],
+            "gate_host_ms_per_step": th_graph[name][1]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -84,6 +84,12 @@ B_CG = np.array([-4.0 / 27.0] + [2.0 / 27.0] * 4 + [5.0 / 108.0] * 4, dtype=np.f
 # cites reference test/mrtcg_static_droplet.cpp:176-178
 UNIT_C = C / np.array([1.0, 1.0, 1.0, 1.0, 1.0] + [np.sqrt(2.0)] * 4)
 
+# D2Q5 sub-lattice of a transported scalar (the thermal scenes' temperature):
+# the rest and the four axis directions, C[:, :5], with w = [1/3, 1/6 x4]
+# and cs^2 = 1/3 as D2Q9; opposite pairs (1,3), (2,4).
+W5 = np.array([1.0 / 3.0] + [1.0 / 6.0] * 4)
+OPP5 = np.array([0, 3, 4, 1, 2], dtype=np.int64)
+
 # Python-scalar views for explicit per-direction arithmetic (scalar
 # constants broadcast against tensors of any dtype and device).
 CX = tuple(int(v) for v in C[0])

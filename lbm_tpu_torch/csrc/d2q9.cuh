@@ -48,6 +48,15 @@ __device__ __forceinline__ T cu(int k, T ux, T uy) {
   }
 }
 
+// The planes moving up and down each axis, as bit masks over k: c_x = +1,
+// c_x = -1, c_y = +1, c_y = -1.  A halfway wall on the low side of an axis
+// writes the planes that move up it (the reversed outgoing populations),
+// and one on the high side those that move down it.
+constexpr unsigned PX = (1u << 1) | (1u << 5) | (1u << 8);
+constexpr unsigned MX = (1u << 3) | (1u << 6) | (1u << 7);
+constexpr unsigned PY = (1u << 2) | (1u << 5) | (1u << 6);
+constexpr unsigned MY = (1u << 4) | (1u << 7) | (1u << 8);
+
 // Periodic wrap of an index that is at most one cell out of [0, n).
 __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);

@@ -1,0 +1,247 @@
+// Kernels 23 and 24: one coupled step of the thermal scenes, a BGK fluid f
+// with the Boussinesq buoyancy (g_beta theta, 0) as a Guo force, and the
+// temperature theta carried by an advection-diffusion distribution g, on
+// the state S = [f (9), g (QG)]: 18 planes with a D2Q9 temperature, 14
+// with a D2Q5 one (rest + axis directions, w = [1/3, 1/6 x4]).  Each kernel
+// has one instance per scalar lattice (the template parameter QG).
+//
+// Kernel 23 (CAVITY = false) replaces the TPU kernel
+// lbm_tpu/kernels/thermal_pallas.py:245 make_thermal_fused_step (bodies
+// make_thermal_body :134, make_thermal5_body :199; collisions
+// _collide_buoyant :43, _collide_buoyant5 :76; _stream5 :119): the
+// Rayleigh-Benard slot, periodic columns, hot row 0 and cold row R-1.
+// Kernel 24 (CAVITY = true) replaces :344 make_heated_cavity_fused_step
+// (make_heated_cavity5_body :289 and its inline D2Q9 body): the de Vahl
+// Davis cavity, hot column 0, cold column C-1, adiabatic rows.
+//
+// Their plain versions are kernels/thermal.py::plain_rb_step and
+// plain_heated_cavity_step, lbm_tpu's jnp steps (scenes/thermal.py:142-200
+// and :401-463) on the concatenated state, transcribed in their order and
+// built with -fmad=false (_build.UNIT_FLAGS), so each operation rounds once,
+// as the plain versions' elementwise ops do.  The D2Q5 collision follows
+// the TPU kernel's even/odd pairing (thermal_pallas.py:103-116), which the
+// plain version writes the same way.  One step:
+//   1. rho and theta as sequential sums, u = m1 / rho, then the half-force
+//      shift u_x += (0.5 g_beta theta) / rho;
+//   2. BGK on f at the compressible equilibrium plus the standard Guo
+//      source of (g_beta theta, 0); BGK on g at the temperature's
+//      equilibrium (D2Q9: the compressible equilibrium with theta for rho);
+//   3. the periodic push of f and g;
+//   4. the walls, each rule over the last, in lbm_tpu's order:
+//      Rayleigh-Benard: f halfway bounce-back on rows 0 and R-1; g
+//      incoming-only ADE-Dirichlet, g_new[opp(k)] = -g_coll[k] + 2 w_k
+//      theta_w with theta_w = +1/2 on row 0 and -1/2 on row R-1 (D2Q5: the
+//      one incoming direction of each row);
+//      heated cavity: f halfway bounce-back on rows 0, R-1, then columns 0,
+//      C-1; g the ADE-Dirichlet columns (+1/2 on column 0, -1/2 on column
+//      C-1), then bounce-back on rows 0 and R-1, so at a corner the row
+//      rule wins for g where the plane is shared (thermal_pallas.py:404-437).
+//
+// One thread per cell, neighbouring columns along a warp.  One writer per
+// output entry: a push into an entry that a wall rule writes is dropped
+// (kernel 9's rule, csrc/channel_variant.cu), and the thread of the wall
+// cell applies the rules in order, each over the last, from its own
+// post-collision populations, and writes what stands at the end.  Every f
+// rule writes f_new[opp(k)] = f_coll[k], so for f the order does not
+// change a value; for g it does at the cavity's corners.
+//
+// Shapes: R, C >= 4 (the wrapper checks).
+//
+// Bound: device-memory bytes, per float32 step 144 B/cell with a D2Q9
+// temperature (18 planes in, 18 out), 112 B/cell with D2Q5 (14 and 14).
+// Left on the table: the ownership test of each push and the wall
+// branches in every thread.
+
+#include <cuda_runtime.h>
+
+#include "d2q9.cuh"
+
+namespace {
+
+template <typename T>
+struct Params {
+  T omega_f, one_m_omega_f;  // the fluid's BGK rate and 1 - omega_f
+  T pref;                    // 1 - omega_f / 2, the Guo prefactor
+  T omega_g, one_m_omega_g;  // the temperature's BGK rate and 1 - omega_g
+  T g_beta;                  // buoyancy per unit theta
+};
+
+// The planes of (r, c) that a wall rule writes: f in bits 0-8, g in bits
+// 9-17 (D2Q9) or 9-13 (D2Q5).  The D2Q5 planes are D2Q9's first five.
+template <int QG, bool CAVITY>
+__device__ __forceinline__ unsigned owned(int64_t r, int64_t c, int64_t R, int64_t C) {
+  unsigned f = 0, g = 0;
+  if (r == 0) { f |= lbm::PX; g |= QG == 9 ? lbm::PX : 1u << 1; }
+  if (r == R - 1) { f |= lbm::MX; g |= QG == 9 ? lbm::MX : 1u << 3; }
+  if (CAVITY) {
+    if (c == 0) { f |= lbm::PY; g |= QG == 9 ? lbm::PY : 1u << 2; }
+    if (c == C - 1) { f |= lbm::MY; g |= QG == 9 ? lbm::MY : 1u << 4; }
+  }
+  return f | (g << 9);
+}
+
+// The D2Q5 collision in the TPU kernel's even/odd pairing
+// (kernels/thermal.py::d2q5_collision).
+template <typename T>
+__device__ __forceinline__ void collide_d2q5(const T g[5], T theta, T ux, T uy,
+                                             const Params<T>& P, T gc[5]) {
+  const T uu15 = T(1.5) * (ux * ux + uy * uy);
+  const T th6 = T(1.0 / 6.0) * theta;
+  gc[0] = P.one_m_omega_g * g[0] + P.omega_g * (T(1.0 / 3.0) * theta * (T(1.0) - uu15));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = 1 + i, km = 3 + i;
+    const T cu = i == 0 ? ux : uy;
+    const T even = th6 * (T(1.0) + T(4.5) * cu * cu - uu15);
+    const T odd = th6 * (T(3.0) * cu);
+    gc[kp] = P.one_m_omega_g * g[kp] + P.omega_g * (even + odd);
+    gc[km] = P.one_m_omega_g * g[km] + P.omega_g * (even - odd);
+  }
+}
+
+template <typename T, int QG, bool CAVITY>
+__global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R,
+                               int64_t C, Params<T> P) {
+  const int64_t n = R * C;
+  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= n) return;
+  const int64_t r = cell / C;
+  const int64_t c = cell - r * C;
+
+  // 1. the macroscopics with the half-force shift
+  T f[9], g[QG];
+  lbm::load9(fin, n, cell, f);
+#pragma unroll
+  for (int k = 0; k < QG; ++k) g[k] = fin[(9 + k) * n + cell];
+  T rho, mx, my;
+  lbm::moments(f, rho, mx, my);
+  T theta = g[0];
+#pragma unroll
+  for (int k = 1; k < QG; ++k) theta += g[k];
+  const T Fx = P.g_beta * theta;
+  const T ux = mx / rho + T(0.5) * Fx / rho;
+  const T uy = my / rho;
+
+  // 2. both collisions, the Guo buoyancy source on f
+  T feq[9], fc[9], gc[QG];
+  lbm::equilibrium(rho, ux, uy, feq);
+  const T uf = ux * Fx + uy * T(0);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    fc[k] = P.one_m_omega_f * f[k] + P.omega_f * feq[k];
+    const T s = (T(3.0) + T(9.0) * lbm::cu(k, ux, uy)) * lbm::cu(k, Fx, T(0)) - T(3.0) * uf;
+    fc[k] = fc[k] + P.pref * s * T(lbm::weight(k));
+  }
+  if constexpr (QG == 9) {
+    T geq[9];
+    lbm::equilibrium(theta, ux, uy, geq);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) gc[k] = P.one_m_omega_g * g[k] + P.omega_g * geq[k];
+  } else {
+    collide_d2q5(g, theta, ux, uy, P, gc);
+  }
+
+  // 3. the periodic push, less the entries a wall rule writes
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t rd = lbm::wrap(r + lbm::cx(k), R);
+    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
+    const unsigned m = owned<QG, CAVITY>(rd, cd, R, C);
+    const int64_t dst = rd * C + cd;
+    if (!(m & (1u << k))) fout[k * n + dst] = fc[k];
+    if (k < QG && !(m & (1u << (9 + k)))) fout[(9 + k) * n + dst] = gc[k];
+  }
+
+  // 4. this cell's wall rules, in lbm_tpu's order
+  const unsigned m = owned<QG, CAVITY>(r, c, R, C);
+  if (!m) return;
+  T go[QG];
+  if constexpr (CAVITY) {
+    if constexpr (QG == 9) {
+#pragma unroll
+      for (int k = 1; k < 9; ++k) {
+        const unsigned bit = 1u << k;
+        const int o = lbm::opp(k);
+        if (c == 0 && (lbm::PY & bit)) go[k] = -gc[o] + T(lbm::weight(k));
+        if (c == C - 1 && (lbm::MY & bit)) go[k] = -gc[o] - T(lbm::weight(k));
+        if (r == 0 && (lbm::PX & bit)) go[k] = gc[o];
+        if (r == R - 1 && (lbm::MX & bit)) go[k] = gc[o];
+      }
+    } else {
+      if (c == 0) go[2] = -gc[4] + T(1.0 / 6.0);
+      if (c == C - 1) go[4] = -gc[2] - T(1.0 / 6.0);
+      if (r == 0) go[1] = gc[3];
+      if (r == R - 1) go[3] = gc[1];
+    }
+  } else {
+    if constexpr (QG == 9) {
+#pragma unroll
+      for (int k = 1; k < 9; ++k) {
+        const unsigned bit = 1u << k;
+        const int o = lbm::opp(k);
+        if (r == 0 && (lbm::PX & bit)) go[k] = -gc[o] + T(lbm::weight(k));
+        if (r == R - 1 && (lbm::MX & bit)) go[k] = -gc[o] - T(lbm::weight(k));
+      }
+    } else {
+      if (r == 0) go[1] = -gc[3] + T(1.0 / 6.0);
+      if (r == R - 1) go[3] = -gc[1] - T(1.0 / 6.0);
+    }
+  }
+#pragma unroll
+  for (int k = 1; k < 9; ++k)
+    if (m & (1u << k)) fout[k * n + cell] = fc[lbm::opp(k)];
+#pragma unroll
+  for (int k = 1; k < QG; ++k)
+    if (m & (1u << (9 + k))) fout[(9 + k) * n + cell] = go[k];
+}
+
+template <typename T, int QG, bool CAVITY>
+int launch(const void* fin, void* fout, long long R, long long C, const double* d,
+           cudaStream_t stream) {
+  if (R < 4 || C < 4) return static_cast<int>(cudaErrorInvalidValue);
+  Params<T> P;
+  P.omega_f = T(d[0]); P.one_m_omega_f = T(d[1]); P.pref = T(d[2]);
+  P.omega_g = T(d[3]); P.one_m_omega_g = T(d[4]); P.g_beta = T(d[5]);
+  const int64_t n = static_cast<int64_t>(R) * C;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  thermal_kernel<T, QG, CAVITY><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      static_cast<const T*>(fin), static_cast<T*>(fout), R, C, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int QG, bool CAVITY>
+int dispatch(const void* fin, void* fout, long long R, long long C, const double* consts,
+             int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch<double, QG, CAVITY>(fin, fout, R, C, consts, s)
+                : launch<float, QG, CAVITY>(fin, fout, R, C, consts, s);
+}
+
+}  // namespace
+
+// One thermal step S_in -> S_out (distinct buffers; 18 planes for the _q9
+// instances, 14 for _q5) on `stream`.  `consts` holds 6 scalars already
+// rounded to the state's type, in the order of
+// kernels/thermal.py::thermal_constants: omega_f, 1 - omega_f,
+// 1 - omega_f/2, omega_g, 1 - omega_g, g_beta.  Returns the cudaError_t of
+// the launch (0 = accepted).
+extern "C" int lbm_thermal_rb_q9(const void* fin, void* fout, long long R, long long C,
+                                 const double* consts, int is_f64, void* stream) {
+  return dispatch<9, false>(fin, fout, R, C, consts, is_f64, stream);
+}
+
+extern "C" int lbm_thermal_rb_q5(const void* fin, void* fout, long long R, long long C,
+                                 const double* consts, int is_f64, void* stream) {
+  return dispatch<5, false>(fin, fout, R, C, consts, is_f64, stream);
+}
+
+extern "C" int lbm_heated_cavity_q9(const void* fin, void* fout, long long R, long long C,
+                                    const double* consts, int is_f64, void* stream) {
+  return dispatch<9, true>(fin, fout, R, C, consts, is_f64, stream);
+}
+
+extern "C" int lbm_heated_cavity_q5(const void* fin, void* fout, long long R, long long C,
+                                    const double* consts, int is_f64, void* stream) {
+  return dispatch<5, true>(fin, fout, R, C, consts, is_f64, stream);
+}

@@ -11,11 +11,13 @@ float32).  `--device` defaults to cuda; `--device cpu` runs the plain
 PyTorch versions.  Result tensors are written as .npy files under --out,
 recorded snapshots as {out}-snap-{name}.npy.  The closing log line names
 the result's scalars and its 1-D fields of at most 4 entries (cylinder_flow's
-surface_force, a falling body's centre and velocity; a trajectory or the
-DKT pair's (B, 2) centres go only to --out).  Registered: the channel,
-ULBM, multiphase (MRT-CG/CSF, RK, CSF droplet), Shan-Chen and obstacle (IBM
-cylinder, rectangle sedimentation, the falling cylinder, DKT pair and
-ellipse) scenes ported so far, under lbm_tpu's names.
+surface_force, a falling body's centre and velocity, a thermal scene's
+Nusselt number; a trajectory or the DKT pair's (B, 2) centres go only to
+--out).  Registered: the channel, ULBM, multiphase (MRT-CG/CSF, RK, CSF
+droplet), Shan-Chen, obstacle (IBM cylinder, rectangle sedimentation, the
+falling cylinder, DKT pair and ellipse), ring-cavity and thermal
+(Rayleigh-Benard, heated cavity) scenes ported so far, under lbm_tpu's
+names.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .utils.xmath import default_device
 
 
 def _scenes() -> dict:
-    from .scenes import channel, multiphase, obstacles, shan_chen, ulbm
+    from .scenes import cavity, channel, multiphase, obstacles, shan_chen, thermal, ulbm
 
     return {
         "horizontal_poiseuille": channel.horizontal_poiseuille,
@@ -63,6 +65,9 @@ def _scenes() -> dict:
         "falling_cylinder": obstacles.falling_cylinder,
         "falling_cylinders": obstacles.falling_cylinders,
         "falling_ellipse": obstacles.falling_ellipse,
+        "ring_cavity": cavity.ring_cavity,
+        "rayleigh_benard": thermal.rayleigh_benard,
+        "heated_cavity": thermal.heated_cavity,
     }
 
 

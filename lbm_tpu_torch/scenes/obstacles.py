@@ -45,10 +45,9 @@ from ..kernels.sediment import inlet_profile, make_sediment_fused_step
 from ..ops import d2q9
 from ..ops.ibm import IBM
 from ..ops.moving_ibm import circle_markers, ellipse_markers
-from ..utils import observe
 from ..utils.xmath import default_device, default_float
-from ._common import not_ported
-from .ulbm import CHUNK, _drive
+from ._common import drive_recorded, not_ported
+from .ulbm import _drive
 
 
 @dataclass
@@ -66,36 +65,6 @@ class CylinderResult:
 def _check_record(T: int, record_every: int | None) -> None:
     if record_every is not None and (record_every < 1 or T % record_every):
         raise ValueError("T must be a multiple of record_every (>= 1)")
-
-
-def _drive_recorded(step, carry: tuple, T: int, record_every: int | None, record,
-                    recorder=None):
-    """T calls ``carry = step(carry)`` with nothing between them on the
-    host.  Every ``record_every`` steps ``record(carry)``, a device tensor,
-    joins the series, stacked on the device and copied to the host once per
-    CHUNK steps, when the NaN watchdog checks carry[0]; ``recorder`` (a
-    SnapshotRecorder) samples the carry before each step of its cadence.
-    Returns (carry, the (T // k, ...) series on the host, or None)."""
-    f = carry[0]
-    meter = observe.StepMeter(f[0].numel(), f.device, total_steps=T)
-    series, pending = [], []
-    for t in range(T):
-        if recorder is not None and t % recorder.cadence == 0:
-            recorder.record(carry)
-        carry = step(carry)
-        if record_every is not None and (t + 1) % record_every == 0:
-            pending.append(record(carry))
-        if (t + 1) % CHUNK == 0 or t + 1 == T:
-            meter.update(CHUNK if (t + 1) % CHUNK == 0 else T % CHUNK)
-            observe.check_finite(carry[0], t + 1)
-            if pending:
-                series.append(torch.stack(pending).cpu())
-                pending = []
-    if record_every is None:
-        return carry, None
-    if not series:  # T == 0
-        return carry, torch.zeros((0,) + tuple(record(carry).shape), dtype=f.dtype)
-    return carry, torch.cat(series)
 
 
 def _physical(config_path: str | None):
@@ -187,8 +156,8 @@ def cylinder_flow(H: int = 160, W: int = 120, T: int = 500,
         F = forcing(carry[0])
         return grid(carry[0], F, origin), F
 
-    (f, F), forces = _drive_recorded(step, (f, F), T, record_every,
-                                     lambda c: c[1].sum(dim=(1, 2)), recorder)
+    (f, F), forces = drive_recorded(step, (f, F), T, record_every,
+                                    lambda c: c[1].sum(dim=(1, 2)), recorder)
     rho = d2q9.calc_rho(f)
     return CylinderResult(f=f, rho=rho, u=d2q9.calc_u(f, rho), F_roi=F,
                           surface_force=F.sum(dim=(1, 2)), steps=T, forces=forces,
@@ -283,15 +252,15 @@ def rectangle_sedimentation(H: int = 256, W: int = 320, T: int = 500,
 
 def _drive_bodies(force, grid, f: torch.Tensor, state: torch.Tensor, T: int,
                   record_every: int | None, lanes: int):
-    """_drive_recorded of two calls per step, the body forcing and the box
+    """drive_recorded of two calls per step, the body forcing and the box
     grid step, recording the state's first ``lanes`` lanes: (f, state,
     trajectory (T // k, B, lanes) on the host, or None)."""
     def step(carry):
         F, origin, st = force(*carry)
         return grid(carry[0], F, origin), st
 
-    (f, state), trajectory = _drive_recorded(step, (f, state), T, record_every,
-                                             lambda c: c[1][:, :lanes])
+    (f, state), trajectory = drive_recorded(step, (f, state), T, record_every,
+                                            lambda c: c[1][:, :lanes])
     return f, state, trajectory
 
 

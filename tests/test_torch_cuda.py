@@ -1027,3 +1027,134 @@ def test_falling_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs, kernel):
     assert got.f.is_cuda and (got.f.cpu() - want.f).abs().max().item() <= 1e-12
     assert not got.trajectory.is_cuda and got.trajectory.shape[0] == 4
     assert (got.trajectory - want.trajectory).abs().max().item() <= 1e-12
+
+
+def _thermal_state(q, R, C, dtype, device, seed):
+    """[f, g] of the thermal steps off equilibrium: f a noisy seeded state,
+    g the temperature's equilibrium populations (weights times theta in
+    [-0.5, 0.5]), each times 1 + U(-0.03, 0.03)."""
+    from lbm_tpu_torch.core import lattice as lat
+
+    rng = np.random.default_rng(seed)
+    w = lat.W if q == 9 else lat.W5
+    theta = rng.uniform(-0.5, 0.5, (R, C))
+    g = w[:, None, None] * theta * rng.uniform(0.97, 1.03, (q, R, C))
+    return torch.cat([_noisy_state(R, C, dtype, device, seed),
+                      torch.as_tensor(g, dtype=dtype, device=device)]).contiguous()
+
+
+# rayleigh_benard's rates at its defaults (Ra 1e4, Pr 0.71, tau_g 0.8, H 64)
+THERMAL = dict(omega_f=1.0 / (0.71 * 0.1 * 3.0 + 0.5), omega_g=1.25,
+               g_beta=1e4 * 0.71 * 0.1 * 0.1 / 64 ** 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,L", [(torch.float64, 128), (torch.float64, 130),
+                                     (torch.float64, 37), (torch.float32, 512)])
+def test_cavity_kernel_matches_plain(cuda, dtype, L):
+    """Kernel 22, 10 steps from a noisy state at the reference's
+    super-critical force, against plain_cavity_step (bit-identical,
+    -fmad=false), twice."""
+    from lbm_tpu_torch.kernels import cavity
+
+    f = _noisy_state(L, L, dtype, cuda, seed=L)
+    omega = 1.0 / ((3.0 / 16.0) ** 0.5 + 0.5)
+    step = cavity.make_cavity_fused_step(L, omega=omega, force=3e-3, substeps=5, dtype=dtype)
+    before = cavity.CAVITY.launches
+    got, again = step(step(f)), step(step(f))
+    torch.cuda.synchronize()
+    assert cavity.CAVITY.launches - before == 20
+    want = f
+    for _ in range(10):
+        want = cavity.plain_cavity_step(want, omega=omega, force=3e-3)
+    assert torch.equal(got, again)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", ["d2q9", "d2q5"])
+@pytest.mark.parametrize("kind", ["rb", "cavity"])
+@pytest.mark.parametrize("dtype,shape", [(torch.float64, (64, 128)), (torch.float64, (33, 17)),
+                                         (torch.float64, (4, 5)), (torch.float32, (128, 128))])
+def test_thermal_kernels_match_plain(cuda, kind, lattice, dtype, shape):
+    """Kernels 23 (rb) and 24 (cavity) in both scalar lattices, 10 steps
+    from a noisy buoyant state, against their plain versions (bit-identical,
+    -fmad=false), twice."""
+    from lbm_tpu_torch.kernels import thermal
+
+    R, C = shape
+    q = thermal.scalar_planes(lattice)
+    S = _thermal_state(q, R, C, dtype, cuda, seed=R * C + q)
+    make, plain, kernel = {
+        "rb": (thermal.make_thermal_fused_step, thermal.plain_rb_step, thermal.THERMAL[q]),
+        "cavity": (thermal.make_heated_cavity_fused_step, thermal.plain_heated_cavity_step,
+                   thermal.HEATED_CAVITY[q])}[kind]
+    step = make(R, C, substeps=5, dtype=dtype, scalar_lattice=lattice, **THERMAL)
+    before = kernel.launches
+    got, again = step(step(S)), step(step(S))
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 20
+    want = S
+    for _ in range(10):
+        want = plain(want, **THERMAL)
+    assert torch.equal(got, again) and got.shape == (9 + q, R, C)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_22_to_24_reject_what_they_do_not_take(cuda):
+    from lbm_tpu_torch.kernels import cavity, thermal
+
+    f = torch.ones((9, 16, 16), dtype=torch.float64, device=cuda)
+    consts = cavity.cavity_constants(1.5, 3e-5, torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        collide_stream.launch_steps(cavity.CAVITY, f.cpu(), 1, consts)
+    with pytest.raises(RuntimeError, match="cudaError_t"):  # not square
+        collide_stream.launch_steps(cavity.CAVITY, f[:, :8].contiguous(), 1, consts)
+    S = torch.ones((18, 16, 16), dtype=torch.float64, device=cuda)
+    consts = thermal.thermal_constants(1.0, 1.25, 1e-4, torch.float64)
+    with pytest.raises(ValueError, match=r"\(14, R, C\)"):
+        collide_stream.launch_steps(thermal.THERMAL[5], S, 1, consts, planes=14)
+    with pytest.raises(ValueError, match="contiguous"):
+        collide_stream.launch_steps(thermal.HEATED_CAVITY[9], S[:, :, ::2], 1, consts,
+                                    planes=18)
+    step = thermal.make_thermal_fused_step(16, 16, dtype=torch.float64, **THERMAL)
+    with pytest.raises(ValueError, match="step built for"):
+        step(S.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,kwargs", [
+    ("ring_cavity", dict(L=64, T=40)),
+    ("rayleigh_benard", dict(H=32, W=64, T=40, amp=1e-2, record_every=10)),
+    ("rayleigh_benard", dict(H=32, W=64, T=40, amp=1e-2, record_every=10,
+                             scalar_lattice="d2q5")),
+    ("heated_cavity", dict(H=32, W=48, T=40, snapshot_every=20)),
+    ("heated_cavity", dict(H=32, W=48, T=40, substeps=4, scalar_lattice="d2q5")),
+])
+def test_cavity_and_thermal_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs):
+    """The three scenes in float64 through kernels 22-24 (one launch per
+    step) against the same scenes on the CPU: 1e-12."""
+    from lbm_tpu_torch.kernels import cavity, thermal
+    from lbm_tpu_torch.scenes import cavity as cavity_scene
+    from lbm_tpu_torch.scenes import thermal as thermal_scene
+
+    q = 5 if kwargs.get("scalar_lattice") == "d2q5" else 9
+    fn, k = {"ring_cavity": (cavity_scene.ring_cavity, cavity.CAVITY),
+             "rayleigh_benard": (thermal_scene.rayleigh_benard, thermal.THERMAL[q]),
+             "heated_cavity": (thermal_scene.heated_cavity, thermal.HEATED_CAVITY[q])}[scene]
+    before = k.launches
+    got = fn(device=cuda, dtype=torch.float64, **kwargs)
+    assert k.launches - before == kwargs["T"]
+    want = fn(device="cpu", dtype=torch.float64, **kwargs)
+    names = ("f", "u") if scene == "ring_cavity" else ("f", "g", "theta", "u")
+    for name in names:
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12
+    if scene != "ring_cavity":
+        assert abs(got.nusselt - want.nusselt) <= 1e-12
+    if kwargs.get("record_every"):
+        assert not got.series.is_cuda and (got.series - want.series).abs().max().item() <= 1e-12
+    if kwargs.get("snapshot_every"):
+        for name, v in want.snapshots.items():
+            assert np.abs(got.snapshots[name] - v).max() <= 1e-12
