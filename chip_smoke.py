@@ -14,7 +14,7 @@ Phases (each prints its results; an exception in any phase ends the run
 with a nonzero exit code):
   1. toolchain: torch and CUDA versions, the card, nvcc, triton, nvidia-smi;
   2. build: the kernels from csrc/, timed, with ptxas' registers and spills
-     per kernel;
+     per kernel (and those of kernels 25-26's four instances on their own);
   3. the periodic kernels against their plain versions: kernel 1 (BGK) at
      4096x2048 float32 (1 and 8 steps; the 302 MB-per-buffer grid of
      bench.py), 1024x512 float64 and the reference's 21x21, 100x100 and
@@ -71,7 +71,13 @@ with a nonzero exit code):
      kernels 23 and 24 (the Rayleigh-Benard and heated-cavity steps) in both
      scalar lattices at 4096x2048 float32, at the gates' 64x128 and 128x128
      in both types and at an odd 97x61 float64, 10 steps from noisy states,
-     twice, bit-identical;
+     twice, bit-identical; kernels 25 and 26 (the D3Q19 step in the planes
+     and the lanes layout) in the four wall sets (periodic; the channel with
+     a z force; the lid cavity with and without x walls) at 32x256x1024
+     float32, 5x37x41 float64 and 8x64x128 in both types, and at every
+     other shape, type and wall set that phase 5 gives them (d3q19_hold),
+     10 steps from noisy states, kernel 25 twice bit-identical and kernel
+     26, unpacked, equal to it;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -133,7 +139,17 @@ with a nonzero exit code):
      Nu and its saturation; heated_cavity 128x128 float32, 40k steps: Nu),
      the thermal gates in both scalar lattices, one launch of kernel 22, 23
      or 24 per step; each scene at a small size in float64 on the card
-     against the CPU at 1e-12; the three CLIs;
+     against the CPU at 1e-12; the three CLIs; the D3Q19 slice, one
+     kernel-25 launch per step: validate_tpu.py cavity3d (lid_cavity_3d
+     8x64x128 float32, 20k steps, substeps 2: lid drag, return flow, max|u|,
+     x mirror), the same cavity for 2000 steps in the lanes layout through
+     kernel 26 (bit for bit the scene's), poiseuille_3d 24x8x8 float64 (20k
+     steps, L2 <= 1e-10), taylor_green_3d at N = 32 float64 (400 steps) and
+     the full-size N = 256 float32 (1000 steps; amplitude within 2.5% of the
+     analytic decay, l2 < 1e-2), the three scenes in float64 on the card
+     against the CPU at 1e-12, a checkpointed cavity interrupted and
+     resumed on the card (bit-identical), and the three CLIs with a
+     --checkpoint-dir run and its --resume;
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
@@ -143,10 +159,12 @@ with a nonzero exit code):
      graphs, with the host time per step of the phase-5 runs; kernel 22 at
      L = 4096 and kernels 23 and 24 in both lattices at 4096x2048, in both
      types, each in turns with its plain version, and the three gate runs'
-     steps under CUDA graphs; each kernel's bound (bytes over
-     HBM3's rate against operations, counted on its plain version, over
-     the fp32 peak; exp, log, expm1, clamp, where, maximum and minimum
-     count one operation per element).
+     steps under CUDA graphs; kernels 25 and 26 at 32x256x1024 in both
+     types and two wall sets, in turns with the plain version and a copy of
+     the state, and the cavity3d gate's step under a CUDA graph; each
+     kernel's bound (bytes over HBM3's rate against operations, counted on
+     its plain version, over the fp32 peak; exp, log, expm1, clamp, where,
+     maximum and minimum count one operation per element).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -156,6 +174,7 @@ from __future__ import annotations
 import atexit
 import functools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -245,6 +264,16 @@ CAVITY_OMEGA = 1.0 / ((3.0 / 16.0) ** 0.5 + 0.5)
 THERMAL_PHYS = {"omega_f": 1.0 / (0.71 * 0.1 * 3.0 + 0.5), "omega_g": 1.25,
                 "g_beta": 1e4 * 0.71 * 0.1 * 0.1 / 64 ** 3}
 THERMAL_NAMES = ("thermal_rb_q9", "thermal_rb_q5", "heated_cavity_q9", "heated_cavity_q5")
+# the D3Q19 slice (kernels 25-26): the four wall sets of the step, its timing
+# grid (as many cells as 4096x2048) and validate_tpu.py cavity3d's cavity
+# (:579-597; Re 100 at u_lid 0.05 on Z = 128)
+D3Q19_OMEGA = 1.0 / 0.7
+D3Q19_WALLS = {"periodic": {}, "channel": {"x_walls": True, "force_z": 1e-5},
+               "cavity": {"x_walls": True, "y_walls": True, "z_walls": True, "lid_u": 0.05},
+               "cavity_no_x": {"y_walls": True, "z_walls": True, "lid_u": 0.05}}
+D3Q19_BIG = (32, 256, 1024)
+CAVITY3D = {"X": 8, "Y": 64, "Z": 128, "Re": 100.0, "u_lid": 0.05, "x_walls": True,
+            "substeps": 2}
 
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s; fp32 and fp64 FLOP/s outside the
@@ -344,8 +373,9 @@ def start_clis(argvs):
     return proc, list(argvs), time.perf_counter()
 
 
-def finish_clis(started) -> None:
-    """Wait for ``start_clis``'s process; fail unless each CLI exits with 0."""
+def finish_clis(started) -> str:
+    """Wait for ``start_clis``'s process; fail unless each CLI exits with 0.
+    Returns the process's standard error."""
     proc, argvs, t0 = started
     _, err = proc.communicate(timeout=900)
     lines = err.strip().splitlines()
@@ -357,6 +387,7 @@ def finish_clis(started) -> None:
     if proc.returncode != 0 or len(results) != len(argvs) or \
             any(rc != "CLI rc=0" for _, rc in results):
         raise AssertionError(f"CLI failed:\n{err[-3000:]}")
+    return err
 
 
 def mrtcg_state(R, C, dtype, device, csf=False, droplet=False):
@@ -578,6 +609,54 @@ def thermal_state(q, R, C, dtype, device, seed):
     g = w[:, None, None] * rng.uniform(-0.5, 0.5, (R, C)) * rng.uniform(0.97, 1.03, (q, R, C))
     return torch.cat([seeded_state(R, C, dtype, device, seed, noisy=True),
                       torch.as_tensor(g, dtype=dtype, device=device)]).contiguous()
+
+
+def d3q19_state(X, Y, Z, dtype, device, seed):
+    """The D3Q19 equilibrium at a numpy-seeded flow (|u| <= 0.05, rho within
+    1%), made on the card, each population times a seeded 1 + U(-0.03,
+    0.03): off equilibrium."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.ops import d3q19
+
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.uniform(-0.05, 0.05, (3, X, Y, Z)), dtype=dtype, device=device)
+    rho = torch.as_tensor(1.0 + rng.uniform(-0.01, 0.01, (X, Y, Z)), dtype=dtype,
+                          device=device)
+    f = d3q19.equilibrium(u, rho)
+    f *= torch.as_tensor(rng.uniform(0.97, 1.03, (19, X, Y, Z)), dtype=dtype, device=device)
+    return f.contiguous()
+
+
+def hold_d3q19(X, Y, Z, dtype, walls, device, steps=10):
+    """Kernel 25, ``steps`` launches from a noisy state, twice, and kernel 26
+    as many on the lanes layout, against as many plain steps: each within
+    TOL, the two kernel-25 runs bit-identical, and kernel 26, unpacked,
+    equal to kernel 25 bit for bit.  Returns (err 25, err 26)."""
+    import torch
+
+    from lbm_tpu_torch.kernels import d3q19 as kd
+
+    kw = dict(omega=D3Q19_OMEGA, **D3Q19_WALLS[walls])
+    f = d3q19_state(X, Y, Z, dtype, device, seed=X + Y + Z + len(walls))
+    step25 = kd.make_d3q19_fused_step(X, Y, Z, dtype=dtype, **kw)
+    step26 = kd.make_d3q19_lanes_step(X, Y, Z, dtype=dtype, **kw)
+    got, again, lanes, want = f, f, kd.pack_lanes(f), f
+    for _ in range(steps):
+        got, again, lanes = step25(got), step25(again), step26(lanes)
+    for _ in range(steps):
+        want = kd.plain_d3q19_step(want, **kw)
+    got26 = kd.unpack_lanes(lanes, X, Y, Z)
+    label = f"[4] {walls} {X}x{Y}x{Z} {dtype} {steps} steps"
+    e25 = compare(f"{label} kernel 25", got, want, dtype)
+    e26 = compare(f"{label} kernel 26", got26, want, dtype)
+    same, same26 = bool(torch.equal(got, again)), bool(torch.equal(got26, got))
+    log(f"{label}: kernel 25 twice bit-identical: {same}; kernel 26 unpacked == kernel 25: "
+        f"{same26}")
+    if not (same and same26):
+        raise AssertionError(f"{label}: a race, or kernel 26 differs from kernel 25")
+    return e25, e26
 
 
 def thermal_kernel(name):
@@ -810,6 +889,287 @@ def moving_work(F, markers, bodies, iters, itemsize):
             20 * support + 152 * markers + iters * (131 * markers + 8 * support) + 40 * bodies)
 
 
+def d3q19_hold(dev):
+    """Phase 4 of kernels 25 and 26: 10 steps from noisy states
+    (``hold_d3q19``) in the four wall sets at the timing grid 32x256x1024
+    float32, an odd 5x37x41 and the cavity3d gate's 8x64x128 in float64 and
+    8x64x128 in float32; then at each shape, type and wall set that phase 5
+    runs: poiseuille_3d's 24x8x8 and 12x4x6 channels in float64,
+    taylor_green_3d's periodic N = 32 and 12 in float64, N = 256 and the
+    CLI's 64 in float32, and the cavities 4x16x20 and 3x16x20 (x periodic)
+    in float64.  Returns the max errors of kernel 25 and of kernel 26, by
+    dtype."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    every = tuple(D3Q19_WALLS)
+    err25, err26 = {}, {}
+    for dtype, shape, wall_sets in (
+            (f32, D3Q19_BIG, every), (f64, (5, 37, 41), every), (f64, (8, 64, 128), every),
+            (f32, (8, 64, 128), every), (f64, (24, 8, 8), ("channel",)),
+            (f64, (12, 4, 6), ("channel",)), (f64, (32, 32, 32), ("periodic",)),
+            (f64, (12, 12, 12), ("periodic",)), (f32, (256, 256, 256), ("periodic",)),
+            (f32, (64, 64, 64), ("periodic",)), (f64, (4, 16, 20), ("cavity",)),
+            (f64, (3, 16, 20), ("cavity_no_x",))):
+        for walls in wall_sets:
+            e25, e26 = hold_d3q19(*shape, dtype, walls, dev)
+            err25[dtype] = max(err25.get(dtype, 0.0), e25)
+            err26[dtype] = max(err26.get(dtype, 0.0), e26)
+        torch.cuda.empty_cache()
+    return err25, err26
+
+
+def d3q19_path(dev, counted) -> dict:
+    """Phase 5 of the D3Q19 slice: the 3-D scenes' gates through kernel 25
+    (one launch per step), the cavity in the lanes layout through kernel
+    26, the scenes on the card against the CPU, a checkpointed run resumed
+    on the card and the CLIs.  Every launch count starts at 0 here and is
+    read at the end.  Returns the host wall time of each run, by label."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.kernels import d3q19 as kd
+    from lbm_tpu_torch.ops import d3q19
+    from lbm_tpu_torch.scenes import three_d as t3
+
+    f32, f64 = torch.float32, torch.float64
+    for k in counted.values():
+        k.launches = 0
+    d3_wall = {}
+
+    def d3_run(label, fn, **kw):
+        """One 3-D scene run on the card, timed, with one kernel-25 launch per
+        step."""
+        before = kd.D3Q19.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev, **kw)
+        torch.cuda.synchronize()
+        d3_wall[label] = time.perf_counter() - t0
+        if kd.D3Q19.launches - before != kw["T"]:
+            raise AssertionError(f"{label}: {kd.D3Q19.launches - before} launches for "
+                                 f"{kw['T']} steps")
+        return res
+
+    # validate_tpu.py cavity3d (:579-597): 8x64x128 float32, T 20000,
+    # substeps 2, with its five checks
+    res = d3_run("cavity3d", t3.lid_cavity_3d, T=20000, dtype=f32, **CAVITY3D)
+    u = res.u.cpu().numpy()
+    uz_mid = u[2, 4]  # the mid-depth (Y, Z) slice
+    check_gates(f"[5] validate_tpu.py cavity3d: lid_cavity_3d 8x64x128 float32 20000 steps "
+                f"substeps 2 (host wall time {d3_wall['cavity3d']!r} s = "
+                f"{d3_wall['cavity3d'] / 20000 * 1e6!r} us/step)", {
+        "finite": (float(np.isfinite(u).all()), 1.0, 1.0),
+        "lid drag": (float(uz_mid[-2].mean()), 0.01, 0.05),
+        "return flow": (float(uz_mid[16].mean()), -0.05, -1e-3),
+        "max|u|": (float(np.abs(u).max()), 0.0, 0.06),
+        "x mirror dev": (float(np.abs(u[2] - u[2, ::-1]).max()), 0.0, 1e-3)})
+    # the same cavity in lbm_tpu's lanes layout through kernel 26
+    # (make_d3q19_lanes_step), 2000 steps from rest, against the scene's
+    # kernel-25 run: bit for bit
+    X3, Y3, Z3 = CAVITY3D["X"], CAVITY3D["Y"], CAVITY3D["Z"]
+    nu3 = 0.05 * Z3 / 100.0  # lid_cavity_3d's viscosity, rounded as there
+    lanes_step = kd.make_d3q19_lanes_step(X3, Y3, Z3, omega=1.0 / (3.0 * nu3 + 0.5),
+                                          x_walls=True, y_walls=True, z_walls=True,
+                                          lid_u=0.05, substeps=2, dtype=f32)
+    S = kd.pack_lanes(d3q19.equilibrium(torch.zeros((3, X3, Y3, Z3), dtype=f32, device=dev),
+                                        torch.ones((X3, Y3, Z3), dtype=f32, device=dev)))
+    before = kd.D3Q19_LANES.launches
+    for _ in range(1000):
+        S = lanes_step(S)
+    res = d3_run("cavity3d 2000", t3.lid_cavity_3d, T=2000, dtype=f32, **CAVITY3D)
+    same = bool(torch.equal(kd.unpack_lanes(S, X3, Y3, Z3), res.f))
+    log(f"[5] lid cavity 8x64x128 float32 2000 steps in the lanes layout: "
+        f"{kd.D3Q19_LANES.launches - before} kernel-26 launches, equal to the scene's "
+        f"kernel-25 run bit for bit: {same}")
+    if not (same and kd.D3Q19_LANES.launches - before == 2000):
+        raise AssertionError("the lanes layout's run differs from the planes layout's")
+    # poiseuille_3d's gate (tests/test_d3q19.py:56-60): 24x8x8 float64,
+    # 20000 steps, L2 <= 1e-10 at the magic tau
+    res = d3_run("poiseuille_3d", t3.poiseuille_3d, X=24, Y=8, Z=8, T=20000, dtype=f64)
+    check_gates(f"[5] poiseuille_3d 24x8x8 float64 20000 steps (host wall time "
+                f"{d3_wall['poiseuille_3d']!r} s)", {"L2": (res.l2, 0.0, 1e-10)})
+    # taylor_green_3d's gates (:63-82) at N = 32 in float64, then the
+    # full-size run, N = 256 in float32 (16.8M cells, 1.27 GB a buffer),
+    # 1000 steps: the amplitude within 2.5% of u0 exp(-2 nu k^2 T), the field
+    # within 1e-2 of the analytic one
+    for N, T, dtype in ((32, 400, f64), (256, 1000, f32)):
+        label = f"taylor_green_3d N={N}"
+        res = d3_run(label, t3.taylor_green_3d, N=N, T=T, dtype=dtype)
+        nu, k = (0.8 - 0.5) / 3.0, 2.0 * np.pi / N
+        expected = 0.02 * np.exp(-2.0 * nu * k * k * T)
+        amp = res.u[0].abs().max().item()
+        gates = {"amplitude rel err": (abs(amp - expected) / expected, 0.0, 0.025),
+                 "l2": (res.l2, 0.0, 1e-2)}
+        if dtype == f64:
+            gates["max|u_z|"] = (res.u[2].abs().max().item(), 0.0, 1e-12)
+        check_gates(f"[5] {label} {dtype} {T} steps (host wall time {d3_wall[label]!r} s, "
+                    f"amplitude {amp!r} against {expected!r})", gates)
+    del res, S
+    torch.cuda.empty_cache()
+    # the CLIs, in one process beside the CPU references: the three scenes,
+    # then a checkpointed cavity and its resumed continuation
+    ckdir = tempfile.mkdtemp(prefix="lbm_tpu_torch_ck_")
+    cli_ck = ("--checkpoint-dir", ckdir, "--checkpoint-every", "500")
+    cli_run = start_clis([("poiseuille_3d", "--x64", "--device", "cuda"),
+                          ("taylor_green_3d", "--device", "cuda", "--set", "N=64"),
+                          ("lid_cavity_3d", "--device", "cuda", "--set", "T=2000",
+                           "--set", "substeps=2"),
+                          ("lid_cavity_3d", "--device", "cuda", "--set", "T=1200", *cli_ck),
+                          ("lid_cavity_3d", "--device", "cuda", "--set", "T=2000", *cli_ck,
+                           "--resume")])
+    # each scene at a small size in float64 on the card against the CPU
+    for label, fn, kw in (
+            ("poiseuille_3d 12x4x6", t3.poiseuille_3d, dict(X=12, Y=4, Z=6, T=200, force=1e-5)),
+            ("taylor_green_3d N=12", t3.taylor_green_3d, dict(N=12, T=200, substeps=4)),
+            ("lid_cavity_3d 4x16x20", t3.lid_cavity_3d, dict(X=4, Y=16, Z=20, T=200)),
+            ("lid_cavity_3d 3x16x20 x-periodic", t3.lid_cavity_3d,
+             dict(X=3, Y=16, Z=20, T=200, x_walls=False, substeps=2))):
+        got = d3_run(f"{label} f64", fn, dtype=f64, **kw)
+        want = fn(device="cpu", dtype=f64, **kw)
+        gates = {f"max|{name}_card - {name}_cpu|": (
+            (getattr(got, name).cpu() - getattr(want, name)).abs().max().item(), 0.0, 1e-12)
+            for name in ("f", "rho", "u")}
+        if want.l2 is not None:
+            gates["|l2_card - l2_cpu|"] = (abs(got.l2 - want.l2), 0.0, 1e-12)
+        check_gates(f"[5] {label} float64 {kw['T']} steps on the card vs the CPU (card host "
+                    f"wall time {d3_wall[f'{label} f64']!r} s)", gates)
+    del got, want
+    # checkpoint/resume on the card: the cavity3d cavity interrupted at step
+    # 600 (checkpoints every 250 steps) and resumed to 1000 from its newest
+    # checkpoint, against the uninterrupted run: bit for bit
+    with tempfile.TemporaryDirectory(prefix="lbm_tpu_torch_ck_") as d:
+        before = kd.D3Q19.launches
+        ref = t3.lid_cavity_3d(T=1000, device=dev, dtype=f32, **CAVITY3D)
+        t3.lid_cavity_3d(T=600, checkpoint_dir=d, checkpoint_every=250, device=dev,
+                         dtype=f32, **CAVITY3D)
+        files = sorted(p.name for p in Path(d).iterdir())
+        res = t3.lid_cavity_3d(T=1000, checkpoint_dir=d, checkpoint_every=250, device=dev,
+                               dtype=f32, **CAVITY3D)
+        torch.cuda.synchronize()
+        n_launch = kd.D3Q19.launches - before
+        same = bool(torch.equal(res.f, ref.f))
+    log(f"[5] lid_cavity_3d 8x64x128 float32 on the card: checkpoints {files} after 600 "
+        f"steps; resumed to 1000: bit-identical to the uninterrupted run: {same}; "
+        f"kernel-25 launches {n_launch} (1000 + 600 + 500)")
+    if not (same and files == ["ckpt-250.npz", "ckpt-500.npz"] and n_launch == 2100):
+        raise AssertionError("the resumed cavity differs from the uninterrupted one")
+    del ref, res
+    err = finish_clis(cli_run)
+    shutil.rmtree(ckdir)
+    if "resumed from" not in err:
+        raise AssertionError("the --resume CLI run did not resume from its checkpoint")
+    slice_launches = {name: counted[name].launches for name in ("d3q19", "d3q19_lanes")}
+    log(f"[5] kernel 25-26 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the D3Q19 path never launched")
+    return d3_wall
+
+
+def d3q19_times(dev, card: str, d3_wall: dict) -> dict:
+    """Phase 6 of kernels 25 and 26 at 32x256x1024 (8,388,608 cells) in
+    float32 and float64, in the periodic and the cavity wall sets, in turns
+    with the plain version and a device-to-device copy of the state (median
+    of 3): MLUPS, the fraction of copy at 152 B/cell (304 in float64), and
+    the bound from this run's inputs (the bytes over HBM3's rate against the
+    plain version's operations per cell, counted on the CPU at 4x8x16); then
+    the cavity3d gate's step under a CUDA graph against the host time per
+    step of its phase-5 run (``d3_wall``).  Returns the times, fractions,
+    bounds and operations, by (kernel, wall set, dtype)."""
+    import torch
+
+    from lbm_tpu_torch.kernels import d3q19 as kd
+
+    f32, f64 = torch.float32, torch.float64
+    nu3 = 0.05 * CAVITY3D["Z"] / 100.0  # lid_cavity_3d's viscosity, rounded as there
+    X3, Y3, Z3 = D3Q19_BIG
+    cells3 = X3 * Y3 * Z3
+    cpu = torch.device("cpu")
+    ops3 = {walls: ops_per_cell(
+        lambda S, kw=D3Q19_WALLS[walls]: kd.plain_d3q19_lanes_step(
+            S, 4, 8, 16, omega=D3Q19_OMEGA, **kw),
+        kd.pack_lanes(d3q19_state(4, 8, 16, f32, cpu, seed=3))) for walls in ("periodic", "cavity")}
+    d3_ms, d3_bound, d3_frac = {}, {}, {}
+    for dtype in (f32, f64):
+        f3 = d3q19_state(X3, Y3, Z3, dtype, dev, seed=625)
+        S3, dst3 = kd.pack_lanes(f3), torch.empty_like(f3)
+        calls = {}
+        for walls in ("periodic", "cavity"):
+            kw = dict(omega=D3Q19_OMEGA, **D3Q19_WALLS[walls])
+            k25 = kd.make_d3q19_fused_step(X3, Y3, Z3, dtype=dtype, **kw)
+            k26 = kd.make_d3q19_lanes_step(X3, Y3, Z3, dtype=dtype, **kw)
+            calls["d3q19", walls] = (lambda k=k25: k(f3), 30)
+            calls["d3q19_lanes", walls] = (lambda k=k26: k(S3), 30)
+            calls["plain", walls] = (lambda kw=kw: kd.plain_d3q19_step(f3, **kw), 3)
+        calls["copy", None] = (lambda: dst3.copy_(f3), 30)
+        runs = {c: [] for c in calls}
+        for order in (list(calls), list(calls)[::-1], list(calls)):
+            for c in order:
+                fn, n = calls[c]
+                runs[c].append(cuda_ms(fn, n))
+        med = {c: sorted(v)[1] for c, v in runs.items()}
+        b = 2 * 19 * f3.element_size()
+        copy_rate = 2 * f3.numel() * f3.element_size() / (med["copy", None] * 1e-3)
+        log(f"[6] {card}; copy of the {X3}x{Y3}x{Z3} {dtype} D3Q19 state "
+            f"({f3.numel() * f3.element_size() / 1e6:.1f} MB): {med['copy', None]!r} ms = "
+            f"{copy_rate / 1e9!r} GB/s (read + write)")
+        for (name, walls), t in med.items():
+            if name == "copy":
+                continue
+            d3_ms[name, walls, dtype] = t
+            rate = b * cells3 / (t * 1e-3)
+            d3_frac[name, walls, dtype] = rate / copy_rate
+            d3_bound[walls, dtype] = bound(b, ops3[walls], cells3,
+                                           str(dtype).removeprefix("torch."))
+            log(f"[6] {name} {walls} {X3}x{Y3}x{Z3} {dtype}: {t!r} ms/step (runs "
+                f"{runs[name, walls]}) = {cells3 / (t * 1e-3) / 1e6!r} MLUPS, "
+                f"{rate / 1e9!r} GB/s at {b} B/cell = {rate / copy_rate!r} of copy; bound "
+                f"{d3_bound[walls, dtype][0]!r} ms by {d3_bound[walls, dtype][1]} "
+                f"({ops3[walls]!r} flops/cell)")
+        del f3, S3, dst3, calls, runs
+        torch.cuda.empty_cache()
+    # the cavity3d gate's step (substeps 2) under a CUDA graph of 100 calls,
+    # against the host time per step of the phase-5 run
+    gate_step = kd.make_d3q19_fused_step(
+        CAVITY3D["X"], CAVITY3D["Y"], CAVITY3D["Z"], omega=1.0 / (3.0 * nu3 + 0.5),
+        x_walls=True, y_walls=True, z_walls=True, lid_u=0.05, substeps=2, dtype=f32)
+    t = graph_ms(gate_step, d3q19_state(8, 64, 128, f32, dev, seed=4)) / 2
+    d3_graph = (t, d3_wall["cavity3d"] / 20000 * 1e3)
+    log(f"[6] cavity3d gate step 8x64x128 float32 (CUDA graph of 100 calls of 2 steps): "
+        f"{t!r} device ms/step; host {d3_graph[1]!r} ms/step over the phase-5 run "
+        f"({d3_wall['cavity3d']!r} s): device busy {t / d3_graph[1]!r}")
+
+    return {"ms": d3_ms, "bound": d3_bound, "frac": d3_frac, "ops": ops3, "graph": d3_graph}
+
+
+def d3q19_entries(launches: dict, err25: dict, err26: dict, tm: dict) -> list:
+    """The kernels line's entries of kernels 25 and 26."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    d3_ms, d3_bound, d3_frac = tm["ms"], tm["bound"], tm["frac"]
+    entries = []
+    for name, replaces, errs in (("d3q19", "d3q19_pallas.py:101", err25),
+                                 ("d3q19_lanes", "d3q19_lanes_pallas.py:153", err26)):
+        entries.append({
+            "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19.cu",
+            "replaces": f"lbm_tpu/kernels/{replaces}", "launches": launches[name],
+            "max_abs_err": errs[f32], "max_abs_err_f64": errs[f64],
+            "ms": d3_ms[name, "periodic", f32], "plain_ms": d3_ms["plain", "periodic", f32],
+            "bound_ms": d3_bound["periodic", f32][0], "bound_by": d3_bound["periodic", f32][1],
+            "library_ms": None, "ms_f64": d3_ms[name, "periodic", f64],
+            "plain_ms_f64": d3_ms["plain", "periodic", f64],
+            "bound_ms_f64": d3_bound["periodic", f64][0],
+            "fraction_of_copy": d3_frac[name, "periodic", f32],
+            "fraction_of_copy_f64": d3_frac[name, "periodic", f64],
+            "ms_cavity": d3_ms[name, "cavity", f32], "ms_cavity_f64": d3_ms[name, "cavity", f64],
+            "plain_ms_cavity": d3_ms["plain", "cavity", f32],
+            "bound_ms_cavity": d3_bound["cavity", f32][0],
+            "shape": "32x256x1024", "flops_per_cell": tm["ops"]["periodic"],
+            **({"gate_graph_ms": tm["graph"][0], "gate_host_ms_per_step": tm["graph"][1]}
+               if name == "d3q19" else {})})
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -828,6 +1188,7 @@ def main() -> int:
     from lbm_tpu_torch.kernels import (_build, bgk, cavity, channel, collide_stream,
                                        csf_droplet, cylinder, les, mrtcg, power_law, rk,
                                        sediment, shan_chen, trt)
+    from lbm_tpu_torch.kernels import d3q19 as kd
     from lbm_tpu_torch.kernels import ibm as kibm
     from lbm_tpu_torch.kernels import moving_ibm as kmov
     from lbm_tpu_torch.models import kbc
@@ -861,7 +1222,8 @@ def main() -> int:
                "csf_droplet": k13, "shan_chen": k14, "cylinder": k15, "ibm_forcing": k16,
                "sediment": k17, "box": k18, "moving_forcing": k19, "moving_rot": k20,
                "moving_bodies": k21, "cavity": cavity.CAVITY,
-               **{name: thermal_kernel(name)[2] for name in THERMAL_NAMES}}
+               **{name: thermal_kernel(name)[2] for name in THERMAL_NAMES},
+               "d3q19": kd.D3Q19, "d3q19_lanes": kd.D3Q19_LANES}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -892,6 +1254,15 @@ def main() -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2]   {line.strip()}")
+    # kernels 25-26: the four instances of csrc/d3q19.cu (float and double,
+    # planes and lanes), their registers and spills
+    d3_report = lib.with_suffix(".log").read_text().split("== d3q19.cu\n", 1)[1]
+    d3_report = [line.strip() for line in d3_report.split("\n== ", 1)[0].splitlines()
+                 if "entry function" in line or "registers" in line or "spill" in line]
+    for line in d3_report:
+        log(f"[2] kernels 25-26: {line}")
+    if sum("entry function" in line for line in d3_report) != 4:
+        raise AssertionError("kernels 25-26: ptxas reports no four instances of d3q19.cu")
 
     # 3. the periodic kernels against their plain versions
     err1 = hold_periodic(
@@ -1220,6 +1591,9 @@ def main() -> int:
             err_th[name][dtype] = max(err_th[name].get(dtype, 0.0), e)
             del S
         torch.cuda.empty_cache()
+    # kernels 25 and 26 in the four wall sets and at phase 5's shapes, 10
+    # steps from noisy states
+    err25, err26 = d3q19_hold(dev)
 
     # 5. the main path
     for k in counted.values():
@@ -1985,6 +2359,10 @@ def main() -> int:
     if not all(slice_launches.values()):
         raise AssertionError("a kernel of the cavity / thermal path never launched")
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
+    # the D3Q19 slice of kernels 25-26: its counts start at 0 there and are
+    # read at its end
+    d3_wall = d3q19_path(dev, counted)
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -2350,6 +2728,8 @@ def main() -> int:
             f"ms/step; host {host!r} ms/step over the phase-5 run ({th_wall[label]!r} s): "
             f"device busy {t / host!r}")
 
+    d3_times = d3q19_times(dev, card, d3_wall)
+
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -2517,6 +2897,7 @@ def main() -> int:
             "plain_ms_f64": th_ms[name, f64][1], "bound_ms_f64": th_bound[name, f64][0],
             "shape": shape, "gate_graph_ms": th_graph[name][0],
             "gate_host_ms_per_step": th_graph[name][1]})
+    kernels += d3q19_entries(launches, err25, err26, d3_times)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

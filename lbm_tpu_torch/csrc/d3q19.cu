@@ -1,0 +1,232 @@
+// Kernels 25 and 26: one D3Q19 step, BGK with an optional Guo force along
+// z, the periodic push and the optional halfway walls of lbm_tpu's 3-D
+// scenes, on the 19-population state.  One template over the type and the
+// address order; kernel 25 reads the planes layout (19, X, Y, Z), kernel 26
+// the lanes layout (19, Y, X*Z) with lane = z*X + x:
+//   planes: offset ((k*X + x)*Y + y)*Z + z
+//   lanes:  offset (k*Y + y)*(X*Z) + z*X + x
+//
+// Kernel 25 replaces the TPU kernel lbm_tpu/kernels/d3q19_pallas.py:101
+// make_d3q19_fused_step (body make_d3q19_body :173, collision _collide_x
+// :50); kernel 26 replaces d3q19_lanes_pallas.py:153 make_d3q19_lanes_step
+// (make_d3q19_lanes_body :71).  On the TPU the lanes layout widened the
+// vector ops; here it only changes the address order, and kernel 26 gives
+// kernel 25's result bit for bit.  Their plain versions are
+// kernels/d3q19.py::plain_d3q19_step and plain_d3q19_lanes_step, which
+// follow _collide_x term for term; built with -fmad=false
+// (_build.UNIT_FLAGS), each operation rounds once, as theirs do.  One step:
+//   1. rho as a running sum, the moments per axis in k order, inv_rho =
+//      1/rho, u = m * inv_rho; with a force, u_z = (m_z + gz/2) * inv_rho;
+//   2. BGK, each k / opp(k) pair sharing its even part
+//      w rho (1 + 4.5 cu^2 - 1.5 u.u) and splitting its odd part w rho 3 cu,
+//      both times omega; with a force the Guo source of (0, 0, gz), paired
+//      the same way;
+//   3. the periodic push;
+//   4. the walls, each rule over the last, in lbm_tpu's order: the x end
+//      walls (x_walls: the reversed population arrives at the same cell,
+//      with no y or z displacement, even for a diagonal k), the y faces
+//      (y_walls; with the lid, the y = Y-1 face subtracts 6 w_k c_z,k u_lid
+//      from each reflected population with c_z != 0), then the z faces
+//      (z_walls).  At the lid's edges (y = Y-1, z = 0 or Z-1) the z rule
+//      overwrites the lid's corrected value with the plain reflection: z
+//      wins (d3q19_pallas.py:226-242).
+//
+// One thread per cell, the innermost memory index along the warp (z for
+// the planes, x for the lanes).  One writer per output entry: every wall
+// rule writes new[opp(k)] = coll[k] from its own cell, so the wall cell's
+// thread applies the rules in order and writes what stands at the end, and
+// a push into an entry that a rule writes is dropped (kernel 22's rule,
+// csrc/cavity.cu).  Offsets are 64-bit.
+//
+// Shapes: X, Y, Z >= 1 on a periodic axis and >= 2 on a walled one (the
+// wrapper checks; the entry points refuse a non-positive size).
+//
+// Bound: device-memory bytes, 152 B/cell per float32 step (19 planes in,
+// 19 out), 304 B in float64.  Left on the table: the ownership test of each
+// push, the wall branches in every thread, and the uncoalesced pushes of
+// the directions that move along the innermost axis.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int Q = 19;
+
+// The velocities of lbm_tpu/ops/d3q19.py C3, column k.
+__host__ __device__ constexpr int cx(int k) {
+  return (k == 1 || k == 7 || k == 9 || k == 11 || k == 13) ? 1
+         : (k == 2 || k == 8 || k == 10 || k == 12 || k == 14) ? -1 : 0;
+}
+__host__ __device__ constexpr int cy(int k) {
+  return (k == 3 || k == 7 || k == 10 || k == 15 || k == 17) ? 1
+         : (k == 4 || k == 8 || k == 9 || k == 16 || k == 18) ? -1 : 0;
+}
+__host__ __device__ constexpr int cz(int k) {
+  return (k == 5 || k == 11 || k == 14 || k == 15 || k == 18) ? 1
+         : (k == 6 || k == 12 || k == 13 || k == 16 || k == 17) ? -1 : 0;
+}
+
+// opp(k): the pairs are (1, 2), (3, 4), ..., (17, 18)
+__host__ __device__ constexpr int opp(int k) { return k == 0 ? 0 : (k & 1 ? k + 1 : k - 1); }
+
+constexpr int X_WALLS = 1, Y_WALLS = 2, Z_WALLS = 4, FORCE = 8, LID = 16;
+
+template <typename T>
+struct Params {
+  T omega, one_m_omega;  // BGK rate and 1 - omega
+  T gz, half_gz;         // the force along z and gz / 2
+  T pw0, pw1, pw2;       // pref * w for the rest, axis and diagonal weights
+  T os1, os2;            // pref * w * (3 gz), axis and diagonal: the Guo odd part
+  T lid;                 // 6 w_diag u_lid, the lid's correction
+};
+
+// Whether a wall rule writes plane k of (x, y, z).
+__device__ __forceinline__ bool owned(int k, int64_t x, int64_t y, int64_t z, int64_t X,
+                                      int64_t Y, int64_t Z, int flags) {
+  return ((flags & X_WALLS) && ((x == 0 && cx(k) > 0) || (x == X - 1 && cx(k) < 0))) ||
+         ((flags & Y_WALLS) && ((y == 0 && cy(k) > 0) || (y == Y - 1 && cy(k) < 0))) ||
+         ((flags & Z_WALLS) && ((z == 0 && cz(k) > 0) || (z == Z - 1 && cz(k) < 0)));
+}
+
+template <bool LANES>
+__device__ __forceinline__ int64_t lin(int64_t x, int64_t y, int64_t z, int64_t X, int64_t Y,
+                                       int64_t Z) {
+  return LANES ? (y * Z + z) * X + x : (x * Y + y) * Z + z;
+}
+
+__device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+template <typename T, bool LANES>
+__global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t X,
+                             int64_t Y, int64_t Z, Params<T> P, int flags) {
+  const int64_t n = X * Y * Z;
+  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= n) return;
+  int64_t x, y, z;
+  if (LANES) {
+    x = cell % X;
+    const int64_t t = cell / X;
+    z = t % Z;
+    y = t / Z;
+  } else {
+    z = cell % Z;
+    const int64_t t = cell / Z;
+    y = t % Y;
+    x = t / Y;
+  }
+  const bool force = flags & FORCE;
+
+  // 1. the moments (_collide_x :56-72)
+  T f[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) f[k] = fin[k * n + cell];
+  T rho = f[0];
+#pragma unroll
+  for (int k = 1; k < Q; ++k) rho = rho + f[k];
+  const T inv_rho = T(1) / rho;
+  T mx = f[1], my = f[3], mz = f[5];  // the first term of each axis has c = +1
+#pragma unroll
+  for (int k = 2; k < Q; ++k) {
+    if (cx(k)) mx = mx + f[k] * T(cx(k));
+    if (cy(k) && k != 3) my = my + f[k] * T(cy(k));
+    if (cz(k) && k != 5) mz = mz + f[k] * T(cz(k));
+  }
+  const T ux = mx * inv_rho;
+  const T uy = my * inv_rho;
+  const T uz = force ? (mz + P.half_gz) * inv_rho : mz * inv_rho;
+  const T uu15 = T(1.5) * (ux * ux + uy * uy + uz * uz);
+
+  // 2. BGK and the Guo source, pair by pair (_collide_x :74-98)
+  T coll[Q];
+  coll[0] = P.one_m_omega * f[0] + P.omega * (T(1.0 / 3.0) * rho * (T(1) - uu15));
+  if (force) coll[0] = coll[0] - P.pw0 * (T(3) * uz * P.gz);
+#pragma unroll
+  for (int k = 1; k < Q; k += 2) {
+    const int ko = k + 1;
+    const T cu = T(cx(k)) * ux + T(cy(k)) * uy + T(cz(k)) * uz;
+    const T wr = T(k < 7 ? 1.0 / 18.0 : 1.0 / 36.0) * rho;
+    const T even = P.omega * (wr * (T(1) + T(4.5) * cu * cu - uu15));
+    const T odd = P.omega * (wr * (T(3) * cu));
+    coll[k] = P.one_m_omega * f[k] + (even + odd);
+    coll[ko] = P.one_m_omega * f[ko] + (even - odd);
+    if (force) {
+      const T pw = k < 7 ? P.pw1 : P.pw2;
+      const T os = k < 7 ? P.os1 : P.os2;
+      const T cF = T(cz(k)) * P.gz;
+      const T even_s = pw * (T(9) * cu * cF - T(3) * uz * P.gz);
+      const T odd_s = cz(k) > 0 ? os : (cz(k) < 0 ? -os : T(0) * os);
+      coll[k] = coll[k] + (even_s + odd_s);
+      coll[ko] = coll[ko] + (even_s - odd_s);
+    }
+  }
+
+  // 3. the periodic push, less the entries a wall rule writes
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int64_t xd = wrap(x + cx(k), X), yd = wrap(y + cy(k), Y), zd = wrap(z + cz(k), Z);
+    if (!owned(k, xd, yd, zd, X, Y, Z, flags))
+      fout[k * n + lin<LANES>(xd, yd, zd, X, Y, Z)] = coll[k];
+  }
+
+  // 4. the wall rules of this cell's own entries, in lbm_tpu's order
+#pragma unroll
+  for (int q = 1; q < Q; ++q) {
+    if (!owned(q, x, y, z, X, Y, Z, flags)) continue;
+    const int k = opp(q);  // the outgoing population that q reverses
+    // every rule reflects coll[k]; the lid's alone corrects it, and a z
+    // rule after it writes the plain reflection again
+    T v = coll[k];
+    if ((flags & Y_WALLS) && (flags & LID) && y == Y - 1 && cy(q) < 0 && cz(k))
+      v = v - (cz(k) > 0 ? P.lid : -P.lid);
+    if ((flags & Z_WALLS) && ((z == 0 && cz(q) > 0) || (z == Z - 1 && cz(q) < 0))) v = coll[k];
+    fout[q * n + cell] = v;
+  }
+}
+
+template <typename T, bool LANES>
+int launch(const void* fin, void* fout, long long X, long long Y, long long Z, const double* d,
+           int flags, cudaStream_t stream) {
+  Params<T> P;
+  P.omega = T(d[0]); P.one_m_omega = T(d[1]); P.gz = T(d[2]); P.half_gz = T(d[3]);
+  P.pw0 = T(d[4]); P.pw1 = T(d[5]); P.pw2 = T(d[6]); P.os1 = T(d[7]); P.os2 = T(d[8]);
+  P.lid = T(d[9]);
+  const int64_t n = static_cast<int64_t>(X) * Y * Z;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  d3q19_kernel<T, LANES><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      static_cast<const T*>(fin), static_cast<T*>(fout), X, Y, Z, P, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool LANES>
+int dispatch(const void* fin, void* fout, long long X, long long Y, long long Z,
+             const double* consts, int flags, int is_f64, void* stream) {
+  if (X < 1 || Y < 1 || Z < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch<double, LANES>(fin, fout, X, Y, Z, consts, flags, s)
+                : launch<float, LANES>(fin, fout, X, Y, Z, consts, flags, s);
+}
+
+}  // namespace
+
+// One D3Q19 step f_in -> f_out (19 * X * Y * Z entries; distinct buffers) on
+// `stream`.  `consts` holds 10 scalars already rounded to the state's type,
+// in the order of kernels/d3q19.py::d3q19_constants; `flags` ORs 1 (x
+// walls), 2 (y walls), 4 (z walls), 8 (the force) and 16 (the lid).
+// Returns the cudaError_t of the launch (0 = accepted).
+extern "C" int lbm_d3q19(const void* fin, void* fout, long long X, long long Y, long long Z,
+                         const double* consts, int flags, int is_f64, void* stream) {
+  return dispatch<false>(fin, fout, X, Y, Z, consts, flags, is_f64, stream);
+}
+
+// The same step on the lanes layout (19, Y, X*Z), lane = z*X + x.
+extern "C" int lbm_d3q19_lanes(const void* fin, void* fout, long long X, long long Y,
+                               long long Z, const double* consts, int flags, int is_f64,
+                               void* stream) {
+  return dispatch<true>(fin, fout, X, Y, Z, consts, flags, is_f64, stream);
+}

@@ -16,6 +16,11 @@ boundary, and ``cylinder_carry_from_numpy`` cylinder_flow's (f, F_roi).
 bodies' rigid state: lbm_tpu's (1, 128) or (B, 128) rows
 (kernels/moving_ibm_pallas.py pack_state*) against the port's (B, 10)
 (kernels/moving_ibm.py, the same lane order without Mosaic's padding).
+The D3Q19 states carry to the port's (19, X, Y, Z) from lbm_tpu's three
+layouts: its jnp scenes' own (``d3q19_from_numpy``), its Pallas kernel's
+depth-as-planes (19 X, Y, Z) (``d3q19_from_planes``, the inverse of
+scenes/three_d.py ``_pack``) and its lanes (19, Y, X*Z), lane = z*X + x
+(``d3q19_from_lanes``, kernels/d3q19_lanes_pallas.py ``unpack_lanes``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.params import ColourParams
+from ..kernels.d3q19 import unpack_lanes
 from ..kernels.moving_ibm import STATE_LANES
 from ..models.mrt_csf_droplet import CSFColour
 from ..models.rk_cg import RKDropletColour
@@ -172,3 +178,31 @@ def from_reference_layout(f, device, dtype: torch.dtype) -> torch.Tensor:
     if arr.ndim != 3 or arr.shape[-1] != 9:
         raise ValueError(f"expected a reference {{R, C, 9}} state, got {arr.shape}")
     return state_from_numpy(np.moveaxis(arr, -1, 0), device=device, dtype=dtype)
+
+
+def d3q19_from_numpy(f, device, dtype: torch.dtype) -> torch.Tensor:
+    """A (19, X, Y, Z) float array as the port's D3Q19 state."""
+    arr = np.asarray(f)
+    if arr.ndim != 4 or arr.shape[0] != 19:
+        raise ValueError(f"expected a (19, X, Y, Z) D3Q19 state, got {arr.shape}")
+    return _planes(arr, device, dtype)
+
+
+def d3q19_from_planes(S, device, dtype: torch.dtype) -> torch.Tensor:
+    """lbm_tpu's depth-as-planes (19 X, Y, Z) state, plane 19 x + k, as the
+    port's (19, X, Y, Z)."""
+    arr = np.asarray(S)
+    if arr.ndim != 3 or arr.shape[0] % 19:
+        raise ValueError(f"expected a (19 X, Y, Z) planes state, got {arr.shape}")
+    X, Y, Z = arr.shape[0] // 19, arr.shape[1], arr.shape[2]
+    return _planes(np.ascontiguousarray(arr.reshape(X, 19, Y, Z).transpose(1, 0, 2, 3)),
+                   device, dtype)
+
+
+def d3q19_from_lanes(S, X: int, device, dtype: torch.dtype) -> torch.Tensor:
+    """lbm_tpu's lanes (19, Y, X*Z) state, lane = z*X + x, as the port's
+    (19, X, Y, Z)."""
+    arr = np.asarray(S)
+    if arr.ndim != 3 or arr.shape[0] != 19 or arr.shape[2] % X:
+        raise ValueError(f"expected a (19, Y, {X}*Z) lanes state, got {arr.shape}")
+    return unpack_lanes(_planes(arr, device, dtype), X, arr.shape[1], arr.shape[2] // X)

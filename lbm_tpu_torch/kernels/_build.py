@@ -32,13 +32,13 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of single sources, by file stem.  The MRT-CG kernels and kernels
-# 9-24 contract no multiply-add, so that they reproduce their plain PyTorch
+# 9-26 contract no multiply-add, so that they reproduce their plain PyTorch
 # versions, whose elementwise ops each round once.
 UNIT_FLAGS = {stem: ("-fmad=false",) for stem in (
     "mrtcg_reduced", "mrtcg_split", "mrtcg_full", "channel_variant",
     "collide_stream_trt", "collide_stream_power_law", "rk_cg", "csf_droplet",
     "shan_chen", "cylinder", "ibm_forcing", "sediment", "moving_ibm", "cavity",
-    "thermal")}
+    "thermal", "d3q19")}
 
 
 def find_nvcc() -> str:

@@ -1,12 +1,16 @@
 """Scene runner CLI of the PyTorch port (counterpart of lbm_tpu/run.py).
 
     python -m lbm_tpu_torch.run <scene> [--config cfg.toml] [--markers m.toml]
-           [--set key=value ...] [--out prefix] [--x64] [--device cuda|cpu] [--yes]
+           [--set key=value ...] [--out prefix] [--checkpoint-dir dir]
+           [--checkpoint-every N] [--resume] [--x64] [--device cuda|cpu] [--yes]
 
 `--config` passes a TOML to the scenes that take one (``config_path``),
 `--markers` an IBM marker TOML to cylinder_flow (``markers_path``).
 `--set` overrides any scene keyword (ints/floats/bools parsed as python
-literals).  `--x64` runs in float64, the reference's precision (else
+literals).  `--checkpoint-dir` checkpoints the scenes that take it every
+`--checkpoint-every` steps (the scene's default, 10000, otherwise) and
+resumes from the newest checkpoint there; `--resume` fails unless there is
+one.  `--x64` runs in float64, the reference's precision (else
 float32).  `--device` defaults to cuda; `--device cpu` runs the plain
 PyTorch versions.  Result tensors are written as .npy files under --out,
 recorded snapshots as {out}-snap-{name}.npy.  The closing log line names
@@ -15,9 +19,9 @@ surface_force, a falling body's centre and velocity, a thermal scene's
 Nusselt number; a trajectory or the DKT pair's (B, 2) centres go only to
 --out).  Registered: the channel, ULBM, multiphase (MRT-CG/CSF, RK, CSF
 droplet), Shan-Chen, obstacle (IBM cylinder, rectangle sedimentation, the
-falling cylinder, DKT pair and ellipse), ring-cavity and thermal
-(Rayleigh-Benard, heated cavity) scenes ported so far, under lbm_tpu's
-names.
+falling cylinder, DKT pair and ellipse), ring-cavity, thermal
+(Rayleigh-Benard, heated cavity) and D3Q19 (3-D Poiseuille, Taylor-Green,
+lid-driven cavity) scenes, 32 of lbm_tpu's 35, under lbm_tpu's names.
 """
 
 from __future__ import annotations
@@ -31,12 +35,14 @@ import sys
 import numpy as np
 import torch
 
+from .io.checkpoint import latest
 from .utils.observe import confirm, logger
 from .utils.xmath import default_device
 
 
 def _scenes() -> dict:
-    from .scenes import cavity, channel, multiphase, obstacles, shan_chen, thermal, ulbm
+    from .scenes import (cavity, channel, multiphase, obstacles, shan_chen, thermal,
+                         three_d, ulbm)
 
     return {
         "horizontal_poiseuille": channel.horizontal_poiseuille,
@@ -68,6 +74,9 @@ def _scenes() -> dict:
         "ring_cavity": cavity.ring_cavity,
         "rayleigh_benard": thermal.rayleigh_benard,
         "heated_cavity": thermal.heated_cavity,
+        "poiseuille_3d": three_d.poiseuille_3d,
+        "taylor_green_3d": three_d.taylor_green_3d,
+        "lid_cavity_3d": three_d.lid_cavity_3d,
     }
 
 
@@ -124,6 +133,15 @@ def main(argv=None) -> int:
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="override a scene keyword, e.g. --set T=1000")
     ap.add_argument("--out", default=None, help="output prefix for .npy dumps")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="enable periodic checkpoint/resume (scenes that support it): "
+                    "checkpoints land here, and a run started with a non-empty dir "
+                    "resumes from its newest checkpoint")
+    ap.add_argument("--checkpoint-every", type=int, default=None, metavar="N",
+                    help="checkpoint cadence in steps")
+    ap.add_argument("--resume", action="store_true",
+                    help="require an existing checkpoint in --checkpoint-dir (fail fast "
+                    "instead of silently starting fresh)")
     ap.add_argument("--x64", action="store_true",
                     help="float64 (the reference's precision); else float32")
     ap.add_argument("--device", default=None,
@@ -144,6 +162,16 @@ def main(argv=None) -> int:
         if "markers_path" not in params:
             ap.error(f"scene {args.scene} does not take --markers")
         kwargs["markers_path"] = args.markers
+    if args.checkpoint_dir:
+        if "checkpoint_dir" not in params:
+            ap.error(f"scene {args.scene} does not support --checkpoint-dir")
+        kwargs["checkpoint_dir"] = args.checkpoint_dir
+        if args.checkpoint_every is not None:
+            kwargs["checkpoint_every"] = args.checkpoint_every
+        if args.resume and latest(args.checkpoint_dir) is None:
+            ap.error(f"--resume: no checkpoint found in {args.checkpoint_dir}")
+    elif args.resume:
+        ap.error("--resume requires --checkpoint-dir")
     for item in args.set:
         key, _, val = item.partition("=")
         try:

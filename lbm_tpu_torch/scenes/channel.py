@@ -34,6 +34,7 @@ from ..models.power_law import apparent_tau
 from ..ops import d2q9
 from ..utils import observe
 from ..utils.xmath import default_device, default_float
+from ._common import drive_recorded
 
 TAU_DEFAULT = math.sqrt(3.0 / 16.0) + 0.5  # cites horizontal_poiseuille_test.cpp:55
 
@@ -122,28 +123,38 @@ def poiseuille_l2(u_x: np.ndarray, u_max: float) -> float:
 
 def converged_run(step, f: torch.Tensor, T: int,
                   watched: Callable[[torch.Tensor], torch.Tensor] | None,
-                  t_interval: int = 100, tolerance: float | None = 1e-12):
+                  t_interval: int = 100, tolerance: float | None = 1e-12,
+                  checkpoint_dir: str | None = None, checkpoint_every: int = 10000):
     """Run up to T steps: one step, then chunks of ``t_interval`` steps.
     Before each chunk the watcher takes ``mean = watched(f)`` and records
     ``(steps, |mean / old_mean - 1|)``; the run stops when that drops
     below ``tolerance`` (reference test/horizontal_poiseuille_test.cpp:
-    93-126; lbm_tpu/scenes/ulbm.py:73-91).  ``tolerance=None`` runs a flat
-    T steps with no watcher.  The NaN watchdog runs after every chunk.
-    Returns ``(f, steps, watch)``, ``watch`` None without a tolerance."""
+    93-126; lbm_tpu/scenes/ulbm.py:73-91).  The NaN watchdog runs after
+    every chunk.  ``tolerance=None`` runs a flat T steps with no watcher
+    through ``drive_recorded`` (its watchdog every CHUNK steps), with
+    checkpoint/resume in ``checkpoint_dir``; the watched run takes none,
+    since its stop depends on the watcher's history.  Returns
+    ``(f, steps, watch)``, ``watch`` None without a tolerance."""
+    if tolerance is None:
+        (f,), _ = drive_recorded(lambda c: (step(c[0]),), (f,), T, None, None,
+                                 checkpoint_dir=checkpoint_dir,
+                                 checkpoint_every=checkpoint_every)
+        return f, T, None
+    if checkpoint_dir is not None:
+        raise ValueError("checkpoint_dir takes the flat run only (tolerance=None)")
     meter = observe.StepMeter(f[0].numel(), f.device, total_steps=T)
     f = step(f)
     steps = 1
     meter.update(1)
     old_mean = 1.0
-    watch = None if tolerance is None else []
+    watch = []
     while steps < T:
-        if tolerance is not None:
-            mean = float(watched(f))
-            rel = abs(mean / old_mean - 1.0) if old_mean != 0.0 else math.inf
-            watch.append((steps, rel))
-            if rel < tolerance:
-                break
-            old_mean = mean
+        mean = float(watched(f))
+        rel = abs(mean / old_mean - 1.0) if old_mean != 0.0 else math.inf
+        watch.append((steps, rel))
+        if rel < tolerance:
+            break
+        old_mean = mean
         n = min(t_interval, T - steps)
         for _ in range(n):
             f = step(f)

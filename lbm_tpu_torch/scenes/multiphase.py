@@ -17,9 +17,9 @@ card) and ``csf_static_droplet`` the 20-plane CSF droplet step (kernel 13);
 RKDropletModel as plain tensor ops on either device.
 
 Not in the port: lbm_tpu's ``fused`` flag (the device decides), the
-checkpoint and snapshot-file options (they wait for io/checkpoint and
-io/snapshots, ROADMAP Queue 1 item 12, and raise if set), and the df64
-scene (native float64 replaces it, Queue 1 item 15).
+checkpoint and snapshot-file options (their drive loop, ``_run_reduced``,
+does not take them yet, ROADMAP Queue 1 item 12; they raise if set), and
+the df64 scene (native float64 replaces it, Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -115,8 +115,8 @@ def _not_ported(**options) -> None:
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(
-                f"{name} waits for io/checkpoint and io/snapshots (ROADMAP Queue 1 "
-                "item 12); the port does not take it yet")
+                f"{name} waits for the MRT-CG scenes' checkpoint and snapshot files "
+                "(ROADMAP Queue 1 item 12); the port does not take it yet")
 
 
 def _run_reduced(step, split, G: torch.Tensor, T: int, chunk: int, record=None,

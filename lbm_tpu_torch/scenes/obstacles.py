@@ -25,9 +25,10 @@ falls back to jnp forcing when no 8x128-aligned window fits
 and in both dtypes, which honours both keywords and has no fallback.  The
 same holds for the falling bodies, whose fused path in lbm_tpu is float32
 only and needs an 8x128-aligned margined window (obstacles.py:1000-1038).
-Their ``checkpoint_dir``/``checkpoint_every`` wait for io/checkpoint
-(ROADMAP item 12) and raise if set; lbm_tpu's ``mesh`` (GSPMD rows) waits
-for item 14.
+Their ``checkpoint_dir`` turns on checkpoint/resume of the carry (f and
+the rigid state) and the trajectory every ``checkpoint_every`` steps
+(``_common.drive_recorded``); lbm_tpu's ``mesh`` (GSPMD rows) waits for
+ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from ..ops import d2q9
 from ..ops.ibm import IBM
 from ..ops.moving_ibm import circle_markers, ellipse_markers
 from ..utils.xmath import default_device, default_float
-from ._common import drive_recorded, not_ported
+from ._common import drive_recorded
 from .ulbm import _drive
 
 
@@ -251,7 +252,8 @@ def rectangle_sedimentation(H: int = 256, W: int = 320, T: int = 500,
 
 
 def _drive_bodies(force, grid, f: torch.Tensor, state: torch.Tensor, T: int,
-                  record_every: int | None, lanes: int):
+                  record_every: int | None, lanes: int, checkpoint_dir: str | None,
+                  checkpoint_every: int):
     """drive_recorded of two calls per step, the body forcing and the box
     grid step, recording the state's first ``lanes`` lanes: (f, state,
     trajectory (T // k, B, lanes) on the host, or None)."""
@@ -260,7 +262,9 @@ def _drive_bodies(force, grid, f: torch.Tensor, state: torch.Tensor, T: int,
         return grid(carry[0], F, origin), st
 
     (f, state), trajectory = drive_recorded(step, (f, state), T, record_every,
-                                            lambda c: c[1][:, :lanes])
+                                            lambda c: c[1][:, :lanes],
+                                            checkpoint_dir=checkpoint_dir,
+                                            checkpoint_every=checkpoint_every)
     return f, state, trajectory
 
 
@@ -287,7 +291,7 @@ def falling_cylinder(H: int = 400, W: int = 256, T: int = 2000,
                      gravity: float = 5e-5, omega: float = 1.0 / 0.6,
                      m_max: int = 5, record_every: int | None = 10,
                      checkpoint_dir: str | None = None,
-                     checkpoint_every: int | None = None,
+                     checkpoint_every: int = 10000,
                      device=None, dtype: torch.dtype | None = None) -> FallingCylinderResult:
     """A rigid cylinder of density ``rho_s`` (fluid rho_0 = 1) sedimenting
     along +rows under ``gravity`` in a closed no-slip box, by moving-marker
@@ -307,7 +311,6 @@ def falling_cylinder(H: int = 400, W: int = 256, T: int = 2000,
     ``record_every`` returns the (T // k, 6) trajectory (centre, velocity,
     hydrodynamic force), recorded on the device and copied to the host once
     per chunk; None records nothing.  ``center`` defaults to (H/4, W/2)."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     _check_record(T, record_every)
     if center is None:
@@ -329,7 +332,8 @@ def falling_cylinder(H: int = 400, W: int = 256, T: int = 2000,
     grid = make_box_fused_step(H, W, omega, dtype=dtype)
     f, st, trajectory = _drive_bodies(
         force, grid, _rest(H, W, device, dtype),
-        kmov.pack_state(center, dtype=dtype, device=device), T, record_every, 6)
+        kmov.pack_state(center, dtype=dtype, device=device), T, record_every, 6,
+        checkpoint_dir, checkpoint_every)
     rho = d2q9.calc_rho(f)
     return FallingCylinderResult(f=f, rho=rho, u=d2q9.calc_u(f, rho), center=st[0, 0:2],
                                  velocity=st[0, 2:4], steps=T,
@@ -356,7 +360,7 @@ def falling_cylinders(H: int = 800, W: int = 128, T: int = 40000,
                       zeta: float = 2.0, eps: float = 50.0,
                       row_slack: int | None = None,
                       checkpoint_dir: str | None = None,
-                      checkpoint_every: int | None = None,
+                      checkpoint_every: int = 10000,
                       device=None, dtype: torch.dtype | None = None) -> FallingCylindersResult:
     """B rigid cylinders sedimenting in a closed channel: with the default
     two slightly offset bodies, the drafting-kissing-tumbling (DKT)
@@ -376,7 +380,6 @@ def falling_cylinders(H: int = 800, W: int = 128, T: int = 40000,
     lbm_tpu validates the defaults on hardware (scripts/validate_tpu.py
     dkt, with row_slack=160): drafting closes the 10-cell gap by t ~ 24k,
     the pair kisses, then tumbles apart laterally."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     _check_record(T, record_every)
     cen0 = np.asarray(centers, np.float64)
@@ -404,7 +407,8 @@ def falling_cylinders(H: int = 800, W: int = 128, T: int = 40000,
     grid = make_box_fused_step(H, W, omega, dtype=dtype)
     f, st, trajectory = _drive_bodies(
         force, grid, _rest(H, W, device, dtype),
-        kmov.pack_states(cen0, dtype=dtype, device=device), T, record_every, 6)
+        kmov.pack_states(cen0, dtype=dtype, device=device), T, record_every, 6,
+        checkpoint_dir, checkpoint_every)
     # the window-budget check of lbm_tpu's _finish (obstacles.py:625-642)
     if trajectory is not None and trajectory.numel():
         rows = trajectory[:, :, 0]
@@ -488,7 +492,7 @@ def falling_ellipse(H: int = 800, W: int = 256, T: int = 40000,
                     gravity: float = 2e-4, omega: float = 1.0 / 0.6,
                     m_max: int = 5, record_every: int | None = 10,
                     checkpoint_dir: str | None = None,
-                    checkpoint_every: int | None = None,
+                    checkpoint_every: int = 10000,
                     device=None, dtype: torch.dtype | None = None) -> FallingEllipseResult:
     """A sedimenting rigid ellipse with translation and rotation coupled: a
     body tilted by ``theta0`` (semi-major axis ``a`` from the fall axis,
@@ -503,7 +507,6 @@ def falling_ellipse(H: int = 800, W: int = 256, T: int = 40000,
     Cayley map (ops/moving_ibm.py cayley_rotate).  ``record_every`` returns
     the (T // k, 10) trajectory: centre, velocity, F_h, (cos, sin), angular
     velocity, torque.  ``center`` defaults to (H/4, W/2)."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     _check_record(T, record_every)
     if center is None:
@@ -516,7 +519,7 @@ def falling_ellipse(H: int = 800, W: int = 256, T: int = 40000,
     state = kmov.pack_state_rot(center, (float(np.cos(theta0)), float(np.sin(theta0))),
                                 dtype=dtype, device=device)
     f, st, trajectory = _drive_bodies(force, grid, _rest(H, W, device, dtype), state, T,
-                                      record_every, 10)
+                                      record_every, 10, checkpoint_dir, checkpoint_every)
     rho = d2q9.calc_rho(f)
     return FallingEllipseResult(f=f, rho=rho, u=d2q9.calc_u(f, rho), center=st[0, 0:2],
                                 velocity=st[0, 2:4], orientation=st[0, 6:8],

@@ -17,8 +17,8 @@ immiscible mixtures:
 Every scene steps through kernels/shan_chen.py: CUDA kernel 14 on the card
 (one launch per step, ``substeps`` <= 4 steps per call), its plain version
 on the CPU.  lbm_tpu's ``fused`` and ``interpret`` flags have no
-counterpart (the device decides); ``checkpoint_dir``/``checkpoint_every``
-wait for io/checkpoint (ROADMAP Queue 1 item 12) and raise if set.
+counterpart (the device decides).  ``checkpoint_dir`` turns on
+checkpoint/resume every ``checkpoint_every`` steps (``_common.drive_recorded``).
 
 One difference from lbm_tpu, recorded in ROADMAP Queue 3:
 sc_phase_separation draws its noise from numpy's
@@ -38,7 +38,6 @@ from ..kernels.shan_chen import make_sc_fused_step, resolve_eos
 from ..models import shan_chen as sc
 from ..ops import d2q9
 from ..utils.xmath import default_device, default_float
-from ._common import not_ported
 from .ulbm import _drive
 
 
@@ -57,7 +56,8 @@ class SCResult:
 
 
 def _run(rho0: torch.Tensor, T: int, omega: float, G: float | None, substeps: int,
-         eos: str = "sc", T_eos: float | None = None) -> torch.Tensor:
+         eos: str = "sc", T_eos: float | None = None, checkpoint_dir: str | None = None,
+         checkpoint_every: int = 10000) -> torch.Tensor:
     """The equilibrium at rest of ``rho0``, stepped T times."""
     if T % substeps:
         raise ValueError("T must be divisible by substeps")
@@ -65,24 +65,25 @@ def _run(rho0: torch.Tensor, T: int, omega: float, G: float | None, substeps: in
     f = d2q9.equilibrium(torch.zeros((2, H, W), dtype=rho0.dtype, device=rho0.device), rho0)
     step = make_sc_fused_step(H, W, omega=omega, G=G, eos=eos, T=T_eos, substeps=substeps,
                               dtype=rho0.dtype)
-    return _drive(step, f.contiguous(), T // substeps, substeps, watchdog=True)
+    return _drive(step, f.contiguous(), T // substeps, substeps, watchdog=True,
+                  checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
 
 
 def sc_phase_separation(H: int = 128, W: int = 128, T: int = 4000, G: float = -5.0,
                         tau: float = 1.0, rho_mean: float = 0.7, noise: float = 0.02,
                         seed: int = 0, substeps: int = 1,
                         checkpoint_dir: str | None = None,
-                        checkpoint_every: int | None = None, device=None,
+                        checkpoint_every: int = 10000, device=None,
                         dtype: torch.dtype | None = None) -> SCResult:
     """Spinodal decomposition: uniform rho near the critical density plus
     numpy-seeded noise separates into liquid and vapour for G < -4 and
     stays mixed for G > -4."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     rng = np.random.default_rng(seed)
     rho0 = torch.as_tensor(rho_mean + noise * rng.standard_normal((H, W)), dtype=dtype,
                            device=device)
-    f = _run(rho0, T, 1.0 / tau, G, substeps)
+    f = _run(rho0, T, 1.0 / tau, G, substeps, checkpoint_dir=checkpoint_dir,
+             checkpoint_every=checkpoint_every)
     rho, u, _ = sc.macroscopics(f, G)
     return SCResult(f=f, rho=rho, u=u, steps=T, rho_l=rho.max().item(), rho_v=rho.min().item())
 
@@ -96,15 +97,15 @@ def _tanh_disk(H, W, radius, rho_l, rho_v, width, dtype, device=None):
 def sc_static_droplet(H: int = 128, W: int = 128, T: int = 10000, radius: float = 25.0,
                       G: float = -5.0, tau: float = 1.0, substeps: int = 1,
                       checkpoint_dir: str | None = None,
-                      checkpoint_every: int | None = None, device=None,
+                      checkpoint_every: int = 10000, device=None,
                       dtype: torch.dtype | None = None) -> SCResult:
     """Liquid droplet in vapour: relax a tanh disk and measure the bulk EOS
     pressure jump dP = P(centre) - P(corner); the Laplace law with the
     emergent sigma compares two radii (dP ratio = inverse radius ratio)."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     rho0 = _tanh_disk(H, W, radius, 1.93, 0.16, 3.0, dtype, device)
-    f = _run(rho0, T, 1.0 / tau, G, substeps)
+    f = _run(rho0, T, 1.0 / tau, G, substeps, checkpoint_dir=checkpoint_dir,
+             checkpoint_every=checkpoint_every)
     rho, u, _ = sc.macroscopics(f, G)
     p_c = sc.pressure(rho[H // 2, W // 2], G)
     p_far = sc.pressure(rho[0, 0], G)
@@ -123,14 +124,14 @@ def _slab(H: int, W: int, rho_v: float, rho_l: float, dtype, device) -> torch.Te
 def sc_flat_interface(H: int = 256, W: int = 128, T: int = 20000, G: float = -5.0,
                       tau: float = 1.0, substeps: int = 1,
                       checkpoint_dir: str | None = None,
-                      checkpoint_every: int | None = None, device=None,
+                      checkpoint_every: int = 10000, device=None,
                       dtype: torch.dtype | None = None) -> SCResult:
     """1-D liquid slab (rows [H/4, 3H/4)) between vapour: coexistence
     densities and mechanical equilibrium (equal bulk EOS pressures across
     the flat interface, a stationary profile)."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
-    f = _run(_slab(H, W, 0.16, 1.93, dtype, device), T, 1.0 / tau, G, substeps)
+    f = _run(_slab(H, W, 0.16, 1.93, dtype, device), T, 1.0 / tau, G, substeps,
+             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     rho, u, _ = sc.macroscopics(f, G)
     rho_l = rho[H // 2].mean().item()
     rho_v = rho[0].mean().item()
@@ -143,7 +144,7 @@ def sc_flat_interface(H: int = 256, W: int = 128, T: int = 20000, G: float = -5.
 def sc_cs_interface(H: int = 128, W: int = 128, T: int = 20000, T_red: float = 0.7,
                     tau: float = 1.0, substeps: int = 1,
                     checkpoint_dir: str | None = None,
-                    checkpoint_every: int | None = None, device=None,
+                    checkpoint_every: int = 10000, device=None,
                     dtype: torch.dtype | None = None) -> SCResult:
     """Carnahan-Starling liquid slab at the reduced temperature
     ``T_red = T/T_c``: a high density ratio (lbm_tpu measured 65 at 0.7 in
@@ -151,12 +152,11 @@ def sc_cs_interface(H: int = 128, W: int = 128, T: int = 20000, T_red: float = 0
     branch under-predicts (the scheme's known thermodynamic inconsistency).
     p_jump gates mechanical equilibrium on the CS EOS pressures, over the
     liquid's ideal-gas scale."""
-    not_ported(checkpoint_dir, checkpoint_every)
     device, dtype = default_device(device), default_float(dtype)
     T_eos = T_red * sc.CS_TC
     rv, rl = sc.maxwell_coexistence(T_eos)
     f = _run(_slab(H, W, rv, rl, dtype, device), T, 1.0 / tau, None, substeps, eos="cs",
-             T_eos=T_eos)
+             T_eos=T_eos, checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     psi_fn, G, _ = resolve_eos("cs", None, T_eos, None)
     rho, u, _ = sc.macroscopics(f, G, psi_fn)
     rho_l = rho[H // 2].mean().item()

@@ -12,9 +12,8 @@ Each step is one launch on the card, kernel 23 (Rayleigh-Benard) or 24
 (heated cavity) of kernels/thermal.py, on the concatenated state
 S = [f, g], and its plain version on the CPU.  lbm_tpu's ``fused`` and
 ``interpret`` flags have no counterpart (the device decides); its
-``checkpoint_dir``/``checkpoint_every`` wait for io/checkpoint (ROADMAP
-Queue 1 item 12) and its ``mesh_shape`` for parallel/ (item 14): each
-raises if set.
+``mesh_shape`` waits for parallel/ (ROADMAP Queue 1 item 14) and raises if
+set.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ from ..kernels import thermal as kth
 from ..kernels.thermal import d2q5_stream  # noqa: F401  (lbm_tpu's scene API)
 from ..ops import d2q9
 from ..utils.xmath import default_device, default_float
-from ._common import drive_recorded, no_mesh, not_ported
+from ._common import drive_recorded, no_mesh
 from .channel import SnapshotRecorder
 
 CS2 = 1.0 / 3.0
@@ -121,7 +120,8 @@ def _initial_state(theta0: np.ndarray, scalar_lattice: str, device,
 
 
 def _run(step, S: torch.Tensor, T: int, g_beta: float, nusselt, record_every: int,
-         substeps: int, snapshot_every: int, snapshot_prefix: str | None):
+         substeps: int, snapshot_every: int, snapshot_prefix: str | None,
+         checkpoint_dir: str | None = None, checkpoint_every: int = 10000):
     """Drive S through ``step`` with lbm_tpu's checks, series and snapshots;
     ``nusselt(u, theta)`` is the scene's Nusselt number.  Returns a
     ThermalResult."""
@@ -147,7 +147,8 @@ def _run(step, S: torch.Tensor, T: int, g_beta: float, nusselt, record_every: in
         return torch.stack([nusselt(u, th), torch.sqrt(torch.mean(u * u)), th.abs().max()])
 
     (S,), series = drive_recorded(lambda c: (step(c[0]),), (S,), T, record_every or None,
-                                  record, recorder, substeps)
+                                  record, recorder, substeps, checkpoint_dir=checkpoint_dir,
+                                  checkpoint_every=checkpoint_every)
     f, g = S[:9], S[9:]
     rho, theta, u, _ = kth.buoyant_velocity(f, g, g_beta)
     return ThermalResult(f=f, g=g, rho=rho, u=u, theta=theta,
@@ -162,7 +163,7 @@ def rayleigh_benard(H: int = 64, W: int = 128, T: int = 20000,
                     snapshot_every: int = 0,
                     snapshot_prefix: str | None = None,
                     checkpoint_dir: str | None = None,
-                    checkpoint_every: int | None = None,
+                    checkpoint_every: int = 10000,
                     mesh_shape: tuple[int, int] | None = None,
                     scalar_lattice: str = "d2q9",
                     device=None, dtype: torch.dtype | None = None) -> ThermalResult:
@@ -181,8 +182,10 @@ def rayleigh_benard(H: int = 64, W: int = 128, T: int = 20000,
     included (in ``snapshots``, or streamed to ``snapshot_prefix``); the two
     are exclusive.  ``substeps`` steps run per call of the step (one
     kernel-23 launch each on the card); T, record_every and snapshot_every
-    must be divisible by it."""
-    not_ported(checkpoint_dir, checkpoint_every)
+    must be divisible by it.  ``checkpoint_dir`` turns on checkpoint/resume
+    of S and the series every ``checkpoint_every`` steps
+    (``_common.drive_recorded``); it excludes ``snapshot_every``, as in
+    lbm_tpu, but takes ``record_every``, where lbm_tpu refuses it."""
     no_mesh(mesh_shape)
     device, dtype = default_device(device), default_float(dtype)
     kappa = CS2 * (tau_g - 0.5)
@@ -199,7 +202,8 @@ def rayleigh_benard(H: int = 64, W: int = 128, T: int = 20000,
               + amp * np.sin(np.pi * x)[:, None] * np.cos(2.0 * np.pi * y)[None, :])
     S = _initial_state(theta0, scalar_lattice, device, dtype)
     return _run(step, S, T, g_beta, lambda u, th: nusselt_number(u[0], th, kappa, H),
-                record_every, substeps, snapshot_every, snapshot_prefix)
+                record_every, substeps, snapshot_every, snapshot_prefix, checkpoint_dir,
+                checkpoint_every)
 
 
 def heated_cavity(H: int = 128, W: int = 128, T: int = 40000,

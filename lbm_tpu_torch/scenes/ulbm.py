@@ -10,9 +10,8 @@
 Each scene steps through one step function: the CUDA kernel when the state
 lies on a CUDA device, its plain PyTorch version on the CPU.  lbm_tpu's
 ``fused`` and ``interpret`` flags have no counterpart (the device decides),
-nor have ``checkpoint_dir``/``checkpoint_every`` (they wait for
-io/checkpoint, ROADMAP Queue 1 item 12) and ``ulbm_poiseuille_df64``
-(native float64 replaces it, Queue 1 item 15).
+nor has ``ulbm_poiseuille_df64`` (native float64 replaces it, ROADMAP Queue 1
+item 15).
 """
 
 from __future__ import annotations
@@ -27,11 +26,9 @@ from ..kernels.collide_stream import make_kbc_fused_step
 from ..kernels.les import make_les_fused_step
 from ..models import kbc
 from ..ops import d2q9
-from ..utils import observe
 from ..utils.xmath import default_device, default_float
+from ._common import drive_recorded
 from .channel import converged_run, poiseuille_l2
-
-CHUNK = 1000  # steps between progress logs (and NaN checks where taken)
 
 
 @dataclass
@@ -59,21 +56,14 @@ def _mean_ux(f: torch.Tensor) -> torch.Tensor:
     return (d2q9.calc_momentum(f)[0] / d2q9.calc_rho(f)).mean()
 
 
-def _drive(step, f: torch.Tensor, calls: int, substeps: int = 1,
-           watchdog: bool = False) -> torch.Tensor:
-    """``calls`` calls of ``step`` (``substeps`` steps each), logging progress
-    every ~CHUNK steps and, with ``watchdog``, checking for NaNs there."""
-    meter = observe.StepMeter(f[0].numel(), f.device, total_steps=calls * substeps)
-    per_chunk = max(1, CHUNK // substeps)
-    done = 0
-    while done < calls:
-        n = min(per_chunk, calls - done)
-        for _ in range(n):
-            f = step(f)
-        done += n
-        meter.update(n * substeps)
-        if watchdog:
-            observe.check_finite(f, done * substeps)
+def _drive(step, f: torch.Tensor, calls: int, substeps: int = 1, watchdog: bool = False,
+           checkpoint_dir: str | None = None, checkpoint_every: int = 10000) -> torch.Tensor:
+    """``calls`` calls of ``step`` (``substeps`` steps each) through
+    ``drive_recorded``: progress every CHUNK steps, with ``watchdog`` the
+    NaN check there, and checkpoint/resume in ``checkpoint_dir``."""
+    (f,), _ = drive_recorded(lambda c: (step(c[0]),), (f,), calls * substeps, None, None,
+                             substeps=substeps, watchdog=watchdog,
+                             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     return f
 
 
@@ -81,6 +71,8 @@ def ulbm_poiseuille(H: int = 128, W: int = 128, T: int = 300000,
                     nu: float = 1e-4, u_max: float = 0.05,
                     tolerance: float | None = None,
                     t_interval: int = 100,
+                    checkpoint_dir: str | None = None,
+                    checkpoint_every: int = 10000,
                     device=None, dtype: torch.dtype | None = None) -> ULBMResult:
     """KBC channel with pressure-periodic inlet/outlet and no-slip side
     walls.  Parameters cite reference test/ulbm_poiseuille.cpp:64-85.
@@ -89,8 +81,10 @@ def ulbm_poiseuille(H: int = 128, W: int = 128, T: int = 300000,
     relative-mean-u_x convergence watcher of its single-phase siblings
     (horizontal_poiseuille_test.cpp:95,112-120) every ``t_interval`` steps,
     recorded in ``watch``.  ``l2`` is the reference's row-averaged relative
-    L2 of u_x against the analytic parabola.  ``device`` defaults to the
-    first CUDA device when there is one; ``dtype`` to float64."""
+    L2 of u_x against the analytic parabola.  ``checkpoint_dir`` turns on
+    checkpoint/resume of the flat run (``converged_run``); with a
+    ``tolerance`` it raises.  ``device`` defaults to the first CUDA device
+    when there is one; ``dtype`` to float64."""
     device = default_device(device)
     dtype = default_float(dtype)
     omega = 1.0 / (0.5 + 3.0 * nu)
@@ -104,7 +98,8 @@ def ulbm_poiseuille(H: int = 128, W: int = 128, T: int = 300000,
     # rebuilds f from those moments, so the equilibrium there is the same start
     f = model.equilibrium(torch.ones((H, W), dtype=dtype, device=device),
                           torch.zeros((2, H, W), dtype=dtype, device=device))
-    f, steps, watch = converged_run(step, f, T, _mean_ux, t_interval, tolerance)
+    f, steps, watch = converged_run(step, f, T, _mean_ux, t_interval, tolerance,
+                                    checkpoint_dir, checkpoint_every)
     m0, u = model.macroscopics(f)
     return ULBMResult(f=f, m0=m0, m1=u, steps=steps, l2=_ulbm_l2(u[0], u_max),
                       watch=watch)

@@ -37,14 +37,16 @@ def confirm(auto_yes: bool = True, prompt: str = "Do you want to continue (y/n)?
 
 
 class StepMeter:
-    """Steps and MLUPS across a chunked run on ``device``."""
+    """Steps and MLUPS across a chunked run on ``device``.  ``steps`` counts
+    from ``start_steps`` (the step a resumed run starts at); the rate counts
+    the steps run here."""
 
     def __init__(self, cells: int, device, total_steps: int | None = None,
-                 log_every_s: float = 10.0):
+                 log_every_s: float = 10.0, start_steps: int = 0):
         self.cells = cells
         self.total = total_steps
         self.log_every_s = log_every_s
-        self.steps = 0
+        self.steps = self.start = start_steps
         self._cuda = torch.device(device).type == "cuda"
         if self._cuda:
             self._start = torch.cuda.Event(enable_timing=True)
@@ -71,7 +73,7 @@ class StepMeter:
             logger.info(self.summary())
 
     def mlups(self) -> float:
-        return self.cells * self.steps / max(self.seconds(), 1e-9) / 1e6
+        return self.cells * (self.steps - self.start) / max(self.seconds(), 1e-9) / 1e6
 
     def summary(self) -> str:
         frac = f"/{self.total}" if self.total else ""

@@ -1158,3 +1158,113 @@ def test_cavity_and_thermal_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs
     if kwargs.get("snapshot_every"):
         for name, v in want.snapshots.items():
             assert np.abs(got.snapshots[name] - v).max() <= 1e-12
+
+
+# kernels 25 and 26: the four wall sets of the D3Q19 step
+D3Q19_WALLS = {
+    "periodic": dict(),
+    "channel": dict(x_walls=True, force_z=1e-5),
+    "cavity": dict(x_walls=True, y_walls=True, z_walls=True, lid_u=0.05),
+    "cavity_no_x": dict(y_walls=True, z_walls=True, lid_u=0.05),
+}
+
+
+def _d3q19_state(X, Y, Z, dtype, device, seed):
+    """An equilibrium at a seeded flow (|u| <= 0.05, rho within 1%), every
+    population times 1 + U(-0.03, 0.03)."""
+    from lbm_tpu_torch.ops import d3q19
+
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.uniform(-0.05, 0.05, (3, X, Y, Z)), dtype=dtype, device=device)
+    rho = torch.as_tensor(1.0 + rng.uniform(-0.01, 0.01, (X, Y, Z)), dtype=dtype,
+                          device=device)
+    noise = torch.as_tensor(rng.uniform(0.97, 1.03, (19, X, Y, Z)), dtype=dtype,
+                            device=device)
+    return (d3q19.equilibrium(u, rho) * noise).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walls", sorted(D3Q19_WALLS))
+@pytest.mark.parametrize("dtype,shape", [(torch.float64, (5, 37, 41)),
+                                         (torch.float64, (3, 4, 130)),
+                                         (torch.float32, (8, 64, 128))])
+def test_d3q19_kernels_match_plain(cuda, walls, dtype, shape):
+    """Kernel 25, 10 steps (5 per call) from a noisy state, against
+    plain_d3q19_step (bit-identical, -fmad=false), twice; kernel 26 on the
+    lanes layout, unpacked, equal to kernel 25."""
+    from lbm_tpu_torch.kernels import d3q19
+
+    X, Y, Z = shape
+    kw = dict(omega=1.0 / 0.7, **D3Q19_WALLS[walls])
+    f = _d3q19_state(X, Y, Z, dtype, cuda, seed=X * Y + Z)
+    step = d3q19.make_d3q19_fused_step(X, Y, Z, substeps=5, dtype=dtype, **kw)
+    lanes = d3q19.make_d3q19_lanes_step(X, Y, Z, substeps=5, dtype=dtype, **kw)
+    before, before26 = d3q19.D3Q19.launches, d3q19.D3Q19_LANES.launches
+    got, again = step(step(f)), step(step(f))
+    got26 = d3q19.unpack_lanes(lanes(lanes(d3q19.pack_lanes(f))), X, Y, Z)
+    torch.cuda.synchronize()
+    assert d3q19.D3Q19.launches - before == 20
+    assert d3q19.D3Q19_LANES.launches - before26 == 10
+    want = f
+    for _ in range(10):
+        want = d3q19.plain_d3q19_step(want, **kw)
+    assert torch.equal(got, again) and torch.equal(got26, got)
+    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_25_26_reject_what_they_do_not_take(cuda):
+    from lbm_tpu_torch.kernels import d3q19
+
+    f = torch.ones((19, 2, 3, 4), dtype=torch.float64, device=cuda)
+    consts = d3q19.d3q19_constants(1.2, 0.0, 0.0, torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        d3q19.launch_d3q19(d3q19.D3Q19, f.cpu(), 2, 3, 4, 1, consts, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        d3q19.launch_d3q19(d3q19.D3Q19, f[:, :, :, ::2], 2, 3, 2, 1, consts, 0)
+    with pytest.raises(ValueError, match="19 x 2 x 3 x 5"):
+        d3q19.launch_d3q19(d3q19.D3Q19, f, 2, 3, 5, 1, consts, 0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        d3q19.launch_d3q19(d3q19.D3Q19, f.half(), 2, 3, 4, 1, consts, 0)
+    step = d3q19.make_d3q19_fused_step(2, 3, 4, omega=1.2, dtype=torch.float64)
+    with pytest.raises(ValueError, match="step built for"):
+        step(f.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,kwargs", [
+    ("poiseuille_3d", dict(X=12, Y=4, Z=6, T=40, force=1e-5)),
+    ("taylor_green_3d", dict(N=12, T=40, substeps=4)),
+    ("lid_cavity_3d", dict(X=4, Y=16, Z=20, T=40, x_walls=True)),
+    ("lid_cavity_3d", dict(X=3, Y=16, Z=20, T=40, x_walls=False, substeps=2)),
+])
+def test_3d_scenes_on_the_card_match_the_cpu(cuda, scene, kwargs):
+    """The three 3-D scenes in float64 through kernel 25 (one launch per
+    step) against the same scenes on the CPU: 1e-12."""
+    from lbm_tpu_torch.kernels import d3q19
+    from lbm_tpu_torch.scenes import three_d
+
+    fn = getattr(three_d, scene)
+    before = d3q19.D3Q19.launches
+    got = fn(device=cuda, dtype=torch.float64, **kwargs)
+    assert d3q19.D3Q19.launches - before == kwargs["T"]
+    want = fn(device="cpu", dtype=torch.float64, **kwargs)
+    for name in ("f", "rho", "u"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.is_cuda and (g.cpu() - w).abs().max().item() <= 1e-12
+    if want.l2 is not None:
+        assert abs(got.l2 - want.l2) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """lid_cavity_3d on the card interrupted at step 30 and resumed to 50
+    from its checkpoint: bit-identical to the uninterrupted run."""
+    from lbm_tpu_torch.scenes import three_d
+
+    kw = dict(X=4, Y=16, Z=20, substeps=2, device=cuda, dtype=torch.float64)
+    ref = three_d.lid_cavity_3d(T=50, **kw)
+    d = str(tmp_path / "ck")
+    three_d.lid_cavity_3d(T=30, checkpoint_dir=d, checkpoint_every=10, **kw)
+    res = three_d.lid_cavity_3d(T=50, checkpoint_dir=d, checkpoint_every=10, **kw)
+    assert res.f.is_cuda and torch.equal(res.f, ref.f)

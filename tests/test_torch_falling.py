@@ -110,8 +110,8 @@ def test_dkt_window_budget_warns_as_lbm_tpu_does():
 
 
 def test_scenes_reject_what_they_do_not_take():
-    with pytest.raises(NotImplementedError, match="io/checkpoint"):
-        obstacles.falling_cylinder(checkpoint_dir="ckpt", device="cpu")
+    with pytest.raises(ValueError, match="checkpoint_every must be >= 1"):
+        obstacles.falling_cylinder(checkpoint_dir="ckpt", checkpoint_every=0, device="cpu")
     with pytest.raises(ValueError, match="outside"):
         obstacles.falling_ellipse(H=64, W=64, center=(5.0, 30.0), device="cpu")
     with pytest.raises(ValueError, match="multiple of record_every"):

@@ -213,8 +213,9 @@ def test_phase_separation_scene_takes_numpy_noise():
 
 
 def test_scenes_reject_the_unported_options():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tscn.sc_flat_interface(H=8, W=8, T=1, device="cpu", checkpoint_dir="x")
+    with pytest.raises(ValueError, match="checkpoint_every must be >= 1"):
+        tscn.sc_flat_interface(H=8, W=8, T=1, device="cpu", checkpoint_dir="x",
+                               checkpoint_every=0)
 
 
 def test_cli_runs_sc_flat_interface(tmp_path):

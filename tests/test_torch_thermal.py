@@ -190,8 +190,8 @@ def test_scenes_reject_what_they_do_not_take(tmp_path):
             scene(substeps=9, **dict(kw, T=9))
     with pytest.raises(NotImplementedError, match="item 14"):
         thermal.rayleigh_benard(mesh_shape=(2, 1), **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        thermal.rayleigh_benard(checkpoint_dir=str(tmp_path), **kw)
+    with pytest.raises(ValueError, match="snapshot_every and checkpoint_dir are mutually"):
+        thermal.rayleigh_benard(snapshot_every=4, checkpoint_dir=str(tmp_path), **kw)
     with pytest.raises(ValueError, match="R >= 4"):
         kth.make_thermal_fused_step(3, 8, **PHYS)
 
