@@ -77,7 +77,15 @@ with a nonzero exit code):
      float32, 5x37x41 float64 and 8x64x128 in both types, and at every
      other shape, type and wall set that phase 5 gives them (d3q19_hold),
      10 steps from noisy states, kernel 25 twice bit-identical and kernel
-     26, unpacked, equal to it;
+     26, unpacked, equal to it; kernels 27-30 (the row-sharded
+     halo-input steps of kernels/sharded.py) on n shards of the card
+     (``SHARDED_HOLDS``: 27 with BGK at 4096x2048 float32 and 64x128
+     float64, n = 1, 2, 8, s = 1, 8, and with KBC, LES, TRT and the three
+     power-law branches at 1024x512 float32 and 64x128 float64; 28 at
+     4096x2048 and 64x128; 29 in both modes at 4096x2048 and the RT
+     256x128, s up to 5 / 4; 30 at 4096x2048 and 1024x256), 10 steps (the
+     nearest multiple of s), each against its single-device kernel (0.0
+     expected), the plain sharded version and itself run twice;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -149,7 +157,15 @@ with a nonzero exit code):
      analytic decay, l2 < 1e-2), the three scenes in float64 on the card
      against the CPU at 1e-12, a checkpointed cavity interrupted and
      resumed on the card (bit-identical), and the three CLIs with a
-     --checkpoint-dir run and its --resume;
+     --checkpoint-dir run and its --resume; the row-sharded slice
+     (``SHARDED_PATH``, through parallel.mesh and kernels/sharded.py on 8
+     shards of the card): the periodic BGK at 4096x2048 with substeps
+     "auto", kernel 27's other collisions at 1024x512, rayleigh_benard's
+     64x128, the MRT-CG and CSF Rayleigh-Taylor 256x128 and the RK RT
+     1024x256, each bit for bit its single-device kernel; the plain
+     sharded channel against horizontal_poiseuille at 24x24 float64; the
+     dry run of parallel/dryrun.py; one shard per card when there are
+     several (else logged as not run);
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
@@ -164,7 +180,10 @@ with a nonzero exit code):
      the state, and the cavity3d gate's step under a CUDA graph; each
      kernel's bound (bytes over HBM3's rate against operations, counted on
      its plain version, over the fp32 peak; exp, log, expm1, clamp, where,
-     maximum and minimum count one operation per element).
+     maximum and minimum count one operation per element); kernels 27-30
+     at n = 1 and 8 shards of the card and s = 1 and each family's deepest
+     cadence, against the single-device kernels, the exchange's copies
+     alone and a copy of the state, under CUDA graphs (``sharded_times``).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -1170,6 +1189,469 @@ def d3q19_entries(launches: dict, err25: dict, err26: dict, tm: dict) -> list:
     return entries
 
 
+# the row-sharded slice (kernels 27-30): kernel 27's collisions, each a
+# (collide function, single-device step) maker by dtype, and the families'
+# cadences (substeps per exchange) of the holds and the times
+def k27_collisions():
+    """name -> (collide_fn(dtype), single-device step(R, C, dtype, s), state
+    maker(R, C, dtype, device, seed)): kernel 27's five collisions, the power
+    law in its three branches (phase 3's), from noisy states."""
+    from lbm_tpu_torch.kernels import bgk, collide_stream, les, power_law, trt
+    from lbm_tpu_torch.models.trt import omega_minus_from_magic
+
+    trt_minus = omega_minus_from_magic(TRT_OMEGA)
+    plaw = {"power_law n=0.5": dict(PLAW), "power_law n=1.5": dict(cons_K=0.01, n=1.5),
+            "power_law newton": dict(cons_K=0.01, n=0.8, sigma_y=5e-4)}
+    noisy = lambda R, C, dt, dev, seed: seeded_state(R, C, dt, dev, seed, noisy=True)  # noqa: E731
+    out = {
+        "bgk": (lambda dt: bgk.bgk_collide_fn(OMEGA, dt),
+                lambda R, C, dt, s: bgk.make_fused_step(R, C, OMEGA, dt, substeps=s), noisy),
+        "kbc": (lambda dt: collide_stream.kbc_collide_fn(OMEGA),
+                lambda R, C, dt, s: collide_stream.make_kbc_fused_step(R, C, OMEGA, dt,
+                                                                        substeps=s), noisy),
+        "les": (lambda dt: les.les_collide_fn(dtype=dt, **LES),
+                lambda R, C, dt, s: les.make_les_fused_step(R, C, dtype=dt, substeps=s, **LES),
+                noisy),
+        "trt": (lambda dt: trt.trt_collide_fn(TRT_OMEGA, trt_minus, dt),
+                lambda R, C, dt, s: trt.make_trt_fused_step(
+                    R, C, omega_plus=TRT_OMEGA, omega_minus=trt_minus, dtype=dt, substeps=s),
+                noisy)}
+    for name, kw in plaw.items():
+        out[name] = (
+            lambda dt, kw=kw: power_law.power_law_collide_fn(tau_min=0.52, tau_max=50.0,
+                                                             iters=8, dtype=dt, **kw),
+            lambda R, C, dt, s, kw=kw: power_law.make_power_law_fused_step(
+                R, C, dtype=dt, substeps=s, **kw),
+            lambda R, C, dt, dev, seed: shear_state(R, C, dt, dev, noisy_seed=seed))
+    return out
+
+
+def sharded_case(family, R, C, dtype, dev, n, s, devices=None):
+    """(sharded step, single-device step, state) of one case: ``family`` is
+    "k27 <collision>", "thermal", "mrtcg", "csf" or "rk"; the sharded step
+    (substeps ``s`` per call) on ``n`` shards of ``dev`` (or on ``devices``),
+    the single-device kernel's step taking ``s`` steps per call."""
+    from lbm_tpu_torch.kernels import mrtcg, rk
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import thermal as kth
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    mesh = pm.make_mesh(devices if devices is not None else [dev] * n)
+    seed = R + C + n + s
+    if family.startswith("k27 "):
+        fn, single, state = k27_collisions()[family[4:]]
+        return (ksh.make_sharded_fused_step(mesh, R, C, fn(dtype), dtype, substeps=s),
+                single(R, C, dtype, s), state(R, C, dtype, dev, seed))
+    if family == "thermal":
+        return (ksh.make_sharded_thermal_step(mesh, R, C, substeps=s, dtype=dtype,
+                                              **THERMAL_PHYS),
+                kth.make_thermal_fused_step(R, C, substeps=s, dtype=dtype, **THERMAL_PHYS),
+                thermal_state(9, R, C, dtype, dev, seed))
+    if family in ("mrtcg", "csf"):
+        csf = family == "csf"
+        mode = "csf" if csf else "perturbation"
+        red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+        return (ksh.make_sharded_mrtcg_reduced_step(mesh, R, C, red, blue, dtype=dtype,
+                                                    surface_tension=mode, substeps=s, **RT),
+                mrtcg.make_mrtcg_reduced_step(R, C, red, blue, dtype=dtype,
+                                              surface_tension=mode, substeps=s, **RT),
+                reduced_input(mrtcg_state(R, C, dtype, dev, csf), csf))
+    if family == "rk":
+        return (ksh.make_sharded_rk_step(mesh, R, C, dtype=dtype, **RK),
+                rk.make_rk_fused_step(R, C, dtype=dtype, substeps=s, **RK),
+                rk_state(R, C, dtype, dev))
+    raise ValueError(family)
+
+
+def hold_sharded(label, family, R, C, dtype, dev, n, s, devices=None):
+    """One case of phase 4's sharded holds: 10 steps (the nearest multiple of
+    ``s``) of the n-shard kernel step from the case's state, (1) against the
+    single-device kernel (0.0 expected; within TOL required), (2) against the
+    port's plain sharded version on the card (within TOL), (3) run twice,
+    bit-identical.  Returns (error vs plain, error vs the single-device
+    kernel, bit-equal to it)."""
+    import torch
+
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    step, single, x = sharded_case(family, R, C, dtype, dev, n, s, devices)
+    calls = max(1, round(10 / s))
+    mesh = pm.make_mesh(devices if devices is not None else [dev] * n)
+    runs = []
+    for fn in (step, step, step.plain):
+        y = pm.shard_state(mesh, x)
+        for _ in range(calls):
+            y = fn(y)
+        runs.append(y.gather(dev))
+    want = x
+    for _ in range(calls):
+        want = single(want)
+    torch.cuda.synchronize()
+    name = f"[4] {label} {family} {R}x{C} {dtype} n={n} s={s} ({calls * s} steps)"
+    e_single = (runs[0] - want).abs().max().item()
+    same = bool(torch.equal(runs[0], want))
+    twice = bool(torch.equal(runs[0], runs[1]))
+    log(f"{name}: vs the single-device kernel max_abs_err={e_single!r} bit-identical={same}; "
+        f"two runs bit-identical={twice}")
+    e_plain = compare(f"{name} vs the plain sharded version", runs[0], runs[2], dtype)
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    if not (e_single <= tol and twice):
+        raise AssertionError(f"{name}: differs from the single-device kernel or from itself")
+    return e_plain, e_single, same
+
+
+# (family, kernel, shapes and types, shard counts, cadences) of phase 4's
+# sharded holds
+SHARDED_HOLDS = (
+    ("k27 bgk", 27, (("float32", BIG), ("float64", (64, 128))), (1, 2, 8), (1, 8)),
+    *((f"k27 {c}", 27, (("float32", (1024, 512)), ("float64", (64, 128))), (8,), (1, 8))
+      for c in ("kbc", "les", "trt", "power_law n=0.5", "power_law n=1.5",
+                "power_law newton")),
+    ("thermal", 28, (("float32", BIG), ("float32", (64, 128)), ("float64", (64, 128))),
+     (8,), (1, 8)),
+    ("mrtcg", 29, (("float32", BIG), ("float32", (256, 128)), ("float64", (256, 128))),
+     (8,), (1, 2, 5)),
+    ("csf", 29, (("float32", BIG), ("float32", (256, 128)), ("float64", (256, 128))),
+     (8,), (1, 2, 4)),
+    ("rk", 30, (("float32", BIG), ("float32", (1024, 256)), ("float64", (1024, 256))),
+     (8,), (1,)),
+)
+
+
+def sharded_hold(dev):
+    """Phase 4 of kernels 27-30 (``SHARDED_HOLDS``, each case ``hold_sharded``).
+    Returns, by kernel, the max error against the plain sharded version and
+    against the single-device kernel by dtype, and whether every case was
+    bit-identical to the single-device kernel."""
+    import torch
+
+    errs = {k: {"plain": {}, "single": {}, "all_equal": True} for k in (27, 28, 29, 30)}
+    for family, kernel, shapes, ns, ss in SHARDED_HOLDS:
+        for dt_name, (R, C) in shapes:
+            dtype = getattr(torch, dt_name)
+            for n in ns:
+                for s in ss:
+                    e_plain, e_single, same = hold_sharded(f"kernel {kernel}", family, R, C,
+                                                           dtype, dev, n, s)
+                    rec = errs[kernel]
+                    rec["plain"][dtype] = max(rec["plain"].get(dtype, 0.0), e_plain)
+                    rec["single"][dtype] = max(rec["single"].get(dtype, 0.0), e_single)
+                    rec["all_equal"] &= same
+            torch.cuda.empty_cache()
+    for k, rec in errs.items():
+        log(f"[4] kernel {k}: max error vs the plain sharded version {rec['plain']}, vs the "
+            f"single-device kernel {rec['single']}, every case bit-identical to it: "
+            f"{rec['all_equal']}")
+    return errs
+
+
+def sharded_cards(dev) -> None:
+    """One shard per card, where the machine has several: kernels 27 and 28
+    in float32, 29 (CSF) and 30 in float64 (their tiles then take over 48 KB
+    of shared memory, opted in on each card), each against its single-device
+    kernel on ``dev`` (``hold_sharded``), and the dry run on the default mesh
+    (``make_mesh()``: every card).  On one card it logs that it did not run."""
+    import torch
+
+    from lbm_tpu_torch.parallel import dryrun
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log("[5] one shard per card: not run; this machine has 1 CUDA device (the "
+            "n-shard runs above put every shard on cuda:0)")
+        return
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    for family, s, dtype in (("k27 bgk", 8, torch.float32), ("thermal", 8, torch.float32),
+                             ("csf", 4, torch.float64), ("rk", 1, torch.float64)):
+        hold_sharded("one shard per card", family, 256 * n_cards, 512, dtype, dev, n_cards,
+                     s, devices=cards)
+    res = dryrun.dryrun_multichip(n_cards)
+    log(f"[5] dryrun_multichip({n_cards}) on every card: "
+        f"{ {k: tuple(v.shape) for k, v in res.items()} }, finite")
+
+
+# (label, family, shape, substeps, steps) of phase 5's sharded runs, float32
+# on 8 shards of the card
+SHARDED_PATH = (
+    ("periodic BGK", "k27 bgk", BIG, "auto", 1000),
+    *((f"periodic {c}", f"k27 {c}", (1024, 512), "auto", 80)
+      for c in ("kbc", "les", "trt", "power_law n=0.5", "power_law n=1.5",
+                "power_law newton")),
+    ("rayleigh_benard", "thermal", (64, 128), 8, 2000),
+    ("mrtcg_rayleigh_taylor", "mrtcg", (256, 128), 5, 2000),
+    ("mrt_csf_rayleigh_taylor", "csf", (256, 128), 4, 1000),
+    ("rk_rayleigh_taylor", "rk", (1024, 256), 1, 1000),
+)
+
+
+def sharded_path(dev, counted) -> dict:
+    """Phase 5 of the sharded slice, through the user's entry points
+    (parallel.mesh make_mesh / shard_state / gather and the factories of
+    kernels/sharded.py) on meshes of one card's shards (``SHARDED_PATH``):
+    the periodic BGK at 4096x2048 float32 with substeps="auto" (1000 steps),
+    kernel 27's other collisions at 1024x512 (80 steps), Rayleigh-Benard at
+    the thermal gate's 64x128 (2000 steps, 8 per exchange), the MRT-CG
+    Rayleigh-Taylor at 256x128 (2000 steps, 5 per exchange) and in CSF mode
+    (1000 steps, 4 per exchange), and the RK Rayleigh-Taylor at 1024x256
+    (1000 steps), in float32 on 8 shards, each bit for bit against its
+    single-device kernel; the plain sharded channel on 8 shards of the card
+    against horizontal_poiseuille at 24x24 float64; the dry run on 8 shards;
+    one shard per card where the machine has several (``sharded_cards``).
+    The single-device references (and the scene the channel is held to) run
+    first; then every launch count starts at 0 and is read at the end, so
+    the counts are the sharded runs' alone.  Returns the host wall time of
+    each run, by label."""
+    import torch
+
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import dryrun
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.parallel import sharded as psh
+    from lbm_tpu_torch.scenes import channel as chs
+
+    f32, f64 = torch.float32, torch.float64
+    mesh8 = pm.make_mesh([dev] * 8)
+    # the single-device references and the scene, before the counts start
+    cases = []
+    for label, family, (R, C), s, steps in SHARDED_PATH:
+        s_int = ksh.resolve_substeps(s, "bgk" if family.startswith("k27") else family)
+        step, single, x = sharded_case(family, R, C, f32, dev, 8, s_int)
+        if s == "auto":
+            step = ksh.make_sharded_fused_step(
+                mesh8, R, C, k27_collisions()[family[4:]][0](f32), f32, substeps="auto")
+        want = x
+        for _ in range(steps // s_int):
+            want = single(want)
+        cases.append((label, (R, C), s_int, steps, step, x, want))
+    H = W = 24
+    ref_card = chs.horizontal_poiseuille(H=H, W=W, T=300, device=dev, dtype=f64)
+    ref_cpu = chs.horizontal_poiseuille(H=H, W=W, T=300, device="cpu", dtype=f64)
+
+    for k in counted.values():
+        k.launches = 0
+    wall = {}
+    for label, (R, C), s_int, steps, step, x, want in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pm.shard_state(mesh8, x)
+        for _ in range(steps // s_int):
+            y = step(y)
+        got = y.gather()
+        torch.cuda.synchronize()
+        wall[label] = time.perf_counter() - t0
+        same = bool(torch.equal(got, want))
+        check_gates(f"[5] {label} {R}x{C} float32 on 8 shards of the card, {steps} steps, "
+                    f"{s_int} per exchange (host wall time {wall[label]!r} s = "
+                    f"{wall[label] / steps * 1e6!r} us/step)", {
+            "finite": (float(torch.isfinite(got).all()), 1.0, 1.0),
+            "bit-identical to the single-device kernel": (float(same), 1.0, 1.0)})
+        del y, got
+    del cases
+    torch.cuda.empty_cache()
+
+    # the plain sharded channel (8 shards of the card) against the scene
+    # horizontal_poiseuille at 24x24 float64, 300 steps (tests/test_parallel.py:111)
+    tau = chs.TAU_DEFAULT
+    rho_in = chs._inlet_density(H, W, 1.030985714e-1, tau)
+    f0 = chs._equilibrium_state(H, W, True, dev, f64)
+    chan = psh.make_channel_bgk_step(mesh8, 1.0 / tau, rho_in, 1.0)
+    y = pm.shard_state(mesh8, f0)
+    for _ in range(300):
+        y = chan(y)
+    got = y.gather()
+    check_gates("[5] sharded channel 24x24 float64 on 8 shards of the card, 300 steps, "
+                "against horizontal_poiseuille", {
+        "steps of the scene": (ref_card.steps, 300, 300),
+        "max|f - f_scene card (kernel 2)|": ((got - ref_card.f).abs().max().item(), 0.0,
+                                              1e-13),
+        "max|f - f_scene cpu (plain)|": ((got.cpu() - ref_cpu.f).abs().max().item(), 0.0,
+                                         1e-13)})
+
+    # the dry run, 8 shards of the card
+    res = dryrun.dryrun_multichip(8, devices=[dev] * 8)
+    log(f"[5] dryrun_multichip(8, devices=['cuda:0'] * 8): "
+        f"{ {k: tuple(v.shape) for k, v in res.items()} }, finite")
+
+    sharded_cards(dev)
+
+    names = (*(f"halo_{k}" for k in ksh.COLLIDE_KINDS), "halo_thermal",
+             "halo_mrtcg_reduced", "halo_rk")
+    slice_launches = {name: counted[name].launches for name in names}
+    log(f"[5] kernel 27-30 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the sharded path never launched")
+    return wall
+
+
+def sharded_bound(family, R, C, n, s, itemsize, ops):
+    """(least ms, "bytes" or "operations", bytes) of one call of the n-shard
+    step (``s`` sweeps per exchange) at RxC: each sweep reads its input band
+    and writes its output band once (kernels/sharded.py sweep_bands), the
+    exchange reads and writes each halo strip once; ``ops`` operations per
+    output cell of each sweep over the fp32 peak."""
+    from lbm_tpu_torch.kernels import sharded as ksh
+
+    planes = {"bgk": 9, "thermal": 18, "mrtcg": 10, "csf": 12, "rk": 11}[family]
+    r = ksh.ROWS_PER_SWEEP[family]
+    halo = ksh.halo_for(s, r)
+    R_loc = R // n
+    walls = family != "bgk"
+    rows_moved, rows_out = 0, 0
+    for i in range(n):
+        for i_lo, i_hi, o_lo, o_hi in ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls):
+            rows_moved += (i_hi - i_lo) + (o_hi - o_lo)
+            rows_out += o_hi - o_lo
+    nbytes = (rows_moved + n * 2 * 2 * halo) * planes * C * itemsize
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops * rows_out * C / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def sharded_times(dev, card: str) -> dict:
+    """Phase 6 of kernels 27-30 at 4096x2048 float32: for each family, the
+    n-shard step on one card at n = 1 and 8 and at s = 1 and the family's
+    deepest cadence (the RK step: s = 1), its single-device kernel at the
+    same s, the exchange's copies alone (n = 8, the family's strip) and a
+    device-to-device copy of the state, each as device ms per step from a
+    CUDA graph of 5 calls (CUDA events around its replays, median of 3
+    rounds in turns), so the host's launch time is not in them; the plain
+    sharded version eagerly (n = 8, s = 1); each configuration's bound
+    (``sharded_bound``, operations counted on the plain single-device
+    step).  One card measures no interconnect: the exchange is a copy within
+    the card's memory."""
+    import torch
+
+    from lbm_tpu_torch.kernels import bgk, collide_stream, mrtcg, rk
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import thermal as kth
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    f32 = torch.float32
+    R, C = BIG
+    cpu = torch.device("cpu")
+    small = 64
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    ops = {
+        "bgk": ops_per_cell(collide_stream.make_fused_step(
+            small, small, bgk.bgk_collide_fn(OMEGA, f32), f32),
+            seeded_state(small, small, f32, cpu, seed=1)),
+        "thermal": ops_per_cell(lambda S: kth.plain_rb_step(S, **THERMAL_PHYS),
+                                thermal_state(9, small, small, f32, cpu, seed=2)),
+        "rk": ops_per_cell(rk.make_plain_step(**RK), rk_state(small, small, f32, cpu))}
+    for fam, csf in (("mrtcg", False), ("csf", True)):
+        ops[fam] = ops_per_cell(
+            mrtcg.make_plain_step(red, blue, surface_tension="csf" if csf else "perturbation",
+                                  **RT),
+            reduced_input(mrtcg_state(small, small, f32, cpu, csf), csf))
+    deepest = {"bgk": 8, "thermal": 8, "mrtcg": 5, "csf": 4, "rk": 1}
+    out = {"ms": {}, "single_ms": {}, "exchange_ms": {}, "plain_ms": {}, "bound": {},
+           "frac": {}, "ops": ops}
+    for fam, s_max in deepest.items():
+        family = "k27 bgk" if fam == "bgk" else fam
+        configs = [(n, s) for n in (1, 8) for s in sorted({1, s_max})]
+        calls = {}
+        x = None
+        for n, s in configs:
+            step, single, x0 = sharded_case(family, R, C, f32, dev, n, s)
+            x = x0 if x is None else x
+            calls["sharded", n, s] = (step, pm.shard_state(pm.make_mesh([dev] * n), x), s)
+            if n == 1:
+                calls["single", 1, s] = (single, x, s)
+        mesh8 = pm.make_mesh([dev] * 8)
+        shards8 = pm.shard_state(mesh8, x).shards
+        halo = ksh.halo_for(s_max, ksh.ROWS_PER_SWEEP[fam])
+        dst = torch.empty_like(x)
+        runs = {c: [] for c in calls}
+        runs["exchange", 8, s_max] = []
+        runs["copy", 0, 0] = []
+        for order in (0, 1, 2):
+            keys = list(runs) if order != 1 else list(runs)[::-1]
+            for key in keys:
+                if key[0] == "exchange":
+                    t = graph_ms(lambda y: (ph.exchange_rows(y, halo), y)[1], shards8,
+                                 5) / key[2]
+                elif key[0] == "copy":
+                    t = cuda_ms(lambda: dst.copy_(x), 20)
+                else:
+                    fn, arg, s = calls[key]
+                    t = graph_ms(fn, arg, 5) / s
+                runs[key].append(t)
+        med = {key: sorted(v)[1] for key, v in runs.items()}
+        copy_rate = 2 * x.numel() * x.element_size() / (med["copy", 0, 0] * 1e-3)
+        b_cell = 2 * x.shape[0] * x.element_size()
+        step8, _, _ = sharded_case(family, R, C, f32, dev, 8, 1)
+        sx8 = pm.shard_state(mesh8, x)
+        out["plain_ms"][fam] = cuda_ms(lambda: step8.plain(sx8), 3)
+        out["exchange_ms"][fam] = med["exchange", 8, s_max] * s_max
+        log(f"[6] {card}; {fam} 4096x2048 float32 ({x.shape[0]} planes): copy of the state "
+            f"{med['copy', 0, 0]!r} ms; the exchange's copies alone, 8 shards, {halo}-row "
+            f"strip: {out['exchange_ms'][fam]!r} ms per exchange (runs "
+            f"{runs['exchange', 8, s_max]}); plain sharded (n=8, s=1) "
+            f"{out['plain_ms'][fam]!r} ms/step")
+        for key, t in sorted(med.items(), key=lambda kv: kv[0][0] != "single"):
+            kind, n, s = key
+            if kind in ("exchange", "copy"):
+                continue
+            if kind == "single":
+                out["single_ms"][fam, s] = t
+                log(f"[6] {fam} single-device kernel s={s}: {t!r} ms/step (runs {runs[key]})")
+                continue
+            out["ms"][fam, n, s] = t
+            b = sharded_bound(fam, R, C, n, s, 4, ops[fam])
+            out["bound"][fam, n, s] = b
+            rate = b_cell * R * C / (t * 1e-3)
+            out["frac"][fam, n, s] = rate / copy_rate
+            log(f"[6] {fam} n={n} s={s}: {t!r} ms/step (runs {runs[key]}) = "
+                f"{R * C / (t * 1e-3) / 1e6!r} MLUPS, {rate / copy_rate!r} of copy at "
+                f"{b_cell} B/cell; bound {b[0] / s!r} ms/step by {b[1]} ({b[2] / s!r} B/step, "
+                f"{ops[fam]!r} flops/cell); over the single-device kernel "
+                f"{t / out['single_ms'].get((fam, s), float('nan')) - 1.0!r}")
+        del calls, x, dst, shards8, sx8, step8
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_entries(launches: dict, errs: dict, tm: dict) -> list:
+    """The kernels line's entries of kernels 27-30: ``ms`` and ``bound_ms`` at
+    n = 8 shards of one card, s = 1, per step; the other configurations
+    beside them."""
+    import torch
+
+    from lbm_tpu_torch.kernels import sharded as ksh
+
+    f32, f64 = torch.float32, torch.float64
+    rows = (("halo_collide_stream", 27, "bgk", "collide_stream.cuh", "sharded_pallas.py:171"),
+            ("halo_thermal", 28, "thermal", "thermal.cu", "sharded_pallas.py:503"),
+            ("halo_mrtcg_reduced", 29, "mrtcg", "mrtcg.cuh", "sharded_pallas.py:453"),
+            ("halo_rk", 30, "rk", "rk_cg.cu", "sharded_pallas.py:486"))
+    entries = []
+    for name, k, fam, src, replaces in rows:
+        n_launch = sum(launches[f"halo_{c}"] for c in ksh.COLLIDE_KINDS) if k == 27 \
+            else launches[name]
+        b = tm["bound"][fam, 8, 1]
+        e = {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{src}",
+             "replaces": f"lbm_tpu/kernels/{replaces}", "launches": n_launch,
+             "max_abs_err": errs[k]["plain"][f32], "max_abs_err_f64": errs[k]["plain"][f64],
+             "max_abs_err_vs_single_device": errs[k]["single"][f32],
+             "max_abs_err_vs_single_device_f64": errs[k]["single"][f64],
+             "bit_identical_to_single_device": errs[k]["all_equal"],
+             "ms": tm["ms"][fam, 8, 1], "plain_ms": tm["plain_ms"][fam], "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": None, "shape": "4096x2048 float32, 8 shards",
+             "single_device_ms": tm["single_ms"][fam, 1], "exchange_ms": tm["exchange_ms"][fam],
+             "fraction_of_copy": tm["frac"][fam, 8, 1], "flops_per_cell": tm["ops"][fam]}
+        for fm in ((fam, "csf") if k == 29 else (fam,)):
+            for (f_, n, s), t in tm["ms"].items():
+                if f_ == fm:
+                    tag = f"{'csf_' if fm == 'csf' else ''}n{n}_s{s}"
+                    e[f"ms_{tag}"] = t
+                    e[f"bound_ms_{tag}"] = tm["bound"][f_, n, s][0] / s
+        entries.append(e)
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1190,6 +1672,7 @@ def main() -> int:
                                        sediment, shan_chen, trt)
     from lbm_tpu_torch.kernels import d3q19 as kd
     from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.kernels import sharded as ksh
     from lbm_tpu_torch.kernels import moving_ibm as kmov
     from lbm_tpu_torch.models import kbc
     from lbm_tpu_torch.models.mrt_cg import phase_field
@@ -1223,7 +1706,10 @@ def main() -> int:
                "sediment": k17, "box": k18, "moving_forcing": k19, "moving_rot": k20,
                "moving_bodies": k21, "cavity": cavity.CAVITY,
                **{name: thermal_kernel(name)[2] for name in THERMAL_NAMES},
-               "d3q19": kd.D3Q19, "d3q19_lanes": kd.D3Q19_LANES}
+               "d3q19": kd.D3Q19, "d3q19_lanes": kd.D3Q19_LANES,
+               **{f"halo_{kind}": k for kind, k in ksh.HALO_COLLIDE_STREAM.items()},
+               "halo_thermal": ksh.HALO_THERMAL, "halo_mrtcg_reduced": ksh.HALO_MRTCG,
+               "halo_rk": ksh.HALO_RK}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -1594,6 +2080,7 @@ def main() -> int:
     # kernels 25 and 26 in the four wall sets and at phase 5's shapes, 10
     # steps from noisy states
     err25, err26 = d3q19_hold(dev)
+    err_sh = sharded_hold(dev)
 
     # 5. the main path
     for k in counted.values():
@@ -2363,6 +2850,10 @@ def main() -> int:
     # read at its end
     d3_wall = d3q19_path(dev, counted)
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
+    # the row-sharded slice of kernels 27-30: its counts start at 0 there and
+    # are read at its end
+    sharded_path(dev, counted)
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -2729,6 +3220,7 @@ def main() -> int:
             f"device busy {t / host!r}")
 
     d3_times = d3q19_times(dev, card, d3_wall)
+    sh_times = sharded_times(dev, card)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -2898,6 +3390,7 @@ def main() -> int:
             "shape": shape, "gate_graph_ms": th_graph[name][0],
             "gate_host_ms_per_step": th_graph[name][1]})
     kernels += d3q19_entries(launches, err25, err26, d3_times)
+    kernels += sharded_entries(launches, err_sh, sh_times)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

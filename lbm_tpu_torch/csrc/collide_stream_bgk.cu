@@ -21,64 +21,49 @@
 // simple design: temporal blocking (several steps per pass through a
 // shared-memory tile with halos, which cuts the bytes per step), 16-byte
 // vector loads, and in-place (single-buffer) streaming schemes.
+//
+// The collision is a functor shared by this step and kernel 27's BGK
+// instance, lbm_halo_bgk: the same device code on a row shard with halo
+// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
+// with this source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
-#include "d2q9.cuh"
+#include "collide_stream.cuh"
 
 namespace {
 
+// The BGK collision of one cell: rho, m as explicit sums, u = m / rho, the
+// paired-direction compressible equilibrium (kernels/bgk.py::bgk_collide_fn).
 template <typename T>
-__global__ void collide_stream_bgk_kernel(const T* __restrict__ fin,
-                                          T* __restrict__ fout, int64_t R,
-                                          int64_t C, T omega, T one_m_omega) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
+struct Bgk {
+  T omega, one_m_omega;
 
-  T f[9];
-  lbm::load9(fin, n, cell, f);
-  T rho, mx, my;
-  lbm::moments(f, rho, mx, my);
-  const T inv_rho = T(1.0) / rho;
-  const T ux = mx * inv_rho;
-  const T uy = my * inv_rho;
-
-  // paired-direction compressible equilibrium (kernels/bgk.py::bgk_collide_fn)
-  const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
-  T feq[9];
-  feq[0] = T(lbm::weight(0)) * rho * p.t0;
+  __device__ __forceinline__ void operator()(const T f[9], T coll[9]) const {
+    T rho, mx, my;
+    lbm::moments(f, rho, mx, my);
+    const T inv_rho = T(1.0) / rho;
+    const T ux = mx * inv_rho;
+    const T uy = my * inv_rho;
+    const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
+    T feq[9];
+    feq[0] = T(lbm::weight(0)) * rho * p.t0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const T wr = T(lbm::weight(lbm::pair_kp(i))) * rho;
-    const T even = wr * (p.t0 + T(4.5) * p.cc[i]);
-    const T odd = wr * (T(3.0) * p.cu[i]);
-    feq[lbm::pair_kp(i)] = even + odd;
-    feq[lbm::pair_km(i)] = even - odd;
-  }
-
+    for (int i = 0; i < 4; ++i) {
+      const T wr = T(lbm::weight(lbm::pair_kp(i))) * rho;
+      const T even = wr * (p.t0 + T(4.5) * p.cc[i]);
+      const T odd = wr * (T(3.0) * p.cu[i]);
+      feq[lbm::pair_kp(i)] = even + odd;
+      feq[lbm::pair_km(i)] = even - odd;
+    }
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const T coll = one_m_omega * f[k] + omega * feq[k];
-    const int64_t rr = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cc = lbm::wrap(c + lbm::cy(k), C);
-    fout[k * n + rr * C + cc] = coll;
+    for (int k = 0; k < 9; ++k) coll[k] = one_m_omega * f[k] + omega * feq[k];
   }
-}
+};
 
 template <typename T>
-int launch(const void* fin, void* fout, long long R, long long C,
-           double omega, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  collide_stream_bgk_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), R, C,
-      static_cast<T>(omega), static_cast<T>(1.0 - omega));
-  return static_cast<int>(cudaGetLastError());
+Bgk<T> bgk(double omega) {
+  return {static_cast<T>(omega), static_cast<T>(1.0 - omega)};
 }
 
 }  // namespace
@@ -89,6 +74,15 @@ extern "C" int lbm_collide_stream_bgk(const void* fin, void* fout, long long R,
                                       long long C, double omega, int is_f64,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(fin, fout, R, C, omega, s)
-                : launch<float>(fin, fout, R, C, omega, s);
+  return is_f64 ? lbm::launch_periodic<double>(fin, fout, R, C, bgk<double>(omega), s)
+                : lbm::launch_periodic<float>(fin, fout, R, C, bgk<float>(omega), s);
+}
+
+// Kernel 27, BGK instance: one sweep with the geometry `geom`
+// (csrc/halo.cuh); params = {omega}.
+extern "C" int lbm_halo_bgk(const long long* geom, const double* params, int, int,
+                            int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? lbm::launch_halo<double>(geom, bgk<double>(params[0]), s)
+                : lbm::launch_halo<float>(geom, bgk<float>(params[0]), s);
 }

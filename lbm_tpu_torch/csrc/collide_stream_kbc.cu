@@ -26,55 +26,44 @@
 // cells per thread or launch bounds for more loads in flight, temporal
 // blocking, cheaper divides (not taken: they change the results the
 // tolerances assume).
+//
+// The collision is a functor shared by this step and kernel 27's KBC
+// instance, lbm_halo_kbc: the same device code on a row shard with halo
+// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
+// with this source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
-#include "d2q9.cuh"
+#include "collide_stream.cuh"
 #include "kbc.cuh"
 
 namespace {
 
+// The KBC collision of one cell: m0, u = m1 / m0, csrc/kbc.cuh's collide.
 template <typename T, bool kFactored>
-__global__ void collide_stream_kbc_kernel(const T* __restrict__ fin,
-                                          T* __restrict__ fout, int64_t R,
-                                          int64_t C, lbm::kbc::Params<T> p) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
+struct Kbc {
+  lbm::kbc::Params<T> p;
 
-  T f[9];
-  lbm::load9(fin, n, cell, f);
-  T m0, ux, uy;
-  lbm::kbc::macroscopics(f, m0, ux, uy);
-  T coll[9];
-  lbm::kbc::collide<T, kFactored>(f, m0, ux, uy, p, coll);
-
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int64_t rr = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cc = lbm::wrap(c + lbm::cy(k), C);
-    fout[k * n + rr * C + cc] = coll[k];
+  __device__ __forceinline__ void operator()(const T f[9], T coll[9]) const {
+    T m0, ux, uy;
+    lbm::kbc::macroscopics(f, m0, ux, uy);
+    lbm::kbc::collide<T, kFactored>(f, m0, ux, uy, p, coll);
   }
+};
+
+template <typename T>
+int periodic(const void* fin, void* fout, long long R, long long C, double s2, int factored,
+             cudaStream_t s) {
+  const lbm::kbc::Params<T> p = lbm::kbc::make_params<T>(s2);
+  return factored ? lbm::launch_periodic<T>(fin, fout, R, C, Kbc<T, true>{p}, s)
+                  : lbm::launch_periodic<T>(fin, fout, R, C, Kbc<T, false>{p}, s);
 }
 
 template <typename T>
-int launch(const void* fin, void* fout, long long R, long long C, double s2,
-           int factored, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+int halo_sweep(const long long* geom, double s2, int factored, cudaStream_t s) {
   const lbm::kbc::Params<T> p = lbm::kbc::make_params<T>(s2);
-  const T* src = static_cast<const T*>(fin);
-  T* dst = static_cast<T*>(fout);
-  if (factored) {
-    collide_stream_kbc_kernel<T, true><<<blocks, threads, 0, stream>>>(src, dst, R, C, p);
-  } else {
-    collide_stream_kbc_kernel<T, false><<<blocks, threads, 0, stream>>>(src, dst, R, C, p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return factored ? lbm::launch_halo<T>(geom, Kbc<T, true>{p}, s)
+                  : lbm::launch_halo<T>(geom, Kbc<T, false>{p}, s);
 }
 
 }  // namespace
@@ -86,6 +75,15 @@ extern "C" int lbm_collide_stream_kbc(const void* fin, void* fout, long long R,
                                       long long C, double s2, int factored,
                                       int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(fin, fout, R, C, s2, factored, s)
-                : launch<float>(fin, fout, R, C, s2, factored, s);
+  return is_f64 ? periodic<double>(fin, fout, R, C, s2, factored, s)
+                : periodic<float>(fin, fout, R, C, s2, factored, s);
+}
+
+// Kernel 27, KBC instance: one sweep with the geometry `geom`
+// (csrc/halo.cuh); params = {s2}, factored = the gamma implementation.
+extern "C" int lbm_halo_kbc(const long long* geom, const double* params, int factored, int,
+                            int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? halo_sweep<double>(geom, params[0], factored, s)
+                : halo_sweep<float>(geom, params[0], factored, s);
 }

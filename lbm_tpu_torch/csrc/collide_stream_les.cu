@@ -19,75 +19,61 @@
 // H100 80GB HBM3 (700 W) at 4096x2048: 0.23 ms/step in float32, 0.87 of a
 // device-to-device copy's bandwidth; 0.44 ms in float64.  Left on the
 // table: temporal blocking, vector loads.
+//
+// The collision is a functor shared by this step and kernel 27's LES
+// instance, lbm_halo_les: the same device code on a row shard with halo
+// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
+// with this source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 
-#include "d2q9.cuh"
+#include "collide_stream.cuh"
 
 namespace {
 
+// The Smagorinsky-BGK collision of one cell (kernels/les.py::les_collide_fn).
 template <typename T>
-__global__ void collide_stream_les_kernel(const T* __restrict__ fin,
-                                          T* __restrict__ fout, int64_t R,
-                                          int64_t C, T tau0, T tau0_sq, T a_cs) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
+struct Les {
+  T tau0, tau0_sq, a_cs;
 
-  T f[9];
-  lbm::load9(fin, n, cell, f);
-  T rho, mx, my;
-  lbm::moments(f, rho, mx, my);
-  const T inv_rho = T(1.0) / rho;
-  const T ux = mx * inv_rho;
-  const T uy = my * inv_rho;
+  __device__ __forceinline__ void operator()(const T f[9], T coll[9]) const {
+    T rho, mx, my;
+    lbm::moments(f, rho, mx, my);
+    const T inv_rho = T(1.0) / rho;
+    const T ux = mx * inv_rho;
+    const T uy = my * inv_rho;
 
-  const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
-  T dq[9];
-  dq[0] = f[0] - T(lbm::weight(0)) * rho * p.t0;
+    const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
+    T dq[9];
+    dq[0] = f[0] - T(lbm::weight(0)) * rho * p.t0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const T wr = T(lbm::weight(lbm::pair_kp(i))) * rho;
-    const T even = wr * (p.t0 + T(4.5) * p.cc[i]);
-    const T odd = wr * (T(3.0) * p.cu[i]);
-    dq[lbm::pair_kp(i)] = f[lbm::pair_kp(i)] - (even + odd);
-    dq[lbm::pair_km(i)] = f[lbm::pair_km(i)] - (even - odd);
-  }
+    for (int i = 0; i < 4; ++i) {
+      const T wr = T(lbm::weight(lbm::pair_kp(i))) * rho;
+      const T even = wr * (p.t0 + T(4.5) * p.cc[i]);
+      const T odd = wr * (T(3.0) * p.cu[i]);
+      dq[lbm::pair_kp(i)] = f[lbm::pair_kp(i)] - (even + odd);
+      dq[lbm::pair_km(i)] = f[lbm::pair_km(i)] - (even - odd);
+    }
 
-  const T qxx = dq[1] + dq[3] + dq[5] + dq[6] + dq[7] + dq[8];
-  const T qyy = dq[2] + dq[4] + dq[5] + dq[6] + dq[7] + dq[8];
-  const T qxy = dq[5] - dq[6] + dq[7] - dq[8];
-  const T qn = sqrt(qxx * qxx + T(2.0) * qxy * qxy + qyy * qyy);
-  const T tau = T(0.5) * (tau0 + sqrt(tau0_sq + a_cs * qn * inv_rho));
-  const T om = T(1.0) / tau;
-
+    const T qxx = dq[1] + dq[3] + dq[5] + dq[6] + dq[7] + dq[8];
+    const T qyy = dq[2] + dq[4] + dq[5] + dq[6] + dq[7] + dq[8];
+    const T qxy = dq[5] - dq[6] + dq[7] - dq[8];
+    const T qn = sqrt(qxx * qxx + T(2.0) * qxy * qxy + qyy * qyy);
+    const T tau = T(0.5) * (tau0 + sqrt(tau0_sq + a_cs * qn * inv_rho));
+    const T om = T(1.0) / tau;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const T coll = f[k] - om * dq[k];
-    const int64_t rr = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cc = lbm::wrap(c + lbm::cy(k), C);
-    fout[k * n + rr * C + cc] = coll;
+    for (int k = 0; k < 9; ++k) coll[k] = f[k] - om * dq[k];
   }
-}
+};
 
+// The constants rounded to T as the plain version rounds them: tau0, its
+// square taken in T, and 18 sqrt(2) Cs^2 taken in double.
 template <typename T>
-int launch(const void* fin, void* fout, long long R, long long C, double tau0,
-           double cs_smag, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  // constants rounded to T as the plain version rounds them: tau0, its
-  // square taken in T, and 18 sqrt(2) Cs^2 taken in double
+Les<T> les(double tau0, double cs_smag) {
   const T t00 = static_cast<T>(tau0);
-  const T a_cs = static_cast<T>(18.0 * std::sqrt(2.0) * (cs_smag * cs_smag));
-  collide_stream_les_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), R, C, t00, t00 * t00, a_cs);
-  return static_cast<int>(cudaGetLastError());
+  return {t00, t00 * t00, static_cast<T>(18.0 * std::sqrt(2.0) * (cs_smag * cs_smag))};
 }
 
 }  // namespace
@@ -98,6 +84,15 @@ extern "C" int lbm_collide_stream_les(const void* fin, void* fout, long long R,
                                       long long C, double tau0, double cs_smag,
                                       int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(fin, fout, R, C, tau0, cs_smag, s)
-                : launch<float>(fin, fout, R, C, tau0, cs_smag, s);
+  return is_f64 ? lbm::launch_periodic<double>(fin, fout, R, C, les<double>(tau0, cs_smag), s)
+                : lbm::launch_periodic<float>(fin, fout, R, C, les<float>(tau0, cs_smag), s);
+}
+
+// Kernel 27, LES instance: one sweep with the geometry `geom`
+// (csrc/halo.cuh); params = {tau0, cs_smag}.
+extern "C" int lbm_halo_les(const long long* geom, const double* params, int, int,
+                            int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? lbm::launch_halo<double>(geom, les<double>(params[0], params[1]), s)
+                : lbm::launch_halo<float>(geom, les<float>(params[0], params[1]), s);
 }

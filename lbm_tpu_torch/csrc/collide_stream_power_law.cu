@@ -27,12 +27,17 @@
 // 2 transcendentals per Picard sweep (8 sweeps by default) per cell; the
 // count is chip_smoke.py's.  Left on the table: temporal blocking, vector
 // loads, a cheaper pow for the Picard map.
+//
+// The collision is a functor shared by this step and kernel 27's power-law
+// instance, lbm_halo_power_law: the same device code on a row shard with halo
+// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
+// with this source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 
-#include "d2q9.cuh"
+#include "collide_stream.cuh"
 
 namespace {
 
@@ -58,111 +63,105 @@ __device__ __forceinline__ T picard(T log_a, T t, const Consts<T>& k) {
   return T(0.5) + T(3.0) * clip(nu, k.nu_lo, k.nu_hi);
 }
 
+// The power-law collision of one cell in the host-chosen branch MODE
+// (kernels/power_law.py::power_law_collide_fn).
 template <typename T, int MODE>
-__global__ void collide_stream_power_law_kernel(const T* __restrict__ fin,
-                                                T* __restrict__ fout, int64_t R,
-                                                int64_t C, Consts<T> k, int iters) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
+struct PowerLaw {
+  Consts<T> k;
+  int iters;
 
-  T f[9];
-  lbm::load9(fin, n, cell, f);
-  T rho, mx, my;
-  lbm::moments(f, rho, mx, my);
-  const T inv_rho = T(1.0) / rho;
-  const T ux = mx * inv_rho;
-  const T uy = my * inv_rho;
+  __device__ __forceinline__ void operator()(const T f[9], T coll[9]) const {
+    T rho, mx, my;
+    lbm::moments(f, rho, mx, my);
+    const T inv_rho = T(1.0) / rho;
+    const T ux = mx * inv_rho;
+    const T uy = my * inv_rho;
 
-  const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
-  T dq[9];
-  dq[0] = f[0] - T(lbm::weight(0)) * rho * p.t0;
+    const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
+    T dq[9];
+    dq[0] = f[0] - T(lbm::weight(0)) * rho * p.t0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const T wr = T(lbm::weight(lbm::pair_kp(i))) * rho;
-    const T even = wr * (p.t0 + T(4.5) * p.cc[i]);
-    const T odd = wr * (T(3.0) * p.cu[i]);
-    dq[lbm::pair_kp(i)] = f[lbm::pair_kp(i)] - (even + odd);
-    dq[lbm::pair_km(i)] = f[lbm::pair_km(i)] - (even - odd);
-  }
-
-  T om;
-  if (MODE == NEWTONIAN) {
-    om = k.om_const;
-  } else {
-    const T qxx = dq[1] + dq[3] + dq[5] + dq[6] + dq[7] + dq[8];
-    const T qyy = dq[2] + dq[4] + dq[5] + dq[6] + dq[7] + dq[8];
-    const T qxy = dq[5] - dq[6] + dq[7] - dq[8];
-    const T qn = sqrt(qxx * qxx + T(2.0) * qxy * qxy + qyy * qyy);
-    T a = k.sq32 * qn * inv_rho;
-    a = a < k.tiny ? k.tiny : a;  // maximum(a, tiny), NaN kept
-    if (MODE == NEWTON) {
-      const T gd_lo = a / k.tmax;
-      const T gd_hi = a / k.tmin;
-      T gd = gd_lo;
-      for (int it = 0; it < iters; ++it) {
-        const T q = exp(k.log_k + k.nm1 * log(gd));
-        const T e = exp(k.neg_mp * gd);
-        const T h = T(0.5) * gd + T(3.0) * (k.sy * (T(1.0) - e) + q * gd) - a;
-        const T hp = T(0.5) + T(3.0) * (k.sy_mp * e + k.nn * q);
-        gd = clip(gd - h / hp, gd_lo, gd_hi);
-      }
-      const T nu = exp(k.log_k + k.nm1 * log(gd)) + k.sy * (-expm1(k.neg_mp * gd)) / gd;
-      om = T(1.0) / (T(0.5) + T(3.0) * clip(nu, k.nu_lo, k.nu_hi));
-    } else {
-      const T log_a = log(a);
-      T tau = k.tau0;
-      T tprev = tau;
-      for (int it = 0; it < iters; ++it) {
-        const T t1 = picard(log_a, tau, k);
-        if (it % 2 == 0) {
-          tprev = tau;
-          tau = t1;
-          continue;
-        }
-        const T den = t1 - T(2.0) * tau + tprev;
-        const T accel = t1 - (t1 - tau) * (t1 - tau) / (den == T(0.0) ? T(1.0) : den);
-        tau = den == T(0.0) ? t1 : clip(accel, k.tmin, k.tmax);
-      }
-      om = T(1.0) / tau;
+    for (int i = 0; i < 4; ++i) {
+      const T wr = T(lbm::weight(lbm::pair_kp(i))) * rho;
+      const T even = wr * (p.t0 + T(4.5) * p.cc[i]);
+      const T odd = wr * (T(3.0) * p.cu[i]);
+      dq[lbm::pair_kp(i)] = f[lbm::pair_kp(i)] - (even + odd);
+      dq[lbm::pair_km(i)] = f[lbm::pair_km(i)] - (even - odd);
     }
-  }
 
+    T om;
+    if (MODE == NEWTONIAN) {
+      om = k.om_const;
+    } else {
+      const T qxx = dq[1] + dq[3] + dq[5] + dq[6] + dq[7] + dq[8];
+      const T qyy = dq[2] + dq[4] + dq[5] + dq[6] + dq[7] + dq[8];
+      const T qxy = dq[5] - dq[6] + dq[7] - dq[8];
+      const T qn = sqrt(qxx * qxx + T(2.0) * qxy * qxy + qyy * qyy);
+      T a = k.sq32 * qn * inv_rho;
+      a = a < k.tiny ? k.tiny : a;  // maximum(a, tiny), NaN kept
+      if (MODE == NEWTON) {
+        const T gd_lo = a / k.tmax;
+        const T gd_hi = a / k.tmin;
+        T gd = gd_lo;
+        for (int it = 0; it < iters; ++it) {
+          const T q = exp(k.log_k + k.nm1 * log(gd));
+          const T e = exp(k.neg_mp * gd);
+          const T h = T(0.5) * gd + T(3.0) * (k.sy * (T(1.0) - e) + q * gd) - a;
+          const T hp = T(0.5) + T(3.0) * (k.sy_mp * e + k.nn * q);
+          gd = clip(gd - h / hp, gd_lo, gd_hi);
+        }
+        const T nu = exp(k.log_k + k.nm1 * log(gd)) + k.sy * (-expm1(k.neg_mp * gd)) / gd;
+        om = T(1.0) / (T(0.5) + T(3.0) * clip(nu, k.nu_lo, k.nu_hi));
+      } else {
+        const T log_a = log(a);
+        T tau = k.tau0;
+        T tprev = tau;
+        for (int it = 0; it < iters; ++it) {
+          const T t1 = picard(log_a, tau, k);
+          if (it % 2 == 0) {
+            tprev = tau;
+            tau = t1;
+            continue;
+          }
+          const T den = t1 - T(2.0) * tau + tprev;
+          const T accel = t1 - (t1 - tau) * (t1 - tau) / (den == T(0.0) ? T(1.0) : den);
+          tau = den == T(0.0) ? t1 : clip(accel, k.tmin, k.tmax);
+        }
+        om = T(1.0) / tau;
+      }
+    }
 #pragma unroll
-  for (int q = 0; q < 9; ++q) {
-    const T coll = f[q] - om * dq[q];
-    const int64_t rr = lbm::wrap(r + lbm::cx(q), R);
-    const int64_t cc = lbm::wrap(c + lbm::cy(q), C);
-    fout[q * n + rr * C + cc] = coll;
+    for (int q = 0; q < 9; ++q) coll[q] = f[q] - om * dq[q];
   }
-}
-
-template <typename T, int MODE>
-int launch(const void* fin, void* fout, long long R, long long C, const double* d,
-           int iters, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  const Consts<T> k = {T(d[0]), T(d[1]), T(d[2]),  T(d[3]),  T(d[4]),
-                       T(d[5]), T(d[6]), T(d[7]),  T(d[8]),  T(d[9]),
-                       T(d[10]), T(d[11]), T(d[12]), T(d[13]), T(d[14])};
-  collide_stream_power_law_kernel<T, MODE>
-      <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-          static_cast<const T*>(fin), static_cast<T*>(fout), R, C, k, iters);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 template <typename T>
-int dispatch(const void* fin, void* fout, long long R, long long C, const double* d,
-             int mode, int iters, cudaStream_t s) {
+Consts<T> consts(const double* d) {
+  return {T(d[0]), T(d[1]), T(d[2]),  T(d[3]),  T(d[4]),  T(d[5]),  T(d[6]), T(d[7]),
+          T(d[8]), T(d[9]), T(d[10]), T(d[11]), T(d[12]), T(d[13]), T(d[14])};
+}
+
+// The step (HALO false: kernel 11, periodic; true: kernel 27's power-law
+// instance, one sweep with the geometry `geom`) in the branch `mode`.
+template <typename T, bool HALO>
+int dispatch(const void* fin, void* fout, long long R, long long C, const long long* geom,
+             const double* d, int mode, int iters, cudaStream_t s) {
+  const Consts<T> k = consts<T>(d);
   switch (mode) {
-    case NEWTONIAN: return launch<T, NEWTONIAN>(fin, fout, R, C, d, iters, s);
-    case PICARD: return launch<T, PICARD>(fin, fout, R, C, d, iters, s);
-    case NEWTON: return launch<T, NEWTON>(fin, fout, R, C, d, iters, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case NEWTONIAN: {
+      const PowerLaw<T, NEWTONIAN> op{k, iters};
+      return HALO ? lbm::launch_halo<T>(geom, op, s) : lbm::launch_periodic<T>(fin, fout, R, C, op, s);
+    }
+    case PICARD: {
+      const PowerLaw<T, PICARD> op{k, iters};
+      return HALO ? lbm::launch_halo<T>(geom, op, s) : lbm::launch_periodic<T>(fin, fout, R, C, op, s);
+    }
+    case NEWTON: {
+      const PowerLaw<T, NEWTON> op{k, iters};
+      return HALO ? lbm::launch_halo<T>(geom, op, s) : lbm::launch_periodic<T>(fin, fout, R, C, op, s);
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -177,6 +176,15 @@ extern "C" int lbm_collide_stream_power_law(const void* fin, void* fout, long lo
                                             int mode, int iters, int is_f64,
                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? dispatch<double>(fin, fout, R, C, consts, mode, iters, s)
-                : dispatch<float>(fin, fout, R, C, consts, mode, iters, s);
+  return is_f64 ? dispatch<double, false>(fin, fout, R, C, nullptr, consts, mode, iters, s)
+                : dispatch<float, false>(fin, fout, R, C, nullptr, consts, mode, iters, s);
+}
+
+// Kernel 27, power-law instance: one sweep with the geometry `geom`
+// (csrc/halo.cuh); params = the 15 constants, then the branch and iters.
+extern "C" int lbm_halo_power_law(const long long* geom, const double* params, int mode,
+                                  int iters, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? dispatch<double, true>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s)
+                : dispatch<float, true>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s);
 }

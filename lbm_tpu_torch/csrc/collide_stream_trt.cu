@@ -17,69 +17,53 @@
 //
 // Bound: device-memory bytes, as kernel 1: 72 B/cell in float32 against
 // ~70 flops per cell.  Left on the table: temporal blocking, vector loads.
+//
+// The collision is a functor shared by this step and kernel 27's TRT
+// instance, lbm_halo_trt: the same device code on a row shard with halo
+// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
+// with this source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
-#include "d2q9.cuh"
+#include "collide_stream.cuh"
 
 namespace {
 
+// The TRT collision of one cell (kernels/trt.py::trt_collide_fn).
 template <typename T>
-__global__ void collide_stream_trt_kernel(const T* __restrict__ fin,
-                                          T* __restrict__ fout, int64_t R,
-                                          int64_t C, T w_plus, T w_minus) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
+struct Trt {
+  T w_plus, w_minus;
 
-  T f[9];
-  lbm::load9(fin, n, cell, f);
-  T rho, mx, my;
-  lbm::moments(f, rho, mx, my);
-  const T inv_rho = T(1.0) / rho;
-  const T ux = mx * inv_rho;
-  const T uy = my * inv_rho;
+  __device__ __forceinline__ void operator()(const T f[9], T coll[9]) const {
+    T rho, mx, my;
+    lbm::moments(f, rho, mx, my);
+    const T inv_rho = T(1.0) / rho;
+    const T ux = mx * inv_rho;
+    const T uy = my * inv_rho;
 
-  const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
-  T coll[9];
-  const T feq0 = T(lbm::weight(0)) * rho * p.t0;
-  coll[0] = f[0] - w_plus * (f[0] - feq0);
+    const lbm::Pairs<T> p = lbm::d2q9_pairs(ux, uy);
+    const T feq0 = T(lbm::weight(0)) * rho * p.t0;
+    coll[0] = f[0] - w_plus * (f[0] - feq0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = lbm::pair_kp(i);
-    const int km = lbm::pair_km(i);
-    const T wr = T(lbm::weight(kp)) * rho;
-    const T even_eq = wr * (p.t0 + T(4.5) * p.cc[i]);
-    const T odd_eq = wr * (T(3.0) * p.cu[i]);
-    const T ne_even = T(0.5) * (f[kp] + f[km]) - even_eq;
-    const T ne_odd = T(0.5) * (f[kp] - f[km]) - odd_eq;
-    const T d_even = w_plus * ne_even;
-    const T d_odd = w_minus * ne_odd;
-    coll[kp] = f[kp] - (d_even + d_odd);
-    coll[km] = f[km] - (d_even - d_odd);
+    for (int i = 0; i < 4; ++i) {
+      const int kp = lbm::pair_kp(i);
+      const int km = lbm::pair_km(i);
+      const T wr = T(lbm::weight(kp)) * rho;
+      const T even_eq = wr * (p.t0 + T(4.5) * p.cc[i]);
+      const T odd_eq = wr * (T(3.0) * p.cu[i]);
+      const T ne_even = T(0.5) * (f[kp] + f[km]) - even_eq;
+      const T ne_odd = T(0.5) * (f[kp] - f[km]) - odd_eq;
+      const T d_even = w_plus * ne_even;
+      const T d_odd = w_minus * ne_odd;
+      coll[kp] = f[kp] - (d_even + d_odd);
+      coll[km] = f[km] - (d_even - d_odd);
+    }
   }
-
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int64_t rr = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cc = lbm::wrap(c + lbm::cy(k), C);
-    fout[k * n + rr * C + cc] = coll[k];
-  }
-}
+};
 
 template <typename T>
-int launch(const void* fin, void* fout, long long R, long long C,
-           double omega_plus, double omega_minus, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  collide_stream_trt_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), R, C,
-      static_cast<T>(omega_plus), static_cast<T>(omega_minus));
-  return static_cast<int>(cudaGetLastError());
+Trt<T> trt(double omega_plus, double omega_minus) {
+  return {static_cast<T>(omega_plus), static_cast<T>(omega_minus)};
 }
 
 }  // namespace
@@ -91,6 +75,16 @@ extern "C" int lbm_collide_stream_trt(const void* fin, void* fout, long long R,
                                       double omega_minus, int is_f64,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(fin, fout, R, C, omega_plus, omega_minus, s)
-                : launch<float>(fin, fout, R, C, omega_plus, omega_minus, s);
+  return is_f64
+             ? lbm::launch_periodic<double>(fin, fout, R, C, trt<double>(omega_plus, omega_minus), s)
+             : lbm::launch_periodic<float>(fin, fout, R, C, trt<float>(omega_plus, omega_minus), s);
+}
+
+// Kernel 27, TRT instance: one sweep with the geometry `geom`
+// (csrc/halo.cuh); params = {omega_plus, omega_minus}.
+extern "C" int lbm_halo_trt(const long long* geom, const double* params, int, int,
+                            int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? lbm::launch_halo<double>(geom, trt<double>(params[0], params[1]), s)
+                : lbm::launch_halo<float>(geom, trt<float>(params[0], params[1]), s);
 }

@@ -11,9 +11,30 @@
 // a plane.  Offsets are 64-bit: a 4096x2048 plane set has 75M entries.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace lbm {
+
+// The opt-in of `kernel` to `bytes` of dynamic shared memory, once per
+// device: the attribute belongs to the device, so a process that launches
+// on several cards sets it on each.  `done` holds a flag per device id.
+// The first call on a device must not fall inside a CUDA graph's capture
+// (the callers' warm-up launches come first).
+constexpr int MAX_DEVICES = 64;
+
+template <typename K>
+inline cudaError_t smem_opt_in(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
+}
 
 __host__ __device__ constexpr int cx(int k) {
   return (k == 1 || k == 5 || k == 8) ? 1 : (k == 3 || k == 6 || k == 7) ? -1 : 0;

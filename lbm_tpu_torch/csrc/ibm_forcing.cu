@@ -174,15 +174,12 @@ int launch(const void* fin, void* Fout, long long R, long long C, int r0, int c0
   if (scratch == nullptr) {
     if (bytes > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
     smem = static_cast<size_t>(bytes);
-    // the opt-in above 48 KB, once per type (the first launch: never inside
-    // a CUDA graph's capture, which follows a warm-up launch)
-    static bool opted_in = false;
-    if (smem > 48 * 1024 && !opted_in) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          ibm_forcing_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(SMEM_LIMIT));
+    // the opt-in above 48 KB, once per type and device
+    static bool opted_in[lbm::MAX_DEVICES] = {};
+    if (smem > 48 * 1024) {
+      const cudaError_t e = lbm::smem_opt_in(ibm_forcing_kernel<T>,
+                                             static_cast<int>(SMEM_LIMIT), opted_in);
       if (e != cudaSuccess) return static_cast<int>(e);
-      opted_in = true;
     }
   }
   ibm_forcing_kernel<T><<<1, THREADS, smem, stream>>>(

@@ -415,15 +415,12 @@ int launch(const void* fin, const void* st_in, const void* dx, const void* dy, v
     const long long bytes = work_bytes(wr * cw, B * Mb, static_cast<int>(sizeof(T)));
     if (bytes > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
     smem = static_cast<size_t>(bytes);
-    // the opt-in above 48 KB, once per instantiation (the first launch:
-    // never inside a CUDA graph's capture, which follows a warm-up launch)
-    static bool opted_in = false;
-    if (smem > 48 * 1024 && !opted_in) {
-      const cudaError_t e = cudaFuncSetAttribute(moving_kernel<T, VARIANT>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(SMEM_LIMIT));
+    // the opt-in above 48 KB, once per instantiation and device
+    static bool opted_in[lbm::MAX_DEVICES] = {};
+    if (smem > 48 * 1024) {
+      const cudaError_t e = lbm::smem_opt_in(moving_kernel<T, VARIANT>,
+                                             static_cast<int>(SMEM_LIMIT), opted_in);
       if (e != cudaSuccess) return static_cast<int>(e);
-      opted_in = true;
     }
   }
   moving_kernel<T, VARIANT><<<1, THREADS, smem, stream>>>(

@@ -41,6 +41,7 @@
 #include <cstdint>
 
 #include "d2q9.cuh"
+#include "halo.cuh"
 
 namespace lbm {
 namespace mrtcg {
@@ -139,15 +140,16 @@ struct Window {
 
 // 5x5 cross-correlation of a window field at global (gr, gc), replicate
 // padded, taps in row-major order with zero weights skipped (the order of
-// ops/gradients.py::correlate2d_replicate).
-template <int DIR, typename T, int H>
+// ops/gradients.py::correlate2d_replicate).  The mask-free instance (EDGE
+// false: a shard whose rows stay clear of the grid's walls) clamps no row.
+template <int DIR, typename T, int H, bool EDGE = true>
 __device__ __forceinline__ T corr5(const T* field, const Window<H>& w, int64_t gr,
                                    int64_t gc, int64_t R, int64_t C) {
   T acc = T(0);
   bool have = false;
 #pragma unroll
   for (int a = 0; a < 5; ++a) {
-    const int64_t rr = clamp_index(gr + a - 2, R);
+    const int64_t rr = EDGE ? clamp_index(gr + a - 2, R) : gr + a - 2;
 #pragma unroll
     for (int b = 0; b < 5; ++b) {
       const double wt = k5<DIR>(a, b);
@@ -253,11 +255,11 @@ __device__ __forceinline__ T relax(T psi, const Params<T>& p) {
 }
 
 // The normal n = -grad(psi) / (1e-20 + |grad(psi)|) at one cell.
-template <typename T, int H>
+template <typename T, int H, bool EDGE>
 __device__ __forceinline__ void normal(const T* s_psi, const Window<H>& w, int64_t gr,
                                        int64_t gc, int64_t R, int64_t C, T& nx, T& ny) {
-  const T gpx = corr5<0>(s_psi, w, gr, gc, R, C);
-  const T gpy = corr5<1>(s_psi, w, gr, gc, R, C);
+  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, C);
+  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, C);
   const T gn = sqrt(gpx * gpx + gpy * gpy);
   const T inv_gn = T(1.0) / (T(1e-20) + gn);
   nx = -(gpx * inv_gn);
@@ -323,7 +325,7 @@ __device__ __forceinline__ T midot_odd(int k, const T v[9]) {
 // The collision of one cell (kernels/mrtcg.py::make_collide).  ``out``
 // gets the 9 values of channel A then the 9 of channel B: red and blue
 // (ROUT false) or the colour sum and red (ROUT true).
-template <typename T, bool CSF, bool ROUT, int H>
+template <typename T, bool CSF, bool ROUT, int H, bool EDGE>
 __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& p,
                                              const T* s_psi, const T* s_qx, const T* s_qy,
                                              const T* s_nx, const T* s_ny,
@@ -339,8 +341,8 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
 
   const T psi = phase(m, p);
   const T s_nu = relax(psi, p);
-  const T gpx = corr5<0>(s_psi, w, gr, gc, R, C);
-  const T gpy = corr5<1>(s_psi, w, gr, gc, R, C);
+  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, C);
+  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, C);
   const T gn = sqrt(gpx * gpx + gpy * gpy);
   const T inv_gn = T(1.0) / (T(1e-20) + gn);
 
@@ -359,8 +361,8 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   meq[6] = uy * gq;
   meq[7] = rho2 * (x2 - y2);
   meq[8] = rho2 * (ux * uy);
-  const T dxqx = corr5<0>(s_qx, w, gr, gc, R, C);
-  const T dyqy = corr5<1>(s_qy, w, gr, gc, R, C);
+  const T dxqx = corr5<0, T, H, EDGE>(s_qx, w, gr, gc, R, C);
+  const T dyqy = corr5<1, T, H, EDGE>(s_qy, w, gr, gc, R, C);
   const T c1 = T(3.0 * (1.0 - 0.5 * 1.25)) * (dxqx + dyqy);
   const T c7 = (T(1.0) - T(0.5) * s_nu) * (dxqx - dyqy);
 
@@ -400,10 +402,10 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   } else {
     const T nx = -(gpx * inv_gn);
     const T ny = -(gpy * inv_gn);
-    const T dxnx = corr5<0>(s_nx, w, gr, gc, R, C);
-    const T dynx = corr5<1>(s_nx, w, gr, gc, R, C);
-    const T dxny = corr5<0>(s_ny, w, gr, gc, R, C);
-    const T dyny = corr5<1>(s_ny, w, gr, gc, R, C);
+    const T dxnx = corr5<0, T, H, EDGE>(s_nx, w, gr, gc, R, C);
+    const T dynx = corr5<1, T, H, EDGE>(s_nx, w, gr, gc, R, C);
+    const T dxny = corr5<0, T, H, EDGE>(s_ny, w, gr, gc, R, C);
+    const T dyny = corr5<1, T, H, EDGE>(s_ny, w, gr, gc, R, C);
     const T K = nx * ny * (dynx + dxny) - nx * nx * dyny - ny * ny * dxnx;
     fstx = p.v[M_HALF_SIGMA] * (K * gpx);
     fsty = p.v[M_HALF_SIGMA] * (K * gpy);
@@ -476,17 +478,20 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
 // by the select chain of _stream_with_bcs (periodic, then the column
 // repair without the diagonal offset on rows 1..R-2, then bounce-back on
 // row R-1 and, written last, on row 0).  Each output entry has exactly
-// one writer, its own thread.
+// one writer, its own thread.  The mask-free instance (EDGE false) has
+// no wall row.
 struct PullSource {
   int slot, plane;
 };
 
+template <bool EDGE = true>
 __device__ __forceinline__ PullSource pull_source(int k, int ty, int tx, int64_t gr,
                                                   int64_t gc, int64_t R, int64_t C) {
-  const bool interior = gr >= 1 && gr <= R - 2;
+  const bool interior = !EDGE || (gr >= 1 && gr <= R - 2);
   int sr = ty + 1 - cx(k), sc = tx + 1 - cy(k), sk = k;  // periodic stream
   if (interior && ((gc == 0 && cy(k) > 0) || (gc == C - 1 && cy(k) < 0)))
     sr = ty + 1;  // periodic column repair without the diagonal offset
+  if (!EDGE) return {sr * RING_C + sc, sk};
   if (gr == R - 1 && cx(k) < 0) {  // bounce-back on row R-1
     sr = ty + 1;
     sc = tx + 1;
@@ -500,6 +505,31 @@ __device__ __forceinline__ PullSource pull_source(int k, int ty, int tx, int64_t
   return {sr * RING_C + sc, sk};
 }
 
+// Where a step reads and writes, by global row: one (planes, R, C) buffer
+// in and one out (the single-device kernels; lbm::halo::ShardIO is a row
+// shard with halo inputs, kernels 29 and 30).
+template <typename T>
+struct FlatIO {
+  const T* in;
+  T* out;
+  int64_t n, C;
+
+  __device__ __forceinline__ const T* src(int64_t gr, int64_t gc, int64_t& plane) const {
+    plane = n;
+    return in + gr * C + gc;
+  }
+  __device__ __forceinline__ T* dst(int64_t gr, int64_t gc, int64_t& plane) const {
+    plane = n;
+    return out + gr * C + gc;
+  }
+};
+
+// The global rows of a launch: the grid's R (its walls at rows 0 and R-1),
+// the rows it may read [rd_lo, rd_hi) and the rows it writes [o_lo, o_hi).
+struct Rows {
+  int64_t R, rd_lo, rd_hi, o_lo, o_hi;
+};
+
 template <int H>
 __host__ __device__ constexpr int scalar_fields() {
   return H == 5 ? 5 : 3;
@@ -511,10 +541,9 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (scalar_fields<H>() * Window<H>::N + 18 * RING_N);
 }
 
-template <typename T, bool CSF, bool RIN, bool ROUT>
+template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE>
 __global__ void __launch_bounds__(THREADS)
-    mrtcg_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t R, int64_t C,
-                 const Params<T> p) {
+    mrtcg_kernel(const IO io, const Rows rows, int64_t C, const Params<T> p) {
   constexpr int H = CSF ? 5 : 3;
   using Win = Window<H>;
   extern __shared__ unsigned char smem_raw[];
@@ -525,8 +554,8 @@ __global__ void __launch_bounds__(THREADS)
   T* s_ny = s_nx + Win::N;
   T* s_ring = s_psi + scalar_fields<H>() * Win::N;
 
-  const int64_t n = R * C;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t R = rows.R;
+  const int64_t r0 = rows.o_lo + static_cast<int64_t>(blockIdx.y) * TY;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
   const int tid = threadIdx.x;
   const bool left = c0 == 0;
@@ -535,11 +564,19 @@ __global__ void __launch_bounds__(THREADS)
   w.r0 = r0;
   w.c0 = c0;
   w.seam_lo = left ? C - H : 0;
+  auto readable = [&](int64_t gr, int64_t gc) {
+    return gr >= rows.rd_lo && gr < rows.rd_hi && gc >= 0 && gc < C;
+  };
+  auto load = [&](int64_t gr, int64_t gc, Cell<T>& m) {
+    int64_t plane;
+    const T* q = io.src(gr, gc, plane);
+    load_cell<T, CSF, RIN>(q, plane, 0, m);
+  };
 
   // stage 1: psi, q_c ux, q_c uy on the window (main columns, then the seam)
   auto scalars = [&](int64_t gr, int64_t gc, int slot) {
     Cell<T> m;
-    load_cell<T, CSF, RIN>(in, n, gr * C + gc, m);
+    load(gr, gc, m);
     const Velocity<T> v = velocity<T, CSF>(m, p);
     const T q_c = p.v[R_ALPHA_C] * m.r_rho + p.v[B_ALPHA_C] * m.b_rho;
     s_psi[slot] = phase(m, p);
@@ -549,14 +586,13 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = tid; i < Win::ROWS * Win::MAIN; i += THREADS) {
     const int wr = i / Win::MAIN, wc = i % Win::MAIN;
     const int64_t gr = r0 - H + wr, gc = c0 - H + wc;
-    if (gr >= 0 && gr < R && gc >= 0 && gc < C) scalars(gr, gc, wr * Win::COLS + wc);
+    if (readable(gr, gc)) scalars(gr, gc, wr * Win::COLS + wc);
   }
   if (left || right) {
     for (int i = tid; i < Win::ROWS * H; i += THREADS) {
       const int wr = i / H, q = i % H;
       const int64_t gr = r0 - H + wr, gc = w.seam_lo + q;
-      if (gr >= 0 && gr < R && gc >= 0 && gc < C)
-        scalars(gr, gc, wr * Win::COLS + Win::MAIN + q);
+      if (readable(gr, gc)) scalars(gr, gc, wr * Win::COLS + Win::MAIN + q);
     }
   }
   __syncthreads();
@@ -566,41 +602,44 @@ __global__ void __launch_bounds__(THREADS)
     constexpr int NR = TY + 6, NC = TX + 6;
     for (int i = tid; i < NR * NC; i += THREADS) {
       const int64_t gr = r0 - 3 + i / NC, gc = c0 - 3 + i % NC;
-      if (gr >= 0 && gr < R && gc >= 0 && gc < C)
-        normal(s_psi, w, gr, gc, R, C, s_nx[w.slot(gr, gc)], s_ny[w.slot(gr, gc)]);
+      if (readable(gr, gc))
+        normal<T, H, EDGE>(s_psi, w, gr, gc, R, C, s_nx[w.slot(gr, gc)], s_ny[w.slot(gr, gc)]);
     }
     if (left || right) {
       // the seam cells the wrapped ring column's stencil reads
       const int64_t lo = left ? C - 3 : 0;
       for (int i = tid; i < (TY + 6) * 3; i += THREADS) {
         const int64_t gr = r0 - 3 + i / 3, gc = lo + i % 3;
-        if (gr >= 0 && gr < R && gc >= 0 && gc < C)
-          normal(s_psi, w, gr, gc, R, C, s_nx[w.slot(gr, gc)], s_ny[w.slot(gr, gc)]);
+        if (readable(gr, gc))
+          normal<T, H, EDGE>(s_psi, w, gr, gc, R, C, s_nx[w.slot(gr, gc)],
+                             s_ny[w.slot(gr, gc)]);
       }
     }
     __syncthreads();
   }
 
   // stage 2: the collision on the tile plus a 1-cell ring
-  const int64_t nrows = R - r0 < TY ? R - r0 : TY;
+  const int64_t nrows = rows.o_hi - r0 < TY ? rows.o_hi - r0 : TY;
   const int64_t ncols = C - c0 < TX ? C - c0 : TX;
   for (int i = tid; i < RING_N; i += THREADS) {
     const int ri = i / RING_C, rj = i % RING_C;
     const int64_t gr = r0 - 1 + ri;
-    if (ri > nrows + 1 || rj > ncols + 1 || gr < 0 || gr >= R) continue;
+    if (ri > nrows + 1 || rj > ncols + 1 || gr < rows.rd_lo || gr >= rows.rd_hi) continue;
     const int64_t gc = wrap(c0 - 1 + rj, C);
     Cell<T> m;
-    load_cell<T, CSF, RIN>(in, n, gr * C + gc, m);
+    load(gr, gc, m);
     T coll[18];
     T fx, fy;
-    collide_cell<T, CSF, ROUT, H>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, w, gr, gc, R, C,
-                                  coll, fx, fy);
+    collide_cell<T, CSF, ROUT, H, EDGE>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, w, gr, gc, R, C,
+                                        coll, fx, fy);
 #pragma unroll
     for (int k = 0; k < 18; ++k) s_ring[k * RING_N + i] = coll[k];
     if (CSF && ri >= 1 && ri <= nrows && rj >= 1 && rj <= ncols) {
       const int fp = ROUT ? 10 : 18;  // fst is carried, not streamed
-      out[fp * n + gr * C + gc] = fx;
-      out[(fp + 1) * n + gr * C + gc] = fy;
+      int64_t plane;
+      T* q = io.dst(gr, gc, plane);
+      q[fp * plane] = fx;
+      q[(fp + 1) * plane] = fy;
     }
   }
   __syncthreads();
@@ -609,43 +648,70 @@ __global__ void __launch_bounds__(THREADS)
   const int ty = tid / TX, tx = tid % TX;
   if (ty >= nrows || tx >= ncols) return;
   const int64_t gr = r0 + ty, gc = c0 + tx;
-  const int64_t cell = gr * C + gc;
+  int64_t plane;
+  T* q = io.dst(gr, gc, plane);
   T red_sum = T(0);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const PullSource src = pull_source(k, ty, tx, gr, gc, R, C);
-    out[k * n + cell] = s_ring[src.plane * RING_N + src.slot];
+    const PullSource src = pull_source<EDGE>(k, ty, tx, gr, gc, R, C);
+    q[k * plane] = s_ring[src.plane * RING_N + src.slot];
     const T b = s_ring[(9 + src.plane) * RING_N + src.slot];
     if (ROUT)
       red_sum = k == 0 ? b : red_sum + b;
     else
-      out[(9 + k) * n + cell] = b;
+      q[(9 + k) * plane] = b;
   }
-  if (ROUT) out[9 * n + cell] = red_sum;
+  if (ROUT) q[9 * plane] = red_sum;
 }
 
-// One step in -> out (distinct buffers) on `stream`; returns the cudaError_t
-// of the launch (0 = accepted).
+// One launch over the rows `rows` with the memory `io`; returns the
+// cudaError_t of the launch (0 = accepted).
+template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE>
+int launch_rows(const IO& io, const Rows& rows, int64_t C, const double* params,
+                cudaStream_t stream) {
+  if (rows.o_hi <= rows.o_lo || C <= 0) return 0;
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  constexpr size_t smem = smem_bytes<T, CSF>();
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t e = smem_opt_in(mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE>,
+                                    static_cast<int>(smem), configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((C + TX - 1) / TX),
+                  static_cast<unsigned>((rows.o_hi - rows.o_lo + TY - 1) / TY));
+  mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE><<<grid, THREADS, smem, stream>>>(io, rows, C, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One step in -> out (distinct buffers) on `stream`.
 template <typename T, bool CSF, bool RIN, bool ROUT>
 int launch(const void* in, void* out, long long R, long long C, const double* params,
            cudaStream_t stream) {
   if (R <= 0 || C <= 0) return 0;
-  Params<T> p;
-  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
-  constexpr size_t smem = smem_bytes<T, CSF>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mrtcg_kernel<T, CSF, RIN, ROUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const dim3 grid(static_cast<unsigned>((C + TX - 1) / TX),
-                  static_cast<unsigned>((R + TY - 1) / TY));
-  mrtcg_kernel<T, CSF, RIN, ROUT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), R, C, p);
-  return static_cast<int>(cudaGetLastError());
+  const FlatIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), R * C, C};
+  return launch_rows<T, CSF, RIN, ROUT, FlatIO<T>, true>(io, Rows{R, 0, R, 0, R}, C, params,
+                                                         stream);
+}
+
+// The rows of a halo launch (csrc/halo.cuh) in global terms.
+template <typename T>
+Rows halo_rows(const lbm::halo::Launch<T>& L) {
+  return Rows{L.R, L.global(L.in_lo), L.global(L.in_hi), L.global(L.out.lo),
+              L.global(L.out.hi)};
+}
+
+// Kernel 29: one sweep of the reduced step on a row shard with halo inputs,
+// geometry `geom`; the masked instance on the edge ranks.
+template <typename T, bool CSF>
+int launch_halo(const long long* geom, const double* params, cudaStream_t stream) {
+  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
+  if (L.R < 4 || L.in.C < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const lbm::halo::ShardIO<T> io{L.in, L.out, L.off};
+  using IO = lbm::halo::ShardIO<T>;
+  return L.edge
+             ? launch_rows<T, CSF, true, true, IO, true>(io, halo_rows(L), L.in.C, params, stream)
+             : launch_rows<T, CSF, true, true, IO, false>(io, halo_rows(L), L.in.C, params,
+                                                          stream);
 }
 
 template <bool RIN, bool ROUT>

@@ -20,10 +20,33 @@
 // version; the levers are in PERF.md.  At the reference's 256x128 one
 // step takes ~6 us on the card and ~30 us to issue from the host.
 
+//
+// This source also holds kernel 29, lbm_halo_mrtcg_reduced: the same step
+// on a row shard with halo inputs (csrc/halo.cuh, kernels/sharded.py),
+// from the same tile engine with its memory by global row
+// (lbm::halo::ShardIO): the row loader maps the rows beyond the shard to
+// the halo buffers or the scratch slab, the replicate padding and the wall
+// rows stay at the grid's global rows 0 and R-1, and interior ranks run
+// the instance without row clamps or wall rows.  It replaces
+// lbm_tpu/kernels/sharded_pallas.py:453 make_sharded_mrtcg_reduced_step.
+
 #include "mrtcg.cuh"
 
 extern "C" int lbm_mrtcg_reduced(const void* in, void* out, long long R, long long C,
                                  const double* params, int csf, int is_f64,
                                  void* stream) {
   return lbm::mrtcg::dispatch<true, true>(in, out, R, C, params, csf, is_f64, stream);
+}
+
+// Kernel 29: one sweep of the reduced step on a row shard, geometry `geom`
+// (csrc/halo.cuh), `params` those of lbm_mrtcg_reduced.
+extern "C" int lbm_halo_mrtcg_reduced(const long long* geom, const double* params, int csf,
+                                      int, int is_f64, void* stream) {
+  using namespace lbm::mrtcg;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return csf ? launch_halo<double, true>(geom, params, s)
+               : launch_halo<double, false>(geom, params, s);
+  return csf ? launch_halo<float, true>(geom, params, s)
+             : launch_halo<float, false>(geom, params, s);
 }

@@ -22,6 +22,11 @@
 // with mrtcg::pull_source, writes f = red + blue per direction and the two
 // colour sums in ascending k.  One writer per output entry, no atomics.
 //
+// This source also holds kernel 30, lbm_halo_rk: the same step on a row
+// shard with halo inputs (csrc/halo.cuh, kernels/sharded.py), its memory
+// by global row (lbm::halo::ShardIO) as kernel 29's; it replaces
+// lbm_tpu/kernels/sharded_pallas.py:486 make_sharded_rk_step.
+//
 // Bound: device-memory bytes.  88 B/cell in float32 (11 planes read once,
 // 11 written once), 176 in float64, against 416 operations per cell
 // counted on the plain version (chip_smoke.py phase 6); at 4096x2048 the
@@ -64,7 +69,7 @@ __host__ __device__ constexpr double ncy(int i) {
 
 // The collision of one cell (kernels/rk.py::make_collide): red in out[0..8],
 // blue in out[9..17].
-template <typename T>
+template <typename T, bool EDGE>
 __device__ __forceinline__ void collide_cell(const T* __restrict__ in, int64_t n,
                                              int64_t cell, const Params<T>& p,
                                              const T* s_af, const Win& w, int64_t gr,
@@ -86,8 +91,8 @@ __device__ __forceinline__ void collide_cell(const T* __restrict__ in, int64_t n
   const T phi_ax = T(0.2) - T(0.2) * alpha;
   const T phi_di = T(0.05) - T(0.05) * alpha;
 
-  const T Fx = mc::corr5<0>(s_af, w, gr, gc, R, C);
-  const T Fy = mc::corr5<1>(s_af, w, gr, gc, R, C);
+  const T Fx = mc::corr5<0, T, H, EDGE>(s_af, w, gr, gc, R, C);
+  const T Fy = mc::corr5<1, T, H, EDGE>(s_af, w, gr, gc, R, C);
   const T Fn = sqrt(Fx * Fx + Fy * Fy);
   const T inv_Fn = T(1.0) / (Fn + T(1e-20));
 
@@ -146,10 +151,9 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (Win::N + 18 * mc::RING_N);
 }
 
-template <typename T>
+template <typename T, typename IO, bool EDGE>
 __global__ void __launch_bounds__(mc::THREADS)
-    rk_cg_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t R, int64_t C,
-                 const Params<T> p) {
+    rk_cg_kernel(const IO io, const mc::Rows rows, int64_t C, const Params<T> p) {
   using mc::RING_C;
   using mc::RING_N;
   using mc::TX;
@@ -158,8 +162,8 @@ __global__ void __launch_bounds__(mc::THREADS)
   T* s_af = reinterpret_cast<T*>(smem_raw);
   T* s_ring = s_af + Win::N;
 
-  const int64_t n = R * C;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t R = rows.R;
+  const int64_t r0 = rows.o_lo + static_cast<int64_t>(blockIdx.y) * TY;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
   const int tid = threadIdx.x;
   const bool left = c0 == 0;
@@ -168,39 +172,44 @@ __global__ void __launch_bounds__(mc::THREADS)
   w.r0 = r0;
   w.c0 = c0;
   w.seam_lo = left ? C - H : 0;
+  auto readable = [&](int64_t gr, int64_t gc) {
+    return gr >= rows.rd_lo && gr < rows.rd_hi && gc >= 0 && gc < C;
+  };
 
   // stage 1: r_rho / rho on the window (main columns, then the seam)
   auto a_frac = [&](int64_t gr, int64_t gc, int slot) {
-    const int64_t cell = gr * C + gc;
-    const T r_rho = in[9 * n + cell];
-    const T rho = r_rho + in[10 * n + cell];
+    int64_t plane;
+    const T* q = io.src(gr, gc, plane);
+    const T r_rho = q[9 * plane];
+    const T rho = r_rho + q[10 * plane];
     s_af[slot] = r_rho * (T(1.0) / rho);
   };
   for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {
     const int wr = i / Win::MAIN, wc = i % Win::MAIN;
     const int64_t gr = r0 - H + wr, gc = c0 - H + wc;
-    if (gr >= 0 && gr < R && gc >= 0 && gc < C) a_frac(gr, gc, wr * Win::COLS + wc);
+    if (readable(gr, gc)) a_frac(gr, gc, wr * Win::COLS + wc);
   }
   if (left || right) {
     for (int i = tid; i < Win::ROWS * H; i += mc::THREADS) {
       const int wr = i / H, q = i % H;
       const int64_t gr = r0 - H + wr, gc = w.seam_lo + q;
-      if (gr >= 0 && gr < R && gc >= 0 && gc < C)
-        a_frac(gr, gc, wr * Win::COLS + Win::MAIN + q);
+      if (readable(gr, gc)) a_frac(gr, gc, wr * Win::COLS + Win::MAIN + q);
     }
   }
   __syncthreads();
 
   // stage 2: the collision on the tile plus a 1-cell ring
-  const int64_t nrows = R - r0 < TY ? R - r0 : TY;
+  const int64_t nrows = rows.o_hi - r0 < TY ? rows.o_hi - r0 : TY;
   const int64_t ncols = C - c0 < TX ? C - c0 : TX;
   for (int i = tid; i < RING_N; i += mc::THREADS) {
     const int ri = i / RING_C, rj = i % RING_C;
     const int64_t gr = r0 - 1 + ri;
-    if (ri > nrows + 1 || rj > ncols + 1 || gr < 0 || gr >= R) continue;
+    if (ri > nrows + 1 || rj > ncols + 1 || gr < rows.rd_lo || gr >= rows.rd_hi) continue;
     const int64_t gc = wrap(c0 - 1 + rj, C);
+    int64_t plane;
+    const T* q = io.src(gr, gc, plane);
     T coll[18];
-    collide_cell<T>(in, n, gr * C + gc, p, s_af, w, gr, gc, R, C, coll);
+    collide_cell<T, EDGE>(q, plane, 0, p, s_af, w, gr, gc, R, C, coll);
 #pragma unroll
     for (int k = 0; k < 18; ++k) s_ring[k * RING_N + i] = coll[k];
   }
@@ -210,40 +219,57 @@ __global__ void __launch_bounds__(mc::THREADS)
   const int ty = tid / TX, tx = tid % TX;
   if (ty >= nrows || tx >= ncols) return;
   const int64_t gr = r0 + ty, gc = c0 + tx;
-  const int64_t cell = gr * C + gc;
+  int64_t plane;
+  T* q = io.dst(gr, gc, plane);
   T r_sum = T(0), b_sum = T(0);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const mc::PullSource src = mc::pull_source(k, ty, tx, gr, gc, R, C);
+    const mc::PullSource src = mc::pull_source<EDGE>(k, ty, tx, gr, gc, R, C);
     const T r = s_ring[src.plane * RING_N + src.slot];
     const T b = s_ring[(9 + src.plane) * RING_N + src.slot];
-    out[k * n + cell] = r + b;
+    q[k * plane] = r + b;
     r_sum = k == 0 ? r : r_sum + r;
     b_sum = k == 0 ? b : b_sum + b;
   }
-  out[9 * n + cell] = r_sum;
-  out[10 * n + cell] = b_sum;
+  q[9 * plane] = r_sum;
+  q[10 * plane] = b_sum;
+}
+
+template <typename T, typename IO, bool EDGE>
+int launch_rows(const IO& io, const mc::Rows& rows, int64_t C, const double* params,
+                cudaStream_t stream) {
+  if (rows.o_hi <= rows.o_lo || C <= 0) return 0;
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  constexpr size_t smem = smem_bytes<T>();
+  static bool configured[lbm::MAX_DEVICES] = {};
+  const cudaError_t e = lbm::smem_opt_in(rk_cg_kernel<T, IO, EDGE>, static_cast<int>(smem),
+                                         configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((C + mc::TX - 1) / mc::TX),
+                  static_cast<unsigned>((rows.o_hi - rows.o_lo + mc::TY - 1) / mc::TY));
+  rk_cg_kernel<T, IO, EDGE><<<grid, mc::THREADS, smem, stream>>>(io, rows, C, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* in, void* out, long long R, long long C, const double* params,
            cudaStream_t stream) {
   if (R <= 0 || C <= 0) return 0;
-  Params<T> p;
-  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
-  constexpr size_t smem = smem_bytes<T>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rk_cg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const dim3 grid(static_cast<unsigned>((C + mc::TX - 1) / mc::TX),
-                  static_cast<unsigned>((R + mc::TY - 1) / mc::TY));
-  rk_cg_kernel<T><<<grid, mc::THREADS, smem, stream>>>(static_cast<const T*>(in),
-                                                        static_cast<T*>(out), R, C, p);
-  return static_cast<int>(cudaGetLastError());
+  const mc::FlatIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), R * C, C};
+  return launch_rows<T, mc::FlatIO<T>, true>(io, mc::Rows{R, 0, R, 0, R}, C, params, stream);
+}
+
+// Kernel 30: one sweep on a row shard with halo inputs, geometry `geom`.
+template <typename T>
+int launch_halo(const long long* geom, const double* params, cudaStream_t stream) {
+  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
+  if (L.R < 4 || L.in.C < 3) return static_cast<int>(cudaErrorInvalidValue);
+  using IO = lbm::halo::ShardIO<T>;
+  const IO io{L.in, L.out, L.off};
+  const mc::Rows rows = mc::halo_rows(L);
+  return L.edge ? launch_rows<T, IO, true>(io, rows, L.in.C, params, stream)
+                : launch_rows<T, IO, false>(io, rows, L.in.C, params, stream);
 }
 
 }  // namespace
@@ -256,4 +282,12 @@ extern "C" int lbm_rk_cg(const void* in, void* out, long long R, long long C,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(in, out, R, C, params, s)
                 : launch<float>(in, out, R, C, params, s);
+}
+
+// Kernel 30: one sweep of the step on a row shard, geometry `geom`
+// (csrc/halo.cuh), `params` those of lbm_rk_cg.
+extern "C" int lbm_halo_rk(const long long* geom, const double* params, int, int, int is_f64,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo<double>(geom, params, s) : launch_halo<float>(geom, params, s);
 }

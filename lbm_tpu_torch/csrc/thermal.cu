@@ -47,6 +47,13 @@
 //
 // Shapes: R, C >= 4 (the wrapper checks).
 //
+// Kernel 28 (thermal_halo_kernel, lbm_halo_thermal) is kernel 23's D2Q9
+// instance on a row shard with halo inputs (csrc/halo.cuh): the same
+// collision and wall rules, with the walls at the grid's global rows 0 and
+// R-1, the band of each sweep ending there, and no wall test at all on the
+// interior ranks.  It replaces lbm_tpu/kernels/sharded_pallas.py:503
+// make_sharded_thermal_step (body thermal_pallas.py:134).
+//
 // Bound: device-memory bytes, per float32 step 144 B/cell with a D2Q9
 // temperature (18 planes in, 18 out), 112 B/cell with D2Q5 (14 and 14).
 // Left on the table: the ownership test of each push and the wall
@@ -55,6 +62,7 @@
 #include <cuda_runtime.h>
 
 #include "d2q9.cuh"
+#include "halo.cuh"
 
 namespace {
 
@@ -99,20 +107,11 @@ __device__ __forceinline__ void collide_d2q5(const T g[5], T theta, T ux, T uy,
   }
 }
 
-template <typename T, int QG, bool CAVITY>
-__global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R,
-                               int64_t C, Params<T> P) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
-
-  // 1. the macroscopics with the half-force shift
-  T f[9], g[QG];
-  lbm::load9(fin, n, cell, f);
-#pragma unroll
-  for (int k = 0; k < QG; ++k) g[k] = fin[(9 + k) * n + cell];
+// Steps 1 and 2 of one cell: the macroscopics with the half-force shift,
+// then both collisions, the Guo buoyancy source on f.
+template <typename T, int QG>
+__device__ __forceinline__ void collide(const T f[9], const T g[QG], const Params<T>& P,
+                                        T fc[9], T gc[QG]) {
   T rho, mx, my;
   lbm::moments(f, rho, mx, my);
   T theta = g[0];
@@ -122,8 +121,7 @@ __global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, 
   const T ux = mx / rho + T(0.5) * Fx / rho;
   const T uy = my / rho;
 
-  // 2. both collisions, the Guo buoyancy source on f
-  T feq[9], fc[9], gc[QG];
+  T feq[9];
   lbm::equilibrium(rho, ux, uy, feq);
   const T uf = ux * Fx + uy * T(0);
 #pragma unroll
@@ -140,22 +138,13 @@ __global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, 
   } else {
     collide_d2q5(g, theta, ux, uy, P, gc);
   }
+}
 
-  // 3. the periodic push, less the entries a wall rule writes
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int64_t rd = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
-    const unsigned m = owned<QG, CAVITY>(rd, cd, R, C);
-    const int64_t dst = rd * C + cd;
-    if (!(m & (1u << k))) fout[k * n + dst] = fc[k];
-    if (k < QG && !(m & (1u << (9 + k)))) fout[(9 + k) * n + dst] = gc[k];
-  }
-
-  // 4. this cell's wall rules, in lbm_tpu's order
-  const unsigned m = owned<QG, CAVITY>(r, c, R, C);
-  if (!m) return;
-  T go[QG];
+// Step 4's temperature values of the wall cell (r, c), each rule over the
+// last, in lbm_tpu's order: go[k] for the g planes its walls own.
+template <typename T, int QG, bool CAVITY>
+__device__ __forceinline__ void wall_rules(int64_t r, int64_t c, int64_t R, int64_t C,
+                                           const T gc[QG], T go[QG]) {
   if constexpr (CAVITY) {
     if constexpr (QG == 9) {
 #pragma unroll
@@ -187,21 +176,136 @@ __global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, 
       if (r == R - 1) go[3] = -gc[1] - T(1.0 / 6.0);
     }
   }
+}
+
+// The wall cell's writes: f_new[k] = f_coll[opp(k)] and g_new[k] = go[k] for
+// the planes its walls own (mask m), into the planes at `dst`.
+template <typename T, int QG>
+__device__ __forceinline__ void write_walls(unsigned m, const T fc[9], const T go[QG], T* dst,
+                                            int64_t plane) {
 #pragma unroll
   for (int k = 1; k < 9; ++k)
-    if (m & (1u << k)) fout[k * n + cell] = fc[lbm::opp(k)];
+    if (m & (1u << k)) dst[k * plane] = fc[lbm::opp(k)];
 #pragma unroll
   for (int k = 1; k < QG; ++k)
-    if (m & (1u << (9 + k))) fout[(9 + k) * n + cell] = go[k];
+    if (m & (1u << (9 + k))) dst[(9 + k) * plane] = go[k];
+}
+
+template <typename T, int QG, bool CAVITY>
+__global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R,
+                               int64_t C, Params<T> P) {
+  const int64_t n = R * C;
+  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= n) return;
+  const int64_t r = cell / C;
+  const int64_t c = cell - r * C;
+
+  // 1-2. the macroscopics and both collisions
+  T f[9], g[QG];
+  lbm::load9(fin, n, cell, f);
+#pragma unroll
+  for (int k = 0; k < QG; ++k) g[k] = fin[(9 + k) * n + cell];
+  T fc[9], gc[QG];
+  collide<T, QG>(f, g, P, fc, gc);
+
+  // 3. the periodic push, less the entries a wall rule writes
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t rd = lbm::wrap(r + lbm::cx(k), R);
+    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
+    const unsigned m = owned<QG, CAVITY>(rd, cd, R, C);
+    const int64_t dst = rd * C + cd;
+    if (!(m & (1u << k))) fout[k * n + dst] = fc[k];
+    if (k < QG && !(m & (1u << (9 + k)))) fout[(9 + k) * n + dst] = gc[k];
+  }
+
+  // 4. this cell's wall rules, in lbm_tpu's order
+  const unsigned m = owned<QG, CAVITY>(r, c, R, C);
+  if (!m) return;
+  T go[QG];
+  wall_rules<T, QG, CAVITY>(r, c, R, C, gc, go);
+  write_walls<T, QG>(m, fc, go, fout + cell, n);
+}
+
+// Kernel 28: one sweep of the Rayleigh-Benard step (D2Q9 temperature) on a
+// row shard with halo inputs (csrc/halo.cuh).  One thread per cell of the
+// padded rows [in_lo, in_hi); the band ends at the grid's walls, and the
+// wall rules act at the global rows 0 and R-1 (`r`), exactly as kernel
+// 23's do, in the masked (EDGE) instance of ranks 0 and n-1.  The pushes
+// leave the band [out_lo, out_hi) unwritten beyond its rows.
+template <typename T, bool EDGE>
+__global__ void thermal_halo_kernel(lbm::halo::View<T> in, lbm::halo::Out<T> out,
+                                    int64_t in_lo, int64_t n_cells, int64_t off, int64_t R,
+                                    Params<T> P) {
+  constexpr int QG = 9;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_cells) return;
+  const int64_t C = in.C;
+  const int64_t row = i / C;
+  const int64_t p = in_lo + row;
+  const int64_t c = i - row * C;
+  const int64_t r = off - in.halo + p;  // the global row
+
+  int64_t plane;
+  const T* src = in.locate(p, c, plane);
+  T f[9], g[QG];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    f[k] = src[k * plane];
+    g[k] = src[(9 + k) * plane];
+  }
+  T fc[9], gc[QG];
+  collide<T, QG>(f, g, P, fc, gc);
+
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t pd = p + lbm::cx(k);
+    if (!out.has(pd)) continue;
+    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
+    const unsigned m = EDGE ? owned<QG, false>(r + lbm::cx(k), cd, R, C) : 0u;
+    T* dst = out.at(pd, cd);
+    if (!(m & (1u << k))) dst[k * out.plane] = fc[k];
+    if (!(m & (1u << (9 + k)))) dst[(9 + k) * out.plane] = gc[k];
+  }
+
+  if (!EDGE || !out.has(p)) return;
+  const unsigned m = owned<QG, false>(r, c, R, C);
+  if (!m) return;
+  T go[QG];
+  wall_rules<T, QG, false>(r, c, R, C, gc, go);
+  write_walls<T, QG>(m, fc, go, out.at(p, c), out.plane);
+}
+
+template <typename T>
+Params<T> params(const double* d) {
+  Params<T> P;
+  P.omega_f = T(d[0]); P.one_m_omega_f = T(d[1]); P.pref = T(d[2]);
+  P.omega_g = T(d[3]); P.one_m_omega_g = T(d[4]); P.g_beta = T(d[5]);
+  return P;
+}
+
+template <typename T>
+int launch_halo(const long long* geom, const double* d, cudaStream_t stream) {
+  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
+  if (L.R < 4 || L.in.C < 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = (L.in_hi - L.in_lo) * L.in.C;
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  if (L.edge)
+    thermal_halo_kernel<T, true><<<blocks, threads, 0, stream>>>(L.in, L.out, L.in_lo, n, L.off,
+                                                                 L.R, params<T>(d));
+  else
+    thermal_halo_kernel<T, false><<<blocks, threads, 0, stream>>>(L.in, L.out, L.in_lo, n,
+                                                                  L.off, L.R, params<T>(d));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int QG, bool CAVITY>
 int launch(const void* fin, void* fout, long long R, long long C, const double* d,
            cudaStream_t stream) {
   if (R < 4 || C < 4) return static_cast<int>(cudaErrorInvalidValue);
-  Params<T> P;
-  P.omega_f = T(d[0]); P.one_m_omega_f = T(d[1]); P.pref = T(d[2]);
-  P.omega_g = T(d[3]); P.one_m_omega_g = T(d[4]); P.g_beta = T(d[5]);
+  const Params<T> P = params<T>(d);
   const int64_t n = static_cast<int64_t>(R) * C;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
@@ -244,4 +348,13 @@ extern "C" int lbm_heated_cavity_q9(const void* fin, void* fout, long long R, lo
 extern "C" int lbm_heated_cavity_q5(const void* fin, void* fout, long long R, long long C,
                                     const double* consts, int is_f64, void* stream) {
   return dispatch<5, true>(fin, fout, R, C, consts, is_f64, stream);
+}
+
+// Kernel 28: one sweep of the Rayleigh-Benard step with a D2Q9 temperature
+// on a row shard, geometry `geom` (csrc/halo.cuh), `consts` the 6 scalars of
+// lbm_thermal_rb_q9.  Returns the cudaError_t of the launch (0 = accepted).
+extern "C" int lbm_halo_thermal(const long long* geom, const double* consts, int, int,
+                                int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo<double>(geom, consts, s) : launch_halo<float>(geom, consts, s);
 }

@@ -46,6 +46,7 @@ def bgk_collide_fn(omega: float, dtype: torch.dtype):
         return torch.stack([one_m_omega * f[k] + omega_c * feq[k]
                             for k in range(9)])
 
+    fn.halo_kernel = ("bgk", (float(omega),), (0, 0))  # kernels/sharded.py, kernel 27
     return fn
 
 

@@ -133,6 +133,8 @@ def kbc_collide_fn(s2: float, gamma_impl: str = "factored"):
         u = torch.stack([mx / m0, my / m0])
         return kbc.collide(f, m0, u, s2, gamma_impl=gamma_impl)
 
+    # the kind and scalars of kernel 27's KBC instance (kernels/sharded.py)
+    fn.halo_kernel = ("kbc", (float(s2),), (int(gamma_impl == "factored"), 0))
     return fn
 
 

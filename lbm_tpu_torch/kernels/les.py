@@ -61,6 +61,8 @@ def les_collide_fn(tau0: float, cs_smag: float, dtype: torch.dtype):
         om = 1.0 / tau
         return torch.stack([f[k] - om * dq[k] for k in range(9)])
 
+    # the kind and scalars of kernel 27's LES instance (kernels/sharded.py)
+    fn.halo_kernel = ("les", (float(tau0), float(cs_smag)), (0, 0))
     return fn
 
 

@@ -175,7 +175,8 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
     (coll_r, coll_b), the recoloured per-colour post-collision
     populations, or with ``reduced`` (coll_sum, coll_r); in CSF mode a
     third item, the new surface force (fstx, fsty).  ``fst`` is the
-    previous step's force (CSF mode only)."""
+    previous step's force (CSF mode only); ``rows``/``grid_rows`` make the
+    planes a block of a taller grid (ops/gradients.py dx5)."""
     csf = _check_mode(surface_tension)
     (inv_r0, inv_b0, _, _, _, _, _, _, _, _,
      r_phi0, r_phi1, r_phi5, b_phi0, b_phi1, b_phi5,
@@ -190,7 +191,9 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
     r_eta = {1: r_eta1, 5: r_eta5}
     b_eta = {1: b_eta1, 5: b_eta5}
 
-    def collide(fsum, rho, r_rho, b_rho, fst=None, reduced=False):
+    def collide(fsum, rho, r_rho, b_rho, fst=None, reduced=False, rows=None, grid_rows=None):
+        dx5 = lambda x: gradients.dx5(x, rows, grid_rows)  # noqa: E731
+        dy5 = lambda x: gradients.dy5(x, rows, grid_rows)  # noqa: E731
         inv_rho = 1.0 / rho
         fs_p = [fsum[kp] + fsum[km] for kp, km in PAIR_KS]
         fd_p = [fsum[kp] - fsum[km] for kp, km in PAIR_KS]
@@ -211,7 +214,7 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
         b = b_rho * inv_b0
         psi = (a - b) / (a + b)
         s_nu = relax(psi)
-        gpx, gpy = gradients.dx5(psi), gradients.dy5(psi)
+        gpx, gpy = dx5(psi), dy5(psi)
         gn = torch.sqrt(gpx * gpx + gpy * gpy)
         inv_gn = 1.0 / (1e-20 + gn)
 
@@ -231,8 +234,8 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
             8: rho2 * (ux * uy),
         }
         q_c = r_alpha_c * r_rho + b_alpha_c * b_rho
-        dxqx = gradients.dx5(q_c * ux)
-        dyqy = gradients.dy5(q_c * uy)
+        dxqx = dx5(q_c * ux)
+        dyqy = dy5(q_c * uy)
         c1 = 3.0 * (1.0 - 0.5 * 1.25) * (dxqx + dyqy)
         c7 = (1.0 - 0.5 * s_nu) * (dxqx - dyqy)
         o1s = mrt_omega1_pairs(fsum[0], fs_p, fd_p, m_eq, c1, c7, s_nu)
@@ -252,8 +255,8 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
             # fst = -sigma/2 K grad(psi), colour-summed eta perturbation
             nx = -(gpx * inv_gn)
             ny = -(gpy * inv_gn)
-            dxnx, dynx = gradients.dx5(nx), gradients.dy5(nx)
-            dxny, dyny = gradients.dx5(ny), gradients.dy5(ny)
+            dxnx, dynx = dx5(nx), dy5(nx)
+            dxny, dyny = dx5(ny), dy5(ny)
             K = nx * ny * (dynx + dxny) - nx * nx * dyny - ny * ny * dxnx
             fstx = m_half_sigma * (K * gpx)
             fsty = m_half_sigma * (K * gpy)
@@ -315,14 +318,17 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
     return collide
 
 
-def stream_with_bcs(coll) -> list:
+def stream_with_bcs(coll, rows=None, grid_rows=None) -> list:
     """Periodic push streaming plus the multiphase drivers' walls
     (lbm_tpu mrtcg_pallas.py:552-595): columns periodic WITHOUT the
     diagonal offset on rows 1..R-2, then bounce-back on row R-1, then on
-    row 0 (the corners are written last)."""
+    row 0 (the corners are written last).  With ``rows`` (the global
+    indices of the planes' rows) and ``grid_rows``, the planes are a block
+    of a taller grid: the walls sit at its global rows 0 and R-1."""
     R, C = coll[0].shape
     dev = coll[0].device
-    rows = torch.arange(R, device=dev)[:, None]
+    rows = torch.arange(R, device=dev)[:, None] if rows is None else rows[:, None]
+    R = R if grid_rows is None else grid_rows
     cols = torch.arange(C, device=dev)[None, :]
     interior = (rows >= 1) & (rows <= R - 2)
     out, col_rolled = [], []
@@ -344,10 +350,10 @@ def stream_with_bcs(coll) -> list:
     return out
 
 
-def stream_sum_with_bcs(coll) -> torch.Tensor:
+def stream_sum_with_bcs(coll, rows=None, grid_rows=None) -> torch.Tensor:
     """``sum_k stream_with_bcs(coll)[k]`` in ascending k: the next red
     density of the reduced state (lbm_tpu mrtcg_pallas.py:598-635)."""
-    out = stream_with_bcs(coll)
+    out = stream_with_bcs(coll, rows, grid_rows)
     acc = out[0]
     for k in range(1, 9):
         acc = acc + out[k]
@@ -376,19 +382,23 @@ def make_plain_step(red, blue, sigma, gravity=(0.0, 0.0), delta=0.1,
                     apply_gravity_source=True, surface_tension="perturbation",
                     reduced_in=True, reduced_out=True):
     """The plain version of one step on flat planes: reduced -> reduced
-    (kernel 6), reduced -> full (kernel 7) or full -> full (kernel 8)."""
+    (kernel 6), reduced -> full (kernel 7) or full -> full (kernel 8).
+    ``step(S, rows, grid_rows)`` steps a block of consecutive global rows
+    ``rows`` of a taller grid (the walls and the gradients' replicate
+    padding at its global rows 0 and R-1); its edge rows are then stale."""
     csf = _check_mode(surface_tension)
     collide = make_collide(red, blue, sigma, gravity, delta, apply_gravity_source,
                            surface_tension)
 
-    def step(S: torch.Tensor) -> torch.Tensor:
+    def step(S: torch.Tensor, rows=None, grid_rows=None) -> torch.Tensor:
         fsum, rho, r_rho, b_rho, fst = _macros(S, reduced_in, csf)
-        out = collide(fsum, rho, r_rho, b_rho, fst=fst, reduced=reduced_out)
-        planes = stream_with_bcs(out[0])
+        out = collide(fsum, rho, r_rho, b_rho, fst=fst, reduced=reduced_out, rows=rows,
+                      grid_rows=grid_rows)
+        planes = stream_with_bcs(out[0], rows, grid_rows)
         if reduced_out:
-            planes.append(stream_sum_with_bcs(out[1]))
+            planes.append(stream_sum_with_bcs(out[1], rows, grid_rows))
         else:
-            planes += stream_with_bcs(out[1])
+            planes += stream_with_bcs(out[1], rows, grid_rows)
         if csf:
             planes += list(out[2])  # carried, not streamed
         return torch.stack(planes)

@@ -101,6 +101,9 @@ def power_law_collide_fn(cons_K: float, n: float, tau_min: float, tau_max: float
                 else 1.0 / _picard_tau(log_a, rho, iters, c)
         return torch.stack([f[k] - om * dq[k] for k in range(9)])
 
+    # the kind, constants, branch and iterations of kernel 27's power-law
+    # instance (kernels/sharded.py)
+    fn.halo_kernel = ("power_law", tuple(c[k] for k in _CONSTANTS), (branch, int(iters)))
     return fn
 
 

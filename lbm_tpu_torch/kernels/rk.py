@@ -57,12 +57,13 @@ def kernel_params(r_alpha, b_alpha, r_nu, b_nu, sigma, beta, gravity) -> tuple[f
 def make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.0)):
     """``collide(planes) -> (coll_r, coll_b)``: the recoloured per-colour
     post-collision populations of the 11-plane state (lbm_tpu
-    rk_pallas.py:31-127, written term for term)."""
+    rk_pallas.py:31-127, written term for term); ``rows``/``grid_rows``
+    make the planes a block of a taller grid (ops/gradients.py dx5)."""
     (r_alpha, b_alpha, r_nu, b_nu, a_sigma, beta, source, gx, gy,
      *cF3) = kernel_params(r_alpha, b_alpha, r_nu, b_nu, sigma, beta, gravity)
     cF, cF3 = cF3[:4], cF3[4:]
 
-    def collide(planes):
+    def collide(planes, rows=None, grid_rows=None):
         f = [planes[k] for k in range(9)]
         r_rho, b_rho = planes[9], planes[10]
         rho = r_rho + b_rho
@@ -81,7 +82,8 @@ def make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.
 
         # the colour gradient, one pass on r_rho / rho (see module docstring)
         a_frac = r_rho * inv_rho
-        Fx, Fy = gradients.dx5(a_frac), gradients.dy5(a_frac)
+        Fx = gradients.dx5(a_frac, rows, grid_rows)
+        Fy = gradients.dy5(a_frac, rows, grid_rows)
         Fn = torch.sqrt(Fx * Fx + Fy * Fy)
         inv_Fn = 1.0 / (Fn + 1e-20)
 
@@ -137,12 +139,15 @@ def make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.
 
 def make_plain_step(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.0)):
     """The plain version of one step on the 11-plane state: collide, stream
-    each colour with the multiphase walls, add the colours."""
+    each colour with the multiphase walls, add the colours.  ``step(S, rows,
+    grid_rows)`` steps a block of a taller grid (kernels/mrtcg.py
+    make_plain_step)."""
     collide = make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta, gravity)
 
-    def step(S: torch.Tensor) -> torch.Tensor:
-        coll_r, coll_b = collide(S)
-        new_r, new_b = stream_with_bcs(coll_r), stream_with_bcs(coll_b)
+    def step(S: torch.Tensor, rows=None, grid_rows=None) -> torch.Tensor:
+        coll_r, coll_b = collide(S, rows, grid_rows)
+        new_r = stream_with_bcs(coll_r, rows, grid_rows)
+        new_b = stream_with_bcs(coll_b, rows, grid_rows)
         r_rho, b_rho = new_r[0], new_b[0]
         for k in range(1, 9):
             r_rho = r_rho + new_r[k]

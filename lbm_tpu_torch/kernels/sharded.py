@@ -1,0 +1,411 @@
+"""Row-sharded steps with halo inputs: the plain versions and CUDA kernels
+27-30 (counterpart of lbm_tpu/kernels/sharded_pallas.py).
+
+A row-sharded step splits the grid's rows over an (n, 1) mesh
+(parallel/mesh.py).  Each call exchanges halos once (parallel/halo.py
+``exchange_rows``: each shard gets a ``(planes, halo, C)`` copy of its ring
+neighbours' edge rows, on its own device) and then runs ``substeps`` sweeps
+of the family's step on every shard, with the global row offset of the
+shard, so the walls and the replicate padding of the stencils sit at the
+grid's global rows 0 and R-1.  Ranks 0 and n-1 run the masked (edge)
+instance and interior ranks the mask-free one (sharded_pallas.py:379-397).
+
+Sweeps per exchange: each sweep consumes ``rows_per_sweep`` rows of the
+strip (1 for the collide-stream and thermal families: the push; 3 for the
+MRT-CG and RK bodies: the 5x5 gradient's 2 and the push's 1; 5 in CSF
+mode: the chained curvature stencils), so ``halo = halo_for(substeps,
+rows_per_sweep)`` rows buy ``substeps`` steps per exchange.
+
+Local steps, one per family, ``local(f_loc, top, bot, off, edge)``:
+  * on a CPU shard, the plain version: the shard and its halos
+    concatenated into a padded slab of ``R_loc + 2 halo`` rows, ``substeps``
+    sweeps of the family's plain step over the slab with the slab's global
+    row indices, the shard's rows kept.  It equals the single-device plain
+    step bit for bit (the tests hold it so);
+  * on a CUDA shard, the family's halo-input kernel, one launch per sweep
+    (``launch_sweeps``): the first sweep reads the three buffers (rows
+    -halo..-1 and R_loc..R_loc+halo-1 from the halos, no concatenation),
+    later sweeps a padded scratch slab, and the last one writes the shard's
+    rows only.  Sweep j of s computes the band of rows that the remaining
+    s - j sweeps still need, ``rows_per_sweep * (s - j)`` beyond the shard on
+    each side, clipped to the grid for the wall families.
+
+Kernels (one C entry point per family instance, in the family's source,
+built with that source's flags so the collision is the same device code as
+the single-device kernel's):
+  * kernel 27, ``HALO_COLLIDE_STREAM``: the periodic collide-stream family,
+    lbm_tpu's ``make_local_halo_step`` / ``make_sharded_fused_step``
+    (sharded_pallas.py:171, :528), one instance per local collision: BGK
+    (csrc/collide_stream_bgk.cu, kernel 1's), KBC (kernel 3's), LES (5),
+    TRT (10) and the power law (11).  The collide function names its
+    instance through its ``halo_kernel`` attribute (bgk.bgk_collide_fn and
+    the other ``*_collide_fn``); a function without one raises on a CUDA
+    shard;
+  * kernel 28, ``HALO_THERMAL``: the Rayleigh-Benard step with a D2Q9
+    temperature (:503 make_sharded_thermal_step; csrc/thermal.cu, kernel
+    23's);
+  * kernel 29, ``HALO_MRTCG``: the reduced MRT-CG state, both modes (:453
+    make_sharded_mrtcg_reduced_step; csrc/mrtcg_reduced.cu on kernel 6's
+    tile engine, csrc/mrtcg.cuh);
+  * kernel 30, ``HALO_RK``: the RK mixture, one sweep per exchange (:486
+    make_sharded_rk_step; csrc/rk_cg.cu, kernel 12's).
+
+Bound: device-memory bytes, those of the family's single-device kernel per
+sweep over the band it computes, plus the halo reads of each exchange
+(chip_smoke.py counts them); the exchange itself is 2 n copies of
+``planes * halo * C`` values.
+
+``substeps="auto"`` resolves to the deepest cadence the family's strip
+admits (``AUTO_SUBSTEPS``).  lbm_tpu picks it from TPU v5e cadence tables
+and ICI constants (sharded_pallas.py:47-131), which say nothing about this
+card; at every ICI cost its picker returns the deepest measured cadence for
+BGK, the value taken here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..boundary import bc
+from ..core import lattice as lat
+from ..ops import d2q9
+from ..parallel.halo import exchange_rows
+from ..parallel.mesh import Mesh, ShardedState
+from ..utils.xmath import resolve_fused
+from . import _build, mrtcg, rk, thermal
+
+HALO = 8
+COLLIDE_KINDS = ("bgk", "kbc", "les", "trt", "power_law")
+#: halo rows one sweep consumes (the push, plus the stencils' reach)
+ROWS_PER_SWEEP = {**{kind: 1 for kind in COLLIDE_KINDS}, "thermal": 1,
+                  "mrtcg": 3, "csf": 5, "rk": 3}
+#: ``substeps="auto"``: the deepest cadence of each family's strip (8 rows
+#: for the 1-row families; lbm_tpu's deepest measured MRT-CG cadence, 5 on
+#: a 16-row strip, and CSF's, 4 on a 24-row one); the RK step takes 1
+#: sweep per exchange
+AUTO_SUBSTEPS = {**{kind: 8 for kind in COLLIDE_KINDS}, "thermal": 8, "mrtcg": 5,
+                 "csf": 4, "rk": 1}
+
+# the geometry array of a halo kernel launch (csrc/halo.cuh ``Geom``)
+GEOM = ("top", "mid", "bot", "out", "top_plane", "mid_plane", "bot_plane", "out_plane",
+        "halo", "r_loc", "cols", "in_lo", "in_hi", "out_lo", "out_hi", "out_first", "off",
+        "rows", "edge")
+_FAR = 1 << 62
+_ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+HALO_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo_{kind}", _ARGS)
+                       for kind in COLLIDE_KINDS}                           # kernel 27
+HALO_THERMAL = _build.CudaKernel("lbm_halo_thermal", _ARGS)                 # kernel 28
+HALO_MRTCG = _build.CudaKernel("lbm_halo_mrtcg_reduced", _ARGS)             # kernel 29
+HALO_RK = _build.CudaKernel("lbm_halo_rk", _ARGS)                           # kernel 30
+
+
+def halo_for(substeps: int, rows_per_sweep: int) -> int:
+    """Smallest 8-aligned strip admitting ``substeps`` sweeps that each
+    consume ``rows_per_sweep`` rows (lbm_tpu's ``halo_for`` and
+    ``_halo_rows``)."""
+    return max(HALO, -(-substeps * rows_per_sweep // 8) * 8)
+
+
+def default_substeps(family: str) -> int:
+    """The cadence ``"auto"`` stands for: ``AUTO_SUBSTEPS[family]``."""
+    if family not in AUTO_SUBSTEPS:
+        raise ValueError(f"unknown family {family!r}; one of {sorted(AUTO_SUBSTEPS)}")
+    return AUTO_SUBSTEPS[family]
+
+
+def resolve_substeps(substeps, family: str) -> int:
+    """Ints pass through untouched; ``"auto"`` resolves to
+    ``default_substeps(family)``."""
+    if isinstance(substeps, str):
+        if substeps != "auto":
+            raise ValueError(f"substeps must be an int or 'auto', got {substeps!r}")
+        return default_substeps(family)
+    return substeps
+
+
+def _check_sweeps(substeps, most: int | None) -> int:
+    """``substeps`` as an int in [1, most] (no upper limit for None)."""
+    if not isinstance(substeps, int) or isinstance(substeps, bool) or substeps < 1 or \
+            (most is not None and substeps > most):
+        raise ValueError(f"substeps must be an int in [1, {most or 'inf'}], got {substeps!r}")
+    return substeps
+
+
+# --- the plain versions ------------------------------------------------------------
+
+def plain_sweeps(body, f, top, bot, off: int, R: int, substeps: int) -> torch.Tensor:
+    """``substeps`` sweeps of ``body(slab, rows, R)`` over the shard ``f``
+    padded with its halos, ``rows`` the slab's global row indices (the MRT-CG
+    and RK ``make_plain_step`` steps take these arguments); returns the
+    shard's rows."""
+    halo, R_loc = top.shape[1], f.shape[1]
+    slab = torch.cat([top, f, bot], dim=1)
+    rows = torch.arange(off - halo, off + R_loc + halo, device=f.device)
+    for _ in range(substeps):
+        slab = body(slab, rows, R)
+    return slab[:, halo:halo + R_loc].contiguous()
+
+
+def collide_stream_body(collide_fn):
+    """The periodic collide-stream sweep: stream(collide_fn(slab))."""
+    return lambda S, rows, R: d2q9.stream(collide_fn(S))
+
+
+def thermal_body(omega_f: float, omega_g: float, g_beta: float):
+    """The Rayleigh-Benard sweep (kernels/thermal.py ``plain_rb_step``, D2Q9
+    temperature) on a block of global rows ``rows``: the walls act where the
+    global row is 0 or R-1, as position masks."""
+
+    def body(S, rows, R):
+        f_coll, g_coll = thermal._collide(S, omega_f, omega_g, g_beta)
+        f_new, g_new = list(d2q9.stream(f_coll)), list(d2q9.stream(g_coll))
+        g_eq_hot = thermal._wall_eq(S, S.shape[2])
+        for side, row, g_wall in (("row0", 0, g_eq_hot), ("rowN", R - 1, -g_eq_hot)):
+            m = (rows == row)[:, None]
+            for k in bc.SIDE_OUT[side]:
+                o = lat.OPPQ[k]
+                f_new[o] = torch.where(m, f_coll[k], f_new[o])
+                g_new[o] = torch.where(m, -g_coll[k] + 2.0 * g_wall[k], g_new[o])
+        return torch.stack(f_new + g_new)
+
+    return body
+
+
+# --- the kernels -------------------------------------------------------------------
+
+def _check_halo_inputs(f, top, bot, planes: int, halo: int):
+    R_loc, C = _build.check_state(f, planes)
+    for name, h in (("top", top), ("bot", bot)):
+        if tuple(h.shape) != (planes, halo, C) or h.dtype != f.dtype or \
+                h.device != f.device or not h.is_contiguous():
+            raise ValueError(f"halo {name} must be a contiguous ({planes}, {halo}, {C}) "
+                             f"{f.dtype} tensor on {f.device}, got {tuple(h.shape)} "
+                             f"{h.dtype} on {h.device}")
+    return R_loc, C
+
+
+def sweep_bands(R_loc: int, halo: int, off: int, R: int, substeps: int,
+                rows_per_sweep: int, walls: bool) -> list[tuple[int, int, int, int]]:
+    """(in_lo, in_hi, out_lo, out_hi) of each sweep of one exchange, in padded
+    rows of the shard (padded row p is global row ``off - halo + p``): sweep
+    j of s writes the shard's rows and ``rows_per_sweep * (s - j)`` more on
+    each side, reading ``rows_per_sweep`` beyond them; ``walls`` clips both
+    to the grid's rows [0, R)."""
+    r = rows_per_sweep
+    lo_wall, hi_wall = (halo - off, halo - off + R) if walls else (-_FAR, _FAR)
+    bands = []
+    for j in range(1, substeps + 1):
+        m = r * (substeps - j)
+        o_lo, o_hi = max(halo - m, lo_wall), min(halo + R_loc + m, hi_wall)
+        bands.append((max(o_lo - r, lo_wall), min(o_hi + r, hi_wall), o_lo, o_hi))
+    return bands
+
+
+def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, R: int, *,
+                  substeps: int, rows_per_sweep: int, walls: bool, params, i0: int = 0,
+                  i1: int = 0) -> torch.Tensor:
+    """``substeps`` launches of a halo-input kernel on the shard ``f`` with
+    its halos ``top`` and ``bot`` (``(planes, halo, C)`` each); returns the
+    shard's new rows in a fresh buffer (``f`` is never written).  Padded row
+    p of the shard is global row ``off - halo + p``; ``walls`` clips every
+    band to the grid's rows [0, R).  Raises on a tensor the kernel does not
+    take and on a refused launch."""
+    planes, halo = f.shape[0], top.shape[1]
+    R_loc, C = _check_halo_inputs(f, top, bot, planes, halo)
+    _check_sweeps(substeps, halo // rows_per_sweep)
+    item = f.element_size()
+    pad = R_loc + 2 * halo
+    out = torch.empty_like(f)
+    slabs = [torch.empty((planes, pad, C), dtype=f.dtype, device=f.device)
+             for _ in range(min(substeps - 1, 2))]
+    src = (top.data_ptr(), f.data_ptr(), bot.data_ptr(), halo * C, R_loc * C, halo * C)
+    bands = sweep_bands(R_loc, halo, off, R, substeps, rows_per_sweep, walls)
+    with torch.cuda.device(f.device):
+        stream = _build.stream_handle(f)
+        for j, (i_lo, i_hi, o_lo, o_hi) in enumerate(bands, start=1):
+            if j == substeps:
+                dst, first, dplane = out, halo, R_loc * C
+            else:
+                dst, first, dplane = slabs[(j - 1) % 2], 0, pad * C
+            geom = (ctypes.c_longlong * len(GEOM))(
+                *src[:3], dst.data_ptr(), *src[3:], dplane, halo, R_loc, C, i_lo, i_hi,
+                o_lo, o_hi, first, off, R, int(edge))
+            kernel.launch(geom, params, i0, i1, int(f.dtype == torch.float64), stream)
+            base = dst.data_ptr()
+            src = (base, base + halo * C * item, base + (halo + R_loc) * C * item,
+                   pad * C, pad * C, pad * C)
+    return out
+
+
+def make_local_halo_body_step(R: int, body, launch, substeps: int):
+    """``local(f_loc, top, bot, off, edge) -> f_loc'``: on a CPU shard
+    ``plain_sweeps`` of ``body``, on a CUDA shard ``launch(f_loc, top, bot,
+    off, edge)`` (a halo-input kernel's ``launch_sweeps``), which launches or
+    raises (lbm_tpu sharded_pallas.py:303).  ``local.plain`` is the plain
+    version on any device."""
+
+    def plain(f, top, bot, off, edge):
+        return plain_sweeps(body, f, top, bot, off, R, substeps)
+
+    def local(f, top, bot, off, edge):
+        if resolve_fused(f):
+            return launch(f, top, bot, off, edge)
+        return plain(f, top, bot, off, edge)
+
+    local.plain = plain
+    return local
+
+
+def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
+                           dtype: torch.dtype, halo: int = HALO):
+    """Row-shard a local halo-input step over mesh axis 'x' (lbm_tpu
+    sharded_pallas.py:345): ShardedState of ``(planes, R / n, C)`` shards ->
+    the same, one exchange of ``halo`` rows per call.  ``local(f_loc, top,
+    bot, off, edge)`` gets the shard's global row offset ``off`` and
+    ``edge`` on ranks 0 and n-1 (the masked instance; interior ranks run the
+    mask-free one).  ``step.plain`` runs ``local.plain`` instead, where the
+    local step has one: the plain version on any device."""
+    nx = mesh.shape["x"]
+    if mesh.shape["y"] != 1:
+        raise ValueError(f"the row-sharded steps take an (n, 1) mesh, got {mesh.shape} "
+                         "(rows x cols waits for lbm_tpu's sharded2d kernels)")
+    if R % nx:
+        raise ValueError(f"rows {R} not divisible by mesh x={nx}")
+    R_loc = R // nx
+    if R_loc < halo:
+        raise ValueError(f"local shard rows {R_loc} shallower than the {halo}-row "
+                         "exchange strip")
+
+    def build(run):
+        def step(state: ShardedState) -> ShardedState:
+            if state.mesh != mesh:
+                raise ValueError("the state is sharded over another mesh than the step's")
+            for f in state.shards:
+                if tuple(f.shape) != (planes, R_loc, C) or f.dtype != dtype:
+                    raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
+                                     f"({planes}, {R_loc}, {C}) {dtype}")
+            halos = exchange_rows(state.shards, halo)
+            return ShardedState(mesh, [run(f, top, bot, i * R_loc, i in (0, nx - 1))
+                                       for i, (f, (top, bot)) in enumerate(zip(state.shards,
+                                                                               halos))])
+
+        return step
+
+    step = build(local)
+    if getattr(local, "plain", None) is not None:
+        step.plain = build(local.plain)
+    return step
+
+
+def _collide_launch(collide_fn, R: int, substeps: int):
+    """Kernel 27's launch for ``collide_fn``'s instance (its ``halo_kernel``
+    attribute); one that raises when the function names none."""
+    tag = getattr(collide_fn, "halo_kernel", None)
+    if tag is None or tag[0] not in HALO_COLLIDE_STREAM:
+        def launch(*_):
+            raise ValueError(
+                "this collide function names no halo-input kernel (no ``halo_kernel`` "
+                f"attribute of kind {COLLIDE_KINDS}): a CUDA shard has no kernel to run")
+        return launch
+    kind, doubles, (i0, i1) = tag
+    return functools.partial(launch_sweeps, HALO_COLLIDE_STREAM[kind], R=R, substeps=substeps,
+                             rows_per_sweep=1, walls=False, params=_build.c_doubles(doubles),
+                             i0=i0, i1=i1)
+
+
+def make_local_halo_step(R_loc: int, C: int, collide_fn, dtype: torch.dtype = torch.float32,
+                         substeps: int = 1):
+    """The periodic collide-stream sweep over one shard with explicit
+    ``(9, HALO, C)`` halos: ``(f_loc, halo_top, halo_bot) -> f_loc'``,
+    ``substeps`` steps (lbm_tpu sharded_pallas.py:171).  Kernel 27 on a
+    CUDA shard, the plain version on a CPU shard."""
+    _check_sweeps(substeps, HALO)
+    local = make_local_halo_body_step(R_loc, collide_stream_body(collide_fn),
+                                      _collide_launch(collide_fn, R_loc, substeps), substeps)
+
+    def fn(f_loc, halo_top, halo_bot):
+        if tuple(f_loc.shape) != (9, R_loc, C) or f_loc.dtype != dtype:
+            raise ValueError(f"shard {tuple(f_loc.shape)} {f_loc.dtype}, step built for "
+                             f"(9, {R_loc}, {C}) {dtype}")
+        return local(f_loc, halo_top, halo_bot, 0, False)
+
+    return fn
+
+
+def make_sharded_fused_step(mesh: Mesh, R: int, C: int, collide_fn,
+                            dtype: torch.dtype = torch.float32, substeps: int | str = 1):
+    """Globally periodic collide-stream with any local collision, rows
+    sharded over the mesh: ShardedState -> ShardedState, ``substeps`` steps
+    per call and one exchange of HALO rows (lbm_tpu sharded_pallas.py:528).
+    Kernel 27 on CUDA shards."""
+    substeps = _check_sweeps(resolve_substeps(substeps, "bgk"), HALO)
+    local = make_local_halo_body_step(R, collide_stream_body(collide_fn),
+                                      _collide_launch(collide_fn, R, substeps), substeps)
+    return make_sharded_body_step(mesh, 9, R, C, local, dtype)
+
+
+def make_sharded_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,
+                              omega_g: float, g_beta: float, substeps: int | str = 1,
+                              dtype: torch.dtype = torch.float32):
+    """The Rayleigh-Benard step (kernels/thermal.py, D2Q9 temperature) with
+    rows sharded: S (18, R, C) shards -> the same, walls at global rows 0
+    and R-1, ``substeps`` steps per exchange of HALO rows (lbm_tpu
+    sharded_pallas.py:503).  Kernel 28 on CUDA shards."""
+    substeps = _check_sweeps(resolve_substeps(substeps, "thermal"), HALO)
+    if R < 4 or C < 4:
+        raise ValueError(f"the thermal step needs R >= 4 and C >= 4, got {R}x{C}")
+    launch = functools.partial(
+        launch_sweeps, HALO_THERMAL, R=R, substeps=substeps, rows_per_sweep=1, walls=True,
+        params=thermal.thermal_constants(omega_f, omega_g, g_beta, dtype))
+    local = make_local_halo_body_step(R, thermal_body(omega_f, omega_g, g_beta), launch,
+                                      substeps)
+    return make_sharded_body_step(mesh, 18, R, C, local, dtype)
+
+
+def make_sharded_mrtcg_reduced_step(mesh: Mesh, R: int, C: int, red, blue, sigma: float,
+                                    gravity=(0.0, 0.0), delta: float = 0.1,
+                                    apply_gravity_source: bool = True,
+                                    dtype: torch.dtype = torch.float32,
+                                    surface_tension: str = "perturbation",
+                                    substeps: int | str = 1):
+    """The reduced MRT colour-gradient state with rows sharded: G (10, R, C)
+    shards ((12, R, C) in CSF mode) -> the same, ``substeps`` steps per
+    exchange of ``halo_for(substeps, 3 or 5)`` rows (lbm_tpu
+    sharded_pallas.py:453).  Kernel 29 on CUDA shards."""
+    csf = surface_tension == "csf"
+    family = "csf" if csf else "mrtcg"
+    planes = mrtcg.reduced_planes(surface_tension)
+    r = ROWS_PER_SWEEP[family]
+    substeps = _check_sweeps(resolve_substeps(substeps, family), None)
+    halo = halo_for(substeps, r)
+    if R < 4 or C < 3:
+        raise ValueError(f"the MRT-CG step takes R >= 4 and C >= 3, got {R}x{C}")
+    plain = mrtcg.make_plain_step(red, blue, sigma, gravity, delta, apply_gravity_source,
+                                  surface_tension)
+    params = _build.c_doubles(mrtcg.kernel_params(red, blue, sigma, gravity, delta,
+                                                  apply_gravity_source))
+    launch = functools.partial(launch_sweeps, HALO_MRTCG, R=R, substeps=substeps,
+                               rows_per_sweep=r, walls=True, params=params, i0=int(csf))
+    local = make_local_halo_body_step(R, plain, launch, substeps)
+    return make_sharded_body_step(mesh, planes, R, C, local, dtype, halo)
+
+
+def make_sharded_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alpha: float,
+                         r_nu: float, b_nu: float, sigma: float, beta: float = 0.7,
+                         gravity=(0.0, 0.0), dtype: torch.dtype = torch.float32):
+    """The RK mixture step with rows sharded: S (11, R, C) = [f (9), r_rho,
+    b_rho] shards -> the same, one exchange of HALO rows per step (lbm_tpu
+    sharded_pallas.py:486).  Kernel 30 on CUDA shards."""
+    if R < 4 or C < 3:
+        raise ValueError(f"the RK step takes R >= 4 and C >= 3, got {R}x{C}")
+    kw = dict(r_alpha=r_alpha, b_alpha=b_alpha, r_nu=r_nu, b_nu=b_nu, sigma=sigma, beta=beta,
+              gravity=gravity)
+    params = _build.c_doubles(rk.kernel_params(**kw))
+    launch = functools.partial(launch_sweeps, HALO_RK, R=R, substeps=1,
+                               rows_per_sweep=ROWS_PER_SWEEP["rk"], walls=True, params=params)
+    local = make_local_halo_body_step(R, rk.make_plain_step(**kw), launch, 1)
+    return make_sharded_body_step(mesh, rk.PLANES, R, C, local, dtype)

@@ -54,6 +54,8 @@ def trt_collide_fn(omega_plus: float, omega_minus: float, dtype: torch.dtype):
             out[km] = f[km] - (d_even - d_odd)
         return torch.stack(out)
 
+    # the kind and scalars of kernel 27's TRT instance (kernels/sharded.py)
+    fn.halo_kernel = ("trt", (float(omega_plus), float(omega_minus)), (0, 0))
     return fn
 
 

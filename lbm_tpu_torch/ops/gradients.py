@@ -57,14 +57,35 @@ KERNEL_Y3 = -3.0 * np.array(
 )
 
 
-def correlate2d_replicate(psi: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+def wall_rows(rows: torch.Tensor, R: int, h: int) -> torch.Tensor:
+    """The padded-row gather of a block of consecutive grid rows ``rows``
+    (global indices) in a grid of ``R`` rows: padded row j reads block row
+    clamp(rows[0] + j - h, 0, R-1), itself clamped into the block.  At the
+    grid's walls that is the replicate padding; at a block edge away from a
+    wall it repeats the edge row, whose stencil results a halo step
+    discards."""
+    g = torch.arange(-h, rows.numel() + h, device=rows.device) + rows[0]
+    return (g.clamp(0, R - 1) - rows[0]).clamp(0, rows.numel() - 1)
+
+
+def correlate2d_replicate(psi: torch.Tensor, kernel: np.ndarray,
+                          rows: torch.Tensor | None = None,
+                          grid_rows: int | None = None) -> torch.Tensor:
     """Cross-correlate a (R, C) field with a small odd kernel under
     replicate padding (torch Conv2d with kReplicate, src/differential.cpp:3-15):
-    out[r, c] = sum_{a,b} k[a, b] psi[clamp(r+a-h), clamp(c+b-h)]."""
+    out[r, c] = sum_{a,b} k[a, b] psi[clamp(r+a-h), clamp(c+b-h)].
+
+    With ``rows`` (the global indices of psi's rows, consecutive) and
+    ``grid_rows``, psi is a block of a taller grid and its rows clamp at the
+    grid's walls only (``wall_rows``); the taps sum in the same order."""
     n = kernel.shape[0]
     h = n // 2
     R, C = psi.shape
-    padded = F.pad(psi[None, None], (h, h, h, h), mode="replicate")[0, 0]
+    if rows is None:
+        padded = F.pad(psi[None, None], (h, h, h, h), mode="replicate")[0, 0]
+    else:
+        padded = F.pad(psi[wall_rows(rows, grid_rows, h)][None, None], (h, h, 0, 0),
+                       mode="replicate")[0, 0]
     acc = None
     for a in range(n):
         for b in range(n):
@@ -76,14 +97,19 @@ def correlate2d_replicate(psi: torch.Tensor, kernel: np.ndarray) -> torch.Tensor
     return acc
 
 
-def dx5(psi: torch.Tensor) -> torch.Tensor:
-    """d/dx (rows) via the 5x5 isotropic stencil.  cites src/differential.cpp:23-27"""
-    return correlate2d_replicate(psi, KERNEL_X5)
+def dx5(psi: torch.Tensor, rows: torch.Tensor | None = None,
+        grid_rows: int | None = None) -> torch.Tensor:
+    """d/dx (rows) via the 5x5 isotropic stencil (``rows``/``grid_rows``: a
+    block of a taller grid, see correlate2d_replicate).  cites
+    src/differential.cpp:23-27"""
+    return correlate2d_replicate(psi, KERNEL_X5, rows, grid_rows)
 
 
-def dy5(psi: torch.Tensor) -> torch.Tensor:
-    """d/dy (cols) via the 5x5 isotropic stencil.  cites src/differential.cpp:29-33"""
-    return correlate2d_replicate(psi, KERNEL_Y5)
+def dy5(psi: torch.Tensor, rows: torch.Tensor | None = None,
+        grid_rows: int | None = None) -> torch.Tensor:
+    """d/dy (cols) via the 5x5 isotropic stencil (``rows``/``grid_rows`` as
+    in dx5).  cites src/differential.cpp:29-33"""
+    return correlate2d_replicate(psi, KERNEL_Y5, rows, grid_rows)
 
 
 def grad5(psi: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,111 @@
+"""Sharded LBM steps with an explicit halo exchange (counterpart of the
+shard_map path of lbm_tpu/parallel/sharded.py).
+
+Each step takes a ``ShardedState`` and returns one: every shard collides
+locally, the exchange (parallel/halo.py) brings the neighbours' edge lines,
+and each shard streams its padded block and keeps the interior, as the
+reference's advect plus "bind the domains" copies do
+(decompose_domain.cpp:159-187).  These steps are plain PyTorch in lbm_tpu
+too: it has no kernel for them.  They equal the single-device steps bit
+for bit (same elementwise arithmetic; the exchange and the rolls only move
+values).
+
+lbm_tpu's ``auto_sharded`` (the GSPMD path) has no counterpart yet; the
+row-sharded kernel steps live in kernels/sharded.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..boundary import bc
+from ..ops import d2q9
+from . import halo
+from .mesh import Mesh, ShardedState
+
+
+def _grid(state: ShardedState, blocks) -> list:
+    ny = state.mesh.shape["y"]
+    return [list(blocks[i * ny:(i + 1) * ny]) for i in range(state.mesh.shape["x"])]
+
+
+def stream_halo(grid) -> list:
+    """Periodic streaming of a row-major grid of ``(9, r, c)`` blocks: a
+    1-wide halo exchange in both mesh axes, a roll of each padded plane,
+    the interior kept.  Returns the blocks in row-major order."""
+    out = []
+    for row in halo.halo_pad_2d(grid, width=1):
+        for padded in row:
+            out.append(torch.stack([
+                torch.roll(padded[k], shifts=d2q9.SHIFTS[k], dims=(0, 1))[1:-1, 1:-1]
+                for k in range(d2q9.Q)]))
+    return out
+
+
+def _check_state(state: ShardedState, mesh: Mesh) -> None:
+    if state.mesh != mesh:
+        raise ValueError("the state is sharded over another mesh than the step's")
+
+
+def make_periodic_bgk_step(mesh: Mesh, omega: float, incompressible: bool = False):
+    """Fully periodic BGK step on any (nx, ny) mesh (doubly periodic
+    scenes): ShardedState -> ShardedState."""
+
+    def step(state: ShardedState) -> ShardedState:
+        _check_state(state, mesh)
+        colls = []
+        for f in state.shards:
+            rho = d2q9.calc_rho(f)
+            u = d2q9.calc_momentum(f) if incompressible else d2q9.calc_u(f, rho)
+            feq = (d2q9.incomp_equilibrium if incompressible else d2q9.equilibrium)(u, rho)
+            colls.append(d2q9.bgk_collision(f, feq, omega))
+        return ShardedState(mesh, stream_halo(_grid(state, colls)))
+
+    return step
+
+
+def _virtual_line(u_line, fc_line, fe_line, rho_target: float):
+    """The pressure-periodic virtual line of bc.pressure_periodic, from one
+    (2 + 9 + 9)-value line of the far side, in its arithmetic."""
+    ones = torch.ones_like(fc_line[0])
+    return d2q9.incomp_equilibrium(u_line, rho_target * ones) + fc_line - fe_line
+
+
+def make_channel_bgk_step(mesh: Mesh, omega: float, rho_inlet: float, rho_outlet: float):
+    """The horizontal-Poiseuille step sharded over rows (mesh (n, 1)),
+    columns local: incompressible BGK, the pressure-periodic rows coupled
+    across the cut, no-slip column walls.  Rank 0's virtual inlet is built
+    from rank n-1's outlet line (global row R-2) and rank n-1's virtual
+    outlet from rank 0's inlet line (global row 1), each line copied to
+    the rank that uses it, as decompose_domain.cpp:50-73 couples its two
+    domains.  ShardedState -> ShardedState, equal to the single-device
+    channel step (kernels/channel.py channel_model) bit for bit."""
+    if mesh.shape["y"] != 1:
+        raise ValueError(f"the channel step shards rows only, got mesh {mesh.shape}")
+
+    def step(state: ShardedState) -> ShardedState:
+        _check_state(state, mesh)
+        if state.shards[-1].shape[1] < 2:
+            raise ValueError("the channel step needs at least 2 rows per shard")
+        parts = []
+        for f in state.shards:
+            rho = d2q9.calc_rho(f)
+            u = d2q9.calc_momentum(f)
+            f_equi = d2q9.incomp_equilibrium(u, rho)
+            parts.append((u, d2q9.bgk_collision(f, f_equi, omega), f_equi))
+        colls = [fc for _, fc, _ in parts]
+        # the coupled pressure BC: the lines cross the cut as copies
+        first, last = colls[0].device, colls[-1].device
+        u_n, fc_n, fe_n = (halo.copy_to(x[:, -2:-1], first) for x in parts[-1])
+        u_0, fc_0, fe_0 = (halo.copy_to(x[:, 1:2], last) for x in parts[0])
+        # (the lines are copies: writing the virtual lines in place is safe)
+        colls[0][:, 0:1] = _virtual_line(u_n, fc_n, fe_n, rho_inlet)
+        colls[-1][:, -1:] = _virtual_line(u_0, fc_0, fe_0, rho_outlet)
+        streamed = stream_halo(_grid(state, colls))
+        out = []
+        for f_new, f_coll in zip(streamed, colls):
+            f_new = bc.bounce_back(f_new, f_coll, "colN")
+            out.append(bc.bounce_back(f_new, f_coll, "col0"))
+        return ShardedState(mesh, out)
+
+    return step

@@ -11,11 +11,13 @@ CHUNK = 1000  # steps between progress logs (and NaN checks where taken)
 
 
 def no_mesh(mesh_shape) -> None:
-    """Raise if a scene is asked to shard: parallel/ is not ported."""
+    """Raise if a scene is asked to shard: the scenes' meshes wait for an
+    ``auto_sharded`` on parallel/'s exchange."""
     if mesh_shape is not None:
         raise NotImplementedError(
-            "mesh_shape waits for parallel/ (ROADMAP Queue 1 item 14); the port "
-            "runs on one device")
+            "mesh_shape waits for an auto_sharded on parallel/'s exchange (ROADMAP "
+            "Queue 1 item 14); the scenes run on one device, the row-sharded steps "
+            "are in kernels/sharded.py")
 
 
 def _resume(ckpt: Checkpointer, carry: tuple, T: int, substeps: int,

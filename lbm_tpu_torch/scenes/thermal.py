@@ -12,8 +12,8 @@ Each step is one launch on the card, kernel 23 (Rayleigh-Benard) or 24
 (heated cavity) of kernels/thermal.py, on the concatenated state
 S = [f, g], and its plain version on the CPU.  lbm_tpu's ``fused`` and
 ``interpret`` flags have no counterpart (the device decides); its
-``mesh_shape`` waits for parallel/ (ROADMAP Queue 1 item 14) and raises if
-set.
+``mesh_shape`` waits for an ``auto_sharded`` on parallel/ (ROADMAP Queue 1
+item 14) and raises if set.
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ steps run per call, T must be divisible by it.  Every scene drives through
 the state every ``checkpoint_every`` steps.  lbm_tpu's ``fused`` and
 ``interpret`` flags have no counterpart (the device decides), nor have its
 Mosaic shape conditions (``_resolve_fused3``, the VMEM check): the kernel
-takes any grid.  ``mesh_shape`` waits for parallel/ (ROADMAP Queue 1 item
-14) and raises if set.
+takes any grid.  ``mesh_shape`` waits for an ``auto_sharded`` on parallel/
+(ROADMAP Queue 1 item 14) and raises if set.
 """
 
 from __future__ import annotations

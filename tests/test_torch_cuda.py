@@ -1268,3 +1268,106 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     three_d.lid_cavity_3d(T=30, checkpoint_dir=d, checkpoint_every=10, **kw)
     res = three_d.lid_cavity_3d(T=50, checkpoint_dir=d, checkpoint_every=10, **kw)
     assert res.f.is_cuda and torch.equal(res.f, ref.f)
+
+
+# --- the row-sharded kernels 27-30 --------------------------------------------------
+
+def _sharded_case(family, R, C, dtype, device, n, s):
+    """(sharded step on n shards of ``device``, single-device step of s steps
+    per call, state, the kernels the sharded step launches) of one case."""
+    from lbm_tpu_torch.kernels import mrtcg, power_law, rk, thermal, trt
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    mesh = pm.make_mesh([device] * n)
+    seed = R * C + n * 10 + s
+    if family in ("bgk", "kbc", "les", "trt", "power_law"):
+        fn, single = {
+            "bgk": (bgk.bgk_collide_fn(OMEGA, dtype),
+                    bgk.make_fused_step(R, C, OMEGA, dtype, s)),
+            "kbc": (collide_stream.kbc_collide_fn(OMEGA),
+                    collide_stream.make_kbc_fused_step(R, C, OMEGA, dtype, s)),
+            "les": (les.les_collide_fn(dtype=dtype, **LES),
+                    les.make_les_fused_step(R, C, dtype=dtype, substeps=s, **LES)),
+            "trt": (trt.trt_collide_fn(1.0 / 0.9, OM_MINUS, dtype),
+                    trt.make_trt_fused_step(R, C, omega_plus=1.0 / 0.9, omega_minus=OM_MINUS,
+                                            dtype=dtype, substeps=s)),
+            "power_law": (power_law.power_law_collide_fn(0.01, 0.5, 0.52, 50.0, 8, dtype),
+                          power_law.make_power_law_fused_step(R, C, cons_K=0.01, n=0.5,
+                                                              dtype=dtype, substeps=s)),
+        }[family]
+        return (ksh.make_sharded_fused_step(mesh, R, C, fn, dtype, substeps=s), single,
+                _state(R, C, dtype, device, seed, noisy=True),
+                [ksh.HALO_COLLIDE_STREAM[family]])
+    if family == "thermal":
+        return (ksh.make_sharded_thermal_step(mesh, R, C, substeps=s, dtype=dtype, **THERMAL),
+                thermal.make_thermal_fused_step(R, C, substeps=s, dtype=dtype, **THERMAL),
+                _thermal_state(9, R, C, dtype, device, seed), [ksh.HALO_THERMAL])
+    if family in ("mrtcg", "csf"):
+        mode = "csf" if family == "csf" else "perturbation"
+        red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+        S = _two_phase_state(R, C, dtype, device, mode, seed)
+        G = mrtcg.reduce_mrtcg_state(S if mode == "csf" else S.reshape(2, 9, R, C), mode)
+        return (ksh.make_sharded_mrtcg_reduced_step(mesh, R, C, red, blue, dtype=dtype,
+                                                    surface_tension=mode, substeps=s,
+                                                    **MRTCG_KW),
+                mrtcg.make_mrtcg_reduced_step(R, C, red, blue, dtype=dtype,
+                                              surface_tension=mode, substeps=s, **MRTCG_KW),
+                G, [ksh.HALO_MRTCG])
+    return (ksh.make_sharded_rk_step(mesh, R, C, dtype=dtype, **RK_KW),
+            rk.make_rk_fused_step(R, C, dtype=dtype, **RK_KW), _rk_state(R, C, dtype, device),
+            [ksh.HALO_RK])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,n,s", [
+    ("bgk", 1, 1), ("bgk", 2, 3), ("bgk", 8, 8), ("kbc", 8, 1), ("les", 4, 8),
+    ("trt", 8, 2), ("power_law", 8, 8), ("thermal", 1, 1), ("thermal", 8, 8),
+    ("thermal", 4, 3), ("mrtcg", 8, 1), ("mrtcg", 4, 2), ("mrtcg", 2, 5), ("csf", 8, 1),
+    ("csf", 2, 4), ("rk", 8, 1), ("rk", 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sharded_kernels_match_single_device(cuda, family, n, s, dtype):
+    """Kernels 27-30 on n shards of one card, two calls of s steps: bit for
+    bit the single-device kernel of their family, within TOL of the plain
+    sharded version, and bit-identical run twice."""
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = (192, 40) if family in ("mrtcg", "csf", "rk") else (64, 72)
+    step, single, x, kernels = _sharded_case(family, R, C, dtype, cuda, n, s)
+    mesh = pm.make_mesh([cuda] * n)
+    before = [k.launches for k in kernels]
+    got = step(step(pm.shard_state(mesh, x))).gather()
+    again = step(step(pm.shard_state(mesh, x))).gather()
+    plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather()
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in kernels) - sum(before) == 4 * n * s
+    want = single(single(x))
+    assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_sharded_kernels_reject_what_they_do_not_take(cuda):
+    """A CUDA shard reaches kernels 27-30 or raises: a collide function
+    without a kernel tag, a halo of the wrong depth, a CPU halo."""
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 64, 16
+    mesh = pm.make_mesh([cuda] * 4)
+    f = _state(R, C, torch.float64, cuda, seed=7)
+    untagged = bgk.bgk_collide_fn(OMEGA, torch.float64)
+    untagged = (lambda fn: (lambda g: fn(g)))(untagged)
+    with pytest.raises(ValueError, match="names no halo-input kernel"):
+        ksh.make_sharded_fused_step(mesh, R, C, untagged, torch.float64)(pm.shard_state(mesh, f))
+    local = ksh.make_local_halo_step(16, C, bgk.bgk_collide_fn(OMEGA, torch.float64),
+                                     torch.float64)
+    shard = f[:, :16].contiguous()
+    top = shard[:, :8].contiguous()
+    with pytest.raises(ValueError, match="halo bot"):
+        local(shard, top, shard[:, :4].contiguous())
+    with pytest.raises(ValueError, match="halo bot"):
+        local(shard, top, top.cpu())
+    with pytest.raises(ValueError, match="halo top"):
+        local(shard, top.float(), top)

@@ -218,6 +218,9 @@ def test_import_loads_no_jax():
             "import lbm_tpu_torch.ops.ibm, lbm_tpu_torch.kernels.ibm\n"
             "import lbm_tpu_torch.kernels.cylinder, lbm_tpu_torch.kernels.sediment\n"
             "import lbm_tpu_torch.scenes.obstacles\n"
+            "import lbm_tpu_torch.parallel.mesh, lbm_tpu_torch.parallel.halo\n"
+            "import lbm_tpu_torch.parallel.sharded, lbm_tpu_torch.parallel.dryrun\n"
+            "import lbm_tpu_torch.kernels.sharded\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
@@ -261,6 +264,9 @@ def test_port_imports_alone(tmp_path):
         "lbm_tpu_torch." + os.path.relpath(os.path.join(d, f), src)[:-3].replace(os.sep, ".")
         for d, _, files in os.walk(src) if "_build" not in d for f in files
         if f.endswith(".py"))
+    assert {"lbm_tpu_torch.parallel.mesh", "lbm_tpu_torch.parallel.halo",
+            "lbm_tpu_torch.parallel.sharded", "lbm_tpu_torch.parallel.dryrun",
+            "lbm_tpu_torch.kernels.sharded"} <= set(modules)
     code = ("import importlib, sys\n"
             f"mods = {modules!r}\n"
             "for m in mods:\n"
