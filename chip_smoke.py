@@ -14,7 +14,8 @@ Phases (each prints its results; an exception in any phase ends the run
 with a nonzero exit code):
   1. toolchain: torch and CUDA versions, the card, nvcc, triton, nvidia-smi;
   2. build: the kernels from csrc/, timed, with ptxas' registers and spills
-     per kernel (and those of kernels 25-26's four instances on their own);
+     per kernel (and those of kernels 25-26's four instances and of kernels
+     31-34's instances on their own);
   3. the periodic kernels against their plain versions: kernel 1 (BGK) at
      4096x2048 float32 (1 and 8 steps; the 302 MB-per-buffer grid of
      bench.py), 1024x512 float64 and the reference's 21x21, 100x100 and
@@ -77,15 +78,24 @@ with a nonzero exit code):
      float32, 5x37x41 float64 and 8x64x128 in both types, and at every
      other shape, type and wall set that phase 5 gives them (d3q19_hold),
      10 steps from noisy states, kernel 25 twice bit-identical and kernel
-     26, unpacked, equal to it; kernels 27-30 (the row-sharded
-     halo-input steps of kernels/sharded.py) on n shards of the card
-     (``SHARDED_HOLDS``: 27 with BGK at 4096x2048 float32 and 64x128
-     float64, n = 1, 2, 8, s = 1, 8, and with KBC, LES, TRT and the three
-     power-law branches at 1024x512 float32 and 64x128 float64; 28 at
-     4096x2048 and 64x128; 29 in both modes at 4096x2048 and the RT
-     256x128, s up to 5 / 4; 30 at 4096x2048 and 1024x256), 10 steps (the
-     nearest multiple of s), each against its single-device kernel (0.0
-     expected), the plain sharded version and itself run twice;
+     26, unpacked, equal to it; kernels 27-34 (the sharded halo-input
+     steps of kernels/sharded.py and kernels/sharded2d.py) on shards of
+     the card (``SHARDED_HOLDS``, ``sharded_hold``): 27 with BGK at
+     4096x2048 float32 and 64x128 float64, n = 1, 2, 8, s = 1, 8, and with
+     KBC, LES, TRT and the three power-law branches at 1024x512 float32 and
+     64x128 float64; 28 at 4096x2048 and 64x128; 29 in both modes at
+     4096x2048 and the RT 256x128, s up to 5 / 4; 30 at 4096x2048 and
+     1024x256; 31 (the full MRT-CG state,
+     both modes) against kernel 8 at 4096x2048 float32 and 256x128 float64,
+     32 (Shan-Chen, all four instances) against 14 at 4096x2048 float32 and
+     128x128 float64, 33 (D3Q19, Y sharded, periodic and the full cavity)
+     against 25 at 32x256x1024 float32 and 8x64x128 float64, each on n = 1,
+     2 and 8 shards, and 34 (the rows x cols collide-stream, every local
+     collision) against 1/3/5/10/11 at 4096x2048 float32 and 128x256
+     float64 on the (1, 1), (2, 4) and (4, 2) meshes; s = 1 and each
+     family's deepest cadence, 10 steps (Shan-Chen 4), twice, bit for bit the
+     single-device kernel (0.0 expected) and within TOL of the plain sharded
+     version (8 shards; (4, 2) for 34);
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -163,9 +173,18 @@ with a nonzero exit code):
      "auto", kernel 27's other collisions at 1024x512, rayleigh_benard's
      64x128, the MRT-CG and CSF Rayleigh-Taylor 256x128 and the RK RT
      1024x256, each bit for bit its single-device kernel; the plain
-     sharded channel against horizontal_poiseuille at 24x24 float64; the
-     dry run of parallel/dryrun.py; one shard per card when there are
-     several (else logged as not run);
+     sharded channel against horizontal_poiseuille at 24x24 float64;
+     kernels 31-34 (``K31_34_PATH``, ``k31_34_path``, through
+     kernels/sharded.py and kernels/sharded2d.py):
+     the periodic BGK at 4096x2048 on a (4, 2) mesh with substeps "auto"
+     and kernel 34's other collisions at 1024x512 on (2, 4), the MRT-CG and
+     CSF Rayleigh-Taylor 256x128 in the full layout on 8 shards, each bit
+     for bit its single-device kernel; sc_phase_separation 256x256 on 8
+     shards, 4 steps per exchange, bit for bit the scene and within its
+     gate; the cavity3d gate with Y over 8 shards, bit for bit the scene
+     and within the gate; the dry run of parallel/dryrun.py; one shard per
+     card for kernels 27-34 when there are several (``sharded_cards``; else
+     logged as not run);
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
@@ -180,10 +199,11 @@ with a nonzero exit code):
      the state, and the cavity3d gate's step under a CUDA graph; each
      kernel's bound (bytes over HBM3's rate against operations, counted on
      its plain version, over the fp32 peak; exp, log, expm1, clamp, where,
-     maximum and minimum count one operation per element); kernels 27-30
-     at n = 1 and 8 shards of the card and s = 1 and each family's deepest
-     cadence, against the single-device kernels, the exchange's copies
-     alone and a copy of the state, under CUDA graphs (``sharded_times``).
+     maximum and minimum count one operation per element); kernels 27-34
+     at n = 1 and 8 shards of the card (33 at 32x256x1024; 34 on the (1, 1),
+     (4, 2) and (8, 1) meshes) and s = 1 and each family's deepest cadence,
+     against the single-device kernels, the exchange's copies alone and a
+     copy of the state, under CUDA graphs (``sharded_times``).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -577,6 +597,25 @@ def hold_mrtcg(name, layout, csf, cases, device):
     return errs
 
 
+def ptxas_entries(build_log: str, unit: str) -> list:
+    """(mangled name, registers, spill line) of each entry function that
+    ptxas reports for ``unit`` in the build's log (kernels/_build.py keeps
+    nvcc's output of each source after a "== <unit>" line)."""
+    import re
+
+    section = build_log.split(f"== {unit}\n", 1)[1].split("\n== ", 1)[0]
+    entries = []
+    for line in section.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append([m.group(1), None, ""])
+        elif entries and "registers" in line:
+            entries[-1][1] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif entries and "spill" in line:
+            entries[-1][2] = line.strip()
+    return [tuple(e) for e in entries]
+
+
 def ops_per_cell(fn, x) -> float:
     """Floating-point operations per cell of ``fn(x)``, a plain version on a
     small CPU state: the elements every arithmetic aten op writes (a sum
@@ -938,6 +977,20 @@ def d3q19_hold(dev):
     return err25, err26
 
 
+def cavity3d_gates(u) -> dict:
+    """validate_tpu.py cavity3d's checks (:579-597) on the (3, X, Y, Z)
+    velocity of the cavity3d run, as check_gates takes them."""
+    import numpy as np
+
+    u = u.cpu().numpy()
+    uz_mid = u[2, 4]  # the mid-depth (Y, Z) slice
+    return {"finite": (float(np.isfinite(u).all()), 1.0, 1.0),
+            "lid drag": (float(uz_mid[-2].mean()), 0.01, 0.05),
+            "return flow": (float(uz_mid[16].mean()), -0.05, -1e-3),
+            "max|u|": (float(np.abs(u).max()), 0.0, 0.06),
+            "x mirror dev": (float(np.abs(u[2] - u[2, ::-1]).max()), 0.0, 1e-3)}
+
+
 def d3q19_path(dev, counted) -> dict:
     """Phase 5 of the D3Q19 slice: the 3-D scenes' gates through kernel 25
     (one launch per step), the cavity in the lanes layout through kernel
@@ -972,16 +1025,9 @@ def d3q19_path(dev, counted) -> dict:
     # validate_tpu.py cavity3d (:579-597): 8x64x128 float32, T 20000,
     # substeps 2, with its five checks
     res = d3_run("cavity3d", t3.lid_cavity_3d, T=20000, dtype=f32, **CAVITY3D)
-    u = res.u.cpu().numpy()
-    uz_mid = u[2, 4]  # the mid-depth (Y, Z) slice
     check_gates(f"[5] validate_tpu.py cavity3d: lid_cavity_3d 8x64x128 float32 20000 steps "
                 f"substeps 2 (host wall time {d3_wall['cavity3d']!r} s = "
-                f"{d3_wall['cavity3d'] / 20000 * 1e6!r} us/step)", {
-        "finite": (float(np.isfinite(u).all()), 1.0, 1.0),
-        "lid drag": (float(uz_mid[-2].mean()), 0.01, 0.05),
-        "return flow": (float(uz_mid[16].mean()), -0.05, -1e-3),
-        "max|u|": (float(np.abs(u).max()), 0.0, 0.06),
-        "x mirror dev": (float(np.abs(u[2] - u[2, ::-1]).max()), 0.0, 1e-3)})
+                f"{d3_wall['cavity3d'] / 20000 * 1e6!r} us/step)", cavity3d_gates(res.u))
     # the same cavity in lbm_tpu's lanes layout through kernel 26
     # (make_d3q19_lanes_step), 2000 steps from rest, against the scene's
     # kernel-25 run: bit for bit
@@ -1189,9 +1235,9 @@ def d3q19_entries(launches: dict, err25: dict, err26: dict, tm: dict) -> list:
     return entries
 
 
-# the row-sharded slice (kernels 27-30): kernel 27's collisions, each a
-# (collide function, single-device step) maker by dtype, and the families'
-# cadences (substeps per exchange) of the holds and the times
+# the sharded slices (kernels 27-34): kernel 27's and 34's collisions, each a
+# (collide function, single-device step) maker by dtype, the families'
+# geometry, and the tables of the holds, the runs and the times
 def k27_collisions():
     """name -> (collide_fn(dtype), single-device step(R, C, dtype, s), state
     maker(R, C, dtype, device, seed)): kernel 27's five collisions, the power
@@ -1226,83 +1272,112 @@ def k27_collisions():
     return out
 
 
-def sharded_case(family, R, C, dtype, dev, n, s, devices=None):
-    """(sharded step, single-device step, state) of one case: ``family`` is
-    "k27 <collision>", "thermal", "mrtcg", "csf" or "rk"; the sharded step
-    (substeps ``s`` per call) on ``n`` shards of ``dev`` (or on ``devices``),
-    the single-device kernel's step taking ``s`` steps per call."""
-    from lbm_tpu_torch.kernels import mrtcg, rk
+K34_KINDS = ("bgk", "kbc", "les", "trt", "power_law n=0.5")
+
+
+def shard_geometry(family):
+    """(planes, halo rows a sweep consumes, bands clipped to the grid's
+    walls) of a row-sharded family; the rows from kernels/sharded.py
+    ROWS_PER_SWEEP."""
     from lbm_tpu_torch.kernels import sharded as ksh
+
+    if family.startswith("d3q19 "):
+        return None, ksh.ROWS_PER_SWEEP["d3q19"], "y_walls" in D3Q19_WALLS[family[6:]]
+    if family.startswith(("k27 ", "sc ")):
+        planes, walls, key = 9, False, "bgk" if family.startswith("k27 ") else "shan_chen"
+    else:
+        planes = {"thermal": 18, "mrtcg": 10, "csf": 12, "rk": 11, "mrtcg_full": 18,
+                  "csf_full": 20}[family]
+        walls, key = True, family.removesuffix("_full")
+    return planes, ksh.ROWS_PER_SWEEP[key], walls
+
+
+def sharded_state(family, shape, dtype, dev):
+    """The state of a family's cases, as its sharded step takes it (made on
+    ``dev`` from a seed of the shape): kernel 27's and 34's state of the
+    collision; the thermal noisy state with a D2Q9 temperature; the MRT-CG
+    scenes' initial state, reduced (29) or full (31); RK's; lbm_tpu's
+    Shan-Chen test densities (32); a noisy D3Q19 state as (19 X, Y, Z) (33)."""
+    seed = sum(shape)
+    if family.startswith(("k27 ", "k34 ")):
+        return k27_collisions()[family[4:]][2](*shape, dtype, dev, seed)
+    if family == "thermal":
+        return thermal_state(9, *shape, dtype, dev, seed)
+    if family in ("mrtcg", "csf"):
+        csf = family == "csf"
+        return reduced_input(mrtcg_state(*shape, dtype, dev, csf), csf)
+    if family in ("mrtcg_full", "csf_full"):
+        return mrtcg_state(*shape, dtype, dev, family == "csf_full")
+    if family == "rk":
+        return rk_state(*shape, dtype, dev)
+    if family.startswith("sc "):
+        return sc_state(*shape, dtype, dev, family[3:5], seed=seed)
+    X, Y, Z = shape
+    return d3q19_state(X, Y, Z, dtype, dev, seed=seed).reshape(19 * X, Y, Z)
+
+
+def sharded_case(family, shape, dtype, dev, n, s, devices=None):
+    """(sharded step, single-device step, mesh) of one case: ``family`` is
+    "k27 <collision>" (kernel 27 against the collision's kernel), "thermal"
+    (28 against 23), "mrtcg" or "csf" (29 against 6), "rk" (30 against 12),
+    "mrtcg_full" or "csf_full" (31 against 8), "sc <eos>/<forcing>" (32
+    against 14), "d3q19 <walls>" (33 against 25, ``shape`` (X, Y, Z), Y
+    sharded) or "k34 <collision>" (34 against the collision's kernel, ``n``
+    an (nx, ny) mesh shape); the sharded step on ``n`` shards of ``dev`` (or
+    on ``devices``), ``s`` steps per call, the single-device step as many,
+    on the state as sharded_state makes it."""
+    from lbm_tpu_torch.kernels import d3q19 as kd
+    from lbm_tpu_torch.kernels import mrtcg, rk, shan_chen
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.kernels import thermal as kth
     from lbm_tpu_torch.parallel import mesh as pm
     from lbm_tpu_torch.scenes import multiphase as mp
 
-    mesh = pm.make_mesh(devices if devices is not None else [dev] * n)
-    seed = R + C + n + s
-    if family.startswith("k27 "):
-        fn, single, state = k27_collisions()[family[4:]]
-        return (ksh.make_sharded_fused_step(mesh, R, C, fn(dtype), dtype, substeps=s),
-                single(R, C, dtype, s), state(R, C, dtype, dev, seed))
+    two_d = isinstance(n, tuple)
+    mesh = pm.make_mesh(devices if devices is not None else [dev] * (n[0] * n[1] if two_d else n),
+                        n if two_d else None)
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    if family.startswith("d3q19 "):
+        X, Y, Z = shape
+        kw = dict(omega=D3Q19_OMEGA, **D3Q19_WALLS[family[6:]])
+        one = kd.make_d3q19_fused_step(X, Y, Z, substeps=s, dtype=dtype, **kw)
+        return (ksh.make_sharded_d3q19_step(mesh, X, Y, Z, substeps=s, dtype=dtype, **kw),
+                lambda S: one(S.reshape(19, X, Y, Z)).reshape(19 * X, Y, Z), mesh)
+    R, C = shape
+    if family.startswith(("k27 ", "k34 ")):
+        fn, single, _ = k27_collisions()[family[4:]]
+        make = k2d.make_sharded_fused_step_2d if two_d else ksh.make_sharded_fused_step
+        return make(mesh, R, C, fn(dtype), dtype, substeps=s), single(R, C, dtype, s), mesh
     if family == "thermal":
         return (ksh.make_sharded_thermal_step(mesh, R, C, substeps=s, dtype=dtype,
                                               **THERMAL_PHYS),
-                kth.make_thermal_fused_step(R, C, substeps=s, dtype=dtype, **THERMAL_PHYS),
-                thermal_state(9, R, C, dtype, dev, seed))
+                kth.make_thermal_fused_step(R, C, substeps=s, dtype=dtype, **THERMAL_PHYS), mesh)
     if family in ("mrtcg", "csf"):
-        csf = family == "csf"
-        mode = "csf" if csf else "perturbation"
-        red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+        mode = "csf" if family == "csf" else "perturbation"
         return (ksh.make_sharded_mrtcg_reduced_step(mesh, R, C, red, blue, dtype=dtype,
                                                     surface_tension=mode, substeps=s, **RT),
                 mrtcg.make_mrtcg_reduced_step(R, C, red, blue, dtype=dtype,
-                                              surface_tension=mode, substeps=s, **RT),
-                reduced_input(mrtcg_state(R, C, dtype, dev, csf), csf))
+                                              surface_tension=mode, substeps=s, **RT), mesh)
     if family == "rk":
         return (ksh.make_sharded_rk_step(mesh, R, C, dtype=dtype, **RK),
-                rk.make_rk_fused_step(R, C, dtype=dtype, substeps=s, **RK),
-                rk_state(R, C, dtype, dev))
-    raise ValueError(family)
+                rk.make_rk_fused_step(R, C, dtype=dtype, substeps=s, **RK), mesh)
+    if family == "csf_full":
+        return (ksh.make_sharded_mrtcg_step(mesh, R, C, red, blue, dtype=dtype,
+                                            surface_tension="csf", substeps=s, **RT),
+                mrtcg.make_csf_fused_step(R, C, red, blue, dtype=dtype, substeps=s, **RT), mesh)
+    if family == "mrtcg_full":
+        full = mrtcg.make_mrtcg_fused_step(R, C, red, blue, dtype=dtype, substeps=s, **RT)
+        return (ksh.make_sharded_mrtcg_step(mesh, R, C, red, blue, dtype=dtype, substeps=s,
+                                            **RT),
+                lambda S: full(S.reshape(2, 9, R, C)).reshape(18, R, C), mesh)
+    kw = sc_kwargs(*family[3:].split("/"))
+    return (ksh.make_sharded_sc_step(mesh, R, C, substeps=s, dtype=dtype, **kw),
+            shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **kw), mesh)
 
 
-def hold_sharded(label, family, R, C, dtype, dev, n, s, devices=None):
-    """One case of phase 4's sharded holds: 10 steps (the nearest multiple of
-    ``s``) of the n-shard kernel step from the case's state, (1) against the
-    single-device kernel (0.0 expected; within TOL required), (2) against the
-    port's plain sharded version on the card (within TOL), (3) run twice,
-    bit-identical.  Returns (error vs plain, error vs the single-device
-    kernel, bit-equal to it)."""
-    import torch
-
-    from lbm_tpu_torch.parallel import mesh as pm
-
-    step, single, x = sharded_case(family, R, C, dtype, dev, n, s, devices)
-    calls = max(1, round(10 / s))
-    mesh = pm.make_mesh(devices if devices is not None else [dev] * n)
-    runs = []
-    for fn in (step, step, step.plain):
-        y = pm.shard_state(mesh, x)
-        for _ in range(calls):
-            y = fn(y)
-        runs.append(y.gather(dev))
-    want = x
-    for _ in range(calls):
-        want = single(want)
-    torch.cuda.synchronize()
-    name = f"[4] {label} {family} {R}x{C} {dtype} n={n} s={s} ({calls * s} steps)"
-    e_single = (runs[0] - want).abs().max().item()
-    same = bool(torch.equal(runs[0], want))
-    twice = bool(torch.equal(runs[0], runs[1]))
-    log(f"{name}: vs the single-device kernel max_abs_err={e_single!r} bit-identical={same}; "
-        f"two runs bit-identical={twice}")
-    e_plain = compare(f"{name} vs the plain sharded version", runs[0], runs[2], dtype)
-    tol = TOL[str(dtype).removeprefix("torch.")]
-    if not (e_single <= tol and twice):
-        raise AssertionError(f"{name}: differs from the single-device kernel or from itself")
-    return e_plain, e_single, same
-
-
-# (family, kernel, shapes and types, shard counts, cadences) of phase 4's
-# sharded holds
+# (family, kernel, shapes and types, shard counts or meshes, cadences) of
+# phase 4's sharded holds
 SHARDED_HOLDS = (
     ("k27 bgk", 27, (("float32", BIG), ("float64", (64, 128))), (1, 2, 8), (1, 8)),
     *((f"k27 {c}", 27, (("float32", (1024, 512)), ("float64", (64, 128))), (8,), (1, 8))
@@ -1316,28 +1391,88 @@ SHARDED_HOLDS = (
      (8,), (1, 2, 4)),
     ("rk", 30, (("float32", BIG), ("float32", (1024, 256)), ("float64", (1024, 256))),
      (8,), (1,)),
+    ("mrtcg_full", 31, (("float32", BIG), ("float64", (256, 128))), (1, 2, 8), (1, 5)),
+    ("csf_full", 31, (("float32", BIG), ("float64", (256, 128))), (1, 2, 8), (1, 4)),
+    *((f"sc {e}/{fo}", 32, (("float32", BIG), ("float64", (128, 128))), (1, 2, 8), (1, 4))
+      for e, fo in SC_INSTANCES),
+    *((f"d3q19 {w}", 33, (("float32", D3Q19_BIG), ("float64", (8, 64, 128))), (1, 2, 8),
+       (1, 8)) for w in ("periodic", "cavity")),
+    *((f"k34 {c}", 34, (("float32", BIG), ("float64", (128, 256))), ((1, 1), (2, 4), (4, 2)),
+       (1, 8)) for c in K34_KINDS),
 )
 
 
-def sharded_hold(dev):
-    """Phase 4 of kernels 27-30 (``SHARDED_HOLDS``, each case ``hold_sharded``).
-    Returns, by kernel, the max error against the plain sharded version and
-    against the single-device kernel by dtype, and whether every case was
-    bit-identical to the single-device kernel."""
+def hold_case(name, step, mesh, x, calls, want, plain, dev):
+    """Run the sharded kernel step ``calls`` times from ``x``, twice: bit for
+    bit ``want``, the single-device kernel's result (0.0 expected, within
+    TOL required), within TOL of ``plain``, the plain sharded version's, and
+    the two runs bit-identical; logs, and raises otherwise.  Returns (error
+    against the plain version, against the single-device kernel, whether
+    bit-identical to it)."""
     import torch
 
-    errs = {k: {"plain": {}, "single": {}, "all_equal": True} for k in (27, 28, 29, 30)}
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    runs = []
+    for _ in range(2):
+        y = pm.shard_state(mesh, x)
+        for _ in range(calls):
+            y = step(y)
+        runs.append(y.gather(dev).reshape(x.shape))
+    torch.cuda.synchronize()
+    e_single = (runs[0] - want).abs().max().item()
+    same = bool(torch.equal(runs[0], want))
+    twice = bool(torch.equal(runs[0], runs[1]))
+    log(f"{name}: vs the single-device kernel max_abs_err={e_single!r} "
+        f"bit-identical={same}; two runs bit-identical={twice}")
+    e_plain = compare(f"{name} vs the plain sharded version", runs[0], plain, x.dtype)
+    if not (e_single <= TOL[str(x.dtype).removeprefix("torch.")] and twice):
+        raise AssertionError(f"{name}: differs from the single-device kernel or from itself")
+    return e_plain, e_single, same
+
+
+def sharded_hold(dev):
+    """Phase 4 of kernels 27-34 (``SHARDED_HOLDS``).  For each family, shape
+    and type one state; for each cadence s the single-device kernel and the
+    plain sharded version (8 shards; (4, 2) for kernel 34) run 10 steps (the
+    nearest multiple of s; Shan-Chen 4, the steps of kernel 14's phase-3
+    hold on the same states: the Carnahan-Starling one, 8M float32 cells of
+    0.2 (rho_l - rho_v) noise, turns non-finite within 10) from it once;
+    then on each shard count or mesh the kernel step runs them twice: bit
+    for bit the single-device kernel (0.0 expected, within TOL required),
+    within TOL of the plain version, and the two runs bit-identical.  (The
+    n-shard plain versions equal each other and the single-device plain
+    step bit for bit: the CPU tests hold them so.)  Returns, by kernel, the
+    max error against the plain version and against the single-device
+    kernel by dtype, and whether every case was bit-identical to it."""
+    import torch
+
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    errs = {k: {"plain": {}, "single": {}, "all_equal": True} for k in range(27, 35)}
     for family, kernel, shapes, ns, ss in SHARDED_HOLDS:
-        for dt_name, (R, C) in shapes:
+        for dt_name, shape in shapes:
             dtype = getattr(torch, dt_name)
-            for n in ns:
-                for s in ss:
-                    e_plain, e_single, same = hold_sharded(f"kernel {kernel}", family, R, C,
-                                                           dtype, dev, n, s)
+            x = sharded_state(family, shape, dtype, dev)
+            for s in ss:
+                calls = max(1, round((4 if family.startswith("sc ") else 10) / s))
+                step, single, mesh = sharded_case(family, shape, dtype, dev,
+                                                  (4, 2) if kernel == 34 else 8, s)
+                want, y = x, pm.shard_state(mesh, x)
+                for _ in range(calls):
+                    want, y = single(want), step.plain(y)
+                plain = y.gather(dev).reshape(x.shape)
+                for n in ns:
+                    step, _, mesh = sharded_case(family, shape, dtype, dev, n, s)
+                    name = (f"[4] kernel {kernel} {family} {'x'.join(map(str, shape))} {dtype} "
+                            f"n={n} s={s} ({calls * s} steps)")
+                    e_plain, e_single, same = hold_case(name, step, mesh, x, calls, want, plain,
+                                                        dev)
                     rec = errs[kernel]
                     rec["plain"][dtype] = max(rec["plain"].get(dtype, 0.0), e_plain)
                     rec["single"][dtype] = max(rec["single"].get(dtype, 0.0), e_single)
                     rec["all_equal"] &= same
+            del x, want, plain
             torch.cuda.empty_cache()
     for k, rec in errs.items():
         log(f"[4] kernel {k}: max error vs the plain sharded version {rec['plain']}, vs the "
@@ -1346,84 +1481,158 @@ def sharded_hold(dev):
     return errs
 
 
-def sharded_cards(dev) -> None:
-    """One shard per card, where the machine has several: kernels 27 and 28
-    in float32, 29 (CSF) and 30 in float64 (their tiles then take over 48 KB
-    of shared memory, opted in on each card), each against its single-device
-    kernel on ``dev`` (``hold_sharded``), and the dry run on the default mesh
-    (``make_mesh()``: every card).  On one card it logs that it did not run."""
+def sharded_cards(dev, cards=None) -> None:
+    """One shard per card of ``cards`` (default: every card, where the
+    machine has several): kernels 27 and 28 in float32, 29 (CSF) and 30 in
+    float64 (their tiles then take over 48 KB of shared memory, opted in on
+    each card), 31 (CSF, float64), 32, 33 (the cavity) and 34 (an (n/2, 2)
+    mesh where n is even), each 10 steps (the nearest multiple of s), run
+    twice (``hold_case``): bit for bit its single-device kernel on ``dev``
+    and each other, within TOL of the plain sharded version on the same
+    cards; then the dry run on them.  On one card, with no ``cards``, it
+    logs that it did not run."""
     import torch
 
     from lbm_tpu_torch.parallel import dryrun
+    from lbm_tpu_torch.parallel import mesh as pm
 
-    n_cards = torch.cuda.device_count()
-    if n_cards < 2:
-        log("[5] one shard per card: not run; this machine has 1 CUDA device (the "
-            "n-shard runs above put every shard on cuda:0)")
-        return
-    cards = [torch.device("cuda", i) for i in range(n_cards)]
-    for family, s, dtype in (("k27 bgk", 8, torch.float32), ("thermal", 8, torch.float32),
-                             ("csf", 4, torch.float64), ("rk", 1, torch.float64)):
-        hold_sharded("one shard per card", family, 256 * n_cards, 512, dtype, dev, n_cards,
-                     s, devices=cards)
-    res = dryrun.dryrun_multichip(n_cards)
-    log(f"[5] dryrun_multichip({n_cards}) on every card: "
+    if cards is None:
+        if torch.cuda.device_count() < 2:
+            log("[5] one shard per card: not run; this machine has 1 CUDA device (the "
+                "n-shard runs put every shard on cuda:0)")
+            return
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n_cards = len(cards)
+    mesh34 = (n_cards // 2, 2) if n_cards % 2 == 0 else (n_cards, 1)
+    rows = (256 * n_cards, 512)
+    for family, shape, n, s, dtype in (
+            ("k27 bgk", rows, n_cards, 8, torch.float32),
+            ("thermal", rows, n_cards, 8, torch.float32),
+            ("csf", rows, n_cards, 4, torch.float64), ("rk", rows, n_cards, 1, torch.float64),
+            ("csf_full", rows, n_cards, 4, torch.float64),
+            ("sc sc/guo", rows, n_cards, 4, torch.float32),
+            ("d3q19 cavity", (4, 32 * n_cards, 128), n_cards, 8, torch.float32),
+            ("k34 bgk", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 8, torch.float32)):
+        x = sharded_state(family, shape, dtype, dev)
+        step, single, mesh = sharded_case(family, shape, dtype, dev, n, s, devices=cards)
+        calls = max(1, round(10 / s))
+        want, y = x, pm.shard_state(mesh, x)
+        for _ in range(calls):
+            want, y = single(want), step.plain(y)
+        name = (f"[5] {family} {shape} {dtype}, one shard per card on a {mesh.shape} mesh, "
+                f"{calls * s} steps")
+        same = hold_case(name, step, mesh, x, calls, want, y.gather(dev).reshape(x.shape),
+                         dev)[2]
+        check_gates(name, {"bit-identical to the single-device kernel": (float(same), 1.0,
+                                                                         1.0)})
+    res = dryrun.dryrun_multichip(n_cards, devices=cards)
+    log(f"[5] dryrun_multichip({n_cards}) on {[str(c) for c in cards]}: "
         f"{ {k: tuple(v.shape) for k, v in res.items()} }, finite")
 
 
-# (label, family, shape, substeps, steps) of phase 5's sharded runs, float32
-# on 8 shards of the card
+def run_sharded_cases(table, dev) -> list:
+    """The cases of a phase-5 table ((label, family, shape, shards or mesh,
+    substeps, steps), float32 on shards of ``dev``) with their references:
+    (label, shape, n, s, steps, sharded step, mesh, state, the
+    single-device kernel's result), the sharded step built through the
+    factories a user calls, "auto" included."""
+    import torch
+
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+
+    f32, cases = torch.float32, []
+    for label, family, shape, n, s, steps in table:
+        s_int = ksh.resolve_substeps(s, "bgk")  # "auto": the collide-stream families only
+        step, single, mesh = sharded_case(family, shape, f32, dev, n, s_int)
+        if s == "auto":
+            make = k2d.make_sharded_fused_step_2d if isinstance(n, tuple) \
+                else ksh.make_sharded_fused_step
+            step = make(mesh, *shape, k27_collisions()[family[4:]][0](f32), f32,
+                        substeps="auto")
+        x = sharded_state(family, shape, f32, dev)
+        want = x
+        for _ in range(steps // s_int):
+            want = single(want)
+        cases.append((label, shape, n, s_int, steps, step, mesh, x, want))
+    return cases
+
+
+def drive_sharded(cases, wall) -> None:
+    """Run each case of ``run_sharded_cases`` through shard_state, its step
+    and gather, timed on the host into ``wall``; each must be finite and
+    bit for bit its single-device kernel's result."""
+    import torch
+
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    for label, shape, n, s_int, steps, step, mesh, x, want in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pm.shard_state(mesh, x)
+        for _ in range(steps // s_int):
+            y = step(y)
+        got = y.gather()
+        torch.cuda.synchronize()
+        wall[label] = time.perf_counter() - t0
+        check_gates(f"[5] {label} {'x'.join(map(str, shape))} float32 on {n} shards of the "
+                    f"card, {steps} steps, {s_int} per exchange (host wall time "
+                    f"{wall[label]!r} s = {wall[label] / steps * 1e6!r} us/step)", {
+            "finite": (float(torch.isfinite(got).all()), 1.0, 1.0),
+            "bit-identical to the single-device kernel": (
+                float(torch.equal(got.reshape(want.shape), want)), 1.0, 1.0)})
+
+
+# (label, family, shape, shards or mesh, substeps, steps) of phase 5's
+# sharded runs, float32 on one card's shards: kernels 27-30, then 31-34
 SHARDED_PATH = (
-    ("periodic BGK", "k27 bgk", BIG, "auto", 1000),
-    *((f"periodic {c}", f"k27 {c}", (1024, 512), "auto", 80)
+    ("periodic BGK", "k27 bgk", BIG, 8, "auto", 1000),
+    *((f"periodic {c}", f"k27 {c}", (1024, 512), 8, "auto", 80)
       for c in ("kbc", "les", "trt", "power_law n=0.5", "power_law n=1.5",
                 "power_law newton")),
-    ("rayleigh_benard", "thermal", (64, 128), 8, 2000),
-    ("mrtcg_rayleigh_taylor", "mrtcg", (256, 128), 5, 2000),
-    ("mrt_csf_rayleigh_taylor", "csf", (256, 128), 4, 1000),
-    ("rk_rayleigh_taylor", "rk", (1024, 256), 1, 1000),
+    ("rayleigh_benard", "thermal", (64, 128), 8, 8, 2000),
+    ("mrtcg_rayleigh_taylor", "mrtcg", (256, 128), 8, 5, 2000),
+    ("mrt_csf_rayleigh_taylor", "csf", (256, 128), 8, 4, 1000),
+    ("rk_rayleigh_taylor", "rk", (1024, 256), 8, 1, 1000),
 )
+K31_34_PATH = (
+    ("periodic BGK, rows x cols", "k34 bgk", BIG, (4, 2), "auto", 1000),
+    *((f"periodic {c}, rows x cols", f"k34 {c}", (1024, 512), (2, 4), "auto", 80)
+      for c in K34_KINDS[1:]),
+    ("mrtcg_rayleigh_taylor, full state", "mrtcg_full", (256, 128), 8, 5, 2000),
+    ("mrt_csf_rayleigh_taylor, full state", "csf_full", (256, 128), 8, 4, 1000),
+)
+# the phase-5 gates that kernels 32 and 33 run sharded: sc_phase_separation
+# (H, W, steps) and the cavity3d gate's steps
+SC_GATE = (256, 256, 4000)
+CAVITY3D_STEPS = 20000
 
 
 def sharded_path(dev, counted) -> dict:
-    """Phase 5 of the sharded slice, through the user's entry points
+    """Phase 5 of kernels 27-30, through the user's entry points
     (parallel.mesh make_mesh / shard_state / gather and the factories of
-    kernels/sharded.py) on meshes of one card's shards (``SHARDED_PATH``):
-    the periodic BGK at 4096x2048 float32 with substeps="auto" (1000 steps),
+    kernels/sharded.py) on 8 shards of one card (``SHARDED_PATH``): the
+    periodic BGK at 4096x2048 float32 with substeps="auto" (1000 steps),
     kernel 27's other collisions at 1024x512 (80 steps), Rayleigh-Benard at
     the thermal gate's 64x128 (2000 steps, 8 per exchange), the MRT-CG
     Rayleigh-Taylor at 256x128 (2000 steps, 5 per exchange) and in CSF mode
     (1000 steps, 4 per exchange), and the RK Rayleigh-Taylor at 1024x256
-    (1000 steps), in float32 on 8 shards, each bit for bit against its
-    single-device kernel; the plain sharded channel on 8 shards of the card
-    against horizontal_poiseuille at 24x24 float64; the dry run on 8 shards;
-    one shard per card where the machine has several (``sharded_cards``).
-    The single-device references (and the scene the channel is held to) run
-    first; then every launch count starts at 0 and is read at the end, so
-    the counts are the sharded runs' alone.  Returns the host wall time of
-    each run, by label."""
+    (1000 steps), each bit for bit against its single-device kernel; the
+    plain sharded channel on 8 shards of the card against
+    horizontal_poiseuille at 24x24 float64.  The single-device references
+    (and the scene the channel is held to) run first; then every launch
+    count starts at 0 and is read at the end, so the counts are the sharded
+    runs' alone.  Returns the host wall time of each run, by label."""
     import torch
 
     from lbm_tpu_torch.kernels import sharded as ksh
-    from lbm_tpu_torch.parallel import dryrun
     from lbm_tpu_torch.parallel import mesh as pm
     from lbm_tpu_torch.parallel import sharded as psh
     from lbm_tpu_torch.scenes import channel as chs
 
-    f32, f64 = torch.float32, torch.float64
+    f64 = torch.float64
     mesh8 = pm.make_mesh([dev] * 8)
-    # the single-device references and the scene, before the counts start
-    cases = []
-    for label, family, (R, C), s, steps in SHARDED_PATH:
-        s_int = ksh.resolve_substeps(s, "bgk" if family.startswith("k27") else family)
-        step, single, x = sharded_case(family, R, C, f32, dev, 8, s_int)
-        if s == "auto":
-            step = ksh.make_sharded_fused_step(
-                mesh8, R, C, k27_collisions()[family[4:]][0](f32), f32, substeps="auto")
-        want = x
-        for _ in range(steps // s_int):
-            want = single(want)
-        cases.append((label, (R, C), s_int, steps, step, x, want))
+    cases = run_sharded_cases(SHARDED_PATH, dev)
     H = W = 24
     ref_card = chs.horizontal_poiseuille(H=H, W=W, T=300, device=dev, dtype=f64)
     ref_cpu = chs.horizontal_poiseuille(H=H, W=W, T=300, device="cpu", dtype=f64)
@@ -1431,22 +1640,7 @@ def sharded_path(dev, counted) -> dict:
     for k in counted.values():
         k.launches = 0
     wall = {}
-    for label, (R, C), s_int, steps, step, x, want in cases:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = pm.shard_state(mesh8, x)
-        for _ in range(steps // s_int):
-            y = step(y)
-        got = y.gather()
-        torch.cuda.synchronize()
-        wall[label] = time.perf_counter() - t0
-        same = bool(torch.equal(got, want))
-        check_gates(f"[5] {label} {R}x{C} float32 on 8 shards of the card, {steps} steps, "
-                    f"{s_int} per exchange (host wall time {wall[label]!r} s = "
-                    f"{wall[label] / steps * 1e6!r} us/step)", {
-            "finite": (float(torch.isfinite(got).all()), 1.0, 1.0),
-            "bit-identical to the single-device kernel": (float(same), 1.0, 1.0)})
-        del y, got
+    drive_sharded(cases, wall)
     del cases
     torch.cuda.empty_cache()
 
@@ -1468,13 +1662,6 @@ def sharded_path(dev, counted) -> dict:
         "max|f - f_scene cpu (plain)|": ((got.cpu() - ref_cpu.f).abs().max().item(), 0.0,
                                          1e-13)})
 
-    # the dry run, 8 shards of the card
-    res = dryrun.dryrun_multichip(8, devices=[dev] * 8)
-    log(f"[5] dryrun_multichip(8, devices=['cuda:0'] * 8): "
-        f"{ {k: tuple(v.shape) for k, v in res.items()} }, finite")
-
-    sharded_cards(dev)
-
     names = (*(f"halo_{k}" for k in ksh.COLLIDE_KINDS), "halo_thermal",
              "halo_mrtcg_reduced", "halo_rk")
     slice_launches = {name: counted[name].launches for name in names}
@@ -1484,95 +1671,255 @@ def sharded_path(dev, counted) -> dict:
     return wall
 
 
-def sharded_bound(family, R, C, n, s, itemsize, ops):
-    """(least ms, "bytes" or "operations", bytes) of one call of the n-shard
-    step (``s`` sweeps per exchange) at RxC: each sweep reads its input band
-    and writes its output band once (kernels/sharded.py sweep_bands), the
-    exchange reads and writes each halo strip once; ``ops`` operations per
-    output cell of each sweep over the fp32 peak."""
-    from lbm_tpu_torch.kernels import sharded as ksh
+def k31_34_path(dev, counted) -> dict:
+    """Phase 5 of kernels 31-34, through the user's entry points (the
+    factories of kernels/sharded.py and kernels/sharded2d.py) on one card's
+    shards, each run bit for bit its single-device run (``K31_34_PATH``):
+    the periodic BGK at 4096x2048 on a (4, 2) mesh with substeps="auto"
+    (1000 steps) and kernel 34's other collisions at 1024x512 on (2, 4) (80
+    steps); mrtcg_rayleigh_taylor's 256x128 initial state in the full
+    layout on 8 shards (2000 steps, 5 per exchange; CSF mode 1000, 4);
+    sc_phase_separation's 256x256 initial state on 8 shards, 4 steps per
+    exchange, 4000 steps, against the scene and with its gate; the cavity3d
+    gate's cavity (8x64x128, 20000 steps, 2 per exchange) with Y over 8
+    shards, against the scene and with the gate; the dry run on 8 shards
+    (every sharded path); one shard per card where there are several
+    (``sharded_cards``, kernels 27-34).  The references run first; then
+    every launch count starts at 0, and is read at the end.  Returns the
+    host wall time of each run, by label."""
+    import numpy as np
+    import torch
 
-    planes = {"bgk": 9, "thermal": 18, "mrtcg": 10, "csf": 12, "rk": 11}[family]
-    r = ksh.ROWS_PER_SWEEP[family]
-    halo = ksh.halo_for(s, r)
-    R_loc = R // n
-    walls = family != "bgk"
-    rows_moved, rows_out = 0, 0
-    for i in range(n):
-        for i_lo, i_hi, o_lo, o_hi in ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls):
-            rows_moved += (i_hi - i_lo) + (o_hi - o_lo)
-            rows_out += o_hi - o_lo
-    nbytes = (rows_moved + n * 2 * 2 * halo) * planes * C * itemsize
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = ops * rows_out * C / PEAK_FLOPS["float32"]
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.ops import d2q9, d3q19
+    from lbm_tpu_torch.parallel import dryrun
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import shan_chen as scs
+    from lbm_tpu_torch.scenes import three_d as t3
+
+    f32 = torch.float32
+    cases = run_sharded_cases(K31_34_PATH, dev)
+    H, W, T_sc = SC_GATE
+    rho0 = 0.7 + 0.02 * np.random.default_rng(0).standard_normal((H, W))  # the scene's
+    f_sc = d2q9.equilibrium(torch.zeros((2, H, W), dtype=f32, device=dev),
+                            torch.as_tensor(rho0, dtype=f32, device=dev)).contiguous()
+    ref_sc = scs.sc_phase_separation(H=H, W=W, T=T_sc, G=-5.0, substeps=4, device=dev,
+                                     dtype=f32)
+    X3, Y3, Z3 = CAVITY3D["X"], CAVITY3D["Y"], CAVITY3D["Z"]
+    nu3 = 0.05 * Z3 / 100.0  # lid_cavity_3d's viscosity, rounded as there
+    ref_3d = t3.lid_cavity_3d(T=CAVITY3D_STEPS, device=dev, dtype=f32, **CAVITY3D)
+    mesh8 = pm.make_mesh([dev] * 8)
+    torch.cuda.synchronize()
+
+    for k in counted.values():
+        k.launches = 0
+    wall = {}
+    drive_sharded(cases, wall)
+    del cases
+
+    def timed(label, step, x, calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pm.shard_state(mesh8, x)
+        for _ in range(calls):
+            y = step(y)
+        out = y.gather()
+        torch.cuda.synchronize()
+        wall[label] = time.perf_counter() - t0
+        return out
+
+    # sc_phase_separation's state on 8 shards, 4 steps per exchange, against
+    # the scene (kernel 14) and with the phase-5 gate
+    label = "sc_phase_separation"
+    step = ksh.make_sharded_sc_step(mesh8, H, W, omega=1.0, G=-5.0, substeps=4, dtype=f32)
+    got = timed(label, step, f_sc, T_sc // 4)
+    rho = d2q9.calc_rho(got)
+    check_gates(f"[5] {label} {H}x{W} float32 on 8 shards of the card, {T_sc} steps, 4 per "
+                f"exchange (host wall time {wall[label]!r} s)", {
+        "bit-identical to the scene": (float(torch.equal(got, ref_sc.f)), 1.0, 1.0),
+        "rho_l / rho_v": (rho.max().item() / max(rho.min().item(), 1e-6), 4.0, 50.0)})
+
+    # the cavity3d gate's cavity with Y over 8 shards, 2 steps per exchange,
+    # against the scene (kernel 25) and with the gate
+    label = "cavity3d"
+    step = ksh.make_sharded_d3q19_step(mesh8, X3, Y3, Z3, omega=1.0 / (3.0 * nu3 + 0.5),
+                                       x_walls=True, y_walls=True, z_walls=True, lid_u=0.05,
+                                       substeps=2, dtype=f32)
+    f3 = t3._at_rest(X3, Y3, Z3, dev, f32).reshape(19 * X3, Y3, Z3)
+    got = timed(label, step, f3, CAVITY3D_STEPS // 2).reshape(19, X3, Y3, Z3)
+    gates = cavity3d_gates(d3q19.calc_u(got, d3q19.calc_rho(got)))
+    gates["bit-identical to the scene"] = (float(torch.equal(got, ref_3d.f)), 1.0, 1.0)
+    check_gates(f"[5] validate_tpu.py cavity3d with Y over 8 shards of the card: "
+                f"{X3}x{Y3}x{Z3} float32 {CAVITY3D_STEPS} steps, 2 per exchange (host wall "
+                f"time {wall[label]!r} s = {wall[label] / CAVITY3D_STEPS * 1e6!r} us/step)",
+                gates)
+    del got, ref_3d, ref_sc
+
+    res = dryrun.dryrun_multichip(8, devices=[dev] * 8)
+    log(f"[5] dryrun_multichip(8, devices=['cuda:0'] * 8): "
+        f"{ {k: tuple(v.shape) for k, v in res.items()} }, finite")
+    sharded_cards(dev)
+    torch.cuda.empty_cache()
+
+    names = (*(f"halo2d_{k}" for k in ksh.COLLIDE_KINDS), "halo_mrtcg_full", "halo_shan_chen",
+             "halo_d3q19")
+    slice_launches = {name: counted[name].launches for name in names}
+    log(f"[5] kernel 31-34 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the kernel 31-34 path never launched")
+    return wall
+
+
+def sharded_bound(family, shape, n, s, itemsize, ops):
+    """(least ms, "bytes" or "operations", bytes) of one call of a sharded
+    kernel step of kernels 27-34 (``s`` sweeps per exchange) at ``shape`` (R,
+    C), or (X, Y, Z) for "d3q19 <walls>", on ``n`` shards (kernel 34, "k34
+    ...": an (nx, ny) mesh): each sweep reads its input band and writes its
+    output band once (kernels/sharded.py sweep_bands, sharded2d.py
+    sweep_bands_2d); the exchange reads and writes once each halo line that
+    the first sweep's input band reads beyond the shard (s rows per sweep
+    each side, clipped at a wall; kernel 34: s rows and s columns), not the
+    whole 8-aligned strip the step sends; ``ops`` operations per output cell
+    of each sweep over the fp32 peak."""
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+
+    if family.startswith("k34"):
+        (R, C), (nx, ny), h = shape, n, ksh.HALO
+        R_loc, C_loc = R // nx, C // ny
+        moved = out = 0
+        bands = k2d.sweep_bands_2d(R_loc, C_loc, h, s)
+        for (ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi) in bands:
+            cells = (ro_hi - ro_lo) * (co_hi - co_lo)
+            moved += (ri_hi - ri_lo) * (ci_hi - ci_lo) + cells
+            out += cells
+        (ri_lo, ri_hi, _, _), (ci_lo, ci_hi, _, _) = bands[0]
+        strips = (ri_hi - ri_lo) * (ci_hi - ci_lo) - R_loc * C_loc
+        nbytes = nx * ny * (moved + 2 * strips) * 9 * itemsize
+        n_ops = nx * ny * out * ops
+    else:
+        planes, r, walls = shard_geometry(family)
+        if family.startswith("d3q19 "):
+            X, R, C = shape
+            planes, per_cell = 19 * X, X
+        else:
+            (R, C), per_cell = shape, 1
+        halo = ksh.halo_for(s, r)
+        R_loc = R // n
+        rows_moved = rows_out = strip_rows = 0
+        for i in range(n):
+            bands = ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls)
+            for i_lo, i_hi, o_lo, o_hi in bands:
+                rows_moved += (i_hi - i_lo) + (o_hi - o_lo)
+                rows_out += o_hi - o_lo
+            i_lo, i_hi = bands[0][:2]
+            strip_rows += max(0, halo - i_lo) + max(0, i_hi - halo - R_loc)
+        nbytes = (rows_moved + 2 * strip_rows) * planes * C * itemsize
+        n_ops = ops * rows_out * C * per_cell
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, n_ops / PEAK_FLOPS["float32"]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
-def sharded_times(dev, card: str) -> dict:
-    """Phase 6 of kernels 27-30 at 4096x2048 float32: for each family, the
-    n-shard step on one card at n = 1 and 8 and at s = 1 and the family's
-    deepest cadence (the RK step: s = 1), its single-device kernel at the
-    same s, the exchange's copies alone (n = 8, the family's strip) and a
-    device-to-device copy of the state, each as device ms per step from a
-    CUDA graph of 5 calls (CUDA events around its replays, median of 3
-    rounds in turns), so the host's launch time is not in them; the plain
-    sharded version eagerly (n = 8, s = 1); each configuration's bound
-    (``sharded_bound``, operations counted on the plain single-device
-    step).  One card measures no interconnect: the exchange is a copy within
-    the card's memory."""
+def plain_ops(family) -> float:
+    """Operations per cell of the family's plain single-device step
+    (``ops_per_cell`` on a small CPU state, float32)."""
     import torch
 
-    from lbm_tpu_torch.kernels import bgk, collide_stream, mrtcg, rk
-    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import bgk, collide_stream, mrtcg, rk, shan_chen
+    from lbm_tpu_torch.kernels import d3q19 as kd
     from lbm_tpu_torch.kernels import thermal as kth
-    from lbm_tpu_torch.parallel import halo as ph
-    from lbm_tpu_torch.parallel import mesh as pm
     from lbm_tpu_torch.scenes import multiphase as mp
 
-    f32 = torch.float32
-    R, C = BIG
-    cpu = torch.device("cpu")
-    small = 64
-    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
-    ops = {
-        "bgk": ops_per_cell(collide_stream.make_fused_step(
+    f32, cpu, small = torch.float32, torch.device("cpu"), 64
+    if family in ("k27 bgk", "k34 bgk"):
+        return ops_per_cell(collide_stream.make_fused_step(
             small, small, bgk.bgk_collide_fn(OMEGA, f32), f32),
-            seeded_state(small, small, f32, cpu, seed=1)),
-        "thermal": ops_per_cell(lambda S: kth.plain_rb_step(S, **THERMAL_PHYS),
-                                thermal_state(9, small, small, f32, cpu, seed=2)),
-        "rk": ops_per_cell(rk.make_plain_step(**RK), rk_state(small, small, f32, cpu))}
-    for fam, csf in (("mrtcg", False), ("csf", True)):
-        ops[fam] = ops_per_cell(
-            mrtcg.make_plain_step(red, blue, surface_tension="csf" if csf else "perturbation",
-                                  **RT),
-            reduced_input(mrtcg_state(small, small, f32, cpu, csf), csf))
-    deepest = {"bgk": 8, "thermal": 8, "mrtcg": 5, "csf": 4, "rk": 1}
+            seeded_state(small, small, f32, cpu, seed=1))
+    if family == "thermal":
+        return ops_per_cell(lambda S: kth.plain_rb_step(S, **THERMAL_PHYS),
+                            thermal_state(9, small, small, f32, cpu, seed=2))
+    if family == "rk":
+        return ops_per_cell(rk.make_plain_step(**RK), rk_state(small, small, f32, cpu))
+    if family.startswith("sc "):
+        return ops_per_cell(shan_chen.make_plain_step(**sc_kwargs(*family[3:].split("/"))),
+                            sc_state(small, small, f32, cpu, family[3:5], seed=1))
+    if family.startswith("d3q19 "):
+        return ops_per_cell(
+            lambda S: kd.plain_d3q19_lanes_step(S, 4, 8, 16, omega=D3Q19_OMEGA,
+                                                **D3Q19_WALLS[family[6:]]),
+            kd.pack_lanes(d3q19_state(4, 8, 16, f32, cpu, seed=3)))
+    csf, full = family.startswith("csf"), family.endswith("_full")
+    S = mrtcg_state(small, small, f32, cpu, csf)
+    return ops_per_cell(
+        mrtcg.make_plain_step(mp.DEFAULT_RED, mp.DEFAULT_BLUE,
+                              surface_tension="csf" if csf else "perturbation",
+                              reduced_in=not full, reduced_out=not full, **RT),
+        S if full else reduced_input(S, csf))
+
+
+# (family, shape, shard counts or meshes, deepest cadence) of phase 6's
+# times of the sharded kernels 27-34, float32
+SHARDED_TIMES = (
+    ("k27 bgk", BIG, (1, 8), 8), ("thermal", BIG, (1, 8), 8), ("mrtcg", BIG, (1, 8), 5),
+    ("csf", BIG, (1, 8), 4), ("rk", BIG, (1, 8), 1), ("mrtcg_full", BIG, (1, 8), 5),
+    ("csf_full", BIG, (1, 8), 4), ("sc sc/guo", BIG, (1, 8), 4),
+    ("d3q19 periodic", D3Q19_BIG, (1, 8), 8), ("k34 bgk", BIG, ((1, 1), (4, 2), (8, 1)), 8),
+)
+
+
+def sharded_times(dev, card: str) -> dict:
+    """Phase 6 of kernels 27-34 at 4096x2048 float32 (kernel 33 at
+    32x256x1024): for each family (``SHARDED_TIMES``) the sharded step on 1
+    and 8 shards of one card (kernel 34: the (1, 1), (4, 2) and (8, 1)
+    meshes) at s = 1 and the family's deepest cadence, the single-device
+    kernel at the same s, the exchange's copies alone (8 shards, the
+    deepest cadence's strips) and a device-to-device copy of the state,
+    each as device ms per step from a CUDA graph of 5 calls (CUDA events
+    around its replays, median of 3 rounds in turns), so the host's launch
+    time is not in them; the plain sharded version eagerly (8 shards, s =
+    1); each configuration's bound (``sharded_bound``, operations counted
+    on the plain single-device step).  One card measures no interconnect:
+    the exchange is a copy within the card's memory."""
+    import torch
+
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    f32 = torch.float32
     out = {"ms": {}, "single_ms": {}, "exchange_ms": {}, "plain_ms": {}, "bound": {},
-           "frac": {}, "ops": ops}
-    for fam, s_max in deepest.items():
-        family = "k27 bgk" if fam == "bgk" else fam
-        configs = [(n, s) for n in (1, 8) for s in sorted({1, s_max})]
+           "frac": {}, "ops": {}}
+    for family, shape, ns, s_max in SHARDED_TIMES:
+        ops = out["ops"][family] = plain_ops(family)
+        x = sharded_state(family, shape, f32, dev)
+        cells = x.numel() // x.shape[0] * (shape[0] if family.startswith("d3q19") else 1)
+        two_d = family.startswith("k34")
+        n8 = (4, 2) if two_d else 8
         calls = {}
-        x = None
-        for n, s in configs:
-            step, single, x0 = sharded_case(family, R, C, f32, dev, n, s)
-            x = x0 if x is None else x
-            calls["sharded", n, s] = (step, pm.shard_state(pm.make_mesh([dev] * n), x), s)
-            if n == 1:
-                calls["single", 1, s] = (single, x, s)
-        mesh8 = pm.make_mesh([dev] * 8)
-        shards8 = pm.shard_state(mesh8, x).shards
-        halo = ksh.halo_for(s_max, ksh.ROWS_PER_SWEEP[fam])
+        for n in ns:
+            for s in sorted({1, s_max}):
+                step, single, mesh = sharded_case(family, shape, f32, dev, n, s)
+                calls["sharded", n, s] = (step, pm.shard_state(mesh, x), s)
+                if n in (1, (1, 1)):
+                    calls["single", 1, s] = (single, x, s)
+        shards8 = pm.shard_state(sharded_case(family, shape, f32, dev, n8, 1)[2], x).shards
+        strip = ksh.HALO if two_d else ksh.halo_for(s_max, shard_geometry(family)[1])
+
+        def exchange(y, two_d=two_d, strip=strip):
+            if two_d:  # the (4, 2) mesh's blocks, row-major
+                ph.exchange_2d([y[i * 2:(i + 1) * 2] for i in range(4)], strip)
+            else:
+                ph.exchange_rows(y, strip)
+            return y
+
         dst = torch.empty_like(x)
         runs = {c: [] for c in calls}
-        runs["exchange", 8, s_max] = []
+        runs["exchange", n8, s_max] = []
         runs["copy", 0, 0] = []
         for order in (0, 1, 2):
-            keys = list(runs) if order != 1 else list(runs)[::-1]
-            for key in keys:
+            for key in (list(runs) if order != 1 else list(runs)[::-1]):
                 if key[0] == "exchange":
-                    t = graph_ms(lambda y: (ph.exchange_rows(y, halo), y)[1], shards8,
-                                 5) / key[2]
+                    t = graph_ms(exchange, shards8, 5) / key[2]
                 elif key[0] == "copy":
                     t = cuda_ms(lambda: dst.copy_(x), 20)
                 else:
@@ -1581,71 +1928,87 @@ def sharded_times(dev, card: str) -> dict:
                 runs[key].append(t)
         med = {key: sorted(v)[1] for key, v in runs.items()}
         copy_rate = 2 * x.numel() * x.element_size() / (med["copy", 0, 0] * 1e-3)
-        b_cell = 2 * x.shape[0] * x.element_size()
-        step8, _, _ = sharded_case(family, R, C, f32, dev, 8, 1)
+        b_cell = 2 * x.numel() // cells * x.element_size()
+        step8, _, mesh8 = sharded_case(family, shape, f32, dev, n8, 1)
         sx8 = pm.shard_state(mesh8, x)
-        out["plain_ms"][fam] = cuda_ms(lambda: step8.plain(sx8), 3)
-        out["exchange_ms"][fam] = med["exchange", 8, s_max] * s_max
-        log(f"[6] {card}; {fam} 4096x2048 float32 ({x.shape[0]} planes): copy of the state "
-            f"{med['copy', 0, 0]!r} ms; the exchange's copies alone, 8 shards, {halo}-row "
-            f"strip: {out['exchange_ms'][fam]!r} ms per exchange (runs "
-            f"{runs['exchange', 8, s_max]}); plain sharded (n=8, s=1) "
-            f"{out['plain_ms'][fam]!r} ms/step")
+        out["plain_ms"][family] = cuda_ms(lambda: step8.plain(sx8), 3)
+        out["exchange_ms"][family] = med["exchange", n8, s_max] * s_max
+        log(f"[6] {card}; {family} {'x'.join(map(str, shape))} float32 ({x.shape[0]} planes): "
+            f"copy of the state {med['copy', 0, 0]!r} ms; the exchange's copies alone, "
+            f"{n8} shards, {strip}-line strips: {out['exchange_ms'][family]!r} ms per exchange "
+            f"(runs {runs['exchange', n8, s_max]}); plain sharded ({n8}, s=1) "
+            f"{out['plain_ms'][family]!r} ms/step")
         for key, t in sorted(med.items(), key=lambda kv: kv[0][0] != "single"):
             kind, n, s = key
             if kind in ("exchange", "copy"):
                 continue
             if kind == "single":
-                out["single_ms"][fam, s] = t
-                log(f"[6] {fam} single-device kernel s={s}: {t!r} ms/step (runs {runs[key]})")
+                out["single_ms"][family, s] = t
+                log(f"[6] {family} single-device kernel s={s}: {t!r} ms/step (runs "
+                    f"{runs[key]})")
                 continue
-            out["ms"][fam, n, s] = t
-            b = sharded_bound(fam, R, C, n, s, 4, ops[fam])
-            out["bound"][fam, n, s] = b
-            rate = b_cell * R * C / (t * 1e-3)
-            out["frac"][fam, n, s] = rate / copy_rate
-            log(f"[6] {fam} n={n} s={s}: {t!r} ms/step (runs {runs[key]}) = "
-                f"{R * C / (t * 1e-3) / 1e6!r} MLUPS, {rate / copy_rate!r} of copy at "
+            out["ms"][family, n, s] = t
+            b = sharded_bound(family, shape, n, s, 4, ops)
+            out["bound"][family, n, s] = b
+            rate = b_cell * cells / (t * 1e-3)
+            out["frac"][family, n, s] = rate / copy_rate
+            log(f"[6] {family} n={n} s={s}: {t!r} ms/step (runs {runs[key]}) = "
+                f"{cells / (t * 1e-3) / 1e6!r} MLUPS, {rate / copy_rate!r} of copy at "
                 f"{b_cell} B/cell; bound {b[0] / s!r} ms/step by {b[1]} ({b[2] / s!r} B/step, "
-                f"{ops[fam]!r} flops/cell); over the single-device kernel "
-                f"{t / out['single_ms'].get((fam, s), float('nan')) - 1.0!r}")
+                f"{ops!r} flops/cell); over the single-device kernel "
+                f"{t / out['single_ms'].get((family, s), float('nan')) - 1.0!r}")
         del calls, x, dst, shards8, sx8, step8
         torch.cuda.empty_cache()
     return out
 
 
 def sharded_entries(launches: dict, errs: dict, tm: dict) -> list:
-    """The kernels line's entries of kernels 27-30: ``ms`` and ``bound_ms`` at
-    n = 8 shards of one card, s = 1, per step; the other configurations
-    beside them."""
+    """The kernels line's entries of kernels 27-34: ``ms`` and ``bound_ms`` on
+    8 shards of one card ((4, 2) for kernel 34), s = 1, per step; the other
+    configurations beside them."""
     import torch
 
     from lbm_tpu_torch.kernels import sharded as ksh
 
     f32, f64 = torch.float32, torch.float64
-    rows = (("halo_collide_stream", 27, "bgk", "collide_stream.cuh", "sharded_pallas.py:171"),
-            ("halo_thermal", 28, "thermal", "thermal.cu", "sharded_pallas.py:503"),
-            ("halo_mrtcg_reduced", 29, "mrtcg", "mrtcg.cuh", "sharded_pallas.py:453"),
-            ("halo_rk", 30, "rk", "rk_cg.cu", "sharded_pallas.py:486"))
+    rows = (
+        ("halo_collide_stream", 27, "k27 bgk", "collide_stream.cuh", "sharded_pallas.py:171",
+         "4096x2048 float32, 8 shards"),
+        ("halo_thermal", 28, "thermal", "thermal.cu", "sharded_pallas.py:503",
+         "4096x2048 float32, 8 shards"),
+        ("halo_mrtcg_reduced", 29, "mrtcg", "mrtcg.cuh", "sharded_pallas.py:453",
+         "4096x2048 float32, 8 shards"),
+        ("halo_rk", 30, "rk", "rk_cg.cu", "sharded_pallas.py:486", "4096x2048 float32, 8 shards"),
+        ("halo_mrtcg_full", 31, "mrtcg_full", "mrtcg_full.cu", "sharded_pallas.py:406",
+         "4096x2048 float32, 8 shards"),
+        ("halo_shan_chen", 32, "sc sc/guo", "shan_chen.cu", "shan_chen_pallas.py:138",
+         "4096x2048 float32, 8 shards, sc/guo"),
+        ("halo_d3q19", 33, "d3q19 periodic", "d3q19.cu", "d3q19_pallas.py:173",
+         "32x256x1024 float32, Y over 8 shards, periodic"),
+        ("halo2d_collide_stream", 34, "k34 bgk", "collide_stream.cuh",
+         "sharded2d_pallas.py:223", "4096x2048 float32, (4, 2) mesh, BGK"))
     entries = []
-    for name, k, fam, src, replaces in rows:
-        n_launch = sum(launches[f"halo_{c}"] for c in ksh.COLLIDE_KINDS) if k == 27 \
-            else launches[name]
-        b = tm["bound"][fam, 8, 1]
+    for name, k, fam, src, replaces, shape in rows:
+        n8 = (4, 2) if k == 34 else 8
+        n_launch = sum(launches[f"{name.split('_')[0]}_{c}"] for c in ksh.COLLIDE_KINDS) \
+            if k in (27, 34) else launches[name]
+        b = tm["bound"][fam, n8, 1]
         e = {"name": name, "route": "cuda", "source": f"lbm_tpu_torch/csrc/{src}",
              "replaces": f"lbm_tpu/kernels/{replaces}", "launches": n_launch,
              "max_abs_err": errs[k]["plain"][f32], "max_abs_err_f64": errs[k]["plain"][f64],
              "max_abs_err_vs_single_device": errs[k]["single"][f32],
              "max_abs_err_vs_single_device_f64": errs[k]["single"][f64],
              "bit_identical_to_single_device": errs[k]["all_equal"],
-             "ms": tm["ms"][fam, 8, 1], "plain_ms": tm["plain_ms"][fam], "bound_ms": b[0],
-             "bound_by": b[1], "library_ms": None, "shape": "4096x2048 float32, 8 shards",
+             "ms": tm["ms"][fam, n8, 1], "plain_ms": tm["plain_ms"][fam], "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": None, "shape": shape,
              "single_device_ms": tm["single_ms"][fam, 1], "exchange_ms": tm["exchange_ms"][fam],
-             "fraction_of_copy": tm["frac"][fam, 8, 1], "flops_per_cell": tm["ops"][fam]}
-        for fm in ((fam, "csf") if k == 29 else (fam,)):
+             "fraction_of_copy": tm["frac"][fam, n8, 1], "flops_per_cell": tm["ops"][fam]}
+        csf = {29: "csf", 31: "csf_full"}.get(k)
+        for fm in (fam, csf) if csf else (fam,):
             for (f_, n, s), t in tm["ms"].items():
                 if f_ == fm:
-                    tag = f"{'csf_' if fm == 'csf' else ''}n{n}_s{s}"
+                    where = f"{n[0]}x{n[1]}" if isinstance(n, tuple) else n
+                    tag = f"{'csf_' if fm == csf else ''}n{where}_s{s}"
                     e[f"ms_{tag}"] = t
                     e[f"bound_ms_{tag}"] = tm["bound"][f_, n, s][0] / s
         entries.append(e)
@@ -1673,6 +2036,7 @@ def main() -> int:
     from lbm_tpu_torch.kernels import d3q19 as kd
     from lbm_tpu_torch.kernels import ibm as kibm
     from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.kernels import moving_ibm as kmov
     from lbm_tpu_torch.models import kbc
     from lbm_tpu_torch.models.mrt_cg import phase_field
@@ -1709,7 +2073,9 @@ def main() -> int:
                "d3q19": kd.D3Q19, "d3q19_lanes": kd.D3Q19_LANES,
                **{f"halo_{kind}": k for kind, k in ksh.HALO_COLLIDE_STREAM.items()},
                "halo_thermal": ksh.HALO_THERMAL, "halo_mrtcg_reduced": ksh.HALO_MRTCG,
-               "halo_rk": ksh.HALO_RK}
+               "halo_rk": ksh.HALO_RK, "halo_mrtcg_full": ksh.HALO_MRTCG_FULL,
+               "halo_shan_chen": ksh.HALO_SHAN_CHEN, "halo_d3q19": ksh.HALO_D3Q19,
+               **{f"halo2d_{kind}": k for kind, k in k2d.HALO2D_COLLIDE_STREAM.items()}}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -1740,15 +2106,21 @@ def main() -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2]   {line.strip()}")
-    # kernels 25-26: the four instances of csrc/d3q19.cu (float and double,
-    # planes and lanes), their registers and spills
-    d3_report = lib.with_suffix(".log").read_text().split("== d3q19.cu\n", 1)[1]
-    d3_report = [line.strip() for line in d3_report.split("\n== ", 1)[0].splitlines()
-                 if "entry function" in line or "registers" in line or "spill" in line]
-    for line in d3_report:
-        log(f"[2] kernels 25-26: {line}")
-    if sum("entry function" in line for line in d3_report) != 4:
-        raise AssertionError("kernels 25-26: ptxas reports no four instances of d3q19.cu")
+    # kernels 25-26: the four instances of csrc/d3q19.cu's single-device step
+    # (float and double, planes and lanes); kernels 31-34: their instances
+    # (type x mode or collision x edge); with their registers and spills
+    build_log = lib.with_suffix(".log").read_text()
+    for kernel, units, mark, expected in (
+            ("25-26", ("d3q19",), "d3q19_kernel", 4),
+            (31, ("mrtcg_full",), "ShardIO", 8), (32, ("shan_chen",), "shan_chen_halo", 8),
+            (33, ("d3q19",), "d3q19_halo", 2),
+            (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16)):
+        found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
+        for name, regs, spill in found:
+            log(f"[2] kernel(s) {kernel}: {name}: {regs} registers; {spill}")
+        if len(found) != expected:
+            raise AssertionError(f"kernel(s) {kernel}: ptxas reports {len(found)} instances, "
+                                 f"not {expected}")
 
     # 3. the periodic kernels against their plain versions
     err1 = hold_periodic(
@@ -2853,6 +3225,9 @@ def main() -> int:
     # the row-sharded slice of kernels 27-30: its counts start at 0 there and
     # are read at its end
     sharded_path(dev, counted)
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
+    # kernels 31-34: their counts start at 0 there and are read at its end
+    k31_34_path(dev, counted)
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):

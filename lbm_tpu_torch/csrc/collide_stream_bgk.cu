@@ -22,10 +22,12 @@
 // shared-memory tile with halos, which cuts the bytes per step), 16-byte
 // vector loads, and in-place (single-buffer) streaming schemes.
 //
-// The collision is a functor shared by this step and kernel 27's BGK
-// instance, lbm_halo_bgk: the same device code on a row shard with halo
-// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
-// with this source's flags, so an n-shard run equals this kernel bit for bit.
+// The collision is a functor shared by this step, kernel 27's BGK
+// instance, lbm_halo_bgk, and kernel 34's, lbm_halo2d_bgk: the same device
+// code on a row shard with halo inputs (csrc/collide_stream.cuh halo_step,
+// kernels/sharded.py) and on a rows x cols shard (halo2d_step,
+// kernels/sharded2d.py), built with this source's flags, so an n-shard run
+// equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -85,4 +87,13 @@ extern "C" int lbm_halo_bgk(const long long* geom, const double* params, int, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? lbm::launch_halo<double>(geom, bgk<double>(params[0]), s)
                 : lbm::launch_halo<float>(geom, bgk<float>(params[0]), s);
+}
+
+// Kernel 34, BGK instance: one sweep on a rows x cols shard with the
+// geometry `geom` (csrc/halo2d.cuh); params = {omega}.
+extern "C" int lbm_halo2d_bgk(const long long* geom, const double* params, int, int,
+                              int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? lbm::launch_halo2d<double>(geom, bgk<double>(params[0]), s)
+                : lbm::launch_halo2d<float>(geom, bgk<float>(params[0]), s);
 }

@@ -28,9 +28,10 @@
 // tolerances assume).
 //
 // The collision is a functor shared by this step and kernel 27's KBC
-// instance, lbm_halo_kbc: the same device code on a row shard with halo
-// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
-// with this source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_kbc, and kernel 34's, lbm_halo2d_kbc: the same device
+// code on a row shard and on a rows x cols shard with halo inputs
+// (csrc/collide_stream.cuh halo_step and halo2d_step), built with this
+// source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -59,11 +60,16 @@ int periodic(const void* fin, void* fout, long long R, long long C, double s2, i
                   : lbm::launch_periodic<T>(fin, fout, R, C, Kbc<T, false>{p}, s);
 }
 
-template <typename T>
+// One sweep of kernel 27 (TWO_D false) or kernel 34 (true).
+template <typename T, bool TWO_D>
 int halo_sweep(const long long* geom, double s2, int factored, cudaStream_t s) {
   const lbm::kbc::Params<T> p = lbm::kbc::make_params<T>(s2);
-  return factored ? lbm::launch_halo<T>(geom, Kbc<T, true>{p}, s)
-                  : lbm::launch_halo<T>(geom, Kbc<T, false>{p}, s);
+  if constexpr (TWO_D)
+    return factored ? lbm::launch_halo2d<T>(geom, Kbc<T, true>{p}, s)
+                    : lbm::launch_halo2d<T>(geom, Kbc<T, false>{p}, s);
+  else
+    return factored ? lbm::launch_halo<T>(geom, Kbc<T, true>{p}, s)
+                    : lbm::launch_halo<T>(geom, Kbc<T, false>{p}, s);
 }
 
 }  // namespace
@@ -84,6 +90,15 @@ extern "C" int lbm_collide_stream_kbc(const void* fin, void* fout, long long R,
 extern "C" int lbm_halo_kbc(const long long* geom, const double* params, int factored, int,
                             int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? halo_sweep<double>(geom, params[0], factored, s)
-                : halo_sweep<float>(geom, params[0], factored, s);
+  return is_f64 ? halo_sweep<double, false>(geom, params[0], factored, s)
+                : halo_sweep<float, false>(geom, params[0], factored, s);
+}
+
+// Kernel 34, KBC instance: one sweep on a rows x cols shard with the
+// geometry `geom` (csrc/halo2d.cuh); params = {s2}.
+extern "C" int lbm_halo2d_kbc(const long long* geom, const double* params, int factored,
+                              int, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? halo_sweep<double, true>(geom, params[0], factored, s)
+                : halo_sweep<float, true>(geom, params[0], factored, s);
 }

@@ -21,9 +21,10 @@
 // table: temporal blocking, vector loads.
 //
 // The collision is a functor shared by this step and kernel 27's LES
-// instance, lbm_halo_les: the same device code on a row shard with halo
-// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
-// with this source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_les, and kernel 34's, lbm_halo2d_les: the same device
+// code on a row shard and on a rows x cols shard with halo inputs
+// (csrc/collide_stream.cuh halo_step and halo2d_step), built with this
+// source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -95,4 +96,13 @@ extern "C" int lbm_halo_les(const long long* geom, const double* params, int, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? lbm::launch_halo<double>(geom, les<double>(params[0], params[1]), s)
                 : lbm::launch_halo<float>(geom, les<float>(params[0], params[1]), s);
+}
+
+// Kernel 34, LES instance: one sweep on a rows x cols shard with the
+// geometry `geom` (csrc/halo2d.cuh); params = {tau0, cs_smag}.
+extern "C" int lbm_halo2d_les(const long long* geom, const double* params, int, int,
+                              int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? lbm::launch_halo2d<double>(geom, les<double>(params[0], params[1]), s)
+                : lbm::launch_halo2d<float>(geom, les<float>(params[0], params[1]), s);
 }

@@ -29,9 +29,10 @@
 // loads, a cheaper pow for the Picard map.
 //
 // The collision is a functor shared by this step and kernel 27's power-law
-// instance, lbm_halo_power_law: the same device code on a row shard with halo
-// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
-// with this source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_power_law, and kernel 34's, lbm_halo2d_power_law: the
+// same device code on a row shard and on a rows x cols shard with halo
+// inputs (csrc/collide_stream.cuh halo_step and halo2d_step), built with
+// this source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -141,25 +142,34 @@ Consts<T> consts(const double* d) {
           T(d[8]), T(d[9]), T(d[10]), T(d[11]), T(d[12]), T(d[13]), T(d[14])};
 }
 
-// The step (HALO false: kernel 11, periodic; true: kernel 27's power-law
-// instance, one sweep with the geometry `geom`) in the branch `mode`.
-template <typename T, bool HALO>
+// The forms of the step: kernel 11 (periodic), kernel 27's power-law
+// instance (one sweep on a row shard) and kernel 34's (one sweep on a rows
+// x cols shard), the last two with the geometry `geom`.
+enum Form { PERIODIC, HALO_ROWS, HALO_2D };
+
+template <typename T, int FORM, typename Op>
+int run(const Op& op, const void* fin, void* fout, long long R, long long C,
+        const long long* geom, cudaStream_t s) {
+  if constexpr (FORM == HALO_ROWS)
+    return lbm::launch_halo<T>(geom, op, s);
+  else if constexpr (FORM == HALO_2D)
+    return lbm::launch_halo2d<T>(geom, op, s);
+  else
+    return lbm::launch_periodic<T>(fin, fout, R, C, op, s);
+}
+
+// The step in the form FORM and the branch `mode`.
+template <typename T, int FORM>
 int dispatch(const void* fin, void* fout, long long R, long long C, const long long* geom,
              const double* d, int mode, int iters, cudaStream_t s) {
   const Consts<T> k = consts<T>(d);
   switch (mode) {
-    case NEWTONIAN: {
-      const PowerLaw<T, NEWTONIAN> op{k, iters};
-      return HALO ? lbm::launch_halo<T>(geom, op, s) : lbm::launch_periodic<T>(fin, fout, R, C, op, s);
-    }
-    case PICARD: {
-      const PowerLaw<T, PICARD> op{k, iters};
-      return HALO ? lbm::launch_halo<T>(geom, op, s) : lbm::launch_periodic<T>(fin, fout, R, C, op, s);
-    }
-    case NEWTON: {
-      const PowerLaw<T, NEWTON> op{k, iters};
-      return HALO ? lbm::launch_halo<T>(geom, op, s) : lbm::launch_periodic<T>(fin, fout, R, C, op, s);
-    }
+    case NEWTONIAN:
+      return run<T, FORM>(PowerLaw<T, NEWTONIAN>{k, iters}, fin, fout, R, C, geom, s);
+    case PICARD:
+      return run<T, FORM>(PowerLaw<T, PICARD>{k, iters}, fin, fout, R, C, geom, s);
+    case NEWTON:
+      return run<T, FORM>(PowerLaw<T, NEWTON>{k, iters}, fin, fout, R, C, geom, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -176,8 +186,8 @@ extern "C" int lbm_collide_stream_power_law(const void* fin, void* fout, long lo
                                             int mode, int iters, int is_f64,
                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? dispatch<double, false>(fin, fout, R, C, nullptr, consts, mode, iters, s)
-                : dispatch<float, false>(fin, fout, R, C, nullptr, consts, mode, iters, s);
+  return is_f64 ? dispatch<double, PERIODIC>(fin, fout, R, C, nullptr, consts, mode, iters, s)
+                : dispatch<float, PERIODIC>(fin, fout, R, C, nullptr, consts, mode, iters, s);
 }
 
 // Kernel 27, power-law instance: one sweep with the geometry `geom`
@@ -185,6 +195,16 @@ extern "C" int lbm_collide_stream_power_law(const void* fin, void* fout, long lo
 extern "C" int lbm_halo_power_law(const long long* geom, const double* params, int mode,
                                   int iters, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? dispatch<double, true>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s)
-                : dispatch<float, true>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s);
+  return is_f64 ? dispatch<double, HALO_ROWS>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s)
+                : dispatch<float, HALO_ROWS>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s);
+}
+
+// Kernel 34, power-law instance: one sweep on a rows x cols shard with the
+// geometry `geom` (csrc/halo2d.cuh); params as lbm_halo_power_law's.
+extern "C" int lbm_halo2d_power_law(const long long* geom, const double* params, int mode,
+                                    int iters, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64
+             ? dispatch<double, HALO_2D>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s)
+             : dispatch<float, HALO_2D>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s);
 }

@@ -19,9 +19,10 @@
 // ~70 flops per cell.  Left on the table: temporal blocking, vector loads.
 //
 // The collision is a functor shared by this step and kernel 27's TRT
-// instance, lbm_halo_trt: the same device code on a row shard with halo
-// inputs (csrc/collide_stream.cuh halo_step, kernels/sharded.py), built
-// with this source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_trt, and kernel 34's, lbm_halo2d_trt: the same device
+// code on a row shard and on a rows x cols shard with halo inputs
+// (csrc/collide_stream.cuh halo_step and halo2d_step), built with this
+// source's flags, so an n-shard run equals this kernel bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -87,4 +88,13 @@ extern "C" int lbm_halo_trt(const long long* geom, const double* params, int, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? lbm::launch_halo<double>(geom, trt<double>(params[0], params[1]), s)
                 : lbm::launch_halo<float>(geom, trt<float>(params[0], params[1]), s);
+}
+
+// Kernel 34, TRT instance: one sweep on a rows x cols shard with the
+// geometry `geom` (csrc/halo2d.cuh); params = {omega_plus, omega_minus}.
+extern "C" int lbm_halo2d_trt(const long long* geom, const double* params, int, int,
+                              int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? lbm::launch_halo2d<double>(geom, trt<double>(params[0], params[1]), s)
+                : lbm::launch_halo2d<float>(geom, trt<float>(params[0], params[1]), s);
 }

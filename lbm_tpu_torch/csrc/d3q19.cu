@@ -45,10 +45,26 @@
 // 19 out), 304 B in float64.  Left on the table: the ownership test of each
 // push, the wall branches in every thread, and the uncoalesced pushes of
 // the directions that move along the innermost axis.
+//
+// This source also holds kernel 33, lbm_halo_d3q19: kernel 25's step on a
+// shard of the y axis with halo inputs (csrc/halo.cuh,
+// kernels/sharded.py make_sharded_d3q19_step), which replaces lbm_tpu's
+// D3Q19 body (d3q19_pallas.py:173 make_d3q19_body) on the row-sharded
+// driver (sharded_pallas.py:345, its pallas_call at :321).  The planes
+// state (19, X, Y, Z) is (19 X, Y, Z) in memory, so a shard of Y is a row
+// shard of 19 X planes of Z columns, read through the three-buffer row
+// view.  One thread per cell (x, padded row p, z) of the band a sweep
+// reads, z innermost; x and z wrap or meet their walls as in kernel 25, y
+// is the padded row and never wraps, and the y faces and the lid act at
+// the grid's global rows 0 and Y-1 by the same ownership rule (`owned`).
+// The collision is kernel 25's device function (collide19), built with the
+// same flags, so an n-shard run equals kernel 25 bit for bit.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "halo.cuh"
 
 namespace {
 
@@ -100,30 +116,12 @@ __device__ __forceinline__ int64_t wrap(int64_t i, int64_t n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
-template <typename T, bool LANES>
-__global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t X,
-                             int64_t Y, int64_t Z, Params<T> P, int flags) {
-  const int64_t n = X * Y * Z;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  int64_t x, y, z;
-  if (LANES) {
-    x = cell % X;
-    const int64_t t = cell / X;
-    z = t % Z;
-    y = t / Z;
-  } else {
-    z = cell % Z;
-    const int64_t t = cell / Z;
-    y = t % Y;
-    x = t / Y;
-  }
-  const bool force = flags & FORCE;
-
+// 1-2. The collision of one cell (_collide_x :56-98): its 19 populations
+// in, the post-collision values out.
+template <typename T>
+__device__ __forceinline__ void collide19(const T f[Q], const Params<T>& P, bool force,
+                                          T coll[Q]) {
   // 1. the moments (_collide_x :56-72)
-  T f[Q];
-#pragma unroll
-  for (int k = 0; k < Q; ++k) f[k] = fin[k * n + cell];
   T rho = f[0];
 #pragma unroll
   for (int k = 1; k < Q; ++k) rho = rho + f[k];
@@ -141,7 +139,6 @@ __global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, in
   const T uu15 = T(1.5) * (ux * ux + uy * uy + uz * uz);
 
   // 2. BGK and the Guo source, pair by pair (_collide_x :74-98)
-  T coll[Q];
   coll[0] = P.one_m_omega * f[0] + P.omega * (T(1.0 / 3.0) * rho * (T(1) - uu15));
   if (force) coll[0] = coll[0] - P.pw0 * (T(3) * uz * P.gz);
 #pragma unroll
@@ -163,6 +160,44 @@ __global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, in
       coll[ko] = coll[ko] + (even_s - odd_s);
     }
   }
+}
+
+// 4. The value a wall rule writes into plane q of the cell (x, y, z), which
+// owns it: the reflection of coll[opp(q)], the lid's correction on the
+// y = Y-1 face, and a z rule after it writing the plain reflection again.
+template <typename T>
+__device__ __forceinline__ T wall_value(int q, const T coll[Q], int64_t y, int64_t z,
+                                        int64_t Y, int64_t Z, const Params<T>& P, int flags) {
+  const int k = opp(q);  // the outgoing population that q reverses
+  T v = coll[k];
+  if ((flags & Y_WALLS) && (flags & LID) && y == Y - 1 && cy(q) < 0 && cz(k))
+    v = v - (cz(k) > 0 ? P.lid : -P.lid);
+  if ((flags & Z_WALLS) && ((z == 0 && cz(q) > 0) || (z == Z - 1 && cz(q) < 0))) v = coll[k];
+  return v;
+}
+
+template <typename T, bool LANES>
+__global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t X,
+                             int64_t Y, int64_t Z, Params<T> P, int flags) {
+  const int64_t n = X * Y * Z;
+  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= n) return;
+  int64_t x, y, z;
+  if (LANES) {
+    x = cell % X;
+    const int64_t t = cell / X;
+    z = t % Z;
+    y = t / Z;
+  } else {
+    z = cell % Z;
+    const int64_t t = cell / Z;
+    y = t % Y;
+    x = t / Y;
+  }
+  T f[Q], coll[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) f[k] = fin[k * n + cell];
+  collide19(f, P, flags & FORCE, coll);
 
   // 3. the periodic push, less the entries a wall rule writes
 #pragma unroll
@@ -174,32 +209,83 @@ __global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, in
 
   // 4. the wall rules of this cell's own entries, in lbm_tpu's order
 #pragma unroll
-  for (int q = 1; q < Q; ++q) {
-    if (!owned(q, x, y, z, X, Y, Z, flags)) continue;
-    const int k = opp(q);  // the outgoing population that q reverses
-    // every rule reflects coll[k]; the lid's alone corrects it, and a z
-    // rule after it writes the plain reflection again
-    T v = coll[k];
-    if ((flags & Y_WALLS) && (flags & LID) && y == Y - 1 && cy(q) < 0 && cz(k))
-      v = v - (cz(k) > 0 ? P.lid : -P.lid);
-    if ((flags & Z_WALLS) && ((z == 0 && cz(q) > 0) || (z == Z - 1 && cz(q) < 0))) v = coll[k];
-    fout[q * n + cell] = v;
+  for (int q = 1; q < Q; ++q)
+    if (owned(q, x, y, z, X, Y, Z, flags))
+      fout[q * n + cell] = wall_value(q, coll, y, z, Y, Z, P, flags);
+}
+
+// Kernel 33: one sweep on a shard of the y axis.  Thread i takes the cell
+// (x, padded row in_lo + r, z) of the band [in_lo, in_lo + rows); global
+// row y = p + g0 (g0 = off - halo).  Plane (k, x) of a buffer is k X + x.
+template <typename T>
+__global__ void d3q19_halo(const lbm::halo::View<T> in, const lbm::halo::Out<T> out,
+                           int64_t in_lo, int64_t rows, int64_t g0, int64_t X, int64_t Y,
+                           Params<T> P, int flags) {
+  const int64_t Z = in.C;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= X * rows * Z) return;
+  const int64_t z = i % Z;
+  const int64_t t = i / Z;
+  const int64_t p = in_lo + t % rows;
+  const int64_t x = t / rows;
+  const int64_t y = g0 + p;
+  int64_t plane;
+  const T* src = in.locate(p, z, plane);
+  T f[Q], coll[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) f[k] = src[(k * X + x) * plane];
+  collide19(f, P, flags & FORCE, coll);
+
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int64_t pd = p + cy(k);
+    const int64_t xd = wrap(x + cx(k), X), zd = wrap(z + cz(k), Z);
+    if (out.has(pd) && !owned(k, xd, y + cy(k), zd, X, Y, Z, flags))
+      out.at(pd, zd)[(k * X + xd) * out.plane] = coll[k];
   }
+  if (!out.has(p)) return;
+  T* own = out.at(p, z);
+#pragma unroll
+  for (int q = 1; q < Q; ++q)
+    if (owned(q, x, y, z, X, Y, Z, flags))
+      own[(q * X + x) * out.plane] = wall_value(q, coll, y, z, Y, Z, P, flags);
+}
+
+template <typename T>
+Params<T> params_of(const double* d) {
+  Params<T> P;
+  P.omega = T(d[0]); P.one_m_omega = T(d[1]); P.gz = T(d[2]); P.half_gz = T(d[3]);
+  P.pw0 = T(d[4]); P.pw1 = T(d[5]); P.pw2 = T(d[6]); P.os1 = T(d[7]); P.os2 = T(d[8]);
+  P.lid = T(d[9]);
+  return P;
 }
 
 template <typename T, bool LANES>
 int launch(const void* fin, void* fout, long long X, long long Y, long long Z, const double* d,
            int flags, cudaStream_t stream) {
-  Params<T> P;
-  P.omega = T(d[0]); P.one_m_omega = T(d[1]); P.gz = T(d[2]); P.half_gz = T(d[3]);
-  P.pw0 = T(d[4]); P.pw1 = T(d[5]); P.pw2 = T(d[6]); P.os1 = T(d[7]); P.os2 = T(d[8]);
-  P.lid = T(d[9]);
+  const Params<T> P = params_of<T>(d);
   const int64_t n = static_cast<int64_t>(X) * Y * Z;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   d3q19_kernel<T, LANES><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const T*>(fin), static_cast<T*>(fout), X, Y, Z, P, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_halo(const long long* geom, const double* d, long long X, int flags,
+                cudaStream_t stream) {
+  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
+  if (X < 1 || L.in.C < 1 || L.R < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t rows = L.in_hi - L.in_lo;
+  const int64_t n = X * rows * L.in.C;
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  d3q19_halo<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      L.in, L.out, L.in_lo, rows, L.global(0), X, L.R, params_of<T>(d), flags);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -229,4 +315,14 @@ extern "C" int lbm_d3q19_lanes(const void* fin, void* fout, long long X, long lo
                                long long Z, const double* consts, int flags, int is_f64,
                                void* stream) {
   return dispatch<true>(fin, fout, X, Y, Z, consts, flags, is_f64, stream);
+}
+
+// Kernel 33: one sweep of the step on a shard of the y axis of the planes
+// state, geometry `geom` (csrc/halo.cuh: 19 X planes, rows y, columns z,
+// the grid's Y rows); `consts` and `flags` as lbm_d3q19's.
+extern "C" int lbm_halo_d3q19(const long long* geom, const double* consts, int X, int flags,
+                              int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo<double>(geom, consts, X, flags, s)
+                : launch_halo<float>(geom, consts, X, flags, s);
 }

@@ -1,0 +1,119 @@
+// Halo inputs of the rows x cols kernel 34 (kernels/sharded2d.py).
+//
+// Replaces the slab pipeline of lbm_tpu/kernels/sharded2d_pallas.py:240
+// (make_local_2d_step :223, the kernel _kernel with its four DMAs a block,
+// _dma_in): a shard of an (nx, ny) mesh reads its padded block
+// [0, R_loc + 2 halo) x [0, C_loc + 2 halo) in place from five buffers, each
+// a (planes, rows, cols) tensor with its own plane and row strides:
+//   top   padded rows [0, halo),           columns [halo, halo + C_loc)
+//   mid   padded rows [halo, halo + R_loc), the same columns (the shard)
+//   bot   padded rows [halo + R_loc, ...),  the same columns
+//   left  every padded row, columns [0, halo)
+//   right every padded row, columns [halo + C_loc, C_loc + 2 halo)
+// The column strips carry their row halos (parallel/halo.py exchange_2d),
+// so a corner comes from the diagonal neighbour.  lbm_tpu packs its two
+// column halves into one 128-lane tile after the interior lanes, a Mosaic
+// layout; here each side is its own strip, `halo` columns wide.  Nothing is
+// concatenated: later sweeps of one exchange read a scratch slab of the
+// whole padded block, passed as the same five parts of one buffer.
+//
+// A launch writes the padded cells [out_r_lo, out_r_hi) x [out_c_lo,
+// out_c_hi) of `out`, whose row 0 and column 0 are padded row and column
+// `out_first` (halo for the shard itself, 0 for a slab), from the cells
+// [in_r_lo, in_r_hi) x [in_c_lo, in_c_hi) that it reads.  The Python side
+// (kernels/sharded2d.py launch_sweeps_2d) chooses the bands: sweep j of s
+// writes s - j more rows and columns on each side of the shard.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace lbm {
+namespace halo2d {
+
+// The geometry array of one launch, in the order of kernels/sharded2d.py GEOM.
+enum Geom {
+  TOP, MID, BOT, LEFT, RIGHT, OUT,
+  TOP_PLANE, MID_PLANE, BOT_PLANE, LEFT_PLANE, RIGHT_PLANE, OUT_PLANE,
+  TOP_LD, MID_LD, BOT_LD, LEFT_LD, RIGHT_LD, OUT_LD,
+  HALO, R_LOC, C_LOC, IN_R_LO, IN_R_HI, IN_C_LO, IN_C_HI,
+  OUT_R_LO, OUT_R_HI, OUT_C_LO, OUT_C_HI, OUT_FIRST, NGEOM
+};
+
+// One of the five input buffers: plane 0's base, plane and row strides.
+template <typename T>
+struct Part {
+  const T* base;
+  int64_t plane, ld;
+
+  __device__ __forceinline__ const T* at(int64_t r, int64_t c, int64_t& pl) const {
+    pl = plane;
+    return base + r * ld + c;
+  }
+};
+
+// The padded block of one shard, read in place from its five buffers.
+template <typename T>
+struct View {
+  Part<T> top, mid, bot, left, right;
+  int64_t halo, r_loc, c_loc;
+
+  // Plane 0's entry at padded (p, q); `plane` gets that buffer's stride.
+  __device__ __forceinline__ const T* locate(int64_t p, int64_t q, int64_t& plane) const {
+    if (q < halo) return left.at(p, q, plane);
+    if (q >= halo + c_loc) return right.at(p, q - halo - c_loc, plane);
+    const int64_t c = q - halo;
+    if (p < halo) return top.at(p, c, plane);
+    if (p < halo + r_loc) return mid.at(p - halo, c, plane);
+    return bot.at(p - halo - r_loc, c, plane);
+  }
+};
+
+// The padded cells a launch writes; row and column 0 of `base` are `first`.
+template <typename T>
+struct Out {
+  T* base;
+  int64_t plane, ld, first, r_lo, r_hi, c_lo, c_hi;
+
+  __device__ __forceinline__ bool has(int64_t p, int64_t q) const {
+    return p >= r_lo && p < r_hi && q >= c_lo && q < c_hi;
+  }
+  __device__ __forceinline__ T* at(int64_t p, int64_t q) const {
+    return base + (p - first) * ld + (q - first);
+  }
+};
+
+// One launch's geometry, parsed on the host.
+template <typename T>
+struct Launch {
+  View<T> in;
+  Out<T> out;
+  int64_t r_lo, r_hi, c_lo, c_hi;  // the cells read
+};
+
+template <typename T>
+inline Launch<T> parse(const long long* g) {
+  auto part = [&](int buf, int plane, int ld) {
+    return Part<T>{reinterpret_cast<const T*>(g[buf]), g[plane], g[ld]};
+  };
+  Launch<T> L;
+  L.in.top = part(TOP, TOP_PLANE, TOP_LD);
+  L.in.mid = part(MID, MID_PLANE, MID_LD);
+  L.in.bot = part(BOT, BOT_PLANE, BOT_LD);
+  L.in.left = part(LEFT, LEFT_PLANE, LEFT_LD);
+  L.in.right = part(RIGHT, RIGHT_PLANE, RIGHT_LD);
+  L.in.halo = g[HALO];
+  L.in.r_loc = g[R_LOC];
+  L.in.c_loc = g[C_LOC];
+  L.out = Out<T>{reinterpret_cast<T*>(g[OUT]), g[OUT_PLANE], g[OUT_LD], g[OUT_FIRST],
+                 g[OUT_R_LO], g[OUT_R_HI], g[OUT_C_LO], g[OUT_C_HI]};
+  L.r_lo = g[IN_R_LO];
+  L.r_hi = g[IN_R_HI];
+  L.c_lo = g[IN_C_LO];
+  L.c_hi = g[IN_C_HI];
+  return L;
+}
+
+}  // namespace halo2d
+}  // namespace lbm

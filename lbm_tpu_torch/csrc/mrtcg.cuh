@@ -507,7 +507,7 @@ __device__ __forceinline__ PullSource pull_source(int k, int ty, int tx, int64_t
 
 // Where a step reads and writes, by global row: one (planes, R, C) buffer
 // in and one out (the single-device kernels; lbm::halo::ShardIO is a row
-// shard with halo inputs, kernels 29 and 30).
+// shard with halo inputs, kernels 29-31).
 template <typename T>
 struct FlatIO {
   const T* in;
@@ -700,18 +700,31 @@ Rows halo_rows(const lbm::halo::Launch<T>& L) {
               L.global(L.out.hi)};
 }
 
-// Kernel 29: one sweep of the reduced step on a row shard with halo inputs,
+// Kernels 29 and 31: one sweep of the reduced (RIN = ROUT = true, kernel 29)
+// or the full (both false, kernel 31) step on a row shard with halo inputs,
 // geometry `geom`; the masked instance on the edge ranks.
-template <typename T, bool CSF>
+template <typename T, bool CSF, bool RIN, bool ROUT>
 int launch_halo(const long long* geom, const double* params, cudaStream_t stream) {
   const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
   if (L.R < 4 || L.in.C < 3) return static_cast<int>(cudaErrorInvalidValue);
   const lbm::halo::ShardIO<T> io{L.in, L.out, L.off};
   using IO = lbm::halo::ShardIO<T>;
-  return L.edge
-             ? launch_rows<T, CSF, true, true, IO, true>(io, halo_rows(L), L.in.C, params, stream)
-             : launch_rows<T, CSF, true, true, IO, false>(io, halo_rows(L), L.in.C, params,
-                                                          stream);
+  return L.edge ? launch_rows<T, CSF, RIN, ROUT, IO, true>(io, halo_rows(L), L.in.C, params,
+                                                           stream)
+                : launch_rows<T, CSF, RIN, ROUT, IO, false>(io, halo_rows(L), L.in.C, params,
+                                                            stream);
+}
+
+// The four type x mode instances of one halo step.
+template <bool RIN, bool ROUT>
+int dispatch_halo(const long long* geom, const double* params, int csf, int is_f64,
+                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return csf ? launch_halo<double, true, RIN, ROUT>(geom, params, s)
+               : launch_halo<double, false, RIN, ROUT>(geom, params, s);
+  return csf ? launch_halo<float, true, RIN, ROUT>(geom, params, s)
+             : launch_halo<float, false, RIN, ROUT>(geom, params, s);
 }
 
 template <bool RIN, bool ROUT>

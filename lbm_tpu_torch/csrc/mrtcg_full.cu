@@ -11,10 +11,26 @@
 // at 3.35 TB/s).  Same work as kernel 6 (see its note) with 18 loads per
 // window cell: 0.703 ms in float32, 1.24 ms in float64 at 4096x2048 on an
 // H100 80GB HBM3 (700 W).
+//
+// This source also holds kernel 31, lbm_halo_mrtcg_full: the same step on
+// a row shard of the full state with halo inputs (csrc/halo.cuh,
+// kernels/sharded.py make_sharded_mrtcg_step), kernel 29's geometry on
+// this layout: the tile engine with its memory by global row
+// (lbm::halo::ShardIO), the fst planes of CSF mode read from the halos
+// like the populations.  It replaces lbm_tpu/kernels/sharded_pallas.py:406
+// make_sharded_mrtcg_step.  Bytes per sweep: 144 B (160 CSF) per cell of
+// its band in float32, plus the halo rows it reads.
 
 #include "mrtcg.cuh"
 
 extern "C" int lbm_mrtcg_full(const void* in, void* out, long long R, long long C,
                               const double* params, int csf, int is_f64, void* stream) {
   return lbm::mrtcg::dispatch<false, false>(in, out, R, C, params, csf, is_f64, stream);
+}
+
+// Kernel 31: one sweep of the full step on a row shard, geometry `geom`
+// (csrc/halo.cuh), `params` those of lbm_mrtcg_full.
+extern "C" int lbm_halo_mrtcg_full(const long long* geom, const double* params, int csf, int,
+                                   int is_f64, void* stream) {
+  return lbm::mrtcg::dispatch_halo<false, false>(geom, params, csf, is_f64, stream);
 }

@@ -42,11 +42,5 @@ extern "C" int lbm_mrtcg_reduced(const void* in, void* out, long long R, long lo
 // (csrc/halo.cuh), `params` those of lbm_mrtcg_reduced.
 extern "C" int lbm_halo_mrtcg_reduced(const long long* geom, const double* params, int csf,
                                       int, int is_f64, void* stream) {
-  using namespace lbm::mrtcg;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return csf ? launch_halo<double, true>(geom, params, s)
-               : launch_halo<double, false>(geom, params, s);
-  return csf ? launch_halo<float, true>(geom, params, s)
-             : launch_halo<float, false>(geom, params, s);
+  return lbm::mrtcg::dispatch_halo<true, true>(geom, params, csf, is_f64, stream);
 }

@@ -28,10 +28,24 @@
 // pays over that: the halo's psi is computed again by the neighbour tiles
 // (10x34 for 8x32 cells, 1.33x) from a second read of their planes (L2),
 // one barrier per tile, and no multiply-add.
+//
+// This source also holds kernel 32, lbm_halo_shan_chen: the same step on a
+// row shard with halo inputs (csrc/halo.cuh, kernels/sharded.py
+// make_sharded_sc_step), which replaces lbm_tpu's Shan-Chen body
+// (shan_chen_pallas.py:138 make_sc_body) on the row-sharded driver
+// (sharded_pallas.py:345 make_sharded_body_step, its pallas_call at :321).
+// A sweep reads the padded rows [in_lo, in_hi) through the three-buffer row
+// view, computes psi there, collides the rows [in_lo + 1, in_hi - 1) (psi's
+// stencil reaches one row further than the push) and pushes into
+// [out_lo, out_hi): 2 rows of the strip per sweep, so at most 4 sweeps per
+// 8-row exchange.  The collision is the same device function as kernel
+// 14's (sc_collide), built with the same flags, so an n-shard run equals
+// kernel 14 bit for bit.
 
 #include <cuda_runtime.h>
 
 #include "d2q9.cuh"
+#include "halo.cuh"
 
 namespace {
 
@@ -74,40 +88,16 @@ __device__ __forceinline__ T psi_of(T rho, const Params<T>& p) {
   return sqrt(rad < T(0.0) ? T(0.0) : rad);
 }
 
+// The force and the forced BGK collision of one cell from its 9
+// populations and the psi window around it (`w0` its slot, rows WC apart).
 template <typename T, bool CS, bool SHIFT>
-__global__ void __launch_bounds__(THREADS)
-    shan_chen_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R, int64_t C,
-                     const Params<T> p) {
-  __shared__ T s_psi[WN];
-  const int64_t n = R * C;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * TY;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
-  const int tid = threadIdx.x;
-
-  // stage 1: psi on the tile plus a 1-cell halo
-  for (int i = tid; i < WN; i += THREADS) {
-    const int64_t gr = wrap_any(r0 - 1 + i / WC, R), gc = wrap_any(c0 - 1 + i % WC, C);
-    const int64_t cell = gr * C + gc;
-    T rho = fin[cell];
-#pragma unroll
-    for (int k = 1; k < 9; ++k) rho = rho + fin[k * n + cell];
-    s_psi[i] = psi_of<T, CS>(rho, p);
-  }
-  __syncthreads();
-
-  // stage 2: collide each tile cell and push
-  const int ty = tid / TX, tx = tid % TX;
-  const int64_t gr = r0 + ty, gc = c0 + tx;
-  if (gr >= R || gc >= C) return;
-  const int64_t cell = gr * C + gc;
-  T f[9];
-  lbm::load9(fin, n, cell, f);
+__device__ __forceinline__ void sc_collide(const T f[9], const T* s_psi, int w0,
+                                           const Params<T>& p, T out[9]) {
   T rho = f[0];
 #pragma unroll
   for (int k = 1; k < 9; ++k) rho = rho + f[k];
 
   // the paired neighbour force over the pair leaders 1, 2, 5, 8
-  const int w0 = (ty + 1) * WC + (tx + 1);
   T fx = T(0), fy = T(0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -138,7 +128,6 @@ __global__ void __launch_bounds__(THREADS)
   // forced BGK: the paired equilibrium (_bgk9), plus the paired Guo source
   const lbm::Pairs<T> pr = lbm::d2q9_pairs(ux, uy);
   const T om = p.v[OMEGA], one_m = p.v[ONE_M_OMEGA];
-  T out[9];
   out[0] = one_m * f[0] + om * (T(weight(0)) * rho * pr.t0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -163,10 +152,80 @@ __global__ void __launch_bounds__(THREADS)
       out[km] = out[km] + (even - odd);
     }
   }
+}
 
+template <typename T, bool CS, bool SHIFT>
+__global__ void __launch_bounds__(THREADS)
+    shan_chen_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R, int64_t C,
+                     const Params<T> p) {
+  __shared__ T s_psi[WN];
+  const int64_t n = R * C;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
+  const int tid = threadIdx.x;
+
+  // stage 1: psi on the tile plus a 1-cell halo
+  for (int i = tid; i < WN; i += THREADS) {
+    const int64_t gr = wrap_any(r0 - 1 + i / WC, R), gc = wrap_any(c0 - 1 + i % WC, C);
+    const int64_t cell = gr * C + gc;
+    T rho = fin[cell];
+#pragma unroll
+    for (int k = 1; k < 9; ++k) rho = rho + fin[k * n + cell];
+    s_psi[i] = psi_of<T, CS>(rho, p);
+  }
+  __syncthreads();
+
+  // stage 2: collide each tile cell and push
+  const int ty = tid / TX, tx = tid % TX;
+  const int64_t gr = r0 + ty, gc = c0 + tx;
+  if (gr >= R || gc >= C) return;
+  T f[9], out[9];
+  lbm::load9(fin, n, gr * C + gc, f);
+  sc_collide<T, CS, SHIFT>(f, s_psi, (ty + 1) * WC + (tx + 1), p, out);
 #pragma unroll
   for (int k = 0; k < 9; ++k)
     fout[k * n + wrap_any(gr + cx(k), R) * C + wrap_any(gc + cy(k), C)] = out[k];
+}
+
+// Kernel 32: one sweep on a row shard.  Tiles cover the padded rows
+// [in_lo + 1, in_hi - 1) that the sweep collides; psi is computed on the
+// readable rows [in_lo, in_hi) of each tile's window, columns wrapped.
+template <typename T, bool CS, bool SHIFT>
+__global__ void __launch_bounds__(THREADS)
+    shan_chen_halo(const lbm::halo::View<T> in, const lbm::halo::Out<T> out, int64_t in_lo,
+                   int64_t in_hi, const Params<T> p) {
+  __shared__ T s_psi[WN];
+  const int64_t C = in.C;
+  const int64_t r0 = in_lo + 1 + static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < WN; i += THREADS) {
+    const int64_t pr = r0 - 1 + i / WC;
+    if (pr < in_lo || pr >= in_hi) continue;  // read by no cell this sweep collides
+    int64_t plane;
+    const T* src = in.locate(pr, wrap_any(c0 - 1 + i % WC, C), plane);
+    T rho = src[0];
+#pragma unroll
+    for (int k = 1; k < 9; ++k) rho = rho + src[k * plane];
+    s_psi[i] = psi_of<T, CS>(rho, p);
+  }
+  __syncthreads();
+
+  const int ty = tid / TX, tx = tid % TX;
+  const int64_t pr = r0 + ty, gc = c0 + tx;
+  if (pr >= in_hi - 1 || gc >= C) return;
+  int64_t plane;
+  const T* src = in.locate(pr, gc, plane);
+  T f[9], o[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f[k] = src[k * plane];
+  sc_collide<T, CS, SHIFT>(f, s_psi, (ty + 1) * WC + (tx + 1), p, o);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t pd = pr + cx(k);
+    if (out.has(pd)) out.at(pd, wrap_any(gc + cy(k), C))[k * out.plane] = o[k];
+  }
 }
 
 template <typename T, bool CS, bool SHIFT>
@@ -178,12 +237,29 @@ int launch_one(const T* fin, T* fout, long long R, long long C, const Params<T>&
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool CS, bool SHIFT>
+int launch_halo_one(const long long* geom, const Params<T>& p, cudaStream_t stream) {
+  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
+  const int64_t rows = L.in_hi - L.in_lo - 2;
+  if (rows <= 0 || L.in.C <= 0) return 0;
+  const dim3 grid(static_cast<unsigned>((L.in.C + TX - 1) / TX),
+                  static_cast<unsigned>((rows + TY - 1) / TY));
+  shan_chen_halo<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(L.in, L.out, L.in_lo, L.in_hi, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+Params<T> params_of(const double* params) {
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  return p;
+}
+
 template <typename T>
 int launch(const void* fin, void* fout, long long R, long long C, const double* params,
            int eos, int forcing, cudaStream_t stream) {
   if (R <= 0 || C <= 0) return 0;
-  Params<T> p;
-  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  const Params<T> p = params_of<T>(params);
   const T* in = static_cast<const T*>(fin);
   T* out = static_cast<T*>(fout);
   if (eos == 0)
@@ -191,6 +267,17 @@ int launch(const void* fin, void* fout, long long R, long long C, const double* 
                         : launch_one<T, false, true>(in, out, R, C, p, stream);
   return forcing == 0 ? launch_one<T, true, false>(in, out, R, C, p, stream)
                       : launch_one<T, true, true>(in, out, R, C, p, stream);
+}
+
+template <typename T>
+int launch_halo(const long long* geom, const double* params, int eos, int forcing,
+                cudaStream_t stream) {
+  const Params<T> p = params_of<T>(params);
+  if (eos == 0)
+    return forcing == 0 ? launch_halo_one<T, false, false>(geom, p, stream)
+                        : launch_halo_one<T, false, true>(geom, p, stream);
+  return forcing == 0 ? launch_halo_one<T, true, false>(geom, p, stream)
+                      : launch_halo_one<T, true, true>(geom, p, stream);
 }
 
 }  // namespace
@@ -205,4 +292,13 @@ extern "C" int lbm_shan_chen(const void* fin, void* fout, long long R, long long
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(fin, fout, R, C, params, eos, forcing, s)
                 : launch<float>(fin, fout, R, C, params, eos, forcing, s);
+}
+
+// Kernel 32: one sweep on a row shard with the geometry `geom`
+// (csrc/halo.cuh); `params`, `eos` and `forcing` as lbm_shan_chen's.
+extern "C" int lbm_halo_shan_chen(const long long* geom, const double* params, int eos,
+                                  int forcing, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo<double>(geom, params, eos, forcing, s)
+                : launch_halo<float>(geom, params, eos, forcing, s);
 }

@@ -13,7 +13,9 @@ correction), then the z faces (``z_walls``), which win the shared edges.
     for term: rho as a running sum, the moments per axis in k order, the
     k / opp(k) pairing of the even and odd parts;
   * ``plain_d3q19_step`` is that collision, ``ops.d3q19.stream`` and the
-    wall rules of ``make_d3q19_body`` (:173-248) on the whole grid;
+    wall rules of ``make_d3q19_body`` (:173-248) on the whole grid
+    (``plain_d3q19_rows`` on a block of global y rows, the y faces as
+    position masks, as the row-sharded step takes it);
     ``make_d3q19_fused_step`` runs CUDA kernel 25 (csrc/d3q19.cu) on a CUDA
     state, one launch per step and ``substeps`` steps per call, and the
     plain version on a CPU state;
@@ -116,6 +118,20 @@ def plain_d3q19_step(f: torch.Tensor, *, omega: float, force_z: float = 0.0,
     ``collide``, the periodic push, then the wall rules of lbm_tpu's
     make_d3q19_body in its order."""
     _check_grid(*f.shape[1:], x_walls, y_walls, z_walls, lid_u)
+    Y = f.shape[2]
+    return plain_d3q19_rows(f, torch.arange(Y, device=f.device), Y, omega=omega,
+                            force_z=force_z, x_walls=x_walls, y_walls=y_walls,
+                            z_walls=z_walls, lid_u=lid_u)
+
+
+def plain_d3q19_rows(f: torch.Tensor, rows: torch.Tensor, Y: int, *, omega: float,
+                     force_z: float = 0.0, x_walls: bool = False, y_walls: bool = False,
+                     z_walls: bool = False, lid_u: float = 0.0) -> torch.Tensor:
+    """``plain_d3q19_step`` on f (19, X, len(rows), Z), the consecutive
+    global y rows ``rows`` of a grid of Y rows: the y faces and the lid act
+    where the global row is 0 or Y-1, as position masks (lbm_tpu's
+    ``abs_iota``), and the push wraps the block, whose edge rows are then
+    stale (the row-sharded plain version, kernels/sharded.py)."""
     coll = torch.stack(collide(list(f), omega, float(force_z)))
     new = stream(coll)
     if x_walls:  # the reversal arrives at the same cell
@@ -125,13 +141,14 @@ def plain_d3q19_step(f: torch.Tensor, *, omega: float, force_z: float = 0.0,
             elif CX[k] < 0:
                 new[k, -1] = coll[OPP[k], -1]
     if y_walls:
+        lo, hi = (rows == 0)[:, None], (rows == Y - 1)[:, None]
         for k in Y_OUT_LO:
-            new[OPP[k], :, 0] = coll[k, :, 0]
+            new[OPP[k]] = torch.where(lo, coll[k], new[OPP[k]])
         for k in Y_OUT_HI:
-            src = coll[k, :, -1]
+            src = coll[k]
             if lid_u and CZ[k]:
                 src = src - (6.0 * WQ[k] * CZ[k] * lid_u)
-            new[OPP[k], :, -1] = src
+            new[OPP[k]] = torch.where(hi, src, new[OPP[k]])
     if z_walls:
         for k in Z_OUT_LO:
             new[OPP[k], :, :, 0] = coll[k, :, :, 0]

@@ -1,5 +1,5 @@
 """Row-sharded steps with halo inputs: the plain versions and CUDA kernels
-27-30 (counterpart of lbm_tpu/kernels/sharded_pallas.py).
+27-33 (counterpart of lbm_tpu/kernels/sharded_pallas.py).
 
 A row-sharded step splits the grid's rows over an (n, 1) mesh
 (parallel/mesh.py).  Each call exchanges halos once (parallel/halo.py
@@ -13,8 +13,10 @@ instance and interior ranks the mask-free one (sharded_pallas.py:379-397).
 Sweeps per exchange: each sweep consumes ``rows_per_sweep`` rows of the
 strip (1 for the collide-stream and thermal families: the push; 3 for the
 MRT-CG and RK bodies: the 5x5 gradient's 2 and the push's 1; 5 in CSF
-mode: the chained curvature stencils), so ``halo = halo_for(substeps,
-rows_per_sweep)`` rows buy ``substeps`` steps per exchange.
+mode: the chained curvature stencils; 2 for Shan-Chen: psi's 1-cell
+stencil and the push; 1 for the D3Q19 step), so ``halo =
+halo_for(substeps, rows_per_sweep)`` rows buy ``substeps`` steps per
+exchange.
 
 Local steps, one per family, ``local(f_loc, top, bot, off, edge)``:
   * on a CPU shard, the plain version: the shard and its halos
@@ -48,7 +50,19 @@ the single-device kernel's):
     make_sharded_mrtcg_reduced_step; csrc/mrtcg_reduced.cu on kernel 6's
     tile engine, csrc/mrtcg.cuh);
   * kernel 30, ``HALO_RK``: the RK mixture, one sweep per exchange (:486
-    make_sharded_rk_step; csrc/rk_cg.cu, kernel 12's).
+    make_sharded_rk_step; csrc/rk_cg.cu, kernel 12's);
+  * kernel 31, ``HALO_MRTCG_FULL``: the full per-colour MRT-CG state, both
+    modes (:406 make_sharded_mrtcg_step; csrc/mrtcg_full.cu on kernel 8's
+    tile engine);
+  * kernel 32, ``HALO_SHAN_CHEN``: the Shan-Chen body, fully periodic, in
+    its four eos x forcing instances (shan_chen_pallas.py:138 make_sc_body
+    on :345 make_sharded_body_step; csrc/shan_chen.cu, kernel 14's);
+  * kernel 33, ``HALO_D3Q19``: the D3Q19 step with the y axis sharded, the
+    planes state (19, X, Y, Z) being (19 X, Y, Z) in memory
+    (d3q19_pallas.py:173 make_d3q19_body on :345; csrc/d3q19.cu, kernel
+    25's).
+
+The rows x cols collide-stream (kernel 34) is kernels/sharded2d.py.
 
 Bound: device-memory bytes, those of the family's single-device kernel per
 sweep over the band it computes, plus the halo reads of each exchange
@@ -75,19 +89,19 @@ from ..ops import d2q9
 from ..parallel.halo import exchange_rows
 from ..parallel.mesh import Mesh, ShardedState
 from ..utils.xmath import resolve_fused
-from . import _build, mrtcg, rk, thermal
+from . import _build, d3q19, mrtcg, rk, shan_chen, thermal
 
 HALO = 8
 COLLIDE_KINDS = ("bgk", "kbc", "les", "trt", "power_law")
 #: halo rows one sweep consumes (the push, plus the stencils' reach)
 ROWS_PER_SWEEP = {**{kind: 1 for kind in COLLIDE_KINDS}, "thermal": 1,
-                  "mrtcg": 3, "csf": 5, "rk": 3}
+                  "mrtcg": 3, "csf": 5, "rk": 3, "shan_chen": 2, "d3q19": 1}
 #: ``substeps="auto"``: the deepest cadence of each family's strip (8 rows
-#: for the 1-row families; lbm_tpu's deepest measured MRT-CG cadence, 5 on
-#: a 16-row strip, and CSF's, 4 on a 24-row one); the RK step takes 1
-#: sweep per exchange
+#: for the 1-row families, 4 sweeps of Shan-Chen's 2 rows; lbm_tpu's
+#: deepest measured MRT-CG cadence, 5 on a 16-row strip, and CSF's, 4 on a
+#: 24-row one); the RK step takes 1 sweep per exchange
 AUTO_SUBSTEPS = {**{kind: 8 for kind in COLLIDE_KINDS}, "thermal": 8, "mrtcg": 5,
-                 "csf": 4, "rk": 1}
+                 "csf": 4, "rk": 1, "shan_chen": 4, "d3q19": 8}
 
 # the geometry array of a halo kernel launch (csrc/halo.cuh ``Geom``)
 GEOM = ("top", "mid", "bot", "out", "top_plane", "mid_plane", "bot_plane", "out_plane",
@@ -101,6 +115,9 @@ HALO_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo_{kind}", _ARGS)
 HALO_THERMAL = _build.CudaKernel("lbm_halo_thermal", _ARGS)                 # kernel 28
 HALO_MRTCG = _build.CudaKernel("lbm_halo_mrtcg_reduced", _ARGS)             # kernel 29
 HALO_RK = _build.CudaKernel("lbm_halo_rk", _ARGS)                           # kernel 30
+HALO_MRTCG_FULL = _build.CudaKernel("lbm_halo_mrtcg_full", _ARGS)           # kernel 31
+HALO_SHAN_CHEN = _build.CudaKernel("lbm_halo_shan_chen", _ARGS)             # kernel 32
+HALO_D3Q19 = _build.CudaKernel("lbm_halo_d3q19", _ARGS)                     # kernel 33
 
 
 def halo_for(substeps: int, rows_per_sweep: int) -> int:
@@ -171,6 +188,17 @@ def thermal_body(omega_f: float, omega_g: float, g_beta: float):
                 f_new[o] = torch.where(m, f_coll[k], f_new[o])
                 g_new[o] = torch.where(m, -g_coll[k] + 2.0 * g_wall[k], g_new[o])
         return torch.stack(f_new + g_new)
+
+    return body
+
+
+def d3q19_body(X: int, **kw):
+    """The D3Q19 sweep (kernels/d3q19.py ``plain_d3q19_rows``) on a block of
+    global y rows ``rows`` of the (19 X, rows, Z) state."""
+
+    def body(S, rows, Y):
+        f = S.reshape(d3q19.Q, X, *S.shape[1:])
+        return d3q19.plain_d3q19_rows(f, rows, Y, **kw).reshape(S.shape)
 
     return body
 
@@ -271,8 +299,10 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
     local step has one: the plain version on any device."""
     nx = mesh.shape["x"]
     if mesh.shape["y"] != 1:
-        raise ValueError(f"the row-sharded steps take an (n, 1) mesh, got {mesh.shape} "
-                         "(rows x cols waits for lbm_tpu's sharded2d kernels)")
+        raise ValueError(f"the row-sharded steps take an (n, 1) mesh, got {mesh.shape}: "
+                         "the rows x cols collide-stream is kernels/sharded2d.py; this "
+                         "family's rows x cols step waits for lbm_tpu's sharded2d body "
+                         "kernels")
     if R % nx:
         raise ValueError(f"rows {R} not divisible by mesh x={nx}")
     R_loc = R // nx
@@ -301,20 +331,28 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
     return step
 
 
-def _collide_launch(collide_fn, R: int, substeps: int):
-    """Kernel 27's launch for ``collide_fn``'s instance (its ``halo_kernel``
-    attribute); one that raises when the function names none."""
+def collide_launch(collide_fn, kernels: dict, sweeps, **kw):
+    """The launch of ``collide_fn``'s instance (its ``halo_kernel``
+    attribute) among ``kernels`` (kernel 27's or 34's, by kind):
+    ``sweeps`` (``launch_sweeps`` or sharded2d's ``launch_sweeps_2d``) bound
+    to that kernel, its parameters and ``kw``; one that raises when the
+    function names none."""
     tag = getattr(collide_fn, "halo_kernel", None)
-    if tag is None or tag[0] not in HALO_COLLIDE_STREAM:
+    if tag is None or tag[0] not in kernels:
         def launch(*_):
             raise ValueError(
                 "this collide function names no halo-input kernel (no ``halo_kernel`` "
                 f"attribute of kind {COLLIDE_KINDS}): a CUDA shard has no kernel to run")
         return launch
     kind, doubles, (i0, i1) = tag
-    return functools.partial(launch_sweeps, HALO_COLLIDE_STREAM[kind], R=R, substeps=substeps,
-                             rows_per_sweep=1, walls=False, params=_build.c_doubles(doubles),
-                             i0=i0, i1=i1)
+    return functools.partial(sweeps, kernels[kind], params=_build.c_doubles(doubles), i0=i0,
+                             i1=i1, **kw)
+
+
+def _collide_launch(collide_fn, R: int, substeps: int):
+    """Kernel 27's launch for ``collide_fn`` (``collide_launch``)."""
+    return collide_launch(collide_fn, HALO_COLLIDE_STREAM, launch_sweeps, R=R,
+                          substeps=substeps, rows_per_sweep=1, walls=False)
 
 
 def make_local_halo_step(R_loc: int, C: int, collide_fn, dtype: torch.dtype = torch.float32,
@@ -409,3 +447,95 @@ def make_sharded_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alpha:
                                rows_per_sweep=ROWS_PER_SWEEP["rk"], walls=True, params=params)
     local = make_local_halo_body_step(R, rk.make_plain_step(**kw), launch, 1)
     return make_sharded_body_step(mesh, rk.PLANES, R, C, local, dtype)
+
+
+def _per_colour(step):
+    """``step`` (and its ``plain``) on the full per-colour state: each shard,
+    (18, R_loc, C) or (2, 9, R_loc, C), viewed as (18, R_loc, C), and the
+    result handed back as (2, 9, R_loc, C) shards, which gather to F (2, 9,
+    R, C) (lbm_tpu sharded_pallas.py:442-445)."""
+
+    def wrap(fn):
+        def wrapped(state: ShardedState) -> ShardedState:
+            flat = fn(ShardedState(state.mesh, [f.reshape(18, *f.shape[-2:])
+                                                for f in state.shards]))
+            return ShardedState(flat.mesh, [f.reshape(2, 9, *f.shape[-2:])
+                                            for f in flat.shards])
+        return wrapped
+
+    out = wrap(step)
+    out.plain = wrap(step.plain)
+    return out
+
+
+def make_sharded_mrtcg_step(mesh: Mesh, R: int, C: int, red, blue, sigma: float,
+                            gravity=(0.0, 0.0), delta: float = 0.1,
+                            apply_gravity_source: bool = True,
+                            dtype: torch.dtype = torch.float32,
+                            surface_tension: str = "perturbation",
+                            substeps: int | str = 1):
+    """The full per-colour MRT colour-gradient step with rows sharded.
+    Perturbation mode: F (2, 9, R, C) sharded as ``shard_state(mesh,
+    F.reshape(18, R, C))`` -> shards of (2, 9, R/n, C), which gather to F
+    (the step also takes those shards back); CSF mode: shards of S (20, R,
+    C) = [red f, blue f, fst carry] -> the same.
+    ``substeps`` steps per exchange of ``halo_for(substeps, 3 or 5)`` rows
+    (lbm_tpu sharded_pallas.py:406).  Kernel 31 on CUDA shards."""
+    csf = surface_tension == "csf"
+    family = "csf" if csf else "mrtcg"
+    planes = mrtcg.full_planes(surface_tension)
+    r = ROWS_PER_SWEEP[family]
+    substeps = _check_sweeps(resolve_substeps(substeps, family), None)
+    halo = halo_for(substeps, r)
+    if R < 4 or C < 3:
+        raise ValueError(f"the MRT-CG step takes R >= 4 and C >= 3, got {R}x{C}")
+    plain = mrtcg.make_plain_step(red, blue, sigma, gravity, delta, apply_gravity_source,
+                                  surface_tension, reduced_in=False, reduced_out=False)
+    params = _build.c_doubles(mrtcg.kernel_params(red, blue, sigma, gravity, delta,
+                                                  apply_gravity_source))
+    launch = functools.partial(launch_sweeps, HALO_MRTCG_FULL, R=R, substeps=substeps,
+                               rows_per_sweep=r, walls=True, params=params, i0=int(csf))
+    local = make_local_halo_body_step(R, plain, launch, substeps)
+    step = make_sharded_body_step(mesh, planes, R, C, local, dtype, halo)
+    return step if csf else _per_colour(step)
+
+
+def make_sharded_sc_step(mesh: Mesh, R: int, C: int, *, omega: float, G: float | None = None,
+                         eos: str = "sc", T: float | None = None, forcing: str | None = None,
+                         substeps: int | str = 1, dtype: torch.dtype = torch.float32):
+    """The fully periodic Shan-Chen step (kernels/shan_chen.py) with rows
+    sharded: f (9, R, C) shards -> the same, ``substeps`` (at most 4) steps
+    per exchange of HALO rows, each sweep consuming 2 (lbm_tpu's
+    make_sharded_body_step on make_sc_body, shan_chen_pallas.py:138).
+    Kernel 32 on CUDA shards."""
+    substeps = _check_sweeps(resolve_substeps(substeps, "shan_chen"),
+                            HALO // ROWS_PER_SWEEP["shan_chen"])
+    eos_i, forcing_i, params = shan_chen.kernel_params(omega, G, eos, T, forcing)
+    plain = shan_chen.make_plain_step(omega, G, eos, T, forcing)
+    launch = functools.partial(launch_sweeps, HALO_SHAN_CHEN, R=R, substeps=substeps,
+                               rows_per_sweep=ROWS_PER_SWEEP["shan_chen"], walls=False,
+                               params=_build.c_doubles(params), i0=eos_i, i1=forcing_i)
+    local = make_local_halo_body_step(R, lambda S, rows, R_: plain(S), launch, substeps)
+    return make_sharded_body_step(mesh, 9, R, C, local, dtype)
+
+
+def make_sharded_d3q19_step(mesh: Mesh, X: int, Y: int, Z: int, *, omega: float,
+                            force_z: float = 0.0, x_walls: bool = False,
+                            y_walls: bool = False, z_walls: bool = False, lid_u: float = 0.0,
+                            substeps: int | str = 1, dtype: torch.dtype = torch.float32):
+    """The D3Q19 step (kernels/d3q19.py) with the y axis sharded: shards of
+    the planes state viewed as (19 X, Y, Z) (``f.reshape(19 * X, Y, Z)``;
+    plane k X + x) -> the same, ``substeps`` steps per exchange of HALO
+    rows; the y faces and the lid at the grid's global rows 0 and Y-1, the
+    x and z walls local (lbm_tpu's make_sharded_body_step on
+    make_d3q19_body, d3q19_pallas.py:173).  Kernel 33 on CUDA shards."""
+    substeps = _check_sweeps(resolve_substeps(substeps, "d3q19"), HALO)
+    d3q19._check_grid(X, Y, Z, x_walls, y_walls, z_walls, lid_u)
+    kw = dict(omega=omega, force_z=force_z, x_walls=x_walls, y_walls=y_walls, z_walls=z_walls,
+              lid_u=lid_u)
+    launch = functools.partial(
+        launch_sweeps, HALO_D3Q19, R=Y, substeps=substeps, rows_per_sweep=1, walls=y_walls,
+        params=d3q19.d3q19_constants(omega, force_z, lid_u, dtype), i0=X,
+        i1=d3q19._flags(force_z, x_walls, y_walls, z_walls, lid_u))
+    local = make_local_halo_body_step(Y, d3q19_body(X, **kw), launch, substeps)
+    return make_sharded_body_step(mesh, d3q19.Q * X, Y, Z, local, dtype)

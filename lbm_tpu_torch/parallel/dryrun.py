@@ -7,18 +7,24 @@ lbm_tpu's ``dryrun_multichip``, __graft_entry__.py:30-91).
 Builds an n-shard mesh and runs ONE step at tiny shapes of: the periodic
 BGK step with the 2-D halo exchange (an (n/2, 2) mesh when n is even and
 above 2, else (n, 1)), the channel step with the pressure coupling across
-the row cut, and kernel 27 (on CUDA devices; its plain version on CPU
-ones) with ``substeps="auto"``.  The 2-D kernel part of lbm_tpu's dry run
-waits for its sharded2d kernels.
+the row cut, kernel 27 with ``substeps="auto"``, kernel 34 (the rows x
+cols collide-stream, ``substeps=2``) on that (n/2, 2) mesh, and on the
+(n, 1) mesh kernel 31 (the full MRT-CG state, __graft_entry__.py:179-197),
+kernel 32 (Shan-Chen, 4 steps per exchange, :221-237) and kernel 33 (the
+D3Q19 lid cavity with every wall, 2 steps per exchange, :270-286); each
+kernel on CUDA devices, its plain version on CPU ones.  lbm_tpu's 2-D
+MRT-CG part (:103-) waits for its sharded2d body kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import sharded as ksh
 from ..kernels.bgk import bgk_collide_fn
-from ..kernels.sharded import make_sharded_fused_step
-from ..ops import d2q9
+from ..kernels.sharded2d import make_sharded_fused_step_2d
+from ..ops import d2q9, d3q19
+from ..scenes.multiphase import DEFAULT_BLUE, DEFAULT_RED, init_rho_cosine
 from . import mesh as meshmod
 from . import sharded
 
@@ -55,10 +61,48 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         meshmod.shard_state(m1, f1)).gather()
 
     # kernel 27 with the "auto" cadence (8 steps per exchange for BGK)
+    f32 = torch.float32
     R2 = 8 * n_devices
-    sf = make_sharded_fused_step(m1, R2, 128, bgk_collide_fn(1.0, torch.float32),
-                                 dtype=torch.float32, substeps="auto")
+    sf = ksh.make_sharded_fused_step(m1, R2, 128, bgk_collide_fn(1.0, f32), dtype=f32,
+                                     substeps="auto")
     out["sharded_fused"] = sf(meshmod.shard_state(m1, _rest_state(R2, 128, 0.02, dev0))).gather()
+
+    # kernel 34 on the rows x cols mesh, 2 steps per exchange
+    if ny > 1:
+        R3, C3 = 16 * nx, 128 * ny
+        sf2 = make_sharded_fused_step_2d(m, R3, C3, bgk_collide_fn(1.0, f32), dtype=f32,
+                                         substeps=2)
+        out["sharded_fused_2d"] = sf2(meshmod.shard_state(
+            m, _rest_state(R3, C3, 0.02, dev0))).gather()
+
+    # kernel 31: the full MRT-CG state F (2, 9, R, C) of the RT layers
+    Rm, Cm = 24 * n_devices, 128
+    sm = ksh.make_sharded_mrtcg_step(m1, Rm, Cm, DEFAULT_RED, DEFAULT_BLUE, sigma=1e-4,
+                                     gravity=(6.25e-7, 0.0), dtype=f32)
+    rm, bm = (torch.as_tensor(init_rho_cosine(Rm, Cm, c.rho_0, below, -1.0), dtype=f32,
+                              device=dev0)
+              for c, below in ((DEFAULT_RED, True), (DEFAULT_BLUE, False)))
+    fm = _rest_state(Rm, Cm, 0.0, dev0)
+    tot = torch.clamp_min(rm + bm, 1e-30)[None]
+    F = torch.stack([rm[None] * fm / tot, bm[None] * fm / tot])
+    out["sharded_mrtcg"] = sm(meshmod.shard_state(m1, F.reshape(18, Rm, Cm))).gather()
+
+    # kernel 32: Shan-Chen, 4 steps per exchange
+    Rs = 24 * n_devices
+    s_sc = ksh.make_sharded_sc_step(m1, Rs, 128, omega=1.0, G=-5.0, substeps=4, dtype=f32)
+    rho_sc = 0.7 + 0.01 * torch.cos(torch.arange(Rs, dtype=f32, device=dev0))[:, None] \
+        * torch.ones((1, 128), dtype=f32, device=dev0)
+    f_sc = d2q9.equilibrium(torch.zeros((2, Rs, 128), dtype=f32, device=dev0), rho_sc)
+    out["sharded_sc"] = s_sc(meshmod.shard_state(m1, f_sc)).gather()
+
+    # kernel 33: the D3Q19 lid cavity, y sharded, 2 steps per exchange
+    X3, Y3, Z3 = 2, 24 * n_devices, 128
+    s_3d = ksh.make_sharded_d3q19_step(m1, X3, Y3, Z3, omega=1.0, x_walls=True,
+                                       y_walls=True, z_walls=True, lid_u=0.05, substeps=2,
+                                       dtype=f32)
+    f3 = d3q19.equilibrium(torch.zeros((3, X3, Y3, Z3), dtype=f32, device=dev0),
+                           torch.ones((X3, Y3, Z3), dtype=f32, device=dev0))
+    out["sharded_d3q19"] = s_3d(meshmod.shard_state(m1, f3.reshape(19 * X3, Y3, Z3))).gather()
 
     for name, x in out.items():
         if not bool(torch.isfinite(x).all()):

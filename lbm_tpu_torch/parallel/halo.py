@@ -13,7 +13,9 @@ The payload is the full edge line of every plane: streaming it locally is
 algebraically the reference's inter-domain binding
 (decompose_domain.cpp:181-187).  Corners take the two-pass route: rows
 first, then the columns of the row-padded blocks, so a diagonal cell comes
-from the diagonal neighbour.
+from the diagonal neighbour.  ``exchange_rows`` and ``exchange_2d`` send
+the strips of the kernel steps (kernels/sharded.py, kernels/sharded2d.py):
+edge strips only, never a copy of a whole shard.
 """
 
 from __future__ import annotations
@@ -33,29 +35,31 @@ def halo_pad_axis(grid, axis: str, width: int = 1):
     """Pad every block of a row-major grid of blocks (``grid[i][j]``, any
     leading component axes) with ``width`` lines from its ring neighbours
     along mesh axis 'x' (rows, tensor axis -2) or 'y' (columns, axis -1),
-    periodically.  With one block along the axis, a block wraps to itself."""
-    dim = -2 if axis == "x" else -1
+    periodically: ``exchange_rows``' strips, along 'y' those of the
+    transposed blocks.  With one block along the axis, a block wraps to
+    itself."""
+    if axis == "y":
+        flip = [[x.transpose(-2, -1) for x in col] for col in zip(*grid)]
+        return [[x.transpose(-2, -1).contiguous() for x in col]
+                for col in zip(*halo_pad_axis(flip, "x", width))]
     nx, ny = len(grid), len(grid[0])
-    out = []
-    for i in range(nx):
-        row = []
-        for j in range(ny):
-            x = grid[i][j]
-            if axis == "x":
-                prev, nxt = grid[(i - 1) % nx][j], grid[(i + 1) % nx][j]
-            else:
-                prev, nxt = grid[i][(j - 1) % ny], grid[i][(j + 1) % ny]
-            lo = copy_to(prev.narrow(dim, prev.shape[dim] - width, width), x.device)
-            hi = copy_to(nxt.narrow(dim, 0, width), x.device)
-            row.append(torch.cat([lo, x, hi], dim=dim))
-        out.append(row)
-    return out
+    strips = [exchange_rows([grid[i][j] for i in range(nx)], width) for j in range(ny)]
+    return [[torch.cat([strips[j][i][0], grid[i][j], strips[j][i][1]], dim=-2)
+             for j in range(ny)] for i in range(nx)]
+
+
+def pad_block(f: torch.Tensor, top, bot, left, right) -> torch.Tensor:
+    """A block with the four strips of ``exchange_2d`` around it."""
+    return torch.cat([left, torch.cat([top, f, bot], dim=-2), right], dim=-1)
 
 
 def halo_pad_2d(grid, width: int = 1):
-    """Periodic 2-D halo pad: rows, then the columns of the row-padded
-    blocks, so the corner cells arrive from the diagonal neighbour."""
-    return halo_pad_axis(halo_pad_axis(grid, "x", width), "y", width)
+    """Periodic 2-D halo pad: each block with ``exchange_2d``'s strips around
+    it, so the corner cells arrive from the diagonal neighbour."""
+    ny = len(grid[0])
+    padded = [pad_block(x, *strips) for x, strips in
+              zip((x for row in grid for x in row), exchange_2d(grid, width))]
+    return [padded[i:i + ny] for i in range(0, len(padded), ny)]
 
 
 def exchange_rows(shards, width: int):
@@ -68,3 +72,31 @@ def exchange_rows(shards, width: int):
     return [(copy_to(shards[(i - 1) % n][..., -width:, :], f.device),
              copy_to(shards[(i + 1) % n][..., :width, :], f.device))
             for i, f in enumerate(shards)]
+
+
+def exchange_2d(grid, width: int):
+    """The two-pass exchange of a field sharded over rows and columns (any
+    (nx, ny) mesh), for each block of the row-major grid ``grid[i][j]`` in
+    row-major order: ``(top, bot, left, right)`` on its device.  ``top`` and
+    ``bot`` are ``exchange_rows``' strips within the block's mesh column,
+    ``(planes, width, C_loc)`` each; ``left`` and ``right`` are
+    ``(planes, width + R_loc + width, width)`` column strips of the left and
+    right neighbours, each with that neighbour's own row strips attached,
+    so a corner comes from the diagonal neighbour (lbm_tpu sharded2d_pallas
+    ``_exchange_halos``).  Periodic in both axes; a block alone on an axis
+    wraps to itself.  Only strips are copied, never a whole block."""
+    nx, ny = len(grid), len(grid[0])
+    rows = [exchange_rows([grid[i][j] for i in range(nx)], width) for j in range(ny)]
+
+    def strip(i: int, j: int, cols: slice, device) -> torch.Tensor:
+        top, bot = rows[j][i]
+        part = torch.cat([top[..., cols], grid[i][j][..., cols], bot[..., cols]], dim=-2)
+        return part.to(device, non_blocking=True)
+
+    out = []
+    for i in range(nx):
+        for j in range(ny):
+            dev = grid[i][j].device
+            out.append((*rows[j][i], strip(i, (j - 1) % ny, slice(-width, None), dev),
+                        strip(i, (j + 1) % ny, slice(0, width), dev)))
+    return out

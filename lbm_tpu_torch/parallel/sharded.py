@@ -29,17 +29,24 @@ def _grid(state: ShardedState, blocks) -> list:
     return [list(blocks[i * ny:(i + 1) * ny]) for i in range(state.mesh.shape["x"])]
 
 
-def stream_halo(grid) -> list:
+def sweep_block(padded: torch.Tensor, width: int, collide_fn=None,
+                substeps: int = 1) -> torch.Tensor:
+    """``substeps`` periodic sweeps over a block padded with ``width`` lines
+    on every side, each ``collide_fn`` (none: streaming alone) then the push
+    streaming; every sweep leaves one more line stale on each side, so
+    ``substeps <= width``.  Returns the block's interior."""
+    for _ in range(substeps):
+        padded = d2q9.stream(padded if collide_fn is None else collide_fn(padded))
+    return padded[..., width:-width, width:-width].contiguous()
+
+
+def stream_halo(grid, collide_fn=None, substeps: int = 1, width: int = 1) -> list:
     """Periodic streaming of a row-major grid of ``(9, r, c)`` blocks: a
-    1-wide halo exchange in both mesh axes, a roll of each padded plane,
-    the interior kept.  Returns the blocks in row-major order."""
-    out = []
-    for row in halo.halo_pad_2d(grid, width=1):
-        for padded in row:
-            out.append(torch.stack([
-                torch.roll(padded[k], shifts=d2q9.SHIFTS[k], dims=(0, 1))[1:-1, 1:-1]
-                for k in range(d2q9.Q)]))
-    return out
+    ``width``-line halo exchange in both mesh axes, ``sweep_block`` over
+    each padded block (by default the streaming of collided blocks, one
+    line wide).  Returns the blocks in row-major order."""
+    return [sweep_block(padded, width, collide_fn, substeps)
+            for row in halo.halo_pad_2d(grid, width) for padded in row]
 
 
 def _check_state(state: ShardedState, mesh: Mesh) -> None:

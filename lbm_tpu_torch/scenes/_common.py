@@ -10,14 +10,15 @@ from ..utils import observe
 CHUNK = 1000  # steps between progress logs (and NaN checks where taken)
 
 
-def no_mesh(mesh_shape) -> None:
-    """Raise if a scene is asked to shard: the scenes' meshes wait for an
-    ``auto_sharded`` on parallel/'s exchange."""
-    if mesh_shape is not None:
+def no_mesh(mesh) -> None:
+    """Raise if a scene is asked to shard (its ``mesh_shape``, or the falling
+    cylinder's ``mesh``): the scenes' meshes wait for an ``auto_sharded`` on
+    parallel/'s exchange."""
+    if mesh is not None:
         raise NotImplementedError(
-            "mesh_shape waits for an auto_sharded on parallel/'s exchange (ROADMAP "
-            "Queue 1 item 14); the scenes run on one device, the row-sharded steps "
-            "are in kernels/sharded.py")
+            "a scene's mesh (mesh_shape, mesh) waits for an auto_sharded on parallel/'s "
+            "exchange (ROADMAP Queue 1 item 14); the scenes run on one device, the "
+            "sharded steps are in kernels/sharded.py and kernels/sharded2d.py")
 
 
 def _resume(ckpt: Checkpointer, carry: tuple, T: int, substeps: int,

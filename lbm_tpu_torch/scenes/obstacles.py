@@ -27,8 +27,10 @@ same holds for the falling bodies, whose fused path in lbm_tpu is float32
 only and needs an 8x128-aligned margined window (obstacles.py:1000-1038).
 Their ``checkpoint_dir`` turns on checkpoint/resume of the carry (f and
 the rigid state) and the trajectory every ``checkpoint_every`` steps
-(``_common.drive_recorded``); lbm_tpu's ``mesh`` (GSPMD rows) waits for
-ROADMAP item 14.
+(``_common.drive_recorded``).  ``falling_cylinder`` takes lbm_tpu's ``mesh``
+keyword (GSPMD rows) and raises ``NotImplementedError`` when one is given,
+as the other scenes do with theirs (``_common.no_mesh``): the scenes'
+meshes wait for ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from ..ops import d2q9
 from ..ops.ibm import IBM
 from ..ops.moving_ibm import circle_markers, ellipse_markers
 from ..utils.xmath import default_device, default_float
-from ._common import drive_recorded
+from ._common import drive_recorded, no_mesh
 from .ulbm import _drive
 
 
@@ -291,7 +293,7 @@ def falling_cylinder(H: int = 400, W: int = 256, T: int = 2000,
                      gravity: float = 5e-5, omega: float = 1.0 / 0.6,
                      m_max: int = 5, record_every: int | None = 10,
                      checkpoint_dir: str | None = None,
-                     checkpoint_every: int = 10000,
+                     checkpoint_every: int = 10000, mesh=None,
                      device=None, dtype: torch.dtype | None = None) -> FallingCylinderResult:
     """A rigid cylinder of density ``rho_s`` (fluid rho_0 = 1) sedimenting
     along +rows under ``gravity`` in a closed no-slip box, by moving-marker
@@ -310,7 +312,9 @@ def falling_cylinder(H: int = 400, W: int = 256, T: int = 2000,
 
     ``record_every`` returns the (T // k, 6) trajectory (centre, velocity,
     hydrodynamic force), recorded on the device and copied to the host once
-    per chunk; None records nothing.  ``center`` defaults to (H/4, W/2)."""
+    per chunk; None records nothing.  ``center`` defaults to (H/4, W/2).
+    ``mesh`` raises ``NotImplementedError`` (``_common.no_mesh``)."""
+    no_mesh(mesh)
     device, dtype = default_device(device), default_float(dtype)
     _check_record(T, record_every)
     if center is None:

@@ -1371,3 +1371,144 @@ def test_sharded_kernels_reject_what_they_do_not_take(cuda):
         local(shard, top, top.cpu())
     with pytest.raises(ValueError, match="halo top"):
         local(shard, top.float(), top)
+
+
+# --- kernels 31-34: the full MRT-CG, Shan-Chen and D3Q19 row shards, and the
+# rows x cols collide-stream ------------------------------------------------------
+
+SC_CASES = {"sc guo": dict(omega=1.0, G=-5.0, eos="sc", forcing="guo"),
+            "sc shift": dict(omega=1.0, G=-5.0, eos="sc", forcing="shift"),
+            "cs shift": dict(omega=1.0, eos="cs", T=0.7 * 0.09433, forcing="shift"),
+            "cs guo": dict(omega=1.0, eos="cs", T=0.7 * 0.09433, forcing="guo")}
+
+
+def _k31_33_case(family, R, C, dtype, device, n, s):
+    """(sharded step on n shards of ``device``, single-device step of s steps
+    per call, state as the sharded step takes it, its kernels) of one case:
+    "mrtcg" / "csf" (kernel 31 against kernel 8), an entry of SC_CASES
+    (kernel 32 against 14), "d3q19 <walls>" (kernel 33 against 25 at X = 3
+    and Z = C, the y axis R rows)."""
+    from lbm_tpu_torch.kernels import d3q19, mrtcg, shan_chen
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    mesh = pm.make_mesh([device] * n)
+    seed = R * C + n * 10 + s
+    if family in ("mrtcg", "csf"):
+        mode = "csf" if family == "csf" else "perturbation"
+        red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+        S = _two_phase_state(R, C, dtype, device, mode, seed)
+        step = ksh.make_sharded_mrtcg_step(mesh, R, C, red, blue, dtype=dtype,
+                                           surface_tension=mode, substeps=s, **MRTCG_KW)
+        if mode == "csf":
+            single = mrtcg.make_csf_fused_step(R, C, red, blue, dtype=dtype, substeps=s,
+                                               **MRTCG_KW)
+        else:
+            full = mrtcg.make_mrtcg_fused_step(R, C, red, blue, dtype=dtype, substeps=s,
+                                               **MRTCG_KW)
+            single = lambda x: full(x.reshape(2, 9, R, C)).reshape(18, R, C)  # noqa: E731
+        return step, single, S, [ksh.HALO_MRTCG_FULL]
+    if family in SC_CASES:
+        kw = SC_CASES[family]
+        return (ksh.make_sharded_sc_step(mesh, R, C, substeps=s, dtype=dtype, **kw),
+                shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **kw),
+                _sc_state(R, C, dtype, device, kw["eos"] == "cs"), [ksh.HALO_SHAN_CHEN])
+    X, kw = 3, dict(omega=1.0 / 0.7, **D3Q19_WALLS[family.split()[1]])
+    one = d3q19.make_d3q19_fused_step(X, R, C, substeps=s, dtype=dtype, **kw)
+    return (ksh.make_sharded_d3q19_step(mesh, X, R, C, substeps=s, dtype=dtype, **kw),
+            lambda x: one(x.reshape(19, X, R, C)).reshape(19 * X, R, C),
+            _d3q19_state(X, R, C, dtype, device, seed).reshape(19 * X, R, C),
+            [ksh.HALO_D3Q19])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,n,s", [
+    ("mrtcg", 1, 1), ("mrtcg", 8, 2), ("mrtcg", 4, 5), ("csf", 8, 1), ("csf", 4, 4),
+    ("sc guo", 8, 4), ("sc shift", 1, 1), ("cs shift", 2, 2), ("cs guo", 8, 3),
+    ("d3q19 periodic", 8, 8), ("d3q19 cavity", 1, 1), ("d3q19 cavity", 8, 2),
+    ("d3q19 channel", 4, 5)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sharded_kernels_31_to_33_match_single_device(cuda, family, n, s, dtype):
+    """Kernels 31-33 on n shards of one card, two calls of s steps: bit for
+    bit the single-device kernel of their family (8, 14, 25), within TOL of
+    the plain sharded version, and bit-identical run twice."""
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = (192, 40) if family in ("mrtcg", "csf") else (64, 72)
+    step, single, x, kernels = _k31_33_case(family, R, C, dtype, cuda, n, s)
+    mesh = pm.make_mesh([cuda] * n)
+    before = [k.launches for k in kernels]
+    got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    again = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in kernels) - sum(before) == 4 * n * s
+    want = single(single(x))
+    assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,s", [((1, 1), 1), ((2, 4), 8), ((4, 2), 3), ((8, 1), 2)])
+@pytest.mark.parametrize("kind", ["bgk", "kbc", "les", "trt", "power_law"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_34_matches_single_device(cuda, kind, shape, s, dtype):
+    """Kernel 34 on an (nx, ny) mesh of one card's shards, two calls of s
+    steps: bit for bit the single-device kernel of the collision (1, 3, 5,
+    10, 11), within TOL of the plain sharded version, twice the same."""
+    from lbm_tpu_torch.kernels import power_law, sharded2d, trt
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 64, 96
+    fn, single = {
+        "bgk": (bgk.bgk_collide_fn(OMEGA, dtype), bgk.make_fused_step(R, C, OMEGA, dtype, s)),
+        "kbc": (collide_stream.kbc_collide_fn(OMEGA),
+                collide_stream.make_kbc_fused_step(R, C, OMEGA, dtype, s)),
+        "les": (les.les_collide_fn(dtype=dtype, **LES),
+                les.make_les_fused_step(R, C, dtype=dtype, substeps=s, **LES)),
+        "trt": (trt.trt_collide_fn(1.0 / 0.9, OM_MINUS, dtype),
+                trt.make_trt_fused_step(R, C, omega_plus=1.0 / 0.9, omega_minus=OM_MINUS,
+                                        dtype=dtype, substeps=s)),
+        "power_law": (power_law.power_law_collide_fn(0.01, 0.5, 0.52, 50.0, 8, dtype),
+                      power_law.make_power_law_fused_step(R, C, cons_K=0.01, n=0.5,
+                                                          dtype=dtype, substeps=s)),
+    }[kind]
+    mesh = pm.make_mesh([cuda] * (shape[0] * shape[1]), shape)
+    step = sharded2d.make_sharded_fused_step_2d(mesh, R, C, fn, dtype, substeps=s)
+    x = _state(R, C, dtype, cuda, seed=R + C + s, noisy=True)
+    kernel = sharded2d.HALO2D_COLLIDE_STREAM[kind]
+    before = kernel.launches
+    got = step(step(pm.shard_state(mesh, x))).gather()
+    again = step(step(pm.shard_state(mesh, x))).gather()
+    plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather()
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 4 * shape[0] * shape[1] * s
+    assert got.is_cuda and torch.equal(got, single(single(x))) and torch.equal(got, again)
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_31_to_34_reject_what_they_do_not_take(cuda):
+    """A CUDA shard reaches kernels 31-34 or raises: an untagged collide
+    function, a strip of the wrong width, a CPU strip."""
+    from lbm_tpu_torch.kernels import sharded2d
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 32, 32
+    mesh = pm.make_mesh([cuda] * 4, (2, 2))
+    f = _state(R, C, torch.float64, cuda, seed=7)
+    untagged = (lambda fn: (lambda g: fn(g)))(bgk.bgk_collide_fn(OMEGA, torch.float64))
+    with pytest.raises(ValueError, match="names no halo-input kernel"):
+        sharded2d.make_sharded_fused_step_2d(mesh, R, C, untagged, torch.float64)(
+            pm.shard_state(mesh, f))
+    local = sharded2d.make_local_2d_step(R, C, bgk.bgk_collide_fn(OMEGA, torch.float64),
+                                         torch.float64)
+    top, bot, left, right = halo.exchange_2d([[f]], 8)[0]
+    with pytest.raises(ValueError, match="halo left"):
+        local(f, top, bot, left[..., :4].contiguous(), right)
+    with pytest.raises(ValueError, match="halo right"):
+        local(f, top, bot, left, right.cpu())
+    assert torch.equal(local(f, top, bot, left, right),
+                       bgk.make_fused_step(R, C, OMEGA, torch.float64)(f))

@@ -123,6 +123,18 @@ def test_scenes_reject_what_they_do_not_take():
         obstacles.falling_ellipse(a=4.0, b=8.0, device="cpu")
 
 
+def test_falling_cylinder_mesh_raises_as_the_other_scenes_do():
+    """lbm_tpu's falling_cylinder takes ``mesh`` (obstacles.py:927); the
+    port's takes it too and raises no_mesh's NotImplementedError, not a
+    TypeError, before any work."""
+    import inspect
+
+    assert "mesh" in inspect.signature(jobs.falling_cylinder).parameters
+    assert inspect.signature(obstacles.falling_cylinder).parameters["mesh"].default is None
+    with pytest.raises(NotImplementedError, match="item 14"):
+        obstacles.falling_cylinder(mesh=object(), device="cpu")
+
+
 @pytest.mark.parametrize("scene,kw,shape", [
     (obstacles.falling_cylinder, dict(H=48, W=48, radius=6.0), (0, 6)),
     (obstacles.falling_cylinders, dict(H=96, W=48, centers=((20.0, 23.0), (40.0, 24.0)),

@@ -220,7 +220,7 @@ def test_import_loads_no_jax():
             "import lbm_tpu_torch.scenes.obstacles\n"
             "import lbm_tpu_torch.parallel.mesh, lbm_tpu_torch.parallel.halo\n"
             "import lbm_tpu_torch.parallel.sharded, lbm_tpu_torch.parallel.dryrun\n"
-            "import lbm_tpu_torch.kernels.sharded\n"
+            "import lbm_tpu_torch.kernels.sharded, lbm_tpu_torch.kernels.sharded2d\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
@@ -266,7 +266,7 @@ def test_port_imports_alone(tmp_path):
         if f.endswith(".py"))
     assert {"lbm_tpu_torch.parallel.mesh", "lbm_tpu_torch.parallel.halo",
             "lbm_tpu_torch.parallel.sharded", "lbm_tpu_torch.parallel.dryrun",
-            "lbm_tpu_torch.kernels.sharded"} <= set(modules)
+            "lbm_tpu_torch.kernels.sharded", "lbm_tpu_torch.kernels.sharded2d"} <= set(modules)
     code = ("import importlib, sys\n"
             f"mods = {modules!r}\n"
             "for m in mods:\n"

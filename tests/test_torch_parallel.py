@@ -89,6 +89,21 @@ def test_halo_pad_2d_matches_global_roll(width):
     assert torch.equal(got, torch.roll(f, (w, -w), (1, 2)))
 
 
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_halo_pad_axis_matches_a_periodic_window(axis):
+    """Along either mesh axis each block is padded with its ring
+    neighbours' lines, and only along that axis."""
+    f = torch.as_tensor(_rand((2, 12, 8), seed=6))
+    st = mesh.shard_state(mesh.make_mesh(["cpu"] * 8, shape=(4, 2)), f)
+    grid = [[st.grid(i, j) for j in range(2)] for i in range(4)]
+    for i, row in enumerate(halo.halo_pad_axis(grid, axis, 2)):
+        for j, p in enumerate(row):
+            lines = torch.arange(-2, 5 if axis == "x" else 6)
+            r = (3 * i + (lines if axis == "x" else torch.arange(3))) % 12
+            c = (4 * j + (lines if axis == "y" else torch.arange(4))) % 8
+            assert p.is_contiguous() and torch.equal(p, f[:, r][:, :, c])
+
+
 def test_exchange_rows_ring_and_self_wrap():
     f = torch.as_tensor(_rand((3, 32, 4), seed=3))
     shards = mesh.shard_state(mesh.make_mesh(["cpu"] * 4), f).shards
@@ -191,7 +206,9 @@ def test_channel_rejects_a_column_mesh_and_another_mesh():
 @pytest.mark.parametrize("n", [8, 3])
 def test_dryrun_multichip_on_cpu_shards(n):
     out = dryrun.dryrun_multichip(n, devices=["cpu"] * n)
-    assert set(out) == {"periodic_bgk", "channel_bgk", "sharded_fused"}
+    two_d = {"sharded_fused_2d"} if n == 8 else set()  # an (n/2, 2) mesh for even n > 2
+    assert set(out) == {"periodic_bgk", "channel_bgk", "sharded_fused", "sharded_mrtcg",
+                        "sharded_sc", "sharded_d3q19"} | two_d
     assert all(bool(torch.isfinite(x).all()) for x in out.values())
     with pytest.raises(ValueError, match="devices for a"):
         dryrun.dryrun_multichip(n, devices=["cpu"] * (n + 1))
