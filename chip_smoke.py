@@ -15,7 +15,7 @@ with a nonzero exit code):
   1. toolchain: torch and CUDA versions, the card, nvcc, triton, nvidia-smi;
   2. build: the kernels from csrc/, timed, with ptxas' registers and spills
      per kernel (and those of kernels 25-26's four instances and of kernels
-     31-34's instances on their own);
+     31-38's instances on their own);
   3. the periodic kernels against their plain versions: kernel 1 (BGK) at
      4096x2048 float32 (1 and 8 steps; the 302 MB-per-buffer grid of
      bench.py), 1024x512 float64 and the reference's 21x21, 100x100 and
@@ -95,7 +95,11 @@ with a nonzero exit code):
      float64 on the (1, 1), (2, 4) and (4, 2) meshes; s = 1 and each
      family's deepest cadence, 10 steps (Shan-Chen 4), twice, bit for bit the
      single-device kernel (0.0 expected) and within TOL of the plain sharded
-     version (8 shards; (4, 2) for 34);
+     version (8 shards; (4, 2) for 34-38); kernels 35-38 (the rows x cols
+     body steps of kernels/sharded2d.py: Shan-Chen in all four instances,
+     the Rayleigh-Benard step, RK, the full MRT-CG state in both modes)
+     against 14, 23, 12 and 8 at 4096x2048 float32 and a small float64 grid
+     on the (1, 2), (4, 2) and (2, 4) meshes, s = 1 and each family's cap;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -183,8 +187,16 @@ with a nonzero exit code):
      shards, 4 steps per exchange, bit for bit the scene and within its
      gate; the cavity3d gate with Y over 8 shards, bit for bit the scene
      and within the gate; the dry run of parallel/dryrun.py; one shard per
-     card for kernels 27-34 when there are several (``sharded_cards``; else
-     logged as not run);
+     card for kernels 27-38 when there are several (``sharded_cards``; else
+     logged as not run); kernels 35-38 (``K35_38_PATH``, ``k35_38_path``,
+     through kernels/sharded2d.py's four body factories): the full MRT-CG
+     state, CSF, RK, Shan-Chen and Rayleigh-Benard at 4096x2048 float32 on
+     (4, 2), mrtcg_rayleigh_taylor's 256x128 on (4, 2), CSF on (2, 4),
+     rk_rayleigh_taylor's 1024x256 on (4, 2), each bit for bit its
+     single-device kernel; sc_phase_separation 256x256 on (4, 2), bit for
+     bit the scene and within its gate; rayleigh_benard 64x128 on (4, 2)
+     (30k steps, 8 per exchange), bit for bit the scene and within the
+     thermal gate's Nusselt band;
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
@@ -201,9 +213,10 @@ with a nonzero exit code):
      its plain version, over the fp32 peak; exp, log, expm1, clamp, where,
      maximum and minimum count one operation per element); kernels 27-34
      at n = 1 and 8 shards of the card (33 at 32x256x1024; 34 on the (1, 1),
-     (4, 2) and (8, 1) meshes) and s = 1 and each family's deepest cadence,
-     against the single-device kernels, the exchange's copies alone and a
-     copy of the state, under CUDA graphs (``sharded_times``).
+     (4, 2) and (8, 1) meshes; 35-38 on (4, 2)) and s = 1 and each family's
+     deepest cadence, against the single-device kernels, the exchange's
+     copies alone and a copy of the state, under CUDA graphs
+     (``sharded_times``).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -1323,9 +1336,11 @@ def sharded_case(family, shape, dtype, dev, n, s, devices=None):
     "mrtcg_full" or "csf_full" (31 against 8), "sc <eos>/<forcing>" (32
     against 14), "d3q19 <walls>" (33 against 25, ``shape`` (X, Y, Z), Y
     sharded) or "k34 <collision>" (34 against the collision's kernel, ``n``
-    an (nx, ny) mesh shape); the sharded step on ``n`` shards of ``dev`` (or
-    on ``devices``), ``s`` steps per call, the single-device step as many,
-    on the state as sharded_state makes it."""
+    an (nx, ny) mesh shape); with ``n`` an (nx, ny) mesh shape, "sc ...",
+    "thermal", "rk", "mrtcg_full" and "csf_full" take the rows x cols
+    kernels 35, 36, 37 and 38 (kernels/sharded2d.py); the sharded step on
+    ``n`` shards of ``dev`` (or on ``devices``), ``s`` steps per call, the
+    single-device step as many, on the state as sharded_state makes it."""
     from lbm_tpu_torch.kernels import d3q19 as kd
     from lbm_tpu_torch.kernels import mrtcg, rk, shan_chen
     from lbm_tpu_torch.kernels import sharded as ksh
@@ -1350,8 +1365,8 @@ def sharded_case(family, shape, dtype, dev, n, s, devices=None):
         make = k2d.make_sharded_fused_step_2d if two_d else ksh.make_sharded_fused_step
         return make(mesh, R, C, fn(dtype), dtype, substeps=s), single(R, C, dtype, s), mesh
     if family == "thermal":
-        return (ksh.make_sharded_thermal_step(mesh, R, C, substeps=s, dtype=dtype,
-                                              **THERMAL_PHYS),
+        make = k2d.make_sharded2d_thermal_step if two_d else ksh.make_sharded_thermal_step
+        return (make(mesh, R, C, substeps=s, dtype=dtype, **THERMAL_PHYS),
                 kth.make_thermal_fused_step(R, C, substeps=s, dtype=dtype, **THERMAL_PHYS), mesh)
     if family in ("mrtcg", "csf"):
         mode = "csf" if family == "csf" else "perturbation"
@@ -1360,24 +1375,28 @@ def sharded_case(family, shape, dtype, dev, n, s, devices=None):
                 mrtcg.make_mrtcg_reduced_step(R, C, red, blue, dtype=dtype,
                                               surface_tension=mode, substeps=s, **RT), mesh)
     if family == "rk":
-        return (ksh.make_sharded_rk_step(mesh, R, C, dtype=dtype, **RK),
+        make = k2d.make_sharded2d_rk_step if two_d else ksh.make_sharded_rk_step
+        return (make(mesh, R, C, dtype=dtype, **RK),
                 rk.make_rk_fused_step(R, C, dtype=dtype, substeps=s, **RK), mesh)
+    mrtcg_make = k2d.make_sharded2d_mrtcg_step if two_d else ksh.make_sharded_mrtcg_step
     if family == "csf_full":
-        return (ksh.make_sharded_mrtcg_step(mesh, R, C, red, blue, dtype=dtype,
-                                            surface_tension="csf", substeps=s, **RT),
+        return (mrtcg_make(mesh, R, C, red, blue, dtype=dtype, surface_tension="csf",
+                           substeps=s, **RT),
                 mrtcg.make_csf_fused_step(R, C, red, blue, dtype=dtype, substeps=s, **RT), mesh)
     if family == "mrtcg_full":
         full = mrtcg.make_mrtcg_fused_step(R, C, red, blue, dtype=dtype, substeps=s, **RT)
-        return (ksh.make_sharded_mrtcg_step(mesh, R, C, red, blue, dtype=dtype, substeps=s,
-                                            **RT),
+        return (mrtcg_make(mesh, R, C, red, blue, dtype=dtype, substeps=s, **RT),
                 lambda S: full(S.reshape(2, 9, R, C)).reshape(18, R, C), mesh)
     kw = sc_kwargs(*family[3:].split("/"))
-    return (ksh.make_sharded_sc_step(mesh, R, C, substeps=s, dtype=dtype, **kw),
+    make = k2d.make_sharded2d_sc_step if two_d else ksh.make_sharded_sc_step
+    return (make(mesh, R, C, substeps=s, dtype=dtype, **kw),
             shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **kw), mesh)
 
 
+# the meshes of one card's shards that phase 4 holds kernels 35-38 on
+K35_38_MESHES = ((1, 2), (4, 2), (2, 4))
 # (family, kernel, shapes and types, shard counts or meshes, cadences) of
-# phase 4's sharded holds
+# phase 4's sharded holds (kernels 35-38: the body families on the meshes)
 SHARDED_HOLDS = (
     ("k27 bgk", 27, (("float32", BIG), ("float64", (64, 128))), (1, 2, 8), (1, 8)),
     *((f"k27 {c}", 27, (("float32", (1024, 512)), ("float64", (64, 128))), (8,), (1, 8))
@@ -1399,6 +1418,12 @@ SHARDED_HOLDS = (
        (1, 8)) for w in ("periodic", "cavity")),
     *((f"k34 {c}", 34, (("float32", BIG), ("float64", (128, 256))), ((1, 1), (2, 4), (4, 2)),
        (1, 8)) for c in K34_KINDS),
+    *((f"sc {e}/{fo}", 35, (("float32", BIG), ("float64", (128, 128))), K35_38_MESHES, (1, 4))
+      for e, fo in SC_INSTANCES),
+    ("thermal", 36, (("float32", BIG), ("float64", (64, 128))), K35_38_MESHES, (1, 8)),
+    ("rk", 37, (("float32", BIG), ("float64", (256, 256))), K35_38_MESHES, (1,)),
+    ("mrtcg_full", 38, (("float32", BIG), ("float64", (256, 128))), K35_38_MESHES, (1, 2)),
+    ("csf_full", 38, (("float32", BIG), ("float64", (256, 128))), K35_38_MESHES, (1,)),
 )
 
 
@@ -1432,9 +1457,9 @@ def hold_case(name, step, mesh, x, calls, want, plain, dev):
 
 
 def sharded_hold(dev):
-    """Phase 4 of kernels 27-34 (``SHARDED_HOLDS``).  For each family, shape
+    """Phase 4 of kernels 27-38 (``SHARDED_HOLDS``).  For each family, shape
     and type one state; for each cadence s the single-device kernel and the
-    plain sharded version (8 shards; (4, 2) for kernel 34) run 10 steps (the
+    plain sharded version (8 shards; (4, 2) for kernels 34-38) run 10 steps (the
     nearest multiple of s; Shan-Chen 4, the steps of kernel 14's phase-3
     hold on the same states: the Carnahan-Starling one, 8M float32 cells of
     0.2 (rho_l - rho_v) noise, turns non-finite within 10) from it once;
@@ -1449,7 +1474,7 @@ def sharded_hold(dev):
 
     from lbm_tpu_torch.parallel import mesh as pm
 
-    errs = {k: {"plain": {}, "single": {}, "all_equal": True} for k in range(27, 35)}
+    errs = {k: {"plain": {}, "single": {}, "all_equal": True} for k in range(27, 39)}
     for family, kernel, shapes, ns, ss in SHARDED_HOLDS:
         for dt_name, shape in shapes:
             dtype = getattr(torch, dt_name)
@@ -1457,7 +1482,7 @@ def sharded_hold(dev):
             for s in ss:
                 calls = max(1, round((4 if family.startswith("sc ") else 10) / s))
                 step, single, mesh = sharded_case(family, shape, dtype, dev,
-                                                  (4, 2) if kernel == 34 else 8, s)
+                                                  (4, 2) if kernel >= 34 else 8, s)
                 want, y = x, pm.shard_state(mesh, x)
                 for _ in range(calls):
                     want, y = single(want), step.plain(y)
@@ -1489,8 +1514,10 @@ def sharded_cards(dev, cards=None) -> None:
     mesh where n is even), each 10 steps (the nearest multiple of s), run
     twice (``hold_case``): bit for bit its single-device kernel on ``dev``
     and each other, within TOL of the plain sharded version on the same
-    cards; then the dry run on them.  On one card, with no ``cards``, it
-    logs that it did not run."""
+    cards; where n is even also kernels 35-38 on the (n/2, 2) mesh
+    (Shan-Chen and thermal in float32, RK and CSF in float64); then the dry
+    run on them.  On one card, with no ``cards``, it logs that it did not
+    run."""
     import torch
 
     from lbm_tpu_torch.parallel import dryrun
@@ -1512,7 +1539,12 @@ def sharded_cards(dev, cards=None) -> None:
             ("csf_full", rows, n_cards, 4, torch.float64),
             ("sc sc/guo", rows, n_cards, 4, torch.float32),
             ("d3q19 cavity", (4, 32 * n_cards, 128), n_cards, 8, torch.float32),
-            ("k34 bgk", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 8, torch.float32)):
+            ("k34 bgk", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 8, torch.float32),
+            *((("sc sc/guo", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 4, torch.float32),
+               ("thermal", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 8, torch.float32),
+               ("rk", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 1, torch.float64),
+               ("csf_full", (256 * mesh34[0], 256 * mesh34[1]), mesh34, 1, torch.float64))
+              if mesh34[1] == 2 else ())):
         x = sharded_state(family, shape, dtype, dev)
         step, single, mesh = sharded_case(family, shape, dtype, dev, n, s, devices=cards)
         calls = max(1, round(10 / s))
@@ -1602,6 +1634,21 @@ K31_34_PATH = (
     ("mrtcg_rayleigh_taylor, full state", "mrtcg_full", (256, 128), 8, 5, 2000),
     ("mrt_csf_rayleigh_taylor, full state", "csf_full", (256, 128), 8, 4, 1000),
 )
+# kernels 35-38: the body families at full width on (4, 2), then the
+# scenes' states on rows x cols meshes
+K35_38_PATH = (
+    ("MRT-CG full state, rows x cols", "mrtcg_full", BIG, (4, 2), 2, 20),
+    ("CSF full state, rows x cols", "csf_full", BIG, (4, 2), 1, 10),
+    ("RK, rows x cols", "rk", BIG, (4, 2), 1, 10),
+    ("Shan-Chen sc/guo, rows x cols", "sc sc/guo", BIG, (4, 2), 4, 16),
+    ("Rayleigh-Benard, rows x cols", "thermal", BIG, (4, 2), 8, 16),
+    ("mrtcg_rayleigh_taylor, rows x cols", "mrtcg_full", (256, 128), (4, 2), 2, 2000),
+    ("mrt_csf_rayleigh_taylor, rows x cols", "csf_full", (256, 128), (2, 4), 1, 1000),
+    ("rk_rayleigh_taylor, rows x cols", "rk", (1024, 256), (4, 2), 1, 1000),
+)
+# the phase-5 gates that kernels 35 and 36 run on a (4, 2) mesh:
+# sc_phase_separation as SC_GATE, rayleigh_benard (H, W, steps)
+RB_GATE = (64, 128, 30000)
 # the phase-5 gates that kernels 32 and 33 run sharded: sc_phase_separation
 # (H, W, steps) and the cavity3d gate's steps
 SC_GATE = (256, 256, 4000)
@@ -1770,33 +1817,134 @@ def k31_34_path(dev, counted) -> dict:
     return wall
 
 
+def k35_38_path(dev, counted) -> dict:
+    """Phase 5 of kernels 35-38, through the user's entry points (the
+    factories of kernels/sharded2d.py) on rows x cols meshes of one card's
+    shards, each run bit for bit its single-device run (``K35_38_PATH``):
+    the full MRT-CG state (2 steps per exchange), CSF, RK, Shan-Chen (4)
+    and Rayleigh-Benard (8) at 4096x2048 on (4, 2); mrtcg_rayleigh_taylor's
+    256x128 initial state on (4, 2) (2000 steps, 2 per exchange), CSF mode
+    on (2, 4) (1000 steps) and rk_rayleigh_taylor's 1024x256 on (4, 2) (1000
+    steps); sc_phase_separation's 256x256 initial state on (4, 2), 4 steps
+    per exchange, 4000 steps, bit for bit the scene and within its gate;
+    rayleigh_benard 64x128 (Ra 1e4, amp 1e-2) on (4, 2), 8 steps per
+    exchange, 30000 steps, bit for bit the scene and within the thermal
+    gate's Nusselt band.  The references run first; then every launch count
+    starts at 0, and is read at the end.  Returns the host wall time of each
+    run, by label."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.kernels import thermal as kth
+    from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import shan_chen as scs
+    from lbm_tpu_torch.scenes import thermal as ths
+
+    f32 = torch.float32
+    cases = run_sharded_cases(K35_38_PATH, dev)
+    H, W, T_sc = SC_GATE
+    rho0 = 0.7 + 0.02 * np.random.default_rng(0).standard_normal((H, W))  # the scene's
+    f_sc = d2q9.equilibrium(torch.zeros((2, H, W), dtype=f32, device=dev),
+                            torch.as_tensor(rho0, dtype=f32, device=dev)).contiguous()
+    ref_sc = scs.sc_phase_separation(H=H, W=W, T=T_sc, G=-5.0, substeps=4, device=dev,
+                                     dtype=f32)
+    Hr, Wr, T_rb = RB_GATE
+    ref_rb = ths.rayleigh_benard(H=Hr, W=Wr, T=T_rb, Ra=1e4, Pr=0.71, amp=1e-2, substeps=8,
+                                 device=dev, dtype=f32)
+    # the scene's rates and initial state (scenes/thermal.py rayleigh_benard)
+    kappa = ths.CS2 * (0.8 - 0.5)
+    nu = 0.71 * kappa
+    rb = dict(omega_f=1.0 / (nu / ths.CS2 + 0.5), omega_g=1.0 / 0.8,
+              g_beta=1e4 * nu * kappa / float(Hr) ** 3)
+    x = (np.arange(Hr) + 0.5) / Hr
+    y = np.arange(Wr) / Wr
+    theta0 = (ths.conduction_profile(Hr)[:, None]
+              + 1e-2 * np.sin(np.pi * x)[:, None] * np.cos(2.0 * np.pi * y)[None, :])
+    S_rb = ths._initial_state(theta0, "d2q9", dev, f32)
+    mesh42 = pm.make_mesh([dev] * 8, (4, 2))
+    torch.cuda.synchronize()
+
+    for k in counted.values():
+        k.launches = 0
+    wall = {}
+    drive_sharded(cases, wall)
+    del cases
+
+    def timed(label, step, x, calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pm.shard_state(mesh42, x)
+        for _ in range(calls):
+            y = step(y)
+        out = y.gather()
+        torch.cuda.synchronize()
+        wall[label] = time.perf_counter() - t0
+        return out
+
+    label = "sc_phase_separation, rows x cols"
+    step = k2d.make_sharded2d_sc_step(mesh42, H, W, omega=1.0, G=-5.0, substeps=4, dtype=f32)
+    got = timed(label, step, f_sc, T_sc // 4)
+    rho = d2q9.calc_rho(got)
+    check_gates(f"[5] {label} {H}x{W} float32 on a (4, 2) mesh of the card, {T_sc} steps, 4 "
+                f"per exchange (host wall time {wall[label]!r} s)", {
+        "bit-identical to the scene": (float(torch.equal(got, ref_sc.f)), 1.0, 1.0),
+        "rho_l / rho_v": (rho.max().item() / max(rho.min().item(), 1e-6), 4.0, 50.0)})
+
+    label = "rayleigh_benard, rows x cols"
+    step = k2d.make_sharded2d_thermal_step(mesh42, Hr, Wr, substeps=8, dtype=f32, **rb)
+    got = timed(label, step, S_rb, T_rb // 8)
+    _, theta, u, _ = kth.buoyant_velocity(got[:9], got[9:], rb["g_beta"])
+    nusselt = float(ths.nusselt_number(u[0], theta, kappa, Hr))
+    check_gates(f"[5] validate_tpu.py thermal on a (4, 2) mesh of the card: rayleigh_benard "
+                f"{Hr}x{Wr} d2q9 float32 {T_rb} steps, 8 per exchange (host wall time "
+                f"{wall[label]!r} s = {wall[label] / T_rb * 1e6!r} us/step)", {
+        "bit-identical to the scene": (float(torch.equal(got, torch.cat([ref_rb.f, ref_rb.g]))),
+                                       1.0, 1.0),
+        "Nu": (nusselt, 2.60, 2.72),
+        "|Nu - Nu_scene|": (abs(nusselt - ref_rb.nusselt), 0.0, 0.0)})
+    del got, ref_sc, ref_rb
+    torch.cuda.empty_cache()
+
+    names = ("halo2d_shan_chen", "halo2d_thermal", "halo2d_rk", "halo2d_mrtcg_full")
+    slice_launches = {name: counted[name].launches for name in names}
+    log(f"[5] kernel 35-38 path launches: {slice_launches}")
+    if not all(slice_launches.values()):
+        raise AssertionError("a kernel of the kernel 35-38 path never launched")
+    return wall
+
+
 def sharded_bound(family, shape, n, s, itemsize, ops):
     """(least ms, "bytes" or "operations", bytes) of one call of a sharded
-    kernel step of kernels 27-34 (``s`` sweeps per exchange) at ``shape`` (R,
-    C), or (X, Y, Z) for "d3q19 <walls>", on ``n`` shards (kernel 34, "k34
-    ...": an (nx, ny) mesh): each sweep reads its input band and writes its
-    output band once (kernels/sharded.py sweep_bands, sharded2d.py
+    kernel step of kernels 27-38 (``s`` sweeps per exchange) at ``shape`` (R,
+    C), or (X, Y, Z) for "d3q19 <walls>", on ``n`` shards (kernels 34-38: an
+    (nx, ny) mesh): each sweep reads its input band and writes its output
+    band once (kernels/sharded.py sweep_bands, sharded2d.py
     sweep_bands_2d); the exchange reads and writes once each halo line that
-    the first sweep's input band reads beyond the shard (s rows per sweep
-    each side, clipped at a wall; kernel 34: s rows and s columns), not the
-    whole 8-aligned strip the step sends; ``ops`` operations per output cell
-    of each sweep over the fp32 peak."""
+    the first sweep's input band reads beyond the shard (s r rows per sweep
+    each side, r the lines a sweep consumes, clipped at a wall; kernels
+    34-38: s r rows and s r columns), not the whole 8-aligned strip the step
+    sends; ``ops`` operations per output cell of each sweep over the fp32
+    peak."""
     from lbm_tpu_torch.kernels import sharded as ksh
     from lbm_tpu_torch.kernels import sharded2d as k2d
 
-    if family.startswith("k34"):
+    if isinstance(n, tuple):
         (R, C), (nx, ny), h = shape, n, ksh.HALO
+        planes, r, walls = (9, 1, False) if family.startswith("k34") else shard_geometry(family)
         R_loc, C_loc = R // nx, C // ny
-        moved = out = 0
-        bands = k2d.sweep_bands_2d(R_loc, C_loc, h, s)
-        for (ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi) in bands:
-            cells = (ro_hi - ro_lo) * (co_hi - co_lo)
-            moved += (ri_hi - ri_lo) * (ci_hi - ci_lo) + cells
-            out += cells
-        (ri_lo, ri_hi, _, _), (ci_lo, ci_hi, _, _) = bands[0]
-        strips = (ri_hi - ri_lo) * (ci_hi - ci_lo) - R_loc * C_loc
-        nbytes = nx * ny * (moved + 2 * strips) * 9 * itemsize
-        n_ops = nx * ny * out * ops
+        moved = out = strips = 0
+        for i in range(nx):
+            bands = k2d.sweep_bands_2d(R_loc, C_loc, h, s, r, i * R_loc, R, walls)
+            for (ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi) in bands:
+                cells = (ro_hi - ro_lo) * (co_hi - co_lo)
+                moved += ny * ((ri_hi - ri_lo) * (ci_hi - ci_lo) + cells)
+                out += ny * cells
+            (ri_lo, ri_hi, _, _), (ci_lo, ci_hi, _, _) = bands[0]
+            strips += ny * ((ri_hi - ri_lo) * (ci_hi - ci_lo) - R_loc * C_loc)
+        nbytes = (moved + 2 * strips) * planes * itemsize
+        n_ops = out * ops
     else:
         planes, r, walls = shard_geometry(family)
         if family.startswith("d3q19 "):
@@ -1858,20 +2006,23 @@ def plain_ops(family) -> float:
 
 
 # (family, shape, shard counts or meshes, deepest cadence) of phase 6's
-# times of the sharded kernels 27-34, float32
+# times of the sharded kernels 27-38, float32 (35-38: the body families on
+# (4, 2), keyed "<family> 2d")
 SHARDED_TIMES = (
     ("k27 bgk", BIG, (1, 8), 8), ("thermal", BIG, (1, 8), 8), ("mrtcg", BIG, (1, 8), 5),
     ("csf", BIG, (1, 8), 4), ("rk", BIG, (1, 8), 1), ("mrtcg_full", BIG, (1, 8), 5),
     ("csf_full", BIG, (1, 8), 4), ("sc sc/guo", BIG, (1, 8), 4),
     ("d3q19 periodic", D3Q19_BIG, (1, 8), 8), ("k34 bgk", BIG, ((1, 1), (4, 2), (8, 1)), 8),
+    ("sc sc/guo", BIG, ((4, 2),), 4), ("thermal", BIG, ((4, 2),), 8), ("rk", BIG, ((4, 2),), 1),
+    ("mrtcg_full", BIG, ((4, 2),), 2), ("csf_full", BIG, ((4, 2),), 1),
 )
 
 
 def sharded_times(dev, card: str) -> dict:
-    """Phase 6 of kernels 27-34 at 4096x2048 float32 (kernel 33 at
+    """Phase 6 of kernels 27-38 at 4096x2048 float32 (kernel 33 at
     32x256x1024): for each family (``SHARDED_TIMES``) the sharded step on 1
     and 8 shards of one card (kernel 34: the (1, 1), (4, 2) and (8, 1)
-    meshes) at s = 1 and the family's deepest cadence, the single-device
+    meshes; 35-38: (4, 2)) at s = 1 and the family's deepest cadence, the single-device
     kernel at the same s, the exchange's copies alone (8 shards, the
     deepest cadence's strips) and a device-to-device copy of the state,
     each as device ms per step from a CUDA graph of 5 calls (CUDA events
@@ -1890,18 +2041,18 @@ def sharded_times(dev, card: str) -> dict:
     out = {"ms": {}, "single_ms": {}, "exchange_ms": {}, "plain_ms": {}, "bound": {},
            "frac": {}, "ops": {}}
     for family, shape, ns, s_max in SHARDED_TIMES:
-        ops = out["ops"][family] = plain_ops(family)
+        two_d = isinstance(ns[0], tuple)
+        tag = f"{family} 2d" if two_d and not family.startswith("k34") else family
+        ops = out["ops"][tag] = plain_ops(family)
         x = sharded_state(family, shape, f32, dev)
         cells = x.numel() // x.shape[0] * (shape[0] if family.startswith("d3q19") else 1)
-        two_d = family.startswith("k34")
         n8 = (4, 2) if two_d else 8
         calls = {}
         for n in ns:
             for s in sorted({1, s_max}):
                 step, single, mesh = sharded_case(family, shape, f32, dev, n, s)
                 calls["sharded", n, s] = (step, pm.shard_state(mesh, x), s)
-                if n in (1, (1, 1)):
-                    calls["single", 1, s] = (single, x, s)
+                calls.setdefault(("single", 1, s), (single, x, s))
         shards8 = pm.shard_state(sharded_case(family, shape, f32, dev, n8, 1)[2], x).shards
         strip = ksh.HALO if two_d else ksh.halo_for(s_max, shard_geometry(family)[1])
 
@@ -1931,41 +2082,41 @@ def sharded_times(dev, card: str) -> dict:
         b_cell = 2 * x.numel() // cells * x.element_size()
         step8, _, mesh8 = sharded_case(family, shape, f32, dev, n8, 1)
         sx8 = pm.shard_state(mesh8, x)
-        out["plain_ms"][family] = cuda_ms(lambda: step8.plain(sx8), 3)
-        out["exchange_ms"][family] = med["exchange", n8, s_max] * s_max
-        log(f"[6] {card}; {family} {'x'.join(map(str, shape))} float32 ({x.shape[0]} planes): "
+        out["plain_ms"][tag] = cuda_ms(lambda: step8.plain(sx8), 3)
+        out["exchange_ms"][tag] = med["exchange", n8, s_max] * s_max
+        log(f"[6] {card}; {tag} {'x'.join(map(str, shape))} float32 ({x.shape[0]} planes): "
             f"copy of the state {med['copy', 0, 0]!r} ms; the exchange's copies alone, "
-            f"{n8} shards, {strip}-line strips: {out['exchange_ms'][family]!r} ms per exchange "
+            f"{n8} shards, {strip}-line strips: {out['exchange_ms'][tag]!r} ms per exchange "
             f"(runs {runs['exchange', n8, s_max]}); plain sharded ({n8}, s=1) "
-            f"{out['plain_ms'][family]!r} ms/step")
+            f"{out['plain_ms'][tag]!r} ms/step")
         for key, t in sorted(med.items(), key=lambda kv: kv[0][0] != "single"):
             kind, n, s = key
             if kind in ("exchange", "copy"):
                 continue
             if kind == "single":
-                out["single_ms"][family, s] = t
-                log(f"[6] {family} single-device kernel s={s}: {t!r} ms/step (runs "
+                out["single_ms"][tag, s] = t
+                log(f"[6] {tag} single-device kernel s={s}: {t!r} ms/step (runs "
                     f"{runs[key]})")
                 continue
-            out["ms"][family, n, s] = t
+            out["ms"][tag, n, s] = t
             b = sharded_bound(family, shape, n, s, 4, ops)
-            out["bound"][family, n, s] = b
+            out["bound"][tag, n, s] = b
             rate = b_cell * cells / (t * 1e-3)
-            out["frac"][family, n, s] = rate / copy_rate
-            log(f"[6] {family} n={n} s={s}: {t!r} ms/step (runs {runs[key]}) = "
+            out["frac"][tag, n, s] = rate / copy_rate
+            log(f"[6] {tag} n={n} s={s}: {t!r} ms/step (runs {runs[key]}) = "
                 f"{cells / (t * 1e-3) / 1e6!r} MLUPS, {rate / copy_rate!r} of copy at "
                 f"{b_cell} B/cell; bound {b[0] / s!r} ms/step by {b[1]} ({b[2] / s!r} B/step, "
                 f"{ops!r} flops/cell); over the single-device kernel "
-                f"{t / out['single_ms'].get((family, s), float('nan')) - 1.0!r}")
+                f"{t / out['single_ms'].get((tag, s), float('nan')) - 1.0!r}")
         del calls, x, dst, shards8, sx8, step8
         torch.cuda.empty_cache()
     return out
 
 
 def sharded_entries(launches: dict, errs: dict, tm: dict) -> list:
-    """The kernels line's entries of kernels 27-34: ``ms`` and ``bound_ms`` on
-    8 shards of one card ((4, 2) for kernel 34), s = 1, per step; the other
-    configurations beside them."""
+    """The kernels line's entries of kernels 27-38: ``ms`` and ``bound_ms`` on
+    8 shards of one card ((4, 2) for kernels 34-38), s = 1, per step; the
+    other configurations beside them."""
     import torch
 
     from lbm_tpu_torch.kernels import sharded as ksh
@@ -1986,10 +2137,18 @@ def sharded_entries(launches: dict, errs: dict, tm: dict) -> list:
         ("halo_d3q19", 33, "d3q19 periodic", "d3q19.cu", "d3q19_pallas.py:173",
          "32x256x1024 float32, Y over 8 shards, periodic"),
         ("halo2d_collide_stream", 34, "k34 bgk", "collide_stream.cuh",
-         "sharded2d_pallas.py:223", "4096x2048 float32, (4, 2) mesh, BGK"))
+         "sharded2d_pallas.py:223", "4096x2048 float32, (4, 2) mesh, BGK"),
+        ("halo2d_shan_chen", 35, "sc sc/guo 2d", "shan_chen.cu", "sharded2d_pallas.py:392",
+         "4096x2048 float32, (4, 2) mesh, sc/guo"),
+        ("halo2d_thermal", 36, "thermal 2d", "thermal.cu", "sharded2d_pallas.py:392",
+         "4096x2048 float32, (4, 2) mesh"),
+        ("halo2d_rk", 37, "rk 2d", "rk_cg.cu", "sharded2d_pallas.py:392",
+         "4096x2048 float32, (4, 2) mesh"),
+        ("halo2d_mrtcg_full", 38, "mrtcg_full 2d", "mrtcg_full.cu", "sharded2d_pallas.py:392",
+         "4096x2048 float32, (4, 2) mesh"))
     entries = []
     for name, k, fam, src, replaces, shape in rows:
-        n8 = (4, 2) if k == 34 else 8
+        n8 = (4, 2) if k >= 34 else 8
         n_launch = sum(launches[f"{name.split('_')[0]}_{c}"] for c in ksh.COLLIDE_KINDS) \
             if k in (27, 34) else launches[name]
         b = tm["bound"][fam, n8, 1]
@@ -2003,7 +2162,7 @@ def sharded_entries(launches: dict, errs: dict, tm: dict) -> list:
              "bound_by": b[1], "library_ms": None, "shape": shape,
              "single_device_ms": tm["single_ms"][fam, 1], "exchange_ms": tm["exchange_ms"][fam],
              "fraction_of_copy": tm["frac"][fam, n8, 1], "flops_per_cell": tm["ops"][fam]}
-        csf = {29: "csf", 31: "csf_full"}.get(k)
+        csf = {29: "csf", 31: "csf_full", 38: "csf_full 2d"}.get(k)
         for fm in (fam, csf) if csf else (fam,):
             for (f_, n, s), t in tm["ms"].items():
                 if f_ == fm:
@@ -2075,7 +2234,9 @@ def main() -> int:
                "halo_thermal": ksh.HALO_THERMAL, "halo_mrtcg_reduced": ksh.HALO_MRTCG,
                "halo_rk": ksh.HALO_RK, "halo_mrtcg_full": ksh.HALO_MRTCG_FULL,
                "halo_shan_chen": ksh.HALO_SHAN_CHEN, "halo_d3q19": ksh.HALO_D3Q19,
-               **{f"halo2d_{kind}": k for kind, k in k2d.HALO2D_COLLIDE_STREAM.items()}}
+               **{f"halo2d_{kind}": k for kind, k in k2d.HALO2D_COLLIDE_STREAM.items()},
+               "halo2d_shan_chen": k2d.HALO2D_SHAN_CHEN, "halo2d_thermal": k2d.HALO2D_THERMAL,
+               "halo2d_rk": k2d.HALO2D_RK, "halo2d_mrtcg_full": k2d.HALO2D_MRTCG_FULL}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -2107,14 +2268,19 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2]   {line.strip()}")
     # kernels 25-26: the four instances of csrc/d3q19.cu's single-device step
-    # (float and double, planes and lanes); kernels 31-34: their instances
-    # (type x mode or collision x edge); with their registers and spills
+    # (float and double, planes and lanes); kernels 31-38: their instances
+    # (type x mode, collision or eos x forcing, x edge); with their
+    # registers and spills (a mark is a length-prefixed part of the mangled
+    # name, so that "shan_chen_halo" does not also take "shan_chen_halo2d")
     build_log = lib.with_suffix(".log").read_text()
     for kernel, units, mark, expected in (
             ("25-26", ("d3q19",), "d3q19_kernel", 4),
-            (31, ("mrtcg_full",), "ShardIO", 8), (32, ("shan_chen",), "shan_chen_halo", 8),
+            (31, ("mrtcg_full",), "7ShardIO", 8), (32, ("shan_chen",), "14shan_chen_halo", 8),
             (33, ("d3q19",), "d3q19_halo", 2),
-            (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16)):
+            (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16),
+            (35, ("shan_chen",), "16shan_chen_halo2d", 8),
+            (36, ("thermal",), "21thermal_halo2d_kernel", 4),
+            (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 8)):
         found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
         for name, regs, spill in found:
             log(f"[2] kernel(s) {kernel}: {name}: {regs} registers; {spill}")
@@ -3228,6 +3394,9 @@ def main() -> int:
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
     # kernels 31-34: their counts start at 0 there and are read at its end
     k31_34_path(dev, counted)
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
+    # kernels 35-38: the same
+    k35_38_path(dev, counted)
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):

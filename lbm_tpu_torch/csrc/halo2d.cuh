@@ -23,6 +23,14 @@
 // [in_r_lo, in_r_hi) x [in_c_lo, in_c_hi) that it reads.  The Python side
 // (kernels/sharded2d.py launch_sweeps_2d) chooses the bands: sweep j of s
 // writes s - j more rows and columns on each side of the shard.
+//
+// The body kernels 35-38 (kernels/sharded2d.py make_sharded2d_body_step)
+// read five more entries: the shard's global row and column offsets, the
+// grid's R and C, and whether the shard's rows reach a wall (row ranks 0 and
+// nx-1).  Padded row p is global row off_r - halo + p, padded column q
+// global column off_c - halo + q, wrapped into [0, C): the walls and the
+// stencils' replicate padding act by global index, while every value is
+// read from the padded block, never wrapped within it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,7 +46,7 @@ enum Geom {
   TOP_PLANE, MID_PLANE, BOT_PLANE, LEFT_PLANE, RIGHT_PLANE, OUT_PLANE,
   TOP_LD, MID_LD, BOT_LD, LEFT_LD, RIGHT_LD, OUT_LD,
   HALO, R_LOC, C_LOC, IN_R_LO, IN_R_HI, IN_C_LO, IN_C_HI,
-  OUT_R_LO, OUT_R_HI, OUT_C_LO, OUT_C_HI, OUT_FIRST, NGEOM
+  OUT_R_LO, OUT_R_HI, OUT_C_LO, OUT_C_HI, OUT_FIRST, OFF_R, OFF_C, ROWS, COLS, EDGE, NGEOM
 };
 
 // One of the five input buffers: plane 0's base, plane and row strides.
@@ -90,6 +98,15 @@ struct Launch {
   View<T> in;
   Out<T> out;
   int64_t r_lo, r_hi, c_lo, c_hi;  // the cells read
+  int64_t off_r, off_c, R, C;      // the shard's global offsets, the grid's shape
+  bool edge;                       // the shard's rows reach a wall
+
+  // the global row of padded row p, the global column of padded column q
+  __host__ __device__ int64_t global_row(int64_t p) const { return off_r - in.halo + p; }
+  __host__ __device__ int64_t global_col(int64_t q) const {
+    const int64_t g = off_c - in.halo + q;
+    return g < 0 ? g + C : (g >= C ? g - C : g);
+  }
 };
 
 template <typename T>
@@ -112,8 +129,32 @@ inline Launch<T> parse(const long long* g) {
   L.r_hi = g[IN_R_HI];
   L.c_lo = g[IN_C_LO];
   L.c_hi = g[IN_C_HI];
+  L.off_r = g[OFF_R];
+  L.off_c = g[OFF_C];
+  L.R = g[ROWS];
+  L.C = g[COLS];
+  L.edge = g[EDGE] != 0;
   return L;
 }
+
+// A tile kernel's memory (kernels 37 and 38 on the tile engine of
+// csrc/mrtcg.cuh): rows by global index, as lbm::halo::ShardIO's, columns
+// by padded index q (the engine's BandCols), the shard's five buffers in and
+// `out` written.
+template <typename T>
+struct Shard2DIO {
+  View<T> in;
+  Out<T> out;
+  int64_t off_r;
+
+  __device__ __forceinline__ const T* src(int64_t gr, int64_t q, int64_t& plane) const {
+    return in.locate(gr - off_r + in.halo, q, plane);
+  }
+  __device__ __forceinline__ T* dst(int64_t gr, int64_t q, int64_t& plane) const {
+    plane = out.plane;
+    return out.at(gr - off_r + in.halo, q);
+  }
+};
 
 }  // namespace halo2d
 }  // namespace lbm

@@ -32,6 +32,14 @@
 // column's stencil taps sit in a small "seam" window of H columns at the
 // far edge, filled by the edge blocks only.
 //
+// The columns a launch works on are a policy (PeriodicCols, BandCols): the
+// grid's C columns, wrapped as above, for the single-device and row-sharded
+// kernels; or the padded columns of a rows x cols shard (csrc/halo2d.cuh,
+// kernels 37 and 38), where a value is read at its padded column (the
+// strips hold the neighbours', so nothing wraps and no seam is needed)
+// while the rules, the stencils' replicate clamp and the column repair of
+// the stream, use the padded column's wrapped global column.
+//
 // State layouts (planes of R*C, row-major): reduced in/out = 9 summed
 // populations, red density (+ fstx, fsty); full = 9 red, 9 blue (+ fst).
 #pragma once
@@ -42,6 +50,7 @@
 
 #include "d2q9.cuh"
 #include "halo.cuh"
+#include "halo2d.cuh"
 
 namespace lbm {
 namespace mrtcg {
@@ -121,6 +130,50 @@ __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
+// The columns of a launch, as the tile engine addresses them.  A column c
+// is where a value lives (memory and the window); ``global(c)`` is the grid
+// column whose rules apply there.  ``first()`` and ``end()``, the columns a
+// launch writes, are read on the host too (the launch's grid).
+//
+// PeriodicCols: every column of the grid, c = the global column; the ring
+// wraps and the edge blocks fill the window's seam.
+struct PeriodicCols {
+  static constexpr bool SEAM = true;
+  int64_t C;  // the grid's columns
+
+  __host__ __device__ __forceinline__ int64_t first() const { return 0; }
+  __host__ __device__ __forceinline__ int64_t end() const { return C; }
+  __device__ __forceinline__ bool readable(int64_t c) const { return c >= 0 && c < C; }
+  __device__ __forceinline__ int64_t ring(int64_t c) const { return wrap(c, C); }
+  __device__ __forceinline__ int64_t global(int64_t c) const { return c; }
+  // the column that a stencil tap d columns off c reads (replicate padding)
+  __device__ __forceinline__ int64_t tap(int64_t c, int d) const {
+    return clamp_index(c + d, C);
+  }
+};
+
+// BandCols: the padded columns of a rows x cols shard (csrc/halo2d.cuh),
+// c = the padded column q; the launch writes [o_lo, o_hi) and reads
+// [rd_lo, rd_hi).  Column q is global column off + q wrapped into [0, C)
+// (off = the shard's column offset less the halo, so it may be negative).
+// A tap d columns off q reads the padded column that holds clamp(g + d, 0,
+// C-1) for g = global(q): at the grid's columns 0 and C-1 it stays on q's
+// side of the seam, as the single-device step's replicate padding does.
+struct BandCols {
+  static constexpr bool SEAM = false;
+  int64_t C, off, rd_lo, rd_hi, o_lo, o_hi;
+
+  __host__ __device__ __forceinline__ int64_t first() const { return o_lo; }
+  __host__ __device__ __forceinline__ int64_t end() const { return o_hi; }
+  __device__ __forceinline__ bool readable(int64_t c) const { return c >= rd_lo && c < rd_hi; }
+  __device__ __forceinline__ int64_t ring(int64_t c) const { return c; }
+  __device__ __forceinline__ int64_t global(int64_t c) const { return wrap(off + c, C); }
+  __device__ __forceinline__ int64_t tap(int64_t c, int d) const {
+    const int64_t g = global(c);
+    return c + (clamp_index(g + d, C) - g);
+  }
+};
+
 // Where a block's scalar windows live: rows [r0 - H, r0 + TY + H), main
 // columns [c0 - H, c0 + TX + H), plus the seam columns [seam_lo, seam_lo + H).
 template <int H>
@@ -138,13 +191,14 @@ struct Window {
   }
 };
 
-// 5x5 cross-correlation of a window field at global (gr, gc), replicate
-// padded, taps in row-major order with zero weights skipped (the order of
-// ops/gradients.py::correlate2d_replicate).  The mask-free instance (EDGE
-// false: a shard whose rows stay clear of the grid's walls) clamps no row.
-template <int DIR, typename T, int H, bool EDGE = true>
+// 5x5 cross-correlation of a window field at global row gr and column gc
+// (a column of `cols`), replicate padded, taps in row-major order with zero
+// weights skipped (the order of ops/gradients.py::correlate2d_replicate).
+// The mask-free instance (EDGE false: a shard whose rows stay clear of the
+// grid's walls) clamps no row.
+template <int DIR, typename T, int H, bool EDGE = true, typename Cols>
 __device__ __forceinline__ T corr5(const T* field, const Window<H>& w, int64_t gr,
-                                   int64_t gc, int64_t R, int64_t C) {
+                                   int64_t gc, int64_t R, const Cols cols) {
   T acc = T(0);
   bool have = false;
 #pragma unroll
@@ -154,7 +208,7 @@ __device__ __forceinline__ T corr5(const T* field, const Window<H>& w, int64_t g
     for (int b = 0; b < 5; ++b) {
       const double wt = k5<DIR>(a, b);
       if (wt == 0.0) continue;
-      const T term = T(wt) * field[w.slot(rr, clamp_index(gc + b - 2, C))];
+      const T term = T(wt) * field[w.slot(rr, cols.tap(gc, b - 2))];
       acc = have ? acc + term : term;
       have = true;
     }
@@ -255,11 +309,11 @@ __device__ __forceinline__ T relax(T psi, const Params<T>& p) {
 }
 
 // The normal n = -grad(psi) / (1e-20 + |grad(psi)|) at one cell.
-template <typename T, int H, bool EDGE>
+template <typename T, int H, bool EDGE, typename Cols>
 __device__ __forceinline__ void normal(const T* s_psi, const Window<H>& w, int64_t gr,
-                                       int64_t gc, int64_t R, int64_t C, T& nx, T& ny) {
-  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, C);
-  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, C);
+                                       int64_t gc, int64_t R, const Cols cols, T& nx, T& ny) {
+  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
+  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
   const T gn = sqrt(gpx * gpx + gpy * gpy);
   const T inv_gn = T(1.0) / (T(1e-20) + gn);
   nx = -(gpx * inv_gn);
@@ -325,12 +379,12 @@ __device__ __forceinline__ T midot_odd(int k, const T v[9]) {
 // The collision of one cell (kernels/mrtcg.py::make_collide).  ``out``
 // gets the 9 values of channel A then the 9 of channel B: red and blue
 // (ROUT false) or the colour sum and red (ROUT true).
-template <typename T, bool CSF, bool ROUT, int H, bool EDGE>
+template <typename T, bool CSF, bool ROUT, int H, bool EDGE, typename Cols>
 __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& p,
                                              const T* s_psi, const T* s_qx, const T* s_qy,
                                              const T* s_nx, const T* s_ny,
                                              const Window<H>& w, int64_t gr, int64_t gc,
-                                             int64_t R, int64_t C, T out[18],
+                                             int64_t R, const Cols cols, T out[18],
                                              T& fstx, T& fsty) {
   const Velocity<T> v = velocity<T, CSF>(m, p);
   const T ux = v.ux, uy = v.uy, inv_rho = v.inv_rho, rho = m.rho;
@@ -341,8 +395,8 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
 
   const T psi = phase(m, p);
   const T s_nu = relax(psi, p);
-  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, C);
-  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, C);
+  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
+  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
   const T gn = sqrt(gpx * gpx + gpy * gpy);
   const T inv_gn = T(1.0) / (T(1e-20) + gn);
 
@@ -361,8 +415,8 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   meq[6] = uy * gq;
   meq[7] = rho2 * (x2 - y2);
   meq[8] = rho2 * (ux * uy);
-  const T dxqx = corr5<0, T, H, EDGE>(s_qx, w, gr, gc, R, C);
-  const T dyqy = corr5<1, T, H, EDGE>(s_qy, w, gr, gc, R, C);
+  const T dxqx = corr5<0, T, H, EDGE>(s_qx, w, gr, gc, R, cols);
+  const T dyqy = corr5<1, T, H, EDGE>(s_qy, w, gr, gc, R, cols);
   const T c1 = T(3.0 * (1.0 - 0.5 * 1.25)) * (dxqx + dyqy);
   const T c7 = (T(1.0) - T(0.5) * s_nu) * (dxqx - dyqy);
 
@@ -402,10 +456,10 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   } else {
     const T nx = -(gpx * inv_gn);
     const T ny = -(gpy * inv_gn);
-    const T dxnx = corr5<0, T, H, EDGE>(s_nx, w, gr, gc, R, C);
-    const T dynx = corr5<1, T, H, EDGE>(s_nx, w, gr, gc, R, C);
-    const T dxny = corr5<0, T, H, EDGE>(s_ny, w, gr, gc, R, C);
-    const T dyny = corr5<1, T, H, EDGE>(s_ny, w, gr, gc, R, C);
+    const T dxnx = corr5<0, T, H, EDGE>(s_nx, w, gr, gc, R, cols);
+    const T dynx = corr5<1, T, H, EDGE>(s_nx, w, gr, gc, R, cols);
+    const T dxny = corr5<0, T, H, EDGE>(s_ny, w, gr, gc, R, cols);
+    const T dyny = corr5<1, T, H, EDGE>(s_ny, w, gr, gc, R, cols);
     const T K = nx * ny * (dynx + dxny) - nx * nx * dyny - ny * ny * dxnx;
     fstx = p.v[M_HALF_SIGMA] * (K * gpx);
     fsty = p.v[M_HALF_SIGMA] * (K * gpy);
@@ -473,13 +527,13 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   }
 }
 
-// Where tile cell (ty, tx), at global (gr, gc), pulls its population k
-// from in the ring of post-collision values: the ring slot and the plane,
-// by the select chain of _stream_with_bcs (periodic, then the column
-// repair without the diagonal offset on rows 1..R-2, then bounce-back on
-// row R-1 and, written last, on row 0).  Each output entry has exactly
-// one writer, its own thread.  The mask-free instance (EDGE false) has
-// no wall row.
+// Where tile cell (ty, tx), at global row gr and global column gc, pulls
+// its population k from in the ring of post-collision values: the ring slot
+// and the plane, by the select chain of _stream_with_bcs (periodic, then the
+// column repair without the diagonal offset on rows 1..R-2 at the grid's
+// columns 0 and C-1, then bounce-back on row R-1 and, written last, on row
+// 0).  Each output entry has exactly one writer, its own thread.  The
+// mask-free instance (EDGE false) has no wall row.
 struct PullSource {
   int slot, plane;
 };
@@ -507,7 +561,8 @@ __device__ __forceinline__ PullSource pull_source(int k, int ty, int tx, int64_t
 
 // Where a step reads and writes, by global row: one (planes, R, C) buffer
 // in and one out (the single-device kernels; lbm::halo::ShardIO is a row
-// shard with halo inputs, kernels 29-31).
+// shard with halo inputs, kernels 29-31; lbm::halo2d::Shard2DIO a rows x
+// cols shard, kernels 37-38).
 template <typename T>
 struct FlatIO {
   const T* in;
@@ -541,9 +596,9 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (scalar_fields<H>() * Window<H>::N + 18 * RING_N);
 }
 
-template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE>
+template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE, typename Cols>
 __global__ void __launch_bounds__(THREADS)
-    mrtcg_kernel(const IO io, const Rows rows, int64_t C, const Params<T> p) {
+    mrtcg_kernel(const IO io, const Rows rows, const Cols cols, const Params<T> p) {
   constexpr int H = CSF ? 5 : 3;
   using Win = Window<H>;
   extern __shared__ unsigned char smem_raw[];
@@ -554,18 +609,18 @@ __global__ void __launch_bounds__(THREADS)
   T* s_ny = s_nx + Win::N;
   T* s_ring = s_psi + scalar_fields<H>() * Win::N;
 
-  const int64_t R = rows.R;
+  const int64_t R = rows.R, C = cols.C;
   const int64_t r0 = rows.o_lo + static_cast<int64_t>(blockIdx.y) * TY;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
+  const int64_t c0 = cols.first() + static_cast<int64_t>(blockIdx.x) * TX;
   const int tid = threadIdx.x;
-  const bool left = c0 == 0;
-  const bool right = c0 + TX >= C;
+  const bool left = Cols::SEAM && c0 == 0;
+  const bool right = Cols::SEAM && c0 + TX >= C;
   Win w;
   w.r0 = r0;
   w.c0 = c0;
   w.seam_lo = left ? C - H : 0;
   auto readable = [&](int64_t gr, int64_t gc) {
-    return gr >= rows.rd_lo && gr < rows.rd_hi && gc >= 0 && gc < C;
+    return gr >= rows.rd_lo && gr < rows.rd_hi && cols.readable(gc);
   };
   auto load = [&](int64_t gr, int64_t gc, Cell<T>& m) {
     int64_t plane;
@@ -603,7 +658,8 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = tid; i < NR * NC; i += THREADS) {
       const int64_t gr = r0 - 3 + i / NC, gc = c0 - 3 + i % NC;
       if (readable(gr, gc))
-        normal<T, H, EDGE>(s_psi, w, gr, gc, R, C, s_nx[w.slot(gr, gc)], s_ny[w.slot(gr, gc)]);
+        normal<T, H, EDGE>(s_psi, w, gr, gc, R, cols, s_nx[w.slot(gr, gc)],
+                           s_ny[w.slot(gr, gc)]);
     }
     if (left || right) {
       // the seam cells the wrapped ring column's stencil reads
@@ -611,7 +667,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int i = tid; i < (TY + 6) * 3; i += THREADS) {
         const int64_t gr = r0 - 3 + i / 3, gc = lo + i % 3;
         if (readable(gr, gc))
-          normal<T, H, EDGE>(s_psi, w, gr, gc, R, C, s_nx[w.slot(gr, gc)],
+          normal<T, H, EDGE>(s_psi, w, gr, gc, R, cols, s_nx[w.slot(gr, gc)],
                              s_ny[w.slot(gr, gc)]);
       }
     }
@@ -620,18 +676,18 @@ __global__ void __launch_bounds__(THREADS)
 
   // stage 2: the collision on the tile plus a 1-cell ring
   const int64_t nrows = rows.o_hi - r0 < TY ? rows.o_hi - r0 : TY;
-  const int64_t ncols = C - c0 < TX ? C - c0 : TX;
+  const int64_t ncols = cols.end() - c0 < TX ? cols.end() - c0 : TX;
   for (int i = tid; i < RING_N; i += THREADS) {
     const int ri = i / RING_C, rj = i % RING_C;
     const int64_t gr = r0 - 1 + ri;
     if (ri > nrows + 1 || rj > ncols + 1 || gr < rows.rd_lo || gr >= rows.rd_hi) continue;
-    const int64_t gc = wrap(c0 - 1 + rj, C);
+    const int64_t gc = cols.ring(c0 - 1 + rj);
     Cell<T> m;
     load(gr, gc, m);
     T coll[18];
     T fx, fy;
-    collide_cell<T, CSF, ROUT, H, EDGE>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, w, gr, gc, R, C,
-                                        coll, fx, fy);
+    collide_cell<T, CSF, ROUT, H, EDGE>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, w, gr, gc, R,
+                                        cols, coll, fx, fy);
 #pragma unroll
     for (int k = 0; k < 18; ++k) s_ring[k * RING_N + i] = coll[k];
     if (CSF && ri >= 1 && ri <= nrows && rj >= 1 && rj <= ncols) {
@@ -653,7 +709,7 @@ __global__ void __launch_bounds__(THREADS)
   T red_sum = T(0);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const PullSource src = pull_source<EDGE>(k, ty, tx, gr, gc, R, C);
+    const PullSource src = pull_source<EDGE>(k, ty, tx, gr, cols.global(gc), R, C);
     q[k * plane] = s_ring[src.plane * RING_N + src.slot];
     const T b = s_ring[(9 + src.plane) * RING_N + src.slot];
     if (ROUT)
@@ -664,22 +720,24 @@ __global__ void __launch_bounds__(THREADS)
   if (ROUT) q[9 * plane] = red_sum;
 }
 
-// One launch over the rows `rows` with the memory `io`; returns the
-// cudaError_t of the launch (0 = accepted).
-template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE>
-int launch_rows(const IO& io, const Rows& rows, int64_t C, const double* params,
+// One launch over the rows `rows` and the columns `cols` with the memory
+// `io`; returns the cudaError_t of the launch (0 = accepted).
+template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE, typename Cols>
+int launch_rows(const IO& io, const Rows& rows, const Cols cols, const double* params,
                 cudaStream_t stream) {
-  if (rows.o_hi <= rows.o_lo || C <= 0) return 0;
+  const int64_t width = cols.end() - cols.first();
+  if (rows.o_hi <= rows.o_lo || width <= 0) return 0;
   Params<T> p;
   for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
   constexpr size_t smem = smem_bytes<T, CSF>();
   static bool configured[MAX_DEVICES] = {};
-  const cudaError_t e = smem_opt_in(mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE>,
+  const cudaError_t e = smem_opt_in(mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols>,
                                     static_cast<int>(smem), configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((C + TX - 1) / TX),
+  const dim3 grid(static_cast<unsigned>((width + TX - 1) / TX),
                   static_cast<unsigned>((rows.o_hi - rows.o_lo + TY - 1) / TY));
-  mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE><<<grid, THREADS, smem, stream>>>(io, rows, C, p);
+  mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols><<<grid, THREADS, smem, stream>>>(io, rows,
+                                                                                   cols, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -689,8 +747,8 @@ int launch(const void* in, void* out, long long R, long long C, const double* pa
            cudaStream_t stream) {
   if (R <= 0 || C <= 0) return 0;
   const FlatIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), R * C, C};
-  return launch_rows<T, CSF, RIN, ROUT, FlatIO<T>, true>(io, Rows{R, 0, R, 0, R}, C, params,
-                                                         stream);
+  return launch_rows<T, CSF, RIN, ROUT, FlatIO<T>, true>(io, Rows{R, 0, R, 0, R},
+                                                         PeriodicCols{C}, params, stream);
 }
 
 // The rows of a halo launch (csrc/halo.cuh) in global terms.
@@ -709,10 +767,49 @@ int launch_halo(const long long* geom, const double* params, cudaStream_t stream
   if (L.R < 4 || L.in.C < 3) return static_cast<int>(cudaErrorInvalidValue);
   const lbm::halo::ShardIO<T> io{L.in, L.out, L.off};
   using IO = lbm::halo::ShardIO<T>;
-  return L.edge ? launch_rows<T, CSF, RIN, ROUT, IO, true>(io, halo_rows(L), L.in.C, params,
+  const PeriodicCols cols{L.in.C};
+  return L.edge ? launch_rows<T, CSF, RIN, ROUT, IO, true>(io, halo_rows(L), cols, params,
                                                            stream)
-                : launch_rows<T, CSF, RIN, ROUT, IO, false>(io, halo_rows(L), L.in.C, params,
+                : launch_rows<T, CSF, RIN, ROUT, IO, false>(io, halo_rows(L), cols, params,
                                                             stream);
+}
+
+// The rows and the columns of a rows x cols launch (csrc/halo2d.cuh): rows
+// in global terms, columns padded (BandCols).
+template <typename T>
+Rows halo2d_rows(const lbm::halo2d::Launch<T>& L) {
+  return Rows{L.R, L.global_row(L.r_lo), L.global_row(L.r_hi), L.global_row(L.out.r_lo),
+              L.global_row(L.out.r_hi)};
+}
+
+template <typename T>
+BandCols halo2d_cols(const lbm::halo2d::Launch<T>& L) {
+  return BandCols{L.C, L.off_c - L.in.halo, L.c_lo, L.c_hi, L.out.c_lo, L.out.c_hi};
+}
+
+// Kernel 38: one sweep of the full step on a rows x cols shard, geometry
+// `geom` (csrc/halo2d.cuh); the masked instance on the edge row ranks.
+template <typename T, bool CSF, bool RIN, bool ROUT>
+int launch_halo2d(const long long* geom, const double* params, cudaStream_t stream) {
+  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
+  if (L.R < 4 || L.C < 3) return static_cast<int>(cudaErrorInvalidValue);
+  using IO = lbm::halo2d::Shard2DIO<T>;
+  const IO io{L.in, L.out, L.off_r};
+  return L.edge ? launch_rows<T, CSF, RIN, ROUT, IO, true>(io, halo2d_rows(L), halo2d_cols(L),
+                                                           params, stream)
+                : launch_rows<T, CSF, RIN, ROUT, IO, false>(io, halo2d_rows(L), halo2d_cols(L),
+                                                            params, stream);
+}
+
+template <bool RIN, bool ROUT>
+int dispatch_halo2d(const long long* geom, const double* params, int csf, int is_f64,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return csf ? launch_halo2d<double, true, RIN, ROUT>(geom, params, s)
+               : launch_halo2d<double, false, RIN, ROUT>(geom, params, s);
+  return csf ? launch_halo2d<float, true, RIN, ROUT>(geom, params, s)
+             : launch_halo2d<float, false, RIN, ROUT>(geom, params, s);
 }
 
 // The four type x mode instances of one halo step.

@@ -20,6 +20,16 @@
 // like the populations.  It replaces lbm_tpu/kernels/sharded_pallas.py:406
 // make_sharded_mrtcg_step.  Bytes per sweep: 144 B (160 CSF) per cell of
 // its band in float32, plus the halo rows it reads.
+//
+// And kernel 38, lbm_halo2d_mrtcg_full: the step on a rows x cols shard of
+// the full state, both modes (csrc/halo2d.cuh, kernels/sharded2d.py
+// make_sharded2d_mrtcg_step), the tile engine with its rows by global index
+// (lbm::halo2d::Shard2DIO) and its columns the shard's padded ones
+// (mrtcg::BandCols: every value read in the padded block, the 5x5
+// stencils' replicate clamp and the column repair of the stream at the
+// grid's global columns 0 and C-1).  It replaces
+// lbm_tpu/kernels/sharded2d_pallas.py:455 make_sharded2d_mrtcg_step on
+// make_local_2d_body_step (:392, its pallas_call at :411).
 
 #include "mrtcg.cuh"
 
@@ -33,4 +43,11 @@ extern "C" int lbm_mrtcg_full(const void* in, void* out, long long R, long long 
 extern "C" int lbm_halo_mrtcg_full(const long long* geom, const double* params, int csf, int,
                                    int is_f64, void* stream) {
   return lbm::mrtcg::dispatch_halo<false, false>(geom, params, csf, is_f64, stream);
+}
+
+// Kernel 38: one sweep of the full step on a rows x cols shard, geometry
+// `geom` (csrc/halo2d.cuh), `params` those of lbm_mrtcg_full.
+extern "C" int lbm_halo2d_mrtcg_full(const long long* geom, const double* params, int csf,
+                                     int, int is_f64, void* stream) {
+  return lbm::mrtcg::dispatch_halo2d<false, false>(geom, params, csf, is_f64, stream);
 }

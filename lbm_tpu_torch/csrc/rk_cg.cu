@@ -25,7 +25,14 @@
 // This source also holds kernel 30, lbm_halo_rk: the same step on a row
 // shard with halo inputs (csrc/halo.cuh, kernels/sharded.py), its memory
 // by global row (lbm::halo::ShardIO) as kernel 29's; it replaces
-// lbm_tpu/kernels/sharded_pallas.py:486 make_sharded_rk_step.
+// lbm_tpu/kernels/sharded_pallas.py:486 make_sharded_rk_step.  And kernel
+// 37, lbm_halo2d_rk: the step on a rows x cols shard (csrc/halo2d.cuh,
+// kernels/sharded2d.py make_sharded2d_rk_step), its rows by global index
+// (lbm::halo2d::Shard2DIO) and its columns the shard's padded ones
+// (mrtcg::BandCols: values read in the padded block, the stencil's clamp
+// and the column repair at the grid's global columns 0 and C-1); it
+// replaces lbm_tpu/kernels/sharded2d_pallas.py:432 make_sharded2d_rk_step
+// on make_local_2d_body_step (:392, its pallas_call at :411).
 //
 // Bound: device-memory bytes.  88 B/cell in float32 (11 planes read once,
 // 11 written once), 176 in float64, against 416 operations per cell
@@ -69,11 +76,12 @@ __host__ __device__ constexpr double ncy(int i) {
 
 // The collision of one cell (kernels/rk.py::make_collide): red in out[0..8],
 // blue in out[9..17].
-template <typename T, bool EDGE>
+template <typename T, bool EDGE, typename Cols>
 __device__ __forceinline__ void collide_cell(const T* __restrict__ in, int64_t n,
                                              int64_t cell, const Params<T>& p,
                                              const T* s_af, const Win& w, int64_t gr,
-                                             int64_t gc, int64_t R, int64_t C, T out[18]) {
+                                             int64_t gc, int64_t R, const Cols cols,
+                                             T out[18]) {
   T f[9];
   lbm::load9(in, n, cell, f);
   const T r_rho = in[9 * n + cell];
@@ -91,8 +99,8 @@ __device__ __forceinline__ void collide_cell(const T* __restrict__ in, int64_t n
   const T phi_ax = T(0.2) - T(0.2) * alpha;
   const T phi_di = T(0.05) - T(0.05) * alpha;
 
-  const T Fx = mc::corr5<0, T, H, EDGE>(s_af, w, gr, gc, R, C);
-  const T Fy = mc::corr5<1, T, H, EDGE>(s_af, w, gr, gc, R, C);
+  const T Fx = mc::corr5<0, T, H, EDGE>(s_af, w, gr, gc, R, cols);
+  const T Fy = mc::corr5<1, T, H, EDGE>(s_af, w, gr, gc, R, cols);
   const T Fn = sqrt(Fx * Fx + Fy * Fy);
   const T inv_Fn = T(1.0) / (Fn + T(1e-20));
 
@@ -151,9 +159,9 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (Win::N + 18 * mc::RING_N);
 }
 
-template <typename T, typename IO, bool EDGE>
+template <typename T, typename IO, bool EDGE, typename Cols>
 __global__ void __launch_bounds__(mc::THREADS)
-    rk_cg_kernel(const IO io, const mc::Rows rows, int64_t C, const Params<T> p) {
+    rk_cg_kernel(const IO io, const mc::Rows rows, const Cols cols, const Params<T> p) {
   using mc::RING_C;
   using mc::RING_N;
   using mc::TX;
@@ -162,18 +170,18 @@ __global__ void __launch_bounds__(mc::THREADS)
   T* s_af = reinterpret_cast<T*>(smem_raw);
   T* s_ring = s_af + Win::N;
 
-  const int64_t R = rows.R;
+  const int64_t R = rows.R, C = cols.C;
   const int64_t r0 = rows.o_lo + static_cast<int64_t>(blockIdx.y) * TY;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
+  const int64_t c0 = cols.first() + static_cast<int64_t>(blockIdx.x) * TX;
   const int tid = threadIdx.x;
-  const bool left = c0 == 0;
-  const bool right = c0 + TX >= C;
+  const bool left = Cols::SEAM && c0 == 0;
+  const bool right = Cols::SEAM && c0 + TX >= C;
   Win w;
   w.r0 = r0;
   w.c0 = c0;
   w.seam_lo = left ? C - H : 0;
   auto readable = [&](int64_t gr, int64_t gc) {
-    return gr >= rows.rd_lo && gr < rows.rd_hi && gc >= 0 && gc < C;
+    return gr >= rows.rd_lo && gr < rows.rd_hi && cols.readable(gc);
   };
 
   // stage 1: r_rho / rho on the window (main columns, then the seam)
@@ -200,16 +208,16 @@ __global__ void __launch_bounds__(mc::THREADS)
 
   // stage 2: the collision on the tile plus a 1-cell ring
   const int64_t nrows = rows.o_hi - r0 < TY ? rows.o_hi - r0 : TY;
-  const int64_t ncols = C - c0 < TX ? C - c0 : TX;
+  const int64_t ncols = cols.end() - c0 < TX ? cols.end() - c0 : TX;
   for (int i = tid; i < RING_N; i += mc::THREADS) {
     const int ri = i / RING_C, rj = i % RING_C;
     const int64_t gr = r0 - 1 + ri;
     if (ri > nrows + 1 || rj > ncols + 1 || gr < rows.rd_lo || gr >= rows.rd_hi) continue;
-    const int64_t gc = wrap(c0 - 1 + rj, C);
+    const int64_t gc = cols.ring(c0 - 1 + rj);
     int64_t plane;
     const T* q = io.src(gr, gc, plane);
     T coll[18];
-    collide_cell<T, EDGE>(q, plane, 0, p, s_af, w, gr, gc, R, C, coll);
+    collide_cell<T, EDGE>(q, plane, 0, p, s_af, w, gr, gc, R, cols, coll);
 #pragma unroll
     for (int k = 0; k < 18; ++k) s_ring[k * RING_N + i] = coll[k];
   }
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(mc::THREADS)
   T r_sum = T(0), b_sum = T(0);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const mc::PullSource src = mc::pull_source<EDGE>(k, ty, tx, gr, gc, R, C);
+    const mc::PullSource src = mc::pull_source<EDGE>(k, ty, tx, gr, cols.global(gc), R, C);
     const T r = s_ring[src.plane * RING_N + src.slot];
     const T b = s_ring[(9 + src.plane) * RING_N + src.slot];
     q[k * plane] = r + b;
@@ -235,20 +243,21 @@ __global__ void __launch_bounds__(mc::THREADS)
   q[10 * plane] = b_sum;
 }
 
-template <typename T, typename IO, bool EDGE>
-int launch_rows(const IO& io, const mc::Rows& rows, int64_t C, const double* params,
+template <typename T, typename IO, bool EDGE, typename Cols>
+int launch_rows(const IO& io, const mc::Rows& rows, const Cols cols, const double* params,
                 cudaStream_t stream) {
-  if (rows.o_hi <= rows.o_lo || C <= 0) return 0;
+  const int64_t width = cols.end() - cols.first();
+  if (rows.o_hi <= rows.o_lo || width <= 0) return 0;
   Params<T> p;
   for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
   constexpr size_t smem = smem_bytes<T>();
   static bool configured[lbm::MAX_DEVICES] = {};
-  const cudaError_t e = lbm::smem_opt_in(rk_cg_kernel<T, IO, EDGE>, static_cast<int>(smem),
-                                         configured);
+  const cudaError_t e = lbm::smem_opt_in(rk_cg_kernel<T, IO, EDGE, Cols>,
+                                         static_cast<int>(smem), configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((C + mc::TX - 1) / mc::TX),
+  const dim3 grid(static_cast<unsigned>((width + mc::TX - 1) / mc::TX),
                   static_cast<unsigned>((rows.o_hi - rows.o_lo + mc::TY - 1) / mc::TY));
-  rk_cg_kernel<T, IO, EDGE><<<grid, mc::THREADS, smem, stream>>>(io, rows, C, p);
+  rk_cg_kernel<T, IO, EDGE, Cols><<<grid, mc::THREADS, smem, stream>>>(io, rows, cols, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,7 +266,8 @@ int launch(const void* in, void* out, long long R, long long C, const double* pa
            cudaStream_t stream) {
   if (R <= 0 || C <= 0) return 0;
   const mc::FlatIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), R * C, C};
-  return launch_rows<T, mc::FlatIO<T>, true>(io, mc::Rows{R, 0, R, 0, R}, C, params, stream);
+  return launch_rows<T, mc::FlatIO<T>, true>(io, mc::Rows{R, 0, R, 0, R}, mc::PeriodicCols{C},
+                                             params, stream);
 }
 
 // Kernel 30: one sweep on a row shard with halo inputs, geometry `geom`.
@@ -268,8 +278,23 @@ int launch_halo(const long long* geom, const double* params, cudaStream_t stream
   using IO = lbm::halo::ShardIO<T>;
   const IO io{L.in, L.out, L.off};
   const mc::Rows rows = mc::halo_rows(L);
-  return L.edge ? launch_rows<T, IO, true>(io, rows, L.in.C, params, stream)
-                : launch_rows<T, IO, false>(io, rows, L.in.C, params, stream);
+  const mc::PeriodicCols cols{L.in.C};
+  return L.edge ? launch_rows<T, IO, true>(io, rows, cols, params, stream)
+                : launch_rows<T, IO, false>(io, rows, cols, params, stream);
+}
+
+// Kernel 37: one sweep on a rows x cols shard, geometry `geom`
+// (csrc/halo2d.cuh).
+template <typename T>
+int launch_halo2d(const long long* geom, const double* params, cudaStream_t stream) {
+  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
+  if (L.R < 4 || L.C < 3) return static_cast<int>(cudaErrorInvalidValue);
+  using IO = lbm::halo2d::Shard2DIO<T>;
+  const IO io{L.in, L.out, L.off_r};
+  const mc::Rows rows = mc::halo2d_rows(L);
+  const mc::BandCols cols = mc::halo2d_cols(L);
+  return L.edge ? launch_rows<T, IO, true>(io, rows, cols, params, stream)
+                : launch_rows<T, IO, false>(io, rows, cols, params, stream);
 }
 
 }  // namespace
@@ -290,4 +315,12 @@ extern "C" int lbm_halo_rk(const long long* geom, const double* params, int, int
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_halo<double>(geom, params, s) : launch_halo<float>(geom, params, s);
+}
+
+// Kernel 37: one sweep of the step on a rows x cols shard, geometry `geom`
+// (csrc/halo2d.cuh), `params` those of lbm_rk_cg.
+extern "C" int lbm_halo2d_rk(const long long* geom, const double* params, int, int,
+                             int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo2d<double>(geom, params, s) : launch_halo2d<float>(geom, params, s);
 }

@@ -41,11 +41,23 @@
 // 8-row exchange.  The collision is the same device function as kernel
 // 14's (sc_collide), built with the same flags, so an n-shard run equals
 // kernel 14 bit for bit.
+//
+// And kernel 35, lbm_halo2d_shan_chen: the step on a rows x cols shard
+// (csrc/halo2d.cuh, kernels/sharded2d.py make_sharded2d_sc_step), which
+// replaces lbm_tpu's Shan-Chen body on its 2-D wrapper
+// (sharded2d_pallas.py:549 make_sharded2d_sc_step on
+// make_local_2d_body_step :392, its pallas_call at :411).  Kernel 32's
+// sweep in both axes: psi on each tile window's readable cells of the
+// padded block [in_r_lo, in_r_hi) x [in_c_lo, in_c_hi), the collision on
+// that band less one line a side, the push into the output band; nothing
+// wraps, since the column strips hold the neighbours' columns.  2 lines of
+// the strips a sweep in both axes, so at most 4 sweeps per exchange.
 
 #include <cuda_runtime.h>
 
 #include "d2q9.cuh"
 #include "halo.cuh"
+#include "halo2d.cuh"
 
 namespace {
 
@@ -228,6 +240,47 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Kernel 35: one sweep on a rows x cols shard.  Tiles cover the padded
+// cells [r_lo + 1, r_hi - 1) x [c_lo + 1, c_hi - 1) that the sweep
+// collides; psi is computed on each tile window's readable cells.
+template <typename T, bool CS, bool SHIFT>
+__global__ void __launch_bounds__(THREADS)
+    shan_chen_halo2d(const lbm::halo2d::View<T> in, const lbm::halo2d::Out<T> out,
+                     int64_t r_lo, int64_t r_hi, int64_t c_lo, int64_t c_hi,
+                     const Params<T> p) {
+  __shared__ T s_psi[WN];
+  const int64_t r0 = r_lo + 1 + static_cast<int64_t>(blockIdx.y) * TY;
+  const int64_t q0 = c_lo + 1 + static_cast<int64_t>(blockIdx.x) * TX;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < WN; i += THREADS) {
+    const int64_t pr = r0 - 1 + i / WC, q = q0 - 1 + i % WC;
+    if (pr < r_lo || pr >= r_hi || q < c_lo || q >= c_hi) continue;  // read by no cell
+    int64_t plane;
+    const T* src = in.locate(pr, q, plane);
+    T rho = src[0];
+#pragma unroll
+    for (int k = 1; k < 9; ++k) rho = rho + src[k * plane];
+    s_psi[i] = psi_of<T, CS>(rho, p);
+  }
+  __syncthreads();
+
+  const int ty = tid / TX, tx = tid % TX;
+  const int64_t pr = r0 + ty, q = q0 + tx;
+  if (pr >= r_hi - 1 || q >= c_hi - 1) return;
+  int64_t plane;
+  const T* src = in.locate(pr, q, plane);
+  T f[9], o[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f[k] = src[k * plane];
+  sc_collide<T, CS, SHIFT>(f, s_psi, (ty + 1) * WC + (tx + 1), p, o);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t pd = pr + cx(k), qd = q + cy(k);
+    if (out.has(pd, qd)) out.at(pd, qd)[k * out.plane] = o[k];
+  }
+}
+
 template <typename T, bool CS, bool SHIFT>
 int launch_one(const T* fin, T* fout, long long R, long long C, const Params<T>& p,
                cudaStream_t stream) {
@@ -245,6 +298,18 @@ int launch_halo_one(const long long* geom, const Params<T>& p, cudaStream_t stre
   const dim3 grid(static_cast<unsigned>((L.in.C + TX - 1) / TX),
                   static_cast<unsigned>((rows + TY - 1) / TY));
   shan_chen_halo<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(L.in, L.out, L.in_lo, L.in_hi, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool CS, bool SHIFT>
+int launch_halo2d_one(const long long* geom, const Params<T>& p, cudaStream_t stream) {
+  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
+  const int64_t rows = L.r_hi - L.r_lo - 2, cols = L.c_hi - L.c_lo - 2;
+  if (rows <= 0 || cols <= 0) return 0;
+  const dim3 grid(static_cast<unsigned>((cols + TX - 1) / TX),
+                  static_cast<unsigned>((rows + TY - 1) / TY));
+  shan_chen_halo2d<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(L.in, L.out, L.r_lo, L.r_hi,
+                                                               L.c_lo, L.c_hi, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,6 +345,17 @@ int launch_halo(const long long* geom, const double* params, int eos, int forcin
                       : launch_halo_one<T, true, true>(geom, p, stream);
 }
 
+template <typename T>
+int launch_halo2d(const long long* geom, const double* params, int eos, int forcing,
+                  cudaStream_t stream) {
+  const Params<T> p = params_of<T>(params);
+  if (eos == 0)
+    return forcing == 0 ? launch_halo2d_one<T, false, false>(geom, p, stream)
+                        : launch_halo2d_one<T, false, true>(geom, p, stream);
+  return forcing == 0 ? launch_halo2d_one<T, true, false>(geom, p, stream)
+                      : launch_halo2d_one<T, true, true>(geom, p, stream);
+}
+
 }  // namespace
 
 // One step f_in -> f_out (distinct buffers) on `stream`; `params` are the
@@ -301,4 +377,13 @@ extern "C" int lbm_halo_shan_chen(const long long* geom, const double* params, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_halo<double>(geom, params, eos, forcing, s)
                 : launch_halo<float>(geom, params, eos, forcing, s);
+}
+
+// Kernel 35: one sweep on a rows x cols shard with the geometry `geom`
+// (csrc/halo2d.cuh); `params`, `eos` and `forcing` as lbm_shan_chen's.
+extern "C" int lbm_halo2d_shan_chen(const long long* geom, const double* params, int eos,
+                                    int forcing, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo2d<double>(geom, params, eos, forcing, s)
+                : launch_halo2d<float>(geom, params, eos, forcing, s);
 }

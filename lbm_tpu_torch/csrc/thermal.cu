@@ -54,6 +54,16 @@
 // interior ranks.  It replaces lbm_tpu/kernels/sharded_pallas.py:503
 // make_sharded_thermal_step (body thermal_pallas.py:134).
 //
+// Kernel 36 (thermal_halo2d_kernel, lbm_halo2d_thermal) is the same D2Q9
+// step on a rows x cols shard (csrc/halo2d.cuh, kernels/sharded2d.py
+// make_sharded2d_thermal_step): one thread per cell of the padded band it
+// reads, pushes into the output band only and nothing wraps (the column
+// strips hold the neighbours' columns); the row walls act by global row in
+// the EDGE instance of row ranks 0 and nx-1, the columns are periodic with
+// no mask.  It replaces lbm_tpu/kernels/sharded2d_pallas.py:578
+// make_sharded2d_thermal_step on make_local_2d_body_step (:392, its
+// pallas_call at :411).
+//
 // Bound: device-memory bytes, per float32 step 144 B/cell with a D2Q9
 // temperature (18 planes in, 18 out), 112 B/cell with D2Q5 (14 and 14).
 // Left on the table: the ownership test of each push and the wall
@@ -63,6 +73,7 @@
 
 #include "d2q9.cuh"
 #include "halo.cuh"
+#include "halo2d.cuh"
 
 namespace {
 
@@ -276,6 +287,51 @@ __global__ void thermal_halo_kernel(lbm::halo::View<T> in, lbm::halo::Out<T> out
   write_walls<T, QG>(m, fc, go, out.at(p, c), out.plane);
 }
 
+// Kernel 36: one sweep of the Rayleigh-Benard step (D2Q9 temperature) on a
+// rows x cols shard.  One thread per cell of the padded band [r_lo, r_hi) x
+// [c_lo, c_hi); `r` is the global row, the wall rules kernel 28's.
+template <typename T, bool EDGE>
+__global__ void thermal_halo2d_kernel(lbm::halo2d::View<T> in, lbm::halo2d::Out<T> out,
+                                      int64_t r_lo, int64_t c_lo, int64_t width,
+                                      int64_t n_cells, int64_t off, int64_t R, int64_t C,
+                                      Params<T> P) {
+  constexpr int QG = 9;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n_cells) return;
+  const int64_t row = i / width;
+  const int64_t p = r_lo + row;
+  const int64_t q = c_lo + (i - row * width);
+  const int64_t r = off - in.halo + p;  // the global row
+
+  int64_t plane;
+  const T* src = in.locate(p, q, plane);
+  T f[9], g[QG];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    f[k] = src[k * plane];
+    g[k] = src[(9 + k) * plane];
+  }
+  T fc[9], gc[QG];
+  collide<T, QG>(f, g, P, fc, gc);
+
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int64_t pd = p + lbm::cx(k), qd = q + lbm::cy(k);
+    if (!out.has(pd, qd)) continue;
+    const unsigned m = EDGE ? owned<QG, false>(r + lbm::cx(k), 0, R, C) : 0u;
+    T* dst = out.at(pd, qd);
+    if (!(m & (1u << k))) dst[k * out.plane] = fc[k];
+    if (!(m & (1u << (9 + k)))) dst[(9 + k) * out.plane] = gc[k];
+  }
+
+  if (!EDGE || !out.has(p, q)) return;
+  const unsigned m = owned<QG, false>(r, 0, R, C);
+  if (!m) return;
+  T go[QG];
+  wall_rules<T, QG, false>(r, 0, R, C, gc, go);
+  write_walls<T, QG>(m, fc, go, out.at(p, q), out.plane);
+}
+
 template <typename T>
 Params<T> params(const double* d) {
   Params<T> P;
@@ -298,6 +354,24 @@ int launch_halo(const long long* geom, const double* d, cudaStream_t stream) {
   else
     thermal_halo_kernel<T, false><<<blocks, threads, 0, stream>>>(L.in, L.out, L.in_lo, n,
                                                                   L.off, L.R, params<T>(d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_halo2d(const long long* geom, const double* d, cudaStream_t stream) {
+  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
+  if (L.R < 4 || L.C < 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t width = L.c_hi - L.c_lo;
+  const int64_t n = (L.r_hi - L.r_lo) * width;
+  if (n <= 0 || width <= 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+  if (L.edge)
+    thermal_halo2d_kernel<T, true><<<blocks, threads, 0, stream>>>(
+        L.in, L.out, L.r_lo, L.c_lo, width, n, L.off_r, L.R, L.C, params<T>(d));
+  else
+    thermal_halo2d_kernel<T, false><<<blocks, threads, 0, stream>>>(
+        L.in, L.out, L.r_lo, L.c_lo, width, n, L.off_r, L.R, L.C, params<T>(d));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,4 +431,13 @@ extern "C" int lbm_halo_thermal(const long long* geom, const double* consts, int
                                 int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_halo<double>(geom, consts, s) : launch_halo<float>(geom, consts, s);
+}
+
+// Kernel 36: one sweep of the Rayleigh-Benard step with a D2Q9 temperature
+// on a rows x cols shard, geometry `geom` (csrc/halo2d.cuh), `consts` the 6
+// scalars of lbm_thermal_rb_q9.  Returns the cudaError_t of the launch.
+extern "C" int lbm_halo2d_thermal(const long long* geom, const double* consts, int, int,
+                                  int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_halo2d<double>(geom, consts, s) : launch_halo2d<float>(geom, consts, s);
 }

@@ -176,7 +176,8 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
     populations, or with ``reduced`` (coll_sum, coll_r); in CSF mode a
     third item, the new surface force (fstx, fsty).  ``fst`` is the
     previous step's force (CSF mode only); ``rows``/``grid_rows`` make the
-    planes a block of a taller grid (ops/gradients.py dx5)."""
+    planes a block of a taller grid, ``cols``/``grid_cols`` of a wider one
+    (ops/gradients.py dx5)."""
     csf = _check_mode(surface_tension)
     (inv_r0, inv_b0, _, _, _, _, _, _, _, _,
      r_phi0, r_phi1, r_phi5, b_phi0, b_phi1, b_phi5,
@@ -191,9 +192,10 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
     r_eta = {1: r_eta1, 5: r_eta5}
     b_eta = {1: b_eta1, 5: b_eta5}
 
-    def collide(fsum, rho, r_rho, b_rho, fst=None, reduced=False, rows=None, grid_rows=None):
-        dx5 = lambda x: gradients.dx5(x, rows, grid_rows)  # noqa: E731
-        dy5 = lambda x: gradients.dy5(x, rows, grid_rows)  # noqa: E731
+    def collide(fsum, rho, r_rho, b_rho, fst=None, reduced=False, rows=None, grid_rows=None,
+                cols=None, grid_cols=None):
+        dx5 = lambda x: gradients.dx5(x, rows, grid_rows, cols, grid_cols)  # noqa: E731
+        dy5 = lambda x: gradients.dy5(x, rows, grid_rows, cols, grid_cols)  # noqa: E731
         inv_rho = 1.0 / rho
         fs_p = [fsum[kp] + fsum[km] for kp, km in PAIR_KS]
         fd_p = [fsum[kp] - fsum[km] for kp, km in PAIR_KS]
@@ -318,18 +320,22 @@ def make_collide(red: ColourParams, blue: ColourParams, sigma: float, gravity,
     return collide
 
 
-def stream_with_bcs(coll, rows=None, grid_rows=None) -> list:
+def stream_with_bcs(coll, rows=None, grid_rows=None, cols=None, grid_cols=None) -> list:
     """Periodic push streaming plus the multiphase drivers' walls
     (lbm_tpu mrtcg_pallas.py:552-595): columns periodic WITHOUT the
     diagonal offset on rows 1..R-2, then bounce-back on row R-1, then on
     row 0 (the corners are written last).  With ``rows`` (the global
     indices of the planes' rows) and ``grid_rows``, the planes are a block
-    of a taller grid: the walls sit at its global rows 0 and R-1."""
+    of a taller grid: the walls sit at its global rows 0 and R-1; with
+    ``cols`` (the wrapped global indices of their columns) and
+    ``grid_cols``, of a wider one: the column repair sits at its global
+    columns 0 and C-1."""
     R, C = coll[0].shape
     dev = coll[0].device
     rows = torch.arange(R, device=dev)[:, None] if rows is None else rows[:, None]
     R = R if grid_rows is None else grid_rows
-    cols = torch.arange(C, device=dev)[None, :]
+    cols = torch.arange(C, device=dev)[None, :] if cols is None else cols[None, :]
+    C = C if grid_cols is None else grid_cols
     interior = (rows >= 1) & (rows <= R - 2)
     out, col_rolled = [], []
     for k in range(9):
@@ -350,10 +356,11 @@ def stream_with_bcs(coll, rows=None, grid_rows=None) -> list:
     return out
 
 
-def stream_sum_with_bcs(coll, rows=None, grid_rows=None) -> torch.Tensor:
+def stream_sum_with_bcs(coll, rows=None, grid_rows=None, cols=None,
+                        grid_cols=None) -> torch.Tensor:
     """``sum_k stream_with_bcs(coll)[k]`` in ascending k: the next red
     density of the reduced state (lbm_tpu mrtcg_pallas.py:598-635)."""
-    out = stream_with_bcs(coll, rows, grid_rows)
+    out = stream_with_bcs(coll, rows, grid_rows, cols, grid_cols)
     acc = out[0]
     for k in range(1, 9):
         acc = acc + out[k]
@@ -385,20 +392,24 @@ def make_plain_step(red, blue, sigma, gravity=(0.0, 0.0), delta=0.1,
     (kernel 6), reduced -> full (kernel 7) or full -> full (kernel 8).
     ``step(S, rows, grid_rows)`` steps a block of consecutive global rows
     ``rows`` of a taller grid (the walls and the gradients' replicate
-    padding at its global rows 0 and R-1); its edge rows are then stale."""
+    padding at its global rows 0 and R-1); its edge rows are then stale.
+    ``cols``/``grid_cols`` make it a block of a wider grid too (the
+    gradients' replicate padding and the column repair at its global
+    columns 0 and C-1; its edge columns are then stale)."""
     csf = _check_mode(surface_tension)
     collide = make_collide(red, blue, sigma, gravity, delta, apply_gravity_source,
                            surface_tension)
 
-    def step(S: torch.Tensor, rows=None, grid_rows=None) -> torch.Tensor:
+    def step(S: torch.Tensor, rows=None, grid_rows=None, cols=None,
+             grid_cols=None) -> torch.Tensor:
         fsum, rho, r_rho, b_rho, fst = _macros(S, reduced_in, csf)
-        out = collide(fsum, rho, r_rho, b_rho, fst=fst, reduced=reduced_out, rows=rows,
-                      grid_rows=grid_rows)
-        planes = stream_with_bcs(out[0], rows, grid_rows)
+        block = (rows, grid_rows, cols, grid_cols)
+        out = collide(fsum, rho, r_rho, b_rho, fst, reduced_out, *block)
+        planes = stream_with_bcs(out[0], *block)
         if reduced_out:
-            planes.append(stream_sum_with_bcs(out[1], rows, grid_rows))
+            planes.append(stream_sum_with_bcs(out[1], *block))
         else:
-            planes += stream_with_bcs(out[1], rows, grid_rows)
+            planes += stream_with_bcs(out[1], *block)
         if csf:
             planes += list(out[2])  # carried, not streamed
         return torch.stack(planes)

@@ -58,12 +58,13 @@ def make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.
     """``collide(planes) -> (coll_r, coll_b)``: the recoloured per-colour
     post-collision populations of the 11-plane state (lbm_tpu
     rk_pallas.py:31-127, written term for term); ``rows``/``grid_rows``
-    make the planes a block of a taller grid (ops/gradients.py dx5)."""
+    and ``cols``/``grid_cols`` make the planes a block of a larger grid
+    (ops/gradients.py dx5)."""
     (r_alpha, b_alpha, r_nu, b_nu, a_sigma, beta, source, gx, gy,
      *cF3) = kernel_params(r_alpha, b_alpha, r_nu, b_nu, sigma, beta, gravity)
     cF, cF3 = cF3[:4], cF3[4:]
 
-    def collide(planes, rows=None, grid_rows=None):
+    def collide(planes, rows=None, grid_rows=None, cols=None, grid_cols=None):
         f = [planes[k] for k in range(9)]
         r_rho, b_rho = planes[9], planes[10]
         rho = r_rho + b_rho
@@ -82,8 +83,8 @@ def make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.
 
         # the colour gradient, one pass on r_rho / rho (see module docstring)
         a_frac = r_rho * inv_rho
-        Fx = gradients.dx5(a_frac, rows, grid_rows)
-        Fy = gradients.dy5(a_frac, rows, grid_rows)
+        Fx = gradients.dx5(a_frac, rows, grid_rows, cols, grid_cols)
+        Fy = gradients.dy5(a_frac, rows, grid_rows, cols, grid_cols)
         Fn = torch.sqrt(Fx * Fx + Fy * Fy)
         inv_Fn = 1.0 / (Fn + 1e-20)
 
@@ -140,14 +141,16 @@ def make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.
 def make_plain_step(r_alpha, b_alpha, r_nu, b_nu, sigma, beta=0.7, gravity=(0.0, 0.0)):
     """The plain version of one step on the 11-plane state: collide, stream
     each colour with the multiphase walls, add the colours.  ``step(S, rows,
-    grid_rows)`` steps a block of a taller grid (kernels/mrtcg.py
-    make_plain_step)."""
+    grid_rows, cols, grid_cols)`` steps a block of a larger grid
+    (kernels/mrtcg.py make_plain_step)."""
     collide = make_collide(r_alpha, b_alpha, r_nu, b_nu, sigma, beta, gravity)
 
-    def step(S: torch.Tensor, rows=None, grid_rows=None) -> torch.Tensor:
-        coll_r, coll_b = collide(S, rows, grid_rows)
-        new_r = stream_with_bcs(coll_r, rows, grid_rows)
-        new_b = stream_with_bcs(coll_b, rows, grid_rows)
+    def step(S: torch.Tensor, rows=None, grid_rows=None, cols=None,
+             grid_cols=None) -> torch.Tensor:
+        block = (rows, grid_rows, cols, grid_cols)
+        coll_r, coll_b = collide(S, *block)
+        new_r = stream_with_bcs(coll_r, *block)
+        new_b = stream_with_bcs(coll_b, *block)
         r_rho, b_rho = new_r[0], new_b[0]
         for k in range(1, 9):
             r_rho = r_rho + new_r[k]

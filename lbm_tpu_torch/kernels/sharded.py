@@ -62,7 +62,7 @@ the single-device kernel's):
     (d3q19_pallas.py:173 make_d3q19_body on :345; csrc/d3q19.cu, kernel
     25's).
 
-The rows x cols collide-stream (kernel 34) is kernels/sharded2d.py.
+The rows x cols steps (kernels 34-38) are kernels/sharded2d.py.
 
 Bound: device-memory bytes, those of the family's single-device kernel per
 sweep over the band it computes, plus the halo reads of each exchange
@@ -300,9 +300,10 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
     nx = mesh.shape["x"]
     if mesh.shape["y"] != 1:
         raise ValueError(f"the row-sharded steps take an (n, 1) mesh, got {mesh.shape}: "
-                         "the rows x cols collide-stream is kernels/sharded2d.py; this "
-                         "family's rows x cols step waits for lbm_tpu's sharded2d body "
-                         "kernels")
+                         "the rows x cols steps are kernels/sharded2d.py's "
+                         "make_sharded_fused_step_2d, make_sharded2d_mrtcg_step, "
+                         "make_sharded2d_rk_step, make_sharded2d_sc_step and "
+                         "make_sharded2d_thermal_step")
     if R % nx:
         raise ValueError(f"rows {R} not divisible by mesh x={nx}")
     R_loc = R // nx

@@ -1,7 +1,8 @@
-"""Rows x cols sharded collide-stream: the plain version and CUDA kernel 34
-(counterpart of lbm_tpu/kernels/sharded2d_pallas.py, its first
-``pallas_call``: make_local_2d_step :223 and make_sharded_fused_step_2d
-:290).
+"""Rows x cols sharded steps: the plain versions and CUDA kernels 34-38
+(counterpart of lbm_tpu/kernels/sharded2d_pallas.py: the collide-stream,
+make_local_2d_step :223 and make_sharded_fused_step_2d :290, and the body
+steps, make_local_2d_body_step :392 under the wrappers :432 (RK), :455
+(MRT-CG, CSF), :549 (Shan-Chen) and :578 (thermal)).
 
 The grid's rows are split over mesh axis 'x' and its columns over 'y', on
 any (nx, ny) mesh (parallel/mesh.py).  Each call exchanges halos once
@@ -41,11 +42,48 @@ reads and writes, plus the strips of the exchange, each written and read
 once (chip_smoke.py counts them); the exchange itself is 2 n row strips
 of ``9 x HALO x C_loc`` and 2 n column strips of ``9 x (R_loc + 2 HALO) x
 HALO`` values, the column strips strided copies.
+
+The body steps (``make_sharded2d_body_step``, lbm_tpu's ``_sharded2d_wrap``
+:517-546) run a family's step on each shard with its global row and column
+offsets, one ``exchange_2d`` of HALO rows and columns per call and
+``substeps`` sweeps, each consuming ``ROWS_PER_SWEEP`` lines of the strips
+in both axes; the masked (edge) instance on row ranks 0 and nx-1, the
+mask-free one on interior row ranks:
+  * on a CPU shard, the plain version: ``sweep_block`` over the padded block
+    with the family's plain step, given the block's global rows (unwrapped:
+    the walls and the replicate padding at the grid's rows 0 and R-1) and
+    its global columns wrapped into [0, C) (the 5x5 stencils' replicate
+    padding and the column repair of the MRT-CG and RK streams at the grid's
+    columns 0 and C-1, wherever the block holds them).  It equals the
+    single-device plain step bit for bit;
+  * on a CUDA shard, the family's rows x cols kernel, one launch per sweep
+    (``launch_sweeps_2d``): kernel 35 ``HALO2D_SHAN_CHEN`` (csrc/shan_chen.cu,
+    kernel 14's collision), 36 ``HALO2D_THERMAL`` (csrc/thermal.cu, kernel
+    23's D2Q9 step), 37 ``HALO2D_RK`` (csrc/rk_cg.cu) and 38
+    ``HALO2D_MRTCG_FULL`` (csrc/mrtcg_full.cu, both modes), 37-38 on the tile
+    engine of csrc/mrtcg.cuh with its columns the shard's padded ones
+    (``BandCols``).  Sweep j of s writes the shard and ``rows_per_sweep (s -
+    j)`` more lines on each side, reading ``rows_per_sweep`` beyond them, the
+    rows clipped at the grid's walls.
+
+Sweeps per exchange: lbm_tpu's 2-D caps, ``min(8 // rps, 32 // rps)`` with
+rps the lines a sweep consumes (``CAP_2D``: MRT-CG 2, CSF 1, Shan-Chen 4,
+thermal 8; RK runs one), and ``"auto"`` the cap; the row path's deeper
+``AUTO_SUBSTEPS`` (on 16- and 24-row strips) do not apply, since every
+2-D strip is HALO = 8 lines deep.
+
+Guards of the body steps, each a ValueError: a mesh with ny >= 2 (an (n, 1)
+mesh takes kernels/sharded.py's row-sharded factories), a grid divisible
+by the mesh, shards of at least HALO rows and columns, and no global column
+twice in a padded block, ``C - C_loc >= 2 HALO`` (lbm_tpu's ``C - C_loc >=
+CHALO`` for its two 64-lane halves).  lbm_tpu's Mosaic guards (``C_loc %
+128``, a 128-lane halo tile) have no counterpart.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -53,35 +91,59 @@ from ..parallel.halo import exchange_2d, pad_block
 from ..parallel.mesh import Mesh, ShardedState
 from ..parallel.sharded import sweep_block
 from ..utils.xmath import resolve_fused
-from . import _build
-from .sharded import (_ARGS, COLLIDE_KINDS, HALO, _check_sweeps, collide_launch,
-                      resolve_substeps, sweep_bands)
+from . import _build, mrtcg, rk, shan_chen, thermal
+from .sharded import (_ARGS, COLLIDE_KINDS, HALO, ROWS_PER_SWEEP, _check_sweeps, _per_colour,
+                      collide_launch, resolve_substeps, sweep_bands, thermal_body)
 
-# the geometry array of a kernel-34 launch (csrc/halo2d.cuh ``Geom``)
+# the geometry array of a rows x cols launch (csrc/halo2d.cuh ``Geom``)
 GEOM = ("top", "mid", "bot", "left", "right", "out",
         "top_plane", "mid_plane", "bot_plane", "left_plane", "right_plane", "out_plane",
         "top_ld", "mid_ld", "bot_ld", "left_ld", "right_ld", "out_ld",
         "halo", "r_loc", "c_loc", "in_r_lo", "in_r_hi", "in_c_lo", "in_c_hi",
-        "out_r_lo", "out_r_hi", "out_c_lo", "out_c_hi", "out_first")
+        "out_r_lo", "out_r_hi", "out_c_lo", "out_c_hi", "out_first",
+        "off_r", "off_c", "rows", "cols", "edge")
 HALO2D_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo2d_{kind}", _ARGS)
                          for kind in COLLIDE_KINDS}                       # kernel 34
+HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", _ARGS)       # kernel 35
+HALO2D_THERMAL = _build.CudaKernel("lbm_halo2d_thermal", _ARGS)           # kernel 36
+HALO2D_RK = _build.CudaKernel("lbm_halo2d_rk", _ARGS)                     # kernel 37
+HALO2D_MRTCG_FULL = _build.CudaKernel("lbm_halo2d_mrtcg_full", _ARGS)     # kernel 38
+
+#: sweeps per exchange of the body steps: lbm_tpu's 2-D caps, min(8 // rps,
+#: 32 // rps) (sharded2d_pallas.py:484-486, :569, :598; its RK wrapper runs
+#: one), which ``"auto"`` also resolves to
+CAP_2D = {"mrtcg": 2, "csf": 1, "shan_chen": 4, "thermal": 8, "rk": 1}
 
 
-def sweep_bands_2d(R_loc: int, C_loc: int, halo: int, substeps: int):
+def resolve_substeps_2d(substeps, family: str) -> int:
+    """The sweeps per exchange of a body step: ``"auto"`` resolves to
+    ``CAP_2D[family]``; an int must lie in [1, CAP_2D[family]]."""
+    cap = CAP_2D[family]
+    return _check_sweeps(cap if substeps == "auto" else substeps, cap)
+
+
+def sweep_bands_2d(R_loc: int, C_loc: int, halo: int, substeps: int,
+                   rows_per_sweep: int = 1, off: int = 0, R: int | None = None,
+                   walls: bool = False):
     """(rows, cols) bands of each sweep of one exchange, each as
     ``sweep_bands``' (in_lo, in_hi, out_lo, out_hi) in padded lines of the
-    shard: sweep j of s writes ``s - j`` more lines on each side of the
-    shard, reading one beyond them; nothing wraps and no wall clips."""
-    rows = sweep_bands(R_loc, halo, 0, R_loc, substeps, 1, False)
-    cols = sweep_bands(C_loc, halo, 0, C_loc, substeps, 1, False)
+    shard: sweep j of s writes ``rows_per_sweep (s - j)`` more lines on each
+    side of the shard, reading ``rows_per_sweep`` beyond them; ``walls``
+    clips the rows to the grid's rows [0, R) (the shard's global row offset
+    ``off``), and no column wraps or clips."""
+    rows = sweep_bands(R_loc, halo, off, R_loc if R is None else R, substeps, rows_per_sweep,
+                       walls)
+    cols = sweep_bands(C_loc, halo, 0, C_loc, substeps, rows_per_sweep, False)
     return list(zip(rows, cols))
 
 
 def _check_strips(f, top, bot, left, right, halo: int):
-    R_loc, C_loc = _build.check_state(f, 9)
-    for name, h, shape in (("top", top, (9, halo, C_loc)), ("bot", bot, (9, halo, C_loc)),
-                           ("left", left, (9, R_loc + 2 * halo, halo)),
-                           ("right", right, (9, R_loc + 2 * halo, halo))):
+    planes = f.shape[0] if f.dim() == 3 else 9
+    R_loc, C_loc = _build.check_state(f, planes)
+    for name, h, shape in (("top", top, (planes, halo, C_loc)),
+                           ("bot", bot, (planes, halo, C_loc)),
+                           ("left", left, (planes, R_loc + 2 * halo, halo)),
+                           ("right", right, (planes, R_loc + 2 * halo, halo))):
         if tuple(h.shape) != shape or h.dtype != f.dtype or h.device != f.device or \
                 not h.is_contiguous():
             raise ValueError(f"halo {name} must be a contiguous {shape} {f.dtype} tensor on "
@@ -90,18 +152,24 @@ def _check_strips(f, top, bot, left, right, halo: int):
 
 
 def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, substeps: int,
-                     params, i0: int = 0, i1: int = 0) -> torch.Tensor:
-    """``substeps`` launches of kernel 34 on the shard ``f`` with its four
-    strips; returns the shard's new values in a fresh buffer (``f`` is never
-    written).  Raises on a tensor the kernel does not take and on a refused
-    launch."""
+                     params, i0: int = 0, i1: int = 0, rows_per_sweep: int = 1,
+                     walls: bool = False, off: tuple[int, int] = (0, 0),
+                     shape: tuple[int, int] = (0, 0), edge: bool = False) -> torch.Tensor:
+    """``substeps`` launches of a rows x cols kernel (34-38) on the shard
+    ``f`` with its four strips; returns the shard's new values in a fresh
+    buffer (``f`` is never written).  Each sweep consumes ``rows_per_sweep``
+    lines of the strips in both axes; ``off`` is the shard's global (row,
+    column) offset, ``shape`` the grid's (R, C), ``edge`` whether its rows
+    reach a wall, ``walls`` clips the row bands to the grid's rows (the body
+    kernels read these; kernel 34 takes the defaults).  Raises on a tensor
+    the kernel does not take and on a refused launch."""
     halo = top.shape[-2]
     R_loc, C_loc = _check_strips(f, top, bot, left, right, halo)
-    _check_sweeps(substeps, halo)
-    item = f.element_size()
+    _check_sweeps(substeps, halo // rows_per_sweep)
+    planes, item = f.shape[0], f.element_size()
     Rp, Cp = R_loc + 2 * halo, C_loc + 2 * halo
     out = torch.empty_like(f)
-    slabs = [torch.empty((9, Rp, Cp), dtype=f.dtype, device=f.device)
+    slabs = [torch.empty((planes, Rp, Cp), dtype=f.dtype, device=f.device)
              for _ in range(min(substeps - 1, 2))]
     # (base, plane, ld) of top, mid, bot, left, right
     src = [(top.data_ptr(), halo * C_loc, C_loc), (f.data_ptr(), R_loc * C_loc, C_loc),
@@ -110,7 +178,8 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
     with torch.cuda.device(f.device):
         stream = _build.stream_handle(f)
         for j, ((ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi)) in enumerate(
-                sweep_bands_2d(R_loc, C_loc, halo, substeps), start=1):
+                sweep_bands_2d(R_loc, C_loc, halo, substeps, rows_per_sweep, off[0], shape[0],
+                               walls), start=1):
             if j == substeps:
                 dst, first, dplane, dld = out, halo, R_loc * C_loc, C_loc
             else:
@@ -118,7 +187,8 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
             bases, planes, lds = zip(*src)
             geom = (ctypes.c_longlong * len(GEOM))(
                 *bases, dst.data_ptr(), *planes, dplane, *lds, dld, halo, R_loc, C_loc,
-                ri_lo, ri_hi, ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi, first)
+                ri_lo, ri_hi, ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi, first, *off, *shape,
+                int(edge))
             kernel.launch(geom, params, i0, i1, int(f.dtype == torch.float64), stream)
             b = dst.data_ptr()
             slab = (Rp * Cp, Cp)
@@ -190,3 +260,167 @@ def make_sharded_fused_step_2d(mesh: Mesh, R: int, C: int, collide_fn,
     step = build(local)
     step.plain = build(local.plain)
     return step
+
+
+# --- the body steps (kernels 35-38) ------------------------------------------------
+
+def make_local_2d_body_step(R: int, C: int, body, launch, substeps: int):
+    """``local(f_loc, top, bot, left, right, off_r, off_c, edge) -> f_loc'``
+    (lbm_tpu sharded2d_pallas.py:392 make_local_2d_body_step): on a CPU shard
+    ``substeps`` sweeps of ``body(block, rows, cols)`` over the padded block
+    (``sweep_block``; ``rows`` the block's global rows, ``cols`` its global
+    columns wrapped into [0, C)), on a CUDA shard ``launch`` (a rows x cols
+    kernel's ``launch_sweeps_2d``), which launches or raises.
+    ``local.plain`` is the plain version on any device."""
+
+    def plain(f, top, bot, left, right, off_r, off_c, edge):
+        halo, (R_loc, C_loc) = top.shape[-2], f.shape[-2:]
+        rows = torch.arange(off_r - halo, off_r + R_loc + halo, device=f.device)
+        cols = torch.arange(off_c - halo, off_c + C_loc + halo, device=f.device) % C
+        return sweep_block(pad_block(f, top, bot, left, right), halo, substeps=substeps,
+                           body=body, rows=rows, cols=cols)
+
+    def local(f, top, bot, left, right, off_r, off_c, edge):
+        if resolve_fused(f):
+            return launch(f, top, bot, left, right, off=(off_r, off_c), shape=(R, C),
+                          edge=edge)
+        return plain(f, top, bot, left, right, off_r, off_c, edge)
+
+    local.plain = plain
+    return local
+
+
+def check_mesh_2d(mesh: Mesh, R: int, C: int, row_factory: str) -> tuple[int, int]:
+    """lbm_tpu's semantic guards of a rows x cols body step, each a
+    ValueError: ny >= 2 (``row_factory`` of kernels/sharded.py takes an (n,
+    1) mesh), a grid divisible by the mesh, shards of at least HALO rows and
+    columns, and no global column twice in a padded block (``C - C_loc >=
+    2 HALO``).  Returns (R_loc, C_loc)."""
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+    if ny < 2:
+        raise ValueError(f"the rows x cols steps need ny >= 2, got mesh {mesh.shape}: use "
+                         f"kernels/sharded.py {row_factory} for an (n, 1) mesh")
+    if R % nx or C % ny:
+        raise ValueError(f"grid {R}x{C} not divisible by mesh {nx}x{ny}")
+    R_loc, C_loc = R // nx, C // ny
+    if R_loc < HALO or C_loc < HALO:
+        raise ValueError(f"local shard {R_loc}x{C_loc} smaller than the {HALO}-line "
+                         "exchange strips")
+    if C - C_loc < 2 * HALO:
+        raise ValueError(f"C - C/ny = {C - C_loc} < {2 * HALO}: a padded block of "
+                         f"{C_loc + 2 * HALO} columns would hold a global column twice")
+    return R_loc, C_loc
+
+
+def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
+                             dtype: torch.dtype, row_factory: str):
+    """Shard a local body step over rows ('x') and columns ('y') (lbm_tpu
+    sharded2d_pallas.py:517 ``_sharded2d_wrap``): ShardedState of
+    ``(planes, R / nx, C / ny)`` shards -> the same, one ``exchange_2d`` of
+    HALO rows and columns per call.  ``local(f_loc, top, bot, left, right,
+    off_r, off_c, edge)`` gets the shard's global offsets and ``edge`` on row
+    ranks 0 and nx-1 (the masked instance).  ``step.plain`` runs
+    ``local.plain``: the plain version on any device."""
+    R_loc, C_loc = check_mesh_2d(mesh, R, C, row_factory)
+    nx, ny = mesh.shape["x"], mesh.shape["y"]
+
+    def build(run):
+        def step(state: ShardedState) -> ShardedState:
+            if state.mesh != mesh:
+                raise ValueError("the state is sharded over another mesh than the step's")
+            for f in state.shards:
+                if tuple(f.shape) != (planes, R_loc, C_loc) or f.dtype != dtype:
+                    raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
+                                     f"({planes}, {R_loc}, {C_loc}) {dtype}")
+            grid = [state.shards[i * ny:(i + 1) * ny] for i in range(nx)]
+            out = []
+            for b, (f, strips) in enumerate(zip(state.shards, exchange_2d(grid, HALO))):
+                i, j = divmod(b, ny)
+                out.append(run(f, *strips, i * R_loc, j * C_loc, i in (0, nx - 1)))
+            return ShardedState(mesh, out)
+
+        return step
+
+    step = build(local)
+    step.plain = build(local.plain)
+    return step
+
+
+def _body_launch(kernel, family: str, substeps: int, params, walls: bool, i0=0, i1=0):
+    return functools.partial(launch_sweeps_2d, kernel, substeps=substeps, params=params,
+                             i0=i0, i1=i1, rows_per_sweep=ROWS_PER_SWEEP[family], walls=walls)
+
+
+def make_sharded2d_sc_step(mesh: Mesh, R: int, C: int, *, omega: float, G: float | None = None,
+                           eos: str = "sc", T: float | None = None, forcing: str | None = None,
+                           substeps: int | str = 1, dtype: torch.dtype = torch.float32):
+    """The fully periodic Shan-Chen step (kernels/shan_chen.py) sharded over
+    rows and columns: f (9, R, C) shards -> the same, ``substeps`` (at most
+    4) steps per exchange, each sweep consuming 2 lines (lbm_tpu
+    sharded2d_pallas.py:549).  Kernel 35 on CUDA shards."""
+    substeps = resolve_substeps_2d(substeps, "shan_chen")
+    eos_i, forcing_i, params = shan_chen.kernel_params(omega, G, eos, T, forcing)
+    plain = shan_chen.make_plain_step(omega, G, eos, T, forcing)
+    launch = _body_launch(HALO2D_SHAN_CHEN, "shan_chen", substeps, _build.c_doubles(params),
+                          False, eos_i, forcing_i)
+    local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S), launch, substeps)
+    return make_sharded2d_body_step(mesh, 9, R, C, local, dtype, "make_sharded_sc_step")
+
+
+def make_sharded2d_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,
+                                omega_g: float, g_beta: float, substeps: int | str = 1,
+                                dtype: torch.dtype = torch.float32):
+    """The Rayleigh-Benard step (kernels/thermal.py, D2Q9 temperature)
+    sharded over rows and columns: S (18, R, C) shards -> the same, walls at
+    global rows 0 and R-1, columns periodic, ``substeps`` steps per exchange
+    (lbm_tpu sharded2d_pallas.py:578).  Kernel 36 on CUDA shards."""
+    substeps = resolve_substeps_2d(substeps, "thermal")
+    body = thermal_body(omega_f, omega_g, g_beta)
+    launch = _body_launch(HALO2D_THERMAL, "thermal", substeps,
+                          thermal.thermal_constants(omega_f, omega_g, g_beta, dtype), True)
+    local = make_local_2d_body_step(R, C, lambda S, rows, cols: body(S, rows, R), launch,
+                                    substeps)
+    return make_sharded2d_body_step(mesh, 18, R, C, local, dtype, "make_sharded_thermal_step")
+
+
+def make_sharded2d_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alpha: float,
+                           r_nu: float, b_nu: float, sigma: float, beta: float = 0.7,
+                           gravity=(0.0, 0.0), dtype: torch.dtype = torch.float32):
+    """The RK mixture step sharded over rows and columns: S (11, R, C) =
+    [f (9), r_rho, b_rho] shards -> the same, one exchange per step (lbm_tpu
+    sharded2d_pallas.py:432).  Kernel 37 on CUDA shards."""
+    kw = dict(r_alpha=r_alpha, b_alpha=b_alpha, r_nu=r_nu, b_nu=b_nu, sigma=sigma, beta=beta,
+              gravity=gravity)
+    plain = rk.make_plain_step(**kw)
+    launch = _body_launch(HALO2D_RK, "rk", CAP_2D["rk"], _build.c_doubles(rk.kernel_params(**kw)),
+                          True)
+    local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S, rows, R, cols, C),
+                                    launch, CAP_2D["rk"])
+    return make_sharded2d_body_step(mesh, rk.PLANES, R, C, local, dtype, "make_sharded_rk_step")
+
+
+def make_sharded2d_mrtcg_step(mesh: Mesh, R: int, C: int, red, blue, sigma: float,
+                              gravity=(0.0, 0.0), delta: float = 0.1,
+                              apply_gravity_source: bool = True,
+                              dtype: torch.dtype = torch.float32, substeps: int | str = 1,
+                              surface_tension: str = "perturbation"):
+    """The full per-colour MRT colour-gradient step sharded over rows and
+    columns (lbm_tpu sharded2d_pallas.py:455).  Perturbation mode: F (2, 9,
+    R, C) sharded as ``shard_state(mesh, F.reshape(18, R, C))`` -> shards of
+    (2, 9, R/nx, C/ny), which gather to F (the step also takes those shards
+    back); CSF mode: shards of S (20, R, C) = [red f, blue f, fst carry] ->
+    the same.  ``substeps`` steps per exchange, at most 2 (CSF 1).  Kernel 38
+    on CUDA shards."""
+    csf = surface_tension == "csf"
+    family = "csf" if csf else "mrtcg"
+    substeps = resolve_substeps_2d(substeps, family)
+    plain = mrtcg.make_plain_step(red, blue, sigma, gravity, delta, apply_gravity_source,
+                                  surface_tension, reduced_in=False, reduced_out=False)
+    params = _build.c_doubles(mrtcg.kernel_params(red, blue, sigma, gravity, delta,
+                                                  apply_gravity_source))
+    launch = _body_launch(HALO2D_MRTCG_FULL, family, substeps, params, True, int(csf))
+    local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S, rows, R, cols, C),
+                                    launch, substeps)
+    step = make_sharded2d_body_step(mesh, mrtcg.full_planes(surface_tension), R, C, local,
+                                    dtype, "make_sharded_mrtcg_step")
+    return step if csf else _per_colour(step)

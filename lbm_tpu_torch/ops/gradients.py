@@ -68,48 +68,73 @@ def wall_rows(rows: torch.Tensor, R: int, h: int) -> torch.Tensor:
     return (g.clamp(0, R - 1) - rows[0]).clamp(0, rows.numel() - 1)
 
 
+def tap_cols(cols: torch.Tensor, C: int, h: int) -> torch.Tensor:
+    """The column gather of each tap of a block whose columns are the grid
+    columns ``cols`` (global indices wrapped into [0, C), a shard's padded
+    columns): row d + h holds, for each block column q, the block column
+    that the tap d columns off q reads, the one holding clamp(cols[q] + d,
+    0, C-1), itself clamped into the block.  At the grid's columns 0 and C-1
+    that is the replicate padding, wherever they fall in the block; at the
+    block's own edges it repeats the edge column, whose stencil results a
+    halo step discards."""
+    q = torch.arange(cols.numel(), device=cols.device)
+    d = torch.arange(-h, h + 1, device=cols.device)[:, None]
+    return (q + (cols + d).clamp(0, C - 1) - cols).clamp(0, cols.numel() - 1)
+
+
 def correlate2d_replicate(psi: torch.Tensor, kernel: np.ndarray,
                           rows: torch.Tensor | None = None,
-                          grid_rows: int | None = None) -> torch.Tensor:
+                          grid_rows: int | None = None,
+                          cols: torch.Tensor | None = None,
+                          grid_cols: int | None = None) -> torch.Tensor:
     """Cross-correlate a (R, C) field with a small odd kernel under
     replicate padding (torch Conv2d with kReplicate, src/differential.cpp:3-15):
     out[r, c] = sum_{a,b} k[a, b] psi[clamp(r+a-h), clamp(c+b-h)].
 
     With ``rows`` (the global indices of psi's rows, consecutive) and
     ``grid_rows``, psi is a block of a taller grid and its rows clamp at the
-    grid's walls only (``wall_rows``); the taps sum in the same order."""
+    grid's walls only (``wall_rows``); with ``cols`` (the wrapped global
+    indices of its columns) and ``grid_cols``, a block of a wider periodic
+    grid whose columns clamp at the grid's columns 0 and C-1 only
+    (``tap_cols``).  The taps sum in the same order."""
     n = kernel.shape[0]
     h = n // 2
     R, C = psi.shape
     if rows is None:
-        padded = F.pad(psi[None, None], (h, h, h, h), mode="replicate")[0, 0]
+        padded = F.pad(psi[None, None], (0, 0, h, h), mode="replicate")[0, 0]
     else:
-        padded = F.pad(psi[wall_rows(rows, grid_rows, h)][None, None], (h, h, 0, 0),
-                       mode="replicate")[0, 0]
+        padded = psi[wall_rows(rows, grid_rows, h)]
+    if cols is None:
+        padded = F.pad(padded[None, None], (h, h, 0, 0), mode="replicate")[0, 0]
+        shifted = [padded[:, b:b + C] for b in range(n)]
+    else:
+        shifted = [padded[:, taps] for taps in tap_cols(cols, grid_cols, h)]
     acc = None
     for a in range(n):
         for b in range(n):
             w = float(kernel[a, b])
             if w == 0.0:
                 continue
-            term = w * padded[a:a + R, b:b + C]
+            term = w * shifted[b][a:a + R]
             acc = term if acc is None else acc + term
     return acc
 
 
 def dx5(psi: torch.Tensor, rows: torch.Tensor | None = None,
-        grid_rows: int | None = None) -> torch.Tensor:
-    """d/dx (rows) via the 5x5 isotropic stencil (``rows``/``grid_rows``: a
-    block of a taller grid, see correlate2d_replicate).  cites
-    src/differential.cpp:23-27"""
-    return correlate2d_replicate(psi, KERNEL_X5, rows, grid_rows)
+        grid_rows: int | None = None, cols: torch.Tensor | None = None,
+        grid_cols: int | None = None) -> torch.Tensor:
+    """d/dx (rows) via the 5x5 isotropic stencil (``rows``/``grid_rows``,
+    ``cols``/``grid_cols``: a block of a larger grid, see
+    correlate2d_replicate).  cites src/differential.cpp:23-27"""
+    return correlate2d_replicate(psi, KERNEL_X5, rows, grid_rows, cols, grid_cols)
 
 
 def dy5(psi: torch.Tensor, rows: torch.Tensor | None = None,
-        grid_rows: int | None = None) -> torch.Tensor:
-    """d/dy (cols) via the 5x5 isotropic stencil (``rows``/``grid_rows`` as
-    in dx5).  cites src/differential.cpp:29-33"""
-    return correlate2d_replicate(psi, KERNEL_Y5, rows, grid_rows)
+        grid_rows: int | None = None, cols: torch.Tensor | None = None,
+        grid_cols: int | None = None) -> torch.Tensor:
+    """d/dy (cols) via the 5x5 isotropic stencil (the block arguments as in
+    dx5).  cites src/differential.cpp:29-33"""
+    return correlate2d_replicate(psi, KERNEL_Y5, rows, grid_rows, cols, grid_cols)
 
 
 def grad5(psi: torch.Tensor) -> torch.Tensor:

@@ -29,14 +29,22 @@ def _grid(state: ShardedState, blocks) -> list:
     return [list(blocks[i * ny:(i + 1) * ny]) for i in range(state.mesh.shape["x"])]
 
 
-def sweep_block(padded: torch.Tensor, width: int, collide_fn=None,
-                substeps: int = 1) -> torch.Tensor:
-    """``substeps`` periodic sweeps over a block padded with ``width`` lines
-    on every side, each ``collide_fn`` (none: streaming alone) then the push
-    streaming; every sweep leaves one more line stale on each side, so
-    ``substeps <= width``.  Returns the block's interior."""
+def sweep_block(padded: torch.Tensor, width: int, collide_fn=None, substeps: int = 1,
+                body=None, rows: torch.Tensor | None = None,
+                cols: torch.Tensor | None = None) -> torch.Tensor:
+    """``substeps`` sweeps over a block padded with ``width`` lines on every
+    side, each the periodic ``collide_fn`` (none: streaming alone) then the
+    push streaming, or with ``body`` a family's step ``body(block, rows,
+    cols)`` that takes the block's global rows ``rows`` and wrapped global
+    columns ``cols`` (the rows x cols body steps of kernels/sharded2d.py).
+    Every sweep leaves as many lines stale on each side as it reaches (one
+    for the collide-stream), so ``substeps`` times that is at most
+    ``width``.  Returns the block's interior."""
     for _ in range(substeps):
-        padded = d2q9.stream(padded if collide_fn is None else collide_fn(padded))
+        if body is not None:
+            padded = body(padded, rows, cols)
+        else:
+            padded = d2q9.stream(padded if collide_fn is None else collide_fn(padded))
     return padded[..., width:-width, width:-width].contiguous()
 
 

@@ -1512,3 +1512,109 @@ def test_kernels_31_to_34_reject_what_they_do_not_take(cuda):
         local(f, top, bot, left, right.cpu())
     assert torch.equal(local(f, top, bot, left, right),
                        bgk.make_fused_step(R, C, OMEGA, torch.float64)(f))
+
+
+# --- kernels 35-38: the rows x cols body steps ---------------------------------------
+
+def _k35_38_case(family, R, C, dtype, device, shape, s):
+    """(rows x cols step on an ``shape`` mesh of ``device``'s shards, the
+    single-device step of s steps per call, the flat state, its kernel) of
+    one case: an entry of SC_CASES (kernel 35 against 14), "thermal" (36
+    against 23, D2Q9), "rk" (37 against 12), "mrtcg" / "csf" (38 against 8;
+    "... droplet": from the droplet, which varies along the columns)."""
+    from lbm_tpu_torch.kernels import mrtcg, rk, shan_chen, thermal
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    mesh = pm.make_mesh([device] * (shape[0] * shape[1]), shape)
+    seed = R * C + 10 * shape[0] + shape[1] + s
+    if family in SC_CASES:
+        kw = SC_CASES[family]
+        return (k2d.make_sharded2d_sc_step(mesh, R, C, substeps=s, dtype=dtype, **kw),
+                shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **kw),
+                _sc_state(R, C, dtype, device, kw["eos"] == "cs"), k2d.HALO2D_SHAN_CHEN)
+    if family == "thermal":
+        return (k2d.make_sharded2d_thermal_step(mesh, R, C, substeps=s, dtype=dtype,
+                                                **THERMAL),
+                thermal.make_thermal_fused_step(R, C, substeps=s, dtype=dtype, **THERMAL),
+                _thermal_state(9, R, C, dtype, device, seed), k2d.HALO2D_THERMAL)
+    if family == "rk":
+        return (k2d.make_sharded2d_rk_step(mesh, R, C, dtype=dtype, **RK_KW),
+                rk.make_rk_fused_step(R, C, dtype=dtype, **RK_KW),
+                _rk_state(R, C, dtype, device), k2d.HALO2D_RK)
+    mode = "csf" if family.startswith("csf") else "perturbation"
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    S = _two_phase_state(R, C, dtype, device, mode, seed, droplet=family.endswith("droplet"))
+    step = k2d.make_sharded2d_mrtcg_step(mesh, R, C, red, blue, dtype=dtype,
+                                         surface_tension=mode, substeps=s, **MRTCG_KW)
+    if mode == "csf":
+        single = mrtcg.make_csf_fused_step(R, C, red, blue, dtype=dtype, substeps=s, **MRTCG_KW)
+    else:
+        full = mrtcg.make_mrtcg_fused_step(R, C, red, blue, dtype=dtype, substeps=s,
+                                           **MRTCG_KW)
+        single = lambda x: full(x.reshape(2, 9, R, C)).reshape(18, R, C)  # noqa: E731
+    return step, single, S, k2d.HALO2D_MRTCG_FULL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,shape,s", [
+    ("sc guo", (1, 2), 4), ("sc guo", (4, 2), 1), ("cs shift", (2, 4), 2),
+    ("thermal", (1, 2), 1), ("thermal", (4, 2), 8), ("thermal", (2, 4), 3),
+    ("rk", (1, 2), 1), ("rk", (4, 2), 1), ("rk", (2, 4), 1),
+    ("mrtcg", (1, 2), 2), ("mrtcg", (4, 2), 1), ("mrtcg droplet", (2, 4), 2),
+    ("csf", (1, 2), 1), ("csf", (4, 2), 1), ("csf droplet", (2, 4), 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
+    """Kernels 35-38 on an (nx, ny) mesh of one card's shards, two calls of s
+    steps: bit for bit the single-device kernel of their family (14, 23,
+    12, 8), within TOL of the plain rows x cols version, and bit-identical
+    run twice."""
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 64, 96
+    step, single, x, kernel = _k35_38_case(family, R, C, dtype, cuda, shape, s)
+    mesh = pm.make_mesh([cuda] * (shape[0] * shape[1]), shape)
+    before = kernel.launches
+    got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    again = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 4 * shape[0] * shape[1] * s
+    want = single(single(x))
+    assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_35_to_38_reject_what_they_do_not_take(cuda):
+    """A CUDA shard reaches kernels 35-38 or raises: a state of another type
+    than the step's, a strip of the wrong width, a CPU strip."""
+    from lbm_tpu_torch.kernels import _build, shan_chen
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 32, 32
+    mesh = pm.make_mesh([cuda] * 4, (2, 2))
+    S = _thermal_state(9, R, C, torch.float64, cuda, seed=3)
+    step = k2d.make_sharded2d_thermal_step(mesh, R, C, dtype=torch.float64, **THERMAL)
+    with pytest.raises(ValueError, match="step built for"):
+        step(pm.shard_state(mesh, S.float()))
+    f = _sc_state(R, C, torch.float64, cuda, False)
+    top, bot, left, right = halo.exchange_2d([[f]], 8)[0]
+    params = _build.c_doubles(shan_chen.kernel_params(1.0, -5.0, "sc", None, None)[2])
+
+    def launch(*strips):
+        return k2d.launch_sweeps_2d(k2d.HALO2D_SHAN_CHEN, f, *strips, substeps=1,
+                                    params=params, rows_per_sweep=2, shape=(R, C))
+
+    with pytest.raises(ValueError, match="halo left"):
+        launch(top, bot, left[..., :4].contiguous(), right)
+    with pytest.raises(ValueError, match="halo right"):
+        launch(top, bot, left, right.cpu())
+    assert torch.equal(launch(top, bot, left, right),
+                       shan_chen.make_sc_fused_step(R, C, omega=1.0, G=-5.0,
+                                                    dtype=torch.float64)(f))
+    with pytest.raises(ValueError, match=r"substeps must be an int in \[1, 4\]"):
+        k2d.make_sharded2d_sc_step(mesh, R, C, omega=1.0, G=-5.0, substeps=5)

@@ -206,7 +206,8 @@ def test_channel_rejects_a_column_mesh_and_another_mesh():
 @pytest.mark.parametrize("n", [8, 3])
 def test_dryrun_multichip_on_cpu_shards(n):
     out = dryrun.dryrun_multichip(n, devices=["cpu"] * n)
-    two_d = {"sharded_fused_2d"} if n == 8 else set()  # an (n/2, 2) mesh for even n > 2
+    two_d = {"sharded_fused_2d", "sharded2d_mrtcg", "sharded2d_csf", "sharded2d_sc",
+             "sharded2d_thermal"} if n == 8 else set()  # an (n/2, 2) mesh for even n > 2
     assert set(out) == {"periodic_bgk", "channel_bgk", "sharded_fused", "sharded_mrtcg",
                         "sharded_sc", "sharded_d3q19"} | two_d
     assert all(bool(torch.isfinite(x).all()) for x in out.values())
