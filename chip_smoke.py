@@ -15,7 +15,7 @@ with a nonzero exit code):
   1. toolchain: torch and CUDA versions, the card, nvcc, triton, nvidia-smi;
   2. build: the kernels from csrc/, timed, with ptxas' registers and spills
      per kernel (and those of kernels 25-26's four instances and of kernels
-     31-38's instances on their own);
+     31-39's instances on their own);
   3. the periodic kernels against their plain versions: kernel 1 (BGK) at
      4096x2048 float32 (1 and 8 steps; the 302 MB-per-buffer grid of
      bench.py), 1024x512 float64 and the reference's 21x21, 100x100 and
@@ -100,6 +100,13 @@ with a nonzero exit code):
      the Rayleigh-Benard step, RK, the full MRT-CG state in both modes)
      against 14, 23, 12 and 8 at 4096x2048 float32 and a small float64 grid
      on the (1, 2), (4, 2) and (2, 4) meshes, s = 1 and each family's cap;
+     kernel 39 (the lane-blocked reduced MRT-CG step, ``LANES_HOLDS``,
+     ``lanes_hold``) from bench.py's states in both modes at 4096x2048
+     float32 (lane blocks 256, 512, 2048; s = 1, 2, 5, CSF 4), 1024x512
+     float32 and 256x512 float64 (lane blocks 128, 256, 512), and the
+     24x256 float64 where lbm_tpu's lanes step fails to trace (lane blocks
+     256 and 128): bit for bit kernel 6 run s times, within TOL of its plain
+     version;
   5. the main path, with every launch count set to 0 just before and read
      just after: the periodic BGK run at 4096x2048 float32 through
      kernels.bgk.make_fused_step; horizontal_poiseuille at the reference's
@@ -196,7 +203,12 @@ with a nonzero exit code):
      single-device kernel; sc_phase_separation 256x256 on (4, 2), bit for
      bit the scene and within its gate; rayleigh_benard 64x128 on (4, 2)
      (30k steps, 8 per exchange), bit for bit the scene and within the
-     thermal gate's Nusselt band;
+     thermal gate's Nusselt band; kernel 39 (``LANES_PATH``, ``lanes_path``,
+     through kernels/mrtcg.py make_mrtcg_reduced_lanes_step): bench.py's
+     --lane-block path from its mrtcg and csf states, 200 steps each, at
+     4096x2048 float32 with lane block 256 and lbm_tpu's wide cadences (5,
+     CSF 4) and at the round-5 experiment's 1024x512 (s = 2 and 5, CSF 2),
+     each bit for bit kernel 6 run the same steps, finite, its masses kept;
   6. times at 4096x2048 float32 of every kernel and its plain version:
      MLUPS, and effective bandwidth at the kernel's bytes per cell against
      a device-to-device copy of the same bytes, taken in turns; the kernels
@@ -216,7 +228,10 @@ with a nonzero exit code):
      (4, 2) and (8, 1) meshes; 35-38 on (4, 2)) and s = 1 and each family's
      deepest cadence, against the single-device kernels, the exchange's
      copies alone and a copy of the state, under CUDA graphs
-     (``sharded_times``).
+     (``sharded_times``); kernel 39 at 4096x2048 float32 in both modes, lane
+     blocks 256, 512 and 2048, s = 1, 2, 5 (CSF 4), in turns with kernel 6
+     run s times and with its plain version, under CUDA graphs, each with
+     its bound (``lanes_times``, ``lanes_bound``).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -2174,6 +2189,278 @@ def sharded_entries(launches: dict, errs: dict, tm: dict) -> list:
     return entries
 
 
+# kernel 39, the lane-blocked reduced MRT-CG step, on bench.py's --lane-block
+# path (bench.py:103-110 mrtcg, :140-148 csf): (mode, shape, lane block,
+# substeps) of phase 5's runs, float32, LANES_STEPS steps each: bench.py's
+# WIDE_GRID (BIG) at lbm_tpu's wide cadences (mrtcg_pallas.py:807 _WIDE_OPT: 5,
+# CSF 4, bench.py's cap) and the round-5 experiment's 1024x512
+# (docs/BENCHMARKS.md:18-24)
+LANES_PATH = (("perturbation", BIG, 256, 5), ("csf", BIG, 256, 4),
+              ("perturbation", (1024, 512), 256, 2), ("perturbation", (1024, 512), 256, 5),
+              ("csf", (1024, 512), 256, 2))
+LANES_STEPS = 200
+# (mode, dtype, shape, lane blocks, cadences) of phase 4's holds of kernel 39;
+# (24, 256) are the shapes where lbm_tpu's lanes step fails to trace
+LANES_HOLDS = (
+    ("perturbation", "float32", BIG, (256, 512, 2048), (1, 2, 5)),
+    ("csf", "float32", BIG, (256, 512, 2048), (1, 2, 4)),
+    ("perturbation", "float32", (1024, 512), (256,), (2, 5)),
+    ("csf", "float32", (1024, 512), (256,), (2,)),
+    ("perturbation", "float64", (256, 512), (128, 256, 512), (1, 2, 5)),
+    ("csf", "float64", (256, 512), (128, 256, 512), (1, 2, 5)),
+    ("perturbation", "float64", (24, 256), (256, 128), (2,)),
+    ("csf", "float64", (24, 256), (256, 128), (2,)),
+)
+# (mode, lane blocks, cadences) of phase 6's times at BIG float32; the plain
+# version at the phase-5 configuration (LANES_PATH's first two)
+LANES_TIMES = (("perturbation", (256, 512, 2048), (1, 2, 5)),
+               ("csf", (256, 512, 2048), (1, 2, 4)))
+
+
+def lanes_state(R, C, csf, dtype, device):
+    """bench.py's reduced MRT-CG state (:89-96 mrtcg: init_rho_cosine's
+    layers of sign -1; :123-129 csf: sign +1 with two zero fst planes), at
+    rest, reduced (:108, :147)."""
+    import torch
+
+    from lbm_tpu_torch.models.mrt_cg import MRTCGModel
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    sign = 1.0 if csf else -1.0
+    st = MRTCGModel(red=red, blue=blue, **RT).init_state(
+        mp.init_rho_cosine(R, C, red.rho_0, True, sign),
+        mp.init_rho_cosine(R, C, blue.rho_0, False, sign), dtype=dtype, device=device)
+    planes = [st.red.f, st.blue.f]
+    if csf:
+        planes.append(torch.zeros((2, R, C), dtype=dtype, device=device))
+    return reduced_input(torch.cat(planes).contiguous(), csf)
+
+
+def lanes_steps(mode, R, C, dtype, lane_block, s):
+    """(kernel 39's step, kernel 6's step of ``s`` launches, kernel 39's plain
+    version) at bench.py's constants, each ``s`` steps a call."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    kw = dict(dtype=dtype, surface_tension=mode, substeps=s, **RT)
+    lanes = mrtcg.make_mrtcg_reduced_lanes_step(R, C, red, blue, lane_block=lane_block, **kw)
+    k6 = mrtcg.make_mrtcg_reduced_step(R, C, red, blue, **kw)
+    plain_step = mrtcg.make_plain_step(red, blue, surface_tension=mode, **RT)
+    rps = mrtcg.rows_per_sweep(mode)
+    return lanes, k6, lambda G: mrtcg.plain_mrtcg_reduced_lanes_step(G, plain_step, lane_block,
+                                                                     s, rps)
+
+
+def lanes_hold(dev) -> dict:
+    """Phase 4 of kernel 39 (``LANES_HOLDS``): from bench.py's state, for each
+    cadence s kernel 6 runs s steps once; then for each lane block one call
+    of kernel 39 (s launches), bit for bit that result (required: the
+    per-cell code is kernel 6's) and within TOL of its plain version.
+    Returns the max error against the plain version and against kernel 6 by
+    dtype, and whether every case was bit-identical to kernel 6."""
+    import torch
+
+    errs = {"plain": {}, "k6": {}, "all_equal": True}
+    for mode, dt_name, (R, C), lbs, ss in LANES_HOLDS:
+        dtype = getattr(torch, dt_name)
+        G = lanes_state(R, C, mode == "csf", dtype, dev)
+        for s in ss:
+            want = None
+            for lb in lbs:
+                lanes, k6, plain = lanes_steps(mode, R, C, dtype, lb, s)
+                want = k6(G) if want is None else want
+                got = lanes(G)
+                name = f"[4] kernel 39 {mode} {R}x{C} {dtype} lane_block={lb} s={s}"
+                e_plain = compare(f"{name} vs its plain version", got, plain(G), dtype)
+                e6 = (got - want).abs().max().item()
+                same = bool(torch.equal(got, want))
+                log(f"{name} vs kernel 6 x {s}: max_abs_err={e6!r}, bit-identical {same}")
+                if not same:
+                    raise AssertionError(f"{name}: kernel 39 is not kernel 6 run {s} times")
+                errs["plain"][dtype] = max(errs["plain"].get(dtype, 0.0), e_plain)
+                errs["k6"][dtype] = max(errs["k6"].get(dtype, 0.0), e6)
+                errs["all_equal"] &= same
+                del got
+            del want
+        del G
+        torch.cuda.empty_cache()
+    log(f"[4] kernel 39: max error vs its plain version {errs['plain']}, vs kernel 6 "
+        f"{errs['k6']}, every case bit-identical to kernel 6: {errs['all_equal']}")
+    return errs
+
+
+def lanes_path(dev, counted) -> dict:
+    """Phase 5 of kernel 39: bench.py's --lane-block path through
+    ``make_mrtcg_reduced_lanes_step`` (``LANES_PATH``), LANES_STEPS steps from
+    bench.py's state each, bit for bit the same steps through
+    ``make_mrtcg_reduced_step`` (kernel 6, run first), finite, the red and
+    the total mass kept within 1e-5.  Every launch count starts at 0 after
+    the references and is read at the end.  Returns the host wall time of
+    each run, by label."""
+    import torch
+
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    f32 = torch.float32
+    runs = []
+    for mode, (R, C), lb, s in LANES_PATH:
+        G = lanes_state(R, C, mode == "csf", f32, dev)
+        k6 = mrtcg.make_mrtcg_reduced_step(R, C, mp.DEFAULT_RED, mp.DEFAULT_BLUE, dtype=f32,
+                                           surface_tension=mode, substeps=s, **RT)
+        want = G
+        for _ in range(LANES_STEPS // s):
+            want = k6(want)
+        runs.append((mode, R, C, lb, s, G, want))
+    torch.cuda.synchronize()
+
+    for k in counted.values():
+        k.launches = 0
+    wall = {}
+    for mode, R, C, lb, s, G, want in runs:
+        step = mrtcg.make_mrtcg_reduced_lanes_step(R, C, mp.DEFAULT_RED, mp.DEFAULT_BLUE,
+                                                   dtype=f32, surface_tension=mode, substeps=s,
+                                                   lane_block=lb, **RT)
+        label = f"lanes {mode} {R}x{C} lane_block={lb} s={s}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = G
+        for _ in range(LANES_STEPS // s):
+            y = step(y)
+        torch.cuda.synchronize()
+        wall[label] = time.perf_counter() - t0
+        red0, red = G[9].double().sum().item(), y[9].double().sum().item()
+        tot0, tot = G[:9].double().sum().item(), y[:9].double().sum().item()
+        check_gates(f"[5] bench.py --model {'csf' if mode == 'csf' else 'mrtcg'} --lane-block "
+                    f"{lb} --substeps {s}: {R}x{C} float32, {LANES_STEPS} steps (host wall "
+                    f"time {wall[label]!r} s = {wall[label] / LANES_STEPS * 1e6!r} us/step)", {
+            "finite": (float(torch.isfinite(y).all()), 1.0, 1.0),
+            "bit-identical to kernel 6": (float(torch.equal(y, want)), 1.0, 1.0),
+            "red mass drift": (abs(red / red0 - 1.0), 0.0, 1e-5),
+            "mass drift": (abs(tot / tot0 - 1.0), 0.0, 1e-5)})
+    del runs, y
+    torch.cuda.empty_cache()
+    n = counted["mrtcg_reduced_lanes"].launches
+    log(f"[5] kernel 39 path launches: {n} (kernel 6: {counted['mrtcg_reduced'].launches})")
+    if n != sum(LANES_STEPS for _ in LANES_PATH):
+        raise AssertionError("kernel 39 did not launch once per step of its path")
+    return wall
+
+
+def lanes_bound(R, C, lane_block, s, csf, itemsize, ops):
+    """(least ms, "bytes" or "operations", bytes) of one call of kernel 39:
+    each of its ``s`` sweeps reads its input windows and writes its output
+    windows once, C / LB blocks of R rows, sweep k's LB + 2 (m - (k-1) rps)
+    columns in and LB + 2 (m - k rps) out (the first sweep's margins counted
+    exactly, (LB + 2 m) / LB columns per kept column, m = s rps); ``ops``
+    operations per output cell of each sweep over the fp32 peak."""
+    rps, planes = (5, 12) if csf else (3, 10)
+    lanes, m = C // lane_block, s * rps
+    moved = out = 0
+    for k in range(1, s + 1):
+        w_in, w_out = lane_block + 2 * (m - (k - 1) * rps), lane_block + 2 * (m - k * rps)
+        moved += lanes * R * (w_in + w_out)
+        out += lanes * R * w_out
+    nbytes = moved * planes * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, out * ops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+
+
+def lanes_times(dev, card: str) -> dict:
+    """Phase 6 of kernel 39 at 4096x2048 float32 (``LANES_TIMES``): for each
+    mode, lane block and cadence s, kernel 39 (s launches a call) and kernel
+    6 run s times on the same state, each as device ms per step from a CUDA
+    graph of 5 calls (CUDA events around its replays, median of 3 rounds in
+    turns), so the host's launch time is not in them; the plain version
+    eagerly at the phase-5 configuration (lane block 256, s = 5, CSF 4), in
+    the same turns; each configuration's bound (``lanes_bound``, operations
+    counted on the plain reduced step) per step, and the first window's
+    cells per kept cell."""
+    import torch
+
+    from lbm_tpu_torch.kernels import mrtcg
+
+    f32, (R, C) = torch.float32, BIG
+    out = {"ms": {}, "k6_ms": {}, "plain_ms": {}, "bound": {}, "ops": {}, "overhead": {}}
+    for mode, lbs, ss in LANES_TIMES:
+        csf = mode == "csf"
+        ops = out["ops"][mode] = plain_ops("csf" if csf else "mrtcg")
+        G = lanes_state(R, C, csf, f32, dev)
+        calls = {}
+        for s in ss:
+            for lb in lbs:
+                lanes, k6, plain = lanes_steps(mode, R, C, f32, lb, s)
+                calls["lanes", lb, s] = lanes
+                if s == max(ss) and lb == 256:
+                    calls["plain", lb, s] = plain
+            calls["k6", 0, s] = k6
+        runs = {key: [] for key in calls}
+        for order in (0, 1, 2):
+            for key in (list(runs) if order != 1 else list(runs)[::-1]):
+                kind, _, s = key
+                if kind == "plain":
+                    t = cuda_ms(lambda fn=calls[key]: fn(G), 2) / s
+                else:
+                    t = graph_ms(calls[key], G, 5) / s
+                runs[key].append(t)
+        med = {key: sorted(v)[1] for key, v in runs.items()}
+        for (kind, lb, s), t in med.items():
+            if kind == "k6":
+                out["k6_ms"][mode, s] = t
+                log(f"[6] {card}; kernel 6 {mode} {R}x{C} float32 x {s}: {t!r} ms/step (runs "
+                    f"{runs[kind, lb, s]})")
+            elif kind == "plain":
+                out["plain_ms"][mode] = t
+                log(f"[6] kernel 39 plain version {mode} lane_block={lb} s={s}: {t!r} ms/step "
+                    f"(runs {runs[kind, lb, s]})")
+        for (kind, lb, s), t in med.items():
+            if kind != "lanes":
+                continue
+            b = lanes_bound(R, C, lb, s, csf, 4, ops)
+            out["ms"][mode, lb, s] = t
+            out["bound"][mode, lb, s] = (b[0] / s, b[1])
+            out["overhead"][mode, lb, s] = mrtcg.lane_overhead(lb, s * mrtcg.rows_per_sweep(mode))
+            log(f"[6] kernel 39 {mode} {R}x{C} float32 lane_block={lb} s={s}: {t!r} ms/step "
+                f"(runs {runs[kind, lb, s]}) = {R * C / (t * 1e-3) / 1e6!r} MLUPS; over kernel 6 "
+                f"x {s} {t / out['k6_ms'][mode, s] - 1.0!r}; bound {b[0] / s!r} ms/step by "
+                f"{b[1]} ({b[2] / s!r} B/step, {ops!r} flops/cell); first window "
+                f"{out['overhead'][mode, lb, s]!r} cells per kept cell")
+        del calls, G
+        torch.cuda.empty_cache()
+    return out
+
+
+def lanes_entry(launches: dict, errs: dict, tm: dict) -> dict:
+    """The kernels line's entry of kernel 39: ``ms`` and ``bound_ms`` per step at
+    the phase-5 configuration (4096x2048 float32, lane block 256, 5 steps a
+    call), every other configuration beside them."""
+    import torch
+
+    f32, f64, key = torch.float32, torch.float64, ("perturbation", 256, 5)
+    e = {"name": "mrtcg_reduced_lanes", "route": "cuda",
+         "source": "lbm_tpu_torch/csrc/mrtcg_reduced.cu",
+         "replaces": "lbm_tpu/kernels/mrtcg_pallas.py:1033",
+         "launches": launches["mrtcg_reduced_lanes"], "max_abs_err": errs["plain"][f32],
+         "max_abs_err_f64": errs["plain"][f64], "max_abs_err_vs_kernel_6": errs["k6"][f32],
+         "max_abs_err_vs_kernel_6_f64": errs["k6"][f64],
+         "bit_identical_to_kernel_6": errs["all_equal"], "ms": tm["ms"][key],
+         "plain_ms": tm["plain_ms"]["perturbation"], "bound_ms": tm["bound"][key][0],
+         "bound_by": tm["bound"][key][1], "library_ms": None,
+         "shape": "4096x2048 float32, lane_block 256, 5 steps a call; per step",
+         "kernel_6_ms": tm["k6_ms"]["perturbation", 5],
+         "plain_ms_csf_s4": tm["plain_ms"]["csf"],
+         "flops_per_cell": tm["ops"]["perturbation"], "flops_per_cell_csf": tm["ops"]["csf"]}
+    for (mode, lb, s), t in tm["ms"].items():
+        tag = f"{'csf_' if mode == 'csf' else ''}lb{lb}_s{s}"
+        e[f"ms_{tag}"] = t
+        e[f"kernel_6_ms_{tag}"] = tm["k6_ms"][mode, s]
+        e[f"bound_ms_{tag}"] = tm["bound"][mode, lb, s][0]
+        e[f"first_window_cells_per_kept_{tag}"] = tm["overhead"][mode, lb, s]
+    return e
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2236,7 +2523,8 @@ def main() -> int:
                "halo_shan_chen": ksh.HALO_SHAN_CHEN, "halo_d3q19": ksh.HALO_D3Q19,
                **{f"halo2d_{kind}": k for kind, k in k2d.HALO2D_COLLIDE_STREAM.items()},
                "halo2d_shan_chen": k2d.HALO2D_SHAN_CHEN, "halo2d_thermal": k2d.HALO2D_THERMAL,
-               "halo2d_rk": k2d.HALO2D_RK, "halo2d_mrtcg_full": k2d.HALO2D_MRTCG_FULL}
+               "halo2d_rk": k2d.HALO2D_RK, "halo2d_mrtcg_full": k2d.HALO2D_MRTCG_FULL,
+               "mrtcg_reduced_lanes": mrtcg.MRTCG_REDUCED_LANES}
     markers = str(ROOT / "configs" / "cylinder-markers.toml")
     trt_minus = omega_minus_from_magic(TRT_OMEGA)
     VARIANTS = variants()
@@ -2269,7 +2557,8 @@ def main() -> int:
             log(f"[2]   {line.strip()}")
     # kernels 25-26: the four instances of csrc/d3q19.cu's single-device step
     # (float and double, planes and lanes); kernels 31-38: their instances
-    # (type x mode, collision or eos x forcing, x edge); with their
+    # (type x mode, collision or eos x forcing, x edge); kernel 39: type x
+    # mode; with their
     # registers and spills (a mark is a length-prefixed part of the mangled
     # name, so that "shan_chen_halo" does not also take "shan_chen_halo2d")
     build_log = lib.with_suffix(".log").read_text()
@@ -2280,7 +2569,8 @@ def main() -> int:
             (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16),
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
             (36, ("thermal",), "21thermal_halo2d_kernel", 4),
-            (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 8)):
+            (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 8),
+            (39, ("mrtcg_reduced",), "6LaneIO", 4)):
         found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
         for name, regs, spill in found:
             log(f"[2] kernel(s) {kernel}: {name}: {regs} registers; {spill}")
@@ -2619,6 +2909,9 @@ def main() -> int:
     # steps from noisy states
     err25, err26 = d3q19_hold(dev)
     err_sh = sharded_hold(dev)
+    # kernel 39 at bench.py's lane-block shapes, against kernel 6 and its
+    # plain version
+    err39 = lanes_hold(dev)
 
     # 5. the main path
     for k in counted.values():
@@ -3398,6 +3691,9 @@ def main() -> int:
     # kernels 35-38: the same
     k35_38_path(dev, counted)
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
+    # kernel 39: the same
+    lanes_path(dev, counted)
+    launches = {name: launches[name] + k.launches for name, k in counted.items()}
     log(f"[5] main-path launches: {launches}")
     if not all(launches.values()):
         raise AssertionError("a kernel of the main path was never launched")
@@ -3765,6 +4061,7 @@ def main() -> int:
 
     d3_times = d3q19_times(dev, card, d3_wall)
     sh_times = sharded_times(dev, card)
+    lanes_tm = lanes_times(dev, card)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -3935,6 +4232,7 @@ def main() -> int:
             "gate_host_ms_per_step": th_graph[name][1]})
     kernels += d3q19_entries(launches, err25, err26, d3_times)
     kernels += sharded_entries(launches, err_sh, sh_times)
+    kernels.append(lanes_entry(launches, err39, lanes_tm))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

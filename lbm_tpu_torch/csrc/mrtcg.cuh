@@ -32,13 +32,15 @@
 // column's stencil taps sit in a small "seam" window of H columns at the
 // far edge, filled by the edge blocks only.
 //
-// The columns a launch works on are a policy (PeriodicCols, BandCols): the
-// grid's C columns, wrapped as above, for the single-device and row-sharded
-// kernels; or the padded columns of a rows x cols shard (csrc/halo2d.cuh,
-// kernels 37 and 38), where a value is read at its padded column (the
-// strips hold the neighbours', so nothing wraps and no seam is needed)
-// while the rules, the stencils' replicate clamp and the column repair of
-// the stream, use the padded column's wrapped global column.
+// The columns a launch works on are a policy (PeriodicCols, BandCols,
+// LaneCols): the grid's C columns, wrapped as above, for the single-device
+// and row-sharded kernels; or the padded columns of a rows x cols shard
+// (csrc/halo2d.cuh, kernels 37 and 38), or the window of a lane block
+// (kernel 39), where a value is read at its padded or window column (the
+// strips or the window's margins hold the neighbours', so nothing wraps
+// and no seam is needed) while the rules, the stencils' replicate clamp
+// and the column repair of the stream, use that column's wrapped global
+// column.
 //
 // State layouts (planes of R*C, row-major): reduced in/out = 9 summed
 // populations, red density (+ fstx, fsty); full = 9 red, 9 blue (+ fst).
@@ -168,6 +170,38 @@ struct BandCols {
   __device__ __forceinline__ bool readable(int64_t c) const { return c >= rd_lo && c < rd_hi; }
   __device__ __forceinline__ int64_t ring(int64_t c) const { return c; }
   __device__ __forceinline__ int64_t global(int64_t c) const { return wrap(off + c, C); }
+  __device__ __forceinline__ int64_t tap(int64_t c, int d) const {
+    const int64_t g = global(c);
+    return c + (clamp_index(g + d, C) - g);
+  }
+};
+
+// LaneCols: the window of lane block j = blockIdx.z of one grid (kernel 39),
+// c = the window column q, which holds global column j lb - margin + q
+// wrapped into [0, C).  A launch reads the window [0, lb + 2 margin) and
+// writes its columns [rps, lb + 2 margin - rps), rps the columns a sweep
+// consumes (the engine's H); the taps and the column repair as BandCols',
+// at the wrapped global column.  The wrap is three selects, no division
+// (every stencil tap computes it): `off` = -margin mod C, set on the host,
+// puts j lb + off in [0, 2C), and a window at most 2C wide (the host's
+// guard) puts the column in [0, 3C).
+struct LaneCols {
+  static constexpr bool SEAM = false;
+  int64_t C, lb, margin, rps, off;
+
+  __host__ __device__ __forceinline__ int64_t first() const { return rps; }
+  __host__ __device__ __forceinline__ int64_t end() const { return lb + 2 * margin - rps; }
+  __device__ __forceinline__ bool readable(int64_t c) const {
+    return c >= 0 && c < lb + 2 * margin;
+  }
+  __device__ __forceinline__ int64_t ring(int64_t c) const { return c; }
+  __device__ __forceinline__ int64_t global(int64_t c) const {
+    int64_t g = off + static_cast<int64_t>(blockIdx.z) * lb;
+    g = g >= C ? g - C : g;
+    g += c;
+    g = g >= C ? g - C : g;
+    return g >= C ? g - C : g;
+  }
   __device__ __forceinline__ int64_t tap(int64_t c, int d) const {
     const int64_t g = global(c);
     return c + (clamp_index(g + d, C) - g);
@@ -579,6 +613,39 @@ struct FlatIO {
   }
 };
 
+// Kernel 39's memory: rows by global index, columns by window column q of
+// lane block j = blockIdx.z (LaneCols).  It reads the state itself at q's
+// wrapped global column (the first sweep: no gather copy) or the previous
+// sweep's windows, (lanes, planes, R, w_in); it writes the next sweep's
+// windows, (lanes, planes, R, w_out), whose column 0 is q = rps, or on the
+// last sweep (margin rps, w_out = lb) the state's columns [j lb, (j + 1) lb).
+template <typename T>
+struct LaneIO {
+  const T* in;
+  T* out;
+  int64_t R, planes, w_in, w_out;
+  LaneCols cols;
+  bool in_state, out_state;
+
+  __device__ __forceinline__ const T* src(int64_t gr, int64_t q, int64_t& plane) const {
+    if (in_state) {
+      plane = R * cols.C;
+      return in + gr * cols.C + cols.global(q);
+    }
+    plane = R * w_in;
+    return in + static_cast<int64_t>(blockIdx.z) * planes * plane + gr * w_in + q;
+  }
+  __device__ __forceinline__ T* dst(int64_t gr, int64_t q, int64_t& plane) const {
+    const int64_t o = q - cols.rps;
+    if (out_state) {
+      plane = R * cols.C;
+      return out + gr * cols.C + static_cast<int64_t>(blockIdx.z) * cols.lb + o;
+    }
+    plane = R * w_out;
+    return out + static_cast<int64_t>(blockIdx.z) * planes * plane + gr * w_out + o;
+  }
+};
+
 // The global rows of a launch: the grid's R (its walls at rows 0 and R-1),
 // the rows it may read [rd_lo, rd_hi) and the rows it writes [o_lo, o_hi).
 struct Rows {
@@ -721,10 +788,11 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // One launch over the rows `rows` and the columns `cols` with the memory
-// `io`; returns the cudaError_t of the launch (0 = accepted).
+// `io` (`lanes` lane blocks along the grid's z, kernel 39); returns the
+// cudaError_t of the launch (0 = accepted).
 template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE, typename Cols>
 int launch_rows(const IO& io, const Rows& rows, const Cols cols, const double* params,
-                cudaStream_t stream) {
+                cudaStream_t stream, unsigned lanes = 1) {
   const int64_t width = cols.end() - cols.first();
   if (rows.o_hi <= rows.o_lo || width <= 0) return 0;
   Params<T> p;
@@ -735,7 +803,7 @@ int launch_rows(const IO& io, const Rows& rows, const Cols cols, const double* p
                                     static_cast<int>(smem), configured);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((width + TX - 1) / TX),
-                  static_cast<unsigned>((rows.o_hi - rows.o_lo + TY - 1) / TY));
+                  static_cast<unsigned>((rows.o_hi - rows.o_lo + TY - 1) / TY), lanes);
   mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols><<<grid, THREADS, smem, stream>>>(io, rows,
                                                                                    cols, p);
   return static_cast<int>(cudaGetLastError());
@@ -822,6 +890,26 @@ int dispatch_halo(const long long* geom, const double* params, int csf, int is_f
                : launch_halo<double, false, RIN, ROUT>(geom, params, s);
   return csf ? launch_halo<float, true, RIN, ROUT>(geom, params, s)
              : launch_halo<float, false, RIN, ROUT>(geom, params, s);
+}
+
+// Kernel 39: one sweep of the reduced step over the C / lb lane blocks of
+// one grid, the input window's margin `margin` (in_state: the input is the
+// state), the output's margin - H (out_state: the state, margin == H); a
+// window at most 2C wide.
+template <typename T, bool CSF>
+int launch_lanes(const void* in, void* out, long long R, long long C, long long lb,
+                 long long margin, int in_state, int out_state, const double* params,
+                 cudaStream_t stream) {
+  constexpr int H = CSF ? 5 : 3;  // the columns a sweep consumes
+  if (R < 4 || C < 3 || lb <= 0 || C % lb != 0 || C / lb > 65535 || margin < H ||
+      lb + 2 * margin > 2 * C || (out_state != 0) != (margin == H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LaneCols cols{C, lb, margin, H, (C - margin % C) % C};
+  const int64_t w_in = lb + 2 * margin;
+  const LaneIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), R, CSF ? 12 : 10, w_in,
+                     w_in - 2 * H, cols, in_state != 0, out_state != 0};
+  return launch_rows<T, CSF, true, true, LaneIO<T>, true>(io, Rows{R, 0, R, 0, R}, cols, params,
+                                                          stream, static_cast<unsigned>(C / lb));
 }
 
 template <bool RIN, bool ROUT>

@@ -29,6 +29,26 @@
 // rows stay at the grid's global rows 0 and R-1, and interior ranks run
 // the instance without row clamps or wall rows.  It replaces
 // lbm_tpu/kernels/sharded_pallas.py:453 make_sharded_mrtcg_reduced_step.
+//
+// And kernel 39, lbm_mrtcg_reduced_lanes: the same step over lane blocks of
+// lb columns of one grid (kernels/mrtcg.py make_mrtcg_reduced_lanes_step),
+// replacing lbm_tpu/kernels/mrtcg_pallas.py:1033
+// make_mrtcg_reduced_lanes_step.  A call of s steps is s sweeps, each one
+// grid over every lane block (blockIdx.z) on the tile engine with its
+// columns a block's window (mrtcg::LaneCols, mrtcg::LaneIO): sweep k reads
+// the window [j lb - m_k-1, (j + 1) lb + m_k-1) of wrapped global columns
+// and writes its middle, m_k = (s - k) H, H the columns a sweep consumes
+// (3, CSF 5); a window is at most 2C wide (a deeper call runs as passes,
+// kernels/mrtcg.py lane_windows).  The first sweep reads the state in
+// place, the last writes the middle lb columns of each block into the
+// output state.  The margins
+// are the step's reach, not lbm_tpu's 128-lane Mosaic tiles: the first
+// sweep computes (lb + 2 (s - 1) H) / lb cells per kept cell.  The per-cell
+// code is kernel 6's, so a call equals kernel 6 run s times bit for bit.
+// Bytes: each sweep reads and writes its window band once, (lb + 2 m_k-1)
+// and (lb + 2 m_k) columns of 10 planes (12 CSF) per block; its time
+// against kernel 6 run s times is PERF.md's answer to the lane-blocking
+// question on this card.
 
 #include "mrtcg.cuh"
 
@@ -43,4 +63,25 @@ extern "C" int lbm_mrtcg_reduced(const void* in, void* out, long long R, long lo
 extern "C" int lbm_halo_mrtcg_reduced(const long long* geom, const double* params, int csf,
                                       int, int is_f64, void* stream) {
   return lbm::mrtcg::dispatch_halo<true, true>(geom, params, csf, is_f64, stream);
+}
+
+// Kernel 39: one sweep of the reduced step over the C / lb lane blocks, the
+// input's margin `margin` (in_state: the input is the state; out_state: the
+// output is the state, margin == 3, CSF 5), `params` those of
+// lbm_mrtcg_reduced.
+extern "C" int lbm_mrtcg_reduced_lanes(const void* in, void* out, long long R, long long C,
+                                       long long lb, long long margin, int in_state,
+                                       int out_state, const double* params, int csf,
+                                       int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using lbm::mrtcg::launch_lanes;
+  if (is_f64)
+    return csf ? launch_lanes<double, true>(in, out, R, C, lb, margin, in_state, out_state,
+                                            params, s)
+               : launch_lanes<double, false>(in, out, R, C, lb, margin, in_state, out_state,
+                                             params, s);
+  return csf ? launch_lanes<float, true>(in, out, R, C, lb, margin, in_state, out_state, params,
+                                         s)
+             : launch_lanes<float, false>(in, out, R, C, lb, margin, in_state, out_state, params,
+                                          s);
 }

@@ -26,6 +26,20 @@ plain version on a CPU state (``xmath.resolve_fused``):
   * ``make_mrtcg_split_step``    kernel 7, csrc/mrtcg_split.cu
   * ``make_mrtcg_fused_step`` / ``make_csf_fused_step``
                                  kernel 8, csrc/mrtcg_full.cu
+  * ``make_mrtcg_reduced_lanes_step``
+                                 kernel 39, csrc/mrtcg_reduced.cu: the reduced
+                                 step over lane blocks of one grid
+
+The lanes step (lbm_tpu mrtcg_pallas.py:1033, the lane-blocking experiment)
+advances ``substeps`` steps per call, lane block by lane block: block j of
+``lane_block`` = LB columns runs the plain step on its window [j LB - m,
+(j + 1) LB + m) of wrapped global columns and keeps the middle LB.  The
+margin is the step's reach, m = substeps rps (rps = 3, CSF 5: the columns a
+step's stencils and stream consume, lbm_tpu's rows_per_sweep), not lbm_tpu's
+128-lane Mosaic tiles; ``lane_overhead`` counts the cells computed per cell
+kept, (LB + 2 m) / LB, exactly.  lbm_tpu's lanes step crashes at trace time
+when LB + 256 > C (mrtcg_pallas.py:1110) and floor-divides its overhead
+factor (:1125); the port takes every argument lbm_tpu's guards take.
 """
 
 from __future__ import annotations
@@ -67,6 +81,13 @@ def _check_substeps(substeps) -> int:
     if int(substeps) != substeps or substeps < 1:
         raise ValueError(f"substeps must be an int >= 1, got {substeps!r}")
     return int(substeps)
+
+
+def rows_per_sweep(surface_tension: str = "perturbation") -> int:
+    """The lines one step's stencils and stream consume at a block's edge:
+    3 (two 5x5 stencils deep plus the stream), 5 in CSF mode (the
+    curvature chains two more) (lbm_tpu mrtcg_pallas.py:1066)."""
+    return 5 if _check_mode(surface_tension) else 3
 
 
 def reduced_planes(surface_tension: str = "perturbation") -> int:
@@ -417,6 +438,50 @@ def make_plain_step(red, blue, sigma, gravity=(0.0, 0.0), delta=0.1,
     return step
 
 
+def lane_overhead(lane_block: int, margin: int) -> float:
+    """Cells a lane block's window holds per cell it keeps, (LB + 2 margin)
+    / LB, in exact arithmetic: 1.5 for lbm_tpu's 128-lane margins at LB =
+    512, where its ``1 + 2 * CHALO // LB`` reads 1 (mrtcg_pallas.py:1125)."""
+    return (lane_block + 2 * margin) / lane_block
+
+
+def lane_windows(C: int, lane_block: int, substeps: int, rps: int) -> list[int]:
+    """The steps of each window pass of a call: ``substeps`` in one pass
+    whose windows, LB + 2 substeps rps columns, are at most 2C wide, which
+    lbm_tpu's guards admit up to 128 columns of margin; beyond that,
+    passes of the deepest such window, one after another (the same
+    result: each pass is exact)."""
+    deepest = (2 * C - lane_block) // (2 * rps)
+    if deepest < 1:
+        raise ValueError(f"a lane block of {lane_block} columns with margins of {rps} leaves "
+                         f"a window wider than 2C = {2 * C}")
+    return [min(deepest, substeps - done) for done in range(0, substeps, deepest)]
+
+
+def plain_mrtcg_reduced_lanes_step(S: torch.Tensor, step, lane_block: int, substeps: int,
+                                   rps: int) -> torch.Tensor:
+    """The plain version of kernel 39: for each lane block j, n runs of the
+    plain reduced ``step`` (``make_plain_step``) on the window [j LB - m,
+    (j + 1) LB + m) of wrapped global columns, m = n rps, given its global
+    columns (the stencils' replicate clamp and the column repair at the
+    grid's columns 0 and C-1); the middle LB columns kept.  Each step leaves
+    rps more columns stale at the window's edges.  n = ``substeps``, or
+    ``lane_windows``' passes one after another."""
+    C = S.shape[-1]
+    for n in lane_windows(C, lane_block, substeps, rps):
+        m = n * rps
+        blocks = []
+        for j in range(C // lane_block):
+            cols = torch.arange(j * lane_block - m, (j + 1) * lane_block + m,
+                                device=S.device) % C
+            W = S[:, :, cols]
+            for _ in range(n):
+                W = step(W, cols=cols, grid_cols=C)
+            blocks.append(W[:, :, m:m + lane_block])
+        S = torch.cat(blocks, dim=2)
+    return S
+
+
 # --- the CUDA kernels ----------------------------------------------------------
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -425,6 +490,11 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longl
 MRTCG_REDUCED = _build.CudaKernel("lbm_mrtcg_reduced", _ARGTYPES)
 MRTCG_SPLIT = _build.CudaKernel("lbm_mrtcg_split", _ARGTYPES)
 MRTCG_FULL = _build.CudaKernel("lbm_mrtcg_full", _ARGTYPES)
+MRTCG_REDUCED_LANES = _build.CudaKernel(
+    "lbm_mrtcg_reduced_lanes",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def launch_mrtcg(kernel: _build.CudaKernel, S: torch.Tensor, params, csf: bool,
@@ -452,6 +522,44 @@ def launch_mrtcg(kernel: _build.CudaKernel, S: torch.Tensor, params, csf: bool,
             kernel.launch(src.data_ptr(), dst.data_ptr(), R, C, c_params, int(csf),
                           int(S.dtype == torch.float64), stream)
             src = dst
+    return src
+
+
+def launch_mrtcg_lanes(S: torch.Tensor, params, csf: bool, lane_block: int,
+                       substeps: int) -> torch.Tensor:
+    """Kernel 39: ``substeps`` sweeps of the reduced step over the C / LB
+    lane blocks of the state ``S``, one launch each, into a fresh state
+    (``S`` is never written).  Sweep k of a window pass of n reads margin
+    m - (k-1) rps of each block's window and writes margin m - k rps, m = n
+    rps: the first reads its input state in place, the middle ones
+    ping-pong two window buffers (C / LB, planes, R, LB + 2 (m - k rps)),
+    the last writes the pass's output state (``lane_windows``: one pass
+    unless the window would be wider than 2C).  Raises on a tensor the
+    kernel does not take and on a refused launch."""
+    substeps = _check_substeps(substeps)
+    mode = "csf" if csf else "perturbation"
+    planes, rps = reduced_planes(mode), rows_per_sweep(mode)
+    R, C = _build.check_state(S, planes)
+    if R < 4 or C < 3 or C % lane_block:
+        raise ValueError(f"the lanes kernel takes R >= 4, C >= 3 and lane blocks dividing "
+                         f"C, got {R}x{C}, lane_block={lane_block}")
+    lanes = C // lane_block
+    c_params = _build.c_doubles(params)
+    with torch.cuda.device(S.device):
+        stream = _build.stream_handle(S)
+        src = S
+        for n in lane_windows(C, lane_block, substeps, rps):
+            m = n * rps
+            out = torch.empty_like(S)
+            bufs = [torch.empty(lanes * planes * R * (lane_block + 2 * (m - k * rps)),
+                                dtype=S.dtype, device=S.device) for k in (1, 2) if k < n]
+            for k in range(1, n + 1):
+                dst = out if k == n else bufs[(k - 1) % 2]
+                MRTCG_REDUCED_LANES.launch(src.data_ptr(), dst.data_ptr(), R, C, lane_block,
+                                           m - (k - 1) * rps, int(k == 1), int(k == n),
+                                           c_params, int(csf), int(S.dtype == torch.float64),
+                                           stream)
+                src = dst
     return src
 
 
@@ -526,3 +634,48 @@ def make_csf_fused_step(R: int, C: int, red: ColourParams, blue: ColourParams,
     blue f, fst]: kernel 8 in CSF mode on a CUDA state."""
     return _factory(R, C, red, blue, sigma, gravity, delta, apply_gravity_source,
                     dtype, "csf", substeps, MRTCG_FULL, False, False)
+
+
+def make_mrtcg_reduced_lanes_step(R: int, C: int, red: ColourParams, blue: ColourParams,
+                                  sigma: float, gravity=(0.0, 0.0), delta: float = 0.1,
+                                  apply_gravity_source: bool = True,
+                                  dtype: torch.dtype = torch.float32,
+                                  surface_tension: str = "perturbation", substeps: int = 1,
+                                  lane_block: int = 256):
+    """The lane-blocked reduced MRT-CG step (lbm_tpu mrtcg_pallas.py:1033):
+    G (10, R, C) -> (10, R, C) ((12, R, C) in CSF mode), ``substeps`` steps
+    per call, lane block by lane block over windows with margins of
+    ``substeps * rows_per_sweep`` columns.  Kernel 39 on a CUDA state (one
+    launch per step), ``plain_mrtcg_reduced_lanes_step`` on a CPU state;
+    either equals the reduced step run ``substeps`` times.  Takes exactly
+    the arguments lbm_tpu's guards take (mrtcg_pallas.py:1070-1078: LB a
+    multiple of 128 dividing C, LB + 256 <= 2C; the same ValueErrors), LB +
+    256 > C included, though the port's margins are not 128-lane tiles.
+    ``step.margin`` is the first window's margin and ``step.overhead`` its
+    cells per cell kept, ``lane_overhead`` (a call of more steps than a
+    window 2C wide holds runs ``lane_windows``' passes)."""
+    csf = _check_mode(surface_tension)
+    substeps = _check_substeps(substeps)
+    if lane_block % 128 or C % lane_block:
+        raise ValueError(f"lane_block must be a 128-multiple dividing C "
+                         f"(lane_block={lane_block}, C={C})")
+    if lane_block + 256 > 2 * C:
+        raise ValueError(f"lane_block + 256 must be <= 2C ({lane_block + 256} > {2 * C})")
+    p = reduced_planes(surface_tension)
+    rps = rows_per_sweep(surface_tension)
+    c_params = _build.c_doubles(kernel_params(red, blue, sigma, gravity, delta,
+                                              apply_gravity_source))
+    plain = make_plain_step(red, blue, sigma, gravity, delta, apply_gravity_source,
+                            surface_tension)
+
+    def step(G: torch.Tensor) -> torch.Tensor:
+        if tuple(G.shape) != (p, R, C) or G.dtype != dtype:
+            raise ValueError(f"state {tuple(G.shape)} {G.dtype}, step built for "
+                             f"({p}, {R}, {C}) {dtype}")
+        if resolve_fused(G):
+            return launch_mrtcg_lanes(G, c_params, csf, lane_block, substeps)
+        return plain_mrtcg_reduced_lanes_step(G, plain, lane_block, substeps, rps)
+
+    step.margin = lane_windows(C, lane_block, substeps, rps)[0] * rps
+    step.overhead = lane_overhead(lane_block, step.margin)
+    return step

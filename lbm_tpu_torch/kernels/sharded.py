@@ -95,7 +95,8 @@ HALO = 8
 COLLIDE_KINDS = ("bgk", "kbc", "les", "trt", "power_law")
 #: halo rows one sweep consumes (the push, plus the stencils' reach)
 ROWS_PER_SWEEP = {**{kind: 1 for kind in COLLIDE_KINDS}, "thermal": 1,
-                  "mrtcg": 3, "csf": 5, "rk": 3, "shan_chen": 2, "d3q19": 1}
+                  "mrtcg": mrtcg.rows_per_sweep("perturbation"),
+                  "csf": mrtcg.rows_per_sweep("csf"), "rk": 3, "shan_chen": 2, "d3q19": 1}
 #: ``substeps="auto"``: the deepest cadence of each family's strip (8 rows
 #: for the 1-row families, 4 sweeps of Shan-Chen's 2 rows; lbm_tpu's
 #: deepest measured MRT-CG cadence, 5 on a 16-row strip, and CSF's, 4 on a

@@ -1618,3 +1618,106 @@ def test_kernels_35_to_38_reject_what_they_do_not_take(cuda):
                                                     dtype=torch.float64)(f))
     with pytest.raises(ValueError, match=r"substeps must be an int in \[1, 4\]"):
         k2d.make_sharded2d_sc_step(mesh, R, C, omega=1.0, G=-5.0, substeps=5)
+
+
+# --- kernel 39: the lane-blocked reduced MRT-CG step ------------------------------
+
+# (R, C, lane_block, substeps): LB in {128, 256, C} at s in {1, 2, 5}, and
+# the ADVICE.md shapes (R = 24, C = 256, LB + 256 > C), where lbm_tpu's lanes
+# step fails to trace
+LANES_CASES = ([(37, 512, lb, s) for lb in (128, 256, 512) for s in (1, 2, 5)]
+               + [(24, 256, 256, 2), (24, 256, 128, 2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,lane_block,substeps", LANES_CASES)
+@pytest.mark.parametrize("surface_tension", ["perturbation", "csf"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lanes_kernel_matches_kernel_6_and_plain(cuda, dtype, surface_tension, R, C,
+                                                 lane_block, substeps):
+    """Kernel 39, one launch per step, bit for bit kernel 6 run ``substeps``
+    times, and within TOL of its plain version on the same card."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    csf = surface_tension == "csf"
+    S = _two_phase_state(R, C, dtype, cuda, surface_tension, seed=R + lane_block + substeps)
+    G = mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C), surface_tension)
+    kw = dict(dtype=dtype, surface_tension=surface_tension, substeps=substeps, **MRTCG_KW)
+    lanes = mrtcg.make_mrtcg_reduced_lanes_step(R, C, red, blue, lane_block=lane_block, **kw)
+    before = mrtcg.MRTCG_REDUCED_LANES.launches
+    got = lanes(G)
+    torch.cuda.synchronize()
+    assert mrtcg.MRTCG_REDUCED_LANES.launches - before == substeps
+    want = mrtcg.make_mrtcg_reduced_step(R, C, red, blue, **kw)(G)
+    plain = mrtcg.plain_mrtcg_reduced_lanes_step(
+        G, mrtcg.make_plain_step(red, blue, surface_tension=surface_tension, **MRTCG_KW),
+        lane_block, substeps, mrtcg.rows_per_sweep(surface_tension))
+    assert got.is_cuda and got.dtype == dtype and got.shape == G.shape
+    assert torch.equal(got, want)
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface_tension,substeps", [("perturbation", 44), ("csf", 27)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lanes_kernel_deep_calls_match_kernel_6(cuda, dtype, surface_tension, substeps):
+    """A call deeper than a window 2C wide holds (LB = C = 256) runs as
+    window passes (kernels/mrtcg.py lane_windows), one launch per step, bit
+    for bit kernel 6, from the layers at rest."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.models.mrt_cg import MRTCGModel
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    R, C = 48, 256
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    st = MRTCGModel(red=red, blue=blue, **MRTCG_KW).init_state(
+        mp.init_rho_cosine(R, C, red.rho_0, True, 1.0),
+        mp.init_rho_cosine(R, C, blue.rho_0, False, 1.0), dtype=dtype, device=cuda)
+    csf = surface_tension == "csf"
+    S = torch.cat([st.red.f, st.blue.f] + ([torch.zeros((2, R, C), dtype=dtype, device=cuda)]
+                                           if csf else []))
+    G = mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C), surface_tension)
+    kw = dict(dtype=dtype, surface_tension=surface_tension, substeps=substeps, **MRTCG_KW)
+    rps = mrtcg.rows_per_sweep(surface_tension)
+    assert len(mrtcg.lane_windows(C, C, substeps, rps)) == 2
+    before = mrtcg.MRTCG_REDUCED_LANES.launches
+    got = mrtcg.make_mrtcg_reduced_lanes_step(R, C, red, blue, lane_block=C, **kw)(G)
+    torch.cuda.synchronize()
+    assert mrtcg.MRTCG_REDUCED_LANES.launches - before == substeps
+    want = mrtcg.make_mrtcg_reduced_step(R, C, red, blue, **kw)(G)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lanes_kernel_rejects_what_it_does_not_take(cuda):
+    """The wrapper raises on a tensor kernel 39 does not take, and a launch
+    the C side refuses (a margin narrower than one sweep) raises."""
+    from lbm_tpu_torch.kernels import _build, mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    params = mrtcg.kernel_params(mp.DEFAULT_RED, mp.DEFAULT_BLUE, 1e-4, (0.0, 0.0), 0.1, True)
+    S = torch.zeros((10, 8, 256), dtype=torch.float64, device=cuda)
+
+    def launch(x, lane_block=128):
+        return mrtcg.launch_mrtcg_lanes(x, params, False, lane_block, 2)
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch(S.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(S[:, :, ::2])
+    with pytest.raises(TypeError):
+        launch(S.to(torch.int32))
+    with pytest.raises(ValueError, match=r"\(10, R, C\)"):
+        launch(S[:9].contiguous())
+    with pytest.raises(ValueError, match="lane blocks dividing"):
+        launch(S, lane_block=96)
+    with pytest.raises(ValueError, match="wider than 2C"):
+        mrtcg.launch_mrtcg_lanes(torch.zeros((10, 8, 4), dtype=torch.float64, device=cuda),
+                                 params, False, 4, 1)
+    out = torch.empty_like(S)
+    with pytest.raises(RuntimeError, match="lbm_mrtcg_reduced_lanes: launch failed"):
+        mrtcg.MRTCG_REDUCED_LANES.launch(S.data_ptr(), out.data_ptr(), 8, 256, 128, 1, 1, 1,
+                                         _build.c_doubles(params), 0, 1,
+                                         _build.stream_handle(S))

@@ -223,6 +223,7 @@ def test_import_loads_no_jax():
             "import lbm_tpu_torch.kernels.sharded, lbm_tpu_torch.kernels.sharded2d\n"
             "from lbm_tpu_torch.kernels.sharded2d import (make_sharded2d_mrtcg_step,\n"
             "    make_sharded2d_rk_step, make_sharded2d_sc_step, make_sharded2d_thermal_step)\n"
+            "from lbm_tpu_torch.kernels.mrtcg import make_mrtcg_reduced_lanes_step\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
             "assert not bad, bad\n")
@@ -276,6 +277,7 @@ def test_port_imports_alone(tmp_path):
             "import lbm_tpu_torch\n"
             "from lbm_tpu_torch.kernels.sharded2d import (make_sharded2d_mrtcg_step,\n"
             "    make_sharded2d_rk_step, make_sharded2d_sc_step, make_sharded2d_thermal_step)\n"
+            "from lbm_tpu_torch.kernels.mrtcg import make_mrtcg_reduced_lanes_step\n"
             f"assert lbm_tpu_torch.__file__.startswith({str(tmp_path)!r}), lbm_tpu_torch.__file__\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'lbm_tpu' or m.startswith('lbm_tpu.')]\n"
