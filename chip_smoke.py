@@ -1931,17 +1931,20 @@ def k35_38_path(dev, counted) -> dict:
 
 
 def sharded_bound(family, shape, n, s, itemsize, ops):
-    """(least ms, "bytes" or "operations", bytes) of one call of a sharded
-    kernel step of kernels 27-38 (``s`` sweeps per exchange) at ``shape`` (R,
-    C), or (X, Y, Z) for "d3q19 <walls>", on ``n`` shards (kernels 34-38: an
-    (nx, ny) mesh): each sweep reads its input band and writes its output
-    band once (kernels/sharded.py sweep_bands, sharded2d.py
-    sweep_bands_2d); the exchange reads and writes once each halo line that
-    the first sweep's input band reads beyond the shard (s r rows per sweep
-    each side, r the lines a sweep consumes, clipped at a wall; kernels
-    34-38: s r rows and s r columns), not the whole 8-aligned strip the step
-    sends; ``ops`` operations per output cell of each sweep over the fp32
-    peak."""
+    """(least ms, "bytes" or "operations", bytes, design bytes) of one call
+    of a sharded kernel step of kernels 27-38 (``s`` steps per exchange) at
+    ``shape`` (R, C), or (X, Y, Z) for "d3q19 <walls>", on ``n`` shards
+    (kernels 34-38: an (nx, ny) mesh).  The function's bytes: each shard
+    reads its first sweep's input band and writes its last sweep's output
+    band once (kernels/sharded.py sweep_bands, sharded2d.py sweep_bands_2d),
+    and the exchange reads and writes once each halo line that the first
+    band reads beyond the shard (s r rows per side, r the lines a sweep
+    consumes, clipped at a wall; kernels 34-38: s r rows and s r columns),
+    not the whole 8-aligned strip the step sends; ``ops`` operations per
+    cell and step over the fp32 peak.  The design bytes count every sweep's
+    bands, as the port's s launches a call move them; lbm_tpu's kernels run
+    a call's s steps on the chip (sharded_pallas.py make_local_halo_step),
+    so the bound counts one pass."""
     from lbm_tpu_torch.kernels import sharded as ksh
     from lbm_tpu_torch.kernels import sharded2d as k2d
 
@@ -1949,17 +1952,17 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
         (R, C), (nx, ny), h = shape, n, ksh.HALO
         planes, r, walls = (9, 1, False) if family.startswith("k34") else shard_geometry(family)
         R_loc, C_loc = R // nx, C // ny
-        moved = out = strips = 0
+        moved = design = strips = 0
         for i in range(nx):
             bands = k2d.sweep_bands_2d(R_loc, C_loc, h, s, r, i * R_loc, R, walls)
-            for (ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi) in bands:
-                cells = (ro_hi - ro_lo) * (co_hi - co_lo)
-                moved += ny * ((ri_hi - ri_lo) * (ci_hi - ci_lo) + cells)
-                out += ny * cells
-            (ri_lo, ri_hi, _, _), (ci_lo, ci_hi, _, _) = bands[0]
-            strips += ny * ((ri_hi - ri_lo) * (ci_hi - ci_lo) - R_loc * C_loc)
+            area = [((ri_hi - ri_lo) * (ci_hi - ci_lo), (ro_hi - ro_lo) * (co_hi - co_lo))
+                    for (ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi) in bands]
+            moved += ny * (area[0][0] + area[-1][1])
+            design += ny * sum(a_in + a_out for a_in, a_out in area)
+            strips += ny * (area[0][0] - R_loc * C_loc)
         nbytes = (moved + 2 * strips) * planes * itemsize
-        n_ops = out * ops
+        design_bytes = (design + 2 * strips) * planes * itemsize
+        n_ops = ops * R * C * s
     else:
         planes, r, walls = shard_geometry(family)
         if family.startswith("d3q19 "):
@@ -1969,18 +1972,19 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
             (R, C), per_cell = shape, 1
         halo = ksh.halo_for(s, r)
         R_loc = R // n
-        rows_moved = rows_out = strip_rows = 0
+        rows_moved = rows_design = strip_rows = 0
         for i in range(n):
             bands = ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls)
-            for i_lo, i_hi, o_lo, o_hi in bands:
-                rows_moved += (i_hi - i_lo) + (o_hi - o_lo)
-                rows_out += o_hi - o_lo
+            rows_moved += (bands[0][1] - bands[0][0]) + (bands[-1][3] - bands[-1][2])
+            rows_design += sum((i_hi - i_lo) + (o_hi - o_lo) for i_lo, i_hi, o_lo, o_hi in bands)
             i_lo, i_hi = bands[0][:2]
             strip_rows += max(0, halo - i_lo) + max(0, i_hi - halo - R_loc)
         nbytes = (rows_moved + 2 * strip_rows) * planes * C * itemsize
-        n_ops = ops * rows_out * C * per_cell
+        design_bytes = (rows_design + 2 * strip_rows) * planes * C * itemsize
+        n_ops = ops * R * C * per_cell * s
     t_bytes, t_ops = nbytes / HBM_BYTES_S, n_ops / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            design_bytes)
 
 
 def plain_ops(family) -> float:
@@ -2121,7 +2125,8 @@ def sharded_times(dev, card: str) -> dict:
             log(f"[6] {tag} n={n} s={s}: {t!r} ms/step (runs {runs[key]}) = "
                 f"{cells / (t * 1e-3) / 1e6!r} MLUPS, {rate / copy_rate!r} of copy at "
                 f"{b_cell} B/cell; bound {b[0] / s!r} ms/step by {b[1]} ({b[2] / s!r} B/step, "
-                f"{ops!r} flops/cell); over the single-device kernel "
+                f"{ops!r} flops/cell; the design moves {b[3] / s!r} B/step); over the "
+                f"single-device kernel "
                 f"{t / out['single_ms'].get((tag, s), float('nan')) - 1.0!r}")
         del calls, x, dst, shards8, sx8, step8
         torch.cuda.empty_cache()
@@ -2350,22 +2355,25 @@ def lanes_path(dev, counted) -> dict:
 
 
 def lanes_bound(R, C, lane_block, s, csf, itemsize, ops):
-    """(least ms, "bytes" or "operations", bytes) of one call of kernel 39:
-    each of its ``s`` sweeps reads its input windows and writes its output
-    windows once, C / LB blocks of R rows, sweep k's LB + 2 (m - (k-1) rps)
-    columns in and LB + 2 (m - k rps) out (the first sweep's margins counted
-    exactly, (LB + 2 m) / LB columns per kept column, m = s rps); ``ops``
-    operations per output cell of each sweep over the fp32 peak."""
+    """(least ms, "bytes" or "operations", bytes, design bytes) of one call
+    of kernel 39's function, ``s`` steps of the reduced state: it reads the
+    state once and writes it once (lbm_tpu's kernel runs a block's s steps
+    on the chip and moves the state once a call, mrtcg_pallas.py:1063-1126)
+    and does ``ops`` operations per cell and step over the fp32 peak.  The
+    design bytes are what kernel 39 moves: each of its ``s`` sweeps reads
+    its input windows and writes its output windows once, C / LB blocks of
+    R rows, sweep k's LB + 2 (m - (k-1) rps) columns in and LB + 2 (m - k
+    rps) out (the margins counted exactly, (LB + 2 m) / LB columns per kept
+    column in the first sweep, m = s rps)."""
     rps, planes = (5, 12) if csf else (3, 10)
     lanes, m = C // lane_block, s * rps
-    moved = out = 0
+    design = 0
     for k in range(1, s + 1):
-        w_in, w_out = lane_block + 2 * (m - (k - 1) * rps), lane_block + 2 * (m - k * rps)
-        moved += lanes * R * (w_in + w_out)
-        out += lanes * R * w_out
-    nbytes = moved * planes * itemsize
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, out * ops / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes
+        design += lanes * R * (2 * lane_block + 2 * (m - (k - 1) * rps) + 2 * (m - k * rps))
+    nbytes, design_bytes = 2 * R * C * planes * itemsize, design * planes * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, R * C * s * ops / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            design_bytes)
 
 
 def lanes_times(dev, card: str) -> dict:
@@ -2383,7 +2391,8 @@ def lanes_times(dev, card: str) -> dict:
     from lbm_tpu_torch.kernels import mrtcg
 
     f32, (R, C) = torch.float32, BIG
-    out = {"ms": {}, "k6_ms": {}, "plain_ms": {}, "bound": {}, "ops": {}, "overhead": {}}
+    out = {"ms": {}, "k6_ms": {}, "plain_ms": {}, "bound": {}, "ops": {}, "overhead": {},
+           "design_bytes": {}}
     for mode, lbs, ss in LANES_TIMES:
         csf = mode == "csf"
         ops = out["ops"][mode] = plain_ops("csf" if csf else "mrtcg")
@@ -2421,12 +2430,14 @@ def lanes_times(dev, card: str) -> dict:
             b = lanes_bound(R, C, lb, s, csf, 4, ops)
             out["ms"][mode, lb, s] = t
             out["bound"][mode, lb, s] = (b[0] / s, b[1])
+            out["design_bytes"][mode, lb, s] = b[3] / s
             out["overhead"][mode, lb, s] = mrtcg.lane_overhead(lb, s * mrtcg.rows_per_sweep(mode))
             log(f"[6] kernel 39 {mode} {R}x{C} float32 lane_block={lb} s={s}: {t!r} ms/step "
                 f"(runs {runs[kind, lb, s]}) = {R * C / (t * 1e-3) / 1e6!r} MLUPS; over kernel 6 "
                 f"x {s} {t / out['k6_ms'][mode, s] - 1.0!r}; bound {b[0] / s!r} ms/step by "
-                f"{b[1]} ({b[2] / s!r} B/step, {ops!r} flops/cell); first window "
-                f"{out['overhead'][mode, lb, s]!r} cells per kept cell")
+                f"{b[1]} ({b[2] / s!r} B/step, {ops!r} flops/cell); the design moves "
+                f"{b[3] / s!r} B/step ({b[3] / HBM_BYTES_S * 1e3 / s!r} ms/step at the HBM "
+                f"rate); first window {out['overhead'][mode, lb, s]!r} cells per kept cell")
         del calls, G
         torch.cuda.empty_cache()
     return out
@@ -2450,6 +2461,7 @@ def lanes_entry(launches: dict, errs: dict, tm: dict) -> dict:
          "bound_by": tm["bound"][key][1], "library_ms": None,
          "shape": "4096x2048 float32, lane_block 256, 5 steps a call; per step",
          "kernel_6_ms": tm["k6_ms"]["perturbation", 5],
+         "design_bytes_per_step": tm["design_bytes"][key],
          "plain_ms_csf_s4": tm["plain_ms"]["csf"],
          "flops_per_cell": tm["ops"]["perturbation"], "flops_per_cell_csf": tm["ops"]["csf"]}
     for (mode, lb, s), t in tm["ms"].items():
@@ -2457,6 +2469,7 @@ def lanes_entry(launches: dict, errs: dict, tm: dict) -> dict:
         e[f"ms_{tag}"] = t
         e[f"kernel_6_ms_{tag}"] = tm["k6_ms"][mode, s]
         e[f"bound_ms_{tag}"] = tm["bound"][mode, lb, s][0]
+        e[f"design_bytes_per_step_{tag}"] = tm["design_bytes"][mode, lb, s]
         e[f"first_window_cells_per_kept_{tag}"] = tm["overhead"][mode, lb, s]
     return e
 

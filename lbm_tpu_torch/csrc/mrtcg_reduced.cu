@@ -38,17 +38,18 @@
 // columns a block's window (mrtcg::LaneCols, mrtcg::LaneIO): sweep k reads
 // the window [j lb - m_k-1, (j + 1) lb + m_k-1) of wrapped global columns
 // and writes its middle, m_k = (s - k) H, H the columns a sweep consumes
-// (3, CSF 5); a window is at most 2C wide (a deeper call runs as passes,
-// kernels/mrtcg.py lane_windows).  The first sweep reads the state in
+// (3, CSF 5); a window is at most 2C wide (the host refuses a deeper call,
+// kernels/mrtcg.py check_lane_window).  The first sweep reads the state in
 // place, the last writes the middle lb columns of each block into the
 // output state.  The margins
 // are the step's reach, not lbm_tpu's 128-lane Mosaic tiles: the first
 // sweep computes (lb + 2 (s - 1) H) / lb cells per kept cell.  The per-cell
 // code is kernel 6's, so a call equals kernel 6 run s times bit for bit.
 // Bytes: each sweep reads and writes its window band once, (lb + 2 m_k-1)
-// and (lb + 2 m_k) columns of 10 planes (12 CSF) per block; its time
-// against kernel 6 run s times is PERF.md's answer to the lane-blocking
-// question on this card.
+// and (lb + 2 m_k) columns of 10 planes (12 CSF) per block, where
+// lbm_tpu's kernel runs the s steps of a block on the chip and moves the
+// state once a call; its time against kernel 6 run s times is PERF.md's
+// answer to the lane-blocking question on this card.
 
 #include "mrtcg.cuh"
 

@@ -39,7 +39,10 @@ step's stencils and stream consume, lbm_tpu's rows_per_sweep), not lbm_tpu's
 128-lane Mosaic tiles; ``lane_overhead`` counts the cells computed per cell
 kept, (LB + 2 m) / LB, exactly.  lbm_tpu's lanes step crashes at trace time
 when LB + 256 > C (mrtcg_pallas.py:1110) and floor-divides its overhead
-factor (:1125); the port takes every argument lbm_tpu's guards take.
+factor (:1125); the port takes every argument lbm_tpu's guards take, less
+the calls whose window, LB + 2 m columns, is wider than 2C: those have m >
+128, past lbm_tpu's own margin-validity rule (substeps rps <= 128,
+:1060-1062).
 """
 
 from __future__ import annotations
@@ -445,41 +448,34 @@ def lane_overhead(lane_block: int, margin: int) -> float:
     return (lane_block + 2 * margin) / lane_block
 
 
-def lane_windows(C: int, lane_block: int, substeps: int, rps: int) -> list[int]:
-    """The steps of each window pass of a call: ``substeps`` in one pass
-    whose windows, LB + 2 substeps rps columns, are at most 2C wide, which
-    lbm_tpu's guards admit up to 128 columns of margin; beyond that,
-    passes of the deepest such window, one after another (the same
-    result: each pass is exact)."""
-    deepest = (2 * C - lane_block) // (2 * rps)
-    if deepest < 1:
-        raise ValueError(f"a lane block of {lane_block} columns with margins of {rps} leaves "
-                         f"a window wider than 2C = {2 * C}")
-    return [min(deepest, substeps - done) for done in range(0, substeps, deepest)]
+def check_lane_window(C: int, lane_block: int, substeps: int, rps: int) -> int:
+    """The margin m = substeps rps of a lanes call; raises if its window,
+    LB + 2 m columns, is wider than 2C (kernel 39's wrap takes a window
+    column to its global column with selects, not a division)."""
+    m = substeps * rps
+    if lane_block + 2 * m > 2 * C:
+        raise ValueError(f"a lane block of {lane_block} columns with margins of {m} "
+                         f"({substeps} steps of {rps}) leaves a window wider than 2C = {2 * C}")
+    return m
 
 
 def plain_mrtcg_reduced_lanes_step(S: torch.Tensor, step, lane_block: int, substeps: int,
                                    rps: int) -> torch.Tensor:
-    """The plain version of kernel 39: for each lane block j, n runs of the
-    plain reduced ``step`` (``make_plain_step``) on the window [j LB - m,
-    (j + 1) LB + m) of wrapped global columns, m = n rps, given its global
-    columns (the stencils' replicate clamp and the column repair at the
-    grid's columns 0 and C-1); the middle LB columns kept.  Each step leaves
-    rps more columns stale at the window's edges.  n = ``substeps``, or
-    ``lane_windows``' passes one after another."""
-    C = S.shape[-1]
-    for n in lane_windows(C, lane_block, substeps, rps):
-        m = n * rps
-        blocks = []
-        for j in range(C // lane_block):
-            cols = torch.arange(j * lane_block - m, (j + 1) * lane_block + m,
-                                device=S.device) % C
-            W = S[:, :, cols]
-            for _ in range(n):
-                W = step(W, cols=cols, grid_cols=C)
-            blocks.append(W[:, :, m:m + lane_block])
-        S = torch.cat(blocks, dim=2)
-    return S
+    """The plain version of kernel 39: for each lane block j, ``substeps``
+    runs of the plain reduced ``step`` (``make_plain_step``) on the window
+    [j LB - m, (j + 1) LB + m) of wrapped global columns, m = substeps rps,
+    given its global columns (the stencils' replicate clamp and the column
+    repair at the grid's columns 0 and C-1); the middle LB columns kept.
+    Each step leaves rps more columns stale at the window's edges."""
+    C, m = S.shape[-1], substeps * rps
+    blocks = []
+    for j in range(C // lane_block):
+        cols = torch.arange(j * lane_block - m, (j + 1) * lane_block + m, device=S.device) % C
+        W = S[:, :, cols]
+        for _ in range(substeps):
+            W = step(W, cols=cols, grid_cols=C)
+        blocks.append(W[:, :, m:m + lane_block])
+    return torch.cat(blocks, dim=2)
 
 
 # --- the CUDA kernels ----------------------------------------------------------
@@ -529,13 +525,12 @@ def launch_mrtcg_lanes(S: torch.Tensor, params, csf: bool, lane_block: int,
                        substeps: int) -> torch.Tensor:
     """Kernel 39: ``substeps`` sweeps of the reduced step over the C / LB
     lane blocks of the state ``S``, one launch each, into a fresh state
-    (``S`` is never written).  Sweep k of a window pass of n reads margin
-    m - (k-1) rps of each block's window and writes margin m - k rps, m = n
-    rps: the first reads its input state in place, the middle ones
-    ping-pong two window buffers (C / LB, planes, R, LB + 2 (m - k rps)),
-    the last writes the pass's output state (``lane_windows``: one pass
-    unless the window would be wider than 2C).  Raises on a tensor the
-    kernel does not take and on a refused launch."""
+    (``S`` is never written).  Sweep k reads margin m - (k-1) rps of each
+    block's window and writes margin m - k rps, m = substeps rps: the first
+    reads its input state in place, the middle ones ping-pong two window
+    buffers (C / LB, planes, R, LB + 2 (m - k rps)), the last writes the
+    output state.  Raises on a tensor the kernel does not take, on a window
+    wider than 2C (``check_lane_window``) and on a refused launch."""
     substeps = _check_substeps(substeps)
     mode = "csf" if csf else "perturbation"
     planes, rps = reduced_planes(mode), rows_per_sweep(mode)
@@ -543,24 +538,23 @@ def launch_mrtcg_lanes(S: torch.Tensor, params, csf: bool, lane_block: int,
     if R < 4 or C < 3 or C % lane_block:
         raise ValueError(f"the lanes kernel takes R >= 4, C >= 3 and lane blocks dividing "
                          f"C, got {R}x{C}, lane_block={lane_block}")
+    m = check_lane_window(C, lane_block, substeps, rps)
     lanes = C // lane_block
     c_params = _build.c_doubles(params)
+    out = torch.empty_like(S)
+    bufs = [torch.empty(lanes * planes * R * (lane_block + 2 * (m - k * rps)),
+                        dtype=S.dtype, device=S.device) for k in (1, 2) if k < substeps]
     with torch.cuda.device(S.device):
         stream = _build.stream_handle(S)
         src = S
-        for n in lane_windows(C, lane_block, substeps, rps):
-            m = n * rps
-            out = torch.empty_like(S)
-            bufs = [torch.empty(lanes * planes * R * (lane_block + 2 * (m - k * rps)),
-                                dtype=S.dtype, device=S.device) for k in (1, 2) if k < n]
-            for k in range(1, n + 1):
-                dst = out if k == n else bufs[(k - 1) % 2]
-                MRTCG_REDUCED_LANES.launch(src.data_ptr(), dst.data_ptr(), R, C, lane_block,
-                                           m - (k - 1) * rps, int(k == 1), int(k == n),
-                                           c_params, int(csf), int(S.dtype == torch.float64),
-                                           stream)
-                src = dst
-    return src
+        for k in range(1, substeps + 1):
+            dst = out if k == substeps else bufs[(k - 1) % 2]
+            MRTCG_REDUCED_LANES.launch(src.data_ptr(), dst.data_ptr(), R, C, lane_block,
+                                       m - (k - 1) * rps, int(k == 1), int(k == substeps),
+                                       c_params, int(csf), int(S.dtype == torch.float64),
+                                       stream)
+            src = dst
+    return out
 
 
 def _factory(R, C, red, blue, sigma, gravity, delta, apply_gravity_source, dtype,
@@ -650,10 +644,11 @@ def make_mrtcg_reduced_lanes_step(R: int, C: int, red: ColourParams, blue: Colou
     either equals the reduced step run ``substeps`` times.  Takes exactly
     the arguments lbm_tpu's guards take (mrtcg_pallas.py:1070-1078: LB a
     multiple of 128 dividing C, LB + 256 <= 2C; the same ValueErrors), LB +
-    256 > C included, though the port's margins are not 128-lane tiles.
-    ``step.margin`` is the first window's margin and ``step.overhead`` its
-    cells per cell kept, ``lane_overhead`` (a call of more steps than a
-    window 2C wide holds runs ``lane_windows``' passes)."""
+    256 > C included, though the port's margins are not 128-lane tiles;
+    refuses as well a window LB + 2 m wider than 2C (``check_lane_window``:
+    m > 128, where lbm_tpu's margins are not valid either, :1060-1062).
+    ``step.margin`` is m = substeps rps and ``step.overhead`` the window's
+    cells per cell kept, ``lane_overhead``."""
     csf = _check_mode(surface_tension)
     substeps = _check_substeps(substeps)
     if lane_block % 128 or C % lane_block:
@@ -663,6 +658,7 @@ def make_mrtcg_reduced_lanes_step(R: int, C: int, red: ColourParams, blue: Colou
         raise ValueError(f"lane_block + 256 must be <= 2C ({lane_block + 256} > {2 * C})")
     p = reduced_planes(surface_tension)
     rps = rows_per_sweep(surface_tension)
+    margin = check_lane_window(C, lane_block, substeps, rps)
     c_params = _build.c_doubles(kernel_params(red, blue, sigma, gravity, delta,
                                               apply_gravity_source))
     plain = make_plain_step(red, blue, sigma, gravity, delta, apply_gravity_source,
@@ -676,6 +672,6 @@ def make_mrtcg_reduced_lanes_step(R: int, C: int, red: ColourParams, blue: Colou
             return launch_mrtcg_lanes(G, c_params, csf, lane_block, substeps)
         return plain_mrtcg_reduced_lanes_step(G, plain, lane_block, substeps, rps)
 
-    step.margin = lane_windows(C, lane_block, substeps, rps)[0] * rps
-    step.overhead = lane_overhead(lane_block, step.margin)
+    step.margin = margin
+    step.overhead = lane_overhead(lane_block, margin)
     return step

@@ -1660,12 +1660,12 @@ def test_lanes_kernel_matches_kernel_6_and_plain(cuda, dtype, surface_tension, R
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("surface_tension,substeps", [("perturbation", 44), ("csf", 27)])
+@pytest.mark.parametrize("surface_tension,substeps", [("perturbation", 42), ("csf", 25)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_lanes_kernel_deep_calls_match_kernel_6(cuda, dtype, surface_tension, substeps):
-    """A call deeper than a window 2C wide holds (LB = C = 256) runs as
-    window passes (kernels/mrtcg.py lane_windows), one launch per step, bit
-    for bit kernel 6, from the layers at rest."""
+def test_lanes_kernel_deepest_calls_match_kernel_6(cuda, dtype, surface_tension, substeps):
+    """The deepest call whose window fits in 2C (LB = C = 256: margins of
+    126, CSF 125, wrapping past C), one launch per step, bit for bit
+    kernel 6, from the layers at rest; one step more is refused."""
     from lbm_tpu_torch.kernels import mrtcg
     from lbm_tpu_torch.models.mrt_cg import MRTCGModel
     from lbm_tpu_torch.scenes import multiphase as mp
@@ -1680,8 +1680,9 @@ def test_lanes_kernel_deep_calls_match_kernel_6(cuda, dtype, surface_tension, su
                                            if csf else []))
     G = mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C), surface_tension)
     kw = dict(dtype=dtype, surface_tension=surface_tension, substeps=substeps, **MRTCG_KW)
-    rps = mrtcg.rows_per_sweep(surface_tension)
-    assert len(mrtcg.lane_windows(C, C, substeps, rps)) == 2
+    with pytest.raises(ValueError, match="wider than 2C"):
+        mrtcg.make_mrtcg_reduced_lanes_step(R, C, red, blue, lane_block=C,
+                                            **dict(kw, substeps=substeps + 1))
     before = mrtcg.MRTCG_REDUCED_LANES.launches
     got = mrtcg.make_mrtcg_reduced_lanes_step(R, C, red, blue, lane_block=C, **kw)(G)
     torch.cuda.synchronize()
