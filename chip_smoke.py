@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port, lbm_tpu_torch, once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
+    python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine of
+                                         # the tree DIR (e.g. a git archive of the
+                                         # parent commit) against this one
+    python3 chip_smoke.py --engine-sweep # build, then only the MRT-CG engines'
+                                         # sweep (engine_sweep), as a JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -15,7 +20,11 @@ with a nonzero exit code):
   1. toolchain: torch and CUDA versions, the card, nvcc, triton, nvidia-smi;
   2. build: the kernels from csrc/, timed, with ptxas' registers and spills
      per kernel (and those of kernels 25-26's four instances and of kernels
-     31-39's instances on their own);
+     31-39's instances on their own); for each of the 40 instances of the
+     MRT-CG engines (csrc/mrtcg.cuh: kernels 6-8, 29, 31, 38, 39), the
+     strip and the tile kernel's registers, local bytes, shared memory,
+     threads and resident blocks per SM as the card reports them
+     (``engine_instances``);
   3. the periodic kernels against their plain versions: kernel 1 (BGK) at
      4096x2048 float32 (1 and 8 steps; the 302 MB-per-buffer grid of
      bench.py), 1024x512 float64 and the reference's 21x21, 100x100 and
@@ -29,7 +38,9 @@ with a nonzero exit code):
      droplet and 21x13 in float64 (8 steps); kernel 7 (split) at 4096x2048
      float32, 256x128 and 100x100 float64 (1 step); kernel 8 (full) at
      4096x2048 float32 (1 step), 256x128 and 21x13 float64 (4 steps); and
-     reduced x7 + split == full x8 in float64 at 256x128 (<= 1e-12);
+     reduced x7 + split == full x8 in float64 at 256x128 (<= 1e-12); and
+     kernels 6-8 on each engine forced (tile, strip) at 515x387 float32 and
+     100x100 float64, both modes;
      kernel 10 (TRT, bench.py's rates) on noisy states at 4096x2048 float32
      (1 and 8 steps) and 128x128 float64; kernel 11 (power law) from
      bench.py's double-shear state at 4096x2048 float32 (1 and 8 steps) and
@@ -231,7 +242,14 @@ with a nonzero exit code):
      (``sharded_times``); kernel 39 at 4096x2048 float32 in both modes, lane
      blocks 256, 512 and 2048, s = 1, 2, 5 (CSF 4), in turns with kernel 6
      run s times and with its plain version, under CUDA graphs, each with
-     its bound (``lanes_times``, ``lanes_bound``).
+     its bound (``lanes_times``, ``lanes_bound``); the MRT-CG engines'
+     kernels 6, 7, 8, 29, 31, 38 (the step with exchange_2d and the shards'
+     launches alone) and 39 and the control, kernel 12, at 4096x2048 in
+     float32 and float64 and both modes, kernel 6 at 256x128 float32 and
+     128x128 float64 under CUDA graphs, each on the tile and on the strip
+     engine and on the engine of the tree that --parent names
+     (``build_parent``), in turns, with the engine the plan picks
+     (``engine_times``).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -2474,9 +2492,365 @@ def lanes_entry(launches: dict, errs: dict, tm: dict) -> dict:
     return e
 
 
-def main() -> int:
+# --- the MRT-CG engines (csrc/mrtcg.cuh): the strip and the tile, by the plan ---------
+
+ENGINE_UNITS = ("mrtcg_reduced", "mrtcg_split", "mrtcg_full")
+# the library a --parent tree builds: its MRT-CG units and kernel 12's, which
+# shares their header
+PARENT_UNITS = (*ENGINE_UNITS, "rk_cg")
+MEMORIES = ("flat", "row shard with walls", "row shard", "rows x cols shard with walls",
+            "rows x cols shard", "lanes")
+ENGINES = {"tile": 1, "strip": 2}
+
+
+def force_engine(engine) -> None:
+    """Every later MRT-CG launch on one engine ("tile", "strip"), or by its
+    plan (None): csrc/mrtcg_reduced.cu lbm_mrtcg_force_engine."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+
+    fn = _build.library().lbm_mrtcg_force_engine
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    fn(ENGINES.get(engine, 0))
+
+
+def engine_instances() -> list:
+    """Phase 2 of the MRT-CG engines: each instance of each unit (type, mode,
+    memory) as the library reports it on this card (csrc/mrtcg.cuh
+    describe_unit): for the strip and the tile kernel, registers, local bytes
+    a thread, shared memory, threads and the blocks an SM holds by CUDA's
+    occupancy calculator.  Rows (unit, float64, csf, memory, strip, tile)."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+
+    rows = []
+    for unit in ENGINE_UNITS:
+        fn = getattr(_build.library(), f"lbm_{unit}_instances")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        i = 0
+        while True:
+            out = (ctypes.c_longlong * 13)()
+            rc = fn(i, out)
+            if rc == -1:
+                break
+            if rc != 0:
+                raise RuntimeError(f"{unit} instance {i}: cudaError_t {rc}")
+            strip, tile = tuple(out[0:5]), tuple(out[5:10])
+            rows.append((unit, bool(out[10]), bool(out[11]), MEMORIES[out[12]], strip, tile))
+            for name, (regs, local, smem, threads, blocks) in (("strip", strip), ("tile", tile)):
+                log(f"[2] MRT-CG {name} engine {unit}.cu "
+                    f"{'float64' if out[10] else 'float32'} "
+                    f"{'CSF' if out[11] else 'perturbation'}, {MEMORIES[out[12]]}: {regs} "
+                    f"registers; {local} local bytes a thread; {smem} B shared; {threads} "
+                    f"threads; {blocks} resident blocks per SM")
+            i += 1
+    return rows
+
+
+def engine_plan(width, nrows, csf, f64, rin, rout, blocks_per_sm, lanes=1, sharded=False):
+    """The library's plan of one launch on this card (csrc/strip_plan.cuh):
+    (W, n, groups, per, blocks, shared memory, strips)."""
+    import ctypes
+
+    import torch
+
+    from lbm_tpu_torch.kernels import _build
+
+    fn = _build.library().lbm_mrtcg_plan
+    fn.argtypes = [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = (ctypes.c_longlong * 7)()
+    fn(width, nrows, blocks_per_sm * sms, sms, lanes, int(sharded), int(csf), int(f64), int(rin),
+       int(rout), out)
+    return tuple(out)
+
+
+def build_parent(parent: Path) -> object:
+    """The MRT-CG units of a parent tree's csrc/ built into one library with
+    this tree's flags, its namespace lbm renamed lbm_parent (a template's
+    static flags, the shared-memory opt-ins, are unique symbols that the
+    dynamic linker would merge with this tree's across the two libraries)."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+
+    src = parent / "lbm_tpu_torch" / "csrc"
+    work = Path(tempfile.mkdtemp(prefix="parent-csrc-"))
+    atexit.register(shutil.rmtree, work, True)
+    for f in src.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            text = f.read_text().replace("namespace lbm {", "namespace lbm_parent {")
+            (work / f.name).write_text(text.replace("lbm::", "lbm_parent::"))
+    nvcc = _build.find_nvcc()
+    procs = {u: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get(u, ()), "-c",
+                                  "-o", str(work / f"{u}.o"), str(work / f"{u}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for u in PARENT_UNITS}
+    for u, proc in procs.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the parent's {u}.cu:\n{out}")
+    lib = work / "libparent.so"
+    subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(lib),
+                    *(str(work / f"{u}.o") for u in PARENT_UNITS)], check=True, timeout=600,
+                   capture_output=True)
+    return ctypes.CDLL(str(lib))
+
+
+def engine_kernels() -> list:
+    """The kernel objects of the MRT-CG units (6-8, 29, 31, 38, 39) and of
+    kernel 12's (12, 30, 37)."""
+    from lbm_tpu_torch.kernels import mrtcg, rk
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+
+    return [mrtcg.MRTCG_REDUCED, mrtcg.MRTCG_SPLIT, mrtcg.MRTCG_FULL,
+            mrtcg.MRTCG_REDUCED_LANES, ksh.HALO_MRTCG, ksh.HALO_MRTCG_FULL,
+            k2d.HALO2D_MRTCG_FULL, rk.RK_CG, ksh.HALO_RK, k2d.HALO2D_RK]
+
+
+def bind_engine(lib) -> None:
+    """Point the engine's kernel objects at ``lib`` (None: this tree's own
+    library, bound again at the next launch)."""
+    import ctypes
+
+    for k in engine_kernels():
+        if lib is None:
+            k._fn = None
+            continue
+        fn = getattr(lib, k.symbol)
+        fn.argtypes = k.argtypes
+        fn.restype = ctypes.c_int
+        k._fn = fn
+
+
+def strip_blocks(rows, unit, f64, csf, memory) -> int:
+    """The strip kernel's resident blocks per SM of one instance
+    (``engine_instances``' rows)."""
+    for u, f, c, m, strip, _ in rows:
+        if (u, f, c, m) == (unit, f64, csf, memory):
+            return strip[4]
+    raise KeyError((unit, f64, csf, memory))
+
+
+def engine_times(dev, card: str, parent_lib, rows) -> dict:
+    """Phase 6 of the MRT-CG engines: device ms per step of kernels 6, 7, 8
+    (4096x2048), 29 and 31 (8 shards), 38 ((4, 2): the step with
+    ``exchange_2d``, and its kernels alone, CUDA events around the shards'
+    launches), 39 (lane block 256, s = 1) and the control, kernel 12, in
+    float32 and float64 and both modes; kernel 6 at 256x128 float32 and
+    128x128 float64 under CUDA graphs of 100 steps.  Each on the tile and
+    on the strip engine (``force_engine``) and, with ``parent_lib``
+    (``build_parent``), the parent tree's engine, in turns on the same state
+    (orders a b c, c b a, a b c; the median of each three), and the engine
+    that the plan (``engine_plan``) gives the cell.  ``rows``:
+    ``engine_instances``'."""
+    import torch
+
+    from lbm_tpu_torch.kernels import _build, mrtcg, rk
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    engines = ("tile", "strip", "parent") if parent_lib is not None else ("tile", "strip")
+    R, C = BIG
+    out = {}
+
+    def turns(label, fn, plan=None):
+        runs = {e: [] for e in engines}
+        for order in range(3):
+            for e in (engines if order != 1 else engines[::-1]):
+                bind_engine(parent_lib if e == "parent" else None)
+                force_engine(None if e == "parent" else e)
+                runs[e].append(fn())
+        bind_engine(None)
+        force_engine(None)
+        med = {e: sorted(v)[1] for e, v in runs.items()}
+        if plan is not None:
+            med["plan"] = "strip" if engine_plan(*plan)[6] else "tile"
+            med["new"] = med[med["plan"]]
+        rel = (f"; the plan's {med['plan']} over the parent's {med['new'] / med['parent'] - 1.0!r}"
+               if "parent" in med and "plan" in med else "")
+        out[label] = med
+        log(f"[6] {card}; MRT-CG engines {label}: " + ", ".join(
+            f"{e} {t!r}" + (" ms" if isinstance(t, float) else "") for e, t in med.items())
+            + f"{rel} (runs {runs})")
+
+    def chained(step, x, n=5):
+        return lambda: graph_ms(step, x, n)
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        f64 = dtype == torch.float64
+        for csf in (False, True):
+            mode = "csf" if csf else "perturbation"
+            S = mrtcg_state(R, C, dtype, dev, csf)
+            G = reduced_input(S, csf)
+            held = {u: strip_blocks(rows, f"mrtcg_{u}", f64, csf, "flat")
+                    for u in ("reduced", "split", "full")}
+            turns(f"kernel 6 {mode} {dt}", chained(mrtcg_steps("reduced", R, C, dtype, csf)[0], G),
+                  (C, R, csf, f64, 1, 1, held["reduced"]))
+            split = mrtcg_steps("split", R, C, dtype, csf)[0]
+            turns(f"kernel 7 {mode} {dt}", chained(lambda y: (split(G), y)[1], G),
+                  (C, R, csf, f64, 1, 0, held["split"]))
+            turns(f"kernel 8 {mode} {dt}", chained(mrtcg_steps("full", R, C, dtype, csf)[0], S),
+                  (C, R, csf, f64, 0, 0, held["full"]))
+            lanes = lanes_steps(mode, R, C, dtype, 256, 1)[0]
+            turns(f"kernel 39 {mode} {dt} lane block 256 s=1", chained(lanes, G),
+                  (256, R, csf, f64, 1, 1, strip_blocks(rows, "mrtcg_reduced", f64, csf, "lanes"),
+                   C // 256))
+            del S, G
+            full = "csf_full" if csf else "mrtcg_full"
+            for family, n in (("csf" if csf else "mrtcg", 8), (full, 8), (full, (4, 2))):
+                x = sharded_state(family, BIG, dtype, dev)
+                step, _, mesh = sharded_case(family, BIG, dtype, dev, n, 1)
+                sx = pm.shard_state(mesh, x)
+                k = 38 if n == (4, 2) else (31 if family.endswith("full") else 29)
+                unit = "mrtcg_reduced" if k == 29 else "mrtcg_full"
+                memory = "rows x cols shard" if k == 38 else "row shard"
+                shape = (C // 2, R // 4) if k == 38 else (C, R // 8)
+                plan = (*shape, csf, f64, int(k == 29), int(k == 29),
+                        strip_blocks(rows, unit, f64, csf, memory), 1, True)
+                turns(f"kernel {k} {mode} {dt} on {n} shards, the step", chained(step, sx), plan)
+                if k == 38:
+                    nx, ny = n
+                    grid = [sx.shards[i * ny:(i + 1) * ny] for i in range(nx)]
+                    strips = ph.exchange_2d(grid, k2d.HALO)
+                    params = _build.c_doubles(mrtcg.kernel_params(
+                        mp.DEFAULT_RED, mp.DEFAULT_BLUE, RT["sigma"], RT["gravity"], 0.1, True))
+                    launch = k2d._body_launch(k2d.HALO2D_MRTCG_FULL, mode if csf else "mrtcg", 1,
+                                              params, True, int(csf))
+
+                    def shards(sx=sx, strips=strips, launch=launch, nx=nx, ny=ny):
+                        for b, (f, st) in enumerate(zip(sx.shards, strips)):
+                            i, j = divmod(b, ny)
+                            launch(f, *st, off=(i * (R // nx), j * (C // ny)), shape=(R, C),
+                                   edge=i in (0, nx - 1))
+                    turns(f"kernel 38 {mode} {dt} on (4, 2), the shards' launches alone",
+                          lambda: cuda_ms(shards, 10), plan)
+                del x, sx, step
+                torch.cuda.empty_cache()
+        xr = rk_state(R, C, dtype, dev)
+        turns(f"kernel 12 (control) {dt}",
+              chained(rk.make_rk_fused_step(R, C, dtype=dtype, **RK), xr))
+        del xr
+        torch.cuda.empty_cache()
+    for dtype, (r, c) in ((torch.float32, (256, 128)), (torch.float64, (128, 128))):
+        f64 = dtype == torch.float64
+        G = reduced_input(mrtcg_state(r, c, dtype, dev), False)
+        turns(f"kernel 6 perturbation {str(dtype).removeprefix('torch.')} {r}x{c}, graph of 100",
+              chained(mrtcg_steps("reduced", r, c, dtype, False)[0], G, 100),
+              (c, r, False, f64, 1, 1, strip_blocks(rows, "mrtcg_reduced", f64, False, "flat")))
+    return out
+
+
+# the grids of the engine sweep (--engine-sweep): kernel 6's by (float64, CSF),
+# and kernel 8's
+SWEEP_K6 = {(False, False): [(256, 128), (512, 256), (512, 512), (1024, 512), (1024, 1024),
+                             (512, 2048), (1024, 2048), (2048, 2048), (4096, 2048)],
+            (False, True): [(256, 128), (512, 512), (1024, 1024), (512, 2048), (1024, 2048),
+                            (4096, 2048)],
+            (True, False): [(128, 128), (256, 256), (512, 512), (1024, 1024), (512, 2048),
+                            (1024, 2048), (4096, 2048)],
+            (True, True): [(128, 128), (512, 512), (1024, 1024), (512, 2048), (4096, 2048)]}
+SWEEP_K8 = [(512, 512), (1024, 1024), (512, 2048), (2048, 2048), (4096, 2048)]
+
+
+def engine_sweep(dev, card: str, rows) -> list:
+    """Where each engine wins: kernel 6 (reduced) over the grids of SWEEP_K6
+    and kernel 8 (full) over SWEEP_K8 in both types and modes, and the
+    sharded kernels 29 and 31 on 2 and 8 row shards and 38 on (1, 2) and
+    (4, 2) meshes of 4096x2048, each on the tile and on the strip engine in
+    turns (t s s t t s, the medians), under CUDA graphs, with the strip
+    plan's groups a block (``per``) and the engine the plan gives it: the
+    measurements behind csrc/strip_plan.cuh min_groups."""
+    import torch
+
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    table = []
+
+    def both(label, fn, plan):
+        runs = {"tile": [], "strip": []}
+        for order in (("tile", "strip"), ("strip", "tile"), ("tile", "strip")):
+            for e in order:
+                force_engine(e)
+                runs[e].append(fn())
+        force_engine(None)
+        med = {e: sorted(v)[1] for e, v in runs.items()}
+        p = engine_plan(*plan)
+        table.append({"cell": label, "per": p[3], "blocks": p[4], "plan": "strip" if p[6] else
+                      "tile", **med, "strip_over_tile": med["strip"] / med["tile"] - 1.0})
+        log(f"[sweep] {card}; {label}: per {p[3]}, {p[4]} blocks, plan "
+            f"{table[-1]['plan']}: tile {med['tile']!r} ms, strip {med['strip']!r} ms, strip "
+            f"over tile {table[-1]['strip_over_tile']!r}")
+
+    def steps(R, C):
+        return 5 if R * C >= 2 ** 22 else (20 if R * C >= 2 ** 18 else 100)
+
+    for (f64, csf), shapes in SWEEP_K6.items():
+        dtype = torch.float64 if f64 else torch.float32
+        blocks = strip_blocks(rows, "mrtcg_reduced", f64, csf, "flat")
+        for R, C in shapes:
+            G = reduced_input(mrtcg_state(R, C, dtype, dev, csf), csf)
+            step = mrtcg_steps("reduced", R, C, dtype, csf)[0]
+            both(f"kernel 6 {dtype} csf={csf} {R}x{C}",
+                 lambda: graph_ms(step, G, steps(R, C)), (C, R, csf, f64, 1, 1, blocks))
+            del G
+    for f64 in (False, True):
+        dtype = torch.float64 if f64 else torch.float32
+        for csf in (False, True):
+            blocks = strip_blocks(rows, "mrtcg_full", f64, csf, "flat")
+            for R, C in SWEEP_K8:
+                S = mrtcg_state(R, C, dtype, dev, csf)
+                step = mrtcg_steps("full", R, C, dtype, csf)[0]
+                both(f"kernel 8 {dtype} csf={csf} {R}x{C}",
+                     lambda: graph_ms(step, S, steps(R, C)), (C, R, csf, f64, 0, 0, blocks))
+                del S
+            torch.cuda.empty_cache()
+    R, C = BIG
+    for f64 in (False, True):
+        dtype = torch.float64 if f64 else torch.float32
+        for csf in (False, True):
+            full = "csf_full" if csf else "mrtcg_full"
+            for family, n in (("csf" if csf else "mrtcg", 2), ("csf" if csf else "mrtcg", 8),
+                              (full, 2), (full, 8), (full, (1, 2)), (full, (4, 2))):
+                k = 38 if isinstance(n, tuple) else (31 if family.endswith("full") else 29)
+                unit = "mrtcg_reduced" if k == 29 else "mrtcg_full"
+                memory = "rows x cols shard" if k == 38 else "row shard"
+                shape = (C // n[1], R // n[0]) if k == 38 else (C, R // n)
+                x = sharded_state(family, BIG, dtype, dev)
+                step, _, mesh = sharded_case(family, BIG, dtype, dev, n, 1)
+                sx = pm.shard_state(mesh, x)
+                both(f"kernel {k} {dtype} csf={csf} on {n} shards of {R}x{C}",
+                     lambda: graph_ms(step, sx, 5),
+                     (*shape, csf, f64, int(k == 29), int(k == 29),
+                      strip_blocks(rows, unit, f64, csf, memory), 1, True))
+                del x, sx, step
+                torch.cuda.empty_cache()
+    return table
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description="Drive lbm_tpu_torch once on one NVIDIA card.")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of an earlier tree whose MRT-CG engine phase 6 times "
+                         "the current one against, in turns (e.g. a git archive of it)")
+    ap.add_argument("--engine-sweep", action="store_true",
+                    help="build, then only time the MRT-CG tile and strip engines against each "
+                         "other over grid sizes and shard counts (engine_sweep) and print the "
+                         "table as a JSON line")
+    args = ap.parse_args(argv)
+    parent = args.parent
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -2577,19 +2951,35 @@ def main() -> int:
     build_log = lib.with_suffix(".log").read_text()
     for kernel, units, mark, expected in (
             ("25-26", ("d3q19",), "d3q19_kernel", 4),
-            (31, ("mrtcg_full",), "7ShardIO", 8), (32, ("shan_chen",), "14shan_chen_halo", 8),
+            (31, ("mrtcg_full",), "7ShardIO", 16), (32, ("shan_chen",), "14shan_chen_halo", 8),
             (33, ("d3q19",), "d3q19_halo", 2),
             (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16),
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
             (36, ("thermal",), "21thermal_halo2d_kernel", 4),
-            (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 8),
-            (39, ("mrtcg_reduced",), "6LaneIO", 4)):
+            (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 16),
+            (39, ("mrtcg_reduced",), "6LaneIO", 8)):
         found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
         for name, regs, spill in found:
             log(f"[2] kernel(s) {kernel}: {name}: {regs} registers; {spill}")
         if len(found) != expected:
             raise AssertionError(f"kernel(s) {kernel}: ptxas reports {len(found)} instances, "
                                  f"not {expected}")
+    # the MRT-CG engines (kernels 6-8, 29, 31, 38, 39: 31, 38 and 39 above
+    # count both engines' instances): every instance's registers, local
+    # bytes, shared memory and resident blocks per SM as the card reports
+    # them, and ptxas' spill line of each of the 80 kernels
+    engine_rows = engine_instances()
+    spills = [e for u in ENGINE_UNITS for e in ptxas_entries(build_log, f"{u}.cu")
+              if "strip_kernel" in e[0] or "tile_kernel" in e[0]]
+    if (len(engine_rows) != 40 or len(spills) != 80
+            or any("0 bytes spill stores" not in e[2] for e in spills)
+            or any(k[1] != 0 or k[4] < 1 for r in engine_rows for k in r[4:])):
+        raise AssertionError(f"the MRT-CG engines: {len(engine_rows)} instances (not 40), "
+                             f"{len(spills)} kernels (not 80), or one spills or fits no SM")
+    if args.engine_sweep:
+        print(json.dumps({"engine_sweep": engine_sweep(dev, card, engine_rows),
+                          "card": card}), flush=True)
+        return 0
 
     # 3. the periodic kernels against their plain versions
     err1 = hold_periodic(
@@ -2645,6 +3035,19 @@ def main() -> int:
             err_mrt.setdefault(layout, {})
             err_mrt[layout][dt] = max(err_mrt[layout].get(dt, 0.0), v)
         torch.cuda.empty_cache()
+    # the plan gives 4096x2048 to the strip engine (but in float32
+    # perturbation mode with 18 output planes) and the small grids to the
+    # tile: each engine forced, every layout and mode, at a ragged grid
+    for engine in ENGINES:
+        force_engine(engine)
+        for layout, csf in mrt_cases:
+            kernel = {"reduced": 6, "split": 7, "full": 8}[layout]
+            n = 1 if layout == "split" else 2
+            e = hold_mrtcg(f"[3] kernel {kernel} on the {engine} engine", layout, csf,
+                           [(f32, (515, 387), n, False), (f64, (100, 100), n, False)], dev)
+            for dt, v in e.items():
+                err_mrt[layout][dt] = max(err_mrt[layout][dt], v)
+    force_engine(None)
 
     # reduced^(T-1) then the split step == the full step T times
     # (lbm_tpu tests/test_mrtcg_pallas.py:137-206), f64 at 256x128, T = 8:
@@ -4075,6 +4478,10 @@ def main() -> int:
     d3_times = d3q19_times(dev, card, d3_wall)
     sh_times = sharded_times(dev, card)
     lanes_tm = lanes_times(dev, card)
+    # the MRT-CG engines' kernels (and kernel 12, the control): the tile and
+    # the strip engine, and the parent tree's where --parent names one
+    parent_lib = build_parent(parent) if parent is not None else None
+    engine_tm = engine_times(dev, card, parent_lib, engine_rows)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -4192,6 +4599,7 @@ def main() -> int:
     kernels[2].update(ms_direct=ms["collide_stream_kbc_direct"],
                       ms_direct_f64=ms64["collide_stream_kbc_direct"],
                       bound_ms_direct=bounds["collide_stream_kbc_direct"][0])
+    kernels[5].update(engine_ms=engine_tm)
     kernels[5].update(ms_csf=ms["mrtcg_reduced_csf"],
                       plain_ms_csf=ms["mrtcg_reduced_csf_plain"],
                       ms_csf_f64=ms64["mrtcg_reduced_csf"],

@@ -137,8 +137,8 @@ inline Launch<T> parse(const long long* g) {
   return L;
 }
 
-// A tile kernel's memory (kernels 37 and 38 on the tile engine of
-// csrc/mrtcg.cuh): rows by global index, as lbm::halo::ShardIO's, columns
+// A kernel's memory (kernel 37 on the tile helpers of csrc/mrtcg.cuh, 38 on
+// its tile and strip engines): rows by global index, as lbm::halo::ShardIO's, columns
 // by padded index q (the engine's BandCols), the shard's five buffers in and
 // `out` written.
 template <typename T>

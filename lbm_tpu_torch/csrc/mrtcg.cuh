@@ -1,6 +1,6 @@
-// The MRT colour-gradient two-phase step of one tile, shared by kernels 6-8;
-// kernel 12 (csrc/rk_cg.cu) reuses its tile, window, stencil and pull
-// (Window, corr5, clamp_index, pull_source).
+// The MRT colour-gradient two-phase step, shared by kernels 6-8, 29, 31, 38
+// and 39; kernel 12 (csrc/rk_cg.cu) reuses its tile helpers (Window, corr5,
+// clamp_index, pull_source) and its column policies.
 //
 // Replaces the body of the TPU kernels in lbm_tpu/kernels/mrtcg_pallas.py:
 // make_mrtcg_body :644 around _make_collide :289, _mrt_omega1 :221,
@@ -12,25 +12,56 @@
 // elementwise ops each round once: bit for bit on the H100, both modes,
 // float32 and float64 (chip_smoke.py phase 3).
 //
-// One launch is one step.  A block owns a TY x TX tile of output cells and
-// works in three stages, each ended by __syncthreads():
-//   1. the derived scalars psi, q_c ux and q_c uy (in CSF mode also the
-//      normal n, from the 5x5 gradient of psi) on the tile plus a halo of
-//      H = 3 cells (H = 5 in CSF mode: the curvature chains two 5x5
-//      stencils), into shared memory;
-//   2. the collision of every cell of the tile plus a 1-cell ring, its 18
-//      post-collision values into shared memory (the CSF force of tile
-//      cells goes straight to the output: it is carried, not streamed);
-//   3. each tile cell PULLS its streamed populations with exactly the
-//      select chain of _stream_with_bcs (pull_source): periodic, then the column repair
-//      without the diagonal offset on rows 1..R-2, then bounce-back on row
-//      R-1 and on row 0.  The red density of the reduced state is the sum
-//      of the pulled red values in ascending k, with no atomics.
+// One launch is one step (one sweep of a sharded or lanes call), on one of
+// two engines that compute the same cells bit for bit; the launch's plan
+// (csrc/strip_plan.cuh strips_pay) picks one.
+//   The tile engine (tile_kernel): a block owns an 8 x 32 tile of output
+//   cells and works in three stages (window scalars, collisions of the tile
+//   and its 1-cell ring, the pull), 2.08 window scalars (CSF 2.95, and 2.08
+//   normals) and 1.33 collisions per output cell, every rule applied at
+//   every stencil tap (WindowTaps).
+//   The strip engine (strip_kernel): a block walks down a strip of at most
+//   62 columns, G rows a group (4 in float32, 2 in float64; 64 G threads),
+//   keeping rings of rows in shared memory: the next group's input window
+//   rows (cp.async, csrc/async_copy.cuh), the scalars psi, q_c ux and q_c
+//   uy (+ the CSF normal) on the rows the stencils reach, and the 18
+//   post-collision values of the rows the pull reads.  A long segment costs
+//   ~1.1 scalar evaluations and ~1.03 collisions an output cell; a thread's
+//   collision column and its stencil taps' columns (the column policy's
+//   rule, the seam) are computed once per strip and its taps' rows once per
+//   cell, so a tap is one add (StripTaps); outputs go out as streaming
+//   stores (__stcs).  But a segment's first group re-reads 2 H rows and
+//   collides G + 2, about three groups' work, so the strip engine takes
+//   only launches whose blocks walk enough groups: the big grids in CSF and
+//   float64 and the float32 reduced step from 32 groups a block; the
+//   scenes' small grids, most shards and the float32 perturbation step
+//   with 18 output planes stay on the tile.
+// Each group of the strip engine:
+//   1. the scalars of its G new window rows, from the stage (CSF: then the
+//      normal n, from the 5x5 gradient of psi);
+//   2. the collision of G rows of the strip and its 1-column ring, into the
+//      post ring, each thread's next input loaded into registers while it
+//      computes (the CSF force of output cells goes straight to the output:
+//      it is carried, not streamed);
+//   3. each output cell PULLS its streamed populations with exactly the
+//      select chain of _stream_with_bcs (pull_offset; the tile's
+//      pull_source): periodic, then the column repair without the diagonal
+//      offset on rows 1..R-2, then bounce-back on row R-1 and on row 0.
+//      The red density of the reduced state is the sum of the pulled red
+//      values in ascending k, with no atomics.
+// What bounds the strip engine (H100 80GB HBM3 at 700 W, builds timed with
+// parts removed; PERF.md section 6): kernel 6 at 4096x2048 float32 took
+// 0.559 ms against 0.200 for its bytes; without its collisions 0.521,
+// without its pull 0.553, without both 0.214.  The collision stage and the
+// pull's stores each take about the whole step and overlap: a gain needs
+// both cut.  110-128 registers in float32 (168-234 in float64, no spills)
+// leave 2 blocks of 256 threads on an SM (float64: 2-3 of 128; 1 in the
+// full CSF layout, whose 120 KB of shared memory fill an SM).
 // Replicate padding is an index clamp: a stencil tap reads
 // (clamp(r, 0, R-1), clamp(c, 0, C-1)).  Columns are periodic for the
 // stream, so the ring of an edge block wraps to the far column; that
 // column's stencil taps sit in a small "seam" window of H columns at the
-// far edge, filled by the edge blocks only.
+// far edge, filled by the edge blocks or strips only.
 //
 // The columns a launch works on are a policy (PeriodicCols, BandCols,
 // LaneCols): the grid's C columns, wrapped as above, for the single-device
@@ -40,7 +71,8 @@
 // strips or the window's margins hold the neighbours', so nothing wraps
 // and no seam is needed) while the rules, the stencils' replicate clamp
 // and the column repair of the stream, use that column's wrapped global
-// column.
+// column, which the tile engine computes at every tap and the strip engine
+// once per thread and strip.
 //
 // State layouts (planes of R*C, row-major): reduced in/out = 9 summed
 // populations, red density (+ fstx, fsty); full = 9 red, 9 blue (+ fst).
@@ -50,9 +82,11 @@
 
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "d2q9.cuh"
 #include "halo.cuh"
 #include "halo2d.cuh"
+#include "strip_plan.cuh"
 
 namespace lbm {
 namespace mrtcg {
@@ -132,7 +166,7 @@ __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-// The columns of a launch, as the tile engine addresses them.  A column c
+// The columns of a launch, as the engines address them.  A column c
 // is where a value lives (memory and the window); ``global(c)`` is the grid
 // column whose rules apply there.  ``first()`` and ``end()``, the columns a
 // launch writes, are read on the host too (the launch's grid).
@@ -250,6 +284,57 @@ __device__ __forceinline__ T corr5(const T* field, const Window<H>& w, int64_t g
   return acc;
 }
 
+// The shared-memory offsets of the 5x5 taps around one cell of the strip
+// engine: tap (a, b) reads field[row[a] + col[b]].  The rules are already in
+// them: the replicate clamp at the grid's rows 0 and R-1 in `row`, the
+// column policy's (``Cols::tap``) and the window's seam in `col`, each
+// computed once for the cell (and `col` once per thread and strip).
+struct Taps {
+  int row[5];
+  int col[5];
+};
+
+// corr5 on taps: the same terms in the same order.
+template <int DIR, typename T>
+__device__ __forceinline__ T corr5_at(const T* field, const Taps& t) {
+  T acc = T(0);
+  bool have = false;
+#pragma unroll
+  for (int a = 0; a < 5; ++a) {
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+      const double wt = k5<DIR>(a, b);
+      if (wt == 0.0) continue;
+      const T term = T(wt) * field[t.row[a] + t.col[b]];
+      acc = have ? acc + term : term;
+      have = true;
+    }
+  }
+  return acc;
+}
+
+// The stencils of one cell as each engine reads its fields: `at<DIR>(field)`
+// is corr5 of that field at the cell.  StripTaps: on precomputed taps;
+// WindowTaps: on a tile's window, every rule applied at every tap.
+struct StripTaps {
+  const Taps& t;
+  template <int DIR, typename T>
+  __device__ __forceinline__ T at(const T* field) const {
+    return corr5_at<DIR>(field, t);
+  }
+};
+
+template <int H, bool EDGE, typename Cols>
+struct WindowTaps {
+  const Window<H>& w;
+  int64_t gr, gc, R;
+  Cols cols;
+  template <int DIR, typename T>
+  __device__ __forceinline__ T at(const T* field) const {
+    return corr5<DIR, T, H, EDGE>(field, w, gr, gc, R, cols);
+  }
+};
+
 // The macroscopic fields of one cell (lbm_tpu mrtcg_pallas.py:698-718).
 template <typename T>
 struct Cell {
@@ -343,11 +428,10 @@ __device__ __forceinline__ T relax(T psi, const Params<T>& p) {
 }
 
 // The normal n = -grad(psi) / (1e-20 + |grad(psi)|) at one cell.
-template <typename T, int H, bool EDGE, typename Cols>
-__device__ __forceinline__ void normal(const T* s_psi, const Window<H>& w, int64_t gr,
-                                       int64_t gc, int64_t R, const Cols cols, T& nx, T& ny) {
-  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
-  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
+template <typename T, typename S>
+__device__ __forceinline__ void normal(const T* s_psi, const S& st, T& nx, T& ny) {
+  const T gpx = st.template at<0>(s_psi);
+  const T gpy = st.template at<1>(s_psi);
   const T gn = sqrt(gpx * gpx + gpy * gpy);
   const T inv_gn = T(1.0) / (T(1e-20) + gn);
   nx = -(gpx * inv_gn);
@@ -413,13 +497,11 @@ __device__ __forceinline__ T midot_odd(int k, const T v[9]) {
 // The collision of one cell (kernels/mrtcg.py::make_collide).  ``out``
 // gets the 9 values of channel A then the 9 of channel B: red and blue
 // (ROUT false) or the colour sum and red (ROUT true).
-template <typename T, bool CSF, bool ROUT, int H, bool EDGE, typename Cols>
+template <typename T, bool CSF, bool ROUT, typename S>
 __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& p,
                                              const T* s_psi, const T* s_qx, const T* s_qy,
-                                             const T* s_nx, const T* s_ny,
-                                             const Window<H>& w, int64_t gr, int64_t gc,
-                                             int64_t R, const Cols cols, T out[18],
-                                             T& fstx, T& fsty) {
+                                             const T* s_nx, const T* s_ny, const S& st,
+                                             T out[18], T& fstx, T& fsty) {
   const Velocity<T> v = velocity<T, CSF>(m, p);
   const T ux = v.ux, uy = v.uy, inv_rho = v.inv_rho, rho = m.rho;
   const T r_rho = m.r_rho, b_rho = m.b_rho;
@@ -429,8 +511,8 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
 
   const T psi = phase(m, p);
   const T s_nu = relax(psi, p);
-  const T gpx = corr5<0, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
-  const T gpy = corr5<1, T, H, EDGE>(s_psi, w, gr, gc, R, cols);
+  const T gpx = st.template at<0>(s_psi);
+  const T gpy = st.template at<1>(s_psi);
   const T gn = sqrt(gpx * gpx + gpy * gpy);
   const T inv_gn = T(1.0) / (T(1e-20) + gn);
 
@@ -449,8 +531,8 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   meq[6] = uy * gq;
   meq[7] = rho2 * (x2 - y2);
   meq[8] = rho2 * (ux * uy);
-  const T dxqx = corr5<0, T, H, EDGE>(s_qx, w, gr, gc, R, cols);
-  const T dyqy = corr5<1, T, H, EDGE>(s_qy, w, gr, gc, R, cols);
+  const T dxqx = st.template at<0>(s_qx);
+  const T dyqy = st.template at<1>(s_qy);
   const T c1 = T(3.0 * (1.0 - 0.5 * 1.25)) * (dxqx + dyqy);
   const T c7 = (T(1.0) - T(0.5) * s_nu) * (dxqx - dyqy);
 
@@ -490,10 +572,10 @@ __device__ __forceinline__ void collide_cell(const Cell<T>& m, const Params<T>& 
   } else {
     const T nx = -(gpx * inv_gn);
     const T ny = -(gpy * inv_gn);
-    const T dxnx = corr5<0, T, H, EDGE>(s_nx, w, gr, gc, R, cols);
-    const T dynx = corr5<1, T, H, EDGE>(s_nx, w, gr, gc, R, cols);
-    const T dxny = corr5<0, T, H, EDGE>(s_ny, w, gr, gc, R, cols);
-    const T dyny = corr5<1, T, H, EDGE>(s_ny, w, gr, gc, R, cols);
+    const T dxnx = st.template at<0>(s_nx);
+    const T dynx = st.template at<1>(s_nx);
+    const T dxny = st.template at<0>(s_ny);
+    const T dyny = st.template at<1>(s_ny);
     const T K = nx * ny * (dynx + dxny) - nx * nx * dyny - ny * ny * dxnx;
     fstx = p.v[M_HALF_SIGMA] * (K * gpx);
     fsty = p.v[M_HALF_SIGMA] * (K * gpy);
@@ -593,6 +675,34 @@ __device__ __forceinline__ PullSource pull_source(int k, int ty, int tx, int64_t
   return {sr * RING_C + sc, sk};
 }
 
+// pull_source's select chain for the strip engine, relative to the cell:
+// population k of the cell at global row gr and global column gcg comes
+// from row gr + dr, column + dc, plane `plane` of the post-collision rows.
+struct PullOffset {
+  int dr, dc, plane;
+};
+
+template <bool EDGE>
+__device__ __forceinline__ PullOffset pull_offset(int k, int64_t gr, int64_t gcg, int64_t R,
+                                                  int64_t C) {
+  const bool interior = !EDGE || (gr >= 1 && gr <= R - 2);
+  int dr = -cx(k), dc = -cy(k), sk = k;  // periodic stream
+  if (interior && ((gcg == 0 && cy(k) > 0) || (gcg == C - 1 && cy(k) < 0)))
+    dr = 0;  // periodic column repair without the diagonal offset
+  if (!EDGE) return {dr, dc, sk};
+  if (gr == R - 1 && cx(k) < 0) {  // bounce-back on row R-1
+    dr = 0;
+    dc = 0;
+    sk = opp(k);
+  }
+  if (gr == 0 && cx(k) > 0) {  // bounce-back on row 0, written last
+    dr = 0;
+    dc = 0;
+    sk = opp(k);
+  }
+  return {dr, dc, sk};
+}
+
 // Where a step reads and writes, by global row: one (planes, R, C) buffer
 // in and one out (the single-device kernels; lbm::halo::ShardIO is a row
 // shard with halo inputs, kernels 29-31; lbm::halo2d::Shard2DIO a rows x
@@ -652,29 +762,38 @@ struct Rows {
   int64_t R, rd_lo, rd_hi, o_lo, o_hi;
 };
 
-template <int H>
-__host__ __device__ constexpr int scalar_fields() {
-  return H == 5 ? 5 : 3;
-}
-
+// The tile engine's shared memory: the scalar fields on the window and the
+// 18 post-collision values on the ring of the tile.
 template <typename T, bool CSF>
-constexpr size_t smem_bytes() {
+constexpr size_t tile_smem_bytes() {
   constexpr int H = CSF ? 5 : 3;
-  return sizeof(T) * (scalar_fields<H>() * Window<H>::N + 18 * RING_N);
+  return sizeof(T) * ((CSF ? 5 : 3) * Window<H>::N + 18 * RING_N);
 }
 
+// The tile engine: one step (or sweep) of one TY x TX tile of output cells
+// a block, in three stages, each ended by __syncthreads():
+//   1. the derived scalars psi, q_c ux and q_c uy (in CSF mode also the
+//      normal n, from the 5x5 gradient of psi) on the tile plus a halo of H
+//      cells, into shared memory;
+//   2. the collision of every cell of the tile plus a 1-cell ring, its 18
+//      post-collision values into shared memory (the CSF force of tile
+//      cells goes straight to the output: it is carried, not streamed);
+//   3. each tile cell pulls its streamed populations (pull_source).
+// It takes the launches whose strip plan is too short to pay a segment's
+// first group (strips_pay): the scenes' small grids and most shards.
 template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE, typename Cols>
 __global__ void __launch_bounds__(THREADS)
-    mrtcg_kernel(const IO io, const Rows rows, const Cols cols, const Params<T> p) {
+    tile_kernel(const IO io, const Rows rows, const Cols cols, const Params<T> p) {
   constexpr int H = CSF ? 5 : 3;
   using Win = Window<H>;
-  extern __shared__ unsigned char smem_raw[];
+  using Taps5 = WindowTaps<H, EDGE, Cols>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_psi = reinterpret_cast<T*>(smem_raw);
   T* s_qx = s_psi + Win::N;
   T* s_qy = s_qx + Win::N;
   T* s_nx = s_qy + Win::N;  // CSF only
   T* s_ny = s_nx + Win::N;
-  T* s_ring = s_psi + scalar_fields<H>() * Win::N;
+  T* s_ring = s_psi + (CSF ? 5 : 3) * Win::N;
 
   const int64_t R = rows.R, C = cols.C;
   const int64_t r0 = rows.o_lo + static_cast<int64_t>(blockIdx.y) * TY;
@@ -725,8 +844,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = tid; i < NR * NC; i += THREADS) {
       const int64_t gr = r0 - 3 + i / NC, gc = c0 - 3 + i % NC;
       if (readable(gr, gc))
-        normal<T, H, EDGE>(s_psi, w, gr, gc, R, cols, s_nx[w.slot(gr, gc)],
-                           s_ny[w.slot(gr, gc)]);
+        normal(s_psi, Taps5{w, gr, gc, R, cols}, s_nx[w.slot(gr, gc)], s_ny[w.slot(gr, gc)]);
     }
     if (left || right) {
       // the seam cells the wrapped ring column's stencil reads
@@ -734,8 +852,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int i = tid; i < (TY + 6) * 3; i += THREADS) {
         const int64_t gr = r0 - 3 + i / 3, gc = lo + i % 3;
         if (readable(gr, gc))
-          normal<T, H, EDGE>(s_psi, w, gr, gc, R, cols, s_nx[w.slot(gr, gc)],
-                             s_ny[w.slot(gr, gc)]);
+          normal(s_psi, Taps5{w, gr, gc, R, cols}, s_nx[w.slot(gr, gc)], s_ny[w.slot(gr, gc)]);
       }
     }
     __syncthreads();
@@ -753,8 +870,8 @@ __global__ void __launch_bounds__(THREADS)
     load(gr, gc, m);
     T coll[18];
     T fx, fy;
-    collide_cell<T, CSF, ROUT, H, EDGE>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, w, gr, gc, R,
-                                        cols, coll, fx, fy);
+    collide_cell<T, CSF, ROUT>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, Taps5{w, gr, gc, R, cols},
+                               coll, fx, fy);
 #pragma unroll
     for (int k = 0; k < 18; ++k) s_ring[k * RING_N + i] = coll[k];
     if (CSF && ri >= 1 && ri <= nrows && rj >= 1 && rj <= ncols) {
@@ -787,26 +904,415 @@ __global__ void __launch_bounds__(THREADS)
   if (ROUT) q[9 * plane] = red_sum;
 }
 
+// The strip engine: one step (or sweep) of the rows `rows` and the columns
+// `cols`, memory `io`.  A block walks each segment [s_lo, s_hi) of its
+// units down its strip in groups of G rows.  The first group of a segment (output rows [s_lo,
+// s_lo + G)) reads its window rows [s_lo - H, s_lo + G + H) straight from
+// memory, collides the G + 2 rows [s_lo - 1, s_lo + G + 1) (the threads of
+// rows ty < 2 take two) and pulls; each later group, output rows [a, a + G):
+//   stage      the input rows [a + G + H, a + 2 G + H) of the next group go
+//              into the other half of the stage by async copies;
+//   scalars    psi, q_c ux, q_c uy on the window rows [a + H, a + H + G),
+//              from the stage;
+//   normals    (CSF) n on the rows [a + 3, a + 3 + G), columns [c0 - 3, c0 +
+//              w + 3) and the 3 seam columns;
+//   collide    the rows [a + 1, a + 1 + G) on the strip's NX columns, into
+//              the post ring, each thread loading its next input while it
+//              computes (the CSF force of an output cell to the output);
+//   pull       the output rows [a, a + G): pull_offset's select chain.
+// Barriers: after scalars (and normals), and after collide once the copies
+// have landed.  Rows reach below s_hi as far as the stencils need (scalars
+// to s_hi + H, normals to s_hi + 3, collisions to s_hi + 1), and a cell is
+// loaded only where `rows` and `cols` make it readable.
+template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE, typename Cols>
+__global__ void __launch_bounds__(Strip<T>::THREADS, Strip<T>::MIN_BLOCKS)
+    strip_kernel(const IO io, const Rows rows, const Cols cols, const Strips sp,
+                 const Params<T> p) {
+  using Rg = Rings<T, CSF, RIN>;
+  constexpr int H = Rg::H, G = Rg::G, NX = Rg::NX, NT = Strip<T>::THREADS;
+  constexpr int MAIN = Rg::MAIN, COLS = Rg::COLS, PL = Rg::PLANES;
+  constexpr int NS = Rg::NS, NK = Rg::NK, FIELD = Rg::FIELD, POST = Rg::POST;
+  constexpr int NCOLS_N = Strip<T>::WMAX + 6;  // normal columns of a strip, at most
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const s_stage = reinterpret_cast<T*>(smem_raw);
+  T* const s_psi = s_stage + Rg::STAGE;
+  T* const s_qx = s_psi + FIELD;
+  T* const s_qy = s_qx + FIELD;
+  T* const s_nx = s_qy + FIELD;  // CSF only
+  T* const s_ny = s_nx + FIELD;
+  T* const s_post = s_psi + Rg::FIELDS * FIELD;
+
+  const int64_t R = rows.R, C = cols.C;
+  const int tid = threadIdx.x, tx = tid % NX, ty = tid / NX;
+  const int64_t units = sp.n * sp.groups;
+  int64_t u = static_cast<int64_t>(blockIdx.x) * sp.per;
+  const int64_t u_end = u + sp.per < units ? u + sp.per : units;
+  while (u < u_end) {
+    const int64_t strip = u / sp.groups, g0 = u % sp.groups;
+    const int64_t g1 = g0 + (u_end - u) < sp.groups ? g0 + (u_end - u) : sp.groups;
+    u += g1 - g0;
+    const int64_t c0 = cols.first() + strip * sp.W;
+    const int w = static_cast<int>(cols.end() - c0 < sp.W ? cols.end() - c0 : sp.W);
+    const int64_t s_lo = rows.o_lo + g0 * G;
+    const int64_t s_hi = rows.o_lo + g1 * G < rows.o_hi ? rows.o_lo + g1 * G : rows.o_hi;
+
+    // the window: main columns [c0 - H, c0 + w + H), the seam at MAIN
+    const bool left = Cols::SEAM && c0 == 0;
+    const bool right = Cols::SEAM && c0 + w >= C;
+    const bool seam = left || right;
+    const int64_t seam_lo = left ? C - H : 0;
+    const int64_t wc0 = c0 - H;
+    const int mainw = w + 2 * H;
+    auto colslot = [&](int64_t gc) -> int {
+      const int64_t rel = gc - wc0;
+      return static_cast<int>(rel >= 0 && rel < mainw ? rel : MAIN + (gc - seam_lo));
+    };
+    auto window_col = [&](int j, int64_t& gc) -> bool {
+      if (j < mainw) {
+        gc = wc0 + j;
+        return true;
+      }
+      gc = seam_lo + (j - MAIN);
+      return seam && j >= MAIN;
+    };
+    auto readable = [&](int64_t gr, int64_t gc) {
+      return gr >= rows.rd_lo && gr < rows.rd_hi && cols.readable(gc);
+    };
+    // ring slots: every row a segment touches is >= s_lo - H
+    const int64_t base = s_lo - H;
+    auto srow = [&](int64_t gr) { return (static_cast<int>(gr - base) % NS) * COLS; };
+    auto krow = [&](int64_t gr) { return (static_cast<int>(gr - base) % NK) * NX; };
+    auto taps_rows = [&](int64_t gr, Taps& t) {
+#pragma unroll
+      for (int a = 0; a < 5; ++a) t.row[a] = srow(EDGE ? clamp_index(gr + a - 2, R) : gr + a - 2);
+    };
+    // scalar rows [s_lo - H, s_hi + H), normal rows [s_lo - 3, s_hi + 3)
+    auto window_cell = [&](int i, int64_t r_lo, int& rr, int& j, int64_t& gr, int64_t& gc) {
+      rr = i / COLS;
+      j = i % COLS;
+      gr = r_lo + rr;
+      return gr < s_hi + H && window_col(j, gc) && readable(gr, gc);
+    };
+    auto put_scalars = [&](const Cell<T>& m, int64_t gr, int j) {
+      const Velocity<T> v = velocity<T, CSF>(m, p);
+      const T q_c = p.v[R_ALPHA_C] * m.r_rho + p.v[B_ALPHA_C] * m.b_rho;
+      const int s = srow(gr) + j;
+      s_psi[s] = phase(m, p);
+      s_qx[s] = q_c * v.ux;
+      s_qy[s] = q_c * v.uy;
+    };
+    // the input rows [a + H, a + H + G) of group a into stage buffer `buf`
+    auto stage = [&](int64_t a, int buf) {
+      T* const dst = s_stage + buf * (G * PL * COLS);
+      for (int i = tid; i < G * COLS; i += NT) {
+        int rr, j;
+        int64_t gr, gc;
+        if (!window_cell(i, a + H, rr, j, gr, gc)) continue;
+        int64_t plane;
+        const T* q = io.src(gr, gc, plane);
+        T* d = dst + rr * (PL * COLS) + j;
+#pragma unroll
+        for (int k = 0; k < PL; ++k) async_copy(d + k * COLS, q + k * plane);
+      }
+    };
+    auto scalars = [&](int64_t a, int buf) {
+      const T* const src = s_stage + buf * (G * PL * COLS);
+      for (int i = tid; i < G * COLS; i += NT) {
+        int rr, j;
+        int64_t gr, gc;
+        if (!window_cell(i, a + H, rr, j, gr, gc)) continue;
+        Cell<T> m;
+        load_cell<T, CSF, RIN>(src + rr * (PL * COLS), COLS, j, m);
+        put_scalars(m, gr, j);
+      }
+    };
+    // the first group's rows [s_lo - H, s_lo + G + H), straight from memory
+    auto first_scalars = [&]() {
+      for (int i = tid; i < (G + 2 * H) * COLS; i += NT) {
+        int rr, j;
+        int64_t gr, gc;
+        if (!window_cell(i, s_lo - H, rr, j, gr, gc)) continue;
+        Cell<T> m;
+        int64_t plane;
+        const T* const in = io.src(gr, gc, plane);
+        load_cell<T, CSF, RIN>(in, plane, 0, m);
+        put_scalars(m, gr, j);
+      }
+    };
+    // the normal on the rows [r_lo, r_lo + n): the strip's columns and 3 each
+    // side, then the 3 seam cells the wrapped ring column reads
+    auto normals = [&](int64_t r_lo, int n) {
+      for (int i = tid; i < n * (NCOLS_N + 3); i += NT) {
+        const int rr = i / (NCOLS_N + 3), j = i % (NCOLS_N + 3);
+        const int64_t gr = r_lo + rr;
+        int64_t gc;
+        if (j < w + 6)
+          gc = c0 - 3 + j;
+        else if (seam && j >= NCOLS_N)
+          gc = (left ? C - 3 : 0) + (j - NCOLS_N);
+        else
+          continue;
+        if (gr >= s_hi + 3 || !readable(gr, gc)) continue;
+        Taps t;
+        taps_rows(gr, t);
+#pragma unroll
+        for (int b = 0; b < 5; ++b) t.col[b] = colslot(cols.tap(gc, b - 2));
+        T nx, ny;
+        normal(s_psi, StripTaps{t}, nx, ny);
+        const int s = srow(gr) + colslot(gc);
+        s_nx[s] = nx;
+        s_ny[s] = ny;
+      }
+    };
+
+    // this thread's collision column (the ring's at tx = 0 and w + 1) and
+    // the window columns of its taps, for the whole segment
+    const bool on = tx <= w + 1;
+    const int64_t gcc = on ? cols.ring(c0 - 1 + tx) : c0;
+    Taps t;
+#pragma unroll
+    for (int b = 0; b < 5; ++b) t.col[b] = colslot(cols.tap(gcc, b - 2));
+    auto collides = [&](int64_t gr) {
+      return on && gr >= s_lo - 1 && gr < s_hi + 1 && gr >= rows.rd_lo && gr < rows.rd_hi;
+    };
+    // the input of this thread's next collision, loaded while the current
+    // one computes
+    T raw[PL];
+    auto fetch = [&](int64_t gr) {
+      if (!collides(gr)) return;
+      int64_t plane;
+      const T* const in = io.src(gr, gcc, plane);
+#pragma unroll
+      for (int k = 0; k < PL; ++k) raw[k] = in[k * plane];
+    };
+    auto collide = [&](int64_t gr, int64_t next) {
+      if (!collides(gr)) {
+        fetch(next);
+        return;
+      }
+      taps_rows(gr, t);
+      Cell<T> m;
+      load_cell<T, CSF, RIN>(raw, 1, 0, m);
+      fetch(next);
+      T coll[18];
+      T fx, fy;
+      collide_cell<T, CSF, ROUT>(m, p, s_psi, s_qx, s_qy, s_nx, s_ny, StripTaps{t}, coll, fx,
+                                 fy);
+      T* const d = s_post + krow(gr) + tx;
+#pragma unroll
+      for (int k = 0; k < 18; ++k) d[k * POST] = coll[k];
+      if (CSF && gr >= s_lo && gr < s_hi && tx >= 1 && tx <= w) {
+        const int fp = ROUT ? 10 : 18;  // fst is carried, not streamed
+        int64_t plane;
+        T* q = io.dst(gr, gcc, plane);
+        q[fp * plane] = fx;
+        q[(fp + 1) * plane] = fy;
+      }
+    };
+    auto pull = [&](int64_t a) {
+      const int64_t gr = a + ty;
+      if (tx < 1 || tx > w || gr >= s_hi) return;
+      const int64_t gc = c0 - 1 + tx;
+      const int64_t gcg = cols.global(gc);
+      const int rm = krow(gr - 1) + tx, r0 = krow(gr) + tx, rp = krow(gr + 1) + tx;
+      int64_t plane;
+      T* q = io.dst(gr, gc, plane);
+      T red_sum = T(0);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const PullOffset o = pull_offset<EDGE>(k, gr, gcg, R, C);
+        const int slot = (o.dr < 0 ? rm : (o.dr > 0 ? rp : r0)) + o.dc;
+        __stcs(q + k * plane, s_post[o.plane * POST + slot]);
+        const T b = s_post[(9 + o.plane) * POST + slot];
+        if (ROUT)
+          red_sum = k == 0 ? b : red_sum + b;
+        else
+          __stcs(q + (9 + k) * plane, b);
+      }
+      if (ROUT) __stcs(q + 9 * plane, red_sum);
+    };
+
+    // the first group: its window rows and the warm-up rows above it from
+    // memory, G + 2 rows of collisions (threads of rows ty < 2 take two),
+    // while the second group's rows are copied in
+    if (s_lo + G < s_hi) stage(s_lo + G, 1);
+    async_commit();
+    fetch(s_lo - 1 + ty);
+    first_scalars();
+    __syncthreads();
+    if (CSF) {
+      normals(s_lo - 3, G + 6);
+      __syncthreads();
+    }
+    if (ty < 2) {
+      collide(s_lo - 1 + ty, s_lo - 1 + G + ty);
+      collide(s_lo - 1 + G + ty, s_lo + 1 + G + ty);
+    } else {
+      collide(s_lo - 1 + ty, s_lo + 1 + G + ty);
+    }
+    async_wait_all();
+    __syncthreads();
+    pull(s_lo);
+    for (int64_t a = s_lo + G, k = 1; a < s_hi; a += G, ++k) {
+      if (a + G < s_hi) stage(a + G, static_cast<int>((k + 1) & 1));
+      async_commit();
+      scalars(a, static_cast<int>(k & 1));
+      __syncthreads();
+      if (CSF) {
+        normals(a + 3, G);
+        __syncthreads();
+      }
+      collide(a + 1 + ty, a + 1 + G + ty);
+      async_wait_all();
+      __syncthreads();
+      pull(a);
+    }
+  }
+}
+
+// The blocks of one instance the card holds at once and the SMs, per device
+// (0 until the first launch there asks).
+template <typename K>
+inline cudaError_t resident_blocks(K kernel, int threads, size_t smem,
+                                   int (&slots)[MAX_DEVICES], int (&sm_count)[MAX_DEVICES],
+                                   int& held, int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    int n = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    sm_count[dev] = n;
+    slots[dev] = n * per_sm;
+  }
+  held = slots[dev];
+  sms = sm_count[dev];
+  return cudaSuccess;
+}
+
+// The engine a launch takes: 0 by its plan (strips_pay), 1 the tile, 2 the
+// strip.  Set only by lbm_mrtcg_force_engine, through which the tests and
+// chip_smoke.py hold each engine at every shape and time one against the
+// other.
+inline int forced_engine = 0;
+
 // One launch over the rows `rows` and the columns `cols` with the memory
-// `io` (`lanes` lane blocks along the grid's z, kernel 39); returns the
+// `io` (`lanes` lane blocks along the grid's z, kernel 39; `sharded`: a row
+// or rows x cols shard's memory), on the engine its plan picks; returns the
 // cudaError_t of the launch (0 = accepted).
 template <typename T, bool CSF, bool RIN, bool ROUT, typename IO, bool EDGE, typename Cols>
 int launch_rows(const IO& io, const Rows& rows, const Cols cols, const double* params,
-                cudaStream_t stream, unsigned lanes = 1) {
+                cudaStream_t stream, unsigned lanes = 1, bool sharded = false) {
   const int64_t width = cols.end() - cols.first();
   if (rows.o_hi <= rows.o_lo || width <= 0) return 0;
   Params<T> p;
   for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
-  constexpr size_t smem = smem_bytes<T, CSF>();
-  static bool configured[MAX_DEVICES] = {};
-  const cudaError_t e = smem_opt_in(mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols>,
-                                    static_cast<int>(smem), configured);
+  const auto strip = strip_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols>;
+  const auto tile = tile_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols>;
+  constexpr size_t strip_smem = Rings<T, CSF, RIN>::BYTES, tile_smem = tile_smem_bytes<T, CSF>();
+  static bool strip_ready[MAX_DEVICES] = {}, tile_ready[MAX_DEVICES] = {};
+  static int slots[MAX_DEVICES] = {}, sm_count[MAX_DEVICES] = {};
+  cudaError_t e = smem_opt_in(strip, static_cast<int>(strip_smem), strip_ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int held = 0, sms = 0;
+  e = resident_blocks(strip, Strip<T>::THREADS, strip_smem, slots, sm_count, held, sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t nrows = rows.o_hi - rows.o_lo;
+  const Strips sp = plan_strips<T, CSF, RIN, ROUT>(width, nrows, held, sms, lanes, sharded);
+  if (forced_engine == 0 ? sp.strips : forced_engine == 2) {
+    const dim3 grid(static_cast<unsigned>(sp.blocks), 1, lanes);
+    strip<<<grid, Strip<T>::THREADS, strip_smem, stream>>>(io, rows, cols, sp, p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  e = smem_opt_in(tile, static_cast<int>(tile_smem), tile_ready);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((width + TX - 1) / TX),
-                  static_cast<unsigned>((rows.o_hi - rows.o_lo + TY - 1) / TY), lanes);
-  mrtcg_kernel<T, CSF, RIN, ROUT, IO, EDGE, Cols><<<grid, THREADS, smem, stream>>>(io, rows,
-                                                                                   cols, p);
+                  static_cast<unsigned>((nrows + TY - 1) / TY), lanes);
+  tile<<<grid, THREADS, tile_smem, stream>>>(io, rows, cols, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One engine kernel as phase 2 of chip_smoke.py reports it, into out[0..4]:
+// registers, local bytes a thread (spills), dynamic shared memory, threads
+// and the blocks an SM holds (CUDA's occupancy calculator on this device).
+template <typename K>
+inline cudaError_t describe_kernel(K kernel, int threads, size_t smem, long long* out) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  out[0] = a.numRegs;
+  out[1] = static_cast<long long>(a.localSizeBytes);
+  out[2] = static_cast<long long>(smem);
+  out[3] = threads;
+  out[4] = per_sm;
+  return e;
+}
+
+// The memories of an engine instance: the flat grid (kernels 6-8), a row
+// shard with and without wall rows (29, 31), a rows x cols shard with and
+// without (38), lane windows (39).
+enum Mem { FLAT, SHARD_EDGE, SHARD, SHARD2D_EDGE, SHARD2D, LANES };
+
+template <typename T, bool CSF, bool RIN, bool ROUT, Mem M>
+int describe_mem(long long* out) {
+  using lbm::halo::ShardIO;
+  using lbm::halo2d::Shard2DIO;
+  cudaError_t e;
+  auto both = [&](auto strip, auto tile) {
+    cudaError_t r = describe_kernel(strip, Strip<T>::THREADS, Rings<T, CSF, RIN>::BYTES, out);
+    return r != cudaSuccess ? r
+                            : describe_kernel(tile, THREADS, tile_smem_bytes<T, CSF>(), out + 5);
+  };
+  if constexpr (M == FLAT)
+    e = both(strip_kernel<T, CSF, RIN, ROUT, FlatIO<T>, true, PeriodicCols>,
+             tile_kernel<T, CSF, RIN, ROUT, FlatIO<T>, true, PeriodicCols>);
+  else if constexpr (M == SHARD_EDGE || M == SHARD)
+    e = both(strip_kernel<T, CSF, RIN, ROUT, ShardIO<T>, M == SHARD_EDGE, PeriodicCols>,
+             tile_kernel<T, CSF, RIN, ROUT, ShardIO<T>, M == SHARD_EDGE, PeriodicCols>);
+  else if constexpr (M == SHARD2D_EDGE || M == SHARD2D)
+    e = both(strip_kernel<T, CSF, RIN, ROUT, Shard2DIO<T>, M == SHARD2D_EDGE, BandCols>,
+             tile_kernel<T, CSF, RIN, ROUT, Shard2DIO<T>, M == SHARD2D_EDGE, BandCols>);
+  else
+    e = both(strip_kernel<T, CSF, RIN, ROUT, LaneIO<T>, true, LaneCols>,
+             tile_kernel<T, CSF, RIN, ROUT, LaneIO<T>, true, LaneCols>);
+  return static_cast<int>(e);
+}
+
+template <typename T, bool CSF, bool RIN, bool ROUT, Mem M, Mem... REST>
+int describe_nth(int k, long long* out) {
+  if (k == 0) return describe_mem<T, CSF, RIN, ROUT, M>(out);
+  if constexpr (sizeof...(REST) > 0) return describe_nth<T, CSF, RIN, ROUT, REST...>(k - 1, out);
+  return -1;
+}
+
+// Instance i of a unit whose layout is (RIN, ROUT) and whose memories are
+// MEMS, both engines: out[0..4] the strip kernel's and out[5..9] the tile
+// kernel's (describe_kernel), out[10..12] float64, CSF and the memory (Mem);
+// i = 4 memory + 2 float64 + CSF.  Returns -1 past the last instance, else
+// the cudaError_t of the queries.
+template <bool RIN, bool ROUT, Mem... MEMS>
+int describe_unit(int i, long long* out) {
+  constexpr Mem mems[] = {MEMS...};
+  if (i < 0 || i >= 4 * static_cast<int>(sizeof...(MEMS))) return -1;
+  const int m = i / 4, f64 = (i % 4) / 2, csf = i % 2;
+  out[10] = f64;
+  out[11] = csf;
+  out[12] = mems[m];
+  if (f64)
+    return csf ? describe_nth<double, true, RIN, ROUT, MEMS...>(m, out)
+               : describe_nth<double, false, RIN, ROUT, MEMS...>(m, out);
+  return csf ? describe_nth<float, true, RIN, ROUT, MEMS...>(m, out)
+             : describe_nth<float, false, RIN, ROUT, MEMS...>(m, out);
 }
 
 // One step in -> out (distinct buffers) on `stream`.
@@ -837,9 +1343,9 @@ int launch_halo(const long long* geom, const double* params, cudaStream_t stream
   using IO = lbm::halo::ShardIO<T>;
   const PeriodicCols cols{L.in.C};
   return L.edge ? launch_rows<T, CSF, RIN, ROUT, IO, true>(io, halo_rows(L), cols, params,
-                                                           stream)
+                                                           stream, 1, true)
                 : launch_rows<T, CSF, RIN, ROUT, IO, false>(io, halo_rows(L), cols, params,
-                                                            stream);
+                                                            stream, 1, true);
 }
 
 // The rows and the columns of a rows x cols launch (csrc/halo2d.cuh): rows
@@ -864,9 +1370,9 @@ int launch_halo2d(const long long* geom, const double* params, cudaStream_t stre
   using IO = lbm::halo2d::Shard2DIO<T>;
   const IO io{L.in, L.out, L.off_r};
   return L.edge ? launch_rows<T, CSF, RIN, ROUT, IO, true>(io, halo2d_rows(L), halo2d_cols(L),
-                                                           params, stream)
+                                                           params, stream, 1, true)
                 : launch_rows<T, CSF, RIN, ROUT, IO, false>(io, halo2d_rows(L), halo2d_cols(L),
-                                                            params, stream);
+                                                            params, stream, 1, true);
 }
 
 template <bool RIN, bool ROUT>

@@ -8,14 +8,19 @@
 //
 // Bytes per cell: 144 in float32 (18 planes in, 18 out), 160 in CSF mode;
 // twice that in float64; bound by those bytes (0.361 ms at 4096x2048 f32
-// at 3.35 TB/s).  Same work as kernel 6 (see its note) with 18 loads per
-// window cell: 0.703 ms in float32, 1.24 ms in float64 at 4096x2048 on an
-// H100 80GB HBM3 (700 W).
+// at 3.35 TB/s).  Same work as kernel 6 on the same engines (see its note)
+// with 18 planes staged per window cell and strips of whole 32-byte
+// sectors of its output rows: at 4096x2048 on an H100 80GB HBM3 (700 W)
+// the plan keeps the float32 perturbation step on the tile, 0.7154 ms
+// (the strip 0.7597: its 18 stores a cell bind it; without its pull it
+// took 0.606 ms, PERF.md section 6), and gives the strip CSF 1.0971,
+// float64 1.1469 (CSF 2.4735), against the tile's 1.3727, 1.2431 (2.9898)
+// in the same run (chip_smoke.py --parent, phase 6).
 //
 // This source also holds kernel 31, lbm_halo_mrtcg_full: the same step on
 // a row shard of the full state with halo inputs (csrc/halo.cuh,
 // kernels/sharded.py make_sharded_mrtcg_step), kernel 29's geometry on
-// this layout: the tile engine with its memory by global row
+// this layout: the engines with their memory by global row
 // (lbm::halo::ShardIO), the fst planes of CSF mode read from the halos
 // like the populations.  It replaces lbm_tpu/kernels/sharded_pallas.py:406
 // make_sharded_mrtcg_step.  Bytes per sweep: 144 B (160 CSF) per cell of
@@ -23,7 +28,7 @@
 //
 // And kernel 38, lbm_halo2d_mrtcg_full: the step on a rows x cols shard of
 // the full state, both modes (csrc/halo2d.cuh, kernels/sharded2d.py
-// make_sharded2d_mrtcg_step), the tile engine with its rows by global index
+// make_sharded2d_mrtcg_step), the engines with their rows by global index
 // (lbm::halo2d::Shard2DIO) and its columns the shard's padded ones
 // (mrtcg::BandCols: every value read in the padded block, the 5x5
 // stencils' replicate clamp and the column repair of the stream at the
@@ -50,4 +55,11 @@ extern "C" int lbm_halo_mrtcg_full(const long long* geom, const double* params, 
 extern "C" int lbm_halo2d_mrtcg_full(const long long* geom, const double* params, int csf,
                                      int, int is_f64, void* stream) {
   return lbm::mrtcg::dispatch_halo2d<false, false>(geom, params, csf, is_f64, stream);
+}
+
+// Instance i of this unit's engine kernels (kernels 8, 31, 38), both
+// engines (mrtcg::describe_unit).
+extern "C" int lbm_mrtcg_full_instances(int i, long long* out) {
+  using namespace lbm::mrtcg;
+  return describe_unit<false, false, FLAT, SHARD_EDGE, SHARD, SHARD2D_EDGE, SHARD2D>(i, out);
 }

@@ -10,20 +10,23 @@
 // float32 (10 planes in, 10 out), 96 in CSF mode; twice that in float64.
 // Operations per cell, counted on the plain version: 524 (perturbation),
 // 727 (CSF).  At 4096x2048 on an H100 80GB HBM3 (700 W) the least time is
-// set by the bytes, 0.200 ms (0.240 CSF) at 3.35 TB/s; the kernel takes
-// 0.591 ms in float32 (1.25 ms CSF), 0.98 ms in float64 (2.67 ms CSF).
-// What holds it back is issue and latency, not bytes: each output cell
-// pays ~2.2 (CSF ~3.3) evaluations of the window scalars and 1.33
-// collisions (the halo and the ring), three barriers per tile, 79-100
-// registers in float32 (2-3 blocks of 256 per SM), 128-178 in float64, and
-// no fused multiply-add.  The simple, exact design is the point of this
-// version; the levers are in PERF.md.  At the reference's 256x128 one
-// step takes ~6 us on the card and ~30 us to issue from the host.
-
+// set by the bytes, 0.200 ms (0.240 CSF) at 3.35 TB/s.  There its plan
+// (csrc/strip_plan.cuh) takes the strip engine (csrc/mrtcg.cuh: ~1.1
+// scalar evaluations and ~1.03 collisions an output cell, where the 8 x 32
+// tile pays ~2.1 (CSF ~3.0, and ~2.1 normals) and 1.33): 0.5695 ms in
+// float32 (0.8952 CSF), 0.8412 in float64 (1.3906 CSF), against the tile's
+// 0.5946 (1.2546), 1.0110 (2.6516) in the same run (chip_smoke.py
+// --parent, phase 6).  What holds it back is not bytes: its collisions and
+// its pull's stores each take about the whole step and overlap
+// (csrc/mrtcg.cuh's note), 110-128 registers in float32 leave 2 blocks of
+// 256 threads an SM, and no multiply-add is fused.  At the scenes' 256x128
+// a strip block would walk one group, so the plan takes the tile: one
+// step takes 5.8 us on the card (the strip 7.9) and ~40 us to issue from
+// the host.
 //
 // This source also holds kernel 29, lbm_halo_mrtcg_reduced: the same step
 // on a row shard with halo inputs (csrc/halo.cuh, kernels/sharded.py),
-// from the same tile engine with its memory by global row
+// from the same engines with their memory by global row
 // (lbm::halo::ShardIO): the row loader maps the rows beyond the shard to
 // the halo buffers or the scratch slab, the replicate padding and the wall
 // rows stay at the grid's global rows 0 and R-1, and interior ranks run
@@ -34,7 +37,7 @@
 // lb columns of one grid (kernels/mrtcg.py make_mrtcg_reduced_lanes_step),
 // replacing lbm_tpu/kernels/mrtcg_pallas.py:1033
 // make_mrtcg_reduced_lanes_step.  A call of s steps is s sweeps, each one
-// grid over every lane block (blockIdx.z) on the tile engine with its
+// grid over every lane block (blockIdx.z) on the engines with their
 // columns a block's window (mrtcg::LaneCols, mrtcg::LaneIO): sweep k reads
 // the window [j lb - m_k-1, (j + 1) lb + m_k-1) of wrapped global columns
 // and writes its middle, m_k = (s - k) H, H the columns a sweep consumes
@@ -85,4 +88,30 @@ extern "C" int lbm_mrtcg_reduced_lanes(const void* in, void* out, long long R, l
                                          s)
              : launch_lanes<float, false>(in, out, R, C, lb, margin, in_state, out_state, params,
                                           s);
+}
+
+// The plan of a launch (csrc/strip_plan.cuh plan_by_layout), for the tests:
+// `rin` / `rout` the reduced input / output layout, `sharded` a shard's
+// memory, out[0..6] as plan_into writes them.
+extern "C" void lbm_mrtcg_plan(long long width, long long nrows, long long held,
+                               long long sms, long long lanes, int sharded, int csf,
+                               int is_f64, int rin, int rout, long long* out) {
+  lbm::mrtcg::plan_by_layout(width, nrows, held, sms, lanes, sharded, csf, is_f64, rin, rout,
+                             out);
+}
+
+// The engine of every later MRT-CG launch (kernels 6-8, 29, 31, 38, 39): 0
+// by its plan, 1 the tile, 2 the strip; for the tests and chip_smoke.py,
+// which hold each engine at every shape.  Returns the previous setting.
+extern "C" int lbm_mrtcg_force_engine(int engine) {
+  const int was = lbm::mrtcg::forced_engine;
+  lbm::mrtcg::forced_engine = engine;
+  return was;
+}
+
+// Instance i of this unit's engine kernels (kernels 6, 29, 39), both
+// engines (mrtcg::describe_unit).
+extern "C" int lbm_mrtcg_reduced_instances(int i, long long* out) {
+  using namespace lbm::mrtcg;
+  return describe_unit<true, true, FLAT, SHARD_EDGE, SHARD, LANES>(i, out);
 }

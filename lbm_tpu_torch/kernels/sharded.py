@@ -48,12 +48,12 @@ the single-device kernel's):
     23's);
   * kernel 29, ``HALO_MRTCG``: the reduced MRT-CG state, both modes (:453
     make_sharded_mrtcg_reduced_step; csrc/mrtcg_reduced.cu on kernel 6's
-    tile engine, csrc/mrtcg.cuh);
+    engines, csrc/mrtcg.cuh);
   * kernel 30, ``HALO_RK``: the RK mixture, one sweep per exchange (:486
     make_sharded_rk_step; csrc/rk_cg.cu, kernel 12's);
   * kernel 31, ``HALO_MRTCG_FULL``: the full per-colour MRT-CG state, both
     modes (:406 make_sharded_mrtcg_step; csrc/mrtcg_full.cu on kernel 8's
-    tile engine);
+    engines);
   * kernel 32, ``HALO_SHAN_CHEN``: the Shan-Chen body, fully periodic, in
     its four eos x forcing instances (shan_chen_pallas.py:138 make_sc_body
     on :345 make_sharded_body_step; csrc/shan_chen.cu, kernel 14's);

@@ -1722,3 +1722,217 @@ def test_lanes_kernel_rejects_what_it_does_not_take(cuda):
         mrtcg.MRTCG_REDUCED_LANES.launch(S.data_ptr(), out.data_ptr(), 8, 256, 128, 1, 1, 1,
                                          _build.c_doubles(params), 0, 1,
                                          _build.stream_handle(S))
+
+
+# --- the MRT-CG engines' edges (csrc/mrtcg.cuh; kernels 6-8, 29, 31, 38, 39) ---
+#
+# A launch takes the strip or the tile engine by its plan (csrc/strip_plan.cuh);
+# these tests force each in turn (lbm_mrtcg_force_engine), so both are held at
+# every shape, and the plan's own choice at the shapes the other tests use.
+
+ENGINES = {"tile": 1, "strip": 2}
+
+
+@pytest.fixture(params=list(ENGINES))
+def engine(request, cuda):
+    """Every MRT-CG launch of the test on one engine; the plan's choice after."""
+    from lbm_tpu_torch.kernels import _build
+
+    force = _build.library().lbm_mrtcg_force_engine
+    force.argtypes, force.restype = [ctypes.c_int], ctypes.c_int
+    force(ENGINES[request.param])
+    yield request.param
+    force(0)
+
+EDGE_R = (4, 5, 13, 21, 100, 257)
+EDGE_C = (3, 13, 33, 100, 129, 2050)
+
+
+def _flat_mrtcg(layout, R, C, dtype, surface_tension, device):
+    """(kernel step, plain step, input, kernel) of kernel 6 (reduced), 7
+    (split) or 8 (full) from a seeded two-phase state."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    csf = surface_tension == "csf"
+    S = _two_phase_state(R, C, dtype, device, surface_tension, seed=R * C + 7)
+    plain = mrtcg.make_plain_step(red, blue, surface_tension=surface_tension,
+                                  reduced_in=layout != "full",
+                                  reduced_out=layout == "reduced", **MRTCG_KW)
+    if layout == "full":
+        make = mrtcg.make_csf_fused_step if csf else mrtcg.make_mrtcg_fused_step
+        full = make(R, C, red, blue, dtype=dtype, **MRTCG_KW)
+        step = lambda x: full(x if csf else x.reshape(2, 9, R, C)).reshape(-1, R, C)  # noqa: E731
+        return step, plain, S, mrtcg.MRTCG_FULL
+    factory = (mrtcg.make_mrtcg_reduced_step if layout == "reduced"
+               else mrtcg.make_mrtcg_split_step)
+    step = factory(R, C, red, blue, dtype=dtype, surface_tension=surface_tension, **MRTCG_KW)
+    x = mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C), surface_tension)
+    kernel = mrtcg.MRTCG_REDUCED if layout == "reduced" else mrtcg.MRTCG_SPLIT
+    return (lambda y: step(y).reshape(-1, R, C)), plain, x, kernel
+
+
+def _hold_bit_for_bit(step, plain, x, kernel, steps):
+    before = kernel.launches
+    got, want = x, x
+    for _ in range(steps):
+        got, want = step(got), plain(want)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == steps
+    assert got.is_cuda and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", EDGE_C)
+@pytest.mark.parametrize("R", EDGE_R)
+@pytest.mark.parametrize("surface_tension", ["perturbation", "csf"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_strip_engine_reduced_edges_bit_for_bit(cuda, engine, dtype, surface_tension, R, C):
+    """Kernel 6 on each engine at the edge shapes (a ragged last strip or
+    tile, one strip narrower than the window, R = 4, segments of one group),
+    two steps: bit for bit its plain version."""
+    _hold_bit_for_bit(*_flat_mrtcg("reduced", R, C, dtype, surface_tension, cuda), steps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C", list(zip(EDGE_R, EDGE_C)) + [(257, 3), (4, 2050)])
+@pytest.mark.parametrize("layout", ["split", "full"])
+@pytest.mark.parametrize("surface_tension", ["perturbation", "csf"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_strip_engine_split_and_full_edges_bit_for_bit(cuda, engine, dtype, surface_tension,
+                                                        layout, R, C):
+    """Kernels 7 (one step) and 8 (two) on each engine at the edge shapes:
+    bit for bit their plain versions."""
+    _hold_bit_for_bit(*_flat_mrtcg(layout, R, C, dtype, surface_tension, cuda),
+                      steps=1 if layout == "split" else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,n,s", [(f, n, s) for f, cap in (
+    ("mrtcg", 5), ("csf", 4), ("mrtcg full", 5), ("csf full", 4))
+    for n in (1, 2, 8) for s in (1, cap)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_strip_engine_row_shards_match_single_device(cuda, engine, family, n, s, dtype):
+    """Kernels 29 (reduced) and 31 (full) on each engine, n row shards of one
+    card with s up to the cap, at 129 columns (three strips, the last
+    ragged): 0.0 against kernels 6 and 8."""
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 192, 129
+    fam, full = family.split()[0], family.endswith("full")
+    make = _k31_33_case if full else _sharded_case
+    step, single, x, kernels = make(fam, R, C, dtype, cuda, n, s)
+    mesh = pm.make_mesh([cuda] * n)
+    before = [k.launches for k in kernels]
+    got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in kernels) - sum(before) == 2 * n * s
+    assert torch.equal(got, single(single(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,shape,s", [(f, m, s) for f, cap in (("mrtcg", 2), ("csf", 1))
+                                            for m in ((1, 2), (4, 2), (2, 4))
+                                            for s in sorted({1, cap})])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_strip_engine_meshes_match_single_device(cuda, engine, family, shape, s, dtype):
+    """Kernel 38 on each engine, the (1, 2), (4, 2) and (2, 4) meshes of one
+    card at 100 columns (shards of 50 and 25 columns, one strip each): 0.0
+    against kernel 8."""
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = 64, 100
+    step, single, x, kernel = _k35_38_case(family, R, C, dtype, cuda, shape, s)
+    mesh = pm.make_mesh([cuda] * (shape[0] * shape[1]), shape)
+    before = kernel.launches
+    got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2 * shape[0] * shape[1] * s
+    assert torch.equal(got, single(single(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,lane_block", [(5, 256, 128), (5, 256, 256), (13, 384, 128)])
+@pytest.mark.parametrize("substeps", [1, 2])
+@pytest.mark.parametrize("surface_tension", ["perturbation", "csf"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_strip_engine_lanes_match_kernel_6(cuda, engine, dtype, surface_tension, substeps, R,
+                                           C, lane_block):
+    """Kernel 39 on each engine at small R and lane blocks 128, 256 and C:
+    bit for bit kernel 6 run ``substeps`` times."""
+    from lbm_tpu_torch.kernels import mrtcg
+    from lbm_tpu_torch.scenes import multiphase as mp
+
+    red, blue = mp.DEFAULT_RED, mp.DEFAULT_BLUE
+    csf = surface_tension == "csf"
+    S = _two_phase_state(R, C, dtype, cuda, surface_tension, seed=R + C + lane_block)
+    G = mrtcg.reduce_mrtcg_state(S if csf else S.reshape(2, 9, R, C), surface_tension)
+    kw = dict(dtype=dtype, surface_tension=surface_tension, substeps=substeps, **MRTCG_KW)
+    got = mrtcg.make_mrtcg_reduced_lanes_step(R, C, red, blue, lane_block=lane_block, **kw)(G)
+    want = mrtcg.make_mrtcg_reduced_step(R, C, red, blue, **kw)(G)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _instances(unit):
+    """csrc/mrtcg.cuh describe_unit of one unit, every instance: (float64,
+    CSF, memory, the strip kernel's and the tile kernel's registers, local
+    bytes, shared memory, threads, blocks an SM)."""
+    from lbm_tpu_torch.kernels import _build
+
+    fn = getattr(_build.library(), f"lbm_mrtcg_{unit}_instances")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    rows = []
+    while True:
+        out = (ctypes.c_longlong * 13)()
+        rc = fn(len(rows), out)
+        if rc == -1:
+            return rows
+        assert rc == 0, f"{unit} instance {len(rows)}: cudaError_t {rc}"
+        rows.append((out[10], out[11], out[12], tuple(out[0:5]), tuple(out[5:10])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,count", [("reduced", 16), ("split", 4), ("full", 20)])
+def test_engine_instances_fit_the_card(cuda, unit, count):
+    """Every instance of both engines in each unit: no local memory (no
+    spill), its shared memory within the card's opt-in limit, and at least
+    one block an SM by the card's occupancy calculator (two of the strip's in
+    float32, which __launch_bounds__ asks of ptxas)."""
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    rows = _instances(unit)
+    assert len(rows) == count
+    for f64, csf, mem, strip, tile in rows:
+        for regs, local, smem, threads, blocks in (strip, tile):
+            assert regs > 0 and local == 0 and 0 < smem <= limit and blocks >= 1
+        assert strip[3] == 256 // (1 + f64) and tile[3] == 256
+        assert strip[4] >= (1 if f64 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_plan_on_the_card(cuda, itemsize):
+    """The plan with the card's own residency (the flat instance's strip
+    kernel): kernel 6 at 4096x2048 on the strip engine in both modes, at
+    the scenes' grids on the tile, and the strip plan within the blocks the
+    card holds or two waves of its SMs."""
+    from lbm_tpu_torch.kernels import _build
+
+    fn = _build.library().lbm_mrtcg_plan
+    fn.argtypes = [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = None
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    flat = {(f64, csf): strip for f64, csf, mem, strip, _ in _instances("reduced") if mem == 0}
+    for csf in (0, 1):
+        held = flat[(int(itemsize == 8), csf)][4] * sms
+
+        def plan(width, nrows):
+            out = (ctypes.c_longlong * 7)()
+            fn(width, nrows, held, sms, 1, 0, csf, int(itemsize == 8), 1, 1, out)
+            return tuple(out)
+        big = plan(2048, 4096)
+        assert big[6] == 1 and big[4] <= max(held, 2 * sms)
+        for R, C in ((256, 128), (128, 128), (100, 100), (21, 13)):
+            assert plan(C, R)[6] == 0

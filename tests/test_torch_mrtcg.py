@@ -355,3 +355,157 @@ def test_kernel_params_are_the_plain_versions_scalars():
                       relax.s3, relax.t2, relax.t3)
     assert p[32] == 1.0 and tk.kernel_params(RED, BLUE, 1e-4, GRAVITY, 0.1, False)[32] == 0.0
     assert p[33:37] == (6.25e-7, 0.0, 6.25e-7, 6.25e-7)
+
+
+# --- the MRT-CG engines' plan (csrc/strip_plan.cuh, built here with a C++ compiler) ---
+
+NX = 64  # strip_plan.cuh Strip<T>::NX: a strip of at most NX - 2 output columns
+G = {4: 4, 8: 2}  # rows a group, by element size
+SMEM_PER_BLOCK = 232_448  # the most shared memory a Hopper block takes (227 KB)
+# (is_f64, csf, rin, rout) of the engine's layouts: kernels 6 / 29 / 39, 7, 8 / 31 / 38
+LAYOUTS = [(f64, csf, rin, rout) for f64 in (0, 1) for csf in (0, 1)
+           for rin, rout in ((1, 1), (1, 0), (0, 0))]
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """csrc/strip_plan.cuh's plan_by_layout, compiled on its own (it includes
+    no CUDA header) into a library for ctypes."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build csrc/strip_plan.cuh")
+    d = tmp_path_factory.mktemp("strip_plan")
+    src = d / "plan.cpp"
+    src.write_text('#include "strip_plan.cuh"\n'
+                   'extern "C" void plan(long long w, long long r, long long held, long long sms,'
+                   ' long long lanes, int sh, int csf, int f64, int rin, int rout,'
+                   ' long long* out) {\n'
+                   '  lbm::mrtcg::plan_by_layout(w, r, held, sms, lanes, sh, csf, f64, rin, rout,'
+                   ' out);\n}\n')
+    lib = d / "plan.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    os.path.join(REPO, "lbm_tpu_torch", "csrc"), "-o", str(lib), str(src)],
+                   check=True, capture_output=True, timeout=120)
+    fn = ctypes.CDLL(str(lib)).plan
+    fn.restype = None
+
+    def plan(width, nrows, held, layout, lanes=1, sharded=False, sms=132):
+        out = (ctypes.c_longlong * 7)()
+        f64, csf, rin, rout = layout
+        fn(ctypes.c_longlong(width), ctypes.c_longlong(nrows), ctypes.c_longlong(held),
+           ctypes.c_longlong(sms), ctypes.c_longlong(lanes), int(sharded), csf, f64, rin, rout,
+           out)
+        keys = ("W", "n", "groups", "per", "blocks", "smem", "strips")
+        return dict(zip(keys, out))
+    return plan
+
+
+def _segments(plan, width, nrows, itemsize):
+    """The (first column, columns, first row, end row) segments each block of
+    ``plan`` walks, launch-relative, as strip_kernel cuts its units."""
+    units, blocks = plan["n"] * plan["groups"], []
+    for b in range(plan["blocks"]):
+        u, end, segs = b * plan["per"], min((b + 1) * plan["per"], units), []
+        while u < end:
+            strip, g0 = divmod(u, plan["groups"])
+            g1 = min(plan["groups"], g0 + end - u)
+            u += g1 - g0
+            c0 = strip * plan["W"]
+            segs.append((c0, min(plan["W"], width - c0), g0 * G[itemsize],
+                         min(g1 * G[itemsize], nrows)))
+        blocks.append(segs)
+    return blocks
+
+
+# (columns, rows) of launches: the big grid, the scenes' grids, a row shard, a
+# (4, 2) shard's padded band, kernel 39's windows, ragged and tiny ones
+PLAN_SHAPES = [(2048, 4096), (128, 256), (128, 128), (100, 100), (13, 21), (3, 4),
+               (2050, 257), (129, 5), (33, 13), (1042, 1042), (262, 4096), (2054, 4096),
+               (61, 7), (62, 8), (63, 9)]
+
+
+@pytest.mark.parametrize("layout", [(0, 0, 1, 1), (0, 0, 0, 0), (1, 0, 1, 1)])
+@pytest.mark.parametrize("held", [1, 132, 264, 396])
+@pytest.mark.parametrize("width,nrows", PLAN_SHAPES)
+def test_strip_plan_covers_every_cell_once(plan_lib, width, nrows, held, layout):
+    """The blocks' segments cover each output cell of a launch exactly once,
+    in strips of 1 to NX - 2 columns, every strip but the last a multiple of
+    the layout's alignment (whole 32-byte sectors of an 18-plane or float64
+    output), at most as many blocks as the card holds or two per SM of 132,
+    whichever is more."""
+    itemsize = 8 if layout[0] else 4
+    plan = plan_lib(width, nrows, held, layout)
+    align = 4 if layout[0] else (1 if layout[3] else 8)
+    assert plan["W"] % align == 0 or plan["n"] == 1
+    seen = np.zeros((nrows, width), dtype=np.int64)
+    for segs in _segments(plan, width, nrows, itemsize):
+        assert segs
+        for c0, w, r0, r1 in segs:
+            assert 1 <= w <= NX - 2 and r0 < r1
+            seen[r0:r1, c0:c0 + w] += 1
+    assert (seen == 1).all()
+    assert plan["blocks"] <= max(held, 2 * 132)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_strip_shared_memory_fits_a_block(plan_lib, layout):
+    """Every instance's shared memory, the full layout's 20 float64 planes in
+    CSF mode included, stays within the 227 KB a Hopper block takes."""
+    assert 0 < plan_lib(2048, 4096, 264, layout)["smem"] <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("held", [132, 264, 396])
+@pytest.mark.parametrize("R,C,itemsize", [(256, 128, 4), (256, 128, 8), (128, 128, 8),
+                                          (128, 128, 4), (100, 100, 8), (21, 13, 8)])
+def test_strip_plan_fills_the_scene_grids(plan_lib, R, C, itemsize, held):
+    """At the scenes' grids, where phase 5 launches kernel 6 most, a block of
+    the strip engine would walk a few groups at most: the launch goes to the
+    tile engine, with its blocks of 8 x 32 cells, in every mode.  At
+    4096x2048 the strip plan asks for as many blocks as the card holds and
+    at least two waves over the 132 SMs, to within one block's units."""
+    for csf in (0, 1):
+        layout = (int(itemsize == 8), csf, 1, 1)
+        assert plan_lib(C, R, held, layout)["strips"] == 0
+        big = plan_lib(2048, 4096, held, layout)
+        wanted = max(held, 2 * 132)
+        assert wanted - big["per"] < big["blocks"] <= wanted
+
+
+# the engine each launch of a cell takes, from the sweep of chip_smoke.py
+# --engine-sweep: (layout, width, rows, held, sharded, strips)
+RULE_CASES = [
+    # kernel 6: float32 perturbation from 32 groups a block, CSF from 16,
+    # float64 from 8
+    ((0, 0, 1, 1), 2048, 4096, 264, False, 1), ((0, 0, 1, 1), 2048, 1024, 264, False, 1),
+    ((0, 0, 1, 1), 1024, 1024, 264, False, 0), ((0, 1, 1, 1), 1024, 1024, 264, False, 1),
+    ((0, 1, 1, 1), 512, 512, 264, False, 0), ((1, 0, 1, 1), 512, 512, 264, False, 1),
+    ((1, 0, 1, 1), 256, 256, 264, False, 0), ((1, 1, 1, 1), 512, 512, 264, False, 1),
+    # kernels 7 and 8: float32 perturbation with 18 output planes never;
+    # float64 full CSF from 32
+    ((0, 0, 1, 0), 2048, 4096, 264, False, 0), ((0, 0, 0, 0), 2048, 4096, 264, False, 0),
+    ((0, 1, 0, 0), 2048, 4096, 264, False, 1), ((1, 1, 0, 0), 2048, 2048, 132, False, 1),
+    ((1, 1, 0, 0), 512, 512, 132, False, 0), ((1, 0, 0, 0), 512, 512, 264, False, 1),
+    # shards (kernels 29, 31, 38) need twice the groups: 8 row shards and a
+    # (4, 2) shard of 4096x2048 stay on the tile in float32 and in float64
+    # full CSF, and go to the strip in the other float64 instances
+    ((0, 0, 1, 1), 2048, 512, 264, True, 0), ((0, 1, 1, 1), 2048, 512, 264, True, 0),
+    ((0, 1, 0, 0), 1024, 1024, 264, True, 0), ((1, 0, 0, 0), 1024, 1024, 264, True, 1),
+    ((1, 1, 0, 0), 1024, 1024, 132, True, 0), ((1, 1, 1, 1), 2048, 512, 264, True, 1),
+    ((0, 0, 1, 1), 2048, 2048, 264, True, 1),
+    # kernel 39, lane blocks of 256 (a window of 262 columns) over 8 lanes
+    ((0, 0, 1, 1), 262, 4096, 264, False, 1),
+]
+
+
+@pytest.mark.parametrize("layout,width,nrows,held,sharded,strips", RULE_CASES)
+def test_strip_rule_picks_the_engine(plan_lib, layout, width, nrows, held, sharded, strips):
+    """strips_pay on both sides of each instance's threshold: the strip
+    engine takes a launch only where its blocks walk enough groups to pay a
+    segment's first one, and never the float32 perturbation step with 18
+    output planes."""
+    lanes = 8 if width == 262 else 1
+    assert plan_lib(width, nrows, held, layout, lanes=lanes, sharded=sharded)["strips"] == strips
