@@ -2,9 +2,14 @@
 """Drive the PyTorch/CUDA port, lbm_tpu_torch, once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
-    python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine of
-                                         # the tree DIR (e.g. a git archive of the
-                                         # parent commit) against this one
+    python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
+                                         # kernels 16, 19-21 of the tree DIR (e.g. a
+                                         # git archive of the parent commit) against
+                                         # this one
+    python3 chip_smoke.py --ibm-breakdown [--parent DIR]
+                                         # build kernels 16, 19-21 alone, hold them,
+                                         # time them whole and with parts left out
+                                         # (and against DIR's), as a JSON line
     python3 chip_smoke.py --engine-sweep # build, then only the MRT-CG engines'
                                          # sweep (engine_sweep), as a JSON line
 
@@ -64,8 +69,10 @@ with a nonzero exit code):
      states with a noisy force, at 1024x256 and 4096x2048 float32 and
      160x120 and 48x128 float64; kernel 16 (the IBM forcing, one block) at
      the Strouhal ROI, cylinder_flow's default ROI, the markers of
-     configs/cylinder-markers.toml and a ROI two cells from the grid's edges,
-     in both Peskin pairings and both types; kernel 17 (sedimentation) at
+     configs/cylinder-markers.toml, a ROI two cells from the grid's edges
+     and 1200 markers whose float64 working set takes the global scratch
+     path, in both Peskin pairings and both types (``ibm_holds``); kernel
+     17 (sedimentation) at
      256x320 in both types, 64x96 float64 and 4096x2048 float32, 10 steps
      from the scene's initial state with noise; each of kernels 15-17 twice,
      bit-identical; kernel 18 (the box grid step, the force window's origin
@@ -74,7 +81,8 @@ with a nonzero exit code):
      float32, 10 steps from noisy states with a noisy force window;
      kernels 19-21 (the moving-body forcing, one block each) at the falling
      scenes' default windows, at a window clipped at a grid edge, (19) at
-     the falling gate's 26x26 window and (21) at the dkt gate's 228x128, in
+     the falling gate's 26x26 window and (21) at the dkt gate's 228x128 and
+     at two rings whose supports overlap (centres 2 r + 1.4 apart), in
      both types, 4 steps with the body state advancing (F within TOL; the
      state within TOL of max(1, |value|), in float32 against the float64
      plain version: no farther than the float32 plain version, plus TOL);
@@ -249,7 +257,9 @@ with a nonzero exit code):
      128x128 float64 under CUDA graphs, each on the tile and on the strip
      engine and on the engine of the tree that --parent names
      (``build_parent``), in turns, with the engine the plan picks
-     (``engine_times``).
+     (``engine_times``); with --parent also kernels 16 and 19-21 and their
+     two-launch steps at the scenes' shapes in both types against the
+     parent tree's design, in turns (``ibm_times``).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -893,15 +903,20 @@ DKT_CENTERS = ((96.0, 63.0), (130.0, 64.0))
 FALLING_GATE = (96, 256, 8.0, 1.5, 1e-4)
 
 
-def moving_case(variant, dtype, device, edge=False, rw=116, gate=False):
+def moving_case(variant, dtype, device, edge=False, rw=116, gate=False, m_max=5,
+                overlap=False, km=None):
     """(step, f, state) of kernel 19 ("forcing"), 20 ("rot") or 21 ("bodies")
     at its scene's default grid, markers and rigid constants (19 with
     ``gate`` at the falling gate's), on a noisy fluid state, the body at its
-    default centre or clipped at a grid edge."""
+    default centre or clipped at a grid edge; 21 with ``overlap`` at centres
+    2 r + 1.4 apart, where the two rings' supports share cells (DKT's kissing
+    gap is 1.407).  ``km``: the kernels' module (default this tree's)."""
     import numpy as np
 
-    from lbm_tpu_torch.kernels import moving_ibm as km
     from lbm_tpu_torch.ops.moving_ibm import ellipse_markers
+
+    if km is None:
+        from lbm_tpu_torch.kernels import moving_ibm as km
 
     if variant == "rot":
         H, W, (a, b), rho_s, g = ELLIPSE
@@ -909,7 +924,8 @@ def moving_case(variant, dtype, device, edge=False, rw=116, gate=False):
         area = np.pi * a * b
         step = km.make_moving_rot_step(
             H, W, dx, dy, half=int(np.ceil(a)) + 5, g_net=(rho_s - 1) * area * g,
-            m_eff=rho_s * area, i_eff=rho_s * area * (a * a + b * b) / 4, dtype=dtype)
+            m_eff=rho_s * area, i_eff=rho_s * area * (a * a + b * b) / 4, m_max=m_max,
+            dtype=dtype)
         state = km.pack_state_rot((19.5, 20.0) if edge else (200.0, 127.5),
                                   (np.cos(0.3), np.sin(0.3)), (0.003, 0.001), 1e-4,
                                   dtype=dtype, device=device)
@@ -918,7 +934,7 @@ def moving_case(variant, dtype, device, edge=False, rw=116, gate=False):
                              else FALLING)
         th = np.linspace(0.0, 2.0 * np.pi, int(np.ceil(2 * np.pi * r)), endpoint=False)
         kw = dict(half=int(np.ceil(r)) + 5, g_net=(rho_s - 1) * np.pi * r * r * g,
-                  m_eff=rho_s * np.pi * r * r, dtype=dtype)
+                  m_eff=rho_s * np.pi * r * r, m_max=m_max, dtype=dtype)
         if variant == "forcing":
             step = km.make_moving_forcing_step(H, W, r * np.cos(th), r * np.sin(th), **kw)
             state = km.pack_state((16.0, 240.5) if edge else (24.0, 128.0) if gate
@@ -927,8 +943,10 @@ def moving_case(variant, dtype, device, edge=False, rw=116, gate=False):
         else:
             step = km.make_moving_bodies_step(H, W, r * np.cos(th), r * np.sin(th), n_bodies=2,
                                               rw=rw, radius=r, **kw)
-            state = km.pack_states(((785.0, 63.0), (770.0, 110.0)) if edge else DKT_CENTERS,
-                                   ((0.003, 0.0), (0.004, 0.0005)), dtype=dtype, device=device)
+            centers = (((785.0, 63.0), (770.0, 110.0)) if edge else
+                       ((100.0, 63.0), (100.0 + 2 * r + 1.4, 63.3)) if overlap else DKT_CENTERS)
+            state = km.pack_states(centers, ((0.003, 0.0), (0.004, 0.0005)), dtype=dtype,
+                                   device=device)
     return step, seeded_state(H, W, dtype, device, seed=H + W + len(variant), noisy=True), state
 
 
@@ -2568,11 +2586,12 @@ def engine_plan(width, nrows, csf, f64, rin, rout, blocks_per_sm, lanes=1, shard
     return tuple(out)
 
 
-def build_parent(parent: Path) -> object:
-    """The MRT-CG units of a parent tree's csrc/ built into one library with
-    this tree's flags, its namespace lbm renamed lbm_parent (a template's
-    static flags, the shared-memory opt-ins, are unique symbols that the
-    dynamic linker would merge with this tree's across the two libraries)."""
+def build_parent(parent: Path, units=PARENT_UNITS) -> object:
+    """``units`` of a parent tree's csrc/ (default its MRT-CG units) built
+    into one library with this tree's flags, its namespace lbm renamed
+    lbm_parent (a template's static flags, the shared-memory opt-ins, are
+    unique symbols that the dynamic linker would merge with this tree's
+    across the two libraries)."""
     import ctypes
 
     from lbm_tpu_torch.kernels import _build
@@ -2588,14 +2607,14 @@ def build_parent(parent: Path) -> object:
     procs = {u: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get(u, ()), "-c",
                                   "-o", str(work / f"{u}.o"), str(work / f"{u}.cu")],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for u in PARENT_UNITS}
+             for u in units}
     for u, proc in procs.items():
         out = proc.communicate(timeout=600)[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the parent's {u}.cu:\n{out}")
     lib = work / "libparent.so"
     subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(lib),
-                    *(str(work / f"{u}.o") for u in PARENT_UNITS)], check=True, timeout=600,
+                    *(str(work / f"{u}.o") for u in units)], check=True, timeout=600,
                    capture_output=True)
     return ctypes.CDLL(str(lib))
 
@@ -2835,6 +2854,341 @@ def engine_sweep(dev, card: str, rows) -> list:
     return table
 
 
+# --- the one-block IBM forcing kernels (16, 19-21): where the time goes -----------------
+
+# LBM_PROBE of csrc/ibm_forcing.cu and csrc/moving_ibm.cu: what each build leaves out
+IBM_PROBES = {"ibm_forcing": {0: "full", 1: "entries read in place (no staging)",
+                              2: "no macroscopic load", 4: "no spread", 5: "no marker phase",
+                              6: "neither phase (the iterations' barriers)"},
+              "moving_ibm": {0: "full", 1: "stops after the markers and the loads",
+                             2: "no macroscopic load", 3: "no zeros off the boxes",
+                             4: "no spread", 5: "no marker phase",
+                             6: "neither phase (the iterations' barriers)"}}
+EMPTY_CU = """#include <cuda_runtime.h>
+__global__ void lbm_empty_kernel() {}
+extern "C" int lbm_empty(int threads, int smem, void* stream) {
+  lbm_empty_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def build_probes() -> dict:
+    """csrc/ibm_forcing.cu and csrc/moving_ibm.cu built once per LBM_PROBE
+    value, each into a library of its own, and an empty one-block kernel:
+    {(unit, probe): CDLL, "empty": CDLL}.  ptxas' report of each is logged."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+
+    work = Path(tempfile.mkdtemp(prefix="probe-csrc-"))
+    atexit.register(shutil.rmtree, work, True)
+    (work / "empty.cu").write_text(EMPTY_CU)
+    nvcc = _build.find_nvcc()
+    jobs = {(u, k): [*_build.UNIT_FLAGS.get(u, ()), f"-DLBM_PROBE={k}",
+                     str(_build.CSRC / f"{u}.cu")]
+            for u, probes in IBM_PROBES.items() for k in probes}
+    jobs["empty"] = [str(work / "empty.cu")]
+    jobs["cylinder"] = [*_build.UNIT_FLAGS["cylinder"], str(_build.CSRC / "cylinder.cu")]
+    procs = {key: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
+                                    str(work / f"lib{abs(hash(key))}.so"), *args],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for key, args in jobs.items()}
+    libs = {}
+    for key, proc in procs.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on probe {key}:\n{out}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"[probe] {key}: {line.strip()}")
+        libs[key] = ctypes.CDLL(str(work / f"lib{abs(hash(key))}.so"))
+    return libs
+
+
+def bind_probe(kernels, lib) -> None:
+    """Point the kernel objects at ``lib`` (None: the package's library)."""
+    import ctypes
+
+    for k in kernels:
+        if lib is None:
+            k._fn = None
+            continue
+        fn = getattr(lib, k.symbol)
+        fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+        k._fn = fn
+
+
+def ibm_breakdown(dev, card: str, parent=None) -> dict:
+    """--ibm-breakdown: csrc/ibm_forcing.cu, moving_ibm.cu and cylinder.cu
+    built alone (``build_probes``), kernels 16 and 19-21 held to their plain
+    versions (``ibm_holds``), then where they spend their time: each built
+    whole and with parts left out (``IBM_PROBES``), and with 0 forcing
+    iterations (m_max = 1), under CUDA graphs of 100 launches, in turns
+    (orders a..z, z..a, a..z; the median of three); the empty one-block
+    kernel under the same graph is the card's floor for one dependent
+    launch.  Kernel 16 at the Strouhal ROI (1024x256), 19-21 at their
+    scenes' default windows and 21 at the dkt gate's 228-row window, in both
+    types.  With ``parent`` (a tree), ``ibm_times`` against it too."""
+    import ctypes
+
+    import torch
+
+    from lbm_tpu_torch.kernels import _build, cylinder
+    from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.kernels import moving_ibm as kmov
+    from lbm_tpu_torch.ops.ibm import IBM
+
+    libs = build_probes()
+    empty = libs.pop("empty").lbm_empty
+    empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    bind_probe([cylinder.CYLINDER, cylinder.BOX], libs.pop("cylinder"))
+    movers = [kmov.MOVING_FORCING, kmov.MOVING_ROT, kmov.MOVING_BODIES]
+    bind_probe([kibm.IBM_FORCING], libs["ibm_forcing", 0])
+    bind_probe(movers, libs["moving_ibm", 0])
+    ibm_holds(dev)
+    out = {}
+    if parent is not None:
+        out["times"] = {" ".join(k): v for k, v in
+                        ibm_times(dev, card, load_parent_ibm(parent)).items()}
+
+    def turns(label, cases):
+        runs = {c: [] for c in cases}
+        names = list(cases)
+        for order in (names, names[::-1], names):
+            for c in order:
+                lib, kernels, fn = cases[c]
+                bind_probe(kernels, lib)
+                runs[c].append(fn())
+        med = {c: sorted(v)[1] * 1e3 for c, v in runs.items()}
+        out[label] = med
+        log(f"[breakdown] {card}; {label} (us per launch, CUDA graphs of 100, median of 3): "
+            + ", ".join(f"{c} {t!r}" for c, t in med.items()))
+
+    x = torch.zeros(1, device=dev)
+
+    def floor(threads, smem):
+        def launch(y):
+            err = empty(threads, smem, _build.stream_handle(y))
+            if err:
+                raise RuntimeError(f"lbm_empty: cudaError_t {err}")
+            return y
+        return lambda: graph_ms(launch, x)
+
+    turns("empty one-block kernel", {"1024 threads": (None, [], floor(1024, 0)),
+                                     "32 threads": (None, [], floor(32, 0)),
+                                     "1024 threads, 40 KiB shared": (None, [],
+                                                                     floor(1024, 40960))})
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        f = seeded_state(1024, 256, dtype, dev, seed=616, noisy=True)
+        cases = {}
+        for m_max in (5, 2, 1):
+            ib = IBM.circle(*STROUHAL_CIRCLE, m_max=m_max)
+            step = kibm.make_ibm_forcing_step(1024, 256, ib, dtype)
+
+            def forcing_only(y, step=step):
+                step(y)
+                return y
+            for k, what in IBM_PROBES["ibm_forcing"].items():
+                if m_max < 5 and k not in (0, 2):
+                    continue
+                label = what if m_max == 5 else f"{what}, {m_max - 1} iterations"
+                cases[label] = (libs["ibm_forcing", k], [kibm.IBM_FORCING],
+                                lambda s=forcing_only: graph_ms(s, f))
+        turns(f"kernel 16 Strouhal ROI 37x37, 64 markers, {dt}", cases)
+        for variant, extra in (("forcing", {}), ("rot", {}), ("bodies", {}),
+                               ("bodies", {"rw": 228})):
+            cases = {}
+            for m_max in (5, 2, 1):
+                step, fl, state = moving_case(variant, dtype, dev, m_max=m_max, **extra)
+                for k, what in IBM_PROBES["moving_ibm"].items():
+                    if m_max < 5 and k not in (0, 2):
+                        continue
+                    label = what if m_max == 5 else f"{what}, {m_max - 1} iterations"
+                    cases[label] = (libs["moving_ibm", k], movers,
+                                    lambda s=step, fl=fl, st=state: graph_ms(
+                                        lambda s_: s(fl, s_)[2], st))
+            turns(f"kernel {19 + ('forcing', 'rot', 'bodies').index(variant)} {variant} "
+                  f"{tuple(fl.shape[1:])} window rows {extra.get('rw', 'default')}, {dt}", cases)
+        del f
+    return out
+
+
+IBM16_HOLDS = (("Strouhal", (1024, 256), STROUHAL_CIRCLE),
+               ("default", (160, 120), (60.0, 60.0, 20.0, 64)),
+               ("cylinder-markers.toml", (160, 120), "cylinder-a"),
+               ("edge", (40, 40), (20.0, 20.0, 15.0, 48)),
+               ("past shared memory in float64", (160, 160), (80.0, 80.0, 70.0, 1200)))
+MOVING_HOLDS = (
+    ("forcing", "falling_cylinder 400x256, window 34x34, 76 markers", {}),
+    ("forcing", "falling_cylinder, window clipped at row 0 and the last column",
+     dict(edge=True)),
+    ("forcing", "falling gate 96x256, r 8, window 26x26, 51 markers", dict(gate=True)),
+    ("rot", "falling_ellipse 800x256, window 42x42, 78 markers", {}),
+    ("rot", "falling_ellipse, window clipped at row 0 and column 0", dict(edge=True)),
+    ("bodies", "falling_cylinders 800x128, window 116x128, 2x76 markers", {}),
+    ("bodies", "falling_cylinders row_slack=160, window 228x128", dict(rw=228)),
+    ("bodies", "falling_cylinders, window 116x128 clipped at the last row", dict(edge=True)),
+    ("bodies", "falling_cylinders, centres 2 r + 1.4 apart: the supports overlap",
+     dict(overlap=True)))
+
+
+def ibm_holds(dev) -> tuple:
+    """Phase 4 of kernels 16 and 19-21.  Kernel 16, one call at m_max 5 on
+    noisy states, in both Peskin pairings (``IBM16_HOLDS``): the Strouhal
+    ROI, cylinder_flow's default ROI, the markers of
+    configs/cylinder-markers.toml, a ROI two cells from every edge (where
+    lbm_tpu's 8x128-aligned window does not fit) and 1200 markers whose
+    float64 working set takes the global scratch path.  Kernels 19-21
+    (``MOVING_HOLDS``), 4 steps at the scenes' default windows and clipped
+    at a grid edge, in both types (19 also at the falling gate's 26x26
+    window, 21 at the dkt gate's 228 rows and at overlapping supports).
+    Returns (err16 by type, err_mov: per variant and type the largest (F
+    error, state error vs the plain version, f32 state excess vs the f64
+    plain version))."""
+    import torch
+
+    from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.ops.ibm import IBM
+
+    f32, f64 = torch.float32, torch.float64
+    markers = str(ROOT / "configs" / "cylinder-markers.toml")
+    err16, err_mov = {}, {}
+    for ref in (False, True):
+        for label, (R, C), spec in IBM16_HOLDS:
+            ib = (IBM.from_toml(markers, spec, reference_transposed_weights=ref)
+                  if isinstance(spec, str) else
+                  IBM.circle(*spec, reference_transposed_weights=ref))
+            for dtype in (f32, f64):
+                f = seeded_state(R, C, dtype, dev, seed=R * C + 16, noisy=True)
+                e = hold_twice(
+                    f"[4] kernel 16 {label} ROI {ib.roi_shape} at ({ib.roi_rows[0]}, "
+                    f"{ib.roi_cols[0]}) of {R}x{C}, {ib.row_w.shape[0]} markers, "
+                    f"transposed={ref} {dtype}",
+                    kibm.make_ibm_forcing_step(R, C, ib, dtype), ib.force_from_populations,
+                    f, 1, dtype)
+                err16[dtype] = max(err16.get(dtype, 0.0), e)
+    for variant, label, case in MOVING_HOLDS:
+        for dtype in (f32, f64):
+            step, f, state = moving_case(variant, dtype, dev, **case)
+            step64 = moving_case(variant, f64, dev, **case)[0] if dtype == f32 else None
+            e = hold_forcing(f"[4] kernel {19 + ('forcing', 'rot', 'bodies').index(variant)} "
+                             f"{label} {dtype}", step, f, state, 4, dtype, step64)
+            old = err_mov.setdefault(variant, {}).get(dtype, (0.0, 0.0, 0.0))
+            err_mov[variant][dtype] = tuple(max(a, b) for a, b in zip(old, e))
+            del f
+    torch.cuda.empty_cache()
+    return err16, err_mov
+
+
+def load_parent_ibm(parent: Path) -> tuple:
+    """The parent tree's kernels 16 and 19-21 with its own wrappers: its
+    lbm_tpu_torch package copied as lbm_tpu_torch_parent (the package imports
+    itself only relatively), its ibm_forcing.cu and moving_ibm.cu built by
+    ``build_parent`` and bound to that copy's kernel objects.  Returns the
+    copy's (kernels.ibm, kernels.moving_ibm, ops.ibm.IBM)."""
+    import importlib
+
+    work = Path(tempfile.mkdtemp(prefix="parent-pkg-"))
+    atexit.register(shutil.rmtree, work, True)
+    shutil.copytree(parent / "lbm_tpu_torch", work / "lbm_tpu_torch_parent",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    sys.path.insert(0, str(work))
+    kibm = importlib.import_module("lbm_tpu_torch_parent.kernels.ibm")
+    kmov = importlib.import_module("lbm_tpu_torch_parent.kernels.moving_ibm")
+    ibm = importlib.import_module("lbm_tpu_torch_parent.ops.ibm")
+    lib = build_parent(parent, ("ibm_forcing", "moving_ibm"))
+    bind_probe([kibm.IBM_FORCING, kmov.MOVING_FORCING, kmov.MOVING_ROT, kmov.MOVING_BODIES],
+               lib)
+    return kibm, kmov, ibm.IBM
+
+
+# kernel 16's timed shapes (grid, circle) and kernels 19-21's (variant, case)
+IBM16_TIMES = (("Strouhal", (1024, 256), STROUHAL_CIRCLE),
+               ("cylinder_flow", (160, 120), (60.0, 60.0, 20.0, 64)))
+MOVING_TIMES = (("forcing", "falling gate 96x256", dict(gate=True)),
+                ("forcing", "falling_cylinder 400x256", {}),
+                ("rot", "falling_ellipse 800x256", {}),
+                ("bodies", "dkt 800x128, 116 rows", {}),
+                ("bodies", "dkt 800x128, 228 rows", dict(rw=228)))
+
+
+def ibm_times(dev, card: str, parent) -> dict:
+    """Kernels 16 and 19-21 on this tree's design against the parent's
+    (``load_parent_ibm``), each alone and in its two-launch step (16 + 15;
+    19, 20 or 21 + 18), at the scenes' shapes (``IBM16_TIMES``,
+    ``MOVING_TIMES``) in float32 and float64: us per call under CUDA graphs
+    of 100 calls, in turns (new parent parent new new parent; the median of
+    three each); kernels 19-21 also held to the parent's one step bit for
+    bit (the same terms in the same order).  Keys (label, type, "kernel" |
+    "step ..." | "bit for bit the parent") -> {new, parent, change} | bool."""
+    import torch
+
+    from lbm_tpu_torch.kernels import cylinder
+    from lbm_tpu_torch.kernels import ibm as kibm
+    from lbm_tpu_torch.ops.ibm import IBM
+
+    kibm_p, kmov_p, IBM_p = parent
+    out = {}
+
+    def turns(label, fns):
+        runs = {"new": [], "parent": []}
+        for order in (("new", "parent"), ("parent", "new"), ("new", "parent")):
+            for v in order:
+                runs[v].append(fns[v]() * 1e3)
+        med = {v: sorted(t)[1] for v, t in runs.items()}
+        med["change"] = med["new"] / med["parent"] - 1.0
+        out[label] = med
+        log(f"[6] {card}; {' '.join(label)} (us per call, CUDA graphs of 100, median of 3 in "
+            f"turns): new {med['new']!r}, parent {med['parent']!r}, change {med['change']!r} "
+            f"(runs {runs})")
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        for label, (R, C), circle in IBM16_TIMES:
+            f, F, origin = cylinder_case(R, C, dtype, dev, IBM.circle(*circle), seed=616)
+            grid = cylinder.make_cylinder_fused_step(R, C, 1 / 0.55, (0.05, 0.0), (3.0, 9.0),
+                                                     dtype)
+            force = {"new": kibm.make_ibm_forcing_step(R, C, IBM.circle(*circle), dtype),
+                     "parent": kibm_p.make_ibm_forcing_step(R, C, IBM_p.circle(*circle), dtype)}
+
+            def alone(x, fn):
+                fn(x)
+                return x
+            turns((f"kernel 16 {label} {R}x{C}", dt, "kernel"),
+                  {v: (lambda fn=fn: graph_ms(lambda x: alone(x, fn), f))
+                   for v, fn in force.items()})
+            turns((f"kernel 16 {label} {R}x{C}", dt, "step 16 + 15"),
+                  {v: (lambda fn=fn: graph_ms(lambda x: grid(x, fn(x), origin), f))
+                   for v, fn in force.items()})
+            del f, F
+        for variant, label, case in MOVING_TIMES:
+            k = 19 + ("forcing", "rot", "bodies").index(variant)
+            steps = {"new": moving_case(variant, dtype, dev, **case),
+                     "parent": moving_case(variant, dtype, dev, km=kmov_p, **case)}
+            f, state = steps["new"][1], steps["new"][2]
+            box = cylinder.make_box_fused_step(f.shape[1], f.shape[2], 1 / 0.6, dtype=dtype)
+            got = [steps[v][0](f, state) for v in ("new", "parent")]
+            same = all(torch.equal(x, y) for x, y in zip(*got))
+            log(f"[6] kernel {k} {label} {dt}: F, origin and state bit for bit the parent "
+                f"design's: {same}")
+            out[f"kernel {k} {label}", dt, "bit for bit the parent"] = same
+
+            def two(c, step):
+                F2, o2, s2 = step(*c)
+                return box(c[0], F2, o2), s2
+            turns((f"kernel {k} {label}", dt, "kernel"),
+                  {v: (lambda st=st[0]: graph_ms(lambda s_: st(f, s_)[2], state))
+                   for v, st in steps.items()})
+            turns((f"kernel {k} {label}", dt, f"step {k} + 18"),
+                  {v: (lambda st=st[0]: graph_ms(lambda c: two(c, st), (f, state)))
+                   for v, st in steps.items()})
+            del f, steps
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2843,12 +3197,17 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive lbm_tpu_torch once on one NVIDIA card.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of an earlier tree whose MRT-CG engine phase 6 times "
-                         "the current one against, in turns (e.g. a git archive of it)")
+                    help="a checkout of an earlier tree whose MRT-CG engine and IBM forcing "
+                         "kernels (16, 19-21) phase 6 (or --ibm-breakdown) times the current "
+                         "ones against, in turns (e.g. a git archive of it)")
     ap.add_argument("--engine-sweep", action="store_true",
                     help="build, then only time the MRT-CG tile and strip engines against each "
                          "other over grid sizes and shard counts (engine_sweep) and print the "
                          "table as a JSON line")
+    ap.add_argument("--ibm-breakdown", action="store_true",
+                    help="build kernels 16 and 19-21 whole and with parts left out, time "
+                         "each and an empty one-block kernel under CUDA graphs "
+                         "(ibm_breakdown), print the table as a JSON line, and stop")
     args = ap.parse_args(argv)
     parent = args.parent
 
@@ -2932,6 +3291,11 @@ def main(argv=None) -> int:
     except ImportError as e:
         log(f"[1] triton does not import: {e}")
     log(f"[1] nvidia-smi name,power.limit: {card}")
+
+    if args.ibm_breakdown:
+        print(json.dumps({"ibm_breakdown": ibm_breakdown(dev, card, parent), "card": card}),
+              flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -3190,7 +3554,7 @@ def main(argv=None) -> int:
     # a noisy force over the ROI of the grid's cylinder, at both Guo pairs
     # (the Strouhal grid; cylinder_flow's defaults; the transcription test's
     # 48x128; 4096x2048)
-    err15, err16, err17 = {}, {}, {}
+    err15, err17 = {}, {}
     for dtype, (R, C), ib in ((f32, (1024, 256), IBM.circle(*STROUHAL_CIRCLE)),
                               (f64, (160, 120), IBM.circle(60.0, 60.0, 20.0, 64)),
                               (f64, (48, 128), IBM.circle(24.0, 60.0, 9.0, 24)),
@@ -3207,29 +3571,7 @@ def main(argv=None) -> int:
             err15[dtype] = max(err15.get(dtype, 0.0), e)
         del f, F
     torch.cuda.empty_cache()
-    # kernel 16, one call at m_max 5 on noisy states, in both Peskin pairings:
-    # the Strouhal ROI, cylinder_flow's default ROI, the markers of
-    # configs/cylinder-markers.toml, and a ROI two cells from every edge
-    # (where lbm_tpu's 8x128-aligned window does not fit)
-    for ref in (False, True):
-        for label, (R, C), ib in (
-                ("Strouhal", (1024, 256),
-                 IBM.circle(*STROUHAL_CIRCLE, reference_transposed_weights=ref)),
-                ("default", (160, 120),
-                 IBM.circle(60.0, 60.0, 20.0, 64, reference_transposed_weights=ref)),
-                ("cylinder-markers.toml", (160, 120),
-                 IBM.from_toml(markers, "cylinder-a", reference_transposed_weights=ref)),
-                ("edge", (40, 40),
-                 IBM.circle(20.0, 20.0, 15.0, 48, reference_transposed_weights=ref))):
-            for dtype in (f32, f64):
-                f = seeded_state(R, C, dtype, dev, seed=R * C + 16, noisy=True)
-                e = hold_twice(
-                    f"[4] kernel 16 {label} ROI {ib.roi_shape} at ({ib.roi_rows[0]}, "
-                    f"{ib.roi_cols[0]}) of {R}x{C}, {ib.row_w.shape[0]} markers, "
-                    f"transposed={ref} {dtype}",
-                    kibm.make_ibm_forcing_step(R, C, ib, dtype), ib.force_from_populations,
-                    f, 1, dtype)
-                err16[dtype] = max(err16.get(dtype, 0.0), e)
+    err16, err_mov = ibm_holds(dev)
     # kernel 17, 10 steps from the scene's initial state with noise
     for dtype, (R, C) in ((f32, (256, 320)), (f64, (256, 320)), (f64, (64, 96)), (f32, BIG)):
         kw = sediment_kwargs(R, C)
@@ -3245,7 +3587,7 @@ def main(argv=None) -> int:
     # at a device origin: 4096x2048 f32, falling_cylinder's 400x256 in both
     # types, an odd 97x61 f64, and the phase-5 gates' grids in f32 (falling
     # 96x256, dkt 800x128 with its 228x128 window, ellipse 800x256)
-    err18, err_mov = {}, {}
+    err18 = {}
     for dtype, (R, C), (r0, c0, rw, cw) in ((f32, BIG, (1990, 1010, 34, 34)),
                                             (f32, (400, 256), (83, 111, 34, 34)),
                                             (f64, (400, 256), (83, 111, 34, 34)),
@@ -3264,30 +3606,6 @@ def main(argv=None) -> int:
                        f, 10, dtype)
         err18[dtype] = max(err18.get(dtype, 0.0), e)
         del f
-    # kernels 19-21, 4 steps at the scenes' default windows and clipped at a
-    # grid edge, in both types (kernel 19 also at the falling gate's 26x26
-    # window, kernel 21 at the dkt gate's 228 rows); err_mov keeps, per
-    # variant and type, the largest (F error, state error vs the plain
-    # version, f32 state excess vs the f64 plain version)
-    for variant, label, case in (
-            ("forcing", "falling_cylinder 400x256, window 34x34, 76 markers", {}),
-            ("forcing", "falling_cylinder, window clipped at row 0 and the last column",
-             dict(edge=True)),
-            ("forcing", "falling gate 96x256, r 8, window 26x26, 51 markers", dict(gate=True)),
-            ("rot", "falling_ellipse 800x256, window 42x42, 78 markers", {}),
-            ("rot", "falling_ellipse, window clipped at row 0 and column 0", dict(edge=True)),
-            ("bodies", "falling_cylinders 800x128, window 116x128, 2x76 markers", {}),
-            ("bodies", "falling_cylinders row_slack=160, window 228x128", dict(rw=228)),
-            ("bodies", "falling_cylinders, window 116x128 clipped at the last row",
-             dict(edge=True))):
-        for dtype in (f32, f64):
-            step, f, state = moving_case(variant, dtype, dev, **case)
-            step64 = moving_case(variant, f64, dev, **case)[0] if dtype == f32 else None
-            e = hold_forcing(f"[4] kernel {19 + ('forcing', 'rot', 'bodies').index(variant)} "
-                             f"{label} {dtype}", step, f, state, 4, dtype, step64)
-            old = err_mov.setdefault(variant, {}).get(dtype, (0.0, 0.0, 0.0))
-            err_mov[variant][dtype] = tuple(max(a, b) for a, b in zip(old, e))
-            del f
     torch.cuda.empty_cache()
     # kernel 22, 10 steps from a noisy state at the reference's
     # super-critical force (the strip's source large): ring_cavity's L = 512
@@ -4376,9 +4694,9 @@ def main(argv=None) -> int:
     # kernels 19-21 at their scenes' default sizes: the forcing kernel alone,
     # kernel 18 alone and the two-launch step under CUDA graphs of 100 calls,
     # the plain forcing eagerly, against the host time per step of the
-    # phase-5 runs; each kernel is one block on one SM of 132, bound by its
-    # latency (moving_work gives its bytes and operations at this run's
-    # support)
+    # phase-5 runs; each kernel's forcing is one block on one SM of 132 (more
+    # blocks zero the window), bound by its latency (moving_work gives its
+    # bytes and operations at this run's support)
     mov_ms, mov_bound = {}, {}
     host_us = {"moving_forcing": mov_wall["falling"] / 200 * 1e6,
                "moving_rot": mov_wall["ellipse"] / 60000 * 1e6,
@@ -4482,6 +4800,8 @@ def main(argv=None) -> int:
     # the strip engine, and the parent tree's where --parent names one
     parent_lib = build_parent(parent) if parent is not None else None
     engine_tm = engine_times(dev, card, parent_lib, engine_rows)
+    # kernels 16 and 19-21 and their steps against the parent tree's design
+    ibm_tm = ibm_times(dev, card, load_parent_ibm(parent)) if parent is not None else {}
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -4632,6 +4952,12 @@ def main(argv=None) -> int:
                      box_ms=mov_ms[name, f32][1], box_ms_f64=mov_ms[name, f64][1],
                      step_ms=mov_ms[name, f32][2], step_ms_f64=mov_ms[name, f64][2],
                      host_us_per_step=host_us[name])
+    for entry in (kernels[15], *kernels[-3:]):
+        k = {"ibm_forcing": 16, "moving_forcing": 19, "moving_rot": 20,
+             "moving_bodies": 21}[entry["name"]]
+        tm = {" ".join(key): v for key, v in ibm_tm.items() if key[0].startswith(f"kernel {k} ")}
+        if tm:
+            entry["parent_us"] = tm
     th_source = {"cavity": ("cavity", "cavity_pallas.py:29", "ring_cavity L=4096"),
                  "thermal_rb_q9": ("thermal", "thermal_pallas.py:245", "4096x2048, 18 planes"),
                  "thermal_rb_q5": ("thermal", "thermal_pallas.py:245", "4096x2048, 14 planes"),

@@ -28,7 +28,8 @@ step (kernels/cylinder.py, kernel 18) reads there.
     barriers (falling_cylinders; :452), kernel 21.
 
 On a CPU state each runs its plain version (the ops/moving_ibm.py matmuls);
-on a CUDA state it launches its kernel (csrc/moving_ibm.cu, one block) or
+on a CUDA state it launches its kernel (csrc/moving_ibm.cu: one block
+forces the bodies' boxes, the others zero the rest of the window) or
 raises.  lbm_tpu's kernels widen the window to an 8x128-aligned, margined
 one, carry F on the full grid aliased in and out, pad the markers to 128
 lanes at FAR and return None (a jnp fallback) when the window does not fit
@@ -54,9 +55,14 @@ from .ibm import SMEM_LIMIT
 
 CEN_X, CEN_Y, UB_X, UB_Y, FH_X, FH_Y, ORI_C, ORI_S, ANG_W, TRQ = range(10)
 STATE_LANES = 10
-THREADS = 1024  # the one block of csrc/moving_ibm.cu
+THREADS = 1024  # the most threads of csrc/moving_ibm.cu's blocks
+# a marker covers the cells within 2 sqrt 2 of it (4x4 box); the body-frame
+# buckets are unit squares, and both reaches keep a margin for the rounding
+# of the positions and a rotating body's (cos, sin) drifting off norm 1
+REACH = 3.0
+BUCKET_REACH = 2.0 * np.sqrt(2.0) + 0.5 * np.sqrt(2.0) + 0.1
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 \
     + [ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p]
 MOVING_FORCING = _build.CudaKernel("lbm_moving_forcing", _ARGS)
 MOVING_ROT = _build.CudaKernel("lbm_moving_rot", _ARGS)
@@ -185,25 +191,69 @@ def plain_moving_bodies(f, states, dx, dy, *, half: int, rw: int, g_net: float, 
     return F_win, origin, new
 
 
-def scratch_bytes(n: int, markers: int, itemsize: int) -> int:
-    """Bytes of the kernels' working set over n window cells and ``markers``
-    markers (csrc/moving_ibm.cu): per cell 5 values and 3 ints, per marker
-    17 values and 18 ints, and the block scan's 2 THREADS + 2 ints."""
-    return (5 * n + 17 * markers) * itemsize + 4 * (3 * n + 18 * markers + 2 * THREADS + 2)
+class Boxes:
+    """The kernels' static geometry from the body-frame marker offsets (dx,
+    dy) (csrc/moving_ibm.cu): a body's box has side ``side`` = 2 K + 5 from
+    floor(centre) - K - 1, K = ceil(max |offset|) + 1, so it holds every
+    cell its markers' 4x4 supports reach; a cell can be reached only within
+    [r_min - REACH, r_max + REACH] of the centre (``near``, squared); the
+    body frame is cut into unit buckets over [-QB, QB)^2, QB = ceil(r_max)
+    + 5, and bucket k lists (``ptr``, ``ent``) in ascending order the markers
+    within BUCKET_REACH of its centre: every marker whose support can hold a
+    cell of the bucket."""
+
+    def __init__(self, dx, dy):
+        norm = np.hypot(dx, dy)
+        r_min, r_max = float(norm.min()), float(norm.max())
+        reach = int(np.ceil(r_max - 1e-9))   # a ring of radius 12 has norms 12 + 1 ulp
+        self.K = reach + 1
+        self.side = 2 * self.K + 5
+        self.QB = reach + 5
+        self.near = (max(r_min - REACH, 0.0) ** 2, (r_max + REACH) ** 2)
+        centres = np.arange(-self.QB, self.QB) + 0.5                      # (2 QB,)
+        d2 = ((centres[:, None, None] - dx[None, None, :]) ** 2
+              + (centres[None, :, None] - dy[None, None, :]) ** 2)         # (2QB, 2QB, Mb)
+        hit = (d2 <= BUCKET_REACH ** 2).reshape(-1, dx.size)
+        self.ptr = np.concatenate([[0], np.cumsum(hit.sum(axis=1))]).astype(np.int32)
+        self.ent = np.nonzero(hit)[1].astype(np.int32)   # row-major: ascending per bucket
+
+    def slots(self, n_bodies: int) -> int:
+        return n_bodies * self.side * self.side
 
 
-def _consts(dtype, g_net, m_eff, i_eff=1.0, radius=0.0, zeta=0.0, eps=1.0, H=0, W=0):
-    """The kernels' 9 scalars, each rounded to ``dtype`` as the plain version
-    rounds it: g_net, m_eff, i_eff, radius, zeta, eps, eps / 2, H - 0.5,
-    W - 0.5."""
+def scratch_bytes(boxes: Boxes, n_bodies: int, markers: int, threads: int,
+                  itemsize: int) -> int:
+    """Bytes of block 0's working set (csrc/moving_ibm.cu Work): the bodies'
+    boxes and frames (2 ints and 4 values each, 16-byte aligned), per slot
+    of the boxes 5 values and 3 ints (the live list), per marker 17 values
+    and 3 ints, per thread EREG = 6 covering markers (an int each), the
+    bucket lists and a counter."""
+    ns = boxes.slots(n_bodies)
+    body = -(-n_bodies * (8 + 4 * itemsize) // 16) * 16
+    return body + (5 * ns + 17 * markers) * itemsize \
+        + 4 * (3 * markers + boxes.ptr.size + boxes.ent.size + 3 * ns + 6 * threads + 1)
+
+
+def launch_shape(boxes: Boxes, n_bodies: int, markers: int, n: int) -> tuple[int, int]:
+    """(threads, fill blocks): block 0 takes 4 lanes a marker or a thread a
+    slot, whichever is more, in whole warps, at most THREADS (it loops past
+    that); the other blocks zero the n window cells, 4 a thread."""
+    threads = min(THREADS, -(-max(4 * markers, boxes.slots(n_bodies)) // 32) * 32)
+    return threads, max(1, min(32, -(-n // (4 * threads))))
+
+
+def _consts(dtype, boxes, g_net, m_eff, i_eff=1.0, radius=0.0, zeta=0.0, eps=1.0, H=0, W=0):
+    """The kernels' 11 scalars, each rounded to ``dtype`` as the plain
+    version rounds it: g_net, m_eff, i_eff, radius, zeta, eps, eps / 2,
+    H - 0.5, W - 0.5, and the boxes' squared reach."""
     return _build.c_doubles([rounded(x, dtype) for x in (
-        g_net, m_eff, i_eff, radius, zeta, eps, 0.5 * eps, H - 0.5, W - 0.5)])
+        g_net, m_eff, i_eff, radius, zeta, eps, 0.5 * eps, H - 0.5, W - 0.5, *boxes.near)])
 
 
 def _builder(kernel, plain, H, W, dx, dy, *, n_bodies, wr, wc, half, m_max, consts, dtype):
     """fn(f, state) -> (F_win, origin, state_new): ``kernel`` on a CUDA state,
     ``plain`` on a CPU state; ``fn.plain`` is the plain version on any
-    device."""
+    device.  ``consts`` maps the kernel's Boxes to its scalars."""
     dx = np.asarray(dx, np.float64)
     dy = np.asarray(dy, np.float64)
     if dx.ndim != 1 or dx.shape != dy.shape or dx.size == 0:
@@ -211,14 +261,19 @@ def _builder(kernel, plain, H, W, dx, dy, *, n_bodies, wr, wc, half, m_max, cons
     if wr > H or wc > W or wr < 1 or wc < 1:
         raise ValueError(f"the {wr}x{wc} forcing window does not fit the {H}x{W} grid")
     M = dx.size
+    boxes = Boxes(dx, dy)
+    consts = consts(boxes)
+    threads, fill = launch_shape(boxes, n_bodies, n_bodies * M, wr * wc)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    need = scratch_bytes(wr * wc, n_bodies * M, itemsize)
+    need = scratch_bytes(boxes, n_bodies, n_bodies * M, threads, itemsize)
     offsets: dict = {}
 
     def marker_offsets(device):
         if device not in offsets:
             offsets[device] = (torch.as_tensor(dx, dtype=dtype, device=device),
-                               torch.as_tensor(dy, dtype=dtype, device=device))
+                               torch.as_tensor(dy, dtype=dtype, device=device),
+                               torch.as_tensor(boxes.ptr, device=device),
+                               torch.as_tensor(boxes.ent, device=device))
         return offsets[device]
 
     def launch(f, state):
@@ -226,7 +281,7 @@ def _builder(kernel, plain, H, W, dx, dy, *, n_bodies, wr, wc, half, m_max, cons
         if state.device != f.device or not state.is_contiguous():
             raise ValueError("the body state must be a contiguous tensor of the state's "
                              "device")
-        dxt, dyt = marker_offsets(f.device)
+        dxt, dyt, ptr, ent = marker_offsets(f.device)
         F_win = torch.empty((2, wr, wc), dtype=dtype, device=f.device)
         origin = torch.empty(2, dtype=torch.int32, device=f.device)
         new = torch.empty_like(state)
@@ -235,9 +290,10 @@ def _builder(kernel, plain, H, W, dx, dy, *, n_bodies, wr, wc, half, m_max, cons
         with torch.cuda.device(f.device):
             kernel.launch(f.data_ptr(), state.data_ptr(), dxt.data_ptr(), dyt.data_ptr(),
                           F_win.data_ptr(), origin.data_ptr(), new.data_ptr(),
-                          None if scratch is None else scratch.data_ptr(), R, C, half, wr, wc,
-                          M, n_bodies, m_max - 1, consts, int(dtype == torch.float64),
-                          _build.stream_handle(f))
+                          None if scratch is None else scratch.data_ptr(), ptr.data_ptr(),
+                          ent.data_ptr(), ent.numel(), R, C, half, wr, wc, M, n_bodies,
+                          m_max - 1, boxes.K, boxes.QB, threads, fill, consts,
+                          int(dtype == torch.float64), _build.stream_handle(f))
         return F_win, origin, new
 
     def step(f: torch.Tensor, state: torch.Tensor):
@@ -249,7 +305,7 @@ def _builder(kernel, plain, H, W, dx, dy, *, n_bodies, wr, wc, half, m_max, cons
             return launch(f, state)
         return step.plain(f, state)
 
-    step.plain = lambda f, state: plain(f, state, *marker_offsets(f.device))
+    step.plain = lambda f, state: plain(f, state, *marker_offsets(f.device)[:2])
     return step
 
 
@@ -268,8 +324,8 @@ def make_moving_forcing_step(H: int, W: int, marker_dx, marker_dy, *, half: int,
                                     m_eff=m_eff, m_max=m_max)
 
     return _builder(MOVING_FORCING, plain, H, W, marker_dx, marker_dy, n_bodies=1, wr=wr,
-                    wc=wc, half=half, m_max=m_max, consts=_consts(dtype, g_net, m_eff),
-                    dtype=dtype)
+                    wc=wc, half=half, m_max=m_max,
+                    consts=lambda boxes: _consts(dtype, boxes, g_net, m_eff), dtype=dtype)
 
 
 def make_moving_rot_step(H: int, W: int, marker_dx, marker_dy, *, half: int, g_net: float,
@@ -284,8 +340,8 @@ def make_moving_rot_step(H: int, W: int, marker_dx, marker_dy, *, half: int, g_n
                                 m_eff=m_eff, i_eff=i_eff, m_max=m_max)
 
     return _builder(MOVING_ROT, plain, H, W, marker_dx, marker_dy, n_bodies=1, wr=wr, wc=wc,
-                    half=half, m_max=m_max, consts=_consts(dtype, g_net, m_eff, i_eff),
-                    dtype=dtype)
+                    half=half, m_max=m_max,
+                    consts=lambda boxes: _consts(dtype, boxes, g_net, m_eff, i_eff), dtype=dtype)
 
 
 def make_moving_bodies_step(H: int, W: int, marker_dx, marker_dy, *, n_bodies: int, rw: int,
@@ -307,6 +363,6 @@ def make_moving_bodies_step(H: int, W: int, marker_dx, marker_dy, *, n_bodies: i
 
     return _builder(MOVING_BODIES, plain, H, W, marker_dx, marker_dy, n_bodies=n_bodies,
                     wr=rw, wc=W, half=half, m_max=m_max,
-                    consts=_consts(dtype, g_net, m_eff, radius=radius, zeta=zeta, eps=eps,
-                                   H=H, W=W),
+                    consts=lambda boxes: _consts(dtype, boxes, g_net, m_eff, radius=radius,
+                                                 zeta=zeta, eps=eps, H=H, W=W),
                     dtype=dtype)

@@ -738,7 +738,8 @@ def test_cylinder_kernel_matches_plain(cuda, dtype, shape, guo):
     ((64, 256), (30.0, 130.0, 9.0, 40)),     # lbm_tpu's kernel test
     ((160, 120), (60.0, 60.0, 20.0, 64)),    # cylinder_flow's defaults
     ((40, 40), (20.0, 20.0, 15.0, 48)),      # a ROI two cells from the edges
-    ((160, 160), (80.0, 80.0, 60.0, 400)),   # a ROI past shared memory: global scratch
+    ((160, 160), (80.0, 80.0, 60.0, 400)),   # 400 markers, a 125x125 ROI
+    ((160, 160), (80.0, 80.0, 70.0, 1200)),  # past shared memory in float64: global scratch
 ])
 def test_ibm_forcing_kernel_matches_plain(cuda, grid, circle, dtype, reference_weights):
     """Kernel 16 (one launch) against its plain version's matmuls: TOL (the
@@ -972,6 +973,51 @@ def test_moving_forcing_kernels_match_plain(cuda, variant, dtype, edge):
     truth = state.double()
     for _ in range(4):
         truth = step64.plain(f.double(), truth)[2]
+    scale = truth.abs().clamp_min(1.0)
+    excess = ((got.double() - truth).abs() - (want.double() - truth).abs()) / scale
+    assert excess.max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_moving_bodies_kernel_at_overlapping_supports(cuda, dtype):
+    """Kernel 21 with the two rings' centres 2 r + 1.4 apart (DKT's kissing
+    gap is 1.407): their 4x4 supports share cells, where each body's
+    interpolation must see the other's spread, as the plain version's union
+    window couples them.  4 steps against plain_moving_bodies (F within TOL,
+    the origin equal, the float32 state no farther from the float64 plain
+    version than the float32 plain version, plus TOL), twice bit-identical."""
+    from lbm_tpu_torch.kernels import moving_ibm as km
+
+    th = np.linspace(0.0, 2.0 * np.pi, 76, endpoint=False)
+
+    def case(dt):
+        return km.make_moving_bodies_step(800, 128, 12 * np.cos(th), 12 * np.sin(th),
+                                          n_bodies=2, rw=116, half=17, g_net=2.262e-2,
+                                          m_eff=565.5, radius=12.0, dtype=dt)
+    step = case(dtype)
+    state = km.pack_states(((100.0, 63.0), (125.4, 63.3)), ((0.003, 0.0), (-0.003, 0.0005)),
+                           dtype=dtype, device=cuda)
+    f = _noisy_state(800, 128, dtype, cuda, seed=928)
+    before = km.MOVING_BODIES.launches
+    got, again, want = state, state, state
+    for _ in range(4):
+        Fg, og, got = step(f, got)
+        Fa, oa, again = step(f, again)
+        Fw, ow, want = step.plain(f, want)
+    torch.cuda.synchronize()
+    assert km.MOVING_BODIES.launches - before == 8
+    assert torch.equal(Fg, Fa) and torch.equal(og, oa) and torch.equal(got, again)
+    assert og.tolist() == ow.tolist() and (Fg - Fw).abs().max().item() <= TOL[dtype]
+    # both rings force the cells between them
+    rows = (Fg[0] != 0).any(dim=1).nonzero().flatten()
+    assert rows.min().item() + og[0].item() < 100 < 125 < rows.max().item() + og[0].item()
+    if dtype == torch.float64:
+        assert _state_err(got, want) <= TOL[dtype]
+        return
+    truth = state.double()
+    for _ in range(4):
+        truth = case(torch.float64).plain(f.double(), truth)[2]
     scale = truth.abs().clamp_min(1.0)
     excess = ((got.double() - truth).abs() - (want.double() - truth).abs()) / scale
     assert excess.max().item() <= TOL[dtype]

@@ -74,20 +74,20 @@ def test_ibm_fields_equal_lbm_tpu(case):
     assert (got.roi_rows, got.roi_cols, got.roi_shape, got.m_max) == \
         (want.roi_rows, want.roi_cols, want.roi_shape, want.m_max)
     # kernel 16's tables: the separable products are the dense weights
-    w16, rows0, cols0, cell_ptr, cell_ent = kibm.marker_tables(got)
+    w16, tap, sup, cell_ptr, ent_j, ent_w = kibm.forcing_tables(got)
     assert np.array_equal(w16, got.weights.numpy())
-    assert np.array_equal(rows0 + got.roi_rows[0], got.rows0)
-    assert np.array_equal(cols0 + got.roi_cols[0], got.cols0)
-    assert rows0.dtype == np.int32 and rows0.min() >= 0
-    assert rows0.max() + 4 <= got.roi_shape[0] and cols0.max() + 4 <= got.roi_shape[1]
-    # the compressed table: cell i's entries, in ascending marker, are
-    # exactly the nonzero pattern of row i of the dense operator's flat_idx
-    n = got.roi_shape[0] * got.roi_shape[1]
-    assert cell_ptr.shape == (n + 1,) and cell_ptr[-1] == cell_ent.size == w16.size
-    flat = got.flat_idx.numpy().reshape(-1)
-    for i in range(0, n, 7):
-        ents = cell_ent[cell_ptr[i]:cell_ptr[i + 1]]
-        assert np.array_equal(ents, np.flatnonzero(flat == i))
+    assert tap.dtype == sup.dtype == cell_ptr.dtype == ent_j.dtype == np.int32
+    # each tap's support cell is the dense operator's flat_idx
+    flat = got.flat_idx.numpy()
+    assert np.array_equal(sup[tap], flat) and np.array_equal(sup, np.unique(flat))
+    # the compressed table: support cell s's entries, in ascending marker,
+    # are exactly the nonzero pattern of its row of the dense operator, the
+    # weights inline
+    assert cell_ptr.shape == (sup.size + 1,) and cell_ptr[-1] == ent_j.size == w16.size
+    for s in range(0, sup.size, 7):
+        js, ts = np.nonzero(flat == sup[s])
+        assert np.array_equal(ent_j[cell_ptr[s]:cell_ptr[s + 1]], js)
+        assert np.array_equal(ent_w[cell_ptr[s]:cell_ptr[s + 1]], w16[js, ts])
 
 
 def test_ibm_from_numpy_equals_from_markers():
@@ -156,8 +156,9 @@ def test_forcing_step_checks_its_roi_and_state():
     step = kibm.make_ibm_forcing_step(32, 32, ib, torch.float64)
     with pytest.raises(ValueError, match="step built for"):
         step(torch.zeros((9, 32, 31), dtype=torch.float64))
-    n = ib.roi_shape[0] * ib.roi_shape[1]
-    assert kibm.scratch_bytes(ib, 8) == (5 * n + 19 * 16) * 8 + 4 * (18 * 16 + n + 1)
+    n_sup = kibm.forcing_tables(ib)[2].size
+    assert kibm.scratch_bytes(n_sup, 16, 8) == \
+        (5 * n_sup + 19 * 16) * 8 + 4 * (16 * 16 + n_sup + 1)
     # a ROI up to two cells from every edge is taken as it lies
     edge = ibm.IBM.circle(20.0, 20.0, 15.0, 48)
     assert edge.roi_rows == (3, 38) and edge.roi_cols == (3, 38)
