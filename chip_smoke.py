@@ -842,17 +842,22 @@ def hold_twice(name, step, plain, x, steps, dtype):
 
 def forcing_work(ib, itemsize):
     """(bytes, operations) of one kernel-16 call at ``ib``: the 9 planes read
-    and the 2 force planes written over the ROI, the weights and indices
-    read once; 20 operations per cell for the moments, 32 per marker for
-    rho_j, and per iteration 64 per marker to interpolate u, 3 for f_j, 64
-    to spread (two components, a multiply and an add per weight) and 8 per
-    cell to update u and F.  The count is the sparse work these markers
-    need, not the plain version's dense matmuls."""
+    over the support (the ROI cells some marker's 4x4 box covers, the only
+    cells F is nonzero on) and the 2 force planes written over the ROI, the
+    weights and indices read once; 20 operations per support cell for the
+    moments, 32 per marker for rho_j, and per iteration 64 per marker to
+    interpolate u, 3 for f_j, 64 to spread (two components, a multiply and
+    an add per weight) and 8 per support cell to update u and F.  The count
+    is the sparse work these markers need, not the plain version's dense
+    matmuls."""
+    from lbm_tpu_torch.kernels.ibm import forcing_tables
+
     n = ib.roi_shape[0] * ib.roi_shape[1]
+    support = forcing_tables(ib)[2].size
     M = ib.row_w.shape[0]
     iters = ib.m_max - 1
-    return (11 * n * itemsize + M * (16 * itemsize + 8),
-            20 * n + 32 * M + iters * (131 * M + 8 * n))
+    return ((9 * support + 2 * n) * itemsize + M * (16 * itemsize + 8),
+            20 * support + 32 * M + iters * (131 * M + 8 * support))
 
 
 def graph_ms(step, x, n: int = 100) -> float:
@@ -2631,19 +2636,30 @@ def engine_kernels() -> list:
             k2d.HALO2D_MRTCG_FULL, rk.RK_CG, ksh.HALO_RK, k2d.HALO2D_RK]
 
 
-def bind_engine(lib) -> None:
-    """Point the engine's kernel objects at ``lib`` (None: this tree's own
-    library, bound again at the next launch)."""
+def bind_kernels(kernels, lib) -> None:
+    """Point the kernel objects at ``lib`` (None: this tree's own library,
+    bound again at the next launch)."""
     import ctypes
 
-    for k in engine_kernels():
+    for k in kernels:
         if lib is None:
             k._fn = None
             continue
         fn = getattr(lib, k.symbol)
-        fn.argtypes = k.argtypes
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
         k._fn = fn
+
+
+def in_turns(fns: dict) -> tuple[dict, dict]:
+    """Each of ``fns`` (label -> a callable that returns a time) three times
+    in turns, in the orders a..z, z..a, a..z, so that a drift of the card's
+    clocks falls on every label alike: (the median of each, its runs)."""
+    names = list(fns)
+    runs = {k: [] for k in names}
+    for order in (names, names[::-1], names):
+        for k in order:
+            runs[k].append(fns[k]())
+    return {k: sorted(v)[1] for k, v in runs.items()}, runs
 
 
 def strip_blocks(rows, unit, f64, csf, memory) -> int:
@@ -2680,15 +2696,15 @@ def engine_times(dev, card: str, parent_lib, rows) -> dict:
     out = {}
 
     def turns(label, fn, plan=None):
-        runs = {e: [] for e in engines}
-        for order in range(3):
-            for e in (engines if order != 1 else engines[::-1]):
-                bind_engine(parent_lib if e == "parent" else None)
+        def on(e):
+            def run():
+                bind_kernels(engine_kernels(), parent_lib if e == "parent" else None)
                 force_engine(None if e == "parent" else e)
-                runs[e].append(fn())
-        bind_engine(None)
+                return fn()
+            return run
+        med, runs = in_turns({e: on(e) for e in engines})
+        bind_kernels(engine_kernels(), None)
         force_engine(None)
-        med = {e: sorted(v)[1] for e, v in runs.items()}
         if plan is not None:
             med["plan"] = "strip" if engine_plan(*plan)[6] else "tile"
             med["new"] = med[med["plan"]]
@@ -2794,13 +2810,8 @@ def engine_sweep(dev, card: str, rows) -> list:
     table = []
 
     def both(label, fn, plan):
-        runs = {"tile": [], "strip": []}
-        for order in (("tile", "strip"), ("strip", "tile"), ("tile", "strip")):
-            for e in order:
-                force_engine(e)
-                runs[e].append(fn())
+        med, _ = in_turns({e: (lambda e=e: (force_engine(e), fn())[1]) for e in ("tile", "strip")})
         force_engine(None)
-        med = {e: sorted(v)[1] for e, v in runs.items()}
         p = engine_plan(*plan)
         table.append({"cell": label, "per": p[3], "blocks": p[4], "plan": "strip" if p[6] else
                       "tile", **med, "strip_over_tile": med["strip"] / med["tile"] - 1.0})
@@ -2856,14 +2867,48 @@ def engine_sweep(dev, card: str, rows) -> list:
 
 # --- the one-block IBM forcing kernels (16, 19-21): where the time goes -----------------
 
-# LBM_PROBE of csrc/ibm_forcing.cu and csrc/moving_ibm.cu: what each build leaves out
-IBM_PROBES = {"ibm_forcing": {0: "full", 1: "entries read in place (no staging)",
-                              2: "no macroscopic load", 4: "no spread", 5: "no marker phase",
-                              6: "neither phase (the iterations' barriers)"},
-              "moving_ibm": {0: "full", 1: "stops after the markers and the loads",
-                             2: "no macroscopic load", 3: "no zeros off the boxes",
-                             4: "no spread", 5: "no marker phase",
-                             6: "neither phase (the iterations' barriers)"}}
+# What each probe build of csrc/ibm_forcing.cu and csrc/moving_ibm.cu leaves
+# out: edits of a copy of the source, (text, its replacement), every
+# occurrence replaced.  A text the source no longer holds stops the run
+# (``probe_source``), so that an edit of a kernel cannot quietly void a probe.
+_NO_LOAD = [("lbm::load9(", "if (false) lbm::load9("),
+            ("lbm::moments(f, rh, mx, my);",
+             "rh = T(1) + T(1e-3) * T(rr & 7); mx = T(1e-3) * T(cc & 7); "
+             "my = T(-1e-3) * T(rr & 3);")]
+_NO_MARKERS_16 = [("rj = sum8(on ? taps2(w.rho, tp, wt) : T(0));", "rj = T(1);"),
+                  ("const T uxj = sum8(on ? taps2(w.ux, tp, wt) : T(0));",
+                   "const T uxj = T(1e-3);"),
+                  ("const T uyj = sum8(on ? taps2(w.uy, tp, wt) : T(0));", "const T uyj = T(0);")]
+_NO_SPREAD_16 = [("const int e1 = w.cell_ptr[s + 1];\n"
+                  "      for (int e = w.cell_ptr[s]; e < e1; ++e)",
+                  "for (int e = 0, e1 = 0; e < e1; ++e)")]
+_NO_MARKERS_MOV = [("if (on) {\n        if (it == 0) prho = interp_row(",
+                    "if (false) {\n        if (it == 0) prho = interp_row(")]
+_NO_SPREAD_MOV = [("if (it == 0) {\n        for_cover(", "if (false) {\n        for_cover(")]
+IBM_PROBES = {
+    "ibm_forcing": {
+        "full": [],
+        "entries read in place (no staging)": [
+            ("const int E = 16 * M;", "const int E = 0;"),
+            ("for (int s = tid; s <= nS; s += nt)", "for (int s = tid; s < 0; s += nt)"),
+            ("  const int sup0 =", "  w.ent_w = const_cast<T*>(entw_in);\n"
+             "  w.ent_j = const_cast<int*>(entj_in);\n"
+             "  w.cell_ptr = const_cast<int*>(ptr_in);\n  const int sup0 =")],
+        "no macroscopic load": _NO_LOAD,
+        "no spread": _NO_SPREAD_16,
+        "no marker phase": _NO_MARKERS_16,
+        "neither phase (the iterations' barriers)": _NO_MARKERS_16 + _NO_SPREAD_16},
+    "moving_ibm": {
+        "full": [],
+        "stops after the markers and the loads": [
+            ("  // B. the forcing iterations:",
+             "  for (int l = tid; l < g.B * LANES; l += nt) st_out[l] = st_in[l];\n"
+             "  return;\n  // B. the forcing iterations:")],
+        "no macroscopic load": _NO_LOAD,
+        "no zeros off the boxes": [("if (!boxed) {", "if (false) {")],
+        "no spread": _NO_SPREAD_MOV,
+        "no marker phase": _NO_MARKERS_MOV,
+        "neither phase (the iterations' barriers)": _NO_MARKERS_MOV + _NO_SPREAD_MOV}}
 EMPTY_CU = """#include <cuda_runtime.h>
 __global__ void lbm_empty_kernel() {}
 extern "C" int lbm_empty(int threads, int smem, void* stream) {
@@ -2873,10 +2918,22 @@ extern "C" int lbm_empty(int threads, int smem, void* stream) {
 """
 
 
+def probe_source(unit: str, label: str) -> str:
+    """csrc/<unit>.cu with the edits of its probe ``label`` (``IBM_PROBES``)."""
+    text = (ROOT / "lbm_tpu_torch" / "csrc" / f"{unit}.cu").read_text()
+    for old, new in IBM_PROBES[unit][label]:
+        if old not in text:
+            raise RuntimeError(f"probe {label!r} of csrc/{unit}.cu: the source no longer "
+                               f"holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
 def build_probes() -> dict:
-    """csrc/ibm_forcing.cu and csrc/moving_ibm.cu built once per LBM_PROBE
-    value, each into a library of its own, and an empty one-block kernel:
-    {(unit, probe): CDLL, "empty": CDLL}.  ptxas' report of each is logged."""
+    """Each probe of ``IBM_PROBES`` built from its edited copy of the source
+    into a library of its own, cylinder.cu (kernels 15 and 18) alone, and an
+    empty one-block kernel: {(unit, label): CDLL, "cylinder": CDLL, "empty":
+    CDLL}.  ptxas' report of each is logged."""
     import ctypes
 
     from lbm_tpu_torch.kernels import _build
@@ -2884,17 +2941,19 @@ def build_probes() -> dict:
     work = Path(tempfile.mkdtemp(prefix="probe-csrc-"))
     atexit.register(shutil.rmtree, work, True)
     (work / "empty.cu").write_text(EMPTY_CU)
+    jobs = {"empty": [str(work / "empty.cu")],
+            "cylinder": [*_build.UNIT_FLAGS["cylinder"], str(_build.CSRC / "cylinder.cu")]}
+    for unit, probes in IBM_PROBES.items():
+        for i, label in enumerate(probes):
+            src = work / f"{unit}_{i}.cu"
+            src.write_text(probe_source(unit, label))
+            jobs[unit, label] = [*_build.UNIT_FLAGS.get(unit, ()), f"-I{_build.CSRC}", str(src)]
     nvcc = _build.find_nvcc()
-    jobs = {(u, k): [*_build.UNIT_FLAGS.get(u, ()), f"-DLBM_PROBE={k}",
-                     str(_build.CSRC / f"{u}.cu")]
-            for u, probes in IBM_PROBES.items() for k in probes}
-    jobs["empty"] = [str(work / "empty.cu")]
-    jobs["cylinder"] = [*_build.UNIT_FLAGS["cylinder"], str(_build.CSRC / "cylinder.cu")]
-    procs = {key: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
-                                    str(work / f"lib{abs(hash(key))}.so"), *args],
-                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {key: work / f"lib{i}.so" for i, key in enumerate(jobs)}
+    procs = {key: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(libs[key]),
+                                    *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True)
              for key, args in jobs.items()}
-    libs = {}
     for key, proc in procs.items():
         out = proc.communicate(timeout=600)[0]
         if proc.returncode:
@@ -2902,30 +2961,15 @@ def build_probes() -> dict:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[probe] {key}: {line.strip()}")
-        libs[key] = ctypes.CDLL(str(work / f"lib{abs(hash(key))}.so"))
-    return libs
-
-
-def bind_probe(kernels, lib) -> None:
-    """Point the kernel objects at ``lib`` (None: the package's library)."""
-    import ctypes
-
-    for k in kernels:
-        if lib is None:
-            k._fn = None
-            continue
-        fn = getattr(lib, k.symbol)
-        fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
-        k._fn = fn
+    return {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
 
 
 def ibm_breakdown(dev, card: str, parent=None) -> dict:
-    """--ibm-breakdown: csrc/ibm_forcing.cu, moving_ibm.cu and cylinder.cu
-    built alone (``build_probes``), kernels 16 and 19-21 held to their plain
-    versions (``ibm_holds``), then where they spend their time: each built
-    whole and with parts left out (``IBM_PROBES``), and with 0 forcing
-    iterations (m_max = 1), under CUDA graphs of 100 launches, in turns
-    (orders a..z, z..a, a..z; the median of three); the empty one-block
+    """--ibm-breakdown: kernels 16 and 19-21 and cylinder.cu built alone
+    (``build_probes``), held to their plain versions (``ibm_holds``), then
+    where they spend their time: each built whole and with parts left out
+    (``IBM_PROBES``), and with 0 forcing iterations (m_max = 1), under CUDA
+    graphs of 100 launches, in turns (``in_turns``); the empty one-block
     kernel under the same graph is the card's floor for one dependent
     launch.  Kernel 16 at the Strouhal ROI (1024x256), 19-21 at their
     scenes' default windows and 21 at the dkt gate's 228-row window, in both
@@ -2942,10 +2986,10 @@ def ibm_breakdown(dev, card: str, parent=None) -> dict:
     libs = build_probes()
     empty = libs.pop("empty").lbm_empty
     empty.argtypes, empty.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    bind_probe([cylinder.CYLINDER, cylinder.BOX], libs.pop("cylinder"))
+    bind_kernels([cylinder.CYLINDER, cylinder.BOX], libs.pop("cylinder"))
     movers = [kmov.MOVING_FORCING, kmov.MOVING_ROT, kmov.MOVING_BODIES]
-    bind_probe([kibm.IBM_FORCING], libs["ibm_forcing", 0])
-    bind_probe(movers, libs["moving_ibm", 0])
+    bind_kernels([kibm.IBM_FORCING], libs["ibm_forcing", "full"])
+    bind_kernels(movers, libs["moving_ibm", "full"])
     ibm_holds(dev)
     out = {}
     if parent is not None:
@@ -2953,14 +2997,9 @@ def ibm_breakdown(dev, card: str, parent=None) -> dict:
                         ibm_times(dev, card, load_parent_ibm(parent)).items()}
 
     def turns(label, cases):
-        runs = {c: [] for c in cases}
-        names = list(cases)
-        for order in (names, names[::-1], names):
-            for c in order:
-                lib, kernels, fn = cases[c]
-                bind_probe(kernels, lib)
-                runs[c].append(fn())
-        med = {c: sorted(v)[1] * 1e3 for c, v in runs.items()}
+        def bound_to(lib, kernels, fn):
+            return lambda: (bind_kernels(kernels, lib), fn())[1] * 1e3
+        med, _ = in_turns({c: bound_to(*case) for c, case in cases.items()})
         out[label] = med
         log(f"[breakdown] {card}; {label} (us per launch, CUDA graphs of 100, median of 3): "
             + ", ".join(f"{c} {t!r}" for c, t in med.items()))
@@ -2979,6 +3018,7 @@ def ibm_breakdown(dev, card: str, parent=None) -> dict:
                                      "32 threads": (None, [], floor(32, 0)),
                                      "1024 threads, 40 KiB shared": (None, [],
                                                                      floor(1024, 40960))})
+    whole = ("full", "no macroscopic load")  # the probes also timed at 1 and 0 iterations
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype).removeprefix("torch.")
         f = seeded_state(1024, 256, dtype, dev, seed=616, noisy=True)
@@ -2990,11 +3030,11 @@ def ibm_breakdown(dev, card: str, parent=None) -> dict:
             def forcing_only(y, step=step):
                 step(y)
                 return y
-            for k, what in IBM_PROBES["ibm_forcing"].items():
-                if m_max < 5 and k not in (0, 2):
+            for what in IBM_PROBES["ibm_forcing"]:
+                if m_max < 5 and what not in whole:
                     continue
                 label = what if m_max == 5 else f"{what}, {m_max - 1} iterations"
-                cases[label] = (libs["ibm_forcing", k], [kibm.IBM_FORCING],
+                cases[label] = (libs["ibm_forcing", what], [kibm.IBM_FORCING],
                                 lambda s=forcing_only: graph_ms(s, f))
         turns(f"kernel 16 Strouhal ROI 37x37, 64 markers, {dt}", cases)
         for variant, extra in (("forcing", {}), ("rot", {}), ("bodies", {}),
@@ -3002,11 +3042,11 @@ def ibm_breakdown(dev, card: str, parent=None) -> dict:
             cases = {}
             for m_max in (5, 2, 1):
                 step, fl, state = moving_case(variant, dtype, dev, m_max=m_max, **extra)
-                for k, what in IBM_PROBES["moving_ibm"].items():
-                    if m_max < 5 and k not in (0, 2):
+                for what in IBM_PROBES["moving_ibm"]:
+                    if m_max < 5 and what not in whole:
                         continue
                     label = what if m_max == 5 else f"{what}, {m_max - 1} iterations"
-                    cases[label] = (libs["moving_ibm", k], movers,
+                    cases[label] = (libs["moving_ibm", what], movers,
                                     lambda s=step, fl=fl, st=state: graph_ms(
                                         lambda s_: s(fl, s_)[2], st))
             turns(f"kernel {19 + ('forcing', 'rot', 'bodies').index(variant)} {variant} "
@@ -3099,8 +3139,8 @@ def load_parent_ibm(parent: Path) -> tuple:
     kmov = importlib.import_module("lbm_tpu_torch_parent.kernels.moving_ibm")
     ibm = importlib.import_module("lbm_tpu_torch_parent.ops.ibm")
     lib = build_parent(parent, ("ibm_forcing", "moving_ibm"))
-    bind_probe([kibm.IBM_FORCING, kmov.MOVING_FORCING, kmov.MOVING_ROT, kmov.MOVING_BODIES],
-               lib)
+    bind_kernels([kibm.IBM_FORCING, kmov.MOVING_FORCING, kmov.MOVING_ROT, kmov.MOVING_BODIES],
+                 lib)
     return kibm, kmov, ibm.IBM
 
 
@@ -3119,10 +3159,11 @@ def ibm_times(dev, card: str, parent) -> dict:
     (``load_parent_ibm``), each alone and in its two-launch step (16 + 15;
     19, 20 or 21 + 18), at the scenes' shapes (``IBM16_TIMES``,
     ``MOVING_TIMES``) in float32 and float64: us per call under CUDA graphs
-    of 100 calls, in turns (new parent parent new new parent; the median of
-    three each); kernels 19-21 also held to the parent's one step bit for
-    bit (the same terms in the same order).  Keys (label, type, "kernel" |
-    "step ..." | "bit for bit the parent") -> {new, parent, change} | bool."""
+    of 100 calls, in turns (``in_turns``).  Kernels 19-21 must give the
+    parent design's bits in F, the origin and the state at each of phase
+    4's 4 steps (this tree's design keeps its terms and their order): it
+    raises where they differ.  Keys (label, type, "kernel" | "step ...") ->
+    {new, parent, change}."""
     import torch
 
     from lbm_tpu_torch.kernels import cylinder
@@ -3133,11 +3174,7 @@ def ibm_times(dev, card: str, parent) -> dict:
     out = {}
 
     def turns(label, fns):
-        runs = {"new": [], "parent": []}
-        for order in (("new", "parent"), ("parent", "new"), ("new", "parent")):
-            for v in order:
-                runs[v].append(fns[v]() * 1e3)
-        med = {v: sorted(t)[1] for v, t in runs.items()}
+        med, runs = in_turns({v: (lambda fn=fns[v]: fn() * 1e3) for v in ("new", "parent")})
         med["change"] = med["new"] / med["parent"] - 1.0
         out[label] = med
         log(f"[6] {card}; {' '.join(label)} (us per call, CUDA graphs of 100, median of 3 in "
@@ -3169,11 +3206,15 @@ def ibm_times(dev, card: str, parent) -> dict:
                      "parent": moving_case(variant, dtype, dev, km=kmov_p, **case)}
             f, state = steps["new"][1], steps["new"][2]
             box = cylinder.make_box_fused_step(f.shape[1], f.shape[2], 1 / 0.6, dtype=dtype)
-            got = [steps[v][0](f, state) for v in ("new", "parent")]
-            same = all(torch.equal(x, y) for x, y in zip(*got))
+            a = b = state
+            for i in range(4):  # phase 4's steps
+                got = steps["new"][0](f, a), steps["parent"][0](f, b)
+                if not all(torch.equal(x, y) for x, y in zip(*got)):
+                    raise AssertionError(f"kernel {k} {label} {dt}: step {i} differs from the "
+                                         f"parent design's in F, the origin or the state")
+                a, b = got[0][2], got[1][2]
             log(f"[6] kernel {k} {label} {dt}: F, origin and state bit for bit the parent "
-                f"design's: {same}")
-            out[f"kernel {k} {label}", dt, "bit for bit the parent"] = same
+                f"design's over 4 steps")
 
             def two(c, step):
                 F2, o2, s2 = step(*c)

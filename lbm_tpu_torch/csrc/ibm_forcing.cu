@@ -55,20 +55,17 @@
 //
 // Bound: latency.  One block runs on one SM of 132: the launch's floor,
 // one round trip to L2 for the support's planes, then 2 (m_max - 1) - 1
-// barrier-separated phases of shared-memory work; with both phases' work
-// left out the iterations still take about 3.5 of this design's 7.6 us
-// (the barriers and the cells' updates).  Bytes (9 planes in over the
-// support, 2 out over the ROI) and operations are tiny next to that;
-// chip_smoke.py states the roofline bound from both.
+// barrier-separated phases of shared-memory work.  Of this design's 6.98
+// us in float32, 2.37 go before the iterations, and with both phases'
+// work left out the iterations still take 2.60 (the barriers and the
+// cells' updates).  Bytes (9 planes in over the support, 2 out over the
+// ROI) and operations are tiny next to that; chip_smoke.py forcing_work
+// states the roofline bound from both.
 
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
 #include "d2q9.cuh"
-
-#ifndef LBM_PROBE
-#define LBM_PROBE 0
-#endif
 
 namespace {
 
@@ -139,11 +136,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     Fout[i] = T(0);
     Fout[n + i] = T(0);
   }
-#if LBM_PROBE == 1  // chip_smoke.py --ibm-breakdown: the entries read in place
-  w.ent_w = const_cast<T*>(entw_in);
-  w.ent_j = const_cast<int*>(entj_in);
-  w.cell_ptr = const_cast<int*>(ptr_in);
-#else
   if (in_smem) {
     for (int e = tid; e < E; e += nt) {
       lbm::async_copy(w.ent_w + e, entw_in + e);
@@ -158,7 +150,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
     for (int s = tid; s <= nS; s += nt) w.cell_ptr[s] = ptr_in[s];
   }
-#endif
   const int sup0 = tid < nS ? sup[tid] : 0;  // the first pass's support cell
   int tap0[2] = {0, 0};
   T wt0[2] = {T(0), T(0)};
@@ -173,15 +164,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const int rr = i / cw;
     const int cc = i - rr * cw;
     T rh, mx, my;
-#if LBM_PROBE == 2  // chip_smoke.py --ibm-breakdown: no macroscopic load
-    rh = T(1) + T(1e-3) * T(rr & 7);
-    mx = T(1e-3) * T(cc & 7);
-    my = T(-1e-3) * T(rr & 3);
-#else
     T f[9];
     lbm::load9(fin, plane, static_cast<int64_t>(r0 + rr) * C + (c0 + cc), f);
     lbm::moments(f, rh, mx, my);
-#endif
     w.rho[s] = rh;
     w.ux[s] = mx / rh;
     w.uy[s] = my / rh;
@@ -204,11 +189,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         wt[0] = w16[g * 16 + lane];
         wt[1] = w16[g * 16 + lane + 8];
       }
-#if LBM_PROBE == 5 || LBM_PROBE == 6  // chip_smoke.py --ibm-breakdown: no marker phase
-      const T rj = T(1), uxj = T(1e-3), uyj = T(0);
-      (void)tp;
-      (void)wt;
-#else
       T rj;
       if (it == 0) {
         rj = sum8(on ? taps2(w.rho, tp, wt) : T(0));
@@ -218,7 +198,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       }
       const T uxj = sum8(on ? taps2(w.ux, tp, wt) : T(0));
       const T uyj = sum8(on ? taps2(w.uy, tp, wt) : T(0));
-#endif
       if (on && lane == 0) {
         const T m2rho = T(-2.0) * rj;
         w.fx[g] = m2rho * uxj;
@@ -230,7 +209,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const bool last = it == n_iter - 1;
     for (int s = tid; s < nS; s += nt) {
       T sx = T(0), sy = T(0);
-#if LBM_PROBE != 4 && LBM_PROBE != 6  // chip_smoke.py --ibm-breakdown: no spread
       const int e1 = w.cell_ptr[s + 1];
       for (int e = w.cell_ptr[s]; e < e1; ++e) {
         const int j = w.ent_j[e];
@@ -238,7 +216,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         sx += w.fx[j] * wt;
         sy += w.fy[j] * wt;
       }
-#endif
       if (last) {
         const int i = s == tid ? sup0 : sup[s];
         Fout[i] = w.Fx[s] + sx;

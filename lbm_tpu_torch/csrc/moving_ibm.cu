@@ -89,16 +89,16 @@
 #include "async_copy.cuh"
 #include "d2q9.cuh"
 
-#ifndef LBM_PROBE
-#define LBM_PROBE 0
-#endif
-
 namespace {
 
 constexpr int MAX_THREADS = 1024;
 // The dynamic shared memory a block may opt into on Hopper (sm_90).
 constexpr long long SMEM_LIMIT = 232448;
 constexpr int LANES = 10;  // kernels/moving_ibm.py STATE_LANES
+// The largest window (kernels/moving_ibm.py MAX_WINDOW): the live list
+// packs a window cell as rr << 16 | cc in an int.
+constexpr int MAX_WR = (1 << 15) - 1;
+constexpr int MAX_CW = (1 << 16) - 1;
 // The covering markers a first-pass live slot keeps in shared memory across
 // the iterations, the first EREG in ascending marker, each packed as 16 j +
 // 4 a + b (row a, column b of its support); the rest are found again each
@@ -344,7 +344,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
   if (blockIdx.x > 0) {
     // the other blocks: zeros over the window's cells outside every box
-#if LBM_PROBE != 3  // chip_smoke.py --ibm-breakdown: no zeros off the boxes
     for (int i = (blockIdx.x - 1) * nt + tid; i < n; i += (gridDim.x - 1) * nt) {
       const int rr = i / g.cw;
       const int r = r0 + rr, c = c0 + (i - rr * g.cw);
@@ -358,7 +357,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
         Fout[n + i] = T(0);
       }
     }
-#endif
     return;
   }
 
@@ -452,15 +450,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       w.lcell[at] = (rr << 16) | cc;
       w.lout[at] = write ? rr * g.cw + cc : -1;
       T rh, mx, my;
-#if LBM_PROBE == 2  // chip_smoke.py --ibm-breakdown: no macroscopic load
-      rh = T(1) + T(1e-3) * T(rr & 7);
-      mx = T(1e-3) * T(cc & 7);
-      my = T(-1e-3) * T(rr & 3);
-#else
       T f[9];
       lbm::load9(fin, plane, static_cast<int64_t>(r) * g.W + c, f);
       lbm::moments(f, rh, mx, my);
-#endif
       w.rho[s] = rh;
       w.ux[s] = mx / rh;
       w.uy[s] = my / rh;
@@ -474,10 +466,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
   if (in_smem) lbm::async_wait_all();
   __syncthreads();
-#if LBM_PROBE == 1  // chip_smoke.py --ibm-breakdown: stop after the markers and the loads
-  for (int l = tid; l < g.B * LANES; l += nt) st_out[l] = st_in[l];
-  return;
-#endif
 
   // B. the forcing iterations: per marker (4 lanes, a row of its support
   // each) u_j and f_j = 2 rho_j (U_j - u_j); per live slot the spread over
@@ -506,13 +494,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       const int j = base + gid;
       const bool on = j < M;
       T prho = T(0), pux = T(0), puy = T(0);
-#if LBM_PROBE != 5 && LBM_PROBE != 6  // chip_smoke.py --ibm-breakdown: no marker phase
       if (on) {
         if (it == 0) prho = interp_row(w, w.rho, j, a, S, g);
         pux = interp_row(w, w.ux, j, a, S, g);
         puy = interp_row(w, w.uy, j, a, S, g);
       }
-#endif
       T rj;
       if (it == 0) {
         rj = sum4(prho);
@@ -536,7 +522,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     const bool last = it == n_iter - 1;
     if (tid < nlive) {  // the first pass: the covering markers in registers
       T sx = T(0), sy = T(0);
-#if LBM_PROBE != 4 && LBM_PROBE != 6  // chip_smoke.py --ibm-breakdown: no spread
       if (it == 0) {
         for_cover(w, g, P, k_r, k_c, k_rr, k_cc, [&](int e) {
           spread_term(w, e, sx, sy);
@@ -557,7 +542,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
           });
         }
       }
-#endif
       k_Fx = k_Fx + sx;
       k_Fy = k_Fy + sy;
       if (!last) {
@@ -657,10 +641,10 @@ int launch(const void* fin, const void* st_in, const void* dx, const void* dy, v
            void* origin, void* st_out, void* scratch, const int* bkt_ptr, const int* bkt_ent,
            int n_ent, const Geom& g, int n_iter, int threads, int fill_blocks,
            const double* d, cudaStream_t stream) {
-  if (g.wr < 1 || g.cw < 1 || g.wr > g.H || g.cw > g.W || g.Mb < 1 || g.B < 1 || n_iter < 0 ||
-      g.K < 1 || g.QB < 1 || n_ent < 0 || threads < 32 || threads > MAX_THREADS ||
-      threads % 32 != 0 || fill_blocks < 1 || (VARIANT != 2 && g.B != 1) ||
-      (VARIANT == 2 && g.cw != g.W))
+  if (g.wr < 1 || g.cw < 1 || g.wr > g.H || g.cw > g.W || g.wr > MAX_WR || g.cw > MAX_CW ||
+      g.Mb < 1 || g.B < 1 || n_iter < 0 || g.K < 1 || g.QB < 1 || n_ent < 0 || threads < 32 ||
+      threads > MAX_THREADS || threads % 32 != 0 || fill_blocks < 1 ||
+      (VARIANT != 2 && g.B != 1) || (VARIANT == 2 && g.cw != g.W))
     return static_cast<int>(cudaErrorInvalidValue);
   Consts<T> P;
   P.g_net = T(d[0]); P.m_eff = T(d[1]); P.i_eff = T(d[2]);

@@ -56,6 +56,9 @@ from .ibm import SMEM_LIMIT
 CEN_X, CEN_Y, UB_X, UB_Y, FH_X, FH_Y, ORI_C, ORI_S, ANG_W, TRQ = range(10)
 STATE_LANES = 10
 THREADS = 1024  # the most threads of csrc/moving_ibm.cu's blocks
+# the kernels' largest window, rows and columns: csrc/moving_ibm.cu packs a
+# window cell as rr << 16 | cc in an int32
+MAX_WINDOW = ((1 << 15) - 1, (1 << 16) - 1)
 # a marker covers the cells within 2 sqrt 2 of it (4x4 box); the body-frame
 # buckets are unit squares, and both reaches keep a margin for the rounding
 # of the positions and a rotating body's (cos, sin) drifting off norm 1
@@ -242,6 +245,13 @@ def launch_shape(boxes: Boxes, n_bodies: int, markers: int, n: int) -> tuple[int
     return threads, max(1, min(32, -(-n // (4 * threads))))
 
 
+def check_window(wr: int, wc: int) -> None:
+    """The kernels take a window of at most MAX_WINDOW rows and columns."""
+    if wr > MAX_WINDOW[0] or wc > MAX_WINDOW[1]:
+        raise ValueError(f"the {wr}x{wc} forcing window exceeds the kernels' largest, "
+                         f"{MAX_WINDOW[0]}x{MAX_WINDOW[1]}")
+
+
 def _consts(dtype, boxes, g_net, m_eff, i_eff=1.0, radius=0.0, zeta=0.0, eps=1.0, H=0, W=0):
     """The kernels' 11 scalars, each rounded to ``dtype`` as the plain
     version rounds it: g_net, m_eff, i_eff, radius, zeta, eps, eps / 2,
@@ -278,6 +288,7 @@ def _builder(kernel, plain, H, W, dx, dy, *, n_bodies, wr, wc, half, m_max, cons
 
     def launch(f, state):
         R, C = _build.check_state(f)
+        check_window(wr, wc)
         if state.device != f.device or not state.is_contiguous():
             raise ValueError("the body state must be a contiguous tensor of the state's "
                              "device")

@@ -14,6 +14,7 @@ types.  The kernels themselves are held to the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 
+import importlib.util
 import os
 
 import jax.numpy as jnp
@@ -281,3 +282,37 @@ def test_launch_shape_and_scratch():
     ell = km.Boxes(*(np.asarray(v, np.float64) for v in ellipse_markers(16.0, 8.0)))
     threads = km.launch_shape(ell, 1, 78, 42 * 42)[0]
     assert km.scratch_bytes(ell, 1, 78, threads, 8) <= kibm.SMEM_LIMIT
+
+
+def test_window_packing_limit():
+    """The live list packs a window cell as rr << 16 | cc in an int32: the
+    largest window's last cell decodes to itself, and a window one row or
+    one column larger is refused before it reaches the kernel."""
+    wr, wc = km.MAX_WINDOW
+    packed = np.int32((wr - 1) << 16 | (wc - 1))
+    assert packed >= 0 and (int(packed) >> 16, int(packed) & 0xFFFF) == (wr - 1, wc - 1)
+    km.check_window(wr, wc)
+    km.check_window(228, 128)
+    for bad in ((wr + 1, 128), (228, wc + 1)):
+        with pytest.raises(ValueError, match="largest"):
+            km.check_window(*bad)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("unit", ["ibm_forcing", "moving_ibm"])
+def test_breakdown_probes_apply_to_the_sources(unit):
+    """chip_smoke.py --ibm-breakdown builds each probe from an edited copy of
+    csrc/<unit>.cu: every edit still finds its text, and every probe but
+    "full" changes the source."""
+    cs = _chip_smoke()
+    full = cs.probe_source(unit, "full")
+    for label in cs.IBM_PROBES[unit]:
+        src = cs.probe_source(unit, label)
+        assert (src == full) == (label == "full"), label
