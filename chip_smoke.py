@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 16, 19-21 of the tree DIR (e.g. a
-                                         # git archive of the parent commit) against
-                                         # this one
+                                         # kernels 12, 16, 19-21 and 36 of the tree
+                                         # DIR (e.g. a git archive of the parent
+                                         # commit) against this one, and holds 12,
+                                         # 19-21 and 36 to DIR's bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
                                          # time them whole and with parts left out
                                          # (and against DIR's), as a JSON line
+    python3 chip_smoke.py --rk-breakdown [--parent DIR]
+                                         # build kernel 12 whole, with parts left out
+                                         # (and DIR's) and as its other designs
+                                         # (RK_DESIGNS), time each, as a JSON line
     python3 chip_smoke.py --engine-sweep # build, then only the MRT-CG engines'
                                          # sweep (engine_sweep), as a JSON line
 
@@ -259,7 +264,15 @@ with a nonzero exit code):
      (``build_parent``), in turns, with the engine the plan picks
      (``engine_times``); with --parent also kernels 16 and 19-21 and their
      two-launch steps at the scenes' shapes in both types against the
-     parent tree's design, in turns (``ibm_times``).
+     parent tree's design, in turns (``ibm_times``); kernel 12 at 1024x256
+     and 4096x2048 and kernel 36 at the thermal gate's 64x128 and at
+     4096x2048 on (4, 2), both types, under CUDA graphs, with --parent
+     against the parent tree's in turns, kernel 12 bit for bit the parent's
+     over 4 steps at 1024x256 and kernel 36 over 2 calls
+     (``rk_k36_times``); and the table of every
+     kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
+     ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
+     its phase-5 launches and launches x (time - bound), ranked).
 It exits nonzero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -3122,19 +3135,25 @@ def ibm_holds(dev) -> tuple:
     return err16, err_mov
 
 
-def load_parent_ibm(parent: Path) -> tuple:
-    """The parent tree's kernels 16 and 19-21 with its own wrappers: its
-    lbm_tpu_torch package copied as lbm_tpu_torch_parent (the package imports
-    itself only relatively), its ibm_forcing.cu and moving_ibm.cu built by
-    ``build_parent`` and bound to that copy's kernel objects.  Returns the
-    copy's (kernels.ibm, kernels.moving_ibm, ops.ibm.IBM)."""
-    import importlib
-
+@functools.cache
+def parent_package(parent: Path) -> None:
+    """The parent tree's lbm_tpu_torch package copied as lbm_tpu_torch_parent
+    (the package imports itself only relatively) onto the import path, once."""
     work = Path(tempfile.mkdtemp(prefix="parent-pkg-"))
     atexit.register(shutil.rmtree, work, True)
     shutil.copytree(parent / "lbm_tpu_torch", work / "lbm_tpu_torch_parent",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     sys.path.insert(0, str(work))
+
+
+def load_parent_ibm(parent: Path) -> tuple:
+    """The parent tree's kernels 16 and 19-21 with its own wrappers (the copy
+    of ``parent_package``), its ibm_forcing.cu and moving_ibm.cu built by
+    ``build_parent`` and bound to that copy's kernel objects.  Returns the
+    copy's (kernels.ibm, kernels.moving_ibm, ops.ibm.IBM)."""
+    import importlib
+
+    parent_package(parent)
     kibm = importlib.import_module("lbm_tpu_torch_parent.kernels.ibm")
     kmov = importlib.import_module("lbm_tpu_torch_parent.kernels.moving_ibm")
     ibm = importlib.import_module("lbm_tpu_torch_parent.ops.ibm")
@@ -3230,6 +3249,477 @@ def ibm_times(dev, card: str, parent) -> dict:
     return out
 
 
+# Phase 6's table of the kernels at the shapes their phase-5 launches run
+# (the most launches of each; kernels 6-8, 16, 19-21, 29, 31, 38 and 39,
+# redesigned earlier, and the kernels of fewer than 1,000 launches are not
+# in it): (kernel, its name in main's ``counted``, label, float64, shape,
+# shards or mesh (None: one device), substeps a call).  Every case runs a
+# user's factory under a CUDA graph of 100 calls; a call's launches are read
+# off the kernel's count.
+LAUNCH_SHAPES = (
+    (12, "rk_cg", "rk_rayleigh_taylor 1024x256", False, (1024, 256), None, 1),
+    (12, "rk_cg", "rk_rayleigh_taylor 1024x256", True, (1024, 256), None, 1),
+    (4, "channel_kbc", "ulbm_poiseuille 128x128", True, (128, 128), None, 1),
+    (2, "channel_bgk", "poiseuille 128x128", False, (128, 128), None, 1),
+    (9, "channel_variant", "trt_poiseuille 128x128", False, (128, 128), None, 1),
+    (3, "collide_stream_kbc", "ulbm_double_shear 128x128", True, (128, 128), None, 1),
+    (5, "collide_stream_les", "les_double_shear 128x128, 8 a call", False, (128, 128), None, 8),
+    (14, "shan_chen", "sc_flat_interface 256x128, 4 a call", False, (256, 128), None, 4),
+    (15, "cylinder", "Strouhal 1024x256", False, (1024, 256), None, 1),
+    (17, "sediment", "rectangle_sedimentation 256x320", False, (256, 320), None, 1),
+    (18, "box", "falling_ellipse 800x256", False, (800, 256), None, 1),
+    (22, "cavity", "ring_cavity 512x512", False, (512, 512), None, 1),
+    (23, "thermal_rb_q9", "rayleigh_benard 64x128 d2q9", False, (64, 128), None, 1),
+    (23, "thermal_rb_q5", "rayleigh_benard 64x128 d2q5", False, (64, 128), None, 1),
+    (24, "heated_cavity_q9", "heated_cavity 128x128 d2q9", False, (128, 128), None, 1),
+    (24, "heated_cavity_q5", "heated_cavity 128x128 d2q5", False, (128, 128), None, 1),
+    (25, "d3q19", "cavity3d 8x64x128, 2 a call", False, (8, 64, 128), None, 2),
+    (26, "d3q19_lanes", "cavity3d 8x64x128 lanes, 2 a call", False, (8, 64, 128), None, 2),
+    (27, "halo_bgk", "periodic BGK 4096x2048, 8 shards", False, BIG, 8, 8),
+    (28, "halo_thermal", "rayleigh_benard 64x128, 8 shards", False, (64, 128), 8, 8),
+    (30, "halo_rk", "rk_rayleigh_taylor 1024x256, 8 shards", False, (1024, 256), 8, 1),
+    (32, "halo_shan_chen", "sc_phase_separation 256x256, 8 shards", False, (256, 256), 8, 4),
+    (33, "halo_d3q19", "cavity3d 8x64x128, Y over 8 shards", False, (8, 64, 128), 8, 2),
+    (34, "halo2d_bgk", "periodic BGK 4096x2048, (4, 2)", False, BIG, (4, 2), 8),
+    (35, "halo2d_shan_chen", "sc_phase_separation 256x256, (4, 2)", False, (256, 256), (4, 2),
+     4),
+    (36, "halo2d_thermal", "rayleigh_benard 64x128, (4, 2)", False, (64, 128), (4, 2), 8),
+    (37, "halo2d_rk", "rk_rayleigh_taylor 1024x256, (4, 2)", False, (1024, 256), (4, 2), 1),
+)
+# the sharded families of LAUNCH_SHAPES' kernels 27-37 (sharded_case)
+SHARDED_FAMILY = {27: "k27 bgk", 28: "thermal", 30: "rk", 32: "sc sc/guo",
+                  33: "d3q19 cavity", 34: "k34 bgk", 35: "sc sc/guo", 36: "thermal", 37: "rk"}
+
+
+def launch_shape_case(entry, dev):
+    """(step, x, ops per cell, bytes per cell) of one LAUNCH_SHAPES entry:
+    ``graph_ms(step, x)`` times a call; the bytes and operations (plain
+    version, float32) are those of one step of one cell."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.kernels import cavity, channel, collide_stream, cylinder, les, rk
+    from lbm_tpu_torch.kernels import d3q19 as kd
+    from lbm_tpu_torch.kernels import sediment, shan_chen
+    from lbm_tpu_torch.ops.ibm import IBM
+    from lbm_tpu_torch.scenes.obstacles import sediment_initial_state
+
+    k, name, _, f64, shape, n, s = entry
+    dtype = torch.float64 if f64 else torch.float32
+    cpu, small = torch.device("cpu"), 64
+    if n is not None:
+        family = SHARDED_FAMILY[k]
+        x = sharded_state(family, shape, dtype, dev)
+        step, _, mesh = sharded_case(family, shape, dtype, dev, n, s)
+        from lbm_tpu_torch.parallel import mesh as pm
+        return step, pm.shard_state(mesh, x), plain_ops(family), None
+    R, C = shape[-2:]
+    if name == "rk_cg":
+        return (rk.make_rk_fused_step(R, C, dtype=dtype, **RK), rk_state(R, C, dtype, dev),
+                ops_per_cell(rk.make_plain_step(**RK), rk_state(small, small, torch.float32, cpu)),
+                88)
+    if name in ("channel_kbc", "channel_bgk"):
+        kbc = name == "channel_kbc"
+        step = channel.make_channel_fused_step(
+            R, C, ULBM_S2 if kbc else 1 / TAU_MAGIC, ULBM_RHO_IN if kbc else 1.001, 1.0, dtype,
+            "kbc" if kbc else "bgk")
+        x = seeded_state(R, C, dtype, dev, seed=11, noisy=kbc, incompressible=not kbc)
+        plain = channel.make_channel_fused_step(small, small, ULBM_S2 if kbc else 1 / TAU_MAGIC,
+                                                1.001, 1.0, torch.float32,
+                                                "kbc" if kbc else "bgk")
+        return step, x, ops_per_cell(plain, seeded_state(small, small, torch.float32, cpu,
+                                                          seed=4, noisy=True)), 72
+    if name == "channel_variant":
+        kw = variants()["trt"]
+        step = channel.make_channel_variant_step(R, C, dtype=dtype, **kw)
+        plain = channel.make_channel_variant_step(small, small, dtype=torch.float32, **kw)
+        return (step, seeded_state(R, C, dtype, dev, seed=9, incompressible=True),
+                ops_per_cell(plain, seeded_state(small, small, torch.float32, cpu, seed=6,
+                                                 incompressible=True)), 72)
+    if name in ("collide_stream_kbc", "collide_stream_les"):
+        if name == "collide_stream_kbc":
+            step = collide_stream.make_kbc_fused_step(R, C, OMEGA, dtype, substeps=s)
+            fn = collide_stream.kbc_collide_fn(OMEGA)
+        else:
+            step = les.make_les_fused_step(R, C, dtype=dtype, substeps=s, **LES)
+            fn = les.les_collide_fn(dtype=torch.float32, **LES)
+        plain = collide_stream.make_fused_step(small, small, fn, torch.float32)
+        return (step, seeded_state(R, C, dtype, dev, seed=3, noisy=True),
+                ops_per_cell(plain, seeded_state(small, small, torch.float32, cpu, seed=3,
+                                                 noisy=True)), 72)
+    if name == "shan_chen":
+        kw = sc_kwargs("sc", "guo")
+        return (shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **kw),
+                sc_state(R, C, dtype, dev, "sc", seed=15),
+                ops_per_cell(shan_chen.make_plain_step(**kw),
+                             sc_state(small, small, torch.float32, cpu, "sc", seed=1)), 72)
+    if name == "cylinder":
+        ib = IBM.circle(*STROUHAL_CIRCLE)
+        f, F, origin = cylinder_case(R, C, dtype, dev, ib, seed=615)
+        grid = cylinder.make_cylinder_fused_step(R, C, 1 / 0.55, (0.05, 0.0), (3.0, 9.0), dtype)
+        return (lambda x: grid(x, F, origin), f,
+                ops_per_cell(lambda x: cylinder.plain_cylinder_step(
+                    x, torch.full((2, 2, 2), 1e-3), (10, 10), 1 / 0.55, (0.05, 0.0),
+                    (3.0, 9.0)), seeded_state(small, small, torch.float32, cpu, seed=15)), 72)
+    if name == "box":
+        F = torch.as_tensor(np.random.default_rng(618).normal(0.0, 1e-3, (2, 42, 42)),
+                            dtype=dtype, device=dev)
+        origin = torch.tensor([379, 107], dtype=torch.int32, device=dev)
+        grid = cylinder.make_box_fused_step(R, C, 1 / 0.6, dtype=dtype)
+        return (lambda x: grid(x, F, origin), seeded_state(R, C, dtype, dev, seed=18, noisy=True),
+                ops_per_cell(lambda x: cylinder.plain_box_step(
+                    x, torch.full((2, 2, 2), 1e-3), torch.tensor([10, 10], dtype=torch.int32),
+                    1 / 0.6), seeded_state(small, small, torch.float32, cpu, seed=18)), 72)
+    if name == "sediment":
+        kw = sediment_kwargs(R, C)
+        return (sediment.make_sediment_fused_step(R, C, dtype=dtype, **kw),
+                sediment_state(R, C, dtype, dev, seed=617),
+                ops_per_cell(lambda x: sediment.plain_sediment_step(
+                    x, **dict(SED, R23=40, C28=20, C38=30, inlet_rows=16)),
+                    sediment_initial_state(small, small, 0.02, 1e-3, 16, cpu, torch.float32)),
+                144)
+    if name == "cavity":
+        plain = lambda x: cavity.plain_cavity_step(x, omega=CAVITY_OMEGA, force=3e-5)
+        return (cavity.make_cavity_fused_step(R, omega=CAVITY_OMEGA, force=3e-5, dtype=dtype),
+                seeded_state(R, C, dtype, dev, seed=622, noisy=True),
+                ops_per_cell(plain, seeded_state(small, small, torch.float32, cpu, seed=1)), 72)
+    if name in THERMAL_NAMES:
+        make, plain, _, q = thermal_kernel(name)
+        return (make(R, C, dtype=dtype, scalar_lattice=f"d2q{q}", **THERMAL_PHYS),
+                thermal_state(q, R, C, dtype, dev, seed=623 + q),
+                ops_per_cell(lambda x: plain(x, **THERMAL_PHYS),
+                             thermal_state(q, small, small, torch.float32, cpu, seed=2)),
+                8 * (9 + q))
+    X, Y, Z = shape
+    kw = dict(omega=D3Q19_OMEGA, **D3Q19_WALLS["cavity"])
+    ops = ops_per_cell(lambda S: kd.plain_d3q19_lanes_step(S, 4, 8, 16, **kw),
+                       kd.pack_lanes(d3q19_state(4, 8, 16, torch.float32, cpu, seed=3)))
+    f3 = d3q19_state(X, Y, Z, dtype, dev, seed=4)
+    if name == "d3q19":
+        return kd.make_d3q19_fused_step(X, Y, Z, substeps=s, dtype=dtype, **kw), f3, ops, 152
+    return (kd.make_d3q19_lanes_step(X, Y, Z, substeps=s, dtype=dtype, **kw),
+            kd.pack_lanes(f3), ops, 152)
+
+
+def launch_shape_times(dev, card: str, launches: dict, counted: dict) -> list:
+    """Phase 6's table of LAUNCH_SHAPES: each case's device us per launch
+    under CUDA graphs of 100 calls (median of 3, all cases in turns), its
+    bound per launch (the larger of the bytes each input and output moves
+    once over HBM3's rate and the plain version's operations over the peak;
+    a sharded call's from ``sharded_bound``, over its launches), the phase-5
+    launches of the kernel and the loss, launches x (time - bound).  Rows
+    ranked by loss."""
+    import torch
+
+    from lbm_tpu_torch.kernels import sharded as ksh
+
+    cases, per_call = {}, {}
+    for entry in LAUNCH_SHAPES:
+        k, name, label, f64, shape, n, s = entry
+        step, x, ops, b32 = launch_shape_case(entry, dev)
+        kernel = counted[name]
+        before = kernel.launches
+        step(x)
+        torch.cuda.synchronize()
+        per_call[entry] = kernel.launches - before
+        cases[entry] = (step, x, ops, b32)
+    med, runs = in_turns({e: (lambda c=cases[e]: graph_ms(c[0], c[1]))
+                          for e in LAUNCH_SHAPES})
+    rows = []
+    for entry in LAUNCH_SHAPES:
+        k, name, label, f64, shape, n, s = entry
+        _, x, ops, b32 = cases[entry]
+        dt = "float64" if f64 else "float32"
+        m = per_call[entry]
+        if n is None:
+            cells = shape[0] * shape[1] * (shape[2] if len(shape) == 3 else 1)
+            b_ms, by = bound(b32 * (2 if f64 else 1), ops, cells, dt)
+            b_ms *= s / m
+        else:
+            b_ms, by = sharded_bound(SHARDED_FAMILY[k], shape, n, s, 8 if f64 else 4, ops)[:2]
+            b_ms /= m
+        us, b_us = med[entry] / m * 1e3, b_ms * 1e3
+        if k in (27, 34):  # the instances of every local collision
+            total = sum(launches[name.removesuffix("bgk") + c] for c in ksh.COLLIDE_KINDS)
+        else:  # kernel 12's phase-5 launches are half float32, half float64
+            total = launches[name] // sum(e[1] == name for e in LAUNCH_SHAPES)
+        loss = total * (us - b_us) * 1e-6
+        rows.append({"kernel": k, "name": name, "shape": label, "dtype": dt,
+                     "launches_per_call": m, "us": us, "bound_us": b_us, "bound_by": by,
+                     "fraction": b_us / us, "launches": total, "loss_s": loss,
+                     "runs_ms": runs[entry]})
+    rows.sort(key=lambda r: -r["loss_s"])
+    for r in rows:
+        log(f"[6] {card}; launch shape: kernel {r['kernel']} {r['name']} {r['shape']} "
+            f"{r['dtype']}: {r['us']!r} us a launch ({r['launches_per_call']} a call, CUDA "
+            f"graphs of 100 calls, median of 3 in turns), bound {r['bound_us']!r} us by "
+            f"{r['bound_by']} ({r['fraction']!r}), {r['launches']} phase-5 launches, loss "
+            f"{r['loss_s']!r} s")
+    return rows
+
+
+# kernel 12's timed shapes; kernel 36's cases (shape, mesh, sweeps a call):
+# the thermal gate's grid and the big grid on (4, 2), eight sweeps a call
+RK_TIMES = ((1024, 256), BIG)
+K36_TIMES = (((64, 128), (4, 2), 8), (BIG, (4, 2), 8))
+
+
+def load_parent_rk_k36(parent: Path) -> tuple:
+    """The parent tree's kernels 12 and 36 with its own wrappers (the copy of
+    ``parent_package``), its rk_cg.cu and thermal.cu built by
+    ``build_parent``.  Returns the copy's (kernels.rk, kernels.sharded2d)."""
+    import importlib
+
+    parent_package(parent)
+    rk_p = importlib.import_module("lbm_tpu_torch_parent.kernels.rk")
+    k2d_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded2d")
+    bind_kernels([rk_p.RK_CG, k2d_p.HALO2D_THERMAL], build_parent(parent, ("rk_cg", "thermal")))
+    return rk_p, k2d_p
+
+
+def rk_k36_times(dev, card: str, parent=None) -> dict:
+    """Kernel 12 at rk_rayleigh_taylor's 1024x256 and at 4096x2048 and kernel
+    36 at K36_TIMES' cases, float32 and float64: us per step (kernel 36: per
+    step of a call of its sweeps, with the exchange) under CUDA graphs of
+    100, in turns (``in_turns``), of this tree's kernel and with ``parent``
+    (``load_parent_rk_k36``) the parent's.  Kernel 12 must give the parent's bits over 4 steps at
+    1024x256 and one at 4096x2048, kernel 36 over 2 calls, in both types:
+    it raises where they differ.  Keys (kernel, shape, dtype) -> {variant:
+    us}."""
+    import torch
+
+    from lbm_tpu_torch.kernels import rk
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    rk_p, k2d_p = load_parent_rk_k36(parent) if parent is not None else (None, None)
+    out = {}
+
+    def turns(key, fns):
+        med, runs = in_turns({v: (lambda fn=fn: fn() * 1e3) for v, fn in fns.items()})
+        if "parent" in med:
+            med["change"] = med["new"] / med["parent"] - 1.0
+        out[key] = med
+        log(f"[6] {card}; kernel {key[0]} {key[1]} {key[2]} (us per step, CUDA graphs of 100, "
+            f"median of 3 in turns): " + ", ".join(f"{v} {t!r}" for v, t in med.items())
+            + f" (runs {runs})")
+
+    def same_bits(label, new, old, x, steps):
+        a = b = x
+        for i in range(steps):
+            a, b = new(a), old(b)
+            same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else all(torch.equal(u, v) for u, v in zip(a.shards, b.shards)))
+            if not same:
+                raise AssertionError(f"{label}: step {i} differs from the parent's bits")
+        log(f"[6] {label}: bit for bit the parent's over {steps} step(s)")
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        for R, C in RK_TIMES:
+            S = rk_state(R, C, dtype, dev)
+            new = rk.make_rk_fused_step(R, C, dtype=dtype, **RK)
+            fns = {"new": lambda: graph_ms(new, S)}
+            if rk_p is not None:
+                old = rk_p.make_rk_fused_step(R, C, dtype=dtype, **RK)
+                same_bits(f"kernel 12 {R}x{C} {dt}", new, old, S,
+                          4 if (R, C) == (1024, 256) else 1)
+                fns["parent"] = lambda old=old: graph_ms(old, S)
+            turns((12, f"{R}x{C}", dt), fns)
+            del S
+            torch.cuda.empty_cache()
+        for (R, C), shape, s in K36_TIMES:
+            mesh = pm.make_mesh([dev] * (shape[0] * shape[1]), shape)
+            x = pm.shard_state(mesh, thermal_state(9, R, C, dtype, dev, seed=36))
+            new = k2d.make_sharded2d_thermal_step(mesh, R, C, substeps=s, dtype=dtype,
+                                                  **THERMAL_PHYS)
+            fns = {"new": lambda: graph_ms(new, x) / s}
+            if k2d_p is not None:
+                old = k2d_p.make_sharded2d_thermal_step(mesh, R, C, substeps=s, dtype=dtype,
+                                                        **THERMAL_PHYS)
+                same_bits(f"kernel 36 {R}x{C} on {shape} {dt}", new, old, x, 2)
+                fns["parent"] = lambda old=old: graph_ms(old, x) / s
+            turns((36, f"{R}x{C} on {shape}, {s} sweeps a call", dt), fns)
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
+# What each probe build of csrc/rk_cg.cu (this tree's and a --parent tree's
+# tile) leaves out: edits of a copy of the source, (text, its replacement).
+# Stage 1 alone (r_rho / rho on the window; on the staged tile with stage
+# 0's copies of the ring's planes), stages 1 and 2 (no pull), the output
+# stores (behind a test no value passes), the collisions (replaced by a
+# read of the cell's planes and one window scalar).
+RK_PROBES = {
+    "whole": [],
+    "stage 1 alone": [("  // stage 2: the collision on the tile plus a 1-cell ring",
+                       "  return;\n  // stage 2: the collision on the tile plus a 1-cell ring")],
+    "stages 1 and 2": [("  // stage 3: pull, add the colours",
+                        "  return;\n  // stage 3: pull, add the colours")],
+    "no pull stores": [("    q[k * plane] = r + b;",
+                        "    if (r + b == T(-1.5e30)) q[k * plane] = r + b;"),
+                       ("  q[9 * plane] = r_sum;\n  q[10 * plane] = b_sum;",
+                        "  if (r_sum == T(-1.5e30)) q[9 * plane] = r_sum + b_sum;")],
+    "no collision": [("    collide_cell<T, EDGE>(q, plane, 0, p, s_af, w, gr, gc, R, cols, coll);",
+                      "    for (int k = 0; k < 18; ++k)\n"
+                      "      coll[k] = q[(k % 11) * plane] * s_af[w.slot(gr, gc)];")]}
+
+
+# Other designs of this tree's kernel 12, as edits of a copy of
+# csrc/rk_cg.cu: the tile staged by cp.async in float32 too, or loading
+# into registers in float64 too; the window loop of stages 0-1 unrolled 3
+# times or the collision loop twice (the loads of a thread's cells issued
+# together); every copy of a staged tile in one group
+# (stage 1 waits for the ring's planes too); the 5x5 stencils on taps
+# computed once a cell (w.slot's row and column parts) instead of w.slot at
+# every tap.  Built whole and held to this tree's bits (``rk_breakdown``).
+RK_DESIGNS = {
+    "staged in float32 too": [("bool STAGED = sizeof(T) == 8;", "bool STAGED = true;")],
+    "loads in float64 too": [("bool STAGED = sizeof(T) == 8;", "bool STAGED = false;")],
+    "stage 1 unrolled": [
+        ("    for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {",
+         "#pragma unroll 3\n    for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {")],
+    "stage 2 unrolled": [
+        ("  for (int i = tid; i < RING_N; i += mc::THREADS) {\n    const int ri",
+         "#pragma unroll 2\n  for (int i = tid; i < RING_N; i += mc::THREADS) {\n    const int ri")],
+    "one copy group": [
+        ("    lbm::async_commit();\n    const int64_t nrows", "    const int64_t nrows"),
+        ("    lbm::async_wait_prior<1>();", "    lbm::async_wait_all();"),
+        ("    lbm::async_wait_all();\n  } else {", "  } else {")],
+    "taps once a cell": [
+        ("// The collision of one cell (kernels/rk.py::make_collide)",
+         "template <bool EDGE, typename Cols>\n"
+         "__device__ __forceinline__ mc::Taps window_taps(const Win& w, int64_t gr, int64_t gc,\n"
+         "                                                int64_t R, const Cols cols) {\n"
+         "  mc::Taps t;\n"
+         "#pragma unroll\n"
+         "  for (int a = 0; a < 5; ++a) {\n"
+         "    const int64_t rr = EDGE ? mc::clamp_index(gr + a - 2, R) : gr + a - 2;\n"
+         "    t.row[a] = static_cast<int>((rr - (w.r0 - H)) * Win::COLS);\n"
+         "  }\n"
+         "#pragma unroll\n"
+         "  for (int b = 0; b < 5; ++b) {\n"
+         "    const int64_t tc = cols.tap(gc, b - 2);\n"
+         "    const int64_t rel = tc - (w.c0 - H);\n"
+         "    t.col[b] = static_cast<int>(rel >= 0 && rel < Win::MAIN ? rel\n"
+         "                                                             : Win::MAIN + (tc - w.seam_lo));\n"
+         "  }\n"
+         "  return t;\n"
+         "}\n\n"
+         "// The collision of one cell (kernels/rk.py::make_collide)"),
+        ("  const T Fx = mc::corr5<0, T, H, EDGE>(s_af, w, gr, gc, R, cols);\n"
+         "  const T Fy = mc::corr5<1, T, H, EDGE>(s_af, w, gr, gc, R, cols);",
+         "  const mc::Taps taps = window_taps<EDGE>(w, gr, gc, R, cols);\n"
+         "  const T Fx = mc::corr5_at<0>(s_af, taps);\n"
+         "  const T Fy = mc::corr5_at<1>(s_af, taps);")]}
+
+
+def rk_probe_sources(csrc: Path, probes: dict = RK_PROBES) -> dict:
+    """label -> csrc/rk_cg.cu of the tree ``csrc`` with the edits of each
+    entry of ``probes``; an edit that no longer finds its text stops the
+    run."""
+    text = (csrc / "rk_cg.cu").read_text()
+    out = {}
+    for label, edits in probes.items():
+        src = text
+        for old, new in edits:
+            if old not in src:
+                raise RuntimeError(f"probe {label!r} of {csrc}/rk_cg.cu: the source no longer "
+                                   f"holds {old!r}")
+            src = src.replace(old, new)
+        out[label] = src
+    return out
+
+
+def rk_breakdown(dev, card: str, parent=None) -> dict:
+    """Kernel 12 whole and with parts left out (``RK_PROBES``), this tree's
+    and, with ``parent``, the parent tree's, and this tree's other designs
+    (``RK_DESIGNS``, built whole): each copy built alone with its headers
+    into a library of its own (namespace lbm renamed, as ``build_parent``
+    does), called through ctypes on one state and one output buffer at
+    RK_TIMES' shapes in both types, us per call under CUDA graphs of 100
+    calls, every build of a shape and type
+    in turns.  Each build's output after one step must equal this tree's
+    whole build's bits (a probe's need not).  Keys (tree, probe, shape,
+    dtype) -> us."""
+    import ctypes
+
+    import torch
+
+    from lbm_tpu_torch.kernels import _build, rk
+
+    nvcc = _build.find_nvcc()
+    trees = {"this tree": ROOT / "lbm_tpu_torch" / "csrc"}
+    if parent is not None:
+        trees["parent"] = parent / "lbm_tpu_torch" / "csrc"
+    work = Path(tempfile.mkdtemp(prefix="rk-probes-"))
+    atexit.register(shutil.rmtree, work, True)
+    builds = [(tree, label, src, csrc) for tree, csrc in trees.items()
+              for label, src in rk_probe_sources(csrc).items()]
+    builds += [(label, "whole", src, trees["this tree"])
+               for label, src in rk_probe_sources(trees["this tree"], RK_DESIGNS).items()]
+    jobs = {}
+    for b_i, (tree, label, src, csrc) in enumerate(builds):
+        d = work / f"b{b_i}"
+        d.mkdir()
+        ns = f"lbm_p{b_i}"
+        for f in csrc.iterdir():
+            if f.suffix == ".cuh":
+                (d / f.name).write_text(f.read_text().replace("namespace lbm {", f"namespace {ns} {{")
+                                        .replace("lbm::", f"{ns}::"))
+        (d / "rk_cg.cu").write_text(src.replace("namespace lbm {", f"namespace {ns} {{")
+                                    .replace("lbm::", f"{ns}::"))
+        so = d / "librk.so"
+        jobs[tree, label] = (so, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS["rk_cg"], "-shared", "-o", str(so),
+             str(d / "rk_cg.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in jobs.items():
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the probe {key}:\n{text}")
+        lib = ctypes.CDLL(str(so))
+        lib.lbm_rk_cg.argtypes = rk.RK_CG.argtypes
+        lib.lbm_rk_cg.restype = ctypes.c_int
+        libs[key] = lib.lbm_rk_cg
+    params = _build.c_doubles(rk.kernel_params(**RK))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        for R, C in RK_TIMES:
+            S = rk_state(R, C, dtype, dev)
+            dst = torch.empty_like(S)
+
+            def launch(fn, out, S=S, R=R, C=C, f64=int(dtype == torch.float64)):
+                err = fn(S.data_ptr(), out.data_ptr(), R, C, params, f64, _build.stream_handle(S))
+                if err:
+                    raise RuntimeError(f"probe launch failed: cudaError_t {err}")
+
+            def call(fn):
+                def step(x):
+                    launch(fn, dst)
+                    return x
+                return lambda: graph_ms(step, S) * 1e3
+            want = torch.empty_like(S)
+            launch(libs["this tree", "whole"], want)
+            for (tree, label), fn in libs.items():
+                if label == "whole":
+                    launch(fn, dst)
+                    if not torch.equal(dst, want):
+                        raise AssertionError(f"kernel 12 {R}x{C} {dt}: {tree}'s build differs "
+                                             f"from this tree's bits")
+            med, runs = in_turns({key: call(fn) for key, fn in libs.items()})
+            for (tree, label), us in med.items():
+                out[tree, label, f"{R}x{C}", dt] = us
+                log(f"[6] {card}; kernel 12 breakdown {R}x{C} {dt}, {tree}, {label}: {us!r} us "
+                    f"per call (CUDA graphs of 100, median of 3 in turns; runs "
+                    f"{runs[tree, label]})")
+            del S, dst, want
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3245,6 +3735,11 @@ def main(argv=None) -> int:
                     help="build, then only time the MRT-CG tile and strip engines against each "
                          "other over grid sizes and shard counts (engine_sweep) and print the "
                          "table as a JSON line")
+    ap.add_argument("--rk-breakdown", action="store_true",
+                    help="build kernel 12 whole and with parts left out (this tree's design "
+                         "and, with --parent, the parent's) and as this tree's other designs "
+                         "(RK_DESIGNS), time each under CUDA graphs (rk_breakdown), print the "
+                         "table as a JSON line, and stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -3337,6 +3832,11 @@ def main(argv=None) -> int:
         print(json.dumps({"ibm_breakdown": ibm_breakdown(dev, card, parent), "card": card}),
               flush=True)
         return 0
+    if args.rk_breakdown:
+        table = rk_breakdown(dev, card, parent)
+        print(json.dumps({"rk_breakdown": [[*key, us] for key, us in table.items()],
+                          "card": card}), flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -3349,8 +3849,8 @@ def main(argv=None) -> int:
             log(f"[2]   {line.strip()}")
     # kernels 25-26: the four instances of csrc/d3q19.cu's single-device step
     # (float and double, planes and lanes); kernels 31-38: their instances
-    # (type x mode, collision or eos x forcing, x edge); kernel 39: type x
-    # mode; with their
+    # (type x mode, collision or eos x forcing, x edge; kernel 36 one a
+    # type, its shards' walls a parameter); kernel 39: type x mode; with their
     # registers and spills (a mark is a length-prefixed part of the mangled
     # name, so that "shan_chen_halo" does not also take "shan_chen_halo2d")
     build_log = lib.with_suffix(".log").read_text()
@@ -3360,7 +3860,7 @@ def main(argv=None) -> int:
             (33, ("d3q19",), "d3q19_halo", 2),
             (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16),
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
-            (36, ("thermal",), "21thermal_halo2d_kernel", 4),
+            (36, ("thermal",), "21thermal_halo2d_kernel", 2),
             (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 16),
             (39, ("mrtcg_reduced",), "6LaneIO", 8)):
         found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
@@ -3381,6 +3881,19 @@ def main(argv=None) -> int:
             or any(k[1] != 0 or k[4] < 1 for r in engine_rows for k in r[4:])):
         raise AssertionError(f"the MRT-CG engines: {len(engine_rows)} instances (not 40), "
                              f"{len(spills)} kernels (not 80), or one spills or fits no SM")
+    # kernel 12: its flat instances as the card reports them
+    import ctypes
+    describe = _build.library().lbm_rk_describe
+    describe.argtypes, describe.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    for is_f64 in (0, 1):
+        out = (ctypes.c_longlong * 5)()
+        rc = describe(is_f64, out)
+        if rc != 0 or out[1] != 0 or out[4] < 1:
+            raise AssertionError(f"kernel 12 (float64 {bool(is_f64)}): cudaError_t {rc}, "
+                                 f"{out[1]} local bytes, {out[4]} blocks per SM")
+        log(f"[2] kernel 12 {'float64' if is_f64 else 'float32'}: {out[0]} registers; {out[1]} "
+            f"local bytes a thread; {out[2]} B shared; {out[3]} threads; {out[4]} resident "
+            f"blocks per SM")
     if args.engine_sweep:
         print(json.dumps({"engine_sweep": engine_sweep(dev, card, engine_rows),
                           "card": card}), flush=True)
@@ -4843,6 +5356,9 @@ def main(argv=None) -> int:
     engine_tm = engine_times(dev, card, parent_lib, engine_rows)
     # kernels 16 and 19-21 and their steps against the parent tree's design
     ibm_tm = ibm_times(dev, card, load_parent_ibm(parent)) if parent is not None else {}
+    # kernels 12 and 36 at their launch shapes and at 4096x2048 (kernel 12 at
+    # each tile height), against the parent tree's where --parent names one
+    rk_k36_tm = rk_k36_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -4915,6 +5431,9 @@ def main(argv=None) -> int:
         b64 = bound(2 * b, ops, cells, "float64")
         log(f"[6] bound {name} at {R}x{C}: {b} B/cell, {ops!r} flops/cell -> float32 "
             f"{bounds[name][0]!r} ms ({bounds[name][1]}), float64 {b64[0]!r} ms ({b64[1]})")
+
+    # every kernel left at the shape its phase-5 launches run, ranked by loss
+    shape_rows = launch_shape_times(dev, card, launches, counted)
 
     ms["ibm_forcing"], ms["ibm_forcing_plain"] = strouhal_ms[f32][0], strouhal_ms[f32][3]
     ms64["ibm_forcing"], plain64["ibm_forcing"] = strouhal_ms[f64][0], strouhal_ms[f64][3]
@@ -5018,9 +5537,19 @@ def main(argv=None) -> int:
             "plain_ms_f64": th_ms[name, f64][1], "bound_ms_f64": th_bound[name, f64][0],
             "shape": shape, "gate_graph_ms": th_graph[name][0],
             "gate_host_ms_per_step": th_graph[name][1]})
+    kernels[11]["us"] = {f"{shape} {dt}": v for (k, shape, dt), v in rk_k36_tm.items()
+                         if k == 12}
     kernels += d3q19_entries(launches, err25, err26, d3_times)
     kernels += sharded_entries(launches, err_sh, sh_times)
     kernels.append(lanes_entry(launches, err39, lanes_tm))
+    next(e for e in kernels if e["name"] == "halo2d_thermal")["us"] = {
+        f"{shape} {dt}": v for (k, shape, dt), v in rk_k36_tm.items() if k == 36}
+    for row in shape_rows:
+        for entry in kernels:
+            if entry["name"] == row["name"]:
+                entry.setdefault("launch_shapes", []).append(
+                    {key: row[key] for key in ("shape", "dtype", "us", "bound_us", "launches",
+                                               "loss_s")})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

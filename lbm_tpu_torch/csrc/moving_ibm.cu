@@ -95,10 +95,11 @@ constexpr int MAX_THREADS = 1024;
 // The dynamic shared memory a block may opt into on Hopper (sm_90).
 constexpr long long SMEM_LIMIT = 232448;
 constexpr int LANES = 10;  // kernels/moving_ibm.py STATE_LANES
-// The largest window (kernels/moving_ibm.py MAX_WINDOW): the live list
-// packs a window cell as rr << 16 | cc in an int.
-constexpr int MAX_WR = (1 << 15) - 1;
-constexpr int MAX_CW = (1 << 16) - 1;
+// The largest window (kernels/moving_ibm.py MAX_WINDOW_CELLS): F's two
+// planes, the live list's F indices and the zeroing loops index the window
+// with int, so 2 wr cw must stay below 2^31; rows and columns are otherwise
+// only bounded by the grid's.
+constexpr long long MAX_CELLS = ((1LL << 31) - 1) / 2;
 // The covering markers a first-pass live slot keeps in shared memory across
 // the iterations, the first EREG in ascending marker, each packed as 16 j +
 // 4 a + b (row a, column b of its support); the rest are found again each
@@ -226,15 +227,16 @@ __device__ __forceinline__ int bucket_of(const Body<T>& bd, int r, int c, int QB
 // values, then ints.  Slot s = b S^2 + lr S + lc is cell (R0_b + lr, C0_b +
 // lc) of body b's box; a cell in two boxes has two slots, which hold the
 // same values.  The live list holds the slots in the window and in some
-// body's band, each with its cell (rr << 16 | cc, window-relative) and the
-// window index its F goes to (-1 where an earlier box writes it).
+// body's band, each with the window index its F goes to (-1 where an
+// earlier box writes it); a slot's cell is found again from its box
+// (slot_cell).
 template <typename T>
 struct Work {
   Body<T>* bodies;                                               // per body
   T *rho, *ux, *uy, *Fx, *Fy;                                    // per slot
   T *wx, *wy, *rx, *ry, *tx, *ty, *rho_j, *fx, *fy, *fxt, *fyt;  // per marker
   int *rb, *cb, *slot0;                                          // per marker
-  int *bkt_ptr, *bkt_ent, *lslot, *lcell, *lout, *cov_j, *nlive;
+  int *bkt_ptr, *bkt_ent, *lslot, *lout, *cov_j, *nlive;
 
   __device__ Work(void* base, int B, int ns, int M, int nb, int ne, int nt) {
     bodies = static_cast<Body<T>*>(base);
@@ -244,7 +246,7 @@ struct Work {
     rho_j = ty + M; fx = rho_j + M; fy = fx + M; fxt = fy + M; fyt = fxt + M;
     int* i = reinterpret_cast<int*>(fyt + M);
     rb = i; cb = rb + M; slot0 = cb + M; bkt_ptr = slot0 + M; bkt_ent = bkt_ptr + nb + 1;
-    lslot = bkt_ent + ne; lcell = lslot + ns; lout = lcell + ns; cov_j = lout + ns;
+    lslot = bkt_ent + ne; lout = lslot + ns; cov_j = lout + ns;
     nlive = cov_j + EREG * nt;
   }
   __host__ __device__ static long long body_bytes(int B) {
@@ -255,7 +257,19 @@ struct Work {
 template <typename T>
 __host__ __device__ inline long long work_bytes(int B, int ns, int M, int nb, int ne, int nt) {
   return Work<T>::body_bytes(B) + (5LL * ns + 17LL * M) * sizeof(T) +
-         4LL * (3LL * M + nb + 1 + ne + 3LL * ns + EREG * nt + 1);
+         4LL * (3LL * M + nb + 1 + ne + 2LL * ns + EREG * nt + 1);
+}
+
+// The grid cell (r, c) of slot s = b S^2 + lr S + lc: cell (R0_b + lr,
+// C0_b + lc) of body b's box.  Returns b.
+template <typename T>
+__device__ __forceinline__ int slot_cell(const Work<T>& w, int s, int S, int& r, int& c) {
+  const int b = s / (S * S);
+  const int l = s - b * (S * S);
+  const int lr = l / S;
+  r = w.bodies[b].R0 + lr;
+  c = w.bodies[b].C0 + (l - lr * S);
+  return b;
 }
 
 // The 4 terms of a 4-lane group summed in lane order (the parent design's
@@ -424,13 +438,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   for (int base = 0; base < NS; base += nt) {  // uniform trip count: the list's ballot
     const int s = base + tid;
     bool live = false, write = false;
-    int r = 0, c = 0, rr = 0, cc = 0, b = 0;
+    int r = 0, c = 0, rr = 0, cc = 0;
     if (s < NS) {
-      b = s / SS;
-      const int l = s - b * SS;
-      const int lr = l / S;
-      r = w.bodies[b].R0 + lr;
-      c = w.bodies[b].C0 + (l - lr * S);
+      const int b = slot_cell(w, s, S, r, c);
       rr = r - r0;
       cc = c - c0;
       if (rr >= 0 && rr < g.wr && cc >= 0 && cc < g.cw) {
@@ -447,7 +457,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     at = __shfl_sync(0xffffffffu, at, 0) + __popc(ballot & ((1u << lane) - 1u));
     if (live) {
       w.lslot[at] = s;
-      w.lcell[at] = (rr << 16) | cc;
       w.lout[at] = write ? rr * g.cw + cc : -1;
       T rh, mx, my;
       T f[9];
@@ -480,10 +489,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   T k_ux = T(0), k_uy = T(0), k_Fx = T(0), k_Fy = T(0), k_inv = T(0);
   if (tid < nlive) {  // the first pass's slot
     k_s = w.lslot[tid];
-    k_rr = w.lcell[tid] >> 16;
-    k_cc = w.lcell[tid] & 0xffff;
-    k_r = k_rr + r0;
-    k_c = k_cc + c0;
+    slot_cell(w, k_s, S, k_r, k_c);
+    k_rr = k_r - r0;
+    k_cc = k_c - c0;
     k_out = w.lout[tid];
     k_ux = w.ux[k_s];
     k_uy = w.uy[k_s];
@@ -556,9 +564,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
     }
     for (int k = tid + nt; k < nlive; k += nt) {  // later passes: found again each time
       const int s = w.lslot[k];
-      const int rr = w.lcell[k] >> 16, cc = w.lcell[k] & 0xffff;
+      int r, c;
+      slot_cell(w, s, S, r, c);
       T sx = T(0), sy = T(0);
-      for_cover(w, g, P, rr + r0, cc + c0, rr, cc, [&](int e) { spread_term(w, e, sx, sy); });
+      for_cover(w, g, P, r, c, r - r0, c - c0, [&](int e) { spread_term(w, e, sx, sy); });
       w.Fx[s] = w.Fx[s] + sx;
       w.Fy[s] = w.Fy[s] + sy;
       if (!last) {
@@ -641,7 +650,8 @@ int launch(const void* fin, const void* st_in, const void* dx, const void* dy, v
            void* origin, void* st_out, void* scratch, const int* bkt_ptr, const int* bkt_ent,
            int n_ent, const Geom& g, int n_iter, int threads, int fill_blocks,
            const double* d, cudaStream_t stream) {
-  if (g.wr < 1 || g.cw < 1 || g.wr > g.H || g.cw > g.W || g.wr > MAX_WR || g.cw > MAX_CW ||
+  if (g.wr < 1 || g.cw < 1 || g.wr > g.H || g.cw > g.W ||
+      static_cast<long long>(g.wr) * g.cw > MAX_CELLS ||
       g.Mb < 1 || g.B < 1 || n_iter < 0 || g.K < 1 || g.QB < 1 || n_ent < 0 || threads < 32 ||
       threads > MAX_THREADS || threads % 32 != 0 || fill_blocks < 1 ||
       (VARIANT != 2 && g.B != 1) || (VARIANT == 2 && g.cw != g.W))

@@ -21,6 +21,12 @@
 // values into shared memory; (3) each tile cell pulls its streamed values
 // with mrtcg::pull_source, writes f = red + blue per direction and the two
 // colour sums in ascending k.  One writer per output entry, no atomics.
+// In float64 the tile is staged (STAGED): a stage 0 issues every load of
+// stages 1 and 2 at once as a cp.async into shared memory, in two groups
+// (the window's two colour densities, then the ring cells' 11 planes);
+// stage 1 runs on the first group while the second arrives, and each
+// collision reads its 11 inputs from shared memory and writes its 18 values
+// over them.  In float32 stages 1 and 2 load into registers.
 //
 // This source also holds kernel 30, lbm_halo_rk: the same step on a row
 // shard with halo inputs (csrc/halo.cuh, kernels/sharded.py), its memory
@@ -37,12 +43,23 @@
 // Bound: device-memory bytes.  88 B/cell in float32 (11 planes read once,
 // 11 written once), 176 in float64, against 416 operations per cell
 // counted on the plain version (chip_smoke.py phase 6); at 4096x2048 the
-// bytes alone take 0.22 ms at 3.35 TB/s.  What the design pays over that:
-// 1.33 collisions per output cell (the ring), a second read of each cell's
-// planes in stage 2 (mostly from L2), three barriers per tile and no
-// multiply-add; making it fast is later work.
+// bytes alone take 0.220 ms at 3.35 TB/s (0.441 in float64), at the RK
+// scene's 1024x256 6.9 us (13.8).  Measured on an H100 80GB HBM3 at 700 W,
+// CUDA graphs of 100 calls, in turns with the tile that loads into
+// registers in both types (chip_smoke.py --rk-breakdown; PERF.md section
+// 6): float64 27.9 us at 1024x256 (0.49 of the bound) and 0.652 ms at
+// 4096x2048 (0.68), against 28.9 and 0.712; float32 15.7 us (0.44) and
+// 0.429 ms (0.51).  Staging the loads pays in float64, where a block
+// holds 80 registers and three blocks share an SM, so a tile's loads
+// otherwise wait on one another; in float32 (five blocks an SM) the staged
+// tile is slower, 16.8 us and 0.454 ms.  Slower too, the same bits
+// (chip_smoke.py RK_DESIGNS): one copy group in float64, and in both types
+// the window loop unrolled and taps computed once a cell.  What bounds
+// float32: at 1024x256 the collisions (1.33 a cell, ~6 us) and stage 1
+// (3.9 us); at 4096x2048 the 22 plane streams (0.36-0.37 ms without the
+// collisions).
 
-#include "mrtcg.cuh"
+#include "mrtcg.cuh"  // and async_copy.cuh
 
 namespace {
 
@@ -154,9 +171,21 @@ __device__ __forceinline__ void collide_cell(const T* __restrict__ in, int64_t n
   }
 }
 
+// Whether a tile's loads are staged: in float64 every load of stages 1-2
+// (the window's colour densities, then the ring cells' 11 planes) is a
+// cp.async issued at stage 0, in two groups, so that stage 1 runs while the
+// planes arrive and the collisions read shared memory; in float32 stage 1
+// loads the window and stage 2 each ring cell's planes into registers (the
+// staged float32 tile measured slower: the note at the top).
+template <typename T>
+constexpr bool STAGED = sizeof(T) == 8;
+
+// Shared memory: r_rho / rho on the window, the 18 post-collision values on
+// the ring (staged: its 11 input planes first, in place), and staged the
+// window's two colour densities.
 template <typename T>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * (Win::N + 18 * mc::RING_N);
+  return sizeof(T) * ((STAGED<T> ? 3 : 1) * Win::N + 18 * mc::RING_N);
 }
 
 template <typename T, typename IO, bool EDGE, typename Cols>
@@ -184,29 +213,79 @@ __global__ void __launch_bounds__(mc::THREADS)
     return gr >= rows.rd_lo && gr < rows.rd_hi && cols.readable(gc);
   };
 
-  // stage 1: r_rho / rho on the window (main columns, then the seam)
-  auto a_frac = [&](int64_t gr, int64_t gc, int slot) {
-    int64_t plane;
-    const T* q = io.src(gr, gc, plane);
-    const T r_rho = q[9 * plane];
-    const T rho = r_rho + q[10 * plane];
-    s_af[slot] = r_rho * (T(1.0) / rho);
-  };
-  for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {
-    const int wr = i / Win::MAIN, wc = i % Win::MAIN;
-    const int64_t gr = r0 - H + wr, gc = c0 - H + wc;
-    if (readable(gr, gc)) a_frac(gr, gc, wr * Win::COLS + wc);
-  }
-  if (left || right) {
-    for (int i = tid; i < Win::ROWS * H; i += mc::THREADS) {
-      const int wr = i / H, q = i % H;
-      const int64_t gr = r0 - H + wr, gc = w.seam_lo + q;
-      if (readable(gr, gc)) a_frac(gr, gc, wr * Win::COLS + Win::MAIN + q);
+  // (stage 0's window loop is written apart from float32's stage 1: one
+  // loop shared by both cost the float32 kernel a register and 0.7%)
+  if constexpr (STAGED<T>) {
+    // stage 0: the copies, each issued at once: the colour densities on the
+    // window (main columns, then the seam), then the ring cells' 11 planes
+    T* s_rb = s_ring + 18 * RING_N;  // r_rho, then b_rho, on the window
+    auto copy_rb = [&](int64_t gr, int64_t gc, int slot) {
+      int64_t plane;
+      const T* q = io.src(gr, gc, plane);
+      lbm::async_copy(s_rb + slot, q + 9 * plane);
+      lbm::async_copy(s_rb + Win::N + slot, q + 10 * plane);
+    };
+    for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {
+      const int wr = i / Win::MAIN, wc = i % Win::MAIN;
+      const int64_t gr = r0 - H + wr, gc = c0 - H + wc;
+      if (readable(gr, gc)) copy_rb(gr, gc, wr * Win::COLS + wc);
+    }
+    if (left || right) {
+      for (int i = tid; i < Win::ROWS * H; i += mc::THREADS) {
+        const int wr = i / H, q = i % H;
+        const int64_t gr = r0 - H + wr, gc = w.seam_lo + q;
+        if (readable(gr, gc)) copy_rb(gr, gc, wr * Win::COLS + Win::MAIN + q);
+      }
+    }
+    lbm::async_commit();
+    const int64_t nrows = rows.o_hi - r0 < TY ? rows.o_hi - r0 : TY;
+    const int64_t ncols = cols.end() - c0 < TX ? cols.end() - c0 : TX;
+    for (int i = tid; i < RING_N; i += mc::THREADS) {
+      const int ri = i / RING_C, rj = i % RING_C;
+      const int64_t gr = r0 - 1 + ri;
+      if (ri > nrows + 1 || rj > ncols + 1 || gr < rows.rd_lo || gr >= rows.rd_hi) continue;
+      int64_t plane;
+      const T* q = io.src(gr, cols.ring(c0 - 1 + rj), plane);
+#pragma unroll
+      for (int k = 0; k < 11; ++k) lbm::async_copy(s_ring + k * RING_N + i, q + k * plane);
+    }
+    lbm::async_commit();
+    lbm::async_wait_prior<1>();
+    __syncthreads();
+    // stage 1: r_rho / rho on the window while the planes arrive (a slot no
+    // copy filled is never read)
+    for (int i = tid; i < Win::N; i += mc::THREADS) {
+      const T r_rho = s_rb[i];
+      const T rho = r_rho + s_rb[Win::N + i];
+      s_af[i] = r_rho * (T(1.0) / rho);
+    }
+    lbm::async_wait_all();
+  } else {
+    // stage 1: r_rho / rho on the window (main columns, then the seam)
+    auto a_frac = [&](int64_t gr, int64_t gc, int slot) {
+      int64_t plane;
+      const T* q = io.src(gr, gc, plane);
+      const T r_rho = q[9 * plane];
+      const T rho = r_rho + q[10 * plane];
+      s_af[slot] = r_rho * (T(1.0) / rho);
+    };
+    for (int i = tid; i < Win::ROWS * Win::MAIN; i += mc::THREADS) {
+      const int wr = i / Win::MAIN, wc = i % Win::MAIN;
+      const int64_t gr = r0 - H + wr, gc = c0 - H + wc;
+      if (readable(gr, gc)) a_frac(gr, gc, wr * Win::COLS + wc);
+    }
+    if (left || right) {
+      for (int i = tid; i < Win::ROWS * H; i += mc::THREADS) {
+        const int wr = i / H, q = i % H;
+        const int64_t gr = r0 - H + wr, gc = w.seam_lo + q;
+        if (readable(gr, gc)) a_frac(gr, gc, wr * Win::COLS + Win::MAIN + q);
+      }
     }
   }
   __syncthreads();
 
-  // stage 2: the collision on the tile plus a 1-cell ring
+  // stage 2: the collision on the tile plus a 1-cell ring (staged: from
+  // shared memory, each ring slot's 18 values over its own 11 inputs)
   const int64_t nrows = rows.o_hi - r0 < TY ? rows.o_hi - r0 : TY;
   const int64_t ncols = cols.end() - c0 < TX ? cols.end() - c0 : TX;
   for (int i = tid; i < RING_N; i += mc::THREADS) {
@@ -215,7 +294,13 @@ __global__ void __launch_bounds__(mc::THREADS)
     if (ri > nrows + 1 || rj > ncols + 1 || gr < rows.rd_lo || gr >= rows.rd_hi) continue;
     const int64_t gc = cols.ring(c0 - 1 + rj);
     int64_t plane;
-    const T* q = io.src(gr, gc, plane);
+    const T* q;
+    if constexpr (STAGED<T>) {
+      plane = RING_N;
+      q = s_ring + i;
+    } else {
+      q = io.src(gr, gc, plane);
+    }
     T coll[18];
     collide_cell<T, EDGE>(q, plane, 0, p, s_af, w, gr, gc, R, cols, coll);
 #pragma unroll
@@ -323,4 +408,17 @@ extern "C" int lbm_halo2d_rk(const long long* geom, const double* params, int, i
                              int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_halo2d<double>(geom, params, s) : launch_halo2d<float>(geom, params, s);
+}
+
+// Kernel 12's instance of type `is_f64` on the flat grid as the card reports
+// it, into out[0..4]: registers, local bytes a thread, shared memory,
+// threads and resident blocks per SM.
+extern "C" int lbm_rk_describe(int is_f64, long long* out) {
+  using mc::FlatIO;
+  using mc::PeriodicCols;
+  return static_cast<int>(
+      is_f64 ? mc::describe_kernel(rk_cg_kernel<double, FlatIO<double>, true, PeriodicCols>,
+                                   mc::THREADS, smem_bytes<double>(), out)
+             : mc::describe_kernel(rk_cg_kernel<float, FlatIO<float>, true, PeriodicCols>,
+                                   mc::THREADS, smem_bytes<float>(), out));
 }

@@ -55,12 +55,24 @@
 // make_sharded_thermal_step (body thermal_pallas.py:134).
 //
 // Kernel 36 (thermal_halo2d_kernel, lbm_halo2d_thermal) is the same D2Q9
-// step on a rows x cols shard (csrc/halo2d.cuh, kernels/sharded2d.py
+// step on rows x cols shards (csrc/halo2d.cuh, kernels/sharded2d.py
 // make_sharded2d_thermal_step): one thread per cell of the padded band it
 // reads, pushes into the output band only and nothing wraps (the column
-// strips hold the neighbours' columns); the row walls act by global row in
-// the EDGE instance of row ranks 0 and nx-1, the columns are periodic with
-// no mask.  It replaces lbm_tpu/kernels/sharded2d_pallas.py:578
+// strips hold the neighbours' columns); the row walls act by global row on
+// the shards of row ranks 0 and nx-1, the columns are periodic with no
+// mask.  One launch runs one sweep of up to MAX_SHARDS shards of a card,
+// blockIdx.y the shard, their geometries a kernel parameter (~2.2 KB):
+// at the thermal gate's 64x128 on a (4, 2) mesh a shard's band is ~2,500
+// cells, so a launch per shard and sweep (64 a call of 8 sweeps) spent
+// each one's ~3 us of launch and ramp on 10 blocks; one launch a sweep
+// over the 8 shards cut a step from 29.5 to 11.8 us in float32 (33.4 to
+// 12.7 in float64) and 4096x2048 on (4, 2) by 7% (4%), bit for bit the
+// per-shard launches (H100 80GB HBM3, 700 W; PERF.md section 6).  Against
+// its bound (chip_smoke.py sharded_times): 0.60 at 4096x2048 on (4, 2), s =
+// 1 (0.604 ms a step, 0.362 for its bytes); 0.10 at s = 8, whose sweeps
+// each move their bands where the bound counts one pass; 0.01 at the
+// gate's 64x128, where a step is launches and the exchange.  It
+// replaces lbm_tpu/kernels/sharded2d_pallas.py:578
 // make_sharded2d_thermal_step on make_local_2d_body_step (:392, its
 // pallas_call at :411).
 //
@@ -287,24 +299,37 @@ __global__ void thermal_halo_kernel(lbm::halo::View<T> in, lbm::halo::Out<T> out
   write_walls<T, QG>(m, fc, go, out.at(p, c), out.plane);
 }
 
-// Kernel 36: one sweep of the Rayleigh-Benard step (D2Q9 temperature) on a
-// rows x cols shard.  One thread per cell of the padded band [r_lo, r_hi) x
-// [c_lo, c_hi); `r` is the global row, the wall rules kernel 28's.
-template <typename T, bool EDGE>
-__global__ void thermal_halo2d_kernel(lbm::halo2d::View<T> in, lbm::halo2d::Out<T> out,
-                                      int64_t r_lo, int64_t c_lo, int64_t width,
-                                      int64_t n_cells, int64_t off, int64_t R, int64_t C,
-                                      Params<T> P) {
+// Kernel 36's shards of one launch: up to MAX_SHARDS rows x cols shards of
+// one device, one a grid row (blockIdx.y), each with its own sweep bands
+// (csrc/halo2d.cuh); ~2.2 KB of kernel parameters in float32 and float64.
+constexpr int MAX_SHARDS = 8;
+
+template <typename T>
+struct Shards {
+  lbm::halo2d::Launch<T> s[MAX_SHARDS];
+};
+
+// Kernel 36: one sweep of the Rayleigh-Benard step (D2Q9 temperature) on
+// each of up to MAX_SHARDS rows x cols shards.  One thread per cell of a
+// shard's padded band [r_lo, r_hi) x [c_lo, c_hi); `r` is the global row,
+// the wall rules kernel 28's, in the shards whose rows reach a wall.
+template <typename T>
+__global__ void thermal_halo2d_kernel(const __grid_constant__ Shards<T> shards,
+                                      const Params<T> P) {
   constexpr int QG = 9;
+  const lbm::halo2d::Launch<T>& L = shards.s[blockIdx.y];
+  const int64_t width = L.c_hi - L.c_lo;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
+  if (width <= 0 || i >= (L.r_hi - L.r_lo) * width) return;
   const int64_t row = i / width;
-  const int64_t p = r_lo + row;
-  const int64_t q = c_lo + (i - row * width);
-  const int64_t r = off - in.halo + p;  // the global row
+  const int64_t p = L.r_lo + row;
+  const int64_t q = L.c_lo + (i - row * width);
+  const int64_t r = L.global_row(p);
+  const int64_t R = L.R, C = L.C;
+  const lbm::halo2d::Out<T>& out = L.out;
 
   int64_t plane;
-  const T* src = in.locate(p, q, plane);
+  const T* src = L.in.locate(p, q, plane);
   T f[9], g[QG];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
@@ -318,13 +343,13 @@ __global__ void thermal_halo2d_kernel(lbm::halo2d::View<T> in, lbm::halo2d::Out<
   for (int k = 0; k < 9; ++k) {
     const int64_t pd = p + lbm::cx(k), qd = q + lbm::cy(k);
     if (!out.has(pd, qd)) continue;
-    const unsigned m = EDGE ? owned<QG, false>(r + lbm::cx(k), 0, R, C) : 0u;
+    const unsigned m = L.edge ? owned<QG, false>(r + lbm::cx(k), 0, R, C) : 0u;
     T* dst = out.at(pd, qd);
     if (!(m & (1u << k))) dst[k * out.plane] = fc[k];
     if (!(m & (1u << (9 + k)))) dst[(9 + k) * out.plane] = gc[k];
   }
 
-  if (!EDGE || !out.has(p, q)) return;
+  if (!L.edge || !out.has(p, q)) return;
   const unsigned m = owned<QG, false>(r, 0, R, C);
   if (!m) return;
   T go[QG];
@@ -358,20 +383,21 @@ int launch_halo(const long long* geom, const double* d, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_halo2d(const long long* geom, const double* d, cudaStream_t stream) {
-  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
-  if (L.R < 4 || L.C < 4) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t width = L.c_hi - L.c_lo;
-  const int64_t n = (L.r_hi - L.r_lo) * width;
-  if (n <= 0 || width <= 0) return 0;
+int launch_halo2d(const long long* geoms, int n, const double* d, cudaStream_t stream) {
+  if (n < 1 || n > MAX_SHARDS) return static_cast<int>(cudaErrorInvalidValue);
+  Shards<T> shards;
+  int64_t most = 0;
+  for (int i = 0; i < n; ++i) {
+    const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geoms + i * lbm::halo2d::NGEOM);
+    if (L.R < 4 || L.C < 4) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t cells = (L.r_hi - L.r_lo) * (L.c_hi - L.c_lo);
+    most = cells > most ? cells : most;
+    shards.s[i] = L;
+  }
+  if (most <= 0) return 0;
   const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  if (L.edge)
-    thermal_halo2d_kernel<T, true><<<blocks, threads, 0, stream>>>(
-        L.in, L.out, L.r_lo, L.c_lo, width, n, L.off_r, L.R, L.C, params<T>(d));
-  else
-    thermal_halo2d_kernel<T, false><<<blocks, threads, 0, stream>>>(
-        L.in, L.out, L.r_lo, L.c_lo, width, n, L.off_r, L.R, L.C, params<T>(d));
+  const dim3 grid(static_cast<unsigned>((most + threads - 1) / threads), static_cast<unsigned>(n));
+  thermal_halo2d_kernel<T><<<grid, threads, 0, stream>>>(shards, params<T>(d));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,10 +460,13 @@ extern "C" int lbm_halo_thermal(const long long* geom, const double* consts, int
 }
 
 // Kernel 36: one sweep of the Rayleigh-Benard step with a D2Q9 temperature
-// on a rows x cols shard, geometry `geom` (csrc/halo2d.cuh), `consts` the 6
-// scalars of lbm_thermal_rb_q9.  Returns the cudaError_t of the launch.
-extern "C" int lbm_halo2d_thermal(const long long* geom, const double* consts, int, int,
-                                  int is_f64, void* stream) {
+// on each of `n_shards` (1 to MAX_SHARDS) rows x cols shards of one device,
+// `geoms` their n_shards geometry arrays back to back (csrc/halo2d.cuh),
+// `consts` the 6 scalars of lbm_thermal_rb_q9.  Returns the cudaError_t of
+// the launch.
+extern "C" int lbm_halo2d_thermal(const long long* geoms, const double* consts, int n_shards,
+                                  int, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_halo2d<double>(geom, consts, s) : launch_halo2d<float>(geom, consts, s);
+  return is_f64 ? launch_halo2d<double>(geoms, n_shards, consts, s)
+                : launch_halo2d<float>(geoms, n_shards, consts, s);
 }

@@ -56,9 +56,10 @@ from .ibm import SMEM_LIMIT
 CEN_X, CEN_Y, UB_X, UB_Y, FH_X, FH_Y, ORI_C, ORI_S, ANG_W, TRQ = range(10)
 STATE_LANES = 10
 THREADS = 1024  # the most threads of csrc/moving_ibm.cu's blocks
-# the kernels' largest window, rows and columns: csrc/moving_ibm.cu packs a
-# window cell as rr << 16 | cc in an int32
-MAX_WINDOW = ((1 << 15) - 1, (1 << 16) - 1)
+# the kernels' largest window, in cells: csrc/moving_ibm.cu indexes F's two
+# window planes with int32 (2 wr wc < 2^31); rows and columns are otherwise
+# bounded only by the grid's
+MAX_WINDOW_CELLS = ((1 << 31) - 1) // 2
 # a marker covers the cells within 2 sqrt 2 of it (4x4 box); the body-frame
 # buckets are unit squares, and both reaches keep a margin for the rounding
 # of the positions and a rotating body's (cos, sin) drifting off norm 1
@@ -228,13 +229,13 @@ def scratch_bytes(boxes: Boxes, n_bodies: int, markers: int, threads: int,
                   itemsize: int) -> int:
     """Bytes of block 0's working set (csrc/moving_ibm.cu Work): the bodies'
     boxes and frames (2 ints and 4 values each, 16-byte aligned), per slot
-    of the boxes 5 values and 3 ints (the live list), per marker 17 values
+    of the boxes 5 values and 2 ints (the live list), per marker 17 values
     and 3 ints, per thread EREG = 6 covering markers (an int each), the
     bucket lists and a counter."""
     ns = boxes.slots(n_bodies)
     body = -(-n_bodies * (8 + 4 * itemsize) // 16) * 16
     return body + (5 * ns + 17 * markers) * itemsize \
-        + 4 * (3 * markers + boxes.ptr.size + boxes.ent.size + 3 * ns + 6 * threads + 1)
+        + 4 * (3 * markers + boxes.ptr.size + boxes.ent.size + 2 * ns + 6 * threads + 1)
 
 
 def launch_shape(boxes: Boxes, n_bodies: int, markers: int, n: int) -> tuple[int, int]:
@@ -246,10 +247,10 @@ def launch_shape(boxes: Boxes, n_bodies: int, markers: int, n: int) -> tuple[int
 
 
 def check_window(wr: int, wc: int) -> None:
-    """The kernels take a window of at most MAX_WINDOW rows and columns."""
-    if wr > MAX_WINDOW[0] or wc > MAX_WINDOW[1]:
+    """The kernels take a window of at most MAX_WINDOW_CELLS cells."""
+    if wr * wc > MAX_WINDOW_CELLS:
         raise ValueError(f"the {wr}x{wc} forcing window exceeds the kernels' largest, "
-                         f"{MAX_WINDOW[0]}x{MAX_WINDOW[1]}")
+                         f"{MAX_WINDOW_CELLS} cells")
 
 
 def _consts(dtype, boxes, g_net, m_eff, i_eff=1.0, radius=0.0, zeta=0.0, eps=1.0, H=0, W=0):

@@ -59,7 +59,8 @@ mask-free one on interior row ranks:
   * on a CUDA shard, the family's rows x cols kernel, one launch per sweep
     (``launch_sweeps_2d``): kernel 35 ``HALO2D_SHAN_CHEN`` (csrc/shan_chen.cu,
     kernel 14's collision), 36 ``HALO2D_THERMAL`` (csrc/thermal.cu, kernel
-    23's D2Q9 step), 37 ``HALO2D_RK`` (csrc/rk_cg.cu) and 38
+    23's D2Q9 step; one launch a sweep over up to ``MAX_SHARDS`` shards of a
+    card, ``launch_sweeps_2d_shards``), 37 ``HALO2D_RK`` (csrc/rk_cg.cu) and 38
     ``HALO2D_MRTCG_FULL`` (csrc/mrtcg_full.cu, both modes), 37-38 on the tile
     engine of csrc/mrtcg.cuh with its columns the shard's padded ones
     (``BandCols``).  Sweep j of s writes the shard and ``rows_per_sweep (s -
@@ -108,6 +109,8 @@ HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", _ARGS)       # kern
 HALO2D_THERMAL = _build.CudaKernel("lbm_halo2d_thermal", _ARGS)           # kernel 36
 HALO2D_RK = _build.CudaKernel("lbm_halo2d_rk", _ARGS)                     # kernel 37
 HALO2D_MRTCG_FULL = _build.CudaKernel("lbm_halo2d_mrtcg_full", _ARGS)     # kernel 38
+#: the most shards one launch of kernel 36 takes (csrc/thermal.cu MAX_SHARDS)
+MAX_SHARDS = 8
 
 #: sweeps per exchange of the body steps: lbm_tpu's 2-D caps, min(8 // rps,
 #: 32 // rps) (sharded2d_pallas.py:484-486, :569, :598; its RK wrapper runs
@@ -151,18 +154,15 @@ def _check_strips(f, top, bot, left, right, halo: int):
     return R_loc, C_loc
 
 
-def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, substeps: int,
-                     params, i0: int = 0, i1: int = 0, rows_per_sweep: int = 1,
-                     walls: bool = False, off: tuple[int, int] = (0, 0),
-                     shape: tuple[int, int] = (0, 0), edge: bool = False) -> torch.Tensor:
-    """``substeps`` launches of a rows x cols kernel (34-38) on the shard
-    ``f`` with its four strips; returns the shard's new values in a fresh
-    buffer (``f`` is never written).  Each sweep consumes ``rows_per_sweep``
-    lines of the strips in both axes; ``off`` is the shard's global (row,
-    column) offset, ``shape`` the grid's (R, C), ``edge`` whether its rows
-    reach a wall, ``walls`` clips the row bands to the grid's rows (the body
-    kernels read these; kernel 34 takes the defaults).  Raises on a tensor
-    the kernel does not take and on a refused launch."""
+def _sweep_geoms(f, top, bot, left, right, *, substeps: int, rows_per_sweep: int,
+                 walls: bool, off: tuple[int, int], shape: tuple[int, int], edge: bool):
+    """(out, geoms, slabs) of ``substeps`` sweeps of a rows x cols kernel on
+    the shard ``f`` with its four strips: ``out`` a fresh buffer for the
+    shard's new values (``f`` is never written), in order each sweep's
+    geometry (``GEOM``'s values) and the scratch slabs they name, which the
+    caller holds until the launches are issued: the first sweep reads the
+    five buffers in place, later ones a padded slab (two, alternating), the
+    last writes ``out``.  Raises on a tensor the kernels do not take."""
     halo = top.shape[-2]
     R_loc, C_loc = _check_strips(f, top, bot, left, right, halo)
     _check_sweeps(substeps, halo // rows_per_sweep)
@@ -175,26 +175,92 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
     src = [(top.data_ptr(), halo * C_loc, C_loc), (f.data_ptr(), R_loc * C_loc, C_loc),
            (bot.data_ptr(), halo * C_loc, C_loc), (left.data_ptr(), Rp * halo, halo),
            (right.data_ptr(), Rp * halo, halo)]
+    geoms = []
+    for j, ((ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi)) in enumerate(
+            sweep_bands_2d(R_loc, C_loc, halo, substeps, rows_per_sweep, off[0], shape[0],
+                           walls), start=1):
+        if j == substeps:
+            dst, first, dplane, dld = out, halo, R_loc * C_loc, C_loc
+        else:
+            dst, first, dplane, dld = slabs[(j - 1) % 2], 0, Rp * Cp, Cp
+        bases, planes_, lds = zip(*src)
+        geoms.append((*bases, dst.data_ptr(), *planes_, dplane, *lds, dld, halo, R_loc, C_loc,
+                      ri_lo, ri_hi, ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi, first, *off,
+                      *shape, int(edge)))
+        b = dst.data_ptr()
+        slab = (Rp * Cp, Cp)
+        src = [(b + halo * item, *slab), (b + (halo * Cp + halo) * item, *slab),
+               (b + ((halo + R_loc) * Cp + halo) * item, *slab), (b, *slab),
+               (b + (halo + C_loc) * item, *slab)]
+    return out, geoms, slabs
+
+
+def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, substeps: int,
+                     params, i0: int = 0, i1: int = 0, rows_per_sweep: int = 1,
+                     walls: bool = False, off: tuple[int, int] = (0, 0),
+                     shape: tuple[int, int] = (0, 0), edge: bool = False) -> torch.Tensor:
+    """``substeps`` launches of a rows x cols kernel (34, 35, 37, 38) on the
+    shard ``f`` with its four strips; returns the shard's new values in a
+    fresh buffer (``f`` is never written).  Each sweep consumes
+    ``rows_per_sweep`` lines of the strips in both axes; ``off`` is the
+    shard's global (row, column) offset, ``shape`` the grid's (R, C),
+    ``edge`` whether its rows reach a wall, ``walls`` clips the row bands to
+    the grid's rows (the body kernels read these; kernel 34 takes the
+    defaults).  Raises on a tensor the kernel does not take and on a
+    refused launch."""
+    out, geoms, _slabs = _sweep_geoms(f, top, bot, left, right, substeps=substeps,
+                                      rows_per_sweep=rows_per_sweep, walls=walls, off=off,
+                                      shape=shape, edge=edge)
     with torch.cuda.device(f.device):
         stream = _build.stream_handle(f)
-        for j, ((ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi)) in enumerate(
-                sweep_bands_2d(R_loc, C_loc, halo, substeps, rows_per_sweep, off[0], shape[0],
-                               walls), start=1):
-            if j == substeps:
-                dst, first, dplane, dld = out, halo, R_loc * C_loc, C_loc
-            else:
-                dst, first, dplane, dld = slabs[(j - 1) % 2], 0, Rp * Cp, Cp
-            bases, planes, lds = zip(*src)
-            geom = (ctypes.c_longlong * len(GEOM))(
-                *bases, dst.data_ptr(), *planes, dplane, *lds, dld, halo, R_loc, C_loc,
-                ri_lo, ri_hi, ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi, first, *off, *shape,
-                int(edge))
-            kernel.launch(geom, params, i0, i1, int(f.dtype == torch.float64), stream)
-            b = dst.data_ptr()
-            slab = (Rp * Cp, Cp)
-            src = [(b + halo * item, *slab), (b + (halo * Cp + halo) * item, *slab),
-                   (b + ((halo + R_loc) * Cp + halo) * item, *slab), (b, *slab),
-                   (b + (halo + C_loc) * item, *slab)]
+        for g in geoms:
+            kernel.launch((ctypes.c_longlong * len(GEOM))(*g), params, i0, i1,
+                          int(f.dtype == torch.float64), stream)
+    return out
+
+
+def shard_batches(keys) -> list[list[int]]:
+    """The launches of one sweep of kernel 36 over shards whose (device,
+    dtype) are ``keys``: the shards' indices grouped by key, in order, at
+    most ``MAX_SHARDS`` a launch."""
+    groups: dict = {}
+    for i, key in enumerate(keys):
+        groups.setdefault(key, []).append(i)
+    return [m[c:c + MAX_SHARDS] for m in groups.values() for c in range(0, len(m), MAX_SHARDS)]
+
+
+def launch_sweeps_2d_shards(kernel: _build.CudaKernel, shards, *, substeps: int, params,
+                            rows_per_sweep: int, walls: bool, shape: tuple[int, int],
+                            plain) -> list:
+    """``substeps`` sweeps of kernel 36 on ``shards``, a list of (f, top, bot,
+    left, right, off_r, off_c, edge): a CPU shard's through ``plain`` (which
+    takes the same), the others' one launch a sweep over up to
+    ``MAX_SHARDS`` shards of one device and type (blockIdx.y the shard,
+    ``shard_batches``), which launches or raises.  Returns each shard's new
+    values in a fresh buffer.  A shard's sweeps are launch_sweeps_2d's, so
+    the values are the same bits."""
+    out = [None] * len(shards)
+    plans, batches = {}, []
+    for batch in shard_batches([(f.device, f.dtype) for f, *_ in shards]):
+        if not resolve_fused(shards[batch[0]][0]):
+            for i in batch:
+                out[i] = plain(*shards[i])
+            continue
+        batches.append(batch)
+        for i in batch:
+            f, top, bot, left, right, off_r, off_c, edge = shards[i]
+            plans[i] = _sweep_geoms(f, top, bot, left, right, substeps=substeps,
+                                    rows_per_sweep=rows_per_sweep, walls=walls,
+                                    off=(off_r, off_c), shape=shape, edge=edge)
+            out[i] = plans[i][0]
+    for j in range(substeps):
+        for batch in batches:
+            f = shards[batch[0]][0]
+            with torch.cuda.device(f.device):
+                geoms = (ctypes.c_longlong * (len(GEOM) * len(batch)))(
+                    *(v for i in batch for v in plans[i][1][j]))
+                kernel.launch(geoms, params, len(batch), 0, int(f.dtype == torch.float64),
+                              _build.stream_handle(f))
     return out
 
 
@@ -264,14 +330,11 @@ def make_sharded_fused_step_2d(mesh: Mesh, R: int, C: int, collide_fn,
 
 # --- the body steps (kernels 35-38) ------------------------------------------------
 
-def make_local_2d_body_step(R: int, C: int, body, launch, substeps: int):
-    """``local(f_loc, top, bot, left, right, off_r, off_c, edge) -> f_loc'``
-    (lbm_tpu sharded2d_pallas.py:392 make_local_2d_body_step): on a CPU shard
-    ``substeps`` sweeps of ``body(block, rows, cols)`` over the padded block
-    (``sweep_block``; ``rows`` the block's global rows, ``cols`` its global
-    columns wrapped into [0, C)), on a CUDA shard ``launch`` (a rows x cols
-    kernel's ``launch_sweeps_2d``), which launches or raises.
-    ``local.plain`` is the plain version on any device."""
+def make_plain_2d_body_step(R: int, C: int, body, substeps: int):
+    """``plain(f_loc, top, bot, left, right, off_r, off_c, edge) -> f_loc'``
+    on any device: ``substeps`` sweeps of ``body(block, rows, cols)`` over
+    the padded block (``sweep_block``; ``rows`` the block's global rows,
+    ``cols`` its global columns wrapped into [0, C))."""
 
     def plain(f, top, bot, left, right, off_r, off_c, edge):
         halo, (R_loc, C_loc) = top.shape[-2], f.shape[-2:]
@@ -279,6 +342,18 @@ def make_local_2d_body_step(R: int, C: int, body, launch, substeps: int):
         cols = torch.arange(off_c - halo, off_c + C_loc + halo, device=f.device) % C
         return sweep_block(pad_block(f, top, bot, left, right), halo, substeps=substeps,
                            body=body, rows=rows, cols=cols)
+
+    return plain
+
+
+def make_local_2d_body_step(R: int, C: int, body, launch, substeps: int):
+    """``local(f_loc, top, bot, left, right, off_r, off_c, edge) -> f_loc'``
+    (lbm_tpu sharded2d_pallas.py:392 make_local_2d_body_step): on a CPU shard
+    the plain version, on a CUDA shard ``launch`` (a rows x cols kernel's
+    ``launch_sweeps_2d``), which launches or raises.
+    ``local.plain`` is the plain version on any device
+    (``make_plain_2d_body_step``)."""
+    plain = make_plain_2d_body_step(R, C, body, substeps)
 
     def local(f, top, bot, left, right, off_r, off_c, edge):
         if resolve_fused(f):
@@ -312,15 +387,24 @@ def check_mesh_2d(mesh: Mesh, R: int, C: int, row_factory: str) -> tuple[int, in
     return R_loc, C_loc
 
 
-def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
+def each_shard(local):
+    """A body step's ``run`` that takes the shards one by one through
+    ``local(f_loc, top, bot, left, right, off_r, off_c, edge)``."""
+    return lambda shards: [local(*a) for a in shards]
+
+
+def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, run, plain,
                              dtype: torch.dtype, row_factory: str):
     """Shard a local body step over rows ('x') and columns ('y') (lbm_tpu
     sharded2d_pallas.py:517 ``_sharded2d_wrap``): ShardedState of
     ``(planes, R / nx, C / ny)`` shards -> the same, one ``exchange_2d`` of
-    HALO rows and columns per call.  ``local(f_loc, top, bot, left, right,
-    off_r, off_c, edge)`` gets the shard's global offsets and ``edge`` on row
-    ranks 0 and nx-1 (the masked instance).  ``step.plain`` runs
-    ``local.plain``: the plain version on any device."""
+    HALO rows and columns per call.  ``run`` gets every shard's (f_loc, top,
+    bot, left, right, off_r, off_c, edge), with its global offsets and
+    ``edge`` on row ranks 0 and nx-1 (the masked instance), and returns
+    their new values: ``each_shard(local)`` takes them one by one, kernel
+    36's ``launch_sweeps_2d_shards`` a launch a sweep over a card's shards.
+    ``step.plain`` runs ``plain`` (one shard's plain version, on any device)
+    on each."""
     R_loc, C_loc = check_mesh_2d(mesh, R, C, row_factory)
     nx, ny = mesh.shape["x"], mesh.shape["y"]
 
@@ -333,16 +417,14 @@ def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
                     raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
                                      f"({planes}, {R_loc}, {C_loc}) {dtype}")
             grid = [state.shards[i * ny:(i + 1) * ny] for i in range(nx)]
-            out = []
-            for b, (f, strips) in enumerate(zip(state.shards, exchange_2d(grid, HALO))):
-                i, j = divmod(b, ny)
-                out.append(run(f, *strips, i * R_loc, j * C_loc, i in (0, nx - 1)))
-            return ShardedState(mesh, out)
+            return ShardedState(mesh, run([
+                (f, *strips, b // ny * R_loc, b % ny * C_loc, b // ny in (0, nx - 1))
+                for b, (f, strips) in enumerate(zip(state.shards, exchange_2d(grid, HALO)))]))
 
         return step
 
-    step = build(local)
-    step.plain = build(local.plain)
+    step = build(run)
+    step.plain = build(each_shard(plain))
     return step
 
 
@@ -364,7 +446,8 @@ def make_sharded2d_sc_step(mesh: Mesh, R: int, C: int, *, omega: float, G: float
     launch = _body_launch(HALO2D_SHAN_CHEN, "shan_chen", substeps, _build.c_doubles(params),
                           False, eos_i, forcing_i)
     local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S), launch, substeps)
-    return make_sharded2d_body_step(mesh, 9, R, C, local, dtype, "make_sharded_sc_step")
+    return make_sharded2d_body_step(mesh, 9, R, C, each_shard(local), local.plain, dtype,
+                                    "make_sharded_sc_step")
 
 
 def make_sharded2d_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,
@@ -376,11 +459,13 @@ def make_sharded2d_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,
     (lbm_tpu sharded2d_pallas.py:578).  Kernel 36 on CUDA shards."""
     substeps = resolve_substeps_2d(substeps, "thermal")
     body = thermal_body(omega_f, omega_g, g_beta)
-    launch = _body_launch(HALO2D_THERMAL, "thermal", substeps,
-                          thermal.thermal_constants(omega_f, omega_g, g_beta, dtype), True)
-    local = make_local_2d_body_step(R, C, lambda S, rows, cols: body(S, rows, R), launch,
-                                    substeps)
-    return make_sharded2d_body_step(mesh, 18, R, C, local, dtype, "make_sharded_thermal_step")
+    plain = make_plain_2d_body_step(R, C, lambda S, rows, cols: body(S, rows, R), substeps)
+    run = functools.partial(
+        launch_sweeps_2d_shards, HALO2D_THERMAL, substeps=substeps,
+        params=thermal.thermal_constants(omega_f, omega_g, g_beta, dtype),
+        rows_per_sweep=ROWS_PER_SWEEP["thermal"], walls=True, shape=(R, C), plain=plain)
+    return make_sharded2d_body_step(mesh, 18, R, C, run, plain, dtype,
+                                    "make_sharded_thermal_step")
 
 
 def make_sharded2d_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alpha: float,
@@ -396,7 +481,8 @@ def make_sharded2d_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alph
                           True)
     local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S, rows, R, cols, C),
                                     launch, CAP_2D["rk"])
-    return make_sharded2d_body_step(mesh, rk.PLANES, R, C, local, dtype, "make_sharded_rk_step")
+    return make_sharded2d_body_step(mesh, rk.PLANES, R, C, each_shard(local), local.plain, dtype,
+                                    "make_sharded_rk_step")
 
 
 def make_sharded2d_mrtcg_step(mesh: Mesh, R: int, C: int, red, blue, sigma: float,
@@ -421,6 +507,7 @@ def make_sharded2d_mrtcg_step(mesh: Mesh, R: int, C: int, red, blue, sigma: floa
     launch = _body_launch(HALO2D_MRTCG_FULL, family, substeps, params, True, int(csf))
     local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S, rows, R, cols, C),
                                     launch, substeps)
-    step = make_sharded2d_body_step(mesh, mrtcg.full_planes(surface_tension), R, C, local,
-                                    dtype, "make_sharded_mrtcg_step")
+    step = make_sharded2d_body_step(mesh, mrtcg.full_planes(surface_tension), R, C,
+                                    each_shard(local), local.plain, dtype,
+                                    "make_sharded_mrtcg_step")
     return step if csf else _per_colour(step)

@@ -1,0 +1,294 @@
+"""Kernels 12 and 36 (csrc/rk_cg.cu, csrc/thermal.cu) compiled for the CPU
+with g++ through a stand-in for the CUDA runtime: a block's threads run as
+std::threads that meet at a std::barrier, blocks one after another, shared
+memory NaN-filled.  Every operation of both sources rounds once in IEEE
+arithmetic (they build with -fmad=false on the card, -ffp-contract=off
+here), and each kernel is held to its plain version at the card tests'
+tolerance: torch's CPU kernels round a few operations differently (its
+square root by an ulp).  A wrong geometry, tap or batch gives errors of
+order one or NaN.  No JAX, no card; skipped without a C++ compiler."""
+
+import contextlib
+import ctypes
+import importlib.util
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lbm_tpu_torch.kernels import _build, rk, thermal
+from lbm_tpu_torch.kernels import sharded2d as k2d
+from lbm_tpu_torch.parallel import mesh as pm
+from lbm_tpu_torch.parallel.halo import exchange_2d
+
+CSRC = Path(__file__).resolve().parents[1] / "lbm_tpu_torch" / "csrc"
+TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
+
+CUDA_RUNTIME = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __grid_constant__
+using std::fabs;
+using std::sqrt;
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() = default;
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9,
+                   cudaErrorInvalidDevice = 101 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0; };
+typedef void* cudaStream_t;
+namespace shim {
+inline thread_local dim3 tIdx, bIdx, bDim, gDim;
+inline thread_local unsigned char* smem = nullptr;
+inline thread_local std::barrier<>* bar = nullptr;
+template <typename F>
+void launch(dim3 grid, unsigned threads, size_t bytes, void*, F f) {
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::vector<unsigned char> mem(bytes + 16, 0xff);
+        std::barrier<> b(threads);
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < threads; ++t)
+          ts.emplace_back([&, t, bx, by, bz] {
+            tIdx = dim3(t); bIdx = dim3(bx, by, bz); bDim = dim3(threads); gDim = grid;
+            smem = mem.data(); bar = &b;
+            f();
+          });
+        for (auto& th : ts) th.join();
+      }
+}
+}  // namespace shim
+#define threadIdx shim::tIdx
+#define blockIdx shim::bIdx
+#define blockDim shim::bDim
+#define gridDim shim::gDim
+inline void __syncthreads() { shim::bar->arrive_and_wait(); }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 4; return cudaSuccess; }
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 2; return cudaSuccess; }
+template <typename K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+template <typename K>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) { *a = {}; return cudaSuccess; }
+template <typename T> inline void __stcs(T* p, T v) { *p = v; }
+"""
+PIPELINE = r"""
+#pragma once
+#include <cstring>
+inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::memcpy(d, s, n); }
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(int) {}
+"""
+
+
+def _cpu_library(d: Path, units=("rk_cg", "thermal"), sources=None):
+    """The csrc units ``units`` as one CPU library in ``d``: each launch
+    ``k<<<g, t, s, st>>>(args)`` becomes a call of the stand-in's launcher,
+    the dynamic shared memory a per-block buffer; ``sources`` maps a file
+    name to the text that stands in for it."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build csrc/ for the CPU")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME)
+    (d / "cuda_pipeline_primitives.h").write_text(PIPELINE)
+    launch = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+    for f in CSRC.iterdir():
+        if f.suffix not in (".cu", ".cuh"):
+            continue
+        text = (sources or {}).get(f.name, None) or f.read_text()
+        text = re.sub(r"extern __shared__ (__align__\(\d+\) )?unsigned char smem_raw\[\];",
+                      "unsigned char* smem_raw = shim::smem;", text)
+        text = launch.sub(lambda m: f"shim::launch({m.group(2)}, [&]() {{ "
+                                    f"{m.group(1)}({m.group(3)}); }});", text)
+        (d / (f.name if f.suffix == ".cuh" else f.stem + ".cpp")).write_text(text)
+    lib = d / "kernels.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                    "-pthread", f"-I{d}", "-o", str(lib), *(str(d / f"{u}.cpp") for u in units)],
+                   check=True, capture_output=True, timeout=600)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels(tmp_path_factory):
+    """csrc/rk_cg.cu and csrc/thermal.cu as one CPU library."""
+    return _cpu_library(tmp_path_factory.mktemp("csrc_cpu"))
+
+
+def _rk_state(R, C, dtype, seed):
+    """A noisy two-colour state with an interface across the rows."""
+    g = np.random.default_rng(seed)
+    x = np.arange(R)[:, None] - R / 2 + 3 * np.sin(np.arange(C)[None] / 5)
+    r_rho = 1.0 + 0.5 * np.tanh(x / 3.0) + 0.01 * g.random((R, C))
+    b_rho = 2.0 - r_rho + 0.01 * g.random((R, C))
+    f = 0.05 + 0.1 * g.random((9, R, C))
+    return torch.tensor(np.concatenate([f, r_rho[None], b_rho[None]]), dtype=dtype)
+
+
+RK_KW = dict(r_alpha=11 / 15, b_alpha=0.2, r_nu=0.04, b_nu=0.06, sigma=0.01, beta=0.7,
+             gravity=(-6.25e-6, 1e-6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C", [(37, 29), (12, 70), (4, 3)])
+def test_kernel_12_source_matches_plain(cpu_kernels, dtype, R, C):
+    """csrc/rk_cg.cu's step, 2 steps from a noisy interface on grids with
+    edge tiles both ways, ragged tiles and the smallest grid, against
+    kernels/rk.py's plain step: TOL."""
+    S = _rk_state(R, C, dtype, R * C)
+    plain = rk.make_plain_step(**RK_KW)
+    got = _rk_steps(cpu_kernels.lbm_rk_cg, S)
+    assert (got - plain(plain(S))).abs().max().item() <= TOL[dtype]
+
+
+def _rk_steps(fn, S, steps=2):
+    """``steps`` steps of kernel 12's entry point ``fn`` from ``S``, each
+    output NaN-filled before the step."""
+    fn.argtypes, fn.restype = rk.RK_CG.argtypes, ctypes.c_int
+    params = _build.c_doubles(rk.kernel_params(**RK_KW))
+    R, C = S.shape[-2:]
+    for _ in range(steps):
+        out = torch.full_like(S, float("nan"))
+        assert fn(S.data_ptr(), out.data_ptr(), R, C, params, int(S.dtype == torch.float64),
+                  None) == 0
+        S = out
+    return S
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", CSRC.parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("design", ["staged in float32 too", "loads in float64 too",
+                                    "taps once a cell"])
+def test_kernel_12_designs_give_the_tree_bits(cpu_kernels, tmp_path, design):
+    """chip_smoke.py's other designs of kernel 12 (RK_DESIGNS, edits of
+    csrc/rk_cg.cu that the breakdown times against it) built for the CPU:
+    the tree's kernel's bits, two steps in both types on a grid with edge
+    and ragged tiles both ways."""
+    src = _chip_smoke().rk_probe_sources(CSRC, _chip_smoke().RK_DESIGNS)[design]
+    lib = _cpu_library(tmp_path, ("rk_cg",), {"rk_cg.cu": src})
+    for dtype in (torch.float64, torch.float32):
+        S = _rk_state(37, 70, dtype, 3770)
+        assert torch.equal(_rk_steps(lib.lbm_rk_cg, S), _rk_steps(cpu_kernels.lbm_rk_cg, S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,R,C,mesh_shape", [("rows", 48, 40, (4, 1)), ("rows", 40, 29, (2, 1)),
+                                                 ("rows x cols", 64, 96, (4, 2)),
+                                                 ("rows x cols", 40, 70, (2, 2))])
+def test_rk_halo_kernels_source_match_plain(cpu_kernels, monkeypatch, dtype, kind, R, C,
+                                            mesh_shape):
+    """Kernels 30 (row shards) and 37 (rows x cols shards) of
+    csrc/rk_cg.cu, driven through the port's sharded RK steps (their
+    geometries, strips and sweeps as on the card), two calls from a noisy
+    interface: the plain sharded step within TOL.  Their staged rows span
+    shard, halo and strip buffers, whole chunks and single elements."""
+    from lbm_tpu_torch.kernels import sharded
+
+    for kernel in (sharded.HALO_RK, k2d.HALO2D_RK):
+        fn = getattr(cpu_kernels, kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        monkeypatch.setattr(kernel, "_fn", fn)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream_handle", lambda f: None)
+    monkeypatch.setattr(_build, "check_state", lambda f, planes=9: tuple(f.shape[1:]))
+    mesh = pm.make_mesh(["cpu"] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    make = sharded.make_sharded_rk_step if kind == "rows" else k2d.make_sharded2d_rk_step
+    step = make(mesh, R, C, dtype=dtype, **RK_KW)
+    S = pm.shard_state(mesh, _rk_state(R, C, dtype, R + C))
+    want = step.plain(step.plain(S)).gather()
+    monkeypatch.setattr(sharded, "resolve_fused", lambda f: True)
+    monkeypatch.setattr(k2d, "resolve_fused", lambda f: True)
+    kernel = sharded.HALO_RK if kind == "rows" else k2d.HALO2D_RK
+    before = kernel.launches
+    got = step(step(S)).gather()
+    assert kernel.launches - before == 2 * mesh_shape[0] * mesh_shape[1]
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+THERMAL = dict(omega_f=1.0 / (0.71 * 0.1 * 3.0 + 0.5), omega_g=1.25,
+               g_beta=1e4 * 0.71 * 0.1 * 0.1 / 64 ** 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,mesh_shape,s", [((64, 64), (4, 2), 3), ((48, 96), (1, 2), 2),
+                                                ((144, 32), (9, 2), 1)])
+def test_kernel_36_source_matches_plain(cpu_kernels, monkeypatch, dtype, shape, mesh_shape, s):
+    """csrc/thermal.cu's kernel 36, each sweep one launch over up to
+    MAX_SHARDS shards (18 shards: two launches a sweep), their geometries
+    from kernels/sharded2d.py's ``_sweep_geoms``, one call of s sweeps
+    after an exchange: the plain rows x cols step within TOL, no NaN (the
+    outputs and slabs start NaN-filled)."""
+    monkeypatch.setattr(_build, "check_state", lambda f, planes=9: tuple(f.shape[1:]))
+    fn = cpu_kernels.lbm_halo2d_thermal
+    fn.argtypes, fn.restype = k2d.HALO2D_THERMAL.argtypes, ctypes.c_int
+    R, C = shape
+    nx, ny = mesh_shape
+    g = np.random.default_rng(R + C + s)
+    S = torch.tensor(np.concatenate([0.05 + 0.1 * g.random((9, R, C)),
+                                     0.1 * g.random((9, R, C)) - 0.04]), dtype=dtype)
+    mesh = pm.make_mesh(["cpu"] * (nx * ny), mesh_shape)
+    step = k2d.make_sharded2d_thermal_step(mesh, R, C, substeps=s, dtype=dtype, **THERMAL)
+    want = step.plain(pm.shard_state(mesh, S)).gather()
+    shards = [f.contiguous() for f in pm.shard_state(mesh, S).shards]
+    R_loc, C_loc = R // nx, C // ny
+    grid = [shards[i * ny:(i + 1) * ny] for i in range(nx)]
+    strips = exchange_2d(grid, k2d.HALO)  # read by the launches: held until they end
+    plans = [k2d._sweep_geoms(f, *st, substeps=s, rows_per_sweep=1, walls=True,
+                              off=(b // ny * R_loc, b % ny * C_loc), shape=(R, C),
+                              edge=b // ny in (0, nx - 1))
+             for b, (f, st) in enumerate(zip(shards, strips))]
+    for out, _, slabs in plans:
+        out.fill_(float("nan"))
+        for slab in slabs:
+            slab.fill_(float("nan"))
+    params = thermal.thermal_constants(dtype=dtype, **THERMAL)
+    batches = k2d.shard_batches([(f.device, f.dtype) for f in shards])
+    assert [len(b) for b in batches] == [min(k2d.MAX_SHARDS, nx * ny - c)
+                                         for c in range(0, nx * ny, k2d.MAX_SHARDS)]
+    for j in range(s):
+        for batch in batches:
+            geoms = (ctypes.c_longlong * (len(k2d.GEOM) * len(batch)))(
+                *(v for i in batch for v in plans[i][1][j]))
+            assert fn(geoms, params, len(batch), 0, int(dtype == torch.float64), None) == 0
+    got = torch.cat([torch.cat([p[0] for p in plans[i * ny:(i + 1) * ny]], dim=2)
+                     for i in range(nx)], dim=1)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+def test_kernel_36_batches_group_shards_by_device():
+    """One launch takes up to MAX_SHARDS shards of one device and type, in
+    the mesh's order: a card's 18 shards go 8, 8, 2; shards of two cards
+    (a mesh of one shard a card) and of two types never share a launch."""
+    n = k2d.MAX_SHARDS
+    assert k2d.shard_batches([("cuda:0", 0)] * 18) == [list(range(n)), list(range(n, 2 * n)),
+                                                        [16, 17]]
+    keys = [("cuda:0", 0), ("cuda:1", 0), ("cuda:0", 0), ("cuda:1", 1)]
+    assert k2d.shard_batches(keys) == [[0, 2], [1], [3]]
+    assert k2d.shard_batches([]) == []

@@ -1615,7 +1615,9 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
     """Kernels 35-38 on an (nx, ny) mesh of one card's shards, two calls of s
     steps: bit for bit the single-device kernel of their family (14, 23,
     12, 8), within TOL of the plain rows x cols version, and bit-identical
-    run twice."""
+    run twice.  A call launches s sweeps on each shard, kernel 36 s sweeps
+    over all the shards of the card (up to MAX_SHARDS a launch)."""
+    from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.parallel import mesh as pm
 
     R, C = 64, 96
@@ -1626,7 +1628,9 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
     again = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
-    assert kernel.launches - before == 4 * shape[0] * shape[1] * s
+    n = shape[0] * shape[1]
+    per_call = -(-n // k2d.MAX_SHARDS) * s if family == "thermal" else n * s
+    assert kernel.launches - before == 4 * per_call
     want = single(single(x))
     assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
     assert (got - plain).abs().max().item() <= TOL[dtype]
@@ -1982,3 +1986,144 @@ def test_plan_on_the_card(cuda, itemsize):
         assert big[6] == 1 and big[4] <= max(held, 2 * sms)
         for R, C in ((256, 128), (128, 128), (100, 100), (21, 13)):
             assert plan(C, R)[6] == 0
+
+
+# --- kernel 12 (csrc/rk_cg.cu), kernel 36's shard batches, F1 ------------------
+
+# the RK scene's grid, the big grid, ragged grids (R, C not multiples of a
+# tile, C < 62) and the smallest
+RK_GRIDS = [(1024, 256), (4096, 2048), (37, 29), (203, 61), (4, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C", RK_GRIDS)
+def test_rk_kernel_matches_plain_bit_for_bit(cuda, dtype, R, C):
+    """Kernel 12, 2 steps (one launch each) from the RT state: bit for bit
+    its plain version (both round each operation once, in the same
+    order)."""
+    from lbm_tpu_torch.kernels import rk
+
+    S = _rk_state(R, C, dtype, cuda)
+    before = rk.RK_CG.launches
+    got = rk.make_rk_fused_step(R, C, dtype=dtype, substeps=2, **RK_KW)(S)
+    torch.cuda.synchronize()
+    assert rk.RK_CG.launches - before == 2
+    plain = rk.make_plain_step(**RK_KW)
+    assert torch.equal(got, plain(plain(S)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", [("rows", 8), ("rows", 2), ("rows x cols", (4, 2)),
+                                  ("rows x cols", (2, 4))])
+def test_rk_halo_kernels_match_kernel_12(cuda, dtype, case):
+    """Kernels 30 (row shards) and 37 (rows x cols shards), two calls: 0.0
+    against kernel 12, a launch a shard and call."""
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    kind, n = case
+    if kind == "rows":
+        R, C = 192, 40
+        step, single, x, kernels = _sharded_case("rk", R, C, dtype, cuda, n, 1)
+        mesh = pm.make_mesh([cuda] * n)
+    else:
+        R, C = 64, 96
+        step, single, x, kernel = _k35_38_case("rk", R, C, dtype, cuda, n, 1)
+        mesh, kernels = pm.make_mesh([cuda] * (n[0] * n[1]), n), [kernel]
+    before = sum(k.launches for k in kernels)
+    got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in kernels) - before == 2 * (n if kind == "rows" else n[0] * n[1])
+    assert torch.equal(got, single(single(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f64", [0, 1])
+def test_rk_kernel_fits_the_card(cuda, f64):
+    """Kernel 12's flat instance spills nothing and fits an SM, r_rho / rho
+    on its window and its ring values in shared memory, in float64 (the
+    staged tile) the window's two colour densities too (csrc/rk_cg.cu
+    smem_bytes)."""
+    from lbm_tpu_torch.kernels import _build
+
+    fn = _build.library().lbm_rk_describe
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    assert fn(f64, out) == 0
+    regs, local, smem, threads, per_sm = out
+    window, ring = (8 + 6) * (32 + 6 + 3), 18 * (8 + 2) * (32 + 2)
+    assert local == 0 and threads == 256 and per_sm >= 1
+    assert smem == (8 * (3 * window + ring) if f64 else 4 * (window + ring))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,mesh_shape,s", [((64, 128), (4, 2), 8), ((64, 128), (4, 4), 3),
+                                                ((128, 64), (8, 2), 1), ((64, 96), (1, 2), 8)])
+def test_kernel_36_batches_match_single_device(cuda, dtype, shape, mesh_shape, s):
+    """Kernel 36 on an (nx, ny) mesh of one card's shards, one launch a sweep
+    over up to MAX_SHARDS shards (16 shards: two a sweep), three calls: bit
+    for bit kernel 23 run as many steps, within TOL of the plain rows x cols
+    version; the rayleigh_benard gate's 64x128 on (4, 2) with 8 sweeps a call
+    among them."""
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    R, C = shape
+    step, single, x, kernel = _k35_38_case("thermal", R, C, dtype, cuda, mesh_shape, s)
+    mesh = pm.make_mesh([cuda] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    before = kernel.launches
+    got = pm.shard_state(mesh, x)
+    plain = pm.shard_state(mesh, x)
+    want = x
+    for _ in range(3):
+        got, plain, want = step(got), step.plain(plain), single(want)
+    torch.cuda.synchronize()
+    n = mesh_shape[0] * mesh_shape[1]
+    assert kernel.launches - before == 3 * s * -(-n // k2d.MAX_SHARDS)
+    got, plain = got.gather(), plain.gather()
+    assert got.is_cuda and torch.equal(got, want)
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernel_36_rejects_a_batch_it_cannot_take(cuda):
+    """The batched launch refuses more than MAX_SHARDS shards and none."""
+    from lbm_tpu_torch.kernels import _build, thermal
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+
+    params = thermal.thermal_constants(1.0, 1.25, 1e-4, torch.float32)
+    geoms = (ctypes.c_longlong * (len(k2d.GEOM) * (k2d.MAX_SHARDS + 1)))()
+    fn = _build.library().lbm_halo2d_thermal
+    fn.argtypes, fn.restype = k2d.HALO2D_THERMAL.argtypes, ctypes.c_int
+    for n in (0, k2d.MAX_SHARDS + 1):
+        assert fn(geoms, params, n, 0, 0, None) != 0
+
+
+@pytest.mark.cuda
+def test_moving_bodies_window_past_65535_columns(cuda):
+    """Kernel 21 on a 128x65600 grid, its window 116 rows by all 65,600
+    columns (past the 16-bit column packing the live list had): 3 steps
+    against the plain step in float64, F within TOL, the origin equal, the
+    state within TOL of max(1, |value|)."""
+    from lbm_tpu_torch.kernels import moving_ibm as km
+
+    H, W = 128, 65600
+    th = np.linspace(0.0, 2.0 * np.pi, 76, endpoint=False)
+    step = km.make_moving_bodies_step(H, W, 12 * np.cos(th), 12 * np.sin(th), n_bodies=2,
+                                      rw=116, half=17, g_net=2.262e-2, m_eff=565.5,
+                                      radius=12.0, dtype=torch.float64)
+    state = km.pack_states(((50.0, 40000.0), (75.0, 40001.0)), ((0.003, 0.0), (0.004, 0.0005)),
+                           dtype=torch.float64, device=cuda)
+    f = _noisy_state(H, W, torch.float64, cuda, seed=65600)
+    before = km.MOVING_BODIES.launches
+    got, want = state, state
+    for _ in range(3):
+        Fg, og, got = step(f, got)
+        Fw, ow, want = step.plain(f, want)
+    torch.cuda.synchronize()
+    assert km.MOVING_BODIES.launches - before == 3 and Fg.shape == (2, 116, W)
+    assert og.tolist() == ow.tolist() and (Fg - Fw).abs().max().item() <= TOL[torch.float64]
+    assert (Fg[0] != 0).sum().item() > 0
+    assert _state_err(got, want) <= TOL[torch.float64]

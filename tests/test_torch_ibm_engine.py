@@ -285,15 +285,20 @@ def test_launch_shape_and_scratch():
 
 
 def test_window_packing_limit():
-    """The live list packs a window cell as rr << 16 | cc in an int32: the
-    largest window's last cell decodes to itself, and a window one row or
-    one column larger is refused before it reaches the kernel."""
-    wr, wc = km.MAX_WINDOW
-    packed = np.int32((wr - 1) << 16 | (wc - 1))
-    assert packed >= 0 and (int(packed) >> 16, int(packed) & 0xFFFF) == (wr - 1, wc - 1)
-    km.check_window(wr, wc)
-    km.check_window(228, 128)
-    for bad in ((wr + 1, 128), (228, wc + 1)):
+    """The kernels index a window cell as rr cw + cc, and F's second plane
+    at 2 wr cw, in int32: windows of any shape up to MAX_WINDOW_CELLS cells
+    pass (800x65536, past the 65,535 columns of the old 16-bit packing,
+    and a single row of 2^30 - 1 columns), a window cell's F index decodes
+    to its row and column, and a window one cell larger is refused before
+    it reaches the kernel."""
+    n = km.MAX_WINDOW_CELLS
+    assert 2 * n <= np.iinfo(np.int32).max < 2 * (n + 1)
+    for wr, wc in ((800, 65536), (228, 128), (1, n), (n, 1), (32767, 32768)):
+        km.check_window(wr, wc)
+        last = np.int32((wr - 1) * wc + (wc - 1))
+        assert (int(last) // wc, int(last) % wc) == (wr - 1, wc - 1)
+        assert 2 * wr * wc <= np.iinfo(np.int32).max
+    for bad in ((1, n + 1), (32768, 32768), (65536, 65536)):
         with pytest.raises(ValueError, match="largest"):
             km.check_window(*bad)
 
