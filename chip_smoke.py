@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 12, 16, 19-21 and 36 of the tree
-                                         # DIR (e.g. a git archive of the parent
-                                         # commit) against this one, and holds 12,
-                                         # 19-21 and 36 to DIR's bits
+                                         # kernels 4, 12, 16, 19-21, 33 and 36 of the
+                                         # tree DIR (e.g. a git archive of the parent
+                                         # commit) against this one, and holds 4, 12,
+                                         # 19-21, 33 and 36 to DIR's bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
                                          # time them whole and with parts left out
@@ -17,6 +17,10 @@
                                          # (RK_DESIGNS), time each, as a JSON line
     python3 chip_smoke.py --engine-sweep # build, then only the MRT-CG engines'
                                          # sweep (engine_sweep), as a JSON line
+    python3 chip_smoke.py --k4-k33 [--parent DIR]
+                                         # build, then only kernels 4 and 33 against
+                                         # their other designs (and DIR's), held to
+                                         # the same bits (k4_k33_times), as a JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -217,7 +221,8 @@ with a nonzero exit code):
      for bit its single-device kernel; sc_phase_separation 256x256 on 8
      shards, 4 steps per exchange, bit for bit the scene and within its
      gate; the cavity3d gate with Y over 8 shards, bit for bit the scene
-     and within the gate; the dry run of parallel/dryrun.py; one shard per
+     and within the gate, two kernel-33 launches a call and no exchange
+     copy; the dry run of parallel/dryrun.py; one shard per
      card for kernels 27-38 when there are several (``sharded_cards``; else
      logged as not run); kernels 35-38 (``K35_38_PATH``, ``k35_38_path``,
      through kernels/sharded2d.py's four body factories): the full MRT-CG
@@ -269,7 +274,12 @@ with a nonzero exit code):
      4096x2048 on (4, 2), both types, under CUDA graphs, with --parent
      against the parent tree's in turns, kernel 12 bit for bit the parent's
      over 4 steps at 1024x256 and kernel 36 over 2 calls
-     (``rk_k36_times``); and the table of every
+     (``rk_k36_times``); kernel 4 at ulbm_poiseuille's 128x128 and at
+     4096x2048 in both types, sized to the card (``K4_DESIGNS`` only
+     under --k4-k33), and kernel 33 at the cavity3d gate's launch shape
+     (both types) and 32x256x1024 on 8 shards (s = 1 and 8) beside the
+     exchange of HALO rows alone, with --parent against the parent tree's
+     in turns, every variant bit for bit the parent's (``k4_k33_times``); and the table of every
      kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
      ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
      its phase-5 launches and launches x (time - bound), ranked).
@@ -1798,7 +1808,8 @@ def k31_34_path(dev, counted) -> dict:
     sc_phase_separation's 256x256 initial state on 8 shards, 4 steps per
     exchange, 4000 steps, against the scene and with its gate; the cavity3d
     gate's cavity (8x64x128, 20000 steps, 2 per exchange) with Y over 8
-    shards, against the scene and with the gate; the dry run on 8 shards
+    shards, against the scene and with the gate, one kernel-33 launch a
+    sweep and no exchange copy (its shards share the card); the dry run on 8 shards
     (every sharded path); one shard per card where there are several
     (``sharded_cards``, kernels 27-34).  The references run first; then
     every launch count starts at 0, and is read at the end.  Returns the
@@ -1809,6 +1820,7 @@ def k31_34_path(dev, counted) -> dict:
     from lbm_tpu_torch.kernels import sharded as ksh
     from lbm_tpu_torch.ops import d2q9, d3q19
     from lbm_tpu_torch.parallel import dryrun
+    from lbm_tpu_torch.parallel import halo as ph
     from lbm_tpu_torch.parallel import mesh as pm
     from lbm_tpu_torch.scenes import shan_chen as scs
     from lbm_tpu_torch.scenes import three_d as t3
@@ -1862,9 +1874,15 @@ def k31_34_path(dev, counted) -> dict:
                                        x_walls=True, y_walls=True, z_walls=True, lid_u=0.05,
                                        substeps=2, dtype=f32)
     f3 = t3._at_rest(X3, Y3, Z3, dev, f32).reshape(19 * X3, Y3, Z3)
-    got = timed(label, step, f3, CAVITY3D_STEPS // 2).reshape(19, X3, Y3, Z3)
+    copies, copy_to = [], ph.copy_to  # the exchange copies the run makes: none on one card
+    ph.copy_to = lambda src, device: copies.append(1) or copy_to(src, device)
+    try:
+        got = timed(label, step, f3, CAVITY3D_STEPS // 2).reshape(19, X3, Y3, Z3)
+    finally:
+        ph.copy_to = copy_to
     gates = cavity3d_gates(d3q19.calc_u(got, d3q19.calc_rho(got)))
     gates["bit-identical to the scene"] = (float(torch.equal(got, ref_3d.f)), 1.0, 1.0)
+    gates["exchange copies"] = (float(len(copies)), 0.0, 0.0)
     check_gates(f"[5] validate_tpu.py cavity3d with Y over 8 shards of the card: "
                 f"{X3}x{Y3}x{Z3} float32 {CAVITY3D_STEPS} steps, 2 per exchange (host wall "
                 f"time {wall[label]!r} s = {wall[label] / CAVITY3D_STEPS * 1e6!r} us/step)",
@@ -1994,7 +2012,11 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
     and the exchange reads and writes once each halo line that the first
     band reads beyond the shard (s r rows per side, r the lines a sweep
     consumes, clipped at a wall; kernels 34-38: s r rows and s r columns),
-    not the whole 8-aligned strip the step sends; ``ops`` operations per
+    not the whole 8-aligned strip the step sends.  Kernel 33 ("d3q19
+    <walls>") makes no exchange where its shards share a card, as every
+    case here does: its first sweep reads the neighbours' rows in place
+    (parallel/halo.py ring_rows), rows its input band already counts, so
+    its bytes are the bands' alone.  ``ops`` operations per
     cell and step over the fp32 peak.  The design bytes count every sweep's
     bands, as the port's s launches a call move them; lbm_tpu's kernels run
     a call's s steps on the chip (sharded_pallas.py make_local_halo_step),
@@ -2026,13 +2048,15 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
             (R, C), per_cell = shape, 1
         halo = ksh.halo_for(s, r)
         R_loc = R // n
+        in_place = family.startswith("d3q19 ")
         rows_moved = rows_design = strip_rows = 0
         for i in range(n):
             bands = ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls)
             rows_moved += (bands[0][1] - bands[0][0]) + (bands[-1][3] - bands[-1][2])
             rows_design += sum((i_hi - i_lo) + (o_hi - o_lo) for i_lo, i_hi, o_lo, o_hi in bands)
             i_lo, i_hi = bands[0][:2]
-            strip_rows += max(0, halo - i_lo) + max(0, i_hi - halo - R_loc)
+            if not in_place:
+                strip_rows += max(0, halo - i_lo) + max(0, i_hi - halo - R_loc)
         nbytes = (rows_moved + 2 * strip_rows) * planes * C * itemsize
         design_bytes = (rows_design + 2 * strip_rows) * planes * C * itemsize
         n_ops = ops * R * C * per_cell * s
@@ -2663,16 +2687,17 @@ def bind_kernels(kernels, lib) -> None:
         k._fn = fn
 
 
-def in_turns(fns: dict) -> tuple[dict, dict]:
-    """Each of ``fns`` (label -> a callable that returns a time) three times
-    in turns, in the orders a..z, z..a, a..z, so that a drift of the card's
-    clocks falls on every label alike: (the median of each, its runs)."""
+def in_turns(fns: dict, rounds: int = 3) -> tuple[dict, dict]:
+    """Each of ``fns`` (label -> a callable that returns a time) ``rounds``
+    times (odd) in turns, in the orders a..z, z..a, a..z, ..., so that a
+    drift of the card's clocks falls on every label alike: (the median of
+    each, its runs)."""
     names = list(fns)
     runs = {k: [] for k in names}
-    for order in (names, names[::-1], names):
-        for k in order:
+    for r in range(rounds):
+        for k in (names[::-1] if r % 2 else names):
             runs[k].append(fns[k]())
-    return {k: sorted(v)[1] for k, v in runs.items()}, runs
+    return {k: sorted(v)[rounds // 2] for k, v in runs.items()}, runs
 
 
 def strip_blocks(rows, unit, f64, csf, memory) -> int:
@@ -3545,6 +3570,189 @@ def rk_k36_times(dev, card: str, parent=None) -> dict:
     return out
 
 
+# kernel 4's timed shapes (ulbm_poiseuille's 128x128 and the big grid) and
+# kernel 33's cases (label, (X, Y, Z), walls, shards, sweeps a call, types):
+# the cavity3d gate's launch shape and 32x256x1024 at s = 1 and 8
+K4_TIMES = ((128, 128), BIG)
+K33_TIMES = (("cavity3d launch shape", (8, 64, 128), "cavity", 8, 2, ("float32", "float64")),
+             ("32x256x1024", D3Q19_BIG, "periodic", 8, 1, ("float32",)),
+             ("32x256x1024", D3Q19_BIG, "periodic", 8, 8, ("float32",)))
+# kernel 4's other designs (edits of csrc/channel_kbc.cu, built whole and
+# timed against it in ``k4_k33_times``): its blocks sized to the card as
+# plain launches (lever (a) left out), and lever (b), a register cap that
+# lets four 256-thread blocks share an SM (72 registers hold three)
+K4_DESIGNS = {
+    "without PDL": [("pdl ? 1u : 0u}", "0u}")],
+    "64 registers": [
+        ("template <typename T>\n__global__ void channel_kbc_kernel(",
+         "template <typename T>\n__global__ void __launch_bounds__(256, 4) channel_kbc_kernel(")]}
+
+
+def k4_design_sources(csrc: Path) -> dict:
+    """label -> csrc/channel_kbc.cu of the tree ``csrc`` with the edits of
+    each of ``K4_DESIGNS``; an edit that no longer finds its text stops the
+    run."""
+    out = {}
+    for label, edits in K4_DESIGNS.items():
+        text = (csrc / "channel_kbc.cu").read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"design {label!r} of {csrc}/channel_kbc.cu: the source no "
+                                   f"longer holds {old!r}")
+            text = text.replace(old, new)
+        out[label] = text
+    return out
+
+
+def build_k4_designs() -> dict:
+    """Each of ``K4_DESIGNS`` built from its edited copy of csrc/channel_kbc.cu
+    (namespace lbm renamed, as ``build_parent`` does) into a library of its
+    own: {label: its lbm_channel_kbc}.  ptxas' report of each is logged."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build, channel
+
+    work = Path(tempfile.mkdtemp(prefix="k4-designs-"))
+    atexit.register(shutil.rmtree, work, True)
+    rename = [("namespace lbm {", "namespace lbm_design {"), ("lbm::", "lbm_design::")]
+    for f in _build.CSRC.glob("*.cuh"):
+        text = f.read_text()
+        for old, new in rename:
+            text = text.replace(old, new)
+        (work / f.name).write_text(text)
+    nvcc, procs = _build.find_nvcc(), {}
+    for i, (label, text) in enumerate(k4_design_sources(_build.CSRC).items()):
+        for old, new in rename:
+            text = text.replace(old, new)
+        (work / f"d{i}.cu").write_text(text)
+        procs[label] = (work / f"libd{i}.so", subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get("channel_kbc", ()), "-shared",
+             "-o", str(work / f"libd{i}.so"), str(work / f"d{i}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for label, (so, proc) in procs.items():
+        text = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on kernel 4's design {label!r}:\n{text}")
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[6] kernel 4 design {label!r}: {line.strip()}")
+        fn = ctypes.CDLL(str(so)).lbm_channel_kbc
+        fn.argtypes, fn.restype = channel.CHANNEL_KBC.argtypes, ctypes.c_int
+        out[label] = fn
+    return out
+
+
+def k4_k33_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernel 4 at K4_TIMES' shapes in both types: us per step under CUDA
+    graphs of 100 chained steps, in turns (7 rounds at 4096x2048), of this
+    tree's launch (blocks sized to the card, a programmatic dependent
+    launch where the grid fits in one wave), with ``designs`` also
+    ``K4_DESIGNS``' builds (the same without the dependent launch; a
+    register cap) and, with ``parent``, the parent tree's kernel (built by
+    ``build_parent``); kernel 33 at K33_TIMES' cases: us per call (graphs of
+    100 calls; 32x256x1024 of 5) of this tree's sharded step (one launch a
+    sweep, the neighbours' rows in place), the exchange of HALO rows alone
+    (the copies the row-sharded steps make, ``exchange_rows``) and with
+    ``parent`` the parent tree's step (its package copied, its d3q19.cu
+    bound).  Every variant must give the same bits (the parent's, where
+    there is one) over 4 steps of kernel 4 and 2 calls of kernel 33: it
+    raises where they differ.  Keys (kernel, case, dtype) -> {variant: us}."""
+    import ctypes
+    import importlib
+
+    import torch
+
+    from lbm_tpu_torch.kernels import _build, channel
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    designs = build_k4_designs() if designs else {}
+    parent_kbc = ksh_p = None
+    if parent is not None:
+        parent_package(parent)
+        ksh_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded")
+        lib = build_parent(parent, ("channel_kbc", "d3q19"))
+        bind_kernels([ksh_p.HALO_D3Q19], lib)
+        parent_kbc = lib.lbm_channel_kbc
+        parent_kbc.argtypes, parent_kbc.restype = channel.CHANNEL_KBC.argtypes, ctypes.c_int
+    out = {}
+
+    def turns(key, fns, unit, rounds=3):
+        med, runs = in_turns({v: (lambda fn=fn: fn() * 1e3) for v, fn in fns.items()}, rounds)
+        if "parent" in med:
+            med["change"] = med["new"] / med["parent"] - 1.0
+        out[key] = med
+        log(f"[6] {card}; kernel {key[0]} {key[1]} {key[2]} ({unit}, CUDA graphs, median of "
+            f"{rounds} in turns): " + ", ".join(f"{v} {t!r}" for v, t in med.items())
+            + f" (runs {runs})")
+
+    def same_bits(label, steps, x, n):
+        want = None
+        for v, step in steps.items():
+            y = x
+            for _ in range(n):
+                y = step(y)
+            y = y if isinstance(y, torch.Tensor) else y.gather()
+            torch.cuda.synchronize()
+            if want is None:
+                want = (v, y)
+            elif not torch.equal(y, want[1]):
+                raise AssertionError(f"{label}: {v} differs from {want[0]}'s bits")
+        log(f"[6] {label}: {', '.join(steps)} bit for bit alike over {n} step(s) or call(s)")
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        for R, C in K4_TIMES:
+            x = seeded_state(R, C, dtype, dev, seed=11, noisy=True)
+            args = (ULBM_S2, ULBM_RHO_IN, 1.0)
+            new = channel.make_channel_fused_step(R, C, *args, dtype, "kbc")
+
+            def raw(fn, R=R, C=C, f64=int(dtype == torch.float64)):
+                def step(f):
+                    y = torch.empty_like(f)
+                    err = fn(f.data_ptr(), y.data_ptr(), R, C, *args, f64,
+                             _build.stream_handle(f))
+                    if err:
+                        raise RuntimeError(f"kernel 4 launch failed: cudaError_t {err}")
+                    return y
+                return step
+
+            steps = {"new": new, **{label: raw(fn) for label, fn in designs.items()}}
+            if parent_kbc is not None:
+                steps = {"parent": raw(parent_kbc), **steps}
+            same_bits(f"kernel 4 {R}x{C} {dt}", steps, x, 4)
+            # the big grid's f64 steps swing by 4% between runs: seven rounds there
+            turns((4, f"{R}x{C}", dt), {v: (lambda st=st: graph_ms(st, x))
+                                       for v, st in steps.items()}, "us per step",
+                  3 if R * C < 1 << 20 else 7)
+            del x
+            torch.cuda.empty_cache()
+    for label, (X, Y, Z), walls, n, s, dts in K33_TIMES:
+        for dt in dts:
+            dtype = getattr(torch, dt)
+            mesh = pm.make_mesh([dev] * n)
+            x = pm.shard_state(mesh, d3q19_state(X, Y, Z, dtype, dev, seed=33)
+                               .reshape(19 * X, Y, Z))
+            kw = dict(omega=D3Q19_OMEGA, substeps=s, dtype=dtype, **D3Q19_WALLS[walls])
+            steps = {"new": ksh.make_sharded_d3q19_step(mesh, X, Y, Z, **kw)}
+            if ksh_p is not None:
+                steps = {"parent": ksh_p.make_sharded_d3q19_step(mesh, X, Y, Z, **kw), **steps}
+            same_bits(f"kernel 33 {label} on {n} shards, s={s} {dt}", steps, x, 2)
+
+            def exchange(y):
+                ph.exchange_rows(y.shards, ksh.HALO)
+                return y
+            calls = 100 if X * Y * Z < 1 << 20 else 5
+            fns = {v: (lambda st=st: graph_ms(st, x, calls)) for v, st in steps.items()}
+            fns["exchange alone"] = lambda: graph_ms(exchange, x, calls)
+            turns((33, f"{label}, {n} shards, {s} sweeps a call", dt), fns, "us per call")
+            del x, steps
+            torch.cuda.empty_cache()
+    return out
+
+
 # What each probe build of csrc/rk_cg.cu (this tree's and a --parent tree's
 # tile) leaves out: edits of a copy of the source, (text, its replacement).
 # Stage 1 alone (r_rho / rho on the window; on the staged tile with stage
@@ -3740,6 +3948,10 @@ def main(argv=None) -> int:
                          "and, with --parent, the parent's) and as this tree's other designs "
                          "(RK_DESIGNS), time each under CUDA graphs (rk_breakdown), print the "
                          "table as a JSON line, and stop")
+    ap.add_argument("--k4-k33", action="store_true",
+                    help="build, then only time kernels 4 and 33 against their other designs "
+                         "(and, with --parent, the parent's), holding each to the same bits "
+                         "(k4_k33_times), print the table as a JSON line, and stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -3836,6 +4048,11 @@ def main(argv=None) -> int:
         table = rk_breakdown(dev, card, parent)
         print(json.dumps({"rk_breakdown": [[*key, us] for key, us in table.items()],
                           "card": card}), flush=True)
+        return 0
+    if args.k4_k33:
+        table = k4_k33_times(dev, card, parent, designs=True)
+        print(json.dumps({"k4_k33": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
         return 0
 
     # 2. build
@@ -5359,6 +5576,9 @@ def main(argv=None) -> int:
     # kernels 12 and 36 at their launch shapes and at 4096x2048 (kernel 12 at
     # each tile height), against the parent tree's where --parent names one
     rk_k36_tm = rk_k36_times(dev, card, parent)
+    # kernels 4 and 33 at their launch shapes and at the big grids, with the
+    # exchange alone at 33's, against the parent tree's where --parent names one
+    k4_k33_tm = k4_k33_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -5544,6 +5764,9 @@ def main(argv=None) -> int:
     kernels.append(lanes_entry(launches, err39, lanes_tm))
     next(e for e in kernels if e["name"] == "halo2d_thermal")["us"] = {
         f"{shape} {dt}": v for (k, shape, dt), v in rk_k36_tm.items() if k == 36}
+    for k, name in ((4, "channel_kbc"), (33, "halo_d3q19")):
+        next(e for e in kernels if e["name"] == name)["us"] = {
+            f"{shape} {dt}": v for (kk, shape, dt), v in k4_k33_tm.items() if kk == k}
     for row in shape_rows:
         for entry in kernels:
             if entry["name"] == row["name"]:

@@ -36,6 +36,43 @@ inline cudaError_t smem_opt_in(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
   return e;
 }
 
+// The number of SMs of the current device, read once per device (a process
+// may launch on several cards, not all alike).
+inline cudaError_t sm_count(int& sms) {
+  static int cached[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  sms = cached[dev];
+  return cudaSuccess;
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may be scheduled while
+// the kernel before it in the stream still runs.  `grid_wait` (what
+// cudaGridDependencySynchronize compiles to) holds the calling thread until
+// that grid has finished and its stores are visible, so a kernel calls it
+// before its first load or store of device memory; `grid_release`
+// (cudaTriggerProgrammaticLaunchCompletion) lets the next such launch be
+// scheduled once every thread of the block has called it or exited.  Both
+// are no-ops in a launch without the attribute and off the card.
+__device__ __forceinline__ void grid_wait() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void grid_release() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+}
+
 __host__ __device__ constexpr int cx(int k) {
   return (k == 1 || k == 5 || k == 8) ? 1 : (k == 3 || k == 6 || k == 7) ? -1 : 0;
 }

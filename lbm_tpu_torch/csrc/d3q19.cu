@@ -59,6 +59,15 @@
 // the grid's global rows 0 and Y-1 by the same ownership rule (`owned`).
 // The collision is kernel 25's device function (collide19), built with the
 // same flags, so an n-shard run equals kernel 25 bit for bit.
+//
+// One launch runs one sweep of up to MAX_SHARDS shards of a card, their
+// geometries a __grid_constant__ parameter and blockIdx.y the shard, each
+// with its own sweep bands (kernels/sharded.py launch_sweeps_shards): the
+// sweeps of a small shard (the cavity3d gate's 8 rows over 8 shards: ~12k
+// cells a sweep) are launch-bound, 16 launches a call of 2 sweeps before,
+// 2 now.  A first sweep reads the ring neighbours' edge rows in place where
+// they lie on the shard's device (their own buffer, plane stride R_loc Z;
+// parallel/halo.py ring_rows): no exchange copy on one card.
 
 #include <cuda_runtime.h>
 
@@ -214,21 +223,33 @@ __global__ void d3q19_kernel(const T* __restrict__ fin, T* __restrict__ fout, in
       fout[q * n + cell] = wall_value(q, coll, y, z, Y, Z, P, flags);
 }
 
-// Kernel 33: one sweep on a shard of the y axis.  Thread i takes the cell
-// (x, padded row in_lo + r, z) of the band [in_lo, in_lo + rows); global
-// row y = p + g0 (g0 = off - halo).  Plane (k, x) of a buffer is k X + x.
+// Kernel 33's shards of one launch: up to MAX_SHARDS shards of one device,
+// one a grid row (blockIdx.y); ~1.3 KB of kernel parameters.
+constexpr int MAX_SHARDS = 8;
+
 template <typename T>
-__global__ void d3q19_halo(const lbm::halo::View<T> in, const lbm::halo::Out<T> out,
-                           int64_t in_lo, int64_t rows, int64_t g0, int64_t X, int64_t Y,
-                           Params<T> P, int flags) {
-  const int64_t Z = in.C;
+struct Shards {
+  lbm::halo::Launch<T> s[MAX_SHARDS];
+};
+
+// Kernel 33: one sweep on each of up to MAX_SHARDS shards of the y axis.
+// Thread i of grid row b takes the cell (x, padded row in_lo + r, z) of
+// shard b's band [in_lo, in_hi); global row y = p + g0 (g0 = off - halo).
+// Plane (k, x) of a buffer is k X + x.
+template <typename T>
+__global__ void d3q19_halo(const __grid_constant__ Shards<T> shards, int64_t X, Params<T> P,
+                           int flags) {
+  const lbm::halo::Launch<T>& L = shards.s[blockIdx.y];
+  const lbm::halo::View<T>& in = L.in;
+  const lbm::halo::Out<T>& out = L.out;
+  const int64_t Z = in.C, Y = L.R, rows = L.in_hi - L.in_lo;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= X * rows * Z) return;
   const int64_t z = i % Z;
   const int64_t t = i / Z;
-  const int64_t p = in_lo + t % rows;
+  const int64_t p = L.in_lo + t % rows;
   const int64_t x = t / rows;
-  const int64_t y = g0 + p;
+  const int64_t y = L.global(p);
   int64_t plane;
   const T* src = in.locate(p, z, plane);
   T f[Q], coll[Q];
@@ -274,18 +295,24 @@ int launch(const void* fin, void* fout, long long X, long long Y, long long Z, c
 }
 
 template <typename T>
-int launch_halo(const long long* geom, const double* d, long long X, int flags,
+int launch_halo(const long long* geoms, int n, const double* d, long long X, int flags,
                 cudaStream_t stream) {
-  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
-  if (X < 1 || L.in.C < 1 || L.R < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rows = L.in_hi - L.in_lo;
-  const int64_t n = X * rows * L.in.C;
-  if (n <= 0) return 0;
+  if (n < 1 || n > MAX_SHARDS || X < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Shards<T> shards;
+  int64_t most = 0;
+  for (int b = 0; b < n; ++b) {
+    const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geoms + b * lbm::halo::NGEOM);
+    if (L.in.C < 1 || L.R < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t cells = X * (L.in_hi - L.in_lo) * L.in.C;
+    most = cells > most ? cells : most;
+    shards.s[b] = L;
+  }
+  if (most <= 0) return 0;
   const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
+  const int64_t blocks = (most + threads - 1) / threads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  d3q19_halo<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      L.in, L.out, L.in_lo, rows, L.global(0), X, L.R, params_of<T>(d), flags);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+  d3q19_halo<T><<<grid, threads, 0, stream>>>(shards, X, params_of<T>(d), flags);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,12 +344,14 @@ extern "C" int lbm_d3q19_lanes(const void* fin, void* fout, long long X, long lo
   return dispatch<true>(fin, fout, X, Y, Z, consts, flags, is_f64, stream);
 }
 
-// Kernel 33: one sweep of the step on a shard of the y axis of the planes
-// state, geometry `geom` (csrc/halo.cuh: 19 X planes, rows y, columns z,
-// the grid's Y rows); `consts` and `flags` as lbm_d3q19's.
-extern "C" int lbm_halo_d3q19(const long long* geom, const double* consts, int X, int flags,
-                              int is_f64, void* stream) {
+// Kernel 33: one sweep of the step on each of `n_shards` (1 to MAX_SHARDS)
+// shards of the y axis of the planes state on one device, `geoms` their
+// n_shards geometry arrays back to back (csrc/halo.cuh: 19 X planes, rows
+// y, columns z, the grid's Y rows); `consts` and `flags` as lbm_d3q19's.
+// Returns the cudaError_t of the launch (0 = accepted).
+extern "C" int lbm_halo_d3q19(const long long* geoms, const double* consts, int n_shards, int X,
+                              int flags, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_halo<double>(geom, consts, X, flags, s)
-                : launch_halo<float>(geom, consts, X, flags, s);
+  return is_f64 ? launch_halo<double>(geoms, n_shards, consts, X, flags, s)
+                : launch_halo<float>(geoms, n_shards, consts, X, flags, s);
 }

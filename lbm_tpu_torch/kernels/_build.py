@@ -159,6 +159,21 @@ class CudaKernel:
         self.launches += 1
 
 
+#: the most shards one launch of a batched halo kernel takes (kernels 33 and
+#: 36; csrc/d3q19.cu and csrc/thermal.cu MAX_SHARDS)
+MAX_SHARDS = 8
+
+
+def shard_batches(keys) -> list[list[int]]:
+    """The launches of one sweep of a batched halo kernel (33, 36) over
+    shards whose (device, dtype) are ``keys``: the shards' indices grouped by
+    key, in order, at most ``MAX_SHARDS`` a launch."""
+    groups: dict = {}
+    for i, key in enumerate(keys):
+        groups.setdefault(key, []).append(i)
+    return [m[c:c + MAX_SHARDS] for m in groups.values() for c in range(0, len(m), MAX_SHARDS)]
+
+
 def check_state(f: torch.Tensor, planes: int = 9) -> tuple[int, int]:
     """What the kernels take: a contiguous (planes, R, C) float32 or float64
     CUDA tensor.  Returns (R, C); raises on anything else."""

@@ -30,7 +30,11 @@ Local steps, one per family, ``local(f_loc, top, bot, off, edge)``:
     later sweeps a padded scratch slab, and the last one writes the shard's
     rows only.  Sweep j of s computes the band of rows that the remaining
     s - j sweeps still need, ``rows_per_sweep * (s - j)`` beyond the shard on
-    each side, clipped to the grid for the wall families.
+    each side, clipped to the grid for the wall families.  Kernel 33 runs
+    one launch a sweep over up to ``MAX_SHARDS`` shards of a card instead
+    (``launch_sweeps_shards``), and its first sweep reads a neighbour's
+    edge rows in place where the neighbour shares the card
+    (parallel/halo.py ``ring_rows``): no exchange copy on one card.
 
 Kernels (one C entry point per family instance, in the family's source,
 built with that source's flags so the collision is the same device code as
@@ -60,14 +64,14 @@ the single-device kernel's):
   * kernel 33, ``HALO_D3Q19``: the D3Q19 step with the y axis sharded, the
     planes state (19, X, Y, Z) being (19 X, Y, Z) in memory
     (d3q19_pallas.py:173 make_d3q19_body on :345; csrc/d3q19.cu, kernel
-    25's).
+    25's), one launch a sweep over a card's shards.
 
 The rows x cols steps (kernels 34-38) are kernels/sharded2d.py.
 
 Bound: device-memory bytes, those of the family's single-device kernel per
 sweep over the band it computes, plus the halo reads of each exchange
 (chip_smoke.py counts them); the exchange itself is 2 n copies of
-``planes * halo * C`` values.
+``planes * halo * C`` values (kernel 33: none between shards of one card).
 
 ``substeps="auto"`` resolves to the deepest cadence the family's strip
 admits (``AUTO_SUBSTEPS``).  lbm_tpu picks it from TPU v5e cadence tables
@@ -86,10 +90,11 @@ import torch
 from ..boundary import bc
 from ..core import lattice as lat
 from ..ops import d2q9
-from ..parallel.halo import exchange_rows
+from ..parallel.halo import exchange_rows, ring_rows
 from ..parallel.mesh import Mesh, ShardedState
 from ..utils.xmath import resolve_fused
 from . import _build, d3q19, mrtcg, rk, shan_chen, thermal
+from ._build import shard_batches
 
 HALO = 8
 COLLIDE_KINDS = ("bgk", "kbc", "les", "trt", "power_law")
@@ -118,7 +123,8 @@ HALO_MRTCG = _build.CudaKernel("lbm_halo_mrtcg_reduced", _ARGS)             # ke
 HALO_RK = _build.CudaKernel("lbm_halo_rk", _ARGS)                           # kernel 30
 HALO_MRTCG_FULL = _build.CudaKernel("lbm_halo_mrtcg_full", _ARGS)           # kernel 31
 HALO_SHAN_CHEN = _build.CudaKernel("lbm_halo_shan_chen", _ARGS)             # kernel 32
-HALO_D3Q19 = _build.CudaKernel("lbm_halo_d3q19", _ARGS)                     # kernel 33
+HALO_D3Q19 = _build.CudaKernel(                                              # kernel 33
+    "lbm_halo_d3q19", [*_ARGS[:2], ctypes.c_int, *_ARGS[2:]])
 
 
 def halo_for(substeps: int, rows_per_sweep: int) -> int:
@@ -207,13 +213,17 @@ def d3q19_body(X: int, **kw):
 # --- the kernels -------------------------------------------------------------------
 
 def _check_halo_inputs(f, top, bot, planes: int, halo: int):
+    """The shard's (R_loc, C); raises unless ``top`` and ``bot`` are
+    ``(planes, halo, C)`` tensors of ``f``'s type and device with rows of C
+    contiguous values: copies, or views of a neighbour's rows (``ring_rows``;
+    any plane stride)."""
     R_loc, C = _build.check_state(f, planes)
     for name, h in (("top", top), ("bot", bot)):
         if tuple(h.shape) != (planes, halo, C) or h.dtype != f.dtype or \
-                h.device != f.device or not h.is_contiguous():
-            raise ValueError(f"halo {name} must be a contiguous ({planes}, {halo}, {C}) "
-                             f"{f.dtype} tensor on {f.device}, got {tuple(h.shape)} "
-                             f"{h.dtype} on {h.device}")
+                h.device != f.device or h.stride()[1:] != (C, 1):
+            raise ValueError(f"halo {name} must be a ({planes}, {halo}, {C}) {f.dtype} tensor "
+                             f"on {f.device} with rows of {C} contiguous values, got "
+                             f"{tuple(h.shape)} {h.dtype} on {h.device}, strides {h.stride()}")
     return R_loc, C
 
 
@@ -234,15 +244,19 @@ def sweep_bands(R_loc: int, halo: int, off: int, R: int, substeps: int,
     return bands
 
 
-def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, R: int, *,
-                  substeps: int, rows_per_sweep: int, walls: bool, params, i0: int = 0,
-                  i1: int = 0) -> torch.Tensor:
-    """``substeps`` launches of a halo-input kernel on the shard ``f`` with
-    its halos ``top`` and ``bot`` (``(planes, halo, C)`` each); returns the
-    shard's new rows in a fresh buffer (``f`` is never written).  Padded row
-    p of the shard is global row ``off - halo + p``; ``walls`` clips every
-    band to the grid's rows [0, R).  Raises on a tensor the kernel does not
-    take and on a refused launch."""
+def _sweep_geoms(f, top, bot, off: int, edge: bool, R: int, *, substeps: int,
+                 rows_per_sweep: int, walls: bool):
+    """(out, geoms, slabs) of ``substeps`` sweeps of a halo-input kernel on
+    the shard ``f`` with its halos ``top`` and ``bot``: ``out`` a fresh
+    buffer for the shard's new rows (``f`` is never written), in order each
+    sweep's geometry (``GEOM``'s values) and the scratch slabs they name,
+    which the caller holds until the launches are issued.  The first sweep
+    reads the three buffers in place (each halo at its own plane stride: a
+    copy's ``halo * C``, a neighbour's view ``R_loc * C``), later ones a
+    padded slab (two, alternating), the last writes ``out``.  Padded row p
+    of the shard is global row ``off - halo + p``; ``walls`` clips every
+    band to the grid's rows [0, R).  Raises on a tensor the kernels do not
+    take."""
     planes, halo = f.shape[0], top.shape[1]
     R_loc, C = _check_halo_inputs(f, top, bot, planes, halo)
     _check_sweeps(substeps, halo // rows_per_sweep)
@@ -251,22 +265,72 @@ def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, 
     out = torch.empty_like(f)
     slabs = [torch.empty((planes, pad, C), dtype=f.dtype, device=f.device)
              for _ in range(min(substeps - 1, 2))]
-    src = (top.data_ptr(), f.data_ptr(), bot.data_ptr(), halo * C, R_loc * C, halo * C)
-    bands = sweep_bands(R_loc, halo, off, R, substeps, rows_per_sweep, walls)
+    src = (top.data_ptr(), f.data_ptr(), bot.data_ptr(), top.stride(0), R_loc * C,
+           bot.stride(0))
+    geoms = []
+    for j, (i_lo, i_hi, o_lo, o_hi) in enumerate(
+            sweep_bands(R_loc, halo, off, R, substeps, rows_per_sweep, walls), start=1):
+        if j == substeps:
+            dst, first, dplane = out, halo, R_loc * C
+        else:
+            dst, first, dplane = slabs[(j - 1) % 2], 0, pad * C
+        geoms.append((*src[:3], dst.data_ptr(), *src[3:], dplane, halo, R_loc, C, i_lo, i_hi,
+                      o_lo, o_hi, first, off, R, int(edge)))
+        base = dst.data_ptr()
+        src = (base, base + halo * C * item, base + (halo + R_loc) * C * item,
+               pad * C, pad * C, pad * C)
+    return out, geoms, slabs
+
+
+def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, R: int, *,
+                  substeps: int, rows_per_sweep: int, walls: bool, params, i0: int = 0,
+                  i1: int = 0) -> torch.Tensor:
+    """``substeps`` launches of a halo-input kernel (27-32) on the shard
+    ``f`` with its halos ``top`` and ``bot`` (``(planes, halo, C)`` each;
+    ``_sweep_geoms``); returns the shard's new rows in a fresh buffer (``f``
+    is never written).  Raises on a tensor the kernel does not take and on
+    a refused launch."""
+    out, geoms, _slabs = _sweep_geoms(f, top, bot, off, edge, R, substeps=substeps,
+                                      rows_per_sweep=rows_per_sweep, walls=walls)
     with torch.cuda.device(f.device):
         stream = _build.stream_handle(f)
-        for j, (i_lo, i_hi, o_lo, o_hi) in enumerate(bands, start=1):
-            if j == substeps:
-                dst, first, dplane = out, halo, R_loc * C
-            else:
-                dst, first, dplane = slabs[(j - 1) % 2], 0, pad * C
-            geom = (ctypes.c_longlong * len(GEOM))(
-                *src[:3], dst.data_ptr(), *src[3:], dplane, halo, R_loc, C, i_lo, i_hi,
-                o_lo, o_hi, first, off, R, int(edge))
-            kernel.launch(geom, params, i0, i1, int(f.dtype == torch.float64), stream)
-            base = dst.data_ptr()
-            src = (base, base + halo * C * item, base + (halo + R_loc) * C * item,
-                   pad * C, pad * C, pad * C)
+        for g in geoms:
+            kernel.launch((ctypes.c_longlong * len(GEOM))(*g), params, i0, i1,
+                          int(f.dtype == torch.float64), stream)
+    return out
+
+
+def launch_sweeps_shards(kernel: _build.CudaKernel, shards, *, substeps: int,
+                         rows_per_sweep: int, walls: bool, R: int, params, ints=(),
+                         plain) -> list:
+    """``substeps`` sweeps of a batched halo-input kernel (33) on ``shards``,
+    a list of (f, top, bot, off, edge): a CPU shard's through ``plain``
+    (which takes the same), the others' one launch a sweep over up to
+    ``MAX_SHARDS`` shards of one device and type (blockIdx.y the shard,
+    ``shard_batches``), ``kernel.launch(geoms, params, n_shards, *ints,
+    is_f64, stream)``, which launches or raises.  Returns each shard's new
+    rows in a fresh buffer.  A shard's sweeps are ``launch_sweeps``' bands,
+    so the values are the same bits."""
+    out = [None] * len(shards)
+    plans, batches = {}, []
+    for batch in shard_batches([(f.device, f.dtype) for f, *_ in shards]):
+        if not resolve_fused(shards[batch[0]][0]):
+            for i in batch:
+                out[i] = plain(*shards[i])
+            continue
+        batches.append(batch)
+        for i in batch:
+            plans[i] = _sweep_geoms(*shards[i], R, substeps=substeps,
+                                    rows_per_sweep=rows_per_sweep, walls=walls)
+            out[i] = plans[i][0]
+    for j in range(substeps):
+        for batch in batches:
+            f = shards[batch[0]][0]
+            with torch.cuda.device(f.device):
+                geoms = (ctypes.c_longlong * (len(GEOM) * len(batch)))(
+                    *(v for i in batch for v in plans[i][1][j]))
+                kernel.launch(geoms, params, len(batch), *ints, int(f.dtype == torch.float64),
+                              _build.stream_handle(f))
     return out
 
 
@@ -290,14 +354,20 @@ def make_local_halo_body_step(R: int, body, launch, substeps: int):
 
 
 def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
-                           dtype: torch.dtype, halo: int = HALO):
+                           dtype: torch.dtype, halo: int = HALO, batched=None):
     """Row-shard a local halo-input step over mesh axis 'x' (lbm_tpu
     sharded_pallas.py:345): ShardedState of ``(planes, R / n, C)`` shards ->
     the same, one exchange of ``halo`` rows per call.  ``local(f_loc, top,
     bot, off, edge)`` gets the shard's global row offset ``off`` and
     ``edge`` on ranks 0 and n-1 (the masked instance; interior ranks run the
-    mask-free one).  ``step.plain`` runs ``local.plain`` instead, where the
-    local step has one: the plain version on any device."""
+    mask-free one).  ``batched``, where given, takes every shard's (f_loc,
+    top, bot, off, edge) at once instead and returns their new rows (kernel
+    33's ``launch_sweeps_shards``), with ``top`` and ``bot`` from
+    ``ring_rows``: a neighbour's rows in place where it shares the shard's
+    device, copied only across devices; ``local`` is then the plain
+    per-shard step.  ``step.plain`` runs the plain version on any device
+    after ``exchange_rows``: ``local`` beside ``batched``, else
+    ``local.plain``, where the local step has one."""
     nx = mesh.shape["x"]
     if mesh.shape["y"] != 1:
         raise ValueError(f"the row-sharded steps take an (n, 1) mesh, got {mesh.shape}: "
@@ -312,7 +382,7 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
         raise ValueError(f"local shard rows {R_loc} shallower than the {halo}-row "
                          "exchange strip")
 
-    def build(run):
+    def build(run, halos):
         def step(state: ShardedState) -> ShardedState:
             if state.mesh != mesh:
                 raise ValueError("the state is sharded over another mesh than the step's")
@@ -320,16 +390,23 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
                 if tuple(f.shape) != (planes, R_loc, C) or f.dtype != dtype:
                     raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
                                      f"({planes}, {R_loc}, {C}) {dtype}")
-            halos = exchange_rows(state.shards, halo)
-            return ShardedState(mesh, [run(f, top, bot, i * R_loc, i in (0, nx - 1))
-                                       for i, (f, (top, bot)) in enumerate(zip(state.shards,
-                                                                               halos))])
+            return ShardedState(mesh, run([
+                (f, top, bot, i * R_loc, i in (0, nx - 1))
+                for i, (f, (top, bot)) in enumerate(zip(state.shards,
+                                                        halos(state.shards, halo)))]))
 
         return step
 
-    step = build(local)
+    def each(fn):
+        return lambda shards: [fn(*shard) for shard in shards]
+
+    if batched is not None:
+        step = build(batched, ring_rows)
+        step.plain = build(each(local), exchange_rows)
+        return step
+    step = build(each(local), exchange_rows)
     if getattr(local, "plain", None) is not None:
-        step.plain = build(local.plain)
+        step.plain = build(each(local.plain), exchange_rows)
     return step
 
 
@@ -530,14 +607,23 @@ def make_sharded_d3q19_step(mesh: Mesh, X: int, Y: int, Z: int, *, omega: float,
     plane k X + x) -> the same, ``substeps`` steps per exchange of HALO
     rows; the y faces and the lid at the grid's global rows 0 and Y-1, the
     x and z walls local (lbm_tpu's make_sharded_body_step on
-    make_d3q19_body, d3q19_pallas.py:173).  Kernel 33 on CUDA shards."""
+    make_d3q19_body, d3q19_pallas.py:173).  Kernel 33 on CUDA shards: one
+    launch a sweep over up to MAX_SHARDS shards of a card
+    (``launch_sweeps_shards``), the first reading the neighbours' edge rows
+    in place where they share the card (``ring_rows``); CPU shards run the
+    plain version; ``step.plain`` the plain version after ``exchange_rows``
+    on any device."""
     substeps = _check_sweeps(resolve_substeps(substeps, "d3q19"), HALO)
     d3q19._check_grid(X, Y, Z, x_walls, y_walls, z_walls, lid_u)
     kw = dict(omega=omega, force_z=force_z, x_walls=x_walls, y_walls=y_walls, z_walls=z_walls,
               lid_u=lid_u)
-    launch = functools.partial(
-        launch_sweeps, HALO_D3Q19, R=Y, substeps=substeps, rows_per_sweep=1, walls=y_walls,
-        params=d3q19.d3q19_constants(omega, force_z, lid_u, dtype), i0=X,
-        i1=d3q19._flags(force_z, x_walls, y_walls, z_walls, lid_u))
-    local = make_local_halo_body_step(Y, d3q19_body(X, **kw), launch, substeps)
-    return make_sharded_body_step(mesh, d3q19.Q * X, Y, Z, local, dtype)
+    body = d3q19_body(X, **kw)
+
+    def plain(f, top, bot, off, edge):
+        return plain_sweeps(body, f, top, bot, off, Y, substeps)
+
+    batched = functools.partial(
+        launch_sweeps_shards, HALO_D3Q19, substeps=substeps, rows_per_sweep=1, walls=y_walls,
+        R=Y, params=d3q19.d3q19_constants(omega, force_z, lid_u, dtype),
+        ints=(X, d3q19._flags(force_z, x_walls, y_walls, z_walls, lid_u)), plain=plain)
+    return make_sharded_body_step(mesh, d3q19.Q * X, Y, Z, plain, dtype, batched=batched)

@@ -93,6 +93,7 @@ from ..parallel.mesh import Mesh, ShardedState
 from ..parallel.sharded import sweep_block
 from ..utils.xmath import resolve_fused
 from . import _build, mrtcg, rk, shan_chen, thermal
+from ._build import MAX_SHARDS, shard_batches
 from .sharded import (_ARGS, COLLIDE_KINDS, HALO, ROWS_PER_SWEEP, _check_sweeps, _per_colour,
                       collide_launch, resolve_substeps, sweep_bands, thermal_body)
 
@@ -109,8 +110,6 @@ HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", _ARGS)       # kern
 HALO2D_THERMAL = _build.CudaKernel("lbm_halo2d_thermal", _ARGS)           # kernel 36
 HALO2D_RK = _build.CudaKernel("lbm_halo2d_rk", _ARGS)                     # kernel 37
 HALO2D_MRTCG_FULL = _build.CudaKernel("lbm_halo2d_mrtcg_full", _ARGS)     # kernel 38
-#: the most shards one launch of kernel 36 takes (csrc/thermal.cu MAX_SHARDS)
-MAX_SHARDS = 8
 
 #: sweeps per exchange of the body steps: lbm_tpu's 2-D caps, min(8 // rps,
 #: 32 // rps) (sharded2d_pallas.py:484-486, :569, :598; its RK wrapper runs
@@ -217,16 +216,6 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
             kernel.launch((ctypes.c_longlong * len(GEOM))(*g), params, i0, i1,
                           int(f.dtype == torch.float64), stream)
     return out
-
-
-def shard_batches(keys) -> list[list[int]]:
-    """The launches of one sweep of kernel 36 over shards whose (device,
-    dtype) are ``keys``: the shards' indices grouped by key, in order, at
-    most ``MAX_SHARDS`` a launch."""
-    groups: dict = {}
-    for i, key in enumerate(keys):
-        groups.setdefault(key, []).append(i)
-    return [m[c:c + MAX_SHARDS] for m in groups.values() for c in range(0, len(m), MAX_SHARDS)]
 
 
 def launch_sweeps_2d_shards(kernel: _build.CudaKernel, shards, *, substeps: int, params,

@@ -15,7 +15,9 @@ algebraically the reference's inter-domain binding
 first, then the columns of the row-padded blocks, so a diagonal cell comes
 from the diagonal neighbour.  ``exchange_rows`` and ``exchange_2d`` send
 the strips of the kernel steps (kernels/sharded.py, kernels/sharded2d.py):
-edge strips only, never a copy of a whole shard.
+edge strips only, never a copy of a whole shard.  ``ring_rows`` hands a
+kernel the rows of a neighbour on its own device in place, as views, and
+copies only across devices (kernel 33).
 """
 
 from __future__ import annotations
@@ -71,6 +73,24 @@ def exchange_rows(shards, width: int):
     n = len(shards)
     return [(copy_to(shards[(i - 1) % n][..., -width:, :], f.device),
              copy_to(shards[(i + 1) % n][..., :width, :], f.device))
+            for i, f in enumerate(shards)]
+
+
+def ring_rows(shards, width: int):
+    """``exchange_rows``' strips without the copies a card does not need: for
+    each shard i, ``(top, bot)``, each a view of the neighbour's own rows
+    (``shards[i-1][..., -width:, :]`` and ``shards[i+1][..., :width, :]``,
+    plane stride that shard's ``R_loc * C``) where the neighbour lies on
+    shard i's device, else ``copy_to`` its rows there.  The views hold the
+    values of ``exchange_rows``' copies as long as nothing writes the shards
+    (the sharded steps never write their input)."""
+    n = len(shards)
+
+    def rows(j: int, part: slice, device):
+        src = shards[j % n][..., part, :]
+        return src if src.device == device else copy_to(src, device)
+
+    return [(rows(i - 1, slice(-width, None), f.device), rows(i + 1, slice(0, width), f.device))
             for i, f in enumerate(shards)]
 
 

@@ -1,12 +1,14 @@
-"""Kernels 12 and 36 (csrc/rk_cg.cu, csrc/thermal.cu) compiled for the CPU
-with g++ through a stand-in for the CUDA runtime: a block's threads run as
-std::threads that meet at a std::barrier, blocks one after another, shared
-memory NaN-filled.  Every operation of both sources rounds once in IEEE
-arithmetic (they build with -fmad=false on the card, -ffp-contract=off
-here), and each kernel is held to its plain version at the card tests'
-tolerance: torch's CPU kernels round a few operations differently (its
-square root by an ulp).  A wrong geometry, tap or batch gives errors of
-order one or NaN.  No JAX, no card; skipped without a C++ compiler."""
+"""Kernels 12, 36, 33 and 4 (csrc/rk_cg.cu, thermal.cu, d3q19.cu,
+channel_kbc.cu) compiled for the CPU with g++ through a stand-in for the
+CUDA runtime: a block's threads run as std::threads that meet at a
+std::barrier, blocks one after another, shared memory NaN-filled,
+cudaLaunchKernelEx a launch that counts the programmatic dependent ones.
+Every operation of these sources rounds once in IEEE arithmetic (-fmad=false
+on the card for all but channel_kbc.cu, -ffp-contract=off here), and each
+kernel is held to its plain version at the card tests' tolerance: torch's
+CPU kernels round a few operations differently (its square root by an ulp).
+A wrong geometry, tap or batch gives errors of order one or NaN.  No JAX,
+no card; skipped without a C++ compiler."""
 
 import contextlib
 import ctypes
@@ -20,10 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.kernels import _build, rk, thermal
+from lbm_tpu_torch.kernels import _build, channel, d3q19, rk, thermal
+from lbm_tpu_torch.kernels import sharded as ksh
 from lbm_tpu_torch.kernels import sharded2d as k2d
+from lbm_tpu_torch.ops import d2q9
+from lbm_tpu_torch.ops import d3q19 as od3
 from lbm_tpu_torch.parallel import mesh as pm
-from lbm_tpu_torch.parallel.halo import exchange_2d
+from lbm_tpu_torch.parallel.halo import exchange_2d, exchange_rows, ring_rows
 
 CSRC = Path(__file__).resolve().parents[1] / "lbm_tpu_torch" / "csrc"
 TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
@@ -78,6 +83,26 @@ void launch(dim3 grid, unsigned threads, size_t bytes, void*, F f) {
       }
 }
 }  // namespace shim
+enum cudaLaunchAttributeID { cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
+union cudaLaunchAttributeValue { int programmaticStreamSerializationAllowed; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
+};
+inline int shim_pdl_launches = 0;  // launches that asked for a programmatic dependent launch
+template <typename... P, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...), A&&... a) {
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeProgrammaticStreamSerialization &&
+        c->attrs[i].val.programmaticStreamSerializationAllowed)
+      ++shim_pdl_launches;
+  shim::launch(c->gridDim, c->blockDim.x, c->dynamicSmemBytes, c->stream, [&] { k(a...); });
+  return cudaSuccess;
+}
 #define threadIdx shim::tIdx
 #define blockIdx shim::bIdx
 #define blockDim shim::bDim
@@ -124,9 +149,12 @@ def _cpu_library(d: Path, units=("rk_cg", "thermal"), sources=None):
         text = launch.sub(lambda m: f"shim::launch({m.group(2)}, [&]() {{ "
                                     f"{m.group(1)}({m.group(3)}); }});", text)
         (d / (f.name if f.suffix == ".cuh" else f.stem + ".cpp")).write_text(text)
+    (d / "shim.cpp").write_text('#include "cuda_runtime.h"\n'
+                                'extern "C" int shim_pdl_count() { return shim_pdl_launches; }\n')
     lib = d / "kernels.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-pthread", f"-I{d}", "-o", str(lib), *(str(d / f"{u}.cpp") for u in units)],
+                    "-pthread", f"-I{d}", "-o", str(lib), str(d / "shim.cpp"),
+                    *(str(d / f"{u}.cpp") for u in units)],
                    check=True, capture_output=True, timeout=600)
     return ctypes.CDLL(str(lib))
 
@@ -292,3 +320,188 @@ def test_kernel_36_batches_group_shards_by_device():
     keys = [("cuda:0", 0), ("cuda:1", 0), ("cuda:0", 0), ("cuda:1", 1)]
     assert k2d.shard_batches(keys) == [[0, 2], [1], [3]]
     assert k2d.shard_batches([]) == []
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels_33_4(tmp_path_factory):
+    """csrc/d3q19.cu and csrc/channel_kbc.cu as one CPU library."""
+    return _cpu_library(tmp_path_factory.mktemp("csrc_cpu_33_4"), ("d3q19", "channel_kbc"))
+
+
+def _bind(monkeypatch, lib, *kernels):
+    """Point ``kernels`` at ``lib`` and let a CPU tensor through their
+    wrappers' device, stream and state checks."""
+    for kernel in kernels:
+        fn = getattr(lib, kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        monkeypatch.setattr(kernel, "_fn", fn)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream_handle", lambda f: None)
+    monkeypatch.setattr(_build, "check_state", lambda f, planes=9: tuple(f.shape[1:]))
+
+
+def _nan_buffers(monkeypatch):
+    """Every later torch.empty / empty_like of a float type NaN-filled, so an
+    entry that no launch writes shows."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def nan(t):
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: nan(empty(*a, **k)))
+    monkeypatch.setattr(torch, "empty_like", lambda *a, **k: nan(empty_like(*a, **k)))
+
+
+def _d3_state(X, Y, Z, dtype, seed):
+    """A seeded off-equilibrium D3Q19 state (19, X, Y, Z)."""
+    g = np.random.default_rng(seed)
+    u = torch.as_tensor(g.uniform(-0.05, 0.05, (3, X, Y, Z)))
+    rho = torch.as_tensor(1.0 + g.uniform(-0.01, 0.01, (X, Y, Z)))
+    noise = torch.as_tensor(g.uniform(0.97, 1.03, (19, X, Y, Z)))
+    return (od3.equilibrium(u, rho) * noise).to(dtype).contiguous()
+
+
+D3_WALLS = {"periodic": {}, "cavity": dict(x_walls=True, y_walls=True, z_walls=True, lid_u=0.05)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("halos", ["in place", "exchanged"])
+@pytest.mark.parametrize("walls,n,Y,s", [("cavity", 8, 64, 2), ("periodic", 8, 64, 8),
+                                         ("cavity", 3, 27, 3), ("periodic", 3, 24, 1),
+                                         ("cavity", 16, 128, 2), ("periodic", 16, 128, 1)])
+def test_kernel_33_source_matches_plain(cpu_kernels_33_4, monkeypatch, dtype, halos, walls, n,
+                                        Y, s):
+    """csrc/d3q19.cu's kernel 33 through the port's sharded D3Q19 step, one
+    launch a sweep over up to MAX_SHARDS shards (16 shards: two a sweep),
+    the first sweep reading the neighbours' rows in place (``ring_rows``,
+    views of their buffers) or from exchanged copies (``exchange_rows``),
+    two calls of s sweeps, outputs and slabs NaN-filled: the plain sharded
+    step within TOL, no NaN."""
+    X, Z = 3, 5
+    mesh = pm.make_mesh(["cpu"] * n)
+    kw = dict(omega=1.0 / 0.7, substeps=s, dtype=dtype, **D3_WALLS[walls])
+    x = pm.shard_state(mesh, _d3_state(X, Y, Z, dtype, Y + s).reshape(19 * X, Y, Z))
+    plain = ksh.make_sharded_d3q19_step(mesh, X, Y, Z, **kw).plain
+    want = plain(plain(x)).gather()
+    _bind(monkeypatch, cpu_kernels_33_4, ksh.HALO_D3Q19)
+    monkeypatch.setattr(ksh, "resolve_fused", lambda f: True)
+    if halos == "exchanged":
+        monkeypatch.setattr(ksh, "ring_rows", exchange_rows)
+    step = ksh.make_sharded_d3q19_step(mesh, X, Y, Z, **kw)
+    _nan_buffers(monkeypatch)
+    before = ksh.HALO_D3Q19.launches
+    got = step(step(x)).gather()
+    assert ksh.HALO_D3Q19.launches - before == 2 * s * -(-n // _build.MAX_SHARDS)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+def test_kernel_33_reads_the_neighbours_rows_in_place(monkeypatch):
+    """``ring_rows`` hands shard i the last HALO rows of shard i-1 and the
+    first of shard i+1 as views of their buffers where they share its device
+    (plane stride R_loc C), copies elsewhere; the first sweep's geometry
+    names those rows: top at (R_loc - HALO) C entries into the neighbour,
+    bot at its start, each at the neighbour's plane stride."""
+    monkeypatch.setattr(_build, "check_state", lambda f, planes=9: tuple(f.shape[1:]))
+    planes, R_loc, C, h = 6, 10, 7, ksh.HALO
+    shards = [torch.rand(planes, R_loc, C, dtype=torch.float64) for _ in range(3)]
+    item = shards[0].element_size()
+    halos = ring_rows(shards, h)
+    for i, (top, bot) in enumerate(halos):
+        up, down = shards[i - 1], shards[(i + 1) % 3]
+        assert top.data_ptr() == up.data_ptr() + (R_loc - h) * C * item
+        assert bot.data_ptr() == down.data_ptr()
+        assert top.stride() == bot.stride() == (R_loc * C, C, 1)
+        assert torch.equal(top, exchange_rows(shards, h)[i][0])
+        geom = dict(zip(ksh.GEOM, ksh._sweep_geoms(shards[i], top, bot, i * R_loc, False,
+                                                   3 * R_loc, substeps=2, rows_per_sweep=1,
+                                                   walls=False)[1][0]))
+        assert (geom["top"], geom["mid"], geom["bot"]) == (top.data_ptr(), shards[i].data_ptr(),
+                                                           down.data_ptr())
+        assert geom["top_plane"] == geom["mid_plane"] == geom["bot_plane"] == R_loc * C
+        assert (geom["in_lo"], geom["in_hi"]) == (h - 2, h + R_loc + 2)
+    copied = exchange_rows(shards, h)[0][0]
+    assert copied.stride(0) == h * C and copied.data_ptr() != halos[0][0].data_ptr()
+    from lbm_tpu_torch.parallel import halo as ph
+
+    copies = []  # (source device, destination device) of each copy ring_rows makes
+    monkeypatch.setattr(ph, "copy_to", lambda src, device: copies.append(
+        (src.device.type, torch.device(device).type)) or torch.zeros(src.shape, device=device))
+    mixed = [shards[0], torch.empty((planes, R_loc, C), dtype=torch.float64, device="meta"),
+             shards[2]]
+    (top, bot), (top1, bot1), (top2, bot2) = ring_rows(mixed, h)
+    assert sorted(copies) == [("cpu", "meta")] * 2 + [("meta", "cpu")] * 2
+    assert top.data_ptr() == shards[2].data_ptr() + (R_loc - h) * C * item
+    assert bot2.data_ptr() == shards[0].data_ptr()
+    assert bot.stride(0) == top2.stride(0) == h * C and top1.device.type == "meta"
+
+
+def test_batched_halo_kernels_share_one_grouping():
+    """Kernels 33 and 36 group a sweep's shards with the one
+    ``_build.shard_batches``: by device and type, in the mesh's order, at
+    most MAX_SHARDS a launch (cavity3d's 8 shards of a card: one; 16: two;
+    a mesh of one shard a card: one a card)."""
+    assert ksh.shard_batches is k2d.shard_batches is _build.shard_batches
+    assert k2d.MAX_SHARDS == _build.MAX_SHARDS == 8
+    n = _build.MAX_SHARDS
+    assert _build.shard_batches([("cuda:0", 0)] * 8) == [list(range(8))]
+    assert _build.shard_batches([("cuda:0", 0)] * 16) == [list(range(n)), list(range(n, 2 * n))]
+    assert _build.shard_batches([(f"cuda:{i}", 0) for i in range(4)]) == [[0], [1], [2], [3]]
+
+
+def _kbc_state(R, C, dtype, seed):
+    """An equilibrium at a seeded flow, each population times 1 + U(-3%, 3%):
+    off equilibrium, where the KBC gamma is well defined."""
+    g = np.random.default_rng(seed)
+    u = torch.as_tensor(g.uniform(-0.05, 0.05, (2, R, C)))
+    rho = torch.as_tensor(1.0 + g.uniform(-0.01, 0.01, (R, C)))
+    f = d2q9.equilibrium(u, rho) * torch.as_tensor(g.uniform(0.97, 1.03, (9, R, C)))
+    return f.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C,one_wave", [(16, 24, True), (37, 29, False), (4, 2, True)])
+def test_kernel_4_source_matches_plain(cpu_kernels_33_4, monkeypatch, dtype, R, C, one_wave):
+    """csrc/channel_kbc.cu's kernel 4 through make_channel_fused_step, its
+    blocks sized to the stand-in's 4 SMs of 2 resident blocks each (6
+    blocks of 64 threads at 16x24 and 1 at 4x2: one wave, so programmatic
+    dependent launches; 9 of 128 at 37x29: plain launches), 3 steps into
+    NaN-filled outputs: kbc_channel_step within TOL."""
+    args = (1.7, 1.001, 1.0)
+    plain = channel.kbc_channel_step(*args)
+    f = _kbc_state(R, C, dtype, R * C)
+    want = plain(plain(plain(f)))
+    _bind(monkeypatch, cpu_kernels_33_4, channel.CHANNEL_KBC)
+    monkeypatch.setattr(channel, "resolve_fused", lambda f: True)
+    step = channel.make_channel_fused_step(R, C, *args, dtype, family="kbc")
+    _nan_buffers(monkeypatch)
+    lib = cpu_kernels_33_4
+    before, pdl = channel.CHANNEL_KBC.launches, lib.shim_pdl_count()
+    got = step(step(step(f)))
+    dependent = 3 if one_wave else 0
+    assert channel.CHANNEL_KBC.launches - before == 3
+    assert lib.shim_pdl_count() - pdl == dependent
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("design", ["without PDL", "64 registers"])
+def test_kernel_4_designs_give_the_tree_bits(cpu_kernels_33_4, tmp_path, monkeypatch, design):
+    """chip_smoke.py's other designs of kernel 4 (K4_DESIGNS, edits of
+    csrc/channel_kbc.cu that ``k4_k33_times`` times against it) built for
+    the CPU: the tree's kernel's bits over 3 steps in both types at 16x24
+    (one wave), and no dependent launch without PDL."""
+    src = _chip_smoke().k4_design_sources(CSRC)[design]
+    lib = _cpu_library(tmp_path, ("channel_kbc",), {"channel_kbc.cu": src})
+    args = (1.7, 1.001, 1.0)
+    for dtype in (torch.float64, torch.float32):
+        f = _kbc_state(16, 24, dtype, 384)
+        got = {}
+        for name, where in (("tree", cpu_kernels_33_4), (design, lib)):
+            with monkeypatch.context() as m:
+                _bind(m, where, channel.CHANNEL_KBC)
+                m.setattr(channel, "resolve_fused", lambda f: True)
+                step = channel.make_channel_fused_step(16, 24, *args, dtype, family="kbc")
+                before = where.shim_pdl_count()
+                got[name] = step(step(step(f)))
+                dependent = where.shim_pdl_count() - before
+            assert dependent == (0 if name == "without PDL" else 3)
+        assert torch.equal(got["tree"], got[design])

@@ -1478,7 +1478,9 @@ def _k31_33_case(family, R, C, dtype, device, n, s):
 def test_sharded_kernels_31_to_33_match_single_device(cuda, family, n, s, dtype):
     """Kernels 31-33 on n shards of one card, two calls of s steps: bit for
     bit the single-device kernel of their family (8, 14, 25), within TOL of
-    the plain sharded version, and bit-identical run twice."""
+    the plain sharded version, and bit-identical run twice.  Kernels 31 and
+    32 launch once a shard and sweep, kernel 33 once a sweep over up to
+    MAX_SHARDS shards of the card."""
     from lbm_tpu_torch.parallel import mesh as pm
 
     R, C = (192, 40) if family in ("mrtcg", "csf") else (64, 72)
@@ -1489,7 +1491,8 @@ def test_sharded_kernels_31_to_33_match_single_device(cuda, family, n, s, dtype)
     again = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
-    assert sum(k.launches for k in kernels) - sum(before) == 4 * n * s
+    per_sweep = -(-n // 8) if family.startswith("d3q19") else n
+    assert sum(k.launches for k in kernels) - sum(before) == 4 * per_sweep * s
     want = single(single(x))
     assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
     assert (got - plain).abs().max().item() <= TOL[dtype]
@@ -2127,3 +2130,83 @@ def test_moving_bodies_window_past_65535_columns(cuda):
     assert og.tolist() == ow.tolist() and (Fg - Fw).abs().max().item() <= TOL[torch.float64]
     assert (Fg[0] != 0).sum().item() > 0
     assert _state_err(got, want) <= TOL[torch.float64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walls", ["periodic", "cavity", "channel"])
+@pytest.mark.parametrize("n,s", [(1, 1), (2, 3), (4, 8), (8, 2), (16, 4)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_33_batches_match_kernel_25(cuda, monkeypatch, dtype, n, s, walls):
+    """Kernel 33 on n shards of one card, one launch a sweep over up to
+    MAX_SHARDS shards (16: two a sweep), the first sweep reading the
+    neighbours' rows in place, two calls: bit for bit kernel 25 run as many
+    steps, no exchange copy; the same step reading exchanged copies of the
+    rows (``exchange_rows``) gives the same bits."""
+    from lbm_tpu_torch.kernels import _build, d3q19
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    X, Y, Z = 3, 8 * n if n > 4 else 48, 40
+    kw = dict(omega=1.0 / 0.7, substeps=s, dtype=dtype, **D3Q19_WALLS[walls])
+    mesh = pm.make_mesh([cuda] * n)
+    f = _d3q19_state(X, Y, Z, dtype, cuda, seed=330 + n + s)
+    x = pm.shard_state(mesh, f.reshape(19 * X, Y, Z))
+    step = ksh.make_sharded_d3q19_step(mesh, X, Y, Z, **kw)
+    one = d3q19.make_d3q19_fused_step(X, Y, Z, **kw)
+    copies, copy_to = [], ph.copy_to
+    monkeypatch.setattr(ph, "copy_to", lambda src, d: copies.append(1) or copy_to(src, d))
+    before = ksh.HALO_D3Q19.launches
+    got = step(step(x)).gather()
+    torch.cuda.synchronize()
+    assert ksh.HALO_D3Q19.launches - before == 2 * s * -(-n // _build.MAX_SHARDS)
+    assert not copies
+    assert torch.equal(got.reshape(f.shape), one(one(f)))
+    monkeypatch.setattr(ksh, "ring_rows", ph.exchange_rows)
+    exchanged = ksh.make_sharded_d3q19_step(mesh, X, Y, Z, **kw)
+    assert torch.equal(exchanged(exchanged(x)).gather(), got) and len(copies) == 4 * n
+
+
+@pytest.mark.cuda
+def test_kernel_33_rejects_a_batch_it_cannot_take(cuda):
+    """The batched launch refuses more than MAX_SHARDS shards and none, and
+    its wrapper raises on the refusal."""
+    from lbm_tpu_torch.kernels import _build, d3q19
+    from lbm_tpu_torch.kernels import sharded as ksh
+
+    params = d3q19.d3q19_constants(1.0, 0.0, 0.0, torch.float32)
+    geoms = (ctypes.c_longlong * (len(ksh.GEOM) * (_build.MAX_SHARDS + 1)))()
+    fn = _build.library().lbm_halo_d3q19
+    fn.argtypes, fn.restype = ksh.HALO_D3Q19.argtypes, ctypes.c_int
+    for n in (0, _build.MAX_SHARDS + 1):
+        assert fn(geoms, params, n, 2, 0, 0, None) != 0
+    before = ksh.HALO_D3Q19.launches
+    with pytest.raises(RuntimeError, match="lbm_halo_d3q19: launch failed"):
+        ksh.HALO_D3Q19.launch(geoms, params, _build.MAX_SHARDS + 1, 2, 0, 0, None)
+    assert ksh.HALO_D3Q19.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(128, 128), (4096, 2048), (37, 29), (4, 2)])
+def test_kernel_4_sized_launch_matches_plain(cuda, dtype, shape):
+    """Kernel 4 with blocks sized to the card, a programmatic dependent
+    launch where the grid fits in one wave (128x128, 37x29, 4x2), 3 steps:
+    one launch a step, within TOL of kbc_channel_step; a CUDA graph of the
+    steps gives the same bits."""
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=R + C, noisy=True)
+    args = (KBC_S2, 1.001, 1.0)
+    step = channel.make_channel_fused_step(R, C, *args, dtype, family="kbc")
+    before = channel.CHANNEL_KBC.launches
+    got = step(step(step(f)))
+    torch.cuda.synchronize()
+    assert channel.CHANNEL_KBC.launches - before == 3
+    plain = channel.kbc_channel_step(*args)
+    assert (got - plain(plain(plain(f)))).abs().max().item() <= TOL[dtype]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step(step(step(f)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
