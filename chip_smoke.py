@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 4, 12, 16, 19-21, 33 and 36 of the
-                                         # tree DIR (e.g. a git archive of the parent
-                                         # commit) against this one, and holds 4, 12,
-                                         # 19-21, 33 and 36 to DIR's bits
+                                         # kernels 4, 12, 16, 19-21, 27, 33, 34 and 36
+                                         # of the tree DIR (e.g. a git archive of the
+                                         # parent commit) against this one, and holds
+                                         # 4, 12, 19-21, 27, 33, 34 and 36 to DIR's bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
                                          # time them whole and with parts left out
@@ -21,6 +21,11 @@
                                          # build, then only kernels 4 and 33 against
                                          # their other designs (and DIR's), held to
                                          # the same bits (k4_k33_times), as a JSON line
+    python3 chip_smoke.py --k27-k34 [--parent DIR]
+                                         # build, then only kernels 27 and 34 against
+                                         # their other designs, the exchange alone (and
+                                         # DIR's step and its first sweep alone), held
+                                         # to the same bits (k27_k34_times), JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -216,7 +221,8 @@ with a nonzero exit code):
      kernels 31-34 (``K31_34_PATH``, ``k31_34_path``, through
      kernels/sharded.py and kernels/sharded2d.py):
      the periodic BGK at 4096x2048 on a (4, 2) mesh with substeps "auto"
-     and kernel 34's other collisions at 1024x512 on (2, 4), the MRT-CG and
+     and kernel 34's other collisions at 1024x512 on (2, 4) (27 and 34 one
+     launch a call, counted), the MRT-CG and
      CSF Rayleigh-Taylor 256x128 in the full layout on 8 shards, each bit
      for bit its single-device kernel; sc_phase_separation 256x256 on 8
      shards, 4 steps per exchange, bit for bit the scene and within its
@@ -279,7 +285,11 @@ with a nonzero exit code):
      under --k4-k33), and kernel 33 at the cavity3d gate's launch shape
      (both types) and 32x256x1024 on 8 shards (s = 1 and 8) beside the
      exchange of HALO rows alone, with --parent against the parent tree's
-     in turns, every variant bit for bit the parent's (``k4_k33_times``); and the table of every
+     in turns, every variant bit for bit the parent's (``k4_k33_times``); kernels 27 (8
+     shards) and 34 ((4, 2)) at 4096x2048, s = 8 and 1, both types, BGK with
+     the exchange alone, with --parent every collision against the parent
+     tree's step (and BGK's first sweep alone) in turns, bit for bit
+     (``k27_k34_times``); and the table of every
      kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
      ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
      its phase-5 launches and launches x (time - bound), ranked).
@@ -1645,8 +1655,8 @@ def run_sharded_cases(table, dev) -> list:
     """The cases of a phase-5 table ((label, family, shape, shards or mesh,
     substeps, steps), float32 on shards of ``dev``) with their references:
     (label, shape, n, s, steps, sharded step, mesh, state, the
-    single-device kernel's result), the sharded step built through the
-    factories a user calls, "auto" included."""
+    single-device kernel's result, family), the sharded step built through
+    the factories a user calls, "auto" included."""
     import torch
 
     from lbm_tpu_torch.kernels import sharded as ksh
@@ -1665,19 +1675,27 @@ def run_sharded_cases(table, dev) -> list:
         want = x
         for _ in range(steps // s_int):
             want = single(want)
-        cases.append((label, shape, n, s_int, steps, step, mesh, x, want))
+        cases.append((label, shape, n, s_int, steps, step, mesh, x, want, family))
     return cases
 
 
-def drive_sharded(cases, wall) -> None:
+def drive_sharded(cases, wall, counted) -> None:
     """Run each case of ``run_sharded_cases`` through shard_state, its step
     and gather, timed on the host into ``wall``; each must be finite and
-    bit for bit its single-device kernel's result."""
+    bit for bit its single-device kernel's result, and kernels 27 and 34
+    (families "k27 ..." and "k34 ...") launch once a call for every
+    MAX_SHARDS shards of the card (``counted``: the kernel objects by
+    name)."""
     import torch
 
     from lbm_tpu_torch.parallel import mesh as pm
 
-    for label, shape, n, s_int, steps, step, mesh, x, want in cases:
+    for label, shape, n, s_int, steps, step, mesh, x, want, family in cases:
+        kernel = None
+        if family.startswith(("k27 ", "k34 ")):
+            kind = family[4:].split()[0]
+            kernel = counted[f"halo_{kind}" if family.startswith("k27 ") else f"halo2d_{kind}"]
+            before = kernel.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = pm.shard_state(mesh, x)
@@ -1686,12 +1704,16 @@ def drive_sharded(cases, wall) -> None:
         got = y.gather()
         torch.cuda.synchronize()
         wall[label] = time.perf_counter() - t0
+        gates = {"finite": (float(torch.isfinite(got).all()), 1.0, 1.0),
+                 "bit-identical to the single-device kernel": (
+                     float(torch.equal(got.reshape(want.shape), want)), 1.0, 1.0)}
+        if kernel is not None:
+            shards = n[0] * n[1] if isinstance(n, tuple) else n
+            calls = steps // s_int * -(-shards // 8)
+            gates["launches (one a call)"] = (float(kernel.launches - before), calls, calls)
         check_gates(f"[5] {label} {'x'.join(map(str, shape))} float32 on {n} shards of the "
-                    f"card, {steps} steps, {s_int} per exchange (host wall time "
-                    f"{wall[label]!r} s = {wall[label] / steps * 1e6!r} us/step)", {
-            "finite": (float(torch.isfinite(got).all()), 1.0, 1.0),
-            "bit-identical to the single-device kernel": (
-                float(torch.equal(got.reshape(want.shape), want)), 1.0, 1.0)})
+                    f"card, {steps} steps, {s_int} per call (host wall time "
+                    f"{wall[label]!r} s = {wall[label] / steps * 1e6!r} us/step)", gates)
 
 
 # (label, family, shape, shards or mesh, substeps, steps) of phase 5's
@@ -1766,7 +1788,7 @@ def sharded_path(dev, counted) -> dict:
     for k in counted.values():
         k.launches = 0
     wall = {}
-    drive_sharded(cases, wall)
+    drive_sharded(cases, wall, counted)
     del cases
     torch.cuda.empty_cache()
 
@@ -1842,7 +1864,7 @@ def k31_34_path(dev, counted) -> dict:
     for k in counted.values():
         k.launches = 0
     wall = {}
-    drive_sharded(cases, wall)
+    drive_sharded(cases, wall, counted)
     del cases
 
     def timed(label, step, x, calls):
@@ -1956,7 +1978,7 @@ def k35_38_path(dev, counted) -> dict:
     for k in counted.values():
         k.launches = 0
     wall = {}
-    drive_sharded(cases, wall)
+    drive_sharded(cases, wall, counted)
     del cases
 
     def timed(label, step, x, calls):
@@ -2012,21 +2034,27 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
     and the exchange reads and writes once each halo line that the first
     band reads beyond the shard (s r rows per side, r the lines a sweep
     consumes, clipped at a wall; kernels 34-38: s r rows and s r columns),
-    not the whole 8-aligned strip the step sends.  Kernel 33 ("d3q19
-    <walls>") makes no exchange where its shards share a card, as every
-    case here does: its first sweep reads the neighbours' rows in place
-    (parallel/halo.py ring_rows), rows its input band already counts, so
-    its bytes are the bands' alone.  ``ops`` operations per
-    cell and step over the fp32 peak.  The design bytes count every sweep's
-    bands, as the port's s launches a call move them; lbm_tpu's kernels run
-    a call's s steps on the chip (sharded_pallas.py make_local_halo_step),
-    so the bound counts one pass."""
+    not the whole 8-aligned strip the step sends.  Kernels 27, 33 and 34
+    ("k27 ...", "d3q19 <walls>", "k34 ...") make no exchange where their
+    shards share a card, as every case here does: they read the neighbours'
+    lines in place (parallel/halo.py ring_rows, ring_2d), lines their input
+    bands already count, so their bytes are the bands' alone.  ``ops``
+    operations per cell and step over the type's peak (``itemsize`` 8:
+    float64).  The design bytes count what the port's launches move: every
+    sweep's bands where it launches a sweep at a time (lbm_tpu's kernels run
+    a call's s steps on the chip, sharded_pallas.py make_local_halo_step, so
+    the bound counts one pass); for kernels 27 and 34, which run a call's s
+    steps in one pass too, the tile engine's boxes read and its tiles
+    written once (``block_design``)."""
     from lbm_tpu_torch.kernels import sharded as ksh
     from lbm_tpu_torch.kernels import sharded2d as k2d
 
+    # the tile engine's box of the long collisions in float32 (design bytes)
+    tall = itemsize == 4 and family[4:].startswith(("kbc", "power_law"))
     if isinstance(n, tuple):
         (R, C), (nx, ny), h = shape, n, ksh.HALO
-        planes, r, walls = (9, 1, False) if family.startswith("k34") else shard_geometry(family)
+        k34 = family.startswith("k34")
+        planes, r, walls = (9, 1, False) if k34 else shard_geometry(family)
         R_loc, C_loc = R // nx, C // ny
         moved = design = strips = 0
         for i in range(nx):
@@ -2034,8 +2062,10 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
             area = [((ri_hi - ri_lo) * (ci_hi - ci_lo), (ro_hi - ro_lo) * (co_hi - co_lo))
                     for (ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi) in bands]
             moved += ny * (area[0][0] + area[-1][1])
-            design += ny * sum(a_in + a_out for a_in, a_out in area)
-            strips += ny * (area[0][0] - R_loc * C_loc)
+            design += ny * (block_design(R_loc, C_loc, s, tall) if k34 else
+                            sum(a_in + a_out for a_in, a_out in area))
+            if not k34:
+                strips += ny * (area[0][0] - R_loc * C_loc)
         nbytes = (moved + 2 * strips) * planes * itemsize
         design_bytes = (design + 2 * strips) * planes * itemsize
         n_ops = ops * R * C * s
@@ -2048,7 +2078,8 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
             (R, C), per_cell = shape, 1
         halo = ksh.halo_for(s, r)
         R_loc = R // n
-        in_place = family.startswith("d3q19 ")
+        k27 = family.startswith("k27 ")
+        in_place = k27 or family.startswith("d3q19 ")
         rows_moved = rows_design = strip_rows = 0
         for i in range(n):
             bands = ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls)
@@ -2059,10 +2090,31 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
                 strip_rows += max(0, halo - i_lo) + max(0, i_hi - halo - R_loc)
         nbytes = (rows_moved + 2 * strip_rows) * planes * C * itemsize
         design_bytes = (rows_design + 2 * strip_rows) * planes * C * itemsize
+        if k27:
+            design_bytes = n * block_design(R_loc, C, s, tall) * planes * itemsize
         n_ops = ops * R * C * per_cell * s
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, n_ops / PEAK_FLOPS["float32"]
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = n_ops / PEAK_FLOPS["float64" if itemsize == 8 else "float32"]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", nbytes,
             design_bytes)
+
+
+def block_design(R_loc, C_loc, s, tall=False) -> int:
+    """The cells that kernels 27 and 34 read and write on one R_loc x C_loc
+    shard in a call of s steps (csrc/collide_stream.cuh): the tile engine's
+    box, (h + 2 s)(w + 2 s) cells read for each tile of h x w cells written
+    (tiles of (ROWS - 2 s) x (COLS - 2 s), ``Box``'s 48 x 64, or 96 x 64
+    where ``tall``: the long collisions in float32), or, at one step, the
+    shard and a one-line ring read."""
+    if s == 1:
+        return (R_loc + 2) * (C_loc + 2) + R_loc * C_loc
+    tr, tc = (96 if tall else 48) - 2 * s, 64 - 2 * s
+    cells = 0
+    for r0 in range(0, R_loc, tr):
+        for c0 in range(0, C_loc, tc):
+            h, w = min(tr, R_loc - r0), min(tc, C_loc - c0)
+            cells += (h + 2 * s) * (w + 2 * s) + h * w
+    return cells
 
 
 def plain_ops(family) -> float:
@@ -3753,6 +3805,274 @@ def k4_k33_times(dev, card: str, parent=None, designs=False) -> dict:
     return out
 
 
+# kernels 27 and 34's timed cases at 4096x2048, both types, every collision
+# of K34_KINDS: (kernel, shards or mesh, steps a call): the launch shape
+# (phase 5's periodic BGK runs, s = 8) and one step a call
+K27_K34_TIMES = ((27, 8, 8), (34, (4, 2), 8), (27, 8, 1), (34, (4, 2), 1))
+# kernels 27 and 34's other designs (edits of csrc/collide_stream.cuh, built
+# with the five collide-stream units and timed against the tree in
+# ``k27_k34_times``): plain loads into the box instead of cp.async; the
+# float32 box of the light collisions (48 rows, two blocks an SM) or of the
+# long ones (96 rows, 1024 threads) for every collision; a float32 box of 64
+# rows at one block an SM for the light ones (the first design: fewer halo
+# collisions, half the warps); float64 at 512 threads (fewer warps, no cap
+# of 64 registers); the tile engine at one step too
+K27_K34_DESIGNS = {
+    "plain loads": [("for (int k = 0; k < 9; ++k) async_copy(dst + k * PLANE, src + k * plane);",
+                     "for (int k = 0; k < 9; ++k) dst[k * PLANE] = src[k * plane];")],
+    "float32 box 48 rows, two blocks an SM, every collision": [
+        ("TALL = F32 && HEAVY;", "TALL = false;")],
+    "float32 box 96 rows, 1024 threads, every collision": [("TALL = F32 && HEAVY;", "TALL = F32;")],
+    "float32 box 64 rows, one block an SM": [
+        ("ROWS = TALL ? 96 : 48;", "ROWS = TALL ? 96 : (F32 ? 64 : 48);"),
+        ("MIN_BLOCKS = F32 && !TALL ? 2 : 1;", "MIN_BLOCKS = 1;")],
+    "float64 512 threads": [("THREADS = TALL || !(F32 || WIDE) ? 1024 : 512;",
+                             "THREADS = TALL ? 1024 : 512;")],
+    "tile at one step": [("return steps >= 2;", "return steps >= 1;")]}
+
+
+def source_edits(text: str, edits, where: str) -> str:
+    """``text`` with each (old, new) of ``edits`` applied; an edit that no
+    longer finds its text stops the run."""
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{where}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def k27_k34_design_sources(csrc: Path) -> dict:
+    """label -> csrc/collide_stream.cuh of the tree ``csrc`` with the edits of
+    each of ``K27_K34_DESIGNS``."""
+    text = (csrc / "collide_stream.cuh").read_text()
+    return {label: source_edits(text, edits, f"design {label!r} of collide_stream.cuh")
+            for label, edits in K27_K34_DESIGNS.items()}
+
+
+def build_k27_k34_designs() -> dict:
+    """Each of ``K27_K34_DESIGNS`` built with the five collide-stream units
+    (csrc/collide_stream_{bgk,kbc,les,trt,power_law}.cu, each with its
+    flags) into a library of its own (namespace lbm renamed, as
+    ``build_parent`` does), every unit of every design compiled at once:
+    {label: the library}.  ptxas' report of the sharded call's kernels is
+    logged."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+    from lbm_tpu_torch.kernels import sharded as ksh
+
+    rename = [("namespace lbm {", "namespace lbm_design {"), ("lbm::", "lbm_design::")]
+    units = [f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS]
+    nvcc, procs, works = _build.find_nvcc(), {}, {}
+    for i, (label, header) in enumerate(k27_k34_design_sources(_build.CSRC).items()):
+        work = works[label] = Path(tempfile.mkdtemp(prefix=f"k27-k34-design{i}-"))
+        atexit.register(shutil.rmtree, work, True)
+        for f in (*_build.CSRC.glob("*.cuh"), *(_build.CSRC / f"{u}.cu" for u in units)):
+            text = header if f.name == "collide_stream.cuh" else f.read_text()
+            for old, new in rename:
+                text = text.replace(old, new)
+            (work / f.name).write_text(text)
+        for u in units:
+            procs[label, u] = subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get(u, ()), "-c", "-o",
+                 str(work / f"{u}.o"), str(work / f"{u}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for (label, u), proc in procs.items():
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {u}.cu of kernels 27-34's design {label!r}:\n"
+                               f"{text}")
+        for name, regs, spill in ptxas_entries(f"== {u}.cu\n{text}", f"{u}.cu"):
+            if "tile_steps" in name:
+                log(f"[6] kernels 27/34 design {label!r}: {name}: {regs} registers; {spill}")
+    out = {}
+    for label, work in works.items():
+        so = work / "libdesign.so"
+        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
+                        *(str(work / f"{u}.o") for u in units)], check=True, timeout=600,
+                       capture_output=True)
+        out[label] = ctypes.CDLL(str(so))
+    return out
+
+
+def load_parent_k27_k34(parent: Path) -> tuple:
+    """The parent tree's kernels 27 and 34 with its own wrappers (the copy of
+    ``parent_package``), its five collide-stream units built by
+    ``build_parent``.  Returns the copy's (kernels.sharded,
+    kernels.sharded2d)."""
+    import importlib
+
+    parent_package(parent)
+    ksh_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded")
+    k2d_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded2d")
+    lib = build_parent(parent, tuple(f"collide_stream_{k}" for k in ksh_p.COLLIDE_KINDS))
+    bind_kernels([*ksh_p.HALO_COLLIDE_STREAM.values(), *k2d_p.HALO2D_COLLIDE_STREAM.values()], lib)
+    return ksh_p, k2d_p
+
+
+def k27_k34_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernels 27 and 34 at K27_K34_TIMES' cases (4096x2048, both types;
+    every collision of K34_KINDS with ``parent`` or ``designs``, else BGK
+    alone): us per call under CUDA graphs of 5 calls, in
+    turns (``in_turns``), of this tree's step (a call's steps in one launch
+    over the card's shards, the neighbours' lines in place) and, with
+    ``parent`` (``load_parent_k27_k34``), the parent tree's; for BGK also the
+    exchange alone (``exchange_rows`` / ``exchange_2d``: the copies the
+    parent makes a call), the parent's first sweep alone (its launch on each
+    shard from the exchanged halos) and, with ``designs``,
+    ``K27_K34_DESIGNS``' builds.  Every variant must give the same bits (the
+    parent's, where there is one) over 2 calls: it raises where they differ.
+    Keys (kernel, case, dtype) -> {variant: us}."""
+    import torch
+
+    from lbm_tpu_torch.kernels import _build
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    design_libs = build_k27_k34_designs() if designs else {}
+    ksh_p, k2d_p = load_parent_k27_k34(parent) if parent is not None else (None, None)
+    own = [*ksh.HALO_COLLIDE_STREAM.values(), *k2d.HALO2D_COLLIDE_STREAM.values()]
+    build_log = _build.build().with_suffix(".log").read_text()
+    for u in (f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS):
+        for name, regs, spill in ptxas_entries(build_log, f"{u}.cu"):
+            if "tile_steps" in name or "push_step" in name:
+                log(f"[6] kernels 27/34: {name}: {regs} registers; {spill}")
+    collisions = k27_collisions()
+    kinds = K34_KINDS if parent is not None or designs else ("bgk",)
+    ops = {kind: collision_ops(kind) for kind in kinds}
+    out = {}
+    R, C = BIG
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).removeprefix("torch.")
+        for kernel, n, s in K27_K34_TIMES:
+            two_d = isinstance(n, tuple)
+            shards = n[0] * n[1] if two_d else n
+            mesh = pm.make_mesh([dev] * shards, n if two_d else None)
+            for kind in kinds:
+                make_fn, _, make_state = collisions[kind]
+                fn = make_fn(dtype)
+                x = pm.shard_state(mesh, make_state(R, C, dtype, dev, R + C))
+                make = (k2d.make_sharded_fused_step_2d if two_d else ksh.make_sharded_fused_step)
+                steps = {"new": make(mesh, R, C, fn, dtype, substeps=s)}
+                if ksh_p is not None:
+                    make_p = (k2d_p.make_sharded_fused_step_2d if two_d
+                              else ksh_p.make_sharded_fused_step)
+                    steps = {"parent": make_p(mesh, R, C, fn, dtype, substeps=s), **steps}
+                fns = {v: (lambda st=st: graph_ms(st, x, 5) * 1e3) for v, st in steps.items()}
+                for label, lib in design_libs.items():
+                    if (label == "tile at one step") != (s == 1):
+                        continue  # the other designs change the tile engine only
+                    def designed(y, lib=lib, st=steps["new"]):
+                        bind_kernels(own, lib)
+                        try:
+                            return st(y)
+                        finally:
+                            bind_kernels(own, None)
+                    steps[label] = designed
+                    fns[label] = lambda d=designed: graph_ms(d, x, 5) * 1e3
+                if kind == "bgk":
+                    grid = [x.shards[i * n[1]:(i + 1) * n[1]] for i in range(n[0])] if two_d \
+                        else None
+
+                    def exchange(y, grid=grid):
+                        if grid is not None:
+                            ph.exchange_2d(grid, ksh.HALO)
+                        else:
+                            ph.exchange_rows(y.shards, ksh.HALO)
+                        return y
+                    fns["exchange alone"] = lambda ex=exchange: graph_ms(ex, x, 5) * 1e3
+                    if ksh_p is not None:
+                        fns["parent's first sweep alone"] = (
+                            lambda sweep=parent_first_sweep(ksh_p, k2d_p, x, grid, R, s, fn):
+                            graph_ms(sweep, x, 5) * 1e3)
+                label = f"{kind} {R}x{C}, {n} {'mesh' if two_d else 'shards'}, {s} a call"
+                want = None
+                for v, st in steps.items():
+                    y = x
+                    for _ in range(2):
+                        y = st(y)
+                    got = y.gather()
+                    torch.cuda.synchronize()
+                    if want is None:
+                        want = (v, got)
+                    elif not torch.equal(got, want[1]):
+                        raise AssertionError(f"kernel {kernel} {label} {dt}: {v} differs from "
+                                             f"{want[0]}'s bits")
+                log(f"[6] kernel {kernel} {label} {dt}: {', '.join(steps)} bit for bit alike "
+                    f"over 2 calls")
+                del want, got, y
+                med, runs = in_turns(fns)
+                if "parent" in med:
+                    med["change"] = med["new"] / med["parent"] - 1.0
+                b = sharded_bound(f"k{kernel} {kind}", BIG, n, s, x.shards[0].element_size(),
+                                  ops[kind])
+                med.update(bound=b[0] * 1e3, bound_by=b[1], fraction=b[0] * 1e3 / med["new"],
+                           design_bytes_over_bound_bytes=b[3] / b[2])
+                out[kernel, label, dt] = med
+                log(f"[6] {card}; kernel {kernel} {label} {dt} (us per call, CUDA graphs of 5 "
+                    f"calls, median of 3 in turns; the bound in us a call): "
+                    + ", ".join(f"{v} {t!r}" for v, t in med.items()) + f" (runs {runs})")
+                del x, steps, fns
+                torch.cuda.empty_cache()
+    return out
+
+
+def collision_ops(kind) -> float:
+    """Operations per cell of one step of ``kind``'s plain single-device step
+    (``ops_per_cell`` at 64x64 on the CPU, float32, from the collision's
+    phase-4 state)."""
+    import torch
+
+    from lbm_tpu_torch.kernels import collide_stream
+
+    f32, cpu = torch.float32, torch.device("cpu")
+    make_fn, _, make_state = k27_collisions()[kind]
+    return ops_per_cell(collide_stream.make_fused_step(64, 64, make_fn(f32), f32),
+                        make_state(64, 64, f32, cpu, 1))
+
+
+def parent_first_sweep(ksh_p, k2d_p, x, grid, R, s, fn):
+    """The parent tree's first sweep of an s-step call on each shard of the
+    sharded state ``x`` (``grid``: its rows x cols blocks, None for row
+    shards), each shard one launch of its kernel 27 or 34 from halos
+    exchanged once, outside the timing; returns ``sweep(y) -> y``."""
+    import ctypes
+
+    import torch
+
+    from lbm_tpu_torch.kernels import _build
+    from lbm_tpu_torch.parallel import halo as ph
+
+    kind, doubles, (i0, i1) = fn.halo_kernel
+    params = _build.c_doubles(doubles)
+    shards = x.shards
+    n = len(shards)
+    if grid is None:
+        kernel, names = ksh_p.HALO_COLLIDE_STREAM[kind], ksh_p.GEOM
+        R_loc = R // n
+        halos = ph.exchange_rows(shards, ksh_p.HALO)
+        plans = [ksh_p._sweep_geoms(f, top, bot, i * R_loc, i in (0, n - 1), R, substeps=s,
+                                    rows_per_sweep=1, walls=False)
+                 for i, (f, (top, bot)) in enumerate(zip(shards, halos))]
+    else:
+        kernel, names = k2d_p.HALO2D_COLLIDE_STREAM[kind], k2d_p.GEOM
+        halos = ph.exchange_2d(grid, ksh_p.HALO)
+        plans = [k2d_p._sweep_geoms(f, *strips, substeps=s, rows_per_sweep=1, walls=False,
+                                    off=(0, 0), shape=(0, 0), edge=False)
+                 for f, strips in zip(shards, halos)]
+    f64 = int(shards[0].dtype == torch.float64)
+
+    def sweep(y, plans=plans, halos=halos):  # the launches read the halos: held here
+        for _, geoms, _ in plans:
+            kernel.launch((ctypes.c_longlong * len(names))(*geoms[0]), params, i0, i1, f64,
+                          _build.stream_handle(shards[0]))
+        return y
+
+    return sweep
+
+
 # What each probe build of csrc/rk_cg.cu (this tree's and a --parent tree's
 # tile) leaves out: edits of a copy of the source, (text, its replacement).
 # Stage 1 alone (r_rho / rho on the window; on the staged tile with stage
@@ -3952,6 +4272,11 @@ def main(argv=None) -> int:
                     help="build, then only time kernels 4 and 33 against their other designs "
                          "(and, with --parent, the parent's), holding each to the same bits "
                          "(k4_k33_times), print the table as a JSON line, and stop")
+    ap.add_argument("--k27-k34", action="store_true",
+                    help="build, then only time kernels 27 and 34 against their other designs "
+                         "(K27_K34_DESIGNS), the exchange alone and, with --parent, the "
+                         "parent's step and its first sweep alone, holding each to the same "
+                         "bits (k27_k34_times), print the table as a JSON line, and stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -4054,6 +4379,11 @@ def main(argv=None) -> int:
         print(json.dumps({"k4_k33": [[*key, us] for key, us in table.items()], "card": card}),
               flush=True)
         return 0
+    if args.k27_k34:
+        table = k27_k34_times(dev, card, parent, designs=True)
+        print(json.dumps({"k27_k34": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -4075,7 +4405,10 @@ def main(argv=None) -> int:
             ("25-26", ("d3q19",), "d3q19_kernel", 4),
             (31, ("mrtcg_full",), "7ShardIO", 16), (32, ("shan_chen",), "14shan_chen_halo", 8),
             (33, ("d3q19",), "d3q19_halo", 2),
-            (34, tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS), "halo2d_step", 16),
+            ("27 and 34, the tile engine", tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS),
+             "10tile_steps", 16),
+            ("27 and 34, one step", tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS),
+             "9push_step", 16),
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
             (36, ("thermal",), "21thermal_halo2d_kernel", 2),
             (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 16),
@@ -5579,6 +5912,10 @@ def main(argv=None) -> int:
     # kernels 4 and 33 at their launch shapes and at the big grids, with the
     # exchange alone at 33's, against the parent tree's where --parent names one
     k4_k33_tm = k4_k33_times(dev, card, parent)
+    # kernels 27 and 34 at their launch shape and at one step a call, every
+    # collision, with the exchange alone, against the parent tree's where
+    # --parent names one
+    k27_k34_tm = k27_k34_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -5767,6 +6104,9 @@ def main(argv=None) -> int:
     for k, name in ((4, "channel_kbc"), (33, "halo_d3q19")):
         next(e for e in kernels if e["name"] == name)["us"] = {
             f"{shape} {dt}": v for (kk, shape, dt), v in k4_k33_tm.items() if kk == k}
+    for k, name in ((27, "halo_collide_stream"), (34, "halo2d_collide_stream")):
+        next(e for e in kernels if e["name"] == name)["us"] = {
+            f"{case} {dt}": v for (kk, case, dt), v in k27_k34_tm.items() if kk == k}
     for row in shape_rows:
         for entry in kernels:
             if entry["name"] == row["name"]:

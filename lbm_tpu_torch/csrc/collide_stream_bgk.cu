@@ -22,12 +22,12 @@
 // shared-memory tile with halos, which cuts the bytes per step), 16-byte
 // vector loads, and in-place (single-buffer) streaming schemes.
 //
-// The collision is a functor shared by this step, kernel 27's BGK
-// instance, lbm_halo_bgk, and kernel 34's, lbm_halo2d_bgk: the same device
-// code on a row shard with halo inputs (csrc/collide_stream.cuh halo_step,
-// kernels/sharded.py) and on a rows x cols shard (halo2d_step,
-// kernels/sharded2d.py), built with this source's flags, so an n-shard run
-// equals this kernel bit for bit.
+// The collision is a functor shared by this step and kernel 27's BGK
+// instance, lbm_halo_bgk, and kernel 34's, lbm_halo2d_bgk: the same
+// device code in the sharded call of csrc/collide_stream.cuh
+// (block::launch_shards: a call's s steps on up to 8 row or rows x cols
+// shards of a card in one launch), built with this source's flags, so an
+// n-shard run equals this kernel run s times bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -80,20 +80,19 @@ extern "C" int lbm_collide_stream_bgk(const void* fin, void* fout, long long R,
                 : lbm::launch_periodic<float>(fin, fout, R, C, bgk<float>(omega), s);
 }
 
-// Kernel 27, BGK instance: one sweep with the geometry `geom`
-// (csrc/halo.cuh); params = {omega}.
-extern "C" int lbm_halo_bgk(const long long* geom, const double* params, int, int,
-                            int is_f64, void* stream) {
+// Kernel 27, BGK instance: a call of `steps` steps on each of `n_shards`
+// row shards of the device, `geoms` their geometry arrays back to back
+// (csrc/collide_stream.cuh block::Geom; the columns wrap); params = {omega}.
+extern "C" int lbm_halo_bgk(const long long* geoms, const double* params, int n_shards,
+                            int steps, int i0, int i1, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? lbm::launch_halo<double>(geom, bgk<double>(params[0]), s)
-                : lbm::launch_halo<float>(geom, bgk<float>(params[0]), s);
+  return is_f64 ? lbm::block::launch_shards<double>(geoms, n_shards, steps, bgk<double>(params[0]), s)
+                : lbm::block::launch_shards<float>(geoms, n_shards, steps, bgk<float>(params[0]), s);
 }
 
-// Kernel 34, BGK instance: one sweep on a rows x cols shard with the
-// geometry `geom` (csrc/halo2d.cuh); params = {omega}.
-extern "C" int lbm_halo2d_bgk(const long long* geom, const double* params, int, int,
-                              int is_f64, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? lbm::launch_halo2d<double>(geom, bgk<double>(params[0]), s)
-                : lbm::launch_halo2d<float>(geom, bgk<float>(params[0]), s);
+// Kernel 34, BGK instance: the same call on rows x cols shards (their 3 x 3
+// parts hold the neighbours' lines; no column wraps).
+extern "C" int lbm_halo2d_bgk(const long long* geoms, const double* params, int n_shards,
+                              int steps, int i0, int i1, int is_f64, void* stream) {
+  return lbm_halo_bgk(geoms, params, n_shards, steps, i0, i1, is_f64, stream);
 }

@@ -28,10 +28,11 @@
 // tolerances assume).
 //
 // The collision is a functor shared by this step and kernel 27's KBC
-// instance, lbm_halo_kbc, and kernel 34's, lbm_halo2d_kbc: the same device
-// code on a row shard and on a rows x cols shard with halo inputs
-// (csrc/collide_stream.cuh halo_step and halo2d_step), built with this
-// source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_kbc, and kernel 34's, lbm_halo2d_kbc: the same
+// device code in the sharded call of csrc/collide_stream.cuh
+// (block::launch_shards: a call's s steps on up to 8 row or rows x cols
+// shards of a card in one launch), built with this source's flags, so an
+// n-shard run equals this kernel run s times bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +44,10 @@ namespace {
 // The KBC collision of one cell: m0, u = m1 / m0, csrc/kbc.cuh's collide.
 template <typename T, bool kFactored>
 struct Kbc {
+  // the sharded call's tile engine (csrc/collide_stream.cuh Box): a long
+  // collision, and 118-128 registers in float64 (512 threads a block there)
+  static constexpr bool HEAVY = true;
+  static constexpr bool WIDE = true;
   lbm::kbc::Params<T> p;
 
   __device__ __forceinline__ void operator()(const T f[9], T coll[9]) const {
@@ -60,16 +65,12 @@ int periodic(const void* fin, void* fout, long long R, long long C, double s2, i
                   : lbm::launch_periodic<T>(fin, fout, R, C, Kbc<T, false>{p}, s);
 }
 
-// One sweep of kernel 27 (TWO_D false) or kernel 34 (true).
-template <typename T, bool TWO_D>
-int halo_sweep(const long long* geom, double s2, int factored, cudaStream_t s) {
+// A call of kernels 27 and 34 (csrc/collide_stream.cuh block::launch_shards).
+template <typename T>
+int shards(const long long* geoms, int n, int steps, double s2, int factored, cudaStream_t s) {
   const lbm::kbc::Params<T> p = lbm::kbc::make_params<T>(s2);
-  if constexpr (TWO_D)
-    return factored ? lbm::launch_halo2d<T>(geom, Kbc<T, true>{p}, s)
-                    : lbm::launch_halo2d<T>(geom, Kbc<T, false>{p}, s);
-  else
-    return factored ? lbm::launch_halo<T>(geom, Kbc<T, true>{p}, s)
-                    : lbm::launch_halo<T>(geom, Kbc<T, false>{p}, s);
+  return factored ? lbm::block::launch_shards<T>(geoms, n, steps, Kbc<T, true>{p}, s)
+                  : lbm::block::launch_shards<T>(geoms, n, steps, Kbc<T, false>{p}, s);
 }
 
 }  // namespace
@@ -85,20 +86,20 @@ extern "C" int lbm_collide_stream_kbc(const void* fin, void* fout, long long R,
                 : periodic<float>(fin, fout, R, C, s2, factored, s);
 }
 
-// Kernel 27, KBC instance: one sweep with the geometry `geom`
-// (csrc/halo.cuh); params = {s2}, factored = the gamma implementation.
-extern "C" int lbm_halo_kbc(const long long* geom, const double* params, int factored, int,
-                            int is_f64, void* stream) {
+// Kernel 27, KBC instance: a call of `steps` steps on each of `n_shards` row
+// shards of the device, `geoms` their geometry arrays back to back
+// (csrc/collide_stream.cuh block::Geom; the columns wrap); params = {s2},
+// factored = the gamma implementation.
+extern "C" int lbm_halo_kbc(const long long* geoms, const double* params, int n_shards,
+                            int steps, int factored, int, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? halo_sweep<double, false>(geom, params[0], factored, s)
-                : halo_sweep<float, false>(geom, params[0], factored, s);
+  return is_f64 ? shards<double>(geoms, n_shards, steps, params[0], factored, s)
+                : shards<float>(geoms, n_shards, steps, params[0], factored, s);
 }
 
-// Kernel 34, KBC instance: one sweep on a rows x cols shard with the
-// geometry `geom` (csrc/halo2d.cuh); params = {s2}.
-extern "C" int lbm_halo2d_kbc(const long long* geom, const double* params, int factored,
-                              int, int is_f64, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? halo_sweep<double, true>(geom, params[0], factored, s)
-                : halo_sweep<float, true>(geom, params[0], factored, s);
+// Kernel 34, KBC instance: the same call on rows x cols shards (their 3 x 3
+// parts hold the neighbours' lines; no column wraps).
+extern "C" int lbm_halo2d_kbc(const long long* geoms, const double* params, int n_shards,
+                              int steps, int factored, int i1, int is_f64, void* stream) {
+  return lbm_halo_kbc(geoms, params, n_shards, steps, factored, i1, is_f64, stream);
 }

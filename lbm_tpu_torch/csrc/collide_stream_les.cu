@@ -21,10 +21,11 @@
 // table: temporal blocking, vector loads.
 //
 // The collision is a functor shared by this step and kernel 27's LES
-// instance, lbm_halo_les, and kernel 34's, lbm_halo2d_les: the same device
-// code on a row shard and on a rows x cols shard with halo inputs
-// (csrc/collide_stream.cuh halo_step and halo2d_step), built with this
-// source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_les, and kernel 34's, lbm_halo2d_les: the same
+// device code in the sharded call of csrc/collide_stream.cuh
+// (block::launch_shards: a call's s steps on up to 8 row or rows x cols
+// shards of a card in one launch), built with this source's flags, so an
+// n-shard run equals this kernel run s times bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -89,20 +90,22 @@ extern "C" int lbm_collide_stream_les(const void* fin, void* fout, long long R,
                 : lbm::launch_periodic<float>(fin, fout, R, C, les<float>(tau0, cs_smag), s);
 }
 
-// Kernel 27, LES instance: one sweep with the geometry `geom`
-// (csrc/halo.cuh); params = {tau0, cs_smag}.
-extern "C" int lbm_halo_les(const long long* geom, const double* params, int, int,
-                            int is_f64, void* stream) {
+// Kernel 27, LES instance: a call of `steps` steps on each of `n_shards`
+// row shards of the device, `geoms` their geometry arrays back to back
+// (csrc/collide_stream.cuh block::Geom; the columns wrap); params =
+// {tau0, cs_smag}.
+extern "C" int lbm_halo_les(const long long* geoms, const double* params, int n_shards,
+                            int steps, int i0, int i1, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? lbm::launch_halo<double>(geom, les<double>(params[0], params[1]), s)
-                : lbm::launch_halo<float>(geom, les<float>(params[0], params[1]), s);
+  const auto op64 = les<double>(params[0], params[1]);
+  const auto op32 = les<float>(params[0], params[1]);
+  return is_f64 ? lbm::block::launch_shards<double>(geoms, n_shards, steps, op64, s)
+                : lbm::block::launch_shards<float>(geoms, n_shards, steps, op32, s);
 }
 
-// Kernel 34, LES instance: one sweep on a rows x cols shard with the
-// geometry `geom` (csrc/halo2d.cuh); params = {tau0, cs_smag}.
-extern "C" int lbm_halo2d_les(const long long* geom, const double* params, int, int,
-                              int is_f64, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? lbm::launch_halo2d<double>(geom, les<double>(params[0], params[1]), s)
-                : lbm::launch_halo2d<float>(geom, les<float>(params[0], params[1]), s);
+// Kernel 34, LES instance: the same call on rows x cols shards (their 3 x 3
+// parts hold the neighbours' lines; no column wraps).
+extern "C" int lbm_halo2d_les(const long long* geoms, const double* params, int n_shards,
+                              int steps, int i0, int i1, int is_f64, void* stream) {
+  return lbm_halo_les(geoms, params, n_shards, steps, i0, i1, is_f64, stream);
 }

@@ -29,10 +29,11 @@
 // loads, a cheaper pow for the Picard map.
 //
 // The collision is a functor shared by this step and kernel 27's power-law
-// instance, lbm_halo_power_law, and kernel 34's, lbm_halo2d_power_law: the
-// same device code on a row shard and on a rows x cols shard with halo
-// inputs (csrc/collide_stream.cuh halo_step and halo2d_step), built with
-// this source's flags, so an n-shard run equals this kernel bit for bit.
+// instance, lbm_halo_power_law, and kernel 34's, lbm_halo2d_power_law: the same
+// device code in the sharded call of csrc/collide_stream.cuh
+// (block::launch_shards: a call's s steps on up to 8 row or rows x cols
+// shards of a card in one launch), built with this source's flags, so an
+// n-shard run equals this kernel run s times bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -68,6 +69,8 @@ __device__ __forceinline__ T picard(T log_a, T t, const Consts<T>& k) {
 // (kernels/power_law.py::power_law_collide_fn).
 template <typename T, int MODE>
 struct PowerLaw {
+  // a long collision for the sharded call's tile engine (csrc/collide_stream.cuh Box)
+  static constexpr bool HEAVY = true;
   Consts<T> k;
   int iters;
 
@@ -142,34 +145,31 @@ Consts<T> consts(const double* d) {
           T(d[8]), T(d[9]), T(d[10]), T(d[11]), T(d[12]), T(d[13]), T(d[14])};
 }
 
-// The forms of the step: kernel 11 (periodic), kernel 27's power-law
-// instance (one sweep on a row shard) and kernel 34's (one sweep on a rows
-// x cols shard), the last two with the geometry `geom`.
-enum Form { PERIODIC, HALO_ROWS, HALO_2D };
-
-template <typename T, int FORM, typename Op>
+// The forms of the step: kernel 11 (periodic) and the sharded call of
+// kernels 27 and 34 (`steps` steps on each of `n` shards with the
+// geometries `geoms`).
+template <typename T, bool SHARDS, typename Op>
 int run(const Op& op, const void* fin, void* fout, long long R, long long C,
-        const long long* geom, cudaStream_t s) {
-  if constexpr (FORM == HALO_ROWS)
-    return lbm::launch_halo<T>(geom, op, s);
-  else if constexpr (FORM == HALO_2D)
-    return lbm::launch_halo2d<T>(geom, op, s);
+        const long long* geoms, int n, int steps, cudaStream_t s) {
+  if constexpr (SHARDS)
+    return lbm::block::launch_shards<T>(geoms, n, steps, op, s);
   else
     return lbm::launch_periodic<T>(fin, fout, R, C, op, s);
 }
 
-// The step in the form FORM and the branch `mode`.
-template <typename T, int FORM>
-int dispatch(const void* fin, void* fout, long long R, long long C, const long long* geom,
-             const double* d, int mode, int iters, cudaStream_t s) {
+// The step in the form SHARDS and the branch `mode`.
+template <typename T, bool SHARDS>
+int dispatch(const void* fin, void* fout, long long R, long long C, const long long* geoms,
+             int n, int steps, const double* d, int mode, int iters, cudaStream_t s) {
   const Consts<T> k = consts<T>(d);
   switch (mode) {
     case NEWTONIAN:
-      return run<T, FORM>(PowerLaw<T, NEWTONIAN>{k, iters}, fin, fout, R, C, geom, s);
+      return run<T, SHARDS>(PowerLaw<T, NEWTONIAN>{k, iters}, fin, fout, R, C, geoms, n, steps,
+                            s);
     case PICARD:
-      return run<T, FORM>(PowerLaw<T, PICARD>{k, iters}, fin, fout, R, C, geom, s);
+      return run<T, SHARDS>(PowerLaw<T, PICARD>{k, iters}, fin, fout, R, C, geoms, n, steps, s);
     case NEWTON:
-      return run<T, FORM>(PowerLaw<T, NEWTON>{k, iters}, fin, fout, R, C, geom, s);
+      return run<T, SHARDS>(PowerLaw<T, NEWTON>{k, iters}, fin, fout, R, C, geoms, n, steps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -186,25 +186,27 @@ extern "C" int lbm_collide_stream_power_law(const void* fin, void* fout, long lo
                                             int mode, int iters, int is_f64,
                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? dispatch<double, PERIODIC>(fin, fout, R, C, nullptr, consts, mode, iters, s)
-                : dispatch<float, PERIODIC>(fin, fout, R, C, nullptr, consts, mode, iters, s);
-}
-
-// Kernel 27, power-law instance: one sweep with the geometry `geom`
-// (csrc/halo.cuh); params = the 15 constants, then the branch and iters.
-extern "C" int lbm_halo_power_law(const long long* geom, const double* params, int mode,
-                                  int iters, int is_f64, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? dispatch<double, HALO_ROWS>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s)
-                : dispatch<float, HALO_ROWS>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s);
-}
-
-// Kernel 34, power-law instance: one sweep on a rows x cols shard with the
-// geometry `geom` (csrc/halo2d.cuh); params as lbm_halo_power_law's.
-extern "C" int lbm_halo2d_power_law(const long long* geom, const double* params, int mode,
-                                    int iters, int is_f64, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64
-             ? dispatch<double, HALO_2D>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s)
-             : dispatch<float, HALO_2D>(nullptr, nullptr, 0, 0, geom, params, mode, iters, s);
+             ? dispatch<double, false>(fin, fout, R, C, nullptr, 0, 1, consts, mode, iters, s)
+             : dispatch<float, false>(fin, fout, R, C, nullptr, 0, 1, consts, mode, iters, s);
+}
+
+// Kernel 27, power-law instance: a call of `steps` steps on each of
+// `n_shards` row shards of the device, `geoms` their geometry arrays back to
+// back (csrc/collide_stream.cuh block::Geom; the columns wrap); params = the
+// 15 constants, mode = the branch, iters its iterations.
+extern "C" int lbm_halo_power_law(const long long* geoms, const double* params, int n_shards,
+                                  int steps, int mode, int iters, int is_f64, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? dispatch<double, true>(nullptr, nullptr, 0, 0, geoms, n_shards, steps, params,
+                                         mode, iters, s)
+                : dispatch<float, true>(nullptr, nullptr, 0, 0, geoms, n_shards, steps, params,
+                                        mode, iters, s);
+}
+
+// Kernel 34, power-law instance: the same call on rows x cols shards (their
+// 3 x 3 parts hold the neighbours' lines; no column wraps).
+extern "C" int lbm_halo2d_power_law(const long long* geoms, const double* params, int n_shards,
+                                    int steps, int mode, int iters, int is_f64, void* stream) {
+  return lbm_halo_power_law(geoms, params, n_shards, steps, mode, iters, is_f64, stream);
 }

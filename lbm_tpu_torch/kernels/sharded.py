@@ -35,6 +35,9 @@ Local steps, one per family, ``local(f_loc, top, bot, off, edge)``:
     (``launch_sweeps_shards``), and its first sweep reads a neighbour's
     edge rows in place where the neighbour shares the card
     (parallel/halo.py ``ring_rows``): no exchange copy on one card.
+    Kernel 27 runs a call's s steps on up to ``MAX_SHARDS`` shards of a card
+    in one launch (``launch_collide_shards``, csrc/collide_stream.cuh's
+    sharded call), reading its neighbours' rows in place the same way.
 
 Kernels (one C entry point per family instance, in the family's source,
 built with that source's flags so the collision is the same device code as
@@ -43,10 +46,12 @@ the single-device kernel's):
     lbm_tpu's ``make_local_halo_step`` / ``make_sharded_fused_step``
     (sharded_pallas.py:171, :528), one instance per local collision: BGK
     (csrc/collide_stream_bgk.cu, kernel 1's), KBC (kernel 3's), LES (5),
-    TRT (10) and the power law (11).  The collide function names its
-    instance through its ``halo_kernel`` attribute (bgk.bgk_collide_fn and
-    the other ``*_collide_fn``); a function without one raises on a CUDA
-    shard;
+    TRT (10) and the power law (11), each a call of s steps in one launch
+    over a card's shards (the tile engine of csrc/collide_stream.cuh: s
+    steps in shared memory, one pass over device memory; one step: a
+    thread a cell).  The collide function names its instance through its
+    ``halo_kernel`` attribute (bgk.bgk_collide_fn and the other
+    ``*_collide_fn``); a function without one raises on a CUDA shard;
   * kernel 28, ``HALO_THERMAL``: the Rayleigh-Benard step with a D2Q9
     temperature (:503 make_sharded_thermal_step; csrc/thermal.cu, kernel
     23's);
@@ -71,7 +76,8 @@ The rows x cols steps (kernels 34-38) are kernels/sharded2d.py.
 Bound: device-memory bytes, those of the family's single-device kernel per
 sweep over the band it computes, plus the halo reads of each exchange
 (chip_smoke.py counts them); the exchange itself is 2 n copies of
-``planes * halo * C`` values (kernel 33: none between shards of one card).
+``planes * halo * C`` values (kernels 27 and 33: none between shards of one
+card; 27 reads and writes its shards once a call).
 
 ``substeps="auto"`` resolves to the deepest cadence the family's strip
 admits (``AUTO_SUBSTEPS``).  lbm_tpu picks it from TPU v5e cadence tables
@@ -116,7 +122,17 @@ GEOM = ("top", "mid", "bot", "out", "top_plane", "mid_plane", "bot_plane", "out_
 _FAR = 1 << 62
 _ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-HALO_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo_{kind}", _ARGS)
+# the geometry array of one shard of kernels 27 and 34 (csrc/collide_stream.cuh
+# ``block::Geom``): 3 x 3 parts row-major, each (base, plane stride, row
+# stride), then the output's, the parts' halo, the shard's rows and columns
+# and whether its columns wrap
+BLOCK_GEOM = (*(f"in{a}{b}_{x}" for a in range(3) for b in range(3)
+                for x in ("base", "plane", "ld")),
+              "out", "out_plane", "out_ld", "halo", "rows", "cols", "wrap")
+# (geoms, params, n_shards, steps, i0, i1, is_f64, stream)
+BLOCK_ARGS = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+HALO_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo_{kind}", BLOCK_ARGS)
                        for kind in COLLIDE_KINDS}                           # kernel 27
 HALO_THERMAL = _build.CudaKernel("lbm_halo_thermal", _ARGS)                 # kernel 28
 HALO_MRTCG = _build.CudaKernel("lbm_halo_mrtcg_reduced", _ARGS)             # kernel 29
@@ -285,7 +301,7 @@ def _sweep_geoms(f, top, bot, off: int, edge: bool, R: int, *, substeps: int,
 def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, R: int, *,
                   substeps: int, rows_per_sweep: int, walls: bool, params, i0: int = 0,
                   i1: int = 0) -> torch.Tensor:
-    """``substeps`` launches of a halo-input kernel (27-32) on the shard
+    """``substeps`` launches of a halo-input kernel (28-32) on the shard
     ``f`` with its halos ``top`` and ``bot`` (``(planes, halo, C)`` each;
     ``_sweep_geoms``); returns the shard's new rows in a fresh buffer (``f``
     is never written).  Raises on a tensor the kernel does not take and on
@@ -362,10 +378,10 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
     ``edge`` on ranks 0 and n-1 (the masked instance; interior ranks run the
     mask-free one).  ``batched``, where given, takes every shard's (f_loc,
     top, bot, off, edge) at once instead and returns their new rows (kernel
-    33's ``launch_sweeps_shards``), with ``top`` and ``bot`` from
-    ``ring_rows``: a neighbour's rows in place where it shares the shard's
-    device, copied only across devices; ``local`` is then the plain
-    per-shard step.  ``step.plain`` runs the plain version on any device
+    33's ``launch_sweeps_shards``, 27's ``launch_collide_shards``), with
+    ``top`` and ``bot`` from ``ring_rows``: a neighbour's rows in place where
+    it shares the shard's device, copied only across devices; ``local`` is
+    then the plain per-shard step.  ``step.plain`` runs the plain version on any device
     after ``exchange_rows``: ``local`` beside ``batched``, else
     ``local.plain``, where the local step has one."""
     nx = mesh.shape["x"]
@@ -410,28 +426,96 @@ def make_sharded_body_step(mesh: Mesh, planes: int, R: int, C: int, local,
     return step
 
 
-def collide_launch(collide_fn, kernels: dict, sweeps, **kw):
-    """The launch of ``collide_fn``'s instance (its ``halo_kernel``
-    attribute) among ``kernels`` (kernel 27's or 34's, by kind):
-    ``sweeps`` (``launch_sweeps`` or sharded2d's ``launch_sweeps_2d``) bound
-    to that kernel, its parameters and ``kw``; one that raises when the
-    function names none."""
-    tag = getattr(collide_fn, "halo_kernel", None)
-    if tag is None or tag[0] not in kernels:
-        def launch(*_):
+def row_parts(f, top, bot):
+    """A row shard's 3 x 3 parts (csrc/collide_stream.cuh ``block::Shard``):
+    its halos above and below it in the middle column; the columns wrap."""
+    return [[None, top, None], [None, f, None], [None, bot, None]]
+
+
+PART_NAMES = (("top left", "top", "top right"), ("left", "shard", "right"),
+              ("bottom left", "bot", "bottom right"))
+
+
+def _check_parts(f, parts) -> tuple[int, int, int]:
+    """The shard's (R_loc, C_loc, halo); raises unless ``f`` is a kernel state
+    (``check_state``) and each part (None: one a row shard does not have) a
+    tensor of ``f``'s type and device, of the rows (halo, R_loc, halo) by
+    part row and the columns (halo, C_loc, halo) by part column, with unit
+    column stride (a copy, or a view of a neighbour's lines)."""
+    R_loc, C_loc = _build.check_state(f, 9)
+    halo = parts[0][1].shape[-2]
+    rows, cols = (halo, R_loc, halo), (halo, C_loc, halo)
+    for a in range(3):
+        for b in range(3):
+            h = parts[a][b]
+            shape = (9, rows[a], cols[b])
+            if h is not None and (tuple(h.shape) != shape or h.dtype != f.dtype or
+                                  h.device != f.device or (h.stride(2) != 1 and shape[2] > 1)):
+                raise ValueError(f"halo {PART_NAMES[a][b]} must be a {shape} {f.dtype} tensor "
+                                 f"on {f.device} with unit column stride, got "
+                                 f"{tuple(h.shape)} {h.dtype} on {h.device}, strides "
+                                 f"{h.stride()}")
+    return R_loc, C_loc, halo
+
+
+def block_geom(f, parts, out, wrap: bool) -> tuple:
+    """``BLOCK_GEOM``'s values of one shard ``f`` with its 3 x 3 ``parts``
+    (``row_parts`` where ``wrap``; a missing part takes the middle one of its
+    row) and its output buffer ``out``."""
+    R_loc, C_loc, halo = _check_parts(f, parts)
+    geom = []
+    for row in parts:
+        for h in row:
+            h = row[1] if h is None else h
+            geom += [h.data_ptr(), h.stride(0), h.stride(1)]
+    return (*geom, out.data_ptr(), out.stride(0), out.stride(1), halo, R_loc, C_loc, int(wrap))
+
+
+def launch_collide_shards(kernel, items, *, substeps: int, params, i0: int = 0, i1: int = 0,
+                          plain) -> list:
+    """A call of ``substeps`` steps of kernel 27 or 34 on ``items``, each
+    shard's (f, parts, wrap): a CPU shard's through ``plain(i)``, the others'
+    in one launch over up to ``MAX_SHARDS`` shards of one device and type
+    (``shard_batches``; blockIdx.y the shard), ``kernel.launch(geoms,
+    params, n_shards, substeps, i0, i1, is_f64, stream)``, which launches or
+    raises.  ``kernel`` None (a collide function that names no instance)
+    raises on a shard off the CPU.  Returns each shard's new values in a
+    fresh buffer (``f`` is never written); the parts stay referenced until
+    the launches are issued."""
+    out = [None] * len(items)
+    for batch in shard_batches([(f.device, f.dtype) for f, *_ in items]):
+        f0 = items[batch[0]][0]
+        if not resolve_fused(f0):
+            for i in batch:
+                out[i] = plain(i)
+            continue
+        if kernel is None:
             raise ValueError(
                 "this collide function names no halo-input kernel (no ``halo_kernel`` "
                 f"attribute of kind {COLLIDE_KINDS}): a CUDA shard has no kernel to run")
-        return launch
+        geoms = []
+        for i in batch:
+            f, parts, wrap = items[i]
+            out[i] = torch.empty_like(f)
+            geoms += block_geom(f, parts, out[i], wrap)
+        with torch.cuda.device(f0.device):
+            kernel.launch((ctypes.c_longlong * len(geoms))(*geoms), params, len(batch),
+                          substeps, i0, i1, int(f0.dtype == torch.float64),
+                          _build.stream_handle(f0))
+    return out
+
+
+def collide_launch(collide_fn, kernels: dict, substeps: int):
+    """``launch_collide_shards`` bound to ``collide_fn``'s instance (its
+    ``halo_kernel`` attribute) among ``kernels`` (kernel 27's or 34's, by
+    kind), its parameters and ``substeps``; to no kernel where the function
+    names none (a CUDA shard then raises)."""
+    tag = getattr(collide_fn, "halo_kernel", None)
+    if tag is None or tag[0] not in kernels:
+        return functools.partial(launch_collide_shards, None, substeps=substeps, params=None)
     kind, doubles, (i0, i1) = tag
-    return functools.partial(sweeps, kernels[kind], params=_build.c_doubles(doubles), i0=i0,
-                             i1=i1, **kw)
-
-
-def _collide_launch(collide_fn, R: int, substeps: int):
-    """Kernel 27's launch for ``collide_fn`` (``collide_launch``)."""
-    return collide_launch(collide_fn, HALO_COLLIDE_STREAM, launch_sweeps, R=R,
-                          substeps=substeps, rows_per_sweep=1, walls=False)
+    return functools.partial(launch_collide_shards, kernels[kind], substeps=substeps,
+                             params=_build.c_doubles(doubles), i0=i0, i1=i1)
 
 
 def make_local_halo_step(R_loc: int, C: int, collide_fn, dtype: torch.dtype = torch.float32,
@@ -439,16 +523,18 @@ def make_local_halo_step(R_loc: int, C: int, collide_fn, dtype: torch.dtype = to
     """The periodic collide-stream sweep over one shard with explicit
     ``(9, HALO, C)`` halos: ``(f_loc, halo_top, halo_bot) -> f_loc'``,
     ``substeps`` steps (lbm_tpu sharded_pallas.py:171).  Kernel 27 on a
-    CUDA shard, the plain version on a CPU shard."""
+    CUDA shard (one launch), the plain version on a CPU shard."""
     _check_sweeps(substeps, HALO)
-    local = make_local_halo_body_step(R_loc, collide_stream_body(collide_fn),
-                                      _collide_launch(collide_fn, R_loc, substeps), substeps)
+    body = collide_stream_body(collide_fn)
+    launch = collide_launch(collide_fn, HALO_COLLIDE_STREAM, substeps)
 
     def fn(f_loc, halo_top, halo_bot):
         if tuple(f_loc.shape) != (9, R_loc, C) or f_loc.dtype != dtype:
             raise ValueError(f"shard {tuple(f_loc.shape)} {f_loc.dtype}, step built for "
                              f"(9, {R_loc}, {C}) {dtype}")
-        return local(f_loc, halo_top, halo_bot, 0, False)
+        return launch([(f_loc, row_parts(f_loc, halo_top, halo_bot), True)],
+                      plain=lambda i: plain_sweeps(body, f_loc, halo_top, halo_bot, 0, R_loc,
+                                                   substeps))[0]
 
     return fn
 
@@ -457,12 +543,24 @@ def make_sharded_fused_step(mesh: Mesh, R: int, C: int, collide_fn,
                             dtype: torch.dtype = torch.float32, substeps: int | str = 1):
     """Globally periodic collide-stream with any local collision, rows
     sharded over the mesh: ShardedState -> ShardedState, ``substeps`` steps
-    per call and one exchange of HALO rows (lbm_tpu sharded_pallas.py:528).
-    Kernel 27 on CUDA shards."""
+    per call (lbm_tpu sharded_pallas.py:528).  Kernel 27 on CUDA shards: a
+    call's steps in one launch over up to MAX_SHARDS shards of a card
+    (``launch_collide_shards``), the neighbours' HALO edge rows read in place
+    where they share the card (``ring_rows``); CPU shards run the plain
+    version; ``step.plain`` the plain version after ``exchange_rows`` on any
+    device."""
     substeps = _check_sweeps(resolve_substeps(substeps, "bgk"), HALO)
-    local = make_local_halo_body_step(R, collide_stream_body(collide_fn),
-                                      _collide_launch(collide_fn, R, substeps), substeps)
-    return make_sharded_body_step(mesh, 9, R, C, local, dtype)
+    body = collide_stream_body(collide_fn)
+    launch = collide_launch(collide_fn, HALO_COLLIDE_STREAM, substeps)
+
+    def plain(f, top, bot, off, edge):
+        return plain_sweeps(body, f, top, bot, off, R, substeps)
+
+    def batched(shards):
+        return launch([(f, row_parts(f, top, bot), True) for f, top, bot, _, _ in shards],
+                      plain=lambda i: plain(*shards[i]))
+
+    return make_sharded_body_step(mesh, 9, R, C, plain, dtype, batched=batched)
 
 
 def make_sharded_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,

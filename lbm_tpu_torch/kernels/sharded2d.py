@@ -15,7 +15,9 @@ interior lanes, a Mosaic layout; the port's column strips are HALO columns
 wide, one a side, so the same 8-deep halo bounds the cadence in both axes:
 up to 8 sweeps per exchange, ``"auto"`` = 8.
 
-Local step ``local(f_loc, top, bot, left, right)``:
+Local step ``local(f_loc, top, bot, left, right)`` (``make_local_2d_step``;
+the sharded step reads the same padded block as ``parallel/halo.py``
+``ring_2d``'s 3 x 3 parts, in place where a neighbour shares the card):
   * on a CPU shard, the plain version, the doubly periodic path of
     parallel/sharded.py (``stream_halo``'s ``sweep_block``) with any
     collision and ``substeps`` sweeps: the shard and its four strips
@@ -24,24 +26,25 @@ Local step ``local(f_loc, top, bot, left, right)``:
     rolls wrap the block, and each sweep leaves one more line stale on every
     side), the shard kept.  It equals the single-device plain step bit for
     bit (the tests hold it so);
-  * on a CUDA shard, kernel 34, one launch per sweep (``launch_sweeps_2d``):
-    the first sweep reads the five buffers in place (csrc/halo2d.cuh),
-    later sweeps a padded scratch slab, the last one writes the shard only.
-    Sweep j of s writes the shard and s - j more rows and columns on each
-    side, reading one line beyond them (``sweep_bands`` in both axes).
+  * on CUDA shards, kernel 34: a call's s steps in one launch over up to
+    ``MAX_SHARDS`` shards of a card (kernels/sharded.py
+    ``launch_collide_shards``; csrc/collide_stream.cuh's tile engine runs
+    the s steps in shared memory, one pass over device memory), each shard
+    reading its padded block from its 3 x 3 parts in place.
 
 Kernel 34, ``HALO2D_COLLIDE_STREAM``, has one instance per local collision
 (BGK, KBC, LES, TRT, power law), each in its family's source beside
 kernels 1/3/5/10/11 and 27 with the same collision functor and flags
-(csrc/collide_stream.cuh ``halo2d_step``).  The collide function names its
-instance through its ``halo_kernel`` attribute, as for kernel 27; a
-function without one raises on a CUDA shard.
+(csrc/collide_stream.cuh ``block::launch_shards``).  The collide function
+names its instance through its ``halo_kernel`` attribute, as for kernel 27;
+a function without one raises on a CUDA shard.
 
-Bound: device-memory bytes, 72 B/cell in float32 over the band each sweep
-reads and writes, plus the strips of the exchange, each written and read
-once (chip_smoke.py counts them); the exchange itself is 2 n row strips
-of ``9 x HALO x C_loc`` and 2 n column strips of ``9 x (R_loc + 2 HALO) x
-HALO`` values, the column strips strided copies.
+Bound: device-memory bytes, 72 B/cell in float32, each shard read and
+written once a call, plus the neighbours' lines its first step reads (s a
+side); no exchange between shards of one card (``step.plain`` keeps
+``exchange_2d``: 2 n row strips of ``9 x HALO x C_loc`` and 2 n column
+strips of ``9 x (R_loc + 2 HALO) x HALO`` values, the column strips strided
+copies).
 
 The body steps (``make_sharded2d_body_step``, lbm_tpu's ``_sharded2d_wrap``
 :517-546) run a family's step on each shard with its global row and column
@@ -88,14 +91,14 @@ import functools
 
 import torch
 
-from ..parallel.halo import exchange_2d, pad_block
+from ..parallel.halo import exchange_2d, pad_block, parts_block, ring_2d, strip_parts
 from ..parallel.mesh import Mesh, ShardedState
 from ..parallel.sharded import sweep_block
 from ..utils.xmath import resolve_fused
 from . import _build, mrtcg, rk, shan_chen, thermal
 from ._build import MAX_SHARDS, shard_batches
-from .sharded import (_ARGS, COLLIDE_KINDS, HALO, ROWS_PER_SWEEP, _check_sweeps, _per_colour,
-                      collide_launch, resolve_substeps, sweep_bands, thermal_body)
+from .sharded import (_ARGS, BLOCK_ARGS, COLLIDE_KINDS, HALO, ROWS_PER_SWEEP, _check_sweeps,
+                      _per_colour, collide_launch, resolve_substeps, sweep_bands, thermal_body)
 
 # the geometry array of a rows x cols launch (csrc/halo2d.cuh ``Geom``)
 GEOM = ("top", "mid", "bot", "left", "right", "out",
@@ -104,7 +107,7 @@ GEOM = ("top", "mid", "bot", "left", "right", "out",
         "halo", "r_loc", "c_loc", "in_r_lo", "in_r_hi", "in_c_lo", "in_c_hi",
         "out_r_lo", "out_r_hi", "out_c_lo", "out_c_hi", "out_first",
         "off_r", "off_c", "rows", "cols", "edge")
-HALO2D_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo2d_{kind}", _ARGS)
+HALO2D_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo2d_{kind}", BLOCK_ARGS)
                          for kind in COLLIDE_KINDS}                       # kernel 34
 HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", _ARGS)       # kernel 35
 HALO2D_THERMAL = _build.CudaKernel("lbm_halo2d_thermal", _ARGS)           # kernel 36
@@ -198,14 +201,13 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
                      params, i0: int = 0, i1: int = 0, rows_per_sweep: int = 1,
                      walls: bool = False, off: tuple[int, int] = (0, 0),
                      shape: tuple[int, int] = (0, 0), edge: bool = False) -> torch.Tensor:
-    """``substeps`` launches of a rows x cols kernel (34, 35, 37, 38) on the
+    """``substeps`` launches of a rows x cols kernel (35, 37, 38) on the
     shard ``f`` with its four strips; returns the shard's new values in a
     fresh buffer (``f`` is never written).  Each sweep consumes
     ``rows_per_sweep`` lines of the strips in both axes; ``off`` is the
     shard's global (row, column) offset, ``shape`` the grid's (R, C),
     ``edge`` whether its rows reach a wall, ``walls`` clips the row bands to
-    the grid's rows (the body kernels read these; kernel 34 takes the
-    defaults).  Raises on a tensor the kernel does not take and on a
+    the grid's rows.  Raises on a tensor the kernel does not take and on a
     refused launch."""
     out, geoms, _slabs = _sweep_geoms(f, top, bot, left, right, substeps=substeps,
                                       rows_per_sweep=rows_per_sweep, walls=walls, off=off,
@@ -259,14 +261,14 @@ def make_local_2d_step(R_loc: int, C_loc: int, collide_fn, dtype: torch.dtype = 
     explicit strips: ``(f_loc (9, R_loc, C_loc), top, bot (9, HALO, C_loc),
     left, right (9, R_loc + 2 HALO, HALO)) -> f_loc'``, ``substeps`` steps
     (lbm_tpu sharded2d_pallas.py:223, whose combined 128-lane tile is here
-    the two strips).  Kernel 34 on a CUDA shard, the plain version on a CPU
-    shard; ``fn.plain`` is the plain version on any device."""
+    the two strips).  Kernel 34 on a CUDA shard (one launch, the strips read
+    as ``strip_parts``' views), the plain version on a CPU shard;
+    ``fn.plain`` is the plain version on any device."""
     _check_sweeps(substeps, HALO)
     if R_loc < HALO or C_loc < HALO:
         raise ValueError(f"local shard {R_loc}x{C_loc} smaller than the {HALO}-line "
                          "exchange strips")
-    launch = collide_launch(collide_fn, HALO2D_COLLIDE_STREAM, launch_sweeps_2d,
-                            substeps=substeps)
+    launch = collide_launch(collide_fn, HALO2D_COLLIDE_STREAM, substeps)
 
     def plain(f, top, bot, left, right):
         return sweep_block(pad_block(f, top, bot, left, right), top.shape[-2], collide_fn,
@@ -277,8 +279,9 @@ def make_local_2d_step(R_loc: int, C_loc: int, collide_fn, dtype: torch.dtype = 
             raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
                              f"(9, {R_loc}, {C_loc}) {dtype}")
         if resolve_fused(f):
-            return launch(f, top, bot, left, right)
-        return plain(f, top, bot, left, right)
+            _check_strips(f, top, bot, left, right, top.shape[-2])
+        return launch([(f, strip_parts(f, top, bot, left, right), False)],
+                      plain=lambda i: plain(f, top, bot, left, right))[0]
 
     fn.plain = plain
     return fn
@@ -288,32 +291,41 @@ def make_sharded_fused_step_2d(mesh: Mesh, R: int, C: int, collide_fn,
                                dtype: torch.dtype = torch.float32, substeps: int | str = 1):
     """Globally periodic collide-stream with any local collision, rows
     sharded over mesh axis 'x' and columns over 'y': ShardedState ->
-    ShardedState, ``substeps`` steps per call and one exchange of HALO rows
-    and columns (lbm_tpu sharded2d_pallas.py:290).  Kernel 34 on CUDA
-    shards; ``step.plain`` runs the plain version on any device."""
+    ShardedState, ``substeps`` steps per call (lbm_tpu
+    sharded2d_pallas.py:290).  Kernel 34 on CUDA shards: a call's steps in
+    one launch over up to MAX_SHARDS shards of a card, each padded block
+    read from ``ring_2d``'s 3 x 3 parts (the neighbours' HALO lines in place
+    where they share the card, copied only across cards); CPU shards run
+    the plain version on the same parts; ``step.plain`` runs the plain
+    version after ``exchange_2d`` on any device."""
     substeps = _check_sweeps(resolve_substeps(substeps, "bgk"), HALO)
     nx, ny = mesh.shape["x"], mesh.shape["y"]
     if R % nx or C % ny:
         raise ValueError(f"grid {R}x{C} not divisible by mesh {nx}x{ny}")
     R_loc, C_loc = R // nx, C // ny
     local = make_local_2d_step(R_loc, C_loc, collide_fn, dtype, substeps)
+    launch = collide_launch(collide_fn, HALO2D_COLLIDE_STREAM, substeps)
 
-    def build(run):
-        def step(state: ShardedState) -> ShardedState:
-            if state.mesh != mesh:
-                raise ValueError("the state is sharded over another mesh than the step's")
-            for f in state.shards:
-                if tuple(f.shape) != (9, R_loc, C_loc) or f.dtype != dtype:
-                    raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
-                                     f"(9, {R_loc}, {C_loc}) {dtype}")
-            grid = [state.shards[i * ny:(i + 1) * ny] for i in range(nx)]
-            return ShardedState(mesh, [run(f, *strips) for f, strips in
-                                       zip(state.shards, exchange_2d(grid, HALO))])
+    def check(state: ShardedState):
+        if state.mesh != mesh:
+            raise ValueError("the state is sharded over another mesh than the step's")
+        for f in state.shards:
+            if tuple(f.shape) != (9, R_loc, C_loc) or f.dtype != dtype:
+                raise ValueError(f"shard {tuple(f.shape)} {f.dtype}, step built for "
+                                 f"(9, {R_loc}, {C_loc}) {dtype}")
+        return [state.shards[i * ny:(i + 1) * ny] for i in range(nx)]
 
-        return step
+    def step(state: ShardedState) -> ShardedState:
+        parts = ring_2d(check(state), HALO)
+        return ShardedState(mesh, launch(
+            [(f, p, False) for f, p in zip(state.shards, parts)],
+            plain=lambda i: sweep_block(parts_block(parts[i]), HALO, collide_fn, substeps)))
 
-    step = build(local)
-    step.plain = build(local.plain)
+    def plain(state: ShardedState) -> ShardedState:
+        return ShardedState(mesh, [local.plain(f, *strips) for f, strips in
+                                   zip(state.shards, exchange_2d(check(state), HALO))])
+
+    step.plain = plain
     return step
 
 

@@ -15,9 +15,10 @@ algebraically the reference's inter-domain binding
 first, then the columns of the row-padded blocks, so a diagonal cell comes
 from the diagonal neighbour.  ``exchange_rows`` and ``exchange_2d`` send
 the strips of the kernel steps (kernels/sharded.py, kernels/sharded2d.py):
-edge strips only, never a copy of a whole shard.  ``ring_rows`` hands a
-kernel the rows of a neighbour on its own device in place, as views, and
-copies only across devices (kernel 33).
+edge strips only, never a copy of a whole shard.  ``ring_rows`` and
+``ring_2d`` hand a kernel the lines of a neighbour on its own device in
+place, as views, and copy only across devices (kernels 27 and 33; 34 takes
+``ring_2d``'s 3 x 3 parts of each padded block).
 """
 
 from __future__ import annotations
@@ -120,3 +121,40 @@ def exchange_2d(grid, width: int):
             out.append((*rows[j][i], strip(i, (j - 1) % ny, slice(-width, None), dev),
                         strip(i, (j + 1) % ny, slice(0, width), dev)))
     return out
+
+
+def ring_2d(grid, width: int):
+    """``exchange_2d``'s padded blocks without the copies a card does not
+    need: for each block of the row-major grid ``grid[i][j]``, in row-major
+    order, the 3 x 3 parts of its padded block, ``parts[a][b]`` the lines of
+    the block at ((i + a - 1) mod nx, (j + b - 1) mod ny): its last ``width``
+    rows (a = 0), all its rows (a = 1) or its first ``width`` (a = 2), and
+    its columns the same way by b; ``parts[1][1]`` is the block itself.  Each
+    is a view of that block's own buffer (plane and row strides its own)
+    where it lies on the receiving block's device, else a ``copy_to`` there.
+    The views hold ``exchange_2d``'s values (``strip_parts``) as long as
+    nothing writes the blocks (the sharded steps never write their input)."""
+    nx, ny = len(grid), len(grid[0])
+    lines = (slice(-width, None), slice(None), slice(0, width))
+
+    def part(i: int, j: int, a: int, b: int, device):
+        src = grid[(i + a - 1) % nx][(j + b - 1) % ny][..., lines[a], lines[b]]
+        return src if src.device == device else copy_to(src, device)
+
+    return [[[part(i, j, a, b, grid[i][j].device) for b in range(3)] for a in range(3)]
+            for i in range(nx) for j in range(ny)]
+
+
+def strip_parts(f: torch.Tensor, top, bot, left, right):
+    """The 3 x 3 parts of ``ring_2d`` as views of the block ``f`` and
+    ``exchange_2d``'s four strips around it (``left`` and ``right`` carry the
+    corners in their first and last ``width`` rows)."""
+    width, rows = top.shape[-2], f.shape[-2]
+    bands = (slice(0, width), slice(width, width + rows), slice(width + rows, None))
+    return [[left[..., bands[a], :], (top, f, bot)[a], right[..., bands[a], :]]
+            for a in range(3)]
+
+
+def parts_block(parts) -> torch.Tensor:
+    """The padded block that 3 x 3 parts tile (``pad_block`` of the strips)."""
+    return torch.cat([torch.cat(row, dim=-1) for row in parts], dim=-2)

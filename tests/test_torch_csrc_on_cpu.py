@@ -1,5 +1,6 @@
-"""Kernels 12, 36, 33 and 4 (csrc/rk_cg.cu, thermal.cu, d3q19.cu,
-channel_kbc.cu) compiled for the CPU with g++ through a stand-in for the
+"""Kernels 12, 36, 33, 4, 27 and 34 (csrc/rk_cg.cu, thermal.cu, d3q19.cu,
+channel_kbc.cu, collide_stream_bgk.cu and collide_stream_kbc.cu) compiled
+for the CPU with g++ through a stand-in for the
 CUDA runtime: a block's threads run as std::threads that meet at a
 std::barrier, blocks one after another, shared memory NaN-filled,
 cudaLaunchKernelEx a launch that counts the programmatic dependent ones.
@@ -22,13 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.kernels import _build, channel, d3q19, rk, thermal
+from lbm_tpu_torch.kernels import _build, bgk, channel, collide_stream, d3q19, rk, thermal
 from lbm_tpu_torch.kernels import sharded as ksh
 from lbm_tpu_torch.kernels import sharded2d as k2d
 from lbm_tpu_torch.ops import d2q9
 from lbm_tpu_torch.ops import d3q19 as od3
 from lbm_tpu_torch.parallel import mesh as pm
-from lbm_tpu_torch.parallel.halo import exchange_2d, exchange_rows, ring_rows
+from lbm_tpu_torch.parallel.halo import exchange_2d, exchange_rows, ring_rows, strip_parts
 
 CSRC = Path(__file__).resolve().parents[1] / "lbm_tpu_torch" / "csrc"
 TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
@@ -505,3 +506,140 @@ def test_kernel_4_designs_give_the_tree_bits(cpu_kernels_33_4, tmp_path, monkeyp
                 dependent = where.shim_pdl_count() - before
             assert dependent == (0 if name == "without PDL" else 3)
         assert torch.equal(got["tree"], got[design])
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels_27_34(tmp_path_factory):
+    """csrc/collide_stream_bgk.cu and collide_stream_kbc.cu as one CPU
+    library: kernels 1 and 3 and their instances of kernels 27 and 34."""
+    return _cpu_library(tmp_path_factory.mktemp("csrc_cpu_27_34"),
+                        ("collide_stream_bgk", "collide_stream_kbc"))
+
+
+def _single_steps(lib, kind, f, s):
+    """s steps of the CPU build's single-device kernel 1 (BGK) or 3 (KBC,
+    factored gamma) from f, each into a NaN-filled buffer."""
+    fn = lib.lbm_collide_stream_bgk if kind == "bgk" else lib.lbm_collide_stream_kbc
+    fn.restype = ctypes.c_int
+    R, C = f.shape[-2:]
+    is_f64 = int(f.dtype == torch.float64)
+    for _ in range(s):
+        out = torch.full_like(f, float("nan"))
+        args = (ctypes.c_double(OMEGA_27),) if kind == "bgk" else (
+            ctypes.c_double(OMEGA_27), ctypes.c_int(1))
+        assert fn(ctypes.c_void_p(f.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                  ctypes.c_longlong(R), ctypes.c_longlong(C), *args, ctypes.c_int(is_f64),
+                  None) == 0
+        f = out
+    return f
+
+
+OMEGA_27 = 1.0 / 0.8
+
+
+def _in_place_or_exchanged(monkeypatch, halos):
+    """Kernels 27 and 34 read the neighbours' lines through ``ring_rows`` and
+    ``ring_2d`` (views); "exchanged" hands them ``exchange_rows``' and
+    ``exchange_2d``' copies instead (``strip_parts``' views of the strips)."""
+    if halos == "exchanged":
+        monkeypatch.setattr(ksh, "ring_rows", exchange_rows)
+        monkeypatch.setattr(k2d, "ring_2d", lambda grid, w: [
+            strip_parts(f, *st) for f, st in zip((f for row in grid for f in row),
+                                                  exchange_2d(grid, w))])
+
+
+# (kind, mesh: n row shards or an (nx, ny) mesh, R, C, s, halos): shards that
+# are not multiples of a tile (a tile writes (48 - 2 s) x (64 - 2 s) cells,
+# 32 x 48 at s = 8; KBC's float32 tile (96 - 2 s) x (64 - 2 s)), fewer
+# columns than the halo on a row
+# shard, 16 shards in two launches, a mesh of one shard its own neighbour,
+# one step (the one-thread-a-cell engine); the neighbours' lines read in
+# place, and for three meshes also from the exchanges' copies
+K27_34_CASES = [
+    ("bgk", 8, 80, 52, 8, "in place"), ("bgk", 8, 80, 52, 8, "exchanged"),
+    ("kbc", 8, 80, 52, 8, "in place"), ("bgk", 3, 99, 61, 3, "in place"),
+    ("bgk", 3, 99, 61, 1, "in place"), ("bgk", 16, 160, 20, 3, "in place"),
+    ("bgk", 16, 160, 20, 3, "exchanged"), ("bgk", 2, 32, 5, 8, "in place"),
+    ("bgk", (4, 2), 80, 100, 8, "in place"), ("bgk", (4, 2), 80, 100, 8, "exchanged"),
+    ("kbc", (4, 2), 72, 100, 3, "in place"), ("bgk", (2, 4), 40, 36, 3, "in place"),
+    ("bgk", (1, 1), 50, 70, 8, "in place"), ("bgk", (4, 2), 40, 24, 1, "in place"),
+    ("bgk", (4, 4), 64, 64, 2, "in place")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,n,R,C,s,halos", K27_34_CASES)
+def test_kernels_27_34_source_match_plain(cpu_kernels_27_34, monkeypatch, dtype, kind, n, R,
+                                          C, s, halos):
+    """Kernels 27 (row shards) and 34 (rows x cols) of csrc/collide_stream.cuh
+    through the port's sharded steps: a call's s steps in one launch over up
+    to MAX_SHARDS shards (16: two), the tile engine for s >= 2, outputs
+    NaN-filled, two calls: the plain sharded step within TOL and the CPU
+    build's single-device kernel run 2 s times bit for bit, no NaN."""
+    two_d = isinstance(n, tuple)
+    shards = n[0] * n[1] if two_d else n
+    mesh = pm.make_mesh(["cpu"] * shards, n if two_d else None)
+    fn = (bgk.bgk_collide_fn(OMEGA_27, dtype) if kind == "bgk"
+          else collide_stream.kbc_collide_fn(OMEGA_27))
+    make = k2d.make_sharded_fused_step_2d if two_d else ksh.make_sharded_fused_step
+    x = _kbc_state(R, C, dtype, R * C + s)
+    plain = make(mesh, R, C, fn, dtype, substeps=s).plain
+    want = plain(plain(pm.shard_state(mesh, x))).gather()
+    kernel = (k2d.HALO2D_COLLIDE_STREAM if two_d else ksh.HALO_COLLIDE_STREAM)[kind]
+    _bind(monkeypatch, cpu_kernels_27_34, kernel)
+    monkeypatch.setattr(ksh, "resolve_fused", lambda f: True)
+    _in_place_or_exchanged(monkeypatch, halos)
+    step = make(mesh, R, C, fn, dtype, substeps=s)
+    single = _single_steps(cpu_kernels_27_34, kind, x, 2 * s)
+    _nan_buffers(monkeypatch)
+    before = kernel.launches
+    got = step(step(pm.shard_state(mesh, x))).gather()
+    assert kernel.launches - before == 2 * -(-shards // _build.MAX_SHARDS)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+    assert torch.equal(got, single)
+
+
+def test_kernels_27_34_refuse_what_they_cannot_run(cpu_kernels_27_34, monkeypatch):
+    """A launch of more than MAX_SHARDS shards, of no shard, or of more steps
+    than the parts' halo is refused (cudaErrorInvalidValue), and the wrapper
+    raises: no fallback."""
+    kernel = ksh.HALO_COLLIDE_STREAM["bgk"]
+    _bind(monkeypatch, cpu_kernels_27_34, kernel)
+    f = _kbc_state(16, 12, torch.float64, 1)
+    top, bot = f[:, -8:], f[:, :8]
+    out = torch.empty_like(f)
+    geom = ksh.block_geom(f, ksh.row_parts(f, top, bot), out, True)
+    params = _build.c_doubles([OMEGA_27])
+    for n, s in ((_build.MAX_SHARDS + 1, 2), (0, 2), (1, 9)):
+        geoms = (ctypes.c_longlong * (len(geom) * max(n, 1)))(*geom * max(n, 1))
+        with pytest.raises(RuntimeError, match="launch failed with cudaError_t 1"):
+            kernel.launch(geoms, params, n, s, 0, 0, 1, None)
+    kernel.launch((ctypes.c_longlong * len(geom))(*geom), params, 1, 2, 0, 0, 1, None)
+    assert torch.equal(out, _single_steps(cpu_kernels_27_34, "bgk", f, 2))
+
+
+@pytest.mark.parametrize("design", ["plain loads",
+                                    "float32 box 48 rows, two blocks an SM, every collision",
+                                    "float32 box 96 rows, 1024 threads, every collision",
+                                    "float32 box 64 rows, one block an SM", "float64 512 threads",
+                                    "tile at one step"])
+def test_kernels_27_34_designs_give_the_tree_bits(cpu_kernels_27_34, tmp_path, monkeypatch,
+                                                  design):
+    """chip_smoke.py's other designs of kernels 27 and 34 (K27_K34_DESIGNS,
+    edits of csrc/collide_stream.cuh that ``k27_k34_times`` times against it)
+    built for the CPU with csrc/collide_stream_bgk.cu: the tree's bits over a
+    call of 1 and of 3 steps on a (2, 2) mesh in both types."""
+    header = _chip_smoke().k27_k34_design_sources(CSRC)[design]
+    lib = _cpu_library(tmp_path, ("collide_stream_bgk",), {"collide_stream.cuh": header})
+    monkeypatch.setattr(ksh, "resolve_fused", lambda f: True)
+    mesh = pm.make_mesh(["cpu"] * 4, (2, 2))
+    for dtype in (torch.float64, torch.float32):
+        x = pm.shard_state(mesh, _kbc_state(36, 40, dtype, 7))
+        for s in (1, 3):
+            got = {}
+            for name, where in (("tree", cpu_kernels_27_34), (design, lib)):
+                with monkeypatch.context() as m:
+                    _bind(m, where, k2d.HALO2D_COLLIDE_STREAM["bgk"])
+                    step = k2d.make_sharded_fused_step_2d(
+                        mesh, 36, 40, bgk.bgk_collide_fn(OMEGA_27, dtype), dtype, substeps=s)
+                    got[name] = step(x).gather()
+            assert torch.equal(got["tree"], got[design])

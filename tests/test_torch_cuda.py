@@ -1376,7 +1376,9 @@ def _sharded_case(family, R, C, dtype, device, n, s):
 def test_sharded_kernels_match_single_device(cuda, family, n, s, dtype):
     """Kernels 27-30 on n shards of one card, two calls of s steps: bit for
     bit the single-device kernel of their family, within TOL of the plain
-    sharded version, and bit-identical run twice."""
+    sharded version, and bit-identical run twice.  Kernels 28-30 launch once
+    a shard and sweep, kernel 27 once a call over up to MAX_SHARDS shards of
+    the card."""
     from lbm_tpu_torch.parallel import mesh as pm
 
     R, C = (192, 40) if family in ("mrtcg", "csf", "rk") else (64, 72)
@@ -1387,7 +1389,8 @@ def test_sharded_kernels_match_single_device(cuda, family, n, s, dtype):
     again = step(step(pm.shard_state(mesh, x))).gather()
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather()
     torch.cuda.synchronize()
-    assert sum(k.launches for k in kernels) - sum(before) == 4 * n * s
+    per_call = -(-n // 8) if family in ("bgk", "kbc", "les", "trt", "power_law") else n * s
+    assert sum(k.launches for k in kernels) - sum(before) == 4 * per_call
     want = single(single(x))
     assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
     assert (got - plain).abs().max().item() <= TOL[dtype]
@@ -1505,7 +1508,8 @@ def test_sharded_kernels_31_to_33_match_single_device(cuda, family, n, s, dtype)
 def test_kernel_34_matches_single_device(cuda, kind, shape, s, dtype):
     """Kernel 34 on an (nx, ny) mesh of one card's shards, two calls of s
     steps: bit for bit the single-device kernel of the collision (1, 3, 5,
-    10, 11), within TOL of the plain sharded version, twice the same."""
+    10, 11), within TOL of the plain sharded version, twice the same; one
+    launch a call over up to MAX_SHARDS shards."""
     from lbm_tpu_torch.kernels import power_law, sharded2d, trt
     from lbm_tpu_torch.parallel import mesh as pm
 
@@ -1532,7 +1536,7 @@ def test_kernel_34_matches_single_device(cuda, kind, shape, s, dtype):
     again = step(step(pm.shard_state(mesh, x))).gather()
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather()
     torch.cuda.synchronize()
-    assert kernel.launches - before == 4 * shape[0] * shape[1] * s
+    assert kernel.launches - before == 4 * -(-shape[0] * shape[1] // 8)
     assert got.is_cuda and torch.equal(got, single(single(x))) and torch.equal(got, again)
     assert (got - plain).abs().max().item() <= TOL[dtype]
 
@@ -1561,6 +1565,111 @@ def test_kernels_31_to_34_reject_what_they_do_not_take(cuda):
         local(f, top, bot, left, right.cpu())
     assert torch.equal(local(f, top, bot, left, right),
                        bgk.make_fused_step(R, C, OMEGA, torch.float64)(f))
+
+
+def _k27_34_collision(kind, R, C, dtype, s):
+    """(collide function, single-device step of s steps) of one of kernels 27
+    and 34's collisions (kernels 1, 3, 5, 10, 11)."""
+    from lbm_tpu_torch.kernels import power_law, trt
+
+    return {
+        "bgk": lambda: (bgk.bgk_collide_fn(OMEGA, dtype),
+                        bgk.make_fused_step(R, C, OMEGA, dtype, s)),
+        "kbc": lambda: (collide_stream.kbc_collide_fn(OMEGA),
+                        collide_stream.make_kbc_fused_step(R, C, OMEGA, dtype, s)),
+        "les": lambda: (les.les_collide_fn(dtype=dtype, **LES),
+                        les.make_les_fused_step(R, C, dtype=dtype, substeps=s, **LES)),
+        "trt": lambda: (trt.trt_collide_fn(1.0 / 0.9, OM_MINUS, dtype),
+                        trt.make_trt_fused_step(R, C, omega_plus=1.0 / 0.9, omega_minus=OM_MINUS,
+                                                dtype=dtype, substeps=s)),
+        "power_law": lambda: (power_law.power_law_collide_fn(0.01, 0.5, 0.52, 50.0, 8, dtype),
+                              power_law.make_power_law_fused_step(R, C, cons_K=0.01, n=0.5,
+                                                                  dtype=dtype, substeps=s)),
+    }[kind]()
+
+
+def _tile(s, dtype, kind):
+    """The cells a tile of the sharded call's tile engine writes at s steps
+    (csrc/collide_stream.cuh ``Box``: 48 x 64, less s lines a side; 96 x 64
+    for the long collisions in float32)."""
+    tall = dtype == torch.float32 and kind in ("kbc", "power_law")
+    return (96 if tall else 48) - 2 * s, 64 - 2 * s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", range(1, 9))
+@pytest.mark.parametrize("kind", ["bgk", "kbc", "les", "trt", "power_law"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", [27, 34])
+def test_kernels_27_34_every_collision_and_cadence(cuda, kernel, dtype, kind, s):
+    """Kernels 27 (3 row shards) and 34 (a (2, 2) mesh) at s = 1..8 steps a
+    call, every collision, both types, on shards at a tile's edge: a shard of
+    exactly one tile's rows (27) or one more (34), and one column past a tile
+    or one short, odd: one launch a call, bit for bit the single-device
+    kernel run s times, within TOL of the plain sharded version."""
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    tr, tc = _tile(s, dtype, kind)
+    if kernel == 27:
+        shape, R, C = None, 3 * tr, 2 * tc + 1
+        mesh = pm.make_mesh([cuda] * 3)
+    else:
+        shape, R, C = (2, 2), 2 * (tr + 1), 2 * (tc - 1)
+        mesh = pm.make_mesh([cuda] * 4, shape)
+    fn, single = _k27_34_collision(kind, R, C, dtype, s)
+    make = ksh.make_sharded_fused_step if kernel == 27 else k2d.make_sharded_fused_step_2d
+    step = make(mesh, R, C, fn, dtype, substeps=s)
+    counted = (ksh.HALO_COLLIDE_STREAM if kernel == 27 else k2d.HALO2D_COLLIDE_STREAM)[kind]
+    x = _state(R, C, dtype, cuda, seed=R + C + s, noisy=True)
+    before = counted.launches
+    got = step(pm.shard_state(mesh, x)).gather()
+    torch.cuda.synchronize()
+    assert counted.launches - before == 1
+    assert got.is_cuda and torch.equal(got, single(x))
+    plain = step.plain(pm.shard_state(mesh, x)).gather()
+    assert (got - plain).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_27_34_copy_nothing_on_one_card_and_refuse_a_batch(cuda, monkeypatch):
+    """On shards of one card kernels 27 and 34 read their neighbours' lines
+    in place: the step makes no exchange copy (``step.plain`` makes its
+    exchange's); a launch the kernel refuses (more than MAX_SHARDS shards, or
+    more steps than the parts' halo) raises, no fallback."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    copies = []
+    copy_to = halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(1) or copy_to(src, dev))
+    fn = bgk.bgk_collide_fn(OMEGA, torch.float64)
+    x = _state(128, 96, torch.float64, cuda, seed=3, noisy=True)
+    for make, shape in ((ksh.make_sharded_fused_step, (8, 1)),
+                        (k2d.make_sharded_fused_step_2d, (4, 2))):
+        mesh = pm.make_mesh([cuda] * 8, shape)
+        step = make(mesh, 128, 96, fn, torch.float64, substeps=8)
+        got = step(pm.shard_state(mesh, x)).gather()
+        assert copies == []
+        assert torch.equal(got, bgk.make_fused_step(128, 96, OMEGA, torch.float64, 8)(x))
+        step.plain(pm.shard_state(mesh, x))
+        assert copies
+        copies.clear()
+    kernel = ksh.HALO_COLLIDE_STREAM["bgk"]
+    f = x[:, :16].contiguous()
+    out = torch.empty_like(f)
+    geom = ksh.block_geom(f, ksh.row_parts(f, f[:, -8:], f[:, :8]), out, True)
+    params = _build.c_doubles([OMEGA])
+    for n, s in ((9, 8), (1, 9)):
+        geoms = (ctypes.c_longlong * (len(geom) * n))(*geom * n)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernel.launch(geoms, params, n, s, 0, 0, 1, _build.stream_handle(f))
 
 
 # --- kernels 35-38: the rows x cols body steps ---------------------------------------

@@ -7,8 +7,10 @@ lbm_tpu's factory runs as its own tests run it: ``interpret=True`` on its 8
 virtual CPU devices, one case at its smallest legal shape (128 local
 columns), float64 at 1e-13.  The port's sharded plain step equals its
 single-device plain step bit for bit on every mesh and cadence here (the
-exchange and the rolls only move values).  Kernel 34 runs on the card only
-(tests/test_torch_cuda.py).
+exchange and the rolls only move values).  Kernel 34 runs on the card
+(tests/test_torch_cuda.py) and, built by g++, on the CPU
+(tests/test_torch_csrc_on_cpu.py); its inputs, ``ring_2d``'s in-place
+parts, are held to ``exchange_2d``'s strips here.
 """
 
 import jax
@@ -110,6 +112,51 @@ def test_exchange_2d_corners_match_a_periodic_roll(shape, width):
         lines = torch.arange(-width, 8 + width)
         window = x[:, (8 * i + lines) % R][:, :, (8 * j + lines) % C]
         assert torch.equal(block, window)
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4), (1, 1), (3, 1)])
+def test_ring_2d_views_equal_exchange_2d_strips(shape, monkeypatch):
+    """``ring_2d``'s 3 x 3 parts of each padded block are views of the
+    neighbours' buffers on one device (no copy; a corner of the diagonal
+    neighbour at its own plane and row strides) and equal ``exchange_2d``'s
+    strips as ``strip_parts`` views them: their concatenation is the same
+    padded block.  Across devices each part is a copy on the receiving one."""
+    nx, ny = shape
+    R_loc, C_loc, w = 10, 12, 8
+    x = torch.as_tensor(np.random.default_rng(11).uniform(size=(9, nx * R_loc, ny * C_loc)))
+    st = mesh.shard_state(mesh.make_mesh(["cpu"] * (nx * ny), shape), x)
+    grid = [st.shards[i * ny:(i + 1) * ny] for i in range(nx)]
+    copies = []
+    copy_to = halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(1) or copy_to(src, dev))
+    rings = halo.ring_2d(grid, w)
+    assert copies == []
+    strips = halo.exchange_2d(grid, w)
+    item = x.element_size()
+    for b, (parts, (top, bot, left, right)) in enumerate(zip(rings, strips)):
+        i, j = divmod(b, ny)
+        f = grid[i][j]
+        assert torch.equal(halo.parts_block(parts), halo.pad_block(f, top, bot, left, right))
+        for pa, pb in zip(parts, halo.strip_parts(f, top, bot, left, right)):
+            assert all(torch.equal(u, v) for u, v in zip(pa, pb))
+        corner = grid[(i - 1) % nx][(j - 1) % ny]
+        assert parts[0][0].data_ptr() == corner.data_ptr() + ((R_loc - w) * C_loc + C_loc - w) * item
+        assert parts[0][0].stride() == (R_loc * C_loc, C_loc, 1)
+        assert parts[1][1].data_ptr() == f.data_ptr()
+        assert parts[2][1].data_ptr() == grid[(i + 1) % nx][j].data_ptr()
+    copies.clear()
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(1) or torch.zeros(
+        src.shape, device=dev))
+    mixed = [[f if (i + j) % 2 else torch.empty(f.shape, dtype=f.dtype, device="meta")
+              for j, f in enumerate(row)] for i, row in enumerate(grid)]
+    crossing = 0
+    for b, parts in enumerate(halo.ring_2d(mixed, w)):
+        i, j = divmod(b, ny)
+        for a in range(3):
+            for c in range(3):
+                assert parts[a][c].device == mixed[i][j].device
+                crossing += mixed[(i + a - 1) % nx][(j + c - 1) % ny].device != mixed[i][j].device
+    assert len(copies) == crossing and (crossing > 0) == (nx * ny > 1)
 
 
 def test_sweep_bands_2d_shrink_to_the_shard():
