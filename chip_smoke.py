@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 4, 12, 16, 19-21, 27, 33, 34 and 36
-                                         # of the tree DIR (e.g. a git archive of the
-                                         # parent commit) against this one, and holds
-                                         # 4, 12, 19-21, 27, 33, 34 and 36 to DIR's bits
+                                         # kernels 2, 4, 9, 12, 16, 19-21, 27, 33, 34
+                                         # and 36 of the tree DIR (e.g. a git archive
+                                         # of the parent commit) against this one, and
+                                         # holds 2, 4, 9, 12, 19-21, 27, 33, 34 and 36
+                                         # to DIR's bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
                                          # time them whole and with parts left out
@@ -21,6 +22,10 @@
                                          # build, then only kernels 4 and 33 against
                                          # their other designs (and DIR's), held to
                                          # the same bits (k4_k33_times), as a JSON line
+    python3 chip_smoke.py --k2-k9 [--parent DIR]
+                                         # build, then only kernels 2 and 9 against
+                                         # their other designs (and DIR's), held to
+                                         # the same bits (k2_k9_times), as a JSON line
     python3 chip_smoke.py --k27-k34 [--parent DIR]
                                          # build, then only kernels 27 and 34 against
                                          # their other designs, the exchange alone (and
@@ -285,7 +290,11 @@ with a nonzero exit code):
      under --k4-k33), and kernel 33 at the cavity3d gate's launch shape
      (both types) and 32x256x1024 on 8 shards (s = 1 and 8) beside the
      exchange of HALO rows alone, with --parent against the parent tree's
-     in turns, every variant bit for bit the parent's (``k4_k33_times``); kernels 27 (8
+     in turns, every variant bit for bit the parent's (``k4_k33_times``); kernels 2
+     and 9 (trt, gravity, vertical, free_stream_cc) at 128x128, 21x21 and
+     4096x2048 in both types (``K2_K9_DESIGNS`` only under --k2-k9), with
+     --parent against the parent tree's in turns, bit for bit
+     (``k2_k9_times``); kernels 27 (8
      shards) and 34 ((4, 2)) at 4096x2048, s = 8 and 1, both types, BGK with
      the exchange alone, with --parent every collision against the parent
      tree's step (and BGK's first sweep alone) in turns, bit for bit
@@ -3629,67 +3638,128 @@ K4_TIMES = ((128, 128), BIG)
 K33_TIMES = (("cavity3d launch shape", (8, 64, 128), "cavity", 8, 2, ("float32", "float64")),
              ("32x256x1024", D3Q19_BIG, "periodic", 8, 1, ("float32",)),
              ("32x256x1024", D3Q19_BIG, "periodic", 8, 8, ("float32",)))
-# kernel 4's other designs (edits of csrc/channel_kbc.cu, built whole and
-# timed against it in ``k4_k33_times``): its blocks sized to the card as
-# plain launches (lever (a) left out), and lever (b), a register cap that
+# kernel 4's other designs (edits of csrc/, label -> {file: edits}, built
+# whole and timed against it in ``k4_k33_times``): its blocks sized to the
+# card as plain launches (lever (a) left out; the launch policy lives in
+# d2q9.cuh, shared with kernels 2 and 9), and lever (b), a register cap that
 # lets four 256-thread blocks share an SM (72 registers hold three)
 K4_DESIGNS = {
-    "without PDL": [("pdl ? 1u : 0u}", "0u}")],
-    "64 registers": [
+    "without PDL": {"d2q9.cuh": [("pdl ? 1u : 0u}", "0u}")]},
+    "64 registers": {"channel_kbc.cu": [
         ("template <typename T>\n__global__ void channel_kbc_kernel(",
-         "template <typename T>\n__global__ void __launch_bounds__(256, 4) channel_kbc_kernel(")]}
+         "template <typename T>\n__global__ void __launch_bounds__(256, 4) channel_kbc_kernel(")]}}
+# kernels 2 and 9's other designs (timed against the tree in
+# ``k2_k9_times``): plain launches of the sized blocks; 256-thread blocks (a
+# dependent launch all the same in one wave); a virtual line's thread
+# colliding its own cell before its source, as the parent design did (two
+# rounds of loads); kernel 9's wall tests only in the threads near a wall
+# line (the redesign's first tree; the tree tests them in every thread, as
+# the parent did)
+K2_K9_DESIGNS = {
+    "without PDL": {"d2q9.cuh": [("pdl ? 1u : 0u}", "0u}")]},
+    "256-thread blocks": {"d2q9.cuh": [
+        ("inline int block_threads(int64_t n, int sms) {\n",
+         "inline int block_threads(int64_t n, int sms) {\n  if (n >= 0) return 256;\n")]},
+    "own collision kept": {
+        "channel_bgk.cu": [
+            ("  collide(fin, n, src, omega, one_m_omega, coll, feq, ux, uy);\n",
+             "  collide(fin, n, cell, omega, one_m_omega, coll, feq, ux, uy);\n"
+             "  if (virtual_row) collide(fin, n, src, omega, one_m_omega, coll, feq, ux, "
+             "uy);\n")],
+        "channel_variant.cu": [
+            ("  collide<T, INCOMP, TRT, FORCE>(fin, n, src, P, coll, feq, ux, uy);\n",
+             "  collide<T, INCOMP, TRT, FORCE>(fin, n, cell, P, coll, feq, ux, uy);\n"
+             "  if (virtual_line) collide<T, INCOMP, TRT, FORCE>(fin, n, src, P, coll, feq, ux, "
+             "uy);\n")]},
+    "near walls only": {"channel_variant.cu": [
+        ("  // 7. the periodic push, less the entries a wall rule owns\n",
+         "  const bool edge = (P.row_walls != NONE && (r <= 1 || r >= R - 2)) ||\n"
+         "                    (P.col_walls != NONE && (c <= 1 || c >= C - 2));\n"
+         "  // 7. the periodic push, less the entries a wall rule owns\n"),
+        ("    if (!owned(k, rr, cc, R, C, P)) fout[k * n + rr * C + cc] = coll[k];\n  }\n",
+         "    if (!edge || !owned(k, rr, cc, R, C, P)) fout[k * n + rr * C + cc] = coll[k];\n"
+         "  }\n  if (!edge) return;\n")]}}
 
 
-def k4_design_sources(csrc: Path) -> dict:
-    """label -> csrc/channel_kbc.cu of the tree ``csrc`` with the edits of
-    each of ``K4_DESIGNS``; an edit that no longer finds its text stops the
-    run."""
+def source_edits(text: str, edits, where: str) -> str:
+    """``text`` with each (old, new) of ``edits`` applied; an edit that no
+    longer finds its text stops the run."""
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{where}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def design_sources(csrc: Path, designs: dict) -> dict:
+    """label -> {file name: the text of that file of the tree ``csrc`` with
+    the design's edits} for each of ``designs`` (label -> {file name:
+    edits}); an edit that no longer finds its text stops the run."""
+    return {label: {name: source_edits((csrc / name).read_text(), edits,
+                                       f"design {label!r} of {csrc}/{name}")
+                    for name, edits in files.items()}
+            for label, files in designs.items()}
+
+
+def build_designs(sources: dict, units, what: str, mark: str | None = None) -> dict:
+    """Each design of ``sources`` (label -> {file name: text}, as
+    ``design_sources`` gives) built: csrc/'s ``units``, each with its flags,
+    the design's files in place of the tree's, namespace lbm renamed (as
+    ``build_parent`` does), into a library of its own, every unit of every
+    design compiled at once: {label: the library}.  ptxas' report of each
+    design is logged (with ``mark``, only the kernels whose names hold it)."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+
+    rename = [("namespace lbm {", "namespace lbm_design {"), ("lbm::", "lbm_design::")]
+    nvcc, procs, works = _build.find_nvcc(), {}, {}
+    for i, (label, files) in enumerate(sources.items()):
+        work = works[label] = Path(tempfile.mkdtemp(prefix=f"design{i}-"))
+        atexit.register(shutil.rmtree, work, True)
+        for f in (*_build.CSRC.glob("*.cuh"), *(_build.CSRC / f"{u}.cu" for u in units)):
+            text = files.get(f.name) or f.read_text()
+            for old, new in rename:
+                text = text.replace(old, new)
+            (work / f.name).write_text(text)
+        for u in units:
+            procs[label, u] = subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get(u, ()), "-c", "-o",
+                 str(work / f"{u}.o"), str(work / f"{u}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for (label, u), proc in procs.items():
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {u}.cu of {what}'s design {label!r}:\n{text}")
+        if mark is None:
+            lines = [line.strip() for line in text.splitlines()
+                     if "registers" in line or "spill" in line]
+        else:
+            lines = [f"{name}: {regs} registers; {spill}" for name, regs, spill
+                     in ptxas_entries(f"== {u}.cu\n{text}", f"{u}.cu") if mark in name]
+        for line in lines:
+            log(f"[6] {what} design {label!r}, {u}.cu: {line}")
     out = {}
-    for label, edits in K4_DESIGNS.items():
-        text = (csrc / "channel_kbc.cu").read_text()
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"design {label!r} of {csrc}/channel_kbc.cu: the source no "
-                                   f"longer holds {old!r}")
-            text = text.replace(old, new)
-        out[label] = text
+    for label, work in works.items():
+        so = work / "libdesign.so"
+        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
+                        *(str(work / f"{u}.o") for u in units)], check=True, timeout=600,
+                       capture_output=True)
+        out[label] = ctypes.CDLL(str(so))
     return out
 
 
 def build_k4_designs() -> dict:
-    """Each of ``K4_DESIGNS`` built from its edited copy of csrc/channel_kbc.cu
-    (namespace lbm renamed, as ``build_parent`` does) into a library of its
-    own: {label: its lbm_channel_kbc}.  ptxas' report of each is logged."""
+    """Each of ``K4_DESIGNS`` built with csrc/channel_kbc.cu
+    (``build_designs``): {label: its lbm_channel_kbc}."""
     import ctypes
 
     from lbm_tpu_torch.kernels import _build, channel
 
-    work = Path(tempfile.mkdtemp(prefix="k4-designs-"))
-    atexit.register(shutil.rmtree, work, True)
-    rename = [("namespace lbm {", "namespace lbm_design {"), ("lbm::", "lbm_design::")]
-    for f in _build.CSRC.glob("*.cuh"):
-        text = f.read_text()
-        for old, new in rename:
-            text = text.replace(old, new)
-        (work / f.name).write_text(text)
-    nvcc, procs = _build.find_nvcc(), {}
-    for i, (label, text) in enumerate(k4_design_sources(_build.CSRC).items()):
-        for old, new in rename:
-            text = text.replace(old, new)
-        (work / f"d{i}.cu").write_text(text)
-        procs[label] = (work / f"libd{i}.so", subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get("channel_kbc", ()), "-shared",
-             "-o", str(work / f"libd{i}.so"), str(work / f"d{i}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
-    for label, (so, proc) in procs.items():
-        text = proc.communicate(timeout=600)[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on kernel 4's design {label!r}:\n{text}")
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[6] kernel 4 design {label!r}: {line.strip()}")
-        fn = ctypes.CDLL(str(so)).lbm_channel_kbc
+    for label, lib in build_designs(design_sources(_build.CSRC, K4_DESIGNS), ("channel_kbc",),
+                                    "kernel 4").items():
+        fn = lib.lbm_channel_kbc
         fn.argtypes, fn.restype = channel.CHANNEL_KBC.argtypes, ctypes.c_int
         out[label] = fn
     return out
@@ -3805,6 +3875,100 @@ def k4_k33_times(dev, card: str, parent=None, designs=False) -> dict:
     return out
 
 
+# kernels 2 and 9's timed shapes (the validation runs' 128x128, the Poiseuille
+# gate's 21x21, the big grid) and kernel 9's timed scenes (variants()): trt
+# (its launch shape), gravity (force), vertical (pressure on the columns,
+# bounce-back rows) and free_stream_cc (anti-bounce-back rows, the specular
+# rule skipping them)
+K2_K9_SHAPES = ((128, 128), (21, 21), BIG)
+K9_SCENES = ("trt", "gravity", "vertical", "free_stream_cc")
+
+
+def k2_k9_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernel 2 (poiseuille's constants) and kernel 9 (each of K9_SCENES) at
+    K2_K9_SHAPES in both types: us per step under CUDA graphs of 100 chained
+    steps, median of 3 in turns (``in_turns``), of this tree's kernel, with
+    ``designs`` also ``K2_K9_DESIGNS``' builds that edit the kernel's source
+    or d2q9.cuh, and with ``parent`` the parent tree's kernel (built by
+    ``build_parent``).  Every variant must give the same bits (the
+    parent's, where there is one) over 4 steps: it raises where they
+    differ.  Keys (kernel, case, dtype) -> {variant: us}."""
+    import ctypes
+
+    import torch
+
+    from lbm_tpu_torch.kernels import _build, channel
+
+    units = {2: ("channel_bgk", channel.CHANNEL_BGK), 9: ("channel_variant",
+                                                         channel.CHANNEL_VARIANT)}
+    libs = {}
+    if designs:
+        sources = design_sources(_build.CSRC, K2_K9_DESIGNS)
+        for label, lib in build_designs(sources, [u for u, _ in units.values()],
+                                        "kernels 2 and 9").items():
+            libs[label] = (lib, {name.removesuffix(".cu") for name in sources[label]})
+    if parent is not None:
+        libs = {"parent": (build_parent(parent, [u for u, _ in units.values()]),
+                           {"d2q9.cuh"}), **libs}
+
+    def bound_to(kernel, lib, step):
+        """``step`` with ``kernel`` bound to ``lib``'s entry point while it
+        runs (a graph records the function it was captured with)."""
+        fn = getattr(lib, kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+
+        def run(f):
+            saved, kernel._fn = kernel._fn, fn
+            try:
+                return step(f)
+            finally:
+                kernel._fn = saved
+        return run
+
+    out = {}
+    for k, (unit, kernel) in units.items():
+        scenes = (None,) if k == 2 else K9_SCENES
+        for scene, (R, C), dtype in ((s, sh, dt) for s in scenes for sh in K2_K9_SHAPES
+                                     for dt in (torch.float32, torch.float64)):
+            dt = str(dtype).removeprefix("torch.")
+            if k == 2:
+                label = f"poiseuille {R}x{C}"
+                new = channel.make_channel_fused_step(R, C, 1 / TAU_MAGIC, 1.001, 1.0, dtype)
+                x = seeded_state(R, C, dtype, dev, seed=11, incompressible=True)
+            else:
+                label = f"{scene} {R}x{C}"
+                new = channel.make_channel_variant_step(R, C, dtype=dtype, **variants()[scene])
+                x = seeded_state(R, C, dtype, dev, seed=9, incompressible=True, noisy=True)
+            steps = {"new": new}
+            for v, (lib, edits) in libs.items():
+                if unit in edits or "d2q9.cuh" in edits:
+                    steps[v] = bound_to(kernel, lib, new)
+            if "parent" in steps:
+                steps = {"parent": steps.pop("parent"), **steps}
+            want = None
+            for v, step in steps.items():
+                y = x
+                for _ in range(4):
+                    y = step(y)
+                torch.cuda.synchronize()
+                if want is None:
+                    want = (v, y)
+                elif not torch.equal(y, want[1]):
+                    raise AssertionError(f"kernel {k} {label} {dt}: {v} differs from "
+                                         f"{want[0]}'s bits")
+            med, runs = in_turns({v: (lambda st=st: graph_ms(st, x) * 1e3)
+                                  for v, st in steps.items()})
+            if "parent" in med:
+                med["change"] = med["new"] / med["parent"] - 1.0
+            out[k, label, dt] = med
+            log(f"[6] {card}; kernel {k} {label} {dt} (us per step, CUDA graphs of 100, "
+                f"median of 3 in turns; {', '.join(steps)} bit for bit alike over 4 steps): "
+                + ", ".join(f"{v} {us!r}" for v, us in med.items()) + f" (runs {runs})")
+            del x, want
+            torch.cuda.empty_cache()
+    return out
+
+
 # kernels 27 and 34's timed cases at 4096x2048, both types, every collision
 # of K34_KINDS: (kernel, shards or mesh, steps a call): the launch shape
 # (phase 5's periodic BGK runs, s = 8) and one step a call
@@ -3831,16 +3995,6 @@ K27_K34_DESIGNS = {
     "tile at one step": [("return steps >= 2;", "return steps >= 1;")]}
 
 
-def source_edits(text: str, edits, where: str) -> str:
-    """``text`` with each (old, new) of ``edits`` applied; an edit that no
-    longer finds its text stops the run."""
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"{where}: the source no longer holds {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def k27_k34_design_sources(csrc: Path) -> dict:
     """label -> csrc/collide_stream.cuh of the tree ``csrc`` with the edits of
     each of ``K27_K34_DESIGNS``."""
@@ -3851,48 +4005,16 @@ def k27_k34_design_sources(csrc: Path) -> dict:
 
 def build_k27_k34_designs() -> dict:
     """Each of ``K27_K34_DESIGNS`` built with the five collide-stream units
-    (csrc/collide_stream_{bgk,kbc,les,trt,power_law}.cu, each with its
-    flags) into a library of its own (namespace lbm renamed, as
-    ``build_parent`` does), every unit of every design compiled at once:
-    {label: the library}.  ptxas' report of the sharded call's kernels is
+    (csrc/collide_stream_{bgk,kbc,les,trt,power_law}.cu, ``build_designs``):
+    {label: the library}; ptxas' report of the tile engine's kernels is
     logged."""
-    import ctypes
-
     from lbm_tpu_torch.kernels import _build
     from lbm_tpu_torch.kernels import sharded as ksh
 
-    rename = [("namespace lbm {", "namespace lbm_design {"), ("lbm::", "lbm_design::")]
-    units = [f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS]
-    nvcc, procs, works = _build.find_nvcc(), {}, {}
-    for i, (label, header) in enumerate(k27_k34_design_sources(_build.CSRC).items()):
-        work = works[label] = Path(tempfile.mkdtemp(prefix=f"k27-k34-design{i}-"))
-        atexit.register(shutil.rmtree, work, True)
-        for f in (*_build.CSRC.glob("*.cuh"), *(_build.CSRC / f"{u}.cu" for u in units)):
-            text = header if f.name == "collide_stream.cuh" else f.read_text()
-            for old, new in rename:
-                text = text.replace(old, new)
-            (work / f.name).write_text(text)
-        for u in units:
-            procs[label, u] = subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, *_build.UNIT_FLAGS.get(u, ()), "-c", "-o",
-                 str(work / f"{u}.o"), str(work / f"{u}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for (label, u), proc in procs.items():
-        text = proc.communicate(timeout=900)[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {u}.cu of kernels 27-34's design {label!r}:\n"
-                               f"{text}")
-        for name, regs, spill in ptxas_entries(f"== {u}.cu\n{text}", f"{u}.cu"):
-            if "tile_steps" in name:
-                log(f"[6] kernels 27/34 design {label!r}: {name}: {regs} registers; {spill}")
-    out = {}
-    for label, work in works.items():
-        so = work / "libdesign.so"
-        subprocess.run([nvcc, *_build.NVCC_FLAGS[:2], "-shared", "-o", str(so),
-                        *(str(work / f"{u}.o") for u in units)], check=True, timeout=600,
-                       capture_output=True)
-        out[label] = ctypes.CDLL(str(so))
-    return out
+    sources = {label: {"collide_stream.cuh": header}
+               for label, header in k27_k34_design_sources(_build.CSRC).items()}
+    return build_designs(sources, [f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS],
+                         "kernels 27/34", mark="tile_steps")
 
 
 def load_parent_k27_k34(parent: Path) -> tuple:
@@ -4272,6 +4394,11 @@ def main(argv=None) -> int:
                     help="build, then only time kernels 4 and 33 against their other designs "
                          "(and, with --parent, the parent's), holding each to the same bits "
                          "(k4_k33_times), print the table as a JSON line, and stop")
+    ap.add_argument("--k2-k9", action="store_true",
+                    help="build, then only time kernels 2 and 9 against their other designs "
+                         "(K2_K9_DESIGNS) and, with --parent, the parent's, holding each to "
+                         "the same bits (k2_k9_times), print the table as a JSON line, and "
+                         "stop")
     ap.add_argument("--k27-k34", action="store_true",
                     help="build, then only time kernels 27 and 34 against their other designs "
                          "(K27_K34_DESIGNS), the exchange alone and, with --parent, the "
@@ -4377,6 +4504,11 @@ def main(argv=None) -> int:
     if args.k4_k33:
         table = k4_k33_times(dev, card, parent, designs=True)
         print(json.dumps({"k4_k33": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
+        return 0
+    if args.k2_k9:
+        table = k2_k9_times(dev, card, parent, designs=True)
+        print(json.dumps({"k2_k9": [[*key, us] for key, us in table.items()], "card": card}),
               flush=True)
         return 0
     if args.k27_k34:
@@ -5912,6 +6044,9 @@ def main(argv=None) -> int:
     # kernels 4 and 33 at their launch shapes and at the big grids, with the
     # exchange alone at 33's, against the parent tree's where --parent names one
     k4_k33_tm = k4_k33_times(dev, card, parent)
+    # kernels 2 and 9 at their launch shapes, the gate's 21x21 and the big
+    # grid, against the parent tree's where --parent names one
+    k2_k9_tm = k2_k9_times(dev, card, parent)
     # kernels 27 and 34 at their launch shape and at one step a call, every
     # collision, with the exchange alone, against the parent tree's where
     # --parent names one
@@ -6101,9 +6236,10 @@ def main(argv=None) -> int:
     kernels.append(lanes_entry(launches, err39, lanes_tm))
     next(e for e in kernels if e["name"] == "halo2d_thermal")["us"] = {
         f"{shape} {dt}": v for (k, shape, dt), v in rk_k36_tm.items() if k == 36}
-    for k, name in ((4, "channel_kbc"), (33, "halo_d3q19")):
+    for k, name, tm in ((4, "channel_kbc", k4_k33_tm), (33, "halo_d3q19", k4_k33_tm),
+                        (2, "channel_bgk", k2_k9_tm), (9, "channel_variant", k2_k9_tm)):
         next(e for e in kernels if e["name"] == name)["us"] = {
-            f"{shape} {dt}": v for (kk, shape, dt), v in k4_k33_tm.items() if kk == k}
+            f"{shape} {dt}": v for (kk, shape, dt), v in tm.items() if kk == k}
     for k, name in ((27, "halo_collide_stream"), (34, "halo2d_collide_stream")):
         next(e for e in kernels if e["name"] == name)["us"] = {
             f"{case} {dt}": v for (kk, case, dt), v in k27_k34_tm.items() if kk == k}

@@ -13,8 +13,10 @@
 // (ux, uy = mx, my), and feq_k = W_k (rho + 3 c_k.m) with no quadratic term.
 //
 // One thread per cell, neighbouring columns along a warp.  A thread on row 0
-// (R-1) recomputes the collision of row R-2 (1) in its own column from f_in,
-// so no thread depends on another's result.
+// (R-1) collides only row R-2 (1) of its own column from f_in, its source,
+// whose collision the rewrite takes whole: so every thread makes one round
+// of loads, and none depends on another's result.  One inlined `collide`
+// serves both rows, so its multiply-adds contract alike on both.
 //
 // Walls: the bounce-back overwrites exactly the populations that a periodic
 // push would wrap across the columns (planes 2, 5, 6 landing on column 0 and
@@ -26,9 +28,15 @@
 //
 // Shapes: any R >= 4 and C >= 2 (no tiling limits).
 //
-// Bound: device-memory bytes, 72 B/cell per float32 step.  Left on the table:
-// the redundant collision on the two pressure rows (2 of R rows do twice the
-// arithmetic, and their warps diverge), shared-memory tiling, vector loads.
+// Launch: lbm::launch_cells (d2q9.cuh), as kernel 4: blocks sized to the
+// card and a programmatic dependent launch where the grid fits the card in
+// one wave (the validation runs' 128x128 is 256 blocks of 64 threads).
+// lbm::grid_wait comes before the first load or store: the caching
+// allocator may hand step n+1's output the buffer step n still reads.
+//
+// Bound: device-memory bytes, 72 B/cell per float32 step; at 128x128 the
+// launch and the dependent loads, not the bytes.  Left on the table:
+// shared-memory tiling, vector loads.
 
 #include <cuda_runtime.h>
 
@@ -36,13 +44,16 @@
 
 namespace {
 
-// Post-collision populations and the equilibrium of one cell.
+// Post-collision populations and the equilibrium of one cell, and its
+// momentum; the cell's loads are issued before the dependent launch of the
+// next step is released.
 template <typename T>
 __device__ __forceinline__ void collide(const T* __restrict__ fin, int64_t n,
                                         int64_t cell, T omega, T one_m_omega,
                                         T coll[9], T feq[9], T& ux, T& uy) {
   T f[9];
   lbm::load9(fin, n, cell, f);
+  lbm::grid_release();
   T rho;
   lbm::moments(f, rho, ux, uy);
 #pragma unroll
@@ -61,21 +72,20 @@ __global__ void channel_bgk_kernel(const T* __restrict__ fin,
   if (cell >= n) return;
   const int64_t r = cell / C;
   const int64_t c = cell - r * C;
+  // virtual inlet (row 0) from the outlet row R-2; virtual outlet (row R-1)
+  // from the inlet row 1: eq(u[src], rho_bc) + (coll - feq)[src]
+  const bool virtual_row = r == 0 || r == R - 1;
+  const int64_t src = virtual_row ? ((r == 0) ? R - 2 : 1) * C + c : cell;
+  lbm::grid_wait();
 
   T coll[9], feq[9], ux, uy;
-  collide(fin, n, cell, omega, one_m_omega, coll, feq, ux, uy);
-
-  if (r == 0 || r == R - 1) {
-    // virtual inlet (row 0) from the outlet row R-2; virtual outlet (row R-1)
-    // from the inlet row 1: eq(u[src], rho_bc) + (coll - feq)[src]
-    const int64_t src_row = (r == 0) ? R - 2 : 1;
+  collide(fin, n, src, omega, one_m_omega, coll, feq, ux, uy);
+  if (virtual_row) {
     const T rho_bc = (r == 0) ? rho_in : rho_out;
-    T coll_s[9], feq_s[9], ux_s, uy_s;
-    collide(fin, n, src_row * C + c, omega, one_m_omega, coll_s, feq_s, ux_s, uy_s);
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      const T e = (rho_bc + T(3.0) * lbm::cu(k, ux_s, uy_s)) * T(lbm::weight(k));
-      coll[k] = e + coll_s[k] - feq_s[k];
+      const T e = (rho_bc + T(3.0) * lbm::cu(k, ux, uy)) * T(lbm::weight(k));
+      coll[k] = e + coll[k] - feq[k];
     }
   }
 
@@ -101,15 +111,10 @@ __global__ void channel_bgk_kernel(const T* __restrict__ fin,
 template <typename T>
 int launch(const void* fin, void* fout, long long R, long long C, double omega,
            double rho_in, double rho_out, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  channel_bgk_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), R, C,
-      static_cast<T>(omega), static_cast<T>(1.0 - omega),
-      static_cast<T>(rho_in), static_cast<T>(rho_out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lbm::launch_cells<channel_bgk_kernel<T>>(
+      static_cast<int64_t>(R) * C, stream, static_cast<const T*>(fin), static_cast<T*>(fout),
+      static_cast<int64_t>(R), static_cast<int64_t>(C), static_cast<T>(omega),
+      static_cast<T>(1.0 - omega), static_cast<T>(rho_in), static_cast<T>(rho_out)));
 }
 
 }  // namespace

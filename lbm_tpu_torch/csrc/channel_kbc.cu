@@ -35,19 +35,15 @@
 // table: the pressure rows in a launch of their own (fewer registers here),
 // more loads in flight per thread.
 //
-// Launch, sized to the card: the validation run (ulbm_poiseuille, 128x128
-// in float64, 300k steps) is 16,384 cells, 64 blocks of 256 threads, which
-// left 68 of an H100's 132 SMs idle.  A block takes the most of 256, 128
-// and 64 threads that still gives every SM two blocks (64 at 128x128: 256
-// blocks), from the SM count of the device it launches on (lbm::sm_count);
-// 4096x2048 keeps 256.  A grid that fits the card in one wave (every block
-// resident at once) is a programmatic dependent launch (lbm::grid_wait
-// before the first load of f_in, lbm::grid_release once a thread's loads
-// are issued), so step n+1's launch and ramp overlap step n's tail; its
-// threads still wait for the whole of step n and its stores.  A grid of
-// many waves launches plainly: there the dependent launch cost 3.5% at
-// 4096x2048 in float64 (H100, chip_smoke.py k4_k33_times).  The arithmetic
-// is untouched: the same bits as 256-thread blocks.
+// Launch, sized to the card (lbm::launch_cells in d2q9.cuh, shared with
+// kernels 2 and 9): the validation run (ulbm_poiseuille, 128x128 in float64, 300k steps) is 16,384
+// cells, which 256-thread blocks spread over 64 of an H100's 132 SMs.
+// Blocks of 64 threads give every SM two, and the grid, one wave, is a
+// programmatic dependent launch (lbm::grid_wait before the first load of
+// f_in, lbm::grid_release once a thread's loads are issued), so step n+1's
+// launch and ramp overlap step n's tail; its threads still wait for the
+// whole of step n and its stores.  The arithmetic is untouched: the same
+// bits as 256-thread blocks.
 
 #include <cuda_runtime.h>
 
@@ -111,60 +107,13 @@ __global__ void channel_kbc_kernel(const T* __restrict__ fin,
   }
 }
 
-// Threads a block: the most of 256, 128 and 64 that gives each of `sms` SMs
-// at least two blocks of the `n` cells, else 64.
-int block_threads(int64_t n, int sms) {
-  for (int t = 256; t > 64; t /= 2)
-    if ((n + t - 1) / t >= 2 * static_cast<int64_t>(sms)) return t;
-  return 64;
-}
-
-// Whether `blocks` blocks of `threads` fit the current device in one wave:
-// the kernel's resident blocks per SM (read once per device, type and block
-// size) times `sms`.
-template <typename T>
-cudaError_t one_wave(int threads, int64_t blocks, int sms, bool& fits) {
-  static int cached[lbm::MAX_DEVICES][256 / 64 + 1] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= lbm::MAX_DEVICES) return cudaErrorInvalidDevice;
-  int& per_sm = cached[dev][threads / 64];
-  if (per_sm == 0) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, channel_kbc_kernel<T>, threads,
-                                                      0);
-    if (e != cudaSuccess) return e;
-  }
-  fits = blocks <= static_cast<int64_t>(per_sm) * sms;
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch(const void* fin, void* fout, long long R, long long C, double s2,
            double rho_in, double rho_out, cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  int sms = 0;
-  cudaError_t e = lbm::sm_count(sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = block_threads(n, sms);
-  const int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  bool pdl = false;
-  e = one_wave<T>(threads, blocks, sms, pdl);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  // grid, block, dynamic shared memory, stream, attributes, their count
-  const cudaLaunchConfig_t cfg = {dim3(static_cast<unsigned>(blocks)),
-                                  dim3(static_cast<unsigned>(threads)), 0, stream, attr,
-                                  pdl ? 1u : 0u};
-  e = cudaLaunchKernelEx(&cfg, channel_kbc_kernel<T>, static_cast<const T*>(fin),
-                         static_cast<T*>(fout), static_cast<int64_t>(R), static_cast<int64_t>(C),
-                         lbm::kbc::make_params<T>(s2), static_cast<T>(rho_in),
-                         static_cast<T>(rho_out));
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  return static_cast<int>(lbm::launch_cells<channel_kbc_kernel<T>>(
+      static_cast<int64_t>(R) * C, stream, static_cast<const T*>(fin), static_cast<T*>(fout),
+      static_cast<int64_t>(R), static_cast<int64_t>(C), lbm::kbc::make_params<T>(s2),
+      static_cast<T>(rho_in), static_cast<T>(rho_out)));
 }
 
 }  // namespace

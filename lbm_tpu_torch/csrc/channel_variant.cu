@@ -22,9 +22,10 @@
 // constants rounded to T on the host as the plain version rounds them.
 //
 // One thread per cell, neighbouring columns along a warp.  A thread on a
-// virtual line recomputes the whole collision of its source cell (line N-2
-// or 1 in its column or row, force and Guo included) from f_in, so no
-// thread depends on another's result.
+// virtual line collides only its source cell (line N-2 or 1 in its column or
+// row, force and Guo included) from f_in, whose collision the rewrite takes
+// whole: one round of loads a thread, and no thread depends on another's
+// result.
 //
 // One writer per output entry.  A wall rule overwrites entries of its wall
 // line: bounce-back rows the planes with cx = -1 on row R-1 and cx = +1 on
@@ -36,14 +37,25 @@
 // anti-bounce-back rows and specular columns planes 4, 8, 7 (at column C-1)
 // come from the specular rule, as in lbm_tpu.  With `spec_skip_rows` the
 // column rule skips rows 0 and R-1 (free_stream's corner-consistent mode,
-// the specular lane 1:-1), which the anti-bounce-back rows then own.
+// the specular lane 1:-1), which the anti-bounce-back rows then own.  Every
+// thread tests its pushes against the wall rules, as the parent design did:
+// testing them only near a wall line (one uniform branch for the interior's
+// warps) was 1.6-4.5% faster at 4096x2048 in float32 but 0.1-0.5 us a step slower
+// at 128x128 and 21x21, where the validation runs launch; at 4096x2048 the
+// tests in every thread cost at most 0.8% over the parent (H100,
+// chip_smoke.py k2_k9_times, its design "near walls only").
 //
 // Shapes: any R >= 4 and C >= 4 (no tiling limits).
 //
-// Bound: device-memory bytes, 72 B/cell per float32 step, as kernel 2.  Left
-// on the table: the redundant collision on the two pressure lines (their
-// warps diverge, and on columns every warp of the grid's edge does), and
-// the branches on the boundary arguments in every thread.
+// Launch: lbm::launch_cells (d2q9.cuh), as kernels 2 and 4: blocks sized to
+// the card and a programmatic dependent launch where the grid fits the card
+// in one wave (trt_poiseuille's 128x128 is 256 blocks of 64 threads), each
+// of the six instances with its own occupancy.  lbm::grid_wait comes before
+// the first load or store: the caching allocator may hand step n+1's output
+// the buffer step n still reads.
+//
+// Bound: device-memory bytes, 72 B/cell per float32 step, as kernel 2; at
+// 128x128 the launch and the dependent loads, not the bytes.
 
 #include <cuda_runtime.h>
 
@@ -85,13 +97,15 @@ __device__ __forceinline__ void equilibrium(T rho, T ux, T uy, T feq[9]) {
 }
 
 // Steps 1-5 for one cell: its post-collision populations, its equilibrium
-// and its (shifted) velocity.
+// and its (shifted) velocity; the cell's loads are issued before the
+// dependent launch of the next step is released.
 template <typename T, bool INCOMP, bool TRT, bool FORCE>
 __device__ __forceinline__ void collide(const T* __restrict__ fin, int64_t n,
                                         int64_t cell, const Params<T>& P,
                                         T coll[9], T feq[9], T& ux, T& uy) {
   T f[9];
   lbm::load9(fin, n, cell, f);
+  lbm::grid_release();
   T rho, mx, my;
   lbm::moments(f, rho, mx, my);
   if (INCOMP) {
@@ -151,22 +165,24 @@ __global__ void channel_variant_kernel(const T* __restrict__ fin,
   const int64_t r = cell / C;
   const int64_t c = cell - r * C;
 
-  T coll[9], feq[9], ux, uy;
-  collide<T, INCOMP, TRT, FORCE>(fin, n, cell, P, coll, feq, ux, uy);
-
   // 6. virtual inlet (line 0) from line N-2, virtual outlet (line N-1) from
   // line 1: eq(u[src], rho_bc) + coll[src] - feq[src]
   const int64_t line = P.pressure_axis == 0 ? r : c;
   const int64_t N = P.pressure_axis == 0 ? R : C;
-  if (P.pressure_axis >= 0 && (line == 0 || line == N - 1)) {
-    const int64_t src_line = line == 0 ? N - 2 : 1;
-    const int64_t src = P.pressure_axis == 0 ? src_line * C + c : r * C + src_line;
+  const bool virtual_line = P.pressure_axis >= 0 && (line == 0 || line == N - 1);
+  const int64_t src_line = line == 0 ? N - 2 : 1;
+  const int64_t src = !virtual_line ? cell
+                      : P.pressure_axis == 0 ? src_line * C + c : r * C + src_line;
+  lbm::grid_wait();
+
+  T coll[9], feq[9], ux, uy;
+  collide<T, INCOMP, TRT, FORCE>(fin, n, src, P, coll, feq, ux, uy);
+  if (virtual_line) {
     const T rho_bc = line == 0 ? P.rho_in : P.rho_out;
-    T coll_s[9], feq_s[9], e[9], ux_s, uy_s;
-    collide<T, INCOMP, TRT, FORCE>(fin, n, src, P, coll_s, feq_s, ux_s, uy_s);
-    equilibrium<T, INCOMP>(rho_bc, ux_s, uy_s, e);
+    T e[9];
+    equilibrium<T, INCOMP>(rho_bc, ux, uy, e);
 #pragma unroll
-    for (int k = 0; k < 9; ++k) coll[k] = e[k] + coll_s[k] - feq_s[k];
+    for (int k = 0; k < 9; ++k) coll[k] = e[k] + coll[k] - feq[k];
   }
 
   // 7. the periodic push, less the entries a wall rule owns
@@ -224,14 +240,9 @@ __global__ void channel_variant_kernel(const T* __restrict__ fin,
 template <typename T, bool INCOMP, bool TRT, bool FORCE>
 int launch(const void* fin, void* fout, long long R, long long C, const Params<T>& P,
            cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(R) * C;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  channel_variant_kernel<T, INCOMP, TRT, FORCE>
-      <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-          static_cast<const T*>(fin), static_cast<T*>(fout), R, C, P);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lbm::launch_cells<channel_variant_kernel<T, INCOMP, TRT, FORCE>>(
+      static_cast<int64_t>(R) * C, stream, static_cast<const T*>(fin), static_cast<T*>(fout),
+      static_cast<int64_t>(R), static_cast<int64_t>(C), P));
 }
 
 template <typename T>

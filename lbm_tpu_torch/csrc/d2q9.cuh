@@ -73,6 +73,66 @@ __device__ __forceinline__ void grid_release() {
 #endif
 }
 
+// The launch of the one-thread-a-cell channel kernels (2, 4 and 9), sized to
+// the card.  A small grid (128x128 is 16,384 cells, 64 blocks of 256 threads)
+// would leave half of an H100's 132 SMs idle, so a block takes the most of
+// 256, 128 and 64 threads that still gives every SM two blocks (64 at
+// 128x128: 256 blocks); 4096x2048 keeps 256.
+inline int block_threads(int64_t n, int sms) {
+  for (int t = 256; t > 64; t /= 2)
+    if ((n + t - 1) / t >= 2 * static_cast<int64_t>(sms)) return t;
+  return 64;
+}
+
+// Whether `blocks` blocks of `threads` fit the current device in one wave:
+// KERNEL's resident blocks per SM times `sms`.  The occupancy is read once
+// per device and block size; each kernel instance has its own cache.
+template <auto KERNEL>
+inline cudaError_t one_wave(int threads, int64_t blocks, int sms, bool& fits) {
+  static int cached[MAX_DEVICES][256 / 64 + 1] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int& per_sm = cached[dev][threads / 64];
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, threads, 0);
+    if (e != cudaSuccess) return e;
+  }
+  fits = blocks <= static_cast<int64_t>(per_sm) * sms;
+  return cudaSuccess;
+}
+
+// Launches KERNEL(args...) over `n` cells, one thread a cell, on `stream`:
+// `block_threads` threads a block, and a programmatic dependent launch where
+// the grid fits the card in one wave, so that step n+1's launch and ramp
+// overlap step n's tail (its threads call grid_wait before their first load
+// or store and grid_release once their loads are issued).  A grid of many
+// waves launches plainly: there the dependent launch cost kernel 4 3.5% at
+// 4096x2048 in float64 (H100).  Returns the launch's cudaError_t.
+template <auto KERNEL, typename... Args>
+inline cudaError_t launch_cells(int64_t n, cudaStream_t stream, Args... args) {
+  if (n == 0) return cudaSuccess;
+  int sms = 0;
+  cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return e;
+  const int threads = block_threads(n, sms);
+  const int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  bool pdl = false;
+  e = one_wave<KERNEL>(threads, blocks, sms, pdl);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  // grid, block, dynamic shared memory, stream, attributes, their count
+  const cudaLaunchConfig_t cfg = {dim3(static_cast<unsigned>(blocks)),
+                                  dim3(static_cast<unsigned>(threads)), 0, stream, attr,
+                                  pdl ? 1u : 0u};
+  e = cudaLaunchKernelEx(&cfg, KERNEL, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 __host__ __device__ constexpr int cx(int k) {
   return (k == 1 || k == 5 || k == 8) ? 1 : (k == 3 || k == 6 || k == 7) ? -1 : 0;
 }

@@ -1,11 +1,12 @@
-"""Kernels 12, 36, 33, 4, 27 and 34 (csrc/rk_cg.cu, thermal.cu, d3q19.cu,
-channel_kbc.cu, collide_stream_bgk.cu and collide_stream_kbc.cu) compiled
-for the CPU with g++ through a stand-in for the
-CUDA runtime: a block's threads run as std::threads that meet at a
-std::barrier, blocks one after another, shared memory NaN-filled,
+"""Kernels 12, 36, 33, 4, 27, 34, 2 and 9 (csrc/rk_cg.cu, thermal.cu,
+d3q19.cu, channel_kbc.cu, collide_stream_bgk.cu, collide_stream_kbc.cu,
+channel_bgk.cu and channel_variant.cu) compiled for the CPU with g++ through
+a stand-in for the CUDA runtime: a block's threads run as std::threads that
+meet at a std::barrier, blocks one after another, shared memory NaN-filled,
 cudaLaunchKernelEx a launch that counts the programmatic dependent ones.
 Every operation of these sources rounds once in IEEE arithmetic (-fmad=false
-on the card for all but channel_kbc.cu, -ffp-contract=off here), and each
+on the card for all but channel_kbc.cu and channel_bgk.cu, -ffp-contract=off
+here), and each
 kernel is held to its plain version at the card tests' tolerance: torch's
 CPU kernels round a few operations differently (its square root by an ulp).
 A wrong geometry, tap or batch gives errors of order one or NaN.  No JAX,
@@ -490,8 +491,9 @@ def test_kernel_4_designs_give_the_tree_bits(cpu_kernels_33_4, tmp_path, monkeyp
     csrc/channel_kbc.cu that ``k4_k33_times`` times against it) built for
     the CPU: the tree's kernel's bits over 3 steps in both types at 16x24
     (one wave), and no dependent launch without PDL."""
-    src = _chip_smoke().k4_design_sources(CSRC)[design]
-    lib = _cpu_library(tmp_path, ("channel_kbc",), {"channel_kbc.cu": src})
+    smoke = _chip_smoke()
+    lib = _cpu_library(tmp_path, ("channel_kbc",),
+                       smoke.design_sources(CSRC, smoke.K4_DESIGNS)[design])
     args = (1.7, 1.001, 1.0)
     for dtype in (torch.float64, torch.float32):
         f = _kbc_state(16, 24, dtype, 384)
@@ -506,6 +508,110 @@ def test_kernel_4_designs_give_the_tree_bits(cpu_kernels_33_4, tmp_path, monkeyp
                 dependent = where.shim_pdl_count() - before
             assert dependent == (0 if name == "without PDL" else 3)
         assert torch.equal(got["tree"], got[design])
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels_2_9(tmp_path_factory):
+    """csrc/channel_bgk.cu and csrc/channel_variant.cu as one CPU library."""
+    return _cpu_library(tmp_path_factory.mktemp("csrc_cpu_2_9"), ("channel_bgk", "channel_variant"))
+
+
+K2_ARGS = (1.0 / 0.9, 1.02, 1.0)  # omega, rho_in, rho_out
+
+
+def _channel_steps(lib, monkeypatch, f, kernel, make_step, steps=3):
+    """``steps`` steps of ``make_step()`` with ``kernel`` bound to the CPU
+    build ``lib``, into NaN-filled outputs: (the state, its launches, the
+    dependent ones among them)."""
+    with monkeypatch.context() as m:
+        _bind(m, lib, kernel)
+        m.setattr(channel, "resolve_fused", lambda f: True)
+        step = make_step()
+        _nan_buffers(m)
+        before, pdl = kernel.launches, lib.shim_pdl_count()
+        for _ in range(steps):
+            f = step(f)
+        return f, kernel.launches - before, lib.shim_pdl_count() - pdl
+
+
+def _k2_steps(lib, monkeypatch, f):
+    """Kernel 2 through make_channel_fused_step (``_channel_steps``)."""
+    R, C = f.shape[-2:]
+    return _channel_steps(lib, monkeypatch, f, channel.CHANNEL_BGK,
+                          lambda: channel.make_channel_fused_step(R, C, *K2_ARGS, f.dtype))
+
+
+def _k9_steps(lib, monkeypatch, f, scene):
+    """Kernel 9 in chip_smoke.py's variant ``scene`` through
+    make_channel_variant_step (``_channel_steps``)."""
+    R, C = f.shape[-2:]
+    kw = _chip_smoke().variants()[scene]
+    return _channel_steps(lib, monkeypatch, f, channel.CHANNEL_VARIANT,
+                          lambda: channel.make_channel_variant_step(R, C, dtype=f.dtype, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C,one_wave", [(16, 24, True), (37, 29, False), (21, 21, True),
+                                          (4, 2, True)])
+def test_kernel_2_source_matches_plain(cpu_kernels_2_9, monkeypatch, dtype, R, C, one_wave):
+    """csrc/channel_bgk.cu's kernel 2 through make_channel_fused_step, its
+    blocks sized to the stand-in's 4 SMs of 2 resident blocks each (6 and 7
+    blocks of 64 threads at 16x24 and 21x21, 1 at 4x2: one wave, so
+    programmatic dependent launches; 9 of 128 at 37x29: plain launches), a
+    virtual row's thread colliding only its source, 3 steps into NaN-filled
+    outputs: channel_model(...).step within TOL."""
+    f = _kbc_state(R, C, dtype, R * C + 2)
+    plain = channel.channel_model(*K2_ARGS).step
+    want = plain(plain(plain(f)))
+    got, launches, dependent = _k2_steps(cpu_kernels_2_9, monkeypatch, f)
+    assert launches == 3 and dependent == (3 if one_wave else 0)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+K9_SCENES = ["gravity", "specular", "free_stream", "free_stream_cc", "vertical",
+             "vertical_incomp", "trt"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C,one_wave", [(16, 24, True), (37, 29, False), (4, 4, True)])
+@pytest.mark.parametrize("scene", K9_SCENES)
+def test_kernel_9_source_matches_plain(cpu_kernels_2_9, monkeypatch, dtype, R, C, one_wave,
+                                       scene):
+    """csrc/channel_variant.cu's kernel 9 in every scene variant of
+    chip_smoke.py (pressure on rows and on columns, force, TRT, bounce-back,
+    anti-bounce-back and specular walls, the corner-consistent mode) through
+    make_channel_variant_step, sized as kernel 2 (dependent launches only in
+    one wave), a virtual line's thread colliding only its source, 3 steps
+    into NaN-filled outputs: the plain step within TOL."""
+    kw = _chip_smoke().variants()[scene]
+    f = _kbc_state(R, C, dtype, R * C + 9)
+    plain = channel.make_channel_variant_step(R, C, dtype=dtype, **kw)
+    want = plain(plain(plain(f)))
+    got, launches, dependent = _k9_steps(cpu_kernels_2_9, monkeypatch, f, scene)
+    assert launches == 3 and dependent == (3 if one_wave else 0)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("design", ["without PDL", "256-thread blocks", "own collision kept",
+                                    "near walls only"])
+def test_kernels_2_9_designs_give_the_tree_bits(cpu_kernels_2_9, tmp_path, monkeypatch, design):
+    """chip_smoke.py's other designs of kernels 2 and 9 (K2_K9_DESIGNS, edits
+    of csrc/ that ``k2_k9_times`` times against the tree) built for the CPU:
+    the tree's bits over 3 steps in both types at 16x24 (one wave), kernel 2
+    and kernel 9 with pressure on rows and on columns, force and
+    anti-bounce-back rows; no dependent launch without PDL."""
+    smoke = _chip_smoke()
+    lib = _cpu_library(tmp_path, ("channel_bgk", "channel_variant"),
+                       smoke.design_sources(CSRC, smoke.K2_K9_DESIGNS)[design])
+    dependent = 0 if design == "without PDL" else 3
+    for dtype in (torch.float64, torch.float32):
+        f = _kbc_state(16, 24, dtype, 29)
+        tree, design_run = (_k2_steps(where, monkeypatch, f) for where in (cpu_kernels_2_9, lib))
+        assert torch.equal(tree[0], design_run[0]) and design_run[2] == dependent
+        for scene in ("trt", "vertical", "gravity", "free_stream_cc"):
+            tree, design_run = (_k9_steps(where, monkeypatch, f, scene)
+                                for where in (cpu_kernels_2_9, lib))
+            assert torch.equal(tree[0], design_run[0]) and design_run[2] == dependent
 
 
 @pytest.fixture(scope="module")

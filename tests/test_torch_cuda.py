@@ -2319,3 +2319,59 @@ def test_kernel_4_sized_launch_matches_plain(cuda, dtype, shape):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(128, 128), (4096, 2048), (37, 29), (4, 2)])
+def test_kernel_2_sized_launch_matches_plain(cuda, dtype, shape):
+    """Kernel 2 with blocks sized to the card, a programmatic dependent
+    launch where the grid fits in one wave (128x128, 37x29, 4x2), a virtual
+    row's thread colliding only its source, 3 steps: one launch a step,
+    within TOL of channel_model(...).step; a CUDA graph of the steps gives
+    the same bits."""
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=R + C + 2, incompressible=True, noisy=True)
+    args = (1.0 / TAU_MAGIC, 1.001, 1.0)
+    step = channel.make_channel_fused_step(R, C, *args, dtype)
+    before = channel.CHANNEL_BGK.launches
+    got = step(step(step(f)))
+    torch.cuda.synchronize()
+    assert channel.CHANNEL_BGK.launches - before == 3
+    plain = channel.channel_model(*args).step
+    assert (got - plain(plain(plain(f)))).abs().max().item() <= TOL[dtype]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step(step(step(f)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(128, 128), (4096, 2048), (37, 29), (4, 4)])
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_kernel_9_sized_launch_matches_plain(cuda, name, dtype, shape):
+    """Kernel 9 in every variant with blocks sized to the card, a
+    programmatic dependent launch where the grid fits in one wave (128x128,
+    37x29, 4x4), a virtual line's thread colliding only its source and the
+    wall tests only near a wall line, 3 steps: one launch a step, within TOL
+    of the plain model step; a CUDA graph of the steps gives the same bits."""
+    kw = VARIANTS[name]
+    R, C = shape
+    f = _state(R, C, dtype, cuda, seed=R + C + 9, incompressible=kw["incompressible"],
+               noisy=True)
+    step = channel.make_channel_variant_step(R, C, dtype=dtype, **kw)
+    before = channel.CHANNEL_VARIANT.launches
+    got = step(step(step(f)))
+    torch.cuda.synchronize()
+    assert channel.CHANNEL_VARIANT.launches - before == 3
+    plain = channel.ChannelVariant(**kw).model().step
+    assert (got - plain(plain(plain(f)))).abs().max().item() <= TOL[dtype]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step(step(step(f)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
