@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 2, 4, 9, 12, 16, 19-21, 27, 33, 34
-                                         # and 36 of the tree DIR (e.g. a git archive
-                                         # of the parent commit) against this one, and
-                                         # holds 2, 4, 9, 12, 19-21, 27, 33, 34 and 36
-                                         # to DIR's bits
+                                         # kernels 2, 4, 9, 12, 16, 19-21, 27, 32-36
+                                         # of the tree DIR (e.g. a git archive of the
+                                         # parent commit) against this one, and holds
+                                         # 2, 4, 9, 12, 19-21, 27 and 32-36 to DIR's
+                                         # bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
                                          # time them whole and with parts left out
@@ -31,6 +31,10 @@
                                          # their other designs, the exchange alone (and
                                          # DIR's step and its first sweep alone), held
                                          # to the same bits (k27_k34_times), JSON line
+    python3 chip_smoke.py --k32-k35 [--parent DIR]
+                                         # build, then only kernels 32 and 35 against
+                                         # their other designs (and DIR's), held to
+                                         # the same bits (k32_k35_times), JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -231,7 +235,8 @@ with a nonzero exit code):
      CSF Rayleigh-Taylor 256x128 in the full layout on 8 shards, each bit
      for bit its single-device kernel; sc_phase_separation 256x256 on 8
      shards, 4 steps per exchange, bit for bit the scene and within its
-     gate; the cavity3d gate with Y over 8 shards, bit for bit the scene
+     gate, four kernel-32 launches a call and no exchange copy; the
+     cavity3d gate with Y over 8 shards, bit for bit the scene
      and within the gate, two kernel-33 launches a call and no exchange
      copy; the dry run of parallel/dryrun.py; one shard per
      card for kernels 27-38 when there are several (``sharded_cards``; else
@@ -241,7 +246,8 @@ with a nonzero exit code):
      (4, 2), mrtcg_rayleigh_taylor's 256x128 on (4, 2), CSF on (2, 4),
      rk_rayleigh_taylor's 1024x256 on (4, 2), each bit for bit its
      single-device kernel; sc_phase_separation 256x256 on (4, 2), bit for
-     bit the scene and within its gate; rayleigh_benard 64x128 on (4, 2)
+     bit the scene and within its gate, four kernel-35 launches a call and
+     no exchange copy; rayleigh_benard 64x128 on (4, 2)
      (30k steps, 8 per exchange), bit for bit the scene and within the
      thermal gate's Nusselt band; kernel 39 (``LANES_PATH``, ``lanes_path``,
      through kernels/mrtcg.py make_mrtcg_reduced_lanes_step): bench.py's
@@ -298,7 +304,11 @@ with a nonzero exit code):
      shards) and 34 ((4, 2)) at 4096x2048, s = 8 and 1, both types, BGK with
      the exchange alone, with --parent every collision against the parent
      tree's step (and BGK's first sweep alone) in turns, bit for bit
-     (``k27_k34_times``); and the table of every
+     (``k27_k34_times``); kernels 32 (8 shards) and 35 ((4, 2)) at their
+     launch shape in both types and at 4096x2048, s = 1 and 4, with their
+     launches a call and bound (``K32_K35_DESIGNS`` only under --k32-k35),
+     with --parent against the parent tree's step in turns, bit for bit
+     (``k32_k35_times``); and the table of every
      kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
      ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
      its phase-5 launches and launches x (time - bound), ranked).
@@ -309,6 +319,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import functools
 import json
 import shutil
@@ -1837,7 +1848,8 @@ def k31_34_path(dev, counted) -> dict:
     steps); mrtcg_rayleigh_taylor's 256x128 initial state in the full
     layout on 8 shards (2000 steps, 5 per exchange; CSF mode 1000, 4);
     sc_phase_separation's 256x256 initial state on 8 shards, 4 steps per
-    exchange, 4000 steps, against the scene and with its gate; the cavity3d
+    exchange, 4000 steps, against the scene and with its gate, one kernel-32
+    launch a sweep and no exchange copy; the cavity3d
     gate's cavity (8x64x128, 20000 steps, 2 per exchange) with Y over 8
     shards, against the scene and with the gate, one kernel-33 launch a
     sweep and no exchange copy (its shards share the card); the dry run on 8 shards
@@ -1891,12 +1903,21 @@ def k31_34_path(dev, counted) -> dict:
     # the scene (kernel 14) and with the phase-5 gate
     label = "sc_phase_separation"
     step = ksh.make_sharded_sc_step(mesh8, H, W, omega=1.0, G=-5.0, substeps=4, dtype=f32)
-    got = timed(label, step, f_sc, T_sc // 4)
+    copies, copy_to = [], ph.copy_to  # the exchange copies the run makes: none on one card
+    ph.copy_to = lambda src, device: copies.append(1) or copy_to(src, device)
+    before = ksh.HALO_SHAN_CHEN.launches
+    try:
+        got = timed(label, step, f_sc, T_sc // 4)
+    finally:
+        ph.copy_to = copy_to
     rho = d2q9.calc_rho(got)
     check_gates(f"[5] {label} {H}x{W} float32 on 8 shards of the card, {T_sc} steps, 4 per "
                 f"exchange (host wall time {wall[label]!r} s)", {
         "bit-identical to the scene": (float(torch.equal(got, ref_sc.f)), 1.0, 1.0),
-        "rho_l / rho_v": (rho.max().item() / max(rho.min().item(), 1e-6), 4.0, 50.0)})
+        "rho_l / rho_v": (rho.max().item() / max(rho.min().item(), 1e-6), 4.0, 50.0),
+        "exchange copies": (float(len(copies)), 0.0, 0.0),
+        "kernel 32 launches a call": (
+            (ksh.HALO_SHAN_CHEN.launches - before) / (T_sc // 4), 4.0, 4.0)})
 
     # the cavity3d gate's cavity with Y over 8 shards, 2 steps per exchange,
     # against the scene (kernel 25) and with the gate
@@ -1944,7 +1965,8 @@ def k35_38_path(dev, counted) -> dict:
     256x128 initial state on (4, 2) (2000 steps, 2 per exchange), CSF mode
     on (2, 4) (1000 steps) and rk_rayleigh_taylor's 1024x256 on (4, 2) (1000
     steps); sc_phase_separation's 256x256 initial state on (4, 2), 4 steps
-    per exchange, 4000 steps, bit for bit the scene and within its gate;
+    per exchange, 4000 steps, bit for bit the scene and within its gate,
+    one kernel-35 launch a sweep and no exchange copy;
     rayleigh_benard 64x128 (Ra 1e4, amp 1e-2) on (4, 2), 8 steps per
     exchange, 30000 steps, bit for bit the scene and within the thermal
     gate's Nusselt band.  The references run first; then every launch count
@@ -1956,6 +1978,7 @@ def k35_38_path(dev, counted) -> dict:
     from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.kernels import thermal as kth
     from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.parallel import halo as ph
     from lbm_tpu_torch.parallel import mesh as pm
     from lbm_tpu_torch.scenes import shan_chen as scs
     from lbm_tpu_torch.scenes import thermal as ths
@@ -2003,12 +2026,21 @@ def k35_38_path(dev, counted) -> dict:
 
     label = "sc_phase_separation, rows x cols"
     step = k2d.make_sharded2d_sc_step(mesh42, H, W, omega=1.0, G=-5.0, substeps=4, dtype=f32)
-    got = timed(label, step, f_sc, T_sc // 4)
+    copies, copy_to = [], ph.copy_to  # the exchange copies the run makes: none on one card
+    ph.copy_to = lambda src, device: copies.append(1) or copy_to(src, device)
+    before = k2d.HALO2D_SHAN_CHEN.launches
+    try:
+        got = timed(label, step, f_sc, T_sc // 4)
+    finally:
+        ph.copy_to = copy_to
     rho = d2q9.calc_rho(got)
     check_gates(f"[5] {label} {H}x{W} float32 on a (4, 2) mesh of the card, {T_sc} steps, 4 "
                 f"per exchange (host wall time {wall[label]!r} s)", {
         "bit-identical to the scene": (float(torch.equal(got, ref_sc.f)), 1.0, 1.0),
-        "rho_l / rho_v": (rho.max().item() / max(rho.min().item(), 1e-6), 4.0, 50.0)})
+        "rho_l / rho_v": (rho.max().item() / max(rho.min().item(), 1e-6), 4.0, 50.0),
+        "exchange copies": (float(len(copies)), 0.0, 0.0),
+        "kernel 35 launches a call": (
+            (k2d.HALO2D_SHAN_CHEN.launches - before) / (T_sc // 4), 4.0, 4.0)})
 
     label = "rayleigh_benard, rows x cols"
     step = k2d.make_sharded2d_thermal_step(mesh42, Hr, Wr, substeps=8, dtype=f32, **rb)
@@ -2043,11 +2075,11 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
     and the exchange reads and writes once each halo line that the first
     band reads beyond the shard (s r rows per side, r the lines a sweep
     consumes, clipped at a wall; kernels 34-38: s r rows and s r columns),
-    not the whole 8-aligned strip the step sends.  Kernels 27, 33 and 34
-    ("k27 ...", "d3q19 <walls>", "k34 ...") make no exchange where their
-    shards share a card, as every case here does: they read the neighbours'
-    lines in place (parallel/halo.py ring_rows, ring_2d), lines their input
-    bands already count, so their bytes are the bands' alone.  ``ops``
+    not the whole 8-aligned strip the step sends.  Kernels 27 and 32-35
+    ("k27 ...", "sc ...", "d3q19 <walls>", "k34 ...") make no exchange where
+    their shards share a card, as every case here does: they read the
+    neighbours' lines in place (parallel/halo.py ring_rows, ring_2d), lines
+    their input bands already count, so their bytes are the bands' alone.  ``ops``
     operations per cell and step over the type's peak (``itemsize`` 8:
     float64).  The design bytes count what the port's launches move: every
     sweep's bands where it launches a sweep at a time (lbm_tpu's kernels run
@@ -2073,7 +2105,7 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
             moved += ny * (area[0][0] + area[-1][1])
             design += ny * (block_design(R_loc, C_loc, s, tall) if k34 else
                             sum(a_in + a_out for a_in, a_out in area))
-            if not k34:
+            if not (k34 or family.startswith("sc ")):
                 strips += ny * (area[0][0] - R_loc * C_loc)
         nbytes = (moved + 2 * strips) * planes * itemsize
         design_bytes = (design + 2 * strips) * planes * itemsize
@@ -2088,7 +2120,7 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
         halo = ksh.halo_for(s, r)
         R_loc = R // n
         k27 = family.startswith("k27 ")
-        in_place = k27 or family.startswith("d3q19 ")
+        in_place = k27 or family.startswith(("d3q19 ", "sc "))
         rows_moved = rows_design = strip_rows = 0
         for i in range(n):
             bands = ksh.sweep_bands(R_loc, halo, i * R_loc, R, s, r, walls)
@@ -4105,10 +4137,11 @@ def k27_k34_times(dev, card: str, parent=None, designs=False) -> dict:
                             ph.exchange_rows(y.shards, ksh.HALO)
                         return y
                     fns["exchange alone"] = lambda ex=exchange: graph_ms(ex, x, 5) * 1e3
-                    if ksh_p is not None:
+                    sweep = (parent_first_sweep(ksh_p, k2d_p, x, grid, R, s, fn)
+                             if ksh_p is not None else None)
+                    if sweep is not None:
                         fns["parent's first sweep alone"] = (
-                            lambda sweep=parent_first_sweep(ksh_p, k2d_p, x, grid, R, s, fn):
-                            graph_ms(sweep, x, 5) * 1e3)
+                            lambda sweep=sweep: graph_ms(sweep, x, 5) * 1e3)
                 label = f"{kind} {R}x{C}, {n} {'mesh' if two_d else 'shards'}, {s} a call"
                 want = None
                 for v, st in steps.items():
@@ -4141,6 +4174,170 @@ def k27_k34_times(dev, card: str, parent=None, designs=False) -> dict:
     return out
 
 
+# kernels 32 and 35's timed cases (kernel, shards or mesh, grid, sweeps a
+# call, types): their launch shape, phase 5's sc_phase_separation gates
+# (256x256, 4 a call), one sweep a call there, and 4096x2048 at 1 and 4
+# sweeps a call; CUDA graphs of 100 calls at 256x256, of 10 at 4096x2048
+K32_K35_TIMES = ((32, 8, (256, 256), 4, ("float32", "float64")),
+                 (35, (4, 2), (256, 256), 4, ("float32", "float64")),
+                 (32, 8, (256, 256), 1, ("float32",)), (35, (4, 2), (256, 256), 1, ("float32",)),
+                 (32, 8, BIG, 1, ("float32",)), (32, 8, BIG, 4, ("float32",)),
+                 (35, (4, 2), BIG, 1, ("float32",)), (35, (4, 2), BIG, 4, ("float32",)))
+# kernels 32 and 35's other designs (label -> {file: edits}), timed against
+# the tree in ``k32_k35_times``: the tree's launches without the dependent
+# launch (an edit of d2q9.cuh); the dependent launch released by each thread
+# once its loads are issued (kernel 4's choice, the redesign's first tree)
+# or at its start, where the tree releases at each block's exit; kernel 32's
+# columns wrapped by 64-bit remainders, as first built; and the tree's
+# kernels fed by the exchanges' copies (no source edit:
+# ``exchange_copies_kept``), which separates the one launch a sweep from the
+# reads in place
+K32_K35_DESIGNS = {
+    "without PDL": {"d2q9.cuh": [("pdl ? 1u : 0u}", "0u}")]},
+    "release after loads": {"shan_chen.cu": [(
+        "  for (int k = 0; k < 9; ++k) f[k] = src[k * plane];\n  sc_collide",
+        "  for (int k = 0; k < 9; ++k) f[k] = src[k * plane];\n  lbm::grid_release();\n"
+        "  sc_collide")]},
+    "release first": {"shan_chen.cu": [
+        ("  lbm::grid_wait();\n", "  lbm::grid_wait();\n  lbm::grid_release();\n")]},
+    "64-bit wraps": {"shan_chen.cu": [
+        ("wrap_col(c0 - 1 + i % WC, C)", "wrap_any(c0 - 1 + i % WC, C)"),
+        ("lbm::wrap(gc + cy(k), C)", "wrap_any(gc + cy(k), C)")]},
+    "exchange copies kept": {}}
+
+
+@contextlib.contextmanager
+def exchange_copies_kept():
+    """While it runs, the sharded steps that read their neighbours' lines in
+    place (kernels 27 and 32-35) are built and run on ``exchange_rows``' and
+    ``exchange_2d``'s copies instead (``strip_parts``' views of the strips),
+    as the exchanges fed them before."""
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import halo as ph
+
+    saved = ksh.ring_rows, k2d.ring_2d
+    ksh.ring_rows = ph.exchange_rows
+    k2d.ring_2d = lambda grid, w: [ph.strip_parts(f, *st) for f, st in
+                                   zip((f for row in grid for f in row), ph.exchange_2d(grid, w))]
+    try:
+        yield
+    finally:
+        ksh.ring_rows, k2d.ring_2d = saved
+
+
+def load_parent_k32_k35(parent: Path) -> tuple:
+    """The parent tree's kernels 32 and 35 with its own wrappers (the copy of
+    ``parent_package``), its shan_chen.cu built by ``build_parent``.
+    Returns the copy's (kernels.sharded, kernels.sharded2d)."""
+    import importlib
+
+    parent_package(parent)
+    ksh_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded")
+    k2d_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded2d")
+    bind_kernels([ksh_p.HALO_SHAN_CHEN, k2d_p.HALO2D_SHAN_CHEN],
+                 build_parent(parent, ("shan_chen",)))
+    return ksh_p, k2d_p
+
+
+def k32_k35_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernels 32 (8 shards) and 35 ((4, 2)) at K32_K35_TIMES' cases, sc/guo
+    on the Shan-Chen test state: us per call under CUDA graphs (of 100
+    calls at 256x256, 10 at 4096x2048), median of 3 in turns (``in_turns``),
+    of this tree's step (one launch a sweep over the card's shards, the
+    neighbours' lines read in place), with ``designs`` also
+    ``K32_K35_DESIGNS`` (a build of d2q9.cuh without the dependent launch;
+    the tree fed by the exchanges' copies) and with ``parent`` the parent
+    tree's step (``load_parent_k32_k35``); beside them the launches a call
+    of this tree's step and the call's bound (``sharded_bound``).  Every
+    variant must give the same bits (the parent's, where there is one) over
+    4 calls: it raises where they differ.  Keys (kernel, case, dtype) ->
+    {variant: us}."""
+    import torch
+
+    from lbm_tpu_torch.kernels import _build
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    own = [ksh.HALO_SHAN_CHEN, k2d.HALO2D_SHAN_CHEN]
+    libs = {}
+    if designs:
+        sources = design_sources(_build.CSRC, K32_K35_DESIGNS)
+        libs = build_designs({label: files for label, files in sources.items() if files},
+                             ("shan_chen",), "kernels 32 and 35", mark="shan_chen_halo")
+    ksh_p, k2d_p = load_parent_k32_k35(parent) if parent is not None else (None, None)
+    family = "sc sc/guo"
+    kw, ops = sc_kwargs("sc", "guo"), plain_ops(family)
+    out = {}
+    for k, n, (R, C), s, dts in K32_K35_TIMES:
+        two_d = isinstance(n, tuple)
+        shards = n[0] * n[1] if two_d else n
+        mesh = pm.make_mesh([dev] * shards, n if two_d else None)
+        factory = "make_sharded2d_sc_step" if two_d else "make_sharded_sc_step"
+        label = (f"{'sc_phase_separation ' if R == 256 else ''}{R}x{C}, "
+                 f"{n if two_d else f'{n} shards'}, {s} a call")
+        calls = 100 if R * C < 1 << 20 else 10
+        for dt in dts:
+            dtype = getattr(torch, dt)
+            x = pm.shard_state(mesh, sharded_state(family, (R, C), dtype, dev))
+
+            def build(module):
+                return getattr(module, factory)(mesh, R, C, substeps=s, dtype=dtype, **kw)
+            steps = {"new": build(k2d if two_d else ksh)}
+            kernel = own[1] if two_d else own[0]
+            before = kernel.launches
+            steps["new"](x)
+            torch.cuda.synchronize()
+            per_call = kernel.launches - before
+            for v, lib in libs.items():
+                def designed(y, lib=lib, st=steps["new"]):
+                    bind_kernels(own, lib)
+                    try:
+                        return st(y)
+                    finally:
+                        bind_kernels(own, None)
+                steps[v] = designed
+            if designs:
+                with exchange_copies_kept():
+                    kept = build(k2d if two_d else ksh)
+
+                def exchanged(y, st=kept):
+                    with exchange_copies_kept():
+                        return st(y)
+                steps["exchange copies kept"] = exchanged
+            if ksh_p is not None:
+                steps = {"parent": build(k2d_p if two_d else ksh_p), **steps}
+            want = None
+            for v, st in steps.items():
+                y = x
+                for _ in range(4):
+                    y = st(y)
+                got = y.gather()
+                torch.cuda.synchronize()
+                if want is None:
+                    want = (v, got)
+                elif not torch.equal(got, want[1]):
+                    raise AssertionError(f"kernel {k} {label} {dt}: {v} differs from "
+                                         f"{want[0]}'s bits")
+            log(f"[6] kernel {k} {label} {dt}: {', '.join(steps)} bit for bit alike over 4 calls")
+            del want, got, y
+            med, runs = in_turns({v: (lambda st=st: graph_ms(st, x, calls) * 1e3)
+                                  for v, st in steps.items()})
+            if "parent" in med:
+                med["change"] = med["new"] / med["parent"] - 1.0
+            b = sharded_bound(family, (R, C), n, s, x.shards[0].element_size(), ops)
+            med.update(launches_per_call=per_call, bound=b[0] * 1e3, bound_by=b[1],
+                       fraction=b[0] * 1e3 / med["new"])
+            out[k, label, dt] = med
+            log(f"[6] {card}; kernel {k} {label} {dt} (us per call, CUDA graphs of {calls} "
+                f"calls, median of 3 in turns; the bound in us a call): "
+                + ", ".join(f"{v} {t!r}" for v, t in med.items()) + f" (runs {runs})")
+            del x, steps
+            torch.cuda.empty_cache()
+    return out
+
+
 def collision_ops(kind) -> float:
     """Operations per cell of one step of ``kind``'s plain single-device step
     (``ops_per_cell`` at 64x64 on the CPU, float32, from the collision's
@@ -4159,7 +4356,9 @@ def parent_first_sweep(ksh_p, k2d_p, x, grid, R, s, fn):
     """The parent tree's first sweep of an s-step call on each shard of the
     sharded state ``x`` (``grid``: its rows x cols blocks, None for row
     shards), each shard one launch of its kernel 27 or 34 from halos
-    exchanged once, outside the timing; returns ``sweep(y) -> y``."""
+    exchanged once, outside the timing; returns ``sweep(y) -> y``, or None
+    where the parent already runs a call in one launch over the card's
+    shards (its ``launch_collide_shards``: no sweep of its own to time)."""
     import ctypes
 
     import torch
@@ -4167,6 +4366,8 @@ def parent_first_sweep(ksh_p, k2d_p, x, grid, R, s, fn):
     from lbm_tpu_torch.kernels import _build
     from lbm_tpu_torch.parallel import halo as ph
 
+    if hasattr(ksh_p, "launch_collide_shards"):
+        return None
     kind, doubles, (i0, i1) = fn.halo_kernel
     params = _build.c_doubles(doubles)
     shards = x.shards
@@ -4404,6 +4605,11 @@ def main(argv=None) -> int:
                          "(K27_K34_DESIGNS), the exchange alone and, with --parent, the "
                          "parent's step and its first sweep alone, holding each to the same "
                          "bits (k27_k34_times), print the table as a JSON line, and stop")
+    ap.add_argument("--k32-k35", action="store_true",
+                    help="build, then only time kernels 32 and 35 against their other designs "
+                         "(K32_K35_DESIGNS) and, with --parent, the parent's, holding each to "
+                         "the same bits (k32_k35_times), print the table as a JSON line, and "
+                         "stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -4514,6 +4720,11 @@ def main(argv=None) -> int:
     if args.k27_k34:
         table = k27_k34_times(dev, card, parent, designs=True)
         print(json.dumps({"k27_k34": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
+        return 0
+    if args.k32_k35:
+        table = k32_k35_times(dev, card, parent, designs=True)
+        print(json.dumps({"k32_k35": [[*key, us] for key, us in table.items()], "card": card}),
               flush=True)
         return 0
 
@@ -6051,6 +6262,9 @@ def main(argv=None) -> int:
     # collision, with the exchange alone, against the parent tree's where
     # --parent names one
     k27_k34_tm = k27_k34_times(dev, card, parent)
+    # kernels 32 and 35 at their launch shape and at the big grid, against the
+    # parent tree's where --parent names one
+    k32_k35_tm = k32_k35_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -6240,9 +6454,11 @@ def main(argv=None) -> int:
                         (2, "channel_bgk", k2_k9_tm), (9, "channel_variant", k2_k9_tm)):
         next(e for e in kernels if e["name"] == name)["us"] = {
             f"{shape} {dt}": v for (kk, shape, dt), v in tm.items() if kk == k}
-    for k, name in ((27, "halo_collide_stream"), (34, "halo2d_collide_stream")):
+    for k, name, tm in ((27, "halo_collide_stream", k27_k34_tm),
+                        (34, "halo2d_collide_stream", k27_k34_tm),
+                        (32, "halo_shan_chen", k32_k35_tm), (35, "halo2d_shan_chen", k32_k35_tm)):
         next(e for e in kernels if e["name"] == name)["us"] = {
-            f"{case} {dt}": v for (kk, case, dt), v in k27_k34_tm.items() if kk == k}
+            f"{case} {dt}": v for (kk, case, dt), v in tm.items() if kk == k}
     for row in shape_rows:
         for entry in kernels:
             if entry["name"] == row["name"]:

@@ -103,13 +103,34 @@ inline cudaError_t one_wave(int threads, int64_t blocks, int sms, bool& fits) {
   return cudaSuccess;
 }
 
-// Launches KERNEL(args...) over `n` cells, one thread a cell, on `stream`:
-// `block_threads` threads a block, and a programmatic dependent launch where
-// the grid fits the card in one wave, so that step n+1's launch and ramp
-// overlap step n's tail (its threads call grid_wait before their first load
-// or store and grid_release once their loads are issued).  A grid of many
-// waves launches plainly: there the dependent launch cost kernel 4 3.5% at
-// 4096x2048 in float64 (H100).  Returns the launch's cudaError_t.
+// Launches KERNEL(args...) on `grid` blocks of `threads` threads on `stream`,
+// a programmatic dependent launch where the grid fits the card in one wave,
+// so that launch n+1's ramp overlaps launch n's tail (its threads call
+// grid_wait before their first load or store; kernels 2, 4 and 9 call
+// grid_release once their loads are issued, kernels 32 and 35 release at
+// each block's exit).  A grid of many waves launches plainly: there the
+// dependent launch cost kernel 4 3.5% at 4096x2048 in float64 (H100).
+// Returns the launch's cudaError_t.
+template <auto KERNEL, typename... Args>
+inline cudaError_t launch_grid(dim3 grid, int threads, cudaStream_t stream, Args... args) {
+  int sms = 0;
+  cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return e;
+  bool pdl = false;
+  e = one_wave<KERNEL>(threads, static_cast<int64_t>(grid.x) * grid.y * grid.z, sms, pdl);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  // grid, block, dynamic shared memory, stream, attributes, their count
+  const cudaLaunchConfig_t cfg = {grid, dim3(static_cast<unsigned>(threads)), 0, stream, attr,
+                                  pdl ? 1u : 0u};
+  e = cudaLaunchKernelEx(&cfg, KERNEL, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Launches KERNEL(args...) over `n` cells, one thread a cell (kernels 2, 4
+// and 9): `block_threads` threads a block, through `launch_grid`.
 template <auto KERNEL, typename... Args>
 inline cudaError_t launch_cells(int64_t n, cudaStream_t stream, Args... args) {
   if (n == 0) return cudaSuccess;
@@ -119,18 +140,7 @@ inline cudaError_t launch_cells(int64_t n, cudaStream_t stream, Args... args) {
   const int threads = block_threads(n, sms);
   const int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  bool pdl = false;
-  e = one_wave<KERNEL>(threads, blocks, sms, pdl);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  // grid, block, dynamic shared memory, stream, attributes, their count
-  const cudaLaunchConfig_t cfg = {dim3(static_cast<unsigned>(blocks)),
-                                  dim3(static_cast<unsigned>(threads)), 0, stream, attr,
-                                  pdl ? 1u : 0u};
-  e = cudaLaunchKernelEx(&cfg, KERNEL, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_grid<KERNEL>(dim3(static_cast<unsigned>(blocks)), threads, stream, args...);
 }
 
 __host__ __device__ constexpr int cx(int k) {

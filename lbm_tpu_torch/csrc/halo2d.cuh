@@ -1,4 +1,4 @@
-// Halo inputs of the rows x cols kernel 34 (kernels/sharded2d.py).
+// Halo inputs of the rows x cols body kernels 35-38 (kernels/sharded2d.py).
 //
 // Replaces the slab pipeline of lbm_tpu/kernels/sharded2d_pallas.py:240
 // (make_local_2d_step :223, the kernel _kernel with its four DMAs a block,
@@ -24,7 +24,12 @@
 // (kernels/sharded2d.py launch_sweeps_2d) chooses the bands: sweep j of s
 // writes s - j more rows and columns on each side of the shard.
 //
-// The body kernels 35-38 (kernels/sharded2d.py make_sharded2d_body_step)
+// Kernel 35 reads its padded block from 3 x 3 parts instead (`Parts`
+// below): parallel/halo.py ring_2d's views of the neighbours' own lines,
+// which a five-part left or right strip cannot name (its corners lie in two
+// other blocks).
+//
+// The body kernels 36-38 (kernels/sharded2d.py make_sharded2d_body_step)
 // read five more entries: the shard's global row and column offsets, the
 // grid's R and C, and whether the shard's rows reach a wall (row ranks 0 and
 // nx-1).  Padded row p is global row off_r - halo + p, padded column q
@@ -134,6 +139,64 @@ inline Launch<T> parse(const long long* g) {
   L.R = g[ROWS];
   L.C = g[COLS];
   L.edge = g[EDGE] != 0;
+  return L;
+}
+
+// The padded block of one shard read in place from 3 x 3 parts (kernel 35;
+// parallel/halo.py ring_2d): part (a, b) holds padded rows [0, halo),
+// [halo, halo + r_loc) or the rest by a, and the columns the same way by b,
+// each with its own plane and row strides: a neighbour's own lines where
+// it shares the card, a copy elsewhere, or 3 x 3 views of one scratch slab.
+template <typename T>
+struct Parts {
+  Part<T> in[3][3];
+  int64_t halo, r_loc, c_loc;
+
+  // Plane 0's entry at padded (p, q); `plane` gets that part's stride.
+  __device__ __forceinline__ const T* locate(int64_t p, int64_t q, int64_t& plane) const {
+    const int a = p < halo ? 0 : (p < halo + r_loc ? 1 : 2);
+    const int b = q < halo ? 0 : (q < halo + c_loc ? 1 : 2);
+    const int64_t r = p - (a == 0 ? 0 : (a == 1 ? halo : halo + r_loc));
+    const int64_t c = q - (b == 0 ? 0 : (b == 1 ? halo : halo + c_loc));
+    return in[a][b].at(r, c, plane);
+  }
+};
+
+// The geometry array of one shard of a parts launch, in the order of
+// kernels/sharded2d.py PARTS_GEOM: the 3 x 3 parts row-major, each (base,
+// plane stride, row stride), then the output, the parts' halo and the
+// shard's rows and columns, the cells read and the cells written.
+enum PartsGeom {
+  PARTS = 0, P_OUT = 27, P_OUT_PLANE, P_OUT_LD, P_OUT_FIRST, P_HALO, P_R_LOC, P_C_LOC,
+  P_IN_R_LO, P_IN_R_HI, P_IN_C_LO, P_IN_C_HI, P_OUT_R_LO, P_OUT_R_HI, P_OUT_C_LO, P_OUT_C_HI,
+  NPARTS_GEOM
+};
+
+// One shard's sweep on its 3 x 3 parts, parsed on the host.
+template <typename T>
+struct PartsLaunch {
+  Parts<T> in;
+  Out<T> out;
+  int64_t r_lo, r_hi, c_lo, c_hi;  // the cells read
+};
+
+template <typename T>
+inline PartsLaunch<T> parse_parts(const long long* g) {
+  PartsLaunch<T> L;
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) {
+      const long long* p = g + PARTS + 3 * (3 * a + b);
+      L.in.in[a][b] = Part<T>{reinterpret_cast<const T*>(p[0]), p[1], p[2]};
+    }
+  L.in.halo = g[P_HALO];
+  L.in.r_loc = g[P_R_LOC];
+  L.in.c_loc = g[P_C_LOC];
+  L.out = Out<T>{reinterpret_cast<T*>(g[P_OUT]), g[P_OUT_PLANE], g[P_OUT_LD], g[P_OUT_FIRST],
+                 g[P_OUT_R_LO], g[P_OUT_R_HI], g[P_OUT_C_LO], g[P_OUT_C_HI]};
+  L.r_lo = g[P_IN_R_LO];
+  L.r_hi = g[P_IN_R_HI];
+  L.c_lo = g[P_IN_C_LO];
+  L.c_hi = g[P_IN_C_HI];
   return L;
 }
 

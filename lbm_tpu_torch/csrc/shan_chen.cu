@@ -29,8 +29,8 @@
 // (10x34 for 8x32 cells, 1.33x) from a second read of their planes (L2),
 // one barrier per tile, and no multiply-add.
 //
-// This source also holds kernel 32, lbm_halo_shan_chen: the same step on a
-// row shard with halo inputs (csrc/halo.cuh, kernels/sharded.py
+// This source also holds kernel 32, lbm_halo_shan_chen: the same step on
+// row shards with halo inputs (csrc/halo.cuh, kernels/sharded.py
 // make_sharded_sc_step), which replaces lbm_tpu's Shan-Chen body
 // (shan_chen_pallas.py:138 make_sc_body) on the row-sharded driver
 // (sharded_pallas.py:345 make_sharded_body_step, its pallas_call at :321).
@@ -42,7 +42,7 @@
 // 14's (sc_collide), built with the same flags, so an n-shard run equals
 // kernel 14 bit for bit.
 //
-// And kernel 35, lbm_halo2d_shan_chen: the step on a rows x cols shard
+// And kernel 35, lbm_halo2d_shan_chen: the step on rows x cols shards
 // (csrc/halo2d.cuh, kernels/sharded2d.py make_sharded2d_sc_step), which
 // replaces lbm_tpu's Shan-Chen body on its 2-D wrapper
 // (sharded2d_pallas.py:549 make_sharded2d_sc_step on
@@ -50,8 +50,26 @@
 // sweep in both axes: psi on each tile window's readable cells of the
 // padded block [in_r_lo, in_r_hi) x [in_c_lo, in_c_hi), the collision on
 // that band less one line a side, the push into the output band; nothing
-// wraps, since the column strips hold the neighbours' columns.  2 lines of
-// the strips a sweep in both axes, so at most 4 sweeps per exchange.
+// wraps, since the block's parts hold the neighbours' lines.  2 lines a
+// sweep in both axes, so at most 4 sweeps per exchange.
+//
+// Both run one sweep of up to MAX_SHARDS shards of a card in one launch
+// (blockIdx.z the shard, their geometries a __grid_constant__ parameter,
+// each shard with its own sweep bands), and a first sweep reads the ring
+// neighbours' lines in place where they share the card: kernel 32 through
+// the row view's per-buffer plane strides (parallel/halo.py ring_rows),
+// kernel 35 through the 3 x 3 parts of halo2d.cuh's Parts (ring_2d); later
+// sweeps read a scratch slab.  sc_phase_separation's 256x256 on 8 shards,
+// 4 sweeps a call, was 32 launches and 16 exchange copies a call, each
+// sweep a band of 40-50 blocks on a card of 132 SMs; it is now 4 launches
+// and no copy.  Where the whole grid fits the card in one wave the launch
+// is a programmatic dependent one (lbm::launch_grid, d2q9.cuh): its threads
+// wait for the sweep before it ahead of their first load, and a block lets
+// the next sweep launch when it exits.  Released by each thread once its
+// loads were issued (kernel 4's choice) or at its start, a call of 4 sweeps
+// at sc_phase_separation's 256x256 ran 1.5-7.0 us slower in float32 (H100,
+// chip_smoke.py --k32-k35: the designs "release after loads" and "release
+// first").
 
 #include <cuda_runtime.h>
 
@@ -199,24 +217,52 @@ __global__ void __launch_bounds__(THREADS)
     fout[k * n + wrap_any(gr + cx(k), R) * C + wrap_any(gc + cy(k), C)] = out[k];
 }
 
-// Kernel 32: one sweep on a row shard.  Tiles cover the padded rows
-// [in_lo + 1, in_hi - 1) that the sweep collides; psi is computed on the
-// readable rows [in_lo, in_hi) of each tile's window, columns wrapped.
+// The shards of one launch of kernel 32 or 35: up to MAX_SHARDS shards of
+// one device and type (kernels/_build.py MAX_SHARDS), one a grid layer
+// (blockIdx.z), a __grid_constant__ kernel parameter (~1.3 KB for 32, ~2.7
+// KB for 35).
+constexpr int MAX_SHARDS = 8;
+
+template <typename L>
+struct Shards {
+  L s[MAX_SHARDS];
+};
+
+// A column of a tile window, c in [-1, C + TX], wrapped into [0, C) by one
+// period, or, on a grid narrower than a tile, by a remainder.  Only
+// addresses depend on it.  With kernel 14's 64-bit remainder for every load
+// and push, a call of 4 sweeps at 256x256 on 8 shards took 28-32 us against
+// 20-21 (H100, chip_smoke.py --k32-k35, the design "64-bit wraps").
+__device__ __forceinline__ int64_t wrap_col(int64_t c, int64_t C) {
+  if (c < 0) c += C;
+  if (c >= C) c -= C;
+  return c < C ? c : wrap_any(c, C);
+}
+
+// Kernel 32: one sweep on each of up to MAX_SHARDS row shards.  Tiles of
+// shard blockIdx.z cover the padded rows [in_lo + 1, in_hi - 1) that its
+// sweep collides; psi is computed on the readable rows [in_lo, in_hi) of
+// each tile's window, columns wrapped.  A block past its shard's rows
+// leaves at once.
 template <typename T, bool CS, bool SHIFT>
 __global__ void __launch_bounds__(THREADS)
-    shan_chen_halo(const lbm::halo::View<T> in, const lbm::halo::Out<T> out, int64_t in_lo,
-                   int64_t in_hi, const Params<T> p) {
-  __shared__ T s_psi[WN];
-  const int64_t C = in.C;
+    shan_chen_halo(const __grid_constant__ Shards<lbm::halo::Launch<T>> shards,
+                   const Params<T> p) {
+  const lbm::halo::Launch<T>& L = shards.s[blockIdx.z];
+  const lbm::halo::View<T>& in = L.in;
+  const int64_t C = in.C, in_lo = L.in_lo, in_hi = L.in_hi;
   const int64_t r0 = in_lo + 1 + static_cast<int64_t>(blockIdx.y) * TY;
+  if (r0 >= in_hi - 1) return;
+  __shared__ T s_psi[WN];
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * TX;
   const int tid = threadIdx.x;
 
+  lbm::grid_wait();
   for (int i = tid; i < WN; i += THREADS) {
     const int64_t pr = r0 - 1 + i / WC;
     if (pr < in_lo || pr >= in_hi) continue;  // read by no cell this sweep collides
     int64_t plane;
-    const T* src = in.locate(pr, wrap_any(c0 - 1 + i % WC, C), plane);
+    const T* src = in.locate(pr, wrap_col(c0 - 1 + i % WC, C), plane);
     T rho = src[0];
 #pragma unroll
     for (int k = 1; k < 9; ++k) rho = rho + src[k * plane];
@@ -233,26 +279,32 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int k = 0; k < 9; ++k) f[k] = src[k * plane];
   sc_collide<T, CS, SHIFT>(f, s_psi, (ty + 1) * WC + (tx + 1), p, o);
+  const lbm::halo::Out<T>& out = L.out;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int64_t pd = pr + cx(k);
-    if (out.has(pd)) out.at(pd, wrap_any(gc + cy(k), C))[k * out.plane] = o[k];
+    if (out.has(pd)) out.at(pd, lbm::wrap(gc + cy(k), C))[k * out.plane] = o[k];
   }
 }
 
-// Kernel 35: one sweep on a rows x cols shard.  Tiles cover the padded
-// cells [r_lo + 1, r_hi - 1) x [c_lo + 1, c_hi - 1) that the sweep
+// Kernel 35: one sweep on each of up to MAX_SHARDS rows x cols shards, each
+// read from its 3 x 3 parts.  Tiles of shard blockIdx.z cover the padded
+// cells [r_lo + 1, r_hi - 1) x [c_lo + 1, c_hi - 1) that its sweep
 // collides; psi is computed on each tile window's readable cells.
 template <typename T, bool CS, bool SHIFT>
 __global__ void __launch_bounds__(THREADS)
-    shan_chen_halo2d(const lbm::halo2d::View<T> in, const lbm::halo2d::Out<T> out,
-                     int64_t r_lo, int64_t r_hi, int64_t c_lo, int64_t c_hi,
+    shan_chen_halo2d(const __grid_constant__ Shards<lbm::halo2d::PartsLaunch<T>> shards,
                      const Params<T> p) {
-  __shared__ T s_psi[WN];
+  const lbm::halo2d::PartsLaunch<T>& L = shards.s[blockIdx.z];
+  const lbm::halo2d::Parts<T>& in = L.in;
+  const int64_t r_lo = L.r_lo, r_hi = L.r_hi, c_lo = L.c_lo, c_hi = L.c_hi;
   const int64_t r0 = r_lo + 1 + static_cast<int64_t>(blockIdx.y) * TY;
   const int64_t q0 = c_lo + 1 + static_cast<int64_t>(blockIdx.x) * TX;
+  if (r0 >= r_hi - 1 || q0 >= c_hi - 1) return;
+  __shared__ T s_psi[WN];
   const int tid = threadIdx.x;
 
+  lbm::grid_wait();
   for (int i = tid; i < WN; i += THREADS) {
     const int64_t pr = r0 - 1 + i / WC, q = q0 - 1 + i % WC;
     if (pr < r_lo || pr >= r_hi || q < c_lo || q >= c_hi) continue;  // read by no cell
@@ -274,6 +326,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int k = 0; k < 9; ++k) f[k] = src[k * plane];
   sc_collide<T, CS, SHIFT>(f, s_psi, (ty + 1) * WC + (tx + 1), p, o);
+  const lbm::halo2d::Out<T>& out = L.out;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int64_t pd = pr + cx(k), qd = q + cy(k);
@@ -290,27 +343,52 @@ int launch_one(const T* fin, T* fout, long long R, long long C, const Params<T>&
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool CS, bool SHIFT>
-int launch_halo_one(const long long* geom, const Params<T>& p, cudaStream_t stream) {
-  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
-  const int64_t rows = L.in_hi - L.in_lo - 2;
-  if (rows <= 0 || L.in.C <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((L.in.C + TX - 1) / TX),
-                  static_cast<unsigned>((rows + TY - 1) / TY));
-  shan_chen_halo<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(L.in, L.out, L.in_lo, L.in_hi, p);
-  return static_cast<int>(cudaGetLastError());
+// One sweep of kernel 32 or 35 over `n` shards of one device, their
+// geometries `geoms` back to back (NGEOM values each): the tile grid of the
+// largest band (`tiles` gives a shard's (column tiles, row tiles)), one grid
+// layer a shard, through lbm::launch_grid (a programmatic dependent launch
+// in one wave).
+template <auto KERNEL, typename L, int NGEOM, L (*PARSE)(const long long*), typename T,
+          typename Tiles>
+int launch_shards(const long long* geoms, int n, const Params<T>& p, cudaStream_t stream,
+                  Tiles tiles) {
+  if (n < 1 || n > MAX_SHARDS) return static_cast<int>(cudaErrorInvalidValue);
+  Shards<L> shards;
+  int64_t gx = 0, gy = 0;
+  for (int b = 0; b < n; ++b) {
+    shards.s[b] = PARSE(geoms + b * NGEOM);
+    int64_t tx = 0, ty = 0;
+    tiles(shards.s[b], tx, ty);
+    gx = tx > gx ? tx : gx;
+    gy = ty > gy ? ty : gy;
+  }
+  if (gx <= 0 || gy <= 0) return 0;
+  if (gx > 0x7fffffff || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(n));
+  return static_cast<int>(lbm::launch_grid<KERNEL>(grid, THREADS, stream, shards, p));
 }
 
 template <typename T, bool CS, bool SHIFT>
-int launch_halo2d_one(const long long* geom, const Params<T>& p, cudaStream_t stream) {
-  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
-  const int64_t rows = L.r_hi - L.r_lo - 2, cols = L.c_hi - L.c_lo - 2;
-  if (rows <= 0 || cols <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((cols + TX - 1) / TX),
-                  static_cast<unsigned>((rows + TY - 1) / TY));
-  shan_chen_halo2d<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(L.in, L.out, L.r_lo, L.r_hi,
-                                                               L.c_lo, L.c_hi, p);
-  return static_cast<int>(cudaGetLastError());
+int launch_halo_one(const long long* geoms, int n, const Params<T>& p, cudaStream_t stream) {
+  using L = lbm::halo::Launch<T>;
+  return launch_shards<shan_chen_halo<T, CS, SHIFT>, L, lbm::halo::NGEOM, lbm::halo::parse<T>>(
+      geoms, n, p, stream, [](const L& s, int64_t& tx, int64_t& ty) {
+        const int64_t rows = s.in_hi - s.in_lo - 2;
+        tx = rows > 0 ? (s.in.C + TX - 1) / TX : 0;
+        ty = rows > 0 ? (rows + TY - 1) / TY : 0;
+      });
+}
+
+template <typename T, bool CS, bool SHIFT>
+int launch_halo2d_one(const long long* geoms, int n, const Params<T>& p, cudaStream_t stream) {
+  using L = lbm::halo2d::PartsLaunch<T>;
+  return launch_shards<shan_chen_halo2d<T, CS, SHIFT>, L, lbm::halo2d::NPARTS_GEOM,
+                       lbm::halo2d::parse_parts<T>>(
+      geoms, n, p, stream, [](const L& s, int64_t& tx, int64_t& ty) {
+        const int64_t rows = s.r_hi - s.r_lo - 2, cols = s.c_hi - s.c_lo - 2;
+        tx = rows > 0 && cols > 0 ? (cols + TX - 1) / TX : 0;
+        ty = rows > 0 && cols > 0 ? (rows + TY - 1) / TY : 0;
+      });
 }
 
 template <typename T>
@@ -335,25 +413,25 @@ int launch(const void* fin, void* fout, long long R, long long C, const double* 
 }
 
 template <typename T>
-int launch_halo(const long long* geom, const double* params, int eos, int forcing,
+int launch_halo(const long long* geoms, int n, const double* params, int eos, int forcing,
                 cudaStream_t stream) {
   const Params<T> p = params_of<T>(params);
   if (eos == 0)
-    return forcing == 0 ? launch_halo_one<T, false, false>(geom, p, stream)
-                        : launch_halo_one<T, false, true>(geom, p, stream);
-  return forcing == 0 ? launch_halo_one<T, true, false>(geom, p, stream)
-                      : launch_halo_one<T, true, true>(geom, p, stream);
+    return forcing == 0 ? launch_halo_one<T, false, false>(geoms, n, p, stream)
+                        : launch_halo_one<T, false, true>(geoms, n, p, stream);
+  return forcing == 0 ? launch_halo_one<T, true, false>(geoms, n, p, stream)
+                      : launch_halo_one<T, true, true>(geoms, n, p, stream);
 }
 
 template <typename T>
-int launch_halo2d(const long long* geom, const double* params, int eos, int forcing,
+int launch_halo2d(const long long* geoms, int n, const double* params, int eos, int forcing,
                   cudaStream_t stream) {
   const Params<T> p = params_of<T>(params);
   if (eos == 0)
-    return forcing == 0 ? launch_halo2d_one<T, false, false>(geom, p, stream)
-                        : launch_halo2d_one<T, false, true>(geom, p, stream);
-  return forcing == 0 ? launch_halo2d_one<T, true, false>(geom, p, stream)
-                      : launch_halo2d_one<T, true, true>(geom, p, stream);
+    return forcing == 0 ? launch_halo2d_one<T, false, false>(geoms, n, p, stream)
+                        : launch_halo2d_one<T, false, true>(geoms, n, p, stream);
+  return forcing == 0 ? launch_halo2d_one<T, true, false>(geoms, n, p, stream)
+                      : launch_halo2d_one<T, true, true>(geoms, n, p, stream);
 }
 
 }  // namespace
@@ -370,20 +448,23 @@ extern "C" int lbm_shan_chen(const void* fin, void* fout, long long R, long long
                 : launch<float>(fin, fout, R, C, params, eos, forcing, s);
 }
 
-// Kernel 32: one sweep on a row shard with the geometry `geom`
-// (csrc/halo.cuh); `params`, `eos` and `forcing` as lbm_shan_chen's.
-extern "C" int lbm_halo_shan_chen(const long long* geom, const double* params, int eos,
-                                  int forcing, int is_f64, void* stream) {
+// Kernel 32: one sweep on each of `n_shards` (1 to MAX_SHARDS) row shards
+// of one device, `geoms` their geometry arrays back to back (csrc/halo.cuh);
+// `params`, `eos` and `forcing` as lbm_shan_chen's.
+extern "C" int lbm_halo_shan_chen(const long long* geoms, const double* params, int n_shards,
+                                  int eos, int forcing, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_halo<double>(geom, params, eos, forcing, s)
-                : launch_halo<float>(geom, params, eos, forcing, s);
+  return is_f64 ? launch_halo<double>(geoms, n_shards, params, eos, forcing, s)
+                : launch_halo<float>(geoms, n_shards, params, eos, forcing, s);
 }
 
-// Kernel 35: one sweep on a rows x cols shard with the geometry `geom`
-// (csrc/halo2d.cuh); `params`, `eos` and `forcing` as lbm_shan_chen's.
-extern "C" int lbm_halo2d_shan_chen(const long long* geom, const double* params, int eos,
-                                    int forcing, int is_f64, void* stream) {
+// Kernel 35: one sweep on each of `n_shards` (1 to MAX_SHARDS) rows x cols
+// shards of one device, `geoms` their parts geometry arrays back to back
+// (csrc/halo2d.cuh PartsGeom); `params`, `eos` and `forcing` as
+// lbm_shan_chen's.
+extern "C" int lbm_halo2d_shan_chen(const long long* geoms, const double* params, int n_shards,
+                                    int eos, int forcing, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_halo2d<double>(geom, params, eos, forcing, s)
-                : launch_halo2d<float>(geom, params, eos, forcing, s);
+  return is_f64 ? launch_halo2d<double>(geoms, n_shards, params, eos, forcing, s)
+                : launch_halo2d<float>(geoms, n_shards, params, eos, forcing, s);
 }

@@ -159,13 +159,13 @@ class CudaKernel:
         self.launches += 1
 
 
-#: the most shards one launch of a batched halo kernel takes (kernels 33 and
-#: 36; csrc/d3q19.cu and csrc/thermal.cu MAX_SHARDS)
+#: the most shards one launch of a batched halo kernel takes (kernels 32, 33,
+#: 35 and 36; csrc/shan_chen.cu, csrc/d3q19.cu and csrc/thermal.cu MAX_SHARDS)
 MAX_SHARDS = 8
 
 
 def shard_batches(keys) -> list[list[int]]:
-    """The launches of one sweep of a batched halo kernel (33, 36) over
+    """The launches of one sweep of a batched halo kernel (32, 33, 35, 36) over
     shards whose (device, dtype) are ``keys``: the shards' indices grouped by
     key, in order, at most ``MAX_SHARDS`` a launch."""
     groups: dict = {}

@@ -30,10 +30,10 @@ Local steps, one per family, ``local(f_loc, top, bot, off, edge)``:
     later sweeps a padded scratch slab, and the last one writes the shard's
     rows only.  Sweep j of s computes the band of rows that the remaining
     s - j sweeps still need, ``rows_per_sweep * (s - j)`` beyond the shard on
-    each side, clipped to the grid for the wall families.  Kernel 33 runs
-    one launch a sweep over up to ``MAX_SHARDS`` shards of a card instead
-    (``launch_sweeps_shards``), and its first sweep reads a neighbour's
-    edge rows in place where the neighbour shares the card
+    each side, clipped to the grid for the wall families.  Kernels 32 and
+    33 run one launch a sweep over up to ``MAX_SHARDS`` shards of a card
+    instead (``launch_sweeps_shards``), and their first sweep reads a
+    neighbour's edge rows in place where the neighbour shares the card
     (parallel/halo.py ``ring_rows``): no exchange copy on one card.
     Kernel 27 runs a call's s steps on up to ``MAX_SHARDS`` shards of a card
     in one launch (``launch_collide_shards``, csrc/collide_stream.cuh's
@@ -65,7 +65,8 @@ the single-device kernel's):
     engines);
   * kernel 32, ``HALO_SHAN_CHEN``: the Shan-Chen body, fully periodic, in
     its four eos x forcing instances (shan_chen_pallas.py:138 make_sc_body
-    on :345 make_sharded_body_step; csrc/shan_chen.cu, kernel 14's);
+    on :345 make_sharded_body_step; csrc/shan_chen.cu, kernel 14's), one
+    launch a sweep over a card's shards;
   * kernel 33, ``HALO_D3Q19``: the D3Q19 step with the y axis sharded, the
     planes state (19, X, Y, Z) being (19 X, Y, Z) in memory
     (d3q19_pallas.py:173 make_d3q19_body on :345; csrc/d3q19.cu, kernel
@@ -76,8 +77,8 @@ The rows x cols steps (kernels 34-38) are kernels/sharded2d.py.
 Bound: device-memory bytes, those of the family's single-device kernel per
 sweep over the band it computes, plus the halo reads of each exchange
 (chip_smoke.py counts them); the exchange itself is 2 n copies of
-``planes * halo * C`` values (kernels 27 and 33: none between shards of one
-card; 27 reads and writes its shards once a call).
+``planes * halo * C`` values (kernels 27, 32 and 33: none between shards of
+one card; 27 reads and writes its shards once a call).
 
 ``substeps="auto"`` resolves to the deepest cadence the family's strip
 admits (``AUTO_SUBSTEPS``).  lbm_tpu picks it from TPU v5e cadence tables
@@ -138,9 +139,10 @@ HALO_THERMAL = _build.CudaKernel("lbm_halo_thermal", _ARGS)                 # ke
 HALO_MRTCG = _build.CudaKernel("lbm_halo_mrtcg_reduced", _ARGS)             # kernel 29
 HALO_RK = _build.CudaKernel("lbm_halo_rk", _ARGS)                           # kernel 30
 HALO_MRTCG_FULL = _build.CudaKernel("lbm_halo_mrtcg_full", _ARGS)           # kernel 31
-HALO_SHAN_CHEN = _build.CudaKernel("lbm_halo_shan_chen", _ARGS)             # kernel 32
-HALO_D3Q19 = _build.CudaKernel(                                              # kernel 33
-    "lbm_halo_d3q19", [*_ARGS[:2], ctypes.c_int, *_ARGS[2:]])
+# (geoms, params, n_shards, i0, i1, is_f64, stream): one sweep over a card's shards
+SHARDS_ARGS = [*_ARGS[:2], ctypes.c_int, *_ARGS[2:]]
+HALO_SHAN_CHEN = _build.CudaKernel("lbm_halo_shan_chen", SHARDS_ARGS)       # kernel 32
+HALO_D3Q19 = _build.CudaKernel("lbm_halo_d3q19", SHARDS_ARGS)               # kernel 33
 
 
 def halo_for(substeps: int, rows_per_sweep: int) -> int:
@@ -301,7 +303,7 @@ def _sweep_geoms(f, top, bot, off: int, edge: bool, R: int, *, substeps: int,
 def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, R: int, *,
                   substeps: int, rows_per_sweep: int, walls: bool, params, i0: int = 0,
                   i1: int = 0) -> torch.Tensor:
-    """``substeps`` launches of a halo-input kernel (28-32) on the shard
+    """``substeps`` launches of a halo-input kernel (28-31) on the shard
     ``f`` with its halos ``top`` and ``bot`` (``(planes, halo, C)`` each;
     ``_sweep_geoms``); returns the shard's new rows in a fresh buffer (``f``
     is never written).  Raises on a tensor the kernel does not take and on
@@ -316,38 +318,52 @@ def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, 
     return out
 
 
-def launch_sweeps_shards(kernel: _build.CudaKernel, shards, *, substeps: int,
-                         rows_per_sweep: int, walls: bool, R: int, params, ints=(),
-                         plain) -> list:
-    """``substeps`` sweeps of a batched halo-input kernel (33) on ``shards``,
-    a list of (f, top, bot, off, edge): a CPU shard's through ``plain``
-    (which takes the same), the others' one launch a sweep over up to
-    ``MAX_SHARDS`` shards of one device and type (blockIdx.y the shard,
-    ``shard_batches``), ``kernel.launch(geoms, params, n_shards, *ints,
-    is_f64, stream)``, which launches or raises.  Returns each shard's new
-    rows in a fresh buffer.  A shard's sweeps are ``launch_sweeps``' bands,
-    so the values are the same bits."""
+def launch_planned_shards(kernel: _build.CudaKernel, shards, plan, *, substeps: int, params,
+                          ints=(), plain) -> list:
+    """``substeps`` sweeps of a batched halo-input kernel (32, 33, 35, 36) on
+    ``shards``, a list of argument tuples whose first entry is the shard: a
+    CPU shard's through ``plain`` (which takes the same tuple), the others'
+    one launch a sweep over up to ``MAX_SHARDS`` shards of one device and
+    type (blockIdx.y or z the shard, ``shard_batches``), ``kernel.launch(
+    geoms, params, n_shards, *ints, is_f64, stream)``, which launches or
+    raises.  ``plan(*shard)`` gives a shard's (out, geometry of each sweep,
+    scratch slabs), as ``_sweep_geoms`` does; the slabs and the inputs stay
+    referenced until the launches are issued.  Returns each shard's new
+    values in a fresh buffer."""
     out = [None] * len(shards)
     plans, batches = {}, []
-    for batch in shard_batches([(f.device, f.dtype) for f, *_ in shards]):
+    for batch in shard_batches([(s[0].device, s[0].dtype) for s in shards]):
         if not resolve_fused(shards[batch[0]][0]):
             for i in batch:
                 out[i] = plain(*shards[i])
             continue
         batches.append(batch)
         for i in batch:
-            plans[i] = _sweep_geoms(*shards[i], R, substeps=substeps,
-                                    rows_per_sweep=rows_per_sweep, walls=walls)
+            plans[i] = plan(*shards[i])
             out[i] = plans[i][0]
     for j in range(substeps):
         for batch in batches:
             f = shards[batch[0]][0]
             with torch.cuda.device(f.device):
-                geoms = (ctypes.c_longlong * (len(GEOM) * len(batch)))(
-                    *(v for i in batch for v in plans[i][1][j]))
-                kernel.launch(geoms, params, len(batch), *ints, int(f.dtype == torch.float64),
-                              _build.stream_handle(f))
+                values = [v for i in batch for v in plans[i][1][j]]
+                kernel.launch((ctypes.c_longlong * len(values))(*values), params, len(batch),
+                              *ints, int(f.dtype == torch.float64), _build.stream_handle(f))
     return out
+
+
+def launch_sweeps_shards(kernel: _build.CudaKernel, shards, *, substeps: int,
+                         rows_per_sweep: int, walls: bool, R: int, params, ints=(),
+                         plain) -> list:
+    """``substeps`` sweeps of a batched row-shard kernel (32, 33) on
+    ``shards``, a list of (f, top, bot, off, edge), through
+    ``launch_planned_shards``: one launch a sweep over a card's shards, CPU
+    shards through ``plain``.  A shard's sweeps are ``launch_sweeps``'
+    bands (``_sweep_geoms``), so the values are the same bits."""
+    return launch_planned_shards(
+        kernel, shards, lambda f, top, bot, off, edge: _sweep_geoms(
+            f, top, bot, off, edge, R, substeps=substeps, rows_per_sweep=rows_per_sweep,
+            walls=walls),
+        substeps=substeps, params=params, ints=ints, plain=plain)
 
 
 def make_local_halo_body_step(R: int, body, launch, substeps: int):
@@ -684,16 +700,24 @@ def make_sharded_sc_step(mesh: Mesh, R: int, C: int, *, omega: float, G: float |
     sharded: f (9, R, C) shards -> the same, ``substeps`` (at most 4) steps
     per exchange of HALO rows, each sweep consuming 2 (lbm_tpu's
     make_sharded_body_step on make_sc_body, shan_chen_pallas.py:138).
-    Kernel 32 on CUDA shards."""
+    Kernel 32 on CUDA shards: one launch a sweep over up to MAX_SHARDS
+    shards of a card (``launch_sweeps_shards``), the first reading the
+    neighbours' edge rows in place where they share the card
+    (``ring_rows``); CPU shards run the plain version; ``step.plain`` the
+    plain version after ``exchange_rows`` on any device."""
     substeps = _check_sweeps(resolve_substeps(substeps, "shan_chen"),
                             HALO // ROWS_PER_SWEEP["shan_chen"])
     eos_i, forcing_i, params = shan_chen.kernel_params(omega, G, eos, T, forcing)
-    plain = shan_chen.make_plain_step(omega, G, eos, T, forcing)
-    launch = functools.partial(launch_sweeps, HALO_SHAN_CHEN, R=R, substeps=substeps,
-                               rows_per_sweep=ROWS_PER_SWEEP["shan_chen"], walls=False,
-                               params=_build.c_doubles(params), i0=eos_i, i1=forcing_i)
-    local = make_local_halo_body_step(R, lambda S, rows, R_: plain(S), launch, substeps)
-    return make_sharded_body_step(mesh, 9, R, C, local, dtype)
+    sc = shan_chen.make_plain_step(omega, G, eos, T, forcing)
+
+    def plain(f, top, bot, off, edge):
+        return plain_sweeps(lambda S, rows, R_: sc(S), f, top, bot, off, R, substeps)
+
+    batched = functools.partial(
+        launch_sweeps_shards, HALO_SHAN_CHEN, substeps=substeps,
+        rows_per_sweep=ROWS_PER_SWEEP["shan_chen"], walls=False, R=R,
+        params=_build.c_doubles(params), ints=(eos_i, forcing_i), plain=plain)
+    return make_sharded_body_step(mesh, 9, R, C, plain, dtype, batched=batched)
 
 
 def make_sharded_d3q19_step(mesh: Mesh, X: int, Y: int, Z: int, *, omega: float,

@@ -48,7 +48,8 @@ copies).
 
 The body steps (``make_sharded2d_body_step``, lbm_tpu's ``_sharded2d_wrap``
 :517-546) run a family's step on each shard with its global row and column
-offsets, one ``exchange_2d`` of HALO rows and columns per call and
+offsets, one exchange of HALO rows and columns per call (``exchange_2d``;
+kernel 35 ``ring_2d``) and
 ``substeps`` sweeps, each consuming ``ROWS_PER_SWEEP`` lines of the strips
 in both axes; the masked (edge) instance on row ranks 0 and nx-1, the
 mask-free one on interior row ranks:
@@ -60,15 +61,20 @@ mask-free one on interior row ranks:
     columns 0 and C-1, wherever the block holds them).  It equals the
     single-device plain step bit for bit;
   * on a CUDA shard, the family's rows x cols kernel, one launch per sweep
-    (``launch_sweeps_2d``): kernel 35 ``HALO2D_SHAN_CHEN`` (csrc/shan_chen.cu,
-    kernel 14's collision), 36 ``HALO2D_THERMAL`` (csrc/thermal.cu, kernel
-    23's D2Q9 step; one launch a sweep over up to ``MAX_SHARDS`` shards of a
-    card, ``launch_sweeps_2d_shards``), 37 ``HALO2D_RK`` (csrc/rk_cg.cu) and 38
-    ``HALO2D_MRTCG_FULL`` (csrc/mrtcg_full.cu, both modes), 37-38 on the tile
-    engine of csrc/mrtcg.cuh with its columns the shard's padded ones
-    (``BandCols``).  Sweep j of s writes the shard and ``rows_per_sweep (s -
-    j)`` more lines on each side, reading ``rows_per_sweep`` beyond them, the
-    rows clipped at the grid's walls.
+    and shard (``launch_sweeps_2d``) or per sweep over a card's shards:
+    kernel 35 ``HALO2D_SHAN_CHEN`` (csrc/shan_chen.cu, kernel 14's
+    collision; one launch a sweep over up to ``MAX_SHARDS`` shards of a card,
+    ``launch_parts_shards``, its first sweep reading each padded block from
+    ``ring_2d``'s 3 x 3 parts: no exchange copy on one card), 36
+    ``HALO2D_THERMAL`` (csrc/thermal.cu, kernel 23's D2Q9 step; one launch a
+    sweep over up to ``MAX_SHARDS`` shards of a card,
+    ``launch_sweeps_2d_shards``, from ``exchange_2d``'s strips), 37
+    ``HALO2D_RK`` (csrc/rk_cg.cu) and 38 ``HALO2D_MRTCG_FULL``
+    (csrc/mrtcg_full.cu, both modes), 37-38 on the tile engine of
+    csrc/mrtcg.cuh with its columns the shard's padded ones (``BandCols``).
+    Sweep j of s writes the shard and ``rows_per_sweep (s - j)`` more lines
+    on each side, reading ``rows_per_sweep`` beyond them, the rows clipped at
+    the grid's walls.
 
 Sweeps per exchange: lbm_tpu's 2-D caps, ``min(8 // rps, 32 // rps)`` with
 rps the lines a sweep consumes (``CAP_2D``: MRT-CG 2, CSF 1, Shan-Chen 4,
@@ -97,8 +103,9 @@ from ..parallel.sharded import sweep_block
 from ..utils.xmath import resolve_fused
 from . import _build, mrtcg, rk, shan_chen, thermal
 from ._build import MAX_SHARDS, shard_batches
-from .sharded import (_ARGS, BLOCK_ARGS, COLLIDE_KINDS, HALO, ROWS_PER_SWEEP, _check_sweeps,
-                      _per_colour, collide_launch, resolve_substeps, sweep_bands, thermal_body)
+from .sharded import (_ARGS, BLOCK_ARGS, COLLIDE_KINDS, HALO, ROWS_PER_SWEEP, SHARDS_ARGS,
+                      _check_parts, _check_sweeps, _per_colour, collide_launch,
+                      launch_planned_shards, resolve_substeps, sweep_bands, thermal_body)
 
 # the geometry array of a rows x cols launch (csrc/halo2d.cuh ``Geom``)
 GEOM = ("top", "mid", "bot", "left", "right", "out",
@@ -107,9 +114,18 @@ GEOM = ("top", "mid", "bot", "left", "right", "out",
         "halo", "r_loc", "c_loc", "in_r_lo", "in_r_hi", "in_c_lo", "in_c_hi",
         "out_r_lo", "out_r_hi", "out_c_lo", "out_c_hi", "out_first",
         "off_r", "off_c", "rows", "cols", "edge")
+# the geometry array of one shard of kernel 35 (csrc/halo2d.cuh ``PartsGeom``):
+# the 3 x 3 parts of its padded block row-major, each (base, plane stride,
+# row stride), then the output's, the parts' halo, the shard's rows and
+# columns, the cells read and the cells written
+PARTS_GEOM = (*(f"in{a}{b}_{x}" for a in range(3) for b in range(3)
+                for x in ("base", "plane", "ld")),
+              "out", "out_plane", "out_ld", "out_first", "halo", "r_loc", "c_loc",
+              "in_r_lo", "in_r_hi", "in_c_lo", "in_c_hi", "out_r_lo", "out_r_hi", "out_c_lo",
+              "out_c_hi")
 HALO2D_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo2d_{kind}", BLOCK_ARGS)
                          for kind in COLLIDE_KINDS}                       # kernel 34
-HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", _ARGS)       # kernel 35
+HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", SHARDS_ARGS)  # kernel 35
 HALO2D_THERMAL = _build.CudaKernel("lbm_halo2d_thermal", _ARGS)           # kernel 36
 HALO2D_RK = _build.CudaKernel("lbm_halo2d_rk", _ARGS)                     # kernel 37
 HALO2D_MRTCG_FULL = _build.CudaKernel("lbm_halo2d_mrtcg_full", _ARGS)     # kernel 38
@@ -201,7 +217,7 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
                      params, i0: int = 0, i1: int = 0, rows_per_sweep: int = 1,
                      walls: bool = False, off: tuple[int, int] = (0, 0),
                      shape: tuple[int, int] = (0, 0), edge: bool = False) -> torch.Tensor:
-    """``substeps`` launches of a rows x cols kernel (35, 37, 38) on the
+    """``substeps`` launches of a rows x cols kernel (37, 38) on the
     shard ``f`` with its four strips; returns the shard's new values in a
     fresh buffer (``f`` is never written).  Each sweep consumes
     ``rows_per_sweep`` lines of the strips in both axes; ``off`` is the
@@ -224,35 +240,63 @@ def launch_sweeps_2d_shards(kernel: _build.CudaKernel, shards, *, substeps: int,
                             rows_per_sweep: int, walls: bool, shape: tuple[int, int],
                             plain) -> list:
     """``substeps`` sweeps of kernel 36 on ``shards``, a list of (f, top, bot,
-    left, right, off_r, off_c, edge): a CPU shard's through ``plain`` (which
-    takes the same), the others' one launch a sweep over up to
-    ``MAX_SHARDS`` shards of one device and type (blockIdx.y the shard,
-    ``shard_batches``), which launches or raises.  Returns each shard's new
-    values in a fresh buffer.  A shard's sweeps are launch_sweeps_2d's, so
-    the values are the same bits."""
-    out = [None] * len(shards)
-    plans, batches = {}, []
-    for batch in shard_batches([(f.device, f.dtype) for f, *_ in shards]):
-        if not resolve_fused(shards[batch[0]][0]):
-            for i in batch:
-                out[i] = plain(*shards[i])
-            continue
-        batches.append(batch)
-        for i in batch:
-            f, top, bot, left, right, off_r, off_c, edge = shards[i]
-            plans[i] = _sweep_geoms(f, top, bot, left, right, substeps=substeps,
-                                    rows_per_sweep=rows_per_sweep, walls=walls,
-                                    off=(off_r, off_c), shape=shape, edge=edge)
-            out[i] = plans[i][0]
-    for j in range(substeps):
-        for batch in batches:
-            f = shards[batch[0]][0]
-            with torch.cuda.device(f.device):
-                geoms = (ctypes.c_longlong * (len(GEOM) * len(batch)))(
-                    *(v for i in batch for v in plans[i][1][j]))
-                kernel.launch(geoms, params, len(batch), 0, int(f.dtype == torch.float64),
-                              _build.stream_handle(f))
-    return out
+    left, right, off_r, off_c, edge), through kernels/sharded.py
+    ``launch_planned_shards``: one launch a sweep over up to ``MAX_SHARDS``
+    shards of one device and type, CPU shards through ``plain``.  A shard's
+    sweeps are launch_sweeps_2d's, so the values are the same bits."""
+    def plan(f, top, bot, left, right, off_r, off_c, edge):
+        return _sweep_geoms(f, top, bot, left, right, substeps=substeps,
+                            rows_per_sweep=rows_per_sweep, walls=walls, off=(off_r, off_c),
+                            shape=shape, edge=edge)
+
+    return launch_planned_shards(kernel, shards, plan, substeps=substeps, params=params,
+                                 ints=(0,), plain=plain)
+
+
+def _parts_geoms(f, parts, *, substeps: int, rows_per_sweep: int):
+    """(out, geoms, slabs) of ``substeps`` sweeps of kernel 35 on the shard
+    ``f`` with the 3 x 3 ``parts`` of its padded block (``ring_2d``'s, or
+    ``strip_parts``' views of exchanged strips): ``out`` a fresh buffer for
+    the shard's new values (``f`` is never written), in order each sweep's
+    geometry (``PARTS_GEOM``'s values) and the scratch slabs they name,
+    which the caller holds until the launches are issued.  The first sweep
+    reads the parts in place, later ones a padded slab (two, alternating) as
+    3 x 3 views of it, the last writes ``out``; no line wraps or clips.
+    Raises on a tensor the kernel does not take."""
+    R_loc, C_loc, halo = _check_parts(f, parts)
+    _check_sweeps(substeps, halo // rows_per_sweep)
+    item = f.element_size()
+    Rp, Cp = R_loc + 2 * halo, C_loc + 2 * halo
+    out = torch.empty_like(f)
+    slabs = [torch.empty((9, Rp, Cp), dtype=f.dtype, device=f.device)
+             for _ in range(min(substeps - 1, 2))]
+    src = [v for row in parts for h in row for v in (h.data_ptr(), h.stride(0), h.stride(1))]
+    first = (0, halo, halo + R_loc), (0, halo, halo + C_loc)  # each part's first line
+    geoms = []
+    for j, ((ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi)) in enumerate(
+            sweep_bands_2d(R_loc, C_loc, halo, substeps, rows_per_sweep), start=1):
+        if j == substeps:
+            dst, at, dplane, dld = out, halo, R_loc * C_loc, C_loc
+        else:
+            dst, at, dplane, dld = slabs[(j - 1) % 2], 0, Rp * Cp, Cp
+        geoms.append((*src, dst.data_ptr(), dplane, dld, at, halo, R_loc, C_loc, ri_lo, ri_hi,
+                      ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi))
+        src = [v for r in first[0] for c in first[1]
+               for v in (dst.data_ptr() + (r * Cp + c) * item, Rp * Cp, Cp)]
+    return out, geoms, slabs
+
+
+def launch_parts_shards(kernel: _build.CudaKernel, shards, *, substeps: int, params, ints,
+                        rows_per_sweep: int, plain) -> list:
+    """``substeps`` sweeps of kernel 35 on ``shards``, a list of (f, parts,
+    off_r, off_c, edge), ``parts`` the 3 x 3 parts of the shard's padded
+    block, through kernels/sharded.py ``launch_planned_shards``: one launch
+    a sweep over up to ``MAX_SHARDS`` shards of one device and type
+    (``_parts_geoms``), CPU shards through ``plain``, which takes the same."""
+    return launch_planned_shards(
+        kernel, shards, lambda f, parts, off_r, off_c, edge: _parts_geoms(
+            f, parts, substeps=substeps, rows_per_sweep=rows_per_sweep),
+        substeps=substeps, params=params, ints=ints, plain=plain)
 
 
 def make_local_2d_step(R_loc: int, C_loc: int, collide_fn, dtype: torch.dtype = torch.float32,
@@ -335,15 +379,23 @@ def make_plain_2d_body_step(R: int, C: int, body, substeps: int):
     """``plain(f_loc, top, bot, left, right, off_r, off_c, edge) -> f_loc'``
     on any device: ``substeps`` sweeps of ``body(block, rows, cols)`` over
     the padded block (``sweep_block``; ``rows`` the block's global rows,
-    ``cols`` its global columns wrapped into [0, C))."""
+    ``cols`` its global columns wrapped into [0, C)).  ``plain.parts(f_loc,
+    parts, off_r, off_c, edge)`` is the same on the block that ``ring_2d``'s
+    3 x 3 parts tile."""
+
+    def sweeps(block, halo, off_r, off_c):
+        R_loc, C_loc = block.shape[-2] - 2 * halo, block.shape[-1] - 2 * halo
+        rows = torch.arange(off_r - halo, off_r + R_loc + halo, device=block.device)
+        cols = torch.arange(off_c - halo, off_c + C_loc + halo, device=block.device) % C
+        return sweep_block(block, halo, substeps=substeps, body=body, rows=rows, cols=cols)
 
     def plain(f, top, bot, left, right, off_r, off_c, edge):
-        halo, (R_loc, C_loc) = top.shape[-2], f.shape[-2:]
-        rows = torch.arange(off_r - halo, off_r + R_loc + halo, device=f.device)
-        cols = torch.arange(off_c - halo, off_c + C_loc + halo, device=f.device) % C
-        return sweep_block(pad_block(f, top, bot, left, right), halo, substeps=substeps,
-                           body=body, rows=rows, cols=cols)
+        return sweeps(pad_block(f, top, bot, left, right), top.shape[-2], off_r, off_c)
 
+    def parts(f, parts, off_r, off_c, edge):
+        return sweeps(parts_block(parts), parts[0][1].shape[-2], off_r, off_c)
+
+    plain.parts = parts
     return plain
 
 
@@ -395,21 +447,23 @@ def each_shard(local):
 
 
 def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, run, plain,
-                             dtype: torch.dtype, row_factory: str):
+                             dtype: torch.dtype, row_factory: str, halos=exchange_2d):
     """Shard a local body step over rows ('x') and columns ('y') (lbm_tpu
     sharded2d_pallas.py:517 ``_sharded2d_wrap``): ShardedState of
-    ``(planes, R / nx, C / ny)`` shards -> the same, one ``exchange_2d`` of
-    HALO rows and columns per call.  ``run`` gets every shard's (f_loc, top,
-    bot, left, right, off_r, off_c, edge), with its global offsets and
-    ``edge`` on row ranks 0 and nx-1 (the masked instance), and returns
-    their new values: ``each_shard(local)`` takes them one by one, kernel
-    36's ``launch_sweeps_2d_shards`` a launch a sweep over a card's shards.
-    ``step.plain`` runs ``plain`` (one shard's plain version, on any device)
-    on each."""
+    ``(planes, R / nx, C / ny)`` shards -> the same, one exchange of HALO
+    rows and columns per call.  ``run`` gets every shard's (f_loc, *halos,
+    off_r, off_c, edge), with its global offsets and ``edge`` on row ranks 0
+    and nx-1 (the masked instance), and returns their new values:
+    ``each_shard(local)`` takes them one by one, kernel 36's
+    ``launch_sweeps_2d_shards`` a launch a sweep over a card's shards.
+    ``halos(grid, HALO)`` gives each block's halos in row-major order, a
+    tuple each: ``exchange_2d``'s (top, bot, left, right) strips, or kernel
+    35's (parts,) from ``ring_2d``.  ``step.plain`` runs ``plain`` (one
+    shard's plain version, on any device) on each after ``exchange_2d``."""
     R_loc, C_loc = check_mesh_2d(mesh, R, C, row_factory)
     nx, ny = mesh.shape["x"], mesh.shape["y"]
 
-    def build(run):
+    def build(run, halos):
         def step(state: ShardedState) -> ShardedState:
             if state.mesh != mesh:
                 raise ValueError("the state is sharded over another mesh than the step's")
@@ -419,13 +473,13 @@ def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, run, plain
                                      f"({planes}, {R_loc}, {C_loc}) {dtype}")
             grid = [state.shards[i * ny:(i + 1) * ny] for i in range(nx)]
             return ShardedState(mesh, run([
-                (f, *strips, b // ny * R_loc, b % ny * C_loc, b // ny in (0, nx - 1))
-                for b, (f, strips) in enumerate(zip(state.shards, exchange_2d(grid, HALO)))]))
+                (f, *h, b // ny * R_loc, b % ny * C_loc, b // ny in (0, nx - 1))
+                for b, (f, h) in enumerate(zip(state.shards, halos(grid, HALO)))]))
 
         return step
 
-    step = build(run)
-    step.plain = build(each_shard(plain))
+    step = build(run, halos)
+    step.plain = build(each_shard(plain), exchange_2d)
     return step
 
 
@@ -440,15 +494,21 @@ def make_sharded2d_sc_step(mesh: Mesh, R: int, C: int, *, omega: float, G: float
     """The fully periodic Shan-Chen step (kernels/shan_chen.py) sharded over
     rows and columns: f (9, R, C) shards -> the same, ``substeps`` (at most
     4) steps per exchange, each sweep consuming 2 lines (lbm_tpu
-    sharded2d_pallas.py:549).  Kernel 35 on CUDA shards."""
+    sharded2d_pallas.py:549).  Kernel 35 on CUDA shards: one launch a sweep
+    over up to MAX_SHARDS shards of a card (``launch_parts_shards``), the
+    first reading each padded block from ``ring_2d``'s 3 x 3 parts (the
+    neighbours' lines in place where they share the card, copied only
+    across cards); CPU shards run the plain version on the same parts;
+    ``step.plain`` the plain version after ``exchange_2d`` on any device."""
     substeps = resolve_substeps_2d(substeps, "shan_chen")
     eos_i, forcing_i, params = shan_chen.kernel_params(omega, G, eos, T, forcing)
-    plain = shan_chen.make_plain_step(omega, G, eos, T, forcing)
-    launch = _body_launch(HALO2D_SHAN_CHEN, "shan_chen", substeps, _build.c_doubles(params),
-                          False, eos_i, forcing_i)
-    local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S), launch, substeps)
-    return make_sharded2d_body_step(mesh, 9, R, C, each_shard(local), local.plain, dtype,
-                                    "make_sharded_sc_step")
+    sc = shan_chen.make_plain_step(omega, G, eos, T, forcing)
+    plain = make_plain_2d_body_step(R, C, lambda S, rows, cols: sc(S), substeps)
+    run = functools.partial(launch_parts_shards, HALO2D_SHAN_CHEN, substeps=substeps,
+                            params=_build.c_doubles(params), ints=(eos_i, forcing_i),
+                            rows_per_sweep=ROWS_PER_SWEEP["shan_chen"], plain=plain.parts)
+    return make_sharded2d_body_step(mesh, 9, R, C, run, plain, dtype, "make_sharded_sc_step",
+                                    halos=lambda grid, w: [(p,) for p in ring_2d(grid, w)])
 
 
 def make_sharded2d_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,

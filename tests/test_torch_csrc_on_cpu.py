@@ -1,8 +1,9 @@
-"""Kernels 12, 36, 33, 4, 27, 34, 2 and 9 (csrc/rk_cg.cu, thermal.cu,
+"""Kernels 12, 36, 33, 4, 27, 34, 2, 9, 32 and 35 (csrc/rk_cg.cu, thermal.cu,
 d3q19.cu, channel_kbc.cu, collide_stream_bgk.cu, collide_stream_kbc.cu,
-channel_bgk.cu and channel_variant.cu) compiled for the CPU with g++ through
-a stand-in for the CUDA runtime: a block's threads run as std::threads that
-meet at a std::barrier, blocks one after another, shared memory NaN-filled,
+channel_bgk.cu, channel_variant.cu and shan_chen.cu) compiled for the CPU
+with g++ through a stand-in for the CUDA runtime: a block's threads run as
+std::threads that meet at a std::barrier, blocks one after another, shared
+memory (dynamic, and a kernel's one static array) NaN-filled a block,
 cudaLaunchKernelEx a launch that counts the programmatic dependent ones.
 Every operation of these sources rounds once in IEEE arithmetic (-fmad=false
 on the card for all but channel_kbc.cu and channel_bgk.cu, -ffp-contract=off
@@ -12,6 +13,7 @@ CPU kernels round a few operations differently (its square root by an ulp).
 A wrong geometry, tap or batch gives errors of order one or NaN.  No JAX,
 no card; skipped without a C++ compiler."""
 
+import concurrent.futures
 import contextlib
 import ctypes
 import importlib.util
@@ -24,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from lbm_tpu_torch.kernels import _build, bgk, channel, collide_stream, d3q19, rk, thermal
+from lbm_tpu_torch.kernels import (_build, bgk, channel, collide_stream, d3q19, rk, shan_chen,
+                                   thermal)
 from lbm_tpu_torch.kernels import sharded as ksh
 from lbm_tpu_torch.kernels import sharded2d as k2d
 from lbm_tpu_torch.ops import d2q9
@@ -50,6 +53,7 @@ CUDA_RUNTIME = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __grid_constant__
+using std::exp;
 using std::fabs;
 using std::sqrt;
 struct dim3 {
@@ -66,19 +70,21 @@ typedef void* cudaStream_t;
 namespace shim {
 inline thread_local dim3 tIdx, bIdx, bDim, gDim;
 inline thread_local unsigned char* smem = nullptr;
+inline thread_local unsigned char* smem_static = nullptr;  // a kernel's static __shared__ array
+constexpr size_t STATIC_SMEM = 48 << 10;
 inline thread_local std::barrier<>* bar = nullptr;
 template <typename F>
 void launch(dim3 grid, unsigned threads, size_t bytes, void*, F f) {
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::vector<unsigned char> mem(bytes + 16, 0xff);
+        std::vector<unsigned char> mem(bytes + 16, 0xff), fixed(STATIC_SMEM, 0xff);
         std::barrier<> b(threads);
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < threads; ++t)
           ts.emplace_back([&, t, bx, by, bz] {
             tIdx = dim3(t); bIdx = dim3(bx, by, bz); bDim = dim3(threads); gDim = grid;
-            smem = mem.data(); bar = &b;
+            smem = mem.data(); smem_static = fixed.data(); bar = &b;
             f();
           });
         for (auto& th : ts) th.join();
@@ -134,8 +140,9 @@ inline void __pipeline_wait_prior(int) {}
 def _cpu_library(d: Path, units=("rk_cg", "thermal"), sources=None):
     """The csrc units ``units`` as one CPU library in ``d``: each launch
     ``k<<<g, t, s, st>>>(args)`` becomes a call of the stand-in's launcher,
-    the dynamic shared memory a per-block buffer; ``sources`` maps a file
-    name to the text that stands in for it."""
+    the dynamic shared memory a per-block buffer, as is a kernel's one static
+    ``__shared__`` array; ``sources`` maps a file name to the text that
+    stands in for it."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no C++ compiler to build csrc/ for the CPU")
@@ -148,6 +155,8 @@ def _cpu_library(d: Path, units=("rk_cg", "thermal"), sources=None):
         text = (sources or {}).get(f.name, None) or f.read_text()
         text = re.sub(r"extern __shared__ (__align__\(\d+\) )?unsigned char smem_raw\[\];",
                       "unsigned char* smem_raw = shim::smem;", text)
+        text = re.sub(r"(?<!extern )__shared__ (\w+) (\w+)\[\w+\];",
+                      r"\1* \2 = reinterpret_cast<\1*>(shim::smem_static);", text)
         text = launch.sub(lambda m: f"shim::launch({m.group(2)}, [&]() {{ "
                                     f"{m.group(1)}({m.group(3)}); }});", text)
         (d / (f.name if f.suffix == ".cuh" else f.stem + ".cpp")).write_text(text)
@@ -749,3 +758,196 @@ def test_kernels_27_34_designs_give_the_tree_bits(cpu_kernels_27_34, tmp_path, m
                         mesh, 36, 40, bgk.bgk_collide_fn(OMEGA_27, dtype), dtype, substeps=s)
                     got[name] = step(x).gather()
             assert torch.equal(got["tree"], got[design])
+
+
+@pytest.fixture(scope="module")
+def cpu_kernels_32_35(tmp_path_factory):
+    """csrc/shan_chen.cu as a CPU library: kernels 14, 32 and 35."""
+    return _cpu_library(tmp_path_factory.mktemp("csrc_cpu_32_35"), ("shan_chen",))
+
+
+SC_KW = {"sc guo": dict(omega=1.0, G=-5.0, eos="sc", forcing="guo"),
+         "sc shift": dict(omega=1.0, G=-5.0, eos="sc", forcing="shift"),
+         "cs shift": dict(omega=1.0, eos="cs", T=0.7 * 0.09433, forcing="shift"),
+         "cs guo": dict(omega=1.0, eos="cs", T=0.7 * 0.09433, forcing="guo")}
+
+
+def _sc_state(R, C, dtype, cs, seed):
+    """An equilibrium at seeded densities about the instance's liquid (sc
+    0.7, cs 0.18) and a seeded flow, each population times 1 + U(-2%, 2%)."""
+    g = np.random.default_rng(seed)
+    rho = (0.18 + 0.04 * g.standard_normal((R, C)) if cs
+           else 0.7 + 0.1 * g.standard_normal((R, C)))
+    u = torch.as_tensor(g.uniform(-0.03, 0.03, (2, R, C)))
+    f = d2q9.equilibrium(u, torch.as_tensor(rho)) * torch.as_tensor(g.uniform(0.98, 1.02,
+                                                                             (9, R, C)))
+    return f.to(dtype).contiguous()
+
+
+def _sc_step(mesh_shape, R, C, dtype, instance, s):
+    """Kernel 32's sharded step (``mesh_shape`` n row shards) or kernel 35's
+    (an (nx, ny) mesh) on CPU shards, and its mesh."""
+    two_d = isinstance(mesh_shape, tuple)
+    n = mesh_shape[0] * mesh_shape[1] if two_d else mesh_shape
+    mesh = pm.make_mesh(["cpu"] * n, mesh_shape if two_d else None)
+    make = k2d.make_sharded2d_sc_step if two_d else ksh.make_sharded_sc_step
+    return make(mesh, R, C, substeps=s, dtype=dtype, **SC_KW[instance]), mesh
+
+
+def _sc_bound(monkeypatch, lib):
+    """Kernels 32 and 35 bound to the CPU build ``lib``, CPU shards let
+    through to them."""
+    _bind(monkeypatch, lib, ksh.HALO_SHAN_CHEN, k2d.HALO2D_SHAN_CHEN)
+    monkeypatch.setattr(ksh, "resolve_fused", lambda f: True)
+
+
+def _sc_dependent(mesh_shape, R, C, s) -> int:
+    """The sweeps of a call of kernel 32 or 35 whose grid fits the stand-in's
+    4 SMs of 2 resident blocks in one wave: column tiles of 32 x row tiles
+    of 8 over the collided band, one grid layer a shard."""
+    if isinstance(mesh_shape, tuple):
+        (nx, ny), n = mesh_shape, mesh_shape[0] * mesh_shape[1]
+        bands = [(r[1] - r[0] - 2, c[1] - c[0] - 2)
+                 for r, c in k2d.sweep_bands_2d(R // nx, C // ny, ksh.HALO, s, 2)]
+    else:
+        n = mesh_shape
+        bands = [(b[1] - b[0] - 2, C) for b in ksh.sweep_bands(R // n, ksh.HALO, 0, R, s, 2,
+                                                               False)]
+    return sum(-(-cols // 32) * -(-rows // 8) * n <= 8 for rows, cols in bands)
+
+
+# (instance, n row shards or an (nx, ny) mesh, R, C, s, halos): every eos x
+# forcing instance, s = 1-4, 1, 2 and 4 row shards and (1, 2) and (2, 2)
+# meshes, sweeps in one wave (dependent launches) and in more; the
+# neighbours' lines read in place, and for two cases from the exchanges'
+# copies
+K32_35_CASES = [
+    ("sc guo", 1, 16, 24, 4, "in place"), ("sc shift", 2, 32, 24, 1, "in place"),
+    ("cs shift", 4, 32, 24, 3, "in place"), ("cs guo", 4, 32, 24, 4, "in place"),
+    ("sc guo", 2, 32, 40, 2, "exchanged"),
+    ("sc guo", (1, 2), 16, 32, 4, "in place"), ("sc shift", (2, 2), 32, 48, 2, "in place"),
+    ("cs shift", (2, 2), 32, 32, 1, "in place"), ("cs guo", (1, 2), 16, 48, 3, "in place"),
+    ("cs guo", (2, 2), 32, 32, 2, "exchanged")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("instance,mesh_shape,R,C,s,halos", K32_35_CASES)
+def test_kernels_32_35_source_match_plain(cpu_kernels_32_35, monkeypatch, dtype, instance,
+                                          mesh_shape, R, C, s, halos):
+    """Kernels 32 (row shards) and 35 (rows x cols) of csrc/shan_chen.cu
+    through the port's sharded Shan-Chen steps: one launch a sweep over the
+    device's shards (s a call), a dependent launch exactly where the sweep's
+    grid fits one wave, the first sweep reading the neighbours' lines in
+    place (``ring_rows``, ``ring_2d``) or from the exchanges' copies, two
+    calls into NaN-filled outputs and slabs: the plain sharded step within
+    TOL, no NaN."""
+    x = _sc_state(R, C, dtype, instance.startswith("cs"), R * C + s)
+    step, mesh = _sc_step(mesh_shape, R, C, dtype, instance, s)
+    want = step.plain(step.plain(pm.shard_state(mesh, x))).gather()
+    _sc_bound(monkeypatch, cpu_kernels_32_35)
+    _in_place_or_exchanged(monkeypatch, halos)
+    step, _ = _sc_step(mesh_shape, R, C, dtype, instance, s)
+    kernel = k2d.HALO2D_SHAN_CHEN if isinstance(mesh_shape, tuple) else ksh.HALO_SHAN_CHEN
+    _nan_buffers(monkeypatch)
+    before, pdl = kernel.launches, cpu_kernels_32_35.shim_pdl_count()
+    got = step(step(pm.shard_state(mesh, x))).gather()
+    assert kernel.launches - before == 2 * s
+    assert cpu_kernels_32_35.shim_pdl_count() - pdl == 2 * _sc_dependent(mesh_shape, R, C, s)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+def test_kernels_32_35_read_the_neighbours_lines_in_place(cpu_kernels_32_35, monkeypatch):
+    """On shards of one device kernels 32 and 35 make no exchange copy
+    (``step.plain`` makes its exchange's): kernel 35's first sweep names
+    each part of the padded block in the neighbour's own buffer (the rows
+    above at (R_loc - HALO) C_loc entries into the block above, the columns
+    left at C_loc - HALO, at the neighbour's strides), later sweeps a slab.
+    A launch of no shard or of more than MAX_SHARDS is refused, and the
+    wrapper raises: no fallback."""
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel.halo import ring_2d
+
+    copies, copy_to = [], ph.copy_to
+    monkeypatch.setattr(ph, "copy_to", lambda src, device: copies.append(1) or
+                        copy_to(src, device))
+    _sc_bound(monkeypatch, cpu_kernels_32_35)
+    for mesh_shape, C in ((4, 24), ((2, 2), 48)):
+        step, mesh = _sc_step(mesh_shape, 32, C, torch.float64, "sc guo", 2)
+        x = pm.shard_state(mesh, _sc_state(32, C, torch.float64, False, 1))
+        step(x)
+        assert copies == []
+        step.plain(x)
+        assert copies
+        copies.clear()
+    h, (R_loc, C_loc) = ksh.HALO, (16, 24)
+    grid = [[f for f in x.shards[i * 2:(i + 1) * 2]] for i in range(2)]
+    item = 8
+    for b, parts in enumerate(ring_2d(grid, h)):
+        i, j = divmod(b, 2)
+        up, left = grid[i - 1][j], grid[i][j - 1]
+        out, geoms, slabs = k2d._parts_geoms(grid[i][j], parts, substeps=2, rows_per_sweep=2)
+        g = [dict(zip(k2d.PARTS_GEOM, v)) for v in geoms]
+        assert g[0]["in11_base"] == grid[i][j].data_ptr()
+        assert g[0]["in01_base"] == up.data_ptr() + (R_loc - h) * C_loc * item
+        assert g[0]["in10_base"] == left.data_ptr() + (C_loc - h) * item
+        assert g[0]["in00_base"] == grid[i - 1][j - 1].data_ptr() + ((R_loc - h) * C_loc + C_loc
+                                                                      - h) * item
+        assert all((g[0][f"in{a}{c}_plane"], g[0][f"in{a}{c}_ld"]) == (R_loc * C_loc, C_loc)
+                   for a in range(3) for c in range(3))
+        assert g[0]["out"] == slabs[0].data_ptr() and g[1]["out"] == out.data_ptr()
+        Cp = C_loc + 2 * h
+        assert (g[1]["in11_base"], g[1]["in11_ld"]) == (
+            slabs[0].data_ptr() + (h * Cp + h) * item, Cp)
+    f = _sc_state(16, 24, torch.float64, False, 2)
+    _, geoms, _ = ksh._sweep_geoms(f, f[:, -8:], f[:, :8], 0, False, 16, substeps=1,
+                                   rows_per_sweep=2, walls=False)
+    params = _build.c_doubles(shan_chen.kernel_params(1.0, -5.0, "sc", None, None)[2])
+    for n in (0, _build.MAX_SHARDS + 1):
+        values = [v for _ in range(max(n, 1)) for v in geoms[0]]
+        with pytest.raises(RuntimeError, match="launch failed with cudaError_t 1"):
+            ksh.HALO_SHAN_CHEN.launch((ctypes.c_longlong * len(values))(*values), params, n,
+                                      0, 0, 1, None)
+
+
+@pytest.fixture(scope="module")
+def k32_k35_design_libs(tmp_path_factory):
+    """chip_smoke.py's K32_K35_DESIGNS that edit a source, each built for the
+    CPU with csrc/shan_chen.cu, the builds side by side: {label: library}."""
+    smoke = _chip_smoke()
+    sources = {label: files for label, files in
+               smoke.design_sources(CSRC, smoke.K32_K35_DESIGNS).items() if files}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = {label: pool.submit(_cpu_library, tmp_path_factory.mktemp("design_32_35"),
+                                    ("shan_chen",), files)
+                 for label, files in sources.items()}
+    return {label: lib.result() for label, lib in built.items()}
+
+
+@pytest.mark.parametrize("design", ["without PDL", "release after loads", "release first",
+                                    "64-bit wraps", "exchange copies kept"])
+def test_kernels_32_35_designs_give_the_tree_bits(cpu_kernels_32_35, k32_k35_design_libs,
+                                                  monkeypatch, design):
+    """chip_smoke.py's other designs of kernels 32 and 35 (K32_K35_DESIGNS,
+    which ``k32_k35_times`` times against the tree) built for the CPU:
+    "without PDL" (an edit of d2q9.cuh) launches no dependent sweep, the
+    other edits of csrc/shan_chen.cu the tree's dependent ones, and
+    "exchange copies kept" runs the tree's kernels on the exchanges' copies;
+    each gives the tree's bits over a call of 2 sweeps on 2 row shards in
+    float64 and of 3 on a (1, 2) mesh in float32."""
+    smoke = _chip_smoke()
+    lib = k32_k35_design_libs.get(design, cpu_kernels_32_35)
+    for dtype, mesh_shape, s in ((torch.float64, 2, 2), (torch.float32, (1, 2), 3)):
+        x = _sc_state(16, 32, dtype, False, 5)
+        got = {}
+        for name, where in (("tree", cpu_kernels_32_35), (design, lib)):
+            with monkeypatch.context() as m, (
+                    smoke.exchange_copies_kept() if name == "exchange copies kept"
+                    else contextlib.nullcontext()):
+                _sc_bound(m, where)
+                step, mesh = _sc_step(mesh_shape, 16, 32, dtype, "sc guo", s)
+                pdl = where.shim_pdl_count()
+                got[name] = step(pm.shard_state(mesh, x)).gather()
+                dependent = where.shim_pdl_count() - pdl
+            assert dependent == (0 if name == "without PDL"
+                                 else _sc_dependent(mesh_shape, 16, 32, s))
+        assert torch.equal(got["tree"], got[design])

@@ -1481,9 +1481,9 @@ def _k31_33_case(family, R, C, dtype, device, n, s):
 def test_sharded_kernels_31_to_33_match_single_device(cuda, family, n, s, dtype):
     """Kernels 31-33 on n shards of one card, two calls of s steps: bit for
     bit the single-device kernel of their family (8, 14, 25), within TOL of
-    the plain sharded version, and bit-identical run twice.  Kernels 31 and
-    32 launch once a shard and sweep, kernel 33 once a sweep over up to
-    MAX_SHARDS shards of the card."""
+    the plain sharded version, and bit-identical run twice.  Kernel 31
+    launches once a shard and sweep, kernels 32 and 33 once a sweep over up
+    to MAX_SHARDS shards of the card."""
     from lbm_tpu_torch.parallel import mesh as pm
 
     R, C = (192, 40) if family in ("mrtcg", "csf") else (64, 72)
@@ -1494,7 +1494,7 @@ def test_sharded_kernels_31_to_33_match_single_device(cuda, family, n, s, dtype)
     again = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
-    per_sweep = -(-n // 8) if family.startswith("d3q19") else n
+    per_sweep = n if family in ("mrtcg", "csf") else -(-n // 8)
     assert sum(k.launches for k in kernels) - sum(before) == 4 * per_sweep * s
     want = single(single(x))
     assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
@@ -1727,8 +1727,8 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
     """Kernels 35-38 on an (nx, ny) mesh of one card's shards, two calls of s
     steps: bit for bit the single-device kernel of their family (14, 23,
     12, 8), within TOL of the plain rows x cols version, and bit-identical
-    run twice.  A call launches s sweeps on each shard, kernel 36 s sweeps
-    over all the shards of the card (up to MAX_SHARDS a launch)."""
+    run twice.  A call launches s sweeps on each shard, kernels 35 and 36 s
+    sweeps over all the shards of the card (up to MAX_SHARDS a launch)."""
     from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.parallel import mesh as pm
 
@@ -1741,7 +1741,8 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
     n = shape[0] * shape[1]
-    per_call = -(-n // k2d.MAX_SHARDS) * s if family == "thermal" else n * s
+    per_call = (-(-n // k2d.MAX_SHARDS) * s if family == "thermal" or family in SC_CASES
+                else n * s)
     assert kernel.launches - before == 4 * per_call
     want = single(single(x))
     assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
@@ -1751,7 +1752,8 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
 @pytest.mark.cuda
 def test_kernels_35_to_38_reject_what_they_do_not_take(cuda):
     """A CUDA shard reaches kernels 35-38 or raises: a state of another type
-    than the step's, a strip of the wrong width, a CPU strip."""
+    than the step's, a strip of the wrong width, a CPU strip (kernel 35
+    takes the strips as ``strip_parts``' 3 x 3 parts of the padded block)."""
     from lbm_tpu_torch.kernels import _build, shan_chen
     from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.parallel import halo
@@ -1768,18 +1770,109 @@ def test_kernels_35_to_38_reject_what_they_do_not_take(cuda):
     params = _build.c_doubles(shan_chen.kernel_params(1.0, -5.0, "sc", None, None)[2])
 
     def launch(*strips):
-        return k2d.launch_sweeps_2d(k2d.HALO2D_SHAN_CHEN, f, *strips, substeps=1,
-                                    params=params, rows_per_sweep=2, shape=(R, C))
+        return k2d.launch_parts_shards(
+            k2d.HALO2D_SHAN_CHEN, [(f, halo.strip_parts(f, *strips), 0, 0, False)], substeps=1,
+            params=params, ints=(0, 0), rows_per_sweep=2, plain=None)[0]
 
-    with pytest.raises(ValueError, match="halo left"):
+    with pytest.raises(ValueError, match="halo top left"):
         launch(top, bot, left[..., :4].contiguous(), right)
-    with pytest.raises(ValueError, match="halo right"):
+    with pytest.raises(ValueError, match="halo top right"):
         launch(top, bot, left, right.cpu())
     assert torch.equal(launch(top, bot, left, right),
                        shan_chen.make_sc_fused_step(R, C, omega=1.0, G=-5.0,
                                                     dtype=torch.float64)(f))
     with pytest.raises(ValueError, match=r"substeps must be an int in \[1, 4\]"):
         k2d.make_sharded2d_sc_step(mesh, R, C, omega=1.0, G=-5.0, substeps=5)
+
+
+def _sc_sharded(kind, n, R, C, instance, dtype, devices, s):
+    """(kernel 32's or 35's step on ``devices``, its mesh, its kernel): row
+    shards for "rows", an (nx, ny) mesh ``n`` for "rows x cols"."""
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    if kind == "rows":
+        mesh = pm.make_mesh(devices)
+        return (ksh.make_sharded_sc_step(mesh, R, C, substeps=s, dtype=dtype,
+                                         **SC_CASES[instance]), mesh, ksh.HALO_SHAN_CHEN)
+    mesh = pm.make_mesh(devices, n)
+    return (k2d.make_sharded2d_sc_step(mesh, R, C, substeps=s, dtype=dtype, **SC_CASES[instance]),
+            mesh, k2d.HALO2D_SHAN_CHEN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,R,C", [("rows", 8, 128, 72), ("rows", 16, 128, 40),
+                                        ("rows x cols", (4, 2), 64, 96),
+                                        ("rows x cols", (4, 4), 64, 128)])
+@pytest.mark.parametrize("instance", sorted(SC_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_32_35_one_launch_a_sweep_and_no_copy(cuda, monkeypatch, dtype, instance, kind,
+                                                     n, R, C):
+    """Kernels 32 (row shards) and 35 (rows x cols) on shards of one card, in
+    every eos x forcing instance and both types: a call of 3 sweeps is 3
+    launches over up to MAX_SHARDS shards (16 shards: 6), makes no exchange
+    copy (``step.plain`` makes its exchange's), gives kernel 14's bits, and
+    a CUDA graph of two calls gives the eager run's bits."""
+    from lbm_tpu_torch.kernels import _build, shan_chen
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    copies, copy_to = [], halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(1) or copy_to(src, dev))
+    shards = n[0] * n[1] if kind == "rows x cols" else n
+    s = 3
+    step, mesh, kernel = _sc_sharded(kind, n, R, C, instance, dtype, [cuda] * shards, s)
+    x = _sc_state(R, C, dtype, cuda, instance.startswith("cs"))
+    before = kernel.launches
+    eager = step(step(pm.shard_state(mesh, x))).gather()
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2 * s * -(-shards // _build.MAX_SHARDS)
+    assert copies == []
+    single = shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **SC_CASES[instance])
+    assert torch.equal(eager, single(single(x)))
+    step.plain(pm.shard_state(mesh, x))
+    assert copies
+    xs = pm.shard_state(mesh, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(xs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = step(step(xs))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(ys.gather(), eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("rows", 4), ("rows x cols", (2, 2))])
+def test_kernels_32_35_with_a_shard_on_a_second_card(cuda, monkeypatch, kind, n):
+    """Kernels 32 and 35 with three shards on card 0 and one on card 1: each
+    card's shards in their own launches, copies only between the cards,
+    kernel 14's bits on card 0, in float64."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    from lbm_tpu_torch.kernels import shan_chen
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    copies, copy_to = [], halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(
+        (src.device, torch.device(dev))) or copy_to(src, dev))
+    R, C, s, f64 = 64, 96, 4, torch.float64
+    devices = [torch.device("cuda", 0)] * 3 + [torch.device("cuda", 1)]
+    step, mesh, kernel = _sc_sharded(kind, n, R, C, "sc guo", f64, devices, s)
+    x = _sc_state(R, C, f64, devices[0], False)
+    before = kernel.launches
+    got = step(pm.shard_state(mesh, x)).gather(devices[0])
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 2 * s
+    assert copies and all(a != b for a, b in copies)
+    single = shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=f64, **SC_CASES["sc guo"])
+    assert torch.equal(got, single(x))
 
 
 # --- kernel 39: the lane-blocked reduced MRT-CG step ------------------------------
