@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 2, 4, 9, 12, 16, 19-21, 27, 32-36
+                                         # kernels 2, 4, 9, 12, 14, 16, 19-21, 27, 32-37
                                          # of the tree DIR (e.g. a git archive of the
                                          # parent commit) against this one, and holds
-                                         # 2, 4, 9, 12, 19-21, 27 and 32-36 to DIR's
+                                         # 2, 4, 9, 12, 14, 19-21, 27 and 32-37 to DIR's
                                          # bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
@@ -35,6 +35,10 @@
                                          # build, then only kernels 32 and 35 against
                                          # their other designs (and DIR's), held to
                                          # the same bits (k32_k35_times), JSON line
+    python3 chip_smoke.py --k37-k14 [--parent DIR]
+                                         # build, then only kernels 37 and 14 against
+                                         # their other designs (and DIR's), held to
+                                         # the same bits (k37_k14_times), JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -308,7 +312,12 @@ with a nonzero exit code):
      launch shape in both types and at 4096x2048, s = 1 and 4, with their
      launches a call and bound (``K32_K35_DESIGNS`` only under --k32-k35),
      with --parent against the parent tree's step in turns, bit for bit
-     (``k32_k35_times``); and the table of every
+     (``k32_k35_times``); kernel 37 ((4, 2)) at rk_rayleigh_taylor's
+     1024x256 and at 4096x2048 and kernel 14 at sc_flat_interface's 256x128
+     (4 a call) and at 4096x2048, both types, with their launches a call and
+     bound (``K37_K14_DESIGNS`` only under --k37-k14), with --parent against
+     the parent tree's step in turns, bit for bit (``k37_k14_times``); and
+     the table of every
      kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
      ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
      its phase-5 launches and launches x (time - bound), ranked).
@@ -1702,12 +1711,13 @@ def run_sharded_cases(table, dev) -> list:
 def drive_sharded(cases, wall, counted) -> None:
     """Run each case of ``run_sharded_cases`` through shard_state, its step
     and gather, timed on the host into ``wall``; each must be finite and
-    bit for bit its single-device kernel's result, and kernels 27 and 34
-    (families "k27 ..." and "k34 ...") launch once a call for every
-    MAX_SHARDS shards of the card (``counted``: the kernel objects by
-    name)."""
+    bit for bit its single-device kernel's result, and kernels 27, 34 and 37
+    (families "k27 ...", "k34 ..." and "rk" on an (nx, ny) mesh) launch
+    once a call for every MAX_SHARDS shards of the card (``counted``: the
+    kernel objects by name) and make no exchange copy."""
     import torch
 
+    from lbm_tpu_torch.parallel import halo as ph
     from lbm_tpu_torch.parallel import mesh as pm
 
     for label, shape, n, s_int, steps, step, mesh, x, want, family in cases:
@@ -1715,14 +1725,22 @@ def drive_sharded(cases, wall, counted) -> None:
         if family.startswith(("k27 ", "k34 ")):
             kind = family[4:].split()[0]
             kernel = counted[f"halo_{kind}" if family.startswith("k27 ") else f"halo2d_{kind}"]
+        elif family == "rk" and isinstance(n, tuple):
+            kernel = counted["halo2d_rk"]
+        if kernel is not None:
             before = kernel.launches
+        copies, copy_to = [], ph.copy_to  # the exchange copies of the run
+        ph.copy_to = lambda src, device: copies.append(1) or copy_to(src, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y = pm.shard_state(mesh, x)
-        for _ in range(steps // s_int):
-            y = step(y)
-        got = y.gather()
-        torch.cuda.synchronize()
+        try:
+            y = pm.shard_state(mesh, x)
+            for _ in range(steps // s_int):
+                y = step(y)
+            got = y.gather()
+            torch.cuda.synchronize()
+        finally:
+            ph.copy_to = copy_to
         wall[label] = time.perf_counter() - t0
         gates = {"finite": (float(torch.isfinite(got).all()), 1.0, 1.0),
                  "bit-identical to the single-device kernel": (
@@ -1731,6 +1749,7 @@ def drive_sharded(cases, wall, counted) -> None:
             shards = n[0] * n[1] if isinstance(n, tuple) else n
             calls = steps // s_int * -(-shards // 8)
             gates["launches (one a call)"] = (float(kernel.launches - before), calls, calls)
+            gates["exchange copies"] = (float(len(copies)), 0.0, 0.0)
         check_gates(f"[5] {label} {'x'.join(map(str, shape))} float32 on {n} shards of the "
                     f"card, {steps} steps, {s_int} per call (host wall time "
                     f"{wall[label]!r} s = {wall[label] / steps * 1e6!r} us/step)", gates)
@@ -2075,8 +2094,9 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
     and the exchange reads and writes once each halo line that the first
     band reads beyond the shard (s r rows per side, r the lines a sweep
     consumes, clipped at a wall; kernels 34-38: s r rows and s r columns),
-    not the whole 8-aligned strip the step sends.  Kernels 27 and 32-35
-    ("k27 ...", "sc ...", "d3q19 <walls>", "k34 ...") make no exchange where
+    not the whole 8-aligned strip the step sends.  Kernels 27, 32-35 and 37
+    ("k27 ...", "sc ...", "d3q19 <walls>", "k34 ...", "rk" on an (nx, ny)
+    mesh) make no exchange where
     their shards share a card, as every case here does: they read the
     neighbours' lines in place (parallel/halo.py ring_rows, ring_2d), lines
     their input bands already count, so their bytes are the bands' alone.  ``ops``
@@ -2105,7 +2125,7 @@ def sharded_bound(family, shape, n, s, itemsize, ops):
             moved += ny * (area[0][0] + area[-1][1])
             design += ny * (block_design(R_loc, C_loc, s, tall) if k34 else
                             sum(a_in + a_out for a_in, a_out in area))
-            if not (k34 or family.startswith("sc ")):
+            if not (k34 or family.startswith("sc ") or family == "rk"):
                 strips += ny * (area[0][0] - R_loc * C_loc)
         nbytes = (moved + 2 * strips) * planes * itemsize
         design_bytes = (design + 2 * strips) * planes * itemsize
@@ -4201,15 +4221,16 @@ K32_K35_DESIGNS = {
     "release first": {"shan_chen.cu": [
         ("  lbm::grid_wait();\n", "  lbm::grid_wait();\n  lbm::grid_release();\n")]},
     "64-bit wraps": {"shan_chen.cu": [
-        ("wrap_col(c0 - 1 + i % WC, C)", "wrap_any(c0 - 1 + i % WC, C)"),
-        ("lbm::wrap(gc + cy(k), C)", "wrap_any(gc + cy(k), C)")]},
+        ("in.locate(pr, wrap_window(c0 - 1 + i % WC, C), plane)",
+         "in.locate(pr, wrap_any(c0 - 1 + i % WC, C), plane)"),
+        ("out.at(pd, lbm::wrap(gc + cy(k), C))", "out.at(pd, wrap_any(gc + cy(k), C))")]},
     "exchange copies kept": {}}
 
 
 @contextlib.contextmanager
 def exchange_copies_kept():
     """While it runs, the sharded steps that read their neighbours' lines in
-    place (kernels 27 and 32-35) are built and run on ``exchange_rows``' and
+    place (kernels 27, 32-35 and 37) are built and run on ``exchange_rows``' and
     ``exchange_2d``'s copies instead (``strip_parts``' views of the strips),
     as the exchanges fed them before."""
     from lbm_tpu_torch.kernels import sharded as ksh
@@ -4332,6 +4353,213 @@ def k32_k35_times(dev, card: str, parent=None, designs=False) -> dict:
             out[k, label, dt] = med
             log(f"[6] {card}; kernel {k} {label} {dt} (us per call, CUDA graphs of {calls} "
                 f"calls, median of 3 in turns; the bound in us a call): "
+                + ", ".join(f"{v} {t!r}" for v, t in med.items()) + f" (runs {runs})")
+            del x, steps
+            torch.cuda.empty_cache()
+    return out
+
+
+# kernels 37 and 14's timed cases (kernel, label, grid, mesh or None, steps a
+# call), each in both types: kernel 37 on (4, 2) at rk_rayleigh_taylor's
+# launch shape and at 4096x2048, one step a call; kernel 14 at
+# sc_flat_interface's launch shape, 4 steps a call, and at 4096x2048
+K37_K14_TIMES = ((37, "rk_rayleigh_taylor 1024x256", (1024, 256), (4, 2), 1),
+                 (37, "4096x2048", BIG, (4, 2), 1),
+                 (14, "sc_flat_interface 256x128", (256, 128), None, 4),
+                 (14, "4096x2048", BIG, None, 1))
+# kernels 37 and 14's other designs (label -> {file: edits}), timed against
+# the tree in ``k37_k14_times``.  Kernel 37: the tree's kernel fed by the
+# exchange's copies (``exchange_copies_kept``, no source edit: the parent's
+# copies with the tree's one launch); the tree's kernel launched a shard at a
+# time (``launch_per_shard``, no source edit: the parent's 8 launches a call
+# with the tree's reads in place); the masked instance for every shard in
+# float32 too, which gives the mask-free one's bits on interior row ranks,
+# and the branch per block on its shard's edge flag in float64 too (the tree
+# branches in float32 and runs the masked instance in float64); no register
+# cap (the tree caps float64 at three blocks an SM, kernel 12's occupancy);
+# a cap of five blocks an SM in float32 too.  Kernel 14: its 64-bit
+# remainders for every load and push, as built before; its launches without
+# the dependent launch (an edit of d2q9.cuh); the dependent launch released
+# by each thread once its loads are issued, where the tree releases at each
+# block's exit
+K37_K14_DESIGNS = {
+    "exchange copies kept": {},
+    "launch per shard": {},
+    "masked instance in float32 too": {"rk_cg.cu": [
+        ("  if (L.edge || sizeof(T) == 8)\n", "  if (true)\n")]},
+    "branch per block in float64 too": {"rk_cg.cu": [
+        ("  if (L.edge || sizeof(T) == 8)\n", "  if (L.edge)\n")]},
+    "no register cap in float64": {"rk_cg.cu": [
+        ("__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)",
+         "__launch_bounds__(mc::THREADS)")]},
+    "five blocks an SM in float32": {"rk_cg.cu": [
+        ("__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)",
+         "__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 5)")]},
+    "64-bit wraps": {"shan_chen.cu": [
+        ("gr = wrap_window(r0 - 1 + i / WC, R), gc = wrap_window(c0 - 1 + i % WC, C);",
+         "gr = wrap_any(r0 - 1 + i / WC, R), gc = wrap_any(c0 - 1 + i % WC, C);"),
+        ("fout[k * n + lbm::wrap(gr + cx(k), R) * C + lbm::wrap(gc + cy(k), C)]",
+         "fout[k * n + wrap_any(gr + cx(k), R) * C + wrap_any(gc + cy(k), C)]")]},
+    "without PDL": {"d2q9.cuh": [("pdl ? 1u : 0u}", "0u}")]},
+    "release after loads": {"shan_chen.cu": [
+        ("  lbm::load9(fin, n, gr * C + gc, f);\n",
+         "  lbm::load9(fin, n, gr * C + gc, f);\n  lbm::grid_release();\n")]}}
+K37_DESIGNS = ("exchange copies kept", "launch per shard", "masked instance in float32 too",
+               "branch per block in float64 too", "no register cap in float64",
+               "five blocks an SM in float32")
+K14_DESIGNS = ("64-bit wraps", "without PDL", "release after loads")
+
+
+@contextlib.contextmanager
+def launch_per_shard():
+    """While it runs, the batched halo kernels launch one shard at a time
+    (``_build.MAX_SHARDS`` = 1: ``shard_batches`` makes a batch of each
+    shard)."""
+    from lbm_tpu_torch.kernels import _build
+
+    saved = _build.MAX_SHARDS
+    _build.MAX_SHARDS = 1
+    try:
+        yield
+    finally:
+        _build.MAX_SHARDS = saved
+
+
+def build_k37_k14_designs() -> dict:
+    """K37_K14_DESIGNS' source edits built for the card: {label: library},
+    kernel 37's with csrc/rk_cg.cu, kernel 14's with csrc/shan_chen.cu."""
+    from lbm_tpu_torch.kernels import _build
+
+    sources = design_sources(_build.CSRC, {label: files for label, files in
+                                           K37_K14_DESIGNS.items() if files})
+    return {**build_designs({k: v for k, v in sources.items() if k in K37_DESIGNS}, ("rk_cg",),
+                            "kernel 37", mark="rk_cg_shards"),
+            **build_designs({k: v for k, v in sources.items() if k in K14_DESIGNS},
+                            ("shan_chen",), "kernel 14", mark="shan_chen_kernel")}
+
+
+def load_parent_k37_k14(parent: Path) -> tuple:
+    """The parent tree's kernels 37 and 14 with its own wrappers (the copy of
+    ``parent_package``), its rk_cg.cu and shan_chen.cu built by
+    ``build_parent``.  Returns the copy's (kernels.sharded2d,
+    kernels.shan_chen)."""
+    import importlib
+
+    parent_package(parent)
+    k2d_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded2d")
+    shc_p = importlib.import_module("lbm_tpu_torch_parent.kernels.shan_chen")
+    bind_kernels([k2d_p.HALO2D_RK, shc_p.SHAN_CHEN],
+                 build_parent(parent, ("rk_cg", "shan_chen")))
+    return k2d_p, shc_p
+
+
+def k37_k14_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernels 37 (RK on (4, 2), one step a call) and 14 (Shan-Chen sc/guo)
+    at K37_K14_TIMES' cases, both types: us per call under CUDA graphs (of
+    100 calls at the launch shapes, 10 at 4096x2048), median of 3 in turns
+    (``in_turns``), of this tree's step, with ``designs`` also
+    ``K37_K14_DESIGNS`` and with ``parent`` the parent tree's step
+    (``load_parent_k37_k14``); beside them the launches a call of this
+    tree's step, us a launch, and the call's bound (kernel 37:
+    ``sharded_bound``; kernel 14: 72 B a cell and step in float32, 144 in
+    float64, against its plain version's operations).  Every variant must
+    give the same bits (the parent's, where there is one) over 4 calls: it
+    raises where they differ.  Keys (kernel, case, dtype) -> {variant: us}."""
+    import torch
+
+    from lbm_tpu_torch.kernels import _build
+    from lbm_tpu_torch.kernels import shan_chen as shc
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    libs = build_k37_k14_designs() if designs else {}
+    if designs:  # the tree's instances beside the designs'
+        build_log = _build.build().with_suffix(".log").read_text()
+        for unit, mark in (("rk_cg", "12rk_cg_shards"), ("shan_chen", "16shan_chen_kernel")):
+            for name, regs, spill in ptxas_entries(build_log, f"{unit}.cu"):
+                if mark in name:
+                    log(f"[6] the tree's {unit}.cu: {name}: {regs} registers; {spill}")
+    k2d_p, shc_p = load_parent_k37_k14(parent) if parent is not None else (None, None)
+    kw = sc_kwargs("sc", "guo")
+    ops = {37: plain_ops("rk"), 14: plain_ops("sc sc/guo")}
+    out = {}
+    for k, label, (R, C), mesh_shape, s in K37_K14_TIMES:
+        calls = 100 if R * C < 1 << 20 else 10
+        for dt in ("float32", "float64"):
+            dtype = getattr(torch, dt)
+            if k == 37:
+                mesh = pm.make_mesh([dev] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+                x = pm.shard_state(mesh, sharded_state("rk", (R, C), dtype, dev))
+                kernel, own = k2d.HALO2D_RK, K37_DESIGNS
+
+                def build(module, mesh=mesh):
+                    return module.make_sharded2d_rk_step(mesh, R, C, dtype=dtype, **RK)
+            else:
+                x = sc_state(R, C, dtype, dev, "sc", seed=15)
+                kernel, own = shc.SHAN_CHEN, K14_DESIGNS
+
+                def build(module):
+                    return module.make_sc_fused_step(R, C, substeps=s, dtype=dtype, **kw)
+            steps = {"new": build(k2d if k == 37 else shc)}
+            before = kernel.launches
+            steps["new"](x)
+            torch.cuda.synchronize()
+            per_call = kernel.launches - before
+            for v, lib in libs.items():
+                if v not in own:
+                    continue
+
+                def designed(y, lib=lib, st=steps["new"], kernel=kernel):
+                    bind_kernels([kernel], lib)
+                    try:
+                        return st(y)
+                    finally:
+                        bind_kernels([kernel], None)
+                steps[v] = designed
+            if designs and k == 37:
+                with exchange_copies_kept():
+                    kept = build(k2d)
+
+                def exchanged(y, st=kept):
+                    with exchange_copies_kept():
+                        return st(y)
+
+                def per_shard(y, st=steps["new"]):
+                    with launch_per_shard():
+                        return st(y)
+                steps["exchange copies kept"] = exchanged
+                steps["launch per shard"] = per_shard
+            if k2d_p is not None:
+                steps = {"parent": build(k2d_p if k == 37 else shc_p), **steps}
+            want = None
+            for v, st in steps.items():
+                y = x
+                for _ in range(4):
+                    y = st(y)
+                got = y.gather() if k == 37 else y
+                torch.cuda.synchronize()
+                if want is None:
+                    want = (v, got)
+                elif not torch.equal(got, want[1]):
+                    raise AssertionError(f"kernel {k} {label} {dt}: {v} differs from "
+                                         f"{want[0]}'s bits")
+            log(f"[6] kernel {k} {label} {dt}: {', '.join(steps)} bit for bit alike over 4 calls")
+            del want, got, y
+            med, runs = in_turns({v: (lambda st=st: graph_ms(st, x, calls) * 1e3)
+                                  for v, st in steps.items()})
+            if "parent" in med:
+                med["change"] = med["new"] / med["parent"] - 1.0
+            itemsize = 8 if dt == "float64" else 4
+            if k == 37:
+                b = sharded_bound("rk", (R, C), mesh_shape, s, itemsize, ops[k])[:2]
+            else:
+                b_ms, by = bound(18 * itemsize, ops[k], R * C, dt)
+                b = (b_ms * s, by)
+            med.update(launches_per_call=per_call, us_a_launch=med["new"] / per_call,
+                       bound=b[0] * 1e3, bound_by=b[1], fraction=b[0] * 1e3 / med["new"])
+            out[k, label, dt] = med
+            log(f"[6] {card}; kernel {k} {label}, {s} a call, {dt} (us per call, CUDA graphs "
+                f"of {calls} calls, median of 3 in turns; the bound in us a call): "
                 + ", ".join(f"{v} {t!r}" for v, t in med.items()) + f" (runs {runs})")
             del x, steps
             torch.cuda.empty_cache()
@@ -4610,6 +4838,11 @@ def main(argv=None) -> int:
                          "(K32_K35_DESIGNS) and, with --parent, the parent's, holding each to "
                          "the same bits (k32_k35_times), print the table as a JSON line, and "
                          "stop")
+    ap.add_argument("--k37-k14", action="store_true",
+                    help="build, then only time kernels 37 and 14 against their other designs "
+                         "(K37_K14_DESIGNS) and, with --parent, the parent's, holding each to "
+                         "the same bits (k37_k14_times), print the table as a JSON line, and "
+                         "stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -4727,6 +4960,11 @@ def main(argv=None) -> int:
         print(json.dumps({"k32_k35": [[*key, us] for key, us in table.items()], "card": card}),
               flush=True)
         return 0
+    if args.k37_k14:
+        table = k37_k14_times(dev, card, parent, designs=True)
+        print(json.dumps({"k37_k14": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -4754,7 +4992,7 @@ def main(argv=None) -> int:
              "9push_step", 16),
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
             (36, ("thermal",), "21thermal_halo2d_kernel", 2),
-            (37, ("rk_cg",), "9Shard2DIO", 4), (38, ("mrtcg_full",), "9Shard2DIO", 16),
+            (37, ("rk_cg",), "12rk_cg_shards", 2), (38, ("mrtcg_full",), "9Shard2DIO", 16),
             (39, ("mrtcg_reduced",), "6LaneIO", 8)):
         found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
         for name, regs, spill in found:
@@ -6265,6 +6503,9 @@ def main(argv=None) -> int:
     # kernels 32 and 35 at their launch shape and at the big grid, against the
     # parent tree's where --parent names one
     k32_k35_tm = k32_k35_times(dev, card, parent)
+    # kernels 37 and 14 at their launch shapes and at the big grid, against
+    # the parent tree's where --parent names one
+    k37_k14_tm = k37_k14_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -6456,7 +6697,8 @@ def main(argv=None) -> int:
             f"{shape} {dt}": v for (kk, shape, dt), v in tm.items() if kk == k}
     for k, name, tm in ((27, "halo_collide_stream", k27_k34_tm),
                         (34, "halo2d_collide_stream", k27_k34_tm),
-                        (32, "halo_shan_chen", k32_k35_tm), (35, "halo2d_shan_chen", k32_k35_tm)):
+                        (32, "halo_shan_chen", k32_k35_tm), (35, "halo2d_shan_chen", k32_k35_tm),
+                        (37, "halo2d_rk", k37_k14_tm), (14, "shan_chen", k37_k14_tm)):
         next(e for e in kernels if e["name"] == name)["us"] = {
             f"{case} {dt}": v for (kk, case, dt), v in tm.items() if kk == k}
     for row in shape_rows:

@@ -84,11 +84,13 @@ inline int block_threads(int64_t n, int sms) {
   return 64;
 }
 
-// Whether `blocks` blocks of `threads` fit the current device in one wave:
-// KERNEL's resident blocks per SM times `sms`.  The occupancy is read once
-// per device and block size; each kernel instance has its own cache.
+// Whether `blocks` blocks of `threads` threads and `smem` bytes of dynamic
+// shared memory fit the current device in one wave: KERNEL's resident
+// blocks per SM times `sms`.  The occupancy is read once per device and
+// block size (a kernel instance asks for one size of shared memory); each
+// kernel instance has its own cache.
 template <auto KERNEL>
-inline cudaError_t one_wave(int threads, int64_t blocks, int sms, bool& fits) {
+inline cudaError_t one_wave(int threads, size_t smem, int64_t blocks, int sms, bool& fits) {
   static int cached[MAX_DEVICES][256 / 64 + 1] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -96,34 +98,36 @@ inline cudaError_t one_wave(int threads, int64_t blocks, int sms, bool& fits) {
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   int& per_sm = cached[dev][threads / 64];
   if (per_sm == 0) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, threads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, threads, smem);
     if (e != cudaSuccess) return e;
   }
   fits = blocks <= static_cast<int64_t>(per_sm) * sms;
   return cudaSuccess;
 }
 
-// Launches KERNEL(args...) on `grid` blocks of `threads` threads on `stream`,
+// Launches KERNEL(args...) on `grid` blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory (the kernel opted in to them) on `stream`,
 // a programmatic dependent launch where the grid fits the card in one wave,
 // so that launch n+1's ramp overlaps launch n's tail (its threads call
 // grid_wait before their first load or store; kernels 2, 4 and 9 call
-// grid_release once their loads are issued, kernels 32 and 35 release at
-// each block's exit).  A grid of many waves launches plainly: there the
-// dependent launch cost kernel 4 3.5% at 4096x2048 in float64 (H100).
-// Returns the launch's cudaError_t.
+// grid_release once their loads are issued, kernels 14, 32, 35 and 37
+// release at each block's exit).  A grid of many waves launches plainly:
+// there the dependent launch cost kernel 4 3.5% at 4096x2048 in float64
+// (H100).  Returns the launch's cudaError_t.
 template <auto KERNEL, typename... Args>
-inline cudaError_t launch_grid(dim3 grid, int threads, cudaStream_t stream, Args... args) {
+inline cudaError_t launch_grid(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                               Args... args) {
   int sms = 0;
   cudaError_t e = sm_count(sms);
   if (e != cudaSuccess) return e;
   bool pdl = false;
-  e = one_wave<KERNEL>(threads, static_cast<int64_t>(grid.x) * grid.y * grid.z, sms, pdl);
+  e = one_wave<KERNEL>(threads, smem, static_cast<int64_t>(grid.x) * grid.y * grid.z, sms, pdl);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   // grid, block, dynamic shared memory, stream, attributes, their count
-  const cudaLaunchConfig_t cfg = {grid, dim3(static_cast<unsigned>(threads)), 0, stream, attr,
+  const cudaLaunchConfig_t cfg = {grid, dim3(static_cast<unsigned>(threads)), smem, stream, attr,
                                   pdl ? 1u : 0u};
   e = cudaLaunchKernelEx(&cfg, KERNEL, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -140,7 +144,7 @@ inline cudaError_t launch_cells(int64_t n, cudaStream_t stream, Args... args) {
   const int threads = block_threads(n, sms);
   const int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  return launch_grid<KERNEL>(dim3(static_cast<unsigned>(blocks)), threads, stream, args...);
+  return launch_grid<KERNEL>(dim3(static_cast<unsigned>(blocks)), threads, 0, stream, args...);
 }
 
 __host__ __device__ constexpr int cx(int k) {

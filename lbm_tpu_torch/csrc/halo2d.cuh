@@ -24,15 +24,15 @@
 // (kernels/sharded2d.py launch_sweeps_2d) chooses the bands: sweep j of s
 // writes s - j more rows and columns on each side of the shard.
 //
-// Kernel 35 reads its padded block from 3 x 3 parts instead (`Parts`
-// below): parallel/halo.py ring_2d's views of the neighbours' own lines,
-// which a five-part left or right strip cannot name (its corners lie in two
-// other blocks).
+// Kernels 35 and 37 read their padded block from 3 x 3 parts instead
+// (`Parts` below): parallel/halo.py ring_2d's views of the neighbours' own
+// lines, which a five-part left or right strip cannot name (its corners lie
+// in two other blocks).
 //
 // The body kernels 36-38 (kernels/sharded2d.py make_sharded2d_body_step)
-// read five more entries: the shard's global row and column offsets, the
-// grid's R and C, and whether the shard's rows reach a wall (row ranks 0 and
-// nx-1).  Padded row p is global row off_r - halo + p, padded column q
+// read five more entries, in either geometry: the shard's global row and
+// column offsets, the grid's R and C, and whether the shard's rows reach a
+// wall (row ranks 0 and nx-1).  Padded row p is global row off_r - halo + p, padded column q
 // global column off_c - halo + q, wrapped into [0, C): the walls and the
 // stencils' replicate padding act by global index, while every value is
 // read from the padded block, never wrapped within it.
@@ -165,11 +165,12 @@ struct Parts {
 // The geometry array of one shard of a parts launch, in the order of
 // kernels/sharded2d.py PARTS_GEOM: the 3 x 3 parts row-major, each (base,
 // plane stride, row stride), then the output, the parts' halo and the
-// shard's rows and columns, the cells read and the cells written.
+// shard's rows and columns, the cells read and the cells written, and the
+// body kernels' five entries (kernel 37 reads them, kernel 35 does not).
 enum PartsGeom {
   PARTS = 0, P_OUT = 27, P_OUT_PLANE, P_OUT_LD, P_OUT_FIRST, P_HALO, P_R_LOC, P_C_LOC,
   P_IN_R_LO, P_IN_R_HI, P_IN_C_LO, P_IN_C_HI, P_OUT_R_LO, P_OUT_R_HI, P_OUT_C_LO, P_OUT_C_HI,
-  NPARTS_GEOM
+  P_OFF_R, P_OFF_C, P_ROWS, P_COLS, P_EDGE, NPARTS_GEOM
 };
 
 // One shard's sweep on its 3 x 3 parts, parsed on the host.
@@ -178,6 +179,11 @@ struct PartsLaunch {
   Parts<T> in;
   Out<T> out;
   int64_t r_lo, r_hi, c_lo, c_hi;  // the cells read
+  int64_t off_r, off_c, R, C;      // the shard's global offsets, the grid's shape
+  bool edge;                       // the shard's rows reach a wall
+
+  // the global row of padded row p
+  __host__ __device__ int64_t global_row(int64_t p) const { return off_r - in.halo + p; }
 };
 
 template <typename T>
@@ -197,11 +203,16 @@ inline PartsLaunch<T> parse_parts(const long long* g) {
   L.r_hi = g[P_IN_R_HI];
   L.c_lo = g[P_IN_C_LO];
   L.c_hi = g[P_IN_C_HI];
+  L.off_r = g[P_OFF_R];
+  L.off_c = g[P_OFF_C];
+  L.R = g[P_ROWS];
+  L.C = g[P_COLS];
+  L.edge = g[P_EDGE] != 0;
   return L;
 }
 
-// A kernel's memory (kernel 37 on the tile helpers of csrc/mrtcg.cuh, 38 on
-// its tile and strip engines): rows by global index, as lbm::halo::ShardIO's, columns
+// A kernel's memory (kernel 38 on the tile and strip engines of
+// csrc/mrtcg.cuh): rows by global index, as lbm::halo::ShardIO's, columns
 // by padded index q (the engine's BandCols), the shard's five buffers in and
 // `out` written.
 template <typename T>
@@ -216,6 +227,22 @@ struct Shard2DIO {
   __device__ __forceinline__ T* dst(int64_t gr, int64_t q, int64_t& plane) const {
     plane = out.plane;
     return out.at(gr - off_r + in.halo, q);
+  }
+};
+
+// Kernel 37's memory, as Shard2DIO's but read from the 3 x 3 parts of one
+// shard of a batched launch: a reference to its geometry, which stays in the
+// kernel's parameter space (a copy would index the parts in local memory).
+template <typename T>
+struct PartsIO {
+  const PartsLaunch<T>& L;
+
+  __device__ __forceinline__ const T* src(int64_t gr, int64_t q, int64_t& plane) const {
+    return L.in.locate(gr - L.off_r + L.in.halo, q, plane);
+  }
+  __device__ __forceinline__ T* dst(int64_t gr, int64_t q, int64_t& plane) const {
+    plane = L.out.plane;
+    return L.out.at(gr - L.off_r + L.in.halo, q);
   }
 };
 

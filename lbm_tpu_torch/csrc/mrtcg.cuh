@@ -706,7 +706,8 @@ __device__ __forceinline__ PullOffset pull_offset(int k, int64_t gr, int64_t gcg
 // Where a step reads and writes, by global row: one (planes, R, C) buffer
 // in and one out (the single-device kernels; lbm::halo::ShardIO is a row
 // shard with halo inputs, kernels 29-31; lbm::halo2d::Shard2DIO a rows x
-// cols shard, kernels 37-38).
+// cols shard, kernel 38, and lbm::halo2d::PartsIO one read from 3 x 3
+// parts, kernel 37).
 template <typename T>
 struct FlatIO {
   const T* in;
@@ -1348,17 +1349,17 @@ int launch_halo(const long long* geom, const double* params, cudaStream_t stream
                                                             stream, 1, true);
 }
 
-// The rows and the columns of a rows x cols launch (csrc/halo2d.cuh): rows
-// in global terms, columns padded (BandCols).
-template <typename T>
-Rows halo2d_rows(const lbm::halo2d::Launch<T>& L) {
-  return Rows{L.R, L.global_row(L.r_lo), L.global_row(L.r_hi), L.global_row(L.out.r_lo),
-              L.global_row(L.out.r_hi)};
+// The rows and the columns of a rows x cols launch (csrc/halo2d.cuh Launch
+// or PartsLaunch): rows in global terms, columns padded (BandCols).
+template <typename L>
+__host__ __device__ Rows halo2d_rows(const L& l) {
+  return Rows{l.R, l.global_row(l.r_lo), l.global_row(l.r_hi), l.global_row(l.out.r_lo),
+              l.global_row(l.out.r_hi)};
 }
 
-template <typename T>
-BandCols halo2d_cols(const lbm::halo2d::Launch<T>& L) {
-  return BandCols{L.C, L.off_c - L.in.halo, L.c_lo, L.c_hi, L.out.c_lo, L.out.c_hi};
+template <typename L>
+__host__ __device__ BandCols halo2d_cols(const L& l) {
+  return BandCols{l.C, l.off_c - l.in.halo, l.c_lo, l.c_hi, l.out.c_lo, l.out.c_hi};
 }
 
 // Kernel 38: one sweep of the full step on a rows x cols shard, geometry

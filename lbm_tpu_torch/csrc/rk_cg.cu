@@ -32,13 +32,38 @@
 // shard with halo inputs (csrc/halo.cuh, kernels/sharded.py), its memory
 // by global row (lbm::halo::ShardIO) as kernel 29's; it replaces
 // lbm_tpu/kernels/sharded_pallas.py:486 make_sharded_rk_step.  And kernel
-// 37, lbm_halo2d_rk: the step on a rows x cols shard (csrc/halo2d.cuh,
+// 37, lbm_halo2d_rk: the step on rows x cols shards (csrc/halo2d.cuh,
 // kernels/sharded2d.py make_sharded2d_rk_step), its rows by global index
-// (lbm::halo2d::Shard2DIO) and its columns the shard's padded ones
-// (mrtcg::BandCols: values read in the padded block, the stencil's clamp
-// and the column repair at the grid's global columns 0 and C-1); it
-// replaces lbm_tpu/kernels/sharded2d_pallas.py:432 make_sharded2d_rk_step
-// on make_local_2d_body_step (:392, its pallas_call at :411).
+// and its columns the shard's padded ones (mrtcg::BandCols: values read in
+// the padded block, the stencil's clamp and the column repair at the
+// grid's global columns 0 and C-1); it replaces
+// lbm_tpu/kernels/sharded2d_pallas.py:432 make_sharded2d_rk_step on
+// make_local_2d_body_step (:392, its pallas_call at :411).
+//
+// Kernel 37 runs a call (one step) over up to MAX_SHARDS shards of a card
+// in one launch (rk_cg_shards: blockIdx.z the shard, the shards'
+// halo2d::PartsLaunch a __grid_constant__ parameter), each padded block
+// read in place from parallel/halo.py ring_2d's 3 x 3 parts
+// (halo2d::PartsIO; the float64 stage's cp.async copies issued from the
+// parts' addresses), edge and interior shards in one launch, through
+// lbm::launch_grid with the tile's dynamic shared memory (a dependent
+// launch only where the batch fits one wave: rk_rayleigh_taylor's 1024x256
+// on (4, 2) is 1,024 blocks).  Measured (H100 80GB HBM3, 700.00 W;
+// chip_smoke.py --k37-k14, CUDA graphs, in turns; us a call at 1024x256
+// on (4, 2), then ms at 4096x2048): float32 19.40 and 0.539, float64 27.77
+// and 0.712, against the first design's launch a shard from exchange_2d's
+// copies, 116.98 / 0.591 and 135.91 / 0.825.  Of the levers, fed the
+// exchange's copies the batch takes 89.45 us (float32), launched a shard at
+// a time the reads in place 44.24.  Per type the faster of two designs for
+// edge and interior shards: in float32 a branch per block on its shard's
+// edge flag (the masked instance for every shard 21.67 us, 0.635 ms, at 72
+// registers against 64), in float64 the masked instance for every shard
+// (the branch 29.67 us, 0.708 ms).  Float64 is capped at three blocks an
+// SM, kernel 12's occupancy (78 registers; uncapped, 100 registers leave
+// two: 33.80 us, 0.818 ms); float32 stays uncapped (capped at five blocks
+// an SM, 48 registers: 21.52 us, though 0.496 ms at 4096x2048).  Slower
+// too, and dropped: the parts copied into shared memory once a block (it
+// freed no register; PERF.md section 6).
 //
 // Bound: device-memory bytes.  88 B/cell in float32 (11 planes read once,
 // 11 written once), 176 in float64, against 416 operations per cell
@@ -188,9 +213,12 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * ((STAGED<T> ? 3 : 1) * Win::N + 18 * mc::RING_N);
 }
 
+// One TY x TX tile of a launch, tile (blockIdx.x, blockIdx.y) of the rows
+// `rows` and the columns `cols`, memory `io`: the body of kernels 12, 30 and
+// 37.
 template <typename T, typename IO, bool EDGE, typename Cols>
-__global__ void __launch_bounds__(mc::THREADS)
-    rk_cg_kernel(const IO io, const mc::Rows rows, const Cols cols, const Params<T> p) {
+__device__ __forceinline__ void rk_tile(const IO& io, const mc::Rows& rows, const Cols& cols,
+                                        const Params<T>& p) {
   using mc::RING_C;
   using mc::RING_N;
   using mc::TX;
@@ -329,6 +357,54 @@ __global__ void __launch_bounds__(mc::THREADS)
 }
 
 template <typename T, typename IO, bool EDGE, typename Cols>
+__global__ void __launch_bounds__(mc::THREADS)
+    rk_cg_kernel(const IO io, const mc::Rows rows, const Cols cols, const Params<T> p) {
+  rk_tile<T, IO, EDGE>(io, rows, cols, p);
+}
+
+// The shards of one launch of kernel 37: up to MAX_SHARDS shards of one
+// device and type (kernels/_build.py MAX_SHARDS), one a grid layer
+// (blockIdx.z), a __grid_constant__ kernel parameter.
+constexpr int MAX_SHARDS = 8;
+
+template <typename L>
+struct Shards {
+  L s[MAX_SHARDS];
+};
+
+// 8 shards' geometries and the scalars fit the 4 KB of kernel parameters
+// that every toolkit takes (3,144 bytes in float64).
+static_assert(sizeof(Shards<lbm::halo2d::PartsLaunch<double>>) + sizeof(Params<double>) <= 4096,
+              "kernel 37's parameters exceed 4 KB");
+
+// Kernel 37: one sweep on each of up to MAX_SHARDS rows x cols shards, each
+// read in place from its 3 x 3 parts (PartsIO).  Tiles of shard blockIdx.z
+// cover its output band; a block past it leaves at once.  Edge and interior
+// shards share the launch: in float32 a block takes its shard's instance, a
+// branch uniform over the block; in float64 every block the masked one,
+// which gives the mask-free one's bits on an interior shard (no row clamps
+// and no wall rows there).  Float64 is held to kernel 12's occupancy, three
+// blocks an SM (the note at the top).
+template <typename T>
+__global__ void __launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)
+    rk_cg_shards(const __grid_constant__ Shards<lbm::halo2d::PartsLaunch<T>> shards,
+                 const Params<T> p) {
+  using IO = lbm::halo2d::PartsIO<T>;
+  const lbm::halo2d::PartsLaunch<T>& L = shards.s[blockIdx.z];
+  const mc::Rows rows = mc::halo2d_rows(L);
+  const mc::BandCols cols = mc::halo2d_cols(L);
+  if (rows.o_lo + static_cast<int64_t>(blockIdx.y) * mc::TY >= rows.o_hi ||
+      cols.first() + static_cast<int64_t>(blockIdx.x) * mc::TX >= cols.end())
+    return;
+  lbm::grid_wait();
+  const IO io{L};
+  if (L.edge || sizeof(T) == 8)
+    rk_tile<T, IO, true>(io, rows, cols, p);
+  else
+    rk_tile<T, IO, false>(io, rows, cols, p);
+}
+
+template <typename T, typename IO, bool EDGE, typename Cols>
 int launch_rows(const IO& io, const mc::Rows& rows, const Cols cols, const double* params,
                 cudaStream_t stream) {
   const int64_t width = cols.end() - cols.first();
@@ -368,18 +444,35 @@ int launch_halo(const long long* geom, const double* params, cudaStream_t stream
                 : launch_rows<T, IO, false>(io, rows, cols, params, stream);
 }
 
-// Kernel 37: one sweep on a rows x cols shard, geometry `geom`
-// (csrc/halo2d.cuh).
+// Kernel 37: one sweep over `n` shards of one device, their parts
+// geometries `geoms` back to back (csrc/halo2d.cuh PartsGeom): the tile grid
+// of the largest output band, one grid layer a shard, through
+// lbm::launch_grid (a programmatic dependent launch in one wave).
 template <typename T>
-int launch_halo2d(const long long* geom, const double* params, cudaStream_t stream) {
-  const lbm::halo2d::Launch<T> L = lbm::halo2d::parse<T>(geom);
-  if (L.R < 4 || L.C < 3) return static_cast<int>(cudaErrorInvalidValue);
-  using IO = lbm::halo2d::Shard2DIO<T>;
-  const IO io{L.in, L.out, L.off_r};
-  const mc::Rows rows = mc::halo2d_rows(L);
-  const mc::BandCols cols = mc::halo2d_cols(L);
-  return L.edge ? launch_rows<T, IO, true>(io, rows, cols, params, stream)
-                : launch_rows<T, IO, false>(io, rows, cols, params, stream);
+int launch_halo2d(const long long* geoms, int n, const double* params, cudaStream_t stream) {
+  using L = lbm::halo2d::PartsLaunch<T>;
+  if (n < 1 || n > MAX_SHARDS) return static_cast<int>(cudaErrorInvalidValue);
+  Shards<L> shards;
+  int64_t gx = 0, gy = 0;
+  for (int b = 0; b < n; ++b) {
+    const L& s = shards.s[b] = lbm::halo2d::parse_parts<T>(geoms + b * lbm::halo2d::NPARTS_GEOM);
+    if (s.R < 4 || s.C < 3) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t width = s.out.c_hi - s.out.c_lo, height = s.out.r_hi - s.out.r_lo;
+    if (width <= 0 || height <= 0) continue;
+    gx = (width + mc::TX - 1) / mc::TX > gx ? (width + mc::TX - 1) / mc::TX : gx;
+    gy = (height + mc::TY - 1) / mc::TY > gy ? (height + mc::TY - 1) / mc::TY : gy;
+  }
+  if (gx <= 0 || gy <= 0) return 0;
+  if (gx > 0x7fffffff || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  constexpr size_t smem = smem_bytes<T>();
+  static bool configured[lbm::MAX_DEVICES] = {};
+  const cudaError_t e = lbm::smem_opt_in(rk_cg_shards<T>, static_cast<int>(smem), configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(n));
+  return static_cast<int>(
+      lbm::launch_grid<rk_cg_shards<T>>(grid, mc::THREADS, smem, stream, shards, p));
 }
 
 }  // namespace
@@ -402,12 +495,14 @@ extern "C" int lbm_halo_rk(const long long* geom, const double* params, int, int
   return is_f64 ? launch_halo<double>(geom, params, s) : launch_halo<float>(geom, params, s);
 }
 
-// Kernel 37: one sweep of the step on a rows x cols shard, geometry `geom`
-// (csrc/halo2d.cuh), `params` those of lbm_rk_cg.
-extern "C" int lbm_halo2d_rk(const long long* geom, const double* params, int, int,
-                             int is_f64, void* stream) {
+// Kernel 37: one sweep of the step on each of `n_shards` (1 to MAX_SHARDS)
+// rows x cols shards of one device, `geoms` their parts geometry arrays back
+// to back (csrc/halo2d.cuh PartsGeom), `params` those of lbm_rk_cg.
+extern "C" int lbm_halo2d_rk(const long long* geoms, const double* params, int n_shards, int,
+                             int, int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_halo2d<double>(geom, params, s) : launch_halo2d<float>(geom, params, s);
+  return is_f64 ? launch_halo2d<double>(geoms, n_shards, params, s)
+                : launch_halo2d<float>(geoms, n_shards, params, s);
 }
 
 // Kernel 12's instance of type `is_f64` on the flat grid as the card reports

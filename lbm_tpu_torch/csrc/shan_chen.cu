@@ -29,6 +29,21 @@
 // (10x34 for 8x32 cells, 1.33x) from a second read of their planes (L2),
 // one barrier per tile, and no multiply-add.
 //
+// The window's rows and columns wrap by one period (wrap_window; a
+// remainder only on a grid shorter or narrower than a tile) and the pushes
+// by lbm::wrap, and a step launches through lbm::launch_grid: a
+// programmatic dependent launch where the grid fits the card in one wave
+// (sc_flat_interface's 256x128 is 128 blocks), its threads waiting before
+// their first load and each block releasing the next step at its exit.
+// Measured (H100 80GB HBM3, 700.00 W; chip_smoke.py --k37-k14, CUDA graphs,
+// in turns, sc/guo): at 256x128, 4 steps a call, 9.98 us a call in
+// float32 (2.49 a launch) and 12.87 in float64, against the first design's
+// 16.48 and 17.95; at 4096x2048 0.2820 / 0.4715 ms a step against 0.3556 /
+// 0.5035.  Slower, the same bits: the 64-bit remainder for every window
+// load and push (15.43 us a call at 256x128, 0.3546 ms at 4096x2048), the
+// plain launch (11.96 us) and the release by each thread once its loads
+// are issued (10.90 us).
+//
 // This source also holds kernel 32, lbm_halo_shan_chen: the same step on
 // row shards with halo inputs (csrc/halo.cuh, kernels/sharded.py
 // make_sharded_sc_step), which replaces lbm_tpu's Shan-Chen body
@@ -184,6 +199,18 @@ __device__ __forceinline__ void sc_collide(const T f[9], const T* s_psi, int w0,
   }
 }
 
+// A row or column of a tile window, c in [-1, n + TX], wrapped into [0, n)
+// by one period, or, on a grid shorter or narrower than a tile, by a
+// remainder.  Only addresses depend on it.  With a 64-bit remainder for
+// every load and push, a call of 4 sweeps at 256x256 on 8 shards took 28-32
+// us against 20-21 (H100, chip_smoke.py --k32-k35, the design "64-bit
+// wraps").
+__device__ __forceinline__ int64_t wrap_window(int64_t c, int64_t n) {
+  if (c < 0) c += n;
+  if (c >= n) c -= n;
+  return c < n ? c : wrap_any(c, n);
+}
+
 template <typename T, bool CS, bool SHIFT>
 __global__ void __launch_bounds__(THREADS)
     shan_chen_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R, int64_t C,
@@ -195,8 +222,9 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
 
   // stage 1: psi on the tile plus a 1-cell halo
+  lbm::grid_wait();
   for (int i = tid; i < WN; i += THREADS) {
-    const int64_t gr = wrap_any(r0 - 1 + i / WC, R), gc = wrap_any(c0 - 1 + i % WC, C);
+    const int64_t gr = wrap_window(r0 - 1 + i / WC, R), gc = wrap_window(c0 - 1 + i % WC, C);
     const int64_t cell = gr * C + gc;
     T rho = fin[cell];
 #pragma unroll
@@ -214,7 +242,7 @@ __global__ void __launch_bounds__(THREADS)
   sc_collide<T, CS, SHIFT>(f, s_psi, (ty + 1) * WC + (tx + 1), p, out);
 #pragma unroll
   for (int k = 0; k < 9; ++k)
-    fout[k * n + wrap_any(gr + cx(k), R) * C + wrap_any(gc + cy(k), C)] = out[k];
+    fout[k * n + lbm::wrap(gr + cx(k), R) * C + lbm::wrap(gc + cy(k), C)] = out[k];
 }
 
 // The shards of one launch of kernel 32 or 35: up to MAX_SHARDS shards of
@@ -227,17 +255,6 @@ template <typename L>
 struct Shards {
   L s[MAX_SHARDS];
 };
-
-// A column of a tile window, c in [-1, C + TX], wrapped into [0, C) by one
-// period, or, on a grid narrower than a tile, by a remainder.  Only
-// addresses depend on it.  With kernel 14's 64-bit remainder for every load
-// and push, a call of 4 sweeps at 256x256 on 8 shards took 28-32 us against
-// 20-21 (H100, chip_smoke.py --k32-k35, the design "64-bit wraps").
-__device__ __forceinline__ int64_t wrap_col(int64_t c, int64_t C) {
-  if (c < 0) c += C;
-  if (c >= C) c -= C;
-  return c < C ? c : wrap_any(c, C);
-}
 
 // Kernel 32: one sweep on each of up to MAX_SHARDS row shards.  Tiles of
 // shard blockIdx.z cover the padded rows [in_lo + 1, in_hi - 1) that its
@@ -262,7 +279,7 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t pr = r0 - 1 + i / WC;
     if (pr < in_lo || pr >= in_hi) continue;  // read by no cell this sweep collides
     int64_t plane;
-    const T* src = in.locate(pr, wrap_col(c0 - 1 + i % WC, C), plane);
+    const T* src = in.locate(pr, wrap_window(c0 - 1 + i % WC, C), plane);
     T rho = src[0];
 #pragma unroll
     for (int k = 1; k < 9; ++k) rho = rho + src[k * plane];
@@ -334,13 +351,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Kernel 14: one step through lbm::launch_grid (a programmatic dependent
+// launch where the grid fits the card in one wave, released at each block's
+// exit).
 template <typename T, bool CS, bool SHIFT>
 int launch_one(const T* fin, T* fout, long long R, long long C, const Params<T>& p,
                cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((C + TX - 1) / TX),
-                  static_cast<unsigned>((R + TY - 1) / TY));
-  shan_chen_kernel<T, CS, SHIFT><<<grid, THREADS, 0, stream>>>(fin, fout, R, C, p);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t gy = (R + TY - 1) / TY;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((C + TX - 1) / TX), static_cast<unsigned>(gy));
+  const int64_t rows = R, cols = C;
+  return static_cast<int>(lbm::launch_grid<shan_chen_kernel<T, CS, SHIFT>>(
+      grid, THREADS, 0, stream, fin, fout, rows, cols, p));
 }
 
 // One sweep of kernel 32 or 35 over `n` shards of one device, their
@@ -365,7 +387,7 @@ int launch_shards(const long long* geoms, int n, const Params<T>& p, cudaStream_
   if (gx <= 0 || gy <= 0) return 0;
   if (gx > 0x7fffffff || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(n));
-  return static_cast<int>(lbm::launch_grid<KERNEL>(grid, THREADS, stream, shards, p));
+  return static_cast<int>(lbm::launch_grid<KERNEL>(grid, THREADS, 0, stream, shards, p));
 }
 
 template <typename T, bool CS, bool SHIFT>

@@ -452,19 +452,20 @@ PART_NAMES = (("top left", "top", "top right"), ("left", "shard", "right"),
               ("bottom left", "bot", "bottom right"))
 
 
-def _check_parts(f, parts) -> tuple[int, int, int]:
+def _check_parts(f, parts, planes: int = 9) -> tuple[int, int, int]:
     """The shard's (R_loc, C_loc, halo); raises unless ``f`` is a kernel state
-    (``check_state``) and each part (None: one a row shard does not have) a
-    tensor of ``f``'s type and device, of the rows (halo, R_loc, halo) by
-    part row and the columns (halo, C_loc, halo) by part column, with unit
-    column stride (a copy, or a view of a neighbour's lines)."""
-    R_loc, C_loc = _build.check_state(f, 9)
+    of ``planes`` planes (``check_state``) and each part (None: one a row
+    shard does not have) a tensor of ``f``'s type and device, of the rows
+    (halo, R_loc, halo) by part row and the columns (halo, C_loc, halo) by
+    part column, with unit column stride (a copy, or a view of a neighbour's
+    lines)."""
+    R_loc, C_loc = _build.check_state(f, planes)
     halo = parts[0][1].shape[-2]
     rows, cols = (halo, R_loc, halo), (halo, C_loc, halo)
     for a in range(3):
         for b in range(3):
             h = parts[a][b]
-            shape = (9, rows[a], cols[b])
+            shape = (planes, rows[a], cols[b])
             if h is not None and (tuple(h.shape) != shape or h.dtype != f.dtype or
                                   h.device != f.device or (h.stride(2) != 1 and shape[2] > 1)):
                 raise ValueError(f"halo {PART_NAMES[a][b]} must be a {shape} {f.dtype} tensor "

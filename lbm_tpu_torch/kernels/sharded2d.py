@@ -49,7 +49,7 @@ copies).
 The body steps (``make_sharded2d_body_step``, lbm_tpu's ``_sharded2d_wrap``
 :517-546) run a family's step on each shard with its global row and column
 offsets, one exchange of HALO rows and columns per call (``exchange_2d``;
-kernel 35 ``ring_2d``) and
+kernels 35 and 37 ``ring_2d``) and
 ``substeps`` sweeps, each consuming ``ROWS_PER_SWEEP`` lines of the strips
 in both axes; the masked (edge) instance on row ranks 0 and nx-1, the
 mask-free one on interior row ranks:
@@ -69,9 +69,12 @@ mask-free one on interior row ranks:
     ``HALO2D_THERMAL`` (csrc/thermal.cu, kernel 23's D2Q9 step; one launch a
     sweep over up to ``MAX_SHARDS`` shards of a card,
     ``launch_sweeps_2d_shards``, from ``exchange_2d``'s strips), 37
-    ``HALO2D_RK`` (csrc/rk_cg.cu) and 38 ``HALO2D_MRTCG_FULL``
-    (csrc/mrtcg_full.cu, both modes), 37-38 on the tile engine of
-    csrc/mrtcg.cuh with its columns the shard's padded ones (``BandCols``).
+    ``HALO2D_RK`` (csrc/rk_cg.cu, kernel 12's tile; one launch a call over
+    up to ``MAX_SHARDS`` shards of a card, edge and interior shards alike,
+    ``launch_parts_shards``, each padded block read from ``ring_2d``'s 3 x 3
+    parts) and 38 ``HALO2D_MRTCG_FULL`` (csrc/mrtcg_full.cu, both modes; one
+    launch a sweep and shard), 37-38 on the tile engine of csrc/mrtcg.cuh
+    with its columns the shard's padded ones (``BandCols``).
     Sweep j of s writes the shard and ``rows_per_sweep (s - j)`` more lines
     on each side, reading ``rows_per_sweep`` beyond them, the rows clipped at
     the grid's walls.
@@ -114,20 +117,21 @@ GEOM = ("top", "mid", "bot", "left", "right", "out",
         "halo", "r_loc", "c_loc", "in_r_lo", "in_r_hi", "in_c_lo", "in_c_hi",
         "out_r_lo", "out_r_hi", "out_c_lo", "out_c_hi", "out_first",
         "off_r", "off_c", "rows", "cols", "edge")
-# the geometry array of one shard of kernel 35 (csrc/halo2d.cuh ``PartsGeom``):
-# the 3 x 3 parts of its padded block row-major, each (base, plane stride,
-# row stride), then the output's, the parts' halo, the shard's rows and
-# columns, the cells read and the cells written
+# the geometry array of one shard of kernels 35 and 37 (csrc/halo2d.cuh
+# ``PartsGeom``): the 3 x 3 parts of its padded block row-major, each (base,
+# plane stride, row stride), then the output's, the parts' halo, the shard's
+# rows and columns, the cells read and the cells written, and the body
+# kernels' global offsets, grid shape and edge flag (kernel 37 reads them)
 PARTS_GEOM = (*(f"in{a}{b}_{x}" for a in range(3) for b in range(3)
                 for x in ("base", "plane", "ld")),
               "out", "out_plane", "out_ld", "out_first", "halo", "r_loc", "c_loc",
               "in_r_lo", "in_r_hi", "in_c_lo", "in_c_hi", "out_r_lo", "out_r_hi", "out_c_lo",
-              "out_c_hi")
+              "out_c_hi", "off_r", "off_c", "rows", "cols", "edge")
 HALO2D_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo2d_{kind}", BLOCK_ARGS)
                          for kind in COLLIDE_KINDS}                       # kernel 34
 HALO2D_SHAN_CHEN = _build.CudaKernel("lbm_halo2d_shan_chen", SHARDS_ARGS)  # kernel 35
 HALO2D_THERMAL = _build.CudaKernel("lbm_halo2d_thermal", _ARGS)           # kernel 36
-HALO2D_RK = _build.CudaKernel("lbm_halo2d_rk", _ARGS)                     # kernel 37
+HALO2D_RK = _build.CudaKernel("lbm_halo2d_rk", SHARDS_ARGS)               # kernel 37
 HALO2D_MRTCG_FULL = _build.CudaKernel("lbm_halo2d_mrtcg_full", _ARGS)     # kernel 38
 
 #: sweeps per exchange of the body steps: lbm_tpu's 2-D caps, min(8 // rps,
@@ -217,7 +221,7 @@ def launch_sweeps_2d(kernel: _build.CudaKernel, f, top, bot, left, right, *, sub
                      params, i0: int = 0, i1: int = 0, rows_per_sweep: int = 1,
                      walls: bool = False, off: tuple[int, int] = (0, 0),
                      shape: tuple[int, int] = (0, 0), edge: bool = False) -> torch.Tensor:
-    """``substeps`` launches of a rows x cols kernel (37, 38) on the
+    """``substeps`` launches of a rows x cols kernel (38) on the
     shard ``f`` with its four strips; returns the shard's new values in a
     fresh buffer (``f`` is never written).  Each sweep consumes
     ``rows_per_sweep`` lines of the strips in both axes; ``off`` is the
@@ -253,49 +257,57 @@ def launch_sweeps_2d_shards(kernel: _build.CudaKernel, shards, *, substeps: int,
                                  ints=(0,), plain=plain)
 
 
-def _parts_geoms(f, parts, *, substeps: int, rows_per_sweep: int):
-    """(out, geoms, slabs) of ``substeps`` sweeps of kernel 35 on the shard
-    ``f`` with the 3 x 3 ``parts`` of its padded block (``ring_2d``'s, or
-    ``strip_parts``' views of exchanged strips): ``out`` a fresh buffer for
-    the shard's new values (``f`` is never written), in order each sweep's
-    geometry (``PARTS_GEOM``'s values) and the scratch slabs they name,
-    which the caller holds until the launches are issued.  The first sweep
-    reads the parts in place, later ones a padded slab (two, alternating) as
-    3 x 3 views of it, the last writes ``out``; no line wraps or clips.
-    Raises on a tensor the kernel does not take."""
-    R_loc, C_loc, halo = _check_parts(f, parts)
+def _parts_geoms(f, parts, *, substeps: int, rows_per_sweep: int, planes: int = 9,
+                 walls: bool = False, off: tuple[int, int] = (0, 0),
+                 shape: tuple[int, int] = (0, 0), edge: bool = False):
+    """(out, geoms, slabs) of ``substeps`` sweeps of kernel 35 or 37 on the
+    shard ``f`` (``planes`` planes) with the 3 x 3 ``parts`` of its padded
+    block (``ring_2d``'s, or ``strip_parts``' views of exchanged strips):
+    ``out`` a fresh buffer for the shard's new values (``f`` is never
+    written), in order each sweep's geometry (``PARTS_GEOM``'s values) and
+    the scratch slabs they name, which the caller holds until the launches
+    are issued.  The first sweep reads the parts in place, later ones a
+    padded slab (two, alternating) as 3 x 3 views of it, the last writes
+    ``out``; no line wraps, and ``walls`` clips the rows to the grid's rows
+    (the shard's global offsets ``off``, the grid's ``shape`` (R, C), ``edge``
+    whether its rows reach a wall).  Raises on a tensor the kernel does not
+    take."""
+    R_loc, C_loc, halo = _check_parts(f, parts, planes)
     _check_sweeps(substeps, halo // rows_per_sweep)
     item = f.element_size()
     Rp, Cp = R_loc + 2 * halo, C_loc + 2 * halo
     out = torch.empty_like(f)
-    slabs = [torch.empty((9, Rp, Cp), dtype=f.dtype, device=f.device)
+    slabs = [torch.empty((planes, Rp, Cp), dtype=f.dtype, device=f.device)
              for _ in range(min(substeps - 1, 2))]
     src = [v for row in parts for h in row for v in (h.data_ptr(), h.stride(0), h.stride(1))]
     first = (0, halo, halo + R_loc), (0, halo, halo + C_loc)  # each part's first line
     geoms = []
     for j, ((ri_lo, ri_hi, ro_lo, ro_hi), (ci_lo, ci_hi, co_lo, co_hi)) in enumerate(
-            sweep_bands_2d(R_loc, C_loc, halo, substeps, rows_per_sweep), start=1):
+            sweep_bands_2d(R_loc, C_loc, halo, substeps, rows_per_sweep, off[0], shape[0],
+                           walls), start=1):
         if j == substeps:
             dst, at, dplane, dld = out, halo, R_loc * C_loc, C_loc
         else:
             dst, at, dplane, dld = slabs[(j - 1) % 2], 0, Rp * Cp, Cp
         geoms.append((*src, dst.data_ptr(), dplane, dld, at, halo, R_loc, C_loc, ri_lo, ri_hi,
-                      ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi))
+                      ci_lo, ci_hi, ro_lo, ro_hi, co_lo, co_hi, *off, *shape, int(edge)))
         src = [v for r in first[0] for c in first[1]
                for v in (dst.data_ptr() + (r * Cp + c) * item, Rp * Cp, Cp)]
     return out, geoms, slabs
 
 
 def launch_parts_shards(kernel: _build.CudaKernel, shards, *, substeps: int, params, ints,
-                        rows_per_sweep: int, plain) -> list:
-    """``substeps`` sweeps of kernel 35 on ``shards``, a list of (f, parts,
-    off_r, off_c, edge), ``parts`` the 3 x 3 parts of the shard's padded
-    block, through kernels/sharded.py ``launch_planned_shards``: one launch
-    a sweep over up to ``MAX_SHARDS`` shards of one device and type
+                        rows_per_sweep: int, plain, planes: int = 9, walls: bool = False,
+                        shape: tuple[int, int] = (0, 0)) -> list:
+    """``substeps`` sweeps of kernel 35 or 37 on ``shards``, a list of (f,
+    parts, off_r, off_c, edge), ``parts`` the 3 x 3 parts of the shard's
+    padded block, through kernels/sharded.py ``launch_planned_shards``: one
+    launch a sweep over up to ``MAX_SHARDS`` shards of one device and type
     (``_parts_geoms``), CPU shards through ``plain``, which takes the same."""
     return launch_planned_shards(
         kernel, shards, lambda f, parts, off_r, off_c, edge: _parts_geoms(
-            f, parts, substeps=substeps, rows_per_sweep=rows_per_sweep),
+            f, parts, substeps=substeps, rows_per_sweep=rows_per_sweep, planes=planes,
+            walls=walls, off=(off_r, off_c), shape=shape, edge=edge),
         substeps=substeps, params=params, ints=ints, plain=plain)
 
 
@@ -455,11 +467,12 @@ def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, run, plain
     off_r, off_c, edge), with its global offsets and ``edge`` on row ranks 0
     and nx-1 (the masked instance), and returns their new values:
     ``each_shard(local)`` takes them one by one, kernel 36's
-    ``launch_sweeps_2d_shards`` a launch a sweep over a card's shards.
+    ``launch_sweeps_2d_shards`` and kernels 35 and 37's
+    ``launch_parts_shards`` a launch a sweep over a card's shards.
     ``halos(grid, HALO)`` gives each block's halos in row-major order, a
-    tuple each: ``exchange_2d``'s (top, bot, left, right) strips, or kernel
-    35's (parts,) from ``ring_2d``.  ``step.plain`` runs ``plain`` (one
-    shard's plain version, on any device) on each after ``exchange_2d``."""
+    tuple each: ``exchange_2d``'s (top, bot, left, right) strips, or
+    ``ring_parts``' (parts,).  ``step.plain`` runs ``plain`` (one shard's
+    plain version, on any device) on each after ``exchange_2d``."""
     R_loc, C_loc = check_mesh_2d(mesh, R, C, row_factory)
     nx, ny = mesh.shape["x"], mesh.shape["y"]
 
@@ -481,6 +494,12 @@ def make_sharded2d_body_step(mesh: Mesh, planes: int, R: int, C: int, run, plain
     step = build(run, halos)
     step.plain = build(each_shard(plain), exchange_2d)
     return step
+
+
+def ring_parts(grid, width: int):
+    """The body steps' ``halos`` of kernels 35 and 37: each block's (parts,),
+    ``ring_2d``'s 3 x 3 parts of its padded block."""
+    return [(p,) for p in ring_2d(grid, width)]
 
 
 def _body_launch(kernel, family: str, substeps: int, params, walls: bool, i0=0, i1=0):
@@ -508,7 +527,7 @@ def make_sharded2d_sc_step(mesh: Mesh, R: int, C: int, *, omega: float, G: float
                             params=_build.c_doubles(params), ints=(eos_i, forcing_i),
                             rows_per_sweep=ROWS_PER_SWEEP["shan_chen"], plain=plain.parts)
     return make_sharded2d_body_step(mesh, 9, R, C, run, plain, dtype, "make_sharded_sc_step",
-                                    halos=lambda grid, w: [(p,) for p in ring_2d(grid, w)])
+                                    halos=ring_parts)
 
 
 def make_sharded2d_thermal_step(mesh: Mesh, R: int, C: int, *, omega_f: float,
@@ -534,16 +553,24 @@ def make_sharded2d_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alph
                            gravity=(0.0, 0.0), dtype: torch.dtype = torch.float32):
     """The RK mixture step sharded over rows and columns: S (11, R, C) =
     [f (9), r_rho, b_rho] shards -> the same, one exchange per step (lbm_tpu
-    sharded2d_pallas.py:432).  Kernel 37 on CUDA shards."""
+    sharded2d_pallas.py:432).  Kernel 37 on CUDA shards: one launch a call
+    over up to MAX_SHARDS shards of a card (``launch_parts_shards``), each
+    padded block read from ``ring_2d``'s 3 x 3 parts (the neighbours' lines
+    in place where they share the card, copied only across cards), edge and
+    interior shards in one launch; CPU shards run the plain version on the
+    same parts; ``step.plain`` the plain version after ``exchange_2d`` on any
+    device."""
     kw = dict(r_alpha=r_alpha, b_alpha=b_alpha, r_nu=r_nu, b_nu=b_nu, sigma=sigma, beta=beta,
               gravity=gravity)
-    plain = rk.make_plain_step(**kw)
-    launch = _body_launch(HALO2D_RK, "rk", CAP_2D["rk"], _build.c_doubles(rk.kernel_params(**kw)),
-                          True)
-    local = make_local_2d_body_step(R, C, lambda S, rows, cols: plain(S, rows, R, cols, C),
-                                    launch, CAP_2D["rk"])
-    return make_sharded2d_body_step(mesh, rk.PLANES, R, C, each_shard(local), local.plain, dtype,
-                                    "make_sharded_rk_step")
+    rk_plain = rk.make_plain_step(**kw)
+    plain = make_plain_2d_body_step(R, C, lambda S, rows, cols: rk_plain(S, rows, R, cols, C),
+                                    CAP_2D["rk"])
+    run = functools.partial(launch_parts_shards, HALO2D_RK, substeps=CAP_2D["rk"],
+                            params=_build.c_doubles(rk.kernel_params(**kw)), ints=(0, 0),
+                            rows_per_sweep=ROWS_PER_SWEEP["rk"], plain=plain.parts,
+                            planes=rk.PLANES, walls=True, shape=(R, C))
+    return make_sharded2d_body_step(mesh, rk.PLANES, R, C, run, plain, dtype,
+                                    "make_sharded_rk_step", halos=ring_parts)
 
 
 def make_sharded2d_mrtcg_step(mesh: Mesh, R: int, C: int, red, blue, sigma: float,

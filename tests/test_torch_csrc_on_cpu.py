@@ -245,18 +245,15 @@ def test_rk_halo_kernels_source_match_plain(cpu_kernels, monkeypatch, dtype, kin
                                             mesh_shape):
     """Kernels 30 (row shards) and 37 (rows x cols shards) of
     csrc/rk_cg.cu, driven through the port's sharded RK steps (their
-    geometries, strips and sweeps as on the card), two calls from a noisy
-    interface: the plain sharded step within TOL.  Their staged rows span
-    shard, halo and strip buffers, whole chunks and single elements."""
+    geometries, halos and sweeps as on the card), two calls from a noisy
+    interface: the plain sharded step within TOL.  Kernel 30 launches once a
+    shard and call; kernel 37 once a call over up to MAX_SHARDS shards of a
+    device, each padded block read in place from ``ring_2d``'s 3 x 3 parts,
+    edge and interior row ranks in one launch on (4, 2).  Their staged rows
+    span shard, halo and strip buffers, whole chunks and single elements."""
     from lbm_tpu_torch.kernels import sharded
 
-    for kernel in (sharded.HALO_RK, k2d.HALO2D_RK):
-        fn = getattr(cpu_kernels, kernel.symbol)
-        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
-        monkeypatch.setattr(kernel, "_fn", fn)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(_build, "stream_handle", lambda f: None)
-    monkeypatch.setattr(_build, "check_state", lambda f, planes=9: tuple(f.shape[1:]))
+    _bind(monkeypatch, cpu_kernels, sharded.HALO_RK, k2d.HALO2D_RK)
     mesh = pm.make_mesh(["cpu"] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
     make = sharded.make_sharded_rk_step if kind == "rows" else k2d.make_sharded2d_rk_step
     step = make(mesh, R, C, dtype=dtype, **RK_KW)
@@ -265,10 +262,106 @@ def test_rk_halo_kernels_source_match_plain(cpu_kernels, monkeypatch, dtype, kin
     monkeypatch.setattr(sharded, "resolve_fused", lambda f: True)
     monkeypatch.setattr(k2d, "resolve_fused", lambda f: True)
     kernel = sharded.HALO_RK if kind == "rows" else k2d.HALO2D_RK
+    n = mesh_shape[0] * mesh_shape[1]
     before = kernel.launches
     got = step(step(S)).gather()
-    assert kernel.launches - before == 2 * mesh_shape[0] * mesh_shape[1]
+    assert kernel.launches - before == 2 * (n if kind == "rows" else -(-n // _build.MAX_SHARDS))
     assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+def _k37_dependent(mesh_shape, R, C) -> int:
+    """The launches of a call of kernel 37 whose grid fits the stand-in's 4
+    SMs of 2 resident blocks in one wave: column tiles of 32 x row tiles of
+    8 over a shard, one grid layer a shard of each launch of up to
+    MAX_SHARDS."""
+    (nx, ny), n = mesh_shape, mesh_shape[0] * mesh_shape[1]
+    tiles = -(-(C // ny) // 32) * -(-(R // nx) // 8)
+    return sum(tiles * min(_build.MAX_SHARDS, n - c) <= 8 for c in range(0, n, _build.MAX_SHARDS))
+
+
+# (R, C, mesh, halos): kernel 37's batches of mixed edge and interior row ranks
+# ((4, 2)) and of edge ranks only ((2, 2)), a mesh of 10 shards in two launches
+# a call (8 and 2, each in one wave: dependent launches), the neighbours'
+# lines read in place (``ring_2d``) and from ``exchange_2d``'s copies
+# (``strip_parts``' views of its strips)
+K37_CASES = [(64, 96, (4, 2), "exchanged"), (40, 70, (2, 2), "exchanged"),
+             (40, 40, (5, 2), "in place"), (40, 40, (5, 2), "exchanged")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C,mesh_shape,halos", K37_CASES)
+def test_kernel_37_source_matches_plain(cpu_kernels, monkeypatch, dtype, R, C, mesh_shape,
+                                        halos):
+    """Kernel 37 of csrc/rk_cg.cu through the port's rows x cols RK step, two
+    calls into NaN-filled outputs: one launch a call over up to MAX_SHARDS
+    shards (10: two), a dependent launch exactly where the batch's grid fits
+    one wave, the plain sharded step within TOL, no NaN."""
+    _bind(monkeypatch, cpu_kernels, k2d.HALO2D_RK)
+    mesh = pm.make_mesh(["cpu"] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    step = k2d.make_sharded2d_rk_step(mesh, R, C, dtype=dtype, **RK_KW)
+    S = pm.shard_state(mesh, _rk_state(R, C, dtype, R * C))
+    want = step.plain(step.plain(S)).gather()
+    monkeypatch.setattr(ksh, "resolve_fused", lambda f: True)
+    _in_place_or_exchanged(monkeypatch, halos)
+    _nan_buffers(monkeypatch)
+    n = mesh_shape[0] * mesh_shape[1]
+    before, pdl = k2d.HALO2D_RK.launches, cpu_kernels.shim_pdl_count()
+    got = step(step(S)).gather()
+    assert k2d.HALO2D_RK.launches - before == 2 * -(-n // _build.MAX_SHARDS)
+    assert cpu_kernels.shim_pdl_count() - pdl == 2 * _k37_dependent(mesh_shape, R, C)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+def test_kernel_37_reads_the_neighbours_lines_in_place(cpu_kernels, monkeypatch):
+    """On shards of one device kernel 37 makes no exchange copy (``step.plain``
+    makes its exchange's): its geometry names each part of the padded block
+    in the neighbour's own buffer at the neighbour's strides (11 planes), the
+    shard's global offsets, the grid's shape and the edge flag of its row
+    rank; a launch of no shard or of more than MAX_SHARDS is refused, and the
+    wrapper raises: no fallback."""
+    from lbm_tpu_torch.parallel import halo as ph
+    from lbm_tpu_torch.parallel.halo import ring_2d
+
+    copies, copy_to = [], ph.copy_to
+    monkeypatch.setattr(ph, "copy_to", lambda src, device: copies.append(1) or
+                        copy_to(src, device))
+    _bind(monkeypatch, cpu_kernels, k2d.HALO2D_RK)
+    monkeypatch.setattr(ksh, "resolve_fused", lambda f: True)
+    R, C, (nx, ny), h = 64, 48, (4, 2), ksh.HALO
+    R_loc, C_loc = R // nx, C // ny
+    mesh = pm.make_mesh(["cpu"] * (nx * ny), (nx, ny))
+    step = k2d.make_sharded2d_rk_step(mesh, R, C, dtype=torch.float64, **RK_KW)
+    x = pm.shard_state(mesh, _rk_state(R, C, torch.float64, 5))
+    step(x)
+    assert copies == []
+    step.plain(x)
+    assert copies
+    grid = [x.shards[i * ny:(i + 1) * ny] for i in range(nx)]
+    item = 8
+    for b, parts in enumerate(ring_2d(grid, h)):
+        i, j = divmod(b, ny)
+        out, geoms, slabs = k2d._parts_geoms(grid[i][j], parts, substeps=1, rows_per_sweep=3,
+                                             planes=11, walls=True, off=(i * R_loc, j * C_loc),
+                                             shape=(R, C), edge=i in (0, nx - 1))
+        assert slabs == [] and len(geoms) == 1
+        g = dict(zip(k2d.PARTS_GEOM, geoms[0]))
+        assert g["in11_base"] == grid[i][j].data_ptr() and g["out"] == out.data_ptr()
+        assert g["in01_base"] == grid[i - 1][j].data_ptr() + (R_loc - h) * C_loc * item
+        assert g["in12_base"] == grid[i][(j + 1) % ny].data_ptr()
+        assert g["in20_base"] == grid[(i + 1) % nx][j - 1].data_ptr() + (C_loc - h) * item
+        assert all((g[f"in{a}{c}_plane"], g[f"in{a}{c}_ld"]) == (R_loc * C_loc, C_loc)
+                   for a in range(3) for c in range(3))
+        rows = (h - 3 if i else h, h + R_loc + 3 if i < nx - 1 else h + R_loc)
+        assert (g["in_r_lo"], g["in_r_hi"], g["in_c_lo"], g["in_c_hi"]) == (*rows, h - 3,
+                                                                           h + C_loc + 3)
+        assert (g["off_r"], g["off_c"], g["rows"], g["cols"], g["edge"]) == (
+            i * R_loc, j * C_loc, R, C, int(i in (0, nx - 1)))
+    values = [v for _ in range(_build.MAX_SHARDS + 1) for v in geoms[0]]
+    params = _build.c_doubles(rk.kernel_params(**RK_KW))
+    for n in (0, _build.MAX_SHARDS + 1):
+        with pytest.raises(RuntimeError, match="launch failed with cudaError_t 1"):
+            k2d.HALO2D_RK.launch((ctypes.c_longlong * len(values))(*values), params, n, 0, 0, 1,
+                                 None)
 
 
 THERMAL = dict(omega_f=1.0 / (0.71 * 0.1 * 3.0 + 0.5), omega_g=1.25,
@@ -909,6 +1002,41 @@ def test_kernels_32_35_read_the_neighbours_lines_in_place(cpu_kernels_32_35, mon
                                       0, 0, 1, None)
 
 
+def _k14_steps(lib, monkeypatch, f, instance, steps=3):
+    """A call of ``steps`` steps of kernel 14 through make_sc_fused_step with
+    the kernel bound to the CPU build ``lib``, into NaN-filled outputs: (the
+    state, its launches, the dependent ones among them)."""
+    R, C = f.shape[-2:]
+    with monkeypatch.context() as m:
+        _bind(m, lib, shan_chen.SHAN_CHEN)
+        m.setattr(shan_chen, "resolve_fused", lambda f: True)
+        step = shan_chen.make_sc_fused_step(R, C, substeps=steps, dtype=f.dtype,
+                                            **SC_KW[instance])
+        _nan_buffers(m)
+        before, pdl = shan_chen.SHAN_CHEN.launches, lib.shim_pdl_count()
+        f = step(f)
+        return f, shan_chen.SHAN_CHEN.launches - before, lib.shim_pdl_count() - pdl
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C,one_wave", [(16, 64, True), (40, 96, False), (5, 7, True)])
+@pytest.mark.parametrize("instance", sorted(SC_KW))
+def test_kernel_14_source_matches_plain(cpu_kernels_32_35, monkeypatch, dtype, R, C, one_wave,
+                                        instance):
+    """csrc/shan_chen.cu's kernel 14 in every eos x forcing instance through
+    make_sc_fused_step, 3 steps into NaN-filled outputs, on grids sized to
+    the stand-in's 4 SMs of 2 resident blocks each: 16x64 (4 tiles of 8 x
+    32, one wave: programmatic dependent launches), 40x96 (15 tiles: plain
+    launches) and 5x7, shorter and narrower than a tile (one wave; its
+    window wraps by a remainder): the plain step within TOL, no NaN."""
+    f = _sc_state(R, C, dtype, instance.startswith("cs"), R * C + 14)
+    plain = shan_chen.make_plain_step(**SC_KW[instance])
+    want = plain(plain(plain(f)))
+    got, launches, dependent = _k14_steps(cpu_kernels_32_35, monkeypatch, f, instance)
+    assert launches == 3 and dependent == (3 if one_wave else 0)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
 @pytest.fixture(scope="module")
 def k32_k35_design_libs(tmp_path_factory):
     """chip_smoke.py's K32_K35_DESIGNS that edit a source, each built for the
@@ -951,3 +1079,74 @@ def test_kernels_32_35_designs_give_the_tree_bits(cpu_kernels_32_35, k32_k35_des
             assert dependent == (0 if name == "without PDL"
                                  else _sc_dependent(mesh_shape, 16, 32, s))
         assert torch.equal(got["tree"], got[design])
+
+
+@pytest.fixture(scope="module")
+def k37_k14_design_libs(tmp_path_factory):
+    """chip_smoke.py's K37_K14_DESIGNS that edit a source, each built for the
+    CPU, kernel 37's with csrc/rk_cg.cu and kernel 14's with
+    csrc/shan_chen.cu, the builds side by side: {label: library}."""
+    smoke = _chip_smoke()
+    sources = {label: files for label, files in
+               smoke.design_sources(CSRC, smoke.K37_K14_DESIGNS).items() if files}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = {label: pool.submit(_cpu_library, tmp_path_factory.mktemp("design_37_14"),
+                                    ("rk_cg",) if label in smoke.K37_DESIGNS else ("shan_chen",),
+                                    files)
+                 for label, files in sources.items()}
+    return {label: lib.result() for label, lib in built.items()}
+
+
+@pytest.mark.parametrize("design", ["exchange copies kept", "launch per shard",
+                                    "masked instance in float32 too",
+                                    "branch per block in float64 too",
+                                    "no register cap in float64", "five blocks an SM in float32"])
+def test_kernel_37_designs_give_the_tree_bits(cpu_kernels, k37_k14_design_libs, monkeypatch,
+                                              design):
+    """chip_smoke.py's other designs of kernel 37 (K37_K14_DESIGNS, which
+    ``k37_k14_times`` times against the tree): "exchange copies kept" and
+    "launch per shard" run the tree's kernel on the exchange's copies and a
+    shard a launch (8 launches a call on (4, 2)), the edits of csrc/rk_cg.cu
+    the masked instance for every shard in float32 too, the branch per
+    block in float64 too and other register caps; each gives the tree's
+    bits over a
+    call on (4, 2) in float64, its batch of edge and interior row ranks,
+    and on (2, 2) in float32."""
+    smoke = _chip_smoke()
+    lib = k37_k14_design_libs.get(design, cpu_kernels)
+    for dtype, mesh_shape, R, C in ((torch.float64, (4, 2), 64, 96),
+                                    (torch.float32, (2, 2), 40, 70)):
+        n = mesh_shape[0] * mesh_shape[1]
+        mesh = pm.make_mesh(["cpu"] * n, mesh_shape)
+        x = pm.shard_state(mesh, _rk_state(R, C, dtype, 3))
+        got = {}
+        for name, where in (("tree", cpu_kernels), (design, lib)):
+            with monkeypatch.context() as m, (
+                    smoke.exchange_copies_kept() if name == "exchange copies kept" else
+                    smoke.launch_per_shard() if name == "launch per shard" else
+                    contextlib.nullcontext()):
+                _bind(m, where, k2d.HALO2D_RK)
+                m.setattr(ksh, "resolve_fused", lambda f: True)
+                step = k2d.make_sharded2d_rk_step(mesh, R, C, dtype=dtype, **RK_KW)
+                before = k2d.HALO2D_RK.launches
+                got[name] = step(x).gather()
+                launches = k2d.HALO2D_RK.launches - before
+            assert launches == (n if name == "launch per shard" else -(-n // _build.MAX_SHARDS))
+        assert torch.equal(got["tree"], got[design])
+
+
+@pytest.mark.parametrize("design", ["64-bit wraps", "without PDL", "release after loads"])
+def test_kernel_14_designs_give_the_tree_bits(cpu_kernels_32_35, k37_k14_design_libs,
+                                              monkeypatch, design):
+    """chip_smoke.py's other designs of kernel 14 (K37_K14_DESIGNS, edits of
+    csrc/shan_chen.cu and of d2q9.cuh) built for the CPU: the tree's bits
+    over 3 steps at 16x64 (one wave) in float64 and at 5x7 (shorter and
+    narrower than a tile) in float32, dependent launches but "without
+    PDL"."""
+    lib = k37_k14_design_libs[design]
+    for dtype, (R, C) in ((torch.float64, (16, 64)), (torch.float32, (5, 7))):
+        f = _sc_state(R, C, dtype, False, R + C)
+        tree = _k14_steps(cpu_kernels_32_35, monkeypatch, f, "sc guo")
+        other = _k14_steps(lib, monkeypatch, f, "sc guo")
+        assert torch.equal(tree[0], other[0]) and tree[2] == 3
+        assert other[1] == 3 and other[2] == (0 if design == "without PDL" else 3)

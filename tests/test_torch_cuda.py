@@ -1727,7 +1727,7 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
     """Kernels 35-38 on an (nx, ny) mesh of one card's shards, two calls of s
     steps: bit for bit the single-device kernel of their family (14, 23,
     12, 8), within TOL of the plain rows x cols version, and bit-identical
-    run twice.  A call launches s sweeps on each shard, kernels 35 and 36 s
+    run twice.  A call launches s sweeps on each shard, kernels 35-37 s
     sweeps over all the shards of the card (up to MAX_SHARDS a launch)."""
     from lbm_tpu_torch.kernels import sharded2d as k2d
     from lbm_tpu_torch.parallel import mesh as pm
@@ -1741,7 +1741,7 @@ def test_kernels_35_to_38_match_single_device(cuda, family, shape, s, dtype):
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
     n = shape[0] * shape[1]
-    per_call = (-(-n // k2d.MAX_SHARDS) * s if family == "thermal" or family in SC_CASES
+    per_call = (-(-n // k2d.MAX_SHARDS) * s if family in ("thermal", "rk") or family in SC_CASES
                 else n * s)
     assert kernel.launches - before == 4 * per_call
     want = single(single(x))
@@ -1873,6 +1873,80 @@ def test_kernels_32_35_with_a_shard_on_a_second_card(cuda, monkeypatch, kind, n)
     assert copies and all(a != b for a, b in copies)
     single = shan_chen.make_sc_fused_step(R, C, substeps=s, dtype=f64, **SC_CASES["sc guo"])
     assert torch.equal(got, single(x))
+
+
+# --- kernels 37 and 14 redesigned: one launch a call over a card's shards; ---------
+# --- one-period wraps and a dependent launch ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape,R,C", [((4, 2), 64, 96), ((2, 2), 40, 70),
+                                             ((4, 4), 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_37_one_launch_a_call_and_no_copy(cuda, monkeypatch, dtype, mesh_shape, R, C):
+    """Kernel 37 on shards of one card, edge and interior row ranks in one
+    launch on (4, 2) and (4, 4), edge ranks only on (2, 2): a call is one
+    launch over up to MAX_SHARDS shards (16 shards: 2), makes no exchange
+    copy (``step.plain`` makes its exchange's), gives kernel 12's bits over 3
+    calls, within TOL of the plain rows x cols version, and a CUDA graph of
+    two calls gives the eager run's bits."""
+    from lbm_tpu_torch.kernels import _build, rk
+    from lbm_tpu_torch.kernels import sharded2d as k2d
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    copies, copy_to = [], halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(1) or copy_to(src, dev))
+    n = mesh_shape[0] * mesh_shape[1]
+    mesh = pm.make_mesh([cuda] * n, mesh_shape)
+    step = k2d.make_sharded2d_rk_step(mesh, R, C, dtype=dtype, **RK_KW)
+    x = _rk_state(R, C, dtype, cuda)
+    before = k2d.HALO2D_RK.launches
+    eager = step(step(step(pm.shard_state(mesh, x)))).gather()
+    torch.cuda.synchronize()
+    assert k2d.HALO2D_RK.launches - before == 3 * -(-n // _build.MAX_SHARDS)
+    assert copies == []
+    single = rk.make_rk_fused_step(R, C, dtype=dtype, substeps=3, **RK_KW)
+    assert torch.equal(eager, single(x))
+    plain = step.plain(step.plain(step.plain(pm.shard_state(mesh, x)))).gather()
+    assert copies and (eager - plain).abs().max().item() <= TOL[dtype]
+    xs = pm.shard_state(mesh, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(xs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = step(step(xs))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(ys.gather(), step(step(xs)).gather())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 128), (4096, 2048), (40, 20), (5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_14_matches_plain_at_its_shapes(cuda, dtype, shape):
+    """Kernel 14 (sc/guo, and cs/shift at the small grids), 4 steps a call
+    (4 launches, dependent in one wave), at sc_flat_interface's 256x128, at
+    4096x2048 (many waves) and on grids narrower (40x20) and shorter and
+    narrower (5x7) than a tile: within TOL of its plain version."""
+    from lbm_tpu_torch.kernels import shan_chen as shc
+
+    R, C = shape
+    cases = [("sc", "guo")] + ([("cs", "shift")] if R * C < 1 << 20 else [])
+    for eos, forcing in cases:
+        kw = dict(omega=1.0, T=0.7 * 0.09433) if eos == "cs" else dict(omega=1.0, G=-5.0)
+        f = _sc_state(R, C, dtype, cuda, eos == "cs")
+        before = shc.SHAN_CHEN.launches
+        got = shc.make_sc_fused_step(R, C, eos=eos, forcing=forcing, dtype=dtype, substeps=4,
+                                     **kw)(f)
+        torch.cuda.synchronize()
+        assert shc.SHAN_CHEN.launches - before == 4
+        plain = shc.make_plain_step(eos=eos, forcing=forcing, **kw)
+        want = plain(plain(plain(plain(f))))
+        assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+        del got, want, f
 
 
 # --- kernel 39: the lane-blocked reduced MRT-CG step ------------------------------
@@ -2224,7 +2298,8 @@ def test_rk_kernel_matches_plain_bit_for_bit(cuda, dtype, R, C):
                                   ("rows x cols", (2, 4))])
 def test_rk_halo_kernels_match_kernel_12(cuda, dtype, case):
     """Kernels 30 (row shards) and 37 (rows x cols shards), two calls: 0.0
-    against kernel 12, a launch a shard and call."""
+    against kernel 12; kernel 30 a launch a shard and call, kernel 37 a
+    launch a call over up to MAX_SHARDS shards of the card."""
     from lbm_tpu_torch.parallel import mesh as pm
 
     kind, n = case
@@ -2239,7 +2314,7 @@ def test_rk_halo_kernels_match_kernel_12(cuda, dtype, case):
     before = sum(k.launches for k in kernels)
     got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
-    assert sum(k.launches for k in kernels) - before == 2 * (n if kind == "rows" else n[0] * n[1])
+    assert sum(k.launches for k in kernels) - before == 2 * (n if kind == "rows" else 1)
     assert torch.equal(got, single(single(x)))
 
 

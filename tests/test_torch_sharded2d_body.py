@@ -161,6 +161,31 @@ def test_body_plain_matches_lbm_tpu_sharded2d_wrappers(family, s, calls):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2)])
+def test_rk_parts_path_matches_lbm_tpu_sharded2d_rk(shape, monkeypatch):
+    """Kernel 37's path on CPU shards: the RK step takes each padded block
+    as ``ring_2d``'s 3 x 3 parts (once a call) and runs ``plain.parts`` on it,
+    a batch of edge and interior row ranks on (4, 2); 2 steps of 16 x 128
+    shards, float64, within 1e-13 of lbm_tpu's wrapper, and bit for bit
+    ``step.plain`` (``exchange_2d``'s strips)."""
+    nx, ny = shape
+    R, C = 16 * nx, 256
+    x = _state("rk", R, C, seed=nx + 20)
+    jm = jmesh.make_mesh(jax.devices()[:nx * ny], shape=shape)
+    y = jax.device_put(jnp.asarray(x.numpy()), jax.sharding.NamedSharding(
+        jm, jax.sharding.PartitionSpec(None, "x", "y")))
+    jstep = _j_step("rk", jm, R, C, 1)
+    want = np.asarray(jstep(jstep(y)))
+    calls, ring_2d = [], k2d.ring_2d
+    monkeypatch.setattr(k2d, "ring_2d", lambda grid, w: calls.append(w) or ring_2d(grid, w))
+    m = mesh.make_mesh(["cpu"] * (nx * ny), shape)
+    step = _port_step("rk", m, R, C, 1)
+    got = _run_port(step, x, shape, 2)
+    assert calls == [k2d.HALO] * 2
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
+    assert torch.equal(got, _run_port(step.plain, x, shape, 2))
+
+
 # --- against the port's single-device steps, bit for bit ----------------------------
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2), (4, 2), (2, 4)])
