@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py        # from the root of a checkout, no arguments
     python3 chip_smoke.py --parent DIR   # phase 6 also times the MRT-CG engine and
-                                         # kernels 2, 4, 9, 12, 14, 16, 19-21, 27, 32-37
-                                         # of the tree DIR (e.g. a git archive of the
-                                         # parent commit) against this one, and holds
-                                         # 2, 4, 9, 12, 14, 19-21, 27 and 32-37 to DIR's
-                                         # bits
+                                         # kernels 2, 4, 9, 12, 14, 16, 19-21, 23, 24,
+                                         # 27, 28, 32-37 of the tree DIR (e.g. a git
+                                         # archive of the parent commit) against this
+                                         # one, and holds 2, 4, 9, 12, 14, 19-21, 23,
+                                         # 24, 27, 28 and 32-37 to DIR's bits
     python3 chip_smoke.py --ibm-breakdown [--parent DIR]
                                          # build kernels 16, 19-21 alone, hold them,
                                          # time them whole and with parts left out
@@ -39,6 +39,11 @@
                                          # build, then only kernels 37 and 14 against
                                          # their other designs (and DIR's), held to
                                          # the same bits (k37_k14_times), JSON line
+    python3 chip_smoke.py --k23-k24 [--parent DIR]
+                                         # build, then only kernels 23 and 24 against
+                                         # their other designs (and DIR's, and 28
+                                         # against DIR's), held to the same bits, with
+                                         # their loss (k23_k24_times), JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -213,8 +218,10 @@ with a nonzero exit code):
      antisymmetry) and thermal (rayleigh_benard 64x128 float32, 30k steps:
      Nu and its saturation; heated_cavity 128x128 float32, 40k steps: Nu),
      the thermal gates in both scalar lattices, one launch of kernel 22, 23
-     or 24 per step; each scene at a small size in float64 on the card
-     against the CPU at 1e-12; the three CLIs; the D3Q19 slice, one
+     or 24 per step, each of 23 and 24's a programmatic dependent one
+     (the library's count, ``lbm_dependent_launches``); each scene at a
+     small size in float64 on the card against the CPU at 1e-12; the three
+     CLIs; the D3Q19 slice, one
      kernel-25 launch per step: validate_tpu.py cavity3d (lid_cavity_3d
      8x64x128 float32, 20k steps, substeps 2: lid drag, return flow, max|u|,
      x mirror), the same cavity for 2000 steps in the lanes layout through
@@ -316,7 +323,12 @@ with a nonzero exit code):
      1024x256 and at 4096x2048 and kernel 14 at sc_flat_interface's 256x128
      (4 a call) and at 4096x2048, both types, with their launches a call and
      bound (``K37_K14_DESIGNS`` only under --k37-k14), with --parent against
-     the parent tree's step in turns, bit for bit (``k37_k14_times``); and
+     the parent tree's step in turns, bit for bit (``k37_k14_times``);
+     kernels 23 and 24 (all four instances) at their launch shapes
+     (64x128, 128x128) and at 4096x2048, both types, with each float32
+     launch shape's bound and loss (``K23_K24_DESIGNS`` only under
+     --k23-k24), with --parent against the parent tree's (and kernel 28 at
+     64x128 on 8 shards) in turns, bit for bit (``k23_k24_times``); and
      the table of every
      kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
      ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
@@ -338,6 +350,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 TOL = {"float32": 2e-6, "float64": 1e-13}  # max abs error, kernel vs plain
@@ -3927,41 +3940,50 @@ def k4_k33_times(dev, card: str, parent=None, designs=False) -> dict:
     return out
 
 
-# kernels 2 and 9's timed shapes (the validation runs' 128x128, the Poiseuille
-# gate's 21x21, the big grid) and kernel 9's timed scenes (variants()): trt
-# (its launch shape), gravity (force), vertical (pressure on the columns,
-# bounce-back rows) and free_stream_cc (anti-bounce-back rows, the specular
-# rule skipping them)
-K2_K9_SHAPES = ((128, 128), (21, 21), BIG)
-K9_SCENES = ("trt", "gravity", "vertical", "free_stream_cc")
+class DesignCase(NamedTuple):
+    """One case of ``design_times``: kernel ``k`` of csrc/``unit``.cu through
+    its wrapper ``kernel`` (bound to each variant's library while a step
+    runs), named ``label``, in ``dtype``; ``make()`` gives (this tree's step,
+    its input); a CUDA graph of ``calls`` chained calls times a call, the
+    median of ``rounds`` in turns; the builds of the designs run it where
+    ``designs`` (else only the parent's)."""
+    k: int
+    unit: str
+    kernel: object
+    label: str
+    dtype: object
+    make: object
+    calls: int = 100
+    designs: bool = True
+    rounds: int = 3
 
 
-def k2_k9_times(dev, card: str, parent=None, designs=False) -> dict:
-    """Kernel 2 (poiseuille's constants) and kernel 9 (each of K9_SCENES) at
-    K2_K9_SHAPES in both types: us per step under CUDA graphs of 100 chained
-    steps, median of 3 in turns (``in_turns``), of this tree's kernel, with
-    ``designs`` also ``K2_K9_DESIGNS``' builds that edit the kernel's source
-    or d2q9.cuh, and with ``parent`` the parent tree's kernel (built by
+def design_times(dev, card: str, cases, table: dict, what: str, parent=None,
+                 designs=False) -> dict:
+    """Each of ``cases`` (``DesignCase``s): us per call under CUDA graphs of
+    its calls, median of its rounds in turns (``in_turns``), of this tree's kernel,
+    with ``designs`` also the builds of ``table`` (label -> {file: edits},
+    ``design_sources``, ``build_designs``) that edit the case's unit or
+    d2q9.cuh, and with ``parent`` the parent tree's kernel (built by
     ``build_parent``).  Every variant must give the same bits (the
-    parent's, where there is one) over 4 steps: it raises where they
-    differ.  Keys (kernel, case, dtype) -> {variant: us}."""
+    parent's, where there is one) over 4 calls: it raises where they
+    differ.  Keys (kernel, label, dtype) -> {variant: us}, with the change
+    against the parent."""
     import ctypes
 
     import torch
 
-    from lbm_tpu_torch.kernels import _build, channel
+    from lbm_tpu_torch.kernels import _build
 
-    units = {2: ("channel_bgk", channel.CHANNEL_BGK), 9: ("channel_variant",
-                                                         channel.CHANNEL_VARIANT)}
+    cases = list(cases)
+    units = sorted({c.unit for c in cases})
     libs = {}
-    if designs:
-        sources = design_sources(_build.CSRC, K2_K9_DESIGNS)
-        for label, lib in build_designs(sources, [u for u, _ in units.values()],
-                                        "kernels 2 and 9").items():
-            libs[label] = (lib, {name.removesuffix(".cu") for name in sources[label]})
     if parent is not None:
-        libs = {"parent": (build_parent(parent, [u for u, _ in units.values()]),
-                           {"d2q9.cuh"}), **libs}
+        libs["parent"] = (build_parent(parent, units), None)
+    if designs:
+        sources = design_sources(_build.CSRC, table)
+        for label, lib in build_designs(sources, units, what).items():
+            libs[label] = (lib, set(sources[label]))
 
     def bound_to(kernel, lib, step):
         """``step`` with ``kernel`` bound to ``lib``'s entry point while it
@@ -3978,46 +4000,185 @@ def k2_k9_times(dev, card: str, parent=None, designs=False) -> dict:
         return run
 
     out = {}
-    for k, (unit, kernel) in units.items():
-        scenes = (None,) if k == 2 else K9_SCENES
-        for scene, (R, C), dtype in ((s, sh, dt) for s in scenes for sh in K2_K9_SHAPES
-                                     for dt in (torch.float32, torch.float64)):
-            dt = str(dtype).removeprefix("torch.")
-            if k == 2:
-                label = f"poiseuille {R}x{C}"
-                new = channel.make_channel_fused_step(R, C, 1 / TAU_MAGIC, 1.001, 1.0, dtype)
-                x = seeded_state(R, C, dtype, dev, seed=11, incompressible=True)
-            else:
-                label = f"{scene} {R}x{C}"
-                new = channel.make_channel_variant_step(R, C, dtype=dtype, **variants()[scene])
-                x = seeded_state(R, C, dtype, dev, seed=9, incompressible=True, noisy=True)
-            steps = {"new": new}
-            for v, (lib, edits) in libs.items():
-                if unit in edits or "d2q9.cuh" in edits:
-                    steps[v] = bound_to(kernel, lib, new)
-            if "parent" in steps:
-                steps = {"parent": steps.pop("parent"), **steps}
-            want = None
-            for v, step in steps.items():
-                y = x
-                for _ in range(4):
-                    y = step(y)
-                torch.cuda.synchronize()
-                if want is None:
-                    want = (v, y)
-                elif not torch.equal(y, want[1]):
-                    raise AssertionError(f"kernel {k} {label} {dt}: {v} differs from "
-                                         f"{want[0]}'s bits")
-            med, runs = in_turns({v: (lambda st=st: graph_ms(st, x) * 1e3)
-                                  for v, st in steps.items()})
-            if "parent" in med:
-                med["change"] = med["new"] / med["parent"] - 1.0
-            out[k, label, dt] = med
-            log(f"[6] {card}; kernel {k} {label} {dt} (us per step, CUDA graphs of 100, "
-                f"median of 3 in turns; {', '.join(steps)} bit for bit alike over 4 steps): "
-                + ", ".join(f"{v} {us!r}" for v, us in med.items()) + f" (runs {runs})")
-            del x, want
-            torch.cuda.empty_cache()
+    for case in cases:
+        dt = str(case.dtype).removeprefix("torch.")
+        new, x = case.make()
+        steps = {}
+        for v, (lib, files) in libs.items():
+            if v == "parent":
+                steps[v] = bound_to(case.kernel, lib, new)
+            elif case.designs and (f"{case.unit}.cu" in files or "d2q9.cuh" in files):
+                steps[v] = bound_to(case.kernel, lib, new)
+        steps = {**({"parent": steps.pop("parent")} if "parent" in steps else {}), "new": new,
+                 **steps}
+        want = None
+        for v, step in steps.items():
+            y = x
+            for _ in range(4):
+                y = step(y)
+            y = y if isinstance(y, torch.Tensor) else y.gather()
+            torch.cuda.synchronize()
+            if want is None:
+                want = (v, y)
+            elif not torch.equal(y, want[1]):
+                raise AssertionError(f"kernel {case.k} {case.label} {dt}: {v} differs from "
+                                     f"{want[0]}'s bits")
+        med, runs = in_turns({v: (lambda st=st: graph_ms(st, x, case.calls) * 1e3)
+                              for v, st in steps.items()}, case.rounds)
+        if "parent" in med:
+            med["change"] = med["new"] / med["parent"] - 1.0
+        out[case.k, case.label, dt] = med
+        log(f"[6] {card}; kernel {case.k} {case.label} {dt} (us per call, CUDA graphs of "
+            f"{case.calls}, median of {case.rounds} in turns; {', '.join(steps)} bit for bit "
+            f"alike over 4 calls): " + ", ".join(f"{v} {us!r}" for v, us in med.items())
+            + f" (runs {runs})")
+        del x, want, new, steps
+        torch.cuda.empty_cache()
+    return out
+
+
+# kernels 2 and 9's timed shapes (the validation runs' 128x128, the Poiseuille
+# gate's 21x21, the big grid) and kernel 9's timed scenes (variants()): trt
+# (its launch shape), gravity (force), vertical (pressure on the columns,
+# bounce-back rows) and free_stream_cc (anti-bounce-back rows, the specular
+# rule skipping them)
+K2_K9_SHAPES = ((128, 128), (21, 21), BIG)
+K9_SCENES = ("trt", "gravity", "vertical", "free_stream_cc")
+
+
+def k2_k9_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernel 2 (poiseuille's constants) and kernel 9 (each of K9_SCENES) at
+    K2_K9_SHAPES in both types through ``design_times`` (us per step under
+    CUDA graphs of 100 steps; ``K2_K9_DESIGNS`` with ``designs``), bit for
+    bit the parent's where ``parent`` names one.  Keys (kernel, case,
+    dtype) -> {variant: us}."""
+    import torch
+
+    from lbm_tpu_torch.kernels import channel
+
+    def make(k, scene, R, C, dtype):
+        if k == 2:
+            return (channel.make_channel_fused_step(R, C, 1 / TAU_MAGIC, 1.001, 1.0, dtype),
+                    seeded_state(R, C, dtype, dev, seed=11, incompressible=True))
+        return (channel.make_channel_variant_step(R, C, dtype=dtype, **variants()[scene]),
+                seeded_state(R, C, dtype, dev, seed=9, incompressible=True, noisy=True))
+
+    cases = [DesignCase(k, unit, kernel, f"{scene or 'poiseuille'} {R}x{C}", dtype,
+                        functools.partial(make, k, scene, R, C, dtype))
+             for k, unit, kernel in ((2, "channel_bgk", channel.CHANNEL_BGK),
+                                     (9, "channel_variant", channel.CHANNEL_VARIANT))
+             for scene in ((None,) if k == 2 else K9_SCENES) for R, C in K2_K9_SHAPES
+             for dtype in (torch.float32, torch.float64)]
+    return design_times(dev, card, cases, K2_K9_DESIGNS, "kernels 2 and 9", parent, designs)
+
+
+# kernels 23 and 24's other designs (edits of csrc/, timed against the tree in
+# ``k23_k24_times``): plain launches of the sized blocks; 256-thread blocks (a
+# dependent launch all the same in one wave); the 32-bit instance where the
+# state's offsets fit in 31 bits (the redesign's first tree); the dependent
+# launch released at each block's exit (as kernels 14, 32, 35 and 37 do);
+# the push's owned() tests only in the threads within one cell of a wall
+# line, one uniform branch for the interior's warps; and the last two, each
+# with the 32-bit instance
+_K23_32_BIT = [(
+    "  return static_cast<int>(lbm::launch_cells<thermal_kernel<T, QG, CAVITY, int64_t>>(\n",
+    "  if ((9 + QG) * n <= INT32_MAX)\n"
+    "    return static_cast<int>(lbm::launch_cells<thermal_kernel<T, QG, CAVITY, int32_t>>(\n"
+    "        n, stream, static_cast<const T*>(fin), static_cast<T*>(fout),\n"
+    "        static_cast<int32_t>(R), static_cast<int32_t>(C), params<T>(d)));\n"
+    "  return static_cast<int>(lbm::launch_cells<thermal_kernel<T, QG, CAVITY, int64_t>>(\n")]
+_K23_RELEASE_AT_EXIT = [("  lbm::grid_release();\n", "")]
+_K23_NEAR_WALLS = [(
+    "  // 3. the periodic push, less the entries a wall rule writes\n",
+    "  // 3. the periodic push, less the entries a wall rule writes\n"
+    "  if (!(r <= 1 || r >= R - 2 || (CAVITY && (c <= 1 || c >= C - 2)))) {\n"
+    "#pragma unroll\n"
+    "    for (int k = 0; k < 9; ++k) {\n"
+    "      const I dst = wrap<I>(r + lbm::cx(k), R) * C + wrap<I>(c + lbm::cy(k), C);\n"
+    "      fout[k * n + dst] = fc[k];\n"
+    "      if (k < QG) fout[(9 + k) * n + dst] = gc[k];\n"
+    "    }\n"
+    "    return;\n"
+    "  }\n")]
+K23_K24_DESIGNS = {
+    "without PDL": K2_K9_DESIGNS["without PDL"],
+    "256-thread blocks": K2_K9_DESIGNS["256-thread blocks"],
+    "32-bit indices": {"thermal.cu": _K23_32_BIT},
+    "release at block exit": {"thermal.cu": _K23_RELEASE_AT_EXIT},
+    "near walls only": {"thermal.cu": _K23_NEAR_WALLS},
+    "near walls only, 32-bit indices": {"thermal.cu": _K23_NEAR_WALLS + _K23_32_BIT},
+    "near walls only, release at block exit": {
+        "thermal.cu": _K23_NEAR_WALLS + _K23_RELEASE_AT_EXIT}}
+# each thermal instance's launch shape (the phase-5 gates' grids) and its
+# launches there in phase 5: the gate run's steps and the float64 scene's 200
+K23_K24_SHAPES = {"thermal_rb": ((64, 128), 30200), "heated_cavity": ((128, 128), 40200)}
+
+
+def k23_k24_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernels 23 and 24, every instance of THERMAL_NAMES at its launch
+    shape (K23_K24_SHAPES) and at 4096x2048 in both types, through
+    ``design_times`` (us per step under CUDA graphs of 100 steps, median of
+    5 in turns; 10 steps and 3 at 4096x2048; ``K23_K24_DESIGNS`` with
+    ``designs``), and with ``parent``
+    also kernel 28 at rayleigh_benard's 64x128 on 8 shards, 8 steps a call
+    (it shares csrc/thermal.cu's wall functions), every variant bit for bit
+    the parent's.  At each float32 launch shape the bound of a launch (its
+    bytes over HBM3's rate against the plain version's operations) and
+    each variant's loss, phase-5 launches x (us - bound); the four
+    instances' sum under the key (0, "23 and 24, launch shapes", "loss
+    s").  Keys (kernel, case, dtype) -> {variant: us}."""
+    import torch
+
+    cpu = torch.device("cpu")
+    f32 = torch.float32
+
+    def make(name, R, C, dtype):
+        mk, _, _, q = thermal_kernel(name)
+        return (mk(R, C, dtype=dtype, scalar_lattice=f"d2q{q}", **THERMAL_PHYS),
+                thermal_state(q, R, C, dtype, dev, seed=R + C + q))
+
+    def make28(dtype):
+        from lbm_tpu_torch.parallel import mesh as pm
+
+        step, _, mesh = sharded_case("thermal", (64, 128), dtype, dev, 8, 8)
+        return step, pm.shard_state(mesh, sharded_state("thermal", (64, 128), dtype, dev))
+
+    cases, shapes = [], {}
+    for name in THERMAL_NAMES:
+        (R, C), launches = K23_K24_SHAPES[name[:-3]]
+        k, kernel = (23 if name.startswith("thermal_rb") else 24), thermal_kernel(name)[2]
+        shapes[k, f"{name} {R}x{C}"] = (name, R * C, launches)
+        for (Rs, Cs), dtype in ((s, dt) for s in ((R, C), BIG) for dt in (f32, torch.float64)):
+            small = Rs * Cs < 1 << 20
+            cases.append(DesignCase(k, "thermal", kernel, f"{name} {Rs}x{Cs}", dtype,
+                                    functools.partial(make, name, Rs, Cs, dtype),
+                                    100 if small else 10, rounds=5 if small else 3))
+    if parent is not None:
+        from lbm_tpu_torch.kernels import sharded as ksh
+
+        cases += [DesignCase(28, "thermal", ksh.HALO_THERMAL,
+                             "halo_thermal 64x128, 8 shards, 8 a call", dtype,
+                             functools.partial(make28, dtype), designs=False)
+                  for dtype in (f32, torch.float64)]
+    out = design_times(dev, card, cases, K23_K24_DESIGNS, "kernels 23 and 24", parent,
+                       designs)
+    total = {}
+    for (k, label), (name, cells, launches) in shapes.items():
+        _, plain, _, q = thermal_kernel(name)
+        ops = ops_per_cell(lambda x: plain(x, **THERMAL_PHYS),
+                           thermal_state(q, 64, 64, f32, cpu, seed=2))
+        b_us = bound(8 * (9 + q), ops, cells, "float32")[0] * 1e3
+        med = out[k, label, "float32"]
+        loss = {v: launches * (us - b_us) * 1e-6 for v, us in med.items() if v != "change"}
+        med.update(bound_us=b_us, fraction=b_us / med["new"], launches=launches, loss_s=loss)
+        for v, s in loss.items():
+            total[v] = total.get(v, 0.0) + s
+        log(f"[6] {card}; kernel {k} {label} float32: bound {b_us!r} us a launch ("
+            f"{b_us / med['new']!r} of new), {launches} phase-5 launches, loss s: "
+            + ", ".join(f"{v} {s!r}" for v, s in loss.items()))
+    out[0, "23 and 24, launch shapes", "loss s"] = total
+    log(f"[6] {card}; kernels 23 and 24, the four instances' loss at their launch shapes, "
+        f"float32 (s): " + ", ".join(f"{v} {s!r}" for v, s in total.items()))
     return out
 
 
@@ -4843,6 +5004,12 @@ def main(argv=None) -> int:
                          "(K37_K14_DESIGNS) and, with --parent, the parent's, holding each to "
                          "the same bits (k37_k14_times), print the table as a JSON line, and "
                          "stop")
+    ap.add_argument("--k23-k24", action="store_true",
+                    help="build, then only time kernels 23 and 24 (all four instances) against "
+                         "their other designs (K23_K24_DESIGNS) and, with --parent, the "
+                         "parent's (and kernel 28 against the parent's), holding each to the "
+                         "same bits, with each instance's loss against its bound "
+                         "(k23_k24_times), print the table as a JSON line, and stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -4965,6 +5132,11 @@ def main(argv=None) -> int:
         print(json.dumps({"k37_k14": [[*key, us] for key, us in table.items()], "card": card}),
               flush=True)
         return 0
+    if args.k23_k24:
+        table = k23_k24_times(dev, card, parent, designs=True)
+        print(json.dumps({"k23_k24": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -4991,6 +5163,7 @@ def main(argv=None) -> int:
             ("27 and 34, one step", tuple(f"collide_stream_{k}" for k in ksh.COLLIDE_KINDS),
              "9push_step", 16),
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
+            ("23-24", ("thermal",), "14thermal_kernel", 8),
             (36, ("thermal",), "21thermal_halo2d_kernel", 2),
             (37, ("rk_cg",), "12rk_cg_shards", 2), (38, ("mrtcg_full",), "9Shard2DIO", 16),
             (39, ("mrtcg_reduced",), "6LaneIO", 8)):
@@ -6009,6 +6182,14 @@ def main(argv=None) -> int:
     for k in counted.values():
         k.launches = 0
     th_wall = {}
+    # kernels 23 and 24 launch through lbm::launch_grid, whose count of
+    # programmatic dependent launches the library keeps: every launch of this
+    # slice's grids (64x128 and 128x128 in float32, 32x64 and 32x32 in
+    # float64) fits the card in one wave, so every one is dependent; the CLIs
+    # run in a process of their own
+    dependent = _build.library().lbm_dependent_launches
+    dependent.argtypes, dependent.restype = [], ctypes.c_longlong
+    dependent_before = dependent()
 
     def slice_run(label, fn, kernel, **kw):
         """One scene run on the card, timed, with one launch of ``kernel`` per
@@ -6092,9 +6273,13 @@ def main(argv=None) -> int:
     del got, want
     finish_clis(cli_run)
     slice_launches = {name: counted[name].launches for name in ("cavity", *THERMAL_NAMES)}
-    log(f"[5] kernel 22-24 path launches: {slice_launches}")
+    th_dependent = dependent() - dependent_before
+    log(f"[5] kernel 22-24 path launches: {slice_launches}; dependent launches {th_dependent}")
     if not all(slice_launches.values()):
         raise AssertionError("a kernel of the cavity / thermal path never launched")
+    if th_dependent != sum(slice_launches[name] for name in THERMAL_NAMES):
+        raise AssertionError(f"kernels 23 and 24: {th_dependent} dependent launches, not one "
+                             "for each of their launches in one wave")
     launches = {name: launches[name] + k.launches for name, k in counted.items()}
     # the D3Q19 slice of kernels 25-26: its counts start at 0 there and are
     # read at its end
@@ -6506,6 +6691,9 @@ def main(argv=None) -> int:
     # kernels 37 and 14 at their launch shapes and at the big grid, against
     # the parent tree's where --parent names one
     k37_k14_tm = k37_k14_times(dev, card, parent)
+    # kernels 23 and 24 at their launch shapes and at the big grid, with their
+    # loss, against the parent tree's (and 28 too) where --parent names one
+    k23_k24_tm = k23_k24_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -6701,6 +6889,11 @@ def main(argv=None) -> int:
                         (37, "halo2d_rk", k37_k14_tm), (14, "shan_chen", k37_k14_tm)):
         next(e for e in kernels if e["name"] == name)["us"] = {
             f"{case} {dt}": v for (kk, case, dt), v in tm.items() if kk == k}
+    for name in ("halo_thermal", *THERMAL_NAMES):  # 28 only against a parent
+        us = {f"{case} {dt}": v for (_, case, dt), v in k23_k24_tm.items()
+              if case.startswith(f"{name} ")}
+        if us:
+            next(e for e in kernels if e["name"] == name)["us"] = us
     for row in shape_rows:
         for entry in kernels:
             if entry["name"] == row["name"]:

@@ -13,6 +13,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace lbm {
@@ -73,7 +74,7 @@ __device__ __forceinline__ void grid_release() {
 #endif
 }
 
-// The launch of the one-thread-a-cell channel kernels (2, 4 and 9), sized to
+// The launch of the one-thread-a-cell kernels (2, 4, 9, 23 and 24), sized to
 // the card.  A small grid (128x128 is 16,384 cells, 64 blocks of 256 threads)
 // would leave half of an H100's 132 SMs idle, so a block takes the most of
 // 256, 128 and 64 threads that still gives every SM two blocks (64 at
@@ -105,12 +106,16 @@ inline cudaError_t one_wave(int threads, size_t smem, int64_t blocks, int sms, b
   return cudaSuccess;
 }
 
+// The programmatic dependent launches that launch_grid has made in this
+// process (lbm_dependent_launches, csrc/thermal.cu, reads it).
+inline std::atomic<long long> dependent_launches{0};
+
 // Launches KERNEL(args...) on `grid` blocks of `threads` threads with `smem`
 // bytes of dynamic shared memory (the kernel opted in to them) on `stream`,
 // a programmatic dependent launch where the grid fits the card in one wave,
 // so that launch n+1's ramp overlaps launch n's tail (its threads call
-// grid_wait before their first load or store; kernels 2, 4 and 9 call
-// grid_release once their loads are issued, kernels 14, 32, 35 and 37
+// grid_wait before their first load or store; kernels 2, 4, 9, 23 and 24
+// call grid_release once their loads are issued, kernels 14, 32, 35 and 37
 // release at each block's exit).  A grid of many waves launches plainly:
 // there the dependent launch cost kernel 4 3.5% at 4096x2048 in float64
 // (H100).  Returns the launch's cudaError_t.
@@ -130,11 +135,13 @@ inline cudaError_t launch_grid(dim3 grid, int threads, size_t smem, cudaStream_t
   const cudaLaunchConfig_t cfg = {grid, dim3(static_cast<unsigned>(threads)), smem, stream, attr,
                                   pdl ? 1u : 0u};
   e = cudaLaunchKernelEx(&cfg, KERNEL, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess && pdl) ++dependent_launches;
+  return e;
 }
 
-// Launches KERNEL(args...) over `n` cells, one thread a cell (kernels 2, 4
-// and 9): `block_threads` threads a block, through `launch_grid`.
+// Launches KERNEL(args...) over `n` cells, one thread a cell (kernels 2, 4,
+// 9, 23 and 24): `block_threads` threads a block, through `launch_grid`.
 template <auto KERNEL, typename... Args>
 inline cudaError_t launch_cells(int64_t n, cudaStream_t stream, Args... args) {
   if (n == 0) return cudaSuccess;

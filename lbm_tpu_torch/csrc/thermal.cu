@@ -45,6 +45,27 @@
 // rule writes f_new[opp(k)] = f_coll[k], so for f the order does not
 // change a value; for g it does at the cavity's corners.
 //
+// Launch: lbm::launch_cells (d2q9.cuh), as kernels 2, 4 and 9: blocks sized
+// to the card (rayleigh_benard's 64x128 is 128 blocks of 64 threads,
+// heated_cavity's 128x128 256) and a programmatic dependent launch where the
+// grid fits the card in one wave, a plain one at many waves.
+// lbm::grid_wait comes before the first load or store (the caching
+// allocator may hand step n+1's output the buffer step n still reads), and
+// lbm::grid_release once the cell's 18 or 14 loads are issued.  That took
+// the float32 launch shapes from 2.18-2.69 to 1.39-1.79 us a step, and
+// 4096x2048 stays within 0.35% of the first design's plain 256-thread
+// launch in both types.  Timed against it, in turns, bit for bit (H100
+// 80GB HBM3, 700 W; chip_smoke.py k23_k24_times, its designs): without the
+// dependent launch +0.28-0.59 us a step at the launch shapes; 256-thread
+// blocks up to +0.35 in float32 and +0.25-0.56 in float64; the release at
+// each block's exit up to +0.31; 32-bit indices (an int32_t instance where
+// (9 + QG) R C fits in 31 bits) +0.4-3.5% at 4096x2048 and no better at the
+// launch shapes taken together; the push's owned() tests only near a wall
+// line, one uniform branch for the interior's warps, -0.07 to -0.26 us at
+// 64x128, +0.11-0.22 at 128x128 and up to +3.3% at 4096x2048 in float32;
+// both together the fastest at every float32 launch shape (-0.04 to -0.41
+// us) but +2.2-3.6% at 4096x2048.
+//
 // Shapes: R, C >= 4 (the wrapper checks).
 //
 // Kernel 28 (thermal_halo_kernel, lbm_halo_thermal) is kernel 23's D2Q9
@@ -77,9 +98,11 @@
 // pallas_call at :411).
 //
 // Bound: device-memory bytes, per float32 step 144 B/cell with a D2Q9
-// temperature (18 planes in, 18 out), 112 B/cell with D2Q5 (14 and 14).
-// Left on the table: the ownership test of each push and the wall
-// branches in every thread.
+// temperature (18 planes in, 18 out), 112 B/cell with D2Q5 (14 and 14);
+// at the launch shapes 0.20-0.40 of it, the dependent launch's chain and
+// ramp, not the bytes.  Left on the table: the ownership test of each push
+// and the wall branches in every thread (the near-wall design above, at
+// one wave only: an instance picked by the grid's waves).
 
 #include <cuda_runtime.h>
 
@@ -99,8 +122,9 @@ struct Params {
 
 // The planes of (r, c) that a wall rule writes: f in bits 0-8, g in bits
 // 9-17 (D2Q9) or 9-13 (D2Q5).  The D2Q5 planes are D2Q9's first five.
-template <int QG, bool CAVITY>
-__device__ __forceinline__ unsigned owned(int64_t r, int64_t c, int64_t R, int64_t C) {
+// I, the index type: int64_t in kernels 28 and 36, thermal_kernel's I in 23 and 24.
+template <int QG, bool CAVITY, typename I>
+__device__ __forceinline__ unsigned owned(I r, I c, I R, I C) {
   unsigned f = 0, g = 0;
   if (r == 0) { f |= lbm::PX; g |= QG == 9 ? lbm::PX : 1u << 1; }
   if (r == R - 1) { f |= lbm::MX; g |= QG == 9 ? lbm::MX : 1u << 3; }
@@ -165,9 +189,8 @@ __device__ __forceinline__ void collide(const T f[9], const T g[QG], const Param
 
 // Step 4's temperature values of the wall cell (r, c), each rule over the
 // last, in lbm_tpu's order: go[k] for the g planes its walls own.
-template <typename T, int QG, bool CAVITY>
-__device__ __forceinline__ void wall_rules(int64_t r, int64_t c, int64_t R, int64_t C,
-                                           const T gc[QG], T go[QG]) {
+template <typename T, int QG, bool CAVITY, typename I>
+__device__ __forceinline__ void wall_rules(I r, I c, I R, I C, const T gc[QG], T go[QG]) {
   if constexpr (CAVITY) {
     if constexpr (QG == 9) {
 #pragma unroll
@@ -203,9 +226,9 @@ __device__ __forceinline__ void wall_rules(int64_t r, int64_t c, int64_t R, int6
 
 // The wall cell's writes: f_new[k] = f_coll[opp(k)] and g_new[k] = go[k] for
 // the planes its walls own (mask m), into the planes at `dst`.
-template <typename T, int QG>
+template <typename T, int QG, typename I>
 __device__ __forceinline__ void write_walls(unsigned m, const T fc[9], const T go[QG], T* dst,
-                                            int64_t plane) {
+                                            I plane) {
 #pragma unroll
   for (int k = 1; k < 9; ++k)
     if (m & (1u << k)) dst[k * plane] = fc[lbm::opp(k)];
@@ -214,30 +237,46 @@ __device__ __forceinline__ void write_walls(unsigned m, const T fc[9], const T g
     if (m & (1u << (9 + k))) dst[(9 + k) * plane] = go[k];
 }
 
-template <typename T, int QG, bool CAVITY>
-__global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, int64_t R,
-                               int64_t C, Params<T> P) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
+// A one-period wrap in the kernel's index type (lbm::wrap's rule).
+template <typename I>
+__device__ __forceinline__ I wrap(I i, I n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
 
-  // 1-2. the macroscopics and both collisions
+// Kernels 23 and 24: one thread a cell, its index arithmetic (the cell's
+// row and column, the one-period wraps, the owned() tests, the plane
+// offsets) in I: int64_t as launched (chip_smoke.py's design "32-bit
+// indices" launches the int32_t instance where the state's offsets fit in
+// 31 bits).
+template <typename T, int QG, bool CAVITY, typename I>
+__global__ void thermal_kernel(const T* __restrict__ fin, T* __restrict__ fout, I R, I C,
+                               Params<T> P) {
+  const I n = R * C;
+  const I cell = static_cast<I>(blockIdx.x) * static_cast<I>(blockDim.x) +
+                 static_cast<I>(threadIdx.x);
+  if (cell >= n) return;
+  const I r = cell / C;
+  const I c = cell - r * C;
+  lbm::grid_wait();
+
+  // 1-2. the macroscopics and both collisions; the next step's launch is
+  // released once this cell's loads are issued
   T f[9], g[QG];
-  lbm::load9(fin, n, cell, f);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) f[k] = fin[k * n + cell];
 #pragma unroll
   for (int k = 0; k < QG; ++k) g[k] = fin[(9 + k) * n + cell];
+  lbm::grid_release();
   T fc[9], gc[QG];
   collide<T, QG>(f, g, P, fc, gc);
 
   // 3. the periodic push, less the entries a wall rule writes
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const int64_t rd = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
+    const I rd = wrap<I>(r + lbm::cx(k), R);
+    const I cd = wrap<I>(c + lbm::cy(k), C);
     const unsigned m = owned<QG, CAVITY>(rd, cd, R, C);
-    const int64_t dst = rd * C + cd;
+    const I dst = rd * C + cd;
     if (!(m & (1u << k))) fout[k * n + dst] = fc[k];
     if (k < QG && !(m & (1u << (9 + k)))) fout[(9 + k) * n + dst] = gc[k];
   }
@@ -343,17 +382,17 @@ __global__ void thermal_halo2d_kernel(const __grid_constant__ Shards<T> shards,
   for (int k = 0; k < 9; ++k) {
     const int64_t pd = p + lbm::cx(k), qd = q + lbm::cy(k);
     if (!out.has(pd, qd)) continue;
-    const unsigned m = L.edge ? owned<QG, false>(r + lbm::cx(k), 0, R, C) : 0u;
+    const unsigned m = L.edge ? owned<QG, false>(r + lbm::cx(k), int64_t{0}, R, C) : 0u;
     T* dst = out.at(pd, qd);
     if (!(m & (1u << k))) dst[k * out.plane] = fc[k];
     if (!(m & (1u << (9 + k)))) dst[(9 + k) * out.plane] = gc[k];
   }
 
   if (!L.edge || !out.has(p, q)) return;
-  const unsigned m = owned<QG, false>(r, 0, R, C);
+  const unsigned m = owned<QG, false>(r, int64_t{0}, R, C);
   if (!m) return;
   T go[QG];
-  wall_rules<T, QG, false>(r, 0, R, C, gc, go);
+  wall_rules<T, QG, false>(r, int64_t{0}, R, C, gc, go);
   write_walls<T, QG>(m, fc, go, out.at(p, q), out.plane);
 }
 
@@ -401,17 +440,17 @@ int launch_halo2d(const long long* geoms, int n, const double* d, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 23 or 24 through lbm::launch_cells: blocks sized to the card, a
+// programmatic dependent launch where the grid fits it in one wave, each
+// instance with its own occupancy in launch_cells' cache; 64-bit indices.
 template <typename T, int QG, bool CAVITY>
 int launch(const void* fin, void* fout, long long R, long long C, const double* d,
            cudaStream_t stream) {
   if (R < 4 || C < 4) return static_cast<int>(cudaErrorInvalidValue);
-  const Params<T> P = params<T>(d);
   const int64_t n = static_cast<int64_t>(R) * C;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  thermal_kernel<T, QG, CAVITY><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), R, C, P);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lbm::launch_cells<thermal_kernel<T, QG, CAVITY, int64_t>>(
+      n, stream, static_cast<const T*>(fin), static_cast<T*>(fout), static_cast<int64_t>(R),
+      static_cast<int64_t>(C), params<T>(d)));
 }
 
 template <int QG, bool CAVITY>
@@ -470,3 +509,7 @@ extern "C" int lbm_halo2d_thermal(const long long* geoms, const double* consts, 
   return is_f64 ? launch_halo2d<double>(geoms, n_shards, consts, s)
                 : launch_halo2d<float>(geoms, n_shards, consts, s);
 }
+
+// The programmatic dependent launches that lbm::launch_grid has made in this
+// process, every kernel of the library counted (d2q9.cuh).
+extern "C" long long lbm_dependent_launches() { return lbm::dependent_launches.load(); }

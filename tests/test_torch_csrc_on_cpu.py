@@ -1,4 +1,4 @@
-"""Kernels 12, 36, 33, 4, 27, 34, 2, 9, 32 and 35 (csrc/rk_cg.cu, thermal.cu,
+"""Kernels 12, 36, 33, 4, 27, 34, 2, 9, 32, 35, 37, 14, 23 and 24 (csrc/rk_cg.cu, thermal.cu,
 d3q19.cu, channel_kbc.cu, collide_stream_bgk.cu, collide_stream_kbc.cu,
 channel_bgk.cu, channel_variant.cu and shan_chen.cu) compiled for the CPU
 with g++ through a stand-in for the CUDA runtime: a block's threads run as
@@ -1150,3 +1150,83 @@ def test_kernel_14_designs_give_the_tree_bits(cpu_kernels_32_35, k37_k14_design_
         other = _k14_steps(lib, monkeypatch, f, "sc guo")
         assert torch.equal(tree[0], other[0]) and tree[2] == 3
         assert other[1] == 3 and other[2] == (0 if design == "without PDL" else 3)
+
+
+THERMAL_NAMES = ["thermal_rb_q9", "thermal_rb_q5", "heated_cavity_q9", "heated_cavity_q5"]
+
+
+def _thermal_steps(lib, monkeypatch, S, name, steps=3):
+    """``steps`` steps of the thermal instance ``name`` (kernel 23 or 24 in a
+    scalar lattice, chip_smoke.py's ``thermal_kernel``) through
+    make_thermal_fused_step or make_heated_cavity_fused_step, its kernel
+    bound to the CPU build ``lib``, into NaN-filled outputs: (the state, its
+    launches, the dependent ones among them)."""
+    make, _, kernel, q = _chip_smoke().thermal_kernel(name)
+    R, C = S.shape[-2:]
+    with monkeypatch.context() as m:
+        _bind(m, lib, kernel)
+        m.setattr(thermal, "resolve_fused", lambda f: True)
+        step = make(R, C, dtype=S.dtype, scalar_lattice=f"d2q{q}", **THERMAL)
+        _nan_buffers(m)
+        before, pdl = kernel.launches, lib.shim_pdl_count()
+        for _ in range(steps):
+            S = step(S)
+        return S, kernel.launches - before, lib.shim_pdl_count() - pdl
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,C,one_wave", [(16, 24, True), (37, 29, False), (4, 4, True)])
+@pytest.mark.parametrize("name", THERMAL_NAMES)
+def test_kernels_23_24_source_match_plain(cpu_kernels, monkeypatch, dtype, R, C, one_wave, name):
+    """csrc/thermal.cu's kernels 23 (Rayleigh-Benard) and 24 (heated cavity)
+    in both scalar lattices, launched as kernels 2 and 9 are (blocks sized to
+    the stand-in's 4 SMs of 2 resident blocks each: 6 blocks of 64 threads
+    at 16x24 and 1 at 4x4, one wave, so programmatic dependent launches; 9
+    of 128 at 37x29, plain launches), 3 steps into NaN-filled outputs: the
+    plain step within TOL."""
+    smoke = _chip_smoke()
+    _, plain, _, q = smoke.thermal_kernel(name)
+    S = smoke.thermal_state(q, R, C, dtype, "cpu", seed=R * C + q)
+    want = S
+    for _ in range(3):
+        want = plain(want, **THERMAL)
+    got, launches, dependent = _thermal_steps(cpu_kernels, monkeypatch, S, name)
+    assert launches == 3 and dependent == (3 if one_wave else 0)
+    assert not got.isnan().any() and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.fixture(scope="module")
+def k23_k24_design_libs(tmp_path_factory):
+    """chip_smoke.py's K23_K24_DESIGNS, each built for the CPU with
+    csrc/thermal.cu, the builds side by side: {label: library}."""
+    smoke = _chip_smoke()
+    sources = smoke.design_sources(CSRC, smoke.K23_K24_DESIGNS)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = {label: pool.submit(_cpu_library, tmp_path_factory.mktemp("design_23_24"),
+                                    ("thermal",), files)
+                 for label, files in sources.items()}
+    return {label: lib.result() for label, lib in built.items()}
+
+
+@pytest.mark.parametrize("design", ["without PDL", "256-thread blocks", "32-bit indices",
+                                    "release at block exit", "near walls only",
+                                    "near walls only, 32-bit indices",
+                                    "near walls only, release at block exit"])
+def test_kernels_23_24_designs_give_the_tree_bits(cpu_kernels, k23_k24_design_libs,
+                                                  monkeypatch, design):
+    """chip_smoke.py's other designs of kernels 23 and 24 (K23_K24_DESIGNS,
+    edits of csrc/thermal.cu and d2q9.cuh that ``k23_k24_times`` times
+    against the tree) built for the CPU: the tree's bits over 3 steps, every
+    instance, at 16x24 (one wave: dependent launches but "without PDL") in
+    float64 and at 37x29 (plain launches of the tree) in float32."""
+    lib = k23_k24_design_libs[design]
+    smoke = _chip_smoke()
+    for name in THERMAL_NAMES:
+        q = smoke.thermal_kernel(name)[3]
+        for dtype, (R, C) in ((torch.float64, (16, 24)), (torch.float32, (37, 29))):
+            S = smoke.thermal_state(q, R, C, dtype, "cpu", seed=R + C + q)
+            tree = _thermal_steps(cpu_kernels, monkeypatch, S, name)
+            other = _thermal_steps(lib, monkeypatch, S, name)
+            assert torch.equal(tree[0], other[0]) and other[1] == 3
+            if R == 16:
+                assert tree[2] == 3 and other[2] == (0 if design == "without PDL" else 3)

@@ -1120,12 +1120,14 @@ def test_cavity_kernel_matches_plain(cuda, dtype, L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lattice", ["d2q9", "d2q5"])
 @pytest.mark.parametrize("kind", ["rb", "cavity"])
-@pytest.mark.parametrize("dtype,shape", [(torch.float64, (64, 128)), (torch.float64, (33, 17)),
-                                         (torch.float64, (4, 5)), (torch.float32, (128, 128))])
+@pytest.mark.parametrize("dtype,shape", [(torch.float64, (64, 128)), (torch.float32, (64, 128)),
+                                         (torch.float64, (128, 128)), (torch.float32, (128, 128)),
+                                         (torch.float64, (33, 17)), (torch.float64, (4, 5))])
 def test_thermal_kernels_match_plain(cuda, kind, lattice, dtype, shape):
     """Kernels 23 (rb) and 24 (cavity) in both scalar lattices, 10 steps
     from a noisy buoyant state, against their plain versions (bit-identical,
-    -fmad=false), twice."""
+    -fmad=false), twice; at the launch shapes of the thermal gates (64x128
+    and 128x128) in both types, programmatic dependent launches."""
     from lbm_tpu_torch.kernels import thermal
 
     R, C = shape
@@ -1145,6 +1147,46 @@ def test_thermal_kernels_match_plain(cuda, kind, lattice, dtype, shape):
         want = plain(want, **THERMAL)
     assert torch.equal(got, again) and got.shape == (9 + q, R, C)
     assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lattice", ["d2q9", "d2q5"])
+@pytest.mark.parametrize("kind", ["rb", "cavity"])
+def test_thermal_kernels_past_31_bit_offsets(cuda, kind, lattice):
+    """Kernels 23 and 24 on a float32 state of (9 + q) x R x 4096 entries,
+    just past 2^31 (8.6 GB a buffer): the 64-bit instance.  One step; its
+    first and last 7 rows against the plain step of the state's first and
+    last 8 rows (each strip's rows hold their walls, its columns the
+    grid's: a row's step reads only its neighbours, and the strip's own
+    wall on its inner row writes that row alone)."""
+    from lbm_tpu_torch.core import lattice as lat
+    from lbm_tpu_torch.kernels import thermal
+
+    q = thermal.scalar_planes(lattice)
+    C, h = 4096, 8
+    R = (2 ** 31 - 1) // ((9 + q) * C) + 1
+    assert (9 + q) * R * C > 2 ** 31 - 1
+    make, plain, kernel = {
+        "rb": (thermal.make_thermal_fused_step, thermal.plain_rb_step, thermal.THERMAL[q]),
+        "cavity": (thermal.make_heated_cavity_fused_step, thermal.plain_heated_cavity_step,
+                   thermal.HEATED_CAVITY[q])}[kind]
+    gen = torch.Generator(device=cuda).manual_seed(R + q)
+    S = torch.empty((9 + q, R, C), dtype=torch.float32, device=cuda)
+    w = list(lat.W) + list(lat.W if q == 9 else lat.W5)
+    theta = torch.rand((R, C), generator=gen, device=cuda) - 0.5
+    for k in range(9 + q):  # noisy populations, a plane at a time
+        S[k].uniform_(0.97, 1.03, generator=gen).mul_(float(w[k]))
+        if k >= 9:
+            S[k].mul_(theta)
+    before = kernel.launches
+    got = make(R, C, dtype=torch.float32, scalar_lattice=lattice, **THERMAL)(S)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 1
+    head = plain(S[:, :h].contiguous(), **THERMAL)[:, :h - 1]
+    tail = plain(S[:, R - h:].contiguous(), **THERMAL)[:, 1:]
+    del S
+    for part, want in ((got[:, :h - 1], head), (got[:, R - h + 1:], tail)):
+        assert part.isfinite().all() and (part - want).abs().max().item() <= TOL[torch.float32]
 
 
 @pytest.mark.cuda
