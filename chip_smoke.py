@@ -44,6 +44,11 @@
                                          # their other designs (and DIR's, and 28
                                          # against DIR's), held to the same bits, with
                                          # their loss (k23_k24_times), JSON line
+    python3 chip_smoke.py --k17-k30 [--parent DIR]
+                                         # build, then only kernels 17 and 30 against
+                                         # their other designs (and DIR's), held to
+                                         # the same bits, with their loss
+                                         # (k17_k30_times), JSON line
 
 Builds the CUDA kernels from lbm_tpu_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version on the card, drives the port's main path
@@ -200,7 +205,9 @@ with a nonzero exit code):
      per step), cylinder_flow at its defaults in float64 (both weight
      pairings) and rectangle_sedimentation at its defaults in float64, each
      on the card against the CPU at 1e-12, rectangle_sedimentation in
-     float32 for 20k steps with tests/test_sedimentation.py's invariants,
+     float32 for 20k steps with tests/test_sedimentation.py's invariants
+     (both runs one kernel-17 launch a step, a dependent one where phase 2
+     finds the grid in one wave),
      and the cylinder_flow (--markers) and rectangle_sedimentation CLIs
      (the CLIs run in one subprocess, each as ``python -m
      lbm_tpu_torch.run`` runs it, after the timed runs and beside the CPU
@@ -236,7 +243,8 @@ with a nonzero exit code):
      shards of the card): the periodic BGK at 4096x2048 with substeps
      "auto", kernel 27's other collisions at 1024x512, rayleigh_benard's
      64x128, the MRT-CG and CSF Rayleigh-Taylor 256x128 and the RK RT
-     1024x256, each bit for bit its single-device kernel; the plain
+     1024x256, each bit for bit its single-device kernel (27 and 30 one
+     launch a call, counted, and no exchange copy); the plain
      sharded channel against horizontal_poiseuille at 24x24 float64;
      kernels 31-34 (``K31_34_PATH``, ``k31_34_path``, through
      kernels/sharded.py and kernels/sharded2d.py):
@@ -328,8 +336,13 @@ with a nonzero exit code):
      (64x128, 128x128) and at 4096x2048, both types, with each float32
      launch shape's bound and loss (``K23_K24_DESIGNS`` only under
      --k23-k24), with --parent against the parent tree's (and kernel 28 at
-     64x128 on 8 shards) in turns, bit for bit (``k23_k24_times``); and
-     the table of every
+     64x128 on 8 shards) in turns, bit for bit (``k23_k24_times``);
+     kernel 17 at rectangle_sedimentation's 256x320 and at 4096x2048 and
+     kernel 30 (8 shards, one step a call) at rk_rayleigh_taylor's 1024x256
+     and at 4096x2048, both types, with each float32 launch shape's bound
+     and loss (``K17_DESIGNS`` and ``K30_DESIGNS`` only under --k17-k30),
+     with --parent against the parent tree's in turns, bit for bit
+     (``k17_k30_times``); and the table of every
      kernel left at the shape its phase-5 launches run (``LAUNCH_SHAPES``,
      ``launch_shape_times``: us a launch under CUDA graphs of 100, its bound,
      its phase-5 launches and launches x (time - bound), ranked).
@@ -879,6 +892,26 @@ def sediment_state(R, C, dtype, device, seed):
     rng = np.random.default_rng(seed)
     return (S * torch.as_tensor(rng.uniform(0.97, 1.03, S.shape), dtype=dtype,
                                 device=device)).contiguous()
+
+
+def sediment_describe(n, is_f64) -> list:
+    """Kernel 17's instance of type ``is_f64`` launched over ``n`` cells as
+    the card reports it (lbm_sediment_describe): registers, local bytes a
+    thread, threads a block, resident blocks per SM, blocks, 1 where the
+    grid fits the card in one wave (a dependent launch), and its index bits;
+    raises on a spill, an error or no resident block."""
+    import ctypes
+
+    from lbm_tpu_torch.kernels import _build
+
+    fn = _build.library().lbm_sediment_describe
+    fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    rc = fn(n, is_f64, out)
+    if rc != 0 or out[1] != 0 or out[3] < 1:
+        raise AssertionError(f"kernel 17 (float64 {bool(is_f64)}, {n} cells): cudaError_t "
+                             f"{rc}, {out[1]} local bytes, {out[3]} blocks per SM")
+    return list(out)
 
 
 def cylinder_case(R, C, dtype, device, ib, seed):
@@ -1724,10 +1757,10 @@ def run_sharded_cases(table, dev) -> list:
 def drive_sharded(cases, wall, counted) -> None:
     """Run each case of ``run_sharded_cases`` through shard_state, its step
     and gather, timed on the host into ``wall``; each must be finite and
-    bit for bit its single-device kernel's result, and kernels 27, 34 and 37
-    (families "k27 ...", "k34 ..." and "rk" on an (nx, ny) mesh) launch
-    once a call for every MAX_SHARDS shards of the card (``counted``: the
-    kernel objects by name) and make no exchange copy."""
+    bit for bit its single-device kernel's result, and kernels 27, 34, 30
+    and 37 (families "k27 ...", "k34 ..." and "rk" on row shards or an (nx,
+    ny) mesh) launch once a call for every MAX_SHARDS shards of the card
+    (``counted``: the kernel objects by name) and make no exchange copy."""
     import torch
 
     from lbm_tpu_torch.parallel import halo as ph
@@ -1738,8 +1771,8 @@ def drive_sharded(cases, wall, counted) -> None:
         if family.startswith(("k27 ", "k34 ")):
             kind = family[4:].split()[0]
             kernel = counted[f"halo_{kind}" if family.startswith("k27 ") else f"halo2d_{kind}"]
-        elif family == "rk" and isinstance(n, tuple):
-            kernel = counted["halo2d_rk"]
+        elif family == "rk":
+            kernel = counted["halo2d_rk" if isinstance(n, tuple) else "halo_rk"]
         if kernel is not None:
             before = kernel.launches
         copies, copy_to = [], ph.copy_to  # the exchange copies of the run
@@ -2789,14 +2822,15 @@ def build_parent(parent: Path, units=PARENT_UNITS) -> object:
 
 def engine_kernels() -> list:
     """The kernel objects of the MRT-CG units (6-8, 29, 31, 38, 39) and of
-    kernel 12's (12, 30, 37)."""
+    kernel 12's (12, 37; kernel 30's wrapper takes a batch of shards, which
+    a parent tree's lbm_halo_rk may not)."""
     from lbm_tpu_torch.kernels import mrtcg, rk
     from lbm_tpu_torch.kernels import sharded as ksh
     from lbm_tpu_torch.kernels import sharded2d as k2d
 
     return [mrtcg.MRTCG_REDUCED, mrtcg.MRTCG_SPLIT, mrtcg.MRTCG_FULL,
             mrtcg.MRTCG_REDUCED_LANES, ksh.HALO_MRTCG, ksh.HALO_MRTCG_FULL,
-            k2d.HALO2D_MRTCG_FULL, rk.RK_CG, ksh.HALO_RK, k2d.HALO2D_RK]
+            k2d.HALO2D_MRTCG_FULL, rk.RK_CG, k2d.HALO2D_RK]
 
 
 def bind_kernels(kernels, lib) -> None:
@@ -4182,6 +4216,284 @@ def k23_k24_times(dev, card: str, parent=None, designs=False) -> dict:
     return out
 
 
+# kernel 17's other designs (edits of csrc/, timed against the tree in
+# ``k17_k30_times``): plain launches of the sized blocks; 128-thread blocks
+# in float32 too (640 blocks at 256x320 where the tree's 320 of 256 threads
+# leave 56 of 132 SMs a third block); blocks sized from 256 threads in
+# float64 too (the tree's float64 blocks take at most 128); column C-2's velocity and scalar
+# handed to column C-1 by ``__shfl_up_sync`` from the lane before, loaded
+# only where cell C-1 of the row is lane 0 of its warp; the push's owned()
+# mask of each destination from the wall flags of the 3 destination rows
+# and the 3 destination columns, computed once, in place of 9 calls; the
+# int64_t instance at every size (the tree takes int32_t where the offsets
+# fit); a wall cell's neighbour loads issued after its own collisions, as
+# the first design did (a second round trip for the edge lanes)
+_K17_SHUFFLE = [
+    ("  const bool near = r == 0 || outlet;\n",
+     "  const unsigned wl = threadIdx.x & 31u;\n"
+     "  const bool near = r == 0 || (outlet && wl == 0);\n"),
+    ("  // 2. the zero-gradient outflows on g (row 0 first, then column C-1), and\n",
+     "  // the lane before's velocity and scalar (column C-2's where this is C-1)\n"
+     "  const I w0 = cell - static_cast<I>(wl);\n"
+     "  const unsigned live = n - w0 >= 32 ? 0xffffffffu : (1u << (n - w0)) - 1u;\n"
+     "  const T sux = __shfl_up_sync(live, ux, 1), suy = __shfl_up_sync(live, uy, 1);\n"
+     "  T sg[9];\n"
+     "#pragma unroll\n"
+     "  for (int k = 0; k < 9; ++k) sg[k] = __shfl_up_sync(live, gc[k], 1);\n"
+     "  // 2. the zero-gradient outflows on g (row 0 first, then column C-1), and\n"),
+    ("  T ux2 = T(0), uy2 = T(0);\n  if (near) {\n",
+     "  T ux2 = sux, uy2 = suy;\n"
+     "  if (outlet && lane && wl != 0) {\n"
+     "#pragma unroll\n"
+     "    for (int k = 0; k < 9; ++k) gc[k] = sg[k];\n"
+     "  }\n"
+     "  if (near) {\n"),
+    ("    ux2 = vx;\n    uy2 = vy;\n    if (r == 0 && outlet) {",
+     "    if (wl == 0) {\n      ux2 = vx;\n      uy2 = vy;\n    }\n"
+     "    if (r == 0 && outlet && wl == 0) {")]
+_K17_OWNED_ONCE = [
+    ("// Kernel 17: one thread a cell, its index arithmetic in I.\n",
+     "// owned() of a cell from its row's flags rb (1 lane, 2 row 0, 4 row R-1,\n"
+     "// 8 the side walls' rows, 16 row R23) and its column's cb (1 column 0,\n"
+     "// 2 column C-1, 4 C28, 8 C38, 16 C28..C38).\n"
+     "template <typename T, typename I>\n"
+     "__device__ __forceinline__ unsigned row_flags(I r, I R, const Params<T>& P) {\n"
+     "  return (r >= 1 && r <= R - 2 ? 1u : 0u) | (r == 0 ? 2u : 0u) | (r == R - 1 ? 4u : 0u) |\n"
+     "         (r >= P.R23 + 1 ? 8u : 0u) | (r == P.R23 ? 16u : 0u);\n"
+     "}\n"
+     "template <typename T, typename I>\n"
+     "__device__ __forceinline__ unsigned col_flags(I c, I C, const Params<T>& P) {\n"
+     "  return (c == 0 ? 1u : 0u) | (c == C - 1 ? 2u : 0u) | (c == P.C28 ? 4u : 0u) |\n"
+     "         (c == P.C38 ? 8u : 0u) | (c >= P.C28 && c <= P.C38 ? 16u : 0u);\n"
+     "}\n"
+     "__device__ __forceinline__ unsigned owned_by(unsigned rb, unsigned cb) {\n"
+     "  const bool lane = rb & 1u, walls = rb & 8u, ceil = (rb & 16u) && (cb & 16u);\n"
+     "  unsigned m = 0, g = 0;\n"
+     "  if ((cb & 1u) && lane) m |= 0x1FEu;\n"
+     "  if (cb & 2u) m |= 0x1FEu;\n"
+     "  if (rb & 2u) m |= (1u << 1) | (1u << 5) | (1u << 8);\n"
+     "  if (rb & 4u) m |= (1u << 3) | (1u << 7) | (1u << 6);\n"
+     "  if (walls && lane && (cb & 4u)) m |= (1u << 8) | (1u << 4) | (1u << 7);\n"
+     "  if (ceil) m |= (1u << 6) | (1u << 3) | (1u << 7);\n"
+     "  if (walls && lane && (cb & 8u)) m |= (1u << 5) | (1u << 2) | (1u << 6);\n"
+     "  if ((cb & 1u) && lane) g |= 0x1FEu;\n"
+     "  if (walls && (cb & 4u)) g |= (1u << 8) | (1u << 4) | (1u << 7);\n"
+     "  if (ceil) g |= (1u << 6) | (1u << 3) | (1u << 7);\n"
+     "  if (walls && lane && (cb & 8u)) g |= (1u << 5) | (1u << 2) | (1u << 6);\n"
+     "  if (rb & 4u) g |= (1u << 3) | (1u << 7) | (1u << 6);\n"
+     "  return m | (g << 9);\n"
+     "}\n\n"
+     "// Kernel 17: one thread a cell, its index arithmetic in I.\n"),
+    ("  // 3. the periodic push, less the entries a wall rule writes\n",
+     "  // 3. the periodic push, less the entries a wall rule writes\n"
+     "  unsigned rbs[3], cbs[3];\n"
+     "#pragma unroll\n"
+     "  for (int d = 0; d < 3; ++d) {\n"
+     "    rbs[d] = row_flags(wrap<I>(r + d - 1, R), R, P);\n"
+     "    cbs[d] = col_flags(wrap<I>(c + d - 1, C), C, P);\n"
+     "  }\n"),
+    ("    const unsigned m = owned(rd, cd, R, C, P);\n",
+     "    const unsigned m = owned_by(rbs[1 + lbm::cx(k)], cbs[1 + lbm::cy(k)]);\n")]
+_K17_64_BIT = [("  if (fits32(n))\n", "  if (false)\n")]
+_K17_LOADS_AFTER = [
+    ("  load9(fin + 9 * n, n, cell, g);\n  if (near) {\n    load9(fin, n, nb, fn);\n"
+     "    load9(fin + 9 * n, n, nb, gn);\n  }\n  lbm::grid_release();\n",
+     "  load9(fin + 9 * n, n, cell, g);\n  lbm::grid_release();\n"),
+    ("  if (near) {\n    T rho2, vx, vy;\n",
+     "  if (near) {\n    load9(fin, n, nb, fn);\n    load9(fin + 9 * n, n, nb, gn);\n"
+     "    T rho2, vx, vy;\n")]
+K17_DESIGNS = {
+    "without PDL": K2_K9_DESIGNS["without PDL"],
+    "128-thread blocks": {"d2q9.cuh": [
+        ("inline int block_threads(int64_t n, int sms) {\n",
+         "inline int block_threads(int64_t n, int sms) {\n  if (n >= 0) return 128;\n")]},
+    "256-thread blocks in float64": {"sediment.cu": [
+        ("constexpr int KERNEL17_MAX_THREADS = sizeof(T) == 8 ? 128 : 256;",
+         "constexpr int KERNEL17_MAX_THREADS = 256;")]},
+    "outlet by shuffle": {"sediment.cu": _K17_SHUFFLE},
+    "owned mask once": {"sediment.cu": _K17_OWNED_ONCE},
+    "64-bit indices": {"sediment.cu": _K17_64_BIT},
+    "neighbour loads after the collisions": {"sediment.cu": _K17_LOADS_AFTER}}
+# kernel 30's other designs, timed against the tree in ``k17_k30_times``:
+# the tree's kernel fed by the exchange's copies (``exchange_copies_kept``,
+# no source edit: the parent's copies with the tree's one launch); the
+# tree's kernel launched a shard at a time (``launch_per_shard``, no source
+# edit: the parent's 8 launches a call with the tree's reads in place); the
+# masked instance for every shard in float32 too, which gives the mask-free
+# one's bits on interior shards (the tree branches per block in float32);
+# float32's registers left uncapped (80, three blocks an SM; the tree asks
+# for five, 48 registers)
+K30_DESIGNS = {
+    "exchange copies kept": {},
+    "launch per shard": {},
+    "masked instance in float32 too": {"rk_cg.cu": [
+        ("  const IO io{L.in, L.out, L.off};\n  if (L.edge || sizeof(T) == 8)\n",
+         "  const IO io{L.in, L.out, L.off};\n  if (true)\n")]},
+    "no register cap in float32": {"rk_cg.cu": [
+        ("constexpr int KERNEL30_MIN_BLOCKS = sizeof(T) == 8 ? 3 : 5;",
+         "constexpr int KERNEL30_MIN_BLOCKS = sizeof(T) == 8 ? 3 : 1;")]}}
+# kernel 17's timed grids, with its launches at the launch shape in phase 5
+# (the float32 gate's 20,000 steps and the float64 scene's 500); kernel 30's
+# cases (grid, shards), with its phase-5 calls at the launch shape (the
+# sharded rk_rayleigh_taylor run, one step a call)
+K17_TIMES = ((256, 320), BIG)
+K17_LAUNCHES = 20500
+K30_TIMES = (((1024, 256), 8), (BIG, 8))
+K30_CALLS = 1000
+
+
+def build_k30_designs() -> dict:
+    """K30_DESIGNS' source edits built for the card with csrc/rk_cg.cu:
+    {label: library}."""
+    from lbm_tpu_torch.kernels import _build
+
+    k30 = {label: files for label, files in K30_DESIGNS.items() if files}
+    return build_designs(design_sources(_build.CSRC, k30), ("rk_cg",), "kernel 30",
+                         mark="rk_halo_shards")
+
+
+def load_parent_k30(parent: Path):
+    """The parent tree's kernel 30 with its own wrappers (the copy of
+    ``parent_package``: its ``make_sharded_rk_step``, whatever the signature
+    of its ``lbm_halo_rk``), its rk_cg.cu built by ``build_parent``.
+    Returns the copy's kernels.sharded."""
+    import importlib
+
+    parent_package(parent)
+    ksh_p = importlib.import_module("lbm_tpu_torch_parent.kernels.sharded")
+    bind_kernels([ksh_p.HALO_RK], build_parent(parent, ("rk_cg",)))
+    return ksh_p
+
+
+def k17_k30_times(dev, card: str, parent=None, designs=False) -> dict:
+    """Kernel 17 (rectangle_sedimentation's physics, K17_TIMES' grids) and
+    kernel 30 (RK on row shards, K30_TIMES' cases, one step a call) in both
+    types: us per call under CUDA graphs (of 100 calls at the launch shapes,
+    10 at 4096x2048; kernel 17 through ``design_times``, median of 5 at its
+    launch shape), in turns, of this tree's step, with ``designs`` also
+    ``K17_DESIGNS`` and ``K30_DESIGNS`` and with ``parent`` the parent
+    tree's step (kernel 17 bound to DIR's build; kernel 30 DIR's own
+    wrappers, ``load_parent_k30``).  Every variant must give the same bits
+    (the parent's, where there is one) over 4 calls: it raises where they
+    differ.  Beside each kernel-30 case the launches a call of this tree's
+    step and the call's bound (``sharded_bound``); at each float32 launch
+    shape the bound and each variant's loss (kernel 17: K17_LAUNCHES x (us
+    - bound); kernel 30: K30_CALLS x (us a call - bound a call)).  Keys
+    (kernel, case, dtype) -> {variant: us}."""
+    import torch
+
+    from lbm_tpu_torch.kernels import _build, sediment
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import mesh as pm
+    from lbm_tpu_torch.scenes.obstacles import sediment_initial_state
+
+    f32, cpu = torch.float32, torch.device("cpu")
+    libs = build_k30_designs() if designs else {}
+
+    def make17(R, C, dtype):
+        kw = sediment_kwargs(R, C)
+        return (sediment.make_sediment_fused_step(R, C, dtype=dtype, **kw),
+                sediment_state(R, C, dtype, dev, seed=R + C + 17))
+
+    cases = []
+    for (R, C), dtype in ((s, dt) for s in K17_TIMES for dt in (f32, torch.float64)):
+        small = R * C < 1 << 20
+        cases.append(DesignCase(17, "sediment", sediment.SEDIMENT,
+                                f"rectangle_sedimentation {R}x{C}", dtype,
+                                functools.partial(make17, R, C, dtype),
+                                100 if small else 10, rounds=5 if small else 3))
+    out = design_times(dev, card, cases, K17_DESIGNS, "kernel 17", parent, designs)
+    ops17 = ops_per_cell(lambda x: sediment.plain_sediment_step(
+        x, **dict(SED, R23=40, C28=20, C38=30, inlet_rows=16)),
+        sediment_initial_state(64, 64, 0.02, 1e-3, 16, cpu, f32))
+    R, C = K17_TIMES[0]
+    b_us = bound(144, ops17, R * C, "float32")[0] * 1e3
+    med = out[17, f"rectangle_sedimentation {R}x{C}", "float32"]
+    loss = {v: K17_LAUNCHES * (us - b_us) * 1e-6 for v, us in med.items() if v != "change"}
+    med.update(bound_us=b_us, fraction=b_us / med["new"], launches=K17_LAUNCHES, loss_s=loss)
+    log(f"[6] {card}; kernel 17 rectangle_sedimentation {R}x{C} float32: bound {b_us!r} us a "
+        f"launch ({b_us / med['new']!r} of new), {K17_LAUNCHES} phase-5 launches, loss s: "
+        + ", ".join(f"{v} {s!r}" for v, s in loss.items()))
+
+    ksh_p = load_parent_k30(parent) if parent is not None else None
+    ops30 = plain_ops("rk")
+    for (R, C), n in K30_TIMES:
+        calls = 100 if R * C < 1 << 20 else 10
+        label = f"rk_rayleigh_taylor {R}x{C}, {n} shards" if (R, C) == (1024, 256) \
+            else f"{R}x{C}, {n} shards"
+        for dt in ("float32", "float64"):
+            dtype = getattr(torch, dt)
+            mesh = pm.make_mesh([dev] * n)
+            x = pm.shard_state(mesh, sharded_state("rk", (R, C), dtype, dev))
+
+            def build(module, mesh=mesh, dtype=dtype, R=R, C=C):
+                return module.make_sharded_rk_step(mesh, R, C, dtype=dtype, **RK)
+            steps = {"new": build(ksh)}
+            before = ksh.HALO_RK.launches
+            steps["new"](x)
+            torch.cuda.synchronize()
+            per_call = ksh.HALO_RK.launches - before
+            if designs:
+                with exchange_copies_kept():
+                    kept = build(ksh)
+
+                def exchanged(y, st=kept):
+                    with exchange_copies_kept():
+                        return st(y)
+
+                def per_shard(y, st=steps["new"]):
+                    with launch_per_shard():
+                        return st(y)
+                steps["exchange copies kept"] = exchanged
+                steps["launch per shard"] = per_shard
+                for v, lib in libs.items():
+                    if v not in K30_DESIGNS or (dt == "float64" and "float32" in v):
+                        continue
+
+                    def designed(y, lib=lib, st=steps["new"]):
+                        bind_kernels([ksh.HALO_RK], lib)
+                        try:
+                            return st(y)
+                        finally:
+                            bind_kernels([ksh.HALO_RK], None)
+                    steps[v] = designed
+            if ksh_p is not None:
+                steps = {"parent": build(ksh_p), **steps}
+            want = None
+            for v, st in steps.items():
+                y = x
+                for _ in range(4):
+                    y = st(y)
+                got = y.gather()
+                torch.cuda.synchronize()
+                if want is None:
+                    want = (v, got)
+                elif not torch.equal(got, want[1]):
+                    raise AssertionError(f"kernel 30 {label} {dt}: {v} differs from "
+                                         f"{want[0]}'s bits")
+            log(f"[6] kernel 30 {label} {dt}: {', '.join(steps)} bit for bit alike over 4 "
+                f"calls")
+            del want, got, y
+            med, runs = in_turns({v: (lambda st=st: graph_ms(st, x, calls) * 1e3)
+                                  for v, st in steps.items()})
+            if "parent" in med:
+                med["change"] = med["new"] / med["parent"] - 1.0
+            b_ms, by = sharded_bound("rk", (R, C), n, 1, 8 if dt == "float64" else 4, ops30)[:2]
+            med.update(launches_per_call=per_call, us_a_launch=med["new"] / per_call,
+                       bound=b_ms * 1e3, bound_by=by, fraction=b_ms * 1e3 / med["new"])
+            if dt == "float32" and (R, C) == (1024, 256):
+                med["loss_s"] = {v: K30_CALLS * (us - b_ms * 1e3) * 1e-6
+                                 for v, us in med.items()
+                                 if v in steps}
+            out[30, label, dt] = med
+            log(f"[6] {card}; kernel 30 {label}, 1 step a call, {dt} (us per call, CUDA graphs "
+                f"of {calls} calls, median of 3 in turns; the bound in us a call): "
+                + ", ".join(f"{v} {t!r}" for v, t in med.items()) + f" (runs {runs})")
+            del x, steps
+            torch.cuda.empty_cache()
+    return out
+
+
 # kernels 27 and 34's timed cases at 4096x2048, both types, every collision
 # of K34_KINDS: (kernel, shards or mesh, steps a call): the launch shape
 # (phase 5's periodic BGK runs, s = 8) and one step a call
@@ -4547,15 +4859,17 @@ K37_K14_DESIGNS = {
     "exchange copies kept": {},
     "launch per shard": {},
     "masked instance in float32 too": {"rk_cg.cu": [
-        ("  if (L.edge || sizeof(T) == 8)\n", "  if (true)\n")]},
+        ("  const IO io{L};\n  if (L.edge || sizeof(T) == 8)\n",
+         "  const IO io{L};\n  if (true)\n")]},
     "branch per block in float64 too": {"rk_cg.cu": [
-        ("  if (L.edge || sizeof(T) == 8)\n", "  if (L.edge)\n")]},
+        ("  const IO io{L};\n  if (L.edge || sizeof(T) == 8)\n",
+         "  const IO io{L};\n  if (L.edge)\n")]},
     "no register cap in float64": {"rk_cg.cu": [
-        ("__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)",
-         "__launch_bounds__(mc::THREADS)")]},
+        ("__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)\n    rk_cg_shards(",
+         "__launch_bounds__(mc::THREADS)\n    rk_cg_shards(")]},
     "five blocks an SM in float32": {"rk_cg.cu": [
-        ("__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)",
-         "__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 5)")]},
+        ("__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)\n    rk_cg_shards(",
+         "__launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 5)\n    rk_cg_shards(")]},
     "64-bit wraps": {"shan_chen.cu": [
         ("gr = wrap_window(r0 - 1 + i / WC, R), gc = wrap_window(c0 - 1 + i % WC, C);",
          "gr = wrap_any(r0 - 1 + i / WC, R), gc = wrap_any(c0 - 1 + i % WC, C);"),
@@ -5010,6 +5324,11 @@ def main(argv=None) -> int:
                          "parent's (and kernel 28 against the parent's), holding each to the "
                          "same bits, with each instance's loss against its bound "
                          "(k23_k24_times), print the table as a JSON line, and stop")
+    ap.add_argument("--k17-k30", action="store_true",
+                    help="build, then only time kernels 17 and 30 against their other designs "
+                         "(K17_DESIGNS, K30_DESIGNS) and, with --parent, the parent's, holding "
+                         "each to the same bits, with each launch shape's loss against its "
+                         "bound (k17_k30_times), print the table as a JSON line, and stop")
     ap.add_argument("--ibm-breakdown", action="store_true",
                     help="build kernels 16 and 19-21 whole and with parts left out, time "
                          "each and an empty one-block kernel under CUDA graphs "
@@ -5137,6 +5456,11 @@ def main(argv=None) -> int:
         print(json.dumps({"k23_k24": [[*key, us] for key, us in table.items()], "card": card}),
               flush=True)
         return 0
+    if args.k17_k30:
+        table = k17_k30_times(dev, card, parent, designs=True)
+        print(json.dumps({"k17_k30": [[*key, us] for key, us in table.items()], "card": card}),
+              flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -5165,7 +5489,8 @@ def main(argv=None) -> int:
             (35, ("shan_chen",), "16shan_chen_halo2d", 8),
             ("23-24", ("thermal",), "14thermal_kernel", 8),
             (36, ("thermal",), "21thermal_halo2d_kernel", 2),
-            (37, ("rk_cg",), "12rk_cg_shards", 2), (38, ("mrtcg_full",), "9Shard2DIO", 16),
+            (30, ("rk_cg",), "14rk_halo_shards", 2), (37, ("rk_cg",), "12rk_cg_shards", 2),
+            (38, ("mrtcg_full",), "9Shard2DIO", 16), (17, ("sediment",), "15sediment_kernel", 4),
             (39, ("mrtcg_reduced",), "6LaneIO", 8)):
         found = [e for u in units for e in ptxas_entries(build_log, f"{u}.cu") if mark in e[0]]
         for name, regs, spill in found:
@@ -5198,6 +5523,29 @@ def main(argv=None) -> int:
         log(f"[2] kernel 12 {'float64' if is_f64 else 'float32'}: {out[0]} registers; {out[1]} "
             f"local bytes a thread; {out[2]} B shared; {out[3]} threads; {out[4]} resident "
             f"blocks per SM")
+    # kernel 30's instances (one launch a call over a card's row shards) and
+    # kernel 17's at the grids phase 5 and phase 6 launch it on, as the card
+    # reports them
+    describe30 = _build.library().lbm_rk_halo_describe
+    describe30.argtypes, describe30.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    for is_f64 in (0, 1):
+        out = (ctypes.c_longlong * 5)()
+        rc = describe30(is_f64, out)
+        if rc != 0 or out[1] != 0 or out[4] < 1:
+            raise AssertionError(f"kernel 30 (float64 {bool(is_f64)}): cudaError_t {rc}, "
+                                 f"{out[1]} local bytes, {out[4]} blocks per SM")
+        log(f"[2] kernel 30 {'float64' if is_f64 else 'float32'}: {out[0]} registers; {out[1]} "
+            f"local bytes a thread; {out[2]} B shared; {out[3]} threads; {out[4]} resident "
+            f"blocks per SM")
+    k17_wave = {}
+    for R, C in K17_TIMES:
+        for is_f64 in (0, 1):
+            out = sediment_describe(R * C, is_f64)
+            k17_wave[R, C, is_f64] = bool(out[5])
+            log(f"[2] kernel 17 {R}x{C} {'float64' if is_f64 else 'float32'}: {out[0]} "
+                f"registers; {out[1]} local bytes a thread; {out[2]} threads a block; {out[3]} "
+                f"resident blocks per SM; {out[4]} blocks; one wave (a dependent launch): "
+                f"{bool(out[5])}; {out[6]}-bit indices")
     if args.engine_sweep:
         print(json.dumps({"engine_sweep": engine_sweep(dev, card, engine_rows),
                           "card": card}), flush=True)
@@ -6022,18 +6370,28 @@ def main(argv=None) -> int:
         cyl_wall[ref] = time.perf_counter() - t0
         if (k15.launches - before[0], k16.launches - before[1]) != (500, 500):
             raise AssertionError("cylinder_flow: not one launch of kernels 15 and 16 per step")
-    before = k17.launches
+    # kernel 17 launches through lbm::launch_cells: one launch a step, a
+    # dependent one exactly where the grid fits the card in one wave (phase 2)
+    k17_dependent = _build.library().lbm_dependent_launches
+    k17_dependent.argtypes, k17_dependent.restype = [], ctypes.c_longlong
+    before, pdl = k17.launches, k17_dependent()
     t0 = time.perf_counter()
     sed_card = obs.rectangle_sedimentation(device=dev, dtype=f64)
     torch.cuda.synchronize()
     sed_wall = time.perf_counter() - t0
-    if k17.launches - before != 500:
-        raise AssertionError("rectangle_sedimentation: not one kernel-17 launch per step")
+    want_pdl = 500 if k17_wave[256, 320, 1] else 0
+    if k17.launches - before != 500 or k17_dependent() - pdl != want_pdl:
+        raise AssertionError(f"rectangle_sedimentation float64: {k17.launches - before} "
+                             f"kernel-17 launches (not 500), {k17_dependent() - pdl} dependent "
+                             f"(not {want_pdl})")
+    log(f"[5] rectangle_sedimentation 256x320 float64 500 steps: 500 kernel-17 launches, "
+        f"{want_pdl} dependent")
 
     # rectangle_sedimentation at its defaults in float32 for 20k steps, with
     # tests/test_sedimentation.py's invariants at this geometry (inlet rows
     # 206..255, the rectangle at rows 105.. and cols 200..250)
-    before = k17.launches
+    before, pdl = k17.launches, k17_dependent()
+    want_pdl32 = 20000 if k17_wave[256, 320, 0] else 0
     t0 = time.perf_counter()
     res = obs.rectangle_sedimentation(T=20000, device=dev, dtype=f32)
     torch.cuda.synchronize()
@@ -6049,7 +6407,9 @@ def main(argv=None) -> int:
             (float(Cf[-50:, 1:20].mean() - Cf[:50, 1:20].mean()), 1e-12, 1.0),
         "u_y above the rectangle, rows 0..99 at col 225": (float(uy[:100, 225].mean()),
                                                           0.02, 1.0),
-        "kernel-17 launches": (k17.launches - before, 20000, 20000)})
+        "kernel-17 launches": (k17.launches - before, 20000, 20000),
+        "its dependent launches (all where the grid fits one wave)": (
+            k17_dependent() - pdl, want_pdl32, want_pdl32)})
     del res
 
     # the timed runs are over: the CLIs of every path run in their own
@@ -6694,6 +7054,9 @@ def main(argv=None) -> int:
     # kernels 23 and 24 at their launch shapes and at the big grid, with their
     # loss, against the parent tree's (and 28 too) where --parent names one
     k23_k24_tm = k23_k24_times(dev, card, parent)
+    # kernels 17 and 30 at their launch shapes and at the big grid, with their
+    # loss, against the parent tree's where --parent names one
+    k17_k30_tm = k17_k30_times(dev, card, parent)
 
     log(f"[6] nvidia-smi clocks.sm,power.draw,temperature.gpu: "
         f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -6886,7 +7249,8 @@ def main(argv=None) -> int:
     for k, name, tm in ((27, "halo_collide_stream", k27_k34_tm),
                         (34, "halo2d_collide_stream", k27_k34_tm),
                         (32, "halo_shan_chen", k32_k35_tm), (35, "halo2d_shan_chen", k32_k35_tm),
-                        (37, "halo2d_rk", k37_k14_tm), (14, "shan_chen", k37_k14_tm)):
+                        (37, "halo2d_rk", k37_k14_tm), (14, "shan_chen", k37_k14_tm),
+                        (17, "sediment", k17_k30_tm), (30, "halo_rk", k17_k30_tm)):
         next(e for e in kernels if e["name"] == name)["us"] = {
             f"{case} {dt}": v for (kk, case, dt), v in tm.items() if kk == k}
     for name in ("halo_thermal", *THERMAL_NAMES):  # 28 only against a parent

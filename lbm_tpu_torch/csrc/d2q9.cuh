@@ -141,14 +141,16 @@ inline cudaError_t launch_grid(dim3 grid, int threads, size_t smem, cudaStream_t
 }
 
 // Launches KERNEL(args...) over `n` cells, one thread a cell (kernels 2, 4,
-// 9, 23 and 24): `block_threads` threads a block, through `launch_grid`.
-template <auto KERNEL, typename... Args>
+// 9, 17, 23 and 24): `block_threads` threads a block, at most MAX_THREADS,
+// through `launch_grid`.
+template <auto KERNEL, int MAX_THREADS = 256, typename... Args>
 inline cudaError_t launch_cells(int64_t n, cudaStream_t stream, Args... args) {
   if (n == 0) return cudaSuccess;
   int sms = 0;
   cudaError_t e = sm_count(sms);
   if (e != cudaSuccess) return e;
-  const int threads = block_threads(n, sms);
+  const int fit = block_threads(n, sms);
+  const int threads = fit < MAX_THREADS ? fit : MAX_THREADS;
   const int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   return launch_grid<KERNEL>(dim3(static_cast<unsigned>(blocks)), threads, 0, stream, args...);

@@ -1328,7 +1328,7 @@ int launch(const void* in, void* out, long long R, long long C, const double* pa
 
 // The rows of a halo launch (csrc/halo.cuh) in global terms.
 template <typename T>
-Rows halo_rows(const lbm::halo::Launch<T>& L) {
+__host__ __device__ Rows halo_rows(const lbm::halo::Launch<T>& L) {
   return Rows{L.R, L.global(L.in_lo), L.global(L.in_hi), L.global(L.out.lo),
               L.global(L.out.hi)};
 }

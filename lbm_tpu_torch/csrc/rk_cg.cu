@@ -31,7 +31,20 @@
 // This source also holds kernel 30, lbm_halo_rk: the same step on a row
 // shard with halo inputs (csrc/halo.cuh, kernels/sharded.py), its memory
 // by global row (lbm::halo::ShardIO) as kernel 29's; it replaces
-// lbm_tpu/kernels/sharded_pallas.py:486 make_sharded_rk_step.  And kernel
+// lbm_tpu/kernels/sharded_pallas.py:486 make_sharded_rk_step.  Kernel 30
+// runs a call (one step) over up to MAX_SHARDS row shards of a card in one
+// launch (rk_halo_shards: blockIdx.z the shard, the shards' halo::Launch a
+// __grid_constant__ parameter), each reading its neighbours' 3 edge rows
+// in place from parallel/halo.py ring_rows' views at their own plane
+// strides, edge and interior shards in one launch as kernel 37's.
+// Measured (H100 80GB HBM3, 700 W; chip_smoke.py --k17-k30, CUDA graphs,
+// in turns; us a call at 1024x256 on 8 shards, then at 4096x2048): float32
+// 18.5 and 438, float64 26.2 and 674, against the first design's launch a
+// shard from exchange_rows' copies, 76.9 / 545 and 92.9 / 757.  Fed the
+// exchange's copies, the batch takes 50.4 us (float32); launched a shard
+// at a time, the reads in place 42.7.  Float32 is capped at five blocks an
+// SM (48 registers; uncapped 80 and three blocks: 19.2 us, 552); the
+// masked instance for every shard in float32 lost (20.0 us, 576 uncapped).  And kernel
 // 37, lbm_halo2d_rk: the step on rows x cols shards (csrc/halo2d.cuh,
 // kernels/sharded2d.py make_sharded2d_rk_step), its rows by global index
 // and its columns the shard's padded ones (mrtcg::BandCols: values read in
@@ -362,8 +375,8 @@ __global__ void __launch_bounds__(mc::THREADS)
   rk_tile<T, IO, EDGE>(io, rows, cols, p);
 }
 
-// The shards of one launch of kernel 37: up to MAX_SHARDS shards of one
-// device and type (kernels/_build.py MAX_SHARDS), one a grid layer
+// The shards of one launch of kernel 30 or 37: up to MAX_SHARDS shards of
+// one device and type (kernels/_build.py MAX_SHARDS), one a grid layer
 // (blockIdx.z), a __grid_constant__ kernel parameter.
 constexpr int MAX_SHARDS = 8;
 
@@ -404,6 +417,44 @@ __global__ void __launch_bounds__(mc::THREADS, sizeof(T) == 8 ? 3 : 1)
     rk_tile<T, IO, false>(io, rows, cols, p);
 }
 
+// Kernel 30's instance of type T: the resident blocks an SM its registers
+// must allow.  Three in float64, as kernel 12's (its shared memory allows no
+// more); five in float32, 48 registers where it would take 80 (3 blocks an
+// SM): 18.5 against 19.2 us a call at 1024x256 on 8 shards and 438 against
+// 552 us at 4096x2048 (H100).
+template <typename T>
+constexpr int KERNEL30_MIN_BLOCKS = sizeof(T) == 8 ? 3 : 5;
+
+// Kernel 30: one sweep on each of up to MAX_SHARDS row shards, each read in
+// place from its three buffers (ShardIO: the neighbours' edge rows at their
+// own plane strides, or the exchange's copies).  Tiles of shard blockIdx.z
+// cover its output rows; a block past them leaves at once.  Edge and
+// interior shards share the launch as kernel 37's do: a branch per block on
+// the shard's edge flag in float32, the masked instance for every shard in
+// float64 (an interior shard's band reaches neither wall row, so it gives
+// the mask-free one's bits).  MINB: KERNEL30_MIN_BLOCKS.
+template <typename T, int MINB>
+__global__ void __launch_bounds__(mc::THREADS, MINB)
+    rk_halo_shards(const __grid_constant__ Shards<lbm::halo::Launch<T>> shards,
+                   const Params<T> p) {
+  using IO = lbm::halo::ShardIO<T>;
+  const lbm::halo::Launch<T>& L = shards.s[blockIdx.z];
+  const mc::Rows rows = mc::halo_rows(L);
+  const mc::PeriodicCols cols{L.in.C};
+  if (rows.o_lo + static_cast<int64_t>(blockIdx.y) * mc::TY >= rows.o_hi ||
+      static_cast<int64_t>(blockIdx.x) * mc::TX >= cols.end())
+    return;
+  lbm::grid_wait();
+  const IO io{L.in, L.out, L.off};
+  if (L.edge || sizeof(T) == 8)
+    rk_tile<T, IO, true>(io, rows, cols, p);
+  else
+    rk_tile<T, IO, false>(io, rows, cols, p);
+}
+
+static_assert(sizeof(Shards<lbm::halo::Launch<double>>) + sizeof(Params<double>) <= 4096,
+              "kernel 30's parameters exceed 4 KB");
+
 template <typename T, typename IO, bool EDGE, typename Cols>
 int launch_rows(const IO& io, const mc::Rows& rows, const Cols cols, const double* params,
                 cudaStream_t stream) {
@@ -431,17 +482,37 @@ int launch(const void* in, void* out, long long R, long long C, const double* pa
                                              params, stream);
 }
 
-// Kernel 30: one sweep on a row shard with halo inputs, geometry `geom`.
+// Kernel 30: one sweep over `n` row shards of one device, their geometries
+// `geoms` back to back (csrc/halo.cuh Geom): the tile grid of the largest
+// output band, one grid layer a shard, through lbm::launch_grid (a
+// programmatic dependent launch in one wave).
 template <typename T>
-int launch_halo(const long long* geom, const double* params, cudaStream_t stream) {
-  const lbm::halo::Launch<T> L = lbm::halo::parse<T>(geom);
-  if (L.R < 4 || L.in.C < 3) return static_cast<int>(cudaErrorInvalidValue);
-  using IO = lbm::halo::ShardIO<T>;
-  const IO io{L.in, L.out, L.off};
-  const mc::Rows rows = mc::halo_rows(L);
-  const mc::PeriodicCols cols{L.in.C};
-  return L.edge ? launch_rows<T, IO, true>(io, rows, cols, params, stream)
-                : launch_rows<T, IO, false>(io, rows, cols, params, stream);
+int launch_halo(const long long* geoms, int n, const double* params, cudaStream_t stream) {
+  using L = lbm::halo::Launch<T>;
+  if (n < 1 || n > MAX_SHARDS) return static_cast<int>(cudaErrorInvalidValue);
+  Shards<L> shards;
+  int64_t gx = 0, gy = 0;
+  for (int b = 0; b < n; ++b) {
+    const L& s = shards.s[b] = lbm::halo::parse<T>(geoms + b * lbm::halo::NGEOM);
+    if (s.R < 4 || s.in.C < 3) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t height = s.out.hi - s.out.lo;
+    if (height <= 0) continue;
+    gx = (s.in.C + mc::TX - 1) / mc::TX > gx ? (s.in.C + mc::TX - 1) / mc::TX : gx;
+    gy = (height + mc::TY - 1) / mc::TY > gy ? (height + mc::TY - 1) / mc::TY : gy;
+  }
+  if (gx <= 0 || gy <= 0) return 0;
+  if (gx > 0x7fffffff || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  Params<T> p;
+  for (int i = 0; i < NPARAM; ++i) p.v[i] = static_cast<T>(params[i]);
+  constexpr int MINB = KERNEL30_MIN_BLOCKS<T>;
+  constexpr size_t smem = smem_bytes<T>();
+  static bool configured[lbm::MAX_DEVICES] = {};
+  const cudaError_t e =
+      lbm::smem_opt_in(rk_halo_shards<T, MINB>, static_cast<int>(smem), configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(n));
+  return static_cast<int>(lbm::launch_grid<rk_halo_shards<T, MINB>>(grid, mc::THREADS, smem,
+                                                                      stream, shards, p));
 }
 
 // Kernel 37: one sweep over `n` shards of one device, their parts
@@ -487,12 +558,14 @@ extern "C" int lbm_rk_cg(const void* in, void* out, long long R, long long C,
                 : launch<float>(in, out, R, C, params, s);
 }
 
-// Kernel 30: one sweep of the step on a row shard, geometry `geom`
+// Kernel 30: one sweep of the step on each of `n_shards` (1 to MAX_SHARDS)
+// row shards of one device, `geoms` their geometry arrays back to back
 // (csrc/halo.cuh), `params` those of lbm_rk_cg.
-extern "C" int lbm_halo_rk(const long long* geom, const double* params, int, int, int is_f64,
-                           void* stream) {
+extern "C" int lbm_halo_rk(const long long* geoms, const double* params, int n_shards, int, int,
+                           int is_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_halo<double>(geom, params, s) : launch_halo<float>(geom, params, s);
+  return is_f64 ? launch_halo<double>(geoms, n_shards, params, s)
+                : launch_halo<float>(geoms, n_shards, params, s);
 }
 
 // Kernel 37: one sweep of the step on each of `n_shards` (1 to MAX_SHARDS)
@@ -516,4 +589,16 @@ extern "C" int lbm_rk_describe(int is_f64, long long* out) {
                                    mc::THREADS, smem_bytes<double>(), out)
              : mc::describe_kernel(rk_cg_kernel<float, FlatIO<float>, true, PeriodicCols>,
                                    mc::THREADS, smem_bytes<float>(), out));
+}
+
+// Kernel 30's instance of type `is_f64` (rk_halo_shards) as the card reports
+// it, into out[0..4]: registers, local bytes a thread, shared memory,
+// threads and resident blocks per SM.
+extern "C" int lbm_rk_halo_describe(int is_f64, long long* out) {
+  return static_cast<int>(
+      is_f64
+          ? mc::describe_kernel(rk_halo_shards<double, KERNEL30_MIN_BLOCKS<double>>,
+                                mc::THREADS, smem_bytes<double>(), out)
+          : mc::describe_kernel(rk_halo_shards<float, KERNEL30_MIN_BLOCKS<float>>, mc::THREADS,
+                                smem_bytes<float>(), out));
 }

@@ -28,11 +28,14 @@
 // One thread per cell, neighbouring columns along a warp.  A thread that
 // needs a neighbour's values recomputes them from f_in: row 0 collides
 // row 1's scalar, column C-1 collides column C-2's scalar and takes its
-// start-of-step velocity.  The ADE inlet's updated velocity is local: on
-// rows 1..R-2 of column 0 the inlet rewrites all 8 moving f populations
-// from the cell's own post-collision values, and the rest population does
-// not move, so the cell's new f is known to its own thread (the geometry
-// keeps the rectangle off column 0).
+// start-of-step velocity.  Those neighbour loads are issued with the
+// cell's own 18, before any arithmetic, so one memory round trip serves
+// the whole cell (cell (0, C-1), which needs both neighbours, loads column
+// C-2's f after its collision).  The ADE inlet's updated velocity is
+// local: on rows 1..R-2 of column 0 the inlet rewrites all 8 moving f
+// populations from the cell's own post-collision values, and the rest
+// population does not move, so the cell's new f is known to its own thread
+// (the geometry keeps the rectangle off column 0).
 //
 // One writer per output entry.  Every wall rule writes entries of its own
 // cell.  A push into an entry that a rule writes is dropped (kernel 9's
@@ -42,6 +45,25 @@
 // R-1 bounce-back over the rectangle's first wall, and f at (0, C-1) and
 // (R-1, C-1) from the row rules over the outlet, as in lbm_tpu (which keeps
 // the reference's double write at :155-157).
+//
+// Launch: lbm::launch_cells (d2q9.cuh), as kernels 2, 4, 9, 23 and 24:
+// blocks sized to the card and a programmatic dependent launch where the
+// grid fits the card in one wave (each instance asks its own occupancy), a
+// plain one at many waves; lbm::grid_wait before the first load (the
+// caching allocator may hand step n+1's output the buffer step n still
+// reads), lbm::grid_release once the cell's loads are issued.  The index
+// type I is int32_t where the 18 planes' offsets fit it, else int64_t.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --k17-k30, CUDA
+// graphs, in turns, us a step): 256x320 float32 7.56 -> 4.93, float64
+// 10.08 -> 7.81; 4096x2048 float32 521 -> 475, float64 895 -> 894, against
+// the first design's plain launch of 256 threads with 64-bit indices and
+// the neighbour loads after the collisions.  Of the levers at 256x320 in
+// float32: the 64-bit indices' division r = cell / C cost 2.0 us (6.96),
+// the plain launch 0.50 (5.43), the neighbour loads after the collisions
+// 0.31 (5.23); 128-thread blocks lost 0.31 in float32 and won 0.78 in
+// float64 (128 registers a thread, 152 with 64-bit indices); handing
+// column C-2's values over by __shfl_up_sync (5.00) and computing the
+// owned() masks once from row and column flags (5.40) lost.
 //
 // Shapes: R, C >= 4, 1 <= R23 <= R-2, 1 <= C28 <= C38 <= C-2.
 //
@@ -81,25 +103,27 @@ __device__ __forceinline__ void bgk(const T x[9], T dens, T ux, T uy, const Para
   for (int k = 0; k < 9; ++k) out[k] = P.one_m_omega * x[k] + P.omega * eq[k];
 }
 
-// The scalar's post-collision populations at `cell` from its own f and g.
+// The scalar's post-collision populations gc of a cell from its g and its
+// velocity (ux, uy).
 template <typename T>
-__device__ __forceinline__ void scalar_collision(const T* __restrict__ fin, int64_t n,
-                                                 int64_t cell, const Params<T>& P,
+__device__ __forceinline__ void scalar_collision(const T g[9], T ux, T uy, const Params<T>& P,
                                                  T gc[9]) {
-  T f[9], g[9], rho, ux, uy;
-  lbm::load9(fin, n, cell, f);
-  lbm::load9(fin + 9 * n, n, cell, g);
-  velocity(f, rho, ux, uy);
   T conc = g[0];
 #pragma unroll
   for (int k = 1; k < 9; ++k) conc += g[k];
   bgk(g, conc, ux + P.w_s, uy + P.w_s, P, gc);
 }
 
+// The 9 planes of `cell` from `src` (plane stride n).
+template <typename T, typename I>
+__device__ __forceinline__ void load9(const T* __restrict__ src, I n, I cell, T out[9]) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = src[k * n + cell];
+}
+
 // The planes of (r, c) that a wall rule writes: f in bits 0-8, g in 9-17.
-template <typename T>
-__device__ __forceinline__ unsigned owned(int64_t r, int64_t c, int64_t R, int64_t C,
-                                          const Params<T>& P) {
+template <typename T, typename I>
+__device__ __forceinline__ unsigned owned(I r, I c, I R, I C, const Params<T>& P) {
   unsigned m = 0;
   const bool lane = r >= 1 && r <= R - 2;
   const bool walls = r >= P.R23 + 1;  // the rectangle's side walls, down from R23 + 1
@@ -122,41 +146,71 @@ __device__ __forceinline__ unsigned owned(int64_t r, int64_t c, int64_t R, int64
   return m | (g << 9);
 }
 
-template <typename T>
-__global__ void sediment_kernel(const T* __restrict__ fin, T* __restrict__ fout,
-                                int64_t R, int64_t C, Params<T> P) {
-  const int64_t n = R * C;
-  const int64_t cell = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n) return;
-  const int64_t r = cell / C;
-  const int64_t c = cell - r * C;
-  const bool lane = r >= 1 && r <= R - 2;
+// A one-period wrap in the kernel's index type (lbm::wrap's rule).
+template <typename I>
+__device__ __forceinline__ I wrap(I i, I n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
 
-  // 1. both collisions
-  T f[9], g[9], rho, ux, uy;
-  lbm::load9(fin, n, cell, f);
-  lbm::load9(fin + 9 * n, n, cell, g);
+// Kernel 17: one thread a cell, its index arithmetic in I.
+template <typename T, typename I>
+__global__ void sediment_kernel(const T* __restrict__ fin, T* __restrict__ fout, I R, I C,
+                                Params<T> P) {
+  const I n = R * C;
+  const I cell = static_cast<I>(blockIdx.x) * static_cast<I>(blockDim.x) +
+                 static_cast<I>(threadIdx.x);
+  if (cell >= n) return;
+  const I r = cell / C;
+  const I c = cell - r * C;
+  const bool lane = r >= 1 && r <= R - 2;
+  const bool outlet = c == C - 1;
+  // the neighbour whose values the cell takes: row 1's for row 0 (its
+  // scalar), column C-2's for column C-1 (its scalar and its velocity)
+  const bool near = r == 0 || outlet;
+  const I nb = r == 0 ? C + c : cell - 1;
+  lbm::grid_wait();
+
+  // 1. the loads, the neighbour's with the cell's own; the next step's
+  // launch is released once they are issued
+  T f[9], g[9], fn[9], gn[9];
+  load9(fin, n, cell, f);
+  load9(fin + 9 * n, n, cell, g);
+  if (near) {
+    load9(fin, n, nb, fn);
+    load9(fin + 9 * n, n, nb, gn);
+  }
+  lbm::grid_release();
+
+  // both collisions
+  T rho, ux, uy;
   velocity(f, rho, ux, uy);
-  T conc = g[0];
-#pragma unroll
-  for (int k = 1; k < 9; ++k) conc += g[k];
   T fc[9], gc[9];
   bgk(f, rho, ux, uy, P, fc);
-  bgk(g, conc, ux + P.w_s, uy + P.w_s, P, gc);
+  scalar_collision(g, ux, uy, P, gc);
 
-  // 2. the zero-gradient outflows on g (row 0 first, then column C-1)
-  if (r == 0)
-    scalar_collision(fin, n, C + c, P, gc);
-  else if (c == C - 1 && lane)
-    scalar_collision(fin, n, r * C + C - 2, P, gc);
+  // 2. the zero-gradient outflows on g (row 0 first, then column C-1), and
+  // the outlet's start-of-step velocity of column C-2
+  T ux2 = T(0), uy2 = T(0);
+  if (near) {
+    T rho2, vx, vy;
+    velocity(fn, rho2, vx, vy);
+    if (r == 0 || lane) scalar_collision(gn, vx, vy, P, gc);
+    ux2 = vx;
+    uy2 = vy;
+    if (r == 0 && outlet) {  // the corner: row 1 was its scalar's neighbour
+      T f2[9];
+      load9(fin, n, cell - 1, f2);
+      velocity(f2, rho2, ux2, uy2);
+    }
+  }
 
   // 3. the periodic push, less the entries a wall rule writes
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    const int64_t rd = lbm::wrap(r + lbm::cx(k), R);
-    const int64_t cd = lbm::wrap(c + lbm::cy(k), C);
+    const I rd = wrap<I>(r + lbm::cx(k), R);
+    const I cd = wrap<I>(c + lbm::cy(k), C);
     const unsigned m = owned(rd, cd, R, C, P);
-    const int64_t dst = rd * C + cd;
+    const I dst = rd * C + cd;
     if (!(m & (1u << k))) fout[k * n + dst] = fc[k];
     if (!(m & (1u << (9 + k)))) fout[(9 + k) * n + dst] = gc[k];
   }
@@ -167,10 +221,7 @@ __global__ void sediment_kernel(const T* __restrict__ fin, T* __restrict__ fout,
 #pragma unroll
     for (int k = 1; k < 9; ++k) fo[lbm::opp(k)] = -fc[k] + P.abb_in[k];
   }
-  if (c == C - 1) {  // outlet, from the start-of-step u of columns C-1, C-2
-    T f2[9], rho2, ux2, uy2;
-    lbm::load9(fin, n, r * C + C - 2, f2);
-    velocity(f2, rho2, ux2, uy2);
+  if (outlet) {  // outlet, from the start-of-step u of columns C-1, C-2
     const T uwx = T(1.5) * ux - T(0.5) * ux2;
     const T uwy = T(1.5) * uy - T(0.5) * uy2;
 #pragma unroll
@@ -234,21 +285,76 @@ __global__ void sediment_kernel(const T* __restrict__ fin, T* __restrict__ fout,
 }
 
 template <typename T>
-int launch(const void* fin, void* fout, long long R, long long C, const double* d,
-           const int* geom, cudaStream_t stream) {
+Params<T> params(const double* d, const int* geom) {
   Params<T> P;
   P.omega = T(d[0]); P.one_m_omega = T(d[1]); P.w_s = T(d[2]); P.c_w = T(d[3]);
   for (int k = 0; k < 9; ++k) P.abb_in[k] = T(d[4 + k]);
   P.R23 = geom[0]; P.C28 = geom[1]; P.C38 = geom[2]; P.inlet_rows = geom[3];
+  return P;
+}
+
+// Whether the kernel's offsets, up to 18 planes of n cells, fit int32_t.
+constexpr bool fits32(int64_t n) { return n <= 0x7fffffff / 18; }
+
+// The most threads a block of type T takes (lbm::launch_cells sizes it from
+// there): 128 in float64, where a thread holds 128 registers and blocks of
+// 128 ran 256x320 in 7.8 us against 8.6 for blocks of 256 (H100).
+template <typename T>
+constexpr int KERNEL17_MAX_THREADS = sizeof(T) == 8 ? 128 : 256;
+
+// Kernel 17 through lbm::launch_cells: blocks sized to the card (at most
+// KERNEL17_MAX_THREADS), a programmatic dependent launch where the grid
+// fits it in one wave (each instance with its own occupancy in
+// launch_cells' cache); 32-bit indices where the state's offsets fit them.
+template <typename T>
+int launch(const void* fin, void* fout, long long R, long long C, const double* d,
+           const int* geom, cudaStream_t stream) {
+  const Params<T> P = params<T>(d, geom);
   if (R < 4 || C < 4 || P.R23 < 1 || P.R23 > R - 2 || P.C28 < 1 || P.C28 > P.C38 ||
       P.C38 > C - 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n = static_cast<int64_t>(R) * C;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  sediment_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), R, C, P);
-  return static_cast<int>(cudaGetLastError());
+  const T* in = static_cast<const T*>(fin);
+  T* out = static_cast<T*>(fout);
+  constexpr int MAXT = KERNEL17_MAX_THREADS<T>;
+  if (fits32(n))
+    return static_cast<int>(lbm::launch_cells<sediment_kernel<T, int32_t>, MAXT>(
+        n, stream, in, out, static_cast<int32_t>(R), static_cast<int32_t>(C), P));
+  return static_cast<int>(lbm::launch_cells<sediment_kernel<T, int64_t>, MAXT>(
+      n, stream, in, out, static_cast<int64_t>(R), static_cast<int64_t>(C), P));
+}
+
+// The instance of type T and index type I at n cells as the card reports
+// it, into out[0..6]: registers, local bytes a thread, threads a block,
+// resident blocks per SM, blocks, 1 where the grid fits the card in one
+// wave (launch_cells then makes it a programmatic dependent launch), and the
+// index bits.
+template <typename T, typename I>
+int describe_instance(long long n, long long* out) {
+  const auto kernel = sediment_kernel<T, I>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  int sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = lbm::sm_count(sms);
+  const int fit = lbm::block_threads(n, sms);
+  const int threads = fit < KERNEL17_MAX_THREADS<T> ? fit : KERNEL17_MAX_THREADS<T>;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                          threads, 0);
+  const long long blocks = (n + threads - 1) / threads;
+  out[0] = a.numRegs;
+  out[1] = static_cast<long long>(a.localSizeBytes);
+  out[2] = threads;
+  out[3] = per_sm;
+  out[4] = blocks;
+  out[5] = blocks <= static_cast<long long>(per_sm) * sms;
+  out[6] = 8 * static_cast<long long>(sizeof(I));
+  return static_cast<int>(e);
+}
+
+// The instance that `launch` takes for type T at n cells.
+template <typename T>
+int describe(long long n, long long* out) {
+  return fits32(n) ? describe_instance<T, int32_t>(n, out) : describe_instance<T, int64_t>(n, out);
 }
 
 }  // namespace
@@ -265,4 +371,10 @@ extern "C" int lbm_sediment(const void* fin, void* fout, long long R, long long 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch<double>(fin, fout, R, C, consts, geom, s)
                 : launch<float>(fin, fout, R, C, consts, geom, s);
+}
+
+// Kernel 17's instance of type `is_f64` launched over `n` cells, as the
+// card reports it, into out[0..6] (describe_instance above).
+extern "C" int lbm_sediment_describe(long long n, int is_f64, long long* out) {
+  return is_f64 ? describe<double>(n, out) : describe<float>(n, out);
 }

@@ -30,8 +30,8 @@ Local steps, one per family, ``local(f_loc, top, bot, off, edge)``:
     later sweeps a padded scratch slab, and the last one writes the shard's
     rows only.  Sweep j of s computes the band of rows that the remaining
     s - j sweeps still need, ``rows_per_sweep * (s - j)`` beyond the shard on
-    each side, clipped to the grid for the wall families.  Kernels 32 and
-    33 run one launch a sweep over up to ``MAX_SHARDS`` shards of a card
+    each side, clipped to the grid for the wall families.  Kernels 30, 32
+    and 33 run one launch a sweep over up to ``MAX_SHARDS`` shards of a card
     instead (``launch_sweeps_shards``), and their first sweep reads a
     neighbour's edge rows in place where the neighbour shares the card
     (parallel/halo.py ``ring_rows``): no exchange copy on one card.
@@ -59,7 +59,8 @@ the single-device kernel's):
     make_sharded_mrtcg_reduced_step; csrc/mrtcg_reduced.cu on kernel 6's
     engines, csrc/mrtcg.cuh);
   * kernel 30, ``HALO_RK``: the RK mixture, one sweep per exchange (:486
-    make_sharded_rk_step; csrc/rk_cg.cu, kernel 12's);
+    make_sharded_rk_step; csrc/rk_cg.cu, kernel 12's), one launch a call
+    over a card's shards;
   * kernel 31, ``HALO_MRTCG_FULL``: the full per-colour MRT-CG state, both
     modes (:406 make_sharded_mrtcg_step; csrc/mrtcg_full.cu on kernel 8's
     engines);
@@ -77,7 +78,7 @@ The rows x cols steps (kernels 34-38) are kernels/sharded2d.py.
 Bound: device-memory bytes, those of the family's single-device kernel per
 sweep over the band it computes, plus the halo reads of each exchange
 (chip_smoke.py counts them); the exchange itself is 2 n copies of
-``planes * halo * C`` values (kernels 27, 32 and 33: none between shards of
+``planes * halo * C`` values (kernels 27, 30, 32 and 33: none between shards of
 one card; 27 reads and writes its shards once a call).
 
 ``substeps="auto"`` resolves to the deepest cadence the family's strip
@@ -137,10 +138,10 @@ HALO_COLLIDE_STREAM = {kind: _build.CudaKernel(f"lbm_halo_{kind}", BLOCK_ARGS)
                        for kind in COLLIDE_KINDS}                           # kernel 27
 HALO_THERMAL = _build.CudaKernel("lbm_halo_thermal", _ARGS)                 # kernel 28
 HALO_MRTCG = _build.CudaKernel("lbm_halo_mrtcg_reduced", _ARGS)             # kernel 29
-HALO_RK = _build.CudaKernel("lbm_halo_rk", _ARGS)                           # kernel 30
 HALO_MRTCG_FULL = _build.CudaKernel("lbm_halo_mrtcg_full", _ARGS)           # kernel 31
 # (geoms, params, n_shards, i0, i1, is_f64, stream): one sweep over a card's shards
 SHARDS_ARGS = [*_ARGS[:2], ctypes.c_int, *_ARGS[2:]]
+HALO_RK = _build.CudaKernel("lbm_halo_rk", SHARDS_ARGS)                     # kernel 30
 HALO_SHAN_CHEN = _build.CudaKernel("lbm_halo_shan_chen", SHARDS_ARGS)       # kernel 32
 HALO_D3Q19 = _build.CudaKernel("lbm_halo_d3q19", SHARDS_ARGS)               # kernel 33
 
@@ -303,7 +304,7 @@ def _sweep_geoms(f, top, bot, off: int, edge: bool, R: int, *, substeps: int,
 def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, R: int, *,
                   substeps: int, rows_per_sweep: int, walls: bool, params, i0: int = 0,
                   i1: int = 0) -> torch.Tensor:
-    """``substeps`` launches of a halo-input kernel (28-31) on the shard
+    """``substeps`` launches of a halo-input kernel (28, 29, 31) on the shard
     ``f`` with its halos ``top`` and ``bot`` (``(planes, halo, C)`` each;
     ``_sweep_geoms``); returns the shard's new rows in a fresh buffer (``f``
     is never written).  Raises on a tensor the kernel does not take and on
@@ -320,7 +321,7 @@ def launch_sweeps(kernel: _build.CudaKernel, f, top, bot, off: int, edge: bool, 
 
 def launch_planned_shards(kernel: _build.CudaKernel, shards, plan, *, substeps: int, params,
                           ints=(), plain) -> list:
-    """``substeps`` sweeps of a batched halo-input kernel (32, 33, 35, 36) on
+    """``substeps`` sweeps of a batched halo-input kernel (30, 32, 33, 35, 36) on
     ``shards``, a list of argument tuples whose first entry is the shard: a
     CPU shard's through ``plain`` (which takes the same tuple), the others'
     one launch a sweep over up to ``MAX_SHARDS`` shards of one device and
@@ -354,7 +355,7 @@ def launch_planned_shards(kernel: _build.CudaKernel, shards, plan, *, substeps: 
 def launch_sweeps_shards(kernel: _build.CudaKernel, shards, *, substeps: int,
                          rows_per_sweep: int, walls: bool, R: int, params, ints=(),
                          plain) -> list:
-    """``substeps`` sweeps of a batched row-shard kernel (32, 33) on
+    """``substeps`` sweeps of a batched row-shard kernel (30, 32, 33) on
     ``shards``, a list of (f, top, bot, off, edge), through
     ``launch_planned_shards``: one launch a sweep over a card's shards, CPU
     shards through ``plain``.  A shard's sweeps are ``launch_sweeps``'
@@ -630,17 +631,26 @@ def make_sharded_rk_step(mesh: Mesh, R: int, C: int, *, r_alpha: float, b_alpha:
                          r_nu: float, b_nu: float, sigma: float, beta: float = 0.7,
                          gravity=(0.0, 0.0), dtype: torch.dtype = torch.float32):
     """The RK mixture step with rows sharded: S (11, R, C) = [f (9), r_rho,
-    b_rho] shards -> the same, one exchange of HALO rows per step (lbm_tpu
-    sharded_pallas.py:486).  Kernel 30 on CUDA shards."""
+    b_rho] shards -> the same, one step per call (lbm_tpu
+    sharded_pallas.py:486).  Kernel 30 on CUDA shards: one launch a call
+    over up to MAX_SHARDS shards of a card (``launch_sweeps_shards``),
+    reading the neighbours' edge rows in place where they share the card
+    (``ring_rows``); CPU shards run the plain version; ``step.plain`` the
+    plain version after ``exchange_rows`` on any device."""
     if R < 4 or C < 3:
         raise ValueError(f"the RK step takes R >= 4 and C >= 3, got {R}x{C}")
     kw = dict(r_alpha=r_alpha, b_alpha=b_alpha, r_nu=r_nu, b_nu=b_nu, sigma=sigma, beta=beta,
               gravity=gravity)
-    params = _build.c_doubles(rk.kernel_params(**kw))
-    launch = functools.partial(launch_sweeps, HALO_RK, R=R, substeps=1,
-                               rows_per_sweep=ROWS_PER_SWEEP["rk"], walls=True, params=params)
-    local = make_local_halo_body_step(R, rk.make_plain_step(**kw), launch, 1)
-    return make_sharded_body_step(mesh, rk.PLANES, R, C, local, dtype)
+    body = rk.make_plain_step(**kw)
+
+    def plain(f, top, bot, off, edge):
+        return plain_sweeps(body, f, top, bot, off, R, 1)
+
+    batched = functools.partial(
+        launch_sweeps_shards, HALO_RK, substeps=1, rows_per_sweep=ROWS_PER_SWEEP["rk"],
+        walls=True, R=R, params=_build.c_doubles(rk.kernel_params(**kw)), ints=(0, 0),
+        plain=plain)
+    return make_sharded_body_step(mesh, rk.PLANES, R, C, plain, dtype, batched=batched)
 
 
 def _per_colour(step):

@@ -765,11 +765,17 @@ def test_ibm_forcing_kernel_matches_plain(cuda, grid, circle, dtype, reference_w
     (torch.float64, (64, 96), (-30, 50, 62, 16)),
     (torch.float64, (24, 20), (10, 5, 9, 0)),
     (torch.float32, (256, 320), (-151, 200, 250, 50)),
+    (torch.float64, (256, 320), (-151, 200, 250, 50)),
+    (torch.float32, (4096, 2048), (-151, 200, 250, 50)),
 ])
 def test_sediment_kernel_matches_plain(cuda, dtype, shape, geom):
     """Kernel 17, 4 steps per call (4 launches) from the scene's initial
-    state with noise, against its plain version (bit-identical), twice."""
-    from lbm_tpu_torch.kernels import sediment
+    state with noise, against its plain version, bit for bit, twice: at the
+    scene's 256x320 in both types (one wave in float32: dependent launches),
+    on small grids and at 4096x2048 (many waves: plain launches); a launch
+    is dependent exactly where lbm_sediment_describe finds the grid in one
+    wave."""
+    from lbm_tpu_torch.kernels import _build, sediment
     from lbm_tpu_torch.scenes.obstacles import sediment_initial_state
 
     R, C = shape
@@ -781,15 +787,55 @@ def test_sediment_kernel_matches_plain(cuda, dtype, shape, geom):
     S = (S * torch.as_tensor(rng.uniform(0.97, 1.03, S.shape), dtype=dtype,
                              device=cuda)).contiguous()
     step = sediment.make_sediment_fused_step(R, C, substeps=4, dtype=dtype, **kw)
-    before = sediment.SEDIMENT.launches
+    step(S)  # the occupancy read before the count starts
+    lib = _build.library()
+    lib.lbm_dependent_launches.restype = ctypes.c_longlong
+    lib.lbm_sediment_describe.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    shape_of = (ctypes.c_longlong * 7)()
+    assert lib.lbm_sediment_describe(R * C, int(dtype == torch.float64), shape_of) == 0
+    before, pdl = sediment.SEDIMENT.launches, lib.lbm_dependent_launches()
     got, again = step(S), step(S)
     torch.cuda.synchronize()
     assert sediment.SEDIMENT.launches - before == 8
+    assert lib.lbm_dependent_launches() - pdl == (8 if shape_of[5] else 0)
+    if R * C <= 1 << 13 or R * C >= 1 << 22:  # under 100 blocks, or many waves
+        assert shape_of[5] == (R * C <= 1 << 13)
     want = S
     for _ in range(4):
         want = sediment.plain_sediment_step(want, **dict(kw, R23=R23 % R))
     assert torch.equal(got, again)
-    assert got.is_cuda and (got - want).abs().max().item() <= TOL[dtype]
+    assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sediment_kernel_past_31_bit_offsets(cuda):
+    """Kernel 17 on a float32 state of 18 x R x 4096 entries, just past
+    2^31 (8.6 GB a buffer): the 64-bit instance.  One step; its rows 1-5
+    and last 6 rows bit for bit the plain step of the state's first and
+    last 8 rows (R23 = R - 3, one inlet row).  A strip's own walls write
+    only their own cells, and its rectangle top (the head strip's row 6)
+    pushes only post-collision values.  Left out: row 0, whose scalar takes
+    row R-1's push (the wrap), and the tail strip's row 1, which takes its
+    row 0's pushes of the scalar that row 0 took from row 1."""
+    from lbm_tpu_torch.kernels import sediment
+
+    C, h = 4096, 8
+    R = (2 ** 31 - 1) // (18 * C) + 1
+    assert 18 * R * C > 2 ** 31 - 1
+    kw = dict(omega=1 / 0.55, u_in=0.02, w_s=3e-3, C_w=1e-3, C28=200, C38=250, inlet_rows=1)
+    gen = torch.Generator(device=cuda).manual_seed(R)
+    S = torch.empty((18, R, C), dtype=torch.float32, device=cuda)
+    w = [float(x) for x in (4 / 9, *[1 / 9] * 4, *[1 / 36] * 4)]
+    for k in range(18):  # noisy populations, a plane at a time
+        S[k].uniform_(0.97, 1.03, generator=gen).mul_(w[k % 9] * (1.0 if k < 9 else 1e-3))
+    before = sediment.SEDIMENT.launches
+    got = sediment.make_sediment_fused_step(R, C, R23=R - 3, **kw)(S)
+    torch.cuda.synchronize()
+    assert sediment.SEDIMENT.launches - before == 1
+    head = sediment.plain_sediment_step(S[:, :h].contiguous(), R23=h - 2, **kw)[:, 1:h - 2]
+    tail = sediment.plain_sediment_step(S[:, R - h:].contiguous(), R23=h - 3, **kw)[:, 2:]
+    del S
+    assert torch.equal(got[:, 1:h - 2], head) and torch.equal(got[:, R - h + 2:], tail)
 
 
 @pytest.mark.cuda
@@ -1418,9 +1464,9 @@ def _sharded_case(family, R, C, dtype, device, n, s):
 def test_sharded_kernels_match_single_device(cuda, family, n, s, dtype):
     """Kernels 27-30 on n shards of one card, two calls of s steps: bit for
     bit the single-device kernel of their family, within TOL of the plain
-    sharded version, and bit-identical run twice.  Kernels 28-30 launch once
-    a shard and sweep, kernel 27 once a call over up to MAX_SHARDS shards of
-    the card."""
+    sharded version, and bit-identical run twice.  Kernels 28 and 29 launch
+    once a shard and sweep, kernels 27 and 30 once a call over up to
+    MAX_SHARDS shards of the card."""
     from lbm_tpu_torch.parallel import mesh as pm
 
     R, C = (192, 40) if family in ("mrtcg", "csf", "rk") else (64, 72)
@@ -1431,7 +1477,8 @@ def test_sharded_kernels_match_single_device(cuda, family, n, s, dtype):
     again = step(step(pm.shard_state(mesh, x))).gather()
     plain = step.plain(step.plain(pm.shard_state(mesh, x))).gather()
     torch.cuda.synchronize()
-    per_call = -(-n // 8) if family in ("bgk", "kbc", "les", "trt", "power_law") else n * s
+    per_call = -(-n // 8) if family in ("bgk", "kbc", "les", "trt", "power_law", "rk") \
+        else n * s
     assert sum(k.launches for k in kernels) - sum(before) == 4 * per_call
     want = single(single(x))
     assert got.is_cuda and torch.equal(got, want) and torch.equal(got, again)
@@ -1965,6 +2012,80 @@ def test_kernel_37_one_launch_a_call_and_no_copy(cuda, monkeypatch, dtype, mesh_
     assert torch.equal(ys.gather(), step(step(xs)).gather())
 
 
+# --- kernel 30 redesigned: one launch a call over a card's row shards, -------------
+# --- the neighbours' edge rows read in place ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,R,C", [(8, 1024, 256), (4, 64, 40), (16, 192, 40)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_30_one_launch_a_call_and_no_copy(cuda, monkeypatch, dtype, n, R, C):
+    """Kernel 30 on n row shards of one card (rk_rayleigh_taylor's 1024x256
+    on 8; 16 shards: two launches), edge and interior ranks in one launch: a
+    call is one launch over up to MAX_SHARDS shards, makes no exchange copy
+    (``step.plain`` makes its exchange's), gives kernel 12's bits over 3
+    calls (0.0), within TOL of the plain sharded version, and a CUDA graph
+    of two calls gives the eager run's bits."""
+    from lbm_tpu_torch.kernels import _build, rk
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    copies, copy_to = [], halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(1) or copy_to(src, dev))
+    mesh = pm.make_mesh([cuda] * n)
+    step = ksh.make_sharded_rk_step(mesh, R, C, dtype=dtype, **RK_KW)
+    x = _rk_state(R, C, dtype, cuda)
+    before = ksh.HALO_RK.launches
+    eager = step(step(step(pm.shard_state(mesh, x)))).gather()
+    torch.cuda.synchronize()
+    assert ksh.HALO_RK.launches - before == 3 * -(-n // _build.MAX_SHARDS)
+    assert copies == []
+    single = rk.make_rk_fused_step(R, C, dtype=dtype, substeps=3, **RK_KW)
+    assert torch.equal(eager, single(x))
+    plain = step.plain(step.plain(step.plain(pm.shard_state(mesh, x)))).gather()
+    assert copies and (eager - plain).abs().max().item() <= TOL[dtype]
+    xs = pm.shard_state(mesh, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(xs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = step(step(xs))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(ys.gather(), step(step(xs)).gather())
+
+
+@pytest.mark.cuda
+def test_kernel_30_with_a_shard_on_a_second_card(cuda, monkeypatch):
+    """Kernel 30 with three row shards on card 0 and one on card 1: each
+    card's shards in their own launch, copies only between the cards,
+    kernel 12's bits on card 0, in float64."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    from lbm_tpu_torch.kernels import rk
+    from lbm_tpu_torch.kernels import sharded as ksh
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.parallel import mesh as pm
+
+    copies, copy_to = [], halo.copy_to
+    monkeypatch.setattr(halo, "copy_to", lambda src, dev: copies.append(
+        (src.device, torch.device(dev))) or copy_to(src, dev))
+    R, C, f64 = 64, 40, torch.float64
+    devices = [torch.device("cuda", 0)] * 3 + [torch.device("cuda", 1)]
+    mesh = pm.make_mesh(devices)
+    step = ksh.make_sharded_rk_step(mesh, R, C, dtype=f64, **RK_KW)
+    x = _rk_state(R, C, f64, devices[0])
+    before = ksh.HALO_RK.launches
+    got = step(pm.shard_state(mesh, x)).gather(devices[0])
+    torch.cuda.synchronize()
+    assert ksh.HALO_RK.launches - before == 2
+    assert copies and all(a != b for a, b in copies)
+    assert torch.equal(got, rk.make_rk_fused_step(R, C, dtype=f64, **RK_KW)(x))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(256, 128), (4096, 2048), (40, 20), (5, 7)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -2340,8 +2461,8 @@ def test_rk_kernel_matches_plain_bit_for_bit(cuda, dtype, R, C):
                                   ("rows x cols", (2, 4))])
 def test_rk_halo_kernels_match_kernel_12(cuda, dtype, case):
     """Kernels 30 (row shards) and 37 (rows x cols shards), two calls: 0.0
-    against kernel 12; kernel 30 a launch a shard and call, kernel 37 a
-    launch a call over up to MAX_SHARDS shards of the card."""
+    against kernel 12; each a launch a call over up to MAX_SHARDS shards of
+    the card."""
     from lbm_tpu_torch.parallel import mesh as pm
 
     kind, n = case
@@ -2356,7 +2477,7 @@ def test_rk_halo_kernels_match_kernel_12(cuda, dtype, case):
     before = sum(k.launches for k in kernels)
     got = step(step(pm.shard_state(mesh, x))).gather().reshape(x.shape)
     torch.cuda.synchronize()
-    assert sum(k.launches for k in kernels) - before == 2 * (n if kind == "rows" else 1)
+    assert sum(k.launches for k in kernels) - before == 2
     assert torch.equal(got, single(single(x)))
 
 
